@@ -1,0 +1,149 @@
+"""Basic blocks: Linear with torch-default init, GEGLU FeedForward, TokenShift,
+SqueezeExcite and Residual (PyTorch counterpart of
+``magvit2_pytorch_tpu/ops/basic.py``).
+
+Parameters keep the reference's PyTorch layouts and ``state_dict`` names
+(weights ``(out, in)``; the reference's 1x1 convs are ``Linear`` over the
+trailing channel axis, which is the same product on channels-last tensors).
+Every parameterised module fills its own tensors in ``init_parameters(gen)``
+from an explicit ``torch.Generator``, so a seed fixes the weights whatever
+the device.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from magvit2_pytorch_tpu_torch.ops.norms import RMSNorm
+
+
+def uniform_(t: torch.Tensor, bound: float, gen: torch.Generator):
+    with torch.no_grad():
+        t.copy_(torch.rand(t.shape, generator=gen) * (2 * bound) - bound)
+
+
+def torch_default_init_(weight, bias, fan_in: int, gen: torch.Generator):
+    """torch's ``kaiming_uniform_(a=sqrt(5))`` default for convs and linears:
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight and bias alike."""
+    bound = 1.0 / math.sqrt(max(fan_in, 1))
+    uniform_(weight, bound, gen)
+    if bias is not None:
+        uniform_(bias, bound, gen)
+
+
+class Linear(nn.Module):
+    """``y = x W^T + b`` with W ``(dim_out, dim_in)``; the weights are cast to
+    the input's dtype at use, like the JAX package's ``Linear``."""
+
+    def __init__(self, dim_in: int, dim_out: int, bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(dim_out, dim_in))
+        self.bias = nn.Parameter(torch.empty(dim_out)) if bias else None
+
+    def init_parameters(self, gen: torch.Generator):
+        torch_default_init_(self.weight, self.bias, self.weight.shape[1], gen)
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class GEGLU(nn.Module):
+    """``gelu(gate) * x`` over the halves of the channel axis. ``jax.nn.gelu``
+    defaults to the tanh approximation, so this one does too."""
+
+    def forward(self, x):
+        x, gate = x.chunk(2, dim=-1)
+        return F.gelu(gate, approximate='tanh') * x
+
+
+class FeedForward(nn.Module):
+    """RMSNorm -> 1x1 GEGLU MLP, inner dim ``int(dim * mult * 2 / 3)``
+    (reference magvit2_pytorch.py:471-508)."""
+
+    def __init__(self, dim: int, mult: float = 4.0):
+        super().__init__()
+        dim_inner = int(dim * mult * 2 / 3)
+        self.norm = RMSNorm(dim)
+        self.net = nn.Sequential(
+            Linear(dim, dim_inner * 2), GEGLU(), Linear(dim_inner, dim))
+
+    def forward(self, x):
+        return self.net(self.norm(x))
+
+
+class TokenShift(nn.Module):
+    """The second half of the channels moves one frame later (zero frame in
+    front, last frame dropped); ``fn`` runs on the result (reference
+    magvit2_pytorch.py:244-254). Input ``(B, T, H, W, C)``."""
+
+    def __init__(self, fn: nn.Module):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, x):
+        x_main, x_shift = x.chunk(2, dim=-1)
+        x_shift = F.pad(x_shift, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1]
+        return self.fn(torch.cat((x_main, x_shift), dim=-1))
+
+
+class SqueezeExcite(nn.Module):
+    """Global-context squeeze-excite (reference magvit2_pytorch.py:194-240):
+    softmax over (h, w) of a 1x1 logit map, in float32, gives each frame a
+    weighted mean of its pixels; a leaky-relu MLP and a sigmoid turn that
+    into per-channel gates. The last layer starts at weight 0 and bias -10,
+    so the block starts near zero output."""
+
+    def __init__(self, dim: int, dim_hidden_min: int = 16,
+                 init_bias: float = -10.0):
+        super().__init__()
+        dim_hidden = max(dim_hidden_min, dim // 2)
+        self.init_bias = init_bias
+        self.to_k = Linear(dim, 1)
+        # reference leaky_relu(p=0.1), magvit2_pytorch.py:117-118
+        self.net = nn.Sequential(
+            Linear(dim, dim_hidden), nn.LeakyReLU(0.1),
+            Linear(dim_hidden, dim), nn.Sigmoid())
+
+    def init_parameters(self, gen: torch.Generator):
+        # runs after the children's own init (see init_module_parameters)
+        with torch.no_grad():
+            self.net[2].weight.zero_()
+            self.net[2].bias.fill_(self.init_bias)
+
+    def forward(self, x):
+        # x: (..., h, w, c); the context is per frame
+        *lead, h, w, c = x.shape
+        k = self.to_k(x).float().reshape(*lead, h * w)
+        attn = torch.softmax(k, dim=-1).to(x.dtype)
+        # (..., 1, hw) @ (..., hw, c): float32 accumulation, one rounding to
+        # the working dtype — the JAX einsum with an f32 result then a cast
+        context = torch.matmul(attn.unsqueeze(-2), x.reshape(*lead, h * w, c))
+        gates = self.net(context.reshape(*lead, 1, 1, c))
+        return gates * x
+
+
+class Residual(nn.Module):
+    """``fn(x) + x`` (reference magvit2_pytorch.py:167-174)."""
+
+    def __init__(self, fn: nn.Module):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, x):
+        return self.fn(x) + x
+
+
+def init_module_parameters(module: nn.Module, gen: torch.Generator):
+    """Fill every parameter of ``module`` from ``gen``: children first, in
+    registration order, then the parent's ``init_parameters`` (which may
+    override a child's, as SqueezeExcite and the upsamplers do)."""
+    for child in module.children():
+        init_module_parameters(child, gen)
+    own = getattr(type(module), 'init_parameters', None)
+    if own is not None:
+        module.init_parameters(gen)

@@ -1,0 +1,29 @@
+"""Hand-written CUDA kernels (``csrc/``) and their plain PyTorch versions.
+
+Each wrapper dispatches on the tensor's device: a CPU tensor takes the plain
+version, a CUDA tensor launches the kernel (built for ``sm_90a`` at first
+use, see ``_build``) or raises. Each launch adds one to the wrapper's count
+in ``launch_counts()``.
+"""
+
+from __future__ import annotations
+
+from magvit2_pytorch_tpu_torch.ops.kernels import (
+    axial_attention,
+    taylor_attention,
+)
+
+_COUNTERS = (axial_attention.LAUNCHES, taylor_attention.LAUNCHES)
+
+
+def launch_counts() -> dict:
+    out = {}
+    for c in _COUNTERS:
+        out.update(c)
+    return out
+
+
+def reset_launch_counts():
+    for c in _COUNTERS:
+        for k in c:
+            c[k] = 0
