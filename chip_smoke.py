@@ -3,34 +3,48 @@
 
     python3 chip_smoke.py                    # all phases, as a user would run it
     python3 chip_smoke.py --out DIR          # also write the compiler log there
-    python3 chip_smoke.py --out DIR --profile   # and a device-time profile
+    python3 chip_smoke.py --out DIR --profile   # and device-time profiles
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
 1. device: require CUDA; print ``nvidia-smi`` name and power limit.
-2. build: compile ``magvit2_pytorch_tpu_torch/csrc`` with nvcc for sm_90a.
+2. build: compile ``magvit2_pytorch_tpu_torch/csrc`` with nvcc for sm_90a,
+   one nvcc per source, all started together.
 3. each kernel against its plain PyTorch version on the card, at the
    flagship shapes (README config, batch 8): float32 with TF32 off, and
    bfloat16 against the plain version computed in float32 on the same
-   inputs; median times over 20 runs with CUDA events.
-4. flagship roundtrip, bfloat16, batch 8, seeded random weights, through
-   ``VideoTokenizer.tokenize`` then ``decode_from_code_indices``: shapes,
-   finite output, and every kernel launched exactly twice (encoder and
-   decoder) per the launch counters.
-5. float32 roundtrip at batch 1, TF32 off, card (kernels) against CPU (plain
-   versions) with the same weights: code bits may flip only where the CPU's
-   decision margin |z| <= 5e-3 and for <= 1% of bits; decoding the same
-   codes must agree within 1e-3.
-6. roundtrip throughput, bfloat16, frames/sec by the slope of chained runs
-   (as ``bench.py``), beside the card's name and power limit.
+   inputs; median times over 20 runs with CUDA events, the least time the
+   card could take for the same work (bound), and one PyTorch library call
+   for the same step where there is one. The fused ResidualUnit (B4) runs
+   at every RU stage shape of the flagship and B5 at the packed stem shape,
+   with live SqueezeExcite gates, plus a batch-boundary case. Every number
+   is per launch at one shape; B4's kernels row is its
+   (8, 20, 16, 16, 512) stage and lists every stage under ``stages``.
+4. default flagship roundtrip, bfloat16, batch 8, seeded random weights,
+   through ``VideoTokenizer.tokenize`` then ``decode_from_code_indices``:
+   shapes, finite output, and launches per roundtrip: 2 of each attention
+   kernel, 0 of B4 and B5, and no ResidualUnit kernel call by shape; then
+   frames/sec by the slope of chained runs (as ``bench.py``).
+5. fused flagship roundtrip: the same with ``lane_pack=True`` and
+   ``MAGVIT2_TPU_FUSED_RU_WIDE_DIMS=64,128,256,512`` (set only inside the
+   phase): 2 launches of each attention kernel, 20 of B4, 2 of B5, with
+   B4's calls by input shape as ``RU_STAGES`` says; a second, warm
+   roundtrip times every B4 and B5 call with CUDA events
+   (``fused_roundtrip_ms``); then frames/sec.
+6. float32 at batch 1, TF32 off, live SqueezeExcite gates: both card paths
+   (default and fused) against one CPU reference with the same weights:
+   code bits may flip only where the CPU's decision margin |z| <= 5e-3 and
+   for <= 1% of bits; decoding the same codes must agree within 1e-3.
 
-The second-to-last line is a JSON object with one entry per kernel; the last
-line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+The second-to-last line is the card's ``nvidia-smi`` name and power limit,
+the line before it a JSON object with one entry per kernel; the last line is
+``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -48,6 +62,7 @@ def log(msg: str):
 
 
 # kernel name -> (CUDA source, TPU kernel it replaces)
+RU_SOURCE = 'magvit2_pytorch_tpu_torch/csrc/residual_unit.cu'
 KERNELS = {
     'space_attention_block': (
         'magvit2_pytorch_tpu_torch/csrc/attention_block.cu',
@@ -58,19 +73,52 @@ KERNELS = {
     'taylor_attention_block': (
         'magvit2_pytorch_tpu_torch/csrc/taylor_attention.cu',
         'magvit2_pytorch_tpu/ops/pallas/taylor_attention.py:35'),
+    'residual_unit_wide': (
+        RU_SOURCE, 'magvit2_pytorch_tpu/ops/pallas/residual_unit_wide.py:56'),
+    'residual_unit_packed': (
+        RU_SOURCE, 'magvit2_pytorch_tpu/ops/pallas/residual_unit.py:121'),
 }
+# launches per roundtrip on each path (encoder + decoder): the flagship has
+# 11 ResidualUnits a side, the first (64 channels, the lane-packed stem) B5
+LAUNCHES = {
+    'default': {'space_attention_block': 2, 'time_attention_block': 2,
+                'taylor_attention_block': 2, 'residual_unit_wide': 0,
+                'residual_unit_packed': 0},
+    'fused': {'space_attention_block': 2, 'time_attention_block': 2,
+              'taylor_attention_block': 2, 'residual_unit_wide': 20,
+              'residual_unit_packed': 2},
+}
+FUSED_ENV = {'MAGVIT2_TPU_FUSED_RU_WIDE_DIMS': '64,128,256,512'}
 
 # kernel vs plain tolerances (max abs error), with their reasons:
 # - float32: the same float32 math summed in another order (K = 256..512
-#   projections, 260 softmax keys, 1024-token moments); observed error is
-#   ~1e-6 of values of magnitude ~1, so 1e-4 leaves room for accumulation.
-# - bfloat16: the kernel rounds to bf16 where the JAX kernel does (normed
-#   input, qkv, attention output, block output: 2^-9 relative each) while
-#   the plain reference runs in float32 on the same bf16 inputs; on outputs
-#   of magnitude <= ~2 four such roundings give errors of ~1e-2 at most.
+#   projections, 260 softmax keys, 1024-token moments, 27 C = 1728..13824
+#   conv terms); observed error is ~1e-6 of values of magnitude ~1, so 1e-4
+#   leaves room for accumulation.
+# - bfloat16, attention: the kernel rounds to bf16 where the JAX kernel does
+#   (normed input, qkv, attention output, block output: 2^-9 relative each)
+#   while the plain reference runs in float32 on the same bf16 inputs; on
+#   outputs of magnitude <= ~2 four such roundings give errors of ~1e-2.
+# - bfloat16, ResidualUnit: the JAX kernel test's 6e-2
+#   (tests/test_fused_residual_wide.py:60): the kernel rounds the conv, the
+#   1x1, the SE logit, attention, context, MLP and gate products to bf16, and
+#   the output (up to ~6 in magnitude) to 2^-8 relative.
 TOL = {'float32': 1e-4, 'bfloat16': 5e-2}
+RU_TOL = {'float32': 1e-4, 'bfloat16': 6e-2}
 BATCH = 8
 REPS = 20           # timed runs per kernel, after warm-up
+# the flagship's ResidualUnit stages: (C, T, H = W, launches of B4 per fused
+# roundtrip); the 64-channel stem takes B5 there, at PACKED_STEM (T, H = W)
+RU_STAGES = ((64, 20, 128, 0), (128, 20, 64, 4), (256, 20, 32, 4),
+             (512, 20, 16, 4), (512, 10, 16, 4), (512, 5, 16, 4))
+PACKED_STEM = (20, 128)
+B4_ROW_SHAPE = (BATCH, 20, 16, 16, 512)    # the stage B4's kernels row shows
+# the ResidualUnit wrappers (ops/kernels/residual_unit.py) and their kernels
+RU_WRAPPERS = {'fused_residual_unit_wide': 'residual_unit_wide',
+               'fused_residual_unit': 'residual_unit_packed'}
+# the card's published peaks (NVIDIA's H100 SXM data sheet, dense)
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
 
 
 def nvidia_smi() -> str:
@@ -105,11 +153,98 @@ def median_ms(fn, reps: int, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
+def bound(flops: float, nbytes: float):
+    """The least time (ms) the card could take: the larger of the work over
+    the bf16 tensor-core peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            'operations' if t_ops >= t_bytes else 'bytes')
+
+
+def attention_cost(groups, L, C, heads, dh, M, causal):
+    """FLOPs and bytes of one attention block in bf16: the qkv and out
+    projections, then scores and values over each query's visible keys (M
+    memory keys plus the sequence, or its causal prefix); x and the output
+    once, the weights once."""
+    inner = heads * dh
+    rows = groups * L
+    keys = sum(M + (i + 1 if causal else L) for i in range(L))
+    flops = 2 * rows * C * 4 * inner + 4 * dh * heads * groups * keys
+    nbytes = 2 * (2 * rows * C + C + 4 * inner * C + 2 * heads * M * dh)
+    return flops, nbytes
+
+
+def taylor_cost(frames, N, C, heads, d):
+    """FLOPs and bytes of one Taylor block in bf16: the two projections and,
+    per token and head, the second-order moments of k (k k^T, k v^T,
+    (k k^T) v^T) and their products with q and q q^T, numerator and
+    denominator (4 d^3 + 8 d^2 + 2 d)."""
+    rows = frames * N
+    inner = heads * d
+    flops = (2 * rows * C * 4 * inner
+             + rows * heads * (4 * d ** 3 + 8 * d * d + 2 * d))
+    nbytes = 2 * (2 * rows * C + C + 4 * inner * C)
+    return flops, nbytes
+
+
+def real_taps(n, before, after):
+    """Taps that read a real position, summed over n outputs of a 1-D
+    window reaching ``before`` back and ``after`` ahead (the rest read the
+    zero pad)."""
+    return sum(min(i, before) + 1 + min(n - 1 - i, after) for i in range(n))
+
+
+def ru_cost(shape, hidden):
+    """FLOPs and bytes of one ResidualUnit in bf16: the causal 3x3x3 conv
+    over each output pixel's real taps only (none before frame 0 or outside
+    the frame, as ``attention_cost`` counts only visible keys), the 1x1
+    (2 M C^2), the SE logit and context (4 M C) and the gate MLP per frame;
+    x and the output once, the weights once."""
+    b, t, h, w, c = shape
+    m = b * t * h * w
+    taps = b * real_taps(t, 2, 0) * real_taps(h, 1, 1) * real_taps(w, 1, 1)
+    flops = (2 * taps * c * c + 2 * m * c * c + 4 * m * c
+             + b * t * 4 * c * hidden)
+    nbytes = 2 * (2 * m * c + 28 * c * c + 2 * c * hidden + 4 * c + hidden
+                  + 1)
+    return flops, nbytes
+
+
+def memory_mask(torch, L, M, dev):
+    """Causal attention with M memory keys in front: key j is visible to
+    query i when j < M or j - M <= i."""
+    j = torch.arange(M + L, device=dev)
+    i = torch.arange(L, device=dev)[:, None]
+    return (j < M) | (j - M <= i)
+
+
+def ru_params(torch, c, gen):
+    """One ResidualUnit's tensors in ``residual_unit_ref``'s order: the
+    module's init bounds, and live SqueezeExcite gates (kaiming-uniform
+    output weight, zero bias) so the check sees the whole unit."""
+    hidden = max(16, c // 2)
+
+    def u(shape, bound):
+        return (torch.rand(shape, generator=gen) * 2 - 1) * bound
+
+    conv, lin, hid = (27 * c) ** -0.5, c ** -0.5, hidden ** -0.5
+    return [u((c, c, 3, 3, 3), conv), u((c,), conv), u((c, c), lin),
+            u((c,), lin), u((1, c), lin), u((1,), lin), u((hidden, c), lin),
+            u((hidden,), lin), u((c, hidden), (6.0 / hidden) ** 0.5),
+            torch.zeros(c)]
+
+
 def kernel_cases(torch, dev):
     """Inputs at the flagship shapes: README config, batch 8, 20 padded
-    frames at the encoder's attention stages."""
+    frames at the encoder's attention stages; the ResidualUnit at every
+    stage of the flagship. Each case: name, the wrapper and its plain
+    version, the arguments, the work (FLOPs, bytes) and one library call for
+    the same step (or None)."""
+    import torch.nn.functional as F
+    from magvit2_pytorch_tpu_torch.ops.conv import (
+        pad_time_front, to_channels_first)
     from magvit2_pytorch_tpu_torch.ops.kernels import (
-        axial_attention as ax, taylor_attention as ta)
+        axial_attention as ax, residual_unit as ru, taylor_attention as ta)
     gen = torch.Generator(device='cpu').manual_seed(1234)
 
     def u(shape, fan_in):
@@ -123,144 +258,351 @@ def kernel_cases(torch, dev):
                 torch.randn(2, heads, 4, dh, generator=gen),
                 u((c, inner), inner)]
 
-    cases = {}
+    def sdpa(g, L, heads, dh, M, causal):
+        """The attention step alone as one PyTorch call, on q, k, v of the
+        block's shapes (k, v with the memory keys in front)."""
+        q = torch.randn(g, heads, L, dh, device=dev, dtype=torch.bfloat16)
+        k, v = (torch.randn(g, heads, M + L, dh, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+        mask = memory_mask(torch, L, M, dev) if causal else None
+        return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      attn_mask=mask)
+
+    cases = []
     c, heads, dh = 512, 8, 32
     x = torch.randn(BATCH * 20, 16 * 16, c, generator=gen)
-    cases['space_attention_block'] = (
-        ax.attention_block, ax.attention_block_ref,
-        [x, *attn_params(c, heads, dh)], dict(heads=heads, dim_head=dh,
-                                              causal=False))
+    cases.append(dict(
+        name='space_attention_block', fn=ax.attention_block,
+        ref=ax.attention_block_ref, args=[x, *attn_params(c, heads, dh)],
+        kw=dict(heads=heads, dim_head=dh, causal=False),
+        cost=attention_cost(BATCH * 20, 256, c, heads, dh, 4, False),
+        library=lambda: sdpa(BATCH * 20, 256, heads, dh, 4, False),
+        library_call='F.scaled_dot_product_attention, the attention step'))
     x = torch.randn(BATCH, 5, 16 * 16, c, generator=gen)
-    cases['time_attention_block'] = (
-        ax.time_attention_block, ax.time_attention_block_ref,
-        [x, *attn_params(c, heads, dh)], dict(heads=heads, dim_head=dh,
-                                              causal=True))
+    cases.append(dict(
+        name='time_attention_block', fn=ax.time_attention_block,
+        ref=ax.time_attention_block_ref, args=[x, *attn_params(c, heads, dh)],
+        kw=dict(heads=heads, dim_head=dh, causal=True),
+        cost=attention_cost(BATCH * 256, 5, c, heads, dh, 4, True),
+        library=lambda: sdpa(BATCH * 256, 5, heads, dh, 4, True),
+        library_call='F.scaled_dot_product_attention with the causal '
+                     'memory mask, the attention step'))
     c, heads, dh = 256, 16, 8
     x = torch.randn(BATCH * 20, 32 * 32, c, generator=gen)
-    cases['taylor_attention_block'] = (
-        ta.taylor_attention, ta.taylor_attention_ref,
-        [x, 1 + 0.1 * torch.randn(c, generator=gen),
-         u((3 * heads * dh, c), c), u((c, heads * dh), heads * dh)],
-        dict(heads=heads, dim_head=dh))
-    return {k: (fn, ref, [t.to(dev) for t in args], kw)
-            for k, (fn, ref, args, kw) in cases.items()}
+    cases.append(dict(
+        name='taylor_attention_block', fn=ta.taylor_attention,
+        ref=ta.taylor_attention_ref,
+        args=[x, 1 + 0.1 * torch.randn(c, generator=gen),
+              u((3 * heads * dh, c), c), u((c, heads * dh), heads * dh)],
+        kw=dict(heads=heads, dim_head=dh),
+        cost=taylor_cost(BATCH * 20, 1024, c, heads, dh),
+        library=None, library_call=None))
+
+    def conv_call(x16, p16):
+        """The unit's conv step alone: one F.conv3d on the channels-last
+        view, the causal front pad made beforehand."""
+        xp = to_channels_first(pad_time_front(x16, 2))
+        return lambda: F.conv3d(xp, p16[0], p16[1], padding=(0, 1, 1))
+
+    for c, t, hw, n in RU_STAGES:
+        shape = (BATCH, t, hw, hw, c)
+        cases.append(dict(
+            name='residual_unit_wide', fn=ru.fused_residual_unit_wide,
+            ref=ru.residual_unit_ref,
+            args=[torch.randn(shape, generator=gen), *ru_params(torch, c, gen)],
+            kw={}, cost=ru_cost(shape, max(16, c // 2)), per_roundtrip=n,
+            library=conv_call, library_call='F.conv3d, the conv step',
+            boundary=c == 128))
+    # B5 on the lane-packed view of the stem: (B, T, H, W/2, 2C)
+    t, hw = PACKED_STEM
+    shape = (BATCH, t, hw, hw // 2, 128)
+    cases.append(dict(
+        name='residual_unit_packed', fn=ru.fused_residual_unit,
+        ref=lambda xb, *p, packed_io: ru.residual_unit_ref(
+            xb.reshape(*xb.shape[:3], -1, 64), *p).reshape(xb.shape),
+        args=[torch.randn(shape, generator=gen), *ru_params(torch, 64, gen)],
+        kw=dict(packed_io=True), cost=ru_cost((BATCH, t, hw, hw, 64), 32),
+        library=lambda x16, p16: conv_call(
+            x16.reshape(*x16.shape[:3], -1, 64), p16),
+        library_call='F.conv3d, the conv step', boundary=True))
+    for case in cases:
+        case['args'] = [a.to(dev) for a in case['args']]
+    return cases
+
+
+def check_case(torch, case, reps):
+    """One kernel case: float32 (TF32 off) and bf16 against the plain
+    version, the batch boundary where asked, and median times."""
+    name, fn, ref, args, kw = (case[k] for k in
+                               ('name', 'fn', 'ref', 'args', 'kw'))
+    tol = RU_TOL if name.startswith('residual_unit') else TOL
+    set_tf32(False)
+    got = fn(*args, **kw)
+    want = ref(*args, **kw)
+    torch.cuda.synchronize()
+    err32 = (got - want).abs().max().item()
+    finite = bool(torch.isfinite(got).all())
+    del got, want
+    args16 = [a.to(torch.bfloat16) for a in args]
+    got16 = fn(*args16, **kw)
+    want16 = ref(*[a.float() for a in args16], **kw)
+    torch.cuda.synchronize()
+    err16 = (got16.float() - want16).abs().max().item()
+    finite = finite and bool(torch.isfinite(got16).all())
+    del got16, want16
+    row = dict(shape=list(args[0].shape), max_abs_err=err16,
+               max_abs_err_fp32=err32)
+    if case.get('boundary'):
+        # batch element 1 alone equals its place in a batch of two: no
+        # causal tap reaches into element 0
+        both = args[0][:2]
+        row['batch_boundary_err'] = (
+            fn(both, *args[1:], **kw)[1:] - fn(both[1:], *args[1:], **kw)
+        ).abs().max().item()
+    row['ms'] = median_ms(lambda: fn(*args16, **kw), reps)
+    row['plain_ms'] = median_ms(lambda: ref(*args16, **kw), reps)
+    row['ms_fp32'] = median_ms(lambda: fn(*args, **kw), reps)
+    row['plain_ms_fp32'] = median_ms(lambda: ref(*args, **kw), reps)
+    library = case['library']
+    if library is not None:
+        call = (library(args16[0], args16[1:])
+                if name.startswith('residual_unit') else library())
+        row['library_ms'] = median_ms(call, reps)
+    else:
+        row['library_ms'] = None
+    row['bound_ms'], row['bound_by'] = bound(*case['cost'])
+    log(f'[kernel] {name} {tuple(args[0].shape)}: fp32 max_abs_err '
+        f'{err32:.3e} (tol {tol["float32"]:g}), bf16 max_abs_err {err16:.3e} '
+        f'(tol {tol["bfloat16"]:g}); bf16 kernel {row["ms"]:.4f} ms, plain '
+        f'{row["plain_ms"]:.4f} ms, library {row["library_ms"]} ms, bound '
+        f'{row["bound_ms"]:.4f} ms ({row["bound_by"]}); fp32 kernel '
+        f'{row["ms_fp32"]:.4f} ms, plain {row["plain_ms_fp32"]:.4f} ms'
+        + (f'; batch boundary {row["batch_boundary_err"]:.3e}'
+           if 'batch_boundary_err' in row else '')
+        + f' (median of {reps})')
+    if not finite:
+        fail(f'{name}: non-finite kernel output')
+    if not err32 <= tol['float32']:
+        fail(f'{name}: float32 error {err32} > {tol["float32"]}')
+    if not err16 <= tol['bfloat16']:
+        fail(f'{name}: bfloat16 error {err16} > {tol["bfloat16"]}')
+    if not row.get('batch_boundary_err', 0.0) <= tol['float32']:
+        fail(f'{name}: batch element 1 differs alone and in a batch of two '
+             f'by {row["batch_boundary_err"]}')
+    return row
 
 
 def phase_kernels(torch, dev, reps):
-    results = {}
-    for name, (fn, ref, args, kw) in kernel_cases(torch, dev).items():
-        row = {}
-        set_tf32(False)
-        got = fn(*args, **kw)
-        want = ref(*args, **kw)
-        torch.cuda.synchronize()
-        err32 = (got - want).abs().max().item()
-        args16 = [a.to(torch.bfloat16) for a in args]
-        got16 = fn(*args16, **kw)
-        want16 = ref(*[a.float() for a in args16], **kw)
-        torch.cuda.synchronize()
-        err16 = (got16.float() - want16).abs().max().item()
-        finite = bool(torch.isfinite(got).all() and torch.isfinite(got16).all())
-        row['ms'] = median_ms(lambda: fn(*args16, **kw), reps)
-        row['plain_ms'] = median_ms(lambda: ref(*args16, **kw), reps)
-        row['ms_fp32'] = median_ms(lambda: fn(*args, **kw), reps)
-        row['plain_ms_fp32'] = median_ms(lambda: ref(*args, **kw), reps)
-        row.update(max_abs_err=err16, max_abs_err_fp32=err32,
-                   shape=list(args[0].shape))
-        log(f'[kernel] {name} {tuple(args[0].shape)}: fp32 max_abs_err '
-            f'{err32:.3e} (tol {TOL["float32"]:g}), bf16 max_abs_err '
-            f'{err16:.3e} (tol {TOL["bfloat16"]:g}); bf16 kernel '
-            f'{row["ms"]:.4f} ms vs plain {row["plain_ms"]:.4f} ms; fp32 '
-            f'kernel {row["ms_fp32"]:.4f} ms vs plain '
-            f'{row["plain_ms_fp32"]:.4f} ms (median of {reps})')
-        if not finite:
-            fail(f'{name}: non-finite kernel output')
-        if not err32 <= TOL['float32']:
-            fail(f'{name}: float32 error {err32} > {TOL["float32"]}')
-        if not err16 <= TOL['bfloat16']:
-            fail(f'{name}: bfloat16 error {err16} > {TOL["bfloat16"]}')
-        results[name] = row
-    return results
+    """Every case; one row per kernel for the result line, every number per
+    launch at one shape. B4 runs at six shapes: its row is the one at
+    ``B4_ROW_SHAPE``, and ``stages`` holds the row of each shape."""
+    rows, stages = {}, []
+    for case in kernel_cases(torch, dev):
+        row = dict(check_case(torch, case, reps), per='launch')
+        torch.cuda.empty_cache()
+        if case['name'] != 'residual_unit_wide':
+            rows[case['name']] = row
+            continue
+        stages.append(dict(row, launches_per_roundtrip=case['per_roundtrip']))
+        if tuple(row['shape']) == B4_ROW_SHAPE:
+            rows['residual_unit_wide'] = row
+    rows['residual_unit_wide']['stages'] = stages
+    return rows
 
 
-def flagship_tokenizer(torch, device, dtype):
+@contextlib.contextmanager
+def timed_ru_calls(torch):
+    """For the block, record every call of the ResidualUnit wrappers with
+    its input shape and CUDA events around it (the launch counts stay the
+    wrappers' own)."""
+    from magvit2_pytorch_tpu_torch.ops.kernels import residual_unit as ru
+    calls, real = [], {n: getattr(ru, n) for n in RU_WRAPPERS}
+
+    def spy(name, fn):
+        def call(x, *args, **kw):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = fn(x, *args, **kw)
+            end.record()
+            calls.append((RU_WRAPPERS[name], tuple(x.shape), start, end))
+            return out
+        return call
+
+    for name, fn in real.items():
+        setattr(ru, name, spy(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(ru, name, fn)
+
+
+def ru_calls_by_shape(calls):
+    """(kernel, input shape) -> [calls, summed ms]; after a synchronize."""
+    out = {}
+    for name, shape, start, end in calls:
+        entry = out.setdefault((name, shape), [0, 0.0])
+        entry[0] += 1
+        entry[1] += start.elapsed_time(end)
+    return out
+
+
+def ru_calls_expected(path):
+    """(kernel, input shape) -> calls per roundtrip on ``path``: B4 at each
+    stage as ``RU_STAGES`` says, B5 on the unpacked stem activation."""
+    if path == 'default':
+        return {}
+    want = {('residual_unit_wide', (BATCH, t, hw, hw, c)): n
+            for c, t, hw, n in RU_STAGES if n}
+    t, hw = PACKED_STEM
+    want[('residual_unit_packed', (BATCH, t, hw, hw, 64))] = 2
+    return want
+
+
+def flagship_tokenizer(torch, device, dtype, **overrides):
     from magvit2_pytorch_tpu_torch import VideoTokenizer
     from magvit2_pytorch_tpu_torch.configs import readme_video_tokenizer_kwargs
     return VideoTokenizer(seed=0, device=device, dtype=dtype,
                           **readme_video_tokenizer_kwargs(
-                              use_gan=False, perceptual_loss_weight=0.0))
+                              use_gan=False, perceptual_loss_weight=0.0,
+                              **overrides))
 
 
-def phase_roundtrip(torch, dev):
+@contextlib.contextmanager
+def environment(env: dict):
+    """Set ``env`` for the block and restore what was there before."""
+    before = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_roundtrip(torch, dev, path):
+    """One bf16 batch-8 roundtrip through the user's entry points, the
+    launch counts set to 0 just before and read just after, and the
+    ResidualUnit kernels' calls by shape; then a second, warm roundtrip
+    times each of those calls with CUDA events. Returns the tokenizer, the
+    input, the counts and each RU kernel's summed ms in the warm run."""
     from magvit2_pytorch_tpu_torch.ops.kernels import (
         launch_counts, reset_launch_counts)
-    tok = flagship_tokenizer(torch, dev, torch.bfloat16)
+    tok = flagship_tokenizer(torch, dev, torch.bfloat16,
+                             lane_pack=path == 'fused')
     gen = torch.Generator(device=dev).manual_seed(0)
     video = torch.rand(BATCH, 17, 128, 128, 3, generator=gen, device=dev)
+
+    def roundtrip():
+        codes = tok.tokenize(video)
+        return codes, tok.decode_from_code_indices(codes.reshape(BATCH, -1))
+
     torch.cuda.synchronize()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    codes = tok.tokenize(video)
-    recon = tok.decode_from_code_indices(codes.reshape(BATCH, -1))
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    counts = launch_counts()
-    log(f'[roundtrip] bf16 batch {BATCH}: codes {tuple(codes.shape)} '
+    with timed_ru_calls(torch) as calls:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        codes, recon = roundtrip()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+    by_shape = {k: n for k, (n, _) in ru_calls_by_shape(calls).items()}
+    with timed_ru_calls(torch) as calls:
+        roundtrip()
+        torch.cuda.synchronize()
+    ru_ms = {}
+    for (name, shape), (n, ms) in sorted(ru_calls_by_shape(calls).items()):
+        ru_ms[name] = ru_ms.get(name, 0.0) + ms
+        log(f'[roundtrip {path}] {name} {shape}: {n} calls, {ms:.4f} ms '
+            '(warm roundtrip, CUDA events around each call)')
+    log(f'[roundtrip {path}] bf16 batch {BATCH}: codes {tuple(codes.shape)} '
         f'{codes.dtype}, recon {tuple(recon.shape)} {recon.dtype}, '
-        f'{seconds:.3f} s (first call), launches {counts}')
+        f'{seconds:.3f} s (first call), launches {counts}, ResidualUnit '
+        f'kernels in the warm roundtrip {ru_ms} ms')
+    if by_shape != ru_calls_expected(path):
+        fail(f'{path} roundtrip: ResidualUnit kernel calls by shape '
+             f'{by_shape}, expected {ru_calls_expected(path)}')
     if tuple(codes.shape) != (BATCH, 5, 16, 16) or codes.is_floating_point():
-        fail(f'codes {tuple(codes.shape)} {codes.dtype}')
+        fail(f'{path}: codes {tuple(codes.shape)} {codes.dtype}')
     if tuple(recon.shape) != (BATCH, 17, 128, 128, 3):
-        fail(f'recon shape {tuple(recon.shape)}')
+        fail(f'{path}: recon shape {tuple(recon.shape)}')
     if not bool(torch.isfinite(recon).all()):
-        fail('recon has non-finite values')
-    codes_in_range = bool(((codes >= 0) & (codes < 1024)).all())
-    if not codes_in_range:
-        fail('codes outside [0, 1024)')
-    for name in KERNELS:
-        if counts.get(name) != 2:
-            fail(f'{name} launched {counts.get(name)} times in one '
-                 'roundtrip, expected 2 (encoder + decoder)')
-    return tok, video, counts
+        fail(f'{path}: recon has non-finite values')
+    if not bool(((codes >= 0) & (codes < 1024)).all()):
+        fail(f'{path}: codes outside [0, 1024)')
+    for name, want in LAUNCHES[path].items():
+        if counts.get(name) != want:
+            fail(f'{path} roundtrip: {name} launched {counts.get(name)} '
+                 f'times, expected {want}')
+    return tok, video, counts, ru_ms
 
 
 def phase_card_vs_cpu(torch, dev):
+    """Both card paths against one CPU float32 reference, live SE gates
+    (the CPU's math does not depend on lane_pack or the fused gates)."""
+    from magvit2_pytorch_tpu_torch.ops.basic import live_squeeze_excite_
+    from magvit2_pytorch_tpu_torch.ops.kernels import (
+        launch_counts, reset_launch_counts)
     set_tf32(False)
-    card = flagship_tokenizer(torch, dev, torch.float32)
-    cpu = flagship_tokenizer(torch, 'cpu', torch.float32)
+    live = lambda tok: live_squeeze_excite_(
+        tok.module, torch.Generator().manual_seed(11))
     video = torch.rand(1, 17, 128, 128, 3,
                        generator=torch.Generator().manual_seed(7))
+    cpu = flagship_tokenizer(torch, 'cpu', torch.float32)
+    live(cpu)
     t0 = time.perf_counter()
-    codes_cpu = cpu.tokenize(video)
     lat_cpu = cpu.encode(video)
+    with torch.inference_mode():
+        codes_cpu = cpu.module.quantize(lat_cpu).indices   # as tokenize
+        z = cpu.module.quantizers.sign_values(lat_cpu)      # (1,5,16,16,10)
     recon_cpu = cpu.decode_from_code_indices(codes_cpu)
     cpu_s = time.perf_counter() - t0
-    codes_card = card.tokenize(video).cpu()
-    lat_card = card.encode(video).cpu()
-    recon_card = card.decode_from_code_indices(codes_cpu.to(dev)).cpu()
-    with torch.inference_mode():
-        z = cpu.module.quantizers.sign_values(lat_cpu)      # (1,5,16,16,10)
+    del cpu
     nbits = 10
     mask = 2 ** torch.arange(nbits - 1, -1, -1)
     bits_cpu = (codes_cpu[..., None] & mask) != 0
-    bits_card = (codes_card[..., None] & mask) != 0
-    flipped = bits_cpu != bits_card
-    frac = flipped.float().mean().item()
-    worst = z.abs()[flipped].max().item() if flipped.any() else 0.0
-    lat_err = (lat_card - lat_cpu).abs().max().item()
-    recon_err = (recon_card - recon_cpu).abs().max().item()
-    log(f'[card vs cpu] fp32 batch 1, TF32 off: latents max_abs_err '
-        f'{lat_err:.3e}, code bits flipped {frac:.4%} (worst margin '
-        f'{worst:.3e}), recon from the same codes max_abs_err '
-        f'{recon_err:.3e}; CPU roundtrip {cpu_s:.1f} s')
-    if frac > 0.01:
-        fail(f'{frac:.2%} of code bits flipped (> 1%)')
-    if worst > 5e-3:
-        fail(f'a code bit flipped at margin {worst} > 5e-3')
-    if not recon_err <= 1e-3:
-        fail(f'recon differs by {recon_err} > 1e-3')
-    return dict(latents_max_abs_err=lat_err, bits_flipped=frac,
-                worst_flip_margin=worst, recon_max_abs_err=recon_err)
+    results = {}
+    for path, env in (('default', {}), ('fused', FUSED_ENV)):
+        card = flagship_tokenizer(torch, dev, torch.float32,
+                                  lane_pack=path == 'fused')
+        live(card)
+        with environment(env):
+            reset_launch_counts()
+            codes_card = card.tokenize(video).cpu()
+            lat_card = card.encode(video).cpu()
+            recon_card = card.decode_from_code_indices(
+                codes_cpu.to(dev)).cpu()
+            counts = launch_counts()
+        del card
+        torch.cuda.empty_cache()
+        flipped = bits_cpu != ((codes_card[..., None] & mask) != 0)
+        frac = flipped.float().mean().item()
+        worst = z.abs()[flipped].max().item() if flipped.any() else 0.0
+        lat_err = (lat_card - lat_cpu).abs().max().item()
+        recon_err = (recon_card - recon_cpu).abs().max().item()
+        log(f'[card vs cpu {path}] fp32 batch 1, TF32 off, live SE gates: '
+            f'latents max_abs_err {lat_err:.3e}, code bits flipped '
+            f'{frac:.4%} (worst margin {worst:.3e}), recon from the same '
+            f'codes max_abs_err {recon_err:.3e}; launches {counts}; CPU '
+            f'reference {cpu_s:.1f} s')
+        fused_launches = (counts['residual_unit_wide']
+                          + counts['residual_unit_packed'])
+        if (path == 'fused') != (fused_launches > 0):
+            fail(f'{path} card path: {fused_launches} ResidualUnit kernel '
+                 'launches')
+        if frac > 0.01:
+            fail(f'{path}: {frac:.2%} of code bits flipped (> 1%)')
+        if worst > 5e-3:
+            fail(f'{path}: a code bit flipped at margin {worst} > 5e-3')
+        if not recon_err <= 1e-3:
+            fail(f'{path}: recon differs by {recon_err} > 1e-3')
+        results[path] = dict(latents_max_abs_err=lat_err, bits_flipped=frac,
+                             worst_flip_margin=worst,
+                             recon_max_abs_err=recon_err)
+    return results
 
 
 def phase_throughput(torch, tok, video, n_short=2, n_long=10):
@@ -286,11 +628,11 @@ def phase_throughput(torch, tok, video, n_short=2, n_long=10):
                 t_short=t_short, t_long=t_long)
 
 
-def profile_roundtrip(torch, tok, video, out_dir, slope_ms):
+def profile_roundtrip(torch, tok, video, path, slope_ms):
     """One bf16 roundtrip under torch.profiler: the device time of its
     kernels (device events only, so no operator row counts its kernels a
     second time), their share of ``slope_ms`` (the unprofiled roundtrip time
-    from the throughput phase), and a table by kernel in ``out_dir``."""
+    from the throughput phase), and a table by kernel in ``path``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     x = video.to(torch.bfloat16)
@@ -306,12 +648,28 @@ def profile_roundtrip(torch, tok, video, out_dir, slope_ms):
     table = prof.key_averages().table(sort_by='self_device_time_total',
                                       row_limit=60)
     busy = device_us / 1e3 / slope_ms
-    with open(os.path.join(out_dir, 'profile.txt'), 'w') as f:
+    with open(path, 'w') as f:
         f.write(f'device events {device_us / 1e3:.3f} ms per roundtrip, '
                 f'{busy:.1%} of the {slope_ms:.3f} ms slope time\n{table}\n')
     log(f'[profile] one bf16 roundtrip: device events {device_us / 1e3:.2f} '
         f'ms, {busy:.1%} of the unprofiled {slope_ms:.2f} ms per roundtrip; '
-        f'table in {out_dir}/profile.txt')
+        f'table in {path}')
+
+
+def drive_path(torch, dev, path, smi, profile_dir):
+    """Phases 4 and 5: one path's roundtrip, its frames/s, its profile."""
+    tok, video, counts, ru_ms = phase_roundtrip(torch, dev, path)
+    tp = phase_throughput(torch, tok, video)
+    log(f'[throughput {path}] bf16 batch {BATCH} roundtrip: '
+        f'{tp["fps"]:.2f} frames/s ({tp["ms_per_roundtrip"]:.2f} ms per '
+        f'roundtrip; slope of 2 vs 10 chained runs) on {smi}')
+    if profile_dir:
+        name = 'profile.txt' if path == 'default' else f'profile_{path}.txt'
+        profile_roundtrip(torch, tok, video, os.path.join(profile_dir, name),
+                          tp['ms_per_roundtrip'])
+    del tok, video
+    torch.cuda.empty_cache()
+    return counts, dict(tp, ru_ms=ru_ms)
 
 
 def main():
@@ -319,7 +677,8 @@ def main():
     parser.add_argument('--out', default=None,
                         help='directory for the compiler log')
     parser.add_argument('--profile', action='store_true',
-                        help='also profile one roundtrip (needs --out)')
+                        help='also profile one roundtrip of each path '
+                             '(needs --out)')
     args = parser.parse_args()
     if args.profile and not args.out:
         parser.error('--profile needs --out')
@@ -333,6 +692,9 @@ def main():
         from magvit2_pytorch_tpu_torch.ops.kernels import _build
     except ImportError as e:
         fail(f'the port package is not beside this script: {e}')
+    for name in (*FUSED_ENV, 'MAGVIT2_TPU_NO_FUSED_RU',
+                 'MAGVIT2_TPU_NO_FUSED_RU_WIDE', 'MAGVIT2_TPU_NO_FUSED_RU_W64'):
+        os.environ.pop(name, None)        # the default path is the default
     dev = torch.device('cuda', 0)
     torch.manual_seed(0)
 
@@ -352,21 +714,25 @@ def main():
 
     with torch.inference_mode():
         kernel_rows = phase_kernels(torch, dev, REPS)
-    tok, video, counts = phase_roundtrip(torch, dev)
-    tp = phase_throughput(torch, tok, video)
-    log(f'[throughput] bf16 batch {BATCH} roundtrip: {tp["fps"]:.2f} '
-        f'frames/s ({tp["ms_per_roundtrip"]:.2f} ms per roundtrip; slope of '
-        f'2 vs 10 chained runs) on {smi}')
-    if args.profile:
-        profile_roundtrip(torch, tok, video, args.out, tp['ms_per_roundtrip'])
-    del tok, video
     torch.cuda.empty_cache()
+    profile_dir = args.out if args.profile else None
+    counts, tp = {}, {}
+    counts['default'], tp['default'] = drive_path(torch, dev, 'default', smi,
+                                                  profile_dir)
+    with environment(FUSED_ENV):
+        counts['fused'], tp['fused'] = drive_path(torch, dev, 'fused', smi,
+                                                  profile_dir)
+    log(f'[throughput] frames/s, bf16 batch {BATCH}: default '
+        f'{tp["default"]["fps"]:.2f}, fused {tp["fused"]["fps"]:.2f} on {smi}')
     phase_card_vs_cpu(torch, dev)
 
     if 'jax' in sys.modules:
         fail('JAX was imported')
     kernels = [{'name': name, 'route': 'cuda', 'source': source,
-                'replaces': replaces, 'launches': counts[name],
+                'replaces': replaces, 'launches': counts['fused'][name],
+                'launches_by_path': {p: counts[p][name] for p in counts},
+                # all of this kernel's calls in one warm fused roundtrip
+                'fused_roundtrip_ms': tp['fused']['ru_ms'].get(name),
                 **kernel_rows[name]}
                for name, (source, replaces) in KERNELS.items()]
     print(json.dumps({'kernels': kernels}))

@@ -7,7 +7,9 @@
 ``channel_first=True`` takes and returns the reference's
 ``(B, C, T, H, W)``. Weights are made on the CPU from ``seed`` with the
 reference's init distributions, then moved to ``device`` in ``dtype`` (the
-working dtype of the whole graph; quantization math stays float32). The
+working dtype of the whole graph; quantization math stays float32).
+``device`` defaults to the card (``'cuda'``) and raises where there is none;
+``device='cpu'`` runs every kernel's plain PyTorch version. The
 loss modes, conditioning, checkpoints in the JAX package's msgpack format
 and int8 calibration are not ported yet and raise.
 """
@@ -28,8 +30,15 @@ from magvit2_pytorch_tpu_torch.utils.helpers import divisible_by, exists
 class VideoTokenizer:
     """Construct with the JAX package's ``TokenizerConfig`` kwargs."""
 
-    def __init__(self, *, seed: int = 0, device='cpu',
+    def __init__(self, *, seed: int = 0, device=None,
                  dtype: torch.dtype = torch.float32, **kwargs):
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    'VideoTokenizer runs on the GPU by default and no CUDA '
+                    'device is available; pass device="cpu" to run the '
+                    'plain PyTorch versions of the kernels on the CPU')
+            device = 'cuda'
         self.config = TokenizerConfig(**kwargs)
         self.module = TokenizerModule(self.config)
         init_module_parameters(self.module,

@@ -149,13 +149,47 @@ def check_supported(cfg: TokenizerConfig):
         (cfg.attn_dropout > 0, 'attn_dropout > 0', '5'),
         (exists(cfg.streaming_kv_window), 'streaming_kv_window', '10'),
         (bool(cfg.remat), 'remat (training)', '12'),
-        (bool(cfg.lane_pack), 'lane_pack', '14'),
         (cfg.pad_mode not in ('constant', 'zeros'),
          f'pad_mode={cfg.pad_mode!r}', '3'),
     )
     for bad, what, item in checks:
         if bad:
             not_ported(what, item)
+
+
+def _compute_lane_pack_end(config: TokenizerConfig) -> int:
+    """Spec index of the ``compress_space`` that ends the lane-packed stem,
+    or -1 when packing is off or the config is ineligible (a copy of
+    ``magvit2_pytorch_tpu/models/tokenizer_module.py:224-244``). The stem is
+    conv_in + a (possibly empty) run of residual layers. In the port the
+    activations stay unpacked: ``lane_pack`` only routes the stem's
+    ResidualUnits to the fused kernel B5 (``w_blocked``)."""
+    cfg = config
+    if not cfg.lane_pack:
+        return -1
+    if cfg.separate_first_frame_encoding:
+        return -1
+    if cfg.pad_mode not in ('constant', 'zeros'):
+        return -1
+    if cfg.init_dim >= 128 or cfg.image_size % 2:
+        return -1
+    for i, spec in enumerate(cfg.parsed().specs):
+        t = spec.layer_type
+        if t == 'compress_space':
+            return i
+        if t not in ('residual', 'consecutive_residual'):
+            return -1
+    return -1
+
+
+def _apply_layer(layer, x, w_blocked: bool):
+    """``layer(x)``; a stem layer of the lane-packed region hands
+    ``w_blocked`` to each of its ResidualUnits."""
+    if not w_blocked:
+        return layer(x)
+    for unit in (layer if isinstance(layer, nn.Sequential) else (layer,)):
+        x = unit(x, w_blocked=True)
+    return x
 
 
 def _build_layer(spec: LayerSpec, cfg: TokenizerConfig, encoder: bool):
@@ -206,6 +240,9 @@ class TokenizerModule(nn.Module):
         cfg = self.config = config
         parsed = self.parsed_layers = config.parsed()
         self.time_padding = parsed.time_downsample_factor - 1
+        end = _compute_lane_pack_end(cfg)
+        self.lane_pack_end = end if cfg.lane_pack in (True, 'encoder') else -1
+        self.lane_pack_dec_end = end if cfg.lane_pack is True else -1
 
         self.conv_in = CausalConv3d(cfg.channels, cfg.init_dim,
                                     cfg.input_conv_kernel_size)
@@ -233,8 +270,8 @@ class TokenizerModule(nn.Module):
         if video_contains_first_frame:
             video = pad_time_front(video, self.time_padding)
         x = self.conv_in(video)
-        for layer in self.encoder_layers[:self.num_layers]:
-            x = layer(x)
+        for i, layer in enumerate(self.encoder_layers[:self.num_layers]):
+            x = _apply_layer(layer, x, i < self.lane_pack_end)
         if self.config.apply_final_norm:
             x = self.encoder_layers[self.num_layers][1](x)
         return x
@@ -250,8 +287,10 @@ class TokenizerModule(nn.Module):
         the decoder layers, ``conv_out``, then the front time padding is
         cut off."""
         x = quantized
-        for layer in self.decoder_layers:
-            x = layer(x)
+        n = len(self.decoder_layers)
+        for j, layer in enumerate(self.decoder_layers):
+            # decoder_layers are stored reversed: spec index n - 1 - j
+            x = _apply_layer(layer, x, n - 1 - j < self.lane_pack_dec_end)
         video = self.conv_out(x)
         if video_contains_first_frame:
             video = video[:, self.time_padding:]

@@ -127,6 +127,21 @@ class SqueezeExcite(nn.Module):
         return gates * x
 
 
+def live_squeeze_excite_(module: nn.Module, gen: torch.Generator):
+    """For parity checks, never for users: redraw the output layer
+    (``net.2``) of every SqueezeExcite in ``module`` with a kaiming-uniform
+    weight and a zero bias, so the gates sit near 0.5. Under the init users
+    get, every gate is sigmoid(-10) ~ 4.5e-5 and a ResidualUnit adds ~1e-4
+    of its branch to x, so a comparison of two versions would not see the
+    unit at all."""
+    for m in module.modules():
+        if isinstance(m, SqueezeExcite):
+            out = m.net[2]
+            uniform_(out.weight, math.sqrt(6.0 / out.weight.shape[1]), gen)
+            with torch.no_grad():
+                out.bias.zero_()
+
+
 class Residual(nn.Module):
     """``fn(x) + x`` (reference magvit2_pytorch.py:167-174)."""
 

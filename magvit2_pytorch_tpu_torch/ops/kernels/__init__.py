@@ -10,10 +10,12 @@ from __future__ import annotations
 
 from magvit2_pytorch_tpu_torch.ops.kernels import (
     axial_attention,
+    residual_unit,
     taylor_attention,
 )
 
-_COUNTERS = (axial_attention.LAUNCHES, taylor_attention.LAUNCHES)
+_COUNTERS = (axial_attention.LAUNCHES, taylor_attention.LAUNCHES,
+             residual_unit.LAUNCHES)
 
 
 def launch_counts() -> dict:

@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels with ``nvcc`` and load them with ctypes.
 
 At first use, every ``csrc/*.cu`` file is compiled for Hopper (``sm_90a``)
-into one shared library with a plain C interface, under
+by its own ``nvcc``, all started together, and the objects are linked into
+one shared library with a plain C interface, under
 ``magvit2_pytorch_tpu_torch/_build/`` (git-ignored), named by a hash of the
 sources and the command, so an edited source rebuilds and an unchanged one
 is reused. Nothing here includes PyTorch's headers: a build takes seconds.
@@ -11,6 +12,7 @@ returns ``cudaGetLastError()`` and :func:`check` raises on a non-zero code.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,8 +27,8 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 SOURCE_DIR = PACKAGE_DIR / 'csrc'
 BUILD_DIR = PACKAGE_DIR / '_build'
 ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
-NVCC_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-shared', '-Xcompiler',
-                           '-fPIC', '-Xptxas=-v', '-lineinfo')
+NVCC_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xcompiler', '-fPIC',
+                           '-Xptxas=-v', '-lineinfo')
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
@@ -39,6 +41,9 @@ SIGNATURES = {
     # x, gamma, wqkv, wout, out, xn, qkv, attn,
     # dtype, frames, N, C, heads, dim_head, eps, stream
     'mv2_taylor_attention': [_P] * 8 + [_I] * 6 + [_F, _P],
+    # x, wr, conv_b, pw_w, pw_b, k_w, k_b, gi_w, gi_b, go_w, go_b, out, y1,
+    # logits, gates, dtype, B, T, H, W, C, hidden, stream
+    'mv2_residual_unit': [_P] * 15 + [_I] * 7 + [_P],
 }
 
 _lib = None
@@ -62,9 +67,29 @@ def find_nvcc() -> str:
                        'CUDA toolkit (set CUDA_HOME or put nvcc on PATH)')
 
 
-def nvcc_command(nvcc: str, out: Path) -> list:
-    cu = [str(p) for p in sorted(SOURCE_DIR.glob('*.cu'))]
-    return [nvcc, *NVCC_FLAGS, '-I', str(SOURCE_DIR), '-o', str(out), *cu]
+def nvcc_commands(nvcc: str, out: Path):
+    """One compile command per ``csrc/*.cu`` (object next to ``out``) and
+    the command that links the objects into ``out``."""
+    compiles, objects = [], []
+    for src in sorted(SOURCE_DIR.glob('*.cu')):
+        obj = out.with_name(f'{out.stem}.{src.stem}.o')
+        compiles.append([nvcc, *NVCC_FLAGS, '-I', str(SOURCE_DIR), '-c',
+                         '-o', str(obj), str(src)])
+        objects.append(str(obj))
+    return compiles, [nvcc, *ARCH_FLAGS, '-shared', '-o', str(out), *objects]
+
+
+def _run_all(cmds) -> str:
+    """Run the commands at once; raise on the first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f'nvcc failed ({proc.returncode}):\n{" ".join(cmd)}\n{log}')
+    return ''.join(logs)
 
 
 def library_path() -> Path:
@@ -84,17 +109,19 @@ def load_library():
     out = library_path()
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-        cmd = nvcc_command(find_nvcc(), tmp)
+        tmp = out.with_name(f'{out.stem}.{os.getpid()}.tmp')
+        compiles, link = nvcc_commands(find_nvcc(), tmp)
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f'nvcc failed ({proc.returncode}):\n{" ".join(cmd)}\n'
-                f'{proc.stdout}\n{proc.stderr}')
-        os.replace(tmp, out)
-        build_info.update(seconds=time.perf_counter() - t0,
-                          log=proc.stdout + proc.stderr, command=cmd)
+        try:
+            log = _run_all(compiles) + _run_all([link])
+            os.replace(tmp, out)
+        finally:
+            # the objects always, and the library unless it was moved
+            for path in (*(c[c.index('-o') + 1] for c in compiles), tmp):
+                with contextlib.suppress(FileNotFoundError):
+                    os.remove(path)
+        build_info.update(seconds=time.perf_counter() - t0, log=log,
+                          command=[*compiles, link])
     else:
         build_info.update(seconds=0.0, log='(cached)', command=None)
     lib = ctypes.CDLL(str(out))

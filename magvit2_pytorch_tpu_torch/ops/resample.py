@@ -18,10 +18,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from magvit2_pytorch_tpu_torch.ops.basic import (
-    Linear, Residual, SqueezeExcite, uniform_)
+    Linear, SqueezeExcite, uniform_)
 from magvit2_pytorch_tpu_torch.ops.conv import (
     CausalConv3d, ConvWeights, pad_time_front, to_channels_first,
     to_channels_last)
+from magvit2_pytorch_tpu_torch.ops.kernels import residual_unit as ru_kernels
 
 
 class SpatialDownsample2x(nn.Module):
@@ -110,13 +111,44 @@ class TimeUpsample2x(nn.Module):
         return F.silu(y)
 
 
-def ResidualUnit(dim: int, kernel_size, pad_mode: str = 'constant'):
+class ResidualUnit(nn.Module):
     """``x + SE(elu(conv1x1(elu(causal_conv(x)))))`` (reference
-    magvit2_pytorch.py:930-944). The reference's ``fn.{0,2,4}`` names."""
-    return Residual(nn.Sequential(
-        CausalConv3d(dim, dim, kernel_size, pad_mode=pad_mode),
-        nn.ELU(),
-        Linear(dim, dim),
-        nn.ELU(),
-        SqueezeExcite(dim),
-    ))
+    magvit2_pytorch.py:930-944) under the reference's ``fn.{0,2,4}`` names.
+
+    Dispatches as the JAX package's ``_ResidualUnitInner`` /
+    ``_ResidualUnitOuter`` do (``resample.py:270-361``): the fused kernel B4
+    for a channel count listed in ``MAGVIT2_TPU_FUSED_RU_WIDE_DIMS``, B5 for
+    the units of the lane-packed stem (``w_blocked``), else the unfused
+    modules. A fused call includes the ``+ x``."""
+
+    def __init__(self, dim: int, kernel_size, pad_mode: str = 'constant'):
+        super().__init__()
+        self.dim = dim
+        self.kernel_size = kernel_size
+        self.pad_mode = pad_mode
+        self.fn = nn.Sequential(
+            CausalConv3d(dim, dim, kernel_size, pad_mode=pad_mode),
+            nn.ELU(),
+            Linear(dim, dim),
+            nn.ELU(),
+            SqueezeExcite(dim),
+        )
+
+    def _fused_params(self):
+        """The unit's ten tensors in ``residual_unit_ref``'s order."""
+        conv, _, pw, _, se = self.fn
+        return (conv.conv.weight, conv.conv.bias, pw.weight, pw.bias,
+                se.to_k.weight, se.to_k.bias, se.net[0].weight,
+                se.net[0].bias, se.net[2].weight, se.net[2].bias)
+
+    def forward(self, x, w_blocked: bool = False):
+        if not w_blocked and ru_kernels.wide_eligible(
+                x, self.dim, self.kernel_size, self.pad_mode):
+            return ru_kernels.fused_residual_unit_wide(
+                x, *self._fused_params())
+        if ru_kernels.fused_eligible(x, self.dim, self.kernel_size,
+                                     w_blocked, self.pad_mode):
+            # activations stay unpacked in the port (ROADMAP A14)
+            return ru_kernels.fused_residual_unit(
+                x, *self._fused_params(), packed_io=False)
+        return self.fn(x) + x

@@ -122,12 +122,18 @@ def test_bf16_plain_versions_track_float32():
 
 def test_build_targets_hopper_and_hashes_sources():
     nvcc = '/usr/local/cuda/bin/nvcc'
-    cmd = _build.nvcc_command(nvcc, _build.BUILD_DIR / 'lib.so')
-    assert cmd[0] == nvcc
-    assert 'arch=compute_90a,code=sm_90a' in cmd
+    out = _build.BUILD_DIR / 'lib.so'
+    compiles, link = _build.nvcc_commands(nvcc, out)
+    for cmd in (*compiles, link):
+        assert cmd[0] == nvcc
+        assert 'arch=compute_90a,code=sm_90a' in cmd
     cu = {p.name for p in _build.SOURCE_DIR.glob('*.cu')}
-    assert cu == {'attention_block.cu', 'taylor_attention.cu'}
-    assert all(any(a.endswith(name) for a in cmd) for name in cu)
+    assert cu == {'attention_block.cu', 'residual_unit.cu',
+                  'taylor_attention.cu'}
+    # one compile per source, all objects linked into the library
+    assert sorted(c[-1].rsplit('/', 1)[-1] for c in compiles) == sorted(cu)
+    objects = [c[c.index('-o') + 1] for c in compiles]
+    assert link[-len(objects):] == objects and str(out) in link
     h = hashlib.sha256(' '.join(_build.NVCC_FLAGS).encode())
     for p in _build.sources():
         h.update(p.name.encode())

@@ -176,7 +176,7 @@ def pair():
     jtok = JaxTokenizer(seed=0, **CONFIG)
     params = _randomize(jax.tree.map(np.asarray, jtok.params),
                         np.random.default_rng(7), scale=0.2)
-    port = VideoTokenizer(seed=0, **CONFIG)
+    port = VideoTokenizer(device='cpu', seed=0, **CONFIG)
     port.load_state_dict(
         jax_import.state_dict_from_jax_params(jtok.config, params))
     return jtok, params, port

@@ -52,7 +52,7 @@ def _cl(x):
 @pytest.fixture(scope='module')
 def tiny_pair():
     jtok = JaxTokenizer(seed=0, **TINY)
-    port = VideoTokenizer(seed=1, **TINY)
+    port = VideoTokenizer(device='cpu', seed=1, **TINY)
     port.load_state_dict(state_dict_from_jax_params(
         jtok.config, jax.tree.map(np.asarray, jtok.params)))
     video = np.random.default_rng(0).random((2, 5, 16, 16, 3),
@@ -96,7 +96,7 @@ def test_bridge_round_trip_is_exact(kwargs):
     for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(params),
                             jax.tree_util.tree_leaves(back)):
         assert np.array_equal(a, b), jax.tree_util.keystr(path)
-    port = VideoTokenizer(seed=0, **kwargs)
+    port = VideoTokenizer(device='cpu', seed=0, **kwargs)
     port.load_state_dict(state, strict=True)
     assert set(port.state_dict()) == set(state)
 
@@ -128,7 +128,7 @@ def test_bridge_flips_trained_upsamplers():
         jax.tree.map(lambda a, b: np.testing.assert_array_equal(a, b),
                      want, back[key])
     jtok.params = jax.tree.map(jnp.asarray, params)
-    port = VideoTokenizer(seed=0, **TINY)
+    port = VideoTokenizer(device='cpu', seed=0, **TINY)
     port.load_state_dict(state, strict=True)
     codes = np.random.default_rng(10).integers(0, 256, size=(1, 3 * 8 * 8))
     want = np.asarray(jtok.decode_from_code_indices(codes))
@@ -146,7 +146,7 @@ def test_bridge_flips_trained_upsamplers():
 def test_port_weights_import_into_jax_package():
     """The port's own seeded weights go into the JAX package through
     ``load_torch_tokenizer_state_dict`` unchanged, and both then agree."""
-    port = VideoTokenizer(seed=5, **TINY)
+    port = VideoTokenizer(device='cpu', seed=5, **TINY)
     jtok = JaxTokenizer(seed=0, **TINY)
     jtok.load_torch_state_dict(
         {k: v.numpy() for k, v in port.state_dict().items()})
@@ -163,8 +163,8 @@ def test_port_weights_import_into_jax_package():
 def test_seeded_init_matches_reference_distributions():
     """Same seed, same weights; SE gates start at weight 0 / bias -10,
     upsamplers replicated, convs within torch's default bound."""
-    a = VideoTokenizer(seed=3, **TINY).state_dict()
-    b = VideoTokenizer(seed=3, **TINY).state_dict()
+    a = VideoTokenizer(device='cpu', seed=3, **TINY).state_dict()
+    b = VideoTokenizer(device='cpu', seed=3, **TINY).state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert torch.all(a['encoder_layers.0.fn.4.net.2.weight'] == 0)
     assert torch.all(a['encoder_layers.0.fn.4.net.2.bias'] == -10)
@@ -181,7 +181,7 @@ def test_golden_tok_lfq_fixture():
     f = np.load(DATA / 'tok_lfq.npz')
     config = json.loads(bytes(f['config']).decode())
     state = {k[3:]: f[k] for k in f.files if k.startswith('sd.')}
-    tok = VideoTokenizer(seed=0, **config)
+    tok = VideoTokenizer(device='cpu', seed=0, **config)
     tok.load_reference_state_dict(state)
     video = _cl(f['video'])
     np.testing.assert_allclose(tok.encode(video).numpy(), _cl(f['latents']),
@@ -201,7 +201,8 @@ def test_reference_state_dict_rejects_a_misfit():
     state = {k[3:]: f[k] for k in f.files if k.startswith('sd.')}
     state['conv_in.conv.weight'] = state['conv_in.conv.weight'][:, :2]
     with pytest.raises(ValueError, match='conv_in.conv.weight'):
-        VideoTokenizer(seed=0, **config).load_reference_state_dict(state)
+        VideoTokenizer(device='cpu', seed=0,
+                       **config).load_reference_state_dict(state)
 
 
 def test_tiny_roundtrip_matches_jax(tiny_pair):
@@ -253,7 +254,6 @@ def test_channel_first_image_and_no_first_frame_modes(tiny_pair):
     dict(separate_first_frame_encoding=True),
     dict(use_rotary_pos_emb=True),
     dict(attn_dropout=0.1),
-    dict(lane_pack=True),
     dict(remat='dots'),
     dict(streaming_kv_window=4),
     dict(pad_mode='reflect'),
@@ -261,7 +261,7 @@ def test_channel_first_image_and_no_first_frame_modes(tiny_pair):
 ], ids=lambda d: next(iter(d)) if 'layers' not in d else d['layers'][1])
 def test_outside_the_slice_raises(overrides):
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        VideoTokenizer(seed=0, **{**TINY, **overrides})
+        VideoTokenizer(device='cpu', seed=0, **{**TINY, **overrides})
 
 
 @pytest.mark.parametrize('mode', ['return_loss', 'return_discr_loss',
@@ -283,7 +283,7 @@ sys.path.insert(0, {str(REPO)!r})
 import numpy as np, torch
 torch.set_num_threads(1)
 from magvit2_pytorch_tpu_torch import VideoTokenizer
-tok = VideoTokenizer(seed=0, image_size=8, init_dim=4, codebook_size=16,
+tok = VideoTokenizer(device='cpu', seed=0, image_size=8, init_dim=4, codebook_size=16,
                      layers=('residual', 'compress_space', 'attend_space',
                              'compress_time', 'attend_time',
                              'linear_attend_space'),
