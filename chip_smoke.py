@@ -20,10 +20,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
    with live SqueezeExcite gates, plus a batch-boundary case. Every number
    is per launch at one shape; B4's kernels row is its
    (8, 20, 16, 16, 512) stage and lists every stage under ``stages``.
+   Then, outside ``inference_mode`` because they need autograd, the three
+   flash-attention kernels (forward, dQ, dK/dV): ragged and small with
+   every option ((2, 2, 130, d) / 134 keys, d in 16, 32, 64, causal and
+   not, no bias and each bias shape; output, lse and all four gradients),
+   the ``'auto'`` gate's edge ((2, 8, 1024, 32) / 1028 keys, causal), and
+   full width ((17, 8, 4096, 32) / 4100 keys, float32 and bf16) with times,
+   bounds and ``F.scaled_dot_product_attention`` forward and backward as
+   the library call; the plain version runs there in chunks of frames (its
+   float32 logits would take 9.1 GB at once). Every output and gradient is
+   held relative to the largest value of its reference.
 4. default flagship roundtrip, bfloat16, batch 8, seeded random weights,
    through ``VideoTokenizer.tokenize`` then ``decode_from_code_indices``:
    shapes, finite output, and launches per roundtrip: 2 of each attention
-   kernel, 0 of B4 and B5, and no ResidualUnit kernel call by shape; then
+   kernel, 0 of B4, B5 and the flash kernels, and no ResidualUnit kernel
+   call by shape; then
    frames/sec by the slope of chained runs (as ``bench.py``).
 5. fused flagship roundtrip: the same with ``lane_pack=True`` and
    ``MAGVIT2_TPU_FUSED_RU_WIDE_DIMS=64,128,256,512`` (set only inside the
@@ -35,6 +46,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (default and fused) against one CPU reference with the same weights:
    code bits may flip only where the CPU's decision margin |z| <= 5e-3 and
    for <= 1% of bits; decoding the same codes must agree within 1e-3.
+7. the general ``Attention`` path with the flash backend, forward and
+   backward: one step of ``SpaceAttention(512, dim_head=32, heads=8,
+   backend='flash')`` on (1, 17, 64, 64, 512) bf16 (4096 tokens a frame,
+   4100 keys with the memory KV): exactly 1 launch of each flash kernel and
+   0 of every other; output and the five gradients against the same module
+   with ``backend='plain'`` on the card; step times of both backends; then
+   float32, TF32 off, 2 frames, against the CPU. Smaller checks: what
+   ``'auto'`` picks on the card at n = 1024 and n = 256, flash against plain
+   ``attend`` on both sides of that threshold, a causal ``TimeAttention``
+   through flash, and a rotary and a ``dim_head=16`` module against the CPU.
 
 The second-to-last line is the card's ``nvidia-smi`` name and power limit,
 the line before it a JSON object with one entry per kernel; the last line is
@@ -63,6 +84,7 @@ def log(msg: str):
 
 # kernel name -> (CUDA source, TPU kernel it replaces)
 RU_SOURCE = 'magvit2_pytorch_tpu_torch/csrc/residual_unit.cu'
+FLASH_SOURCE = 'magvit2_pytorch_tpu_torch/csrc/flash_attention.cu'
 KERNELS = {
     'space_attention_block': (
         'magvit2_pytorch_tpu_torch/csrc/attention_block.cu',
@@ -77,16 +99,30 @@ KERNELS = {
         RU_SOURCE, 'magvit2_pytorch_tpu/ops/pallas/residual_unit_wide.py:56'),
     'residual_unit_packed': (
         RU_SOURCE, 'magvit2_pytorch_tpu/ops/pallas/residual_unit.py:121'),
+    'flash_attention_fwd': (
+        FLASH_SOURCE, 'magvit2_pytorch_tpu/ops/pallas/flash_attention.py:51'),
+    'flash_attention_bwd_dq': (
+        FLASH_SOURCE, 'magvit2_pytorch_tpu/ops/pallas/flash_attention.py:190'),
+    'flash_attention_bwd_dkv': (
+        FLASH_SOURCE, 'magvit2_pytorch_tpu/ops/pallas/flash_attention.py:249'),
 }
+FLASH_KERNELS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
+                 'flash_attention_bwd_dkv')
 # launches per roundtrip on each path (encoder + decoder): the flagship has
-# 11 ResidualUnits a side, the first (64 channels, the lane-packed stem) B5
+# 11 ResidualUnits a side, the first (64 channels, the lane-packed stem) B5;
+# and per step (forward + backward) of the general Attention path
+NO_FLASH = dict.fromkeys(FLASH_KERNELS, 0)
 LAUNCHES = {
     'default': {'space_attention_block': 2, 'time_attention_block': 2,
                 'taylor_attention_block': 2, 'residual_unit_wide': 0,
-                'residual_unit_packed': 0},
+                'residual_unit_packed': 0, **NO_FLASH},
     'fused': {'space_attention_block': 2, 'time_attention_block': 2,
               'taylor_attention_block': 2, 'residual_unit_wide': 20,
-              'residual_unit_packed': 2},
+              'residual_unit_packed': 2, **NO_FLASH},
+    'attention_step': {'space_attention_block': 0, 'time_attention_block': 0,
+                       'taylor_attention_block': 0, 'residual_unit_wide': 0,
+                       'residual_unit_packed': 0,
+                       **dict.fromkeys(FLASH_KERNELS, 1)},
 }
 FUSED_ENV = {'MAGVIT2_TPU_FUSED_RU_WIDE_DIMS': '64,128,256,512'}
 
@@ -103,8 +139,31 @@ FUSED_ENV = {'MAGVIT2_TPU_FUSED_RU_WIDE_DIMS': '64,128,256,512'}
 #   (tests/test_fused_residual_wide.py:60): the kernel rounds the conv, the
 #   1x1, the SE logit, attention, context, MLP and gate products to bf16, and
 #   the output (up to ~6 in magnitude) to 2^-8 relative.
+# - flash attention, against its plain version in float32 on the same
+#   inputs (N(0, 1) q, k, v, dO and bias). Outputs and gradients are held
+#   relative to the largest value of the reference, max|a - r| / max|r|,
+#   because their size depends on the shape: ~4-8 at 134 keys, ~0.4-0.7 at
+#   4100 keys (a softmax over m keys averages v down by sqrt(m)), and one
+#   absolute limit that admits the first would pass a wrong kernel at the
+#   second. float32: the same sums in tiles of 64 keys with an online
+#   softmax, observed ~1e-6 of the largest value, so 1e-4. bfloat16: the
+#   kernel rounds P and dS to bf16 (2^-9 relative) as tensor-core operands
+#   and the outputs to bf16; such roundings summed over the keys gave up to
+#   5.4e-3 of the largest value (dk, 1028 keys, causal), so 2e-2. lse is of magnitude 3-9 and stays
+#   float32 in both (products of bf16 inputs are exact in float32): 1e-4
+#   absolute.
 TOL = {'float32': 1e-4, 'bfloat16': 5e-2}
 RU_TOL = {'float32': 1e-4, 'bfloat16': 6e-2}
+FLASH_TOL = {'float32': 1e-4, 'bfloat16': 2e-2, 'lse': 1e-4}
+# module-level checks of the attention step, relative to the largest value
+# of the reference: bf16 flash against bf16 plain on the card (both round
+# q, k, v, the output and every gradient to bf16; parameter gradients sum
+# 69632 tokens of such terms), float32 card against float32 CPU
+STEP_TOL = {'bfloat16': 5e-2, 'float32': 1e-4}
+# the attention step's shape: the flagship's space-attention stage at 512 px
+STEP_SHAPE = (1, 17, 64, 64, 512)
+FLASH_FULL = dict(b=17, h=8, n=4096, m=4100, d=32)
+PLAIN_CHUNK = 4     # frames per call of the plain version at full width
 BATCH = 8
 REPS = 20           # timed runs per kernel, after warm-up
 # the flagship's ResidualUnit stages: (C, T, H = W, launches of B4 per fused
@@ -672,6 +731,421 @@ def drive_path(torch, dev, path, smi, profile_dir):
     return counts, dict(tp, ru_ms=ru_ms)
 
 
+def flash_cost(bh, n, m, d, causal, kernel):
+    """FLOPs and bytes of one flash-attention kernel in bf16 over the
+    visible (query, key) pairs only: the forward forms S and P V (4 d per
+    pair), dQ forms S, dP and dS K (6 d), dK/dV forms S, P^T dO, dP and
+    dS^T Q (8 d); every input read once, every output written once (q, k,
+    v, dO and the outputs in bf16, lse and delta in float32)."""
+    pairs = bh * sum(min(m, i + 1 + m - n) if causal else m
+                     for i in range(n))
+    qo, kv, rows = 2 * bh * n * d, 2 * bh * m * d, 4 * bh * n
+    if kernel == 'flash_attention_fwd':
+        return 4 * d * pairs, 2 * qo + 2 * kv + rows
+    if kernel == 'flash_attention_bwd_dq':
+        return 6 * d * pairs, 3 * qo + 2 * kv + 2 * rows
+    return 8 * d * pairs, 2 * qo + 4 * kv + 2 * rows
+
+
+def flash_inputs(torch, dev, dtype, b, h, n, m, d, bias_kind, seed):
+    """q, k, v, dO and the bias (or None) from a seed, N(0, 1)."""
+    gen = torch.Generator().manual_seed(seed)
+    shapes = [(b, h, n, d), (b, h, m, d), (b, h, m, d), (b, h, n, d)]
+    if bias_kind:
+        shapes.append({'nm': (n, m), 'hnm': (h, n, m),
+                       'bhnm': (b, h, n, m)}[bias_kind])
+    ts = [torch.randn(s, generator=gen).to(dev).to(dtype) for s in shapes]
+    return ts if bias_kind else ts + [None]
+
+
+def flash_errors(torch, fa, q, k, v, dout, bias, causal, frames=None):
+    """Errors of the wrapper's output, lse and gradients against the plain
+    forward and backward in float32 on the same inputs: for each tensor the
+    max abs error and that error over the largest value of the reference
+    (``flash_relative`` makes one dict of the two). With ``frames`` the
+    plain version runs that many batch elements at a time."""
+    b, h, n, d = q.shape
+    m = k.shape[2]
+    scale = d ** -0.5
+    ins = [t.detach().clone().requires_grad_()
+           for t in (q, k, v) + ((bias,) if bias is not None else ())]
+    out = fa.flash_attention(*ins[:3], causal=causal,
+                             bias=ins[3] if bias is not None else None)
+    grads = torch.autograd.grad(out, ins, dout)
+    groups = (None if bias is None
+              else fa.bias_groups(bias, b, h, n, m))
+    _, lse = fa.flash_forward(q, k, v, groups, causal, scale)
+    torch.cuda.synchronize()
+    errs = dict.fromkeys(('out', 'lse', 'dq', 'dk', 'dv'), 0.0)
+    peaks = dict(errs)
+    step = frames or b
+    assert bias is None or step == b
+    for i in range(0, b, step):
+        f = [t[i:i + step].float() for t in (q, k, v, dout)]
+        g32 = None if groups is None else groups.float()
+        o_ref, lse_ref = fa.flash_attention_ref(*f[:3], causal, scale, g32)
+        ref = fa.flash_attention_bwd_ref(*f[:3], g32, o_ref, lse_ref, f[3],
+                                         causal, scale)
+        got = (out, lse, *grads[:3])
+        for key, a, r in zip(errs, got, (o_ref, lse_ref, *ref[:3])):
+            errs[key] = max(errs[key],
+                            (a[i:i + step].float() - r).abs().max().item())
+            peaks[key] = max(peaks[key], r.abs().max().item())
+        if bias is not None:
+            db_ref = ref[3].reshape(grads[3].shape)
+            errs['dbias'] = (grads[3].float() - db_ref).abs().max().item()
+            peaks['dbias'] = db_ref.abs().max().item()
+        del f, o_ref, lse_ref, ref
+    finite = all(bool(torch.isfinite(t).all()) for t in (out, lse, *grads))
+    return errs, peaks, finite
+
+
+def flash_relative(errs, peaks):
+    """What the flash checks hold to their tolerance: lse's max abs error,
+    every other tensor's max abs error over the reference's largest value."""
+    return {key: err if key == 'lse' else err / max(peaks[key], 1e-30)
+            for key, err in errs.items()}
+
+
+def check_flash_errors(what, dtype_name, errs, peaks, finite):
+    if not finite:
+        fail(f'{what}: non-finite kernel output')
+    for key, rel in flash_relative(errs, peaks).items():
+        tol = FLASH_TOL['lse' if key == 'lse' else dtype_name]
+        if not rel <= tol:
+            fail(f'{what}: {key} differs from the plain version by {rel} '
+                 f'{"" if key == "lse" else "of its largest value "}> {tol} '
+                 f'(max abs error {errs[key]}, largest value {peaks[key]})')
+
+
+def phase_flash_kernels(torch, dev, reps, smi):
+    """The three flash-attention kernels against their plain versions on
+    the card, then their times at full width. Returns one row per kernel
+    for the result line."""
+    import torch.nn.functional as F
+    from magvit2_pytorch_tpu_torch.ops.kernels import flash_attention as fa
+    set_tf32(False)
+    dtypes = (('float32', torch.float32), ('bfloat16', torch.bfloat16))
+    worst = {name: dict.fromkeys(('out', 'lse', 'dq', 'dk', 'dv', 'dbias'),
+                                 0.0) for name, _ in dtypes}
+    cases = [(2, 2, 130, 134, d, causal, bias)
+             for d in (16, 32, 64) for causal in (False, True)
+             for bias in (None, 'nm', 'hnm', 'bhnm')]
+    cases.append((2, 8, 1024, 1028, 32, True, None))    # the 'auto' gate's edge
+    for seed, (b, h, n, m, d, causal, bias_kind) in enumerate(cases):
+        for name, dtype in dtypes:
+            *qkvo, bias = flash_inputs(torch, dev, dtype, b, h, n, m, d,
+                                       bias_kind, seed)
+            errs, peaks, finite = flash_errors(torch, fa, *qkvo, bias,
+                                               causal)
+            what = (f'flash attention ({b}, {h}, {n}, {d}) / {m} keys '
+                    f'{name} causal={causal} bias={bias_kind}')
+            check_flash_errors(what, name, errs, peaks, finite)
+            rel = flash_relative(errs, peaks)
+            for key, err in rel.items():
+                worst[name][key] = max(worst[name][key], err)
+            if n == 1024:
+                log(f'[kernel] {what}: max_abs_err {errs}, held as {rel}')
+    for name, _ in dtypes:
+        log(f'[kernel] flash attention, {len(cases) - 1} ragged cases '
+            f'(2, 2, 130, d) / 134 keys, d in 16, 32, 64, causal and not, '
+            f'no bias and (n, m), (h, n, m), (b, h, n, m) biases, and the '
+            f'(2, 8, 1024, 32) / 1028 causal case, {name}: worst error over '
+            f'the largest value of the reference (lse: max abs error) '
+            f'{worst[name]} (tol {FLASH_TOL[name]:g}, lse '
+            f'{FLASH_TOL["lse"]:g})')
+
+    # full width: the flagship's space-attention stage at 512 px, every
+    # frame of it in both dtypes (65 key tiles, the last one of 4 keys)
+    b, h, n, m, d = (FLASH_FULL[key] for key in 'bhnmd')
+    scale = d ** -0.5
+    q, k, v, dout, _ = flash_inputs(torch, dev, torch.bfloat16, b, h, n, m,
+                                    d, None, 99)
+    full = {}
+    for name, dtype in dtypes:
+        errs, peaks, finite = flash_errors(
+            torch, fa, *(t.to(dtype) for t in (q, k, v, dout)), None, False,
+            frames=PLAIN_CHUNK)
+        what = f'flash attention ({b}, {h}, {n}, {d}) / {m} keys {name}'
+        check_flash_errors(what, name, errs, peaks, finite)
+        full[name] = (errs, flash_relative(errs, peaks))
+        log(f'[kernel] {what}, plain in float32 {PLAIN_CHUNK} frames at a '
+            f'time: max_abs_err {errs}, largest values {peaks}, held as '
+            f'{full[name][1]} (tol {FLASH_TOL[name]:g}, lse '
+            f'{FLASH_TOL["lse"]:g})')
+    out, lse = fa.flash_forward(q, k, v, None, False, scale)
+    delta = fa.row_delta(dout, out)
+
+    def plain_forward(qs, ks, vs):
+        for i in range(0, b, PLAIN_CHUNK):
+            fa.flash_attention_ref(*(t[i:i + PLAIN_CHUNK]
+                                     for t in (qs, ks, vs)), False, scale)
+
+    def plain_backward(qs, ks, vs, dos, outs, lses):
+        for i in range(0, b, PLAIN_CHUNK):
+            part = [t[i:i + PLAIN_CHUNK] for t in (qs, ks, vs)]
+            fa.flash_attention_bwd_ref(
+                *part, None, outs[i:i + PLAIN_CHUNK], lses[i:i + PLAIN_CHUNK],
+                dos[i:i + PLAIN_CHUNK], False, scale)
+
+    calls = {
+        'flash_attention_fwd': lambda *t: fa.flash_forward(
+            t[0], t[1], t[2], None, False, scale),
+        'flash_attention_bwd_dq': lambda *t: fa.flash_backward_dq(
+            t[0], t[1], t[2], None, t[3], lse, delta, False, scale),
+        'flash_attention_bwd_dkv': lambda *t: fa.flash_backward_dkv(
+            t[0], t[1], t[2], None, t[3], lse, delta, False, scale),
+    }
+    with torch.no_grad():
+        ms = {name: median_ms(lambda: call(q, k, v, dout), reps)
+              for name, call in calls.items()}
+        plain_fwd = median_ms(lambda: plain_forward(q, k, v), 5, warmup=1)
+        plain_bwd = median_ms(
+            lambda: plain_backward(q, k, v, dout, out, lse), 5, warmup=1)
+        q32, k32, v32, do32 = (t.float() for t in (q, k, v, dout))
+        ms32 = {name: median_ms(lambda: call(q32, k32, v32, do32), 5,
+                                warmup=1)
+                for name, call in calls.items()}
+        plain_fwd32 = median_ms(lambda: plain_forward(q32, k32, v32), 5,
+                                warmup=1)
+        plain_bwd32 = median_ms(
+            lambda: plain_backward(q32, k32, v32, do32, out, lse), 5,
+            warmup=1)
+        del q32, k32, v32, do32
+        sdpa_fwd = median_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v), reps)
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qg, kg, vg)
+    sdpa_bwd = median_ms(lambda: torch.autograd.grad(
+        o, (qg, kg, vg), dout, retain_graph=True), reps)
+    del qg, kg, vg, o
+    rows = {}
+    for name in FLASH_KERNELS:
+        fwd = name == 'flash_attention_fwd'
+        bound_ms, bound_by = bound(*flash_cost(b * h, n, m, d, False, name))
+        keys = (('out', 'lse') if fwd else ('dq',) if name.endswith('dq')
+                else ('dk', 'dv'))
+        err, err32 = (max(full[dt][0][key] for key in keys)
+                      for dt in ('bfloat16', 'float32'))
+        rel, rel32 = (max(full[dt][1][key] for key in keys if key != 'lse')
+                      for dt in ('bfloat16', 'float32'))
+        rows[name] = dict(
+            shape=[b, h, n, d], keys=m, per='launch', max_abs_err=err,
+            max_abs_err_fp32=err32, max_rel_err=rel, max_rel_err_fp32=rel32,
+            ms=ms[name], plain_ms=plain_fwd if fwd else plain_bwd,
+            plain_call=('flash_attention_ref' if fwd else
+                        'flash_attention_bwd_ref, which forms dq, dk and dv '
+                        'together') + f', {PLAIN_CHUNK} frames at a time',
+            ms_fp32=ms32[name],
+            plain_ms_fp32=plain_fwd32 if fwd else plain_bwd32,
+            library_ms=sdpa_fwd if fwd else sdpa_bwd,
+            library_call='F.scaled_dot_product_attention' + (
+                '' if fwd else ' backward, which forms dq, dk and dv '
+                'together'),
+            bound_ms=bound_ms, bound_by=bound_by)
+        log(f'[kernel] {name} ({b}, {h}, {n}, {d}) / {m} keys: max_abs_err '
+            f'bf16 {err:.3e}, fp32 {err32:.3e}; over the largest value bf16 '
+            f'{rel:.3e} (tol {FLASH_TOL["bfloat16"]:g}), fp32 {rel32:.3e} '
+            f'(tol {FLASH_TOL["float32"]:g}); bf16 kernel '
+            f'{ms[name]:.4f} ms (median of {reps}), plain '
+            f'{rows[name]["plain_ms"]:.4f} ms ({rows[name]["plain_call"]}), '
+            f'library {rows[name]["library_ms"]:.4f} ms '
+            f'({rows[name]["library_call"]}), bound {bound_ms:.4f} ms '
+            f'({bound_by}); fp32 kernel {ms32[name]:.4f} ms, plain '
+            f'{rows[name]["plain_ms_fp32"]:.4f} ms (medians of 5) on {smi}')
+    return rows
+
+
+def relative_error(got, want):
+    """max |got - want| over the largest |want|, in float32."""
+    want = want.float()
+    return ((got.float().to(want.device) - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+def attention_module(torch, kind, device, dtype, seed=0, **kw):
+    """An attention module of the port with seeded weights (norm gamma
+    around 1), as the tokenizer seeds its layers."""
+    from magvit2_pytorch_tpu_torch.ops import attention
+    from magvit2_pytorch_tpu_torch.ops.basic import init_module_parameters
+    module = getattr(attention, kind)(512, heads=8, **kw)
+    gen = torch.Generator().manual_seed(seed)
+    init_module_parameters(module, gen)
+    with torch.no_grad():
+        module.norm.gamma.copy_(
+            1 + 0.1 * torch.randn(module.norm.gamma.shape, generator=gen))
+    return module.to(device=device, dtype=dtype)
+
+
+def attention_step(torch, module, x, g):
+    """One step: forward, ``loss = (out * g).sum()``, backward. Returns the
+    output and the gradients of x and the four parameters."""
+    x = x.detach().clone().requires_grad_()
+    module.zero_grad(set_to_none=True)
+    out = module(x)
+    (out * g).sum().backward()
+    return [out.detach(), x.grad] + [p.grad for p in module.parameters()]
+
+
+# module.parameters(): the module's own mem_kv first, then its children's
+STEP_NAMES = ('out', 'dx', 'dmem_kv', 'dgamma', 'dwqkv', 'dwout')
+
+
+def compare_steps(what, got, want, tol):
+    errs = {}
+    for name, a, b in zip(STEP_NAMES, got, want):
+        if a is None or not bool(a.isfinite().all()):
+            fail(f'{what}: {name} is missing or not finite')
+        errs[name] = relative_error(a, b)
+        if not errs[name] <= tol:
+            fail(f'{what}: {name} differs by {errs[name]} of the largest '
+                 f'value (> {tol})')
+    return errs
+
+
+def phase_attention_step(torch, dev, reps, smi):
+    """The general Attention path with the flash backend, forward and
+    backward, at the flagship's space-attention stage at 512 px. Returns the
+    launch counts of the step."""
+    from magvit2_pytorch_tpu_torch.ops import attend as attend_mod
+    from magvit2_pytorch_tpu_torch.ops.kernels import (
+        launch_counts, reset_launch_counts)
+    set_tf32(False)
+    gen = torch.Generator().manual_seed(21)
+    x = torch.randn(STEP_SHAPE, generator=gen).to(dev).bfloat16()
+    g = torch.randn(STEP_SHAPE, generator=gen).to(dev).bfloat16()
+    modules = {backend: attention_module(
+        torch, 'SpaceAttention', dev, torch.bfloat16, dim_head=32,
+        backend=backend) for backend in ('flash', 'plain')}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    flash = attention_step(torch, modules['flash'], x, g)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for name, want in LAUNCHES['attention_step'].items():
+        if counts.get(name) != want:
+            fail(f'attention step: {name} launched {counts.get(name)} '
+                 f'times, expected {want}')
+    if tuple(flash[0].shape) != STEP_SHAPE:
+        fail(f'attention step: output shape {tuple(flash[0].shape)}')
+    plain = attention_step(torch, modules['plain'], x, g)
+    errs = compare_steps('attention step, flash against plain, bf16', flash,
+                         plain, STEP_TOL['bfloat16'])
+    del flash, plain
+    times = {}
+    for backend in ('plain', 'flash', 'flash', 'plain'):
+        torch.cuda.reset_peak_memory_stats()
+        ms = median_ms(lambda: attention_step(torch, modules[backend], x, g),
+                       10, warmup=1)
+        times.setdefault(backend, []).append(
+            (ms, torch.cuda.max_memory_allocated() / 1e9))
+    log(f'[attention step] SpaceAttention(512, dim_head=32, heads=8) on '
+        f'{STEP_SHAPE} bf16, forward + backward: launches {counts}; flash '
+        f'against plain, error over the largest value {errs} (tol '
+        f'{STEP_TOL["bfloat16"]:g}); step ms and peak GB, medians of 10 in '
+        f'the order plain, flash, flash, plain: flash {times["flash"]}, '
+        f'plain {times["plain"]} on {smi}')
+    del modules, x, g
+    torch.cuda.empty_cache()
+
+    # float32, TF32 off, 2 frames: the card (flash) against the CPU (plain)
+    shape = (1, 2) + STEP_SHAPE[2:]
+    x = torch.randn(shape, generator=gen)
+    g = torch.randn(shape, generator=gen)
+    card = attention_step(torch, attention_module(
+        torch, 'SpaceAttention', dev, torch.float32, dim_head=32,
+        backend='flash'), x.to(dev), g.to(dev))
+    cpu = attention_step(torch, attention_module(
+        torch, 'SpaceAttention', 'cpu', torch.float32, dim_head=32,
+        backend='plain'), x, g)
+    errs = compare_steps('attention step, card flash against CPU plain, '
+                         'float32', card, cpu, STEP_TOL['float32'])
+    log(f'[attention step] float32 {shape}, TF32 off, card (flash) against '
+        f'CPU (plain): error over the largest value {errs} (tol '
+        f'{STEP_TOL["float32"]:g})')
+    del card, cpu
+
+    # what 'auto' picks on the card, and flash against plain around it
+    def qkv(n, frames=17):
+        return [torch.randn(frames, 8, s, 32, device=dev,
+                            dtype=torch.bfloat16) for s in (n, n + 4, n + 4)]
+    picks = {}
+    for n in (1024, 256):
+        reset_launch_counts()
+        with torch.no_grad():
+            attend_mod.attend(*(t[:1, :, :n] for t in qkv(n)), backend='auto')
+        picks[n] = launch_counts()['flash_attention_fwd']
+    if picks != {1024: 1, 256: 0}:
+        fail(f"'auto' on the card: flash forward launches by n {picks}, "
+             'expected flash at n = m = 1024 and plain at 256')
+    for n in (256, 1024, 4096):
+        q, k, v = (t.requires_grad_() for t in qkv(n))
+        go = torch.randn_like(q)
+        row = {}
+        for backend in ('plain', 'flash', 'flash', 'plain'):
+            def fwd():
+                with torch.no_grad():
+                    attend_mod.attend(q, k, v, backend=backend)
+
+            def both():
+                out = attend_mod.attend(q, k, v, backend=backend)
+                torch.autograd.grad(out, (q, k, v), go)
+
+            row.setdefault(backend, []).append(
+                (median_ms(fwd, 10, warmup=1), median_ms(both, 10, warmup=1)))
+        log(f"[auto threshold] attend on (17, 8, {n}, 32) / {n + 4} keys "
+            f'bf16, (forward, forward + backward) ms, medians of 10 in the '
+            f'order plain, flash, flash, plain: flash {row["flash"]}, plain '
+            f'{row["plain"]} on {smi}')
+        del q, k, v, go
+    torch.cuda.empty_cache()
+
+    # a causal TimeAttention through flash (n = 5, m = 9); the block gate
+    # would take t <= 16, so it is switched off inside this check only
+    shape = (8, 5, 16, 16, 512)
+    x = torch.randn(shape, generator=gen).to(dev)
+    g = torch.randn(shape, generator=gen).to(dev)
+    with environment({'MAGVIT2_TPU_NO_FUSED_ATTN': '1'}):
+        steps = {}
+        for backend in ('flash', 'plain'):
+            reset_launch_counts()
+            steps[backend] = attention_step(torch, attention_module(
+                torch, 'TimeAttention', dev, torch.float32, dim_head=32,
+                backend=backend), x, g)
+            moved = launch_counts()['flash_attention_fwd']
+            if moved != (1 if backend == 'flash' else 0):
+                fail(f'TimeAttention(backend={backend!r}): {moved} flash '
+                     'forward launches')
+    errs = compare_steps('TimeAttention, flash against plain, float32',
+                         steps['flash'], steps['plain'], STEP_TOL['float32'])
+    log(f'[attention step] TimeAttention(512, backend=flash) on {shape} '
+        f'float32, causal, 5 queries / 9 keys, flash against plain: error '
+        f'over the largest value {errs} (tol {STEP_TOL["float32"]:g})')
+    del steps
+
+    # modules the block kernels do not take, on the card against the CPU
+    shape = (1, 2, 16, 16, 512)
+    x = torch.randn(shape, generator=gen)
+    g = torch.randn(shape, generator=gen)
+    for what, kw in (('use_rotary=True', dict(dim_head=32, use_rotary=True)),
+                     ('dim_head=16', dict(dim_head=16))):
+        reset_launch_counts()
+        card = attention_step(torch, attention_module(
+            torch, 'SpaceAttention', dev, torch.float32, **kw),
+            x.to(dev), g.to(dev))
+        if any(launch_counts().values()):
+            fail(f'SpaceAttention({what}) launched {launch_counts()}: the '
+                 'general path without flash is plain PyTorch')
+        cpu = attention_step(torch, attention_module(
+            torch, 'SpaceAttention', 'cpu', torch.float32, **kw), x, g)
+        errs = compare_steps(f'SpaceAttention({what}), card against CPU',
+                             card, cpu, STEP_TOL['float32'])
+        log(f'[attention step] SpaceAttention(512, {what}) on {shape} '
+            f'float32, card against CPU: error over the largest value '
+            f'{errs} (tol {STEP_TOL["float32"]:g})')
+    return counts
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument('--out', default=None,
@@ -693,7 +1167,8 @@ def main():
     except ImportError as e:
         fail(f'the port package is not beside this script: {e}')
     for name in (*FUSED_ENV, 'MAGVIT2_TPU_NO_FUSED_RU',
-                 'MAGVIT2_TPU_NO_FUSED_RU_WIDE', 'MAGVIT2_TPU_NO_FUSED_RU_W64'):
+                 'MAGVIT2_TPU_NO_FUSED_RU_WIDE', 'MAGVIT2_TPU_NO_FUSED_RU_W64',
+                 'MAGVIT2_TPU_NO_FUSED_ATTN'):
         os.environ.pop(name, None)        # the default path is the default
     dev = torch.device('cuda', 0)
     torch.manual_seed(0)
@@ -715,6 +1190,8 @@ def main():
     with torch.inference_mode():
         kernel_rows = phase_kernels(torch, dev, REPS)
     torch.cuda.empty_cache()
+    kernel_rows.update(phase_flash_kernels(torch, dev, REPS, smi))
+    torch.cuda.empty_cache()
     profile_dir = args.out if args.profile else None
     counts, tp = {}, {}
     counts['default'], tp['default'] = drive_path(torch, dev, 'default', smi,
@@ -725,11 +1202,16 @@ def main():
     log(f'[throughput] frames/s, bf16 batch {BATCH}: default '
         f'{tp["default"]["fps"]:.2f}, fused {tp["fused"]["fps"]:.2f} on {smi}')
     phase_card_vs_cpu(torch, dev)
+    counts['attention_step'] = phase_attention_step(torch, dev, REPS, smi)
 
     if 'jax' in sys.modules:
         fail('JAX was imported')
     kernels = [{'name': name, 'route': 'cuda', 'source': source,
-                'replaces': replaces, 'launches': counts['fused'][name],
+                'replaces': replaces,
+                # on the path that runs the kernel: a fused roundtrip, or
+                # one step of the general Attention path
+                'launches': counts['attention_step' if name in FLASH_KERNELS
+                                   else 'fused'][name],
                 'launches_by_path': {p: counts[p][name] for p in counts},
                 # all of this kernel's calls in one warm fused roundtrip
                 'fused_roundtrip_ms': tp['fused']['ru_ms'].get(name),

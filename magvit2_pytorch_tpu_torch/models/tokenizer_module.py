@@ -10,6 +10,14 @@ unless ``apply_final_norm``: reference quirk #10).
 
 The port covers the serving slice: every layer type and option outside it
 raises ``NotImplementedError`` naming its ROADMAP.md item.
+
+``flash_attn`` never changes the model graph, in either package: it only
+picks the ``attend`` backend the attention layers are built with (None, i.e.
+``'auto'``, or the plain one), and a layer without a mask takes the fused
+block or ``attend_with_memory`` whatever that backend is
+(``magvit2_pytorch_tpu/ops/attention.py:160-166``). ``use_rotary_pos_emb``
+and ``attn_dropout > 0`` make every attention layer ineligible for the fused
+blocks, as in the JAX package, and take the general path.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ from magvit2_pytorch_tpu_torch.ops.quantizers import LFQ
 from magvit2_pytorch_tpu_torch.ops.resample import (
     ResidualUnit, SpatialDownsample2x, SpatialUpsample2x, TimeDownsample2x,
     TimeUpsample2x)
-from magvit2_pytorch_tpu_torch.utils.helpers import exists
+from magvit2_pytorch_tpu_torch.utils.helpers import exists, not_ported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,11 +134,6 @@ class TokenizerConfig:
         return cls(**d)
 
 
-def not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f'{what} is not ported to PyTorch yet: ROADMAP.md queue A item {item}')
-
-
 def check_supported(cfg: TokenizerConfig):
     """Raise ``NotImplementedError`` for any config outside the port's slice;
     nothing is silently ignored."""
@@ -145,8 +148,6 @@ def check_supported(cfg: TokenizerConfig):
         (exists(cfg.dim_cond), 'dim_cond (conditioning)', '9'),
         (cfg.separate_first_frame_encoding,
          'separate_first_frame_encoding=True', '7'),
-        (cfg.use_rotary_pos_emb, 'use_rotary_pos_emb=True', '5'),
-        (cfg.attn_dropout > 0, 'attn_dropout > 0', '5'),
         (exists(cfg.streaming_kv_window), 'streaming_kv_window', '10'),
         (bool(cfg.remat), 'remat (training)', '12'),
         (cfg.pad_mode not in ('constant', 'zeros'),
@@ -192,10 +193,19 @@ def _apply_layer(layer, x, w_blocked: bool):
     return x
 
 
+def _attend_backend(cfg: TokenizerConfig) -> Optional[str]:
+    """flash_attn=True -> the default ('auto') dispatch of ``attend``, else
+    the plain backend (``tokenizer_module.py:247-250`` of the JAX package)."""
+    return None if cfg.flash_attn else 'plain'
+
+
 def _build_layer(spec: LayerSpec, cfg: TokenizerConfig, encoder: bool):
     t = spec.layer_type
     k = cfg.residual_conv_kernel_size
     dim, dim_out = spec.dim_in, spec.dim_out
+    attn = dict(dim_head=cfg.attn_dim_head, heads=cfg.attn_heads,
+                backend=_attend_backend(cfg), dropout=cfg.attn_dropout,
+                use_rotary=cfg.use_rotary_pos_emb)
 
     if t == 'residual':
         return ResidualUnit(dim, k, pad_mode=cfg.pad_mode)
@@ -213,8 +223,7 @@ def _build_layer(spec: LayerSpec, cfg: TokenizerConfig, encoder: bool):
         return TimeUpsample2x(dim_out, dim)
     if t == 'attend_space':
         return nn.Sequential(
-            Residual(SpaceAttention(dim, dim_head=cfg.attn_dim_head,
-                                    heads=cfg.attn_heads)),
+            Residual(SpaceAttention(dim, **attn)),
             Residual(FeedForward(dim)))
     if t == 'linear_attend_space':
         return nn.Sequential(
@@ -224,8 +233,7 @@ def _build_layer(spec: LayerSpec, cfg: TokenizerConfig, encoder: bool):
             Residual(FeedForward(dim)))
     if t == 'attend_time':
         return nn.Sequential(
-            Residual(TokenShift(TimeAttention(dim, dim_head=cfg.attn_dim_head,
-                                              heads=cfg.attn_heads))),
+            Residual(TokenShift(TimeAttention(dim, **attn))),
             Residual(TokenShift(FeedForward(dim))))
     raise ValueError(f'unknown layer type {t}')
 

@@ -2,37 +2,70 @@
 ``magvit2_pytorch_tpu/ops/attention.py``): full attention with learned memory
 KV, its axial space/time wrappers, and Taylor-series linear attention.
 
-Each module holds the reference's parameters and hands them to a kernel
-wrapper (``ops/kernels``): the CUDA kernel on the card, its plain version on
-the CPU. Only the slice's mode is ported: no cond, rotary positions,
-dropout, masks or kv-cache streaming (ROADMAP.md queue A items 5, 9, 10).
+``Attention`` has two paths, chosen by a static gate that does not look at
+the device (``ops/kernels/axial_attention.py:fused_eligible``):
+
+- the fused block: the module hands its parameters to one kernel wrapper
+  (norm, qkv, memory-KV softmax attention, out projection; the CUDA kernel
+  on the card, its plain version on the CPU);
+- the general path, for rotary positions, attention dropout, a key-padding
+  mask, ``backend='flash'``, long sequences and head sizes the block kernel
+  does not take: RMSNorm, ``to_qkv``, optional rotary, then dropout with
+  explicit probabilities, or ``attend_with_memory``, or the memory KV
+  concatenated in front of k and v and ``attend`` (which reaches the flash
+  kernels), then ``to_out``. The projections are plain PyTorch on the card
+  too, as the JAX package leaves them to XLA.
+
+Not ported: ``dim_cond`` (ROADMAP.md queue A item 9) and the streaming
+kv-cache (item 10).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
+from magvit2_pytorch_tpu_torch.ops.attend import (
+    attend, attend_with_memory, causal_hidden)
 from magvit2_pytorch_tpu_torch.ops.basic import Linear
 from magvit2_pytorch_tpu_torch.ops.kernels.axial_attention import (
-    attention_block, time_attention_block)
+    attention_block, fused_eligible, fused_time_eligible,
+    time_attention_block)
 from magvit2_pytorch_tpu_torch.ops.kernels.taylor_attention import (
     taylor_attention)
 from magvit2_pytorch_tpu_torch.ops.norms import RMSNorm
+from magvit2_pytorch_tpu_torch.ops.rotary import (
+    apply_rope, rope_angles, rope_angles_2d)
+from magvit2_pytorch_tpu_torch.utils.helpers import exists, not_ported
 
 
 class Attention(nn.Module):
     """Pre-norm multi-head attention with ``num_memory_kv`` learned key/values
     (reference magvit2_pytorch.py:327-388) on sequences ``(B, N, C)``.
     Parameters: ``norm.gamma``, ``to_qkv.0.weight``, ``mem_kv``,
-    ``to_out.1.weight``."""
+    ``to_out.1.weight``.
+
+    ``backend``: the ``attend`` backend of the general path (None = the
+    default, ``'auto'``); ``'flash'`` also keeps the module off
+    ``attend_with_memory``. ``use_rotary``: rotary positions on q and k.
+    ``dropout``: attention-probability dropout, applied only when
+    ``forward`` is given a ``torch.Generator``."""
 
     def __init__(self, dim: int, dim_head: int = 32, heads: int = 8,
-                 num_memory_kv: int = 4, causal: bool = False):
+                 num_memory_kv: int = 4, causal: bool = False,
+                 backend: Optional[str] = None, use_rotary: bool = False,
+                 dropout: float = 0.0, dim_cond: Optional[int] = None):
         super().__init__()
         assert num_memory_kv > 0
+        if exists(dim_cond):
+            not_ported('Attention(dim_cond=...)', '9')
         dim_inner = dim_head * heads
-        self.heads, self.dim_head, self.causal = heads, dim_head, causal
+        self.dim, self.heads, self.dim_head = dim, heads, dim_head
+        self.causal, self.num_memory_kv = causal, num_memory_kv
+        self.backend, self.use_rotary, self.dropout = (
+            backend, use_rotary, dropout)
         self.norm = RMSNorm(dim)
         self.to_qkv = nn.Sequential(Linear(dim, dim_inner * 3, bias=False))
         self.mem_kv = nn.Parameter(
@@ -48,35 +81,118 @@ class Attention(nn.Module):
         return (self.norm.gamma, self.to_qkv[0].weight, self.mem_kv,
                 self.to_out[1].weight)
 
-    def forward(self, x):
-        return attention_block(x, *self.block_params(), self.heads,
-                               self.dim_head, self.causal)
+    def _gate_args(self, mask):
+        return dict(dropout=self.dropout, use_rotary=self.use_rotary,
+                    has_mask=exists(mask))
+
+    def forward(self, x, mask=None, rope=None, generator=None,
+                streaming: bool = False):
+        """x ``(B, N, C)``; mask ``(B, N)`` bool key padding (True = keep);
+        rope ``(cos, sin)`` to use in place of the 1D angles; generator: the
+        dropout's random source (no generator, no dropout)."""
+        if streaming:
+            not_ported('the streaming kv-cache', '10')
+        if fused_eligible(x.shape[1], self.dim, self.heads, self.dim_head,
+                          **self._gate_args(mask)):
+            return attention_block(x, *self.block_params(), self.heads,
+                                   self.dim_head, self.causal)
+        return self._general(x, mask, rope, generator)
+
+    def _general(self, x, mask, rope, generator):
+        x = self.norm(x)
+        b, n, _ = x.shape
+        heads, dim_head, num_mem = self.heads, self.dim_head, self.num_memory_kv
+        # channel layout (qkv, heads, dim_head), qkv slowest; heads stay in
+        # axis 2
+        qkv = self.to_qkv(x).reshape(b, n, 3, heads, dim_head)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+        if self.use_rotary:
+            if rope is None:
+                rope = rope_angles(torch.arange(n, device=x.device), dim_head)
+            cos, sin = rope
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+
+        mem_kv = self.mem_kv.to(x.dtype)
+
+        def with_memory(k, v):
+            """The memory KV in front of k and v: (b, num_mem + n, h, d)."""
+            mem = mem_kv.transpose(1, 2)[:, None].expand(
+                2, b, num_mem, heads, dim_head)
+            return torch.cat((mem[0], k), dim=1), torch.cat((mem[1], v), dim=1)
+
+        if self.dropout > 0 and exists(generator):
+            # explicit probabilities, so the dropout applies to the
+            # attention weights (reference Attend attn_dropout)
+            kd, vd = with_memory(k, v)
+            m_len = kd.shape[1]
+            dots = torch.einsum('bihd,bjhd->bhij', q.float(), kd.float())
+            dots = dots * (dim_head ** -0.5)
+            if self.causal:
+                dots = dots.masked_fill(causal_hidden(n, m_len, x.device),
+                                        torch.finfo(torch.float32).min)
+            probs = torch.softmax(dots, dim=-1)
+            keep = torch.rand(probs.shape, generator=generator,
+                              device=probs.device) < 1.0 - self.dropout
+            probs = torch.where(keep, probs / (1.0 - self.dropout), 0.0)
+            out = torch.einsum('bhij,bjhd->bihd', probs.to(x.dtype), vd)
+        elif not exists(mask) and self.backend != 'flash':
+            # joint softmax over (sequence, memory) logits, no concat
+            out = attend_with_memory(q, k, v, mem_kv[0], mem_kv[1],
+                                     causal=self.causal)
+        else:
+            k, v = with_memory(k, v)
+            if exists(mask):
+                # key padding mask (b, n) -> (b, h, n, m); memory always
+                # visible
+                mask = torch.cat((mask.new_ones(b, num_mem), mask), dim=1)
+                mask = mask[:, None, None, :].expand(b, heads, n,
+                                                     mask.shape[-1])
+            out = attend(q, k, v, causal=self.causal, mask=mask,
+                         backend=self.backend, layout='bnhd')
+
+        return self.to_out(out.reshape(b, n, heads * dim_head))
 
 
 class SpaceAttention(Attention):
     """Attention over the h*w pixels of each frame (reference
-    magvit2_pytorch.py:444-454)."""
+    magvit2_pytorch.py:444-454), on video ``(B, T, H, W, C)`` or images
+    ``(B, H, W, C)``. With ``use_rotary`` the positions are axial 2D RoPE
+    over (row, column). ``mask``: ``(B*T, H*W)`` key padding."""
 
-    def forward(self, x):
+    def forward(self, x, mask=None, generator=None):
         *lead, h, w, c = x.shape
+        rope = None
+        if self.use_rotary:
+            rope = rope_angles_2d(h, w, self.dim_head, device=x.device)
         seq = x.reshape(-1, h * w, c)
-        return super().forward(seq).reshape(*lead, h, w, c)
+        out = super().forward(seq, mask=mask, rope=rope, generator=generator)
+        return out.reshape(*lead, h, w, c)
 
 
 class TimeAttention(Attention):
     """Attention over t for each pixel, causal in the layer stack (reference
-    magvit2_pytorch.py:456-464). Runs on the ``(B, T, H*W, C)`` view: no
-    transpose."""
+    magvit2_pytorch.py:456-464). The fused block runs on the
+    ``(B, T, H*W, C)`` view with no transpose; the general path on the
+    ``(B*H*W, T, C)`` sequences. ``mask``: ``(B*H*W, T)`` key padding."""
 
     def __init__(self, *args, causal: bool = True, **kwargs):
         super().__init__(*args, causal=causal, **kwargs)
 
-    def forward(self, x):
+    def forward(self, x, mask=None, generator=None, streaming: bool = False):
+        if streaming:
+            not_ported('the streaming kv-cache', '10')
         b, t, h, w, c = x.shape
-        out = time_attention_block(x.reshape(b, t, h * w, c),
-                                   *self.block_params(), self.heads,
-                                   self.dim_head, self.causal)
-        return out.reshape(b, t, h, w, c)
+        if fused_time_eligible(t, h * w, self.dim, self.heads, self.dim_head,
+                               **self._gate_args(mask)):
+            out = time_attention_block(x.reshape(b, t, h * w, c),
+                                       *self.block_params(), self.heads,
+                                       self.dim_head, self.causal)
+            return out.reshape(b, t, h, w, c)
+        seq = x.permute(0, 2, 3, 1, 4).reshape(b * h * w, t, c)
+        out = super().forward(seq, mask=mask, generator=generator)
+        return out.reshape(b, h, w, t, c).permute(0, 3, 1, 2, 4)
 
 
 class TaylorSeriesLinearAttn(nn.Module):

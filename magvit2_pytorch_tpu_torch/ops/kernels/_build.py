@@ -44,6 +44,13 @@ SIGNATURES = {
     # x, wr, conv_b, pw_w, pw_b, k_w, k_b, gi_w, gi_b, go_w, go_b, out, y1,
     # logits, gates, dtype, B, T, H, W, C, hidden, stream
     'mv2_residual_unit': [_P] * 15 + [_I] * 7 + [_P],
+    # q, k, v, bias, out, lse, dtype, bh, n, m, d, bias_groups, causal,
+    # scale, stream
+    'mv2_flash_attention_fwd': [_P] * 6 + [_I] * 7 + [_F, _P],
+    # q, k, v, bias, dout, lse, delta, dq, dbias, then as the forward
+    'mv2_flash_attention_bwd_dq': [_P] * 9 + [_I] * 7 + [_F, _P],
+    # q, k, v, bias, dout, lse, delta, dk, dv, then as the forward
+    'mv2_flash_attention_bwd_dkv': [_P] * 9 + [_I] * 7 + [_F, _P],
 }
 
 _lib = None
@@ -153,15 +160,17 @@ def dtype_code(t) -> int:
 
 
 def check_cuda_inputs(what: str, x, params):
-    """The wrapper's guards before a launch: every tensor on x's CUDA
-    device, x float32 or bfloat16, and no autograd (the kernels have no
-    backward yet)."""
+    """The guards of a forward-only wrapper before a launch (the attention
+    blocks, Taylor attention and the fused ResidualUnit; flash attention
+    has backward kernels and does not come through here): every tensor on
+    x's CUDA device, x float32 or bfloat16, and no autograd."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, *params)):
         raise RuntimeError(
-            f'{what}: the CUDA kernel is forward-only; run under '
-            'torch.inference_mode() or torch.no_grad() (backward passes '
-            'are ROADMAP.md queue B work)')
+            f'{what}: this CUDA kernel is forward-only (of the port\'s '
+            'kernels only flash attention has a backward); run under '
+            'torch.inference_mode() or torch.no_grad() (its backward is '
+            'ROADMAP.md queue A items 11-12)')
     for t in (x, *params):
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f'{what}: every tensor must be on {x.device}')

@@ -32,6 +32,8 @@ launch the kernel or raise.
 
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn.functional as F
 
@@ -42,6 +44,42 @@ from magvit2_pytorch_tpu_torch.ops.kernels import _build
 LAUNCHES = {'space_attention_block': 0, 'time_attention_block': 0}
 
 SUPPORTED_DIM_HEAD = (32,)    # csrc/attention_block.cu template cases
+
+
+def _block_takes(dim_head: int, dropout: float, use_rotary: bool,
+                 has_mask: bool) -> bool:
+    """What both block gates share: plain axial attention (no dropout,
+    rotary or mask) at a head size the CUDA kernel takes, unless
+    ``MAGVIT2_TPU_NO_FUSED_ATTN=1`` (read at call time)."""
+    if os.environ.get('MAGVIT2_TPU_NO_FUSED_ATTN', '') == '1':
+        return False
+    return (not (dropout > 0 or use_rotary or has_mask)
+            and dim_head in SUPPORTED_DIM_HEAD)
+
+
+def fused_eligible(n: int, c: int, heads: int, dim_head: int, *,
+                   dropout: float, use_rotary: bool,
+                   has_mask: bool = False) -> bool:
+    """Static gate of the space block (the port's copy of
+    ``axial_attention.py:126-141``, under its signature): plain axial
+    attention (no dropout, rotary or mask) at ``n <= 1024``, unless
+    ``MAGVIT2_TPU_NO_FUSED_ATTN=1`` (read at call time). The TPU-only
+    conditions (``n % 8``, lane-multiple ``c`` and ``heads * dim_head``, a
+    TPU backend) give way to what the CUDA kernel takes: ``dim_head in
+    SUPPORTED_DIM_HEAD``, so ``c`` and ``heads`` decide nothing here. The
+    gate does not look at the device, so a module routes the same way on the
+    CPU and the card; an ineligible module takes the general path of
+    ``ops/attention.py``."""
+    return n <= 1024 and _block_takes(dim_head, dropout, use_rotary, has_mask)
+
+
+def fused_time_eligible(t: int, s: int, c: int, heads: int, dim_head: int, *,
+                        dropout: float, use_rotary: bool,
+                        has_mask: bool = False) -> bool:
+    """Static gate of the time block (``axial_attention.py:296-312``): as
+    :func:`fused_eligible` with ``t <= 16``; the TPU's ``s % 16`` tile
+    condition is dropped (the CUDA kernel takes any ``s``)."""
+    return t <= 16 and _block_takes(dim_head, dropout, use_rotary, has_mask)
 
 
 def _rmsnorm(x, gamma):

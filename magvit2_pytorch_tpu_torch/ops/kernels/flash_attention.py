@@ -1,0 +1,297 @@
+"""Flash attention, forward and backward: ``softmax(scale q k^T + bias) v``
+by an online softmax over key tiles, never holding the ``(n, m)`` scores in
+device memory.
+
+Replaces the three TPU kernels of
+``magvit2_pytorch_tpu/ops/pallas/flash_attention.py``: ``_flash_kernel``
+(:51, the forward, which also gives the per-row logsumexp ``lse``),
+``_bwd_dq_kernel`` (:190) and ``_bwd_dkv_kernel`` (:249), with the
+decomposition of that file's docstring:
+
+    D  = rowsum(dO * O)                     (elementwise, outside the kernels)
+    P  = exp(S - lse);  dV = P^T dO
+    dP = dO V^T;  dS = P * (dP - D)
+    dQ = scale dS K;  dK = scale dS^T Q;  d_bias = dS
+
+Masking as the TPU kernel does it: keys ``>= m`` and, with ``causal``, keys
+``> row + (m - n)`` score ``-1e30`` (right-aligned: the ``m - n`` keys in
+front, the memory keys, are visible to every query); ``m >= n``, so every
+row sees key 0 and no row is empty.
+
+The CUDA version (``csrc/flash_attention.cu``, its header has the design
+and the bound) reads ``(b, h, n, d)`` in place with the ragged last tile
+predicated: the TPU wrapper's padded copies and its ``(bh, 1, n_pad)`` lse
+are not carried over, ``lse`` is ``(b, h, n)`` float32. A bias ``(n, m)``,
+``(h, n, m)`` or ``(b, h, n, m)`` is read as slice ``bh % groups`` without
+materialising the broadcast; its gradient is written by the dQ kernel as
+``(b h, n, m)`` float32 and the groups that shared a slice are summed here,
+as the JAX wrapper does outside its kernel. Head sizes 16, 32, 64; float32
+(CUDA cores, no TF32) and bfloat16 (tensor cores).
+
+:func:`flash_attention` is a ``torch.autograd.Function``: the forward
+launches one kernel and saves ``q, k, v, bias, out, lse``, the backward
+launches two. On CPU tensors the same Function runs the plain forward and
+the plain backward below, so the CPU tests go through the same autograd
+wiring. On a CUDA tensor it launches the kernels or raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from magvit2_pytorch_tpu_torch.ops.attend import causal_hidden
+from magvit2_pytorch_tpu_torch.ops.kernels import _build
+
+# launches of each CUDA kernel since the last reset (see ops/kernels)
+LAUNCHES = {'flash_attention_fwd': 0, 'flash_attention_bwd_dq': 0,
+            'flash_attention_bwd_dkv': 0}
+
+SUPPORTED_DIM_HEAD = (16, 32, 64)     # csrc/flash_attention.cu template cases
+MASKED = -1e30
+
+
+def _acc_dtype(t):
+    """float32 for float32 and bfloat16, float64 for float64 (gradcheck)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+def _logits(q, k, bias, causal: bool, scale: float):
+    """Dense masked logits ``(b, h, n, m)`` in the accumulation dtype, and
+    the visibility mask (or None). ``bias`` is ``(groups, n, m)``."""
+    b, h, n, _ = q.shape
+    m = k.shape[-2]
+    acc = _acc_dtype(q)
+    s = torch.einsum('bhid,bhjd->bhij', q.to(acc), k.to(acc)) * scale
+    if bias is not None:
+        g = bias.shape[0]
+        s = (s.reshape(b * h // g, g, n, m) + bias.to(acc)).reshape(b, h, n, m)
+    visible = ~causal_hidden(n, m, q.device) if causal else None
+    if visible is not None:
+        s = s.masked_fill(~visible, MASKED)
+    return s, visible
+
+
+def flash_attention_ref(q, k, v, causal: bool = False,
+                        scale: Optional[float] = None, bias=None):
+    """Plain forward: ``(out, lse)``. q ``(b, h, n, d)``; k, v
+    ``(b, h, m, d)``; bias ``(groups, n, m)`` or None. Dense float32 logits,
+    the kernel's masking constant, ``lse`` by ``logsumexp``."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    s, _ = _logits(q, k, bias, causal, scale)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    out = torch.einsum('bhij,bhjd->bhid', p, v.to(p.dtype))
+    return out.to(q.dtype), lse
+
+
+def flash_attention_bwd_ref(q, k, v, bias, out, lse, dout, causal: bool,
+                            scale: float):
+    """Plain backward on dense matrices, step by step as the kernels do it:
+    ``(dq, dk, dv, dbias)`` with ``dbias`` in the bias's ``(groups, n, m)``
+    shape (the groups that shared a slice summed) or None."""
+    b, h, n, _ = q.shape
+    m = k.shape[-2]
+    acc = _acc_dtype(q)
+    s, visible = _logits(q, k, bias, causal, scale)
+    p = torch.exp(s - lse[..., None].to(acc))
+    if visible is not None:
+        p = p.masked_fill(~visible, 0.0)
+    do = dout.to(acc)
+    delta = (do * out.to(acc)).sum(dim=-1)
+    dv = torch.einsum('bhij,bhid->bhjd', p, do)
+    dp = torch.einsum('bhid,bhjd->bhij', do, v.to(acc))
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum('bhij,bhjd->bhid', ds, k.to(acc)) * scale
+    dk = torch.einsum('bhij,bhid->bhjd', ds, q.to(acc)) * scale
+    dbias = None
+    if bias is not None:
+        dbias = _reduce_bias_groups(ds.reshape(b * h, n, m), bias)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
+
+
+def _reduce_bias_groups(ds, bias):
+    """dS ``(b h, n, m)`` -> the bias's ``(groups, n, m)``: program ``bh``
+    read slice ``bh % groups``, so its cotangent sums those programs."""
+    g = bias.shape[0]
+    bh, n, m = ds.shape
+    if g != bh:
+        ds = ds.reshape(bh // g, g, n, m).sum(dim=0)
+    return ds.to(bias.dtype)
+
+
+def _aligned(t):
+    """Contiguous, and 16-byte aligned for the kernels' vector loads."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _check_cuda(what: str, q, *others):
+    for t in others:
+        if t is not None and (not t.is_cuda or t.device != q.device):
+            raise ValueError(f'{what}: every tensor must be on {q.device}')
+    _build.dtype_code(q)
+
+
+def _geometry(q, k, bias):
+    b, h, n, d = q.shape
+    m = k.shape[-2]
+    groups = bias.shape[0] if bias is not None else 1
+    return b * h, n, m, d, groups
+
+
+def flash_forward(q, k, v, bias, causal: bool, scale: float):
+    """The forward kernel alone, CUDA tensors only: ``(out, lse)``; bias
+    ``(groups, n, m)`` or None."""
+    name = 'flash_attention_fwd'
+    _check_cuda(name, q, k, v, bias)
+    q, k, v = _aligned(q), _aligned(k.to(q.dtype)), _aligned(v.to(q.dtype))
+    bias = None if bias is None else _aligned(bias.to(q.dtype))
+    bh, n, m, d, groups = _geometry(q, k, bias)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    lib = _build.load_library()
+    code = lib.mv2_flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), _build.dtype_code(q), bh, n, m, d, groups,
+        int(causal), float(scale), _build.stream_handle(q.device))
+    _build.check(lib, code, name)
+    LAUNCHES[name] += 1
+    return out, lse
+
+
+def _bwd_tail(q, k, bias, causal: bool, scale: float):
+    bh, n, m, d, groups = _geometry(q, k, bias)
+    return (_build.dtype_code(q), bh, n, m, d, groups, int(causal),
+            float(scale), _build.stream_handle(q.device))
+
+
+def flash_backward_dq(q, k, v, bias, dout, lse, delta, causal: bool,
+                   scale: float, need_dbias: bool = False):
+    """The dQ kernel alone, on prepared CUDA tensors (one dtype, contiguous,
+    16-byte aligned; ``delta`` from :func:`row_delta`):
+    ``(dq, ds)`` with ``ds`` the ``(b h, n, m)`` float32 dS or None."""
+    name = 'flash_attention_bwd_dq'
+    dq = torch.empty_like(q)
+    ds = (torch.empty((q.shape[0] * q.shape[1], q.shape[2], k.shape[2]),
+                      dtype=torch.float32, device=q.device)
+          if need_dbias else None)
+    lib = _build.load_library()
+    code = lib.mv2_flash_attention_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if bias is None else bias.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        None if ds is None else ds.data_ptr(),
+        *_bwd_tail(q, k, bias, causal, scale))
+    _build.check(lib, code, name)
+    LAUNCHES[name] += 1
+    return dq, ds
+
+
+def flash_backward_dkv(q, k, v, bias, dout, lse, delta, causal: bool,
+                    scale: float):
+    """The dK/dV kernel alone, on prepared CUDA tensors: ``(dk, dv)``."""
+    name = 'flash_attention_bwd_dkv'
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = _build.load_library()
+    code = lib.mv2_flash_attention_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if bias is None else bias.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *_bwd_tail(q, k, bias, causal, scale))
+    _build.check(lib, code, name)
+    LAUNCHES[name] += 1
+    return dk, dv
+
+
+def row_delta(dout, out):
+    """D = rowsum(dO * O) in float32: elementwise, outside the kernels as in
+    the JAX package."""
+    return (dout.float() * out.float()).sum(dim=-1).contiguous()
+
+
+def _launch_bwd(q, k, v, bias, out, lse, dout, causal: bool, scale: float,
+                need_dbias: bool):
+    _check_cuda('flash_attention_bwd', q, k, v, bias, out, lse, dout)
+    dt = q.dtype
+    q, k, v = _aligned(q), _aligned(k.to(dt)), _aligned(v.to(dt))
+    dout = _aligned(dout.to(dt))
+    bias_k = None if bias is None else _aligned(bias.to(dt))
+    delta, lse = row_delta(dout, out), lse.contiguous()
+    dq, ds = flash_backward_dq(q, k, v, bias_k, dout, lse, delta, causal, scale,
+                            need_dbias)
+    dk, dv = flash_backward_dkv(q, k, v, bias_k, dout, lse, delta, causal, scale)
+    dbias = None if ds is None else _reduce_bias_groups(ds, bias)
+    return dq, dk, dv, dbias
+
+
+class _FlashAttention(torch.autograd.Function):
+    """q, k, v ``(b, h, ., d)``, bias ``(groups, n, m)`` or None."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, causal, scale):
+        if q.is_cuda:
+            out, lse = flash_forward(q, k, v, bias, causal, scale)
+        else:
+            out, lse = flash_attention_ref(q, k, v, causal, scale, bias)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        need_dbias = bias is not None and ctx.needs_input_grad[3]
+        if q.is_cuda:
+            dq, dk, dv, dbias = _launch_bwd(
+                q, k, v, bias, out, lse, dout, ctx.causal, ctx.scale,
+                need_dbias)
+        else:
+            dq, dk, dv, dbias = flash_attention_bwd_ref(
+                q, k, v, bias, out, lse, dout, ctx.causal, ctx.scale)
+        return dq, dk, dv, dbias if need_dbias else None, None, None
+
+
+def bias_groups(bias, b: int, h: int, n: int, m: int):
+    """A bias ``(n, m)``, ``(h, n, m)`` or ``(b, h, n, m)`` as
+    ``(groups, n, m)`` with groups in ``{1, h, b h}`` (views, so autograd
+    carries the gradient back to the caller's shape)."""
+    if bias.ndim == 2:
+        bias = bias[None]
+    elif bias.ndim == 4:
+        if tuple(bias.shape[:2]) != (b, h):
+            raise ValueError(f'bias {tuple(bias.shape)} does not fit '
+                             f'b={b}, h={h}')
+        bias = bias.reshape(b * h, n, m)
+    if bias.ndim != 3 or tuple(bias.shape[-2:]) != (n, m):
+        raise ValueError(f'bias {tuple(bias.shape)} does not fit n={n}, m={m}')
+    if bias.shape[0] not in (1, h, b * h):
+        raise ValueError(f'bias groups {bias.shape[0]} not in '
+                         f'{(1, h, b * h)}')
+    return bias
+
+
+def flash_attention(q, k, v, causal: bool = False,
+                    scale: Optional[float] = None, bias=None):
+    """q ``(b, h, n, d)``; k, v ``(b, h, m, d)`` with ``m >= n``; returns
+    ``(b, h, n, d)``. ``bias``: optional additive pre-softmax bias ``(n, m)``,
+    ``(h, n, m)`` or ``(b, h, n, m)``, differentiable. The backward of a
+    biased call on the card holds dS as ``(b h, n, m)`` float32 when the
+    bias needs a gradient."""
+    if q.ndim != 4 or k.shape != v.shape or k.shape[:2] != q.shape[:2] \
+            or k.shape[-1] != q.shape[-1]:
+        raise ValueError(f'flash_attention: q {tuple(q.shape)}, k '
+                         f'{tuple(k.shape)}, v {tuple(v.shape)}')
+    b, h, n, d = q.shape
+    m = k.shape[-2]
+    if d not in SUPPORTED_DIM_HEAD:
+        raise ValueError(f'flash_attention: head size {d} not in '
+                         f'{SUPPORTED_DIM_HEAD}')
+    if m < n:
+        raise ValueError(f'flash_attention: m={m} keys < n={n} queries')
+    scale = d ** -0.5 if scale is None else scale
+    if bias is not None:
+        bias = bias_groups(bias, b, h, n, m)
+    return _FlashAttention.apply(q, k, v, bias, bool(causal), float(scale))

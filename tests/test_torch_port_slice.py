@@ -252,8 +252,8 @@ def test_channel_first_image_and_no_first_frame_modes(tiny_pair):
     dict(layers=('residual', 'gateloop_time')),
     dict(use_fsq=True, codebook_size=None, fsq_levels=(4, 4)),
     dict(separate_first_frame_encoding=True),
-    dict(use_rotary_pos_emb=True),
-    dict(attn_dropout=0.1),
+    dict(num_codebooks=2),
+    dict(dim_cond=4),
     dict(remat='dots'),
     dict(streaming_kv_window=4),
     dict(pad_mode='reflect'),
@@ -283,15 +283,22 @@ sys.path.insert(0, {str(REPO)!r})
 import numpy as np, torch
 torch.set_num_threads(1)
 from magvit2_pytorch_tpu_torch import VideoTokenizer
-tok = VideoTokenizer(device='cpu', seed=0, image_size=8, init_dim=4, codebook_size=16,
-                     layers=('residual', 'compress_space', 'attend_space',
-                             'compress_time', 'attend_time',
-                             'linear_attend_space'),
-                     attn_heads=1, attn_dim_head=8, linear_attn_heads=2)
-codes, recon = tok.forward(np.zeros((1, 3, 8, 8, 3), np.float32),
-                           return_codes=True, return_recon=True)
-assert tuple(codes.shape) == (1, 2, 4, 4) and tuple(recon.shape) == (1, 3, 8, 8, 3)
-assert torch.isfinite(recon).all()
+from magvit2_pytorch_tpu_torch.ops import attend, attention, rotary
+from magvit2_pytorch_tpu_torch.ops.kernels import flash_attention
+for rotary_on in (False, True):
+    tok = VideoTokenizer(device='cpu', seed=0, image_size=8, init_dim=4, codebook_size=16,
+                         layers=('residual', 'compress_space', 'attend_space',
+                                 'compress_time', 'attend_time',
+                                 'linear_attend_space'),
+                         attn_heads=1, attn_dim_head=8, linear_attn_heads=2,
+                         use_rotary_pos_emb=rotary_on)
+    codes, recon = tok.forward(np.zeros((1, 3, 8, 8, 3), np.float32),
+                               return_codes=True, return_recon=True)
+    assert tuple(codes.shape) == (1, 2, 4, 4) and tuple(recon.shape) == (1, 3, 8, 8, 3)
+    assert torch.isfinite(recon).all()
+q = torch.ones(1, 1, 4, 16, requires_grad=True)
+attend.attend(q, q, q, causal=True, backend='flash').sum().backward()
+assert torch.isfinite(q.grad).all()
 assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax'))
                for m in sys.modules if sys.modules[m] is not None)
 print('ok')
