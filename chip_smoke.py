@@ -2,7 +2,8 @@
 """End-to-end check of the PyTorch port on one NVIDIA GPU (built for H100).
 
     python3 chip_smoke.py                    # all phases, as a user would run it
-    python3 chip_smoke.py --out DIR          # also write the compiler log there
+    python3 chip_smoke.py --out DIR          # also write the compiler log and
+                                             # the log lines there
     python3 chip_smoke.py --out DIR --profile   # and device-time profiles
 
 Phases, in order; any failure exits non-zero and prints no result line:
@@ -15,7 +16,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    bfloat16 against the plain version computed in float32 on the same
    inputs; median times over 20 runs with CUDA events, the least time the
    card could take for the same work (bound), and one PyTorch library call
-   for the same step where there is one. The fused ResidualUnit (B4) runs
+   for the same step where there is one. The attention blocks (B1-B3) are
+   held relative to the largest value of the reference. B1 also runs at
+   ragged and causal shapes (L in 1, 17, 100, 256, 1024; rows not a
+   multiple of 64), with its launches timed one by one at the flagship
+   shape (norm, qkv GEMM, core, out GEMM) against the whole block as a
+   sequence of PyTorch calls and its core against SDPA. The projection
+   GEMM runs at every main-path shape on both bf16 routes (``wgmma``,
+   WMMA) against ``torch.matmul`` in float32 and ``F.linear``, and at
+   ragged shapes. The fused ResidualUnit (B4) runs
    at every RU stage shape of the flagship and B5 at the packed stem shape,
    with live SqueezeExcite gates, plus a batch-boundary case. Every number
    is per launch at one shape; B4's kernels row is its
@@ -33,9 +42,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
 4. default flagship roundtrip, bfloat16, batch 8, seeded random weights,
    through ``VideoTokenizer.tokenize`` then ``decode_from_code_indices``:
    shapes, finite output, and launches per roundtrip: 2 of each attention
-   kernel, 0 of B4, B5 and the flash kernels, and no ResidualUnit kernel
-   call by shape; then
-   frames/sec by the slope of chained runs (as ``bench.py``).
+   block, 12 ``wgmma`` GEMMs, 0 WMMA ones, 2 of B1's tensor-core core, 0 of
+   B4, B5 and the flash kernels, and no ResidualUnit kernel call by shape;
+   then frames/sec by the slope of chained runs (as ``bench.py``); then the
+   same tokenizer and input in bf16 with the blocks and with
+   ``MAGVIT2_TPU_NO_FUSED_ATTN=1`` (the general plain attention path):
+   latents, code bits and the reconstruction from the same codes.
 5. fused flagship roundtrip: the same with ``lane_pack=True`` and
    ``MAGVIT2_TPU_FUSED_RU_WIDE_DIMS=64,128,256,512`` (set only inside the
    phase): 2 launches of each attention kernel, 20 of B4, 2 of B5, with
@@ -73,28 +85,39 @@ import sys
 import time
 
 
+# with --out, every log line also goes to DIR/chip_smoke.log (the end of
+# standard output alone may not hold them all)
+LOG_FILES = []
+
+
 def fail(msg: str):
-    print(f'chip_smoke FAILED: {msg}', file=sys.stderr)
+    log(f'chip_smoke FAILED: {msg}', file=sys.stderr)
     sys.exit(1)
 
 
-def log(msg: str):
-    print(msg, flush=True)
+def log(msg: str, file=None):
+    print(msg, flush=True, file=file)
+    for f in LOG_FILES:
+        print(msg, file=f, flush=True)
 
 
 # kernel name -> (CUDA source, TPU kernel it replaces)
 RU_SOURCE = 'magvit2_pytorch_tpu_torch/csrc/residual_unit.cu'
 FLASH_SOURCE = 'magvit2_pytorch_tpu_torch/csrc/flash_attention.cu'
+ATTN_SOURCE = 'magvit2_pytorch_tpu_torch/csrc/attention_block.cu'
+B1_TPU = 'magvit2_pytorch_tpu/ops/pallas/axial_attention.py:49'
 KERNELS = {
-    'space_attention_block': (
-        'magvit2_pytorch_tpu_torch/csrc/attention_block.cu',
-        'magvit2_pytorch_tpu/ops/pallas/axial_attention.py:49'),
+    'space_attention_block': (ATTN_SOURCE, B1_TPU),
     'time_attention_block': (
-        'magvit2_pytorch_tpu_torch/csrc/attention_block.cu',
-        'magvit2_pytorch_tpu/ops/pallas/axial_attention.py:224'),
+        ATTN_SOURCE, 'magvit2_pytorch_tpu/ops/pallas/axial_attention.py:224'),
     'taylor_attention_block': (
         'magvit2_pytorch_tpu_torch/csrc/taylor_attention.cu',
         'magvit2_pytorch_tpu/ops/pallas/taylor_attention.py:35'),
+    # launches inside the three blocks above: the projections of B1-B3
+    # (B1's at axial_attention.py:56 and :95) and B1's attention step
+    # (:59-91)
+    'gemm_wgmma': ('magvit2_pytorch_tpu_torch/csrc/gemm.cu', B1_TPU),
+    'space_attention_core_mma': (ATTN_SOURCE, B1_TPU),
     'residual_unit_wide': (
         RU_SOURCE, 'magvit2_pytorch_tpu/ops/pallas/residual_unit_wide.py:56'),
     'residual_unit_packed': (
@@ -110,35 +133,49 @@ FLASH_KERNELS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
                  'flash_attention_bwd_dkv')
 # launches per roundtrip on each path (encoder + decoder): the flagship has
 # 11 ResidualUnits a side, the first (64 channels, the lane-packed stem) B5;
-# and per step (forward + backward) of the general Attention path
+# each attention block makes two projection GEMMs, all on the wgmma route
+# in bf16, and B1 one launch of its tensor-core core; and per step (forward
+# + backward) of the general Attention path
 NO_FLASH = dict.fromkeys(FLASH_KERNELS, 0)
+BLOCKS = {'space_attention_block': 2, 'time_attention_block': 2,
+          'taylor_attention_block': 2, 'gemm_wgmma': 12, 'gemm_wmma': 0,
+          'gemm_f32': 0, 'space_attention_core_mma': 2}
 LAUNCHES = {
-    'default': {'space_attention_block': 2, 'time_attention_block': 2,
-                'taylor_attention_block': 2, 'residual_unit_wide': 0,
-                'residual_unit_packed': 0, **NO_FLASH},
-    'fused': {'space_attention_block': 2, 'time_attention_block': 2,
-              'taylor_attention_block': 2, 'residual_unit_wide': 20,
-              'residual_unit_packed': 2, **NO_FLASH},
-    'attention_step': {'space_attention_block': 0, 'time_attention_block': 0,
-                       'taylor_attention_block': 0, 'residual_unit_wide': 0,
+    'default': {**BLOCKS, 'residual_unit_wide': 0, 'residual_unit_packed': 0,
+                **NO_FLASH},
+    'fused': {**BLOCKS, 'residual_unit_wide': 20, 'residual_unit_packed': 2,
+              **NO_FLASH},
+    'attention_step': {**dict.fromkeys(BLOCKS, 0), 'residual_unit_wide': 0,
                        'residual_unit_packed': 0,
                        **dict.fromkeys(FLASH_KERNELS, 1)},
 }
+# the bf16 in-situ check: encode + decode with MAGVIT2_TPU_NO_FUSED_ATTN=1
+# sends space and time attention down the general plain path; Taylor
+# attention keeps its block
+IN_SITU_PLAIN = {**dict.fromkeys(BLOCKS, 0), 'taylor_attention_block': 2,
+                 'gemm_wgmma': 4}
 FUSED_ENV = {'MAGVIT2_TPU_FUSED_RU_WIDE_DIMS': '64,128,256,512'}
 
-# kernel vs plain tolerances (max abs error), with their reasons:
-# - float32: the same float32 math summed in another order (K = 256..512
-#   projections, 260 softmax keys, 1024-token moments, 27 C = 1728..13824
-#   conv terms); observed error is ~1e-6 of values of magnitude ~1, so 1e-4
-#   leaves room for accumulation.
-# - bfloat16, attention: the kernel rounds to bf16 where the JAX kernel does
-#   (normed input, qkv, attention output, block output: 2^-9 relative each)
-#   while the plain reference runs in float32 on the same bf16 inputs; on
-#   outputs of magnitude <= ~2 four such roundings give errors of ~1e-2.
-# - bfloat16, ResidualUnit: the JAX kernel test's 6e-2
+# kernel vs plain tolerances, with their reasons, each within ~10x of the
+# readings on an H100 80GB HBM3 at 700 W:
+# - the attention blocks B1-B3, held as max |kernel - plain| over the
+#   largest |plain| (outputs are ~0.06 in standard deviation at the flagship
+#   shape, so an absolute limit that admits bf16 would admit a wrong
+#   kernel). float32 (TF32 off): the same float32 math summed in another
+#   order (K = 256..512 projections, 260 softmax keys, 1024-token moments),
+#   read <= 1.2e-6 of the largest value, so 1e-5. bfloat16 against the
+#   plain version in float32 on the same inputs: the kernel rounds to bf16
+#   where the JAX kernel does (normed input, qkv, P, the attention output,
+#   the block output: 2^-9 relative each), read <= 4.8e-3, so 2e-2.
+# - bfloat16, ResidualUnit: the JAX kernel test's 6e-2 absolute
 #   (tests/test_fused_residual_wide.py:60): the kernel rounds the conv, the
 #   1x1, the SE logit, attention, context, MLP and gate products to bf16, and
 #   the output (up to ~6 in magnitude) to 2^-8 relative.
+# - the projection GEMM against torch.matmul in float32 on the same bf16
+#   inputs, relative to the largest value: a bf16 output rounds each value
+#   to 2^-9 relative (read <= 3.3e-3), so 1e-2; a float32 output (Taylor's
+#   qkv) differs only by summation order over K <= 512 exact products (read
+#   <= 6.2e-7), so 5e-6.
 # - flash attention, against its plain version in float32 on the same
 #   inputs (N(0, 1) q, k, v, dO and bias). Outputs and gradients are held
 #   relative to the largest value of the reference, max|a - r| / max|r|,
@@ -149,23 +186,35 @@ FUSED_ENV = {'MAGVIT2_TPU_FUSED_RU_WIDE_DIMS': '64,128,256,512'}
 #   softmax, observed ~1e-6 of the largest value, so 1e-4. bfloat16: the
 #   kernel rounds P and dS to bf16 (2^-9 relative) as tensor-core operands
 #   and the outputs to bf16; such roundings summed over the keys gave up to
-#   5.4e-3 of the largest value (dk, 1028 keys, causal), so 2e-2. lse is of magnitude 3-9 and stays
-#   float32 in both (products of bf16 inputs are exact in float32): 1e-4
-#   absolute.
-TOL = {'float32': 1e-4, 'bfloat16': 5e-2}
+#   5.4e-3 of the largest value (dk, 1028 keys, causal), so 2e-2. lse is of
+#   magnitude 3-9 and stays float32 in both (products of bf16 inputs are
+#   exact in float32): 1e-4 absolute.
+TOL = {'float32': 1e-5, 'bfloat16': 2e-2}
 RU_TOL = {'float32': 1e-4, 'bfloat16': 6e-2}
+GEMM_TOL = {'float32': 5e-6, 'bfloat16': 1e-2}
 FLASH_TOL = {'float32': 1e-4, 'bfloat16': 2e-2, 'lse': 1e-4}
 # module-level checks of the attention step, relative to the largest value
 # of the reference: bf16 flash against bf16 plain on the card (both round
 # q, k, v, the output and every gradient to bf16; parameter gradients sum
 # 69632 tokens of such terms), float32 card against float32 CPU
 STEP_TOL = {'bfloat16': 5e-2, 'float32': 1e-4}
+# the bf16 in-situ check of the default roundtrip, blocks against the general
+# plain attention path on the same tokenizer and input. Both run in bf16 and
+# differ by where they round: the blocks round P to bf16 before P V, the
+# plain path keeps its float32 softmax until the output; through the
+# encoder and the decoder that reads, on an H100 80GB HBM3 at 700 W,
+# 1.2e-2 of the largest latent and 1.5e-2 of the largest reconstructed
+# value, so 5e-2 each; 0.15% of code bits flipped (1%), each where the
+# plain run's |z| was at most 9.6e-3 of its largest (5e-2)
+IN_SITU_TOL = {'latents': 5e-2, 'bits_flipped': 1e-2,
+               'worst_flip_margin': 5e-2, 'recon': 5e-2}
 # the attention step's shape: the flagship's space-attention stage at 512 px
 STEP_SHAPE = (1, 17, 64, 64, 512)
 FLASH_FULL = dict(b=17, h=8, n=4096, m=4100, d=32)
 PLAIN_CHUNK = 4     # frames per call of the plain version at full width
 BATCH = 8
 REPS = 20           # timed runs per kernel, after warm-up
+INNER = 10          # back-to-back calls a timed run of a kernel below 1 ms
 # the flagship's ResidualUnit stages: (C, T, H = W, launches of B4 per fused
 # roundtrip); the 64-channel stem takes B5 there, at PACKED_STEM (T, H = W)
 RU_STAGES = ((64, 20, 128, 0), (128, 20, 64, 4), (256, 20, 32, 4),
@@ -195,7 +244,12 @@ def set_tf32(enabled: bool):
     torch.backends.cuda.matmul.allow_tf32 = enabled
 
 
-def median_ms(fn, reps: int, warmup: int = 3) -> float:
+def median_ms(fn, reps: int, warmup: int = 3, inner: int = 1) -> float:
+    """Median over ``reps`` CUDA-event timings of ``inner`` back-to-back
+    calls, per call. With ``inner`` > 1 the card's queue stays full, so a
+    call's host work (the wrapper, the launch) overlaps the previous call's
+    kernel and the time is the device's; with 1 a short kernel's time also
+    holds its own host work."""
     import torch
     for _ in range(warmup):
         fn()
@@ -204,10 +258,11 @@ def median_ms(fn, reps: int, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     times.sort()
     return times[len(times) // 2]
 
@@ -293,6 +348,35 @@ def ru_params(torch, c, gen):
             torch.zeros(c)]
 
 
+def uniform(torch, gen, shape, fan_in):
+    """U(-fan_in^-1/2, fan_in^-1/2), nn.Linear's init range."""
+    b = fan_in ** -0.5
+    return (torch.rand(shape, generator=gen) * 2 - 1) * b
+
+
+def attn_params(torch, gen, c, heads, dh):
+    """gamma, wqkv, mem_kv, wout of one attention block: gamma around 1."""
+    inner = heads * dh
+    return [1 + 0.1 * torch.randn(c, generator=gen),
+            uniform(torch, gen, (3 * inner, c), c),
+            torch.randn(2, heads, 4, dh, generator=gen),
+            uniform(torch, gen, (c, inner), inner)]
+
+
+def space_block_torch(torch, x, gamma, wqkv, mem_kv, wout, heads, dh):
+    """B1's function as a sequence of PyTorch calls (the yardstick of the
+    whole block, never used by the port): ``F.rms_norm``, ``F.linear``,
+    the memory keys concatenated in front, SDPA, ``F.linear``."""
+    import torch.nn.functional as F
+    g, L, c = x.shape
+    xn = F.rms_norm(x, (c,), gamma)
+    q, k, v = F.linear(xn, wqkv).view(g, L, 3, heads, dh).permute(2, 0, 3, 1, 4)
+    mem = mem_kv[:, None].expand(2, g, heads, mem_kv.shape[2], dh)
+    k, v = torch.cat((mem[0], k), dim=2), torch.cat((mem[1], v), dim=2)
+    o = F.scaled_dot_product_attention(q, k, v)
+    return F.linear(o.transpose(1, 2).reshape(g, L, heads * dh), wout)
+
+
 def kernel_cases(torch, dev):
     """Inputs at the flagship shapes: README config, batch 8, 20 padded
     frames at the encoder's attention stages; the ResidualUnit at every
@@ -307,15 +391,7 @@ def kernel_cases(torch, dev):
     gen = torch.Generator(device='cpu').manual_seed(1234)
 
     def u(shape, fan_in):
-        b = fan_in ** -0.5
-        return (torch.rand(shape, generator=gen) * 2 - 1) * b
-
-    def attn_params(c, heads, dh):
-        inner = heads * dh
-        return [1 + 0.1 * torch.randn(c, generator=gen),
-                u((3 * inner, c), c),
-                torch.randn(2, heads, 4, dh, generator=gen),
-                u((c, inner), inner)]
+        return uniform(torch, gen, shape, fan_in)
 
     def sdpa(g, L, heads, dh, M, causal):
         """The attention step alone as one PyTorch call, on q, k, v of the
@@ -332,20 +408,27 @@ def kernel_cases(torch, dev):
     x = torch.randn(BATCH * 20, 16 * 16, c, generator=gen)
     cases.append(dict(
         name='space_attention_block', fn=ax.attention_block,
-        ref=ax.attention_block_ref, args=[x, *attn_params(c, heads, dh)],
+        ref=ax.attention_block_ref,
+        args=[x, *attn_params(torch, gen, c, heads, dh)],
         kw=dict(heads=heads, dim_head=dh, causal=False),
         cost=attention_cost(BATCH * 20, 256, c, heads, dh, 4, False),
-        library=lambda: sdpa(BATCH * 20, 256, heads, dh, 4, False),
-        library_call='F.scaled_dot_product_attention, the attention step'))
+        library=lambda x16, p16, heads=heads, dh=dh: lambda: (
+            space_block_torch(torch, x16, *p16, heads, dh)),
+        library_call='a sequence of PyTorch calls: F.rms_norm, F.linear, '
+                     'torch.cat of the memory keys, '
+                     'F.scaled_dot_product_attention, F.linear',
+        relative=True))
     x = torch.randn(BATCH, 5, 16 * 16, c, generator=gen)
     cases.append(dict(
         name='time_attention_block', fn=ax.time_attention_block,
-        ref=ax.time_attention_block_ref, args=[x, *attn_params(c, heads, dh)],
+        ref=ax.time_attention_block_ref,
+        args=[x, *attn_params(torch, gen, c, heads, dh)],
         kw=dict(heads=heads, dim_head=dh, causal=True),
         cost=attention_cost(BATCH * 256, 5, c, heads, dh, 4, True),
-        library=lambda: sdpa(BATCH * 256, 5, heads, dh, 4, True),
+        library=lambda *_, heads=heads, dh=dh: sdpa(BATCH * 256, 5, heads,
+                                                    dh, 4, True),
         library_call='F.scaled_dot_product_attention with the causal '
-                     'memory mask, the attention step'))
+                     'memory mask, the attention step', relative=True))
     c, heads, dh = 256, 16, 8
     x = torch.randn(BATCH * 20, 32 * 32, c, generator=gen)
     cases.append(dict(
@@ -355,7 +438,7 @@ def kernel_cases(torch, dev):
               u((3 * heads * dh, c), c), u((c, heads * dh), heads * dh)],
         kw=dict(heads=heads, dim_head=dh),
         cost=taylor_cost(BATCH * 20, 1024, c, heads, dh),
-        library=None, library_call=None))
+        library=None, library_call=None, relative=True))
 
     def conv_call(x16, p16):
         """The unit's conv step alone: one F.conv3d on the channels-last
@@ -391,7 +474,9 @@ def kernel_cases(torch, dev):
 
 def check_case(torch, case, reps):
     """One kernel case: float32 (TF32 off) and bf16 against the plain
-    version, the batch boundary where asked, and median times."""
+    version, the batch boundary where asked, and median times. A case with
+    ``relative`` holds its error over the largest value of the reference,
+    the others their max abs error."""
     name, fn, ref, args, kw = (case[k] for k in
                                ('name', 'fn', 'ref', 'args', 'kw'))
     tol = RU_TOL if name.startswith('residual_unit') else TOL
@@ -400,6 +485,7 @@ def check_case(torch, case, reps):
     want = ref(*args, **kw)
     torch.cuda.synchronize()
     err32 = (got - want).abs().max().item()
+    peak32 = want.abs().max().item()
     finite = bool(torch.isfinite(got).all())
     del got, want
     args16 = [a.to(torch.bfloat16) for a in args]
@@ -407,10 +493,16 @@ def check_case(torch, case, reps):
     want16 = ref(*[a.float() for a in args16], **kw)
     torch.cuda.synchronize()
     err16 = (got16.float() - want16).abs().max().item()
+    peak16 = want16.abs().max().item()
     finite = finite and bool(torch.isfinite(got16).all())
     del got16, want16
     row = dict(shape=list(args[0].shape), max_abs_err=err16,
                max_abs_err_fp32=err32)
+    held = {'float32': err32, 'bfloat16': err16}
+    if case.get('relative'):
+        held = {'float32': err32 / peak32, 'bfloat16': err16 / peak16}
+        row.update(max_rel_err=held['bfloat16'],
+                   max_rel_err_fp32=held['float32'])
     if case.get('boundary'):
         # batch element 1 alone equals its place in a batch of two: no
         # causal tap reaches into element 0
@@ -418,33 +510,38 @@ def check_case(torch, case, reps):
         row['batch_boundary_err'] = (
             fn(both, *args[1:], **kw)[1:] - fn(both[1:], *args[1:], **kw)
         ).abs().max().item()
-    row['ms'] = median_ms(lambda: fn(*args16, **kw), reps)
-    row['plain_ms'] = median_ms(lambda: ref(*args16, **kw), reps)
-    row['ms_fp32'] = median_ms(lambda: fn(*args, **kw), reps)
-    row['plain_ms_fp32'] = median_ms(lambda: ref(*args, **kw), reps)
+    # the attention blocks are short: their calls are timed back to back
+    inner = INNER if case.get('relative') else 1
+    row['ms'] = median_ms(lambda: fn(*args16, **kw), reps, inner=inner)
+    row['plain_ms'] = median_ms(lambda: ref(*args16, **kw), reps,
+                                inner=inner)
+    row['ms_fp32'] = median_ms(lambda: fn(*args, **kw), reps, inner=inner)
+    row['plain_ms_fp32'] = median_ms(lambda: ref(*args, **kw), reps,
+                                     inner=inner)
     library = case['library']
-    if library is not None:
-        call = (library(args16[0], args16[1:])
-                if name.startswith('residual_unit') else library())
-        row['library_ms'] = median_ms(call, reps)
-    else:
-        row['library_ms'] = None
+    row['library_ms'] = (median_ms(library(args16[0], args16[1:]), reps,
+                                   inner=inner)
+                         if library is not None else None)
+    row['calls_per_timing'] = inner
+    row['library_call'] = case['library_call']
     row['bound_ms'], row['bound_by'] = bound(*case['cost'])
-    log(f'[kernel] {name} {tuple(args[0].shape)}: fp32 max_abs_err '
-        f'{err32:.3e} (tol {tol["float32"]:g}), bf16 max_abs_err {err16:.3e} '
-        f'(tol {tol["bfloat16"]:g}); bf16 kernel {row["ms"]:.4f} ms, plain '
-        f'{row["plain_ms"]:.4f} ms, library {row["library_ms"]} ms, bound '
+    how = 'of the largest value' if case.get('relative') else 'max abs'
+    log(f'[kernel] {name} {tuple(args[0].shape)}: error ({how}) fp32 '
+        f'{held["float32"]:.3e} (tol {tol["float32"]:g}), bf16 '
+        f'{held["bfloat16"]:.3e} (tol {tol["bfloat16"]:g}); max abs fp32 '
+        f'{err32:.3e}, bf16 {err16:.3e}; bf16 kernel {row["ms"]:.4f} ms, '
+        f'plain {row["plain_ms"]:.4f} ms, library {row["library_ms"]} ms '
+        f'({row["library_call"]}), bound '
         f'{row["bound_ms"]:.4f} ms ({row["bound_by"]}); fp32 kernel '
         f'{row["ms_fp32"]:.4f} ms, plain {row["plain_ms_fp32"]:.4f} ms'
         + (f'; batch boundary {row["batch_boundary_err"]:.3e}'
            if 'batch_boundary_err' in row else '')
-        + f' (median of {reps})')
+        + f' (median of {reps}, {inner} calls a timing)')
     if not finite:
         fail(f'{name}: non-finite kernel output')
-    if not err32 <= tol['float32']:
-        fail(f'{name}: float32 error {err32} > {tol["float32"]}')
-    if not err16 <= tol['bfloat16']:
-        fail(f'{name}: bfloat16 error {err16} > {tol["bfloat16"]}')
+    for dt in ('float32', 'bfloat16'):
+        if not held[dt] <= tol[dt]:
+            fail(f'{name}: {dt} error {held[dt]} ({how}) > {tol[dt]}')
     if not row.get('batch_boundary_err', 0.0) <= tol['float32']:
         fail(f'{name}: batch element 1 differs alone and in a batch of two '
              f'by {row["batch_boundary_err"]}')
@@ -467,6 +564,251 @@ def phase_kernels(torch, dev, reps):
             rows['residual_unit_wide'] = row
     rows['residual_unit_wide']['stages'] = stages
     return rows
+
+
+# the projection GEMMs of the main path, each twice per roundtrip (encoder
+# and decoder), and ragged ones: (what, M, N, K, output dtype, the route
+# gemm_route must pick, timed). Rows: B1 160 frames x 256 tokens, B2 8 x 256
+# pixels x 5 frames, B3 160 frames x 1024 tokens.
+GEMM_CASES = (
+    ('B1 qkv', 40960, 768, 512, 'bfloat16', 'wgmma', True),
+    ('B1 out', 40960, 512, 256, 'bfloat16', 'wgmma', True),
+    ('B2 qkv', 10240, 768, 512, 'bfloat16', 'wgmma', True),
+    ('B2 out', 10240, 512, 256, 'bfloat16', 'wgmma', True),
+    ('B3 qkv', 163840, 384, 256, 'float32', 'wgmma', True),
+    ('B3 out', 163840, 256, 128, 'bfloat16', 'wgmma', True),
+    ('ragged M', 1000, 192, 320, 'bfloat16', 'wgmma', False),
+    ('ragged M, float32 out', 1000, 192, 320, 'float32', 'wgmma', False),
+    ('ragged K', 1000, 200, 100, 'bfloat16', 'wmma', False),
+)
+# B1 at ragged and causal shapes: (frames, L, causal) at the flagship widths
+# (C 512, 8 heads x 32, 4 memory keys); 3 frames make rows (3 L) that are
+# not a multiple of 64 where L is ragged
+SPACE_CASES = tuple((3, L, causal) for L in (1, 17, 100, 256, 1024)
+                    for causal in (False, True))
+
+
+def phase_gemm(torch, dev, reps, smi):
+    """The projection GEMM on the route ``gemm_route`` picks, against
+    ``torch.matmul`` in float32 (TF32 off) on the same bf16 inputs, held
+    relative to the largest value; at the main-path shapes also the WMMA
+    route's result, and times of both bf16 routes, the plain version and
+    ``F.linear``. Returns the ``wgmma`` route's kernels-line row (at B1's
+    qkv shape, every shape under ``shapes``)."""
+    import torch.nn.functional as F
+    from magvit2_pytorch_tpu_torch.ops.kernels import gemm
+    set_tf32(False)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    shapes = []
+    for what, m, n, k, out_name, want_route, timed in GEMM_CASES:
+        a = torch.randn(m, k, device=dev, generator=gen).bfloat16()
+        w = (torch.randn(n, k, device=dev, generator=gen)
+             * k ** -0.5).bfloat16()
+        out_dtype = getattr(torch, out_name)
+        route = gemm.gemm_route(n, k, a.dtype, a, w)
+        if route != want_route:
+            fail(f'gemm {what} ({m}, {n}, {k}): route {route}, expected '
+                 f'{want_route}')
+        want = torch.matmul(a.float(), w.float().t())
+        got = gemm.gemm_nt(a, w, out_dtype)
+        torch.cuda.synchronize()
+        row = dict(what=what, shape=[m, n, k], out=out_name, route=route,
+                   max_abs_err=(got.float() - want).abs().max().item(),
+                   max_rel_err=relative_error(got, want))
+        held = {route: row['max_rel_err']}
+        if timed:
+            held['wmma'] = relative_error(
+                gemm.gemm_nt(a, w, out_dtype, route='wmma'), want)
+            flops = 2 * m * n * k
+            nbytes = 2 * (m * k + n * k) + m * n * out_dtype.itemsize
+            row.update(
+                ms=median_ms(lambda: gemm.gemm_nt(a, w, out_dtype), reps,
+                             inner=INNER),
+                wmma_ms=median_ms(lambda: gemm.gemm_nt(
+                    a, w, out_dtype, route='wmma'), reps, inner=INNER),
+                plain_ms=median_ms(
+                    lambda: gemm.gemm_nt_ref(a, w, out_dtype), reps,
+                    inner=INNER),
+                library_ms=median_ms(lambda: F.linear(a, w), reps,
+                                     inner=INNER),
+                library_call='F.linear (bf16 out)', wmma_max_rel_err=held[
+                    'wmma'])
+            row['bound_ms'], row['bound_by'] = bound(flops, nbytes)
+            row['tflops'] = {key: flops / row[key] / 1e9 for key in
+                             ('ms', 'wmma_ms', 'library_ms')}
+        del a, w, want, got
+        log(f'[gemm] {what} ({m}, {n}, {k}) -> {out_name}, route {route}: '
+            f'error over the largest value {held} (tol '
+            f'{GEMM_TOL[out_name]:g})' + (
+                f'; wgmma {row["ms"]:.4f} ms, WMMA {row["wmma_ms"]:.4f} ms, '
+                f'plain {row["plain_ms"]:.4f} ms, F.linear '
+                f'{row["library_ms"]:.4f} ms, bound {row["bound_ms"]:.4f} ms '
+                f'({row["bound_by"]}); TFLOP/s {row["tflops"]} (median of '
+                f'{reps}, {INNER} calls a timing) on {smi}' if timed else ''))
+        for key, err in held.items():
+            if not err <= GEMM_TOL[out_name]:
+                fail(f'gemm {what} ({m}, {n}, {k}) route {key}: error '
+                     f'{err} of the largest value > {GEMM_TOL[out_name]}')
+        shapes.append(row)
+    return dict(shapes[0], per='launch', shapes=shapes)
+
+
+def phase_space_block(torch, dev, reps, smi):
+    """B1 at the flagship shape (bf16, 160 frames x 256 tokens x 512), its
+    four launches timed one by one; its core against the plain version on
+    the same qkv and against SDPA on the same step; the whole block as a
+    sequence of PyTorch calls against the plain version. Then B1 at
+    ``SPACE_CASES`` in both dtypes with its launches counted. Returns the
+    core's kernels-line row and the split for B1's row."""
+    import torch.nn.functional as F
+    from magvit2_pytorch_tpu_torch.ops.kernels import (
+        axial_attention as ax, gemm, launch_counts, reset_launch_counts)
+    set_tf32(False)
+    gen = torch.Generator().manual_seed(41)
+    g, L, c, heads, dh, m = BATCH * 20, 256, 512, 8, 32, 4
+    x = torch.randn(g, L, c, generator=gen).to(dev).bfloat16()
+    params = [t.to(dev).bfloat16()
+              for t in attn_params(torch, gen, c, heads, dh)]
+    gamma, wqkv, mem_kv, wout = params
+    mem_k, mem_v = mem_kv[0].contiguous(), mem_kv[1].contiguous()
+    core_kw = dict(groups=g, L=L, inner_groups=1, outer_stride=L,
+                   pos_stride=1)
+    xf = x.reshape(-1, c)
+
+    def core(qkv):
+        return ax.attention_core(qkv, mem_k, mem_v, heads, dh, False,
+                                 **core_kw)
+
+    xn = gemm.rmsnorm(xf, gamma)
+    qkv = gemm.gemm_nt(xn, wqkv)
+    attn = core(qkv)
+    split = dict(
+        rmsnorm=median_ms(lambda: gemm.rmsnorm(xf, gamma), reps,
+                          inner=INNER),
+        qkv_gemm=median_ms(lambda: gemm.gemm_nt(xn, wqkv), reps,
+                           inner=INNER),
+        core=median_ms(lambda: core(qkv), reps, inner=INNER),
+        out_gemm=median_ms(lambda: gemm.gemm_nt(attn, wout), reps,
+                           inner=INNER))
+    def plain(dtype):
+        return ax.attention_core_ref(
+            qkv.to(dtype), mem_k.to(dtype), mem_v.to(dtype), heads, dh,
+            False, **core_kw)
+
+    err = relative_error(attn, plain(torch.float32))
+    plain_ms = median_ms(lambda: plain(torch.bfloat16), reps, inner=INNER)
+    q, k, v = (t.transpose(1, 2) for t in qkv.view(g, L, 3, heads, dh)
+               .unbind(2))
+    k, v = (torch.cat((mem[None].expand(g, -1, -1, -1), t), dim=2)
+            .contiguous() for mem, t in ((mem_k, k), (mem_v, v)))
+    q = q.contiguous()
+    sdpa_ms = median_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                        reps, inner=INNER)
+    seq_err = relative_error(
+        space_block_torch(torch, x, *params, heads, dh),
+        ax.attention_block_ref(x.float(), *(t.float() for t in params),
+                               heads, dh))
+    del q, k, v, xn, qkv, attn
+    flops = 4 * dh * heads * g * L * (L + m)
+    nbytes = 2 * (4 * g * L * heads * dh + 2 * heads * m * dh)
+    bound_ms, bound_by = bound(flops, nbytes)
+    row = dict(shape=[g, heads, L, dh], keys=L + m, per='launch',
+               max_rel_err=err, ms=split['core'], plain_ms=plain_ms,
+               plain_call='attention_core_ref (attend_with_memory) on the same qkv',
+               library_ms=sdpa_ms,
+               library_call='F.scaled_dot_product_attention, the memory '
+                            'keys in front', bound_ms=bound_ms,
+               bound_by=bound_by)
+    log(f'[space block] ({g}, {L}, {c}) bf16, launch by launch (median of '
+        f'{reps}, {INNER} calls a timing): {split} ms, sum {sum(split.values()):.4f} ms; core '
+        f'against attention_core_ref in float32 on the same qkv: error over '
+        f'the largest value {err:.3e} (tol {TOL["bfloat16"]:g}); core '
+        f'{split["core"]:.4f} ms, plain {plain_ms:.4f} ms, SDPA on the same '
+        f'step {sdpa_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); the '
+        f'block as a sequence of PyTorch calls against the plain version: '
+        f'{seq_err:.3e} of the largest value, on {smi}')
+    if not err <= TOL['bfloat16']:
+        fail(f'space attention core: error {err} of the largest value > '
+             f'{TOL["bfloat16"]}')
+
+    want_counts = {
+        'float32': dict(gemm_f32=2, gemm_wgmma=0, gemm_wmma=0,
+                        space_attention_core_mma=0),
+        'bfloat16': dict(gemm_f32=0, gemm_wgmma=2, gemm_wmma=0,
+                         space_attention_core_mma=1)}
+    worst = dict.fromkeys(want_counts, 0.0)
+    for frames, L, causal in SPACE_CASES:
+        x = torch.randn(frames, L, c, generator=gen)
+        params = attn_params(torch, gen, c, heads, dh)
+        for name, want in want_counts.items():
+            args = [t.to(dev, getattr(torch, name)) for t in (x, *params)]
+            reset_launch_counts()
+            got = ax.attention_block(*args, heads, dh, causal)
+            counts = launch_counts()
+            err = relative_error(got, ax.attention_block_ref(
+                *(a.float() for a in args), heads, dh, causal))
+            worst[name] = max(worst[name], err)
+            what = f'space block ({frames}, {L}, {c}) causal={causal} {name}'
+            if not bool(torch.isfinite(got).all()):
+                fail(f'{what}: non-finite output')
+            if not err <= TOL[name]:
+                fail(f'{what}: error {err} of the largest value > '
+                     f'{TOL[name]}')
+            if any(counts[key] != n for key, n in want.items()):
+                fail(f'{what}: launches {counts}, expected {want}')
+    log(f'[space block] {len(SPACE_CASES)} cases (3 frames, L in 1, 17, '
+        f'100, 256, 1024, causal and not): worst error over the largest '
+        f'value {worst} (tol {TOL})')
+    return row, dict(split, library_ms_attention_step=sdpa_ms)
+
+
+def phase_in_situ(torch, tok, video):
+    """bf16, the default path's tokenizer and input, encoded and decoded
+    with the attention blocks and with ``MAGVIT2_TPU_NO_FUSED_ATTN=1``
+    (space and time attention on the general plain path): latents, code
+    bits and the reconstruction from the plain run's codes, and the
+    launches of encode + decode on each."""
+    from magvit2_pytorch_tpu_torch.ops.kernels import (
+        launch_counts, reset_launch_counts)
+    runs = {}
+    for name, env, want in (
+            ('plain', {'MAGVIT2_TPU_NO_FUSED_ATTN': '1'}, IN_SITU_PLAIN),
+            ('blocks', {}, BLOCKS)):
+        with environment(env):
+            reset_launch_counts()
+            lat = tok.encode(video)
+            with torch.inference_mode():
+                codes = tok.module.quantize(lat).indices
+                z = tok.module.quantizers.sign_values(lat).float()
+            codes_plain = runs['plain']['codes'] if runs else codes
+            recon = tok.decode_from_code_indices(codes_plain)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        runs[name] = dict(lat=lat, codes=codes, z=z, recon=recon)
+        if any(counts[key] != n for key, n in want.items()):
+            fail(f'in-situ check, {name}: encode + decode launched {counts}, '
+                 f'expected {want}')
+    plain, blocks = runs['plain'], runs['blocks']
+    mask = 2 ** torch.arange(9, -1, -1, device=video.device)
+    flipped = (((plain['codes'][..., None] & mask) != 0)
+               != ((blocks['codes'][..., None] & mask) != 0))
+    zmax = plain['z'].abs().max().item()
+    worst = (plain['z'].abs()[flipped].max().item() / zmax
+             if flipped.any() else 0.0)
+    got = dict(latents=relative_error(blocks['lat'], plain['lat']),
+               bits_flipped=flipped.float().mean().item(),
+               worst_flip_margin=worst,
+               recon=relative_error(blocks['recon'], plain['recon']))
+    log(f'[in situ] bf16 batch {BATCH}, blocks against the general plain '
+        f'path: latents {got["latents"]:.3e} of the largest value, code '
+        f'bits flipped {got["bits_flipped"]:.4%} (worst margin '
+        f'{got["worst_flip_margin"]:.3e} of the largest |z|), recon from the '
+        f'same codes {got["recon"]:.3e} of the largest value (tol '
+        f'{IN_SITU_TOL})')
+    for key, tol in IN_SITU_TOL.items():
+        if not got[key] <= tol:
+            fail(f'in-situ check: {key} {got[key]} > {tol}')
+    return got
 
 
 @contextlib.contextmanager
@@ -716,12 +1058,15 @@ def profile_roundtrip(torch, tok, video, path, slope_ms):
 
 
 def drive_path(torch, dev, path, smi, profile_dir):
-    """Phases 4 and 5: one path's roundtrip, its frames/s, its profile."""
+    """Phases 4 and 5: one path's roundtrip, its frames/s, the default
+    path's in-situ check, its profile."""
     tok, video, counts, ru_ms = phase_roundtrip(torch, dev, path)
     tp = phase_throughput(torch, tok, video)
     log(f'[throughput {path}] bf16 batch {BATCH} roundtrip: '
         f'{tp["fps"]:.2f} frames/s ({tp["ms_per_roundtrip"]:.2f} ms per '
         f'roundtrip; slope of 2 vs 10 chained runs) on {smi}')
+    if path == 'default':
+        tp['in_situ'] = phase_in_situ(torch, tok, video)
     if profile_dir:
         name = 'profile.txt' if path == 'default' else f'profile_{path}.txt'
         profile_roundtrip(torch, tok, video, os.path.join(profile_dir, name),
@@ -1149,7 +1494,8 @@ def phase_attention_step(torch, dev, reps, smi):
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument('--out', default=None,
-                        help='directory for the compiler log')
+                        help='directory for the compiler log and a copy of '
+                             'the log lines')
     parser.add_argument('--profile', action='store_true',
                         help='also profile one roundtrip of each path '
                              '(needs --out)')
@@ -1186,9 +1532,16 @@ def main():
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, 'nvcc.log'), 'w') as f:
             f.write(_build.build_info.get('log', ''))
+        LOG_FILES.append(open(os.path.join(args.out, 'chip_smoke.log'), 'w'))
 
     with torch.inference_mode():
         kernel_rows = phase_kernels(torch, dev, REPS)
+        torch.cuda.empty_cache()
+        kernel_rows['gemm_wgmma'] = phase_gemm(torch, dev, REPS, smi)
+        torch.cuda.empty_cache()
+        kernel_rows['space_attention_core_mma'], split = phase_space_block(
+            torch, dev, REPS, smi)
+        kernel_rows['space_attention_block']['split_ms'] = split
     torch.cuda.empty_cache()
     kernel_rows.update(phase_flash_kernels(torch, dev, REPS, smi))
     torch.cuda.empty_cache()
@@ -1217,6 +1570,8 @@ def main():
                 'fused_roundtrip_ms': tp['fused']['ru_ms'].get(name),
                 **kernel_rows[name]}
                for name, (source, replaces) in KERNELS.items()]
+    for f in LOG_FILES:
+        f.close()
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -1,0 +1,549 @@
+// The launches the attention blocks share (csrc/attention_block.cu,
+// csrc/taylor_attention.cu, wrapped by ops/kernels/gemm.py): a row RMSNorm
+// and the projection GEMM C[M, N] = A[M, K] W[N, K]^T (the nn.Linear
+// layout) with float32 accumulation, cast once to OutT (bf16, or float32
+// for the Taylor qkv). The wrapper picks one of three routes by a static
+// shape rule (ops/kernels/gemm.py gemm_route) and passes it in:
+//   kRouteF32    float32 in and out: CUDA-core FMAs, 64x64 tiles, no TF32.
+//   kRouteWmma   bf16 in, any shape: warp-level WMMA, 64x64 tiles.
+//   kRouteWgmma  bf16 in, K and N multiples of 64, 16-byte aligned rows:
+//                TMA + wgmma, 128x128 tiles through a 3-stage ring of
+//                128-byte-swizzled shared memory. Every projection of the
+//                flagship's attention blocks takes this route.
+// A route that does not fit the call returns cudaErrorInvalidValue: the
+// wrapper raises, nothing falls back. Built for sm_90a.
+#include <cuda.h>
+
+#include "common.cuh"
+
+namespace mv2 {
+
+enum GemmRoute { kRouteF32 = 0, kRouteWmma = 1, kRouteWgmma = 2 };
+
+// ---- row RMSNorm ---------------------------------------------------------
+
+// out[r] = T(x[r] / ||x[r]|| * sqrt(C)) * gamma: the norm in float32, cast
+// to the working dtype, then the gamma multiply in it
+// (ops/pallas/axial_attention.py:38-43, taylor_attention.py:63-70). One
+// warp per row, eight rows a block; a lane takes two neighbouring values at
+// a time, so a warp's loads and stores cover 64 values of a row. The row is
+// read twice (the second time from L1): a pass over x and out is the bound.
+template <typename T>
+struct Pair;
+template <>
+struct Pair<float> {
+  typedef float2 type;
+};
+template <>
+struct Pair<bf16> {
+  typedef __nv_bfloat162 type;
+};
+
+constexpr int kRmsRows = 8, kRmsThreads = 32 * kRmsRows;
+
+template <typename T>
+__global__ void __launch_bounds__(kRmsThreads)
+    rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+                   T* __restrict__ out, int rows, int C) {
+  typedef typename Pair<T>::type P;
+  const int row = blockIdx.x * kRmsRows + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  // C is even (the launcher's check): a row is C / 2 aligned pairs
+  const P* xr = reinterpret_cast<const P*>(x + (size_t)row * C);
+  const P* gr = reinterpret_cast<const P*>(gamma);
+  P* orow = reinterpret_cast<P*>(out + (size_t)row * C);
+  float ss = 0.f;
+  for (int c = lane; c < C / 2; c += 32) {
+    const P v = xr[c];
+    const float a = to_f32(v.x), b = to_f32(v.y);
+    ss += a * a + b * b;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  const float scale = sqrtf((float)C) / sqrtf(fmaxf(ss, 1e-24f));
+  for (int c = lane; c < C / 2; c += 32) {
+    const P v = xr[c], g = gr[c];
+    P o;
+    o.x = from_f32<T>(round_to<T>(to_f32(v.x) * scale) * to_f32(g.x));
+    o.y = from_f32<T>(round_to<T>(to_f32(v.y) * scale) * to_f32(g.y));
+    orow[c] = o;
+  }
+}
+
+template <typename T>
+cudaError_t launch_rmsnorm(const T* x, const T* gamma, T* out, int rows,
+                           int C, cudaStream_t stream) {
+  if (C % 2 || ((uintptr_t)x | (uintptr_t)gamma | (uintptr_t)out) %
+                   sizeof(typename Pair<T>::type))
+    return cudaErrorInvalidValue;  // the wrapper passes even C, aligned
+  rmsnorm_kernel<T><<<(rows + kRmsRows - 1) / kRmsRows, kRmsThreads, 0,
+                      stream>>>(x, gamma, out, rows, C);
+  return cudaGetLastError();
+}
+
+// ---- kRouteF32: CUDA-core FMAs -------------------------------------------
+
+// 64x64 output tile per block of 256 threads, 4x4 outputs a thread, K in
+// steps of 16 through shared memory (results differ from float32
+// references only by summation order).
+constexpr int kGemmBM = 64, kGemmBN = 64, kGemmBK = 16, kGemmThreads = 256;
+
+__global__ void __launch_bounds__(kGemmThreads)
+    gemm_nt_f32_kernel(const float* __restrict__ A,
+                       const float* __restrict__ W, float* __restrict__ C,
+                       int M, int N, int K) {
+  __shared__ float As[kGemmBK][kGemmBM + 4];
+  __shared__ float Ws[kGemmBK][kGemmBN + 4];
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int row0 = blockIdx.x * kGemmBM, col0 = blockIdx.y * kGemmBN;
+  // loader: thread -> (tile row lr, four consecutive k from lk)
+  const int lr = tid / 4, lk = (tid % 4) * 4;
+  const int ar = row0 + lr, wr = col0 + lr;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += kGemmBK) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int k = k0 + lk + u;
+      As[lk + u][lr] = (ar < M && k < K) ? A[(size_t)ar * K + k] : 0.f;
+      Ws[lk + u][lr] = (wr < N && k < K) ? W[(size_t)wr * K + k] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kGemmBK; ++kk) {
+      float a[4], w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w[j] = Ws[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * w[j];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + ty + 16 * i;
+    if (r >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = col0 + tx + 16 * j;
+      if (c < N) C[(size_t)r * N + c] = acc[i][j];
+    }
+  }
+}
+
+// ---- kRouteWmma: warp-level tensor cores, any shape ----------------------
+
+// Same 64x64 output tile, K in steps of 32 through shared memory, four
+// warps with 32x32 each (2x2 fragments of 16x16x16), float32 accumulators
+// staged through shared memory for the bounds-checked epilogue.
+constexpr int kWmmaBK = 32, kWmmaThreads = 128;
+constexpr int kWmmaLd = kWmmaBK + 8;      // bf16 row stride, multiple of 8
+constexpr int kWmmaCLd = kGemmBN + 4;     // float row stride, multiple of 4
+
+template <typename OutT>
+__global__ void __launch_bounds__(kWmmaThreads)
+    gemm_nt_wmma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
+                        OutT* __restrict__ C, int M, int N, int K) {
+  using namespace nvcuda;
+  __shared__ __align__(32) bf16 As[kGemmBM][kWmmaLd];
+  __shared__ __align__(32) bf16 Ws[kGemmBN][kWmmaLd];
+  __shared__ __align__(32) float Cs[kGemmBM][kWmmaCLd];
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
+  const int row0 = blockIdx.x * kGemmBM, col0 = blockIdx.y * kGemmBN;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  const bf16 zero = __float2bfloat16(0.f);
+  // 16-byte loads of 8 bf16 when every row starts 16-byte aligned
+  const bool vec = (K % 8 == 0) && ((uintptr_t)A % 16 == 0) &&
+                   ((uintptr_t)W % 16 == 0);
+
+  for (int k0 = 0; k0 < K; k0 += kWmmaBK) {
+    if (vec) {
+      for (int idx = tid; idx < kGemmBM * kWmmaBK / 8; idx += kWmmaThreads) {
+        const int r = idx / (kWmmaBK / 8), c = (idx % (kWmmaBK / 8)) * 8;
+        const int k = k0 + c;  // K % 8 == 0: all 8 in range or none
+        const uint4 z = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(&As[r][c]) =
+            (row0 + r < M && k < K)
+                ? *reinterpret_cast<const uint4*>(A + (size_t)(row0 + r) * K + k)
+                : z;
+        *reinterpret_cast<uint4*>(&Ws[r][c]) =
+            (col0 + r < N && k < K)
+                ? *reinterpret_cast<const uint4*>(W + (size_t)(col0 + r) * K + k)
+                : z;
+      }
+    } else {
+      for (int idx = tid; idx < kGemmBM * kWmmaBK; idx += kWmmaThreads) {
+        const int r = idx / kWmmaBK, c = idx % kWmmaBK, k = k0 + c;
+        As[r][c] = (row0 + r < M && k < K) ? A[(size_t)(row0 + r) * K + k] : zero;
+        Ws[r][c] = (col0 + r < N && k < K) ? W[(size_t)(col0 + r) * K + k] : zero;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kWmmaBK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], &As[wm + 16 * i][kk], kWmmaLd);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)  // W^T as a column-major (k, n) tile
+        wmma::load_matrix_sync(b[j], &Ws[wn + 16 * j][kk], kWmmaLd);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(&Cs[wm + 16 * i][wn + 16 * j], acc[i][j],
+                              kWmmaCLd, wmma::mem_row_major);
+  __syncthreads();
+  for (int idx = tid; idx < kGemmBM * kGemmBN; idx += kWmmaThreads) {
+    const int r = row0 + idx / kGemmBN, c = col0 + idx % kGemmBN;
+    if (r < M && c < N)
+      C[(size_t)r * N + c] = from_f32<OutT>(Cs[idx / kGemmBN][idx % kGemmBN]);
+  }
+}
+
+inline dim3 gemm_grid(int M, int N) {
+  return dim3((M + kGemmBM - 1) / kGemmBM, (N + kGemmBN - 1) / kGemmBN);
+}
+
+// ---- kRouteWgmma: TMA + wgmma --------------------------------------------
+
+// One block of two warpgroups owns a 128x128 output tile; warpgroup w owns
+// rows 64w..64w+63 and keeps them in 64 float32 registers a thread. K runs
+// in tiles of 64 bf16, exactly one 128-byte swizzle row: thread 0 keeps up
+// to three (A, W) tile pairs in flight with TMA, each stage completing an
+// mbarrier by its byte count. Both warpgroups wait on a stage's barrier,
+// issue four m64n128k16 wgmmas on it and commit them, then wait only for
+// the previous stage's group, so the tensor cores run while the block meets
+// at a __syncthreads and thread 0 refills that previous stage. Rows and
+// columns past M and N arrive as zeros from TMA. The epilogue stages the
+// tile in the (then idle) ring as OutT and writes it back row by row in
+// 16-byte pieces, so a warp's stores cover whole rows. 96 KB of shared
+// memory and <= 128 registers a thread: two blocks share an SM, and one
+// block's epilogue overlaps the other's main loop.
+constexpr int kWgBM = 128, kWgBN = 128, kWgBK = 64, kWgStages = 3;
+constexpr int kWgThreads = 256;
+constexpr int kWgTileA = kWgBM * kWgBK * 2;  // bytes
+constexpr int kWgTileW = kWgBN * kWgBK * 2;
+constexpr int kWgStageBytes = kWgTileA + kWgTileW;
+constexpr int kWgSmem = kWgStages * kWgStageBytes + 1024;  // + 1024 B align
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// box {64, rows} at (k0, row0) of a (rows, K) bf16 tensor map, swizzled
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int k0, int row0) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(k0),
+      "r"(row0)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major tile with the 128-byte swizzle, as TMA
+// writes it: rows of 128 B, 8-row groups 1024 B apart (SBO), the leading
+// offset unused (1); the tile starts on a 1024-byte boundary, so the base
+// offset is 0. A step of 16 bf16 along K adds 32 B, i.e. 2, to the address.
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// acc += A(64 x 16) B(16 x 128), both from shared memory, K-major
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma (it cannot see that the registers are in use)
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+template <typename OutT>
+__global__ void __launch_bounds__(kWgThreads, 2)
+    gemm_nt_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                         const __grid_constant__ CUtensorMap map_w,
+                         OutT* __restrict__ C, int M, int N, int K) {
+  extern __shared__ unsigned char wg_smem_raw[];
+  __shared__ __align__(8) uint64_t full[kWgStages];
+  // TMA's 128-byte swizzle repeats every 1024 B: align the ring to it
+  unsigned char* ring =
+      wg_smem_raw + ((1024 - (smem_u32(wg_smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int n0 = blockIdx.x * kWgBN, m0 = blockIdx.y * kWgBM;
+  const int ktiles = K / kWgBK;
+
+  auto load = [&](int kt) {  // thread 0: K tile kt into its stage
+    unsigned char* st = ring + (kt % kWgStages) * kWgStageBytes;
+    uint64_t* bar = &full[kt % kWgStages];
+    mbar_expect_tx(bar, kWgStageBytes);
+    tma_load_2d(st, &map_a, bar, kt * kWgBK, m0);
+    tma_load_2d(st + kWgTileA, &map_w, bar, kt * kWgBK, n0);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < kWgStages; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int kt = 0; kt < kWgStages && kt < ktiles; ++kt) load(kt);
+  }
+  __syncthreads();
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int s = kt % kWgStages;
+    unsigned char* st = ring + s * kWgStageBytes;
+    mbar_wait(&full[s], (kt / kWgStages) & 1);
+    const uint64_t da = sw128_desc(st + wg * (kWgBM / 2) * 128);
+    const uint64_t db = sw128_desc(st + kWgTileA);
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < kWgBK / 16; ++kk)
+      wgmma_m64n128k16(acc, da + 2 * kk, db + 2 * kk);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    // tile kt - 1's group is done: its stage may be refilled
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    fence_acc(acc);
+    __syncthreads();
+    if (tid == 0 && kt >= 1 && kt - 1 + kWgStages < ktiles)
+      load(kt - 1 + kWgStages);
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(acc);
+  __syncthreads();  // every wgmma has read its stage: the ring is free
+
+  // accumulator layout of m64nNk16: warp q of the warpgroup holds rows
+  // 16q + lane/4 (registers 4j, 4j+1) and 16q + lane/4 + 8 (4j+2, 4j+3) at
+  // columns 8j + 2 (lane % 4) and the one after
+  // the staging row: 128 values and 16 bytes, so the 8 rows a warp's
+  // fragment store touches fall in different banks
+  constexpr int ld = kWgBN + 16 / (int)sizeof(OutT);
+  OutT* tile = reinterpret_cast<OutT*>(ring);
+  const int lane = tid % 32, q = (tid % 128) / 32;
+  const int r = wg * 64 + q * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < kWgBN / 8; ++j) {
+    const int c = 8 * j + 2 * (lane % 4);
+    store2(tile + r * ld + c, acc[4 * j], acc[4 * j + 1]);
+    store2(tile + (r + 8) * ld + c, acc[4 * j + 2], acc[4 * j + 3]);
+  }
+  __syncthreads();
+  // 16-byte pieces, consecutive threads along a row; N is a multiple of
+  // 64, so a piece is wholly inside N or wholly past it
+  constexpr int per_row = kWgBN * (int)sizeof(OutT) / 16;
+  constexpr int vals = 16 / (int)sizeof(OutT);
+  for (int idx = tid; idx < kWgBM * per_row; idx += kWgThreads) {
+    const int tr = idx / per_row, tc = (idx % per_row) * vals;
+    if (m0 + tr < M && n0 + tc < N)
+      *reinterpret_cast<uint4*>(C + (size_t)(m0 + tr) * N + n0 + tc) =
+          *reinterpret_cast<const uint4*>(tile + tr * ld + tc);
+  }
+}
+
+// cuTensorMapEncodeTiled, fetched from the driver at first use (the
+// library links only the runtime)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// a (rows, K) row-major bf16 tensor read in swizzled {64, box_rows} boxes
+static cudaError_t tensor_map(CUtensorMap* map, const bf16* ptr, int rows,
+                              int K, int box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * sizeof(bf16)};
+  const cuuint32_t box[2] = {(cuuint32_t)kWgBK, (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult res = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(ptr), dims,
+      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename OutT>
+cudaError_t launch_gemm_nt_wgmma(const bf16* A, const bf16* W, OutT* C, int M,
+                                 int N, int K, cudaStream_t stream) {
+  if (M < 1 || K % kWgBK || N % 64 || ((uintptr_t)A | (uintptr_t)W) % 16)
+    return cudaErrorInvalidValue;  // not this route's shape: the rule is
+                                   // ops/kernels/gemm.py gemm_route
+  CUtensorMap map_a, map_w;
+  cudaError_t err = tensor_map(&map_a, A, M, K, kWgBM);
+  if (err != cudaSuccess) return err;
+  err = tensor_map(&map_w, W, N, K, kWgBN);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(gemm_nt_wgmma_kernel<OutT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kWgSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kWgBN - 1) / kWgBN, (M + kWgBM - 1) / kWgBM);
+  gemm_nt_wgmma_kernel<OutT><<<grid, kWgThreads, kWgSmem, stream>>>(
+      map_a, map_w, C, M, N, K);
+  MV2_CHECK_LAUNCH();
+  return cudaSuccess;
+}
+
+template <typename OutT>
+cudaError_t launch_gemm_nt_bf16(const bf16* A, const bf16* W, OutT* C, int M,
+                                int N, int K, int route, cudaStream_t stream) {
+  if (route == kRouteWgmma)
+    return launch_gemm_nt_wgmma<OutT>(A, W, C, M, N, K, stream);
+  if (route != kRouteWmma) return cudaErrorInvalidValue;
+  gemm_nt_wmma_kernel<OutT><<<gemm_grid(M, N), kWmmaThreads, 0, stream>>>(
+      A, W, C, M, N, K);
+  MV2_CHECK_LAUNCH();
+  return cudaSuccess;
+}
+
+}  // namespace mv2
+
+extern "C" {
+
+int mv2_rmsnorm(const void* x, const void* gamma, void* out, int dtype,
+                int rows, int C, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == mv2::kFloat32)
+    return mv2::launch_rmsnorm((const float*)x, (const float*)gamma,
+                               (float*)out, rows, C, s);
+  if (dtype == mv2::kBFloat16) {
+    typedef mv2::bf16 T;
+    return mv2::launch_rmsnorm((const T*)x, (const T*)gamma, (T*)out, rows,
+                               C, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// C (M, N) of out_dtype = A (M, K) W (N, K)^T of dtype, on the given route
+int mv2_gemm_nt(const void* a, const void* w, void* c, int dtype,
+                int out_dtype, int M, int N, int K, int route, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == mv2::kFloat32) {
+    if (route != mv2::kRouteF32 || out_dtype != mv2::kFloat32)
+      return cudaErrorInvalidValue;
+    mv2::gemm_nt_f32_kernel<<<mv2::gemm_grid(M, N), mv2::kGemmThreads, 0,
+                              s>>>((const float*)a, (const float*)w,
+                                   (float*)c, M, N, K);
+    return cudaGetLastError();
+  }
+  if (dtype != mv2::kBFloat16) return cudaErrorInvalidValue;
+  typedef mv2::bf16 T;
+  if (out_dtype == mv2::kBFloat16)
+    return mv2::launch_gemm_nt_bf16<T>((const T*)a, (const T*)w, (T*)c, M, N,
+                                       K, route, s);
+  if (out_dtype == mv2::kFloat32)
+    return mv2::launch_gemm_nt_bf16<float>((const T*)a, (const T*)w,
+                                           (float*)c, M, N, K, route, s);
+  return cudaErrorInvalidValue;
+}
+
+}  // extern "C"

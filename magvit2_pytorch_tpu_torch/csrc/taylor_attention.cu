@@ -3,7 +3,8 @@
 // _taylor_frame; see ops/kernels/taylor_attention.py for the math and the
 // design note.
 //
-// Four launches on scratch the caller allocates:
+// The wrapper makes four launches on scratch it allocates; the first, second
+// and fourth are gemm.cu's, the third is this file's:
 //   xn   = RMSNorm(x) * gamma                                 (B*N, C)
 //   qkv  = xn Wqkv^T, float32                                 (B*N, 3*H*d)
 //   attn = per (frame, head): moments over N, then per token  (B*N, H*d)
@@ -160,49 +161,21 @@ cudaError_t launch_taylor_core(const float* qkv, T* attn, int frames, int N,
   return cudaSuccess;
 }
 
-template <typename T>
-cudaError_t taylor_attention(const T* x, const T* gamma, const T* wqkv,
-                             const T* wout, T* out, T* xn, float* qkv,
-                             T* attn, int frames, int N, int C, int H, int D,
-                             float eps, cudaStream_t stream) {
-  const int rows = frames * N, hd = H * D;
-  cudaError_t err = launch_rmsnorm<T>(x, gamma, xn, rows, C, stream);
-  if (err != cudaSuccess) return err;
-  err = launch_gemm_nt(xn, wqkv, qkv, rows, 3 * hd, C, stream);
-  if (err != cudaSuccess) return err;
-  switch (D) {
-#define MV2_CASE(DH)                                                        \
-  case DH:                                                                  \
-    err = launch_taylor_core<T, DH>(qkv, attn, frames, N, H, eps, stream); \
-    break;
-    MV2_CASE(8)  // linear_attn_dim_head of every configuration
-#undef MV2_CASE
-    default:
-      return cudaErrorInvalidValue;
-  }
-  if (err != cudaSuccess) return err;
-  return launch_gemm_nt(attn, wout, out, rows, C, hd, stream);
-}
-
 }  // namespace mv2
 
-extern "C" int mv2_taylor_attention(const void* x, const void* gamma,
-                                    const void* wqkv, const void* wout,
-                                    void* out, void* xn, void* qkv, void* attn,
-                                    int dtype, int frames, int N, int C, int H,
-                                    int D, float eps, void* stream) {
+// the moment core of one Taylor block: qkv (frames * N, 3 * H * D) float32
+// from the qkv GEMM, attn (frames * N, H * D) in the working dtype
+extern "C" int mv2_taylor_core(const void* qkv, void* attn, int dtype,
+                               int frames, int N, int H, int D, float eps,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == mv2::kFloat32) {
-    typedef float T;
-    return mv2::taylor_attention<T>(
-        (const T*)x, (const T*)gamma, (const T*)wqkv, (const T*)wout, (T*)out,
-        (T*)xn, (float*)qkv, (T*)attn, frames, N, C, H, D, eps, s);
-  }
-  if (dtype == mv2::kBFloat16) {
-    typedef mv2::bf16 T;
-    return mv2::taylor_attention<T>(
-        (const T*)x, (const T*)gamma, (const T*)wqkv, (const T*)wout, (T*)out,
-        (T*)xn, (float*)qkv, (T*)attn, frames, N, C, H, D, eps, s);
-  }
+  if (D != 8) return cudaErrorInvalidValue;  // linear_attn_dim_head of every
+                                             // configuration
+  if (dtype == mv2::kFloat32)
+    return mv2::launch_taylor_core<float, 8>((const float*)qkv, (float*)attn,
+                                             frames, N, H, eps, s);
+  if (dtype == mv2::kBFloat16)
+    return mv2::launch_taylor_core<mv2::bf16, 8>(
+        (const float*)qkv, (mv2::bf16*)attn, frames, N, H, eps, s);
   return cudaErrorInvalidValue;
 }

@@ -3,9 +3,12 @@
 Each wrapper dispatches on the tensor's device: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel (built for ``sm_90a`` at first
 use, see ``_build``) or raises. Each launch adds one to the wrapper's count
-in ``launch_counts()``. The attention blocks, Taylor attention and the fused
-ResidualUnit are forward-only; ``flash_attention`` is a
-``torch.autograd.Function`` whose backward launches two kernels of its own.
+in ``launch_counts()``: the attention blocks per block, their GEMMs by route
+(``gemm_wgmma``, ``gemm_wmma``, ``gemm_f32``) and the space block's
+tensor-core core as ``space_attention_core_mma``. The attention blocks,
+Taylor attention and the fused ResidualUnit are forward-only;
+``flash_attention`` is a ``torch.autograd.Function`` whose backward launches
+two kernels of its own.
 """
 
 from __future__ import annotations
@@ -13,12 +16,13 @@ from __future__ import annotations
 from magvit2_pytorch_tpu_torch.ops.kernels import (
     axial_attention,
     flash_attention,
+    gemm,
     residual_unit,
     taylor_attention,
 )
 
 _COUNTERS = (axial_attention.LAUNCHES, taylor_attention.LAUNCHES,
-             residual_unit.LAUNCHES, flash_attention.LAUNCHES)
+             gemm.LAUNCHES, residual_unit.LAUNCHES, flash_attention.LAUNCHES)
 
 
 def launch_counts() -> dict:

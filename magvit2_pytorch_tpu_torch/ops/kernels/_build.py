@@ -34,13 +34,15 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
 # C entry points (csrc/*.cu) and their argument types
 SIGNATURES = {
-    # x, gamma, wqkv, mem_k, mem_v, wout, out, xn, qkv, attn,
-    # dtype, rows, C, heads, dim_head, M, groups, L, inner_groups,
-    # outer_stride, pos_stride, causal, stream
-    'mv2_attention_block': [_P] * 10 + [_I] * 9 + [_L, _L, _I, _P],
-    # x, gamma, wqkv, wout, out, xn, qkv, attn,
-    # dtype, frames, N, C, heads, dim_head, eps, stream
-    'mv2_taylor_attention': [_P] * 8 + [_I] * 6 + [_F, _P],
+    # x, gamma, out, dtype, rows, C, stream
+    'mv2_rmsnorm': [_P] * 3 + [_I] * 3 + [_P],
+    # a, w, c, dtype, out_dtype, M, N, K, route, stream
+    'mv2_gemm_nt': [_P] * 3 + [_I] * 6 + [_P],
+    # qkv, mem_k, mem_v, attn, dtype, groups, L, heads, dim_head, M,
+    # inner_groups, outer_stride, pos_stride, causal, route, stream
+    'mv2_attention_core': [_P] * 4 + [_I] * 7 + [_L, _L, _I, _I, _P],
+    # qkv, attn, dtype, frames, N, heads, dim_head, eps, stream
+    'mv2_taylor_core': [_P] * 2 + [_I] * 5 + [_F, _P],
     # x, wr, conv_b, pw_w, pw_b, k_w, k_b, gi_w, gi_b, go_w, go_b, out, y1,
     # logits, gates, dtype, B, T, H, W, C, hidden, stream
     'mv2_residual_unit': [_P] * 15 + [_I] * 7 + [_P],

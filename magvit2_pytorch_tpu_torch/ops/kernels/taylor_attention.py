@@ -12,15 +12,17 @@ Replaces the TPU kernel ``magvit2_pytorch_tpu/ops/pallas/taylor_attention.py``
 
 so phi(x) = [1, x, x (x) x / sqrt2] is never materialised.
 
-The CUDA version (``csrc/taylor_attention.cu``) runs four launches on scratch
-the wrapper allocates: a row RMSNorm, the qkv GEMM into float32, one block
-per (frame, head) that reduces the moments over the N tokens in shared
-memory and then writes each token's output, and the out GEMM.
+The CUDA version makes four launches on scratch the wrapper allocates: the
+row RMSNorm and the qkv GEMM into float32 of ``csrc/gemm.cu``, the moment
+core of ``csrc/taylor_attention.cu`` (one block per (frame, head) that
+reduces the moments over the N tokens in shared memory and then writes each
+token's output), and the out GEMM.
 
 What bounds it on the H100: at the flagship shape (160 frames x 1024 tokens
 x 256 channels, 16 heads x 8, batch 8) the two projections hold most of the
-FLOPs (bf16: tensor cores through WMMA; float32: CUDA cores), and the
-float32 qkv scratch (3 x 128 values a token) is the largest memory traffic.
+FLOPs (bf16: the ``'wgmma'`` route of ``gemm.py``; float32: CUDA cores), and
+the float32 qkv scratch (3 x 128 values a token) is the largest memory
+traffic.
 The moment reduction is ~d^3 FMAs a token per head, done in shared memory
 with one owner thread per moment, so no atomics are needed. Keeping qkv out
 of device memory and fusing the launches are later work.
@@ -34,20 +36,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from magvit2_pytorch_tpu_torch.ops.kernels import _build
+from magvit2_pytorch_tpu_torch.ops.kernels import _build, gemm
 
 LAUNCHES = {'taylor_attention_block': 0}
 
 SUPPORTED_DIM_HEAD = (8,)     # csrc/taylor_attention.cu template cases
 INV_SQRT2 = 0.5 ** 0.5
-
-
-def _rmsnorm(x, gamma):
-    """``taylor_attention.py:63-70``: float32 norm, cast, * gamma."""
-    x32 = x.float()
-    ss = (x32 * x32).sum(dim=-1, keepdim=True)
-    inv = torch.rsqrt(ss.clamp_min(1e-24)) * (x.shape[-1] ** 0.5)
-    return (x32 * inv).to(x.dtype) * gamma.to(x.dtype)
 
 
 def taylor_attention_ref(x, gamma, wqkv, wout, heads: int, dim_head: int,
@@ -58,7 +52,7 @@ def taylor_attention_ref(x, gamma, wqkv, wout, heads: int, dim_head: int,
     dt = x.dtype
     b, n, _ = x.shape
     hd = heads * dim_head
-    x = _rmsnorm(x, gamma)
+    x = gemm.rmsnorm_ref(x, gamma)
     qkv = F.linear(x.float(), wqkv.to(dt).float())     # float32 accumulate
     q = (qkv[..., :hd] * dim_head ** -0.5).to(dt).float()
     k = qkv[..., hd:2 * hd].to(dt).float()
@@ -92,24 +86,18 @@ def taylor_attention(x, gamma, wqkv, wout, heads: int, dim_head: int,
     dt = x.dtype
     b, n, c = x.shape
     hd = heads * dim_head
-    x = x.contiguous()
-    gamma = gamma.to(dt).contiguous()
-    wqkv = wqkv.to(dt).contiguous()
-    wout = wout.to(dt).contiguous()
     if wqkv.shape != (3 * hd, c) or wout.shape != (c, hd):
         raise ValueError(f'{name}: wqkv {tuple(wqkv.shape)} / wout '
                          f'{tuple(wout.shape)} do not fit C={c}, '
                          f'heads*dim_head={hd}')
-    out = torch.empty_like(x)
-    xn = torch.empty_like(x)
-    qkv = torch.empty((b * n, 3 * hd), dtype=torch.float32, device=x.device)
+    xn = gemm.rmsnorm(x.reshape(b * n, c), gamma)
+    qkv = gemm.gemm_nt(xn, wqkv.to(dt), out_dtype=torch.float32)
     attn = torch.empty((b * n, hd), dtype=dt, device=x.device)
     lib = _build.load_library()
-    code = lib.mv2_taylor_attention(
-        x.data_ptr(), gamma.data_ptr(), wqkv.data_ptr(), wout.data_ptr(),
-        out.data_ptr(), xn.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
-        _build.dtype_code(x), b, n, c, heads, dim_head,
-        float(eps), _build.stream_handle(x.device))
+    code = lib.mv2_taylor_core(
+        qkv.data_ptr(), attn.data_ptr(), _build.dtype_code(x), b, n, heads,
+        dim_head, float(eps), _build.stream_handle(x.device))
     _build.check(lib, code, name)
+    out = gemm.gemm_nt(attn, wout.to(dt))
     LAUNCHES[name] += 1
-    return out
+    return out.reshape(b, n, c)
