@@ -26,9 +26,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
    WMMA) against ``torch.matmul`` in float32 and ``F.linear``, and at
    ragged shapes. The fused ResidualUnit (B4) runs
    at every RU stage shape of the flagship and B5 at the packed stem shape,
-   with live SqueezeExcite gates, plus a batch-boundary case. Every number
-   is per launch at one shape; B4's kernels row is its
-   (8, 20, 16, 16, 512) stage and lists every stage under ``stages``.
+   with live SqueezeExcite gates, plus a batch-boundary case. B4's five
+   launches (conv, 1x1, SE logits, SE reduction, gate + residual) run one by
+   one at (8, 20, 16, 16, 512), each against its plain version and beside
+   its bound, the conv against ``F.conv3d`` and the 1x1 against
+   ``F.linear``; the conv launch runs at every stage shape on its TMA +
+   ``wgmma`` route (TFLOP/s of real taps, beside the WMMA route and
+   ``F.conv3d``); and B4 runs at T = 1, 2, 3 (the causal skip), H = W = 12
+   (ragged boxes, at C = 128 and 64) and C = 96 (the WMMA route) with its
+   conv route counted. Every number is per launch at one shape; B4's
+   kernels row is its (8, 20, 16, 16, 512) stage and lists every stage
+   under ``stages``, the conv's row likewise.
    Then, outside ``inference_mode`` because they need autograd, the three
    flash-attention kernels (forward, dQ, dK/dV): ragged and small with
    every option ((2, 2, 130, d) / 134 keys, d in 16, 32, 64, causal and
@@ -50,14 +58,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
    latents, code bits and the reconstruction from the same codes.
 5. fused flagship roundtrip: the same with ``lane_pack=True`` and
    ``MAGVIT2_TPU_FUSED_RU_WIDE_DIMS=64,128,256,512`` (set only inside the
-   phase): 2 launches of each attention kernel, 20 of B4, 2 of B5, with
+   phase): 2 launches of each attention kernel, 20 of B4, 2 of B5, 22
+   convs and 22 1x1s on the ``wgmma`` route (0 on the others; the default
+   path and the attention step launch none), with
    B4's calls by input shape as ``RU_STAGES`` says; a second, warm
    roundtrip times every B4 and B5 call with CUDA events
    (``fused_roundtrip_ms``); then frames/sec.
 6. float32 at batch 1, TF32 off, live SqueezeExcite gates: both card paths
    (default and fused) against one CPU reference with the same weights:
    code bits may flip only where the CPU's decision margin |z| <= 5e-3 and
-   for <= 1% of bits; decoding the same codes must agree within 1e-3.
+   for <= 1% of bits; decoding the same codes must agree within 1e-3; the
+   fused path's convs all take the float32 route.
 7. the general ``Attention`` path with the flash backend, forward and
    backward: one step of ``SpaceAttention(512, dim_head=32, heads=8,
    backend='flash')`` on (1, 17, 64, 64, 512) bf16 (4096 tokens a frame,
@@ -122,6 +133,10 @@ KERNELS = {
         RU_SOURCE, 'magvit2_pytorch_tpu/ops/pallas/residual_unit_wide.py:56'),
     'residual_unit_packed': (
         RU_SOURCE, 'magvit2_pytorch_tpu/ops/pallas/residual_unit.py:121'),
+    # the conv launch inside B4 and B5 (the TPU kernels' 27 tap products,
+    # residual_unit_wide.py:92-116) on its TMA + wgmma route
+    'ru_conv_wgmma': (
+        RU_SOURCE, 'magvit2_pytorch_tpu/ops/pallas/residual_unit_wide.py:56'),
     'flash_attention_fwd': (
         FLASH_SOURCE, 'magvit2_pytorch_tpu/ops/pallas/flash_attention.py:51'),
     'flash_attention_bwd_dq': (
@@ -131,6 +146,10 @@ KERNELS = {
 }
 FLASH_KERNELS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
                  'flash_attention_bwd_dkv')
+# what every entry of the kernels line holds
+KERNEL_KEYS = ('name', 'route', 'source', 'replaces', 'launches',
+               'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+               'library_ms')
 # launches per roundtrip on each path (encoder + decoder): the flagship has
 # 11 ResidualUnits a side, the first (64 channels, the lane-packed stem) B5;
 # each attention block makes two projection GEMMs, all on the wgmma route
@@ -140,13 +159,16 @@ NO_FLASH = dict.fromkeys(FLASH_KERNELS, 0)
 BLOCKS = {'space_attention_block': 2, 'time_attention_block': 2,
           'taylor_attention_block': 2, 'gemm_wgmma': 12, 'gemm_wmma': 0,
           'gemm_f32': 0, 'space_attention_core_mma': 2}
+# each fused unit launches one conv and one 1x1, in bf16 on the wgmma route
+FUSED_RU = {'residual_unit_wide': 20, 'residual_unit_packed': 2,
+            'ru_conv_wgmma': 22, 'ru_conv_wmma': 0, 'ru_conv_f32': 0,
+            'ru_pointwise_wgmma': 22, 'ru_pointwise_wmma': 0,
+            'ru_pointwise_f32': 0}
+NO_RU = dict.fromkeys(FUSED_RU, 0)
 LAUNCHES = {
-    'default': {**BLOCKS, 'residual_unit_wide': 0, 'residual_unit_packed': 0,
-                **NO_FLASH},
-    'fused': {**BLOCKS, 'residual_unit_wide': 20, 'residual_unit_packed': 2,
-              **NO_FLASH},
-    'attention_step': {**dict.fromkeys(BLOCKS, 0), 'residual_unit_wide': 0,
-                       'residual_unit_packed': 0,
+    'default': {**BLOCKS, **NO_RU, **NO_FLASH},
+    'fused': {**BLOCKS, **FUSED_RU, **NO_FLASH},
+    'attention_step': {**dict.fromkeys(BLOCKS, 0), **NO_RU,
                        **dict.fromkeys(FLASH_KERNELS, 1)},
 }
 # the bf16 in-situ check: encode + decode with MAGVIT2_TPU_NO_FUSED_ATTN=1
@@ -221,6 +243,18 @@ RU_STAGES = ((64, 20, 128, 0), (128, 20, 64, 4), (256, 20, 32, 4),
              (512, 20, 16, 4), (512, 10, 16, 4), (512, 5, 16, 4))
 PACKED_STEM = (20, 128)
 B4_ROW_SHAPE = (BATCH, 20, 16, 16, 512)    # the stage B4's kernels row shows
+# B4 cases the stage shapes do not reach: (what, shape, the conv's bf16
+# route). T < 3 makes every frame skip taps before frame 0; H = W = 12 leaves
+# boxes of 16 x 8 pixels partly outside the frame; C = 96 takes WMMA
+RU_EXTRA_CASES = (
+    ('T = 1 (causal skip)', (2, 1, 16, 16, 128), 'wgmma'),
+    ('T = 2 (causal skip)', (2, 2, 16, 16, 128), 'wgmma'),
+    ('T = 3 (causal skip)', (2, 3, 16, 16, 128), 'wgmma'),
+    ('H = W = 12 (ragged boxes)', (2, 3, 12, 12, 128), 'wgmma'),
+    ('H = W = 12 at C = 64 (ragged, 128 x 64 tiles)', (2, 3, 12, 12, 64),
+     'wgmma'),
+    ('C = 96 (WMMA route)', (2, 3, 16, 8, 96), 'wmma'),
+)
 # the ResidualUnit wrappers (ops/kernels/residual_unit.py) and their kernels
 RU_WRAPPERS = {'fused_residual_unit_wide': 'residual_unit_wide',
                'fused_residual_unit': 'residual_unit_packed'}
@@ -322,6 +356,24 @@ def ru_cost(shape, hidden):
     nbytes = 2 * (2 * m * c + 28 * c * c + 2 * c * hidden + 4 * c + hidden
                   + 1)
     return flops, nbytes
+
+
+def ru_launch_costs(shape, hidden):
+    """FLOPs and bytes of each of the unit's five launches in bf16 (each
+    input read once, each output written once; the conv over real taps
+    only, the logits and the SE scratch in float32)."""
+    b, t, h, w, c = shape
+    m, frames = b * t * h * w, b * t
+    taps = b * real_taps(t, 2, 0) * real_taps(h, 1, 1) * real_taps(w, 1, 1)
+    return {
+        'conv': (2 * taps * c * c, 2 * (2 * m * c + 27 * c * c + c)),
+        'pointwise': (2 * m * c * c, 2 * (2 * m * c + c * c + c)),
+        'se_logits': (2 * m * c, 2 * (m * c + c + 1) + 4 * m),
+        'se_gates': (2 * m * c + 4 * frames * c * hidden,
+                     2 * (m * c + 2 * c * hidden + hidden + c + frames * c)
+                     + 4 * m),
+        'gate_residual': (2 * m * c, 2 * (3 * m * c + frames * c)),
+    }
 
 
 def memory_mask(torch, L, M, dev):
@@ -467,8 +519,11 @@ def kernel_cases(torch, dev):
         library=lambda x16, p16: conv_call(
             x16.reshape(*x16.shape[:3], -1, 64), p16),
         library_call='F.conv3d, the conv step', boundary=True))
-    for case in cases:
-        case['args'] = [a.to(dev) for a in case['args']]
+    # outside inference mode: the RU conv caches its re-laid weight only for
+    # a tensor with a version counter, as the module's parameters have
+    with torch.inference_mode(False):
+        for case in cases:
+            case['args'] = [a.to(dev) for a in case['args']]
     return cases
 
 
@@ -488,7 +543,8 @@ def check_case(torch, case, reps):
     peak32 = want.abs().max().item()
     finite = bool(torch.isfinite(got).all())
     del got, want
-    args16 = [a.to(torch.bfloat16) for a in args]
+    with torch.inference_mode(False):
+        args16 = [a.to(torch.bfloat16) for a in args]
     got16 = fn(*args16, **kw)
     want16 = ref(*[a.float() for a in args16], **kw)
     torch.cuda.synchronize()
@@ -564,6 +620,154 @@ def phase_kernels(torch, dev, reps):
             rows['residual_unit_wide'] = row
     rows['residual_unit_wide']['stages'] = stages
     return rows
+
+
+def phase_ru_launches(torch, dev, reps, smi):
+    """B4's five launches one by one at ``B4_ROW_SHAPE`` in bf16, each held
+    against its plain version in float32 on the same inputs and timed
+    beside its bound, its plain version and, for the conv and the 1x1, one
+    PyTorch call (``F.conv3d``, ``F.linear``); then the conv launch at every
+    ``RU_STAGES`` shape (its route's launch counted) with TFLOP/s of real
+    taps, beside the WMMA route on the same call; then the
+    ``RU_EXTRA_CASES`` in both dtypes against ``residual_unit_ref`` with
+    their conv routes counted. Returns the split, the conv's kernels-line
+    row and the extra cases."""
+    import torch.nn.functional as F
+    from magvit2_pytorch_tpu_torch.ops.conv import (
+        pad_time_front, to_channels_first)
+    from magvit2_pytorch_tpu_torch.ops.kernels import (
+        launch_counts, reset_launch_counts, residual_unit as ru)
+    set_tf32(False)
+    gen = torch.Generator().manual_seed(51)
+    tol = RU_TOL['bfloat16']
+
+    def inputs(shape, dtype=torch.bfloat16):
+        with torch.inference_mode(False):
+            x = torch.randn(shape, generator=gen).to(dev, dtype)
+            p = [t.to(dev, dtype) for t in ru_params(torch, shape[-1], gen)]
+        return x, p
+
+    def f32(ts):
+        return [t.float() for t in ts]
+
+    x, p = inputs(B4_ROW_SHAPE)
+    costs = ru_launch_costs(B4_ROW_SHAPE, p[6].shape[0])
+    y1 = ru.ru_conv(x, *p[:2])
+    y2 = ru.ru_pointwise(y1, *p[2:4])
+    logits = ru.se_logits(y2, *p[4:6])
+    gates = ru.se_gates(y2, logits, *p[6:])
+    out = ru.gate_residual(y2.clone(), gates, x)
+    xp = to_channels_first(pad_time_front(x, 2))
+    y2_timed = y2.clone()      # gate_residual's timing rewrites it in place
+    steps = (
+        ('conv', y1, lambda: ru.conv_ref(x.float(), *f32(p[:2])),
+         lambda: ru.ru_conv(x, *p[:2]), lambda: ru.conv_ref(x, *p[:2]),
+         lambda: F.conv3d(xp, p[0], p[1], padding=(0, 1, 1)),
+         'F.conv3d on the padded channels-first view'),
+        ('pointwise', y2, lambda: ru.pointwise_ref(y1.float(), *f32(p[2:4])),
+         lambda: ru.ru_pointwise(y1, *p[2:4]),
+         lambda: ru.pointwise_ref(y1, *p[2:4]),
+         lambda: F.linear(y1, p[2], p[3]), 'F.linear with the bias'),
+        ('se_logits', logits,
+         lambda: ru.se_logits_ref(y2.float(), *f32(p[4:6])),
+         lambda: ru.se_logits(y2, *p[4:6]),
+         lambda: ru.se_logits_ref(y2, *p[4:6]), None, None),
+        ('se_gates', gates,
+         lambda: ru.se_gates_ref(y2.float(), logits, *f32(p[6:])),
+         lambda: ru.se_gates(y2, logits, *p[6:]),
+         lambda: ru.se_gates_ref(y2, logits, *p[6:]), None, None),
+        ('gate_residual', out,
+         lambda: ru.gate_residual_ref(y2.float(), gates.float(), x.float()),
+         lambda: ru.gate_residual(y2_timed, gates, x),
+         lambda: ru.gate_residual_ref(y2, gates, x), None, None),
+    )
+    split = {}
+    for name, got, want, fn, plain, library, library_call in steps:
+        err = (got.float() - want()).abs().max().item()
+        row = dict(max_abs_err=err,
+                   ms=median_ms(fn, reps, inner=INNER),
+                   plain_ms=median_ms(plain, reps, inner=INNER),
+                   library_ms=(median_ms(library, reps, inner=INNER)
+                               if library else None),
+                   library_call=library_call)
+        row['bound_ms'], row['bound_by'] = bound(*costs[name])
+        split[name] = row
+        log(f'[ru launches] {name} {B4_ROW_SHAPE} bf16: max abs err '
+            f'{err:.3e} (tol {tol:g}); kernel {row["ms"]:.4f} ms, plain '
+            f'{row["plain_ms"]:.4f} ms, library {row["library_ms"]} ms '
+            f'({library_call}), bound {row["bound_ms"]:.4f} ms '
+            f'({row["bound_by"]}) (median of {reps}, {INNER} calls a '
+            f'timing) on {smi}')
+        if not err <= tol:
+            fail(f'RU launch {name}: error {err} > {tol}')
+    conv_split = split['conv']
+    total = sum(r['ms'] for r in split.values())
+    log(f'[ru launches] sum of the five {total:.4f} ms at {B4_ROW_SHAPE}')
+    del x, p, y1, y2, y2_timed, logits, gates, out, xp
+
+    stages = []
+    for c, t, hw, _ in RU_STAGES:
+        shape = (BATCH, t, hw, hw, c)
+        x, p = inputs(shape)
+        reset_launch_counts()
+        y1 = ru.ru_conv(x, *p[:2])
+        routed = launch_counts()['ru_conv_wgmma']
+        err = (y1.float() - ru.conv_ref(x.float(), *f32(p[:2]))).abs().max(
+            ).item()
+        del y1
+        xp = to_channels_first(pad_time_front(x, 2))
+        flops, nbytes = ru_launch_costs(shape, p[6].shape[0])['conv']
+        row = dict(shape=list(shape), route='wgmma', max_abs_err=err,
+                   ms=median_ms(lambda: ru.ru_conv(x, *p[:2]), reps),
+                   wmma_ms=median_ms(
+                       lambda: ru.ru_conv(x, *p[:2], route='wmma'), reps),
+                   library_ms=median_ms(lambda: F.conv3d(
+                       xp, p[0], p[1], padding=(0, 1, 1)), reps))
+        row['bound_ms'], row['bound_by'] = bound(flops, nbytes)
+        row['tflops'] = {k: flops / row[k] / 1e9
+                         for k in ('ms', 'wmma_ms', 'library_ms')}
+        stages.append(row)
+        log(f'[ru conv] {shape} bf16: route wgmma ({routed} launch), max abs '
+            f'err {err:.3e}; wgmma {row["ms"]:.4f} ms, WMMA route '
+            f'{row["wmma_ms"]:.4f} ms, F.conv3d {row["library_ms"]:.4f} ms, '
+            f'bound {row["bound_ms"]:.4f} ms ({row["bound_by"]}); TFLOP/s of '
+            f'real taps {row["tflops"]} (median of {reps}) on {smi}')
+        if routed != 1:
+            fail(f'RU conv {shape}: {routed} wgmma launches, expected 1')
+        if not err <= tol:
+            fail(f'RU conv {shape}: error {err} > {tol}')
+        del x, p, xp
+        torch.cuda.empty_cache()
+    conv_row = dict(stages[[tuple(s['shape']) for s in stages].index(
+        B4_ROW_SHAPE)], plain_ms=conv_split['plain_ms'],
+        library_call='F.conv3d on the padded channels-first view',
+        per='launch', stages=stages)
+
+    extra = []
+    for what, shape, route in RU_EXTRA_CASES:
+        row = dict(what=what, shape=list(shape))
+        for dtype, want_route in ((torch.float32, 'f32'),
+                                  (torch.bfloat16, route)):
+            x, p = inputs(shape, dtype)
+            reset_launch_counts()
+            got = ru.fused_residual_unit_wide(x, *p)
+            counts = launch_counts()
+            err = (got.float() - ru.residual_unit_ref(
+                x.float(), *f32(p))).abs().max().item()
+            name = str(dtype).split('.')[-1]
+            row[f'max_abs_err_{name}'] = err
+            if counts[f'ru_conv_{want_route}'] != 1:
+                fail(f'B4 {what} {name}: conv launches '
+                     f'{ {k: v for k, v in counts.items() if v} }, expected '
+                     f'one on {want_route}')
+            if not (err <= RU_TOL[name] and bool(torch.isfinite(got).all())):
+                fail(f'B4 {what} {name}: error {err} > {RU_TOL[name]}')
+        extra.append(row)
+        log(f'[ru cases] B4 {what} {shape}: max abs err float32 '
+            f'{row["max_abs_err_float32"]:.3e}, bf16 '
+            f'{row["max_abs_err_bfloat16"]:.3e} (conv route {route}; tol '
+            f'{RU_TOL})')
+    return split, conv_row, extra
 
 
 # the projection GEMMs of the main path, each twice per roundtrip (encoder
@@ -695,7 +899,10 @@ def phase_space_block(torch, dev, reps, smi):
             qkv.to(dtype), mem_k.to(dtype), mem_v.to(dtype), heads, dh,
             False, **core_kw)
 
-    err = relative_error(attn, plain(torch.float32))
+    want = plain(torch.float32)
+    err = relative_error(attn, want)
+    abs_err = (attn.float() - want).abs().max().item()
+    del want
     plain_ms = median_ms(lambda: plain(torch.bfloat16), reps, inner=INNER)
     q, k, v = (t.transpose(1, 2) for t in qkv.view(g, L, 3, heads, dh)
                .unbind(2))
@@ -713,7 +920,8 @@ def phase_space_block(torch, dev, reps, smi):
     nbytes = 2 * (4 * g * L * heads * dh + 2 * heads * m * dh)
     bound_ms, bound_by = bound(flops, nbytes)
     row = dict(shape=[g, heads, L, dh], keys=L + m, per='launch',
-               max_rel_err=err, ms=split['core'], plain_ms=plain_ms,
+               max_rel_err=err, max_abs_err=abs_err, ms=split['core'],
+               plain_ms=plain_ms,
                plain_call='attention_core_ref (attend_with_memory) on the same qkv',
                library_ms=sdpa_ms,
                library_call='F.scaled_dot_product_attention, the memory '
@@ -994,6 +1202,9 @@ def phase_card_vs_cpu(torch, dev):
         if (path == 'fused') != (fused_launches > 0):
             fail(f'{path} card path: {fused_launches} ResidualUnit kernel '
                  'launches')
+        if counts['ru_conv_f32'] != fused_launches:
+            fail(f'{path} card path, float32: {counts["ru_conv_f32"]} convs '
+                 f'on the f32 route for {fused_launches} fused units')
         if frac > 0.01:
             fail(f'{path}: {frac:.2%} of code bits flipped (> 1%)')
         if worst > 5e-3:
@@ -1537,6 +1748,14 @@ def main():
     with torch.inference_mode():
         kernel_rows = phase_kernels(torch, dev, REPS)
         torch.cuda.empty_cache()
+        split, kernel_rows['ru_conv_wgmma'], extra = phase_ru_launches(
+            torch, dev, REPS, smi)
+        b4 = kernel_rows['residual_unit_wide']
+        b4.update(split_ms=split, extra_cases=extra)
+        for stage, conv in zip(b4['stages'],
+                               kernel_rows['ru_conv_wgmma']['stages']):
+            stage['conv'] = conv
+        torch.cuda.empty_cache()
         kernel_rows['gemm_wgmma'] = phase_gemm(torch, dev, REPS, smi)
         torch.cuda.empty_cache()
         kernel_rows['space_attention_core_mma'], split = phase_space_block(
@@ -1559,17 +1778,23 @@ def main():
 
     if 'jax' in sys.modules:
         fail('JAX was imported')
-    kernels = [{'name': name, 'route': 'cuda', 'source': source,
-                'replaces': replaces,
+    # the contract's keys last: a row's own 'route' (the GEMM's) gives way
+    kernels = [{**kernel_rows[name], 'name': name, 'route': 'cuda',
+                'source': source, 'replaces': replaces,
                 # on the path that runs the kernel: a fused roundtrip, or
                 # one step of the general Attention path
                 'launches': counts['attention_step' if name in FLASH_KERNELS
                                    else 'fused'][name],
                 'launches_by_path': {p: counts[p][name] for p in counts},
                 # all of this kernel's calls in one warm fused roundtrip
-                'fused_roundtrip_ms': tp['fused']['ru_ms'].get(name),
-                **kernel_rows[name]}
+                'fused_roundtrip_ms': tp['fused']['ru_ms'].get(name)}
                for name, (source, replaces) in KERNELS.items()]
+    for row in kernels:
+        missing = [k for k in KERNEL_KEYS if k not in row]
+        if missing:
+            fail(f'kernels line: {row["name"]} lacks {missing}')
+        if not row['launches'] >= 1:
+            fail(f'{row["name"]} was not launched on its path')
     for f in LOG_FILES:
         f.close()
     print(json.dumps({'kernels': kernels}))

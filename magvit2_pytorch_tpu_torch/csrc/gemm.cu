@@ -11,10 +11,10 @@
 //                128-byte-swizzled shared memory. Every projection of the
 //                flagship's attention blocks takes this route.
 // A route that does not fit the call returns cudaErrorInvalidValue: the
-// wrapper raises, nothing falls back. Built for sm_90a.
-#include <cuda.h>
-
-#include "common.cuh"
+// wrapper raises, nothing falls back. The TMA, mbarrier and wgmma helpers
+// and the tensor maps are csrc/hopper.cuh's, shared with the fused
+// ResidualUnit's conv and 1x1 (csrc/residual_unit.cu). Built for sm_90a.
+#include "hopper.cuh"
 
 namespace mv2 {
 
@@ -251,92 +251,7 @@ constexpr int kWgTileA = kWgBM * kWgBK * 2;  // bytes
 constexpr int kWgTileW = kWgBN * kWgBK * 2;
 constexpr int kWgStageBytes = kWgTileA + kWgTileW;
 constexpr int kWgSmem = kWgStages * kWgStageBytes + 1024;  // + 1024 B align
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// until the phase of the given parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done = 0;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// box {64, rows} at (k0, row0) of a (rows, K) bf16 tensor map, swizzled
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int k0, int row0) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(k0),
-      "r"(row0)
-      : "memory");
-}
-
-// wgmma descriptor of a K-major tile with the 128-byte swizzle, as TMA
-// writes it: rows of 128 B, 8-row groups 1024 B apart (SBO), the leading
-// offset unused (1); the tile starts on a 1024-byte boundary, so the base
-// offset is 0. A step of 16 bf16 along K adds 32 B, i.e. 2, to the address.
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
-  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// acc += A(64 x 16) B(16 x 128), both from shared memory, K-major
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// keep the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma (it cannot see that the registers are in use)
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
+static_assert(kWgBK == kSw128Cols, "a K tile is one swizzle row");
 
 __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
@@ -352,9 +267,7 @@ __global__ void __launch_bounds__(kWgThreads, 2)
                          OutT* __restrict__ C, int M, int N, int K) {
   extern __shared__ unsigned char wg_smem_raw[];
   __shared__ __align__(8) uint64_t full[kWgStages];
-  // TMA's 128-byte swizzle repeats every 1024 B: align the ring to it
-  unsigned char* ring =
-      wg_smem_raw + ((1024 - (smem_u32(wg_smem_raw) & 1023)) & 1023);
+  unsigned char* ring = align1024(wg_smem_raw);
   const int tid = threadIdx.x, wg = tid / 128;
   const int n0 = blockIdx.x * kWgBN, m0 = blockIdx.y * kWgBM;
   const int ktiles = K / kWgBK;
@@ -383,19 +296,18 @@ __global__ void __launch_bounds__(kWgThreads, 2)
     const uint64_t da = sw128_desc(st + wg * (kWgBM / 2) * 128);
     const uint64_t db = sw128_desc(st + kWgTileA);
     fence_acc(acc);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kWgBK / 16; ++kk)
       wgmma_m64n128k16(acc, da + 2 * kk, db + 2 * kk);
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    // tile kt - 1's group is done: its stage may be refilled
-    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    wgmma_commit();
+    wgmma_wait<1>();  // tile kt - 1's group is done: its stage may refill
     fence_acc(acc);
     __syncthreads();
     if (tid == 0 && kt >= 1 && kt - 1 + kWgStages < ktiles)
       load(kt - 1 + kWgStages);
   }
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  wgmma_wait<0>();
   fence_acc(acc);
   __syncthreads();  // every wgmma has read its stage: the ring is free
 
@@ -427,50 +339,6 @@ __global__ void __launch_bounds__(kWgThreads, 2)
   }
 }
 
-// cuTensorMapEncodeTiled, fetched from the driver at first use (the
-// library links only the runtime)
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-static EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// a (rows, K) row-major bf16 tensor read in swizzled {64, box_rows} boxes
-static cudaError_t tensor_map(CUtensorMap* map, const bf16* ptr, int rows,
-                              int K, int box_rows) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)K * sizeof(bf16)};
-  const cuuint32_t box[2] = {(cuuint32_t)kWgBK, (cuuint32_t)box_rows};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  const CUresult res = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(ptr), dims,
-      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <typename OutT>
 cudaError_t launch_gemm_nt_wgmma(const bf16* A, const bf16* W, OutT* C, int M,
                                  int N, int K, cudaStream_t stream) {
@@ -478,9 +346,9 @@ cudaError_t launch_gemm_nt_wgmma(const bf16* A, const bf16* W, OutT* C, int M,
     return cudaErrorInvalidValue;  // not this route's shape: the rule is
                                    // ops/kernels/gemm.py gemm_route
   CUtensorMap map_a, map_w;
-  cudaError_t err = tensor_map(&map_a, A, M, K, kWgBM);
+  cudaError_t err = tensor_map_2d(&map_a, A, M, K, kWgBM);
   if (err != cudaSuccess) return err;
-  err = tensor_map(&map_w, W, N, K, kWgBN);
+  err = tensor_map_2d(&map_w, W, N, K, kWgBN);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(gemm_nt_wgmma_kernel<OutT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -4,8 +4,10 @@ Each wrapper dispatches on the tensor's device: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel (built for ``sm_90a`` at first
 use, see ``_build``) or raises. Each launch adds one to the wrapper's count
 in ``launch_counts()``: the attention blocks per block, their GEMMs by route
-(``gemm_wgmma``, ``gemm_wmma``, ``gemm_f32``) and the space block's
-tensor-core core as ``space_attention_core_mma``. The attention blocks,
+(``gemm_wgmma``, ``gemm_wmma``, ``gemm_f32``), the space block's
+tensor-core core as ``space_attention_core_mma``, the fused ResidualUnit per
+unit and its conv and 1x1 by route (``ru_conv_wgmma``, ``ru_conv_wmma``,
+``ru_conv_f32``, ``ru_pointwise_*``). The attention blocks,
 Taylor attention and the fused ResidualUnit are forward-only;
 ``flash_attention`` is a ``torch.autograd.Function`` whose backward launches
 two kernels of its own.

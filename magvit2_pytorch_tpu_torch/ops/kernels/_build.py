@@ -43,9 +43,15 @@ SIGNATURES = {
     'mv2_attention_core': [_P] * 4 + [_I] * 7 + [_L, _L, _I, _I, _P],
     # qkv, attn, dtype, frames, N, heads, dim_head, eps, stream
     'mv2_taylor_core': [_P] * 2 + [_I] * 5 + [_F, _P],
-    # x, wr, conv_b, pw_w, pw_b, k_w, k_b, gi_w, gi_b, go_w, go_b, out, y1,
-    # logits, gates, dtype, B, T, H, W, C, hidden, stream
-    'mv2_residual_unit': [_P] * 15 + [_I] * 7 + [_P],
+    # a, w, bias, out, dtype, B, T, H, W, C, conv, route, stream
+    'mv2_ru_gemm': [_P] * 4 + [_I] * 8 + [_P],
+    # y, k_w, k_b, logits, dtype, M, C, stream
+    'mv2_ru_se_logits': [_P] * 4 + [_I, _L, _I, _P],
+    # y, logits, gi_w, gi_b, go_w, go_b, stats, partial, gates, dtype,
+    # frames, HW, C, hidden, slices, stream
+    'mv2_ru_se_gates': [_P] * 9 + [_I] * 6 + [_P],
+    # out, x, gates, dtype, M, HW, C, stream
+    'mv2_ru_gate_residual': [_P] * 3 + [_I, _L, _I, _I, _P],
     # q, k, v, bias, out, lse, dtype, bh, n, m, d, bias_groups, causal,
     # scale, stream
     'mv2_flash_attention_fwd': [_P] * 6 + [_I] * 7 + [_F, _P],

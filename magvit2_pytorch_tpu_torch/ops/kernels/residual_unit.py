@@ -25,31 +25,51 @@ What the unit computes, with the JAX kernel's cast points
     gates = sigmoid(T(T(g go^T) + go_b))               per (frame, channel)
     out = T(T(y2 * gates) + x)
 
-The CUDA version (``csrc/residual_unit.cu``) runs it as five launches on
-scratch the wrapper allocates: an implicit-GEMM causal conv with the
-bias + ELU epilogue (M = output pixels, N = C, K = 27 C in tap-major order;
-the A tile is gathered from channels-last x with zero predicates for the
-causal and spatial pads, so no im2col exists in device memory), the 1x1
-GEMM with its epilogue, one warp per pixel for the SE logits, one block per
-frame for softmax, context and the gate MLP, and an elementwise gate +
-residual pass. Each block computes its conv taps from indices; a tap before
-frame 0 of its own batch element reads zero, so no tap reaches into
-batch element b - 1 (the TPU kernel's 3-slot frame ring across a
-sequential grid has no counterpart here).
+On the card the unit is five launches (``unit_launches``, ``csrc/
+residual_unit.cu``) on scratch the wrappers allocate, each with its own
+wrapper and plain version:
+
+1. ``ru_conv``: the causal conv as an implicit GEMM with the bias + ELU
+   epilogue: M = output pixels, N = C, K = 27 C in tap-major order against
+   the weight re-laid as ``(C_out, 27 C_in)`` (``relaid_conv_weight``,
+   cached per parameter). No im2col exists in device memory.
+2. ``ru_pointwise``: the 1x1 on the same GEMM with a dense A.
+3. ``se_logits``: a group of lanes a pixel, 16-byte loads.
+4. ``se_gates``: the SqueezeExcite reduction: each frame's softmax max and
+   sum, partial contexts over (frame, pixel slice) blocks (``se_slices``
+   slices a frame, so the card gets more than B*T blocks), then a block
+   per frame sums its slices in a fixed order and runs the gate MLP. No
+   atomics: the result does not depend on the schedule.
+5. ``gate_residual``: ``out = T(T(y2 * gates) + x)`` in place on y2.
+
+The GEMMs take one of three routes, picked by :func:`ru_conv_route` and
+counted apart (``ru_conv_*`` and ``ru_pointwise_*``):
+
+- ``'wgmma'``: bf16 with C % 64 == 0, every flagship stage. TMA fills a ring
+  of 128-byte-swizzled shared memory and two warpgroups run ``wgmma`` on
+  128 x 128 output tiles (128 x 64 at C = 64), ``csrc/gemm.cu``'s
+  pipeline. A conv M tile is a 16 x 8 pixel box of one frame; the A tile of
+  each tap is one box of a 5-D tensor map over x, whose out-of-bounds zero
+  fill supplies the causal and spatial pads (so no tap reaches into batch
+  element b - 1), and a tile in frame 0 or 1 skips the taps before frame 0.
+  At C = 64 one box of 16 x 10 pixels (the tile and its row halo) serves
+  the three taps that differ only in dh.
+- ``'wmma'``: bf16 with C % 64 == 32: warp-level WMMA on 128 x 64 tiles with
+  a predicated ``cp.async`` gather of the taps.
+- ``'f32'``: float32 on the CUDA cores (no TF32).
+
+A route that does not fit the call raises; nothing falls back.
 
 What bounds it on the H100: the conv. At C = 512, T = 20, 16 x 16 (batch 8)
 the unit is 528 GFLOP, counting only the conv taps that read a real pixel
 (601 GFLOP if the causal and spatial pads were multiplied too), against
 ~84 MB of activation I/O: 0.53 ms at 989 dense bf16 TFLOP/s against
-0.03 ms at 3.35 TB/s, so compute-bound at every stage.
-bf16 runs on the tensor cores (WMMA ``mma.sync``, 128x64 tiles, 3-stage
-``cp.async`` pipeline), float32 on the CUDA cores (no TF32). Scratch costs
-one extra round trip of the activation (y1) plus the SE passes; ``wgmma``,
-TMA and keeping y1 on chip are later work.
+0.03 ms at 3.35 TB/s, so compute-bound at every stage. The other four
+launches are bound by bytes: each reads or writes the activation once or
+twice. Scratch costs one extra round trip of the activation (y1).
 
 Kernel limits (the wrappers raise outside them, the gates below keep the
-module path inside them): channels-last input, C == dim, C % 32 == 0 (one
-32-wide K chunk of the conv never straddles two taps; 16-byte loads),
+module path inside them): channels-last input, C == dim, C % 32 == 0,
 C <= 1024 and SE hidden <= 1024 (the frame block's shared arrays), kernel
 size (3, 3, 3) with zero padding, float32 or bfloat16, forward only.
 
@@ -60,6 +80,7 @@ launch the kernel or raise.
 from __future__ import annotations
 
 import os
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -69,10 +90,18 @@ from magvit2_pytorch_tpu_torch.ops.conv import (
 from magvit2_pytorch_tpu_torch.ops.kernels import _build
 from magvit2_pytorch_tpu_torch.utils.helpers import cast_tuple
 
-# launches of each CUDA kernel since the last reset (see ops/kernels)
-LAUNCHES = {'residual_unit_wide': 0, 'residual_unit_packed': 0}
-
+RU_ROUTES = {'f32': 0, 'wmma': 1, 'wgmma': 2}   # csrc/residual_unit.cu RuRoute
+# launches since the last reset (see ops/kernels): the units by entry, and
+# inside them the conv and the 1x1 by route
+LAUNCHES = {'residual_unit_wide': 0, 'residual_unit_packed': 0,
+            **{f'ru_conv_{r}': 0 for r in RU_ROUTES},
+            **{f'ru_pointwise_{r}': 0 for r in RU_ROUTES}}
+WGMMA_MULTIPLE = 64    # K tile (one 128-byte swizzle row of bf16) and N step
 MAX_CHANNELS = 1024    # csrc/residual_unit.cu kSeMaxC
+# the SqueezeExcite reduction's partial blocks: about 8 an SM of the H100's
+# 132, no slice under 16 pixels
+SE_TARGET_BLOCKS = 8 * 132
+SE_MIN_SLICE = 16
 
 
 def residual_unit_ref(x, conv_w, conv_b, pw_w, pw_b, k_w, k_b, gi_w, gi_b,
@@ -101,6 +130,223 @@ def residual_unit_ref(x, conv_w, conv_b, pw_w, pw_b, k_w, k_b, gi_w, gi_b,
     g = F.leaky_relu(F.linear(context, cast(gi_w)) + cast(gi_b), 0.1)
     gates = torch.sigmoid(F.linear(g, cast(go_w)) + cast(go_b))
     return gates.reshape(b, t, 1, 1, c) * y + x
+
+
+# -- the five launches: routes, plain versions --------------------------------
+
+
+def ru_conv_route(c: int, dtype, *tensors) -> str:
+    """The route of the unit's conv and 1x1 at C = ``c`` in ``dtype``:
+    float32 takes ``'f32'``; bf16 takes ``'wgmma'`` when C is a multiple of
+    64 and every tensor starts 16-byte aligned (TMA's base), else
+    ``'wmma'``. H, W and T do not matter: TMA zero-fills a box past the
+    frame and the epilogue does not store it."""
+    if dtype == torch.float32:
+        return 'f32'
+    if (c % WGMMA_MULTIPLE == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors)):
+        return 'wgmma'
+    return 'wmma'
+
+
+def se_slices(frames: int, hw: int) -> int:
+    """Pixel slices a frame of ``hw`` pixels is cut into for the partial
+    contexts: enough for ``SE_TARGET_BLOCKS`` blocks over ``frames``
+    frames, none under ``SE_MIN_SLICE`` pixels, and none empty."""
+    want = min(-(-SE_TARGET_BLOCKS // frames), hw // SE_MIN_SLICE)
+    per = -(-hw // max(1, want))
+    return -(-hw // per)
+
+
+def _aligned16(t):
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+# id(conv weight) -> (weak reference, key, re-laid weight)
+_RELAID: dict = {}
+
+
+def relaid_conv_weight(conv_w, dtype):
+    """The conv weight ``(C_out, C_in, 3, 3, 3)`` as the GEMM's B operand
+    ``(C_out, 27 C_in)``, tap-major ``(dt, dh, dw, c_in)``, in ``dtype``.
+    Cached per parameter, keyed on its storage, version counter and the
+    dtype, so an in-place update (an optimizer step, ``load_state_dict``)
+    re-lays it; an inference tensor has no version counter and is re-laid
+    on every call. Only the card path uses it."""
+    c = conv_w.shape[0]
+    key = None
+    if not conv_w.is_inference():
+        key = (conv_w.data_ptr(), conv_w._version, dtype, conv_w.device)
+        entry = _RELAID.get(id(conv_w))
+        if entry is not None and entry[0]() is conv_w and entry[1] == key:
+            return entry[2]
+    # a new allocation (the permute makes reshape copy): 16-byte aligned
+    wr = conv_w.to(dtype).permute(0, 2, 3, 4, 1).reshape(c, 27 * c)
+    if key is not None:
+        i = id(conv_w)
+        _RELAID[i] = (weakref.ref(conv_w, lambda _, i=i: _RELAID.pop(i, None)),
+                      key, wr)
+    return wr
+
+
+def conv_ref(x, conv_w, conv_b):
+    """Plain version of :func:`ru_conv`: ``y1 = ELU(T(T(conv(x)) +
+    conv_b))`` on ``(B, T, H, W, C)``, causal in time, zero pads."""
+    dt = x.dtype
+    xc = to_channels_first(pad_time_front(x, 2))
+    if not x.is_cuda:
+        xc = xc.contiguous()    # see residual_unit_ref
+    y = F.conv3d(xc, conv_w.to(dt), padding=(0, 1, 1))
+    return F.elu(to_channels_last(y) + conv_b.to(dt))
+
+
+def pointwise_ref(y1, pw_w, pw_b):
+    """Plain version of :func:`ru_pointwise`: ``ELU(T(T(y1 pw^T) + pw_b))``."""
+    dt = y1.dtype
+    return F.elu(F.linear(y1, pw_w.to(dt)) + pw_b.to(dt))
+
+
+def se_logits_ref(y2, k_w, k_b):
+    """Plain version of :func:`se_logits`: ``float(T(T(y2 . k) + kb))`` per
+    pixel, ``(B * T * H * W,)``."""
+    dt = y2.dtype
+    return (F.linear(y2, k_w.to(dt)) + k_b.to(dt)).float().reshape(-1)
+
+
+def se_gates_ref(y2, logits, gi_w, gi_b, go_w, go_b):
+    """Plain version of :func:`se_gates`: the frame's softmax (float32,
+    then T), ``context = T(sum attn y2)`` in float32, the gate MLP;
+    ``(B * T, C)``."""
+    dt = y2.dtype
+    b, t, h, w, c = y2.shape
+    attn = torch.softmax(logits.reshape(b * t, h * w), dim=-1).to(dt)
+    context = torch.matmul(attn.float().unsqueeze(-2),
+                           y2.float().reshape(b * t, h * w, c)).to(dt)
+    g = F.leaky_relu(F.linear(context, gi_w.to(dt)) + gi_b.to(dt), 0.1)
+    return torch.sigmoid(F.linear(g, go_w.to(dt)) + go_b.to(dt)).reshape(
+        b * t, c)
+
+
+def gate_residual_ref(y2, gates, x):
+    """Plain version of :func:`gate_residual`: ``T(T(y2 * gates) + x)``."""
+    b, t, _, _, c = y2.shape
+    return gates.reshape(b, t, 1, 1, c) * y2 + x
+
+
+# -- the five launches on the card --------------------------------------------
+
+
+def _ru_gemm(a, w, bias, conv: bool, route: str | None):
+    what = 'ru_conv' if conv else 'ru_pointwise'
+    b, t, h, wd, c = a.shape
+    a = _aligned16(a.contiguous())
+    route = route or ru_conv_route(c, a.dtype, a, w)
+    out = torch.empty_like(a)
+    lib = _build.load_library()
+    code = lib.mv2_ru_gemm(
+        a.data_ptr(), w.data_ptr(), bias.to(a.dtype).contiguous().data_ptr(),
+        out.data_ptr(), _build.dtype_code(a), b, t, h, wd, c, int(conv),
+        RU_ROUTES[route], _build.stream_handle(a.device))
+    _build.check(lib, code, f'{what} {tuple(a.shape)} route {route}')
+    LAUNCHES[f'{what}_{route}'] += 1
+    return out
+
+
+def ru_conv(x, conv_w, conv_b, route: str | None = None):
+    """Launch 1, the causal 3x3x3 conv + bias + ELU on ``(B, T, H, W, C)``
+    (see ``conv_ref``); ``route`` overrides :func:`ru_conv_route` (to time
+    one route against another), and the kernel raises if the call does not
+    fit it."""
+    if not x.is_cuda:
+        return conv_ref(x, conv_w, conv_b)
+    _build.check_cuda_inputs('ru_conv', x, (conv_w, conv_b))
+    return _ru_gemm(x, relaid_conv_weight(conv_w, x.dtype), conv_b, True,
+                    route)
+
+
+def ru_pointwise(y1, pw_w, pw_b, route: str | None = None):
+    """Launch 2, the 1x1 + bias + ELU on ``(B, T, H, W, C)`` (see
+    ``pointwise_ref``), on the GEMM of :func:`ru_conv`."""
+    if not y1.is_cuda:
+        return pointwise_ref(y1, pw_w, pw_b)
+    _build.check_cuda_inputs('ru_pointwise', y1, (pw_w, pw_b))
+    w = _aligned16(pw_w.to(y1.dtype).contiguous())
+    return _ru_gemm(y1, w, pw_b, False, route)
+
+
+def se_logits(y2, k_w, k_b):
+    """Launch 3, the SqueezeExcite logits (see ``se_logits_ref``)."""
+    if not y2.is_cuda:
+        return se_logits_ref(y2, k_w, k_b)
+    _build.check_cuda_inputs('se_logits', y2, (k_w, k_b))
+    c = y2.shape[-1]
+    y2 = _aligned16(y2.contiguous())      # 16-byte loads of y2 and k
+    k = _aligned16(k_w.to(y2.dtype).contiguous())
+    logits = torch.empty(y2.numel() // c, dtype=torch.float32,
+                         device=y2.device)
+    lib = _build.load_library()
+    _build.check(lib, lib.mv2_ru_se_logits(
+        y2.data_ptr(), k.data_ptr(),
+        k_b.to(y2.dtype).contiguous().data_ptr(), logits.data_ptr(),
+        _build.dtype_code(y2), logits.numel(), c,
+        _build.stream_handle(y2.device)), 'se_logits')
+    return logits
+
+
+def se_gates(y2, logits, gi_w, gi_b, go_w, go_b):
+    """Launch 4, the SqueezeExcite reduction and gate MLP (see
+    ``se_gates_ref``): partial contexts over ``se_slices`` slices a frame."""
+    if not y2.is_cuda:
+        return se_gates_ref(y2, logits, gi_w, gi_b, go_w, go_b)
+    _build.check_cuda_inputs('se_gates', y2, (logits, gi_w, gi_b, go_w, go_b))
+    b, t, h, w, c = y2.shape
+    frames, hw, hidden = b * t, h * w, gi_w.shape[0]
+    slices = se_slices(frames, hw)
+    y2 = _aligned16(y2.contiguous())
+    stats = torch.empty((frames, 2), dtype=torch.float32, device=y2.device)
+    partial = torch.empty((frames, slices, c), dtype=torch.float32,
+                          device=y2.device)
+    gates = torch.empty((frames, c), dtype=y2.dtype, device=y2.device)
+    weights = [p.to(y2.dtype).contiguous() for p in (gi_w, gi_b, go_w, go_b)]
+    lib = _build.load_library()
+    _build.check(lib, lib.mv2_ru_se_gates(
+        y2.data_ptr(), logits.contiguous().data_ptr(),
+        *(p.data_ptr() for p in weights), stats.data_ptr(),
+        partial.data_ptr(), gates.data_ptr(), _build.dtype_code(y2), frames,
+        hw, c, hidden, slices, _build.stream_handle(y2.device)), 'se_gates')
+    return gates
+
+
+def gate_residual(y2, gates, x):
+    """Launch 5, ``T(T(y2 * gates) + x)`` (see ``gate_residual_ref``); on
+    the card in place on ``y2``, which it returns."""
+    if not y2.is_cuda:
+        return gate_residual_ref(y2, gates, x)
+    _build.check_cuda_inputs('gate_residual', y2, (gates, x))
+    if not y2.is_contiguous() or y2.data_ptr() % 16:
+        raise ValueError('gate_residual: y2 is updated in place with 16-byte '
+                         'stores: it must be contiguous and 16-byte aligned')
+    x, gates = (_aligned16(t.contiguous()) for t in (x, gates))
+    b, t, h, w, c = y2.shape
+    lib = _build.load_library()
+    _build.check(lib, lib.mv2_ru_gate_residual(
+        y2.data_ptr(), x.data_ptr(), gates.data_ptr(), _build.dtype_code(y2),
+        y2.numel() // c, h * w, c, _build.stream_handle(y2.device)),
+        'gate_residual')
+    return y2
+
+
+def unit_launches(x, conv_w, conv_b, pw_w, pw_b, k_w, k_b, gi_w, gi_b, go_w,
+                  go_b):
+    """The unit as its five launches on ``x (B, T, H, W, C)``. On CPU
+    tensors each takes its plain version, so the composition is testable
+    there."""
+    y1 = ru_conv(x, conv_w, conv_b)
+    y2 = ru_pointwise(y1, pw_w, pw_b)
+    del y1
+    logits = se_logits(y2, k_w, k_b)
+    gates = se_gates(y2, logits, gi_w, gi_b, go_w, go_b)
+    return gate_residual(y2, gates, x)
 
 
 # -- gates (the JAX package's, with the CUDA kernel's limits) -----------------
@@ -158,50 +404,24 @@ def fused_eligible(x, dim: int, kernel_size, w_blocked: bool,
 # -- the CUDA launch ----------------------------------------------------------
 
 
-def _aligned16(t):
-    return t.clone() if t.data_ptr() % 16 else t
-
-
 def _launch(x, params, name: str):
     _build.check_cuda_inputs(name, x, params)
-    conv_w, conv_b, pw_w, pw_b, k_w, k_b, gi_w, gi_b, go_w, go_b = params
     if x.ndim != 5:
         raise ValueError(f'{name}: x must be (B, T, H, W, C), got '
                          f'{tuple(x.shape)}')
-    b, t, h, w, c = x.shape
-    hidden = gi_w.shape[0]
+    c = x.shape[-1]
+    hidden = params[6].shape[0]
     if c % 32 or c > MAX_CHANNELS or hidden > MAX_CHANNELS:
         raise ValueError(f'{name}: the kernel takes C % 32 == 0, C <= '
                          f'{MAX_CHANNELS} and hidden <= {MAX_CHANNELS}; got '
                          f'C={c}, hidden={hidden}')
-    shapes = ((conv_w, (c, c, 3, 3, 3)), (conv_b, (c,)), (pw_w, (c, c)),
-              (pw_b, (c,)), (k_w, (1, c)), (k_b, (1,)), (gi_w, (hidden, c)),
-              (gi_b, (hidden,)), (go_w, (c, hidden)), (go_b, (c,)))
-    for p, want in shapes:
+    shapes = ((c, c, 3, 3, 3), (c,), (c, c), (c,), (1, c), (1,), (hidden, c),
+              (hidden,), (c, hidden), (c,))
+    for p, want in zip(params, shapes):
         if tuple(p.shape) != want:
             raise ValueError(f'{name}: parameter {tuple(p.shape)} does not '
                              f'fit {want} for C={c}, hidden={hidden}')
-    dt = x.dtype
-    # the GEMMs read x and pw_w with 16-byte loads
-    x = _aligned16(x.contiguous())
-    # the conv's B operand (C_out, 27 * C_in), tap-major (dt, dh, dw, c_in),
-    # re-laid on every call: 27 C^2 values, 14 MB in bf16 at C = 512.
-    # Caching it with the module is later work.
-    wr = conv_w.to(dt).permute(0, 2, 3, 4, 1).reshape(c, 27 * c).contiguous()
-    vec = [p.to(dt).contiguous() for p in
-           (conv_b, pw_w, pw_b, k_w, k_b, gi_w, gi_b, go_w, go_b)]
-    vec[1] = _aligned16(vec[1])
-    out = torch.empty_like(x)
-    y1 = torch.empty_like(x)
-    logits = torch.empty(b * t * h * w, dtype=torch.float32, device=x.device)
-    gates = torch.empty((b * t, c), dtype=dt, device=x.device)
-    lib = _build.load_library()
-    code = lib.mv2_residual_unit(
-        x.data_ptr(), wr.data_ptr(), *(p.data_ptr() for p in vec),
-        out.data_ptr(), y1.data_ptr(), logits.data_ptr(), gates.data_ptr(),
-        _build.dtype_code(x), b, t, h, w, c, hidden,
-        _build.stream_handle(x.device))
-    _build.check(lib, code, name)
+    out = unit_launches(_aligned16(x.contiguous()), *params)
     LAUNCHES[name] += 1
     return out
 

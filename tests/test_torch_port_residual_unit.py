@@ -364,3 +364,104 @@ def test_default_device_is_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         VideoTokenizer(seed=0, image_size=8, init_dim=4, codebook_size=16,
                        layers=('residual',))
+
+
+# ---- the five launches: routes, counters, the weight cache ---------------------
+
+
+@pytest.mark.parametrize('c,dtype,route', [
+    (64, torch.bfloat16, 'wgmma'), (128, torch.bfloat16, 'wgmma'),
+    (256, torch.bfloat16, 'wgmma'), (512, torch.bfloat16, 'wgmma'),
+    (96, torch.bfloat16, 'wmma'), (32, torch.bfloat16, 'wmma'),
+    (128, torch.float32, 'f32'), (96, torch.float32, 'f32')])
+def test_ru_conv_route(c, dtype, route):
+    """Every flagship stage (C = 64 .. 512) takes TMA + wgmma in bf16; C %
+    64 == 32 keeps WMMA; float32 the CUDA cores."""
+    x = torch.zeros(1, 2, 4, 4, c, dtype=dtype)
+    w = torch.zeros(c, 27 * c, dtype=dtype)
+    assert ru.ru_conv_route(c, dtype, x, w) == route
+
+
+def test_ru_conv_route_needs_aligned_operands():
+    """TMA reads from a 16-byte-aligned base: an operand that starts off it
+    keeps WMMA."""
+    flat = torch.zeros(2 * 4 * 4 * 128 + 1, dtype=torch.bfloat16)
+    x = flat[1:].view(1, 2, 4, 4, 128)
+    assert ru.ru_conv_route(128, torch.bfloat16, x) == 'wmma'
+
+
+def test_ru_counters_name_the_routes_and_reset():
+    names = {f'ru_{op}_{r}' for op in ('conv', 'pointwise')
+             for r in ('wgmma', 'wmma', 'f32')}
+    assert names <= set(launch_counts())
+    ru.LAUNCHES['ru_conv_wgmma'] += 2
+    ru.LAUNCHES['ru_pointwise_f32'] += 1
+    assert launch_counts()['ru_conv_wgmma'] == 2
+    reset_launch_counts()
+    assert set(launch_counts().values()) == {0}
+
+
+def test_relaid_conv_weight_is_cached_until_an_in_place_update():
+    """The conv's B operand (C_out, 27 C_in), tap-major: cached per
+    parameter and dtype; an in-place update (as an optimizer step or
+    load_state_dict makes) re-lays it, and so does new storage."""
+    c = 32
+    conv = torch.nn.Parameter(torch.randn(c, c, 3, 3, 3), requires_grad=False)
+    wr = ru.relaid_conv_weight(conv, torch.float32)
+    tap = (2 * 3 + 0) * 3 + 1                     # dt = 2, dh = 0, dw = 1
+    assert torch.equal(wr[:, tap * c:(tap + 1) * c], conv[:, :, 2, 0, 1])
+    assert ru.relaid_conv_weight(conv, torch.float32) is wr
+    wr16 = ru.relaid_conv_weight(conv, torch.bfloat16)
+    assert wr16.dtype == torch.bfloat16 and wr16 is not wr
+    with torch.no_grad():
+        conv.mul_(2)
+    again = ru.relaid_conv_weight(conv, torch.float32)
+    assert again is not wr and torch.equal(again, 2 * wr)
+    conv.data = torch.randn(c, c, 3, 3, 3)
+    assert not torch.equal(ru.relaid_conv_weight(conv, torch.float32), again)
+    with torch.inference_mode():              # no version counter: no cache
+        frozen = torch.randn(c, c, 3, 3, 3)
+        assert (ru.relaid_conv_weight(frozen, torch.float32)
+                is not ru.relaid_conv_weight(frozen, torch.float32))
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('shape', [(2, 3, 12, 12, 64), (1, 2, 8, 16, 96)],
+                         ids=['ragged_c64', 'c96'])
+def test_unit_launches_compose_to_the_plain_unit(shape, dtype):
+    """The card's five launches (conv, 1x1, SE logits, SE reduction, gate +
+    residual), each on its plain version, give ``residual_unit_ref``."""
+    rng = np.random.default_rng(15)
+    tdt = getattr(torch, dtype)
+    targs = [a.to(tdt) for a in _port_params(_jax_params(rng, shape[-1]))]
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(tdt)
+    got = ru.unit_launches(x, *targs)
+    assert got.dtype == tdt
+    assert torch.equal(got, ru.residual_unit_ref(x, *targs))
+
+
+# the flagship's unit shapes (B, T, H, W): B4 at C = 128 .. 512, B5 at 64
+@pytest.mark.parametrize('b,t,h,w', [(8, 20, 128, 128), (8, 20, 64, 64),
+                                     (8, 20, 32, 32), (8, 20, 16, 16),
+                                     (8, 10, 16, 16), (8, 5, 16, 16),
+                                     (1, 3, 12, 12), (2, 1, 8, 8)])
+def test_se_slices_cover_each_frame_once(b, t, h, w):
+    """The partial contexts cut each frame into slices of equal size but
+    the last, none empty, and at the flagship shapes into at least two
+    blocks an SM of the H100 (264); their sums in order equal the frame's
+    context."""
+    frames, hw = b * t, h * w
+    s = ru.se_slices(frames, hw)
+    per = -(-hw // s)
+    assert 1 <= s <= hw and (s - 1) * per < hw <= s * per
+    if b == 8:
+        assert frames * s >= 2 * 132
+    rng = np.random.default_rng(16)
+    y = torch.from_numpy(rng.normal(size=(frames, hw, 8)).astype(np.float32))
+    attn = torch.softmax(torch.from_numpy(
+        rng.normal(size=(frames, hw)).astype(np.float32)), dim=-1)
+    parts = [(attn[:, i * per:(i + 1) * per, None]
+              * y[:, i * per:(i + 1) * per]).sum(1) for i in range(s)]
+    np.testing.assert_allclose(sum(parts).numpy(),
+                               (attn[..., None] * y).sum(1).numpy(),
+                               rtol=1e-5, atol=1e-6)
