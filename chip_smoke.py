@@ -28,9 +28,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    at every RU stage shape of the flagship and B5 at the packed stem shape,
    with live SqueezeExcite gates, plus a batch-boundary case. B4's five
    launches (conv, 1x1, SE logits, SE reduction, gate + residual) run one by
-   one at (8, 20, 16, 16, 512), each against its plain version and beside
-   its bound, the conv against ``F.conv3d`` and the 1x1 against
-   ``F.linear``; the conv launch runs at every stage shape on its TMA +
+   one at (8, 20, 16, 16, 512), each against its plain version (relative,
+   the gates by their deviations, with planted faults that must fail) and
+   beside its bound and one PyTorch call where there is one; the conv
+   launch runs at every stage shape on its TMA +
    ``wgmma`` route (TFLOP/s of real taps, beside the WMMA route and
    ``F.conv3d``); and B4 runs at T = 1, 2, 3 (the causal skip), H = W = 12
    (ragged boxes, at C = 128 and 64) and C = 96 (the WMMA route) with its
@@ -213,6 +214,23 @@ FUSED_ENV = {'MAGVIT2_TPU_FUSED_RU_WIDE_DIMS': '64,128,256,512'}
 #   exact in float32): 1e-4 absolute.
 TOL = {'float32': 1e-5, 'bfloat16': 2e-2}
 RU_TOL = {'float32': 1e-4, 'bfloat16': 6e-2}
+# B4's five launches one by one in bf16, against their plain versions in
+# float32 on the same inputs, each held relative to the largest value of its
+# reference (an absolute limit near the unit's 6e-2 would pass a wrong
+# logit or gate kernel: those values are ~1 and their errors ~1e-3). The
+# gates are held by their deviations from each frame's mean and from each
+# channel's mean over the frames (what the context moves), on a sharpened
+# SqueezeExcite; phase_ru_launches fails where a planted fault (constant
+# gates, uniform attention, the next frame's context) would pass the limit.
+# Each output rounds to bf16 (2^-9 relative) after bf16 products; read on an
+# H100 80GB HBM3 at 700 W: conv 4.7e-3, 1x1 5.1e-3, logits 5.4e-3, gates
+# 1.0e-2 (the context and the MLP round to bf16 before the sigmoid), gate +
+# residual 2.9e-3; the planted faults read 1.0, 1.19 and 1.23.
+RU_LAUNCH_TOL = {'conv': 3e-2, 'pointwise': 3e-2, 'se_logits': 3e-2,
+                 'se_gates': 1e-1, 'gate_residual': 2e-2}
+RU_LAUNCH_HELD = dict.fromkeys(RU_LAUNCH_TOL, 'of the largest value')
+RU_LAUNCH_HELD['se_gates'] = ('deviations from the frame and channel means, '
+                              'of the largest')
 GEMM_TOL = {'float32': 5e-6, 'bfloat16': 1e-2}
 FLASH_TOL = {'float32': 1e-4, 'bfloat16': 2e-2, 'lse': 1e-4}
 # module-level checks of the attention step, relative to the largest value
@@ -560,8 +578,9 @@ def check_case(torch, case, reps):
         row.update(max_rel_err=held['bfloat16'],
                    max_rel_err_fp32=held['float32'])
     if case.get('boundary'):
-        # batch element 1 alone equals its place in a batch of two: no
-        # causal tap reaches into element 0
+        # batch element 1 alone equals its place in a batch of two, to the
+        # bit: no causal tap reaches into element 0, and no launch sums a
+        # frame in an order that depends on the batch
         both = args[0][:2]
         row['batch_boundary_err'] = (
             fn(both, *args[1:], **kw)[1:] - fn(both[1:], *args[1:], **kw)
@@ -598,7 +617,7 @@ def check_case(torch, case, reps):
     for dt in ('float32', 'bfloat16'):
         if not held[dt] <= tol[dt]:
             fail(f'{name}: {dt} error {held[dt]} ({how}) > {tol[dt]}')
-    if not row.get('batch_boundary_err', 0.0) <= tol['float32']:
+    if row.get('batch_boundary_err', 0.0) != 0.0:
         fail(f'{name}: batch element 1 differs alone and in a batch of two '
              f'by {row["batch_boundary_err"]}')
     return row
@@ -622,11 +641,34 @@ def phase_kernels(torch, dev, reps):
     return rows
 
 
+def gate_errors(torch, ru, got, want, y2, se):
+    """The SE gates ``(frames, C)`` held by their deviations: from each
+    frame's mean gate (the channel pattern) and from each channel's mean
+    over the frames (what the context adds), each relative to the largest
+    deviation of the reference; the worse of the two. Also the readings of
+    three planted faults: constant gates, uniform attention (the logits
+    ignored) and the neighbouring frame's context."""
+    def reading(g):
+        g = g.float()
+        return max(relative_error(g - g.mean(1, keepdim=True),
+                                  want - want.mean(1, keepdim=True)),
+                   relative_error(g - g.mean(0, keepdim=True),
+                                  want - want.mean(0, keepdim=True)))
+    uniform = ru.se_gates_ref(
+        y2.float(), torch.zeros(y2.numel() // y2.shape[-1],
+                                device=y2.device), *[t.float() for t in se[2:]])
+    planted = {'constant gates 0.5': reading(torch.full_like(want, 0.5)),
+               'uniform attention': reading(uniform),
+               "the next frame's context": reading(want.roll(1, 0))}
+    return reading(got), planted
+
+
 def phase_ru_launches(torch, dev, reps, smi):
     """B4's five launches one by one at ``B4_ROW_SHAPE`` in bf16, each held
-    against its plain version in float32 on the same inputs and timed
-    beside its bound, its plain version and, for the conv and the 1x1, one
-    PyTorch call (``F.conv3d``, ``F.linear``); then the conv launch at every
+    against its plain version in float32 on the same inputs under
+    ``RU_LAUNCH_TOL`` and timed beside its bound, its plain version and,
+    but for the SE reduction, one PyTorch call (``F.conv3d``, ``F.linear``
+    for the 1x1 and the logits, ``torch.addcmul``); then the conv launch at every
     ``RU_STAGES`` shape (its route's launch counted) with TFLOP/s of real
     taps, beside the WMMA route on the same call; then the
     ``RU_EXTRA_CASES`` in both dtypes against ``residual_unit_ref`` with
@@ -639,7 +681,7 @@ def phase_ru_launches(torch, dev, reps, smi):
         launch_counts, reset_launch_counts, residual_unit as ru)
     set_tf32(False)
     gen = torch.Generator().manual_seed(51)
-    tol = RU_TOL['bfloat16']
+    tol = RU_TOL['bfloat16']      # the conv at every stage, as B4's check
 
     def inputs(shape, dtype=torch.bfloat16):
         with torch.inference_mode(False):
@@ -651,14 +693,22 @@ def phase_ru_launches(torch, dev, reps, smi):
         return [t.float() for t in ts]
 
     x, p = inputs(B4_ROW_SHAPE)
+    b, t, h, w, c = B4_ROW_SHAPE
     costs = ru_launch_costs(B4_ROW_SHAPE, p[6].shape[0])
+    # the SE launches on a sharpened SqueezeExcite (k x 8, both gate-MLP
+    # weights x 4: exact in bf16). With ru_params' init the logits spread
+    # ~0.3 and the gates sit within a few hundredths of 0.5, closer than
+    # bf16's step there from frame to frame, so no check could tell a kernel
+    # with uniform attention or another frame's context from a right one
+    se = [p[4] * 8, p[5], p[6] * 4, p[7], p[8] * 4, p[9]]
     y1 = ru.ru_conv(x, *p[:2])
     y2 = ru.ru_pointwise(y1, *p[2:4])
-    logits = ru.se_logits(y2, *p[4:6])
-    gates = ru.se_gates(y2, logits, *p[6:])
+    logits = ru.se_logits(y2, *se[:2])
+    gates = ru.se_gates(y2, logits, *se[2:])
     out = ru.gate_residual(y2.clone(), gates, x)
     xp = to_channels_first(pad_time_front(x, 2))
     y2_timed = y2.clone()      # gate_residual's timing rewrites it in place
+    gates5 = gates.view(b, t, 1, 1, c)
     steps = (
         ('conv', y1, lambda: ru.conv_ref(x.float(), *f32(p[:2])),
          lambda: ru.ru_conv(x, *p[:2]), lambda: ru.conv_ref(x, *p[:2]),
@@ -669,37 +719,52 @@ def phase_ru_launches(torch, dev, reps, smi):
          lambda: ru.pointwise_ref(y1, *p[2:4]),
          lambda: F.linear(y1, p[2], p[3]), 'F.linear with the bias'),
         ('se_logits', logits,
-         lambda: ru.se_logits_ref(y2.float(), *f32(p[4:6])),
-         lambda: ru.se_logits(y2, *p[4:6]),
-         lambda: ru.se_logits_ref(y2, *p[4:6]), None, None),
+         lambda: ru.se_logits_ref(y2.float(), *f32(se[:2])),
+         lambda: ru.se_logits(y2, *se[:2]),
+         lambda: ru.se_logits_ref(y2, *se[:2]),
+         lambda: F.linear(y2, se[0], se[1]), 'F.linear with the bias'),
         ('se_gates', gates,
-         lambda: ru.se_gates_ref(y2.float(), logits, *f32(p[6:])),
-         lambda: ru.se_gates(y2, logits, *p[6:]),
-         lambda: ru.se_gates_ref(y2, logits, *p[6:]), None, None),
+         lambda: ru.se_gates_ref(y2.float(), logits, *f32(se[2:])),
+         lambda: ru.se_gates(y2, logits, *se[2:]),
+         lambda: ru.se_gates_ref(y2, logits, *se[2:]), None, None),
         ('gate_residual', out,
          lambda: ru.gate_residual_ref(y2.float(), gates.float(), x.float()),
          lambda: ru.gate_residual(y2_timed, gates, x),
-         lambda: ru.gate_residual_ref(y2, gates, x), None, None),
+         lambda: ru.gate_residual_ref(y2, gates, x),
+         lambda: torch.addcmul(x, y2, gates5), 'torch.addcmul'),
     )
     split = {}
     for name, got, want, fn, plain, library, library_call in steps:
-        err = (got.float() - want()).abs().max().item()
-        row = dict(max_abs_err=err,
+        want = want()
+        err = (got.float() - want).abs().max().item()
+        if name == 'se_gates':
+            held, planted = gate_errors(torch, ru, got, want, y2, se)
+        else:
+            held, planted = relative_error(got, want), {}
+        row = dict(max_abs_err=err, max_rel_err=held,
                    ms=median_ms(fn, reps, inner=INNER),
                    plain_ms=median_ms(plain, reps, inner=INNER),
                    library_ms=(median_ms(library, reps, inner=INNER)
                                if library else None),
                    library_call=library_call)
+        if planted:
+            row['planted_faults'] = planted
         row['bound_ms'], row['bound_by'] = bound(*costs[name])
         split[name] = row
-        log(f'[ru launches] {name} {B4_ROW_SHAPE} bf16: max abs err '
-            f'{err:.3e} (tol {tol:g}); kernel {row["ms"]:.4f} ms, plain '
-            f'{row["plain_ms"]:.4f} ms, library {row["library_ms"]} ms '
-            f'({library_call}), bound {row["bound_ms"]:.4f} ms '
-            f'({row["bound_by"]}) (median of {reps}, {INNER} calls a '
-            f'timing) on {smi}')
-        if not err <= tol:
-            fail(f'RU launch {name}: error {err} > {tol}')
+        tol = RU_LAUNCH_TOL[name]
+        log(f'[ru launches] {name} {B4_ROW_SHAPE} bf16: error {held:.3e} '
+            f'(tol {tol:g}; {RU_LAUNCH_HELD[name]}), max abs {err:.3e}'
+            + (f', planted faults {planted}' if planted else '')
+            + f'; kernel {row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} ms, '
+            f'library {row["library_ms"]} ms ({library_call}), bound '
+            f'{row["bound_ms"]:.4f} ms ({row["bound_by"]}) (median of {reps}, '
+            f'{INNER} calls a timing) on {smi}')
+        if not held <= tol:
+            fail(f'RU launch {name}: error {held} > {tol}')
+        for fault, reading in planted.items():
+            if not reading > tol:
+                fail(f'RU launch {name}: the planted fault "{fault}" reads '
+                     f'{reading}, within the limit {tol}')
     conv_split = split['conv']
     total = sum(r['ms'] for r in split.values())
     log(f'[ru launches] sum of the five {total:.4f} ms at {B4_ROW_SHAPE}')

@@ -39,7 +39,8 @@ wrapper and plain version:
    sum, partial contexts over (frame, pixel slice) blocks (``se_slices``
    slices a frame, so the card gets more than B*T blocks), then a block
    per frame sums its slices in a fixed order and runs the gate MLP. No
-   atomics: the result does not depend on the schedule.
+   atomics, and the slices depend on the frame's size alone: a frame's
+   gates do not depend on the schedule or on the batch it is in.
 5. ``gate_residual``: ``out = T(T(y2 * gates) + x)`` in place on y2.
 
 The GEMMs take one of three routes, picked by :func:`ru_conv_route` and
@@ -98,9 +99,9 @@ LAUNCHES = {'residual_unit_wide': 0, 'residual_unit_packed': 0,
             **{f'ru_pointwise_{r}': 0 for r in RU_ROUTES}}
 WGMMA_MULTIPLE = 64    # K tile (one 128-byte swizzle row of bf16) and N step
 MAX_CHANNELS = 1024    # csrc/residual_unit.cu kSeMaxC
-# the SqueezeExcite reduction's partial blocks: about 8 an SM of the H100's
-# 132, no slice under 16 pixels
-SE_TARGET_BLOCKS = 8 * 132
+# the SqueezeExcite reduction's pixel slices a frame: at most 8, none under
+# 16 pixels
+SE_SLICES = 8
 SE_MIN_SLICE = 16
 
 
@@ -135,26 +136,26 @@ def residual_unit_ref(x, conv_w, conv_b, pw_w, pw_b, k_w, k_b, gi_w, gi_b,
 # -- the five launches: routes, plain versions --------------------------------
 
 
-def ru_conv_route(c: int, dtype, *tensors) -> str:
+def ru_conv_route(c: int, dtype) -> str:
     """The route of the unit's conv and 1x1 at C = ``c`` in ``dtype``:
     float32 takes ``'f32'``; bf16 takes ``'wgmma'`` when C is a multiple of
-    64 and every tensor starts 16-byte aligned (TMA's base), else
-    ``'wmma'``. H, W and T do not matter: TMA zero-fills a box past the
-    frame and the epilogue does not store it."""
+    64, else ``'wmma'``. H, W and T do not matter: TMA zero-fills a box
+    past the frame and the epilogue does not store it. The wrappers hand
+    the kernels 16-byte-aligned operands (TMA's base), and the kernels
+    refuse others."""
     if dtype == torch.float32:
         return 'f32'
-    if (c % WGMMA_MULTIPLE == 0
-            and all(t.data_ptr() % 16 == 0 for t in tensors)):
-        return 'wgmma'
-    return 'wmma'
+    return 'wgmma' if c % WGMMA_MULTIPLE == 0 else 'wmma'
 
 
-def se_slices(frames: int, hw: int) -> int:
+def se_slices(hw: int) -> int:
     """Pixel slices a frame of ``hw`` pixels is cut into for the partial
-    contexts: enough for ``SE_TARGET_BLOCKS`` blocks over ``frames``
-    frames, none under ``SE_MIN_SLICE`` pixels, and none empty."""
-    want = min(-(-SE_TARGET_BLOCKS // frames), hw // SE_MIN_SLICE)
-    per = -(-hw // max(1, want))
+    contexts: ``SE_SLICES``, none under ``SE_MIN_SLICE`` pixels and none
+    empty. It depends on the frame alone, so a frame's context sums in the
+    same order whatever the batch: at the flagship's 40-160 frames a stage
+    that is 320-1280 blocks, at least two an SM of an H100."""
+    want = max(1, min(SE_SLICES, hw // SE_MIN_SLICE))
+    per = -(-hw // want)
     return -(-hw // per)
 
 
@@ -172,7 +173,12 @@ def relaid_conv_weight(conv_w, dtype):
     Cached per parameter, keyed on its storage, version counter and the
     dtype, so an in-place update (an optimizer step, ``load_state_dict``)
     re-lays it; an inference tensor has no version counter and is re-laid
-    on every call. Only the card path uses it."""
+    on every call. Only the card path uses it.
+
+    An update through ``param.data`` (``p.data.copy_(...)``, an EMA's
+    ``p.data.mul_(...)``) writes through a tensor with a version counter of
+    its own, so this cache does not see it: call
+    :func:`forget_relaid_weights` after such an update."""
     c = conv_w.shape[0]
     key = None
     if not conv_w.is_inference():
@@ -187,6 +193,12 @@ def relaid_conv_weight(conv_w, dtype):
         _RELAID[i] = (weakref.ref(conv_w, lambda _, i=i: _RELAID.pop(i, None)),
                       key, wr)
     return wr
+
+
+def forget_relaid_weights():
+    """Drop every cached re-lay of :func:`relaid_conv_weight`; the next
+    call of each unit re-lays its weight."""
+    _RELAID.clear()
 
 
 def conv_ref(x, conv_w, conv_b):
@@ -240,7 +252,7 @@ def _ru_gemm(a, w, bias, conv: bool, route: str | None):
     what = 'ru_conv' if conv else 'ru_pointwise'
     b, t, h, wd, c = a.shape
     a = _aligned16(a.contiguous())
-    route = route or ru_conv_route(c, a.dtype, a, w)
+    route = route or ru_conv_route(c, a.dtype)
     out = torch.empty_like(a)
     lib = _build.load_library()
     code = lib.mv2_ru_gemm(
@@ -301,7 +313,7 @@ def se_gates(y2, logits, gi_w, gi_b, go_w, go_b):
     _build.check_cuda_inputs('se_gates', y2, (logits, gi_w, gi_b, go_w, go_b))
     b, t, h, w, c = y2.shape
     frames, hw, hidden = b * t, h * w, gi_w.shape[0]
-    slices = se_slices(frames, hw)
+    slices = se_slices(hw)
     y2 = _aligned16(y2.contiguous())
     stats = torch.empty((frames, 2), dtype=torch.float32, device=y2.device)
     partial = torch.empty((frames, slices, c), dtype=torch.float32,

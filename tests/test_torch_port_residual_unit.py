@@ -377,17 +377,7 @@ def test_default_device_is_the_card(monkeypatch):
 def test_ru_conv_route(c, dtype, route):
     """Every flagship stage (C = 64 .. 512) takes TMA + wgmma in bf16; C %
     64 == 32 keeps WMMA; float32 the CUDA cores."""
-    x = torch.zeros(1, 2, 4, 4, c, dtype=dtype)
-    w = torch.zeros(c, 27 * c, dtype=dtype)
-    assert ru.ru_conv_route(c, dtype, x, w) == route
-
-
-def test_ru_conv_route_needs_aligned_operands():
-    """TMA reads from a 16-byte-aligned base: an operand that starts off it
-    keeps WMMA."""
-    flat = torch.zeros(2 * 4 * 4 * 128 + 1, dtype=torch.bfloat16)
-    x = flat[1:].view(1, 2, 4, 4, 128)
-    assert ru.ru_conv_route(128, torch.bfloat16, x) == 'wmma'
+    assert ru.ru_conv_route(c, dtype) == route
 
 
 def test_ru_counters_name_the_routes_and_reset():
@@ -425,6 +415,21 @@ def test_relaid_conv_weight_is_cached_until_an_in_place_update():
                 is not ru.relaid_conv_weight(frozen, torch.float32))
 
 
+def test_relaid_conv_weight_after_a_data_update_needs_forgetting():
+    """An update through ``param.data`` (as an EMA makes) leaves the
+    parameter's version counter as it was; ``forget_relaid_weights``
+    drops the cached re-lay, and the next call re-lays the new values."""
+    c = 32
+    conv = torch.nn.Parameter(torch.randn(c, c, 3, 3, 3))
+    wr = ru.relaid_conv_weight(conv, torch.bfloat16)
+    conv.data.mul_(0.5)
+    ru.forget_relaid_weights()
+    again = ru.relaid_conv_weight(conv, torch.bfloat16)
+    assert again is not wr
+    assert torch.equal(again, conv.detach().to(torch.bfloat16).permute(
+        0, 2, 3, 4, 1).reshape(c, 27 * c))
+
+
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 @pytest.mark.parametrize('shape', [(2, 3, 12, 12, 64), (1, 2, 8, 16, 96)],
                          ids=['ragged_c64', 'c96'])
@@ -449,9 +454,9 @@ def test_se_slices_cover_each_frame_once(b, t, h, w):
     """The partial contexts cut each frame into slices of equal size but
     the last, none empty, and at the flagship shapes into at least two
     blocks an SM of the H100 (264); their sums in order equal the frame's
-    context."""
+    context. The cut depends on the frame alone, not on the batch."""
     frames, hw = b * t, h * w
-    s = ru.se_slices(frames, hw)
+    s = ru.se_slices(hw)
     per = -(-hw // s)
     assert 1 <= s <= hw and (s - 1) * per < hw <= s * per
     if b == 8:
