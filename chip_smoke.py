@@ -21,10 +21,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ragged and causal shapes (L in 1, 17, 100, 256, 1024; rows not a
    multiple of 64), with its launches timed one by one at the flagship
    shape (norm, qkv GEMM, core, out GEMM) against the whole block as a
-   sequence of PyTorch calls and its core against SDPA. The projection
+   sequence of PyTorch calls and its core against SDPA. B3 likewise at
+   (160, 1024, 256), 16 heads x 8: its launches timed one by one (norm,
+   qkv GEMM with q scaled and cast in its epilogue, the tensor-core moment
+   core, out GEMM) beside their bounds and ``F.rms_norm`` / ``F.linear``,
+   the core against its plain version in float32 and in bf16 on the same
+   qkv with its TFLOP/s and GB/s; then B3 at N = 1, 144, 1000 and 4096 in
+   both dtypes (the float32 route) with its launches counted, a batch of
+   two against its second frame alone (exactly 0), and
+   ``TaylorSeriesLinearAttn(dim_head=16)`` (the gate's plain version) on
+   the card against the CPU. The projection
    GEMM runs at every main-path shape on both bf16 routes (``wgmma``,
    WMMA) against ``torch.matmul`` in float32 and ``F.linear``, and at
-   ragged shapes. The fused ResidualUnit (B4) runs
+   ragged shapes, with the epilogue's scaled columns where B3 uses them.
+   The fused ResidualUnit (B4) runs
    at every RU stage shape of the flagship and B5 at the packed stem shape,
    with live SqueezeExcite gates, plus a batch-boundary case. B4's five
    launches (conv, 1x1, SE logits, SE reduction, gate + residual) run one by
@@ -51,8 +61,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
 4. default flagship roundtrip, bfloat16, batch 8, seeded random weights,
    through ``VideoTokenizer.tokenize`` then ``decode_from_code_indices``:
    shapes, finite output, and launches per roundtrip: 2 of each attention
-   block, 12 ``wgmma`` GEMMs, 0 WMMA ones, 2 of B1's tensor-core core, 0 of
-   B4, B5 and the flash kernels, and no ResidualUnit kernel call by shape;
+   block, 12 ``wgmma`` GEMMs, 0 WMMA ones, 2 of B1's tensor-core core, 2 of
+   B3's (``taylor_core_mma``; 0 ``taylor_core_f32``), 0 of B4, B5 and the
+   flash kernels, and no ResidualUnit kernel call by shape;
    then frames/sec by the slope of chained runs (as ``bench.py``); then the
    same tokenizer and input in bf16 with the blocks and with
    ``MAGVIT2_TPU_NO_FUSED_ATTN=1`` (the general plain attention path):
@@ -69,7 +80,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (default and fused) against one CPU reference with the same weights:
    code bits may flip only where the CPU's decision margin |z| <= 5e-3 and
    for <= 1% of bits; decoding the same codes must agree within 1e-3; the
-   fused path's convs all take the float32 route.
+   fused path's convs all take the float32 route. Then a small tokenizer
+   with ``linear_attn_dim_head=16`` (32 px, 5 frames) through the same
+   entry points: bf16 on the card, and float32 card against CPU (codes,
+   and the recon from the CPU's codes within 1e-3), no Taylor launch.
 7. the general ``Attention`` path with the flash backend, forward and
    backward: one step of ``SpaceAttention(512, dim_head=32, heads=8,
    backend='flash')`` on (1, 17, 64, 64, 512) bf16 (4096 tokens a frame,
@@ -117,19 +131,22 @@ def log(msg: str, file=None):
 RU_SOURCE = 'magvit2_pytorch_tpu_torch/csrc/residual_unit.cu'
 FLASH_SOURCE = 'magvit2_pytorch_tpu_torch/csrc/flash_attention.cu'
 ATTN_SOURCE = 'magvit2_pytorch_tpu_torch/csrc/attention_block.cu'
+TAYLOR_SOURCE = 'magvit2_pytorch_tpu_torch/csrc/taylor_attention.cu'
 B1_TPU = 'magvit2_pytorch_tpu/ops/pallas/axial_attention.py:49'
+B3_TPU = 'magvit2_pytorch_tpu/ops/pallas/taylor_attention.py:55'
 KERNELS = {
     'space_attention_block': (ATTN_SOURCE, B1_TPU),
     'time_attention_block': (
         ATTN_SOURCE, 'magvit2_pytorch_tpu/ops/pallas/axial_attention.py:224'),
-    'taylor_attention_block': (
-        'magvit2_pytorch_tpu_torch/csrc/taylor_attention.cu',
-        'magvit2_pytorch_tpu/ops/pallas/taylor_attention.py:35'),
+    'taylor_attention_block': (TAYLOR_SOURCE, B3_TPU),
     # launches inside the three blocks above: the projections of B1-B3
     # (B1's at axial_attention.py:56 and :95) and B1's attention step
     # (:59-91)
     'gemm_wgmma': ('magvit2_pytorch_tpu_torch/csrc/gemm.cu', B1_TPU),
     'space_attention_core_mma': (ATTN_SOURCE, B1_TPU),
+    # B3's moment core: the feature maps, A = phi(k)^T v, S and the output
+    # of _taylor_frame (taylor_attention.py:78-107)
+    'taylor_core_mma': (TAYLOR_SOURCE, B3_TPU),
     'residual_unit_wide': (
         RU_SOURCE, 'magvit2_pytorch_tpu/ops/pallas/residual_unit_wide.py:56'),
     'residual_unit_packed': (
@@ -154,12 +171,13 @@ KERNEL_KEYS = ('name', 'route', 'source', 'replaces', 'launches',
 # launches per roundtrip on each path (encoder + decoder): the flagship has
 # 11 ResidualUnits a side, the first (64 channels, the lane-packed stem) B5;
 # each attention block makes two projection GEMMs, all on the wgmma route
-# in bf16, and B1 one launch of its tensor-core core; and per step (forward
-# + backward) of the general Attention path
+# in bf16, B1 one launch of its tensor-core core and B3 one of its own; and
+# per step (forward + backward) of the general Attention path
 NO_FLASH = dict.fromkeys(FLASH_KERNELS, 0)
 BLOCKS = {'space_attention_block': 2, 'time_attention_block': 2,
           'taylor_attention_block': 2, 'gemm_wgmma': 12, 'gemm_wmma': 0,
-          'gemm_f32': 0, 'space_attention_core_mma': 2}
+          'gemm_f32': 0, 'space_attention_core_mma': 2, 'taylor_core_mma': 2,
+          'taylor_core_f32': 0}
 # each fused unit launches one conv and one 1x1, in bf16 on the wgmma route
 FUSED_RU = {'residual_unit_wide': 20, 'residual_unit_packed': 2,
             'ru_conv_wgmma': 22, 'ru_conv_wmma': 0, 'ru_conv_f32': 0,
@@ -176,7 +194,7 @@ LAUNCHES = {
 # sends space and time attention down the general plain path; Taylor
 # attention keeps its block
 IN_SITU_PLAIN = {**dict.fromkeys(BLOCKS, 0), 'taylor_attention_block': 2,
-                 'gemm_wgmma': 4}
+                 'taylor_core_mma': 2, 'gemm_wgmma': 4}
 FUSED_ENV = {'MAGVIT2_TPU_FUSED_RU_WIDE_DIMS': '64,128,256,512'}
 
 # kernel vs plain tolerances, with their reasons, each within ~10x of the
@@ -196,9 +214,7 @@ FUSED_ENV = {'MAGVIT2_TPU_FUSED_RU_WIDE_DIMS': '64,128,256,512'}
 #   the output (up to ~6 in magnitude) to 2^-8 relative.
 # - the projection GEMM against torch.matmul in float32 on the same bf16
 #   inputs, relative to the largest value: a bf16 output rounds each value
-#   to 2^-9 relative (read <= 3.3e-3), so 1e-2; a float32 output (Taylor's
-#   qkv) differs only by summation order over K <= 512 exact products (read
-#   <= 6.2e-7), so 5e-6.
+#   to 2^-9 relative (read <= 3.3e-3), so 1e-2.
 # - flash attention, against its plain version in float32 on the same
 #   inputs (N(0, 1) q, k, v, dO and bias). Outputs and gradients are held
 #   relative to the largest value of the reference, max|a - r| / max|r|,
@@ -231,7 +247,7 @@ RU_LAUNCH_TOL = {'conv': 3e-2, 'pointwise': 3e-2, 'se_logits': 3e-2,
 RU_LAUNCH_HELD = dict.fromkeys(RU_LAUNCH_TOL, 'of the largest value')
 RU_LAUNCH_HELD['se_gates'] = ('deviations from the frame and channel means, '
                               'of the largest')
-GEMM_TOL = {'float32': 5e-6, 'bfloat16': 1e-2}
+GEMM_TOL = 1e-2
 FLASH_TOL = {'float32': 1e-4, 'bfloat16': 2e-2, 'lse': 1e-4}
 # module-level checks of the attention step, relative to the largest value
 # of the reference: bf16 flash against bf16 plain on the card (both round
@@ -836,20 +852,21 @@ def phase_ru_launches(torch, dev, reps, smi):
 
 
 # the projection GEMMs of the main path, each twice per roundtrip (encoder
-# and decoder), and ragged ones: (what, M, N, K, output dtype, the route
-# gemm_route must pick, timed). Rows: B1 160 frames x 256 tokens, B2 8 x 256
-# pixels x 5 frames, B3 160 frames x 1024 tokens.
+# and decoder), and ragged ones: (what, M, N, K, the route gemm_route must
+# pick, timed, the epilogue's scaled columns). Rows: B1 160 frames x 256
+# tokens, B2 8 x 256 pixels x 5 frames, B3 160 frames x 1024 tokens, whose
+# qkv GEMM scales q (128 columns) by 8^-1/2.
 GEMM_CASES = (
-    ('B1 qkv', 40960, 768, 512, 'bfloat16', 'wgmma', True),
-    ('B1 out', 40960, 512, 256, 'bfloat16', 'wgmma', True),
-    ('B2 qkv', 10240, 768, 512, 'bfloat16', 'wgmma', True),
-    ('B2 out', 10240, 512, 256, 'bfloat16', 'wgmma', True),
-    ('B3 qkv', 163840, 384, 256, 'float32', 'wgmma', True),
-    ('B3 out', 163840, 256, 128, 'bfloat16', 'wgmma', True),
-    ('ragged M', 1000, 192, 320, 'bfloat16', 'wgmma', False),
-    ('ragged M, float32 out', 1000, 192, 320, 'float32', 'wgmma', False),
-    ('ragged K', 1000, 200, 100, 'bfloat16', 'wmma', False),
+    ('B1 qkv', 40960, 768, 512, 'wgmma', True, 0),
+    ('B1 out', 40960, 512, 256, 'wgmma', True, 0),
+    ('B2 qkv', 10240, 768, 512, 'wgmma', True, 0),
+    ('B2 out', 10240, 512, 256, 'wgmma', True, 0),
+    ('B3 qkv', 163840, 384, 256, 'wgmma', True, 128),
+    ('B3 out', 163840, 256, 128, 'wgmma', True, 0),
+    ('ragged M', 1000, 192, 320, 'wgmma', False, 64),
+    ('ragged K', 1000, 200, 100, 'wmma', False, 66),
 )
+TAYLOR_SCALE = 8 ** -0.5
 # B1 at ragged and causal shapes: (frames, L, causal) at the flagship widths
 # (C 512, 8 heads x 32, 4 memory keys); 3 frames make rows (3 L) that are
 # not a multiple of 64 where L is ragged
@@ -869,34 +886,36 @@ def phase_gemm(torch, dev, reps, smi):
     set_tf32(False)
     gen = torch.Generator(device=dev).manual_seed(31)
     shapes = []
-    for what, m, n, k, out_name, want_route, timed in GEMM_CASES:
+    for what, m, n, k, want_route, timed, scaled in GEMM_CASES:
         a = torch.randn(m, k, device=dev, generator=gen).bfloat16()
         w = (torch.randn(n, k, device=dev, generator=gen)
              * k ** -0.5).bfloat16()
-        out_dtype = getattr(torch, out_name)
         route = gemm.gemm_route(n, k, a.dtype, a, w)
         if route != want_route:
             fail(f'gemm {what} ({m}, {n}, {k}): route {route}, expected '
                  f'{want_route}')
         want = torch.matmul(a.float(), w.float().t())
-        got = gemm.gemm_nt(a, w, out_dtype)
+        want[:, :scaled] *= TAYLOR_SCALE
+        epilogue = dict(scaled_cols=scaled, col_scale=TAYLOR_SCALE)
+        got = gemm.gemm_nt(a, w, **epilogue)
         torch.cuda.synchronize()
-        row = dict(what=what, shape=[m, n, k], out=out_name, route=route,
+        row = dict(what=what, shape=[m, n, k], route=route,
+                   scaled_cols=scaled,
                    max_abs_err=(got.float() - want).abs().max().item(),
                    max_rel_err=relative_error(got, want))
         held = {route: row['max_rel_err']}
         if timed:
             held['wmma'] = relative_error(
-                gemm.gemm_nt(a, w, out_dtype, route='wmma'), want)
+                gemm.gemm_nt(a, w, route='wmma', **epilogue), want)
             flops = 2 * m * n * k
-            nbytes = 2 * (m * k + n * k) + m * n * out_dtype.itemsize
+            nbytes = 2 * (m * k + n * k + m * n)
             row.update(
-                ms=median_ms(lambda: gemm.gemm_nt(a, w, out_dtype), reps,
+                ms=median_ms(lambda: gemm.gemm_nt(a, w, **epilogue), reps,
                              inner=INNER),
                 wmma_ms=median_ms(lambda: gemm.gemm_nt(
-                    a, w, out_dtype, route='wmma'), reps, inner=INNER),
+                    a, w, route='wmma', **epilogue), reps, inner=INNER),
                 plain_ms=median_ms(
-                    lambda: gemm.gemm_nt_ref(a, w, out_dtype), reps,
+                    lambda: gemm.gemm_nt_ref(a, w, **epilogue), reps,
                     inner=INNER),
                 library_ms=median_ms(lambda: F.linear(a, w), reps,
                                      inner=INNER),
@@ -906,18 +925,18 @@ def phase_gemm(torch, dev, reps, smi):
             row['tflops'] = {key: flops / row[key] / 1e9 for key in
                              ('ms', 'wmma_ms', 'library_ms')}
         del a, w, want, got
-        log(f'[gemm] {what} ({m}, {n}, {k}) -> {out_name}, route {route}: '
-            f'error over the largest value {held} (tol '
-            f'{GEMM_TOL[out_name]:g})' + (
+        log(f'[gemm] {what} ({m}, {n}, {k}), route {route}, {scaled} '
+            f'scaled columns: error over the largest value {held} (tol '
+            f'{GEMM_TOL:g})' + (
                 f'; wgmma {row["ms"]:.4f} ms, WMMA {row["wmma_ms"]:.4f} ms, '
                 f'plain {row["plain_ms"]:.4f} ms, F.linear '
                 f'{row["library_ms"]:.4f} ms, bound {row["bound_ms"]:.4f} ms '
                 f'({row["bound_by"]}); TFLOP/s {row["tflops"]} (median of '
                 f'{reps}, {INNER} calls a timing) on {smi}' if timed else ''))
         for key, err in held.items():
-            if not err <= GEMM_TOL[out_name]:
+            if not err <= GEMM_TOL:
                 fail(f'gemm {what} ({m}, {n}, {k}) route {key}: error '
-                     f'{err} of the largest value > {GEMM_TOL[out_name]}')
+                     f'{err} of the largest value > {GEMM_TOL}')
         shapes.append(row)
     return dict(shapes[0], per='launch', shapes=shapes)
 
@@ -1033,6 +1052,243 @@ def phase_space_block(torch, dev, reps, smi):
         f'100, 256, 1024, causal and not): worst error over the largest '
         f'value {worst} (tol {TOL})')
     return row, dict(split, library_ms_attention_step=sdpa_ms)
+
+
+# B3 at shapes the flagship does not reach: (frames, N) at the flagship
+# widths (C 256, 16 heads x 8); N = 1, 144 and 1000 leave the last 64-token
+# chunk and 16-token tile part empty, 4096 is a 64 x 64 frame
+TAYLOR_CASES = ((3, 1), (3, 144), (3, 1000), (2, 4096))
+# the small tokenizer of the dim_head = 16 roundtrip (the block's gate sends
+# that head size to the plain version on both devices)
+TAYLOR_D16 = dict(image_size=32, init_dim=32, codebook_size=64,
+                  layers=('residual', 'compress_space', 'linear_attend_space',
+                          'compress_time', 'linear_attend_space'),
+                  linear_attn_dim_head=16, linear_attn_heads=4,
+                  use_gan=False, perceptual_loss_weight=0.0)
+
+
+def taylor_inputs(torch, gen, frames, n, c=256, heads=16, dh=8):
+    """x (frames, n, C) and the block's parameters, float32 on the CPU."""
+    return [torch.randn(frames, n, c, generator=gen),
+            1 + 0.1 * torch.randn(c, generator=gen),
+            uniform(torch, gen, (3 * heads * dh, c), c),
+            uniform(torch, gen, (c, heads * dh), heads * dh)]
+
+
+def phase_taylor_block(torch, dev, reps, smi):
+    """B3 at the flagship shape (bf16, 160 frames x 1024 tokens x 256, 16
+    heads x 8), its four launches timed one by one, the GEMMs beside
+    ``F.linear``; its core against the plain version on the same qkv (in
+    float32 and in bf16), with TFLOP/s and GB/s. Then B3 at
+    ``TAYLOR_CASES`` in both dtypes with its launches counted, the batch
+    boundary in both dtypes, and ``TaylorSeriesLinearAttn(dim_head=16)``
+    (the gate's plain version) against the CPU. Returns the core's
+    kernels-line row and the split for B3's row."""
+    import torch.nn.functional as F
+    from magvit2_pytorch_tpu_torch.ops import attention
+    from magvit2_pytorch_tpu_torch.ops.basic import init_module_parameters
+    from magvit2_pytorch_tpu_torch.ops.kernels import (
+        gemm, launch_counts, reset_launch_counts, taylor_attention as ta)
+    set_tf32(False)
+    gen = torch.Generator().manual_seed(43)
+    g, n, c, heads, dh = BATCH * 20, 1024, 256, 16, 8
+    hd = heads * dh
+    x, gamma, wqkv, wout = (t.to(dev).bfloat16()
+                            for t in taylor_inputs(torch, gen, g, n))
+    xf = x.reshape(-1, c)
+    epilogue = dict(scaled_cols=hd, col_scale=dh ** -0.5)
+    xn = gemm.rmsnorm(xf, gamma)
+    qkv = gemm.gemm_nt(xn, wqkv, **epilogue)
+    attn = ta.taylor_core(qkv, g, heads, dh)
+
+    def timed(fn):
+        return median_ms(fn, reps, inner=INNER)
+
+    split = dict(
+        rmsnorm=timed(lambda: gemm.rmsnorm(xf, gamma)),
+        qkv_gemm=timed(lambda: gemm.gemm_nt(xn, wqkv, **epilogue)),
+        core=timed(lambda: ta.taylor_core(qkv, g, heads, dh)),
+        out_gemm=timed(lambda: gemm.gemm_nt(attn, wout)))
+    library = dict(
+        rmsnorm=timed(lambda: F.rms_norm(xf, (c,), gamma)),
+        qkv_gemm=timed(lambda: F.linear(xn, wqkv)),
+        out_gemm=timed(lambda: F.linear(attn, wout)))
+    plain = dict(
+        rmsnorm=timed(lambda: gemm.rmsnorm_ref(xf, gamma)),
+        qkv_gemm=timed(lambda: gemm.gemm_nt_ref(xn, wqkv, **epilogue)),
+        out_gemm=timed(lambda: gemm.gemm_nt_ref(attn, wout)))
+    # each launch against its plain version in float32 on the same inputs
+    launch_err = dict(
+        rmsnorm=relative_error(xn, gemm.rmsnorm_ref(xf.float(),
+                                                    gamma.float())),
+        qkv_gemm=relative_error(qkv, gemm.gemm_nt_ref(
+            xn.float(), wqkv.float(), **epilogue)),
+        out_gemm=relative_error(gemm.gemm_nt(attn, wout),
+                                gemm.gemm_nt_ref(attn.float(),
+                                                 wout.float())))
+    rows = g * n
+    launch_cost = dict(   # FLOPs, bytes: each input read once, output once
+        rmsnorm=(3 * rows * c, 2 * (2 * rows * c + c)),
+        qkv_gemm=(2 * rows * c * 3 * hd,
+                  2 * (rows * c + 3 * hd * c + rows * 3 * hd)),
+        core=(rows * heads * (4 * dh ** 3 + 8 * dh * dh + 2 * dh),
+              2 * (rows * 3 * hd + rows * hd)),
+        out_gemm=(2 * rows * hd * c, 2 * (rows * hd + c * hd + rows * c)))
+    bounds = {k: bound(*v) for k, v in launch_cost.items()}
+
+    want = ta.taylor_core_ref(qkv.float(), g, heads, dh)
+    err = relative_error(attn, want)
+    abs_err = (attn.float() - want).abs().max().item()
+    del want
+    want16 = ta.taylor_core_ref(qkv, g, heads, dh)
+    err16 = relative_error(attn, want16)
+    share16 = (attn != want16).float().mean().item()
+    del want16
+    plain_ms = timed(lambda: ta.taylor_core_ref(qkv, g, heads, dh))
+    flops, nbytes = launch_cost['core']
+    bound_ms, bound_by = bounds['core']
+    row = dict(shape=[g, n, heads, dh], per='launch', max_rel_err=err,
+               max_abs_err=abs_err, max_rel_err_bf16_plain=err16,
+               differing_share_bf16_plain=share16, ms=split['core'],
+               plain_ms=plain_ms,
+               plain_call='taylor_core_ref (bf16 casts) on the same qkv',
+               library_ms=None, library_call=None, bound_ms=bound_ms,
+               bound_by=bound_by, tflops=flops / split['core'] / 1e9,
+               gbytes_per_s=nbytes / split['core'] / 1e6)
+    log(f'[taylor block] ({g}, {n}, {c}) bf16, launch by launch (median of '
+        f'{reps}, {INNER} calls a timing): {split} ms, sum '
+        f'{sum(split.values()):.4f} ms; bounds {bounds}; plain versions '
+        f'{plain} ms; PyTorch calls for the same launches (F.rms_norm, '
+        f'F.linear) {library} ms; norm and GEMMs against their plain '
+        f'versions in float32, over the largest value: {launch_err} (tol '
+        f'{TOL["bfloat16"]:g}); core '
+        f'against taylor_core_ref in float32 on the same qkv: error over '
+        f'the largest value {err:.3e} (tol {TOL["bfloat16"]:g}); against '
+        f'the bf16 plain version {err16:.3e}, {share16:.4%} of values '
+        f'differ; core {split["core"]:.4f} ms ({row["tflops"]:.1f} TFLOP/s '
+        f'of the moment work, {row["gbytes_per_s"]:.0f} GB/s of q, k, v and '
+        f'the output), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms '
+        f'({bound_by}), on {smi}')
+    for what, e in (*launch_err.items(), ('core', err)):
+        if not e <= TOL['bfloat16']:
+            fail(f'taylor block, {what} launch: error {e} of the largest '
+                 f'value > {TOL["bfloat16"]}')
+    del x, xf, xn, qkv, attn
+
+    want_counts = {
+        'float32': dict(gemm_f32=2, gemm_wgmma=0, gemm_wmma=0,
+                        taylor_core_mma=0, taylor_core_f32=1),
+        'bfloat16': dict(gemm_f32=0, gemm_wgmma=2, gemm_wmma=0,
+                         taylor_core_mma=1, taylor_core_f32=0)}
+    worst = dict.fromkeys(want_counts, 0.0)
+    boundary = {}
+    for frames, n in TAYLOR_CASES:
+        inputs = taylor_inputs(torch, gen, frames, n)
+        for name, want_n in want_counts.items():
+            args = [t.to(dev, getattr(torch, name)) for t in inputs]
+            reset_launch_counts()
+            got = ta.taylor_attention(*args, heads, dh)
+            counts = launch_counts()
+            err = relative_error(got, ta.taylor_attention_ref(
+                *(a.float() for a in args), heads, dh))
+            worst[name] = max(worst[name], err)
+            what = f'taylor block ({frames}, {n}, {c}) {name}'
+            if not bool(torch.isfinite(got).all()):
+                fail(f'{what}: non-finite output')
+            if not err <= TOL[name]:
+                fail(f'{what}: error {err} of the largest value > '
+                     f'{TOL[name]}')
+            if any(counts[key] != v for key, v in want_n.items()):
+                fail(f'{what}: launches {counts}, expected {want_n}')
+            if n == 1000:
+                # frame 1 alone equals its place in a batch of two, to the
+                # bit: the core sums each frame in a fixed order
+                boundary[name] = (
+                    ta.taylor_attention(args[0][:2], *args[1:], heads, dh)[1:]
+                    - ta.taylor_attention(args[0][1:2], *args[1:], heads, dh)
+                ).abs().max().item()
+    log(f'[taylor block] {len(TAYLOR_CASES)} cases ((frames, N) in '
+        f'{TAYLOR_CASES}): worst error over the largest value {worst} (tol '
+        f'{TOL}); batch boundary at N = 1000 {boundary}')
+    if any(v != 0.0 for v in boundary.values()):
+        fail(f'taylor block: frame 1 differs alone and in a batch of two by '
+             f'{boundary}')
+
+    # dim_head = 16: the gate's plain version on the card against the CPU
+    module = attention.TaylorSeriesLinearAttn(c, dim_head=16, heads=8)
+    init_module_parameters(module, torch.Generator().manual_seed(5))
+    xs, gs = taylor_inputs(torch, gen, 4, 256)[:2]
+    errs = {}
+    for name in ('float32', 'bfloat16'):     # bf16 rounds the weights
+        dt = getattr(torch, name)
+        reset_launch_counts()
+        card = module.to(dev, dt)(xs.to(dev, dt), gs.to(dev, dt))
+        if any(launch_counts().values()):
+            fail(f'TaylorSeriesLinearAttn(dim_head=16) {name} launched '
+                 f'{launch_counts()}: the gate sends it to the plain version')
+        # the CPU in float32 on the same (rounded) inputs and weights
+        cpu = module.to('cpu', torch.float32)(xs.to(dt).float(),
+                                              gs.to(dt).float())
+        errs[name] = relative_error(card, cpu)
+        if not errs[name] <= TOL[name]:
+            fail(f'TaylorSeriesLinearAttn(dim_head=16) {name}: card against '
+                 f'CPU {errs[name]} of the largest value > {TOL[name]}')
+    log(f'[taylor block] TaylorSeriesLinearAttn(256, dim_head=16, heads=8) '
+        f'on (4, 256, 256), card against CPU, no kernel launched: error '
+        f'over the largest value {errs} (tol {TOL})')
+    return row, dict(split, bounds_ms={k: v[0] for k, v in bounds.items()},
+                     plain_ms=plain, library_ms=library,
+                     launch_errors=launch_err, batch_boundary=boundary,
+                     cases_worst=worst, dim_head_16=errs)
+
+
+def phase_taylor_roundtrip(torch, dev):
+    """A small tokenizer with ``linear_attn_dim_head=16`` through
+    ``tokenize`` and ``decode_from_code_indices`` on the card: bf16 shapes
+    and finite values, and float32 (TF32 off) against the CPU on the same
+    weights and input; no Taylor kernel launches (the gate)."""
+    from magvit2_pytorch_tpu_torch import VideoTokenizer
+    from magvit2_pytorch_tpu_torch.ops.kernels import (
+        launch_counts, reset_launch_counts)
+    set_tf32(False)
+    video = torch.rand(2, 5, 32, 32, 3,
+                       generator=torch.Generator().manual_seed(3))
+    out = {}
+    for where, dt in (('cpu', torch.float32), ('card', torch.float32),
+                      ('card', torch.bfloat16)):
+        tok = VideoTokenizer(seed=0, device=dev if where == 'card' else 'cpu',
+                             dtype=dt, **TAYLOR_D16)
+        reset_launch_counts()
+        codes = tok.tokenize(video)
+        # float32 on the card decodes the CPU's codes (a flipped code would
+        # hide the decoder's agreement)
+        given = out[('cpu', dt)][0] if ('cpu', dt) in out else codes
+        recon = tok.decode_from_code_indices(
+            given.to(codes.device).reshape(2, -1))
+        taylor = {k: v for k, v in launch_counts().items()
+                  if k.startswith('taylor')}
+        if any(taylor.values()):
+            fail(f'dim_head=16 roundtrip ({where}, {dt}): Taylor launches '
+                 f'{taylor}')
+        if (tuple(recon.shape) != (2, 5, 32, 32, 3)
+                or not bool(torch.isfinite(recon).all())):
+            fail(f'dim_head=16 roundtrip ({where}, {dt}): recon '
+                 f'{tuple(recon.shape)}, finite '
+                 f'{bool(torch.isfinite(recon).all())}')
+        out[(where, dt)] = (codes.cpu(), recon.float().cpu())
+    (c_cpu, r_cpu), (c_card, r_card) = (out[('cpu', torch.float32)],
+                                        out[('card', torch.float32)])
+    same = (c_card == c_cpu).float().mean().item()
+    err = (r_card - r_cpu).abs().max().item()
+    log(f'[taylor roundtrip] linear_attn_dim_head=16, (2, 5, 32, 32, 3): '
+        f'bf16 on the card codes '
+        f'{tuple(out[("card", torch.bfloat16)][0].shape)}, finite; float32 '
+        f'card against CPU: {same:.2%} of codes equal, recon from the same '
+        f'codes max abs err {err:.3e}')
+    if same < 0.99 or not err <= 1e-3:
+        fail(f'dim_head=16 roundtrip: card against CPU {same:.2%} of codes '
+             f'equal, recon {err}')
+    return dict(codes_equal=same, recon_max_abs_err=err)
 
 
 def phase_in_situ(torch, tok, video):
@@ -1826,6 +2082,10 @@ def main():
         kernel_rows['space_attention_core_mma'], split = phase_space_block(
             torch, dev, REPS, smi)
         kernel_rows['space_attention_block']['split_ms'] = split
+        torch.cuda.empty_cache()
+        kernel_rows['taylor_core_mma'], split = phase_taylor_block(
+            torch, dev, REPS, smi)
+        kernel_rows['taylor_attention_block']['split_ms'] = split
     torch.cuda.empty_cache()
     kernel_rows.update(phase_flash_kernels(torch, dev, REPS, smi))
     torch.cuda.empty_cache()
@@ -1839,6 +2099,7 @@ def main():
     log(f'[throughput] frames/s, bf16 batch {BATCH}: default '
         f'{tp["default"]["fps"]:.2f}, fused {tp["fused"]["fps"]:.2f} on {smi}')
     phase_card_vs_cpu(torch, dev)
+    phase_taylor_roundtrip(torch, dev)
     counts['attention_step'] = phase_attention_step(torch, dev, REPS, smi)
 
     if 'jax' in sys.modules:

@@ -1,9 +1,11 @@
 // The launches the attention blocks share (csrc/attention_block.cu,
 // csrc/taylor_attention.cu, wrapped by ops/kernels/gemm.py): a row RMSNorm
 // and the projection GEMM C[M, N] = A[M, K] W[N, K]^T (the nn.Linear
-// layout) with float32 accumulation, cast once to OutT (bf16, or float32
-// for the Taylor qkv). The wrapper picks one of three routes by a static
-// shape rule (ops/kernels/gemm.py gemm_route) and passes it in:
+// layout) with float32 accumulation, cast once to the input's dtype. Every
+// route's epilogue can scale the first scaled_cols columns in float32
+// before that cast: the Taylor block's q * d^-1/2. The wrapper picks one of
+// three routes by a static shape rule (ops/kernels/gemm.py gemm_route) and
+// passes it in:
 //   kRouteF32    float32 in and out: CUDA-core FMAs, 64x64 tiles, no TF32.
 //   kRouteWmma   bf16 in, any shape: warp-level WMMA, 64x64 tiles.
 //   kRouteWgmma  bf16 in, K and N multiples of 64, 16-byte aligned rows:
@@ -92,7 +94,7 @@ constexpr int kGemmBM = 64, kGemmBN = 64, kGemmBK = 16, kGemmThreads = 256;
 __global__ void __launch_bounds__(kGemmThreads)
     gemm_nt_f32_kernel(const float* __restrict__ A,
                        const float* __restrict__ W, float* __restrict__ C,
-                       int M, int N, int K) {
+                       int M, int N, int K, int scaled_cols, float col_scale) {
   __shared__ float As[kGemmBK][kGemmBM + 4];
   __shared__ float Ws[kGemmBK][kGemmBN + 4];
   const int tid = threadIdx.x;
@@ -136,7 +138,9 @@ __global__ void __launch_bounds__(kGemmThreads)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = col0 + tx + 16 * j;
-      if (c < N) C[(size_t)r * N + c] = acc[i][j];
+      if (c < N)
+        C[(size_t)r * N + c] = c < scaled_cols ? acc[i][j] * col_scale
+                                               : acc[i][j];
     }
   }
 }
@@ -150,10 +154,10 @@ constexpr int kWmmaBK = 32, kWmmaThreads = 128;
 constexpr int kWmmaLd = kWmmaBK + 8;      // bf16 row stride, multiple of 8
 constexpr int kWmmaCLd = kGemmBN + 4;     // float row stride, multiple of 4
 
-template <typename OutT>
 __global__ void __launch_bounds__(kWmmaThreads)
     gemm_nt_wmma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-                        OutT* __restrict__ C, int M, int N, int K) {
+                        bf16* __restrict__ C, int M, int N, int K,
+                        int scaled_cols, float col_scale) {
   using namespace nvcuda;
   __shared__ __align__(32) bf16 As[kGemmBM][kWmmaLd];
   __shared__ __align__(32) bf16 Ws[kGemmBN][kWmmaLd];
@@ -221,8 +225,10 @@ __global__ void __launch_bounds__(kWmmaThreads)
   __syncthreads();
   for (int idx = tid; idx < kGemmBM * kGemmBN; idx += kWmmaThreads) {
     const int r = row0 + idx / kGemmBN, c = col0 + idx % kGemmBN;
+    const float v = Cs[idx / kGemmBN][idx % kGemmBN];
     if (r < M && c < N)
-      C[(size_t)r * N + c] = from_f32<OutT>(Cs[idx / kGemmBN][idx % kGemmBN]);
+      C[(size_t)r * N + c] =
+          __float2bfloat16(c < scaled_cols ? v * col_scale : v);
   }
 }
 
@@ -241,7 +247,7 @@ inline dim3 gemm_grid(int M, int N) {
 // the previous stage's group, so the tensor cores run while the block meets
 // at a __syncthreads and thread 0 refills that previous stage. Rows and
 // columns past M and N arrive as zeros from TMA. The epilogue stages the
-// tile in the (then idle) ring as OutT and writes it back row by row in
+// tile in the (then idle) ring in bf16 and writes it back row by row in
 // 16-byte pieces, so a warp's stores cover whole rows. 96 KB of shared
 // memory and <= 128 registers a thread: two blocks share an SM, and one
 // block's epilogue overlaps the other's main loop.
@@ -256,15 +262,12 @@ static_assert(kWgBK == kSw128Cols, "a K tile is one swizzle row");
 __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
 
-template <typename OutT>
 __global__ void __launch_bounds__(kWgThreads, 2)
     gemm_nt_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                          const __grid_constant__ CUtensorMap map_w,
-                         OutT* __restrict__ C, int M, int N, int K) {
+                         bf16* __restrict__ C, int M, int N, int K,
+                         int scaled_cols, float col_scale) {
   extern __shared__ unsigned char wg_smem_raw[];
   __shared__ __align__(8) uint64_t full[kWgStages];
   unsigned char* ring = align1024(wg_smem_raw);
@@ -316,21 +319,23 @@ __global__ void __launch_bounds__(kWgThreads, 2)
   // columns 8j + 2 (lane % 4) and the one after
   // the staging row: 128 values and 16 bytes, so the 8 rows a warp's
   // fragment store touches fall in different banks
-  constexpr int ld = kWgBN + 16 / (int)sizeof(OutT);
-  OutT* tile = reinterpret_cast<OutT*>(ring);
+  constexpr int ld = kWgBN + 16 / (int)sizeof(bf16);
+  bf16* tile = reinterpret_cast<bf16*>(ring);
   const int lane = tid % 32, q = (tid % 128) / 32;
   const int r = wg * 64 + q * 16 + lane / 4;
 #pragma unroll
   for (int j = 0; j < kWgBN / 8; ++j) {
     const int c = 8 * j + 2 * (lane % 4);
-    store2(tile + r * ld + c, acc[4 * j], acc[4 * j + 1]);
-    store2(tile + (r + 8) * ld + c, acc[4 * j + 2], acc[4 * j + 3]);
+    // the scaled columns come in pairs: scaled_cols is even
+    const float s = n0 + c < scaled_cols ? col_scale : 1.f;
+    store2(tile + r * ld + c, acc[4 * j] * s, acc[4 * j + 1] * s);
+    store2(tile + (r + 8) * ld + c, acc[4 * j + 2] * s, acc[4 * j + 3] * s);
   }
   __syncthreads();
   // 16-byte pieces, consecutive threads along a row; N is a multiple of
   // 64, so a piece is wholly inside N or wholly past it
-  constexpr int per_row = kWgBN * (int)sizeof(OutT) / 16;
-  constexpr int vals = 16 / (int)sizeof(OutT);
+  constexpr int per_row = kWgBN * (int)sizeof(bf16) / 16;
+  constexpr int vals = 16 / (int)sizeof(bf16);
   for (int idx = tid; idx < kWgBM * per_row; idx += kWgThreads) {
     const int tr = idx / per_row, tc = (idx % per_row) * vals;
     if (m0 + tr < M && n0 + tc < N)
@@ -339,9 +344,9 @@ __global__ void __launch_bounds__(kWgThreads, 2)
   }
 }
 
-template <typename OutT>
-cudaError_t launch_gemm_nt_wgmma(const bf16* A, const bf16* W, OutT* C, int M,
-                                 int N, int K, cudaStream_t stream) {
+cudaError_t launch_gemm_nt_wgmma(const bf16* A, const bf16* W, bf16* C, int M,
+                                 int N, int K, int scaled_cols,
+                                 float col_scale, cudaStream_t stream) {
   if (M < 1 || K % kWgBK || N % 64 || ((uintptr_t)A | (uintptr_t)W) % 16)
     return cudaErrorInvalidValue;  // not this route's shape: the rule is
                                    // ops/kernels/gemm.py gemm_route
@@ -350,25 +355,26 @@ cudaError_t launch_gemm_nt_wgmma(const bf16* A, const bf16* W, OutT* C, int M,
   if (err != cudaSuccess) return err;
   err = tensor_map_2d(&map_w, W, N, K, kWgBN);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(gemm_nt_wgmma_kernel<OutT>,
+  err = cudaFuncSetAttribute(gemm_nt_wgmma_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kWgSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kWgBN - 1) / kWgBN, (M + kWgBM - 1) / kWgBM);
-  gemm_nt_wgmma_kernel<OutT><<<grid, kWgThreads, kWgSmem, stream>>>(
-      map_a, map_w, C, M, N, K);
+  gemm_nt_wgmma_kernel<<<grid, kWgThreads, kWgSmem, stream>>>(
+      map_a, map_w, C, M, N, K, scaled_cols, col_scale);
   MV2_CHECK_LAUNCH();
   return cudaSuccess;
 }
 
-template <typename OutT>
-cudaError_t launch_gemm_nt_bf16(const bf16* A, const bf16* W, OutT* C, int M,
-                                int N, int K, int route, cudaStream_t stream) {
+cudaError_t launch_gemm_nt_bf16(const bf16* A, const bf16* W, bf16* C, int M,
+                                int N, int K, int route, int scaled_cols,
+                                float col_scale, cudaStream_t stream) {
   if (route == kRouteWgmma)
-    return launch_gemm_nt_wgmma<OutT>(A, W, C, M, N, K, stream);
+    return launch_gemm_nt_wgmma(A, W, C, M, N, K, scaled_cols, col_scale,
+                                stream);
   if (route != kRouteWmma) return cudaErrorInvalidValue;
-  gemm_nt_wmma_kernel<OutT><<<gemm_grid(M, N), kWmmaThreads, 0, stream>>>(
-      A, W, C, M, N, K);
+  gemm_nt_wmma_kernel<<<gemm_grid(M, N), kWmmaThreads, 0, stream>>>(
+      A, W, C, M, N, K, scaled_cols, col_scale);
   MV2_CHECK_LAUNCH();
   return cudaSuccess;
 }
@@ -391,27 +397,27 @@ int mv2_rmsnorm(const void* x, const void* gamma, void* out, int dtype,
   return cudaErrorInvalidValue;
 }
 
-// C (M, N) of out_dtype = A (M, K) W (N, K)^T of dtype, on the given route
-int mv2_gemm_nt(const void* a, const void* w, void* c, int dtype,
-                int out_dtype, int M, int N, int K, int route, void* stream) {
+// C (M, N) = A (M, K) W (N, K)^T in A's dtype, on the given route; the
+// first scaled_cols columns (even, 0 for none) times col_scale in float32
+// before the one cast
+int mv2_gemm_nt(const void* a, const void* w, void* c, int dtype, int M,
+                int N, int K, int route, int scaled_cols, float col_scale,
+                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (scaled_cols < 0 || scaled_cols > N || scaled_cols % 2)
+    return cudaErrorInvalidValue;
   if (dtype == mv2::kFloat32) {
-    if (route != mv2::kRouteF32 || out_dtype != mv2::kFloat32)
-      return cudaErrorInvalidValue;
+    if (route != mv2::kRouteF32) return cudaErrorInvalidValue;
     mv2::gemm_nt_f32_kernel<<<mv2::gemm_grid(M, N), mv2::kGemmThreads, 0,
                               s>>>((const float*)a, (const float*)w,
-                                   (float*)c, M, N, K);
+                                   (float*)c, M, N, K, scaled_cols,
+                                   col_scale);
     return cudaGetLastError();
   }
   if (dtype != mv2::kBFloat16) return cudaErrorInvalidValue;
   typedef mv2::bf16 T;
-  if (out_dtype == mv2::kBFloat16)
-    return mv2::launch_gemm_nt_bf16<T>((const T*)a, (const T*)w, (T*)c, M, N,
-                                       K, route, s);
-  if (out_dtype == mv2::kFloat32)
-    return mv2::launch_gemm_nt_bf16<float>((const T*)a, (const T*)w,
-                                           (float*)c, M, N, K, route, s);
-  return cudaErrorInvalidValue;
+  return mv2::launch_gemm_nt_bf16((const T*)a, (const T*)w, (T*)c, M, N, K,
+                                  route, scaled_cols, col_scale, s);
 }
 
 }  // extern "C"

@@ -84,25 +84,6 @@ __device__ __forceinline__ T bias_elu(float acc, T bias) {
   return from_f32<T>(v > 0.f ? v : expm1f(v));
 }
 
-// ---- cp.async (16 bytes, zero-filled when the predicate is false) --------
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int bytes = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // ---- kRuWmma: bf16 on warp-level WMMA, C % 64 == 32 ------------------------
 // out[M, N] = epilogue(A[M, K] Wt[N, K]^T). kConv: A is gathered from x as
 // above (K = 27 C); otherwise A is a dense (M, K) matrix. 128 x 64 output

@@ -1,17 +1,30 @@
-// Second-order Taylor linear attention block. Replaces the TPU kernel
+// Second-order Taylor linear attention block: the moment core. Replaces,
+// with the RMSNorm and GEMM launches of gemm.cu, the TPU kernel
 // magvit2_pytorch_tpu/ops/pallas/taylor_attention.py _taylor_kernel /
-// _taylor_frame; see ops/kernels/taylor_attention.py for the math and the
-// design note.
+// _taylor_frame; ops/kernels/taylor_attention.py holds the math, the cast
+// points and the design note.
 //
 // The wrapper makes four launches on scratch it allocates; the first, second
 // and fourth are gemm.cu's, the third is this file's:
 //   xn   = RMSNorm(x) * gamma                                 (B*N, C)
-//   qkv  = xn Wqkv^T, float32                                 (B*N, 3*H*d)
+//   qkv  = xn Wqkv^T, q * d^-1/2, cast to T                   (B*N, 3*H*d)
 //   attn = per (frame, head): moments over N, then per token  (B*N, H*d)
 //   out  = attn Wout^T                                        (B*N, C)
+//
+// Two cores, picked by the wrapper (taylor_core_route) and passed in:
+// - kTaylorMma, bf16: tensor cores (mma.sync m16n8k16), below.
+// - kTaylorF32, float32: CUDA cores, one block per (frame, head).
+// What bounds the core at the flagship shape (160 frames x 1024 tokens, 16
+// heads x 8): bytes. It reads bf16 q, k and v (126 MB) and writes the
+// attention (42 MB), 0.05 ms at 3.35 TB/s; its tensor-core work, 13.4
+// GFLOP of m16n8k16 (a third of it padding), is a fraction of that.
 #include "common.cuh"
 
 namespace mv2 {
+
+enum TaylorRoute { kTaylorF32 = 0, kTaylorMma = 1 };
+
+// ---- kTaylorF32: CUDA cores ------------------------------------------------
 
 constexpr int kTaylorThreads = 256;
 constexpr int kTaylorTile = 128;  // tokens staged in shared memory at a time
@@ -55,14 +68,16 @@ __device__ __forceinline__ void moment_terms(int o, int& a, int& b, int& c,
   coef = kInvSqrt2;
 }
 
-// One block per (frame, head). Phase 1 reduces the moments over the frame's
-// N tokens: tokens are staged kTaylorTile at a time as float features in
-// shared memory, and each moment has one owner thread, so there are no
-// atomics. Phase 2 gives each token its output from the moments.
-template <typename T, int D>
+// One block per (frame, head), float32 qkv with q already scaled. Phase 1
+// reduces the moments over the frame's N tokens: tokens are staged
+// kTaylorTile at a time as features in shared memory, and each moment has
+// one owner thread, so there are no atomics. Phase 2 gives each token its
+// output from the moments.
+template <int D>
 __global__ void __launch_bounds__(kTaylorThreads)
-    taylor_core_kernel(const float* __restrict__ qkv, T* __restrict__ attn,
-                       int N, int H, float eps) {
+    taylor_core_f32_kernel(const float* __restrict__ qkv,
+                           float* __restrict__ attn, int N, int H,
+                           float eps) {
   constexpr int kMoments = D + D * D + D * D * D + D + D * D;
   constexpr int kFeat = 1 + 2 * D;
   extern __shared__ float smem[];
@@ -72,7 +87,6 @@ __global__ void __launch_bounds__(kTaylorThreads)
   const int hd = H * D;
   const long long ld = 3LL * hd;
   const float* frame = qkv + (long long)g * N * ld;
-  const float scale = 1.f / sqrtf((float)D);
   const float kInvSqrt2 = 0.70710678118654752f;
 
   for (int o = threadIdx.x; o < kMoments; o += blockDim.x) mom[o] = 0.f;
@@ -87,9 +101,9 @@ __global__ void __launch_bounds__(kTaylorThreads)
         if (f == 0) {
           val = 1.f;
         } else if (f <= D) {
-          val = round_to<T>(frame[n * ld + hd + h * D + (f - 1)]);
+          val = frame[n * ld + hd + h * D + (f - 1)];
         } else {
-          val = round_to<T>(frame[n * ld + 2 * hd + h * D + (f - 1 - D)]);
+          val = frame[n * ld + 2 * hd + h * D + (f - 1 - D)];
         }
       }
       feat[idx] = val;
@@ -111,8 +125,7 @@ __global__ void __launch_bounds__(kTaylorThreads)
   __syncthreads();
 
   // read through volatile: otherwise the compiler hoists all the moments
-  // out of the token loop into registers (255 registers and spills in the
-  // float32 build)
+  // out of the token loop into registers (255 registers and spills)
   const volatile float* A0 = mom;
   const volatile float* A1 = A0 + D;
   const volatile float* A2 = A1 + D * D;
@@ -122,7 +135,7 @@ __global__ void __launch_bounds__(kTaylorThreads)
     float q[D], num[D];
 #pragma unroll
     for (int i = 0; i < D; ++i) {
-      q[i] = round_to<T>(frame[n * ld + h * D + i] * scale);
+      q[i] = frame[n * ld + h * D + i];
       num[i] = A0[i];
     }
     float den = (float)N;
@@ -144,18 +157,321 @@ __global__ void __launch_bounds__(kTaylorThreads)
       }
     }
     const float r = 1.f / (den + eps);
-    T* orow = attn + ((long long)g * N + n) * hd + h * D;
+    float* orow = attn + ((long long)g * N + n) * hd + h * D;
 #pragma unroll
-    for (int e = 0; e < D; ++e) orow[e] = from_f32<T>(num[e] * r);
+    for (int e = 0; e < D; ++e) orow[e] = num[e] * r;
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_taylor_core(const float* qkv, T* attn, int frames, int N,
-                               int H, float eps, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_taylor_core_f32(const float* qkv, float* attn, int frames,
+                                   int N, int H, float eps,
+                                   cudaStream_t stream) {
   constexpr int kMoments = D + D * D + D * D * D + D + D * D;
   const size_t smem = sizeof(float) * (kMoments + kTaylorTile * (1 + 2 * D));
-  taylor_core_kernel<T, D><<<frames * H, kTaylorThreads, smem, stream>>>(
+  taylor_core_f32_kernel<D><<<frames * H, kTaylorThreads, smem, stream>>>(
+      qkv, attn, N, H, eps);
+  MV2_CHECK_LAUNCH();
+  return cudaSuccess;
+}
+
+// ---- kTaylorMma: tensor cores ----------------------------------------------
+//
+// A block of eight warps owns one frame and a group of up to four heads;
+// warps w and w + 4 share head w of the group, each taking every other
+// 16-token tile. The frame's tokens stream through a three-stage cp.async
+// ring in chunks of 128, one barrier a chunk (at the flagship shape on an
+// H100 80GB HBM3 at 700 W, two stages of 64 tokens took 0.153 ms, three
+// 0.148; two of 128 0.131, three 0.126: tools/taylor_core_variants.py):
+// first k and v (the group's 64 bytes of each a token), then q. For a head, phi has 80 feature rows: k_j (0-7),
+// phi_ij = bf16(bf16(k_i k_j) * bf16(1/sqrt2)) at 8 + 8i + j (8-71), a
+// constant 1 (72) and zeros (73-79).
+// Phase 1, per 16-token tile: [A | S] (80 x 16) += phi(k)^T [v | 1], five
+//   row tiles by two column tiles of m16n8k16, phi(k) built in registers
+//   as the A operand (bf16x2 products), v and the ones column as B. Row 72
+//   gives sum v (and the token count) in float32.
+// Reduction: warp w + 4 leaves its float32 partial in shared memory and
+//   warp w adds it (always in that order: no atomics, and a frame's output
+//   does not depend on its batch), rounds A and S to bf16 into a
+//   transposed [A | S] (16 x 80) in shared memory and keeps sum v in
+//   float32.
+// Phase 2, per 16-token tile: [num | den] = phi(q) [A | S] on five K steps
+//   by two column tiles, phi(q) built in registers, [A | S] loaded once
+//   into B fragments; then num + sum v, den + N, r = bf16(1 / (den + eps))
+//   and out = bf16(num r).
+// The 72 real features of 80 and the 9 real columns of 16 leave the
+// tensor cores two thirds busy; they are not what bounds the kernel.
+constexpr int kTcD = 8;                  // head size
+constexpr int kTcHeads = 4;              // heads a block
+constexpr int kTcWarps = 2 * kTcHeads;   // two a head
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTcChunk = 128;            // tokens a ring stage
+constexpr int kTcStages = 3;             // ring stages
+constexpr int kTcTiles = kTcChunk / 16;
+// a staged token row in bf16: k of the group's heads, then v, then 16
+// bytes of padding, so the four tokens a quarter-warp reads fall in
+// different banks (phase 2 stages only q, in rows of kTcQLd)
+constexpr int kTcKvLd = 2 * kTcHeads * kTcD + 8;
+constexpr int kTcQLd = kTcHeads * kTcD + 8;
+constexpr int kTcStage = kTcChunk * kTcKvLd;    // bf16 a stage
+constexpr int kTcFeat = 80;                     // phi rows, padded
+constexpr int kTcConst = 72;                    // the constant feature
+constexpr int kTcAcc = 5 * 2 * 4;               // float32 partials a lane
+constexpr int kTcBtLd = kTcFeat + 8;            // [A | S]^T row, bf16
+constexpr size_t kTcSmem =
+    sizeof(bf16) * kTcStages * kTcStage                  // the ring
+    + sizeof(float) * kTcHeads * kTcAcc * 32             // partials
+    + sizeof(bf16) * kTcHeads * 16 * kTcBtLd             // [A | S]^T
+    + sizeof(float) * kTcHeads * kTcD;                   // sum v
+
+__device__ __forceinline__ unsigned bmul2(unsigned a, unsigned b) {
+  // a * b on two bf16 lanes, each rounded once (round to nearest even)
+  unsigned d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;"
+      : "=r"(d)
+      : "r"(a), "r"(b), "r"(0x80008000u));
+  return d;
+}
+
+// lane 0 of a and lane 0 of b (hi = false), or lane 1 of each (hi = true),
+// as one bf16 pair
+__device__ __forceinline__ unsigned pair_of(unsigned a, unsigned b, bool hi) {
+  return __byte_perm(a, b, hi ? 0x7632 : 0x5410);
+}
+
+__device__ __forceinline__ unsigned word_of(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// element i of a row of 8 bf16, in both lanes
+__device__ __forceinline__ unsigned bcast(const uint4& row, int i) {
+  const unsigned w = word_of(row, i / 2);
+  return __byte_perm(w, w, i % 2 ? 0x3232 : 0x1010);
+}
+
+__device__ __forceinline__ unsigned bits(bf16 v) {
+  return static_cast<unsigned>(*reinterpret_cast<const unsigned short*>(&v));
+}
+
+// Phase 1 on one 16-token tile of a head: rows of kTcKvLd bf16 from `tile`,
+// k of the head at hk, v at hk + kTcHeads * kTcD.
+__device__ __forceinline__ void moments_tile(float (&acc)[5][2][4],
+                                             const bf16* tile, int hk,
+                                             unsigned inv_sqrt2) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, tq = lane & 3;
+  const int hv = hk + kTcHeads * kTcD;
+  // this lane's tokens: the A operand's columns and the B operand's rows
+  // 2tq, 2tq + 1 (pair 0) and 2tq + 8, 2tq + 9 (pair 1)
+  uint4 k[4];
+  unsigned kg[2], vg[2];
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const bf16* r0 = tile + (2 * tq + 8 * p) * kTcKvLd;
+    const bf16* r1 = r0 + kTcKvLd;
+    k[2 * p] = *reinterpret_cast<const uint4*>(r0 + hk);
+    k[2 * p + 1] = *reinterpret_cast<const uint4*>(r1 + hk);
+    kg[p] = bits(r0[hk + g]) | bits(r1[hk + g]) << 16;
+    vg[p] = bits(r0[hv + g]) | bits(r1[hv + g]) << 16;
+  }
+  // phi_ig of the two pairs: bf16(bf16(k_i k_g) / sqrt2)
+  auto phi = [&](int i, int p) -> unsigned {
+    const unsigned ki = pair_of(word_of(k[2 * p], i / 2),
+                                word_of(k[2 * p + 1], i / 2), i % 2);
+    return bmul2(bmul2(ki, kg[p]), inv_sqrt2);
+  };
+  const unsigned one2 = 0x3F803F80u;   // bf16 1.0 in both lanes
+  const unsigned ones = g == 0 ? one2 : 0u;
+#pragma unroll
+  for (int mt = 0; mt < 5; ++mt) {
+    // rows g and g + 8 of row tile mt (see the feature order above)
+    unsigned a[4];
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      a[2 * p] = mt == 0 ? kg[p] : phi(2 * mt - 1, p);
+      a[2 * p + 1] = mt < 4 ? phi(2 * mt, p) : ones;  // row 72: the constant
+    }
+    mma_16816(acc[mt][0], a, vg[0], vg[1]);
+    mma_16816(acc[mt][1], a, ones, ones);   // column 8 (S): ones
+  }
+}
+
+// Phase 2 on one 16-token tile of a head: rows of kTcQLd bf16 from `tile`,
+// q of the head at hq; tokens tok0 + (0..15) of the frame, the first
+// `valid` of them real.
+__device__ __forceinline__ void output_tile(
+    const unsigned (&bf)[5][2][2], float sv0, float sv1, const bf16* tile,
+    int hq, bf16* __restrict__ out, int hd, int valid, int N, float eps,
+    unsigned inv_sqrt2) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, tq = lane & 3;
+  uint4 q[2];
+  unsigned qp[2];   // q_{2tq}, q_{2tq+1} of tokens g and g + 8
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const bf16* row = tile + (g + 8 * p) * kTcQLd + hq;
+    q[p] = *reinterpret_cast<const uint4*>(row);
+    qp[p] = *reinterpret_cast<const unsigned*>(row + 2 * tq);
+  }
+  auto phi = [&](int i, int p) -> unsigned {   // phi_{i, 2tq (+1)}
+    return bmul2(bmul2(bcast(q[p], i), qp[p]), inv_sqrt2);
+  };
+  float num[4] = {0.f, 0.f, 0.f, 0.f}, den[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int ks = 0; ks < 5; ++ks) {
+    // features 16ks + 2tq (+1) and 16ks + 2tq + 8 (+9)
+    const unsigned a[4] = {ks == 0 ? qp[0] : phi(2 * ks - 1, 0),
+                           ks == 0 ? qp[1] : phi(2 * ks - 1, 1),
+                           ks < 4 ? phi(2 * ks, 0) : 0u,
+                           ks < 4 ? phi(2 * ks, 1) : 0u};
+    mma_16816(num, a, bf[ks][0][0], bf[ks][0][1]);
+    mma_16816(den, a, bf[ks][1][0], bf[ks][1][1]);
+  }
+  // den sits in column 0 of the second tile: lanes with tq == 0
+  const float n = (float)N;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const float d = __shfl_sync(0xffffffffu, den[2 * p], lane & ~3) + n;
+    const float r = round_to<bf16>(1.f / (d + eps));
+    const int t = g + 8 * p;
+    if (t < valid)
+      *reinterpret_cast<unsigned*>(out + (long long)t * hd + 2 * tq) =
+          pack_bf16((num[2 * p] + sv0) * r, (num[2 * p + 1] + sv1) * r);
+  }
+}
+
+__global__ void __launch_bounds__(kTcThreads, 2)
+    taylor_core_mma_kernel(const bf16* __restrict__ qkv,
+                           bf16* __restrict__ attn, int N, int H, float eps) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(tc_smem);
+  float* part = reinterpret_cast<float*>(ring + kTcStages * kTcStage);
+  bf16* bt = reinterpret_cast<bf16*>(part + kTcHeads * kTcAcc * 32);
+  float* sv = reinterpret_cast<float*>(bt + kTcHeads * 16 * kTcBtLd);
+
+  const int groups = (H + kTcHeads - 1) / kTcHeads;
+  const long long frame = blockIdx.x / groups;
+  const int h0 = (blockIdx.x % groups) * kTcHeads;
+  const int hg = min(kTcHeads, H - h0);
+  const int hd = H * kTcD;
+  const long long ld = 3LL * hd;
+  const bf16* fbase = qkv + frame * N * ld + h0 * kTcD;
+  const int nch = (N + kTcChunk - 1) / kTcChunk;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int hw = warp % kTcHeads, half = warp / kTcHeads;
+  const bool active = hw < hg;   // warp-uniform
+  const unsigned inv_sqrt2 = bits(__float2bfloat16(0.70710678118654752f)) *
+                             0x10001u;
+
+  // chunk c of 2 nch into stage c % kTcStages: k and v (c < nch) or q;
+  // rows past N are zeros
+  auto stage = [&](int c) {
+    const bool kv = c < nch;
+    const int t0 = (kv ? c : c - nch) * kTcChunk;
+    const int pieces = kv ? 2 * hg : hg;   // 16 bytes a head and tensor
+    const int row_ld = kv ? kTcKvLd : kTcQLd;
+    bf16* buf = ring + (c % kTcStages) * kTcStage;
+    for (int idx = threadIdx.x; idx < kTcChunk * pieces; idx += kTcThreads) {
+      const int t = idx / pieces, p = idx % pieces;
+      const int head = p % hg, which = kv ? 1 + p / hg : 0;  // q, k, v
+      const int n = min(t0 + t, N - 1);
+      cp_async16(buf + t * row_ld + (which == 2 ? kTcHeads * kTcD : 0) +
+                     head * kTcD,
+                 fbase + n * ld + which * hd + head * kTcD, t0 + t < N);
+    }
+  };
+
+  float acc[5][2][4];
+#pragma unroll
+  for (int mt = 0; mt < 5; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  // the ring: chunk c lands in stage c % kTcStages; at chunk c the block
+  // waits for it, meets (so every warp is done with chunk c - 1) and
+  // refills chunk c - 1's stage with chunk c + kTcStages - 1
+  const int chunks = 2 * nch;
+  auto next = [&](int c) {
+    cp_async_wait<kTcStages - 2>();
+    __syncthreads();
+    if (c + kTcStages - 1 < chunks) stage(c + kTcStages - 1);
+    cp_async_commit();
+    return ring + (c % kTcStages) * kTcStage;
+  };
+  for (int c = 0; c < kTcStages - 1; ++c) {
+    if (c < chunks) stage(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < nch; ++c) {
+    const bf16* buf = next(c);
+    if (active)
+      for (int tl = half; tl < kTcTiles && c * kTcChunk + 16 * tl < N;
+           tl += 2)
+        moments_tile(acc, buf + 16 * tl * kTcKvLd, hw * kTcD, inv_sqrt2);
+  }
+
+  // the two partials of a head, in a fixed order; then [A | S] in bf16,
+  // transposed, and sum v in float32
+  float* mine = part + (hw * kTcAcc) * 32 + lane;
+  __syncthreads();   // every warp is past phase 1
+  if (active && half == 1)
+#pragma unroll
+    for (int i = 0; i < kTcAcc; ++i) mine[32 * i] = (&acc[0][0][0])[i];
+  __syncthreads();
+  bf16* bth = bt + hw * 16 * kTcBtLd;
+  if (active && half == 0) {
+#pragma unroll
+    for (int mt = 0; mt < 5; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float s =
+              acc[mt][nt][e] + mine[32 * ((mt * 2 + nt) * 4 + e)];
+          const int f = 16 * mt + g + 8 * (e / 2);
+          const int col = 8 * nt + 2 * tq + e % 2;
+          if (f == kTcConst && nt == 0) sv[hw * kTcD + col] = s;
+          bth[col * kTcBtLd + f] = __float2bfloat16(f == kTcConst ? 0.f : s);
+        }
+  }
+  __syncthreads();
+
+  // [A | S] as the B operand: feature rows 16ks + 2tq (+1) and + 8 (+9),
+  // column 8nt + g
+  unsigned bf[5][2][2];
+#pragma unroll
+  for (int ks = 0; ks < 5; ++ks)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const bf16* src = bth + (8 * nt + g) * kTcBtLd + 16 * ks + 2 * tq;
+      bf[ks][nt][0] = *reinterpret_cast<const unsigned*>(src);
+      bf[ks][nt][1] = *reinterpret_cast<const unsigned*>(src + 8);
+    }
+  const float sv0 = sv[hw * kTcD + 2 * tq], sv1 = sv[hw * kTcD + 2 * tq + 1];
+  bf16* out = attn + frame * N * hd + (h0 + hw) * kTcD;
+  for (int c = nch; c < chunks; ++c) {
+    const bf16* buf = next(c);
+    const int t0 = (c - nch) * kTcChunk;
+    if (active)
+      for (int tl = half; tl < kTcTiles && t0 + 16 * tl < N; tl += 2)
+        output_tile(bf, sv0, sv1, buf + 16 * tl * kTcQLd, hw * kTcD,
+                    out + (long long)(t0 + 16 * tl) * hd, hd,
+                    N - t0 - 16 * tl, N, eps, inv_sqrt2);
+  }
+}
+
+cudaError_t launch_taylor_core_mma(const bf16* qkv, bf16* attn, int frames,
+                                   int N, int H, float eps,
+                                   cudaStream_t stream) {
+  if (N < 1 || H < 1 || (uintptr_t)qkv % 16)
+    return cudaErrorInvalidValue;  // cp.async takes 16-byte pieces
+  cudaError_t err = cudaFuncSetAttribute(
+      taylor_core_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kTcSmem);
+  if (err != cudaSuccess) return err;
+  const int groups = (H + kTcHeads - 1) / kTcHeads;
+  taylor_core_mma_kernel<<<frames * groups, kTcThreads, kTcSmem, stream>>>(
       qkv, attn, N, H, eps);
   MV2_CHECK_LAUNCH();
   return cudaSuccess;
@@ -163,19 +479,22 @@ cudaError_t launch_taylor_core(const float* qkv, T* attn, int frames, int N,
 
 }  // namespace mv2
 
-// the moment core of one Taylor block: qkv (frames * N, 3 * H * D) float32
-// from the qkv GEMM, attn (frames * N, H * D) in the working dtype
+// the moment core of one Taylor block: qkv (frames * N, 3 * H * D) in the
+// working dtype, q already scaled, from the qkv GEMM; attn (frames * N,
+// H * D). The route must fit the dtype: kTaylorMma bf16, kTaylorF32 float32.
 extern "C" int mv2_taylor_core(const void* qkv, void* attn, int dtype,
                                int frames, int N, int H, int D, float eps,
-                               void* stream) {
+                               int route, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D != 8) return cudaErrorInvalidValue;  // linear_attn_dim_head of every
-                                             // configuration
-  if (dtype == mv2::kFloat32)
-    return mv2::launch_taylor_core<float, 8>((const float*)qkv, (float*)attn,
-                                             frames, N, H, eps, s);
-  if (dtype == mv2::kBFloat16)
-    return mv2::launch_taylor_core<mv2::bf16, 8>(
-        (const float*)qkv, (mv2::bf16*)attn, frames, N, H, eps, s);
+                                             // configuration; the wrapper's
+                                             // gate keeps other sizes away
+  if (route == mv2::kTaylorMma && dtype == mv2::kBFloat16)
+    return mv2::launch_taylor_core_mma((const mv2::bf16*)qkv,
+                                       (mv2::bf16*)attn, frames, N, H, eps,
+                                       s);
+  if (route == mv2::kTaylorF32 && dtype == mv2::kFloat32)
+    return mv2::launch_taylor_core_f32<8>((const float*)qkv, (float*)attn,
+                                          frames, N, H, eps, s);
   return cudaErrorInvalidValue;
 }

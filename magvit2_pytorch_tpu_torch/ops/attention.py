@@ -34,7 +34,7 @@ from magvit2_pytorch_tpu_torch.ops.kernels.axial_attention import (
     attention_block, fused_eligible, fused_time_eligible,
     time_attention_block)
 from magvit2_pytorch_tpu_torch.ops.kernels.taylor_attention import (
-    taylor_attention)
+    taylor_attention, taylor_attention_ref, taylor_eligible)
 from magvit2_pytorch_tpu_torch.ops.norms import RMSNorm
 from magvit2_pytorch_tpu_torch.ops.rotary import (
     apply_rope, rope_angles, rope_angles_2d)
@@ -213,9 +213,12 @@ class TaylorSeriesLinearAttn(nn.Module):
     def forward(self, x, gamma):
         """x ``(B, N, C)``; ``gamma`` folds the preceding RMSNorm into the
         block (``attention.py:224-228``)."""
-        return taylor_attention(x, gamma, self.to_qkv[0].weight,
-                                self.to_out[1].weight, self.heads,
-                                self.dim_head, self.eps)
+        # a head size the kernel does not take runs the plain version on
+        # every device, as the JAX package takes its XLA reference
+        block = (taylor_attention if taylor_eligible(self.dim_head)
+                 else taylor_attention_ref)
+        return block(x, gamma, self.to_qkv[0].weight, self.to_out[1].weight,
+                     self.heads, self.dim_head, self.eps)
 
 
 class LinearAttention(nn.Module):

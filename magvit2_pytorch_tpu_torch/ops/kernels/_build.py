@@ -36,13 +36,13 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 SIGNATURES = {
     # x, gamma, out, dtype, rows, C, stream
     'mv2_rmsnorm': [_P] * 3 + [_I] * 3 + [_P],
-    # a, w, c, dtype, out_dtype, M, N, K, route, stream
-    'mv2_gemm_nt': [_P] * 3 + [_I] * 6 + [_P],
+    # a, w, c, dtype, M, N, K, route, scaled_cols, col_scale, stream
+    'mv2_gemm_nt': [_P] * 3 + [_I] * 6 + [_F, _P],
     # qkv, mem_k, mem_v, attn, dtype, groups, L, heads, dim_head, M,
     # inner_groups, outer_stride, pos_stride, causal, route, stream
     'mv2_attention_core': [_P] * 4 + [_I] * 7 + [_L, _L, _I, _I, _P],
-    # qkv, attn, dtype, frames, N, heads, dim_head, eps, stream
-    'mv2_taylor_core': [_P] * 2 + [_I] * 5 + [_F, _P],
+    # qkv, attn, dtype, frames, N, heads, dim_head, eps, route, stream
+    'mv2_taylor_core': [_P] * 2 + [_I] * 5 + [_F, _I, _P],
     # a, w, bias, out, dtype, B, T, H, W, C, conv, route, stream
     'mv2_ru_gemm': [_P] * 4 + [_I] * 8 + [_P],
     # y, k_w, k_b, logits, dtype, M, C, stream

@@ -13,6 +13,9 @@ each route counts its own launches:
 - ``'f32'``: float32, on the CUDA cores (no TF32).
 
 Neither route falls back to another: a call the route does not take raises.
+Every route's epilogue takes one option, ``scaled_cols``: the first
+``scaled_cols`` columns times ``col_scale`` in float32 before the one cast
+(the Taylor block's ``q * d^-1/2``, cast once with k and v to bf16).
 On the CPU the wrappers run the plain versions below.
 """
 
@@ -52,10 +55,15 @@ def rmsnorm_ref(x, gamma):
     return (x32 * inv * (x.shape[-1] ** 0.5)).to(x.dtype) * gamma.to(x.dtype)
 
 
-def gemm_nt_ref(a, w, out_dtype=None):
-    """``a w^T`` accumulated in float32, cast once to ``out_dtype`` (the
-    dtype of ``a`` by default)."""
-    return F.linear(a.float(), w.float()).to(out_dtype or a.dtype)
+def gemm_nt_ref(a, w, scaled_cols: int = 0, col_scale: float = 1.0):
+    """``a w^T`` accumulated in float32, its first ``scaled_cols`` columns
+    times ``col_scale`` in float32, cast once to the dtype of ``a``:
+    ``taylor_attention.py:74-76``'s ``(qkv[:, :hd] * scale).astype(x.dtype)``
+    with k and v cast unscaled."""
+    out = F.linear(a.float(), w.float())
+    if scaled_cols:
+        out[..., :scaled_cols] *= col_scale
+    return out.to(a.dtype)
 
 
 def rmsnorm(x, gamma):
@@ -77,15 +85,15 @@ def rmsnorm(x, gamma):
     return out
 
 
-def gemm_nt(a, w, out_dtype=None, route: str | None = None):
-    """``C (m, n) = a (m, k) w (n, k)^T`` in float32 accumulation, cast once
-    to ``out_dtype`` (``a``'s dtype by default; float32 is the other choice
-    for bf16 inputs). ``route`` overrides :func:`gemm_route` (to time one
+def gemm_nt(a, w, route: str | None = None, scaled_cols: int = 0,
+            col_scale: float = 1.0):
+    """``C (m, n) = a (m, k) w (n, k)^T`` in float32 accumulation, the first
+    ``scaled_cols`` columns (an even count) times ``col_scale``, cast once
+    to ``a``'s dtype. ``route`` overrides :func:`gemm_route` (to time one
     route against another); the kernel raises if the call does not fit it."""
     if not a.is_cuda:
-        return gemm_nt_ref(a, w, out_dtype)
+        return gemm_nt_ref(a, w, scaled_cols, col_scale)
     _build.check_cuda_inputs('gemm_nt', a, (w,))
-    out_dtype = out_dtype or a.dtype
     a = a.contiguous()
     w = w.to(a.dtype).contiguous()
     (m, k), n = a.shape, w.shape[0]
@@ -93,11 +101,11 @@ def gemm_nt(a, w, out_dtype=None, route: str | None = None):
         raise ValueError(f'gemm_nt: a {tuple(a.shape)} and w '
                          f'{tuple(w.shape)} do not share k')
     route = route or gemm_route(n, k, a.dtype, a, w)
-    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     lib = _build.load_library()
     code = lib.mv2_gemm_nt(
-        a.data_ptr(), w.data_ptr(), out.data_ptr(), _build.dtype_code(a),
-        _build.dtype_code(out), m, n, k, ROUTES[route],
+        a.data_ptr(), w.data_ptr(), out.data_ptr(), _build.dtype_code(a), m,
+        n, k, ROUTES[route], scaled_cols, float(col_scale),
         _build.stream_handle(a.device))
     _build.check(lib, code, f'gemm_nt ({m}, {n}, {k}) route {route}')
     LAUNCHES[f'gemm_{route}'] += 1

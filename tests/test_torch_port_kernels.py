@@ -17,7 +17,10 @@ import torch
 
 from magvit2_pytorch_tpu.ops.pallas.axial_attention import (
     fused_attention_block, fused_time_attention_block)
-from magvit2_pytorch_tpu.ops.pallas.taylor_attention import _taylor_fused
+from magvit2_pytorch_tpu.ops.pallas.taylor_attention import (
+    _block_masks, _taylor_frame, _taylor_fused)
+from magvit2_pytorch_tpu_torch.ops import attention
+from magvit2_pytorch_tpu_torch.ops.basic import init_module_parameters
 from magvit2_pytorch_tpu_torch.ops.kernels import (
     _build, axial_attention, gemm, launch_counts, reset_launch_counts,
     taylor_attention)
@@ -84,6 +87,143 @@ def test_taylor_block_plain_matches_pallas(heads, d):
         torch.from_numpy(wqkv.T.copy()), torch.from_numpy(wout.T.copy()),
         heads, d)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=0)
+
+
+def _taylor_frame_eager(x, gamma, wqkv, wout, heads, d, eps=1e-5):
+    """The TPU kernel's frame function run eagerly, one frame at a time, on
+    numpy buffers standing in for its refs, with the argument dtypes
+    ``_taylor_fused`` passes (``taylor_attention.py:260-264``): x and the
+    weights in the working dtype, the gather matrices G and expE too, the
+    masks numM and denM in float32. (Interpret mode on the CPU refuses the
+    bf16 x bf16 -> float32 dot; the eager ops take it.)"""
+    dt = x.dtype
+    b, n, c = x.shape
+    p = (d + 1) * heads * d
+    g, num_m, den_m, exp_e = _block_masks(heads, d)
+    out = np.zeros((b, n, c), dt)
+    for f in range(b):
+        _taylor_frame(x, gamma.reshape(1, c), wqkv, wout, g.astype(dt), num_m,
+                      den_m, exp_e.astype(dt), out, np.zeros((n, p), dt),
+                      np.zeros((n, p), dt), f, heads=heads, d=d, eps=eps,
+                      scale=d ** -0.5, apply_norm=True)
+    return out
+
+
+# share of output elements where the plain version and the eager frame
+# differ, at most, in bf16: read 0.33% at (8, 8) and 1.52% at (4, 16), the
+# largest difference 0.80 and 0.72 of a bf16 step of the largest value (the
+# same roundings summed in another order); the plain version without the
+# kernel's cast points read 58% and 57%, and 1.60 and 1.43 steps
+@pytest.mark.parametrize('heads,d,max_share', [(8, 8, 0.01), (4, 16, 0.045)])
+def test_taylor_plain_keeps_the_kernels_bf16_cast_points(heads, d, max_share):
+    """In bf16 the plain version rounds where ``_taylor_frame`` does (each
+    phi entry twice, A and S after their float32 sums, 1 / (den + eps)),
+    and keeps sum v and N in float32: it stays within one bf16 step of the
+    largest value (2^-8 relative) and differs in few elements."""
+    rng = np.random.default_rng(6)
+    c, n = 64, 256
+    x = rng.normal(size=(2, n, c))
+    gamma = rng.uniform(0.5, 1.5, size=c)
+    wqkv = rng.normal(size=(c, 3 * heads * d)) * 0.1
+    wout = rng.normal(size=(heads * d, c)) * 0.1
+    bf = jnp.bfloat16
+    want = _taylor_frame_eager(*(a.astype(bf) for a in (x, gamma, wqkv, wout)),
+                               heads, d).astype(np.float32)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).bfloat16()
+    got = taylor_attention.taylor_attention_ref(
+        t(x), t(gamma), t(wqkv.T), t(wout.T), heads, d).float().numpy()
+    diff = np.abs(got - want)
+    assert diff.max() <= 2.0 ** -8 * np.abs(want).max()
+    assert (diff > 0).mean() <= max_share
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it lies on the card."""
+    is_cuda = True
+
+
+@pytest.mark.parametrize('dim_head,kernel', [(8, True), (16, False)])
+def test_taylor_gate_keeps_other_head_sizes_off_the_kernel(
+        monkeypatch, dim_head, kernel):
+    """``TaylorSeriesLinearAttn`` on the card: a head size the CUDA cores
+    take reaches the kernel wrapper, any other the plain version, whatever
+    the device (without the gate the wrapper raises there)."""
+    rng = np.random.default_rng(7)
+    mod = attention.TaylorSeriesLinearAttn(64, dim_head=dim_head, heads=4)
+    init_module_parameters(mod, torch.Generator().manual_seed(0))
+    x = torch.from_numpy(rng.normal(size=(1, 16, 64)).astype(np.float32))
+    gamma = torch.ones(64)
+    args = (gamma, mod.to_qkv[0].weight.detach(),
+            mod.to_out[1].weight.detach(), 4, dim_head)
+    if not kernel:
+        with pytest.raises(ValueError, match='dim_head 16'):
+            taylor_attention.taylor_attention(
+                x.as_subclass(_OnCard),
+                *(a.as_subclass(_OnCard) for a in args[:3]), *args[3:])
+    calls = []
+
+    def spy(x, *a, **kw):
+        calls.append(a[3:5])       # heads, dim_head
+        return torch.zeros_like(x)
+
+    monkeypatch.setattr(attention, 'taylor_attention', spy)
+    with torch.no_grad():
+        out = mod(x.as_subclass(_OnCard), gamma)
+    assert calls == ([(4, dim_head)] if kernel else [])
+    if not kernel:
+        assert torch.equal(out.as_subclass(torch.Tensor),
+                           taylor_attention.taylor_attention_ref(x, *args))
+
+
+@pytest.mark.parametrize('dtype,dim_head,route', [
+    (torch.bfloat16, 8, 'mma'), (torch.float32, 8, 'f32')])
+def test_taylor_core_route(dtype, dim_head, route):
+    assert taylor_attention.taylor_eligible(dim_head)
+    assert taylor_attention.taylor_core_route(dtype, dim_head) == route
+
+
+@pytest.mark.parametrize('dtype,dim_head,error', [
+    (torch.bfloat16, 16, ValueError), (torch.float32, 16, ValueError),
+    (torch.float16, 8, TypeError)])
+def test_taylor_core_route_refuses_what_no_core_takes(dtype, dim_head, error):
+    with pytest.raises(error):
+        taylor_attention.taylor_core_route(dtype, dim_head)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_gemm_epilogue_scales_the_first_columns(dtype):
+    """The qkv GEMM's epilogue option: the first ``scaled_cols`` columns
+    times the scale in float32, then one cast (the JAX kernel's
+    ``(qkv[:, :hd] * scale).astype(x.dtype)``); the other columns as
+    without it. The wrapper on a CPU tensor is the plain version."""
+    rng = np.random.default_rng(8)
+    a = torch.from_numpy(rng.normal(size=(40, 64)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(48, 64)).astype(np.float32))
+    a, w = (t.to(dtype) for t in (a, w))
+    acc = a.float() @ w.float().T
+    got = gemm.gemm_nt(a, w, scaled_cols=16, col_scale=8 ** -0.5)
+    assert got.dtype == dtype
+    assert torch.equal(got[:, :16], (acc[:, :16] * 8 ** -0.5).to(dtype))
+    assert torch.equal(got[:, 16:], gemm.gemm_nt_ref(a, w)[:, 16:])
+    assert torch.equal(got, gemm.gemm_nt_ref(a, w, 16, 8 ** -0.5))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_taylor_launches_compose_to_the_plain_block(dtype):
+    """The wrapper's four launches (norm, qkv GEMM with the scaled q, the
+    core, out GEMM), each on its plain version, give the plain block; the
+    core takes q scaled and cast by the GEMM."""
+    rng = np.random.default_rng(9)
+    c, heads, d = 64, 4, 8
+    t = lambda *shape: torch.from_numpy(
+        rng.normal(size=shape).astype(np.float32) * 0.3).to(dtype)
+    x, gamma = t(3, 20, c), 1 + t(c)
+    wqkv, wout = t(3 * heads * d, c), t(c, heads * d)
+    reset_launch_counts()
+    got = taylor_attention.taylor_launches(x, gamma, wqkv, wout, heads, d)
+    assert torch.equal(got, taylor_attention.taylor_attention_ref(
+        x, gamma, wqkv, wout, heads, d))
+    assert set(launch_counts().values()) == {0}
 
 
 def test_cpu_wrappers_take_the_plain_versions():
@@ -214,11 +354,14 @@ def test_core_route(dtype, keys, inner_groups, pos_stride, route):
 
 def test_launch_counts_name_the_routes_and_reset():
     names = ('gemm_wgmma', 'gemm_wmma', 'gemm_f32',
-             'space_attention_core_mma')
+             'space_attention_core_mma', 'taylor_core_mma',
+             'taylor_core_f32')
     assert set(names) <= set(launch_counts())
     gemm.LAUNCHES['gemm_wgmma'] += 3
     axial_attention.LAUNCHES['space_attention_core_mma'] += 1
+    taylor_attention.LAUNCHES['taylor_core_mma'] += 2
     assert launch_counts()['gemm_wgmma'] == 3
+    assert launch_counts()['taylor_core_mma'] == 2
     reset_launch_counts()
     assert set(launch_counts().values()) == {0}
 
