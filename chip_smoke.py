@@ -52,12 +52,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
    flash-attention kernels (forward, dQ, dK/dV): ragged and small with
    every option ((2, 2, 130, d) / 134 keys, d in 16, 32, 64, causal and
    not, no bias and each bias shape; output, lse and all four gradients),
-   the ``'auto'`` gate's edge ((2, 8, 1024, 32) / 1028 keys, causal), and
-   full width ((17, 8, 4096, 32) / 4100 keys, float32 and bf16) with times,
-   bounds and ``F.scaled_dot_product_attention`` forward and backward as
-   the library call; the plain version runs there in chunks of frames (its
+   the ``'auto'`` gate's edge ((2, 8, 1024, 32) / 1028 keys, causal), the
+   causal tile skip's edges (memory keys over more than a tile, fewer
+   queries than a tile), each case's backward counted on its route
+   (``'mma'`` bf16, ``'f32'`` float32), and full width ((17, 8, 4096, 32)
+   / 4100 keys, float32 and bf16, and causal in bf16) with times, bounds
+   and ``F.scaled_dot_product_attention`` forward and backward as the
+   library call; the plain version runs there in chunks of frames (its
    float32 logits would take 9.1 GB at once). Every output and gradient is
-   held relative to the largest value of its reference.
+   held relative to the largest value of its reference. The backward's
+   ``'mma'`` kernels: registers, spills (a spill fails) and shared memory
+   as the CUDA runtime reports them after the launches, with ptxas's
+   lines, two calls bit-identical, a batch of two against its second
+   element alone exactly 0, and a causal timing row beside its bound over
+   the visible pairs.
 4. default flagship roundtrip, bfloat16, batch 8, seeded random weights,
    through ``VideoTokenizer.tokenize`` then ``decode_from_code_indices``:
    shapes, finite output, and launches per roundtrip: 2 of each attention
@@ -87,8 +95,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
 7. the general ``Attention`` path with the flash backend, forward and
    backward: one step of ``SpaceAttention(512, dim_head=32, heads=8,
    backend='flash')`` on (1, 17, 64, 64, 512) bf16 (4096 tokens a frame,
-   4100 keys with the memory KV): exactly 1 launch of each flash kernel and
-   0 of every other; output and the five gradients against the same module
+   4100 keys with the memory KV): exactly 1 launch of each flash kernel
+   (the backward's on the ``'mma'`` route) and 0 of every other; output
+   and the five gradients against the same module
    with ``backend='plain'`` on the card; step times of both backends; then
    float32, TF32 off, 2 frames, against the CPU. Smaller checks: what
    ``'auto'`` picks on the card at n = 1024 and n = 256, flash against plain
@@ -164,6 +173,10 @@ KERNELS = {
 }
 FLASH_KERNELS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
                  'flash_attention_bwd_dkv')
+# the backward kernels by route (ops/kernels/flash_attention.py
+# flash_bwd_route): 'mma' for bf16, 'f32' for float32
+FLASH_BWD_ROUTES = {f'flash_attention_bwd_{kernel}_{route}': route
+                    for kernel in ('dq', 'dkv') for route in ('mma', 'f32')}
 # what every entry of the kernels line holds
 KERNEL_KEYS = ('name', 'route', 'source', 'replaces', 'launches',
                'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
@@ -173,7 +186,7 @@ KERNEL_KEYS = ('name', 'route', 'source', 'replaces', 'launches',
 # each attention block makes two projection GEMMs, all on the wgmma route
 # in bf16, B1 one launch of its tensor-core core and B3 one of its own; and
 # per step (forward + backward) of the general Attention path
-NO_FLASH = dict.fromkeys(FLASH_KERNELS, 0)
+NO_FLASH = dict.fromkeys((*FLASH_KERNELS, *FLASH_BWD_ROUTES), 0)
 BLOCKS = {'space_attention_block': 2, 'time_attention_block': 2,
           'taylor_attention_block': 2, 'gemm_wgmma': 12, 'gemm_wmma': 0,
           'gemm_f32': 0, 'space_attention_core_mma': 2, 'taylor_core_mma': 2,
@@ -187,8 +200,11 @@ NO_RU = dict.fromkeys(FUSED_RU, 0)
 LAUNCHES = {
     'default': {**BLOCKS, **NO_RU, **NO_FLASH},
     'fused': {**BLOCKS, **FUSED_RU, **NO_FLASH},
+    # bf16: each backward kernel on the 'mma' route
     'attention_step': {**dict.fromkeys(BLOCKS, 0), **NO_RU,
-                       **dict.fromkeys(FLASH_KERNELS, 1)},
+                       **dict.fromkeys(FLASH_KERNELS, 1),
+                       **{name: int(route == 'mma')
+                          for name, route in FLASH_BWD_ROUTES.items()}},
 }
 # the bf16 in-situ check: encode + decode with MAGVIT2_TPU_NO_FUSED_ATTN=1
 # sends space and time attention down the general plain path; Taylor
@@ -1695,12 +1711,121 @@ def check_flash_errors(what, dtype_name, errs, peaks, finite):
                  f'(max abs error {errs[key]}, largest value {peaks[key]})')
 
 
+def ptxas_lines(log: str, kernel: str):
+    """ptxas's lines for each instantiation of ``kernel`` in the build log:
+    {head size: [lines]}, from its 'Compiling entry function' line to its
+    'Used N registers' line."""
+    out, current = {}, None
+    for line in log.splitlines():
+        if 'Compiling entry function' in line:
+            current = None
+            if f'{len(kernel)}{kernel}ILi' in line:
+                current = int(line.split(f'{kernel}ILi')[1].split('E')[0])
+                out[current] = []
+        if current is not None:
+            out[current].append(line.strip())
+            if 'Used' in line and 'registers' in line:
+                current = None
+    return out
+
+
+def flash_bwd_resources(fa):
+    """Registers, spills and shared memory of the 'mma' backward kernels as
+    the CUDA runtime reports them after this run's launches (the dynamic
+    shared memory is what each launcher set), with ptxas's lines from this
+    run's build (none when the library came from the cache). Fails on a
+    spill."""
+    import re
+    from magvit2_pytorch_tpu_torch.ops.kernels import _build
+    build_log = _build.build_info.get('log', '')
+    report = {}
+    for kernel in ('dq', 'dkv'):
+        name = f'bwd_{kernel}_mma_kernel'
+        lines = ptxas_lines(build_log, name)
+        for d in fa.SUPPORTED_DIM_HEAD:
+            attrs = fa.bwd_mma_attributes(kernel, d)
+            ptxas = lines.get(d, [None])[1:]
+            spills = [ln for ln in ptxas for st, ld in re.findall(
+                r'(\d+) bytes spill stores, (\d+) bytes spill loads', ln)
+                if int(st) or int(ld)]
+            if spills or attrs['local_bytes']:
+                fail(f'{name}<{d}> spills: {spills}, {attrs}')
+            report[f'{name}<{d}>'] = dict(ptxas=ptxas, **attrs)
+            log(f'[ptxas] {name}<{d}>: {"; ".join(ptxas)}; on the card '
+                f'{attrs}')
+    if build_log not in ('', '(cached)') and not all(
+            row['ptxas'] for row in report.values()):
+        fail('ptxas lines missing from the build log for '
+             f'{[k for k, row in report.items() if not row["ptxas"]]}')
+    return report
+
+
+def plain_in_chunks(fa, q, k, v, dout, out, lse, causal, scale, backward):
+    """The plain forward or backward over PLAIN_CHUNK frames at a time."""
+    for i in range(0, q.shape[0], PLAIN_CHUNK):
+        part = [t[i:i + PLAIN_CHUNK] for t in (q, k, v)]
+        if backward:
+            fa.flash_attention_bwd_ref(
+                *part, None, out[i:i + PLAIN_CHUNK], lse[i:i + PLAIN_CHUNK],
+                dout[i:i + PLAIN_CHUNK], causal, scale)
+        else:
+            fa.flash_attention_ref(*part, causal, scale)
+
+
+def flash_grads(fa, q, k, v, dout, bias, causal, need_dbias=False):
+    """The backward kernels alone on prepared tensors, the forward giving
+    lse: (dq, dk, dv, ds or None)."""
+    scale = q.shape[-1] ** -0.5
+    out, lse = fa.flash_forward(q, k, v, bias, causal, scale)
+    delta = fa.row_delta(dout, out)
+    dq, ds = fa.flash_backward_dq(q, k, v, bias, dout, lse, delta, causal,
+                                  scale, need_dbias)
+    dk, dv = fa.flash_backward_dkv(q, k, v, bias, dout, lse, delta, causal,
+                                   scale)
+    return dq, dk, dv, ds
+
+
+def flash_invariants(torch, fa, dev):
+    """Two calls of the backward give bit-identical dq, dk, dv (and dS),
+    and a batch of two against its second element alone reads exactly 0:
+    (2, 8, 1024, 32) / 1028 keys, causal, a (h, n, m) bias, both dtypes."""
+    b, h, n, m, d = 2, 8, 1024, 1028, 32
+    out = {}
+    for name, dtype in (('float32', torch.float32),
+                        ('bfloat16', torch.bfloat16)):
+        q, k, v, dout, bias = flash_inputs(torch, dev, dtype, b, h, n, m, d,
+                                           'hnm', 77)
+        groups = fa.bias_groups(bias, b, h, n, m).contiguous()
+        first = flash_grads(fa, q, k, v, dout, groups, True, True)
+        second = flash_grads(fa, q, k, v, dout, groups, True, True)
+        alone = flash_grads(fa, *(t[1:] for t in (q, k, v, dout)), groups,
+                            True, True)
+        torch.cuda.synchronize()
+        same = [bool(torch.equal(x, y)) for x, y in zip(first, second)]
+        if not all(same):
+            fail(f'flash backward {name}: two calls differ (dq, dk, dv, dS '
+                 f'equal: {same})')
+        boundary = max(
+            *((x[1] - y[0]).abs().max().item()
+              for x, y in zip(first[:3], alone[:3])),
+            (first[3][h:] - alone[3]).abs().max().item())
+        if boundary != 0:
+            fail(f'flash backward {name}: a batch of two against its second '
+                 f'element alone differs by {boundary}')
+        out[name] = dict(two_calls_identical=True, batch_boundary=boundary)
+    log(f'[kernel] flash backward, ({b}, {h}, {n}, {d}) / {m} keys, causal, '
+        f'(h, n, m) bias: two calls bit-identical (dq, dk, dv, dS) and a '
+        f'batch of two against its second element alone {out}')
+    return out
+
+
 def phase_flash_kernels(torch, dev, reps, smi):
     """The three flash-attention kernels against their plain versions on
     the card, then their times at full width. Returns one row per kernel
     for the result line."""
     import torch.nn.functional as F
-    from magvit2_pytorch_tpu_torch.ops.kernels import flash_attention as fa
+    from magvit2_pytorch_tpu_torch.ops.kernels import (
+        flash_attention as fa, launch_counts, reset_launch_counts)
     set_tf32(False)
     dtypes = (('float32', torch.float32), ('bfloat16', torch.bfloat16))
     worst = {name: dict.fromkeys(('out', 'lse', 'dq', 'dk', 'dv', 'dbias'),
@@ -1709,14 +1834,26 @@ def phase_flash_kernels(torch, dev, reps, smi):
              for d in (16, 32, 64) for causal in (False, True)
              for bias in (None, 'nm', 'hnm', 'bhnm')]
     cases.append((2, 8, 1024, 1028, 32, True, None))    # the 'auto' gate's edge
+    # the causal tile skip of the 'mma' backward: memory keys over more than
+    # one tile (80 > 64), fewer queries than a tile
+    cases += [(1, 2, 70, 150, d, True, None) for d in (16, 64)]
+    cases += [(2, 2, 5, 9, 16, causal, 'hnm') for causal in (False, True)]
     for seed, (b, h, n, m, d, causal, bias_kind) in enumerate(cases):
         for name, dtype in dtypes:
             *qkvo, bias = flash_inputs(torch, dev, dtype, b, h, n, m, d,
                                        bias_kind, seed)
+            reset_launch_counts()
             errs, peaks, finite = flash_errors(torch, fa, *qkvo, bias,
                                                causal)
             what = (f'flash attention ({b}, {h}, {n}, {d}) / {m} keys '
                     f'{name} causal={causal} bias={bias_kind}')
+            counts = launch_counts()
+            route = fa.flash_bwd_route(dtype, d)
+            moved = {key: counts[key] for key in FLASH_BWD_ROUTES}
+            if moved != {key: int(r == route)
+                         for key, r in FLASH_BWD_ROUTES.items()}:
+                fail(f'{what}: backward launches by route {moved}, expected '
+                     f'one of each kernel on the {route!r} route')
             check_flash_errors(what, name, errs, peaks, finite)
             rel = flash_relative(errs, peaks)
             for key, err in rel.items():
@@ -1724,87 +1861,107 @@ def phase_flash_kernels(torch, dev, reps, smi):
             if n == 1024:
                 log(f'[kernel] {what}: max_abs_err {errs}, held as {rel}')
     for name, _ in dtypes:
-        log(f'[kernel] flash attention, {len(cases) - 1} ragged cases '
-            f'(2, 2, 130, d) / 134 keys, d in 16, 32, 64, causal and not, '
-            f'no bias and (n, m), (h, n, m), (b, h, n, m) biases, and the '
-            f'(2, 8, 1024, 32) / 1028 causal case, {name}: worst error over '
-            f'the largest value of the reference (lse: max abs error) '
-            f'{worst[name]} (tol {FLASH_TOL[name]:g}, lse '
+        log(f'[kernel] flash attention, {len(cases)} cases: (2, 2, 130, d) '
+            f'/ 134 keys, d in 16, 32, 64, causal and not, no bias and (n, '
+            f'm), (h, n, m), (b, h, n, m) biases; the (2, 8, 1024, 32) / '
+            f'1028 causal case; (1, 2, 70, d) / 150 keys causal, d in 16, '
+            f'64; (2, 2, 5, 16) / 9 keys with an (h, n, m) bias, causal and '
+            f'not; {name}, the backward on the '
+            f'{fa.flash_bwd_route(dict(dtypes)[name], 32)!r} route: worst '
+            f'error over the largest value of the reference (lse: max abs '
+            f'error) {worst[name]} (tol {FLASH_TOL[name]:g}, lse '
             f'{FLASH_TOL["lse"]:g})')
+    resources = flash_bwd_resources(fa)    # every head size has launched
+    invariants = flash_invariants(torch, fa, dev)
 
     # full width: the flagship's space-attention stage at 512 px, every
-    # frame of it in both dtypes (65 key tiles, the last one of 4 keys)
+    # frame of it in both dtypes (65 key tiles, the last one of 4 keys),
+    # and causal in bf16
     b, h, n, m, d = (FLASH_FULL[key] for key in 'bhnmd')
     scale = d ** -0.5
     q, k, v, dout, _ = flash_inputs(torch, dev, torch.bfloat16, b, h, n, m,
                                     d, None, 99)
     full = {}
-    for name, dtype in dtypes:
+    for name, dtype, causal in (*((n_, dt, False) for n_, dt in dtypes),
+                                ('bfloat16', torch.bfloat16, True)):
         errs, peaks, finite = flash_errors(
-            torch, fa, *(t.to(dtype) for t in (q, k, v, dout)), None, False,
+            torch, fa, *(t.to(dtype) for t in (q, k, v, dout)), None, causal,
             frames=PLAIN_CHUNK)
-        what = f'flash attention ({b}, {h}, {n}, {d}) / {m} keys {name}'
+        what = (f'flash attention ({b}, {h}, {n}, {d}) / {m} keys {name}'
+                f'{" causal" if causal else ""}')
         check_flash_errors(what, name, errs, peaks, finite)
-        full[name] = (errs, flash_relative(errs, peaks))
+        full[(name, causal)] = (errs, flash_relative(errs, peaks))
         log(f'[kernel] {what}, plain in float32 {PLAIN_CHUNK} frames at a '
             f'time: max_abs_err {errs}, largest values {peaks}, held as '
-            f'{full[name][1]} (tol {FLASH_TOL[name]:g}, lse '
+            f'{full[(name, causal)][1]} (tol {FLASH_TOL[name]:g}, lse '
             f'{FLASH_TOL["lse"]:g})')
-    out, lse = fa.flash_forward(q, k, v, None, False, scale)
-    delta = fa.row_delta(dout, out)
+    prepared = {}
+    for causal in (False, True):
+        out, lse = fa.flash_forward(q, k, v, None, causal, scale)
+        prepared[causal] = (out, lse, fa.row_delta(dout, out))
+        first = flash_grads(fa, q, k, v, dout, None, causal)
+        second = flash_grads(fa, q, k, v, dout, None, causal)
+        if not all(torch.equal(x, y) for x, y in zip(first[:3], second[:3])):
+            fail(f'flash backward at full width, causal={causal}: two calls '
+                 'differ')
+        del first, second
+    log(f'[kernel] flash backward ({b}, {h}, {n}, {d}) / {m} keys bf16, '
+        'causal and not: two calls bit-identical (dq, dk, dv)')
 
-    def plain_forward(qs, ks, vs):
-        for i in range(0, b, PLAIN_CHUNK):
-            fa.flash_attention_ref(*(t[i:i + PLAIN_CHUNK]
-                                     for t in (qs, ks, vs)), False, scale)
+    def calls(causal):
+        _, lse, delta = prepared[causal]
+        return {
+            'flash_attention_fwd': lambda *t: fa.flash_forward(
+                t[0], t[1], t[2], None, causal, scale),
+            'flash_attention_bwd_dq': lambda *t: fa.flash_backward_dq(
+                t[0], t[1], t[2], None, t[3], lse, delta, causal, scale),
+            'flash_attention_bwd_dkv': lambda *t: fa.flash_backward_dkv(
+                t[0], t[1], t[2], None, t[3], lse, delta, causal, scale),
+        }
 
-    def plain_backward(qs, ks, vs, dos, outs, lses):
-        for i in range(0, b, PLAIN_CHUNK):
-            part = [t[i:i + PLAIN_CHUNK] for t in (qs, ks, vs)]
-            fa.flash_attention_bwd_ref(
-                *part, None, outs[i:i + PLAIN_CHUNK], lses[i:i + PLAIN_CHUNK],
-                dos[i:i + PLAIN_CHUNK], False, scale)
-
-    calls = {
-        'flash_attention_fwd': lambda *t: fa.flash_forward(
-            t[0], t[1], t[2], None, False, scale),
-        'flash_attention_bwd_dq': lambda *t: fa.flash_backward_dq(
-            t[0], t[1], t[2], None, t[3], lse, delta, False, scale),
-        'flash_attention_bwd_dkv': lambda *t: fa.flash_backward_dkv(
-            t[0], t[1], t[2], None, t[3], lse, delta, False, scale),
-    }
+    out, lse, _ = prepared[False]
+    out_c, lse_c, _ = prepared[True]
     with torch.no_grad():
         ms = {name: median_ms(lambda: call(q, k, v, dout), reps)
-              for name, call in calls.items()}
-        plain_fwd = median_ms(lambda: plain_forward(q, k, v), 5, warmup=1)
-        plain_bwd = median_ms(
-            lambda: plain_backward(q, k, v, dout, out, lse), 5, warmup=1)
+              for name, call in calls(False).items()}
+        ms_causal = {name: median_ms(lambda: call(q, k, v, dout), reps)
+                     for name, call in calls(True).items()}
+        plain_fwd = median_ms(lambda: plain_in_chunks(
+            fa, q, k, v, dout, out, lse, False, scale, False), 5, warmup=1)
+        plain_bwd = median_ms(lambda: plain_in_chunks(
+            fa, q, k, v, dout, out, lse, False, scale, True), 5, warmup=1)
+        plain_bwd_causal = median_ms(lambda: plain_in_chunks(
+            fa, q, k, v, dout, out_c, lse_c, True, scale, True), 5, warmup=1)
         q32, k32, v32, do32 = (t.float() for t in (q, k, v, dout))
         ms32 = {name: median_ms(lambda: call(q32, k32, v32, do32), 5,
                                 warmup=1)
-                for name, call in calls.items()}
-        plain_fwd32 = median_ms(lambda: plain_forward(q32, k32, v32), 5,
-                                warmup=1)
-        plain_bwd32 = median_ms(
-            lambda: plain_backward(q32, k32, v32, do32, out, lse), 5,
+                for name, call in calls(False).items()}
+        plain_fwd32 = median_ms(lambda: plain_in_chunks(
+            fa, q32, k32, v32, do32, out, lse, False, scale, False), 5,
+            warmup=1)
+        plain_bwd32 = median_ms(lambda: plain_in_chunks(
+            fa, q32, k32, v32, do32, out, lse, False, scale, True), 5,
             warmup=1)
         del q32, k32, v32, do32
         sdpa_fwd = median_ms(
             lambda: F.scaled_dot_product_attention(q, k, v), reps)
-    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    o = F.scaled_dot_product_attention(qg, kg, vg)
-    sdpa_bwd = median_ms(lambda: torch.autograd.grad(
-        o, (qg, kg, vg), dout, retain_graph=True), reps)
-    del qg, kg, vg, o
+    sdpa_bwd = {}
+    for causal in (False, True):
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        sdpa_bwd[causal] = median_ms(lambda: torch.autograd.grad(
+            o, (qg, kg, vg), dout, retain_graph=True), reps)
+        del qg, kg, vg, o
     rows = {}
     for name in FLASH_KERNELS:
         fwd = name == 'flash_attention_fwd'
         bound_ms, bound_by = bound(*flash_cost(b * h, n, m, d, False, name))
         keys = (('out', 'lse') if fwd else ('dq',) if name.endswith('dq')
                 else ('dk', 'dv'))
-        err, err32 = (max(full[dt][0][key] for key in keys)
+        err, err32 = (max(full[(dt, False)][0][key] for key in keys)
                       for dt in ('bfloat16', 'float32'))
-        rel, rel32 = (max(full[dt][1][key] for key in keys if key != 'lse')
+        rel, rel32 = (max(full[(dt, False)][1][key] for key in keys
+                          if key != 'lse')
                       for dt in ('bfloat16', 'float32'))
         rows[name] = dict(
             shape=[b, h, n, d], keys=m, per='launch', max_abs_err=err,
@@ -1815,7 +1972,7 @@ def phase_flash_kernels(torch, dev, reps, smi):
                         'together') + f', {PLAIN_CHUNK} frames at a time',
             ms_fp32=ms32[name],
             plain_ms_fp32=plain_fwd32 if fwd else plain_bwd32,
-            library_ms=sdpa_fwd if fwd else sdpa_bwd,
+            library_ms=sdpa_fwd if fwd else sdpa_bwd[False],
             library_call='F.scaled_dot_product_attention' + (
                 '' if fwd else ' backward, which forms dq, dk and dv '
                 'together'),
@@ -1830,6 +1987,32 @@ def phase_flash_kernels(torch, dev, reps, smi):
             f'({rows[name]["library_call"]}), bound {bound_ms:.4f} ms '
             f'({bound_by}); fp32 kernel {ms32[name]:.4f} ms, plain '
             f'{rows[name]["plain_ms_fp32"]:.4f} ms (medians of 5) on {smi}')
+        if fwd:
+            continue
+        # the backward's route, its resources and its causal row
+        c_bound, c_by = bound(*flash_cost(b * h, n, m, d, True, name))
+        c_rel = max(full[('bfloat16', True)][1][key] for key in keys)
+        rows[name].update(
+            kernel_route=fa.flash_bwd_route(torch.bfloat16, d),
+            ptxas={key: val for key, val in resources.items()
+                   if key.startswith(name.replace('flash_attention_', '')
+                                     + '_mma')},
+            invariants=invariants,
+            causal=dict(ms=ms_causal[name], bound_ms=c_bound, bound_by=c_by,
+                        plain_ms=plain_bwd_causal,
+                        library_ms=sdpa_bwd[True],
+                        library_call='F.scaled_dot_product_attention('
+                        'is_causal=True) backward: its mask is aligned to '
+                        'the top left, 4 keys a row fewer than this one',
+                        max_rel_err=c_rel))
+        log(f'[kernel] {name} causal ({b}, {h}, {n}, {d}) / {m} keys bf16: '
+            f'{ms_causal[name]:.4f} ms (median of {reps}), bound '
+            f'{c_bound:.4f} ms ({c_by}, visible pairs only), plain '
+            f'{plain_bwd_causal:.4f} ms, library {sdpa_bwd[True]:.4f} ms '
+            f'(SDPA is_causal backward, top-left aligned), error over the '
+            f'largest value {c_rel:.3e} on {smi}')
+    rows['flash_attention_fwd']['causal'] = dict(
+        ms=ms_causal['flash_attention_fwd'])
     return rows
 
 

@@ -138,15 +138,6 @@ cudaError_t launch_attention_core(const T* qkv, const T* mem_k,
 constexpr int kMmaRows = 256, kMmaWarps = 4, kMmaThreads = 32 * kMmaWarps;
 constexpr int kMmaKeyTile = 64, kMmaD = 32, kMmaLd = 40;
 constexpr int kMmaMaxKeys = 1280;  // 200 KB of K and V in shared memory
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x on the special-function unit, subnormal results flushed to 0 (they
-// would add nothing to a softmax sum that holds a 1)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));

@@ -1,6 +1,6 @@
 // Shared device routines for the port's kernels: dtype conversion, a block
 // sum, the shared-memory address of a pointer, cp.async and the warp-level
-// tensor-core helpers (ldmatrix, mma.sync m16n8k16 on bf16). The row
+// tensor-core helpers (ldmatrix, mma.sync m16n8k16 on bf16, exp2). The row
 // RMSNorm and the projection GEMMs live in gemm.cu. Built for sm_90a by
 // ops/kernels/_build.py.
 #pragma once
@@ -80,6 +80,15 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                "l"(gmem), "r"(bytes));
 }
 
+// 4 bytes global -> shared, zero-filled when the predicate is false
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool pred) {
+  const int bytes = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(bytes));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -87,6 +96,12 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
@@ -113,6 +128,16 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const unsigned (&a)[4],
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special-function unit, subnormal results flushed to 0 (they
+// would add nothing to a softmax sum that holds a 1); 2^-inf is 0
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {

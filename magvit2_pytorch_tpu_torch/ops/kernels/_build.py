@@ -55,10 +55,13 @@ SIGNATURES = {
     # q, k, v, bias, out, lse, dtype, bh, n, m, d, bias_groups, causal,
     # scale, stream
     'mv2_flash_attention_fwd': [_P] * 6 + [_I] * 7 + [_F, _P],
-    # q, k, v, bias, dout, lse, delta, dq, dbias, then as the forward
-    'mv2_flash_attention_bwd_dq': [_P] * 9 + [_I] * 7 + [_F, _P],
-    # q, k, v, bias, dout, lse, delta, dk, dv, then as the forward
-    'mv2_flash_attention_bwd_dkv': [_P] * 9 + [_I] * 7 + [_F, _P],
+    # q, k, v, bias, dout, lse, delta, dq, dbias, then as the forward with
+    # the route before the stream
+    'mv2_flash_attention_bwd_dq': [_P] * 9 + [_I] * 7 + [_F, _I, _P],
+    # q, k, v, bias, dout, lse, delta, dk, dv, then as dq
+    'mv2_flash_attention_bwd_dkv': [_P] * 9 + [_I] * 7 + [_F, _I, _P],
+    # kernel, dim_head, out (4 ints)
+    'mv2_flash_bwd_mma_attributes': [_I, _I, _P],
 }
 
 _lib = None

@@ -26,7 +26,11 @@ are not carried over, ``lse`` is ``(b, h, n)`` float32. A bias ``(n, m)``,
 materialising the broadcast; its gradient is written by the dQ kernel as
 ``(b h, n, m)`` float32 and the groups that shared a slice are summed here,
 as the JAX wrapper does outside its kernel. Head sizes 16, 32, 64; float32
-(CUDA cores, no TF32) and bfloat16 (tensor cores).
+(CUDA cores, no TF32) and bfloat16 (tensor cores). The backward has two
+routes (:func:`flash_bwd_route`): ``'mma'`` for bf16, kernels on
+``mma.sync`` with register accumulators, a ``cp.async`` ring and the causal
+tile skip (:func:`dq_key_tiles`, :func:`dkv_query_tiles`,
+:func:`tile_masked`); ``'f32'`` for float32, on the CUDA cores.
 
 :func:`flash_attention` is a ``torch.autograd.Function``: the forward
 launches one kernel and saves ``q, k, v, bias, out, lse``, the backward
@@ -37,6 +41,7 @@ wiring. On a CUDA tensor it launches the kernels or raises.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -44,12 +49,63 @@ import torch
 from magvit2_pytorch_tpu_torch.ops.attend import causal_hidden
 from magvit2_pytorch_tpu_torch.ops.kernels import _build
 
-# launches of each CUDA kernel since the last reset (see ops/kernels)
+# launches of each CUDA kernel since the last reset (see ops/kernels), and
+# of each backward kernel by route
 LAUNCHES = {'flash_attention_fwd': 0, 'flash_attention_bwd_dq': 0,
-            'flash_attention_bwd_dkv': 0}
+            'flash_attention_bwd_dkv': 0, 'flash_attention_bwd_dq_mma': 0,
+            'flash_attention_bwd_dq_f32': 0, 'flash_attention_bwd_dkv_mma': 0,
+            'flash_attention_bwd_dkv_f32': 0}
 
 SUPPORTED_DIM_HEAD = (16, 32, 64)     # csrc/flash_attention.cu template cases
+BWD_ROUTES = {'f32': 0, 'mma': 1}     # csrc/flash_attention.cu BwdRoute
 MASKED = -1e30
+
+
+def flash_bwd_route(dtype, dim_head: int) -> str:
+    """The backward kernels of a call: ``'mma'`` (tensor cores) for bf16,
+    ``'f32'`` (CUDA cores) for float32. It does not look at the device; no
+    route gives way to another, and what neither takes raises. The route is
+    passed to the C entry points, which refuse one that does not fit the
+    dtype."""
+    if dim_head not in SUPPORTED_DIM_HEAD:
+        raise ValueError(f'flash backward: dim_head {dim_head} not in '
+                         f'{SUPPORTED_DIM_HEAD}')
+    if dtype == torch.bfloat16:
+        return 'mma'
+    if dtype == torch.float32:
+        return 'f32'
+    raise TypeError(f'flash backward: kernels take float32 or bfloat16, got '
+                    f'{dtype}')
+
+
+# The 'mma' backward's causal skip, as csrc/flash_attention.cu computes it.
+# With causal, query row i sees key j where j <= i + (m - n).
+
+def dq_key_tiles(q0: int, rows: int, n: int, m: int, causal: bool,
+                 tile: int) -> int:
+    """The dQ block of query rows ``q0 .. q0 + rows - 1`` visits key tiles
+    ``0 .. dq_key_tiles - 1`` of ``tile`` keys: with causal, up to the last
+    one its last row sees."""
+    end = min(m, min(q0 + rows, n) + m - n) if causal else m
+    return -(-end // tile)
+
+
+def dkv_query_tiles(k0: int, n: int, m: int, causal: bool, tile: int):
+    """The query tiles of ``tile`` rows that the dK/dV block whose first
+    key is ``k0`` visits: with causal, from the first whose last row sees
+    ``k0``."""
+    first = max(0, k0 - (m - n)) // tile if causal else 0
+    return range(first, -(-n // tile))
+
+
+def tile_masked(q0: int, nq: int, k0: int, nk: int, n: int, m: int,
+                causal: bool) -> bool:
+    """Whether the tile of query rows ``q0 .. q0 + nq - 1`` and keys
+    ``k0 .. k0 + nk - 1`` tests each element: it crosses a ragged edge
+    (rows >= n, keys >= m), or with causal its last key lies past its first
+    row's diagonal."""
+    return (q0 + nq > n or k0 + nk > m
+            or (causal and k0 + nk - 1 > q0 + m - n))
 
 
 def _acc_dtype(t):
@@ -162,18 +218,20 @@ def flash_forward(q, k, v, bias, causal: bool, scale: float):
     return out, lse
 
 
-def _bwd_tail(q, k, bias, causal: bool, scale: float):
+def _bwd_tail(q, k, bias, causal: bool, scale: float, route: str):
     bh, n, m, d, groups = _geometry(q, k, bias)
     return (_build.dtype_code(q), bh, n, m, d, groups, int(causal),
-            float(scale), _build.stream_handle(q.device))
+            float(scale), BWD_ROUTES[route], _build.stream_handle(q.device))
 
 
 def flash_backward_dq(q, k, v, bias, dout, lse, delta, causal: bool,
                    scale: float, need_dbias: bool = False):
-    """The dQ kernel alone, on prepared CUDA tensors (one dtype, contiguous,
-    16-byte aligned; ``delta`` from :func:`row_delta`):
-    ``(dq, ds)`` with ``ds`` the ``(b h, n, m)`` float32 dS or None."""
+    """The dQ kernel of :func:`flash_bwd_route`'s route alone, on prepared
+    CUDA tensors (one dtype, contiguous, 16-byte aligned; ``delta`` from
+    :func:`row_delta`): ``(dq, ds)`` with ``ds`` the ``(b h, n, m)``
+    float32 dS or None."""
     name = 'flash_attention_bwd_dq'
+    route = flash_bwd_route(q.dtype, q.shape[-1])
     dq = torch.empty_like(q)
     ds = (torch.empty((q.shape[0] * q.shape[1], q.shape[2], k.shape[2]),
                       dtype=torch.float32, device=q.device)
@@ -184,26 +242,45 @@ def flash_backward_dq(q, k, v, bias, dout, lse, delta, causal: bool,
         None if bias is None else bias.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         None if ds is None else ds.data_ptr(),
-        *_bwd_tail(q, k, bias, causal, scale))
-    _build.check(lib, code, name)
+        *_bwd_tail(q, k, bias, causal, scale, route))
+    _build.check(lib, code, f'{name} ({route})')
     LAUNCHES[name] += 1
+    LAUNCHES[f'{name}_{route}'] += 1
     return dq, ds
 
 
 def flash_backward_dkv(q, k, v, bias, dout, lse, delta, causal: bool,
                     scale: float):
-    """The dK/dV kernel alone, on prepared CUDA tensors: ``(dk, dv)``."""
+    """The dK/dV kernel of :func:`flash_bwd_route`'s route alone, on
+    prepared CUDA tensors: ``(dk, dv)``."""
     name = 'flash_attention_bwd_dkv'
+    route = flash_bwd_route(q.dtype, q.shape[-1])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _build.load_library()
     code = lib.mv2_flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if bias is None else bias.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_bwd_tail(q, k, bias, causal, scale))
-    _build.check(lib, code, name)
+        *_bwd_tail(q, k, bias, causal, scale, route))
+    _build.check(lib, code, f'{name} ({route})')
     LAUNCHES[name] += 1
+    LAUNCHES[f'{name}_{route}'] += 1
     return dk, dv
+
+
+def bwd_mma_attributes(kernel: str, dim_head: int) -> dict:
+    """What the CUDA runtime reports for the 'mma' backward kernel ``'dq'``
+    or ``'dkv'`` at ``dim_head``: registers and local (spilled) bytes a
+    thread, static shared memory, and the dynamic shared memory its
+    launcher last set (the runtime's default limit before its first
+    launch)."""
+    out = (ctypes.c_int * 4)()
+    lib = _build.load_library()
+    _build.check(lib, lib.mv2_flash_bwd_mma_attributes(
+        ('dq', 'dkv').index(kernel), dim_head, out),
+        f'flash_attention_bwd_{kernel} attributes')
+    return dict(zip(('registers', 'local_bytes', 'static_smem_bytes',
+                     'dynamic_smem_bytes'), out))
 
 
 def row_delta(dout, out):

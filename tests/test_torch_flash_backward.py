@@ -1,0 +1,217 @@
+"""The flash-attention backward's routes and causal tile skip on the CPU.
+
+``flash_bwd_route`` picks the backward kernels from the dtype alone;
+the causal skip of the tensor-core (``'mma'``) kernels is written once in
+Python (``dq_key_tiles``, ``dkv_query_tiles``, ``tile_masked``) and held
+here against ``causal_hidden``, the mask the plain versions use; the plain
+backward is held against ``jax.grad`` through the Pallas backward kernels
+in interpret mode at the shapes the skip cares about (memory keys over more
+than one tile, fewer queries than a tile, the largest head size); and each
+route's launch is counted, with a stand-in for the CUDA library, and its
+code held against the C source's. The kernels themselves run only on the
+card (chip_smoke.py)."""
+
+import itertools
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from magvit2_pytorch_tpu.ops.pallas.flash_attention import (
+    flash_attention as jax_flash_attention)
+from magvit2_pytorch_tpu_torch.ops.attend import causal_hidden
+from magvit2_pytorch_tpu_torch.ops.kernels import (
+    _build, flash_attention as fa, launch_counts, reset_launch_counts)
+
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize('dim_head', [16, 32, 64])
+@pytest.mark.parametrize('dtype,route', [(torch.bfloat16, 'mma'),
+                                         (torch.float32, 'f32')])
+def test_flash_bwd_route(dtype, route, dim_head):
+    assert fa.flash_bwd_route(dtype, dim_head) == route
+
+
+@pytest.mark.parametrize('dtype,dim_head,error', [
+    (torch.float16, 32, TypeError), (torch.float64, 32, TypeError),
+    (torch.bfloat16, 8, ValueError), (torch.float32, 128, ValueError)])
+def test_flash_bwd_route_refuses_what_no_kernel_takes(dtype, dim_head, error):
+    with pytest.raises(error):
+        fa.flash_bwd_route(dtype, dim_head)
+
+
+# ---- the causal tile skip against causal_hidden ---------------------------
+
+# m - n in 0, 4, 70 (memory keys over more than a tile), and at 1, 62, 63,
+# 65, where the first visible row or a tile's diagonal sits one step from a
+# tile edge
+SKIP_CASES = [(n, n + extra) for n in (1, 5, 63, 64, 65, 130)
+              for extra in (0, 1, 4, 62, 63, 65, 70)]
+
+
+@pytest.mark.parametrize('rows,tile', [(64, 64), (128, 64), (64, 128),
+                                       (128, 128)])
+@pytest.mark.parametrize('causal', [True, False])
+def test_causal_tile_skip_matches_causal_hidden(rows, tile, causal):
+    """For every block and streamed tile of both kernels: no skipped tile
+    holds a visible pair, every kept tile holds one, and a tile takes the
+    element test exactly where it crosses a ragged edge or holds a hidden
+    pair."""
+    for n, m in SKIP_CASES:
+        hidden = causal_hidden(n, m, 'cpu').numpy()
+        visible = ~hidden if causal else np.ones((n, m), bool)
+
+        def check(q0, nq, k0, nk, kept):
+            seen = visible[q0:q0 + nq, k0:k0 + nk]
+            assert bool(seen.any()) == kept, (n, m, q0, k0, kept)
+            if not kept:
+                return
+            ragged = q0 + nq > n or k0 + nk > m
+            assert fa.tile_masked(q0, nq, k0, nk, n, m, causal) == (
+                ragged or not seen.all()), (n, m, q0, k0)
+
+        for q0 in range(0, n, rows):          # dQ: a block of query rows
+            stop = fa.dq_key_tiles(q0, rows, n, m, causal, tile)
+            for t in range(-(-m // tile)):
+                check(q0, rows, t * tile, tile, t < stop)
+        for k0 in range(0, m, rows):          # dK/dV: a block of keys
+            kept = fa.dkv_query_tiles(k0, n, m, causal, tile)
+            for t in range(-(-n // tile)):
+                check(t * tile, tile, k0, rows, t in kept)
+
+
+def test_causal_tile_skip_skips_half_the_flagship_step():
+    """At the attention step's shape (4096 queries, 4100 keys) the causal
+    dQ blocks visit about half the key tiles, and the visible pairs are
+    8,407,040 of 16,793,600 per (b, h)."""
+    n, m = 4096, 4100
+    rows = tile = 64      # csrc/flash_attention.cu kBwdRows, kBwdTile
+    visits = sum(fa.dq_key_tiles(q0, rows, n, m, True, tile)
+                 for q0 in range(0, n, rows))
+    full = (n // rows) * -(-m // tile)
+    assert 0.5 <= visits / full < 0.52
+    pairs = sum(min(m, i + 1 + m - n) for i in range(n))
+    assert (pairs, n * m) == (8407040, 16793600)
+
+
+# ---- the plain backward against the Pallas backward -----------------------
+
+def _rand(shape, seed):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+@pytest.mark.parametrize('b,h,n,m,d,causal', [
+    (1, 2, 70, 150, 32, True),     # memory keys over more than one tile
+    (2, 2, 5, 9, 16, True),        # fewer queries than a tile
+    (2, 2, 5, 9, 16, False),
+    (1, 2, 70, 74, 64, False),     # the largest head size
+    (1, 2, 70, 74, 64, True),
+])
+def test_flash_backward_ref_matches_pallas_at_the_skip_shapes(b, h, n, m, d,
+                                                              causal):
+    """``flash_attention_bwd_ref`` against ``jax.grad`` through the Pallas
+    backward kernels in interpret mode; atol 5e-4, rtol 1e-3 (those of
+    tests/test_torch_port_attend.py)."""
+    q, k, v = _rand((b, h, n, d), 1), _rand((b, h, m, d), 2), _rand(
+        (b, h, m, d), 3)
+    g_out = _rand((b, h, n, d), 4)
+
+    def loss(*a):
+        return jnp.sum(jax_flash_attention(*a, causal=causal, interpret=True)
+                       * g_out)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    out, lse = fa.flash_attention_ref(tq, tk, tv, causal=causal)
+    got = fa.flash_attention_bwd_ref(tq, tk, tv, None, out, lse,
+                                     torch.from_numpy(g_out), causal,
+                                     d ** -0.5)
+    for a, w in zip(got[:3], want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=5e-4,
+                                   rtol=1e-3)
+
+
+# ---- each route's launch, counted ------------------------------------------
+
+class _Library:
+    """Stands in for the CUDA library: records the dtype and route codes
+    each backward entry point was given and returns success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args[9], args[17]))
+            return 0
+        return entry
+
+
+@pytest.mark.parametrize('dtype,route', [(torch.bfloat16, 'mma'),
+                                         (torch.float32, 'f32')])
+def test_each_backward_launch_counts_its_route(monkeypatch, dtype, route):
+    lib = _Library()
+    monkeypatch.setattr(_build, 'load_library', lambda: lib)
+    monkeypatch.setattr(_build, 'stream_handle', lambda device: 0)
+    q, k, v, dout = (torch.zeros(s, dtype=dtype) for s in
+                     ((1, 2, 5, 16), (1, 2, 9, 16), (1, 2, 9, 16),
+                      (1, 2, 5, 16)))
+    lse = delta = torch.zeros(1, 2, 5)
+    reset_launch_counts()
+    fa.flash_backward_dq(q, k, v, None, dout, lse, delta, True, 0.25)
+    fa.flash_backward_dkv(q, k, v, None, dout, lse, delta, True, 0.25)
+    counts = launch_counts()
+    other = {'mma': 'f32', 'f32': 'mma'}[route]
+    for kernel in ('flash_attention_bwd_dq', 'flash_attention_bwd_dkv'):
+        assert counts[kernel] == counts[f'{kernel}_{route}'] == 1
+        assert counts[f'{kernel}_{other}'] == 0
+    codes = (_build.dtype_code(q), fa.BWD_ROUTES[route])
+    assert lib.calls == [('mv2_flash_attention_bwd_dq', *codes),
+                         ('mv2_flash_attention_bwd_dkv', *codes)]
+    reset_launch_counts()
+
+
+def _c_enum(name, text):
+    body = re.search(r'enum ' + name + r' \{([^}]*)\}', text)[1]
+    return {k.strip(): int(v) for k, v in
+            (item.split('=') for item in body.split(','))}
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_c_entry_points_take_the_route_of_the_dtype(dtype):
+    """The route code the wrapper passes is one that csrc's route_fits
+    accepts with the dtype code of the same call (it refuses any other
+    pair, on the card)."""
+    src = (_build.SOURCE_DIR / 'flash_attention.cu').read_text()
+    routes = _c_enum('BwdRoute', src)
+    dtypes = _c_enum('DType', (_build.SOURCE_DIR / 'common.cuh').read_text())
+    fits = {(routes[r], dtypes[d]) for r, d in re.findall(
+        r'route == (kBwd\w+) && dtype == (k\w+)', src)}
+    assert len(fits) == len(routes) == len(fa.BWD_ROUTES)
+    route = fa.flash_bwd_route(dtype, 32)
+    assert (fa.BWD_ROUTES[route], _build.DTYPE_CODES[dtype]) in fits
+
+
+def test_a_backward_no_route_takes_launches_nothing(monkeypatch):
+    lib = _Library()
+    monkeypatch.setattr(_build, 'load_library', lambda: lib)
+    q = torch.zeros(1, 2, 5, 16, dtype=torch.float16)
+    k = torch.zeros(1, 2, 9, 16, dtype=torch.float16)
+    lse = torch.zeros(1, 2, 5)
+    reset_launch_counts()
+    for launch in (fa.flash_backward_dq, fa.flash_backward_dkv):
+        with pytest.raises(TypeError):
+            launch(q, k, k, None, q, lse, lse, False, 0.25)
+    assert lib.calls == [] and not any(launch_counts().values())
+
+
+def test_route_counters_sit_beside_the_kernel_counters():
+    names = {f'flash_attention_bwd_{kernel}_{route}'
+             for kernel, route in itertools.product(('dq', 'dkv'),
+                                                    ('mma', 'f32'))}
+    assert names | {'flash_attention_bwd_dq', 'flash_attention_bwd_dkv'} \
+        <= set(launch_counts())

@@ -19,53 +19,14 @@ limit. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import os
-import subprocess
 import sys
 
+from variant_build import build, card, median_ms
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(REPO, 'magvit2_pytorch_tpu_torch', 'csrc',
-                      'taylor_attention.cu')
-CONSTANTS = ('constexpr int kTcStages = 3;', 'constexpr int kTcChunk = 128;')
-
-
-def build(variants):
-    """One shared library per (stages, chunk), built in parallel."""
-    from magvit2_pytorch_tpu_torch.ops.kernels import _build
-    text = open(SOURCE).read()
-    for c in CONSTANTS:
-        if c not in text:
-            sys.exit(f'{c!r} not in {SOURCE}: update CONSTANTS')
-    text = text.replace(CONSTANTS[0], 'constexpr int kTcStages = TC_STAGES;')
-    text = text.replace(CONSTANTS[1], 'constexpr int kTcChunk = TC_CHUNK;')
-    out_dir = os.path.join(str(_build.BUILD_DIR), 'variants')
-    os.makedirs(out_dir, exist_ok=True)
-    src = os.path.join(out_dir, 'taylor_variant.cu')
-    with open(src, 'w') as f:
-        f.write(text)
-    nvcc = _build.find_nvcc()
-    procs = []
-    for stages, chunk in variants:
-        lib = os.path.join(out_dir, f'taylor_{stages}x{chunk}.so')
-        cmd = [nvcc, *_build.NVCC_FLAGS, '-shared', '-I',
-               str(_build.SOURCE_DIR), f'-DTC_STAGES={stages}',
-               f'-DTC_CHUNK={chunk}', '-o', lib, src]
-        procs.append((lib, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    libs = {}
-    for (stages, chunk), (path, proc) in zip(variants, procs):
-        log = proc.communicate()[0]
-        if proc.returncode:
-            sys.exit(f'nvcc failed for {stages}x{chunk}:\n{log}')
-        used = [line.strip() for line in log.splitlines() if 'Used' in line]
-        print(f'{stages}x{chunk}: {used[-1] if used else "(no ptxas line)"}')
-        lib = ctypes.CDLL(path)
-        lib.mv2_taylor_core.argtypes = _build.SIGNATURES['mv2_taylor_core']
-        lib.mv2_taylor_core.restype = ctypes.c_int
-        libs[(stages, chunk)] = lib
-    return libs
+CONSTANTS = {'constexpr int kTcStages = 3;': 'TC_STAGES',
+             'constexpr int kTcChunk = 128;': 'TC_CHUNK'}
 
 
 def main():
@@ -80,7 +41,12 @@ def main():
     if not torch.cuda.is_available():
         sys.exit('this script times the CUDA kernel: no GPU')
     from magvit2_pytorch_tpu_torch.ops.kernels import taylor_attention as ta
-    libs = build(variants)
+    libs = {}
+    for key, (lib, log) in build('taylor_attention.cu', CONSTANTS, variants,
+                                 ('mv2_taylor_core',)).items():
+        used = [line.strip() for line in log.splitlines() if 'Used' in line]
+        print(f'{key[0]}x{key[1]}: {used[-1] if used else "(no ptxas line)"}')
+        libs[key] = lib
     dev = torch.device('cuda', 0)
     heads, dh = 16, 8
     times = {}
@@ -115,23 +81,9 @@ def main():
                 continue
             for order in (variants, variants[::-1]):
                 for key in order:
-                    for _ in range(3):
-                        run(key)
-                    samples = []
-                    for _ in range(20):
-                        start = torch.cuda.Event(enable_timing=True)
-                        end = torch.cuda.Event(enable_timing=True)
-                        start.record()
-                        for _ in range(10):
-                            run(key)
-                        end.record()
-                        end.synchronize()
-                        samples.append(start.elapsed_time(end) / 10)
-                    samples.sort()
-                    times.setdefault(key, []).append(samples[10])
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True).stdout.strip()
+                    times.setdefault(key, []).append(
+                        median_ms(torch, lambda: run(key), calls=10))
+    smi = card()
     for (stages, chunk), ms in times.items():
         print(f'stages {stages}, chunk {chunk}: {ms[0]:.4f} / {ms[1]:.4f} '
               f'ms (rounds 1 / 2) at (160, 1024, 16 x 8) on {smi}')
