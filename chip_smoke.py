@@ -54,18 +54,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
    not, no bias and each bias shape; output, lse and all four gradients),
    the ``'auto'`` gate's edge ((2, 8, 1024, 32) / 1028 keys, causal), the
    causal tile skip's edges (memory keys over more than a tile, fewer
-   queries than a tile), each case's backward counted on its route
-   (``'mma'`` bf16, ``'f32'`` float32), and full width ((17, 8, 4096, 32)
-   / 4100 keys, float32 and bf16, and causal in bf16) with times, bounds
-   and ``F.scaled_dot_product_attention`` forward and backward as the
-   library call; the plain version runs there in chunks of frames (its
-   float32 logits would take 9.1 GB at once). Every output and gradient is
-   held relative to the largest value of its reference. The backward's
-   ``'mma'`` kernels: registers, spills (a spill fails) and shared memory
-   as the CUDA runtime reports them after the launches, with ptxas's
-   lines, two calls bit-identical, a batch of two against its second
-   element alone exactly 0, and a causal timing row beside its bound over
-   the visible pairs.
+   queries than a tile), each case's three kernels counted once each on
+   its route (``'mma'`` bf16, ``'f32'`` float32), and full width
+   ((17, 8, 4096, 32) / 4100 keys, float32 and bf16, and causal in bf16)
+   with times, bounds and ``F.scaled_dot_product_attention`` forward and
+   backward (and ``is_causal``) as the library call; the plain version runs
+   there in chunks of frames (its float32 logits would take 9.1 GB at
+   once). Every output and gradient is held relative to the largest value
+   of its reference. The three ``'mma'`` kernels: registers, spills (a
+   spill fails) and shared memory as the CUDA runtime reports them after
+   the launches, with ptxas's lines; two calls bit-identical and a batch of
+   two against its second element alone exactly 0 (out, lse, dq, dk, dv,
+   dS); a causal timing row beside its bound over the visible pairs, and
+   the forward's exp floor (one ``ex2`` a visible pair at 16 a clock an
+   SM, at the card's largest SM clock).
 4. default flagship roundtrip, bfloat16, batch 8, seeded random weights,
    through ``VideoTokenizer.tokenize`` then ``decode_from_code_indices``:
    shapes, finite output, and launches per roundtrip: 2 of each attention
@@ -96,7 +98,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    backward: one step of ``SpaceAttention(512, dim_head=32, heads=8,
    backend='flash')`` on (1, 17, 64, 64, 512) bf16 (4096 tokens a frame,
    4100 keys with the memory KV): exactly 1 launch of each flash kernel
-   (the backward's on the ``'mma'`` route) and 0 of every other; output
+   (each on the ``'mma'`` route) and 0 of every other; output
    and the five gradients against the same module
    with ``backend='plain'`` on the card; step times of both backends; then
    float32, TF32 off, 2 frames, against the CPU. Smaller checks: what
@@ -173,10 +175,13 @@ KERNELS = {
 }
 FLASH_KERNELS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
                  'flash_attention_bwd_dkv')
-# the backward kernels by route (ops/kernels/flash_attention.py
-# flash_bwd_route): 'mma' for bf16, 'f32' for float32
-FLASH_BWD_ROUTES = {f'flash_attention_bwd_{kernel}_{route}': route
-                    for kernel in ('dq', 'dkv') for route in ('mma', 'f32')}
+# the flash kernels by route (ops/kernels/flash_attention.py flash_route):
+# 'mma' for bf16, 'f32' for float32
+FLASH_ROUTES = {f'{kernel}_{route}': route
+                for kernel in FLASH_KERNELS for route in ('mma', 'f32')}
+# the 'mma' kernels: (name in flash_attention.mma_attributes, CUDA kernel)
+FLASH_MMA = (('fwd', 'fwd_mma_kernel'), ('dq', 'bwd_dq_mma_kernel'),
+             ('dkv', 'bwd_dkv_mma_kernel'))
 # what every entry of the kernels line holds
 KERNEL_KEYS = ('name', 'route', 'source', 'replaces', 'launches',
                'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
@@ -186,7 +191,7 @@ KERNEL_KEYS = ('name', 'route', 'source', 'replaces', 'launches',
 # each attention block makes two projection GEMMs, all on the wgmma route
 # in bf16, B1 one launch of its tensor-core core and B3 one of its own; and
 # per step (forward + backward) of the general Attention path
-NO_FLASH = dict.fromkeys((*FLASH_KERNELS, *FLASH_BWD_ROUTES), 0)
+NO_FLASH = dict.fromkeys((*FLASH_KERNELS, *FLASH_ROUTES), 0)
 BLOCKS = {'space_attention_block': 2, 'time_attention_block': 2,
           'taylor_attention_block': 2, 'gemm_wgmma': 12, 'gemm_wmma': 0,
           'gemm_f32': 0, 'space_attention_core_mma': 2, 'taylor_core_mma': 2,
@@ -200,11 +205,11 @@ NO_RU = dict.fromkeys(FUSED_RU, 0)
 LAUNCHES = {
     'default': {**BLOCKS, **NO_RU, **NO_FLASH},
     'fused': {**BLOCKS, **FUSED_RU, **NO_FLASH},
-    # bf16: each backward kernel on the 'mma' route
+    # bf16: each flash kernel on the 'mma' route
     'attention_step': {**dict.fromkeys(BLOCKS, 0), **NO_RU,
                        **dict.fromkeys(FLASH_KERNELS, 1),
                        **{name: int(route == 'mma')
-                          for name, route in FLASH_BWD_ROUTES.items()}},
+                          for name, route in FLASH_ROUTES.items()}},
 }
 # the bf16 in-situ check: encode + decode with MAGVIT2_TPU_NO_FUSED_ATTN=1
 # sends space and time attention down the general plain path; Taylor
@@ -311,6 +316,7 @@ RU_WRAPPERS = {'fused_residual_unit_wide': 'residual_unit_wide',
 # the card's published peaks (NVIDIA's H100 SXM data sheet, dense)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+EX2_PER_CLOCK = 16  # ex2 results a clock an SM (the special-function unit)
 
 
 def nvidia_smi() -> str:
@@ -1624,20 +1630,41 @@ def drive_path(torch, dev, path, smi, profile_dir):
     return counts, dict(tp, ru_ms=ru_ms)
 
 
+def visible_pairs(bh, n, m, causal):
+    """The (query, key) pairs a flash call computes: with causal, row i sees
+    keys 0 .. i + m - n."""
+    return bh * sum(min(m, i + 1 + m - n) if causal else m for i in range(n))
+
+
 def flash_cost(bh, n, m, d, causal, kernel):
     """FLOPs and bytes of one flash-attention kernel in bf16 over the
     visible (query, key) pairs only: the forward forms S and P V (4 d per
     pair), dQ forms S, dP and dS K (6 d), dK/dV forms S, P^T dO, dP and
     dS^T Q (8 d); every input read once, every output written once (q, k,
     v, dO and the outputs in bf16, lse and delta in float32)."""
-    pairs = bh * sum(min(m, i + 1 + m - n) if causal else m
-                     for i in range(n))
+    pairs = visible_pairs(bh, n, m, causal)
     qo, kv, rows = 2 * bh * n * d, 2 * bh * m * d, 4 * bh * n
     if kernel == 'flash_attention_fwd':
         return 4 * d * pairs, 2 * qo + 2 * kv + rows
     if kernel == 'flash_attention_bwd_dq':
         return 6 * d * pairs, 3 * qo + 2 * kv + 2 * rows
     return 8 * d * pairs, 2 * qo + 4 * kv + 2 * rows
+
+
+def exp_floor_ms(torch, pairs):
+    """The least time (ms) for one ex2 a pair on the special-function units
+    of every SM at the card's largest SM clock (nvidia-smi clocks.max.sm): a
+    floor of the forward beside the bound, which counts products and bytes
+    only."""
+    out = subprocess.run(
+        ['nvidia-smi', '--query-gpu=clocks.max.sm',
+         '--format=csv,noheader,nounits'], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        fail(f'nvidia-smi failed: {out.stderr.strip()}')
+    hz = float(out.stdout.strip().splitlines()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return pairs / (sms * EX2_PER_CLOCK * hz) * 1e3
 
 
 def flash_inputs(torch, dev, dtype, b, h, n, m, d, bias_kind, seed):
@@ -1655,20 +1682,29 @@ def flash_errors(torch, fa, q, k, v, dout, bias, causal, frames=None):
     """Errors of the wrapper's output, lse and gradients against the plain
     forward and backward in float32 on the same inputs: for each tensor the
     max abs error and that error over the largest value of the reference
-    (``flash_relative`` makes one dict of the two). With ``frames`` the
-    plain version runs that many batch elements at a time."""
+    (``flash_relative`` makes one dict of the two), and the launch counts of
+    the wrapper's forward and backward. The forward kernel alone then gives
+    lse, and its output must equal the wrapper's bit for bit. With
+    ``frames`` the plain version runs that many batch elements at a time."""
+    from magvit2_pytorch_tpu_torch.ops.kernels import (
+        launch_counts, reset_launch_counts)
     b, h, n, d = q.shape
     m = k.shape[2]
     scale = d ** -0.5
     ins = [t.detach().clone().requires_grad_()
            for t in (q, k, v) + ((bias,) if bias is not None else ())]
+    reset_launch_counts()
     out = fa.flash_attention(*ins[:3], causal=causal,
                              bias=ins[3] if bias is not None else None)
     grads = torch.autograd.grad(out, ins, dout)
+    counts = launch_counts()
     groups = (None if bias is None
               else fa.bias_groups(bias, b, h, n, m))
-    _, lse = fa.flash_forward(q, k, v, groups, causal, scale)
+    out_alone, lse = fa.flash_forward(q, k, v, groups, causal, scale)
     torch.cuda.synchronize()
+    if not torch.equal(out_alone, out.detach()):
+        fail(f'flash forward ({b}, {h}, {n}, {d}) / {m} keys causal='
+             f'{causal}: the kernel alone and through autograd differ')
     errs = dict.fromkeys(('out', 'lse', 'dq', 'dk', 'dv'), 0.0)
     peaks = dict(errs)
     step = frames or b
@@ -1690,7 +1726,7 @@ def flash_errors(torch, fa, q, k, v, dout, bias, causal, frames=None):
             peaks['dbias'] = db_ref.abs().max().item()
         del f, o_ref, lse_ref, ref
     finite = all(bool(torch.isfinite(t).all()) for t in (out, lse, *grads))
-    return errs, peaks, finite
+    return errs, peaks, finite, counts
 
 
 def flash_relative(errs, peaks):
@@ -1711,6 +1747,16 @@ def check_flash_errors(what, dtype_name, errs, peaks, finite):
                  f'(max abs error {errs[key]}, largest value {peaks[key]})')
 
 
+def check_flash_routes(what, counts, route):
+    """One launch of each flash kernel, on ``route`` and on no other."""
+    moved = {key: counts[key] for key in (*FLASH_KERNELS, *FLASH_ROUTES)}
+    want = {**dict.fromkeys(FLASH_KERNELS, 1),
+            **{key: int(r == route) for key, r in FLASH_ROUTES.items()}}
+    if moved != want:
+        fail(f'{what}: flash launches {moved}, expected one of each kernel '
+             f'on the {route!r} route')
+
+
 def ptxas_lines(log: str, kernel: str):
     """ptxas's lines for each instantiation of ``kernel`` in the build log:
     {head size: [lines]}, from its 'Compiling entry function' line to its
@@ -1729,8 +1775,8 @@ def ptxas_lines(log: str, kernel: str):
     return out
 
 
-def flash_bwd_resources(fa):
-    """Registers, spills and shared memory of the 'mma' backward kernels as
+def flash_mma_resources(fa):
+    """Registers, spills and shared memory of the three 'mma' kernels as
     the CUDA runtime reports them after this run's launches (the dynamic
     shared memory is what each launcher set), with ptxas's lines from this
     run's build (none when the library came from the cache). Fails on a
@@ -1739,11 +1785,10 @@ def flash_bwd_resources(fa):
     from magvit2_pytorch_tpu_torch.ops.kernels import _build
     build_log = _build.build_info.get('log', '')
     report = {}
-    for kernel in ('dq', 'dkv'):
-        name = f'bwd_{kernel}_mma_kernel'
+    for kernel, name in FLASH_MMA:
         lines = ptxas_lines(build_log, name)
         for d in fa.SUPPORTED_DIM_HEAD:
-            attrs = fa.bwd_mma_attributes(kernel, d)
+            attrs = fa.mma_attributes(kernel, d)
             ptxas = lines.get(d, [None])[1:]
             spills = [ln for ln in ptxas for st, ld in re.findall(
                 r'(\d+) bytes spill stores, (\d+) bytes spill loads', ln)
@@ -1772,9 +1817,9 @@ def plain_in_chunks(fa, q, k, v, dout, out, lse, causal, scale, backward):
             fa.flash_attention_ref(*part, causal, scale)
 
 
-def flash_grads(fa, q, k, v, dout, bias, causal, need_dbias=False):
-    """The backward kernels alone on prepared tensors, the forward giving
-    lse: (dq, dk, dv, ds or None)."""
+def flash_kernels_alone(fa, q, k, v, dout, bias, causal, need_dbias=False):
+    """The three kernels alone on prepared tensors, the forward giving out
+    and lse: (out, lse, dq, dk, dv, ds or None)."""
     scale = q.shape[-1] ** -0.5
     out, lse = fa.flash_forward(q, k, v, bias, causal, scale)
     delta = fa.row_delta(dout, out)
@@ -1782,41 +1827,75 @@ def flash_grads(fa, q, k, v, dout, bias, causal, need_dbias=False):
                                   scale, need_dbias)
     dk, dv = fa.flash_backward_dkv(q, k, v, bias, dout, lse, delta, causal,
                                    scale)
-    return dq, dk, dv, ds
+    return out, lse, dq, dk, dv, ds
 
 
 def flash_invariants(torch, fa, dev):
-    """Two calls of the backward give bit-identical dq, dk, dv (and dS),
-    and a batch of two against its second element alone reads exactly 0:
-    (2, 8, 1024, 32) / 1028 keys, causal, a (h, n, m) bias, both dtypes."""
+    """Two calls of the three kernels give bit-identical out, lse, dq, dk,
+    dv and dS, and a batch of two against its second element alone reads
+    exactly 0: (2, 8, 1024, 32) / 1028 keys, causal, a (h, n, m) bias, both
+    dtypes."""
     b, h, n, m, d = 2, 8, 1024, 1028, 32
+    names = ('out', 'lse', 'dq', 'dk', 'dv', 'dS')
     out = {}
     for name, dtype in (('float32', torch.float32),
                         ('bfloat16', torch.bfloat16)):
         q, k, v, dout, bias = flash_inputs(torch, dev, dtype, b, h, n, m, d,
                                            'hnm', 77)
         groups = fa.bias_groups(bias, b, h, n, m).contiguous()
-        first = flash_grads(fa, q, k, v, dout, groups, True, True)
-        second = flash_grads(fa, q, k, v, dout, groups, True, True)
-        alone = flash_grads(fa, *(t[1:] for t in (q, k, v, dout)), groups,
-                            True, True)
+        first = flash_kernels_alone(fa, q, k, v, dout, groups, True, True)
+        second = flash_kernels_alone(fa, q, k, v, dout, groups, True, True)
+        alone = flash_kernels_alone(fa, *(t[1:] for t in (q, k, v, dout)),
+                                    groups, True, True)
         torch.cuda.synchronize()
-        same = [bool(torch.equal(x, y)) for x, y in zip(first, second)]
-        if not all(same):
-            fail(f'flash backward {name}: two calls differ (dq, dk, dv, dS '
-                 f'equal: {same})')
+        same = dict(zip(names, (bool(torch.equal(x, y))
+                                for x, y in zip(first, second))))
+        if not all(same.values()):
+            fail(f'flash kernels {name}: two calls differ (equal: {same})')
         boundary = max(
             *((x[1] - y[0]).abs().max().item()
-              for x, y in zip(first[:3], alone[:3])),
-            (first[3][h:] - alone[3]).abs().max().item())
+              for x, y in zip(first[:5], alone[:5])),
+            (first[5][h:] - alone[5]).abs().max().item())
         if boundary != 0:
-            fail(f'flash backward {name}: a batch of two against its second '
+            fail(f'flash kernels {name}: a batch of two against its second '
                  f'element alone differs by {boundary}')
         out[name] = dict(two_calls_identical=True, batch_boundary=boundary)
-    log(f'[kernel] flash backward, ({b}, {h}, {n}, {d}) / {m} keys, causal, '
-        f'(h, n, m) bias: two calls bit-identical (dq, dk, dv, dS) and a '
-        f'batch of two against its second element alone {out}')
+    log(f'[kernel] flash forward and backward, ({b}, {h}, {n}, {d}) / {m} '
+        f'keys, causal, (h, n, m) bias: two calls bit-identical '
+        f'({", ".join(names)}) and a batch of two against its second element '
+        f'alone {out}')
     return out
+
+
+def flash_dead_row(torch, fa, dev):
+    """A row whose bias is -inf at every key has no visible finite score:
+    on both routes, causal and not, the three kernels must give finite out,
+    lse, dq, dk, dv and dS, and 0 in that row's dq and dS. (2, 2, 130, 32)
+    / 134 keys with an (h, n, m) bias, row 7 of head 0 dead."""
+    b, h, n, m, d, row = 2, 2, 130, 134, 32, 7
+    names = ('out', 'lse', 'dq', 'dk', 'dv', 'dS')
+    for name, dtype in (('float32', torch.float32),
+                        ('bfloat16', torch.bfloat16)):
+        for causal in (False, True):
+            q, k, v, dout, bias = flash_inputs(torch, dev, dtype, b, h, n, m,
+                                               d, 'hnm', 5)
+            bias[0, row] = float('-inf')
+            got = flash_kernels_alone(fa, q, k, v, dout, bias, causal, True)
+            torch.cuda.synchronize()
+            what = (f'flash kernels {name} causal={causal}, a row with a '
+                    f'bias of -inf at every key')
+            bad = [key for key, t in zip(names, got)
+                   if not bool(torch.isfinite(t).all())]
+            if bad:
+                fail(f'{what}: non-finite {bad}')
+            dead = max(got[2][:, 0, row].abs().max().item(),
+                       got[5][0::h, row].abs().max().item())
+            if dead != 0:
+                fail(f'{what}: its dq and dS read {dead}, not 0')
+    log(f'[kernel] flash kernels, ({b}, {h}, {n}, {d}) / {m} keys with row '
+        f'{row} of head 0 biased -inf at every key, float32 and bf16, causal '
+        f'and not: out, lse, dq, dk, dv and dS finite, that row\'s dq and dS '
+        f'exactly 0')
 
 
 def phase_flash_kernels(torch, dev, reps, smi):
@@ -1824,8 +1903,7 @@ def phase_flash_kernels(torch, dev, reps, smi):
     the card, then their times at full width. Returns one row per kernel
     for the result line."""
     import torch.nn.functional as F
-    from magvit2_pytorch_tpu_torch.ops.kernels import (
-        flash_attention as fa, launch_counts, reset_launch_counts)
+    from magvit2_pytorch_tpu_torch.ops.kernels import flash_attention as fa
     set_tf32(False)
     dtypes = (('float32', torch.float32), ('bfloat16', torch.bfloat16))
     worst = {name: dict.fromkeys(('out', 'lse', 'dq', 'dk', 'dv', 'dbias'),
@@ -1834,7 +1912,7 @@ def phase_flash_kernels(torch, dev, reps, smi):
              for d in (16, 32, 64) for causal in (False, True)
              for bias in (None, 'nm', 'hnm', 'bhnm')]
     cases.append((2, 8, 1024, 1028, 32, True, None))    # the 'auto' gate's edge
-    # the causal tile skip of the 'mma' backward: memory keys over more than
+    # the causal tile skip of the 'mma' kernels: memory keys over more than
     # one tile (80 > 64), fewer queries than a tile
     cases += [(1, 2, 70, 150, d, True, None) for d in (16, 64)]
     cases += [(2, 2, 5, 9, 16, causal, 'hnm') for causal in (False, True)]
@@ -1842,18 +1920,11 @@ def phase_flash_kernels(torch, dev, reps, smi):
         for name, dtype in dtypes:
             *qkvo, bias = flash_inputs(torch, dev, dtype, b, h, n, m, d,
                                        bias_kind, seed)
-            reset_launch_counts()
-            errs, peaks, finite = flash_errors(torch, fa, *qkvo, bias,
-                                               causal)
+            errs, peaks, finite, counts = flash_errors(torch, fa, *qkvo,
+                                                       bias, causal)
             what = (f'flash attention ({b}, {h}, {n}, {d}) / {m} keys '
                     f'{name} causal={causal} bias={bias_kind}')
-            counts = launch_counts()
-            route = fa.flash_bwd_route(dtype, d)
-            moved = {key: counts[key] for key in FLASH_BWD_ROUTES}
-            if moved != {key: int(r == route)
-                         for key, r in FLASH_BWD_ROUTES.items()}:
-                fail(f'{what}: backward launches by route {moved}, expected '
-                     f'one of each kernel on the {route!r} route')
+            check_flash_routes(what, counts, fa.flash_route(dtype, d))
             check_flash_errors(what, name, errs, peaks, finite)
             rel = flash_relative(errs, peaks)
             for key, err in rel.items():
@@ -1866,13 +1937,14 @@ def phase_flash_kernels(torch, dev, reps, smi):
             f'm), (h, n, m), (b, h, n, m) biases; the (2, 8, 1024, 32) / '
             f'1028 causal case; (1, 2, 70, d) / 150 keys causal, d in 16, '
             f'64; (2, 2, 5, 16) / 9 keys with an (h, n, m) bias, causal and '
-            f'not; {name}, the backward on the '
-            f'{fa.flash_bwd_route(dict(dtypes)[name], 32)!r} route: worst '
+            f'not; {name}, each kernel on the '
+            f'{fa.flash_route(dict(dtypes)[name], 32)!r} route: worst '
             f'error over the largest value of the reference (lse: max abs '
             f'error) {worst[name]} (tol {FLASH_TOL[name]:g}, lse '
             f'{FLASH_TOL["lse"]:g})')
-    resources = flash_bwd_resources(fa)    # every head size has launched
+    resources = flash_mma_resources(fa)    # every head size has launched
     invariants = flash_invariants(torch, fa, dev)
+    flash_dead_row(torch, fa, dev)
 
     # full width: the flagship's space-attention stage at 512 px, every
     # frame of it in both dtypes (65 key tiles, the last one of 4 keys),
@@ -1884,11 +1956,12 @@ def phase_flash_kernels(torch, dev, reps, smi):
     full = {}
     for name, dtype, causal in (*((n_, dt, False) for n_, dt in dtypes),
                                 ('bfloat16', torch.bfloat16, True)):
-        errs, peaks, finite = flash_errors(
+        errs, peaks, finite, counts = flash_errors(
             torch, fa, *(t.to(dtype) for t in (q, k, v, dout)), None, causal,
             frames=PLAIN_CHUNK)
         what = (f'flash attention ({b}, {h}, {n}, {d}) / {m} keys {name}'
                 f'{" causal" if causal else ""}')
+        check_flash_routes(what, counts, fa.flash_route(dtype, d))
         check_flash_errors(what, name, errs, peaks, finite)
         full[(name, causal)] = (errs, flash_relative(errs, peaks))
         log(f'[kernel] {what}, plain in float32 {PLAIN_CHUNK} frames at a '
@@ -1897,16 +1970,15 @@ def phase_flash_kernels(torch, dev, reps, smi):
             f'{FLASH_TOL["lse"]:g})')
     prepared = {}
     for causal in (False, True):
-        out, lse = fa.flash_forward(q, k, v, None, causal, scale)
-        prepared[causal] = (out, lse, fa.row_delta(dout, out))
-        first = flash_grads(fa, q, k, v, dout, None, causal)
-        second = flash_grads(fa, q, k, v, dout, None, causal)
-        if not all(torch.equal(x, y) for x, y in zip(first[:3], second[:3])):
-            fail(f'flash backward at full width, causal={causal}: two calls '
+        first = flash_kernels_alone(fa, q, k, v, dout, None, causal)
+        second = flash_kernels_alone(fa, q, k, v, dout, None, causal)
+        if not all(torch.equal(x, y) for x, y in zip(first[:5], second[:5])):
+            fail(f'flash kernels at full width, causal={causal}: two calls '
                  'differ')
+        prepared[causal] = (first[0], first[1], fa.row_delta(dout, first[0]))
         del first, second
-    log(f'[kernel] flash backward ({b}, {h}, {n}, {d}) / {m} keys bf16, '
-        'causal and not: two calls bit-identical (dq, dk, dv)')
+    log(f'[kernel] flash kernels ({b}, {h}, {n}, {d}) / {m} keys bf16, '
+        'causal and not: two calls bit-identical (out, lse, dq, dk, dv)')
 
     def calls(causal):
         _, lse, delta = prepared[causal]
@@ -1926,25 +1998,22 @@ def phase_flash_kernels(torch, dev, reps, smi):
               for name, call in calls(False).items()}
         ms_causal = {name: median_ms(lambda: call(q, k, v, dout), reps)
                      for name, call in calls(True).items()}
-        plain_fwd = median_ms(lambda: plain_in_chunks(
-            fa, q, k, v, dout, out, lse, False, scale, False), 5, warmup=1)
-        plain_bwd = median_ms(lambda: plain_in_chunks(
-            fa, q, k, v, dout, out, lse, False, scale, True), 5, warmup=1)
-        plain_bwd_causal = median_ms(lambda: plain_in_chunks(
-            fa, q, k, v, dout, out_c, lse_c, True, scale, True), 5, warmup=1)
+        plain = {(bwd, causal): median_ms(lambda: plain_in_chunks(
+            fa, q, k, v, dout, *((out, lse) if not causal else (out_c, lse_c)),
+            causal, scale, bwd), 5, warmup=1)
+            for bwd in (False, True) for causal in (False, True)}
         q32, k32, v32, do32 = (t.float() for t in (q, k, v, dout))
         ms32 = {name: median_ms(lambda: call(q32, k32, v32, do32), 5,
                                 warmup=1)
                 for name, call in calls(False).items()}
-        plain_fwd32 = median_ms(lambda: plain_in_chunks(
-            fa, q32, k32, v32, do32, out, lse, False, scale, False), 5,
-            warmup=1)
-        plain_bwd32 = median_ms(lambda: plain_in_chunks(
-            fa, q32, k32, v32, do32, out, lse, False, scale, True), 5,
-            warmup=1)
+        plain32 = {bwd: median_ms(lambda: plain_in_chunks(
+            fa, q32, k32, v32, do32, out, lse, False, scale, bwd), 5,
+            warmup=1) for bwd in (False, True)}
         del q32, k32, v32, do32
-        sdpa_fwd = median_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v), reps)
+        sdpa_fwd = {causal: median_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v,
+                                                   is_causal=causal), reps)
+            for causal in (False, True)}
     sdpa_bwd = {}
     for causal in (False, True):
         qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
@@ -1952,6 +2021,8 @@ def phase_flash_kernels(torch, dev, reps, smi):
         sdpa_bwd[causal] = median_ms(lambda: torch.autograd.grad(
             o, (qg, kg, vg), dout, retain_graph=True), reps)
         del qg, kg, vg, o
+    floor = {causal: exp_floor_ms(torch, visible_pairs(b * h, n, m, causal))
+             for causal in (False, True)}
     rows = {}
     for name in FLASH_KERNELS:
         fwd = name == 'flash_attention_fwd'
@@ -1963,56 +2034,53 @@ def phase_flash_kernels(torch, dev, reps, smi):
         rel, rel32 = (max(full[(dt, False)][1][key] for key in keys
                           if key != 'lse')
                       for dt in ('bfloat16', 'float32'))
+        library = sdpa_fwd if fwd else sdpa_bwd
+        library_call = 'F.scaled_dot_product_attention' + (
+            '' if fwd else ' backward, which forms dq, dk and dv together')
+        kernel = dict(FLASH_MMA)[name.split('_')[-1]]
         rows[name] = dict(
             shape=[b, h, n, d], keys=m, per='launch', max_abs_err=err,
             max_abs_err_fp32=err32, max_rel_err=rel, max_rel_err_fp32=rel32,
-            ms=ms[name], plain_ms=plain_fwd if fwd else plain_bwd,
+            ms=ms[name], plain_ms=plain[(not fwd, False)],
             plain_call=('flash_attention_ref' if fwd else
                         'flash_attention_bwd_ref, which forms dq, dk and dv '
                         'together') + f', {PLAIN_CHUNK} frames at a time',
-            ms_fp32=ms32[name],
-            plain_ms_fp32=plain_fwd32 if fwd else plain_bwd32,
-            library_ms=sdpa_fwd if fwd else sdpa_bwd[False],
-            library_call='F.scaled_dot_product_attention' + (
-                '' if fwd else ' backward, which forms dq, dk and dv '
-                'together'),
-            bound_ms=bound_ms, bound_by=bound_by)
+            ms_fp32=ms32[name], plain_ms_fp32=plain32[not fwd],
+            library_ms=library[False], library_call=library_call,
+            bound_ms=bound_ms, bound_by=bound_by,
+            kernel_route=fa.flash_route(torch.bfloat16, d),
+            ptxas={key: val for key, val in resources.items()
+                   if key.startswith(kernel + '<')},
+            invariants=invariants)
         log(f'[kernel] {name} ({b}, {h}, {n}, {d}) / {m} keys: max_abs_err '
             f'bf16 {err:.3e}, fp32 {err32:.3e}; over the largest value bf16 '
             f'{rel:.3e} (tol {FLASH_TOL["bfloat16"]:g}), fp32 {rel32:.3e} '
             f'(tol {FLASH_TOL["float32"]:g}); bf16 kernel '
             f'{ms[name]:.4f} ms (median of {reps}), plain '
             f'{rows[name]["plain_ms"]:.4f} ms ({rows[name]["plain_call"]}), '
-            f'library {rows[name]["library_ms"]:.4f} ms '
-            f'({rows[name]["library_call"]}), bound {bound_ms:.4f} ms '
-            f'({bound_by}); fp32 kernel {ms32[name]:.4f} ms, plain '
+            f'library {rows[name]["library_ms"]:.4f} ms ({library_call}), '
+            f'bound {bound_ms:.4f} ms ({bound_by})'
+            + (f', exp floor {floor[False]:.4f} ms' if fwd else '') +
+            f'; fp32 kernel {ms32[name]:.4f} ms, plain '
             f'{rows[name]["plain_ms_fp32"]:.4f} ms (medians of 5) on {smi}')
-        if fwd:
-            continue
-        # the backward's route, its resources and its causal row
+        # the causal row
         c_bound, c_by = bound(*flash_cost(b * h, n, m, d, True, name))
-        c_rel = max(full[('bfloat16', True)][1][key] for key in keys)
-        rows[name].update(
-            kernel_route=fa.flash_bwd_route(torch.bfloat16, d),
-            ptxas={key: val for key, val in resources.items()
-                   if key.startswith(name.replace('flash_attention_', '')
-                                     + '_mma')},
-            invariants=invariants,
-            causal=dict(ms=ms_causal[name], bound_ms=c_bound, bound_by=c_by,
-                        plain_ms=plain_bwd_causal,
-                        library_ms=sdpa_bwd[True],
-                        library_call='F.scaled_dot_product_attention('
-                        'is_causal=True) backward: its mask is aligned to '
-                        'the top left, 4 keys a row fewer than this one',
-                        max_rel_err=c_rel))
+        c_rel = max(full[('bfloat16', True)][1][key] for key in keys
+                    if key != 'lse')
+        rows[name]['causal'] = dict(
+            ms=ms_causal[name], bound_ms=c_bound, bound_by=c_by,
+            plain_ms=plain[(not fwd, True)], library_ms=library[True],
+            library_call=library_call.replace(
+                'attention', 'attention(is_causal=True)', 1) + ': its mask '
+            'is aligned to the top left, 4 keys a row fewer than this one',
+            max_rel_err=c_rel)
         log(f'[kernel] {name} causal ({b}, {h}, {n}, {d}) / {m} keys bf16: '
             f'{ms_causal[name]:.4f} ms (median of {reps}), bound '
-            f'{c_bound:.4f} ms ({c_by}, visible pairs only), plain '
-            f'{plain_bwd_causal:.4f} ms, library {sdpa_bwd[True]:.4f} ms '
-            f'(SDPA is_causal backward, top-left aligned), error over the '
-            f'largest value {c_rel:.3e} on {smi}')
-    rows['flash_attention_fwd']['causal'] = dict(
-        ms=ms_causal['flash_attention_fwd'])
+            f'{c_bound:.4f} ms ({c_by}, visible pairs only)'
+            + (f', exp floor {floor[True]:.4f} ms' if fwd else '') +
+            f', plain {plain[(not fwd, True)]:.4f} ms, library '
+            f'{library[True]:.4f} ms (SDPA is_causal, top-left aligned), '
+            f'error over the largest value {c_rel:.3e} on {smi}')
     return rows
 
 
@@ -2209,8 +2277,8 @@ def phase_attention_step(torch, dev, reps, smi):
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument('--out', default=None,
-                        help='directory for the compiler log and a copy of '
-                             'the log lines')
+                        help='directory for the compiler log, a copy of '
+                             'the log lines and the kernels line')
     parser.add_argument('--profile', action='store_true',
                         help='also profile one roundtrip of each path '
                              '(needs --out)')
@@ -2304,6 +2372,9 @@ def main():
             fail(f'kernels line: {row["name"]} lacks {missing}')
         if not row['launches'] >= 1:
             fail(f'{row["name"]} was not launched on its path')
+    if args.out:     # the whole line, which the end of the output may cut
+        with open(os.path.join(args.out, 'kernels.json'), 'w') as f:
+            json.dump({'kernels': kernels}, f)
     for f in LOG_FILES:
         f.close()
     print(json.dumps({'kernels': kernels}))

@@ -139,16 +139,6 @@ constexpr int kMmaRows = 256, kMmaWarps = 4, kMmaThreads = 32 * kMmaWarps;
 constexpr int kMmaKeyTile = 64, kMmaD = 32, kMmaLd = 40;
 constexpr int kMmaMaxKeys = 1280;  // 200 KB of K and V in shared memory
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 // One warp's running state for query rows row_a = r0 + lane/4 and
 // row_b = row_a + 8 of a 16-row tile: Q's A fragments, O's C fragments
 // (d blocks of 8), the running max (raw q.k) and denominator of each row.

@@ -1,8 +1,8 @@
 // Shared device routines for the port's kernels: dtype conversion, a block
 // sum, the shared-memory address of a pointer, cp.async and the warp-level
-// tensor-core helpers (ldmatrix, mma.sync m16n8k16 on bf16, exp2). The row
-// RMSNorm and the projection GEMMs live in gemm.cu. Built for sm_90a by
-// ops/kernels/_build.py.
+// tensor-core helpers (ldmatrix, mma.sync m16n8k16 on bf16, exp2, quad
+// reductions). The row RMSNorm and the projection GEMMs live in gemm.cu.
+// Built for sm_90a by ops/kernels/_build.py.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -138,6 +138,18 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// max and sum over the 4 lanes of a quad: the lanes that hold one row of
+// an mma.sync C fragment
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {

@@ -53,15 +53,14 @@ SIGNATURES = {
     # out, x, gates, dtype, M, HW, C, stream
     'mv2_ru_gate_residual': [_P] * 3 + [_I, _L, _I, _I, _P],
     # q, k, v, bias, out, lse, dtype, bh, n, m, d, bias_groups, causal,
-    # scale, stream
-    'mv2_flash_attention_fwd': [_P] * 6 + [_I] * 7 + [_F, _P],
-    # q, k, v, bias, dout, lse, delta, dq, dbias, then as the forward with
-    # the route before the stream
+    # scale, route, stream
+    'mv2_flash_attention_fwd': [_P] * 6 + [_I] * 7 + [_F, _I, _P],
+    # q, k, v, bias, dout, lse, delta, dq, dbias, then as the forward
     'mv2_flash_attention_bwd_dq': [_P] * 9 + [_I] * 7 + [_F, _I, _P],
-    # q, k, v, bias, dout, lse, delta, dk, dv, then as dq
+    # q, k, v, bias, dout, lse, delta, dk, dv, then as the forward
     'mv2_flash_attention_bwd_dkv': [_P] * 9 + [_I] * 7 + [_F, _I, _P],
     # kernel, dim_head, out (4 ints)
-    'mv2_flash_bwd_mma_attributes': [_I, _I, _P],
+    'mv2_flash_mma_attributes': [_I, _I, _P],
 }
 
 _lib = None

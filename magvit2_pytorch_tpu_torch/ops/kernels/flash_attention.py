@@ -26,11 +26,12 @@ are not carried over, ``lse`` is ``(b, h, n)`` float32. A bias ``(n, m)``,
 materialising the broadcast; its gradient is written by the dQ kernel as
 ``(b h, n, m)`` float32 and the groups that shared a slice are summed here,
 as the JAX wrapper does outside its kernel. Head sizes 16, 32, 64; float32
-(CUDA cores, no TF32) and bfloat16 (tensor cores). The backward has two
-routes (:func:`flash_bwd_route`): ``'mma'`` for bf16, kernels on
-``mma.sync`` with register accumulators, a ``cp.async`` ring and the causal
-tile skip (:func:`dq_key_tiles`, :func:`dkv_query_tiles`,
-:func:`tile_masked`); ``'f32'`` for float32, on the CUDA cores.
+(CUDA cores, no TF32) and bfloat16 (tensor cores). All three kernels take
+the route of :func:`flash_route`: ``'mma'`` for bf16, kernels on
+``mma.sync`` with register accumulators (the forward's online softmax in
+them too), a ``cp.async`` ring and the causal tile skip
+(:func:`dq_key_tiles`, :func:`dkv_query_tiles`, :func:`tile_masked`);
+``'f32'`` for float32, on the CUDA cores.
 
 :func:`flash_attention` is a ``torch.autograd.Function``: the forward
 launches one kernel and saves ``q, k, v, bias, out, lse``, the backward
@@ -50,42 +51,43 @@ from magvit2_pytorch_tpu_torch.ops.attend import causal_hidden
 from magvit2_pytorch_tpu_torch.ops.kernels import _build
 
 # launches of each CUDA kernel since the last reset (see ops/kernels), and
-# of each backward kernel by route
-LAUNCHES = {'flash_attention_fwd': 0, 'flash_attention_bwd_dq': 0,
-            'flash_attention_bwd_dkv': 0, 'flash_attention_bwd_dq_mma': 0,
-            'flash_attention_bwd_dq_f32': 0, 'flash_attention_bwd_dkv_mma': 0,
-            'flash_attention_bwd_dkv_f32': 0}
+# of each kernel by route
+KERNELS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
+           'flash_attention_bwd_dkv')
+ROUTES = {'f32': 0, 'mma': 1}         # csrc/flash_attention.cu Route
+LAUNCHES = {**dict.fromkeys(KERNELS, 0),
+            **{f'{kernel}_{route}': 0 for kernel in KERNELS
+               for route in ROUTES}}
 
 SUPPORTED_DIM_HEAD = (16, 32, 64)     # csrc/flash_attention.cu template cases
-BWD_ROUTES = {'f32': 0, 'mma': 1}     # csrc/flash_attention.cu BwdRoute
 MASKED = -1e30
 
 
-def flash_bwd_route(dtype, dim_head: int) -> str:
-    """The backward kernels of a call: ``'mma'`` (tensor cores) for bf16,
-    ``'f32'`` (CUDA cores) for float32. It does not look at the device; no
-    route gives way to another, and what neither takes raises. The route is
-    passed to the C entry points, which refuse one that does not fit the
-    dtype."""
+def flash_route(dtype, dim_head: int) -> str:
+    """The kernels of a call, forward and backward: ``'mma'`` (tensor
+    cores) for bf16, ``'f32'`` (CUDA cores) for float32. It does not look at
+    the device; no route gives way to another, and what neither takes
+    raises. The route is passed to the C entry points, which refuse one that
+    does not fit the dtype."""
     if dim_head not in SUPPORTED_DIM_HEAD:
-        raise ValueError(f'flash backward: dim_head {dim_head} not in '
+        raise ValueError(f'flash attention: dim_head {dim_head} not in '
                          f'{SUPPORTED_DIM_HEAD}')
     if dtype == torch.bfloat16:
         return 'mma'
     if dtype == torch.float32:
         return 'f32'
-    raise TypeError(f'flash backward: kernels take float32 or bfloat16, got '
-                    f'{dtype}')
+    raise TypeError(f'flash attention: kernels take float32 or bfloat16, '
+                    f'got {dtype}')
 
 
-# The 'mma' backward's causal skip, as csrc/flash_attention.cu computes it.
+# The 'mma' kernels' causal skip, as csrc/flash_attention.cu computes it.
 # With causal, query row i sees key j where j <= i + (m - n).
 
 def dq_key_tiles(q0: int, rows: int, n: int, m: int, causal: bool,
                  tile: int) -> int:
-    """The dQ block of query rows ``q0 .. q0 + rows - 1`` visits key tiles
-    ``0 .. dq_key_tiles - 1`` of ``tile`` keys: with causal, up to the last
-    one its last row sees."""
+    """The forward or dQ block of query rows ``q0 .. q0 + rows - 1`` visits
+    key tiles ``0 .. dq_key_tiles - 1`` of ``tile`` keys: with causal, up to
+    the last one its last row sees."""
     end = min(m, min(q0 + rows, n) + m - n) if causal else m
     return -(-end // tile)
 
@@ -197,41 +199,47 @@ def _geometry(q, k, bias):
     return b * h, n, m, d, groups
 
 
+def _tail(q, k, bias, causal: bool, scale: float, route: str):
+    """The arguments every entry point takes after its pointers."""
+    bh, n, m, d, groups = _geometry(q, k, bias)
+    return (_build.dtype_code(q), bh, n, m, d, groups, int(causal),
+            float(scale), ROUTES[route], _build.stream_handle(q.device))
+
+
+def _counted(name: str, route: str):
+    LAUNCHES[name] += 1
+    LAUNCHES[f'{name}_{route}'] += 1
+
+
 def flash_forward(q, k, v, bias, causal: bool, scale: float):
-    """The forward kernel alone, CUDA tensors only: ``(out, lse)``; bias
-    ``(groups, n, m)`` or None."""
+    """The forward kernel of :func:`flash_route`'s route alone, CUDA tensors
+    only: ``(out, lse)`` with ``lse`` ``(b, h, n)`` float32 in natural log;
+    bias ``(groups, n, m)`` or None."""
     name = 'flash_attention_fwd'
     _check_cuda(name, q, k, v, bias)
+    route = flash_route(q.dtype, q.shape[-1])
     q, k, v = _aligned(q), _aligned(k.to(q.dtype)), _aligned(v.to(q.dtype))
     bias = None if bias is None else _aligned(bias.to(q.dtype))
-    bh, n, m, d, groups = _geometry(q, k, bias)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     lib = _build.load_library()
     code = lib.mv2_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), _build.dtype_code(q), bh, n, m, d, groups,
-        int(causal), float(scale), _build.stream_handle(q.device))
-    _build.check(lib, code, name)
-    LAUNCHES[name] += 1
+        lse.data_ptr(), *_tail(q, k, bias, causal, scale, route))
+    _build.check(lib, code, f'{name} ({route})')
+    _counted(name, route)
     return out, lse
-
-
-def _bwd_tail(q, k, bias, causal: bool, scale: float, route: str):
-    bh, n, m, d, groups = _geometry(q, k, bias)
-    return (_build.dtype_code(q), bh, n, m, d, groups, int(causal),
-            float(scale), BWD_ROUTES[route], _build.stream_handle(q.device))
 
 
 def flash_backward_dq(q, k, v, bias, dout, lse, delta, causal: bool,
                    scale: float, need_dbias: bool = False):
-    """The dQ kernel of :func:`flash_bwd_route`'s route alone, on prepared
+    """The dQ kernel of :func:`flash_route`'s route alone, on prepared
     CUDA tensors (one dtype, contiguous, 16-byte aligned; ``delta`` from
     :func:`row_delta`): ``(dq, ds)`` with ``ds`` the ``(b h, n, m)``
     float32 dS or None."""
     name = 'flash_attention_bwd_dq'
-    route = flash_bwd_route(q.dtype, q.shape[-1])
+    route = flash_route(q.dtype, q.shape[-1])
     dq = torch.empty_like(q)
     ds = (torch.empty((q.shape[0] * q.shape[1], q.shape[2], k.shape[2]),
                       dtype=torch.float32, device=q.device)
@@ -242,43 +250,45 @@ def flash_backward_dq(q, k, v, bias, dout, lse, delta, causal: bool,
         None if bias is None else bias.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         None if ds is None else ds.data_ptr(),
-        *_bwd_tail(q, k, bias, causal, scale, route))
+        *_tail(q, k, bias, causal, scale, route))
     _build.check(lib, code, f'{name} ({route})')
-    LAUNCHES[name] += 1
-    LAUNCHES[f'{name}_{route}'] += 1
+    _counted(name, route)
     return dq, ds
 
 
 def flash_backward_dkv(q, k, v, bias, dout, lse, delta, causal: bool,
                     scale: float):
-    """The dK/dV kernel of :func:`flash_bwd_route`'s route alone, on
+    """The dK/dV kernel of :func:`flash_route`'s route alone, on
     prepared CUDA tensors: ``(dk, dv)``."""
     name = 'flash_attention_bwd_dkv'
-    route = flash_bwd_route(q.dtype, q.shape[-1])
+    route = flash_route(q.dtype, q.shape[-1])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _build.load_library()
     code = lib.mv2_flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if bias is None else bias.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_bwd_tail(q, k, bias, causal, scale, route))
+        *_tail(q, k, bias, causal, scale, route))
     _build.check(lib, code, f'{name} ({route})')
-    LAUNCHES[name] += 1
-    LAUNCHES[f'{name}_{route}'] += 1
+    _counted(name, route)
     return dk, dv
 
 
-def bwd_mma_attributes(kernel: str, dim_head: int) -> dict:
-    """What the CUDA runtime reports for the 'mma' backward kernel ``'dq'``
-    or ``'dkv'`` at ``dim_head``: registers and local (spilled) bytes a
-    thread, static shared memory, and the dynamic shared memory its
+# the 'mma' kernels as mv2_flash_mma_attributes numbers them
+MMA_KERNELS = ('dq', 'dkv', 'fwd')
+
+
+def mma_attributes(kernel: str, dim_head: int) -> dict:
+    """What the CUDA runtime reports for the 'mma' kernel ``'fwd'``,
+    ``'dq'`` or ``'dkv'`` at ``dim_head``: registers and local (spilled)
+    bytes a thread, static shared memory, and the dynamic shared memory its
     launcher last set (the runtime's default limit before its first
     launch)."""
     out = (ctypes.c_int * 4)()
     lib = _build.load_library()
-    _build.check(lib, lib.mv2_flash_bwd_mma_attributes(
-        ('dq', 'dkv').index(kernel), dim_head, out),
-        f'flash_attention_bwd_{kernel} attributes')
+    _build.check(lib, lib.mv2_flash_mma_attributes(
+        MMA_KERNELS.index(kernel), dim_head, out),
+        f'flash attention {kernel} attributes')
     return dict(zip(('registers', 'local_bytes', 'static_smem_bytes',
                      'dynamic_smem_bytes'), out))
 

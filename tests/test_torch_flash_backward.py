@@ -1,16 +1,17 @@
-"""The flash-attention backward's routes and causal tile skip on the CPU.
+"""The flash-attention kernels' routes and causal tile skip on the CPU.
 
-``flash_bwd_route`` picks the backward kernels from the dtype alone;
-the causal skip of the tensor-core (``'mma'``) kernels is written once in
-Python (``dq_key_tiles``, ``dkv_query_tiles``, ``tile_masked``) and held
-here against ``causal_hidden``, the mask the plain versions use; the plain
-backward is held against ``jax.grad`` through the Pallas backward kernels
-in interpret mode at the shapes the skip cares about (memory keys over more
-than one tile, fewer queries than a tile, the largest head size); and each
-route's launch is counted, with a stand-in for the CUDA library, and its
-code held against the C source's. The kernels themselves run only on the
-card (chip_smoke.py)."""
+``flash_route`` picks the forward and backward kernels from the dtype
+alone; the causal skip of the tensor-core (``'mma'``) kernels is written
+once in Python (``dq_key_tiles``, ``dkv_query_tiles``, ``tile_masked``) and
+held here against ``causal_hidden``, the mask the plain versions use; the
+plain backward is held against ``jax.grad`` through the Pallas backward
+kernels in interpret mode at the shapes the skip cares about (memory keys
+over more than one tile, fewer queries than a tile, the largest head
+size); and each route's launch is counted, with a stand-in for the CUDA
+library, and its code held against the C source's. The kernels themselves
+run only on the card (chip_smoke.py)."""
 
+import ctypes
 import itertools
 import re
 
@@ -33,7 +34,8 @@ torch.set_num_threads(1)
 @pytest.mark.parametrize('dtype,route', [(torch.bfloat16, 'mma'),
                                          (torch.float32, 'f32')])
 def test_flash_bwd_route(dtype, route, dim_head):
-    assert fa.flash_bwd_route(dtype, dim_head) == route
+    """One rule by dtype for all three kernels, the forward's included."""
+    assert fa.flash_route(dtype, dim_head) == route
 
 
 @pytest.mark.parametrize('dtype,dim_head,error', [
@@ -41,7 +43,7 @@ def test_flash_bwd_route(dtype, route, dim_head):
     (torch.bfloat16, 8, ValueError), (torch.float32, 128, ValueError)])
 def test_flash_bwd_route_refuses_what_no_kernel_takes(dtype, dim_head, error):
     with pytest.raises(error):
-        fa.flash_bwd_route(dtype, dim_head)
+        fa.flash_route(dtype, dim_head)
 
 
 # ---- the causal tile skip against causal_hidden ---------------------------
@@ -139,21 +141,34 @@ def test_flash_backward_ref_matches_pallas_at_the_skip_shapes(b, h, n, m, d,
 
 class _Library:
     """Stands in for the CUDA library: records the dtype and route codes
-    each backward entry point was given and returns success."""
+    each flash entry point was given and returns success. The dtype is the
+    first int after the pointers, the route the argument before the
+    stream (``_build.SIGNATURES``)."""
 
     def __init__(self):
         self.calls = []
 
     def __getattr__(self, name):
+        types = _build.SIGNATURES[name]
+        dtype_at = types.index(ctypes.c_int)
+
         def entry(*args):
-            self.calls.append((name, args[9], args[17]))
+            assert len(args) == len(types), name
+            self.calls.append((name, args[dtype_at], args[-2]))
             return 0
         return entry
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it lies on the card."""
+    is_cuda = True
 
 
 @pytest.mark.parametrize('dtype,route', [(torch.bfloat16, 'mma'),
                                          (torch.float32, 'f32')])
 def test_each_backward_launch_counts_its_route(monkeypatch, dtype, route):
+    """The forward and both backward kernels: one launch each, counted on
+    the dtype's route, with that route's code passed to C."""
     lib = _Library()
     monkeypatch.setattr(_build, 'load_library', lambda: lib)
     monkeypatch.setattr(_build, 'stream_handle', lambda device: 0)
@@ -162,15 +177,18 @@ def test_each_backward_launch_counts_its_route(monkeypatch, dtype, route):
                       (1, 2, 5, 16)))
     lse = delta = torch.zeros(1, 2, 5)
     reset_launch_counts()
+    fa.flash_forward(*(t.as_subclass(_OnCard) for t in (q, k, v)), None,
+                     True, 0.25)
     fa.flash_backward_dq(q, k, v, None, dout, lse, delta, True, 0.25)
     fa.flash_backward_dkv(q, k, v, None, dout, lse, delta, True, 0.25)
     counts = launch_counts()
     other = {'mma': 'f32', 'f32': 'mma'}[route]
-    for kernel in ('flash_attention_bwd_dq', 'flash_attention_bwd_dkv'):
+    for kernel in fa.KERNELS:
         assert counts[kernel] == counts[f'{kernel}_{route}'] == 1
         assert counts[f'{kernel}_{other}'] == 0
-    codes = (_build.dtype_code(q), fa.BWD_ROUTES[route])
-    assert lib.calls == [('mv2_flash_attention_bwd_dq', *codes),
+    codes = (_build.dtype_code(q), fa.ROUTES[route])
+    assert lib.calls == [('mv2_flash_attention_fwd', *codes),
+                         ('mv2_flash_attention_bwd_dq', *codes),
                          ('mv2_flash_attention_bwd_dkv', *codes)]
     reset_launch_counts()
 
@@ -184,25 +202,37 @@ def _c_enum(name, text):
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 def test_c_entry_points_take_the_route_of_the_dtype(dtype):
     """The route code the wrapper passes is one that csrc's route_fits
-    accepts with the dtype code of the same call (it refuses any other
-    pair, on the card)."""
+    accepts with the dtype code of the same call, and every flash entry
+    point, the forward's included, takes a route and dispatches through the
+    macro that refuses any other pair (on the card)."""
     src = (_build.SOURCE_DIR / 'flash_attention.cu').read_text()
-    routes = _c_enum('BwdRoute', src)
+    routes = _c_enum('Route', src)
     dtypes = _c_enum('DType', (_build.SOURCE_DIR / 'common.cuh').read_text())
     fits = {(routes[r], dtypes[d]) for r, d in re.findall(
-        r'route == (kBwd\w+) && dtype == (k\w+)', src)}
-    assert len(fits) == len(routes) == len(fa.BWD_ROUTES)
-    route = fa.flash_bwd_route(dtype, 32)
-    assert (fa.BWD_ROUTES[route], _build.DTYPE_CODES[dtype]) in fits
+        r'route == (kRoute\w+) && dtype == (k\w+)', src)}
+    assert len(fits) == len(routes) == len(fa.ROUTES)
+    route = fa.flash_route(dtype, 32)
+    assert (fa.ROUTES[route], _build.DTYPE_CODES[dtype]) in fits
+    macro = re.search(r'#define MV2_FLASH_DISPATCH\(.*?\n\n', src, re.S)[0]
+    assert 'if (!mv2::flash::route_fits(route, dtype)) return' in macro
+    for kernel in fa.KERNELS:
+        params, body = re.search(r'int mv2_' + kernel + r'\(([^)]*)\)\s*'
+                                 r'\{(.*?)\n\}', src, re.S).groups()
+        assert 'int route' in params and 'MV2_FLASH_DISPATCH(' in body
 
 
 def test_a_backward_no_route_takes_launches_nothing(monkeypatch):
+    """float16, which no route takes: neither the forward nor a backward
+    kernel reaches the library or counts a launch."""
     lib = _Library()
     monkeypatch.setattr(_build, 'load_library', lambda: lib)
     q = torch.zeros(1, 2, 5, 16, dtype=torch.float16)
     k = torch.zeros(1, 2, 9, 16, dtype=torch.float16)
     lse = torch.zeros(1, 2, 5)
     reset_launch_counts()
+    with pytest.raises(TypeError):
+        fa.flash_forward(*(t.as_subclass(_OnCard) for t in (q, k, k)), None,
+                         False, 0.25)
     for launch in (fa.flash_backward_dq, fa.flash_backward_dkv):
         with pytest.raises(TypeError):
             launch(q, k, k, None, q, lse, lse, False, 0.25)
@@ -210,8 +240,14 @@ def test_a_backward_no_route_takes_launches_nothing(monkeypatch):
 
 
 def test_route_counters_sit_beside_the_kernel_counters():
-    names = {f'flash_attention_bwd_{kernel}_{route}'
-             for kernel, route in itertools.product(('dq', 'dkv'),
+    names = {f'flash_attention_{kernel}_{route}'
+             for kernel, route in itertools.product(('fwd', 'bwd_dq',
+                                                     'bwd_dkv'),
                                                     ('mma', 'f32'))}
-    assert names | {'flash_attention_bwd_dq', 'flash_attention_bwd_dkv'} \
-        <= set(launch_counts())
+    assert names | set(fa.KERNELS) <= set(launch_counts())
+    # mma_attributes' kernel names in the numbers the C entry point takes
+    src = (_build.SOURCE_DIR / 'flash_attention.cu').read_text()
+    numbered = dict(re.findall(r'kernel == (\d)\) return cudaFuncGetAttributes'
+                               r'\(a, (\w+)_mma_kernel<D>\)', src))
+    assert [numbered[str(i)].removeprefix('bwd_')
+            for i in range(len(numbered))] == list(fa.MMA_KERNELS)

@@ -102,20 +102,30 @@ def test_plain_attend_matches_jax(name, layout):
 B, H, N, M, D = 2, 2, 130, 134, 32       # tests/test_flash_attention.py's
 
 
-@pytest.mark.parametrize('causal', [False, True])
-def test_flash_forward_ref_matches_pallas(causal):
-    """Output atol 2e-5, rtol 1e-4 (tests/test_flash_attention.py's); lse
-    atol 1e-5."""
-    q, k, v = _rand((1, H, N, D), 0), _rand((1, H, M, D), 1), _rand(
-        (1, H, M, D), 2)
+@pytest.mark.parametrize('b,h,n,m,d,causal', [
+    pytest.param(1, H, N, M, D, False, id='False'),
+    pytest.param(1, H, N, M, D, True, id='True'),
+    # the shapes of the causal tile skip: memory keys over more than one
+    # tile at the smallest and largest head sizes, fewer queries than a tile
+    pytest.param(1, 2, 70, 150, 16, True, id='70x150-d16-causal'),
+    pytest.param(1, 2, 70, 150, 64, True, id='70x150-d64-causal'),
+    pytest.param(2, 2, 5, 9, 16, False, id='5x9-d16'),
+    pytest.param(2, 2, 5, 9, 16, True, id='5x9-d16-causal'),
+])
+def test_flash_forward_ref_matches_pallas(b, h, n, m, d, causal):
+    """Output and lse of the plain forward against ``_flash_forward`` in
+    interpret mode. Output atol 2e-5, rtol 1e-4
+    (tests/test_flash_attention.py's); lse atol 1e-5."""
+    q, k, v = _rand((b, h, n, d), 0), _rand((b, h, m, d), 1), _rand(
+        (b, h, m, d), 2)
     want, lse = _flash_forward(*map(jnp.asarray, (q, k, v)), None, causal,
-                               D ** -0.5, 256, 256, True)      # interpret
+                               d ** -0.5, 256, 256, True)      # interpret
     got, got_lse = fa.flash_attention_ref(*map(_t, (q, k, v)), causal=causal)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
                                rtol=1e-4)
     np.testing.assert_allclose(
-        got_lse.numpy().reshape(H, N), np.asarray(lse)[:, 0, :N], atol=1e-5,
-        rtol=0)
+        got_lse.numpy().reshape(b * h, n), np.asarray(lse)[:, 0, :n],
+        atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize('bias_shape', ['nm', 'hnm', 'bhnm'])

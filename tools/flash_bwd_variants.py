@@ -40,7 +40,8 @@ def ptxas(name, log):
     """ptxas's registers and spills of each 'mma' backward kernel."""
     lines = log.splitlines()
     for i, line in enumerate(lines):
-        if 'Compiling entry function' in line and '_mma_kernel' in line:
+        if 'Compiling entry function' in line and 'bwd_d' in line \
+                and '_mma_kernel' in line:
             kernel = line.split("'")[1]
             which = 'dq' if 'bwd_dq_' in kernel else 'dkv'
             d = kernel.split('ILi')[1].split('E')[0]
@@ -81,7 +82,7 @@ def main():
             q.data_ptr(), k.data_ptr(), v.data_ptr(), None, dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), outs[0].data_ptr(),
             None if outs[1] is None else outs[1].data_ptr(), 1, b * h, n, m,
-            d, 1, int(causal), d ** -0.5, fa.BWD_ROUTES['mma'], stream)
+            d, 1, int(causal), d ** -0.5, fa.ROUTES['mma'], stream)
         if code:
             sys.exit(f'{kernel}: CUDA error {code}')
         return outs

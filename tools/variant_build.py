@@ -1,6 +1,6 @@
 """Build and time variants of one kernel source of the port, each with some
 of its ``constexpr`` constants set otherwise: the shared part of the tile
-sweeps in this folder (``flash_bwd_variants.py``,
+sweeps in this folder (``flash_fwd_variants.py``, ``flash_bwd_variants.py``,
 ``taylor_core_variants.py``), which keep their constants, their checks and
 what they time. Needs ``nvcc`` and a GPU; imports nothing of JAX.
 """
@@ -10,9 +10,11 @@ from __future__ import annotations
 import ctypes
 import subprocess
 import sys
+from pathlib import Path
 
 
-def build(source: str, constants: dict, variants, entries):
+def build(source: str, constants: dict, variants, entries, source_dir=None,
+          tag: str = 'variant'):
     """One shared library per variant of ``csrc/<source>``, one nvcc each,
     all started together, into ``magvit2_pytorch_tpu_torch/_build/variants/``.
 
@@ -21,9 +23,12 @@ def build(source: str, constants: dict, variants, entries):
     macro); a variant is a tuple of the macros' values, in the order they
     first appear in ``constants``. Returns ``{variant: (library, nvcc's
     log)}`` with ``entries`` typed from ``_build.SIGNATURES``. Exits when a
-    line is no longer in the source or nvcc fails."""
+    line is no longer in the source or nvcc fails. ``source_dir`` builds
+    another checkout's ``csrc`` instead (its headers from the same folder),
+    and ``tag`` names the build's files, so that two builds may run at
+    once."""
     from magvit2_pytorch_tpu_torch.ops.kernels import _build
-    path = _build.SOURCE_DIR / source
+    path = Path(source_dir or _build.SOURCE_DIR) / source
     text = path.read_text()
     for line, macro in constants.items():
         if line not in text:
@@ -32,14 +37,13 @@ def build(source: str, constants: dict, variants, entries):
     macros = list(dict.fromkeys(constants.values()))
     out_dir = _build.BUILD_DIR / 'variants'
     out_dir.mkdir(parents=True, exist_ok=True)
-    src = out_dir / f'{path.stem}_variant.cu'
+    src = out_dir / f'{path.stem}_{tag}.cu'
     src.write_text(text)
     nvcc = _build.find_nvcc()
     procs = {}
     for values in variants:
-        lib = out_dir / f'{path.stem}_{"x".join(map(str, values))}.so'
-        cmd = [nvcc, *_build.NVCC_FLAGS, '-shared', '-I',
-               str(_build.SOURCE_DIR),
+        lib = out_dir / f'{path.stem}_{tag}_{"x".join(map(str, values))}.so'
+        cmd = [nvcc, *_build.NVCC_FLAGS, '-shared', '-I', str(path.parent),
                *(f'-D{m}={v}' for m, v in zip(macros, values)), '-o',
                str(lib), str(src)]
         procs[values] = (lib, subprocess.Popen(
