@@ -21,7 +21,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ragged and causal shapes (L in 1, 17, 100, 256, 1024; rows not a
    multiple of 64), with its launches timed one by one at the flagship
    shape (norm, qkv GEMM, core, out GEMM) against the whole block as a
-   sequence of PyTorch calls and its core against SDPA. B3 likewise at
+   sequence of PyTorch calls and its core against SDPA. B2 at (8, 5, 256,
+   512) bf16 causal on its 'fused' route (one launch of
+   ``csrc/time_attention.cu``) against its plain version, timed as event
+   pairs and by the profiler's kernel events beside its bound, the plain
+   version, the whole block as PyTorch calls, SDPA alone and the four
+   launches it replaces; float32 on its 'launches' route; a batch boundary
+   that must read exactly 0; the kernel's registers, spills and shared
+   memory from ptxas and from the runtime, its launcher's plan (the weight
+   ring's depth) and the route rule held against what the launcher takes;
+   at ``TIME_CASES`` (T = 1, 2, 9, 16 at S = 100, not causal; C = 256) in
+   both dtypes with each route counted, and in bf16 at a shape the fused
+   route refuses (C = 1024) on its four launches. B3 likewise at
    (160, 1024, 256), 16 heads x 8: its launches timed one by one (norm,
    qkv GEMM with q scaled and cast in its epilogue, the tensor-core moment
    core, out GEMM) beside their bounds and ``F.rms_norm`` / ``F.linear``,
@@ -71,7 +82,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
 4. default flagship roundtrip, bfloat16, batch 8, seeded random weights,
    through ``VideoTokenizer.tokenize`` then ``decode_from_code_indices``:
    shapes, finite output, and launches per roundtrip: 2 of each attention
-   block, 12 ``wgmma`` GEMMs, 0 WMMA ones, 2 of B1's tensor-core core, 2 of
+   block, 2 of B2 on its 'fused' route (0 on 'launches'), 8 ``wgmma``
+   GEMMs (B1's and B3's), 0 WMMA ones, 2 of B1's tensor-core core, 2 of
    B3's (``taylor_core_mma``; 0 ``taylor_core_f32``), 0 of B4, B5 and the
    flash kernels, and no ResidualUnit kernel call by shape;
    then frames/sec by the slope of chained runs (as ``bench.py``); then the
@@ -90,7 +102,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (default and fused) against one CPU reference with the same weights:
    code bits may flip only where the CPU's decision margin |z| <= 5e-3 and
    for <= 1% of bits; decoding the same codes must agree within 1e-3; the
-   fused path's convs all take the float32 route. Then a small tokenizer
+   fused path's convs all take the float32 route and both paths' time
+   blocks the 'launches' route. Then a small tokenizer
    with ``linear_attn_dim_head=16`` (32 px, 5 frames) through the same
    entry points: bf16 on the card, and float32 card against CPU (codes,
    and the recon from the CPU's codes within 1e-3), no Taylor launch.
@@ -143,12 +156,14 @@ RU_SOURCE = 'magvit2_pytorch_tpu_torch/csrc/residual_unit.cu'
 FLASH_SOURCE = 'magvit2_pytorch_tpu_torch/csrc/flash_attention.cu'
 ATTN_SOURCE = 'magvit2_pytorch_tpu_torch/csrc/attention_block.cu'
 TAYLOR_SOURCE = 'magvit2_pytorch_tpu_torch/csrc/taylor_attention.cu'
+TIME_SOURCE = 'magvit2_pytorch_tpu_torch/csrc/time_attention.cu'
 B1_TPU = 'magvit2_pytorch_tpu/ops/pallas/axial_attention.py:49'
+B2_TPU = 'magvit2_pytorch_tpu/ops/pallas/axial_attention.py:224'
 B3_TPU = 'magvit2_pytorch_tpu/ops/pallas/taylor_attention.py:55'
 KERNELS = {
     'space_attention_block': (ATTN_SOURCE, B1_TPU),
-    'time_attention_block': (
-        ATTN_SOURCE, 'magvit2_pytorch_tpu/ops/pallas/axial_attention.py:224'),
+    # B2 in one launch: the time block's 'fused' route (bf16)
+    'time_attention_block_fused': (TIME_SOURCE, B2_TPU),
     'taylor_attention_block': (TAYLOR_SOURCE, B3_TPU),
     # launches inside the three blocks above: the projections of B1-B3
     # (B1's at axial_attention.py:56 and :95) and B1's attention step
@@ -188,12 +203,14 @@ KERNEL_KEYS = ('name', 'route', 'source', 'replaces', 'launches',
                'library_ms')
 # launches per roundtrip on each path (encoder + decoder): the flagship has
 # 11 ResidualUnits a side, the first (64 channels, the lane-packed stem) B5;
-# each attention block makes two projection GEMMs, all on the wgmma route
-# in bf16, B1 one launch of its tensor-core core and B3 one of its own; and
-# per step (forward + backward) of the general Attention path
+# B1 and B3 make two projection GEMMs each, all on the wgmma route in bf16,
+# B1 one launch of its tensor-core core and B3 one of its own; B2 one
+# launch of its own on the 'fused' route; and per step (forward + backward)
+# of the general Attention path
 NO_FLASH = dict.fromkeys((*FLASH_KERNELS, *FLASH_ROUTES), 0)
 BLOCKS = {'space_attention_block': 2, 'time_attention_block': 2,
-          'taylor_attention_block': 2, 'gemm_wgmma': 12, 'gemm_wmma': 0,
+          'time_attention_block_fused': 2, 'time_attention_block_launches': 0,
+          'taylor_attention_block': 2, 'gemm_wgmma': 8, 'gemm_wmma': 0,
           'gemm_f32': 0, 'space_attention_core_mma': 2, 'taylor_core_mma': 2,
           'taylor_core_f32': 0}
 # each fused unit launches one conv and one 1x1, in bf16 on the wgmma route
@@ -485,6 +502,24 @@ def space_block_torch(torch, x, gamma, wqkv, mem_kv, wout, heads, dh):
     return F.linear(o.transpose(1, 2).reshape(g, L, heads * dh), wout)
 
 
+def time_block_torch(torch, x, gamma, wqkv, mem_kv, wout, heads, dh, mask):
+    """B2's function as a sequence of PyTorch calls (the yardstick of the
+    whole time block, never used by the port) on ``x (B, T, S, C)``:
+    ``F.rms_norm``, ``F.linear``, the permute to ``(B S, T, .)``, the memory
+    keys concatenated in front, SDPA with the causal memory mask,
+    ``F.linear``, the permute back."""
+    import torch.nn.functional as F
+    b, t, s, c = x.shape
+    qkv = F.linear(F.rms_norm(x, (c,), gamma), wqkv)
+    q, k, v = (qkv.view(b, t, s, 3, heads, dh).permute(3, 0, 2, 4, 1, 5)
+               .reshape(3, b * s, heads, t, dh))
+    mem = mem_kv[:, None].expand(2, b * s, heads, mem_kv.shape[2], dh)
+    k, v = torch.cat((mem[0], k), dim=2), torch.cat((mem[1], v), dim=2)
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    out = F.linear(o.transpose(1, 2).reshape(b * s, t, heads * dh), wout)
+    return out.view(b, s, t, c).permute(0, 2, 1, 3)
+
+
 def kernel_cases(torch, dev):
     """Inputs at the flagship shapes: README config, batch 8, 20 padded
     frames at the encoder's attention stages; the ResidualUnit at every
@@ -501,16 +536,6 @@ def kernel_cases(torch, dev):
     def u(shape, fan_in):
         return uniform(torch, gen, shape, fan_in)
 
-    def sdpa(g, L, heads, dh, M, causal):
-        """The attention step alone as one PyTorch call, on q, k, v of the
-        block's shapes (k, v with the memory keys in front)."""
-        q = torch.randn(g, heads, L, dh, device=dev, dtype=torch.bfloat16)
-        k, v = (torch.randn(g, heads, M + L, dh, device=dev,
-                            dtype=torch.bfloat16) for _ in range(2))
-        mask = memory_mask(torch, L, M, dev) if causal else None
-        return lambda: F.scaled_dot_product_attention(q, k, v,
-                                                      attn_mask=mask)
-
     cases = []
     c, heads, dh = 512, 8, 32
     x = torch.randn(BATCH * 20, 16 * 16, c, generator=gen)
@@ -526,17 +551,6 @@ def kernel_cases(torch, dev):
                      'torch.cat of the memory keys, '
                      'F.scaled_dot_product_attention, F.linear',
         relative=True))
-    x = torch.randn(BATCH, 5, 16 * 16, c, generator=gen)
-    cases.append(dict(
-        name='time_attention_block', fn=ax.time_attention_block,
-        ref=ax.time_attention_block_ref,
-        args=[x, *attn_params(torch, gen, c, heads, dh)],
-        kw=dict(heads=heads, dim_head=dh, causal=True),
-        cost=attention_cost(BATCH * 256, 5, c, heads, dh, 4, True),
-        library=lambda *_, heads=heads, dh=dh: sdpa(BATCH * 256, 5, heads,
-                                                    dh, 4, True),
-        library_call='F.scaled_dot_product_attention with the causal '
-                     'memory mask, the attention step', relative=True))
     c, heads, dh = 256, 16, 8
     x = torch.randn(BATCH * 20, 32 * 32, c, generator=gen)
     cases.append(dict(
@@ -876,13 +890,11 @@ def phase_ru_launches(torch, dev, reps, smi):
 # the projection GEMMs of the main path, each twice per roundtrip (encoder
 # and decoder), and ragged ones: (what, M, N, K, the route gemm_route must
 # pick, timed, the epilogue's scaled columns). Rows: B1 160 frames x 256
-# tokens, B2 8 x 256 pixels x 5 frames, B3 160 frames x 1024 tokens, whose
-# qkv GEMM scales q (128 columns) by 8^-1/2.
+# tokens, B3 160 frames x 1024 tokens, whose qkv GEMM scales q (128
+# columns) by 8^-1/2 (B2's bf16 projections run inside its own kernel).
 GEMM_CASES = (
     ('B1 qkv', 40960, 768, 512, 'wgmma', True, 0),
     ('B1 out', 40960, 512, 256, 'wgmma', True, 0),
-    ('B2 qkv', 10240, 768, 512, 'wgmma', True, 0),
-    ('B2 out', 10240, 512, 256, 'wgmma', True, 0),
     ('B3 qkv', 163840, 384, 256, 'wgmma', True, 128),
     ('B3 out', 163840, 256, 128, 'wgmma', True, 0),
     ('ragged M', 1000, 192, 320, 'wgmma', False, 64),
@@ -1074,6 +1086,266 @@ def phase_space_block(torch, dev, reps, smi):
         f'100, 256, 1024, causal and not): worst error over the largest '
         f'value {worst} (tol {TOL})')
     return row, dict(split, library_ms_attention_step=sdpa_ms)
+
+
+# B2 at shapes the flagship does not reach, on its 'fused' route in bf16
+# and its 'launches' route in float32: (B, T, S, C, heads, causal), T = 1,
+# 2, 9, 16 at S = 100 not causal, and C = 256 with 8 and 2 heads. On 132
+# SMs the wrapper takes 3 pixels a block at T = 1 and 2 and at C = 256 (a
+# last tile of 1 pixel), 5 at T = 9 (45 rows) and 3 at T = 16 (48 rows, a
+# last tile of 1 pixel)
+TIME_CASES = ((3, 1, 100, 512, 8, False), (3, 2, 100, 512, 8, False),
+              (16, 9, 100, 512, 8, False), (8, 16, 100, 512, 8, False),
+              (3, 5, 100, 256, 8, True), (3, 5, 100, 256, 2, True))
+# B2 in bf16 at a shape the fused route refuses (C = 1024): the four
+# launches (two wgmma GEMMs) with the scalar core
+TIME_LAUNCHES_CASE = (3, 5, 100, 1024, 8, True)
+# (T, pixels, C, heads, M) at the edges of what the fused route sends, and
+# one past each: time_block_route and the launcher's plan must agree
+TIME_EDGES = ((16, 3, 512, 8, 4), (1, 60, 512, 8, 4), (5, 12, 512, 8, 4),
+              (5, 12, 64, 2, 0), (17, 1, 512, 8, 4), (1, 61, 512, 8, 4),
+              (5, 12, 576, 8, 4), (5, 12, 512, 12, 4), (5, 12, 512, 8, 5),
+              (5, 12, 96, 8, 4))
+TIME_SHAPE = (BATCH, 5, 256, 512)    # the flagship's time block
+TIME_KERNEL = 'time_block_kernel'
+
+
+def device_ms(torch, fn, calls: int = 20):
+    """Device time per call of ``fn`` from torch.profiler's kernel events
+    (device events only), and the same by kernel name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us()
+    by = {name: us / calls / 1e3 for name, us in by.items()}
+    return sum(by.values()), by
+
+
+def phase_time_block(torch, dev, reps, smi):
+    """B2 at the flagship shape ``TIME_SHAPE`` (bf16, causal, 8 heads x 32,
+    4 memory keys) on its 'fused' route, one launch: against the plain
+    version in float32 and in bf16, timed as event pairs around 10 calls
+    and by the profiler's kernel events (so the row says whether the host
+    still holds it), beside its bound, the plain version, the whole block as
+    PyTorch calls (``time_block_torch``) and SDPA alone, and the bf16 four
+    launches on the time layout it replaces; float32 on the 'launches'
+    route; a batch boundary that must read exactly 0; the kernel's
+    registers, spills and shared memory from ptxas and from the runtime
+    (its dynamic shared memory must be what the launcher's plan says); the
+    route rule against the launcher at ``TIME_EDGES``; then ``TIME_CASES``
+    in both dtypes and ``TIME_LAUNCHES_CASE`` in bf16 with their routes
+    counted. Returns the kernels-line row."""
+    import re
+
+    import torch.nn.functional as F
+    from magvit2_pytorch_tpu_torch.ops.kernels import (
+        _build, axial_attention as ax, launch_counts, reset_launch_counts)
+    set_tf32(False)
+    gen = torch.Generator().manual_seed(47)
+    b, t, s, c = TIME_SHAPE
+    heads, dh, m = 8, 32, 4
+    x32 = torch.randn(TIME_SHAPE, generator=gen).to(dev)
+    p32 = [a.to(dev) for a in attn_params(torch, gen, c, heads, dh)]
+    x, params = x32.bfloat16(), [a.bfloat16() for a in p32]
+    kw = dict(heads=heads, dim_head=dh, causal=True)
+    fused_counts = dict(time_attention_block_fused=1,
+                        time_attention_block_launches=0, gemm_wgmma=0,
+                        gemm_wmma=0, gemm_f32=0)
+    launch_counts_f32 = dict(time_attention_block_fused=0,
+                             time_attention_block_launches=1, gemm_f32=2,
+                             gemm_wgmma=0, gemm_wmma=0)
+
+    def run(args, want, what):
+        reset_launch_counts()
+        out = ax.time_attention_block(*args, **kw)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        if any(counts[key] != n for key, n in want.items()):
+            fail(f'{what}: launches {counts}, expected {want}')
+        if not bool(torch.isfinite(out).all()):
+            fail(f'{what}: non-finite output')
+        return out
+
+    got = run([x, *params], fused_counts, 'time block bf16')
+    want = ax.time_attention_block_ref(x.float(), *(a.float() for a in params),
+                                       **kw)
+    err = relative_error(got, want)
+    abs_err = (got.float() - want).abs().max().item()
+    err_plain16 = relative_error(
+        got, ax.time_attention_block_ref(x, *params, **kw))
+    got32 = run([x32, *p32], launch_counts_f32, 'time block float32')
+    err32 = relative_error(got32, ax.time_attention_block_ref(x32, *p32,
+                                                              **kw))
+    del got32, want
+    both = x[:2]
+    boundary = (ax.time_attention_block(both, *params, **kw)[1:]
+                - ax.time_attention_block(both[1:].contiguous(), *params,
+                                          **kw)).abs().max().item()
+
+    mask = memory_mask(torch, t, m, dev)
+    seq_err = relative_error(
+        time_block_torch(torch, x, *params, heads, dh, mask),
+        ax.time_attention_block_ref(x.float(), *(a.float() for a in params),
+                                    **kw))
+    q, k, v = (torch.randn(b * s, heads, t + keys, dh, generator=gen)
+               .to(dev).bfloat16() for keys in (0, m, m))
+
+    def timed(fn):
+        return median_ms(fn, reps, inner=INNER)
+
+    fused = lambda: ax.time_attention_block(x, *params, **kw)
+    four = lambda: ax.block_launches(x, *params, **kw,
+                                     **ax.time_layout(x))
+    row = dict(
+        shape=list(TIME_SHAPE), per='launch', kernel_route='fused',
+        max_abs_err=abs_err, max_rel_err=err, max_rel_err_fp32=err32,
+        max_rel_err_vs_bf16_plain=err_plain16, batch_boundary_err=boundary,
+        ms=timed(fused), device_ms=device_ms(torch, fused)[0],
+        plain_ms=timed(lambda: ax.time_attention_block_ref(x, *params, **kw)),
+        library_ms=timed(lambda: time_block_torch(torch, x, *params, heads,
+                                                  dh, mask)),
+        library_call='a sequence of PyTorch calls: F.rms_norm, F.linear, '
+                     'the permute to (B S, T, .), torch.cat of the memory '
+                     'keys, F.scaled_dot_product_attention with the causal '
+                     'memory mask, F.linear, the permute back',
+        library_ms_attention_step=timed(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)),
+        launches_ms=timed(four), launches_device_ms=device_ms(torch, four)[1],
+        ms_fp32=timed(lambda: ax.time_attention_block(x32, *p32, **kw)),
+        plain_ms_fp32=timed(lambda: ax.time_attention_block_ref(x32, *p32,
+                                                                **kw)),
+        calls_per_timing=INNER)
+    row['bound_ms'], row['bound_by'] = bound(*attention_cost(
+        b * s, t, c, heads, dh, m, True))
+    ptxas = [ln for lines in ptxas_lines(_build.build_info.get('log', ''),
+                                         TIME_KERNEL).values()
+             for ln in lines]
+    spills = [ln for ln in ptxas for st, ld in re.findall(
+        r'(\d+) bytes spill stores, (\d+) bytes spill loads', ln)
+        if int(st) or int(ld)]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    pixels = ax.time_block_pixels(b, t, s, sms)
+    plan = ax.time_block_plan(t, pixels, c, heads, m)
+    fused()     # the flagship's launch is the last to set the kernel's
+    torch.cuda.synchronize()        # dynamic shared memory
+    attrs = ax.time_block_attributes()
+    row.update(ptxas=ptxas, pixels_per_block=pixels,
+               ring_stages=plan['stages'], **attrs)
+    log(f'[time block] {TIME_SHAPE} bf16 causal on the fused route, one '
+        f'launch: error over the largest value {err:.3e} against the plain '
+        f'version in float32 (tol {TOL["bfloat16"]:g}), {err_plain16:.3e} '
+        f'against it in bf16; float32 on the launches route {err32:.3e} '
+        f'(tol {TOL["float32"]:g}); batch boundary {boundary}; kernel '
+        f'{row["ms"]:.4f} ms ({INNER} calls an event pair, median of '
+        f'{reps}), device {row["device_ms"]:.4f} ms (profiler kernel '
+        f'events), bound {row["bound_ms"]:.4f} ms ({row["bound_by"]}), '
+        f'plain {row["plain_ms"]:.4f} ms, the block as PyTorch calls '
+        f'{row["library_ms"]:.4f} ms (against the plain version '
+        f'{seq_err:.3e}), SDPA alone (the attention step) '
+        f'{row["library_ms_attention_step"]:.4f} ms; the four launches it '
+        f'replaces {row["launches_ms"]:.4f} ms, device '
+        f'{row["launches_device_ms"]}; fp32 (launches) '
+        f'{row["ms_fp32"]:.4f} ms, plain {row["plain_ms_fp32"]:.4f} ms; '
+        f'on {smi}')
+    log(f'[ptxas] {TIME_KERNEL}: {"; ".join(ptxas)}; at the flagship '
+        f'{pixels} pixels a block (the wrapper\'s), the runtime\'s '
+        f'attributes {attrs}, the launcher\'s plan {plan}')
+    if attrs['dynamic_smem_bytes'] != plan['dynamic_smem_bytes']:
+        fail(f'{TIME_KERNEL}: the runtime reports '
+             f'{attrs["dynamic_smem_bytes"]} B of dynamic shared memory, '
+             f'the launcher plans {plan["dynamic_smem_bytes"]} B')
+    if attrs['local_bytes']:
+        fail(f'{TIME_KERNEL}: {attrs["local_bytes"]} B of local memory a '
+             f'thread')
+    edges = []
+    for et, ep, ec, eh, em in TIME_EDGES:
+        routed = (ep * et <= ax.TIME_MAX_ROWS and ax.time_block_route(
+            torch.bfloat16, et, 256, ec, eh, dh, em) == 'fused')
+        planned = ax.time_block_plan(et, ep, ec, eh, em)
+        edges.append(planned and planned['stages'])
+        if routed != (planned is not None):
+            fail(f'time block at (T, pixels, C, heads, M) = '
+                 f'{(et, ep, ec, eh, em)}: the route says fused={routed}, '
+                 f'the launcher plans {planned}')
+    lib = _build.load_library()
+    refused = lib.mv2_time_attention_block(
+        x.data_ptr(), params[0].data_ptr(), params[1].data_ptr(),
+        params[2][0].data_ptr(), params[2][1].data_ptr(),
+        params[3].data_ptr(), x.data_ptr(), _build.dtype_code(x), b, t, s,
+        c, heads, dh, m, pixels, 1, ax.TIME_ROUTES['launches'],
+        _build.stream_handle(dev))
+    log(f'[time block] the route rule and the launcher agree at '
+        f'{TIME_EDGES} (T, pixels, C, heads, M): ring stages {edges} (None '
+        f'refused); the C entry point on the launches route returns '
+        f'{refused}')
+    if refused == 0:
+        fail('time block: the C entry point took the launches route')
+    if not err <= TOL['bfloat16']:
+        fail(f'time block bf16: error {err} of the largest value > '
+             f'{TOL["bfloat16"]}')
+    if not err32 <= TOL['float32']:
+        fail(f'time block float32: error {err32} of the largest value > '
+             f'{TOL["float32"]}')
+    if boundary != 0.0:
+        fail(f'time block: batch element 1 differs alone and in a batch of '
+             f'two by {boundary}')
+    if spills:
+        fail(f'{TIME_KERNEL} spills: {spills}')
+    if _build.build_info.get('log') not in (None, '(cached)') and not ptxas:
+        fail(f'ptxas lines missing from the build log for {TIME_KERNEL}')
+
+    launch_counts_bf16 = dict(time_attention_block_fused=0,
+                              time_attention_block_launches=1, gemm_wgmma=2,
+                              gemm_wmma=0, gemm_f32=0)
+    worst = {'float32': 0.0, 'bfloat16': 0.0, 'bfloat16_launches': 0.0}
+    tilings = []
+    runs = [(case, name, want) for case in TIME_CASES
+            for name, want in (('bfloat16', fused_counts),
+                               ('float32', launch_counts_f32))]
+    runs.append((TIME_LAUNCHES_CASE, 'bfloat16_launches',
+                 dict(time_attention_block_fused=0,
+                      time_attention_block_launches=1, gemm_wgmma=2,
+                      gemm_wmma=0, gemm_f32=0)))
+    for (bb, tt, ss, cc, hh, causal), name, want_counts in runs:
+        dtype = 'float32' if name == 'float32' else 'bfloat16'
+        if name != 'float32':   # new inputs a case; float32 takes them too
+            xc = torch.randn(bb, tt, ss, cc, generator=gen)
+            pc = attn_params(torch, gen, cc, hh, dh)
+        if name == 'bfloat16':
+            pix = ax.time_block_pixels(bb, tt, ss, sms)
+            tilings.append((pix, ax.time_block_plan(tt, pix, cc, hh,
+                                                    m)['stages']))
+        args = [a.to(dev, getattr(torch, dtype)) for a in (xc, *pc)]
+        what = (f'time block {(bb, tt, ss, cc)} {hh} heads causal={causal} '
+                f'{name}')
+        reset_launch_counts()
+        got = ax.time_attention_block(*args, hh, dh, causal)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        if any(counts[k] != n for k, n in want_counts.items()):
+            fail(f'{what}: launches {counts}, expected {want_counts}')
+        if not bool(torch.isfinite(got).all()):
+            fail(f'{what}: non-finite output')
+        e = relative_error(got, ax.time_attention_block_ref(
+            *(a.float() for a in args), hh, dh, causal))
+        worst[name] = max(worst[name], e)
+        if not e <= TOL[dtype]:
+            fail(f'{what}: error {e} of the largest value > {TOL[dtype]}')
+    row['cases_worst'] = worst
+    log(f'[time block] {len(TIME_CASES)} cases {TIME_CASES} (B, T, S, C, '
+        f'heads, causal), bf16 fused and float32 launches, each route '
+        f'counted, their tilings {tilings} (pixels a block, ring stages); '
+        f'bf16 at {TIME_LAUNCHES_CASE} on the launches: worst error over '
+        f'the largest value {worst} (tol {TOL})')
+    return row
 
 
 # B3 at shapes the flagship does not reach: (frames, N) at the flagship
@@ -1545,6 +1817,12 @@ def phase_card_vs_cpu(torch, dev):
         if (path == 'fused') != (fused_launches > 0):
             fail(f'{path} card path: {fused_launches} ResidualUnit kernel '
                  'launches')
+        if not (counts['time_attention_block_launches']
+                == counts['time_attention_block'] > 0):
+            fail(f'{path} card path, float32: of '
+                 f'{counts["time_attention_block"]} time blocks '
+                 f'{counts["time_attention_block_launches"]} took the '
+                 'launches route, expected all')
         if counts['ru_conv_f32'] != fused_launches:
             fail(f'{path} card path, float32: {counts["ru_conv_f32"]} convs '
                  f'on the f32 route for {fused_launches} fused units')
@@ -1759,14 +2037,19 @@ def check_flash_routes(what, counts, route):
 
 def ptxas_lines(log: str, kernel: str):
     """ptxas's lines for each instantiation of ``kernel`` in the build log:
-    {head size: [lines]}, from its 'Compiling entry function' line to its
+    {its int template argument (a head size), 0 for a kernel that is no
+    template: [lines]}, from its 'Compiling entry function' line to its
     'Used N registers' line."""
     out, current = {}, None
+    name = f'{len(kernel)}{kernel}'     # as the mangled name spells it
     for line in log.splitlines():
         if 'Compiling entry function' in line:
             current = None
-            if f'{len(kernel)}{kernel}ILi' in line:
+            if f'{name}ILi' in line:
                 current = int(line.split(f'{kernel}ILi')[1].split('E')[0])
+            elif f'{name}E' in line:
+                current = 0
+            if current is not None:
                 out[current] = []
         if current is not None:
             out[current].append(line.strip())
@@ -2333,6 +2616,9 @@ def main():
         kernel_rows['space_attention_core_mma'], split = phase_space_block(
             torch, dev, REPS, smi)
         kernel_rows['space_attention_block']['split_ms'] = split
+        torch.cuda.empty_cache()
+        kernel_rows['time_attention_block_fused'] = phase_time_block(
+            torch, dev, REPS, smi)
         torch.cuda.empty_cache()
         kernel_rows['taylor_core_mma'], split = phase_taylor_block(
             torch, dev, REPS, smi)

@@ -1,10 +1,13 @@
 // The attention step of the pre-norm softmax attention block with learned
 // memory KV, for the space (over a frame's pixels) and the time (causal,
 // over a pixel's frames) attention of the tokenizer. Replaces, with the
-// RMSNorm and GEMM launches of gemm.cu, the TPU kernels
-// magvit2_pytorch_tpu/ops/pallas/axial_attention.py _kernel and
-// _time_kernel; ops/kernels/axial_attention.py holds the design note and
-// makes the four launches of a block on scratch it allocates:
+// RMSNorm and GEMM launches of gemm.cu, the TPU kernel
+// magvit2_pytorch_tpu/ops/pallas/axial_attention.py _kernel, and
+// _time_kernel where the time block takes its 'launches' route (float32,
+// and bf16 shapes time_attention.cu does not take; bf16 at the flagship
+// runs the whole block there in one launch);
+// ops/kernels/axial_attention.py holds the design note and makes the four
+// launches of a block on scratch it allocates:
 //   xn   = RMSNorm(x) * gamma                     (rows, C)       gemm.cu
 //   qkv  = xn Wqkv^T, f32 accumulate, cast to T   (rows, 3 * H * D) gemm.cu
 //   attn = softmax attention per (group, head)    (rows, H * D)   here
@@ -19,15 +22,15 @@
 // - space_attention_core_mma_kernel: bf16, contiguous groups
 //   (inner_groups == 1, pos_stride == 1), D == 32, at most kMmaMaxKeys keys.
 //   The space block of the flagship: tensor cores through mma.sync.
-// - attention_core_kernel: everything else (the time block with t <= 16,
-//   float32): one thread per query on the CUDA cores.
+// - attention_core_kernel: everything else (the time block's 'launches'
+//   route, float32): one thread per query on the CUDA cores.
 // What bounds the space block at the flagship shape (160 frames x 256
 // tokens x 512 channels, 8 heads x 32, 4 memory keys): operations, 53.8
 // GFLOP (42.9 in the projections), 0.0545 ms at the bf16 peak; the core
 // alone moves qkv in and attn out, 85 MB, 0.025 ms. Left for later: one
-// launch for the whole block (the xn, qkv and attn scratch cross device
-// memory), warp specialisation and persistent tiles in the GEMM, a
-// tensor-core core for the time block.
+// launch for the whole space block (the xn, qkv and attn scratch cross
+// device memory, as time_attention.cu avoids for the time block), warp
+// specialisation and persistent tiles in the GEMM.
 #include "common.cuh"
 
 namespace mv2 {

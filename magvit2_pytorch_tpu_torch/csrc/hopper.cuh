@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the TMA + wgmma kernels (csrc/gemm.cu's
-// projection GEMM, csrc/residual_unit.cu's conv and 1x1): mbarriers, TMA
-// loads of 2-D and 5-D tiles, the wgmma descriptor of a 128-byte-swizzled
+// projection GEMM, csrc/residual_unit.cu's conv and 1x1,
+// csrc/time_attention.cu's time block): mbarriers, TMA loads of 2-D, 3-D
+// and 5-D tiles, the proxy fence, the wgmma descriptor of a 128-byte-swizzled
 // K-major tile, wgmma m64n128k16 / m64n64k16 on bf16, and the host-side
 // tensor-map encoding. Built for sm_90a (wgmma exists only there).
 #pragma once
@@ -30,6 +31,13 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
       : "memory");
 }
 
+// one arrival on the barrier (no bytes)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
 // until the phase of the given parity has completed
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   unsigned done = 0;
@@ -53,6 +61,25 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
       : "memory");
+}
+
+// the box of a 3-D tensor map at (c0, c1, c2), innermost first; elements
+// past the end arrive as zeros and count in the barrier's bytes
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// make this thread's shared-memory writes visible to the async proxy
+// (wgmma operands, TMA stores) that reads them after the next barrier
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // the box of a 5-D tensor map at (c0, .., c4), innermost first. A

@@ -41,6 +41,13 @@ SIGNATURES = {
     # qkv, mem_k, mem_v, attn, dtype, groups, L, heads, dim_head, M,
     # inner_groups, outer_stride, pos_stride, causal, route, stream
     'mv2_attention_core': [_P] * 4 + [_I] * 7 + [_L, _L, _I, _I, _P],
+    # x, gamma, wqkv, mem_k, mem_v, wout, out, dtype, B, T, S, C, heads,
+    # dim_head, M, pixels, causal, route, stream
+    'mv2_time_attention_block': [_P] * 7 + [_I] * 11 + [_P],
+    # T, pixels, C, heads, M, out (2 ints)
+    'mv2_time_block_plan': [_I] * 5 + [_P],
+    # out (4 ints)
+    'mv2_time_block_attributes': [_P],
     # qkv, attn, dtype, frames, N, heads, dim_head, eps, route, stream
     'mv2_taylor_core': [_P] * 2 + [_I] * 5 + [_F, _I, _P],
     # a, w, bias, out, dtype, B, T, H, W, C, conv, route, stream

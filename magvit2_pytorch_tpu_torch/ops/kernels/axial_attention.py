@@ -8,21 +8,18 @@ Replaces the TPU kernels ``magvit2_pytorch_tpu/ops/pallas/axial_attention.py``
     RMSNorm(gamma) -> x Wqkv -> per-head softmax attention over the sequence
     plus M memory keys in one joint softmax (optionally causal) -> Wout
 
-with no residual. The CUDA version makes four launches on scratch the
-wrapper allocates (:func:`block_launches`): the row RMSNorm and the qkv GEMM
-of ``csrc/gemm.cu``, an attention core of ``csrc/attention_block.cu``
-(online softmax in float32 over the memory keys and the visible sequence
-keys, read straight from the qkv rows), and the out GEMM. The time block
-uses the same launches: only the row each (group, position) maps to changes
-(:func:`group_rows`), so ``(B, T, S, C)`` is attended over t with no
-transpose and no masked (T*S)^2 tile.
+with no residual.
 
-What bounds it on the H100: operations. The space block at the flagship
-shape (160 frames x 256 tokens x 512 channels at batch 8, 8 heads x 32, 4
-memory keys) is 53.8 GFLOP: 42.9 in the two projections, 10.9 in the
-attention (scores and values over 260 keys), 0.0545 ms at 989 TFLOP/s,
-against 85 MB of x, output and weights (0.025 ms at 3.35 TB/s). So every
-launch runs on the tensor cores in bf16:
+The space block makes four launches on scratch the wrapper allocates
+(:func:`block_launches`): the row RMSNorm and the qkv GEMM of
+``csrc/gemm.cu``, an attention core of ``csrc/attention_block.cu`` (online
+softmax in float32 over the memory keys and the visible sequence keys, read
+straight from the qkv rows), and the out GEMM. What bounds it on the H100:
+operations. At the flagship shape (160 frames x 256 tokens x 512 channels
+at batch 8, 8 heads x 32, 4 memory keys) it is 53.8 GFLOP: 42.9 in the two
+projections, 10.9 in the attention (scores and values over 260 keys),
+0.0545 ms at 989 TFLOP/s, against 85 MB of x, output and weights (0.025 ms
+at 3.35 TB/s). So every launch runs on the tensor cores in bf16:
 
 - the projections take ``gemm.py``'s ``'wgmma'`` route (TMA + ``wgmma``,
   128x128 tiles, a 3-stage shared-memory ring), counted as ``gemm_wgmma``;
@@ -31,14 +28,28 @@ launch runs on the tensor cores in bf16:
   256 queries of one (frame, head), stages the head's keys once in shared
   memory and runs ``S = Q K^T`` and ``O += P V`` on ``mma.sync`` with the
   online softmax in registers, counted as ``space_attention_core_mma``;
-  alone it is bound by bytes (qkv in, attn out: 0.025 ms);
-- the time block (t <= 16 keys a query) and float32 keep the core with
-  one thread per query on the CUDA cores (``'scalar'``).
+  alone it is bound by bytes (qkv in, attn out: 0.025 ms).
 
-The RMSNorm is a separate pass, bound by bytes like the core. Left for
-later: fusing the four launches (the xn, qkv and attn scratch cost ~3
-extra passes over the activation), warp specialisation and persistent
-tiles in the GEMM, and a tensor-core core for the time block.
+The time block on ``(B, T, S, C)`` takes one of two routes
+(:func:`time_block_route`, decided from shapes and passed to C):
+
+- ``'fused'`` (bf16, ``dim_head`` 32, T <= 16, C <= 512, heads * dim_head
+  <= 256, M <= 4): one launch of ``csrc/time_attention.cu``. A block owns
+  one batch index and P <= 60 // T consecutive pixels over all T frames
+  (:func:`time_block_pixels`), reads x once, keeps the normed x, qkv and
+  the attention output in shared memory and writes the output once; the
+  projections run on ``wgmma`` and each (pixel, head) attends over its own
+  T frames on the CUDA cores with ``_time_kernel``'s cast points. At the
+  flagship shape (8, 5, 256, 512) it is 10.7 GFLOP (0.0109 ms at the bf16
+  peak) against 22 MB (0.0066 ms): operations bound it. Each block
+  streams the ~1 MB of weights from L2, and the tile is chosen to keep
+  that stream ahead of the tensor cores (:func:`time_block_pixels`; the
+  kernel's launcher takes the deepest weight ring that then fits,
+  :func:`time_block_plan`).
+- ``'launches'`` (float32, and bf16 shapes the fused tile does not take):
+  the space block's four launches on the time layout (:func:`group_rows`:
+  t attended with no transpose) with the scalar core, one thread per
+  query on the CUDA cores.
 
 On the CPU the wrappers run the plain versions below. On a CUDA tensor they
 launch the kernel or raise.
@@ -46,6 +57,8 @@ launch the kernel or raise.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 
 import torch
@@ -57,11 +70,18 @@ from magvit2_pytorch_tpu_torch.ops.kernels import _build, gemm
 # launches of each block, and of the tensor-core core, since the last reset
 # (see ops/kernels); the blocks' GEMMs count in gemm.LAUNCHES
 LAUNCHES = {'space_attention_block': 0, 'time_attention_block': 0,
-            'space_attention_core_mma': 0}
+            'space_attention_core_mma': 0, 'time_attention_block_fused': 0,
+            'time_attention_block_launches': 0}
 
 SUPPORTED_DIM_HEAD = (32,)    # csrc/attention_block.cu template cases
 CORES = {'scalar': 0, 'mma': 1}     # csrc/attention_block.cu CoreRoute
 MMA_MAX_KEYS = 1280                 # kMmaMaxKeys: K and V in shared memory
+TIME_ROUTES = {'launches': 0, 'fused': 1}   # csrc/time_attention.cu TimeRoute
+# the shapes the fused time block takes (csrc/time_attention.cu
+# kTbMax*, whose launcher refuses any other): rows a block owns, frames,
+# memory keys, channels and heads * dim_head
+TIME_MAX_ROWS, TIME_MAX_T, TIME_MAX_MEM = 60, 16, 4
+TIME_MAX_C, TIME_MAX_INNER = 512, 256
 
 
 def _block_takes(dim_head: int, dropout: float, use_rotary: bool,
@@ -115,14 +135,110 @@ def attention_block_ref(x, gamma, wqkv, mem_kv, wout, heads: int,
     return F.linear(out.reshape(bt, n, heads * dim_head), wout.to(dt))
 
 
+def time_core_ref(qkv, mem_k, mem_v, heads: int, dim_head: int,
+                  causal: bool = True):
+    """The attention step of the time block with ``_time_kernel``'s cast
+    points (``axial_attention.py:252-272``): qkv ``(B, T, S, 3 * heads *
+    dim_head)`` to ``(B, T, S, heads * dim_head)``, mem_k and mem_v
+    ``(heads, M, dim_head)``. Scores in float32 times ``dim_head ** -0.5``,
+    one max over the memory keys and the visible frames, e and den in
+    float32, e rounded to the working dtype before the products with v and
+    mem_v, those summed in float32, ``o / den`` cast once."""
+    dt = qkv.dtype
+    b, t, s, _ = qkv.shape
+    q, k, v = qkv.view(b, t, s, 3, heads, dim_head).float().unbind(3)
+    scale = dim_head ** -0.5
+    dots = torch.einsum('btshd,bushd->bshtu', q, k) * scale
+    dots_m = torch.einsum('btshd,hmd->bshtm', q, mem_k.float()) * scale
+    if causal:
+        hidden = torch.ones(t, t, dtype=torch.bool,
+                            device=qkv.device).triu(1)
+        dots = dots.masked_fill(hidden, torch.finfo(torch.float32).min)
+    mx = torch.maximum(dots.amax(-1), dots_m.amax(-1))[..., None]
+    e, e_m = torch.exp(dots - mx), torch.exp(dots_m - mx)
+    den = e.sum(-1) + e_m.sum(-1)                               # (b, s, h, t)
+    o = (torch.einsum('bshtu,bushd->bshtd', e.to(dt).float(), v)
+         + torch.einsum('bshtm,hmd->bshtd', e_m.to(dt).float(),
+                        mem_v.float()))
+    o = (o / den[..., None]).to(dt)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, t, s, heads * dim_head)
+
+
 def time_attention_block_ref(x, gamma, wqkv, mem_kv, wout, heads: int,
                              dim_head: int, causal: bool = True):
-    """Plain version on ``(B, T, S, C)``: attention over t for each s."""
-    b, t, s, c = x.shape
-    xt = x.permute(0, 2, 1, 3).reshape(b * s, t, c)
-    o = attention_block_ref(xt, gamma, wqkv, mem_kv, wout, heads, dim_head,
-                            causal=causal)
-    return o.reshape(b, s, t, c).permute(0, 2, 1, 3)
+    """Plain version on ``(B, T, S, C)``: attention over t for each s, with
+    ``_time_kernel``'s cast points (the normed x, qkv, e and the attention
+    output rounded to the working dtype; float32 sums)."""
+    dt = x.dtype
+    qkv = gemm.gemm_nt_ref(gemm.rmsnorm_ref(x, gamma), wqkv.to(dt))
+    attn = time_core_ref(qkv, mem_kv[0].to(dt), mem_kv[1].to(dt), heads,
+                         dim_head, causal)
+    return gemm.gemm_nt_ref(attn, wout.to(dt))
+
+
+def time_block_pixels(b: int, t: int, s: int, sms: int) -> int:
+    """Pixels a block of the fused time block owns (over all t frames, so
+    ``t * P <= TIME_MAX_ROWS`` rows): the fewest that keep the launch at its
+    least number of waves over the card's ``sms`` SMs (one block an SM).
+    A block's time is mostly its stream of the weights, the same whatever
+    its rows, so fewer rows cost nothing within a wave and leave shared
+    memory to a deeper weight ring. The flagship's (8, 5, 256) on 132 SMs:
+    8 pixels, 256 blocks in two waves, where the most, 12, gives 176
+    blocks, two waves too."""
+    p_max = TIME_MAX_ROWS // t
+
+    def waves(p):
+        return -(-b * -(-s // p) // sms)
+
+    least = waves(p_max)
+    return next(p for p in range(1, p_max + 1) if waves(p) == least)
+
+
+def time_block_route(dtype, t: int, s: int, c: int, heads: int,
+                     dim_head: int, m: int, *tensors) -> str:
+    """The time block's route: ``'fused'`` (one launch of
+    ``csrc/time_attention.cu``) for bf16 at ``dim_head`` 32, 1 <= t <=
+    ``TIME_MAX_T``, C and heads * dim_head multiples of 64 up to
+    ``TIME_MAX_C`` and ``TIME_MAX_INNER`` (where the kernel's shared memory
+    holds two weight stages at any rows, memory keys and pixel count it
+    takes), at most ``TIME_MAX_MEM`` memory keys, and every tensor given
+    (x, wqkv, wout, which TMA reads, and gamma and mem_kv, read in 16-byte
+    pieces) starting 16-byte aligned (the rows then are too);
+    ``'launches'`` (four launches, the scalar core) otherwise. s does not
+    enter: the last tile of a batch index is masked."""
+    inner = heads * dim_head
+    if (dtype == torch.bfloat16 and dim_head == 32
+            and 1 <= t <= TIME_MAX_T and s >= 1
+            and 0 < c <= TIME_MAX_C and c % 64 == 0
+            and 0 < inner <= TIME_MAX_INNER and inner % 64 == 0
+            and 0 <= m <= TIME_MAX_MEM
+            and all(x.data_ptr() % 16 == 0 for x in tensors)):
+        return 'fused'
+    return 'launches'
+
+
+def time_block_plan(t: int, pixels: int, c: int, heads: int, m: int):
+    """What the fused kernel's launcher plans for a call (``dim_head`` 32):
+    ``{'stages': ..., 'dynamic_smem_bytes': ...}``, its weight ring's depth
+    and the dynamic shared memory it asks for, or None where it does not
+    take the shape. Calls the built library (the card's)."""
+    out = (ctypes.c_int * 2)()
+    lib = _build.load_library()
+    if lib.mv2_time_block_plan(t, pixels, c, heads, m, out) != 0:
+        return None
+    return dict(stages=out[0], dynamic_smem_bytes=out[1])
+
+
+def time_block_attributes() -> dict:
+    """What the CUDA runtime reports for the fused time block's kernel:
+    registers and local (spilled) bytes a thread, static shared memory, and
+    the dynamic shared memory its launcher last set (on every launch)."""
+    out = (ctypes.c_int * 4)()
+    lib = _build.load_library()
+    _build.check(lib, lib.mv2_time_block_attributes(out),
+                 'time attention block attributes')
+    return dict(zip(('registers', 'local_bytes', 'static_smem_bytes',
+                     'dynamic_smem_bytes'), out))
 
 
 def core_route(dtype, dim_head: int, keys: int, inner_groups: int,
@@ -221,8 +337,7 @@ def block_launches(x, gamma, wqkv, mem_kv, wout, heads, dim_head, causal,
     return gemm.gemm_nt(attn, wout.to(dt)).reshape(x.shape)
 
 
-def _launch(x, gamma, wqkv, mem_kv, wout, heads, dim_head, causal, *, name,
-            **layout):
+def _check_block(name, x, gamma, wqkv, mem_kv, wout, heads, dim_head):
     _build.check_cuda_inputs(name, x, (gamma, wqkv, mem_kv, wout))
     if dim_head not in SUPPORTED_DIM_HEAD:
         raise ValueError(f'{name}: dim_head {dim_head} not in '
@@ -233,10 +348,6 @@ def _launch(x, gamma, wqkv, mem_kv, wout, heads, dim_head, causal, *, name,
         raise ValueError(f'{name}: wqkv {tuple(wqkv.shape)} / wout '
                          f'{tuple(wout.shape)} do not fit C={c}, '
                          f'heads*dim_head={inner}')
-    out = block_launches(x, gamma, wqkv, mem_kv, wout, heads, dim_head,
-                         causal, **layout)
-    LAUNCHES[name] += 1
-    return out
 
 
 def attention_block(x, gamma, wqkv, mem_kv, wout, heads: int, dim_head: int,
@@ -245,16 +356,60 @@ def attention_block(x, gamma, wqkv, mem_kv, wout, heads: int, dim_head: int,
     if not x.is_cuda:
         return attention_block_ref(x, gamma, wqkv, mem_kv, wout, heads,
                                    dim_head, causal)
-    return _launch(x, gamma, wqkv, mem_kv, wout, heads, dim_head, causal,
-                   name='space_attention_block', **space_layout(x))
+    name = 'space_attention_block'
+    _check_block(name, x, gamma, wqkv, mem_kv, wout, heads, dim_head)
+    out = block_launches(x, gamma, wqkv, mem_kv, wout, heads, dim_head,
+                         causal, **space_layout(x))
+    LAUNCHES[name] += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def time_block_fused(x, gamma, wqkv, mem_kv, wout, heads: int,
+                     dim_head: int, causal: bool):
+    """One launch of ``csrc/time_attention.cu`` on bf16 ``x (B, T, S, C)``
+    with the parameters in x's dtype, every tensor contiguous; the caller
+    has taken :func:`time_block_route`."""
+    b, t, s, c = x.shape
+    p = time_block_pixels(b, t, s, _sm_count(x.device))
+    out = torch.empty_like(x)
+    lib = _build.load_library()
+    code = lib.mv2_time_attention_block(
+        x.data_ptr(), gamma.data_ptr(), wqkv.data_ptr(),
+        mem_kv[0].data_ptr(), mem_kv[1].data_ptr(), wout.data_ptr(),
+        out.data_ptr(), _build.dtype_code(x), b, t, s, c, heads, dim_head,
+        mem_kv.shape[2], p, int(causal),
+        TIME_ROUTES['fused'], _build.stream_handle(x.device))
+    _build.check(lib, code, f'time attention block {tuple(x.shape)}')
+    return out
 
 
 def time_attention_block(x, gamma, wqkv, mem_kv, wout, heads: int,
                          dim_head: int, causal: bool = True):
     """Time attention block on ``(B, T, S, C)``: for each (b, s), attention
-    over t (see ``time_attention_block_ref``)."""
+    over t (see ``time_attention_block_ref``), on the route
+    :func:`time_block_route` picks."""
     if not x.is_cuda:
         return time_attention_block_ref(x, gamma, wqkv, mem_kv, wout, heads,
                                         dim_head, causal)
-    return _launch(x, gamma, wqkv, mem_kv, wout, heads, dim_head, causal,
-                   name='time_attention_block', **time_layout(x))
+    name = 'time_attention_block'
+    _check_block(name, x, gamma, wqkv, mem_kv, wout, heads, dim_head)
+    dt = x.dtype
+    b, t, s, c = x.shape
+    x, gamma, wqkv, mem_kv, wout = (a.to(dt).contiguous() for a in
+                                    (x, gamma, wqkv, mem_kv, wout))
+    route = time_block_route(dt, t, s, c, heads, dim_head, mem_kv.shape[2],
+                             x, gamma, wqkv, mem_kv, wout)
+    if route == 'fused':
+        out = time_block_fused(x, gamma, wqkv, mem_kv, wout, heads, dim_head,
+                               causal)
+    else:
+        out = block_launches(x, gamma, wqkv, mem_kv, wout, heads, dim_head,
+                             causal, **time_layout(x))
+    LAUNCHES[name] += 1
+    LAUNCHES[f'{name}_{route}'] += 1
+    return out
