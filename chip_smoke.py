@@ -118,6 +118,31 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``'auto'`` picks on the card at n = 1024 and n = 256, flash against plain
    ``attend`` on both sides of that threshold, a causal ``TimeAttention``
    through flash, and a rotary and a ``dim_head=16`` module against the CPU.
+8. the JAX package's other configurations (``configs.py``, BASELINE configs
+   1, 3 and 4). Config 4, the 256 px image tokenizer with 2^18 LFQ codes,
+   at full width, bf16, batch 8 of images through ``tokenize`` and
+   ``decode_from_code_indices`` on both paths, with the launches of one
+   roundtrip (B1 2 over 1024 tokens at C = 512, B3 2 over 4096 at C = 512,
+   8 ``wgmma`` GEMMs, no time block, no flash; B4 14 on the fused path,
+   ``MAGVIT2_TPU_FUSED_RU_WIDE_DIMS=128,256,512`` set inside it, 0 on the
+   default one, B5 never) and B4's calls by shape; images/s on each path;
+   its profile with ``--profile`` (``profile_config4*.txt``); a checkpoint
+   round trip on the card (``save`` to a temporary file,
+   ``VideoTokenizer.init_and_load_from`` in bf16: weights, codes and
+   reconstruction bit-identical); float32 batch 1, TF32 off, live
+   SqueezeExcite gates, card against CPU on both paths: a code bit may flip
+   only where the CPU's |z| <= 5e-3, in at most 1% of bits, and the
+   reconstruction from the CPU's codes agrees within 1e-3. B1 at
+   (8, 1024, 512), B3 at (8, 4096, 512) and B4 at (8, 1, 256, 256, 128) and
+   (8, 1, 32, 32, 512) run in phase 3 as its other cases do (rows
+   ``config4_shapes``). Config 3 (FSQ, levels 8 8 8 5 5 5) at the README
+   width: a bf16 batch-8 roundtrip with phase 4's launches, frames/s, and
+   float32 card against CPU, where a level may differ only where the CPU's
+   bounded value lies within 5e-3 of a rounding boundary. Config 1 (images
+   mode, 64 px) float32 card against CPU, as is a small tokenizer with
+   separate first-frame encoding and ``pad_mode='reflect'``, which with
+   ``MAGVIT2_TPU_FUSED_RU_WIDE_DIMS`` set launches no B4 (its zero-padded
+   twin launches 9 in ``tokenize``, ``encode`` and ``decode``). With ``--out`` the readings go to ``configs.json``.
 
 The second-to-last line is the card's ``nvidia-smi`` name and power limit,
 the line before it a JSON object with one entry per kernel; the last line is
@@ -353,7 +378,14 @@ def set_tf32(enabled: bool):
 
 def median_ms(fn, reps: int, warmup: int = 3, inner: int = 1) -> float:
     """Median over ``reps`` CUDA-event timings of ``inner`` back-to-back
-    calls, per call. With ``inner`` > 1 the card's queue stays full, so a
+    calls, per call (``times_ms``)."""
+    times = times_ms(fn, reps, warmup, inner)
+    return times[len(times) // 2]
+
+
+def times_ms(fn, reps: int, warmup: int = 3, inner: int = 1) -> list:
+    """``reps`` CUDA-event timings of ``inner`` back-to-back calls, per
+    call, sorted. With ``inner`` > 1 the card's queue stays full, so a
     call's host work (the wrapper, the launch) overlaps the previous call's
     kernel and the time is the device's; with 1 a short kernel's time also
     holds its own host work."""
@@ -370,8 +402,7 @@ def median_ms(fn, reps: int, warmup: int = 3, inner: int = 1) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
-    times.sort()
-    return times[len(times) // 2]
+    return sorted(times)
 
 
 def bound(flops: float, nbytes: float):
@@ -637,33 +668,44 @@ def check_case(torch, case, reps):
         row['batch_boundary_err'] = (
             fn(both, *args[1:], **kw)[1:] - fn(both[1:], *args[1:], **kw)
         ).abs().max().item()
-    # the attention blocks are short: their calls are timed back to back
-    inner = INNER if case.get('relative') else 1
-    row['ms'] = median_ms(lambda: fn(*args16, **kw), reps, inner=inner)
-    row['plain_ms'] = median_ms(lambda: ref(*args16, **kw), reps,
-                                inner=inner)
-    row['ms_fp32'] = median_ms(lambda: fn(*args, **kw), reps, inner=inner)
-    row['plain_ms_fp32'] = median_ms(lambda: ref(*args, **kw), reps,
-                                     inner=inner)
+    # the attention blocks are short: their calls are timed back to back,
+    # as a case with ``inner`` asks; each time's median and [min, max]
+    inner = case.get('inner', INNER if case.get('relative') else 1)
+
+    def timed(key, call):
+        times = times_ms(call, reps, inner=inner)
+        row[key], row[f'{key}_range'] = times[len(times) // 2], [times[0],
+                                                                 times[-1]]
+
+    timed('ms', lambda: fn(*args16, **kw))
+    timed('plain_ms', lambda: ref(*args16, **kw))
+    timed('ms_fp32', lambda: fn(*args, **kw))
+    timed('plain_ms_fp32', lambda: ref(*args, **kw))
     library = case['library']
-    row['library_ms'] = (median_ms(library(args16[0], args16[1:]), reps,
-                                   inner=inner)
-                         if library is not None else None)
+    row['library_ms'] = None
+    if library is not None:
+        timed('library_ms', library(args16[0], args16[1:]))
     row['calls_per_timing'] = inner
     row['library_call'] = case['library_call']
     row['bound_ms'], row['bound_by'] = bound(*case['cost'])
     how = 'of the largest value' if case.get('relative') else 'max abs'
+
+    def ms(key):
+        lo, hi = row.get(f'{key}_range', (None, None))
+        return (f'{row[key]:.4f} ms [{lo:.4f}, {hi:.4f}]' if lo is not None
+                else f'{row[key]} ms')
+
     log(f'[kernel] {name} {tuple(args[0].shape)}: error ({how}) fp32 '
         f'{held["float32"]:.3e} (tol {tol["float32"]:g}), bf16 '
         f'{held["bfloat16"]:.3e} (tol {tol["bfloat16"]:g}); max abs fp32 '
-        f'{err32:.3e}, bf16 {err16:.3e}; bf16 kernel {row["ms"]:.4f} ms, '
-        f'plain {row["plain_ms"]:.4f} ms, library {row["library_ms"]} ms '
+        f'{err32:.3e}, bf16 {err16:.3e}; bf16 kernel {ms("ms")}, '
+        f'plain {ms("plain_ms")}, library {ms("library_ms")} '
         f'({row["library_call"]}), bound '
         f'{row["bound_ms"]:.4f} ms ({row["bound_by"]}); fp32 kernel '
-        f'{row["ms_fp32"]:.4f} ms, plain {row["plain_ms_fp32"]:.4f} ms'
+        f'{ms("ms_fp32")}, plain {ms("plain_ms_fp32")}'
         + (f'; batch boundary {row["batch_boundary_err"]:.3e}'
            if 'batch_boundary_err' in row else '')
-        + f' (median of {reps}, {inner} calls a timing)')
+        + f' (median [min, max] of {reps}, {inner} calls a timing)')
     if not finite:
         fail(f'{name}: non-finite kernel output')
     for dt in ('float32', 'bfloat16'):
@@ -1602,7 +1644,8 @@ def phase_in_situ(torch, tok, video):
             lat = tok.encode(video)
             with torch.inference_mode():
                 codes = tok.module.quantize(lat).indices
-                z = tok.module.quantizers.sign_values(lat).float()
+                # (..., codebook, bits) -> the one codebook's bits
+                z = tok.module.quantizers.sign_values(lat)[..., 0, :]
             codes_plain = runs['plain']['codes'] if runs else codes
             recon = tok.decode_from_code_indices(codes_plain)
             torch.cuda.synchronize()
@@ -1708,22 +1751,27 @@ def environment(env: dict):
                 os.environ[k] = v
 
 
-def phase_roundtrip(torch, dev, path):
-    """One bf16 batch-8 roundtrip through the user's entry points, the
-    launch counts set to 0 just before and read just after, and the
-    ResidualUnit kernels' calls by shape; then a second, warm roundtrip
-    times each of those calls with CUDA events. Returns the tokenizer, the
-    input, the counts and each RU kernel's summed ms in the warm run."""
+def phase_roundtrip(torch, what, tok, video, codes_shape, launches,
+                    ru_shapes):
+    """One bf16 roundtrip of ``video`` (a batch of clips, or of images)
+    through the user's entry points, ``tokenize`` and
+    ``decode_from_code_indices``, the launch counts set to 0 just before and
+    read just after, and the ResidualUnit kernels' calls by shape; then a
+    second, warm roundtrip times each of those calls with CUDA events. Fails
+    unless the codes are integers of ``codes_shape`` in the codebook, the
+    reconstruction is finite and of the input's shape (a frame axis added
+    for images), the launches are ``launches`` and the calls by shape
+    ``ru_shapes``. Returns the counts and each RU kernel's summed ms in the
+    warm run."""
     from magvit2_pytorch_tpu_torch.ops.kernels import (
         launch_counts, reset_launch_counts)
-    tok = flagship_tokenizer(torch, dev, torch.bfloat16,
-                             lane_pack=path == 'fused')
-    gen = torch.Generator(device=dev).manual_seed(0)
-    video = torch.rand(BATCH, 17, 128, 128, 3, generator=gen, device=dev)
+    n = video.shape[0]
+    recon_shape = (tuple(video.shape) if video.dim() == 5
+                   else (n, 1, *video.shape[1:]))
 
     def roundtrip():
         codes = tok.tokenize(video)
-        return codes, tok.decode_from_code_indices(codes.reshape(BATCH, -1))
+        return codes, tok.decode_from_code_indices(codes.reshape(n, -1))
 
     torch.cuda.synchronize()
     with timed_ru_calls(torch) as calls:
@@ -1733,112 +1781,68 @@ def phase_roundtrip(torch, dev, path):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = launch_counts()
-    by_shape = {k: n for k, (n, _) in ru_calls_by_shape(calls).items()}
+    by_shape = {k: c for k, (c, _) in ru_calls_by_shape(calls).items()}
     with timed_ru_calls(torch) as calls:
         roundtrip()
         torch.cuda.synchronize()
     ru_ms = {}
-    for (name, shape), (n, ms) in sorted(ru_calls_by_shape(calls).items()):
+    for (name, shape), (calls_n, ms) in sorted(
+            ru_calls_by_shape(calls).items()):
         ru_ms[name] = ru_ms.get(name, 0.0) + ms
-        log(f'[roundtrip {path}] {name} {shape}: {n} calls, {ms:.4f} ms '
+        log(f'[{what}] {name} {shape}: {calls_n} calls, {ms:.4f} ms '
             '(warm roundtrip, CUDA events around each call)')
-    log(f'[roundtrip {path}] bf16 batch {BATCH}: codes {tuple(codes.shape)} '
-        f'{codes.dtype}, recon {tuple(recon.shape)} {recon.dtype}, '
-        f'{seconds:.3f} s (first call), launches {counts}, ResidualUnit '
-        f'kernels in the warm roundtrip {ru_ms} ms')
-    if by_shape != ru_calls_expected(path):
-        fail(f'{path} roundtrip: ResidualUnit kernel calls by shape '
-             f'{by_shape}, expected {ru_calls_expected(path)}')
-    if tuple(codes.shape) != (BATCH, 5, 16, 16) or codes.is_floating_point():
-        fail(f'{path}: codes {tuple(codes.shape)} {codes.dtype}')
-    if tuple(recon.shape) != (BATCH, 17, 128, 128, 3):
-        fail(f'{path}: recon shape {tuple(recon.shape)}')
+    log(f'[{what}] bf16 batch {n}: codes {tuple(codes.shape)} {codes.dtype}, '
+        f'recon {tuple(recon.shape)} {recon.dtype}, {seconds:.3f} s (first '
+        f'call), launches {counts}, ResidualUnit kernels in the warm '
+        f'roundtrip {ru_ms} ms')
+    if by_shape != ru_shapes:
+        fail(f'{what}: ResidualUnit kernel calls by shape {by_shape}, '
+             f'expected {ru_shapes}')
+    if tuple(codes.shape) != codes_shape or codes.is_floating_point():
+        fail(f'{what}: codes {tuple(codes.shape)} {codes.dtype}, expected '
+             f'{codes_shape}')
+    if not bool(((codes >= 0) & (codes < tok.codebook_size)).all()):
+        fail(f'{what}: codes outside [0, {tok.codebook_size})')
+    if tuple(recon.shape) != recon_shape:
+        fail(f'{what}: recon shape {tuple(recon.shape)}, expected '
+             f'{recon_shape}')
     if not bool(torch.isfinite(recon).all()):
-        fail(f'{path}: recon has non-finite values')
-    if not bool(((codes >= 0) & (codes < 1024)).all()):
-        fail(f'{path}: codes outside [0, 1024)')
-    for name, want in LAUNCHES[path].items():
-        if counts.get(name) != want:
-            fail(f'{path} roundtrip: {name} launched {counts.get(name)} '
-                 f'times, expected {want}')
-    return tok, video, counts, ru_ms
+        fail(f'{what}: recon has non-finite values')
+    check_launches(f'{what} roundtrip', counts, launches)
+    return counts, ru_ms
 
 
 def phase_card_vs_cpu(torch, dev):
-    """Both card paths against one CPU float32 reference, live SE gates
-    (the CPU's math does not depend on lane_pack or the fused gates)."""
-    from magvit2_pytorch_tpu_torch.ops.basic import live_squeeze_excite_
-    from magvit2_pytorch_tpu_torch.ops.kernels import (
-        launch_counts, reset_launch_counts)
-    set_tf32(False)
-    live = lambda tok: live_squeeze_excite_(
-        tok.module, torch.Generator().manual_seed(11))
-    video = torch.rand(1, 17, 128, 128, 3,
-                       generator=torch.Generator().manual_seed(7))
-    cpu = flagship_tokenizer(torch, 'cpu', torch.float32)
-    live(cpu)
-    t0 = time.perf_counter()
-    lat_cpu = cpu.encode(video)
-    with torch.inference_mode():
-        codes_cpu = cpu.module.quantize(lat_cpu).indices   # as tokenize
-        z = cpu.module.quantizers.sign_values(lat_cpu)      # (1,5,16,16,10)
-    recon_cpu = cpu.decode_from_code_indices(codes_cpu)
-    cpu_s = time.perf_counter() - t0
-    del cpu
-    nbits = 10
-    mask = 2 ** torch.arange(nbits - 1, -1, -1)
-    bits_cpu = (codes_cpu[..., None] & mask) != 0
-    results = {}
-    for path, env in (('default', {}), ('fused', FUSED_ENV)):
-        card = flagship_tokenizer(torch, dev, torch.float32,
-                                  lane_pack=path == 'fused')
-        live(card)
-        with environment(env):
-            reset_launch_counts()
-            codes_card = card.tokenize(video).cpu()
-            lat_card = card.encode(video).cpu()
-            recon_card = card.decode_from_code_indices(
-                codes_cpu.to(dev)).cpu()
-            counts = launch_counts()
-        del card
-        torch.cuda.empty_cache()
-        flipped = bits_cpu != ((codes_card[..., None] & mask) != 0)
-        frac = flipped.float().mean().item()
-        worst = z.abs()[flipped].max().item() if flipped.any() else 0.0
-        lat_err = (lat_card - lat_cpu).abs().max().item()
-        recon_err = (recon_card - recon_cpu).abs().max().item()
-        log(f'[card vs cpu {path}] fp32 batch 1, TF32 off, live SE gates: '
-            f'latents max_abs_err {lat_err:.3e}, code bits flipped '
-            f'{frac:.4%} (worst margin {worst:.3e}), recon from the same '
-            f'codes max_abs_err {recon_err:.3e}; launches {counts}; CPU '
-            f'reference {cpu_s:.1f} s')
-        fused_launches = (counts['residual_unit_wide']
-                          + counts['residual_unit_packed'])
+    """Both flagship card paths against one CPU float32 reference
+    (``card_against_cpu``; the CPU's math does not depend on lane_pack or
+    the fused gates), and on each path the float32 routes: every time block
+    on its launches route, fused units on the fused path only, each fused
+    unit's conv on the f32 route."""
+    clip = torch.rand(1, 17, 128, 128, 3,
+                      generator=torch.Generator().manual_seed(7))
+    results, counts = card_against_cpu(
+        torch, dev, 'flagship', lambda device, path: flagship_tokenizer(
+            torch, device, torch.float32, lane_pack=path == 'fused'), clip,
+        paths=(('default', {}), ('fused', FUSED_ENV)))
+    for path, c in counts.items():
+        fused_launches = c['residual_unit_wide'] + c['residual_unit_packed']
         if (path == 'fused') != (fused_launches > 0):
             fail(f'{path} card path: {fused_launches} ResidualUnit kernel '
                  'launches')
-        if not (counts['time_attention_block_launches']
-                == counts['time_attention_block'] > 0):
-            fail(f'{path} card path, float32: of '
-                 f'{counts["time_attention_block"]} time blocks '
-                 f'{counts["time_attention_block_launches"]} took the '
+        if not (c['time_attention_block_launches']
+                == c['time_attention_block'] > 0):
+            fail(f'{path} card path, float32: of {c["time_attention_block"]} '
+                 f'time blocks {c["time_attention_block_launches"]} took the '
                  'launches route, expected all')
-        if counts['ru_conv_f32'] != fused_launches:
-            fail(f'{path} card path, float32: {counts["ru_conv_f32"]} convs '
-                 f'on the f32 route for {fused_launches} fused units')
-        if frac > 0.01:
-            fail(f'{path}: {frac:.2%} of code bits flipped (> 1%)')
-        if worst > 5e-3:
-            fail(f'{path}: a code bit flipped at margin {worst} > 5e-3')
-        if not recon_err <= 1e-3:
-            fail(f'{path}: recon differs by {recon_err} > 1e-3')
-        results[path] = dict(latents_max_abs_err=lat_err, bits_flipped=frac,
-                             worst_flip_margin=worst,
-                             recon_max_abs_err=recon_err)
+        if c['ru_conv_f32'] != fused_launches:
+            fail(f'{path} card path, float32: {c["ru_conv_f32"]} convs on the '
+                 f'f32 route for {fused_launches} fused units')
     return results
 
 
 def phase_throughput(torch, tok, video, n_short=2, n_long=10):
+    """Frames (images, for a one-frame clip) per second of chained bf16
+    roundtrips, by the slope of ``n_long`` against ``n_short`` runs."""
     module = tok.module
     x0 = video.to(torch.bfloat16)
 
@@ -1856,7 +1860,7 @@ def phase_throughput(torch, tok, video, n_short=2, n_long=10):
     run(n_short)                          # warm up
     t_short, t_long = run(n_short), run(n_long)
     per_iter = (t_long - t_short) / (n_long - n_short)
-    fps = BATCH * 17 / per_iter
+    fps = video.shape[0] * video.shape[1] / per_iter
     return dict(fps=fps, ms_per_roundtrip=per_iter * 1e3,
                 t_short=t_short, t_long=t_long)
 
@@ -1890,9 +1894,16 @@ def profile_roundtrip(torch, tok, video, path, slope_ms):
 
 
 def drive_path(torch, dev, path, smi, profile_dir):
-    """Phases 4 and 5: one path's roundtrip, its frames/s, the default
-    path's in-situ check, its profile."""
-    tok, video, counts, ru_ms = phase_roundtrip(torch, dev, path)
+    """Phases 4 and 5: one path's roundtrip of the flagship, bf16, batch
+    ``BATCH``, its frames/s, the default path's in-situ check, its
+    profile."""
+    tok = flagship_tokenizer(torch, dev, torch.bfloat16,
+                             lane_pack=path == 'fused')
+    gen = torch.Generator(device=dev).manual_seed(0)
+    video = torch.rand(BATCH, 17, 128, 128, 3, generator=gen, device=dev)
+    counts, ru_ms = phase_roundtrip(
+        torch, f'roundtrip {path}', tok, video, (BATCH, 5, 16, 16),
+        LAUNCHES[path], ru_calls_expected(path))
     tp = phase_throughput(torch, tok, video)
     log(f'[throughput {path}] bf16 batch {BATCH} roundtrip: '
         f'{tp["fps"]:.2f} frames/s ({tp["ms_per_roundtrip"]:.2f} ms per '
@@ -2556,6 +2567,367 @@ def phase_attention_step(torch, dev, reps, smi):
             f'{errs} (tol {STEP_TOL["float32"]:g})')
     return counts
 
+# -- the JAX package's other configurations (BASELINE configs 1, 3 and 4) ---
+
+# config 4, the Open-MAGVIT2 256 px image tokenizer (2^18 LFQ codes): B1
+# over 32 x 32 = 1024 tokens at C = 512 and B3 over 64 x 64 = 4096 at C = 512,
+# once a side, with their GEMMs on the wgmma route; no time attention; seven
+# ResidualUnits a side, one at 256^2 x 128, two each at 128^2 x 256,
+# 64^2 x 512 and 32^2 x 512, all B4 on the fused path (init_dim 128 leaves
+# lane packing off, so no B5)
+C4_BATCH = 8
+C4_FUSED_ENV = {'MAGVIT2_TPU_FUSED_RU_WIDE_DIMS': '128,256,512'}
+C4_BLOCKS = {**dict.fromkeys(BLOCKS, 0), 'space_attention_block': 2,
+             'space_attention_core_mma': 2, 'taylor_attention_block': 2,
+             'taylor_core_mma': 2, 'gemm_wgmma': 8}
+C4_RU_STAGES = ((128, 256, 2), (256, 128, 4), (512, 64, 4), (512, 32, 4))
+C4_FUSED_RU = {**NO_RU, 'residual_unit_wide': 14, 'ru_conv_wgmma': 14,
+               'ru_pointwise_wgmma': 14}
+C4_LAUNCHES = {'default': {**C4_BLOCKS, **NO_RU, **NO_FLASH},
+               'fused': {**C4_BLOCKS, **C4_FUSED_RU, **NO_FLASH}}
+# card against CPU (float32, TF32 off, live SqueezeExcite gates): a code
+# digit (an LFQ bit, an FSQ level) may differ only where the CPU's decision
+# margin is at most MARGIN_TOL, in at most DIGITS_TOL of the digits; the
+# reconstruction decoded from the CPU's codes agrees within RECON_TOL
+# (BASELINE.md:17)
+MARGIN_TOL, DIGITS_TOL, RECON_TOL = 5e-3, 1e-2, 1e-3
+# a small tokenizer with separate first-frame encoding and reflect padding,
+# channels the fused ResidualUnit would take at every stage under
+# SFF_FUSED_ENV but for the pad mode
+SFF_REFLECT = dict(image_size=32, init_dim=64, codebook_size=256,
+                   layers=('residual', 'compress_space', 'residual',
+                           'compress_time', 'residual'),
+                   separate_first_frame_encoding=True, pad_mode='reflect',
+                   use_gan=False, perceptual_loss_weight=0.0)
+SFF_FUSED_ENV = {'MAGVIT2_TPU_FUSED_RU_WIDE_DIMS': '64,128,256'}
+
+
+def config_tokenizer(torch, name, device, dtype):
+    """A tokenizer of ``configs.<name>()`` with seeded random weights, for
+    serving (no GAN, no perceptual loss)."""
+    import warnings
+    from magvit2_pytorch_tpu_torch import VideoTokenizer, configs
+    kwargs = getattr(configs, name)(use_gan=False, perceptual_loss_weight=0.0)
+    with warnings.catch_warnings():
+        # config 4's codebook-collapse warning concerns training
+        warnings.simplefilter('ignore', UserWarning)
+        return VideoTokenizer(seed=0, device=device, dtype=dtype, **kwargs)
+
+
+def decision_margins(torch, quantizer, latents):
+    """Each code digit's decision margin, ``(..., d)`` of the first
+    codebook: |z| for an LFQ bit, the distance of the bounded value to the
+    nearest rounding boundary (a half-integer) for an FSQ level."""
+    with torch.inference_mode():
+        if hasattr(quantizer, 'bounded_values'):
+            b = quantizer.bounded_values(latents)
+            margins = 0.5 - (b - torch.round(b)).abs()
+        else:
+            margins = quantizer.sign_values(latents).abs()
+    return margins[..., 0, :].cpu()
+
+
+def code_digits(torch, quantizer, codes):
+    """Integer codes ``(...)`` -> their digits ``(..., d)``: LFQ bits MSB
+    first, FSQ levels in the mixed radix."""
+    codes = codes.cpu()
+    if hasattr(quantizer, 'levels'):
+        return ((codes[..., None] // torch.tensor(quantizer.basis))
+                % torch.tensor(quantizer.levels))
+    d = quantizer.codebook_dim
+    return (codes[..., None] & 2 ** torch.arange(d - 1, -1, -1)) != 0
+
+
+def card_against_cpu(torch, dev, what, make, clip, paths=(('default', {}),)):
+    """float32, TF32 off, live SqueezeExcite gates: the card's codes and its
+    reconstruction from the CPU's codes against the CPU, on the same
+    weights, under the contract of MARGIN_TOL, DIGITS_TOL and RECON_TOL.
+    ``make(device, path)`` builds the tokenizer (``path`` None for the
+    CPU); each of ``paths`` is run with its environment. Returns the
+    readings and the launches of each path."""
+    from magvit2_pytorch_tpu_torch.ops.basic import live_squeeze_excite_
+    from magvit2_pytorch_tpu_torch.ops.kernels import (
+        launch_counts, reset_launch_counts)
+    set_tf32(False)
+    live = lambda tok: live_squeeze_excite_(
+        tok.module, torch.Generator().manual_seed(11))
+    cpu = make('cpu', None)
+    live(cpu)
+    t0 = time.perf_counter()
+    lat_cpu = cpu.encode(clip)
+    with torch.inference_mode():
+        codes_cpu = cpu.module.quantize(lat_cpu).indices     # as tokenize
+    margins = decision_margins(torch, cpu.module.quantizers, lat_cpu)
+    recon_cpu = cpu.decode_from_code_indices(codes_cpu)
+    cpu_s = time.perf_counter() - t0
+    quantizer = cpu.module.quantizers
+    digits_cpu = code_digits(torch, quantizer, codes_cpu)
+    del cpu
+    results, counts = {}, {}
+    for path, env in paths:
+        card = make(dev, path)
+        live(card)
+        with environment(env):
+            reset_launch_counts()
+            codes_card = card.tokenize(clip).cpu()
+            lat_card = card.encode(clip).cpu()
+            recon_card = card.decode_from_code_indices(
+                codes_cpu.to(dev)).cpu()
+            counts[path] = launch_counts()
+        del card
+        torch.cuda.empty_cache()
+        flipped = digits_cpu != code_digits(torch, quantizer, codes_card)
+        frac = flipped.float().mean().item()
+        worst = margins[flipped].max().item() if flipped.any() else 0.0
+        got = dict(latents_max_abs_err=(lat_card - lat_cpu).abs().max().item(),
+                   digits_flipped=frac, worst_flip_margin=worst,
+                   recon_max_abs_err=(recon_card - recon_cpu).abs().max()
+                   .item(), cpu_reference_s=cpu_s)
+        log(f'[card vs cpu {what} {path}] fp32 {tuple(clip.shape)}, TF32 '
+            f'off, live SE gates: latents max_abs_err '
+            f'{got["latents_max_abs_err"]:.3e}, code digits flipped '
+            f'{frac:.4%} (worst CPU margin {worst:.3e}), recon from the '
+            f'CPU codes max_abs_err {got["recon_max_abs_err"]:.3e}; CPU '
+            f'reference {cpu_s:.1f} s')
+        if frac > DIGITS_TOL:
+            fail(f'{what} {path}: {frac:.2%} of code digits flipped '
+                 f'(> {DIGITS_TOL:.0%})')
+        if worst > MARGIN_TOL:
+            fail(f'{what} {path}: a code digit flipped at CPU margin {worst} '
+                 f'> {MARGIN_TOL}')
+        if not got['recon_max_abs_err'] <= RECON_TOL:
+            fail(f'{what} {path}: recon from the CPU codes differs by '
+                 f'{got["recon_max_abs_err"]} > {RECON_TOL}')
+        results[path] = got
+    return results, counts
+
+
+def check_launches(what, counts, want):
+    for name, n in want.items():
+        if counts.get(name) != n:
+            fail(f'{what}: {name} launched {counts.get(name)} times, '
+                 f'expected {n}')
+
+
+def config4_roundtrip(torch, dev, path, smi, profile_dir):
+    """Config 4 at full width, bf16, batch 8 of 256 px images, seeded random
+    weights, through ``phase_roundtrip``; then images/s by the slope of
+    chained runs, and a profile with ``profile_dir``."""
+    tok = config_tokenizer(torch, 'open_magvit2_image_tokenizer_kwargs', dev,
+                           torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    images = torch.rand(C4_BATCH, 256, 256, 3, generator=gen, device=dev)
+    ru_shapes = ({} if path == 'default' else {
+        ('residual_unit_wide', (C4_BATCH, 1, hw, hw, c)): n
+        for c, hw, n in C4_RU_STAGES})
+    counts, _ = phase_roundtrip(torch, f'config 4 {path}', tok, images,
+                                (C4_BATCH, 1, 32, 32), C4_LAUNCHES[path],
+                                ru_shapes)
+    clip = images[:, None]
+    tp = phase_throughput(torch, tok, clip)
+    log(f'[throughput config 4 {path}] bf16 batch {C4_BATCH} roundtrip: '
+        f'{tp["fps"]:.2f} images/s ({tp["ms_per_roundtrip"]:.2f} ms per '
+        f'roundtrip; slope of 2 vs 10 chained runs) on {smi}')
+    if profile_dir:
+        name = 'profile_config4.txt' if path == 'default' else (
+            f'profile_config4_{path}.txt')
+        profile_roundtrip(torch, tok, clip, os.path.join(profile_dir, name),
+                          tp['ms_per_roundtrip'])
+    return tok, images, counts, tp
+
+
+def phase_checkpoint(torch, dev, tok, images):
+    """``save`` the tokenizer to a temporary file and
+    ``VideoTokenizer.init_and_load_from`` it on the card in its dtype: the
+    weights, codes and reconstruction must be bit-identical."""
+    import tempfile
+    from magvit2_pytorch_tpu_torch import VideoTokenizer
+    n = images.shape[0]
+    codes = tok.tokenize(images)
+    recon = tok.decode_from_code_indices(codes.reshape(n, -1))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'tokenizer.ckpt')
+        t0 = time.perf_counter()
+        tok.save(path)
+        save_s, size = time.perf_counter() - t0, os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = VideoTokenizer.init_and_load_from(path, device=dev,
+                                                   dtype=tok.dtype)
+        load_s = time.perf_counter() - t0
+    weights = all(torch.equal(v, loaded.state_dict()[k])
+                  for k, v in tok.state_dict().items())
+    codes2 = loaded.tokenize(images)
+    recon2 = loaded.decode_from_code_indices(codes2.reshape(n, -1))
+    same = dict(weights=weights, codes=torch.equal(codes, codes2),
+                recon=torch.equal(recon, recon2))
+    log(f'[checkpoint] config 4 {tok.dtype}: save {save_s:.1f} s, '
+        f'{size / 2 ** 20:.1f} MiB; init_and_load_from on '
+        f'{loaded.device} {load_s:.1f} s; bit-identical {same}')
+    if not all(same.values()):
+        fail(f'checkpoint round trip on the card is not bit-identical: {same}')
+    del loaded
+    torch.cuda.empty_cache()
+    return dict(same, save_s=save_s, load_s=load_s, bytes=size)
+
+
+def config4_kernel_cases(torch, dev):
+    """B1, B3 and B4 at the shapes config 4 gives them (batch 8, one
+    frame): B1 over 32 x 32 tokens at C = 512, B3 over 64 x 64 at C = 512,
+    B4 at its largest and smallest stage."""
+    import torch.nn.functional as F
+    from magvit2_pytorch_tpu_torch.ops.conv import (
+        pad_time_front, to_channels_first)
+    from magvit2_pytorch_tpu_torch.ops.kernels import (
+        axial_attention as ax, residual_unit as ru, taylor_attention as ta)
+    gen = torch.Generator(device='cpu').manual_seed(4321)
+    cases = []
+    c, heads, dh = 512, 8, 32
+    cases.append(dict(
+        name='space_attention_block', fn=ax.attention_block,
+        ref=ax.attention_block_ref,
+        args=[torch.randn(C4_BATCH, 1024, c, generator=gen),
+              *attn_params(torch, gen, c, heads, dh)],
+        kw=dict(heads=heads, dim_head=dh, causal=False),
+        cost=attention_cost(C4_BATCH, 1024, c, heads, dh, 4, False),
+        library=lambda x16, p16, heads=heads, dh=dh: lambda: (
+            space_block_torch(torch, x16, *p16, heads, dh)),
+        library_call='a sequence of PyTorch calls: F.rms_norm, F.linear, '
+                     'torch.cat of the memory keys, '
+                     'F.scaled_dot_product_attention, F.linear',
+        relative=True))
+    heads, dh = 16, 8
+    cases.append(dict(
+        name='taylor_attention_block', fn=ta.taylor_attention,
+        ref=ta.taylor_attention_ref,
+        args=[torch.randn(C4_BATCH, 4096, c, generator=gen),
+              1 + 0.1 * torch.randn(c, generator=gen),
+              uniform(torch, gen, (3 * heads * dh, c), c),
+              uniform(torch, gen, (c, heads * dh), heads * dh)],
+        kw=dict(heads=heads, dim_head=dh),
+        cost=taylor_cost(C4_BATCH, 4096, c, heads, dh),
+        library=None, library_call=None, relative=True))
+
+    def conv_call(x16, p16):
+        xp = to_channels_first(pad_time_front(x16, 2))
+        return lambda: F.conv3d(xp, p16[0], p16[1], padding=(0, 1, 1))
+
+    for c, hw, _ in (C4_RU_STAGES[0], C4_RU_STAGES[-1]):
+        shape = (C4_BATCH, 1, hw, hw, c)
+        cases.append(dict(
+            name='residual_unit_wide', fn=ru.fused_residual_unit_wide,
+            ref=ru.residual_unit_ref,
+            args=[torch.randn(shape, generator=gen),
+                  *ru_params(torch, c, gen)],
+            kw={}, cost=ru_cost(shape, max(16, c // 2)), library=conv_call,
+            library_call='F.conv3d, the conv step', boundary=True,
+            inner=INNER))
+    with torch.inference_mode(False):
+        for case in cases:
+            case['args'] = [a.to(dev) for a in case['args']]
+    return cases
+
+
+def phase_config4_kernels(torch, dev, reps):
+    """Each config-4 case against its plain version (``check_case``: float32
+    and bf16, the tolerances of phase 3, times, bound, library call):
+    name -> the list of its rows."""
+    rows = {}
+    for case in config4_kernel_cases(torch, dev):
+        rows.setdefault(case['name'], []).append(
+            dict(check_case(torch, case, reps), per='launch'))
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_config4(torch, dev, smi, profile_dir):
+    """Config 4 on both paths, the checkpoint round trip, then float32
+    batch 1 card against CPU on both paths."""
+    out = {}
+    for path, env in (('default', {}), ('fused', C4_FUSED_ENV)):
+        with environment(env):
+            tok, images, counts, tp = config4_roundtrip(
+                torch, dev, path, smi, profile_dir)
+        out[path] = dict(launches=counts, **tp)
+        if path == 'default':
+            out['checkpoint'] = phase_checkpoint(torch, dev, tok, images)
+        del tok, images
+        torch.cuda.empty_cache()
+    clip = torch.rand(1, 1, 256, 256, 3,
+                      generator=torch.Generator().manual_seed(8))
+    out['card_vs_cpu'], counts = card_against_cpu(
+        torch, dev, 'config 4', lambda device, _: config_tokenizer(
+            torch, 'open_magvit2_image_tokenizer_kwargs', device,
+            torch.float32), clip,
+        paths=(('default', {}), ('fused', C4_FUSED_ENV)))
+    # tokenize and encode run the encoder's 7 units each, decode 7 more
+    for path, n in (('default', 0), ('fused', 21)):
+        if counts[path]['residual_unit_wide'] != n:
+            fail(f'config 4 float32 {path}: '
+                 f'{counts[path]["residual_unit_wide"]} B4 launches, '
+                 f'expected {n}')
+    return out
+
+
+def phase_config3(torch, dev, smi):
+    """Config 3 (FSQ, levels 8 8 8 5 5 5) at the README width: one bf16
+    batch-8 roundtrip through ``phase_roundtrip`` with phase 4's launches,
+    frames/s, then float32 batch 1 card against CPU with the FSQ margin."""
+    name = 'fsq_gan_tokenizer_kwargs'
+    tok = config_tokenizer(torch, name, dev, torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    video = torch.rand(BATCH, 17, 128, 128, 3, generator=gen, device=dev)
+    counts, _ = phase_roundtrip(torch, 'config 3', tok, video,
+                                (BATCH, 5, 16, 16), LAUNCHES['default'], {})
+    tp = phase_throughput(torch, tok, video)
+    log(f'[throughput config 3] FSQ bf16 batch {BATCH} roundtrip: '
+        f'{tp["fps"]:.2f} frames/s ({tp["ms_per_roundtrip"]:.2f} ms per '
+        f'roundtrip; slope of 2 vs 10 chained runs) on {smi}')
+    del tok, video
+    torch.cuda.empty_cache()
+    clip = torch.rand(1, 17, 128, 128, 3,
+                      generator=torch.Generator().manual_seed(9))
+    got, _ = card_against_cpu(
+        torch, dev, 'config 3', lambda device, _: config_tokenizer(
+            torch, name, device, torch.float32), clip)
+    return dict(launches=counts, card_vs_cpu=got, **tp)
+
+
+def phase_small_configs(torch, dev):
+    """Config 1 (images mode, 64 px) and the SFF + reflect tokenizer, each
+    float32 card against CPU. Under ``SFF_FUSED_ENV`` the reflect tokenizer
+    launches no B4, where the same one with zero padding launches one a
+    ResidualUnit (9 in tokenize, encode and decode)."""
+    from magvit2_pytorch_tpu_torch import VideoTokenizer
+    out = {}
+    clip = torch.rand(4, 1, 64, 64, 3,
+                      generator=torch.Generator().manual_seed(10))
+    out['config1'], _ = card_against_cpu(
+        torch, dev, 'config 1', lambda device, _: config_tokenizer(
+            torch, 'images_mode_tokenizer_kwargs', device, torch.float32),
+        clip)
+    clip = torch.rand(2, 9, 32, 32, 3,
+                      generator=torch.Generator().manual_seed(12))
+    runs = {}
+    for mode in ('reflect', 'constant'):
+        kwargs = dict(SFF_REFLECT, pad_mode=mode)
+        runs[mode], counts = card_against_cpu(
+            torch, dev, f'SFF + {mode}', lambda device, _: VideoTokenizer(
+                seed=0, device=device, **kwargs), clip,
+            paths=(('fused', SFF_FUSED_ENV),))
+        runs[mode]['b4_launches'] = counts['fused']['residual_unit_wide']
+    log(f'[SFF] B4 launches with {SFF_FUSED_ENV}: reflect '
+        f'{runs["reflect"]["b4_launches"]}, constant '
+        f'{runs["constant"]["b4_launches"]}')
+    if runs['reflect']['b4_launches'] != 0:
+        fail(f'SFF + reflect: {runs["reflect"]["b4_launches"]} B4 launches '
+             '(a unit that pads with the mode never takes B4)')
+    # tokenize and encode run the encoder's 3 units each, decode 3 more
+    if runs['constant']['b4_launches'] != 9:
+        fail(f'SFF + constant: {runs["constant"]["b4_launches"]} B4 '
+             'launches, expected 9 (the control)')
+    out['sff'] = runs
+    return out
+
 
 def main():
     parser = argparse.ArgumentParser()
@@ -2623,6 +2995,9 @@ def main():
         kernel_rows['taylor_core_mma'], split = phase_taylor_block(
             torch, dev, REPS, smi)
         kernel_rows['taylor_attention_block']['split_ms'] = split
+        torch.cuda.empty_cache()
+        for name, rows in phase_config4_kernels(torch, dev, REPS).items():
+            kernel_rows[name]['config4_shapes'] = rows
     torch.cuda.empty_cache()
     kernel_rows.update(phase_flash_kernels(torch, dev, REPS, smi))
     torch.cuda.empty_cache()
@@ -2637,6 +3012,13 @@ def main():
         f'{tp["default"]["fps"]:.2f}, fused {tp["fused"]["fps"]:.2f} on {smi}')
     phase_card_vs_cpu(torch, dev)
     phase_taylor_roundtrip(torch, dev)
+    configs = dict(config4=phase_config4(torch, dev, smi, profile_dir),
+                   config3=phase_config3(torch, dev, smi),
+                   **phase_small_configs(torch, dev))
+    log(f'[throughput configs] bf16 on {smi}: config 4 default '
+        f'{configs["config4"]["default"]["fps"]:.2f} images/s, fused '
+        f'{configs["config4"]["fused"]["fps"]:.2f}; config 3 (FSQ) '
+        f'{configs["config3"]["fps"]:.2f} frames/s')
     counts['attention_step'] = phase_attention_step(torch, dev, REPS, smi)
 
     if 'jax' in sys.modules:
@@ -2661,6 +3043,8 @@ def main():
     if args.out:     # the whole line, which the end of the output may cut
         with open(os.path.join(args.out, 'kernels.json'), 'w') as f:
             json.dump({'kernels': kernels}, f)
+        with open(os.path.join(args.out, 'configs.json'), 'w') as f:
+            json.dump(configs, f)
     for f in LOG_FILES:
         f.close()
     print(json.dumps({'kernels': kernels}))

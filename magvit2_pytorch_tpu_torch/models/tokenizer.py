@@ -9,22 +9,35 @@
 reference's init distributions, then moved to ``device`` in ``dtype`` (the
 working dtype of the whole graph; quantization math stays float32).
 ``device`` defaults to the card (``'cuda'``) and raises where there is none;
-``device='cpu'`` runs every kernel's plain PyTorch version. The
-loss modes, conditioning, checkpoints in the JAX package's msgpack format
-and int8 calibration are not ported yet and raise.
+``device='cpu'`` runs every kernel's plain PyTorch version.
+
+``save`` / ``load`` / ``init_and_load_from`` read and write the JAX
+package's checkpoint format: msgpack (``utils/serialization.py``, the port's
+own codec) of ``{'version', 'config': TokenizerConfig JSON, 'params': the
+JAX params pytree}``, so a checkpoint moves between the two packages either
+way. ``state_dict`` / ``load_state_dict`` stay the module's torch state. The
+loss modes, conditioning, ``init_and_load_from_torch`` and int8 calibration
+are not ported yet and raise.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
-from magvit2_pytorch_tpu_torch.models.jax_import import reference_state_dict
+from magvit2_pytorch_tpu_torch.models.jax_import import (
+    jax_params_from_state_dict, reference_state_dict,
+    state_dict_from_jax_params)
 from magvit2_pytorch_tpu_torch.models.tokenizer_module import (
     TokenizerConfig, TokenizerModule, not_ported)
 from magvit2_pytorch_tpu_torch.ops.basic import init_module_parameters
+from magvit2_pytorch_tpu_torch.utils import serialization
 from magvit2_pytorch_tpu_torch.utils.helpers import divisible_by, exists
+from magvit2_pytorch_tpu_torch.version import __version__
 
 
 class VideoTokenizer:
@@ -62,6 +75,10 @@ class VideoTokenizer:
     def time_downsample_factor(self):
         return self.module.parsed_layers.time_downsample_factor
 
+    @property
+    def codebook_size(self):
+        return self.module.quantizers.codebook_size
+
     # -- weights ---------------------------------------------------------------
 
     def state_dict(self):
@@ -74,6 +91,77 @@ class VideoTokenizer:
         """Load a reference (lucidrains) ``VideoTokenizer.state_dict()``."""
         self.module.load_state_dict(reference_state_dict(self.module, state),
                                     strict=True)
+
+    # -- checkpoints in the JAX package's format -------------------------------
+
+    def save(self, path, overwrite: bool = True):
+        """Write a checkpoint that the JAX package's ``VideoTokenizer.load``
+        and ``init_and_load_from`` read: the config and the generator's
+        weights as the JAX params pytree, in float32."""
+        path = Path(path)
+        if path.exists() and not overwrite:
+            raise FileExistsError(f'{path} already exists')
+        pkg = {'version': __version__, 'config': self.config.to_json(),
+               'params': jax_params_from_state_dict(self.config,
+                                                    self.state_dict())}
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(serialization.msgpack_serialize(pkg))
+
+    def load(self, path, strict: bool = True):
+        """Load the generator's weights from a checkpoint the JAX package
+        (or ``save``) wrote, onto ``self.device`` in ``self.dtype``.
+
+        ``strict=True`` refuses a checkpoint whose params are not exactly
+        the tree this config makes (a leaf missing, left over, or of another
+        shape); ``strict=False`` loads every leaf that fits and keeps the
+        rest. A checkpoint's ``discr_params`` and ``multiscale_params`` are
+        skipped: the port has no discriminator yet (ROADMAP.md queue A item
+        11), and they are never loaded into the generator."""
+        self._load_params(_read_checkpoint(path)['params'], strict, path)
+
+    def _load_params(self, params, strict: bool, path):
+        template = _leaves(jax_params_from_state_dict(self.config,
+                                                      self.state_dict()))
+        given = _leaves(params)
+        missing = sorted(set(template) - set(given))
+        unused = sorted(set(given) - set(template))
+        misfit = sorted(k for k in set(template) & set(given)
+                        if np.shape(given[k]) != template[k].shape)
+        if strict and (missing or unused or misfit):
+            raise ValueError(
+                f'checkpoint {path} does not fit this config: missing '
+                f'{missing[:5]}, unused {unused[:5]}, other shapes '
+                f'{[(k, np.shape(given[k]), template[k].shape) for k in misfit[:5]]}')
+        params = {}
+        for key, leaf in template.items():
+            if key in given and key not in misfit:
+                leaf = given[key]
+            node = params
+            for name in key[:-1]:
+                node = node.setdefault(name, {})
+            node[key[-1]] = leaf
+        self.load_state_dict(state_dict_from_jax_params(self.config, params))
+
+    @classmethod
+    def init_and_load_from(cls, path, strict: bool = True, device=None,
+                           dtype: torch.dtype = torch.float32):
+        """Build the tokenizer a checkpoint's config describes and load its
+        weights (``load``); ``device`` as in the constructor."""
+        pkg = _read_checkpoint(path)
+        if 'config' not in pkg:
+            raise ValueError(f'{path}: no model config in this checkpoint')
+        config = TokenizerConfig.from_json(pkg['config'])
+        tokenizer = cls(device=device, dtype=dtype,
+                        **dataclasses.asdict(config))
+        tokenizer._load_params(pkg['params'], strict, path)
+        return tokenizer
+
+    @classmethod
+    def init_and_load_from_torch(cls, path, strict: bool = True,
+                                 **overrides):
+        """The reference's ``.pt`` package: not ported yet (its only offline
+        oracle needs the reference checkout)."""
+        not_ported('init_and_load_from_torch', '8')
 
     # -- core API --------------------------------------------------------------
 
@@ -177,3 +265,21 @@ class VideoTokenizer:
         if return_codes:
             return qout.indices, recon
         return recon
+
+
+def _read_checkpoint(path) -> dict:
+    pkg = serialization.msgpack_restore(Path(path).read_bytes())
+    if not isinstance(pkg, dict) or 'params' not in pkg:
+        raise ValueError(f'{path} is not a tokenizer checkpoint')
+    return pkg
+
+
+def _leaves(tree, prefix=()) -> dict:
+    """A nested dict's leaves by key path."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.update(_leaves(value, prefix + (key,)))
+        else:
+            out[prefix + (key,)] = value
+    return out

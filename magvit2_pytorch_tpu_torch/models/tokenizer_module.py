@@ -8,8 +8,10 @@ reverse as the reference's ``insert(0)`` builds it, ``quantizers.*``, and the
 final encoder LayerNorm at ``encoder_layers.{n}.1``, present but not applied
 unless ``apply_final_norm``: reference quirk #10).
 
-The port covers the serving slice: every layer type and option outside it
-raises ``NotImplementedError`` naming its ROADMAP.md item.
+The port serves every configuration of the JAX package (LFQ in all its
+options, FSQ, separate first-frame encoding, every pad mode) except
+conditioning, gateloop, streaming and remat: those raise
+``NotImplementedError`` naming their ROADMAP.md item.
 
 ``flash_attn`` never changes the model graph, in either package: it only
 picks the ``attend`` backend the attention layers are built with (None, i.e.
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import warnings
 from typing import Optional, Tuple
 
 import torch
@@ -35,9 +38,10 @@ from magvit2_pytorch_tpu_torch.ops.attention import (
     LinearSpaceAttention, SpaceAttention, TimeAttention)
 from magvit2_pytorch_tpu_torch.ops.basic import (
     FeedForward, Residual, TokenShift)
-from magvit2_pytorch_tpu_torch.ops.conv import CausalConv3d, pad_time_front
+from magvit2_pytorch_tpu_torch.ops.conv import (
+    ZERO_PAD_MODES, CausalConv3d, SameConv2d, pad_time_front)
 from magvit2_pytorch_tpu_torch.ops.norms import LayerNorm
-from magvit2_pytorch_tpu_torch.ops.quantizers import LFQ
+from magvit2_pytorch_tpu_torch.ops.quantizers import FSQ, LFQ
 from magvit2_pytorch_tpu_torch.ops.resample import (
     ResidualUnit, SpatialDownsample2x, SpatialUpsample2x, TimeDownsample2x,
     TimeUpsample2x)
@@ -110,6 +114,21 @@ class TokenizerConfig:
             assert exists(self.codebook_size) and not exists(self.fsq_levels), (
                 'if use_fsq=False, `codebook_size` must be set (and not '
                 '`fsq_levels`)')
+            if (self.codebook_size >= 2 ** 14
+                    and self.lfq_entropy_inv_temperature > 4):
+                # the JAX package's warning, word for word, so that both
+                # packages warn alike (its tokenizer_module.py:174-193)
+                warnings.warn(
+                    f'codebook_size={self.codebook_size} (>= 2^14) with '
+                    f'lfq_entropy_inv_temperature='
+                    f'{self.lfq_entropy_inv_temperature} (> 4): at this scale '
+                    'the entropy diversity gradient saturates within ~25 '
+                    'steps and codebook utilization collapses permanently '
+                    '(measured: results/codebook_2e18_t2.log). Set '
+                    'lfq_entropy_inv_temperature~=2 for real runs, and watch '
+                    "the trainer's mean_bit_entropy metric in the first 50 "
+                    'steps — below ~0.1 means the collapse already happened.',
+                    stacklevel=3)
         else:
             assert not exists(self.codebook_size) and exists(self.fsq_levels), (
                 'if use_fsq=True, `fsq_levels` must be set (and not '
@@ -142,16 +161,9 @@ def check_supported(cfg: TokenizerConfig):
         if t == 'gateloop_time' or t.startswith('cond_'):
             not_ported(f'layer type {t!r}', '9')
     checks = (
-        (cfg.use_fsq, 'use_fsq=True (FSQ)', '6'),
-        (cfg.num_codebooks != 1, 'num_codebooks != 1', '6'),
-        (cfg.lfq_spherical, 'lfq_spherical=True', '6'),
         (exists(cfg.dim_cond), 'dim_cond (conditioning)', '9'),
-        (cfg.separate_first_frame_encoding,
-         'separate_first_frame_encoding=True', '7'),
         (exists(cfg.streaming_kv_window), 'streaming_kv_window', '10'),
         (bool(cfg.remat), 'remat (training)', '12'),
-        (cfg.pad_mode not in ('constant', 'zeros'),
-         f'pad_mode={cfg.pad_mode!r}', '3'),
     )
     for bad, what, item in checks:
         if bad:
@@ -170,7 +182,7 @@ def _compute_lane_pack_end(config: TokenizerConfig) -> int:
         return -1
     if cfg.separate_first_frame_encoding:
         return -1
-    if cfg.pad_mode not in ('constant', 'zeros'):
+    if cfg.pad_mode not in ZERO_PAD_MODES:
         return -1
     if cfg.init_dim >= 128 or cfg.image_size % 2:
         return -1
@@ -253,9 +265,16 @@ class TokenizerModule(nn.Module):
         self.lane_pack_dec_end = end if cfg.lane_pack is True else -1
 
         self.conv_in = CausalConv3d(cfg.channels, cfg.init_dim,
-                                    cfg.input_conv_kernel_size)
+                                    cfg.input_conv_kernel_size,
+                                    pad_mode=cfg.pad_mode)
         self.conv_out = CausalConv3d(cfg.init_dim, cfg.channels,
-                                     cfg.output_conv_kernel_size)
+                                     cfg.output_conv_kernel_size,
+                                     pad_mode=cfg.pad_mode)
+        if cfg.separate_first_frame_encoding:
+            self.conv_in_first_frame = SameConv2d(
+                cfg.channels, cfg.init_dim, cfg.input_conv_kernel_size[-2:])
+            self.conv_out_first_frame = SameConv2d(
+                cfg.init_dim, cfg.channels, cfg.output_conv_kernel_size[-2:])
         self.encoder_layers = nn.ModuleList(
             [_build_layer(spec, cfg, encoder=True) for spec in parsed.specs])
         # the reference appends the final norm (Rearrange, LayerNorm,
@@ -265,19 +284,45 @@ class TokenizerModule(nn.Module):
         self.decoder_layers = nn.ModuleList(
             [_build_layer(spec, cfg, encoder=False)
              for spec in reversed(parsed.specs)])
-        self.quantizers = LFQ(parsed.final_dim, cfg.codebook_size,
-                              soft_clamp_input_value=cfg.lfq_soft_clamp_input_value)
+        if cfg.use_fsq:
+            self.quantizers = FSQ(cfg.fsq_levels, dim=parsed.final_dim,
+                                  num_codebooks=cfg.num_codebooks)
+        else:
+            self.quantizers = LFQ(
+                parsed.final_dim, cfg.codebook_size,
+                num_codebooks=cfg.num_codebooks,
+                entropy_loss_weight=cfg.lfq_entropy_loss_weight,
+                commitment_loss_weight=cfg.lfq_commitment_loss_weight,
+                diversity_gamma=cfg.lfq_diversity_gamma,
+                soft_clamp_input_value=cfg.lfq_soft_clamp_input_value,
+                spherical=cfg.lfq_spherical,
+                exact_codebook_entropy=cfg.lfq_exact_codebook_entropy,
+                inv_temperature=cfg.lfq_entropy_inv_temperature)
 
     @property
     def num_layers(self) -> int:
         return len(self.parsed_layers.specs)
 
+    def _first_frame_apart(self, video_contains_first_frame: bool) -> bool:
+        return (self.config.separate_first_frame_encoding
+                and video_contains_first_frame)
+
     def encode(self, video, video_contains_first_frame: bool = True):
         """Video -> continuous latents ``(B, T', H', W', D)`` before
-        quantization (reference magvit2_pytorch.py:1522-1576)."""
+        quantization (reference magvit2_pytorch.py:1522-1576). With
+        ``separate_first_frame_encoding`` the first frame takes its own 2D
+        conv and the rest ``conv_in``; the time padding goes back in front
+        after them (the JAX package's ``tokenizer_module.py:455-472``)."""
+        tp = self.time_padding
         if video_contains_first_frame:
-            video = pad_time_front(video, self.time_padding)
-        x = self.conv_in(video)
+            video = pad_time_front(video, tp)
+        if self._first_frame_apart(video_contains_first_frame):
+            first = self.conv_in_first_frame(video[:, tp])
+            x = torch.cat([first[:, None], self.conv_in(video[:, tp + 1:])],
+                          dim=1)
+            x = pad_time_front(x, tp)
+        else:
+            x = self.conv_in(video)
         for i, layer in enumerate(self.encoder_layers[:self.num_layers]):
             x = _apply_layer(layer, x, i < self.lane_pack_end)
         if self.config.apply_final_norm:
@@ -293,15 +338,22 @@ class TokenizerModule(nn.Module):
     def decode(self, quantized, video_contains_first_frame: bool = True):
         """Quantized latents -> video (reference magvit2_pytorch.py:1597-1649):
         the decoder layers, ``conv_out``, then the front time padding is
-        cut off."""
+        cut off; with ``separate_first_frame_encoding`` the first frame after
+        the padding takes its own 2D conv and the padding is dropped
+        (``tokenizer_module.py:530-560`` of the JAX package)."""
         x = quantized
         n = len(self.decoder_layers)
         for j, layer in enumerate(self.decoder_layers):
             # decoder_layers are stored reversed: spec index n - 1 - j
             x = _apply_layer(layer, x, n - 1 - j < self.lane_pack_dec_end)
+        tp = self.time_padding
+        if self._first_frame_apart(video_contains_first_frame):
+            first = self.conv_out_first_frame(x[:, tp])
+            return torch.cat([first[:, None], self.conv_out(x[:, tp + 1:])],
+                             dim=1)
         video = self.conv_out(x)
         if video_contains_first_frame:
-            video = video[:, self.time_padding:]
+            video = video[:, tp:]
         return video
 
     def forward(self, video, video_contains_first_frame: bool = True):

@@ -25,7 +25,7 @@ from magvit2_pytorch_tpu.ops.pallas.flash_attention import (
     _flash_forward, flash_attention as jax_flash_attention)
 from magvit2_pytorch_tpu_torch import VideoTokenizer
 from magvit2_pytorch_tpu_torch.models.jax_import import (
-    _attention as attention_state, state_dict_from_jax_params)
+    _apply, _attention_entries, state_dict_from_jax_params)
 from magvit2_pytorch_tpu_torch.ops import attend as pattend
 from magvit2_pytorch_tpu_torch.ops import attention as pattention
 from magvit2_pytorch_tpu_torch.ops import rotary
@@ -412,7 +412,7 @@ def _module_pair(kind, name, dtype=torch.float32):
     jmod = jcls(dim=DIM, dim_head=dim_head, heads=HEADS, **kw, **extra)
     port = getattr(pattention, kind)(DIM, dim_head=dim_head, heads=HEADS, **kw)
     state = {}
-    attention_state(state, 'x', params)
+    _apply(state, _attention_entries('x', ()), params)
     port.load_state_dict({k[2:]: v for k, v in state.items()}, strict=True)
     return jmod, params, port.to(dtype)
 

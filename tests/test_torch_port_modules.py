@@ -76,7 +76,7 @@ def test_feedforward_geglu_tanh_gelu():
     x = rng.normal(size=(2, 3, 4, 4, 24)).astype(np.float32)
     p = _init(jbasic.FeedForward(24), x, rng)
     state = {}
-    jax_import._feedforward(state, 'x', p)
+    jax_import._apply(state, jax_import._feedforward_entries('x', ()), p)
     _check(jbasic.FeedForward(24), p, basic.FeedForward(24),
            {k[2:]: v for k, v in state.items()}, x)
 
@@ -86,9 +86,9 @@ def test_squeeze_excite():
     x = rng.normal(size=(2, 3, 6, 5, 32)).astype(np.float32)
     p = _init(jbasic.SqueezeExcite(32), x, rng)
     state = {}
-    jax_import._linear_params(state, 'to_k', p['to_k'])
-    jax_import._linear_params(state, 'net.0', p['gate_in'])
-    jax_import._linear_params(state, 'net.2', p['gate_out'])
+    for name, key in (('to_k', 'to_k'), ('net.0', 'gate_in'),
+                      ('net.2', 'gate_out')):
+        jax_import._apply(state, jax_import._linear(name, (key,)), p)
     _check(jbasic.SqueezeExcite(32), p, basic.SqueezeExcite(32), state, x)
 
 
@@ -118,9 +118,9 @@ def test_causal_conv3d(kernel_size):
     x = rng.normal(size=(1, 5, 8, 8, 3)).astype(np.float32)
     mod = jconv.CausalConv3d(6, kernel_size)
     p = _init(mod, x, rng)
-    _check(mod, p, conv.CausalConv3d(3, 6, kernel_size),
-           {'conv.weight': jax_import._conv3d(p['kernel']),
-            'conv.bias': _t(p['bias'])}, x)
+    state = {}
+    jax_import._apply(state, jax_import._linear('conv', (), 'conv3d'), p)
+    _check(mod, p, conv.CausalConv3d(3, 6, kernel_size), state, x)
 
 
 @pytest.mark.parametrize('causal', [False, True])
@@ -144,8 +144,8 @@ def test_lfq_eval_path():
     p = _init(jmod, x, rng)
     port = quantizers.LFQ(32, 256)
     state = {}
-    jax_import._linear_params(state, 'project_in', p['project_in'])
-    jax_import._linear_params(state, 'project_out', p['project_out'])
+    for name in ('project_in', 'project_out'):
+        jax_import._apply(state, jax_import._linear(name, (name,)), p)
     port.load_state_dict(state, strict=True)
     want = jmod.apply({'params': p}, jnp.asarray(x))
     with torch.inference_mode():

@@ -31,7 +31,7 @@ from magvit2_pytorch_tpu.ops.pallas.residual_unit_wide import (
 from magvit2_pytorch_tpu.ops.resample import ResidualUnit as JaxResidualUnit
 from magvit2_pytorch_tpu_torch import VideoTokenizer
 from magvit2_pytorch_tpu_torch.models.jax_import import (
-    _residual_unit, state_dict_from_jax_params)
+    _apply, _residual_unit_entries, state_dict_from_jax_params)
 from magvit2_pytorch_tpu_torch.ops.basic import live_squeeze_excite_
 from magvit2_pytorch_tpu_torch.ops.kernels import (
     _build, launch_counts, reset_launch_counts, residual_unit as ru)
@@ -201,7 +201,7 @@ def unit64():
     params = _live_gate_out(params, rng)
     want = np.asarray(jmod.apply({'params': params}, jnp.asarray(x)))
     state = {}
-    _residual_unit(state, 'u', params)
+    _apply(state, _residual_unit_entries('u', ()), params)
     port = ResidualUnit(64, 3)
     port.load_state_dict({k[2:]: v for k, v in state.items()}, strict=True)
     return port, torch.from_numpy(x), want

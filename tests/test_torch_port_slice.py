@@ -25,7 +25,7 @@ from magvit2_pytorch_tpu.models.torch_import import (
 from magvit2_pytorch_tpu_torch import TokenizerConfig, VideoTokenizer
 from magvit2_pytorch_tpu_torch import configs
 from magvit2_pytorch_tpu_torch.models.jax_import import (
-    p_flipped, state_dict_from_jax_params)
+    jax_params_from_state_dict, p_flipped, state_dict_from_jax_params)
 from magvit2_pytorch_tpu_torch.models.layerspec import parse_layers
 
 torch.set_num_threads(1)
@@ -250,18 +250,39 @@ def test_channel_first_image_and_no_first_frame_modes(tiny_pair):
 @pytest.mark.parametrize('overrides', [
     dict(layers=('residual', 'cond_residual'), dim_cond=4),
     dict(layers=('residual', 'gateloop_time')),
-    dict(use_fsq=True, codebook_size=None, fsq_levels=(4, 4)),
-    dict(separate_first_frame_encoding=True),
-    dict(num_codebooks=2),
     dict(dim_cond=4),
     dict(remat='dots'),
     dict(streaming_kv_window=4),
-    dict(pad_mode='reflect'),
-    dict(lfq_spherical=True),
 ], ids=lambda d: next(iter(d)) if 'layers' not in d else d['layers'][1])
 def test_outside_the_slice_raises(overrides):
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         VideoTokenizer(device='cpu', seed=0, **{**TINY, **overrides})
+
+
+@pytest.mark.parametrize('overrides', [
+    dict(use_fsq=True, codebook_size=None, fsq_levels=(4, 4)),
+    dict(separate_first_frame_encoding=True),
+    dict(num_codebooks=2),
+    dict(pad_mode='reflect'),
+    dict(lfq_spherical=True),
+], ids=lambda d: next(iter(d)))
+def test_former_slice_limits_build_and_match_jax(overrides):
+    """Options the port refused before it served the JAX package's other
+    configurations: each builds, and tokenizes and decodes as the JAX
+    package does on the same weights (codes exact, recon within 1e-5)."""
+    kwargs = {**TINY, **overrides}
+    port = VideoTokenizer(device='cpu', seed=4, **kwargs)
+    jtok = JaxTokenizer(params=jax.tree.map(jnp.asarray, (
+        jax_params_from_state_dict(port.config, port.state_dict()))),
+        **kwargs)
+    video = np.random.default_rng(4).random((1, 5, 16, 16, 3),
+                                            dtype=np.float32)
+    codes_j, recon_j = jtok.forward(jnp.asarray(video), return_codes=True,
+                                    return_recon=True)
+    codes, recon = port.forward(video, return_codes=True, return_recon=True)
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(codes_j))
+    np.testing.assert_allclose(recon.numpy(), np.asarray(recon_j), atol=1e-5,
+                               rtol=0)
 
 
 @pytest.mark.parametrize('mode', ['return_loss', 'return_discr_loss',
@@ -272,12 +293,15 @@ def test_training_modes_raise(tiny_pair, mode):
         port.forward(video, **{mode: True})
 
 
-def test_port_imports_and_runs_without_jax():
-    """The port never imports JAX or the JAX package: with both blocked, a
-    tiny CPU roundtrip still runs."""
+def test_port_imports_and_runs_without_jax(tmp_path):
+    """The port never imports JAX, flax, msgpack or the JAX package: with
+    them blocked, tiny CPU roundtrips still run, FSQ included, and a
+    checkpoint saves and loads."""
     code = f'''
 import sys
 sys.modules['jax'] = None
+sys.modules['flax'] = None
+sys.modules['msgpack'] = None
 sys.modules['magvit2_pytorch_tpu'] = None
 sys.path.insert(0, {str(REPO)!r})
 import numpy as np, torch
@@ -296,10 +320,21 @@ for rotary_on in (False, True):
                                return_codes=True, return_recon=True)
     assert tuple(codes.shape) == (1, 2, 4, 4) and tuple(recon.shape) == (1, 3, 8, 8, 3)
     assert torch.isfinite(recon).all()
+fsq = VideoTokenizer(device='cpu', seed=0, image_size=8, init_dim=4, use_fsq=True,
+                     fsq_levels=(8, 5, 5), layers=('residual', 'compress_space'),
+                     pad_mode='reflect', separate_first_frame_encoding=True)
+video = np.random.default_rng(0).random((1, 3, 8, 8, 3), dtype=np.float32)
+codes = fsq.tokenize(video)
+assert tuple(codes.shape) == (1, 3, 4, 4) and int(codes.max()) < 200
+path = {str(tmp_path / 'fsq.ckpt')!r}
+fsq.save(path)
+again = VideoTokenizer.init_and_load_from(path, device='cpu')
+again.load(path)
+assert torch.equal(again.tokenize(video), codes)
 q = torch.ones(1, 1, 4, 16, requires_grad=True)
 attend.attend(q, q, q, causal=True, backend='flash').sum().backward()
 assert torch.isfinite(q.grad).all()
-assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax'))
+assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax', 'msgpack'))
                for m in sys.modules if sys.modules[m] is not None)
 print('ok')
 '''
@@ -312,7 +347,9 @@ print('ok')
 def test_no_jax_in_port_sources():
     for path in (REPO / 'magvit2_pytorch_tpu_torch').rglob('*.py'):
         text = path.read_text()
-        assert 'import jax' not in text and 'from jax' not in text, path
+        for package in ('jax', 'flax', 'msgpack'):
+            assert (f'import {package}' not in text
+                    and f'from {package}' not in text), path
         assert 'magvit2_pytorch_tpu.' not in text.replace(
             'magvit2_pytorch_tpu/', ''), path
         assert 'from magvit2_pytorch_tpu import' not in text, path
