@@ -143,6 +143,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
    separate first-frame encoding and ``pad_mode='reflect'``, which with
    ``MAGVIT2_TPU_FUSED_RU_WIDE_DIMS`` set launches no B4 (its zero-padded
    twin launches 9 in ``tokenize``, ``encode`` and ``decode``). With ``--out`` the readings go to ``configs.json``.
+9. the rest of serving. Config 5 (256 px x 65 frames, 2^14 codes, bf16,
+   batch 1) whole-clip through ``tokenize`` / ``decode_from_code_indices``
+   on both paths (no kernel on the default path: config 5 has no
+   attention; B4 20 and B5 2 on the fused one), then ``tokenize_streaming``
+   (chunks of 17, 16, 16, 16 frames) and ``decode_streaming`` (5, 4, 4, 4
+   latent frames) on each, with frames/s and peak device memory of every
+   run and no B2, B4, B5 or flash launch in a stream; float32 streamed
+   against whole-clip under the margin rule. The README stack streamed
+   (chunks of 5, 4, 4, 4 frames, batch 8): B3 and B1 once a chunk, no
+   B2, B4 or B5, codes against whole-clip in bf16 and float32, and the
+   kv-cache under ``streaming_kv_window=2``. The ``.pt`` import of that
+   tokenizer on the card, bit-identical. A conditioned stack at README
+   width (``COND_LAYERS``, dim_cond 32, bf16 batch 8) on both paths at
+   attention heads 8 x 16: B3 twice on its no-norm route, no norm launch,
+   no B1 or B2, B4 for the plain units; frames/s; its stream with cond
+   fixed; float32 card against CPU at 32 px. The same stack at the
+   README's heads, 32 x 8, where no attention kernel runs (B3 takes heads
+   of 8 only): its launches, frames/s and float32 card against CPU. B3's no-norm route against its plain version at the
+   flagship shape (the kernels line's B3 row, key ``no_norm``).
 
 The second-to-last line is the card's ``nvidia-smi`` name and power limit,
 the line before it a JSON object with one entry per kernel; the last line is
@@ -1644,26 +1663,22 @@ def phase_in_situ(torch, tok, video):
             lat = tok.encode(video)
             with torch.inference_mode():
                 codes = tok.module.quantize(lat).indices
-                # (..., codebook, bits) -> the one codebook's bits
-                z = tok.module.quantizers.sign_values(lat)[..., 0, :]
             codes_plain = runs['plain']['codes'] if runs else codes
             recon = tok.decode_from_code_indices(codes_plain)
             torch.cuda.synchronize()
             counts = launch_counts()
-        runs[name] = dict(lat=lat, codes=codes, z=z, recon=recon)
+        runs[name] = dict(lat=lat, codes=codes, recon=recon)
         if any(counts[key] != n for key, n in want.items()):
             fail(f'in-situ check, {name}: encode + decode launched {counts}, '
                  f'expected {want}')
     plain, blocks = runs['plain'], runs['blocks']
-    mask = 2 ** torch.arange(9, -1, -1, device=video.device)
-    flipped = (((plain['codes'][..., None] & mask) != 0)
-               != ((blocks['codes'][..., None] & mask) != 0))
-    zmax = plain['z'].abs().max().item()
-    worst = (plain['z'].abs()[flipped].max().item() / zmax
-             if flipped.any() else 0.0)
+    quantizer = tok.module.quantizers
+    margins = decision_margins(torch, quantizer, plain['lat'])
+    frac, worst = flips(code_digits(torch, quantizer, plain['codes']),
+                        code_digits(torch, quantizer, blocks['codes']), margins)
     got = dict(latents=relative_error(blocks['lat'], plain['lat']),
-               bits_flipped=flipped.float().mean().item(),
-               worst_flip_margin=worst,
+               bits_flipped=frac,
+               worst_flip_margin=worst / margins.max().item(),
                recon=relative_error(blocks['recon'], plain['recon']))
     log(f'[in situ] bf16 batch {BATCH}, blocks against the general plain '
         f'path: latents {got["latents"]:.3e} of the largest value, code '
@@ -1751,8 +1766,16 @@ def environment(env: dict):
                 os.environ[k] = v
 
 
+def whole_roundtrip(tok, video, cond=None):
+    """``tokenize`` and ``decode_from_code_indices`` of the flattened codes,
+    the user's whole-clip roundtrip: (codes, reconstruction)."""
+    codes = tok.tokenize(video, cond=cond)
+    return codes, tok.decode_from_code_indices(
+        codes.reshape(codes.shape[0], -1), cond=cond)
+
+
 def phase_roundtrip(torch, what, tok, video, codes_shape, launches,
-                    ru_shapes):
+                    ru_shapes, cond=None):
     """One bf16 roundtrip of ``video`` (a batch of clips, or of images)
     through the user's entry points, ``tokenize`` and
     ``decode_from_code_indices``, the launch counts set to 0 just before and
@@ -1761,29 +1784,25 @@ def phase_roundtrip(torch, what, tok, video, codes_shape, launches,
     unless the codes are integers of ``codes_shape`` in the codebook, the
     reconstruction is finite and of the input's shape (a frame axis added
     for images), the launches are ``launches`` and the calls by shape
-    ``ru_shapes``. Returns the counts and each RU kernel's summed ms in the
-    warm run."""
+    ``ru_shapes``. ``cond``: the cond vector of a conditioned config.
+    Returns the counts and each RU kernel's summed ms in the warm run."""
     from magvit2_pytorch_tpu_torch.ops.kernels import (
         launch_counts, reset_launch_counts)
     n = video.shape[0]
     recon_shape = (tuple(video.shape) if video.dim() == 5
                    else (n, 1, *video.shape[1:]))
 
-    def roundtrip():
-        codes = tok.tokenize(video)
-        return codes, tok.decode_from_code_indices(codes.reshape(n, -1))
-
     torch.cuda.synchronize()
     with timed_ru_calls(torch) as calls:
         reset_launch_counts()
         t0 = time.perf_counter()
-        codes, recon = roundtrip()
+        codes, recon = whole_roundtrip(tok, video, cond)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = launch_counts()
     by_shape = {k: c for k, (c, _) in ru_calls_by_shape(calls).items()}
     with timed_ru_calls(torch) as calls:
-        roundtrip()
+        whole_roundtrip(tok, video, cond)
         torch.cuda.synchronize()
     ru_ms = {}
     for (name, shape), (calls_n, ms) in sorted(
@@ -1840,11 +1859,13 @@ def phase_card_vs_cpu(torch, dev):
     return results
 
 
-def phase_throughput(torch, tok, video, n_short=2, n_long=10):
+def phase_throughput(torch, tok, video, n_short=2, n_long=10, cond=None):
     """Frames (images, for a one-frame clip) per second of chained bf16
     roundtrips, by the slope of ``n_long`` against ``n_short`` runs."""
     module = tok.module
     x0 = video.to(torch.bfloat16)
+    if cond is not None:
+        cond = cond.to(torch.bfloat16)
 
     def run(n):
         torch.cuda.synchronize()
@@ -1852,7 +1873,7 @@ def phase_throughput(torch, tok, video, n_short=2, n_long=10):
         with torch.inference_mode():
             v = x0
             for i in range(n):
-                recon, _ = module(v)
+                recon, _ = module(v, cond=cond)
                 v = recon + 1e-6 * i      # data dependency across iterations
         torch.cuda.synchronize()
         return time.perf_counter() - t0
@@ -1865,7 +1886,7 @@ def phase_throughput(torch, tok, video, n_short=2, n_long=10):
                 t_short=t_short, t_long=t_long)
 
 
-def profile_roundtrip(torch, tok, video, path, slope_ms):
+def profile_roundtrip(torch, tok, video, path, slope_ms, cond=None):
     """One bf16 roundtrip under torch.profiler: the device time of its
     kernels (device events only, so no operator row counts its kernels a
     second time), their share of ``slope_ms`` (the unprofiled roundtrip time
@@ -1873,12 +1894,14 @@ def profile_roundtrip(torch, tok, video, path, slope_ms):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     x = video.to(torch.bfloat16)
+    if cond is not None:
+        cond = cond.to(torch.bfloat16)
     with torch.inference_mode():
-        tok.module(x)                     # warm
+        tok.module(x, cond=cond)          # warm
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            tok.module(x)
+            tok.module(x, cond=cond)
             torch.cuda.synchronize()
     device_us = sum(e.time_range.elapsed_us() for e in prof.events()
                     if e.device_type == DeviceType.CUDA)
@@ -2602,12 +2625,13 @@ SFF_REFLECT = dict(image_size=32, init_dim=64, codebook_size=256,
 SFF_FUSED_ENV = {'MAGVIT2_TPU_FUSED_RU_WIDE_DIMS': '64,128,256'}
 
 
-def config_tokenizer(torch, name, device, dtype):
+def config_tokenizer(torch, name, device, dtype, **overrides):
     """A tokenizer of ``configs.<name>()`` with seeded random weights, for
     serving (no GAN, no perceptual loss)."""
     import warnings
     from magvit2_pytorch_tpu_torch import VideoTokenizer, configs
-    kwargs = getattr(configs, name)(use_gan=False, perceptual_loss_weight=0.0)
+    kwargs = getattr(configs, name)(use_gan=False, perceptual_loss_weight=0.0,
+                                    **overrides)
     with warnings.catch_warnings():
         # config 4's codebook-collapse warning concerns training
         warnings.simplefilter('ignore', UserWarning)
@@ -2638,13 +2662,32 @@ def code_digits(torch, quantizer, codes):
     return (codes[..., None] & 2 ** torch.arange(d - 1, -1, -1)) != 0
 
 
-def card_against_cpu(torch, dev, what, make, clip, paths=(('default', {}),)):
+def flips(digits_ref, digits_got, margins):
+    """The share of code digits that differ and the largest decision margin
+    at a flip (0 where none flipped)."""
+    flipped = digits_ref != digits_got
+    worst = margins[flipped].max().item() if flipped.any() else 0.0
+    return flipped.float().mean().item(), worst
+
+
+def check_bits(what, frac, worst, limit):
+    """The code-digit contract: at most DIGITS_TOL of the digits flipped,
+    each where the margin is at most ``limit``."""
+    if frac > DIGITS_TOL:
+        fail(f'{what}: {frac:.2%} of code digits flipped (> {DIGITS_TOL:.0%})')
+    if worst > limit:
+        fail(f'{what}: a code digit flipped at margin {worst} > {limit}')
+
+
+def card_against_cpu(torch, dev, what, make, clip, paths=(('default', {}),),
+                     cond=None):
     """float32, TF32 off, live SqueezeExcite gates: the card's codes and its
     reconstruction from the CPU's codes against the CPU, on the same
     weights, under the contract of MARGIN_TOL, DIGITS_TOL and RECON_TOL.
     ``make(device, path)`` builds the tokenizer (``path`` None for the
-    CPU); each of ``paths`` is run with its environment. Returns the
-    readings and the launches of each path."""
+    CPU); each of ``paths`` is run with its environment; ``cond`` goes to
+    every call of a conditioned config. Returns the readings and the
+    launches of each path."""
     from magvit2_pytorch_tpu_torch.ops.basic import live_squeeze_excite_
     from magvit2_pytorch_tpu_torch.ops.kernels import (
         launch_counts, reset_launch_counts)
@@ -2654,11 +2697,11 @@ def card_against_cpu(torch, dev, what, make, clip, paths=(('default', {}),)):
     cpu = make('cpu', None)
     live(cpu)
     t0 = time.perf_counter()
-    lat_cpu = cpu.encode(clip)
+    lat_cpu = cpu.encode(clip, cond=cond)
     with torch.inference_mode():
         codes_cpu = cpu.module.quantize(lat_cpu).indices     # as tokenize
     margins = decision_margins(torch, cpu.module.quantizers, lat_cpu)
-    recon_cpu = cpu.decode_from_code_indices(codes_cpu)
+    recon_cpu = cpu.decode_from_code_indices(codes_cpu, cond=cond)
     cpu_s = time.perf_counter() - t0
     quantizer = cpu.module.quantizers
     digits_cpu = code_digits(torch, quantizer, codes_cpu)
@@ -2669,16 +2712,15 @@ def card_against_cpu(torch, dev, what, make, clip, paths=(('default', {}),)):
         live(card)
         with environment(env):
             reset_launch_counts()
-            codes_card = card.tokenize(clip).cpu()
-            lat_card = card.encode(clip).cpu()
+            codes_card = card.tokenize(clip, cond=cond).cpu()
+            lat_card = card.encode(clip, cond=cond).cpu()
             recon_card = card.decode_from_code_indices(
-                codes_cpu.to(dev)).cpu()
+                codes_cpu.to(dev), cond=cond).cpu()
             counts[path] = launch_counts()
         del card
         torch.cuda.empty_cache()
-        flipped = digits_cpu != code_digits(torch, quantizer, codes_card)
-        frac = flipped.float().mean().item()
-        worst = margins[flipped].max().item() if flipped.any() else 0.0
+        frac, worst = flips(digits_cpu, code_digits(torch, quantizer,
+                                                     codes_card), margins)
         got = dict(latents_max_abs_err=(lat_card - lat_cpu).abs().max().item(),
                    digits_flipped=frac, worst_flip_margin=worst,
                    recon_max_abs_err=(recon_card - recon_cpu).abs().max()
@@ -2689,12 +2731,7 @@ def card_against_cpu(torch, dev, what, make, clip, paths=(('default', {}),)):
             f'{frac:.4%} (worst CPU margin {worst:.3e}), recon from the '
             f'CPU codes max_abs_err {got["recon_max_abs_err"]:.3e}; CPU '
             f'reference {cpu_s:.1f} s')
-        if frac > DIGITS_TOL:
-            fail(f'{what} {path}: {frac:.2%} of code digits flipped '
-                 f'(> {DIGITS_TOL:.0%})')
-        if worst > MARGIN_TOL:
-            fail(f'{what} {path}: a code digit flipped at CPU margin {worst} '
-                 f'> {MARGIN_TOL}')
+        check_bits(f'{what} {path}', frac, worst, MARGIN_TOL)
         if not got['recon_max_abs_err'] <= RECON_TOL:
             fail(f'{what} {path}: recon from the CPU codes differs by '
                  f'{got["recon_max_abs_err"]} > {RECON_TOL}')
@@ -2929,6 +2966,499 @@ def phase_small_configs(torch, dev):
     return out
 
 
+# ---- phase 9: the rest of serving ---------------------------------------------
+
+# config 5 (BASELINE config 5, configs.streaming_video_tokenizer_kwargs):
+# 256 px x 65 frames, batch 1; streamed in chunks of 17, 16, 16, 16 frames
+# and of 5, 4, 4, 4 latent frames
+C5_SHAPE = (1, 65, 256, 256, 3)
+C5_CHUNK_FRAMES, C5_CHUNK_LATENTS = 16, 4
+# its ResidualUnit stages after the stem (C, T, H = W, B4 per fused
+# roundtrip); the 64-channel stem takes B5 (lane_pack) at C5_STEM
+C5_RU_STAGES = ((128, 68, 128, 4), (256, 68, 64, 4), (512, 68, 32, 4),
+                (512, 34, 32, 4), (512, 17, 32, 4))
+C5_STEM = (68, 256)
+NO_BLOCKS = dict.fromkeys(BLOCKS, 0)
+# config 5 has no attention layer: its default path launches no kernel,
+# its fused path B4 and B5
+C5_LAUNCHES = {'default': {**NO_BLOCKS, **NO_RU, **NO_FLASH},
+               'fused': {**NO_BLOCKS, **FUSED_RU, **NO_FLASH}}
+# a stream launches no B2 and no fused ResidualUnit (their gates refuse a
+# stream, as the JAX package's do), and no flash kernel
+STREAM_NONE = {'time_attention_block': 0, 'time_attention_block_fused': 0,
+               'time_attention_block_launches': 0, **NO_RU, **NO_FLASH}
+# the README stack streamed in chunks of 5, 4, 4, 4 frames (2, 1, 1, 1
+# latent frames) and decoded a latent frame at a time (2, 1, 1, 1): its
+# Taylor and space blocks run on every chunk, per frame as whole-clip
+# (SpaceAttention keeps no stream state and takes the block, as in the JAX
+# package); its time attention takes the general path with the kv-cache
+README_CHUNK_FRAMES, README_CHUNK_LATENTS = 4, 1
+README_STREAM = {**STREAM_NONE, 'taylor_attention_block': 8,
+                 'taylor_core_mma': 8, 'space_attention_block': 8,
+                 'space_attention_core_mma': 8, 'gemm_wgmma': 32,
+                 'rmsnorm': 16}
+# the conditioned stack: README_LAYERS with linear_attend_space,
+# attend_space and attend_time conditioned, the last consecutive pair of
+# ResidualUnits two cond_residual and a gateloop_time after the time
+# attention. The conditioned linear attention takes the full attention's
+# head shape (attn_dim_head x attn_heads, as the JAX package builds it,
+# tokenizer_module.py:301-308), so the stack runs at two head shapes: the
+# README's 32 x 8, where B3 does not run (it takes heads of 8 only, and a
+# 32-wide head has 1057 Taylor features: the conditioned linear attention
+# runs its plain version on the card, where the JAX kernel's VMEM fit takes
+# this head up to 744 tokens a frame), and 8 x 16, the linear attention's
+# own, where B3 runs on its no-norm route
+COND_DIM = 32
+COND_LAYERS = (
+    'residual', 'compress_space', ('consecutive_residual', 2),
+    'compress_space', ('consecutive_residual', 2), 'cond_linear_attend_space',
+    'compress_space', ('consecutive_residual', 2), 'cond_attend_space',
+    'compress_time', ('consecutive_residual', 2), 'compress_time',
+    'cond_residual', 'cond_residual', 'cond_attend_time', 'gateloop_time')
+COND_HEADS = {'8x16': dict(attn_dim_head=8, attn_heads=16),
+              '32x8': dict(attn_dim_head=32, attn_heads=8)}
+# per roundtrip at 8 x 16: B3 twice on its no-norm route (two GEMMs each),
+# no norm launch, no B1 or B2 (the conditioned norm sends both to the
+# general path); at 32 x 8 no attention kernel at all. B4 on the fused path
+# for the plain ResidualUnits, RU_STAGES but the last stage, whose pair
+# became cond_residual
+COND_BLOCKS = {'8x16': {**NO_BLOCKS, 'taylor_attention_block': 2,
+                        'taylor_attention_block_no_norm': 2,
+                        'taylor_core_mma': 2, 'gemm_wgmma': 4, 'rmsnorm': 0},
+               '32x8': {**NO_BLOCKS, 'taylor_attention_block_no_norm': 0,
+                        'rmsnorm': 0}}
+COND_FUSED_RU = {**FUSED_RU, 'residual_unit_wide': 16, 'ru_conv_wgmma': 18,
+                 'ru_pointwise_wgmma': 18}
+COND_LAUNCHES = {heads: {'default': {**blocks, **NO_RU, **NO_FLASH},
+                         'fused': {**blocks, **COND_FUSED_RU, **NO_FLASH}}
+                 for heads, blocks in COND_BLOCKS.items()}
+COND_STREAM = {**STREAM_NONE, 'space_attention_block': 0,
+               'taylor_attention_block': 8,
+               'taylor_attention_block_no_norm': 8, 'rmsnorm': 0}
+
+
+def cond_stack_kwargs(heads='8x16', **overrides):
+    from magvit2_pytorch_tpu_torch.configs import readme_video_tokenizer_kwargs
+    return readme_video_tokenizer_kwargs(**{
+        **dict(layers=COND_LAYERS, dim_cond=COND_DIM, use_gan=False,
+               perceptual_loss_weight=0.0, **COND_HEADS[heads]),
+        **overrides})
+
+
+def peak_run(torch, fn, reps: int = 3):
+    """``fn()`` once to warm up, then ``reps`` timed runs (host clock,
+    synchronized): the output of the last, the median seconds, and the
+    peak device memory of one run above what was allocated before it."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    return out, sorted(times)[reps // 2], dict(peak_bytes=peak,
+                                               peak_above_bytes=peak - before)
+
+
+def counted(torch, fn):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after: (output, counts)."""
+    from magvit2_pytorch_tpu_torch.ops.kernels import (
+        launch_counts, reset_launch_counts)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launch_counts()
+
+
+def stream_roundtrip(tok, video, chunk_frames, chunk_latents, cond=None):
+    from magvit2_pytorch_tpu_torch.models.streaming import (
+        decode_streaming, tokenize_streaming)
+    codes = tokenize_streaming(tok, video, chunk_frames=chunk_frames,
+                               cond=cond)
+    return codes, decode_streaming(tok, codes, chunk_latents=chunk_latents,
+                                   cond=cond)
+
+
+def bits_against(torch, tok, video, codes, cond=None, relative=False):
+    """Code digits of ``codes`` against the whole-clip encode of ``video``
+    on ``tok``: the share flipped and the largest decision margin |z| (of
+    the largest |z| with ``relative``) at a flip."""
+    lat = tok.encode(video, cond=cond)
+    quantizer = tok.module.quantizers
+    with torch.inference_mode():
+        whole = quantizer(lat).indices
+    margins = decision_margins(torch, quantizer, lat)
+    frac, worst = flips(code_digits(torch, quantizer, whole),
+                        code_digits(torch, quantizer, codes), margins)
+    if relative:
+        worst /= margins.max().item()
+    return whole, frac, worst
+
+
+def phase_config5(torch, dev, smi):
+    """Config 5 at full width, bf16, batch 1 of 256 px x 65 frames:
+    whole-clip ``tokenize`` + ``decode_from_code_indices`` on the default
+    and the fused path (``phase_roundtrip``), then ``tokenize_streaming`` /
+    ``decode_streaming`` on each, with frames/s and peak device memory of
+    each run and the launches of each stream (no B2, B4, B5 or flash);
+    then float32, TF32 off, live SqueezeExcite gates, default path:
+    streamed against whole-clip on the card (MARGIN_TOL, DIGITS_TOL; the
+    reconstruction from the same codes within RECON_TOL)."""
+    from magvit2_pytorch_tpu_torch.ops.basic import live_squeeze_excite_
+    gen = torch.Generator(device=dev).manual_seed(5)
+    video = torch.rand(C5_SHAPE, generator=gen, device=dev)
+    frames = C5_SHAPE[0] * C5_SHAPE[1]
+    out = {}
+    for path, env in (('default', {}), ('fused', FUSED_ENV)):
+        with environment(env):
+            tok = config_tokenizer(torch, 'streaming_video_tokenizer_kwargs',
+                                   dev, torch.bfloat16,
+                                   lane_pack=path == 'fused')
+            ru = {}
+            if path == 'fused':
+                ru = {('residual_unit_wide', (1, t, hw, hw, c)): n
+                      for c, t, hw, n in C5_RU_STAGES}
+                t, hw = C5_STEM
+                ru[('residual_unit_packed', (1, t, hw, hw, 64))] = 2
+            counts, _ = phase_roundtrip(
+                torch, f'config 5 {path}', tok, video, (1, 17, 32, 32),
+                C5_LAUNCHES[path], ru)
+            (codes_w, _), whole_s, whole_mem = peak_run(
+                torch, lambda: whole_roundtrip(tok, video))
+            (codes_s, recon_s), stream_counts = counted(
+                torch, lambda: stream_roundtrip(
+                    tok, video, C5_CHUNK_FRAMES, C5_CHUNK_LATENTS))
+            _, stream_s, stream_mem = peak_run(
+                torch, lambda: stream_roundtrip(
+                    tok, video, C5_CHUNK_FRAMES, C5_CHUNK_LATENTS))
+        check_launches(f'config 5 {path} stream', stream_counts, STREAM_NONE)
+        if (tuple(codes_s.shape) != tuple(codes_w.shape)
+                or tuple(recon_s.shape) != C5_SHAPE
+                or not bool(torch.isfinite(recon_s).all())):
+            fail(f'config 5 {path} stream: codes {tuple(codes_s.shape)}, '
+                 f'recon {tuple(recon_s.shape)}')
+        same = (codes_s == codes_w).float().mean().item()
+        out[path] = dict(
+            launches=counts, stream_launches=stream_counts,
+            whole_fps=frames / whole_s, stream_fps=frames / stream_s,
+            whole_s=whole_s, stream_s=stream_s, whole_memory=whole_mem,
+            stream_memory=stream_mem, codes_equal_bf16=same,
+            stream_peak_share=(stream_mem['peak_above_bytes']
+                               / whole_mem['peak_above_bytes']))
+        log(f'[config 5 {path}] bf16 {C5_SHAPE}: whole-clip tokenize + '
+            f'decode {frames / whole_s:.2f} frames/s ({whole_s:.4f} s), '
+            f'peak {whole_mem["peak_above_bytes"] / 2 ** 30:.3f} GiB above '
+            f'the weights and input ({whole_mem["peak_bytes"] / 2 ** 30:.3f} '
+            f'GiB in all); streamed (chunks {C5_CHUNK_FRAMES} frames, '
+            f'{C5_CHUNK_LATENTS} latents) {frames / stream_s:.2f} frames/s '
+            f'({stream_s:.4f} s), peak '
+            f'{stream_mem["peak_above_bytes"] / 2 ** 30:.3f} GiB above '
+            f'({out[path]["stream_peak_share"]:.1%} of whole-clip); stream '
+            f'launches {stream_counts}; bf16 codes equal to whole-clip '
+            f'{same:.4%} (median of 3 warm runs, host clock) on {smi}')
+        del tok
+        torch.cuda.empty_cache()
+    set_tf32(False)
+    tok = config_tokenizer(torch, 'streaming_video_tokenizer_kwargs', dev,
+                           torch.float32)
+    live_squeeze_excite_(tok.module, torch.Generator().manual_seed(11))
+    clip = video.float()
+    codes_s, _ = stream_roundtrip(tok, clip, C5_CHUNK_FRAMES,
+                                  C5_CHUNK_LATENTS)
+    whole, frac, worst = bits_against(torch, tok, clip, codes_s)
+    from magvit2_pytorch_tpu_torch.models.streaming import decode_streaming
+    err = (decode_streaming(tok, whole, chunk_latents=C5_CHUNK_LATENTS)
+           - tok.decode_from_code_indices(whole)).abs().max().item()
+    out['float32_stream_vs_whole'] = dict(digits_flipped=frac,
+                                          worst_flip_margin=worst,
+                                          recon_max_abs_err=err)
+    log(f'[config 5 fp32] streamed against whole-clip on the card, TF32 off, '
+        f'live SE gates: code digits flipped {frac:.4%} (worst margin '
+        f'{worst:.3e}), recon from the same codes max abs err {err:.3e} '
+        f'(tol {MARGIN_TOL:g} / {DIGITS_TOL:g} / {RECON_TOL:g})')
+    check_bits('config 5 float32 stream', frac, worst, MARGIN_TOL)
+    if not err <= RECON_TOL:
+        fail(f'config 5 float32 stream: recon differs by {err} > {RECON_TOL}')
+    del tok, video, clip
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_readme_stream(torch, dev, smi):
+    """The README stack, bf16 batch 8, streamed (chunks of 5, 4, 4, 4
+    frames; one latent frame a decode chunk after the first two) on the
+    default path: its launches (README_STREAM), frames/s and peak memory
+    beside whole-clip, its codes against the whole clip's (bf16: at most
+    1% of bits, each where |z| <= 5e-2 of the largest, as the in-situ
+    check; float32 batch 1, TF32 off: MARGIN_TOL and DIGITS_TOL), then the
+    kv-cache bounded by ``streaming_kv_window=2``: the caches hold at most 2
+    latent frames and the first chunk's codes equal the unbounded
+    stream's. Returns the readings and the tokenizer and video, which the
+    ``.pt`` check reuses."""
+    from magvit2_pytorch_tpu_torch.models.streaming import StreamingSession
+    from magvit2_pytorch_tpu_torch.ops.attention import Attention
+    tok = flagship_tokenizer(torch, dev, torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    video = torch.rand(BATCH, 17, 128, 128, 3, generator=gen, device=dev)
+    frames = BATCH * 17
+    (codes_s, recon_s), counts = counted(torch, lambda: stream_roundtrip(
+        tok, video, README_CHUNK_FRAMES, README_CHUNK_LATENTS))
+    check_launches('README stream', counts, README_STREAM)
+    if (tuple(codes_s.shape) != (BATCH, 5, 16, 16)
+            or tuple(recon_s.shape) != tuple(video.shape)
+            or not bool(torch.isfinite(recon_s).all())):
+        fail(f'README stream: codes {tuple(codes_s.shape)}, recon '
+             f'{tuple(recon_s.shape)}')
+    _, whole_s, whole_mem = peak_run(torch, lambda: whole_roundtrip(tok,
+                                                                    video))
+    _, stream_s, stream_mem = peak_run(torch, lambda: stream_roundtrip(
+        tok, video, README_CHUNK_FRAMES, README_CHUNK_LATENTS))
+    _, frac, worst = bits_against(torch, tok, video, codes_s, relative=True)
+    check_bits('README bf16 stream', frac, worst,
+               IN_SITU_TOL['worst_flip_margin'])
+    out = dict(launches=counts, whole_fps=frames / whole_s,
+               stream_fps=frames / stream_s, whole_memory=whole_mem,
+               stream_memory=stream_mem, bf16_digits_flipped=frac,
+               bf16_worst_flip_margin=worst)
+    set_tf32(False)
+    tok32 = flagship_tokenizer(torch, dev, torch.float32)
+    clip = video[:1]
+    codes32, _ = stream_roundtrip(tok32, clip, README_CHUNK_FRAMES,
+                                  README_CHUNK_LATENTS)
+    _, frac32, worst32 = bits_against(torch, tok32, clip, codes32)
+    check_bits('README float32 stream', frac32, worst32, MARGIN_TOL)
+    del tok32
+    out.update(fp32_digits_flipped=frac32, fp32_worst_flip_margin=worst32)
+    # the same seed, so the same weights
+    windowed = flagship_tokenizer(torch, dev, torch.bfloat16,
+                                  streaming_kv_window=2)
+    session = StreamingSession(windowed)
+    chunks = [session.encode_chunk(video[:, :5])]
+    chunks += [session.encode_chunk(video[:, i:i + 4]) for i in (5, 9, 13)]
+    cached = [v['k'].shape[1] for m, v in session._enc_state.items()
+              if isinstance(m, Attention)]
+    first_same = torch.equal(chunks[0], codes_s[:, :2])
+    windowed_same = (torch.cat(chunks, dim=1) == codes_s).float().mean().item()
+    out.update(kv_window_cached=cached, kv_window_first_chunk_equal=first_same,
+               kv_window_codes_equal=windowed_same)
+    log(f'[README stream] bf16 batch {BATCH}, chunks of 5, 4, 4, 4 frames and '
+        f'2, 1, 1, 1 latents: launches {counts}; whole-clip '
+        f'{out["whole_fps"]:.2f} frames/s, peak '
+        f'{whole_mem["peak_above_bytes"] / 2 ** 30:.3f} GiB above the weights '
+        f'and input; streamed {out["stream_fps"]:.2f} frames/s, peak '
+        f'{stream_mem["peak_above_bytes"] / 2 ** 30:.3f} GiB; bf16 code '
+        f'digits flipped against whole-clip {frac:.4%} (worst margin '
+        f'{worst:.3e} of the largest |z|); float32 batch 1 {frac32:.4%} '
+        f'(worst margin {worst32:.3e}); streaming_kv_window=2: cached latent '
+        f'frames {cached}, first chunk equal {first_same}, codes equal to '
+        f'the unbounded stream {windowed_same:.4%} (on {smi})')
+    if not cached or max(cached) > 2 or not first_same:
+        fail(f'README stream with streaming_kv_window=2: cached {cached}, '
+             f'first chunk equal {first_same}')
+    del windowed, session
+    torch.cuda.empty_cache()
+    return out, tok, video
+
+
+def phase_cond_stack(torch, dev, smi, profile_dir):
+    """The conditioned stack (COND_LAYERS) at README width, bf16 batch 8,
+    dim_cond 32 from a seeded generator, at each head shape of COND_HEADS:
+    a roundtrip on the default and the fused path (``phase_roundtrip``,
+    COND_LAUNCHES: at 8 x 16 B3 twice on its no-norm route, no norm, B1 or
+    B2; at 32 x 8 no attention kernel; B4 for the plain units on the fused
+    path), frames/s on each; at 8 x 16 the stream on the fused tokenizer
+    with cond fixed for the session (B3 no-norm per chunk, no B4 or B5),
+    its codes against the whole clip's; then a small form (32 px, 5 frames,
+    batch 1) float32 card against CPU, at 8 x 16 on both paths, at 32 x 8
+    on the default path."""
+    from magvit2_pytorch_tpu_torch import VideoTokenizer
+    gen = torch.Generator(device=dev).manual_seed(6)
+    video = torch.rand(BATCH, 17, 128, 128, 3, generator=gen, device=dev)
+    cond = torch.randn(BATCH, COND_DIM, generator=gen, device=dev)
+    out = {}
+    for heads in COND_HEADS:
+        got = out.setdefault(heads, {})
+        for path, env in (('default', {}), ('fused', FUSED_ENV)):
+            what = f'cond stack {heads} {path}'
+            with environment(env):
+                tok = VideoTokenizer(seed=0, device=dev, dtype=torch.bfloat16,
+                                     **cond_stack_kwargs(
+                                         heads, lane_pack=path == 'fused'))
+                ru = {k: n for k, n in ru_calls_expected(path).items()
+                      if k != ('residual_unit_wide', (BATCH, 5, 16, 16, 512))}
+                counts, _ = phase_roundtrip(
+                    torch, what, tok, video, (BATCH, 5, 16, 16),
+                    COND_LAUNCHES[heads][path], ru, cond=cond)
+                tp = phase_throughput(torch, tok, video, cond=cond)
+                got[path] = dict(launches=counts, **tp)
+                log(f'[throughput {what}] bf16 batch {BATCH} roundtrip, '
+                    f'dim_cond {COND_DIM}, attention heads {heads}: '
+                    f'{tp["fps"]:.2f} frames/s ({tp["ms_per_roundtrip"]:.2f} '
+                    f'ms per roundtrip; slope of 2 vs 10 chained runs) on '
+                    f'{smi}')
+                if profile_dir:
+                    profile_roundtrip(torch, tok, video, os.path.join(
+                        profile_dir, f'profile_cond_{heads}_{path}.txt'),
+                        tp['ms_per_roundtrip'], cond=cond)
+                if heads == '8x16' and path == 'fused':
+                    got['stream'] = cond_stream(torch, tok, video, cond)
+            del tok
+            torch.cuda.empty_cache()
+    clip = torch.rand(1, 5, 32, 32, 3,
+                      generator=torch.Generator().manual_seed(13))
+    cond1 = torch.randn(1, COND_DIM, generator=torch.Generator().manual_seed(14))
+    for heads, paths in (('8x16', (('default', {}), ('fused', FUSED_ENV))),
+                         ('32x8', (('default', {}),))):
+        small = cond_stack_kwargs(heads, image_size=32)
+        out[heads]['card_vs_cpu'], counts = card_against_cpu(
+            torch, dev, f'cond stack {heads}',
+            lambda device, path: VideoTokenizer(
+                seed=0, device=device,
+                **dict(small, lane_pack=path == 'fused')),
+            clip, paths=paths, cond=cond1)
+        for path, c in counts.items():
+            taylor = c['taylor_attention_block']
+            if (c['taylor_attention_block_no_norm'] != taylor
+                    or (taylor > 0) != (heads == '8x16')):
+                fail(f'cond stack {heads} float32 {path}: Taylor blocks '
+                     f'{taylor}, {c["taylor_attention_block_no_norm"]} on the '
+                     f'no-norm route')
+    return out
+
+
+def cond_stream(torch, tok, video, cond):
+    """The conditioned stack streamed with cond fixed for the session: its
+    launches (COND_STREAM) and its codes against the whole clip's (bf16,
+    the in-situ margin rule)."""
+    (codes_s, recon_s), counts = counted(torch, lambda: stream_roundtrip(
+        tok, video, README_CHUNK_FRAMES, README_CHUNK_LATENTS, cond=cond))
+    check_launches('cond stack stream', counts, COND_STREAM)
+    _, frac, worst = bits_against(torch, tok, video, codes_s, cond=cond,
+                                  relative=True)
+    log(f'[cond stack stream] bf16 batch {BATCH}, cond fixed for the '
+        f'session: launches {counts}; code digits flipped against whole-clip '
+        f'{frac:.4%} (worst margin {worst:.3e} of the largest |z|)')
+    check_bits('cond stack bf16 stream', frac, worst,
+               IN_SITU_TOL['worst_flip_margin'])
+    if (tuple(recon_s.shape) != tuple(video.shape)
+            or not bool(torch.isfinite(recon_s).all())):
+        fail(f'cond stack stream: recon {tuple(recon_s.shape)}')
+    return dict(launches=counts, digits_flipped=frac, worst_flip_margin=worst)
+
+
+def phase_taylor_no_norm(torch, dev, reps):
+    """B3's no-norm route (``gamma=None``, the conditioned linear
+    attention's) at the flagship shape (160, 1024, 256), 16 heads x 8, the
+    shape the conditioned stack gives it too: float32 and bf16 against its
+    plain version (relative, the tolerances of phase 3), times, and the
+    bound without the norm's bytes."""
+    from magvit2_pytorch_tpu_torch.ops.kernels import (
+        launch_counts, reset_launch_counts, taylor_attention as ta)
+    gen = torch.Generator().manual_seed(44)
+    g, n, c, heads, dh = BATCH * 20, 1024, 256, 16, 8
+    x, _, wqkv, wout = taylor_inputs(torch, gen, g, n)
+    flops, nbytes = taylor_cost(g, n, c, heads, dh)
+    case = dict(
+        name='taylor_attention_block (no norm)',
+        fn=lambda x, wqkv, wout, **kw: ta.taylor_attention(x, None, wqkv,
+                                                           wout, **kw),
+        ref=lambda x, wqkv, wout, **kw: ta.taylor_attention_ref(
+            x, None, wqkv, wout, **kw),
+        args=[t.to(dev) for t in (x, wqkv, wout)],
+        kw=dict(heads=heads, dim_head=dh),
+        cost=(flops, nbytes - 2 * c),        # no gamma to read
+        library=None, library_call=None, relative=True)
+    with torch.inference_mode():
+        reset_launch_counts()
+        ta.taylor_attention(case['args'][0].bfloat16(), None,
+                            case['args'][1].bfloat16(),
+                            case['args'][2].bfloat16(), heads, dh)
+        counts = launch_counts()
+        check_launches('taylor no-norm route', counts, {
+            'taylor_attention_block': 1, 'taylor_attention_block_no_norm': 1,
+            'rmsnorm': 0, 'gemm_wgmma': 2, 'taylor_core_mma': 1})
+        row = dict(check_case(torch, case, reps), per='launch',
+                   launches_alone=counts)
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_pt_import(torch, dev, tok, video):
+    """The reference's ``.pt`` package at README width: ``torch.save`` of the
+    pickled kwargs and the reference-named state_dict of ``tok`` (bf16, on
+    the card) to a temporary file, ``init_and_load_from_torch`` in bf16 on
+    the card: weights, codes and reconstruction bit-identical to ``tok``'s."""
+    import pickle
+    import tempfile
+    from magvit2_pytorch_tpu_torch import VideoTokenizer
+    from magvit2_pytorch_tpu_torch.configs import readme_video_tokenizer_kwargs
+    codes, recon = whole_roundtrip(tok, video)
+    kwargs = readme_video_tokenizer_kwargs(use_gan=False,
+                                           perceptual_loss_weight=0.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'tokenizer.pt')
+        torch.save({'model_state_dict': tok.state_dict(),
+                    'config': pickle.dumps(kwargs), 'version': '0.0.0'}, path)
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = VideoTokenizer.init_and_load_from_torch(
+            path, device=dev, dtype=tok.dtype)
+        load_s = time.perf_counter() - t0
+    codes2, recon2 = whole_roundtrip(loaded, video)
+    same = dict(weights=all(torch.equal(v, loaded.state_dict()[k])
+                            for k, v in tok.state_dict().items()),
+                codes=torch.equal(codes, codes2),
+                recon=torch.equal(recon, recon2))
+    log(f'[.pt import] README width {tok.dtype}: {size / 2 ** 20:.1f} MiB, '
+        f'init_and_load_from_torch on {loaded.device} {load_s:.1f} s; '
+        f'bit-identical {same}')
+    if not all(same.values()):
+        fail(f'.pt import on the card is not bit-identical: {same}')
+    del loaded
+    torch.cuda.empty_cache()
+    return dict(same, load_s=load_s, bytes=size)
+
+
+def phase_rest_of_serving(torch, dev, smi, profile_dir, reps):
+    """Phase 9: config 5 whole-clip and streamed, the README stack
+    streamed, the ``.pt`` import, the conditioned stack, B3's no-norm
+    route. Returns the readings, the launches of each path it drove (each
+    counted from 0) and B3's no-norm row."""
+    out = dict(config5=phase_config5(torch, dev, smi))
+    out['readme_stream'], tok, video = phase_readme_stream(torch, dev, smi)
+    out['pt_import'] = phase_pt_import(torch, dev, tok, video)
+    del tok, video
+    torch.cuda.empty_cache()
+    out['cond_stack'] = phase_cond_stack(torch, dev, smi, profile_dir)
+    no_norm = phase_taylor_no_norm(torch, dev, reps)
+    c5, cs, cs32 = (out['config5'], out['cond_stack']['8x16'],
+                    out['cond_stack']['32x8'])
+    paths = {'readme_stream': out['readme_stream']['launches'],
+             'cond_stack_stream': cs['stream']['launches']}
+    for path in ('default', 'fused'):
+        paths[f'config5_{path}'] = c5[path]['launches']
+        paths[f'config5_{path}_stream'] = c5[path]['stream_launches']
+        paths[f'cond_stack_{path}'] = cs[path]['launches']
+        paths[f'cond_stack_32x8_{path}'] = cs32[path]['launches']
+    log(f'[rest of serving] on {smi}: config 5 bf16 frames/s whole-clip '
+        f'default {c5["default"]["whole_fps"]:.2f}, fused '
+        f'{c5["fused"]["whole_fps"]:.2f}; streamed default '
+        f'{c5["default"]["stream_fps"]:.2f}, fused '
+        f'{c5["fused"]["stream_fps"]:.2f}; streamed peak memory '
+        f'{c5["default"]["stream_peak_share"]:.1%} of whole-clip (default); '
+        f'cond stack (default / fused) {cs["default"]["fps"]:.2f} / '
+        f'{cs["fused"]["fps"]:.2f} frames/s at heads 8 x 16 (B3), '
+        f'{cs32["default"]["fps"]:.2f} / {cs32["fused"]["fps"]:.2f} at the '
+        f"README's 32 x 8 (plain Taylor attention)")
+    return out, paths, no_norm
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument('--out', default=None,
@@ -3019,6 +3549,10 @@ def main():
         f'{configs["config4"]["default"]["fps"]:.2f} images/s, fused '
         f'{configs["config4"]["fused"]["fps"]:.2f}; config 3 (FSQ) '
         f'{configs["config3"]["fps"]:.2f} frames/s')
+    configs['rest_of_serving'], paths, no_norm = phase_rest_of_serving(
+        torch, dev, smi, profile_dir, REPS)
+    counts.update(paths)
+    kernel_rows['taylor_attention_block']['no_norm'] = no_norm
     counts['attention_step'] = phase_attention_step(torch, dev, REPS, smi)
 
     if 'jax' in sys.modules:

@@ -1,8 +1,8 @@
 """Canonical configurations (BASELINE.json configs 1-5).
 
 Copied from ``magvit2_pytorch_tpu/configs.py``, so the port names the same
-configurations without importing the JAX package. The port serves config 5
-whole-clip; its chunked streaming is ROADMAP.md queue A item 10."""
+configurations without importing the JAX package. Config 5 runs whole-clip
+or chunked (``models/streaming.py``)."""
 
 from __future__ import annotations
 

@@ -1,5 +1,4 @@
-"""Weights between the JAX package and the port, and from reference
-checkpoints.
+"""Weights between the JAX package and the port.
 
 ``state_dict_from_jax_params`` takes the JAX params pytree (numpy arrays,
 no JAX needed) and returns a ``state_dict`` with which the port computes
@@ -22,7 +21,8 @@ packages decode alike.
 The port keeps the reference's keys and layouts, so the JAX package also
 imports ``port.state_dict()`` through ``load_torch_tokenizer_state_dict`` as
 it is (and, with trained upsamplers, decodes those sub-pixels as the JAX
-package does, mirrored).
+package does, mirrored). The reference's own checkpoints load through
+``torch_import.py``.
 
 Layout transforms (JAX channels-last -> PyTorch):
 - Conv3d kernel (kt, kh, kw, i, o) -> (o, i, kt, kh, kw)
@@ -41,14 +41,6 @@ import numpy as np
 import torch
 
 from magvit2_pytorch_tpu_torch.models.layerspec import parse_layers
-
-# state_dict entries of the reference that are buffers, not parameters
-# (LFQ mask/codebook, FSQ levels/basis, the model's ``zero``); the port
-# computes them from the config
-GENERATOR_BUFFER_KEYS = ('quantizers.mask', 'quantizers.codebook',
-                         'quantizers._levels', 'quantizers._basis', 'zero')
-NON_GENERATOR_PREFIXES = ('discr.', 'vgg.', 'multiscale_discrs.')
-
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32, order='C'))
@@ -101,35 +93,60 @@ def _residual_unit_entries(p: str, j: tuple) -> List[Entry]:
             *_linear(f'{p}.fn.4.net.2', f + ('se', 'gate_out'))]
 
 
-def _attention_entries(p: str, j: tuple) -> List[Entry]:
-    return [(f'{p}.norm.gamma', j + ('norm', 'gamma'), 'copy'),
+def _residual_unit_mod_entries(p: str, j: tuple) -> List[Entry]:
+    return [*_linear(f'{p}.to_cond', j + ('to_cond',)),
+            (f'{p}.conv.weights', j + ('conv', 'weights'), 'conv3d'),
+            *_linear(f'{p}.conv_out', j + ('conv_out',))]
+
+
+def _norm_entries(p: str, j: tuple, cond: bool = False) -> List[Entry]:
+    """RMSNorm's gamma, or AdaptiveRMSNorm's gamma projection."""
+    if cond:
+        return _linear(f'{p}.to_gamma', j + ('to_gamma',))
+    return [(f'{p}.gamma', j + ('gamma',), 'copy')]
+
+
+def _attention_entries(p: str, j: tuple, cond: bool = False) -> List[Entry]:
+    return [*_norm_entries(f'{p}.norm', j + ('norm',), cond),
             (f'{p}.to_qkv.0.weight', j + ('to_qkv', 'kernel'), 'dense'),
             (f'{p}.mem_kv', j + ('mem_kv',), 'copy'),
             (f'{p}.to_out.1.weight', j + ('to_out', 'kernel'), 'dense')]
 
 
-def _linear_attention_entries(p: str, j: tuple) -> List[Entry]:
-    return [(f'{p}.norm.gamma', j + ('norm', 'gamma'), 'copy'),
+def _linear_attention_entries(p: str, j: tuple,
+                              cond: bool = False) -> List[Entry]:
+    return [*_norm_entries(f'{p}.norm', j + ('norm',), cond),
             (f'{p}.attn.to_qkv.0.weight', j + ('attn', 'to_qkv_kernel'),
              'dense'),
             (f'{p}.attn.to_out.1.weight', j + ('attn', 'to_out_kernel'),
              'dense')]
 
 
-def _feedforward_entries(p: str, j: tuple) -> List[Entry]:
-    return [(f'{p}.norm.gamma', j + ('norm', 'gamma'), 'copy'),
+def _feedforward_entries(p: str, j: tuple,
+                         cond: bool = False) -> List[Entry]:
+    return [*_norm_entries(f'{p}.norm', j + ('norm',), cond),
             *_linear(f'{p}.net.0', j + ('proj_in',)),
             *_linear(f'{p}.net.2', j + ('proj_out',))]
 
 
 def _layer_entries(layer_type, params, p: str, j: tuple,
                    encoder: bool) -> List[Entry]:
+    cond = layer_type.startswith('cond_')
+    kind = layer_type[len('cond_'):] if cond else layer_type
     if layer_type == 'residual':
         return _residual_unit_entries(p, j)
     if layer_type == 'consecutive_residual':
         (num,) = params
         return [e for i in range(num)
                 for e in _residual_unit_entries(f'{p}.{i}', j + (f'fns_{i}',))]
+    if layer_type == 'cond_residual':
+        return _residual_unit_mod_entries(p, j)
+    if layer_type == 'gateloop_time':
+        f = j + ('fn', 'fn')
+        return [(f'{p}.fn.fn.to_qkva.weight', f + ('to_qkva', 'kernel'),
+                 'dense'),
+                (f'{p}.fn.fn.to_out.weight', f + ('to_out', 'kernel'),
+                 'dense')]
     if layer_type in ('compress_space', 'compress_time'):
         if encoder:
             kind = ('conv2d_from3d' if layer_type == 'compress_space'
@@ -138,20 +155,22 @@ def _layer_entries(layer_type, params, p: str, j: tuple,
         kind = ('upsample_space' if layer_type == 'compress_space'
                 else 'upsample_time')
         return _linear(f'{p}.net.0', j, kind)
-    if layer_type == 'attend_space':
-        return [*_attention_entries(f'{p}.0.fn', j + ('fns_0', 'fn')),
-                *_feedforward_entries(f'{p}.1.fn', j + ('fns_1', 'fn'))]
-    if layer_type == 'attend_time':
+    if kind == 'attend_space':
+        return [*_attention_entries(f'{p}.0.fn', j + ('fns_0', 'fn'), cond),
+                *_feedforward_entries(f'{p}.1.fn', j + ('fns_1', 'fn'),
+                                      cond)]
+    if kind == 'attend_time':
+        # TokenShift adds one .fn level on both sides
         return [*_attention_entries(f'{p}.0.fn.fn',
-                                    j + ('fns_0', 'fn', 'fn')),
+                                    j + ('fns_0', 'fn', 'fn'), cond),
                 *_feedforward_entries(f'{p}.1.fn.fn',
-                                      j + ('fns_1', 'fn', 'fn'))]
-    if layer_type == 'linear_attend_space':
-        return [*_linear_attention_entries(f'{p}.0.fn', j + ('fns_0', 'fn')),
-                *_feedforward_entries(f'{p}.1.fn', j + ('fns_1', 'fn'))]
-    raise NotImplementedError(
-        f'layer type {layer_type!r} is not ported to PyTorch yet: '
-        'ROADMAP.md queue A item 9')
+                                      j + ('fns_1', 'fn', 'fn'), cond)]
+    if kind == 'linear_attend_space':
+        return [*_linear_attention_entries(f'{p}.0.fn', j + ('fns_0', 'fn'),
+                                           cond),
+                *_feedforward_entries(f'{p}.1.fn', j + ('fns_1', 'fn'),
+                                      cond)]
+    raise ValueError(f'unknown layer type {layer_type!r}')
 
 
 def _quantizer_dims(config) -> int:
@@ -184,6 +203,9 @@ def bridge_entries(config) -> List[Entry]:
                               False)
     out += [(f'encoder_layers.{n}.1.weight', ('final_norm', 'gamma'), 'copy'),
             (f'encoder_layers.{n}.1.bias', ('final_norm', 'beta'), 'copy')]
+    if parsed.has_cond:
+        out += [*_linear('encoder_cond_in.0', ('encoder_cond_in',)),
+                *_linear('decoder_cond_in.0', ('decoder_cond_in',))]
     if parsed.final_dim != _quantizer_dims(config):
         out += [*_linear('quantizers.project_in',
                          ('quantizers', 'project_in')),
@@ -226,28 +248,4 @@ def jax_params_from_state_dict(config, state: Mapping) -> dict:
             node = node.setdefault(name, {})
         node[path[-1]] = np.ascontiguousarray(TRANSFORMS[kind][1](a),
                                               dtype=np.float32)
-    return out
-
-
-def reference_state_dict(module: torch.nn.Module, state: Mapping) -> dict:
-    """A reference ``VideoTokenizer.state_dict()`` (tensors or numpy) made
-    ready for ``module.load_state_dict(..., strict=True)``: buffers and
-    discriminator / VGG keys dropped, and tensors that differ from the port's
-    parameter only by singleton dims (1x1 conv kernels, channel-first
-    gammas) reshaped to it."""
-    own = module.state_dict()
-    out = {}
-    for key, value in state.items():
-        if key in GENERATOR_BUFFER_KEYS or key.startswith(
-                NON_GENERATOR_PREFIXES):
-            continue
-        t = torch.as_tensor(np.asarray(value) if not torch.is_tensor(value)
-                            else value)
-        if key in own and t.shape != own[key].shape:
-            squeeze = lambda s: tuple(d for d in s if d != 1)
-            if squeeze(t.shape) != squeeze(own[key].shape):
-                raise ValueError(f'{key}: reference shape {tuple(t.shape)} '
-                                 f'does not fit {tuple(own[key].shape)}')
-            t = t.reshape(own[key].shape)
-        out[key] = t
     return out

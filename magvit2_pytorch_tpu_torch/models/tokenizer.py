@@ -3,26 +3,31 @@
 
 ``encode``, ``decode``, ``tokenize``, ``decode_from_code_indices`` and
 ``forward(return_codes=..., return_recon=...)`` run under
-``torch.inference_mode()``. Tensors are channels-last ``(B, T, H, W, C)``;
+``torch.inference_mode()`` and take the JAX package's parameters in its
+order, ``cond`` (the per-sample ``(B, dim_cond)`` vector of a conditioned
+config) included. Tensors are channels-last ``(B, T, H, W, C)``;
 ``channel_first=True`` takes and returns the reference's
 ``(B, C, T, H, W)``. Weights are made on the CPU from ``seed`` with the
 reference's init distributions, then moved to ``device`` in ``dtype`` (the
 working dtype of the whole graph; quantization math stays float32).
 ``device`` defaults to the card (``'cuda'``) and raises where there is none;
-``device='cpu'`` runs every kernel's plain PyTorch version.
+``device='cpu'`` runs every kernel's plain PyTorch version. Chunked causal
+streaming is ``models/streaming.py``.
 
 ``save`` / ``load`` / ``init_and_load_from`` read and write the JAX
 package's checkpoint format: msgpack (``utils/serialization.py``, the port's
 own codec) of ``{'version', 'config': TokenizerConfig JSON, 'params': the
 JAX params pytree}``, so a checkpoint moves between the two packages either
-way. ``state_dict`` / ``load_state_dict`` stay the module's torch state. The
-loss modes, conditioning, ``init_and_load_from_torch`` and int8 calibration
-are not ported yet and raise.
+way. ``load_torch_state_dict`` / ``init_and_load_from_torch`` read the
+reference's own ``state_dict`` and ``.pt`` package (``torch_import.py``).
+``state_dict`` / ``load_state_dict`` stay the module's torch state. The loss
+modes and int8 calibration are training and TPU work and raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import pickle
 from pathlib import Path
 from typing import Optional
 
@@ -30,13 +35,14 @@ import numpy as np
 import torch
 
 from magvit2_pytorch_tpu_torch.models.jax_import import (
-    jax_params_from_state_dict, reference_state_dict,
-    state_dict_from_jax_params)
+    jax_params_from_state_dict, state_dict_from_jax_params)
+from magvit2_pytorch_tpu_torch.models.torch_import import (
+    load_torch_tokenizer_state_dict, read_torch_state, torch_config_to_kwargs)
 from magvit2_pytorch_tpu_torch.models.tokenizer_module import (
     TokenizerConfig, TokenizerModule, not_ported)
 from magvit2_pytorch_tpu_torch.ops.basic import init_module_parameters
 from magvit2_pytorch_tpu_torch.utils import serialization
-from magvit2_pytorch_tpu_torch.utils.helpers import divisible_by, exists
+from magvit2_pytorch_tpu_torch.utils.helpers import divisible_by
 from magvit2_pytorch_tpu_torch.version import __version__
 
 
@@ -68,12 +74,20 @@ class VideoTokenizer:
         return self.config.image_size
 
     @property
+    def channels(self):
+        return self.config.channels
+
+    @property
     def fmap_size(self):
         return self.module.parsed_layers.fmap_size
 
     @property
     def time_downsample_factor(self):
         return self.module.parsed_layers.time_downsample_factor
+
+    @property
+    def time_padding(self):
+        return self.time_downsample_factor - 1
 
     @property
     def codebook_size(self):
@@ -87,10 +101,28 @@ class VideoTokenizer:
     def load_state_dict(self, state, strict: bool = True):
         return self.module.load_state_dict(state, strict=strict)
 
-    def load_reference_state_dict(self, state):
-        """Load a reference (lucidrains) ``VideoTokenizer.state_dict()``."""
-        self.module.load_state_dict(reference_state_dict(self.module, state),
-                                    strict=True)
+    def load_torch_state_dict(self, state_or_path, strict: bool = True):
+        """Load the reference's (PyTorch) ``VideoTokenizer`` weights: a
+        ``state_dict`` mapping, an ``.npz`` of the same keys, or a ``.pth``
+        / ``.pt`` file (a bare ``state_dict``, or a package holding it
+        under ``model_state_dict`` or ``model``), as the JAX package's
+        ``load_torch_state_dict`` takes them. Every generator weight must
+        be there; ``strict=True`` also refuses a key this config does not
+        have (discriminator and VGG keys and buffers are always skipped)."""
+        state = read_torch_state(state_or_path)
+        load_torch_tokenizer_state_dict(self.module, state, strict=strict)
+
+    def copy_for_eval(self):
+        """A copy for evaluation without discriminator or VGG (reference
+        magvit2_pytorch.py:1476-1485; the JAX package's
+        ``tokenizer.py:595-623``): its config says so, and it shares this
+        tokenizer's module and weights, which the port keeps frozen."""
+        clone = object.__new__(VideoTokenizer)
+        clone.__dict__.update(self.__dict__)
+        clone.config = dataclasses.replace(
+            self.config, use_gan=False, perceptual_loss_weight=0.0,
+            multiscale_discrs=tuple())
+        return clone
 
     # -- checkpoints in the JAX package's format -------------------------------
 
@@ -159,9 +191,30 @@ class VideoTokenizer:
     @classmethod
     def init_and_load_from_torch(cls, path, strict: bool = True,
                                  **overrides):
-        """The reference's ``.pt`` package: not ported yet (its only offline
-        oracle needs the reference checkout)."""
-        not_ported('init_and_load_from_torch', '8')
+        """Build the tokenizer a reference ``.pt`` package describes and
+        load its weights (the JAX package's ``tokenizer.py:702-730``): the
+        pickled constructor kwargs under ``config`` go through
+        ``torch_config_to_kwargs``, ``overrides`` go on top (``device`` and
+        ``dtype`` among them, as in the constructor), and the state under
+        ``model_state_dict`` (or ``model``) through
+        ``load_torch_state_dict``. Like the reference's own loader this
+        unpickles the file: load only checkpoints you trust."""
+        path = Path(path)
+        if not path.exists():
+            raise FileNotFoundError(path)
+        # weights_only=False: the config is a pickled locals() that may
+        # hold torch objects (nn.Identity, torchvision enums)
+        pkg = torch.load(str(path), map_location='cpu', weights_only=False)
+        if not isinstance(pkg, dict) or 'config' not in pkg:
+            raise ValueError(f'{path}: no model config in this package')
+        kwargs = torch_config_to_kwargs(pickle.loads(pkg['config']))
+        kwargs.update(overrides)
+        tokenizer = cls(**kwargs)
+        state = pkg.get('model_state_dict', pkg.get('model'))
+        if state is None:
+            raise ValueError(f'{path}: no state_dict in this package')
+        tokenizer.load_torch_state_dict(state, strict=strict)
+        return tokenizer
 
     # -- core API --------------------------------------------------------------
 
@@ -171,32 +224,38 @@ class VideoTokenizer:
             video = video.movedim(1, -1)
         return video
 
-    def encode(self, video, quantize: bool = False,
+    def _cond(self, cond):
+        if cond is None:
+            return None
+        return torch.as_tensor(cond, device=self.device).to(self.dtype)
+
+    def encode(self, video, quantize: bool = False, cond=None,
                video_contains_first_frame: bool = True,
-               channel_first: bool = False, cond=None):
+               channel_first: bool = False):
         """reference magvit2_pytorch.py:1522-1576."""
-        if exists(cond):
-            not_ported('cond', '9')
         with torch.inference_mode():
             video = self._video(video, channel_first)
-            latents = self.module.encode(video, video_contains_first_frame)
+            latents = self.module.encode(
+                video, cond=self._cond(cond),
+                video_contains_first_frame=video_contains_first_frame)
             if quantize:
                 latents = self.module.quantize(latents).quantized
         return latents.movedim(-1, 1) if channel_first else latents
 
-    def decode(self, quantized, video_contains_first_frame: bool = True,
-               channel_first: bool = False, cond=None):
+    def decode(self, quantized, cond=None,
+               video_contains_first_frame: bool = True,
+               channel_first: bool = False):
         """reference magvit2_pytorch.py:1597-1649."""
-        if exists(cond):
-            not_ported('cond', '9')
         with torch.inference_mode():
             quantized = self._video(quantized, channel_first)
-            video = self.module.decode(quantized, video_contains_first_frame)
+            video = self.module.decode(
+                quantized, cond=self._cond(cond),
+                video_contains_first_frame=video_contains_first_frame)
         return video.movedim(-1, 1) if channel_first else video
 
-    def decode_from_code_indices(self, codes,
+    def decode_from_code_indices(self, codes, cond=None,
                                  video_contains_first_frame: bool = True,
-                                 channel_first: bool = False, cond=None):
+                                 channel_first: bool = False):
         """Flattened ``(b, f*h*w)`` or shaped ``(b, f, h, w)`` integer codes
         (reference magvit2_pytorch.py:1578-1595)."""
         codes = torch.as_tensor(codes, device=self.device)
@@ -209,12 +268,13 @@ class VideoTokenizer:
             codes = codes.reshape(codes.shape[0], -1, fmap, fmap)
         with torch.inference_mode():
             quantized = self.module.indices_to_codes(codes.long(), self.dtype)
-        return self.decode(quantized, video_contains_first_frame,
-                           channel_first=channel_first, cond=cond)
+        return self.decode(quantized, cond=cond,
+                           video_contains_first_frame=video_contains_first_frame,
+                           channel_first=channel_first)
 
     def tokenize(self, video, **kwargs):
         """reference magvit2_pytorch.py:1651-1654."""
-        return self.forward(video, return_codes=True, **kwargs)
+        return self.forward(video, return_codes=True, train=False, **kwargs)
 
     def __call__(self, *args, **kwargs):
         return self.forward(*args, **kwargs)
@@ -223,16 +283,23 @@ class VideoTokenizer:
                 return_codes: bool = False, return_recon: bool = False,
                 return_discr_loss: bool = False,
                 return_recon_loss_only: bool = False,
+                apply_gradient_penalty: bool = True,
                 video_contains_first_frame: bool = True,
+                adversarial_loss_weight: Optional[float] = None,
+                multiscale_adversarial_loss_weight: Optional[float] = None,
+                rng: Optional[torch.Generator] = None,
                 train: Optional[bool] = None, channel_first: bool = False):
         """The serving modes of the reference forward
-        (magvit2_pytorch.py:1656-1896): recon, codes, or both."""
+        (magvit2_pytorch.py:1656-1896): recon, codes, or both. The
+        parameters are the JAX package's, in its order; those of the loss
+        modes (``apply_gradient_penalty``, the adversarial weights, ``rng``,
+        a ``torch.Generator``) serve training, which raises here."""
         if return_loss or return_discr_loss or return_recon_loss_only:
             not_ported('the loss modes of forward', '11')
         if train:
             not_ported('train=True', '11')
-        if exists(cond):
-            not_ported('cond', '9')
+        assert (int(return_loss) + int(return_codes)
+                + int(return_discr_loss)) <= 1
 
         video = self._video(video_or_images, channel_first)
         assert video.ndim in (4, 5)
@@ -250,13 +317,16 @@ class VideoTokenizer:
             f'{self.time_downsample_factor}')
 
         with torch.inference_mode():
-            qout = self.module.quantize(
-                self.module.encode(video, video_contains_first_frame))
+            cond = self._cond(cond)
+            qout = self.module.quantize(self.module.encode(
+                video, cond=cond,
+                video_contains_first_frame=video_contains_first_frame))
             if return_codes and not return_recon:
                 # codes only: the reference returns before decoding too
                 return qout.indices
-            recon = self.module.decode(qout.quantized,
-                                       video_contains_first_frame)
+            recon = self.module.decode(
+                qout.quantized, cond=cond,
+                video_contains_first_frame=video_contains_first_frame)
 
         if is_image:
             recon = recon[:, 0]
@@ -265,6 +335,20 @@ class VideoTokenizer:
         if return_codes:
             return qout.indices, recon
         return recon
+
+
+class MagViT2:
+    """Identity stub exported as the reference and the JAX package export
+    it (``tokenizer.py:745-755``): the reference's planned MaskGit stage was
+    never built (magvit2_pytorch.py:1900-1905)."""
+
+    def __init__(self):
+        pass
+
+    def __call__(self, x):
+        return x
+
+    forward = __call__
 
 
 def _read_checkpoint(path) -> dict:

@@ -8,10 +8,17 @@ reverse as the reference's ``insert(0)`` builds it, ``quantizers.*``, and the
 final encoder LayerNorm at ``encoder_layers.{n}.1``, present but not applied
 unless ``apply_final_norm``: reference quirk #10).
 
-The port serves every configuration of the JAX package (LFQ in all its
-options, FSQ, separate first-frame encoding, every pad mode) except
-conditioning, gateloop, streaming and remat: those raise
-``NotImplementedError`` naming their ROADMAP.md item.
+The port serves every configuration of the JAX package: LFQ in all its
+options, FSQ, separate first-frame encoding, every pad mode, conditioning
+(the ``cond_*`` layers, ``dim_cond``), ``gateloop_time`` and chunked causal
+streaming (``streaming=True`` with a stream's ``state``, a dict keyed by
+module that ``models/streaming.py`` owns and hands down). Only ``remat``, a
+training option, raises ``NotImplementedError`` naming its ROADMAP.md item.
+
+Every layer is handed the kwargs the JAX package hands it (``cond`` from the
+first conditioned layer on, the reference's running flag; ``state`` when
+streaming; ``w_blocked`` in the lane-packed stem) and takes those its
+``forward`` accepts (``ops.basic.filter_kwargs``).
 
 ``flash_attn`` never changes the model graph, in either package: it only
 picks the ``attend`` backend the attention layers are built with (None, i.e.
@@ -37,14 +44,16 @@ from magvit2_pytorch_tpu_torch.models.layerspec import (
 from magvit2_pytorch_tpu_torch.ops.attention import (
     LinearSpaceAttention, SpaceAttention, TimeAttention)
 from magvit2_pytorch_tpu_torch.ops.basic import (
-    FeedForward, Residual, TokenShift)
+    FeedForward, Linear, Residual, Sequential, TokenShift, filter_kwargs)
 from magvit2_pytorch_tpu_torch.ops.conv import (
     ZERO_PAD_MODES, CausalConv3d, SameConv2d, pad_time_front)
+from magvit2_pytorch_tpu_torch.ops.gateloop import (
+    SimpleGateLoopLayer, ToTimeSequence)
 from magvit2_pytorch_tpu_torch.ops.norms import LayerNorm
 from magvit2_pytorch_tpu_torch.ops.quantizers import FSQ, LFQ
 from magvit2_pytorch_tpu_torch.ops.resample import (
-    ResidualUnit, SpatialDownsample2x, SpatialUpsample2x, TimeDownsample2x,
-    TimeUpsample2x)
+    ResidualUnit, ResidualUnitMod, SpatialDownsample2x, SpatialUpsample2x,
+    TimeDownsample2x, TimeUpsample2x)
 from magvit2_pytorch_tpu_torch.utils.helpers import exists, not_ported
 
 
@@ -139,6 +148,15 @@ class TokenizerConfig:
             self.layers, init_dim=self.init_dim, image_size=self.image_size,
             max_dim=self.max_dim, dim_cond=self.dim_cond)
 
+    @property
+    def expanded_dim_cond(self) -> Optional[int]:
+        """The width of the cond vector after the cond stems, which every
+        conditioned layer takes (the JAX package's fix of the reference's
+        quirk #7, ``tokenizer_module.py:14-17``)."""
+        if not exists(self.dim_cond):
+            return None
+        return int(self.dim_cond * self.dim_cond_expansion_factor)
+
     def to_json(self) -> str:
         d = dataclasses.asdict(self)
         if d['max_dim'] == float('inf'):
@@ -154,20 +172,10 @@ class TokenizerConfig:
 
 
 def check_supported(cfg: TokenizerConfig):
-    """Raise ``NotImplementedError`` for any config outside the port's slice;
-    nothing is silently ignored."""
-    for spec in cfg.parsed().specs:
-        t = spec.layer_type
-        if t == 'gateloop_time' or t.startswith('cond_'):
-            not_ported(f'layer type {t!r}', '9')
-    checks = (
-        (exists(cfg.dim_cond), 'dim_cond (conditioning)', '9'),
-        (exists(cfg.streaming_kv_window), 'streaming_kv_window', '10'),
-        (bool(cfg.remat), 'remat (training)', '12'),
-    )
-    for bad, what, item in checks:
-        if bad:
-            not_ported(what, item)
+    """Raise ``NotImplementedError`` for what the port does not serve:
+    ``remat``, a training option; nothing is silently ignored."""
+    if cfg.remat:
+        not_ported('remat (training)', '12')
 
 
 def _compute_lane_pack_end(config: TokenizerConfig) -> int:
@@ -195,16 +203,6 @@ def _compute_lane_pack_end(config: TokenizerConfig) -> int:
     return -1
 
 
-def _apply_layer(layer, x, w_blocked: bool):
-    """``layer(x)``; a stem layer of the lane-packed region hands
-    ``w_blocked`` to each of its ResidualUnits."""
-    if not w_blocked:
-        return layer(x)
-    for unit in (layer if isinstance(layer, nn.Sequential) else (layer,)):
-        x = unit(x, w_blocked=True)
-    return x
-
-
 def _attend_backend(cfg: TokenizerConfig) -> Optional[str]:
     """flash_attn=True -> the default ('auto') dispatch of ``attend``, else
     the plain backend (``tokenizer_module.py:247-250`` of the JAX package)."""
@@ -212,19 +210,24 @@ def _attend_backend(cfg: TokenizerConfig) -> Optional[str]:
 
 
 def _build_layer(spec: LayerSpec, cfg: TokenizerConfig, encoder: bool):
+    """One layer of the stack (the JAX package's ``_build_layer``,
+    ``tokenizer_module.py:259-340``), under the reference's module names."""
     t = spec.layer_type
     k = cfg.residual_conv_kernel_size
     dim, dim_out = spec.dim_in, spec.dim_out
+    dc = cfg.expanded_dim_cond if t.startswith('cond_') else None
     attn = dict(dim_head=cfg.attn_dim_head, heads=cfg.attn_heads,
                 backend=_attend_backend(cfg), dropout=cfg.attn_dropout,
-                use_rotary=cfg.use_rotary_pos_emb)
+                use_rotary=cfg.use_rotary_pos_emb, dim_cond=dc)
 
     if t == 'residual':
         return ResidualUnit(dim, k, pad_mode=cfg.pad_mode)
     if t == 'consecutive_residual':
         (num,) = spec.params
-        return nn.Sequential(*[ResidualUnit(dim, k, pad_mode=cfg.pad_mode)
-                               for _ in range(num)])
+        return Sequential(*[ResidualUnit(dim, k, pad_mode=cfg.pad_mode)
+                            for _ in range(num)])
+    if t == 'cond_residual':
+        return ResidualUnitMod(dim, k, dim_cond=dc, pad_mode=cfg.pad_mode)
     if t == 'compress_space':
         if encoder:
             return SpatialDownsample2x(dim, dim_out)
@@ -233,20 +236,26 @@ def _build_layer(spec: LayerSpec, cfg: TokenizerConfig, encoder: bool):
         if encoder:
             return TimeDownsample2x(dim, dim_out)
         return TimeUpsample2x(dim_out, dim)
-    if t == 'attend_space':
-        return nn.Sequential(
+    if t in ('attend_space', 'cond_attend_space'):
+        return Sequential(
             Residual(SpaceAttention(dim, **attn)),
-            Residual(FeedForward(dim)))
-    if t == 'linear_attend_space':
-        return nn.Sequential(
-            Residual(LinearSpaceAttention(dim,
-                                          dim_head=cfg.linear_attn_dim_head,
-                                          heads=cfg.linear_attn_heads)),
-            Residual(FeedForward(dim)))
-    if t == 'attend_time':
-        return nn.Sequential(
-            Residual(TokenShift(TimeAttention(dim, **attn))),
-            Residual(TokenShift(FeedForward(dim))))
+            Residual(FeedForward(dim, dim_cond=dc)))
+    if t in ('linear_attend_space', 'cond_linear_attend_space'):
+        # the conditioned form takes the full attention's head shape, as
+        # the JAX package builds it (tokenizer_module.py:301-308)
+        heads = (dict(dim_head=cfg.attn_dim_head, heads=cfg.attn_heads)
+                 if dc else dict(dim_head=cfg.linear_attn_dim_head,
+                                 heads=cfg.linear_attn_heads))
+        return Sequential(
+            Residual(LinearSpaceAttention(dim, dim_cond=dc, **heads)),
+            Residual(FeedForward(dim, dim_cond=dc)))
+    if t == 'gateloop_time':
+        return ToTimeSequence(Residual(SimpleGateLoopLayer(dim)))
+    if t in ('attend_time', 'cond_attend_time'):
+        return Sequential(
+            Residual(TokenShift(TimeAttention(
+                dim, kv_window=cfg.streaming_kv_window, **attn))),
+            Residual(TokenShift(FeedForward(dim, dim_cond=dc))))
     raise ValueError(f'unknown layer type {t}')
 
 
@@ -299,6 +308,13 @@ class TokenizerModule(nn.Module):
                 exact_codebook_entropy=cfg.lfq_exact_codebook_entropy,
                 inv_temperature=cfg.lfq_entropy_inv_temperature)
 
+        if parsed.has_cond:
+            # reference: Sequential(Linear(dim_cond, expanded), SiLU())
+            self.encoder_cond_in = nn.Sequential(
+                Linear(cfg.dim_cond, cfg.expanded_dim_cond), nn.SiLU())
+            self.decoder_cond_in = nn.Sequential(
+                Linear(cfg.dim_cond, cfg.expanded_dim_cond), nn.SiLU())
+
     @property
     def num_layers(self) -> int:
         return len(self.parsed_layers.specs)
@@ -307,24 +323,75 @@ class TokenizerModule(nn.Module):
         return (self.config.separate_first_frame_encoding
                 and video_contains_first_frame)
 
-    def encode(self, video, video_contains_first_frame: bool = True):
+    def _prep_cond(self, cond, batch: int, encoder: bool):
+        """The cond vector ``(B, dim_cond)`` through its stem, or None
+        (``tokenizer_module.py:421-432`` of the JAX package)."""
+        has_cond = self.parsed_layers.has_cond
+        assert not has_cond or exists(cond), (
+            '`cond` must be passed in since conditionable layers were '
+            'specified')
+        if not exists(cond):
+            return None
+        if not has_cond:
+            raise ValueError('`cond` was given, but no layer of this config '
+                             'is conditioned')
+        assert tuple(cond.shape) == (batch, self.config.dim_cond), (
+            f'cond {tuple(cond.shape)}, expected ({batch}, '
+            f'{self.config.dim_cond})')
+        stem = self.encoder_cond_in if encoder else self.decoder_cond_in
+        return stem(cond)
+
+    @staticmethod
+    def _stream_args(streaming: bool, state):
+        if streaming and state is None:
+            raise ValueError('streaming=True needs the stream\'s state '
+                             '(a dict, see models/streaming.py)')
+        return state if streaming else None
+
+    def _run(self, layers, x, cond, has_cond, state, blocked):
+        """The layers in order, each with the kwargs it takes: ``cond`` from
+        the first conditioned layer on, ``state`` when streaming,
+        ``w_blocked`` where ``blocked(i)`` (layer i of ``layers``)."""
+        for i, (layer, conditioned) in enumerate(zip(layers, has_cond)):
+            kwargs = {}
+            if conditioned and exists(cond):
+                kwargs['cond'] = cond
+            if state is not None:
+                kwargs['state'] = state
+            if blocked(i):
+                kwargs['w_blocked'] = True
+            x = layer(x, **filter_kwargs(layer, kwargs))
+        return x
+
+    def encode(self, video, cond=None, video_contains_first_frame: bool = True,
+               streaming: bool = False, state: Optional[dict] = None):
         """Video -> continuous latents ``(B, T', H', W', D)`` before
         quantization (reference magvit2_pytorch.py:1522-1576). With
         ``separate_first_frame_encoding`` the first frame takes its own 2D
         conv and the rest ``conv_in``; the time padding goes back in front
-        after them (the JAX package's ``tokenizer_module.py:455-472``)."""
+        after them (the JAX package's ``tokenizer_module.py:437-494``).
+
+        ``streaming=True``: one chunk of a stream whose ``state`` carries
+        every time-causal op's history; the caller puts the first chunk's
+        time padding in front and passes
+        ``video_contains_first_frame=False``."""
+        state = self._stream_args(streaming, state)
+        if streaming:
+            assert not self.config.separate_first_frame_encoding
         tp = self.time_padding
-        if video_contains_first_frame:
+        if video_contains_first_frame and not streaming:
             video = pad_time_front(video, tp)
+        cond = self._prep_cond(cond, video.shape[0], encoder=True)
         if self._first_frame_apart(video_contains_first_frame):
             first = self.conv_in_first_frame(video[:, tp])
             x = torch.cat([first[:, None], self.conv_in(video[:, tp + 1:])],
                           dim=1)
             x = pad_time_front(x, tp)
         else:
-            x = self.conv_in(video)
-        for i, layer in enumerate(self.encoder_layers[:self.num_layers]):
-            x = _apply_layer(layer, x, i < self.lane_pack_end)
+            x = self.conv_in(video, state=state)
+        x = self._run(self.encoder_layers[:self.num_layers], x, cond,
+                      self.parsed_layers.has_cond_across_layers, state,
+                      lambda i: i < self.lane_pack_end)
         if self.config.apply_final_norm:
             x = self.encoder_layers[self.num_layers][1](x)
         return x
@@ -335,32 +402,57 @@ class TokenizerModule(nn.Module):
     def indices_to_codes(self, indices, dtype=torch.float32):
         return self.quantizers.indices_to_codes(indices, dtype=dtype)
 
-    def decode(self, quantized, video_contains_first_frame: bool = True):
-        """Quantized latents -> video (reference magvit2_pytorch.py:1597-1649):
-        the decoder layers, ``conv_out``, then the front time padding is
-        cut off; with ``separate_first_frame_encoding`` the first frame after
-        the padding takes its own 2D conv and the padding is dropped
-        (``tokenizer_module.py:530-560`` of the JAX package)."""
-        x = quantized
+    def decode_features(self, quantized, cond=None, streaming: bool = False,
+                        state: Optional[dict] = None):
+        """Quantized latents -> the features before ``conv_out`` (still
+        time-padded): the decoder layers, stored reversed as the
+        reference's ``insert(0)`` builds them (spec index ``n - 1 - j``)."""
+        state = self._stream_args(streaming, state)
+        cond = self._prep_cond(cond, quantized.shape[0], encoder=False)
         n = len(self.decoder_layers)
-        for j, layer in enumerate(self.decoder_layers):
-            # decoder_layers are stored reversed: spec index n - 1 - j
-            x = _apply_layer(layer, x, n - 1 - j < self.lane_pack_dec_end)
+        return self._run(
+            self.decoder_layers, quantized, cond,
+            tuple(reversed(self.parsed_layers.has_cond_across_layers)),
+            state, lambda j: n - 1 - j < self.lane_pack_dec_end)
+
+    def decode_pixels(self, x, video_contains_first_frame: bool = True,
+                      streaming: bool = False, state: Optional[dict] = None):
+        """Features -> video (reference magvit2_pytorch.py:1631-1649):
+        ``conv_out``, then the front time padding is cut off; with
+        ``separate_first_frame_encoding`` the first frame after the padding
+        takes its own 2D conv and the padding is dropped
+        (``tokenizer_module.py:526-560`` of the JAX package). Streaming, the
+        caller cuts the first chunk's padding."""
+        state = self._stream_args(streaming, state)
         tp = self.time_padding
-        if self._first_frame_apart(video_contains_first_frame):
+        if self._first_frame_apart(video_contains_first_frame) and not (
+                streaming):
             first = self.conv_out_first_frame(x[:, tp])
             return torch.cat([first[:, None], self.conv_out(x[:, tp + 1:])],
                              dim=1)
-        video = self.conv_out(x)
-        if video_contains_first_frame:
+        video = self.conv_out(x, state=state)
+        if video_contains_first_frame and not streaming:
             video = video[:, tp:]
         return video
 
-    def forward(self, video, video_contains_first_frame: bool = True):
+    def decode(self, quantized, cond=None,
+               video_contains_first_frame: bool = True,
+               streaming: bool = False, state: Optional[dict] = None):
+        """Quantized latents -> video (reference magvit2_pytorch.py:
+        1597-1649): ``decode_features`` then ``decode_pixels``."""
+        x = self.decode_features(quantized, cond=cond, streaming=streaming,
+                                 state=state)
+        return self.decode_pixels(
+            x, video_contains_first_frame=video_contains_first_frame,
+            streaming=streaming, state=state)
+
+    def forward(self, video, cond=None,
+                video_contains_first_frame: bool = True):
         """Full round trip; returns ``(recon, QuantizerOutput)``."""
         qout = self.quantize(self.encode(
-            video, video_contains_first_frame=video_contains_first_frame))
+            video, cond=cond,
+            video_contains_first_frame=video_contains_first_frame))
         recon = self.decode(
-            qout.quantized,
+            qout.quantized, cond=cond,
             video_contains_first_frame=video_contains_first_frame)
         return recon, qout

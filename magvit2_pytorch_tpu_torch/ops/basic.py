@@ -1,6 +1,6 @@
 """Basic blocks: Linear with torch-default init, GEGLU FeedForward, TokenShift,
-SqueezeExcite and Residual (PyTorch counterpart of
-``magvit2_pytorch_tpu/ops/basic.py``).
+SqueezeExcite, Residual and a kwargs-forwarding Sequential (PyTorch
+counterpart of ``magvit2_pytorch_tpu/ops/basic.py``).
 
 Parameters keep the reference's PyTorch layouts and ``state_dict`` names
 (weights ``(out, in)``; the reference's 1x1 convs are ``Linear`` over the
@@ -12,13 +12,38 @@ the device.
 
 from __future__ import annotations
 
+import functools
+import inspect
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from magvit2_pytorch_tpu_torch.ops.norms import RMSNorm
+from magvit2_pytorch_tpu_torch.ops.norms import AdaptiveRMSNorm, RMSNorm
+from magvit2_pytorch_tpu_torch.utils.helpers import exists
+
+
+def filter_kwargs(module: nn.Module, kwargs: dict) -> dict:
+    """The kwargs ``module.forward`` accepts, per key (the JAX package's
+    ``_filter_kwargs``, ``ops/basic.py:290-303``): the tokenizer hands
+    ``cond``, ``state`` and ``w_blocked`` to every layer from the first
+    conditioned one on, and each module takes only what it knows."""
+    accepted = _accepted_kwargs(type(module))
+    if accepted is None:
+        return dict(kwargs)
+    return {k: v for k, v in kwargs.items() if k in accepted}
+
+
+@functools.lru_cache(maxsize=None)
+def _accepted_kwargs(cls):
+    """The parameter names of ``cls.forward``, or None where it takes
+    ``**kwargs``."""
+    params = inspect.signature(cls.forward).parameters
+    if any(p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values()):
+        return None
+    return frozenset(params)
 
 
 def uniform_(t: torch.Tensor, bound: float, gen: torch.Generator):
@@ -62,33 +87,51 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """RMSNorm -> 1x1 GEGLU MLP, inner dim ``int(dim * mult * 2 / 3)``
-    (reference magvit2_pytorch.py:471-508)."""
+    """(Adaptive)RMSNorm -> 1x1 GEGLU MLP, inner dim ``int(dim * mult * 2 /
+    3)`` (reference magvit2_pytorch.py:471-508). With ``dim_cond`` the norm's
+    gamma comes from the cond vector ``(B, dim_cond)``, broadcast over the
+    middle axes."""
 
-    def __init__(self, dim: int, mult: float = 4.0):
+    def __init__(self, dim: int, mult: float = 4.0,
+                 dim_cond: Optional[int] = None):
         super().__init__()
         dim_inner = int(dim * mult * 2 / 3)
-        self.norm = RMSNorm(dim)
+        self.norm = (AdaptiveRMSNorm(dim, dim_cond) if exists(dim_cond)
+                     else RMSNorm(dim))
         self.net = nn.Sequential(
             Linear(dim, dim_inner * 2), GEGLU(), Linear(dim_inner, dim))
 
-    def forward(self, x):
-        return self.net(self.norm(x))
+    def forward(self, x, cond=None):
+        return self.net(self.norm(x, cond))
 
 
 class TokenShift(nn.Module):
     """The second half of the channels moves one frame later (zero frame in
     front, last frame dropped); ``fn`` runs on the result (reference
-    magvit2_pytorch.py:244-254). Input ``(B, T, H, W, C)``."""
+    magvit2_pytorch.py:244-254). Input ``(B, T, H, W, C)``.
+
+    ``state`` (a stream's dict keyed by module, ``models/streaming.py``):
+    the frame in front is the last shifted frame of the previous chunk,
+    zeros for the first (``ops/basic.py:112-140`` of the JAX package).
+    ``state`` and the other kwargs go on to ``fn`` where it takes them."""
 
     def __init__(self, fn: nn.Module):
         super().__init__()
         self.fn = fn
 
-    def forward(self, x):
+    def forward(self, x, state: Optional[dict] = None, **kwargs):
         x_main, x_shift = x.chunk(2, dim=-1)
-        x_shift = F.pad(x_shift, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1]
-        return self.fn(torch.cat((x_main, x_shift), dim=-1))
+        if state is not None:
+            front = state.get(self)
+            if front is None:
+                front = torch.zeros_like(x_shift[:, :1])
+            state[self] = x_shift[:, -1:].clone()
+            x_shift = torch.cat((front, x_shift), dim=1)[:, :-1]
+            kwargs['state'] = state
+        else:
+            x_shift = F.pad(x_shift, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1]
+        return self.fn(torch.cat((x_main, x_shift), dim=-1),
+                       **filter_kwargs(self.fn, kwargs))
 
 
 class SqueezeExcite(nn.Module):
@@ -143,14 +186,26 @@ def live_squeeze_excite_(module: nn.Module, gen: torch.Generator):
 
 
 class Residual(nn.Module):
-    """``fn(x) + x`` (reference magvit2_pytorch.py:167-174)."""
+    """``fn(x) + x`` (reference magvit2_pytorch.py:167-174); the kwargs
+    ``fn`` takes go on to it."""
 
     def __init__(self, fn: nn.Module):
         super().__init__()
         self.fn = fn
 
-    def forward(self, x):
-        return self.fn(x) + x
+    def forward(self, x, **kwargs):
+        return self.fn(x, **filter_kwargs(self.fn, kwargs)) + x
+
+
+class Sequential(nn.Sequential):
+    """``nn.Sequential`` that hands each module the kwargs it takes
+    (reference Sequential, magvit2_pytorch.py:159-165; the JAX package's
+    ``ops/basic.py:267-276``)."""
+
+    def forward(self, x, **kwargs):
+        for module in self:
+            x = module(x, **filter_kwargs(module, kwargs))
+        return x
 
 
 def init_module_parameters(module: nn.Module, gen: torch.Generator):

@@ -1,6 +1,7 @@
-"""Causal 3D convolution and the same-padded 2D conv (PyTorch counterpart
-of the plain paths of ``magvit2_pytorch_tpu/ops/conv.py:CausalConv3d`` and
-``SameConv2d``).
+"""Causal 3D convolution, the same-padded 2D conv, the time-strided
+transpose conv and the StyleGAN2-modulated conv (PyTorch counterpart of the
+plain paths of ``magvit2_pytorch_tpu/ops/conv.py:CausalConv3d``,
+``SameConv2d``, ``CausalConvTranspose3d`` and ``Conv3DMod``).
 
 Activations are channels-last ``(B, T, H, W, C)``. A convolution permutes to
 the ``(B, C, T, H, W)`` view — for a contiguous channels-last tensor that view
@@ -16,11 +17,18 @@ a clip with no more frames than the causal pad is padded with zeros
 whatever the mode (reference magvit2_pytorch.py:925), and a conv whose
 ``C_in * kt <= 32`` (the JAX package unfolds its time taps into channels
 there) pads only time with the mode and h, w with zeros.
+
+Streaming (``models/streaming.py``): ``CausalConv3d`` and ``Conv3DMod`` take
+a ``state`` dict keyed by module. The frames in front of a chunk are then
+the last ``kt - 1`` frames of the previous chunk (zeros for the first) in
+place of the causal pad, so chunked calls compute what one whole-clip call
+does. That needs zero padding: the zero first state is the causal pad.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -54,6 +62,22 @@ def pad_time_front(x, frames: int):
     if frames == 0:
         return x
     return F.pad(x, (0, 0, 0, 0, 0, 0, frames, 0))
+
+
+def carried_frames(module, x, frames: int, state: dict,
+                   pad_mode: str = 'constant'):
+    """A chunk with the ``frames`` frames the stream carries for ``module``
+    in front (zeros before the first chunk); the new carry, the chunk's last
+    ``frames`` frames of that, goes back into ``state``."""
+    if pad_mode not in ZERO_PAD_MODES:
+        raise ValueError(f'streaming needs zero padding (the zero first '
+                         f'state is the causal pad), not {pad_mode!r}')
+    front = state.get(module)
+    if front is None:
+        front = x.new_zeros(x.shape[0], frames, *x.shape[2:])
+    x = torch.cat((front, x), dim=1)
+    state[module] = x[:, x.shape[1] - frames:].clone()
+    return x
 
 
 class ConvWeights(nn.Module):
@@ -97,7 +121,7 @@ class CausalConv3d(nn.Module):
         c_in = self.conv.weight.shape[1]
         return mode, not (kt > 1 and c_in * kt <= UNFOLD_MAX_TAPS_X_CHANNELS)
 
-    def forward(self, x):
+    def forward(self, x, state: Optional[dict] = None):
         kt, kh, kw = self.kernel_size
         hp, wp = kh // 2, kw // 2
         if x.shape[1] == 0:
@@ -105,7 +129,11 @@ class CausalConv3d(nn.Module):
             # separate first-frame encoding); F.conv3d refuses the empty clip
             return x.new_zeros(*x.shape[:4], self.conv.weight.shape[0])
         mode, pad_hw = self._padding(x.shape[1])
-        if mode is None:
+        if state is not None and kt > 1:
+            x = to_channels_first(carried_frames(self, x, kt - 1, state,
+                                                 self.pad_mode))
+            padding = (0, hp, wp)
+        elif mode is None:
             x = to_channels_first(pad_time_front(x, kt - 1))
             padding = (0, hp, wp)
         else:
@@ -141,3 +169,103 @@ class SameConv2d(nn.Module):
         out = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
                        self.bias.to(x.dtype), padding=(kh // 2, kw // 2))
         return out.permute(0, 2, 3, 1).contiguous()
+
+
+class CausalConvTranspose3d(nn.Module):
+    """Time-strided transpose conv on ``(B, T, H, W, C)``, its output cut to
+    ``T * time_stride`` frames (reference magvit2_pytorch.py:990-1024; the
+    JAX package's ``ops/conv.py:713``, which exports it and whose tokenizer,
+    like the reference's, does not use it). ``conv.weight`` is torch's
+    ``(in, out, kt, kh, kw)``."""
+
+    def __init__(self, dim_in: int, dim_out: int, kernel_size,
+                 time_stride: int = 2):
+        super().__init__()
+        kt, kh, kw = cast_tuple(kernel_size, 3)
+        assert kh % 2 == 1 and kw % 2 == 1
+        self.kernel_size, self.time_stride = (kt, kh, kw), time_stride
+        self.conv = ConvTransposeWeights(dim_in, dim_out, (kt, kh, kw))
+
+    def forward(self, x):
+        kt, kh, kw = self.kernel_size
+        t = x.shape[1]
+        out = F.conv_transpose3d(
+            to_channels_first(x), self.conv.weight.to(x.dtype),
+            self.conv.bias.to(x.dtype), stride=(self.time_stride, 1, 1),
+            padding=(0, kh // 2, kw // 2))
+        return to_channels_last(out[:, :, :t * self.time_stride])
+
+
+class ConvTransposeWeights(nn.Module):
+    """A transpose conv's ``weight (in, out, *kernel)`` and ``bias (out,)``
+    with torch's default init (fan-in ``out * prod(kernel)``)."""
+
+    def __init__(self, dim_in: int, dim_out: int, kernel_size):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(dim_in, dim_out, *kernel_size))
+        self.bias = nn.Parameter(torch.empty(dim_out))
+
+    def init_parameters(self, gen: torch.Generator):
+        fan_in = self.weight.shape[1] * math.prod(self.weight.shape[2:])
+        torch_default_init_(self.weight, self.bias, fan_in, gen)
+
+
+class Conv3DMod(nn.Module):
+    """StyleGAN2 weight modulation and demodulation (reference Conv3DMod,
+    magvit2_pytorch.py:680-753; the JAX package's ``ops/conv.py:754``):
+    sample b convolves with ``W * (cond_b + 1)`` over the input channels,
+    each output channel's kernel divided by its l2 norm, as one grouped
+    ``F.conv3d`` with ``groups = B`` (the reference's own lowering).
+    ``weights (out, in, kt, k, k)``, kaiming-normal for SELU.
+
+    Causal in time unless ``causal=False``; ``state`` streams it as
+    ``CausalConv3d`` (``ops/conv.py:811`` of the JAX package)."""
+
+    def __init__(self, dim: int, spatial_kernel: int, time_kernel: int,
+                 causal: bool = True, dim_out: Optional[int] = None,
+                 demod: bool = True, eps: float = 1e-8,
+                 pad_mode: str = 'constant'):
+        super().__init__()
+        assert spatial_kernel % 2 == 1 and time_kernel % 2 == 1
+        if pad_mode not in PAD_MODES:
+            raise ValueError(f'pad_mode={pad_mode!r}: one of {PAD_MODES}')
+        dim_out = dim if dim_out is None else dim_out
+        self.dim, self.spatial_kernel, self.time_kernel = (
+            dim, spatial_kernel, time_kernel)
+        self.causal, self.demod, self.eps, self.pad_mode = (
+            causal, demod, eps, pad_mode)
+        self.weights = nn.Parameter(torch.empty(
+            dim_out, dim, time_kernel, spatial_kernel, spatial_kernel))
+
+    def init_parameters(self, gen: torch.Generator):
+        fan_in = math.prod(self.weights.shape[1:])
+        with torch.no_grad():
+            self.weights.copy_(torch.randn(self.weights.shape, generator=gen)
+                               * (0.75 / math.sqrt(fan_in)))
+
+    def forward(self, fmap, cond, state: Optional[dict] = None):
+        kt, sp = self.time_kernel, self.spatial_kernel // 2
+        b, dtype = fmap.shape[0], fmap.dtype
+        # (B, out, in, kt, k, k), rounded to the working dtype where the
+        # JAX package rounds it; the demodulation's sum of squares in
+        # float32
+        w = self.weights.to(dtype)[None] * (
+            cond.to(dtype)[:, None, :, None, None, None] + 1.0)
+        if self.demod:
+            sq = w.float().square().sum(dim=(2, 3, 4, 5), keepdim=True)
+            w = w * torch.rsqrt(sq.clamp_min(self.eps)).to(dtype)
+        front, back = (kt - 1, 0) if self.causal else (kt // 2, kt // 2)
+        if state is not None and self.causal and kt > 1:
+            fmap = carried_frames(self, fmap, kt - 1, state, self.pad_mode)
+            front = 0
+        x = to_channels_first(fmap)
+        if self.pad_mode in ZERO_PAD_MODES:
+            x = F.pad(x, (0, 0, 0, 0, front, back))
+            padding = (0, sp, sp)
+        else:
+            x = F.pad(x, (sp, sp, sp, sp, front, back), mode=self.pad_mode)
+            padding = (0, 0, 0)
+        out = F.conv3d(x.reshape(1, -1, *x.shape[2:]),
+                       w.reshape(-1, *w.shape[2:]), padding=padding,
+                       groups=b)
+        return to_channels_last(out.reshape(b, -1, *out.shape[2:]))

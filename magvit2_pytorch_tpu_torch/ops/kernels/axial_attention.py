@@ -85,22 +85,25 @@ TIME_MAX_C, TIME_MAX_INNER = 512, 256
 
 
 def _block_takes(dim_head: int, dropout: float, use_rotary: bool,
-                 has_mask: bool) -> bool:
+                 has_mask: bool, has_cond: bool, streaming: bool) -> bool:
     """What both block gates share: plain axial attention (no dropout,
-    rotary or mask) at a head size the CUDA kernel takes, unless
-    ``MAGVIT2_TPU_NO_FUSED_ATTN=1`` (read at call time)."""
+    rotary, mask, conditioning or stream) at a head size the CUDA kernel
+    takes, unless ``MAGVIT2_TPU_NO_FUSED_ATTN=1`` (read at call time)."""
     if os.environ.get('MAGVIT2_TPU_NO_FUSED_ATTN', '') == '1':
         return False
-    return (not (dropout > 0 or use_rotary or has_mask)
+    return (not (dropout > 0 or use_rotary or has_mask or has_cond
+                 or streaming)
             and dim_head in SUPPORTED_DIM_HEAD)
 
 
 def fused_eligible(n: int, c: int, heads: int, dim_head: int, *,
                    dropout: float, use_rotary: bool,
-                   has_mask: bool = False) -> bool:
+                   has_mask: bool = False, has_cond: bool = False,
+                   streaming: bool = False) -> bool:
     """Static gate of the space block (the port's copy of
     ``axial_attention.py:126-141``, under its signature): plain axial
-    attention (no dropout, rotary or mask) at ``n <= 1024``, unless
+    attention (no dropout, rotary, mask, cond or stream) at ``n <= 1024``,
+    unless
     ``MAGVIT2_TPU_NO_FUSED_ATTN=1`` (read at call time). The TPU-only
     conditions (``n % 8``, lane-multiple ``c`` and ``heads * dim_head``, a
     TPU backend) give way to what the CUDA kernel takes: ``dim_head in
@@ -108,16 +111,19 @@ def fused_eligible(n: int, c: int, heads: int, dim_head: int, *,
     gate does not look at the device, so a module routes the same way on the
     CPU and the card; an ineligible module takes the general path of
     ``ops/attention.py``."""
-    return n <= 1024 and _block_takes(dim_head, dropout, use_rotary, has_mask)
+    return n <= 1024 and _block_takes(dim_head, dropout, use_rotary,
+                                      has_mask, has_cond, streaming)
 
 
 def fused_time_eligible(t: int, s: int, c: int, heads: int, dim_head: int, *,
                         dropout: float, use_rotary: bool,
-                        has_mask: bool = False) -> bool:
+                        has_mask: bool = False, has_cond: bool = False,
+                        streaming: bool = False) -> bool:
     """Static gate of the time block (``axial_attention.py:296-312``): as
     :func:`fused_eligible` with ``t <= 16``; the TPU's ``s % 16`` tile
     condition is dropped (the CUDA kernel takes any ``s``)."""
-    return t <= 16 and _block_takes(dim_head, dropout, use_rotary, has_mask)
+    return t <= 16 and _block_takes(dim_head, dropout, use_rotary,
+                                    has_mask, has_cond, streaming)
 
 
 def attention_block_ref(x, gamma, wqkv, mem_kv, wout, heads: int,

@@ -26,8 +26,9 @@ import torch.nn.functional as F
 
 from magvit2_pytorch_tpu_torch.ops.kernels import _build
 
-# launches of each GEMM route since the last reset (see ops/kernels)
-LAUNCHES = {'gemm_wgmma': 0, 'gemm_wmma': 0, 'gemm_f32': 0}
+# launches of each GEMM route and of the row RMSNorm since the last reset
+# (see ops/kernels)
+LAUNCHES = {'gemm_wgmma': 0, 'gemm_wmma': 0, 'gemm_f32': 0, 'rmsnorm': 0}
 
 ROUTES = {'f32': 0, 'wmma': 1, 'wgmma': 2}    # csrc/gemm.cu GemmRoute
 WGMMA_MULTIPLE = 64     # K tile (one 128-byte swizzle row of bf16) and N step
@@ -82,6 +83,7 @@ def rmsnorm(x, gamma):
     _build.check(lib, lib.mv2_rmsnorm(
         x.data_ptr(), gamma.data_ptr(), out.data_ptr(), _build.dtype_code(x),
         rows, c, _build.stream_handle(x.device)), 'rmsnorm')
+    LAUNCHES['rmsnorm'] += 1
     return out
 
 

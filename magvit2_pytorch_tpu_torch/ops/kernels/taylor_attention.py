@@ -11,6 +11,11 @@ folded in as sum v and N):
     num = phi(q) A + sum_n v,  den = phi(q) S + N      (float32)
     out = cast(num * cast(1 / (den + eps))) Wout
 
+With ``gamma=None`` the block skips the norm: the input is normed already
+(``apply_norm=False`` of the TPU kernel, :245-322, which the conditioned
+``LinearAttention`` reaches after its ``AdaptiveRMSNorm``). That route
+makes three launches, the qkv GEMM reading x itself.
+
 The casts are ``_taylor_frame``'s (:74-107): in bf16 every phi entry rounds
 twice (the product ``t_i t_j``, then ``* inv_sqrt2``, whose constant is the
 bf16 0.70703125), A and S round after their float32 sums, sum v and N stay
@@ -61,7 +66,8 @@ from magvit2_pytorch_tpu_torch.ops.kernels import _build, gemm
 
 # launches of the block and of each core route since the last reset (see
 # ops/kernels); the block's GEMMs count in gemm.LAUNCHES
-LAUNCHES = {'taylor_attention_block': 0, 'taylor_core_mma': 0,
+LAUNCHES = {'taylor_attention_block': 0,
+            'taylor_attention_block_no_norm': 0, 'taylor_core_mma': 0,
             'taylor_core_f32': 0}
 
 SUPPORTED_DIM_HEAD = (8,)     # csrc/taylor_attention.cu: both cores
@@ -123,13 +129,15 @@ def taylor_core_ref(qkv, frames: int, heads: int, dim_head: int,
 
 def taylor_attention_ref(x, gamma, wqkv, wout, heads: int, dim_head: int,
                          eps: float = 1e-5):
-    """Plain version on ``(B, N, C)``. gamma ``(C,)``, wqkv
-    ``(3 * heads * dim_head, C)`` in (qkv, head, d) row order, wout
-    ``(C, heads * dim_head)``."""
+    """Plain version on ``(B, N, C)``. gamma ``(C,)``, or None for the
+    no-norm route; wqkv ``(3 * heads * dim_head, C)`` in (qkv, head, d) row
+    order, wout ``(C, heads * dim_head)``."""
     dt = x.dtype
     b, n, c = x.shape
     hd = heads * dim_head
-    xn = gemm.rmsnorm_ref(x.reshape(b * n, c), gamma)
+    xn = x.reshape(b * n, c)
+    if gamma is not None:
+        xn = gemm.rmsnorm_ref(xn, gamma)
     qkv = gemm.gemm_nt_ref(xn, wqkv.to(dt), scaled_cols=hd,
                            col_scale=dim_head ** -0.5)
     attn = taylor_core_ref(qkv, b, heads, dim_head, eps)
@@ -161,13 +169,16 @@ def taylor_core(qkv, frames: int, heads: int, dim_head: int,
 
 def taylor_launches(x, gamma, wqkv, wout, heads: int, dim_head: int,
                     eps: float = 1e-5):
-    """The four launches of the block on ``(B, N, C)``: RMSNorm, the qkv
-    GEMM (q scaled in its epilogue), the core, the out GEMM. On CPU tensors
-    each takes its plain version, so the composition is testable there."""
+    """The four launches of the block on ``(B, N, C)``: RMSNorm (none when
+    ``gamma`` is None), the qkv GEMM (q scaled in its epilogue), the core,
+    the out GEMM. On CPU tensors each takes its plain version, so the
+    composition is testable there."""
     dt = x.dtype
     b, n, c = x.shape
     hd = heads * dim_head
-    xn = gemm.rmsnorm(x.reshape(b * n, c), gamma)
+    xn = x.reshape(b * n, c)
+    if gamma is not None:
+        xn = gemm.rmsnorm(xn, gamma)
     qkv = gemm.gemm_nt(xn, wqkv.to(dt), scaled_cols=hd,
                        col_scale=dim_head ** -0.5)
     attn = taylor_core(qkv, b, heads, dim_head, eps)
@@ -181,7 +192,8 @@ def taylor_attention(x, gamma, wqkv, wout, heads: int, dim_head: int,
         return taylor_attention_ref(x, gamma, wqkv, wout, heads, dim_head,
                                     eps)
     name = 'taylor_attention_block'
-    _build.check_cuda_inputs(name, x, (gamma, wqkv, wout))
+    _build.check_cuda_inputs(
+        name, x, tuple(t for t in (gamma, wqkv, wout) if t is not None))
     if not taylor_eligible(dim_head):
         raise ValueError(f'{name}: dim_head {dim_head} not in '
                          f'{SUPPORTED_DIM_HEAD}')
@@ -193,4 +205,6 @@ def taylor_attention(x, gamma, wqkv, wout, heads: int, dim_head: int,
                          f'heads*dim_head={hd}')
     out = taylor_launches(x, gamma, wqkv, wout, heads, dim_head, eps)
     LAUNCHES[name] += 1
+    if gamma is None:
+        LAUNCHES['taylor_attention_block_no_norm'] += 1
     return out

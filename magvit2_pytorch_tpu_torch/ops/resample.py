@@ -1,5 +1,5 @@
-"""Space/time down- and up-sampling and the residual unit (PyTorch counterpart
-of ``magvit2_pytorch_tpu/ops/resample.py``).
+"""Space/time down- and up-sampling and the residual units, plain and
+conditioned (PyTorch counterpart of ``magvit2_pytorch_tpu/ops/resample.py``).
 
 The downsamplers keep the reference's per-frame ``Conv2d`` and per-pixel
 ``Conv1d`` weights and run them as one 3D conv with a ``(1, k, k)`` or
@@ -7,11 +7,16 @@ The downsamplers keep the reference's per-frame ``Conv2d`` and per-pixel
 (``2 * dim_out``) channels in the reference's ``(c, p1, p2)`` (``(c, p)``)
 order, then depth-to-space and SiLU; their weights start replicated, so the
 layer starts as a nearest-neighbour upsampler (magvit2_pytorch.py:829-836).
+
+Of these only ``TimeDownsample2x`` and the units' causal convs look at
+earlier frames, so only they take a stream's ``state``
+(``models/streaming.py``).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -20,8 +25,8 @@ from torch import nn
 from magvit2_pytorch_tpu_torch.ops.basic import (
     Linear, SqueezeExcite, uniform_)
 from magvit2_pytorch_tpu_torch.ops.conv import (
-    CausalConv3d, ConvWeights, pad_time_front, to_channels_first,
-    to_channels_last)
+    CausalConv3d, Conv3DMod, ConvWeights, carried_frames, pad_time_front,
+    to_channels_first, to_channels_last)
 from magvit2_pytorch_tpu_torch.ops.kernels import residual_unit as ru_kernels
 
 
@@ -45,15 +50,21 @@ class SpatialDownsample2x(nn.Module):
 
 class TimeDownsample2x(nn.Module):
     """Causal pad ``k - 1`` frames, stride-2 conv over t, per pixel
-    (reference magvit2_pytorch.py:782-807)."""
+    (reference magvit2_pytorch.py:782-807). Streamed, the ``k - 1`` frames
+    in front are the previous chunk's last ones; a chunk of an even number
+    of frames keeps the stride's phase."""
 
     def __init__(self, dim: int, dim_out: int, kernel_size: int = 3):
         super().__init__()
         self.kernel_size = kernel_size
         self.conv = ConvWeights(dim, dim_out, (kernel_size,))
 
-    def forward(self, x):
-        x = to_channels_first(pad_time_front(x, self.kernel_size - 1))
+    def forward(self, x, state: Optional[dict] = None):
+        k = self.kernel_size
+        if state is not None:
+            x = to_channels_first(carried_frames(self, x, k - 1, state))
+        else:
+            x = to_channels_first(pad_time_front(x, k - 1))
         out = F.conv3d(x, self.conv.weight.to(x.dtype)[..., None, None],
                        self.conv.bias.to(x.dtype), stride=(2, 1, 1))
         return to_channels_last(out)
@@ -141,14 +152,41 @@ class ResidualUnit(nn.Module):
                 se.to_k.weight, se.to_k.bias, se.net[0].weight,
                 se.net[0].bias, se.net[2].weight, se.net[2].bias)
 
-    def forward(self, x, w_blocked: bool = False):
+    def forward(self, x, w_blocked: bool = False,
+                state: Optional[dict] = None):
+        streaming = state is not None
         if not w_blocked and ru_kernels.wide_eligible(
-                x, self.dim, self.kernel_size, self.pad_mode):
+                x, self.dim, self.kernel_size, self.pad_mode, streaming):
             return ru_kernels.fused_residual_unit_wide(
                 x, *self._fused_params())
         if ru_kernels.fused_eligible(x, self.dim, self.kernel_size,
-                                     w_blocked, self.pad_mode):
+                                     w_blocked, self.pad_mode, streaming):
             # activations stay unpacked in the port (ROADMAP A14)
             return ru_kernels.fused_residual_unit(
                 x, *self._fused_params(), packed_io=False)
-        return self.fn(x) + x
+        conv, *rest = self.fn
+        y = conv(x, state=state)
+        for module in rest:
+            y = module(y)
+        return y + x
+
+
+class ResidualUnitMod(nn.Module):
+    """The conditioned unit of ``cond_residual``: ``x + elu(conv1x1(elu(
+    Conv3DMod(x, to_cond(cond)))))`` (reference magvit2_pytorch.py:946-988;
+    the JAX package's ``ops/resample.py:364``). No kernel takes it."""
+
+    def __init__(self, dim: int, kernel_size, dim_cond: int,
+                 pad_mode: str = 'constant', demod: bool = True):
+        super().__init__()
+        kt, kh, kw = (kernel_size if isinstance(kernel_size, tuple)
+                      else (kernel_size,) * 3)
+        assert kh == kw
+        self.to_cond = Linear(dim_cond, dim)
+        self.conv = Conv3DMod(dim, spatial_kernel=kh, time_kernel=kt,
+                              causal=True, demod=demod, pad_mode=pad_mode)
+        self.conv_out = Linear(dim, dim)
+
+    def forward(self, x, cond, state: Optional[dict] = None):
+        y = F.elu(self.conv(x, self.to_cond(cond), state=state))
+        return F.elu(self.conv_out(y)) + x

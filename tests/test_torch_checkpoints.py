@@ -276,5 +276,19 @@ def test_gan_checkpoint_skips_the_discriminator(tmp_path):
 
 
 def test_reference_pt_import_is_not_ported_yet(tmp_path):
-    with pytest.raises(NotImplementedError, match='ROADMAP.md queue A item 8'):
-        VideoTokenizer.init_and_load_from_torch(tmp_path / 'ref.pt')
+    """The reference's ``.pt`` package, once refused, now imports: the
+    package ``save`` of the reference writes (a pickled kwargs dict and the
+    reference-named state_dict) gives back the tokenizer it was written
+    from, weights and outputs equal."""
+    import pickle
+    src = VideoTokenizer(device='cpu', seed=8, **FSQ_SMALL)
+    path = tmp_path / 'ref.pt'
+    torch.save({'model_state_dict': src.state_dict(),
+                'config': pickle.dumps(dict(FSQ_SMALL)),
+                'version': '0.0.0'}, path)
+    tok = VideoTokenizer.init_and_load_from_torch(path, device='cpu')
+    assert tok.config == src.config
+    assert all(torch.equal(v, tok.state_dict()[k])
+               for k, v in src.state_dict().items())
+    video = _video(10)
+    assert torch.equal(tok.tokenize(video), src.tokenize(video))

@@ -147,7 +147,7 @@ def test_golden_fixture(name):
     config = json.loads(bytes(f['config']).decode())
     state = {k[3:]: f[k] for k in f.files if k.startswith('sd.')}
     tok = VideoTokenizer(device='cpu', seed=0, **config)
-    tok.load_reference_state_dict(state)
+    tok.load_torch_state_dict(state)
     video = _cl(f['video'])
     np.testing.assert_allclose(tok.encode(video).numpy(), _cl(f['latents']),
                                atol=2e-4, rtol=1e-3)

@@ -514,11 +514,45 @@ def test_gates_keep_the_semantic_conditions(monkeypatch):
 
 
 def test_unported_attention_modes_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match='item 9'):
-        pattention.Attention(DIM, dim_cond=4)
+    """The two modes that once raised, ``dim_cond`` and a stream's kv-cache,
+    against the JAX package (float32, atol 1e-5): ``Attention(dim_cond=4)``
+    on a cond vector, and a causal ``TimeAttention`` fed two chunks
+    against JAX's ``streaming=True`` with its ``cache`` collection."""
+    rng = np.random.default_rng(33)
+    params = _attention_params(32, 34)
+    params['norm'] = {'to_gamma': {
+        'kernel': (rng.normal(size=(4, DIM)) * 0.3).astype(np.float32),
+        'bias': (1 + 0.1 * rng.normal(size=DIM)).astype(np.float32)}}
+    port = pattention.Attention(DIM, heads=HEADS, dim_cond=4)
+    state = {}
+    _apply(state, _attention_entries('x', (), cond=True), params)
+    port.load_state_dict({k[2:]: v for k, v in state.items()}, strict=True)
+    x, cond = _rand((2, 6, DIM), 35), _rand((2, 4), 36)
+    want = jattention.Attention(dim=DIM, heads=HEADS, dim_cond=4).apply(
+        {'params': params}, jnp.asarray(x), cond=jnp.asarray(cond))
+    np.testing.assert_allclose(
+        port(torch.from_numpy(x), cond=torch.from_numpy(cond)).detach()
+        .numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+    params = _attention_params(32, 37)
+    jmod = jattention.TimeAttention(dim=DIM, heads=HEADS, causal=True)
     port = pattention.TimeAttention(DIM, heads=HEADS)
-    with pytest.raises(NotImplementedError, match='item 10'):
-        port(torch.zeros(1, 2, 2, 2, DIM), streaming=True)
+    state = {}
+    _apply(state, _attention_entries('x', ()), params)
+    port.load_state_dict({k[2:]: v for k, v in state.items()}, strict=True)
+    video = _rand((1, 5, 2, 2, DIM), 38)
+    stream, cache = {}, None
+    for lo, hi in ((0, 2), (2, 5)):
+        chunk = video[:, lo:hi]
+        variables = {'params': params}
+        if cache is not None:
+            variables['cache'] = cache
+        want, mutated = jmod.apply(variables, jnp.asarray(chunk),
+                                   streaming=True, mutable=['cache'])
+        cache = mutated['cache']
+        got = port(torch.from_numpy(chunk), state=stream)
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   atol=1e-5, rtol=0)
 
 
 def test_general_path_backward_reaches_every_parameter(monkeypatch):

@@ -1,7 +1,8 @@
 """The port's serving slice end to end on the CPU: config and layer-spec
 copies, the weight bridge with the JAX package, the golden ``tok_lfq``
 fixture of the actual reference, a tiny roundtrip against the JAX package,
-the modes the port refuses, and an import with JAX blocked."""
+the options it once refused, the modes it refuses, and an import with JAX
+blocked."""
 
 import dataclasses
 import json
@@ -182,7 +183,7 @@ def test_golden_tok_lfq_fixture():
     config = json.loads(bytes(f['config']).decode())
     state = {k[3:]: f[k] for k in f.files if k.startswith('sd.')}
     tok = VideoTokenizer(device='cpu', seed=0, **config)
-    tok.load_reference_state_dict(state)
+    tok.load_torch_state_dict(state)
     video = _cl(f['video'])
     np.testing.assert_allclose(tok.encode(video).numpy(), _cl(f['latents']),
                                atol=2e-4, rtol=1e-3)
@@ -202,7 +203,7 @@ def test_reference_state_dict_rejects_a_misfit():
     state['conv_in.conv.weight'] = state['conv_in.conv.weight'][:, :2]
     with pytest.raises(ValueError, match='conv_in.conv.weight'):
         VideoTokenizer(device='cpu', seed=0,
-                       **config).load_reference_state_dict(state)
+                       **config).load_torch_state_dict(state)
 
 
 def test_tiny_roundtrip_matches_jax(tiny_pair):
@@ -255,8 +256,31 @@ def test_channel_first_image_and_no_first_frame_modes(tiny_pair):
     dict(streaming_kv_window=4),
 ], ids=lambda d: next(iter(d)) if 'layers' not in d else d['layers'][1])
 def test_outside_the_slice_raises(overrides):
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        VideoTokenizer(device='cpu', seed=0, **{**TINY, **overrides})
+    """Of the options the port once refused only ``remat`` (training) still
+    raises; the others build and tokenize and decode as the JAX package
+    does on the same weights (codes exact, recon within 1e-5), a cond
+    vector given where the config has conditioned layers."""
+    kwargs = {**TINY, **overrides}
+    if 'remat' in overrides:
+        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+            VideoTokenizer(device='cpu', seed=0, **kwargs)
+        return
+    port = VideoTokenizer(device='cpu', seed=0, **kwargs)
+    jtok = JaxTokenizer(params=jax.tree.map(jnp.asarray, (
+        jax_params_from_state_dict(port.config, port.state_dict()))),
+        **kwargs)
+    rng = np.random.default_rng(6)
+    video = rng.random((2, 5, 16, 16, 3), dtype=np.float32)
+    cond = (rng.random((2, 4), dtype=np.float32)
+            if port.config.parsed().has_cond else None)
+    codes_j, recon_j = jtok.forward(
+        jnp.asarray(video), cond=None if cond is None else jnp.asarray(cond),
+        return_codes=True, return_recon=True)
+    codes, recon = port.forward(video, cond=cond, return_codes=True,
+                                return_recon=True)
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(codes_j))
+    np.testing.assert_allclose(recon.numpy(), np.asarray(recon_j), atol=1e-5,
+                               rtol=0)
 
 
 @pytest.mark.parametrize('overrides', [
