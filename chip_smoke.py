@@ -162,6 +162,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
    README's heads, 32 x 8, where no attention kernel runs (B3 takes heads
    of 8 only): its launches, frames/s and float32 card against CPU. B3's no-norm route against its plain version at the
    flagship shape (the kernels line's B3 row, key ``no_norm``).
+10. training. Each block's backward at the flagship shapes, float32 (TF32
+   off) and bf16 (B1; B2 on its 'launches' route in float32 and 'fused' in
+   bf16; B3 with and without its norm; B4 at (8, 20, 16, 16, 512); B5 on
+   the packed stem): the wrapper's gradients of x and every parameter
+   against ``torch.autograd.grad`` of the plain version its backward
+   recomputes, on the same inputs and upstream gradient (float32 within
+   1e-5 of each gradient's largest value, bf16 within 1e-2), one forward
+   and one ``_backward`` count each, and forward + backward times against
+   the plain version's (the kernels line's ``backward`` of rows B1-B5).
+   Then ``VideoTokenizerTrainer`` on the README flagship as a user runs it
+   (the default discriminator, VGG16 with the orthogonal fallback, the bf16
+   policy, an in-memory dataset, batch 4 x accum 2), 8 ``train_step``s on
+   the default path (monolithic accumulation) and on the fused one (split),
+   the discriminator from step 1, R1 every 2 steps: every loss finite, each
+   block's forward and ``_backward`` launched (B4 and B5 on the fused path
+   only, no flash), seconds a step with and without R1 and at the default
+   cadence, samples/s, peak memory; with ``--profile`` one warm step's
+   device time by kernel (``profile_train_<path>.txt``) and its share under
+   the blocks' backward recompute. One step each with ``remat=True`` and
+   ``remat='dots'``: the same losses within the bf16 limit, a lower peak.
+   A B4 unit of the trained and of the EMA module after one more step
+   against the plain version on the updated weights (the re-lay cache); the
+   EMA tokenizer's roundtrip contract; a tiny float32 configuration on the
+   card against the CPU (the first step's losses and gradients within
+   1e-4, the parameters after two steps within 2 lr a step); and ``save``
+   -> ``load`` -> one step bit for bit the step without the reload.
 
 The second-to-last line is the card's ``nvidia-smi`` name and power limit,
 the line before it a JSON object with one entry per kernel; the last line is
@@ -3459,6 +3485,631 @@ def phase_rest_of_serving(torch, dev, smi, profile_dir, reps):
     return out, paths, no_norm
 
 
+# ---- phase 10: training -------------------------------------------------------
+
+# the backward of each block: (kernels-line row, wrapper's backward counter)
+BACKWARD_ROWS = {'space_attention_block': 'space_attention_block_backward',
+                 'time_attention_block_fused': 'time_attention_block_backward',
+                 'taylor_attention_block': 'taylor_attention_block_backward',
+                 'residual_unit_wide': 'residual_unit_wide_backward',
+                 'residual_unit_packed': 'residual_unit_packed_backward'}
+# a backward on the card recomputes the function its reference
+# differentiates, so the two agree to the order of their sums: float32
+# within 1e-5 of each gradient's largest value; bf16 within 1e-2 (one bf16
+# step is 2^-8 of a value, and the recompute's cuDNN and cuBLAS calls may
+# pick other algorithms, with other sums, than the reference's)
+BACKWARD_TOL = {'float32': 1e-5, 'bfloat16': 1e-2}
+BACKWARD_REPS = 10
+TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 4, 2, 8
+TRAIN_LR = 1e-4
+# R1 at steps 2, 4, 6 (the discriminator from step 1): steps 4 and 6 are
+# warm R1 steps, 3, 5 and 7 warm steps without it; the JAX package's default
+# cadence, 4, costs (one R1 step + three others) / 4 a step
+TRAIN_R1_EVERY = 2
+R1_DEFAULT_EVERY = 4
+# the tiny configuration of the tests (tests/fixtures/generate.py:152) with
+# the space, time and Taylor layers, for the card against the CPU
+TINY_TRAIN = dict(image_size=16, init_dim=8, codebook_size=64,
+                  layers=('residual', ('compress_space', 16),
+                          'linear_attend_space', ('compress_time', 16),
+                          'attend_space', 'attend_time'),
+                  attn_heads=2, linear_attn_heads=4,
+                  discr_kwargs=dict(dim=4, image_size=16, channels=3,
+                                    max_dim=16))
+# float32 card against CPU, the same step: losses and gradients within 1e-4
+# of their largest value (a gradient zero by its math, as the
+# SqueezeExcite logit bias's, against 1e-3 of the largest gradient)
+TRAIN_CPU_TOL = 1e-4
+
+
+def backward_cases(torch, dev):
+    """The five blocks at the flagship shapes (batch 8): each wrapper, the
+    plain function its backward differentiates on the card (the counterpart
+    of the JAX custom VJP's XLA twin), the inputs, and the counters a call
+    must move."""
+    from magvit2_pytorch_tpu_torch.ops.kernels import (
+        axial_attention as ax, residual_unit as ru, taylor_attention as ta)
+    gen = torch.Generator().manual_seed(4321)
+
+    def u(shape, fan_in):
+        return uniform(torch, gen, shape, fan_in)
+
+    packed = lambda fn: (lambda xb, *p: fn(
+        xb.reshape(*xb.shape[:3], -1, 64), *p).reshape(xb.shape))
+    c, t, hw = 256, 20, 32
+    taylor = [torch.randn(BATCH * t, hw * hw, c, generator=gen),
+              1 + 0.1 * torch.randn(c, generator=gen),
+              u((3 * 128, c), c), u((c, 128), 128)]
+    cases = [
+        dict(name='space_attention_block', counter='space_attention_block',
+             fn=lambda *a: ax.attention_block(*a, 8, 32, False),
+             twin=lambda *a: ax.attention_block_ref(*a, 8, 32, False),
+             args=[torch.randn(BATCH * 20, 256, 512, generator=gen),
+                   *attn_params(torch, gen, 512, 8, 32)]),
+        dict(name='time_attention_block_fused',
+             counter='time_attention_block',
+             fn=lambda *a: ax.time_attention_block(*a, 8, 32, True),
+             twin=lambda *a: ax.time_attention_block_twin(*a, 8, 32, True),
+             args=[torch.randn(*TIME_SHAPE, generator=gen),
+                   *attn_params(torch, gen, 512, 8, 32)]),
+        dict(name='taylor_attention_block', counter='taylor_attention_block',
+             fn=lambda *a: ta.taylor_attention(*a, 16, 8),
+             twin=lambda *a: ta.taylor_attention_twin(*a, 16, 8),
+             args=taylor),
+        dict(name='taylor_attention_block', counter='taylor_attention_block',
+             variant='no_norm',
+             fn=lambda x, q, o: ta.taylor_attention(x, None, q, o, 16, 8),
+             twin=lambda x, q, o: ta.taylor_attention_twin(x, None, q, o, 16,
+                                                           8),
+             args=[taylor[0], taylor[2], taylor[3]]),
+        dict(name='residual_unit_wide', counter='residual_unit_wide',
+             fn=ru.fused_residual_unit_wide, twin=ru.residual_unit_ref,
+             args=[torch.randn(B4_ROW_SHAPE, generator=gen),
+                   *ru_params(torch, 512, gen)]),
+        dict(name='residual_unit_packed', counter='residual_unit_packed',
+             fn=lambda xb, *p: ru.fused_residual_unit(xb, *p, packed_io=True),
+             twin=packed(ru.residual_unit_ref),
+             args=[torch.randn(BATCH, *PACKED_STEM, PACKED_STEM[1] // 2, 128,
+                               generator=gen), *ru_params(torch, 64, gen)]),
+    ]
+    for case in cases:
+        case['args'] = [a.to(dev) for a in case['args']]
+    return cases
+
+
+def grads_of(torch, fn, leaves, g):
+    return torch.autograd.grad(fn(*leaves), leaves, g)
+
+
+def relative_grad_error(got, want):
+    """The largest of each gradient's max abs error over its reference's
+    largest value."""
+    return max(((a.float() - b.float()).abs().max()
+                / b.float().abs().max().clamp_min(1e-30)).item()
+               for a, b in zip(got, want))
+
+
+def check_backward(torch, case, reps):
+    """One block forward + backward on the card in float32 (TF32 off) and
+    bf16: the wrapper's gradients of x and of every parameter against
+    ``torch.autograd.grad`` of its twin on the same inputs and upstream
+    gradient; the forward and ``_backward`` counters; forward + backward
+    times against the twin's."""
+    from magvit2_pytorch_tpu_torch.ops.kernels import launch_counts
+    name = case['name'] + (f' ({case["variant"]})' if 'variant' in case
+                           else '')
+    set_tf32(False)
+    row, errs = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        key = 'float32' if dt == torch.float32 else 'bfloat16'
+        leaves = [a.to(dt).requires_grad_(True) for a in case['args']]
+        out = case['fn'](*leaves)
+        g = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+            7), dtype=torch.float32).to(out.device, dt)
+        del out
+        (got, counts) = counted(torch, lambda: grads_of(torch, case['fn'],
+                                                        leaves, g))
+        want = grads_of(torch, case['twin'], leaves, g)
+        errs[key] = relative_grad_error(got, want)
+        finite = all(bool(torch.isfinite(x).all()) for x in got)
+        fwd, bwd = case['counter'], BACKWARD_ROWS[case['name']]
+        if counts[fwd] != 1 or counts[bwd] != 1 or not finite:
+            fail(f'{name} backward {key}: counts {fwd} {counts[fwd]}, {bwd} '
+                 f'{counts[bwd]}; finite {finite}')
+        if case['name'] == 'time_attention_block_fused':
+            route = 'fused' if dt == torch.bfloat16 else 'launches'
+            if counts[f'time_attention_block_{route}'] != 1:
+                fail(f'{name} {key}: not on the {route!r} route: {counts}')
+        if not errs[key] <= BACKWARD_TOL[key]:
+            fail(f'{name} backward {key}: gradient error {errs[key]:.3e} of '
+                 f'the largest value > {BACKWARD_TOL[key]:g}')
+        del got, want
+        if dt == torch.bfloat16:
+            row['ms'] = median_ms(lambda: grads_of(torch, case['fn'],
+                                                   leaves, g), reps)
+            row['plain_ms'] = median_ms(lambda: grads_of(
+                torch, case['twin'], leaves, g), reps)
+        del leaves, g
+        torch.cuda.empty_cache()
+    row.update(max_rel_err=errs['bfloat16'], max_rel_err_fp32=errs['float32'],
+               shape=list(case['args'][0].shape),
+               how='recompute through the plain version, as the JAX custom '
+                   'VJP does')
+    log(f'[backward] {name} {tuple(case["args"][0].shape)}: gradients of x '
+        f'and every parameter against autograd of the twin, of the largest '
+        f'value: fp32 {errs["float32"]:.3e} (tol '
+        f'{BACKWARD_TOL["float32"]:g}), bf16 {errs["bfloat16"]:.3e} (tol '
+        f'{BACKWARD_TOL["bfloat16"]:g}); bf16 forward + backward '
+        f'{row["ms"]:.3f} ms, the twin\'s {row["plain_ms"]:.3f} ms (medians '
+        f'of {reps}, one call a timing)')
+    return row
+
+
+class TrainVideos:
+    """An in-memory dataset of uint8 clips from a seed, as a decoder gives
+    them (the JAX package's tests feed its trainer the same way)."""
+
+    def __init__(self, torch, n, frames, size, seed=0):
+        gen = torch.Generator().manual_seed(seed)
+        self.items = torch.randint(0, 256, (n, frames, size, size, 3),
+                                   generator=gen, dtype=torch.uint8).numpy()
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+def train_tokenizer(torch, dev, **overrides):
+    """The README flagship with its GAN side as a user builds it: the
+    default discriminator and VGG16 with the orthogonal fallback (no VGG
+    weights are in the repo), seeded weights, float32 parameters, live
+    SqueezeExcite gates."""
+    import warnings
+    from magvit2_pytorch_tpu_torch import VideoTokenizer
+    from magvit2_pytorch_tpu_torch.configs import readme_video_tokenizer_kwargs
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore', UserWarning)      # the VGG fallback
+        tok = VideoTokenizer(seed=0, device=dev,
+                             **readme_video_tokenizer_kwargs(**overrides))
+    return live_gates(torch, tok)
+
+
+def live_gates(torch, tok):
+    """Live SqueezeExcite gates (``live_squeeze_excite_``, seeded): under
+    the users' init every unit adds ~1e-4 of its branch, and no check could
+    see a unit's weights."""
+    from magvit2_pytorch_tpu_torch.ops.basic import live_squeeze_excite_
+    live_squeeze_excite_(tok.module, torch.Generator().manual_seed(3))
+    return tok
+
+
+def make_trainer(torch, tok, tmp, **kw):
+    from magvit2_pytorch_tpu_torch.training import VideoTokenizerTrainer
+    args = dict(batch_size=TRAIN_BATCH, grad_accum_every=TRAIN_ACCUM,
+                num_train_steps=TRAIN_STEPS, learning_rate=TRAIN_LR,
+                warmup_steps=2, discr_start_after_step=1,
+                apply_gradient_penalty_every=TRAIN_R1_EVERY,
+                dataset=TrainVideos(torch, 16, 17, tok.image_size),
+                valid_frac=0.0,
+                checkpoints_folder=os.path.join(tmp, 'checkpoints'),
+                results_folder=os.path.join(tmp, 'results'))
+    args.update(kw)
+    with contextlib.redirect_stdout(open(os.devnull, 'w')):
+        return VideoTokenizerTrainer(tok, **args)
+
+
+def quiet_step(trainer, it):
+    with contextlib.redirect_stdout(open(os.devnull, 'w')):
+        return trainer.train_step(it)
+
+
+def train_steps(torch, trainer, steps):
+    """``steps`` train_steps from the trainer's loader: each step's metrics
+    (floats) and host seconds (ending in a synchronize), the peak device
+    memory of step 0 and of the rest, and the launches of all of them
+    (counted from 0)."""
+    from magvit2_pytorch_tpu_torch.data import cycle
+    it = cycle(trainer.dataloader)
+    metrics, seconds, peaks = [], [], []
+
+    def run():
+        for i in range(steps):
+            if i in (0, 1):
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m = quiet_step(trainer, it)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if i in (0, steps - 1):
+                peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+    _, counts = counted(torch, run)
+    return metrics, seconds, peaks, counts
+
+
+def median(values):
+    return sorted(values)[len(values) // 2]
+
+
+def check_finite(what, metrics):
+    bad = {k: v for m in metrics for k, v in m.items()
+           if not (v == v and abs(v) != float('inf'))}
+    if bad:
+        fail(f'{what}: non-finite metrics {bad}')
+
+
+# launches a training run takes on each path: every block forward and
+# backward at least once; B4 and B5 on the fused path only; no flash
+TRAIN_FORWARD = ('space_attention_block', 'time_attention_block',
+                 'time_attention_block_fused', 'taylor_attention_block')
+
+
+def check_train_launches(path, counts):
+    need = [*TRAIN_FORWARD, *(BACKWARD_ROWS[k] for k in BACKWARD_ROWS
+                              if not k.startswith('residual_unit'))]
+    ru = ['residual_unit_wide', 'residual_unit_packed',
+          'residual_unit_wide_backward', 'residual_unit_packed_backward']
+    if path == 'fused':
+        need += ru
+    missing = [k for k in need if not counts[k] >= 1]
+    extra = [k for k in (*FLASH_KERNELS, *([] if path == 'fused' else ru))
+             if counts[k]]
+    if missing or extra:
+        fail(f'training {path}: launched none of {missing}, or some of '
+             f'{extra}: {counts}')
+
+
+def phase_train_flagship(torch, dev, smi, tmp, profile_dir):
+    """The README flagship trained for TRAIN_STEPS steps on each path (the
+    default one with monolithic accumulation, the fused one with split
+    accumulation), then one step each with remat=True and remat='dots'
+    against the default path's first step; the fused unit and the EMA's
+    fused unit after an update against the plain version; the EMA
+    tokenizer's roundtrip contract. Returns the readings and the launches
+    of each path."""
+    out, counts = {}, {}
+    for path, env, split in (('default', {}, False), ('fused', FUSED_ENV,
+                                                        True)):
+        with environment(env):
+            tok = train_tokenizer(torch, dev, lane_pack=path == 'fused')
+            tr = make_trainer(torch, tok, os.path.join(tmp, path),
+                              grad_accum_split=split)
+            metrics, seconds, peaks, counts[path] = train_steps(
+                torch, tr, TRAIN_STEPS)
+            check_finite(f'training {path}', metrics)
+            check_train_launches(path, counts[path])
+            r1 = median([seconds[i] for i in (4, 6)])
+            gan = median([seconds[i] for i in (3, 5, 7)])
+            warm = (r1 + (R1_DEFAULT_EVERY - 1) * gan) / R1_DEFAULT_EVERY
+            out[path] = dict(
+                metrics=metrics, seconds=seconds, s_per_step=warm,
+                s_r1_step=r1, s_gan_step=gan,
+                samples_per_s=TRAIN_BATCH * TRAIN_ACCUM / warm,
+                peak_gib_step0=peaks[0], peak_gib=max(peaks),
+                accumulation='split' if split else 'monolithic',
+                launches=counts[path],
+                launches_per_step={k: v / TRAIN_STEPS
+                                   for k, v in counts[path].items() if v})
+            log(f'[train {path}] README flagship, bf16 policy, batch '
+                f'{TRAIN_BATCH} x accum {TRAIN_ACCUM} '
+                f'({out[path]["accumulation"]}), GAN from step 1, R1 every '
+                f'{TRAIN_R1_EVERY}, VGG16 perceptual (orthogonal fallback): '
+                f'seconds per step {[round(s, 4) for s in seconds]}: warm '
+                f'with R1 {r1:.4f} s, without {gan:.4f} s, so {warm:.4f} '
+                f's a step at R1 every {R1_DEFAULT_EVERY} (the default), '
+                f'{out[path]["samples_per_s"]:.2f} samples/s; peak '
+                f'{max(peaks):.2f} GiB (step 0 {peaks[0]:.2f}) on {smi}; '
+                f'losses step 0 {metrics[0]["total_loss"]:.4f}, step '
+                f'{TRAIN_STEPS - 1} {metrics[-1]["total_loss"]:.4f}, discr '
+                f'{metrics[-1]["discr_loss"]:.4f}, R1 at step 2 '
+                f'{metrics[2]["gradient_penalty"]:.4e}, adaptive weight '
+                f'{metrics[-1]["adaptive_adversarial_weight"]:.4e}; launches '
+                f'{ {k: v for k, v in counts[path].items() if v} }')
+            if profile_dir:
+                out[path]['profile'] = profile_train_step(
+                    torch, tr, os.path.join(profile_dir,
+                                            f'profile_train_{path}.txt'))
+            if path == 'fused':
+                out['after_update'] = check_units_after_update(torch, tr)
+            else:
+                out['roundtrip_contract'] = check_ema_roundtrip(torch, tr)
+            del tok, tr
+            torch.cuda.empty_cache()
+    base = out['default']
+    for remat in (True, 'dots'):
+        tok = train_tokenizer(torch, dev, remat=remat)
+        tr = make_trainer(torch, tok, os.path.join(tmp, f'remat_{remat}'))
+        metrics, seconds, peaks, _ = train_steps(torch, tr, 1)
+        errs = {k: abs(v - base['metrics'][0][k]) / max(
+                    abs(base['metrics'][0][k]), 1e-6)
+                for k, v in metrics[0].items()
+                if k in ('total_loss', 'recon_loss', 'perceptual_loss',
+                         'lfq_aux_loss')}
+        out[f'remat_{remat}'] = dict(metrics=metrics[0], seconds=seconds[0],
+                                     peak_gib=peaks[0], rel_err=errs)
+        log(f'[train remat={remat!r}] step 0 against no remat: losses '
+            f'relative {errs} (tol {STEP_TOL["bfloat16"]:g}); peak '
+            f'{peaks[0]:.2f} GiB against {base["peak_gib_step0"]:.2f}; '
+            f'{seconds[0]:.3f} s (cold)')
+        if max(errs.values()) > STEP_TOL['bfloat16']:
+            fail(f'remat={remat!r}: step 0 losses differ {errs}')
+        if not peaks[0] < base['peak_gib_step0']:
+            fail(f'remat={remat!r}: peak {peaks[0]:.2f} GiB not below '
+                 f'{base["peak_gib_step0"]:.2f}')
+        del tok, tr
+        torch.cuda.empty_cache()
+    return out, counts
+
+
+def unit_at_512(module):
+    """The decoder's first ResidualUnit at C = 512 (a B4 stage)."""
+    from magvit2_pytorch_tpu_torch.ops.resample import ResidualUnit
+    return next(m for n, m in module.named_modules()
+                if isinstance(m, ResidualUnit) and m.dim == 512
+                and n.startswith('decoder_layers'))
+
+
+def check_units_after_update(torch, trainer):
+    """Trouble spot of the weight re-lay cache: a B4 unit of the trained
+    module and of the EMA module, float32 on the card (the f32 route, its
+    own re-laid weights), run before and after one more train_step; after
+    it, each output equals the plain version's on the updated weights, and
+    the update is visible (the outputs moved by more than the tolerance)."""
+    from magvit2_pytorch_tpu_torch.data import cycle
+    from magvit2_pytorch_tpu_torch.ops.kernels import residual_unit as ru
+    set_tf32(False)
+    units = {'trained': unit_at_512(trainer.module),
+             'ema': unit_at_512(trainer.ema_module)}
+    x = torch.randn(2, 5, 16, 16, units['ema'].dim, generator=torch
+                    .Generator().manual_seed(5)).to(trainer.device)
+    with torch.no_grad():
+        before = {k: u(x) for k, u in units.items()}
+    quiet_step(trainer, cycle(trainer.dataloader))
+    out = {}
+    with torch.no_grad():
+        for k, u in units.items():
+            (got, counts) = counted(torch, lambda: u(x))
+            want = ru.residual_unit_ref(x, *u._fused_params())
+            err = (got - want).abs().max().item()
+            moved = (got - before[k]).abs().max().item()
+            out[k] = dict(max_abs_err=err, moved=moved,
+                          launches=counts['residual_unit_wide'])
+            if counts['residual_unit_wide'] != 1:
+                fail(f'{k} unit after an update: not on B4 ({counts})')
+            if not (err <= RU_TOL['float32'] < moved):
+                fail(f'{k} unit after an update: error {err:.3e} against the '
+                     f'plain version on the updated weights (tol '
+                     f'{RU_TOL["float32"]:g}), moved {moved:.3e}')
+    log(f'[train fused unit after an update] float32 B4 at '
+        f'{tuple(x.shape)}, against the plain version on the new weights: '
+        f'{out}')
+    return out
+
+
+def check_ema_roundtrip(torch, trainer):
+    """README: ``decode_from_code_indices(tokenize(v))`` within 1e-4 of
+    ``forward(v, return_recon=True)``, on the EMA tokenizer."""
+    ema = trainer.ema_tokenizer
+    size = ema.image_size
+    v = torch.rand(2, 17, size, size, 3, generator=torch.Generator()
+                   .manual_seed(6)).to(trainer.device)
+    codes, recon = ema.forward(v, return_codes=True, return_recon=True)
+    back = ema.decode_from_code_indices(codes.reshape(codes.shape[0], -1))
+    err = (back - recon).abs().max().item()
+    log(f'[train EMA roundtrip] decode_from_code_indices(tokenize(v)) '
+        f'against forward(v, return_recon=True): {err:.3e} (tol 1e-4)')
+    if not err <= 1e-4:
+        fail(f'EMA tokenizer roundtrip contract: {err}')
+    return err
+
+
+def profile_train_step(torch, trainer, path):
+    """One warm train_step (the discriminator's, with R1 off the cadence
+    or on it as the step falls) under ``torch.profiler``: device time by
+    kernel into ``path``, and the share of device time under the blocks'
+    backward recompute (the autograd nodes of ``_Block``, ``_TaylorBlock``
+    and ``_Unit``)."""
+    from torch.profiler import ProfilerActivity, profile
+    from magvit2_pytorch_tpu_torch.data import cycle
+    it = cycle(trainer.dataloader)
+    quiet_step(trainer, it)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        quiet_step(trainer, it)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    total = sum(e.self_device_time_total for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    # the autograd nodes themselves (their evaluate_function wrappers hold
+    # the same kernels): the device time of everything they launch
+    recompute = sum(e.device_time_total for e in events
+                    if e.key in ('_BlockBackward', '_TaylorBlockBackward',
+                                 '_UnitBackward')) / 1e3
+    with open(path, 'w') as f:
+        f.write(events.table(sort_by='self_device_time_total',
+                             row_limit=60))
+    log(f'[train profile] one warm step (no R1) {total:.2f} device ms, '
+        f'{recompute:.2f} under the blocks\' backward recompute '
+        f'({recompute / max(total, 1e-9):.1%}); table in {path}')
+    return dict(device_ms=total, recompute_ms=recompute,
+                recompute_share=recompute / max(total, 1e-9))
+
+
+def tiny_vgg_file(torch, path):
+    """VGG16 weights at the fan-in scale from a seed, in torchvision's
+    names, for both tokenizers of the card-against-CPU check (the
+    orthogonal fallback's QR would take the CPU tens of seconds)."""
+    from magvit2_pytorch_tpu_torch.models.vgg import (
+        VGG16Features, conv_and_linear_names)
+    gen = torch.Generator().manual_seed(21)
+    vgg = VGG16Features()
+    state = {}
+    for prefix, _ in conv_and_linear_names():
+        w = vgg.get_submodule(prefix).weight
+        state[f'{prefix}.weight'] = torch.randn(
+            w.shape, generator=gen) * (2 / w[0].numel()) ** 0.5
+        state[f'{prefix}.bias'] = torch.randn(w.shape[0], generator=gen) * 0.01
+    torch.save(state, path)
+
+
+def first_step_grads(torch, trainer, batch):
+    """Micro-step 0 of step 0 as the trainer computes it: the generator's
+    loss and gradients (its draws), then the discriminator's with R1."""
+    from magvit2_pytorch_tpu_torch.training import losses
+    cfg = trainer.model.config
+    b, t = batch.shape[:2]
+    gen = trainer._generator(0, 0, 0)
+    total, _, _ = losses.tokenizer_loss(
+        trainer.module, batch, losses.draw_tokenizer_loss(b, t, gen),
+        discr=trainer.discr, vgg=trainer.vgg, train=True, use_vgg=True,
+        has_gan=True, perceptual_loss_weight=cfg.perceptual_loss_weight,
+        generator=gen)
+    params = list(trainer.module.parameters())
+    grads = torch.autograd.grad(total, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params, grads)]
+    dtotal, _ = losses.discriminator_loss(
+        trainer.module, trainer.discr, batch,
+        losses.draw_frames(b, t, trainer._generator(0, 1, 0)),
+        apply_gradient_penalty=True)
+    dgrads = torch.autograd.grad(dtotal, list(trainer.discr.parameters()))
+    return [total, dtotal], [*grads, *dgrads]
+
+
+def phase_train_card_vs_cpu(torch, dev, tmp):
+    """The tiny configuration in float32 (TF32 off) on the card and the
+    CPU with the same weights, data and draws: the first step's losses and
+    gradients (generator with the perceptual and adaptive terms,
+    discriminator with R1) within TRAIN_CPU_TOL of their largest value; two
+    train_steps each; the parameters after the second step within 2 lr a
+    step of each other (Adam moves a weight by about lr in the sign of its
+    gradient; one near 0 may take either sign), 99% of them within 1e-2 lr."""
+    from magvit2_pytorch_tpu_torch import VideoTokenizer
+    from magvit2_pytorch_tpu_torch.data import cycle
+    from magvit2_pytorch_tpu_torch.utils.precision import Policy
+    set_tf32(False)
+    vgg = os.path.join(tmp, 'vgg16.pth')
+    tiny_vgg_file(torch, vgg)
+    threads = torch.get_num_threads()
+    # the CPU's intra-op threads race in R1's double backward (heap
+    # corruption seen with several threads on the CPU build); one thread
+    torch.set_num_threads(1)
+    try:
+        runs = {}
+        for device in (dev, 'cpu'):
+            tok = live_gates(torch, VideoTokenizer(
+                seed=0, device=device, vgg_weights=vgg, **TINY_TRAIN))
+            tr = make_trainer(torch, tok, os.path.join(tmp, f'tiny_{device}'),
+                              batch_size=2, discr_start_after_step=0,
+                              apply_gradient_penalty_every=1,
+                              dataset=TrainVideos(torch, 8, 5, 16, seed=3),
+                              policy=Policy())
+            batch = tr._to_device(tr.dataset.items[:2], torch.float32)
+            losses, grads = first_step_grads(torch, tr, batch)
+            it = cycle(tr.dataloader)
+            metrics = [quiet_step(tr, it) for _ in range(2)]
+            params = [p.detach().cpu() for p in tr.module.parameters()]
+            runs[str(device)] = ([l.detach().cpu() for l in losses],
+                                 [g.cpu() for g in grads], metrics, params)
+    finally:
+        torch.set_num_threads(threads)
+    (lc, gc, mc, pc), (lh, gh, mh, ph) = runs[str(dev)], runs['cpu']
+    loss_err = max(((a - b).abs() / b.abs()).item() for a, b in zip(lc, lh))
+    floor = 1e-3 * max(g.abs().max().item() for g in gh)
+    grad_err = max(((a - b).abs().max() / max(b.abs().max().item(), floor))
+                   .item() for a, b in zip(gc, gh))
+    diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(pc, ph)])
+    out = dict(loss_rel_err=loss_err, grad_rel_err=grad_err,
+               param_max_diff=diffs.max().item(),
+               param_q99_diff=diffs.quantile(0.99).item(),
+               metrics_card=mc[-1], metrics_cpu=mh[-1])
+    log(f'[train card vs CPU] tiny float32 (TF32 off): step 0 losses '
+        f'{loss_err:.3e}, gradients {grad_err:.3e} of the largest value (tol '
+        f'{TRAIN_CPU_TOL:g}); parameters after 2 steps: max |diff| '
+        f'{out["param_max_diff"]:.3e} (bound {4 * TRAIN_LR:g}), 99% within '
+        f'{out["param_q99_diff"]:.3e} (bound {1e-2 * TRAIN_LR:g})')
+    if not (loss_err <= TRAIN_CPU_TOL and grad_err <= TRAIN_CPU_TOL):
+        fail(f'training card vs CPU: step 0 losses {loss_err}, gradients '
+             f'{grad_err}')
+    if not (out['param_max_diff'] <= 4 * TRAIN_LR
+            and out['param_q99_diff'] <= 1e-2 * TRAIN_LR):
+        fail(f'training card vs CPU: parameters after 2 steps {out}')
+    return out
+
+
+def phase_train_resume(torch, dev, tmp):
+    """save -> load -> one more step on the card, bit for bit the step
+    without the reload (the tiny configuration, bf16 policy, deterministic
+    cuDNN algorithms, no VGG: its pooling's backward adds with atomics)."""
+    from magvit2_pytorch_tpu_torch import VideoTokenizer
+    data = TrainVideos(torch, 8, 5, 16, seed=4)
+    batches = [(data.items[i:i + 2],) for i in (0, 2, 4, 6)] * 3
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        kw = dict(TINY_TRAIN, perceptual_loss_weight=0.0)
+        a = make_trainer(torch, VideoTokenizer(seed=0, device=dev, **kw),
+                         os.path.join(tmp, 'resume_a'), batch_size=2,
+                         dataset=data)
+        it = iter(batches)
+        for _ in range(2):
+            quiet_step(a, it)
+        path = os.path.join(tmp, 'checkpoint.resume')
+        a.save(path)
+        rest = list(it)
+        want = quiet_step(a, iter(rest))
+        b = make_trainer(torch, VideoTokenizer(seed=9, device=dev, **kw),
+                         os.path.join(tmp, 'resume_b'), batch_size=2,
+                         dataset=data)
+        b.load(path)
+        got = quiet_step(b, iter(rest))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    same = dict(metrics=got == want, **{
+        name: all(torch.equal(x, y) for x, y in zip(
+            getattr(a, name).state_dict().values(),
+            getattr(b, name).state_dict().values()))
+        for name in ('module', 'ema_module', 'discr')})
+    log(f'[train resume] save -> load -> one step against the same step '
+        f'without the reload: bit-identical {same}')
+    if not all(same.values()):
+        fail(f'resume is not bit-identical: {same}')
+    return same
+
+
+def phase_training(torch, dev, smi, profile_dir, reps=BACKWARD_REPS):
+    """Phase 10. Returns the readings, each block's backward row (for the
+    kernels line) and the launches of each training path."""
+    import tempfile
+    t0 = time.perf_counter()
+    rows = {}
+    for case in backward_cases(torch, dev):
+        row = check_backward(torch, case, reps)
+        if 'variant' in case:
+            rows[case['name']][case['variant']] = row
+        else:
+            rows[case['name']] = row
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out, counts = phase_train_flagship(torch, dev, smi, tmp, profile_dir)
+        out['card_vs_cpu'] = phase_train_card_vs_cpu(torch, dev, tmp)
+        out['resume'] = phase_train_resume(torch, dev, tmp)
+    for name, row in rows.items():
+        row['launches_per_step'] = {
+            p: counts[p][BACKWARD_ROWS[name]] / TRAIN_STEPS for p in counts}
+    out['seconds'] = time.perf_counter() - t0
+    log(f'[training] on {smi}: s/step default {out["default"]["s_per_step"]:.4f}'
+        f', fused {out["fused"]["s_per_step"]:.4f}; samples/s '
+        f'{out["default"]["samples_per_s"]:.2f} / '
+        f'{out["fused"]["samples_per_s"]:.2f}; peak GiB '
+        f'{out["default"]["peak_gib"]:.2f} / {out["fused"]["peak_gib"]:.2f}; '
+        f'the phase took {out["seconds"]:.1f} s')
+    return out, rows, {f'train_{p}': c for p, c in counts.items()}
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument('--out', default=None,
@@ -3554,6 +4205,12 @@ def main():
     counts.update(paths)
     kernel_rows['taylor_attention_block']['no_norm'] = no_norm
     counts['attention_step'] = phase_attention_step(torch, dev, REPS, smi)
+    training, backward, train_paths = phase_training(torch, dev, smi,
+                                                     profile_dir)
+    counts.update(train_paths)
+    for name, row in backward.items():
+        kernel_rows[name]['backward'] = row
+    configs['training'] = training
 
     if 'jax' in sys.modules:
         fail('JAX was imported')

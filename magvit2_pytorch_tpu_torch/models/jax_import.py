@@ -18,6 +18,10 @@ upsampler kernels that are equal across p, as both packages initialise
 them, the flip changes nothing; for trained ones it is what makes both
 packages decode alike.
 
+The discriminators (``discr_bridge_entries``, ``multiscale_bridge_entries``)
+and VGG (``vgg_bridge_entries``) have tables of their own, which
+``state_dict_from_tree`` / ``tree_from_state_dict`` read the same way.
+
 The port keeps the reference's keys and layouts, so the JAX package also
 imports ``port.state_dict()`` through ``load_torch_tokenizer_state_dict`` as
 it is (and, with trained upsamplers, decodes those sub-pixels as the JAX
@@ -214,38 +218,90 @@ def bridge_entries(config) -> List[Entry]:
     return out
 
 
+def discr_bridge_entries(discr, prefix: str = '',
+                         path: tuple = ()) -> List[Entry]:
+    """Every weight of a port ``Discriminator`` (``models/discriminator.py``)
+    and where the JAX package's ``Discriminator`` keeps it: its blocks as
+    ``block_{i}``, and the linear attention and feed-forward it builds in
+    its own scope as ``LinearSpaceAttention_{i}`` and ``FeedForward_{i}``."""
+    out = []
+    for i, (block, _) in enumerate(discr.blocks):
+        p, j = f'{prefix}blocks.{i}', path + (f'block_{i}',)
+        out += [*_linear(f'{p}.0.conv_res', j + ('conv_res',), 'conv2d'),
+                *_linear(f'{p}.0.net.0', j + ('conv1',), 'conv2d'),
+                *_linear(f'{p}.0.net.2', j + ('conv2',), 'conv2d')]
+        if block.downsample is not None:
+            out += _linear(f'{p}.0.downsample.1', j + ('conv_down',),
+                           'conv2d')
+        out += [*_linear_attention_entries(
+                    f'{p}.1.0.fn', path + (f'LinearSpaceAttention_{i}',)),
+                *_feedforward_entries(f'{p}.1.1.fn',
+                                      path + (f'FeedForward_{i}',))]
+    return out + [
+        *_linear(f'{prefix}to_logits.0', path + ('to_logits_conv',),
+                 'conv2d'),
+        *_linear(f'{prefix}to_logits.3', path + ('to_logits',))]
+
+
+def multiscale_bridge_entries(ms) -> List[Entry]:
+    """A port ``MultiscaleDiscriminator``: its image discriminator under
+    ``discr``, on both sides."""
+    return discr_bridge_entries(ms.discr, 'discr.', ('discr',))
+
+
+def vgg_bridge_entries() -> List[Entry]:
+    """``VGG16Features`` (torchvision's names) against the JAX package's
+    ``{'params': {conv_i, fc_0, fc_1}}``."""
+    from magvit2_pytorch_tpu_torch.models.vgg import conv_and_linear_names
+    return [e for prefix, name in conv_and_linear_names()
+            for e in _linear(prefix, ('params', name),
+                             'dense' if name.startswith('fc') else 'conv2d')]
+
+
 def _get(tree, path):
     for key in path:
         tree = tree[key]
     return tree
 
 
-def _apply(out: dict, entries: List[Entry], tree):
-    for key, path, kind in entries:
-        out[key] = _t(TRANSFORMS[kind][0](np.asarray(_get(tree, path))))
+def state_dict_from_tree(entries: List[Entry], tree: Mapping) -> dict:
+    """A JAX params tree (numpy leaves) -> the port's ``state_dict`` for
+    the weights ``entries`` lists."""
+    return {key: _t(TRANSFORMS[kind][0](np.asarray(_get(tree, path))))
+            for key, path, kind in entries}
 
 
-def state_dict_from_jax_params(config, params: Mapping) -> dict:
-    """JAX ``TokenizerModule`` params (numpy leaves) -> the port's
-    ``state_dict`` for ``config`` (either package's ``TokenizerConfig``),
-    with the decoder's upsampler kernels flipped over p (module docstring)."""
-    out = {}
-    _apply(out, bridge_entries(config), params)
-    return out
-
-
-def jax_params_from_state_dict(config, state: Mapping) -> dict:
+def tree_from_state_dict(entries: List[Entry], state: Mapping) -> dict:
     """The port's ``state_dict`` (tensors of any device and dtype) -> the
-    JAX package's params pytree for ``config``, numpy float32 leaves; the
-    exact inverse of ``state_dict_from_jax_params``."""
+    JAX params tree, numpy float32 leaves that own their memory; the inverse
+    of :func:`state_dict_from_tree`."""
     out = {}
-    for key, path, kind in bridge_entries(config):
+    for key, path, kind in entries:
         t = state[key]
         a = (t.detach().float().cpu().numpy() if torch.is_tensor(t)
              else np.asarray(t, np.float32))
         node = out
         for name in path[:-1]:
             node = node.setdefault(name, {})
-        node[path[-1]] = np.ascontiguousarray(TRANSFORMS[kind][1](a),
-                                              dtype=np.float32)
+        # a copy: on the CPU ``a`` shares the parameter's memory
+        node[path[-1]] = np.array(TRANSFORMS[kind][1](a), np.float32,
+                                  order='C', copy=True)
     return out
+
+
+def _apply(out: dict, entries: List[Entry], tree):
+    out.update(state_dict_from_tree(entries, tree))
+
+
+def state_dict_from_jax_params(config, params: Mapping) -> dict:
+    """JAX ``TokenizerModule`` params (numpy leaves) -> the port's
+    ``state_dict`` for ``config`` (either package's ``TokenizerConfig``),
+    with the decoder's upsampler kernels flipped over p (module docstring)."""
+    return state_dict_from_tree(bridge_entries(config), params)
+
+
+def jax_params_from_state_dict(config, state: Mapping) -> dict:
+    """The port's ``state_dict`` (tensors of any device and dtype) -> the
+    JAX package's params pytree for ``config``, numpy float32 leaves; the
+    exact inverse of ``state_dict_from_jax_params``."""
+    return tree_from_state_dict(bridge_entries(config), state)

@@ -12,8 +12,12 @@ The port serves every configuration of the JAX package: LFQ in all its
 options, FSQ, separate first-frame encoding, every pad mode, conditioning
 (the ``cond_*`` layers, ``dim_cond``), ``gateloop_time`` and chunked causal
 streaming (``streaming=True`` with a stream's ``state``, a dict keyed by
-module that ``models/streaming.py`` owns and hands down). Only ``remat``, a
-training option, raises ``NotImplementedError`` naming its ROADMAP.md item.
+module that ``models/streaming.py`` owns and hands down), and ``remat`` for
+training: ``True`` / ``'full'`` recompute each encoder and decoder layer in
+the backward (``torch.utils.checkpoint``, non-reentrant), ``'dots'`` keeps
+the conv and matmul outputs inside each layer and recomputes the rest, as
+the JAX package's ``'dots'`` policy does (its ``tokenizer_module.py:61``,
+``:613-625``). A stream bypasses it, as in the JAX package.
 
 Every layer is handed the kwargs the JAX package hands it (``cond`` from the
 first conditioned layer on, the reference's running flag; ``state`` when
@@ -32,12 +36,14 @@ blocks, as in the JAX package, and take the general path.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import warnings
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from magvit2_pytorch_tpu_torch.models.layerspec import (
     LayerSpec, ParsedLayers, parse_layers)
@@ -54,7 +60,48 @@ from magvit2_pytorch_tpu_torch.ops.quantizers import FSQ, LFQ
 from magvit2_pytorch_tpu_torch.ops.resample import (
     ResidualUnit, ResidualUnitMod, SpatialDownsample2x, SpatialUpsample2x,
     TimeDownsample2x, TimeUpsample2x)
-from magvit2_pytorch_tpu_torch.utils.helpers import exists, not_ported
+from magvit2_pytorch_tpu_torch.utils.helpers import exists
+
+REMAT_MODES = (False, True, 'full', 'dots')
+# what remat='dots' keeps: the outputs of the convolutions and matrix
+# products (the JAX policy's conv_general_dilated and dot_general)
+_DOTS_SAVED = frozenset(
+    getattr(torch.ops.aten, name).default
+    for name in ('convolution', 'mm', 'bmm', 'addmm', 'baddbmm'))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (torch_checkpoint.CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED
+            else torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_layer(layer: nn.Module, x, kwargs: dict, remat):
+    """``layer(x, **kwargs)`` recomputed in the backward: every activation
+    (``True`` / ``'full'``) or all but the conv and matmul outputs
+    (``'dots'``). A dropout ``generator`` in ``kwargs`` draws the forward's
+    masks; the recompute draws from a copy of it set back to its state
+    before the layer, so it draws the same masks and leaves the caller's
+    generator alone (a recompute may stop early)."""
+    generator = kwargs.get('generator')
+    before = generator.get_state() if generator is not None else None
+    calls = []
+
+    def run(x):
+        args = kwargs
+        if calls and generator is not None:
+            copy = torch.Generator(device=generator.device)
+            copy.set_state(before)
+            args = {**kwargs, 'generator': copy}
+        calls.append(1)
+        return layer(x, **args)
+
+    context = {}
+    if remat == 'dots':
+        context['context_fn'] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts,
+            _dots_policy)
+    return torch_checkpoint.checkpoint(run, x, use_reentrant=False,
+                                       **context)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,10 +219,10 @@ class TokenizerConfig:
 
 
 def check_supported(cfg: TokenizerConfig):
-    """Raise ``NotImplementedError`` for what the port does not serve:
-    ``remat``, a training option; nothing is silently ignored."""
-    if cfg.remat:
-        not_ported('remat (training)', '12')
+    """Raise ``ValueError`` for a ``remat`` the JAX package does not know."""
+    if cfg.remat not in REMAT_MODES:
+        raise ValueError(f'remat={cfg.remat!r}: expected one of '
+                         f'{REMAT_MODES}')
 
 
 def _compute_lane_pack_end(config: TokenizerConfig) -> int:
@@ -348,10 +395,14 @@ class TokenizerModule(nn.Module):
                              '(a dict, see models/streaming.py)')
         return state if streaming else None
 
-    def _run(self, layers, x, cond, has_cond, state, blocked):
+    def _run(self, layers, x, cond, has_cond, state, blocked,
+             generator=None):
         """The layers in order, each with the kwargs it takes: ``cond`` from
         the first conditioned layer on, ``state`` when streaming,
-        ``w_blocked`` where ``blocked(i)`` (layer i of ``layers``)."""
+        ``w_blocked`` where ``blocked(i)`` (layer i of ``layers``), the
+        attention dropout's ``generator`` where given; each under
+        ``remat`` unless streaming."""
+        remat = self.config.remat and state is None and torch.is_grad_enabled()
         for i, (layer, conditioned) in enumerate(zip(layers, has_cond)):
             kwargs = {}
             if conditioned and exists(cond):
@@ -360,11 +411,18 @@ class TokenizerModule(nn.Module):
                 kwargs['state'] = state
             if blocked(i):
                 kwargs['w_blocked'] = True
-            x = layer(x, **filter_kwargs(layer, kwargs))
+            if generator is not None:
+                kwargs['generator'] = generator
+            kwargs = filter_kwargs(layer, kwargs)
+            if remat:
+                x = remat_layer(layer, x, kwargs, self.config.remat)
+            else:
+                x = layer(x, **kwargs)
         return x
 
     def encode(self, video, cond=None, video_contains_first_frame: bool = True,
-               streaming: bool = False, state: Optional[dict] = None):
+               streaming: bool = False, state: Optional[dict] = None,
+               generator: Optional[torch.Generator] = None):
         """Video -> continuous latents ``(B, T', H', W', D)`` before
         quantization (reference magvit2_pytorch.py:1522-1576). With
         ``separate_first_frame_encoding`` the first frame takes its own 2D
@@ -374,7 +432,9 @@ class TokenizerModule(nn.Module):
         ``streaming=True``: one chunk of a stream whose ``state`` carries
         every time-causal op's history; the caller puts the first chunk's
         time padding in front and passes
-        ``video_contains_first_frame=False``."""
+        ``video_contains_first_frame=False``. ``generator`` draws the
+        attention dropout (``attn_dropout > 0``), which runs only with
+        one."""
         state = self._stream_args(streaming, state)
         if streaming:
             assert not self.config.separate_first_frame_encoding
@@ -391,19 +451,20 @@ class TokenizerModule(nn.Module):
             x = self.conv_in(video, state=state)
         x = self._run(self.encoder_layers[:self.num_layers], x, cond,
                       self.parsed_layers.has_cond_across_layers, state,
-                      lambda i: i < self.lane_pack_end)
+                      lambda i: i < self.lane_pack_end, generator)
         if self.config.apply_final_norm:
             x = self.encoder_layers[self.num_layers][1](x)
         return x
 
-    def quantize(self, x):
-        return self.quantizers(x)
+    def quantize(self, x, train: bool = False):
+        return self.quantizers(x, train=train)
 
     def indices_to_codes(self, indices, dtype=torch.float32):
         return self.quantizers.indices_to_codes(indices, dtype=dtype)
 
     def decode_features(self, quantized, cond=None, streaming: bool = False,
-                        state: Optional[dict] = None):
+                        state: Optional[dict] = None,
+                        generator: Optional[torch.Generator] = None):
         """Quantized latents -> the features before ``conv_out`` (still
         time-padded): the decoder layers, stored reversed as the
         reference's ``insert(0)`` builds them (spec index ``n - 1 - j``)."""
@@ -413,7 +474,7 @@ class TokenizerModule(nn.Module):
         return self._run(
             self.decoder_layers, quantized, cond,
             tuple(reversed(self.parsed_layers.has_cond_across_layers)),
-            state, lambda j: n - 1 - j < self.lane_pack_dec_end)
+            state, lambda j: n - 1 - j < self.lane_pack_dec_end, generator)
 
     def decode_pixels(self, x, video_contains_first_frame: bool = True,
                       streaming: bool = False, state: Optional[dict] = None):

@@ -1,7 +1,8 @@
-"""Causal 3D convolution, the same-padded 2D conv, the time-strided
-transpose conv and the StyleGAN2-modulated conv (PyTorch counterpart of the
-plain paths of ``magvit2_pytorch_tpu/ops/conv.py:CausalConv3d``,
-``SameConv2d``, ``CausalConvTranspose3d`` and ``Conv3DMod``).
+"""Causal 3D convolution, the same-padded and the strided 2D convs, the
+time-strided transpose conv, the StyleGAN2-modulated conv and the blur
+filter (PyTorch counterpart of the plain paths of
+``magvit2_pytorch_tpu/ops/conv.py:CausalConv3d``, ``SameConv2d``,
+``Conv2d``, ``CausalConvTranspose3d``, ``Conv3DMod`` and ``blur``).
 
 Activations are channels-last ``(B, T, H, W, C)``. A convolution permutes to
 the ``(B, C, T, H, W)`` view — for a contiguous channels-last tensor that view
@@ -169,6 +170,53 @@ class SameConv2d(nn.Module):
         out = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
                        self.bias.to(x.dtype), padding=(kh // 2, kw // 2))
         return out.permute(0, 2, 3, 1).contiguous()
+
+
+class Conv2d(nn.Module):
+    """Strided 2D conv with symmetric zero padding on ``(B, H, W, C)``
+    (the JAX package's ``ops/conv.py:685-708``; the discriminators' and
+    VGG's conv), ``weight (out, in, kh, kw)`` and ``bias`` at the module's
+    own name as ``nn.Conv2d`` keeps them, torch's default init. The weights
+    are cast to the input's dtype at use."""
+
+    def __init__(self, dim_in: int, dim_out: int, kernel_size,
+                 stride: int = 1, padding: int = 0):
+        super().__init__()
+        kh, kw = cast_tuple(kernel_size, 2)
+        self.stride, self.padding = stride, padding
+        self.weight = nn.Parameter(torch.empty(dim_out, dim_in, kh, kw))
+        self.bias = nn.Parameter(torch.empty(dim_out))
+
+    def init_parameters(self, gen: torch.Generator):
+        fan_in = math.prod(self.weight.shape[1:])
+        torch_default_init_(self.weight, self.bias, fan_in, gen)
+
+    def forward(self, x):
+        out = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
+                       self.bias.to(x.dtype), stride=self.stride,
+                       padding=self.padding)
+        return out.permute(0, 2, 3, 1)
+
+
+def blur(x, space_only: bool = False, time_only: bool = False):
+    """The normalised binomial [1, 2, 1] / 4 filter along h and w (and t),
+    replicate border (reference Blur, magvit2_pytorch.py:512-547; the JAX
+    package's ``ops/conv.py:840-887``), on ``(B, T, H, W, C)`` video or
+    ``(B, H, W, C)`` images, one axis after another; each pass sums in
+    float32 and rounds once to the input's dtype."""
+    assert not (space_only and time_only)
+    is_images = x.ndim == 4
+    if is_images:
+        x = x[:, None]
+    axes = ([] if time_only else [2, 3]) + ([] if space_only else [1])
+    dt = x.dtype
+    for axis in axes:
+        n = x.shape[axis]
+        xp = torch.cat([x.narrow(axis, 0, 1), x, x.narrow(axis, n - 1, 1)],
+                       dim=axis).float()
+        x = ((xp.narrow(axis, 0, n) + xp.narrow(axis, 2, n)) * 0.25
+             + xp.narrow(axis, 1, n) * 0.5).to(dt)
+    return x[:, 0] if is_images else x
 
 
 class CausalConvTranspose3d(nn.Module):

@@ -7,10 +7,11 @@ in ``launch_counts()``: the attention blocks per block, their GEMMs by route
 (``gemm_wgmma``, ``gemm_wmma``, ``gemm_f32``), the space block's
 tensor-core core as ``space_attention_core_mma``, the fused ResidualUnit per
 unit and its conv and 1x1 by route (``ru_conv_wgmma``, ``ru_conv_wmma``,
-``ru_conv_f32``, ``ru_pointwise_*``). The attention blocks,
-Taylor attention and the fused ResidualUnit are forward-only;
-``flash_attention`` is a ``torch.autograd.Function`` whose backward launches
-two kernels of its own.
+``ru_conv_f32``, ``ru_pointwise_*``). The attention blocks, Taylor
+attention and the fused ResidualUnit (B1-B5) are ``torch.autograd.Function``s
+on the card whose backward recomputes through the plain version that mirrors
+the JAX custom VJP's XLA twin, counted as ``<name>_backward``;
+``flash_attention``'s backward launches two kernels of its own.
 """
 
 from __future__ import annotations

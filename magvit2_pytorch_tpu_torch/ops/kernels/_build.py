@@ -177,21 +177,55 @@ def dtype_code(t) -> int:
 
 
 def check_cuda_inputs(what: str, x, params):
-    """The guards of a forward-only wrapper before a launch (the attention
-    blocks, Taylor attention and the fused ResidualUnit; flash attention
-    has backward kernels and does not come through here): every tensor on
-    x's CUDA device, x float32 or bfloat16, and no autograd."""
+    """The guards of a wrapper before a launch: every tensor on x's CUDA
+    device, x float32 or bfloat16, and no autograd. The launches inside a
+    block have no backward of their own, so they refuse a tensor that needs
+    a gradient; the blocks B1-B5 call this inside the forward of their
+    ``torch.autograd.Function``, where autograd is off, and differentiate
+    in its backward (:func:`recompute_grads`). Flash attention has backward
+    kernels and does not come through here."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, *params)):
         raise RuntimeError(
-            f'{what}: this CUDA kernel is forward-only (of the port\'s '
-            'kernels only flash attention has a backward); run under '
-            'torch.inference_mode() or torch.no_grad() (its backward is '
-            'ROADMAP.md queue A items 11-12)')
+            f'{what}: this CUDA launch has no backward of its own; call '
+            'the block it belongs to (whose backward recomputes through '
+            'its plain version) or run under torch.no_grad()')
     for t in (x, *params):
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f'{what}: every tensor must be on {x.device}')
     dtype_code(x)
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would record a call on ``tensors``: the blocks then
+    go through their ``torch.autograd.Function``, and launch directly
+    otherwise (serving pays no autograd bookkeeping)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def recompute_grads(plain, inputs, needs, grad_out):
+    """The backward of a kernel whose JAX custom VJP saves its inputs and
+    differentiates its XLA twin (B1-B5): ``plain`` (the port's counterpart
+    of that twin) runs again on the saved ``inputs`` under autograd, and
+    its gradients for the inputs flagged in ``needs`` come back, None for
+    the others (an input that is None gets None). Inside a backward that
+    builds a graph (``create_graph=True``, as R1's penalty does) the
+    recompute runs on the saved tensors themselves, so the gradients it
+    returns can be differentiated again, as JAX differentiates its
+    ``_bwd``."""
+    create_graph = torch.is_grad_enabled()
+    with torch.enable_grad():
+        leaves = inputs if create_graph else tuple(
+            None if t is None else t.detach().requires_grad_(n)
+            for t, n in zip(inputs, needs))
+        out = plain(*leaves)
+        wanted = [t for t, n in zip(leaves, needs) if n and t is not None]
+        grads = iter(torch.autograd.grad(out, wanted, grad_out,
+                                         create_graph=create_graph)
+                     if wanted else ())
+    return tuple(next(grads) if n and t is not None else None
+                 for t, n in zip(leaves, needs))
 
 
 def stream_handle(device) -> int:

@@ -51,8 +51,11 @@ The time block on ``(B, T, S, C)`` takes one of two routes
   t attended with no transpose) with the scalar core, one thread per
   query on the CUDA cores.
 
-On the CPU the wrappers run the plain versions below. On a CUDA tensor they
-launch the kernel or raise.
+On the CPU the wrappers run the plain versions below, and autograd
+differentiates them. On a CUDA tensor they launch the kernel or raise; their
+backward recomputes through the plain version that mirrors the JAX custom
+VJP's XLA twin (``_Block``), as the JAX package's backward does: there is no
+backward kernel in the JAX package to port for these blocks.
 """
 
 from __future__ import annotations
@@ -71,7 +74,9 @@ from magvit2_pytorch_tpu_torch.ops.kernels import _build, gemm
 # (see ops/kernels); the blocks' GEMMs count in gemm.LAUNCHES
 LAUNCHES = {'space_attention_block': 0, 'time_attention_block': 0,
             'space_attention_core_mma': 0, 'time_attention_block_fused': 0,
-            'time_attention_block_launches': 0}
+            'time_attention_block_launches': 0,
+            'space_attention_block_backward': 0,
+            'time_attention_block_backward': 0}
 
 SUPPORTED_DIM_HEAD = (32,)    # csrc/attention_block.cu template cases
 CORES = {'scalar': 0, 'mma': 1}     # csrc/attention_block.cu CoreRoute
@@ -356,18 +361,52 @@ def _check_block(name, x, gamma, wqkv, mem_kv, wout, heads, dim_head):
                          f'heads*dim_head={inner}')
 
 
-def attention_block(x, gamma, wqkv, mem_kv, wout, heads: int, dim_head: int,
-                    causal: bool = False):
-    """Space attention block on ``(BT, N, C)`` (see ``attention_block_ref``)."""
-    if not x.is_cuda:
-        return attention_block_ref(x, gamma, wqkv, mem_kv, wout, heads,
-                                   dim_head, causal)
+def _space_block_launch(x, gamma, wqkv, mem_kv, wout, heads, dim_head,
+                        causal):
     name = 'space_attention_block'
     _check_block(name, x, gamma, wqkv, mem_kv, wout, heads, dim_head)
     out = block_launches(x, gamma, wqkv, mem_kv, wout, heads, dim_head,
                          causal, **space_layout(x))
     LAUNCHES[name] += 1
     return out
+
+
+class _Block(torch.autograd.Function):
+    """A block on the card: the forward launches the kernel; the backward
+    recomputes through the plain version that mirrors the JAX custom VJP's
+    XLA twin and differentiates that (``axial_attention.py:194-208`` for
+    the space block, ``:362-376`` for the time block), as the JAX package
+    does. Each backward counts as ``<name>_backward``."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, wqkv, mem_kv, wout, heads, dim_head, causal,
+                launch, twin, name):
+        ctx.save_for_backward(x, gamma, wqkv, mem_kv, wout)
+        ctx.args, ctx.twin, ctx.name = (heads, dim_head, causal), twin, name
+        return launch(x, gamma, wqkv, mem_kv, wout, heads, dim_head, causal)
+
+    @staticmethod
+    def backward(ctx, grad):
+        LAUNCHES[f'{ctx.name}_backward'] += 1
+        grads = _build.recompute_grads(
+            lambda *a: ctx.twin(*a, *ctx.args), ctx.saved_tensors,
+            ctx.needs_input_grad[:5], grad)
+        return (*grads, None, None, None, None, None, None)
+
+
+def attention_block(x, gamma, wqkv, mem_kv, wout, heads: int, dim_head: int,
+                    causal: bool = False):
+    """Space attention block on ``(BT, N, C)`` (see ``attention_block_ref``);
+    differentiable on both devices."""
+    if not x.is_cuda:
+        return attention_block_ref(x, gamma, wqkv, mem_kv, wout, heads,
+                                   dim_head, causal)
+    if not _build.needs_grad(x, gamma, wqkv, mem_kv, wout):
+        return _space_block_launch(x, gamma, wqkv, mem_kv, wout, heads,
+                                   dim_head, causal)
+    return _Block.apply(x, gamma, wqkv, mem_kv, wout, heads, dim_head,
+                        causal, _space_block_launch, attention_block_ref,
+                        'space_attention_block')
 
 
 @functools.lru_cache(maxsize=None)
@@ -394,14 +433,38 @@ def time_block_fused(x, gamma, wqkv, mem_kv, wout, heads: int,
     return out
 
 
+def time_attention_block_twin(x, gamma, wqkv, mem_kv, wout, heads: int,
+                              dim_head: int, causal: bool = True):
+    """What the time block's backward differentiates on the card: the port's
+    counterpart of ``_time_block_xla`` (``axial_attention.py:278-285``), the
+    space block's plain version over each pixel's frames, whose cast points
+    are ``attend_with_memory``'s and not ``_time_kernel``'s."""
+    b, t, s, c = x.shape
+    xt = x.transpose(1, 2).reshape(b * s, t, c)
+    out = attention_block_ref(xt, gamma, wqkv, mem_kv, wout, heads,
+                              dim_head, causal)
+    return out.reshape(b, s, t, c).transpose(1, 2)
+
+
 def time_attention_block(x, gamma, wqkv, mem_kv, wout, heads: int,
                          dim_head: int, causal: bool = True):
     """Time attention block on ``(B, T, S, C)``: for each (b, s), attention
     over t (see ``time_attention_block_ref``), on the route
-    :func:`time_block_route` picks."""
+    :func:`time_block_route` picks; differentiable on both devices (on the
+    card through :func:`time_attention_block_twin`)."""
     if not x.is_cuda:
         return time_attention_block_ref(x, gamma, wqkv, mem_kv, wout, heads,
                                         dim_head, causal)
+    if not _build.needs_grad(x, gamma, wqkv, mem_kv, wout):
+        return _time_block_launch(x, gamma, wqkv, mem_kv, wout, heads,
+                                  dim_head, causal)
+    return _Block.apply(x, gamma, wqkv, mem_kv, wout, heads, dim_head,
+                        causal, _time_block_launch, time_attention_block_twin,
+                        'time_attention_block')
+
+
+def _time_block_launch(x, gamma, wqkv, mem_kv, wout, heads, dim_head,
+                       causal):
     name = 'time_attention_block'
     _check_block(name, x, gamma, wqkv, mem_kv, wout, heads, dim_head)
     dt = x.dtype

@@ -63,7 +63,9 @@ def gemm_nt_ref(a, w, scaled_cols: int = 0, col_scale: float = 1.0):
     with k and v cast unscaled."""
     out = F.linear(a.float(), w.float())
     if scaled_cols:
-        out[..., :scaled_cols] *= col_scale
+        # out of place: remat='dots' keeps the product and recomputes this
+        out = torch.cat([out[..., :scaled_cols] * col_scale,
+                         out[..., scaled_cols:]], dim=-1)
     return out.to(a.dtype)
 
 

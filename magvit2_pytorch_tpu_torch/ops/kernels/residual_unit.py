@@ -72,10 +72,12 @@ twice. Scratch costs one extra round trip of the activation (y1).
 Kernel limits (the wrappers raise outside them, the gates below keep the
 module path inside them): channels-last input, C == dim, C % 32 == 0,
 C <= 1024 and SE hidden <= 1024 (the frame block's shared arrays), kernel
-size (3, 3, 3) with zero padding, float32 or bfloat16, forward only.
+size (3, 3, 3) with zero padding, float32 or bfloat16.
 
-On the CPU the wrappers run the plain version below. On a CUDA tensor they
-launch the kernel or raise.
+On the CPU the wrappers run the plain version below, and autograd
+differentiates it. On a CUDA tensor they launch the kernel or raise; the
+backward recomputes through ``residual_unit_ref`` (``_Unit``), as the JAX
+custom VJPs recompute through their XLA twins.
 """
 
 from __future__ import annotations
@@ -95,6 +97,8 @@ RU_ROUTES = {'f32': 0, 'wmma': 1, 'wgmma': 2}   # csrc/residual_unit.cu RuRoute
 # launches since the last reset (see ops/kernels): the units by entry, and
 # inside them the conv and the 1x1 by route
 LAUNCHES = {'residual_unit_wide': 0, 'residual_unit_packed': 0,
+            'residual_unit_wide_backward': 0,
+            'residual_unit_packed_backward': 0,
             **{f'ru_conv_{r}': 0 for r in RU_ROUTES},
             **{f'ru_pointwise_{r}': 0 for r in RU_ROUTES}}
 WGMMA_MULTIPLE = 64    # K tile (one 128-byte swizzle row of bf16) and N step
@@ -438,14 +442,39 @@ def _launch(x, params, name: str):
     return out
 
 
+class _Unit(torch.autograd.Function):
+    """The unit on the card: the forward launches the kernels; the backward
+    recomputes through ``residual_unit_ref`` (the port's copy of
+    ``_residual_unit_xla_plain``) and differentiates it, as the JAX custom
+    VJPs do (``residual_unit_wide.py:320-334``; ``residual_unit.py:417-441``
+    differentiates the blocked twin, the same function on the packed view of
+    the same bytes, which the caller's reshape carries here)."""
+
+    @staticmethod
+    def forward(ctx, name, x, *params):
+        ctx.save_for_backward(x, *params)
+        ctx.name = name
+        return _launch(x, params, name)
+
+    @staticmethod
+    def backward(ctx, grad):
+        LAUNCHES[f'{ctx.name}_backward'] += 1
+        return (None, *_build.recompute_grads(
+            residual_unit_ref, ctx.saved_tensors, ctx.needs_input_grad[1:],
+            grad))
+
+
 def fused_residual_unit_wide(x, conv_w, conv_b, pw_w, pw_b, k_w, k_b, gi_w,
                              gi_b, go_w, go_b):
     """B4: the unit on ``(B, T, H, W, C)``, +x included (see
-    ``residual_unit_ref`` for the parameter layouts)."""
+    ``residual_unit_ref`` for the parameter layouts); differentiable on
+    both devices."""
     params = (conv_w, conv_b, pw_w, pw_b, k_w, k_b, gi_w, gi_b, go_w, go_b)
     if not x.is_cuda:
         return residual_unit_ref(x, *params)
-    return _launch(x, params, 'residual_unit_wide')
+    if not _build.needs_grad(x, *params):
+        return _launch(x, params, 'residual_unit_wide')
+    return _Unit.apply('residual_unit_wide', x, *params)
 
 
 def fused_residual_unit(xb, conv_w, conv_b, pw_w, pw_b, k_w, k_b, gi_w, gi_b,
@@ -453,7 +482,8 @@ def fused_residual_unit(xb, conv_w, conv_b, pw_w, pw_b, k_w, k_b, gi_w, gi_b,
     """B5: the unit on the lane-packed ``(B, T, H, W/2, 2C)`` view
     (``packed_io=True``) or on the unpacked ``(B, T, H, W, C)`` activation
     (``packed_io=False``), +x included; the result has the input's layout.
-    Parameters in the unpacked layouts of ``residual_unit_ref``."""
+    Parameters in the unpacked layouts of ``residual_unit_ref``;
+    differentiable on both devices."""
     params = (conv_w, conv_b, pw_w, pw_b, k_w, k_b, gi_w, gi_b, go_w, go_b)
     c = conv_w.shape[0]
     if packed_io:
@@ -466,6 +496,8 @@ def fused_residual_unit(xb, conv_w, conv_b, pw_w, pw_b, k_w, k_b, gi_w, gi_b,
         x = xb
     if not x.is_cuda:
         out = residual_unit_ref(x, *params)
-    else:
+    elif not _build.needs_grad(x, *params):
         out = _launch(x, params, 'residual_unit_packed')
+    else:
+        out = _Unit.apply('residual_unit_packed', x, *params)
     return out.reshape(xb.shape)

@@ -52,8 +52,10 @@ FLOPs (the ``'wgmma'`` route of ``gemm.py``); the core alone is bound by
 bytes (bf16 q, k, v in and the attention out, ~168 MB, 0.05 ms). Fusing
 the out projection into the core's second phase is later work.
 
-On the CPU the wrappers run the plain versions below. On a CUDA tensor they
-launch the kernel or raise. A head size the core does not take never
+On the CPU the wrappers run the plain versions below, and autograd
+differentiates them. On a CUDA tensor they launch the kernel or raise; the
+backward recomputes through :func:`taylor_attention_twin`, the counterpart
+of the JAX custom VJP's XLA twin. A head size the core does not take never
 reaches it: :func:`taylor_eligible` sends it to the plain version on both
 devices (``ops/attention.py``).
 """
@@ -61,6 +63,7 @@ devices (``ops/attention.py``).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from magvit2_pytorch_tpu_torch.ops.kernels import _build, gemm
 
@@ -68,7 +71,7 @@ from magvit2_pytorch_tpu_torch.ops.kernels import _build, gemm
 # ops/kernels); the block's GEMMs count in gemm.LAUNCHES
 LAUNCHES = {'taylor_attention_block': 0,
             'taylor_attention_block_no_norm': 0, 'taylor_core_mma': 0,
-            'taylor_core_f32': 0}
+            'taylor_core_f32': 0, 'taylor_attention_block_backward': 0}
 
 SUPPORTED_DIM_HEAD = (8,)     # csrc/taylor_attention.cu: both cores
 CORES = {'f32': 0, 'mma': 1}  # csrc/taylor_attention.cu TaylorRoute
@@ -185,12 +188,37 @@ def taylor_launches(x, gamma, wqkv, wout, heads: int, dim_head: int,
     return gemm.gemm_nt(attn, wout.to(dt)).reshape(b, n, c)
 
 
-def taylor_attention(x, gamma, wqkv, wout, heads: int, dim_head: int,
-                     eps: float = 1e-5):
-    """Taylor attention block on ``(B, N, C)`` (see ``taylor_attention_ref``)."""
-    if not x.is_cuda:
-        return taylor_attention_ref(x, gamma, wqkv, wout, heads, dim_head,
-                                    eps)
+def taylor_attention_twin(x, gamma, wqkv, wout, heads: int, dim_head: int,
+                          eps: float = 1e-5):
+    """What the block's backward differentiates on the card: the port's
+    counterpart of ``_taylor_reference`` (``taylor_attention.py:173-205``),
+    the twin the JAX custom VJP recomputes through, with its cast points:
+    qkv in the working dtype, ``q * d^-1/2`` rounded, phi = [1, t, t (x) t /
+    sqrt2] in the working dtype, the moments summed in float32 and rounded
+    before the products with phi(q), ``num / (den + eps)`` rounded once.
+    ``gamma`` None: no norm (``apply_norm=False``)."""
+    dt = x.dtype
+    b, n, _ = x.shape
+    hd = heads * dim_head
+    if gamma is not None:
+        x = gemm.rmsnorm_ref(x, gamma)
+    qkv = F.linear(x, wqkv.to(dt)).reshape(b, n, 3, heads, dim_head)
+    q, k, v = qkv[:, :, 0] * dim_head ** -0.5, qkv[:, :, 1], qkv[:, :, 2]
+
+    def phi(t):
+        outer = t[..., :, None] * t[..., None, :] * INV_SQRT2
+        return torch.cat([torch.ones_like(t[..., :1]), t,
+                          outer.flatten(-2)], dim=-1).float()
+
+    pq, pk = phi(q), phi(k)
+    kv = torch.einsum('bnhf,bnhe->bhfe', pk, v.float()).to(dt).float()
+    num = torch.einsum('bnhf,bhfe->bnhe', pq, kv)
+    den = torch.einsum('bnhf,bhf->bnh', pq, pk.sum(dim=1).to(dt).float())
+    out = (num / (den[..., None] + eps)).to(dt).reshape(b, n, hd)
+    return F.linear(out, wout.to(dt))
+
+
+def _block_launch(x, gamma, wqkv, wout, heads, dim_head, eps):
     name = 'taylor_attention_block'
     _build.check_cuda_inputs(
         name, x, tuple(t for t in (gamma, wqkv, wout) if t is not None))
@@ -208,3 +236,37 @@ def taylor_attention(x, gamma, wqkv, wout, heads: int, dim_head: int,
     if gamma is None:
         LAUNCHES['taylor_attention_block_no_norm'] += 1
     return out
+
+
+class _TaylorBlock(torch.autograd.Function):
+    """The block on the card: the forward launches the kernels; the backward
+    recomputes through :func:`taylor_attention_twin` and differentiates it,
+    as the JAX custom VJP does (``taylor_attention.py:304-319``). Without a
+    norm there is no gamma, so no dgamma (the JAX ``_bwd`` returns zeros
+    for the ones it passes in its place)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, wqkv, wout, heads, dim_head, eps):
+        ctx.save_for_backward(x, gamma, wqkv, wout)
+        ctx.args = (heads, dim_head, eps)
+        return _block_launch(x, gamma, wqkv, wout, heads, dim_head, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        LAUNCHES['taylor_attention_block_backward'] += 1
+        grads = _build.recompute_grads(
+            lambda *a: taylor_attention_twin(*a, *ctx.args),
+            ctx.saved_tensors, ctx.needs_input_grad[:4], grad)
+        return (*grads, None, None, None)
+
+
+def taylor_attention(x, gamma, wqkv, wout, heads: int, dim_head: int,
+                     eps: float = 1e-5):
+    """Taylor attention block on ``(B, N, C)`` (see ``taylor_attention_ref``);
+    differentiable on both devices."""
+    if not x.is_cuda:
+        return taylor_attention_ref(x, gamma, wqkv, wout, heads, dim_head,
+                                    eps)
+    if not _build.needs_grad(x, gamma, wqkv, wout):
+        return _block_launch(x, gamma, wqkv, wout, heads, dim_head, eps)
+    return _TaylorBlock.apply(x, gamma, wqkv, wout, heads, dim_head, eps)

@@ -256,15 +256,11 @@ def test_channel_first_image_and_no_first_frame_modes(tiny_pair):
     dict(streaming_kv_window=4),
 ], ids=lambda d: next(iter(d)) if 'layers' not in d else d['layers'][1])
 def test_outside_the_slice_raises(overrides):
-    """Of the options the port once refused only ``remat`` (training) still
-    raises; the others build and tokenize and decode as the JAX package
-    does on the same weights (codes exact, recon within 1e-5), a cond
-    vector given where the config has conditioned layers."""
+    """Every option the port once refused, ``remat`` (training) the last,
+    now builds and tokenizes and decodes as the JAX package does on the
+    same weights (codes exact, recon within 1e-5), a cond vector given
+    where the config has conditioned layers."""
     kwargs = {**TINY, **overrides}
-    if 'remat' in overrides:
-        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-            VideoTokenizer(device='cpu', seed=0, **kwargs)
-        return
     port = VideoTokenizer(device='cpu', seed=0, **kwargs)
     jtok = JaxTokenizer(params=jax.tree.map(jnp.asarray, (
         jax_params_from_state_dict(port.config, port.state_dict()))),
@@ -312,9 +308,29 @@ def test_former_slice_limits_build_and_match_jax(overrides):
 @pytest.mark.parametrize('mode', ['return_loss', 'return_discr_loss',
                                   'return_recon_loss_only', 'train'])
 def test_training_modes_raise(tiny_pair, mode):
-    _, port, video = tiny_pair
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        port.forward(video, **{mode: True})
+    """The loss modes, which raised before the port trained, now compute
+    what the JAX package's do on the same weights (within 1e-5; this config
+    has no GAN and no VGG, so no random frame pick enters), and a
+    discriminator loss without a discriminator is refused in both."""
+    jtok, port, video = tiny_pair
+    if mode == 'return_discr_loss':
+        for tok in (jtok, port):
+            with pytest.raises(AssertionError):
+                tok.forward(video, return_discr_loss=True)
+        return
+    want = jtok.forward(jnp.asarray(video), **{mode: True})
+    got = port.forward(video, **{mode: True})
+    if mode == 'return_loss':           # (total, LossBreakdown)
+        pairs = [(got[0], want[0])] + [
+            (getattr(got[1], k), getattr(want[1], k))
+            for k in ('recon_loss', 'lfq_aux_loss')]
+    elif mode == 'return_recon_loss_only':      # (recon_loss, recon)
+        pairs = list(zip(got, want))
+    else:
+        pairs = [(got, want)]
+    for g, w in pairs:
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
+                                   atol=1e-5, rtol=0)
 
 
 def test_port_imports_and_runs_without_jax(tmp_path):

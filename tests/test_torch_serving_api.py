@@ -95,15 +95,20 @@ def test_positional_calls_in_the_reference_order(tok, inputs):
 def test_training_arguments_are_taken_and_refused(tok, inputs):
     """``apply_gradient_penalty``, the adversarial weights and ``rng`` (a
     ``torch.Generator``) sit where the JAX package has them; a serving call
-    ignores them, a loss mode raises."""
+    ignores them, a loss mode (which raised before the port trained) takes
+    them: the same ``rng`` gives the same finite loss, by keyword or by
+    position."""
     video, cond = inputs
     recon = tok.forward(video, cond=cond, return_recon=True)
     assert torch.equal(tok.forward(
         video, cond, False, False, True, False, False, False, True, 0.5,
         0.25, torch.Generator().manual_seed(0)), recon)
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        tok.forward(video, cond=cond, return_loss=True,
-                    rng=torch.Generator())
+    total, _ = tok.forward(video, cond=cond, return_loss=True,
+                           rng=torch.Generator().manual_seed(1))
+    again, _ = tok.forward(video, cond, True, False, False, False, False,
+                           True, True, 0.5, 0.25,
+                           torch.Generator().manual_seed(1))
+    assert torch.isfinite(total) and torch.equal(total, again)
 
 
 def _pt_package(path, tok):
