@@ -173,21 +173,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the plain version's (the kernels line's ``backward`` of rows B1-B5).
    Then ``VideoTokenizerTrainer`` on the README flagship as a user runs it
    (the default discriminator, VGG16 with the orthogonal fallback, the bf16
-   policy, an in-memory dataset, batch 4 x accum 2), 8 ``train_step``s on
-   the default path (monolithic accumulation) and on the fused one (split),
+   policy, an in-memory dataset, batch 4 x accum 2, the EMA decaying from
+   step 0), 8 ``train_step``s on the default path (monolithic accumulation)
+   and on the fused one (split),
    the discriminator from step 1, R1 every 2 steps: every loss finite, each
    block's forward and ``_backward`` launched (B4 and B5 on the fused path
    only, no flash), seconds a step with and without R1 and at the default
    cadence, samples/s, peak memory; with ``--profile`` one warm step's
    device time by kernel (``profile_train_<path>.txt``) and its share under
    the blocks' backward recompute. One step each with ``remat=True`` and
-   ``remat='dots'``: the same losses within the bf16 limit, a lower peak.
-   A B4 unit of the trained and of the EMA module after one more step
-   against the plain version on the updated weights (the re-lay cache); the
-   EMA tokenizer's roundtrip contract; a tiny float32 configuration on the
-   card against the CPU (the first step's losses and gradients within
-   1e-4, the parameters after two steps within 2 lr a step); and ``save``
-   -> ``load`` -> one step bit for bit the step without the reload.
+   ``remat='dots'``: the same losses and, leaf by leaf, the same generator
+   gradients within the bf16 limit, a lower peak. A B4 unit of the trained
+   and of the EMA module after one more step against the plain version on
+   the updated weights (the re-lay cache), the EMA's weights a decayed
+   update; the EMA tokenizer's roundtrip contract; a tiny float32
+   configuration on the card against the CPU (the first step's losses and
+   gradients within 1e-4, the generator's and discriminator's parameters
+   after two steps within 2 lr a step, and each leaf's 99% within 1e-2 lr);
+   and ``save`` -> ``load`` -> one step bit for bit the step without the
+   reload.
 
 The second-to-last line is the card's ``nvidia-smi`` name and power limit,
 the line before it a JSON object with one entry per kernel; the last line is
@@ -3502,6 +3506,9 @@ BACKWARD_TOL = {'float32': 1e-5, 'bfloat16': 1e-2}
 BACKWARD_REPS = 10
 TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 4, 2, 8
 TRAIN_LR = 1e-4
+# the EMA decays from the first step on, so the EMA checks read a decayed
+# update (the default waits 100 steps and copies until then)
+TRAIN_EMA = dict(update_after_step=0, update_every=1)
 # R1 at steps 2, 4, 6 (the discriminator from step 1): steps 4 and 6 are
 # warm R1 steps, 3, 5 and 7 warm steps without it; the JAX package's default
 # cadence, 4, costs (one R1 step + three others) / 4 a step
@@ -3520,6 +3527,9 @@ TINY_TRAIN = dict(image_size=16, init_dim=8, codebook_size=64,
 # of their largest value (a gradient zero by its math, as the
 # SqueezeExcite logit bias's, against 1e-3 of the largest gradient)
 TRAIN_CPU_TOL = 1e-4
+# the parameters' per-leaf bound holds the leaves whose first gradient
+# reaches this share of the largest one in their network
+TRAIN_GRAD_FLOOR = 1e-3
 
 
 def backward_cases(torch, dev):
@@ -3700,6 +3710,31 @@ def make_trainer(torch, tok, tmp, **kw):
         return VideoTokenizerTrainer(tok, **args)
 
 
+def record_first_grads(trainer):
+    """The generator's gradients that step 0 hands its optimizer, copied to
+    the host so that no later peak of device memory holds them (the
+    returned dict fills when that step runs). The recorder then removes
+    itself: the optimizer's own ``step`` takes the later steps, and no
+    reference cycle keeps a deleted trainer's memory on the card."""
+    first, opt = {}, trainer.optimizer
+
+    def record(grads):
+        del opt.step
+        first.update({k: g.detach().cpu() for k, g in grads.items()})
+        return opt.step(grads)
+
+    opt.step = record
+    return first
+
+
+def leaf_errors(got, want):
+    """Each leaf's largest difference over its own largest value (at least
+    1e-3 of the largest value of any leaf)."""
+    floor = 1e-3 * max(w.abs().max().item() for w in want.values())
+    return {k: ((got[k] - w).abs().max() / max(w.abs().max().item(), floor))
+            .item() for k, w in want.items()}
+
+
 def quiet_step(trainer, it):
     with contextlib.redirect_stdout(open(os.devnull, 'w')):
         return trainer.train_step(it)
@@ -3775,7 +3810,9 @@ def phase_train_flagship(torch, dev, smi, tmp, profile_dir):
         with environment(env):
             tok = train_tokenizer(torch, dev, lane_pack=path == 'fused')
             tr = make_trainer(torch, tok, os.path.join(tmp, path),
-                              grad_accum_split=split)
+                              grad_accum_split=split, ema_kwargs=TRAIN_EMA)
+            if path == 'default':
+                base_grads = record_first_grads(tr)
             metrics, seconds, peaks, counts[path] = train_steps(
                 torch, tr, TRAIN_STEPS)
             check_finite(f'training {path}', metrics)
@@ -3821,24 +3858,35 @@ def phase_train_flagship(torch, dev, smi, tmp, profile_dir):
     for remat in (True, 'dots'):
         tok = train_tokenizer(torch, dev, remat=remat)
         tr = make_trainer(torch, tok, os.path.join(tmp, f'remat_{remat}'))
+        first = record_first_grads(tr)
         metrics, seconds, peaks, _ = train_steps(torch, tr, 1)
         errs = {k: abs(v - base['metrics'][0][k]) / max(
                     abs(base['metrics'][0][k]), 1e-6)
                 for k, v in metrics[0].items()
                 if k in ('total_loss', 'recon_loss', 'perceptual_loss',
                          'lfq_aux_loss')}
-        out[f'remat_{remat}'] = dict(metrics=metrics[0], seconds=seconds[0],
-                                     peak_gib=peaks[0], rel_err=errs)
+        # the losses come from the forward; the gradients from the backward,
+        # where the checkpoints recompute
+        grad_errs = leaf_errors(first, base_grads)
+        worst = max(grad_errs, key=grad_errs.get)
+        out[f'remat_{remat}'] = dict(
+            metrics=metrics[0], seconds=seconds[0], peak_gib=peaks[0],
+            rel_err=errs, grad_rel_err=grad_errs[worst], grad_worst=worst)
         log(f'[train remat={remat!r}] step 0 against no remat: losses '
-            f'relative {errs} (tol {STEP_TOL["bfloat16"]:g}); peak '
+            f'relative {errs}, the generator\'s gradients per leaf relative '
+            f'to its largest value at most {grad_errs[worst]:.3e} ({worst}, '
+            f'{len(grad_errs)} leaves; tol {STEP_TOL["bfloat16"]:g}); peak '
             f'{peaks[0]:.2f} GiB against {base["peak_gib_step0"]:.2f}; '
             f'{seconds[0]:.3f} s (cold)')
         if max(errs.values()) > STEP_TOL['bfloat16']:
             fail(f'remat={remat!r}: step 0 losses differ {errs}')
+        if grad_errs[worst] > STEP_TOL['bfloat16']:
+            fail(f'remat={remat!r}: step 0 gradients differ: {worst} '
+                 f'{grad_errs[worst]:.3e}')
         if not peaks[0] < base['peak_gib_step0']:
             fail(f'remat={remat!r}: peak {peaks[0]:.2f} GiB not below '
                  f'{base["peak_gib_step0"]:.2f}')
-        del tok, tr
+        del tok, tr, first
         torch.cuda.empty_cache()
     return out, counts
 
@@ -3856,9 +3904,14 @@ def check_units_after_update(torch, trainer):
     module and of the EMA module, float32 on the card (the f32 route, its
     own re-laid weights), run before and after one more train_step; after
     it, each output equals the plain version's on the updated weights, and
-    the update is visible (the outputs moved by more than the tolerance)."""
+    the update is visible (the outputs moved by more than the tolerance).
+    The step's EMA update is a decayed one (TRAIN_EMA): the EMA unit's
+    weights are ``e * decay + p * (1 - decay)`` of its weights before and
+    the trained ones after, with 0 < decay < 1, and its output is not the
+    trained unit's."""
     from magvit2_pytorch_tpu_torch.data import cycle
     from magvit2_pytorch_tpu_torch.ops.kernels import residual_unit as ru
+    from magvit2_pytorch_tpu_torch.training.ema import effective_decay
     set_tf32(False)
     units = {'trained': unit_at_512(trainer.module),
              'ema': unit_at_512(trainer.ema_module)}
@@ -3866,11 +3919,21 @@ def check_units_after_update(torch, trainer):
                     .Generator().manual_seed(5)).to(trainer.device)
     with torch.no_grad():
         before = {k: u(x) for k, u in units.items()}
+    ema_before = [p.detach().clone() for p in units['ema'].parameters()]
+    decay = effective_decay(trainer.step, trainer.ema_config)
+    if not 0 < decay < 1:
+        fail(f'EMA after an update: step {trainer.step} decays by {decay}, '
+             f'not a decayed update ({trainer.ema_config})')
     quiet_step(trainer, cycle(trainer.dataloader))
-    out = {}
+    keep = 1.0 - decay
+    ema_err = max((e - (b * decay + p * keep)).abs().max().item()
+                  for e, b, p in zip(units['ema'].parameters(), ema_before,
+                                     units['trained'].parameters()))
+    out, after = {'ema_decay': decay, 'ema_weights_err': ema_err}, {}
     with torch.no_grad():
         for k, u in units.items():
             (got, counts) = counted(torch, lambda: u(x))
+            after[k] = got
             want = ru.residual_unit_ref(x, *u._fused_params())
             err = (got - want).abs().max().item()
             moved = (got - before[k]).abs().max().item()
@@ -3882,9 +3945,17 @@ def check_units_after_update(torch, trainer):
                 fail(f'{k} unit after an update: error {err:.3e} against the '
                      f'plain version on the updated weights (tol '
                      f'{RU_TOL["float32"]:g}), moved {moved:.3e}')
+    apart = (after['ema'] - after['trained']).abs().max().item()
+    out['ema_apart'] = apart
     log(f'[train fused unit after an update] float32 B4 at '
         f'{tuple(x.shape)}, against the plain version on the new weights: '
         f'{out}')
+    if not ema_err <= 1e-6:
+        fail(f'EMA after an update: its weights are {ema_err:.3e} from '
+             f'e * {decay} + p * {keep}')
+    if not apart > RU_TOL['float32']:
+        fail(f'EMA after an update: its unit computes the trained one '
+             f'({apart:.3e})')
     return out
 
 
@@ -3984,9 +4055,14 @@ def phase_train_card_vs_cpu(torch, dev, tmp):
     CPU with the same weights, data and draws: the first step's losses and
     gradients (generator with the perceptual and adaptive terms,
     discriminator with R1) within TRAIN_CPU_TOL of their largest value; two
-    train_steps each; the parameters after the second step within 2 lr a
-    step of each other (Adam moves a weight by about lr in the sign of its
-    gradient; one near 0 may take either sign), 99% of them within 1e-2 lr."""
+    train_steps each; the generator's and the discriminator's parameters
+    after the second step within 2 lr a step of each other (Adam moves a
+    weight by about lr in the sign of its gradient; one near 0 may take
+    either sign), and in each leaf 99% of them within 1e-2 lr, for each
+    leaf whose first gradient on the CPU reaches TRAIN_GRAD_FLOOR of the
+    largest one in its network (below that, as for the SqueezeExcite logit
+    bias whose gradient is zero by its math, float32's order of sums
+    decides Adam's step)."""
     from magvit2_pytorch_tpu_torch import VideoTokenizer
     from magvit2_pytorch_tpu_torch.data import cycle
     from magvit2_pytorch_tpu_torch.utils.precision import Policy
@@ -4011,7 +4087,10 @@ def phase_train_card_vs_cpu(torch, dev, tmp):
             losses, grads = first_step_grads(torch, tr, batch)
             it = cycle(tr.dataloader)
             metrics = [quiet_step(tr, it) for _ in range(2)]
-            params = [p.detach().cpu() for p in tr.module.parameters()]
+            params = [(f'{prefix}.{n}', p.detach().cpu())
+                      for prefix, net in (('module', tr.module),
+                                          ('discr', tr.discr))
+                      for n, p in net.named_parameters()]
             runs[str(device)] = ([l.detach().cpu() for l in losses],
                                  [g.cpu() for g in grads], metrics, params)
     finally:
@@ -4021,21 +4100,39 @@ def phase_train_card_vs_cpu(torch, dev, tmp):
     floor = 1e-3 * max(g.abs().max().item() for g in gh)
     grad_err = max(((a - b).abs().max() / max(b.abs().max().item(), floor))
                    .item() for a, b in zip(gc, gh))
-    diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(pc, ph)])
+    # gh holds the generator's gradients, then the discriminator's: the
+    # parameters' order
+    if len(gh) != len(ph):
+        fail(f'training card vs CPU: {len(gh)} gradients for {len(ph)} '
+             f'parameters')
+    largest = {}
+    for (name, _), g in zip(ph, gh):
+        net = name.split('.')[0]
+        largest[net] = max(largest.get(net, 0.0), g.abs().max().item())
+    max_diff, q99 = 0.0, {}
+    for (name, a), (_, b), g in zip(pc, ph, gh):
+        diff = (a - b).abs().flatten()
+        max_diff = max(max_diff, diff.max().item())
+        if g.abs().max() >= TRAIN_GRAD_FLOOR * largest[name.split('.')[0]]:
+            q99[name] = diff.quantile(0.99).item()
+    worst = max(q99, key=q99.get)
     out = dict(loss_rel_err=loss_err, grad_rel_err=grad_err,
-               param_max_diff=diffs.max().item(),
-               param_q99_diff=diffs.quantile(0.99).item(),
+               param_max_diff=max_diff, param_q99_diff=q99[worst],
+               param_q99_worst=worst, leaves=len(pc), leaves_held=len(q99),
+               leaves_not_held=sorted(set(n for n, _ in pc) - set(q99)),
                metrics_card=mc[-1], metrics_cpu=mh[-1])
     log(f'[train card vs CPU] tiny float32 (TF32 off): step 0 losses '
         f'{loss_err:.3e}, gradients {grad_err:.3e} of the largest value (tol '
-        f'{TRAIN_CPU_TOL:g}); parameters after 2 steps: max |diff| '
-        f'{out["param_max_diff"]:.3e} (bound {4 * TRAIN_LR:g}), 99% within '
-        f'{out["param_q99_diff"]:.3e} (bound {1e-2 * TRAIN_LR:g})')
+        f'{TRAIN_CPU_TOL:g}); generator and discriminator parameters after 2 '
+        f'steps: max |diff| {max_diff:.3e} (bound {4 * TRAIN_LR:g}), each '
+        f'leaf\'s 99% within at most {q99[worst]:.3e} ({worst}; bound '
+        f'{1e-2 * TRAIN_LR:g}; the {len(q99)} of {len(pc)} leaves whose '
+        f'first gradient reaches {TRAIN_GRAD_FLOOR:g} of the largest, not '
+        f'{out["leaves_not_held"]})')
     if not (loss_err <= TRAIN_CPU_TOL and grad_err <= TRAIN_CPU_TOL):
         fail(f'training card vs CPU: step 0 losses {loss_err}, gradients '
              f'{grad_err}')
-    if not (out['param_max_diff'] <= 4 * TRAIN_LR
-            and out['param_q99_diff'] <= 1e-2 * TRAIN_LR):
+    if not (max_diff <= 4 * TRAIN_LR and q99[worst] <= 1e-2 * TRAIN_LR):
         fail(f'training card vs CPU: parameters after 2 steps {out}')
     return out
 

@@ -196,14 +196,6 @@ def check_cuda_inputs(what: str, x, params):
     dtype_code(x)
 
 
-def needs_grad(*tensors) -> bool:
-    """Whether autograd would record a call on ``tensors``: the blocks then
-    go through their ``torch.autograd.Function``, and launch directly
-    otherwise (serving pays no autograd bookkeeping)."""
-    return torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors)
-
-
 def recompute_grads(plain, inputs, needs, grad_out):
     """The backward of a kernel whose JAX custom VJP saves its inputs and
     differentiates its XLA twin (B1-B5): ``plain`` (the port's counterpart

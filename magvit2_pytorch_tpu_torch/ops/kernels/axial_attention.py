@@ -401,9 +401,6 @@ def attention_block(x, gamma, wqkv, mem_kv, wout, heads: int, dim_head: int,
     if not x.is_cuda:
         return attention_block_ref(x, gamma, wqkv, mem_kv, wout, heads,
                                    dim_head, causal)
-    if not _build.needs_grad(x, gamma, wqkv, mem_kv, wout):
-        return _space_block_launch(x, gamma, wqkv, mem_kv, wout, heads,
-                                   dim_head, causal)
     return _Block.apply(x, gamma, wqkv, mem_kv, wout, heads, dim_head,
                         causal, _space_block_launch, attention_block_ref,
                         'space_attention_block')
@@ -455,9 +452,6 @@ def time_attention_block(x, gamma, wqkv, mem_kv, wout, heads: int,
     if not x.is_cuda:
         return time_attention_block_ref(x, gamma, wqkv, mem_kv, wout, heads,
                                         dim_head, causal)
-    if not _build.needs_grad(x, gamma, wqkv, mem_kv, wout):
-        return _time_block_launch(x, gamma, wqkv, mem_kv, wout, heads,
-                                  dim_head, causal)
     return _Block.apply(x, gamma, wqkv, mem_kv, wout, heads, dim_head,
                         causal, _time_block_launch, time_attention_block_twin,
                         'time_attention_block')

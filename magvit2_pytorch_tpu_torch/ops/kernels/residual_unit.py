@@ -472,8 +472,6 @@ def fused_residual_unit_wide(x, conv_w, conv_b, pw_w, pw_b, k_w, k_b, gi_w,
     params = (conv_w, conv_b, pw_w, pw_b, k_w, k_b, gi_w, gi_b, go_w, go_b)
     if not x.is_cuda:
         return residual_unit_ref(x, *params)
-    if not _build.needs_grad(x, *params):
-        return _launch(x, params, 'residual_unit_wide')
     return _Unit.apply('residual_unit_wide', x, *params)
 
 
@@ -496,8 +494,6 @@ def fused_residual_unit(xb, conv_w, conv_b, pw_w, pw_b, k_w, k_b, gi_w, gi_b,
         x = xb
     if not x.is_cuda:
         out = residual_unit_ref(x, *params)
-    elif not _build.needs_grad(x, *params):
-        out = _launch(x, params, 'residual_unit_packed')
     else:
         out = _Unit.apply('residual_unit_packed', x, *params)
     return out.reshape(xb.shape)

@@ -194,7 +194,8 @@ def taylor_attention_twin(x, gamma, wqkv, wout, heads: int, dim_head: int,
     counterpart of ``_taylor_reference`` (``taylor_attention.py:173-205``),
     the twin the JAX custom VJP recomputes through, with its cast points:
     qkv in the working dtype, ``q * d^-1/2`` rounded, phi = [1, t, t (x) t /
-    sqrt2] in the working dtype, the moments summed in float32 and rounded
+    sqrt2] in the working dtype (both constants rounded to it first, as a
+    Python scalar is in JAX), the moments summed in float32 and rounded
     before the products with phi(q), ``num / (den + eps)`` rounded once.
     ``gamma`` None: no norm (``apply_norm=False``)."""
     dt = x.dtype
@@ -203,10 +204,12 @@ def taylor_attention_twin(x, gamma, wqkv, wout, heads: int, dim_head: int,
     if gamma is not None:
         x = gemm.rmsnorm_ref(x, gamma)
     qkv = F.linear(x, wqkv.to(dt)).reshape(b, n, 3, heads, dim_head)
-    q, k, v = qkv[:, :, 0] * dim_head ** -0.5, qkv[:, :, 1], qkv[:, :, 2]
+    scale, inv_sqrt2 = torch.tensor([dim_head ** -0.5, INV_SQRT2],
+                                    dtype=dt).tolist()
+    q, k, v = qkv[:, :, 0] * scale, qkv[:, :, 1], qkv[:, :, 2]
 
     def phi(t):
-        outer = t[..., :, None] * t[..., None, :] * INV_SQRT2
+        outer = t[..., :, None] * t[..., None, :] * inv_sqrt2
         return torch.cat([torch.ones_like(t[..., :1]), t,
                           outer.flatten(-2)], dim=-1).float()
 
@@ -267,6 +270,4 @@ def taylor_attention(x, gamma, wqkv, wout, heads: int, dim_head: int,
     if not x.is_cuda:
         return taylor_attention_ref(x, gamma, wqkv, wout, heads, dim_head,
                                     eps)
-    if not _build.needs_grad(x, gamma, wqkv, wout):
-        return _block_launch(x, gamma, wqkv, wout, heads, dim_head, eps)
     return _TaylorBlock.apply(x, gamma, wqkv, wout, heads, dim_head, eps)

@@ -1,11 +1,13 @@
 """Mixed-precision policy (PyTorch counterpart of
 ``magvit2_pytorch_tpu/utils/precision.py``): parameters and optimizer state
-in ``param_dtype`` (float32), the batch and so every op in
-``compute_dtype``, losses in float32. The trainer casts the batch (and the
-value-only VGG once) to ``compute_dtype``; each op of the port casts its
-parameters to its input's dtype, as the JAX package's ops do, so bf16
-batches on float32 parameters compute what the JAX package computes, and
-the gradients reach the float32 parameters through those casts.
+in float32, the batch and so every op in ``compute_dtype``, losses in
+float32. The JAX package's ``param_dtype`` and ``output_dtype`` are not
+fields here: its trainer reads only ``compute_dtype``, and so does the
+port's. The trainer casts the batch (and the value-only VGG once) to
+``compute_dtype``; each op of the port casts its parameters to its input's
+dtype, as the JAX package's ops do, so bf16 batches on float32 parameters
+compute what the JAX package computes, and the gradients reach the float32
+parameters through those casts.
 """
 
 from __future__ import annotations
@@ -17,9 +19,7 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class Policy:
-    param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
-    output_dtype: torch.dtype = torch.float32
 
 
 def default_policy(device=None) -> Policy:
@@ -33,5 +33,4 @@ def default_policy(device=None) -> Policy:
 
 def bf16_policy() -> Policy:
     """float32 parameters, bf16 compute."""
-    return Policy(param_dtype=torch.float32, compute_dtype=torch.bfloat16,
-                  output_dtype=torch.float32)
+    return Policy(compute_dtype=torch.bfloat16)

@@ -195,6 +195,112 @@ def test_packed_unit_backward_matches_jax(packed_io):
     _check(got, want, RU_LAYOUT)
 
 
+# -- the twins' bf16 cast points ------------------------------------------------
+
+# In bf16 a gradient is held to JAX's by its mean error over its mean
+# magnitude. dwout reads only the forward's rounded attention output, so it
+# is held to 1e-4: the twin's forward must be JAX's to the bit (a twin that
+# multiplies by d^-1/2 and 1/sqrt2 unrounded reads 1.4e-3). The average over
+# the other gradients but dgamma is held to 3e-3, which the same functions
+# in float32 math (inputs and upstream gradient rounded to bf16, the
+# gradients rounded back) exceed in every case (3.9e-3 to 5.2e-3 on these
+# draws, against 0.7e-3 to 2.7e-3 for the twins). dgamma is held to 2e-2:
+# JAX sums it over the rows in bf16, 1.4% from the same function in float32
+# math on the same bf16 inputs.
+BF16_FORWARD_REL = 1e-4
+BF16_REL = 3e-3
+BF16_GAMMA_REL = 2e-2
+
+
+class _F32Dots:
+    """``jnp`` for ``_taylor_reference`` on the CPU, whose dot refuses bf16
+    operands with a float32 result: such an einsum takes its operands to
+    float32 first (exact products, float32 sums, as
+    ``preferred_element_type`` asks); every cast point of the twin stays."""
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+    @staticmethod
+    def einsum(spec, *ops, preferred_element_type=None, **kw):
+        if preferred_element_type == jnp.float32:
+            ops = [o.astype(jnp.float32) for o in ops]
+        return jnp.einsum(spec, *ops,
+                          preferred_element_type=preferred_element_type, **kw)
+
+
+def _rel_l1(got, want):
+    got = got.detach().float().numpy()
+    want = np.asarray(want.astype(jnp.float32))
+    return np.abs(got - want).mean() / np.abs(want).mean()
+
+
+def _bf16_case(case, monkeypatch):
+    """(JAX twin, port twin, JAX arrays, port layouts, gamma index) on the
+    existing tests' shapes; the port twin takes its arrays in JAX order."""
+    if case.startswith('time'):
+        causal = case == 'time_causal'
+        rng = np.random.default_rng(1)
+        x = rng.normal(size=(2, 5, 16, 128)).astype(np.float32)
+        jax_fn = lambda *a: _time_block_xla(*a, heads=4, dim_head=32,
+                                            causal=causal)
+        port_fn = lambda x, g, q, m, o: aa.time_attention_block_twin(
+            x, g, q.T, m, o.T, 4, 32, causal)
+        return jax_fn, port_fn, (x, *_attn(rng)), 1
+    import magvit2_pytorch_tpu.ops.pallas.taylor_attention as jax_taylor
+    monkeypatch.setattr(jax_taylor, 'jnp', _F32Dots())
+    norm = case == 'taylor_norm'
+    rng = np.random.default_rng(2)
+    c, heads, d = 64, 8, 8
+    x = rng.normal(size=(2, 128, c)).astype(np.float32)
+    gamma = rng.uniform(0.5, 1.5, size=c).astype(np.float32)
+    wqkv = (rng.normal(size=(c, 3 * heads * d)) * 0.1).astype(np.float32)
+    wout = (rng.normal(size=(heads * d, c)) * 0.1).astype(np.float32)
+    if norm:
+        jax_fn = lambda x, g, q, o: _taylor_reference(
+            x, q, o, heads, d, 1e-5, d ** -0.5, gamma=g)
+        port_fn = lambda x, g, q, o: ta.taylor_attention_twin(
+            x, g, q.T, o.T, heads, d)
+        return jax_fn, port_fn, (x, gamma, wqkv, wout), 1
+    jax_fn = lambda x, q, o: _taylor_reference(x, q, o, heads, d, 1e-5,
+                                               d ** -0.5)
+    port_fn = lambda x, q, o: ta.taylor_attention_twin(x, None, q.T, o.T,
+                                                       heads, d)
+    return jax_fn, port_fn, (x, wqkv, wout), None
+
+
+@pytest.mark.parametrize('case', ['time_causal', 'time', 'taylor_norm',
+                                  'taylor_no_norm'])
+def test_twin_bf16_gradients_match_jax(monkeypatch, case):
+    """The twins that the card's B2 and B3 backward differentiate
+    (``time_attention_block_twin``, ``taylor_attention_twin``) keep the cast
+    points of ``_time_block_xla`` / ``_taylor_reference``: in bf16 dwout is
+    JAX's within ``BF16_FORWARD_REL``, the other gradients within
+    ``BF16_REL`` on average (dgamma within ``BF16_GAMMA_REL``), and the
+    same functions in float32 math are not."""
+    jax_fn, port_fn, arrays, gamma_at = _bf16_case(case, monkeypatch)
+    ct = np.random.default_rng(7).normal(
+        size=arrays[0].shape).astype(np.float32)
+    bf = [jnp.asarray(a, jnp.bfloat16) for a in arrays]
+    _, vjp = jax.vjp(jax_fn, *bf)
+    want = vjp(jnp.asarray(ct, jnp.bfloat16))
+    errs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        leaves = [torch.from_numpy(a).to(torch.bfloat16).to(dt)
+                  .requires_grad_(True) for a in arrays]
+        up = torch.from_numpy(ct).to(torch.bfloat16).to(dt)
+        grads = torch.autograd.grad(port_fn(*leaves), leaves, up)
+        errs[dt] = [_rel_l1(g.to(torch.bfloat16), w)
+                    for g, w in zip(grads, want)]
+    twin, f32 = errs[torch.bfloat16], errs[torch.float32]
+    assert twin[-1] <= BF16_FORWARD_REL, twin
+    if gamma_at is not None:
+        assert twin[gamma_at] <= BF16_GAMMA_REL, twin
+        twin, f32 = (e[:gamma_at] + e[gamma_at + 1:] for e in (twin, f32))
+    assert np.mean(twin[:-1]) <= BF16_REL, twin
+    assert np.mean(f32) > BF16_REL, f32
+
+
 # -- the card's autograd.Function, with the plain version as the launch --------
 
 

@@ -11,7 +11,10 @@ with live SqueezeExcite gates, float32. Losses and metrics agree within
 1e-4 of their value at the first step (the same weights) and 1e-3 after (the
 weights then differ by float32 noise); parameters after three steps differ
 by at most 2 lr a step (Adam moves a weight by about lr in the sign of its
-gradient, and a gradient near 0 may take either sign), and most by far less.
+gradient, and a gradient near 0 may take either sign), and in every leaf
+99% of the elements by at most 1e-2 lr (5.7e-4 lr at most on these draws),
+so a fault confined to one small leaf (a norm gain, a bias, a
+discriminator head) fails.
 """
 
 import jax
@@ -213,13 +216,14 @@ def _leaves(tree):
 
 
 def _params_close(got, want, steps):
-    """Within 2 lr a step everywhere, and 99% of elements within 1e-2 lr."""
+    """Within 2 lr a step everywhere, and in each leaf 99% of the elements
+    within 1e-2 lr."""
     got, want = _leaves(got), _leaves(want)
     assert set(got) == set(want)
-    diffs = np.concatenate([np.abs(np.asarray(got[k]) - np.asarray(want[k]))
-                            .ravel() for k in want])
-    assert diffs.max() <= 2 * LR * steps
-    assert np.quantile(diffs, 0.99) <= 1e-2 * LR
+    for k in want:
+        diffs = np.abs(np.asarray(got[k]) - np.asarray(want[k])).ravel()
+        assert diffs.max() <= 2 * LR * steps, jax.tree_util.keystr(k)
+        assert np.quantile(diffs, 0.99) <= 1e-2 * LR, jax.tree_util.keystr(k)
 
 
 def test_three_gan_steps_match_jax(run):
