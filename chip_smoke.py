@@ -192,6 +192,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
    after two steps within 2 lr a step, and each leaf's 99% within 1e-2 lr);
    and ``save`` -> ``load`` -> one step bit for bit the step without the
    reload.
+11. int8 inference (``MAGVIT2_TPU_INT8_CONV=1``, set only inside the
+   phase). K1 (``quantize_s8``) against its plain version bit for bit,
+   dynamic and static, bf16 and float32, at the site inputs, at .5
+   boundaries, zeros and a size not a multiple of 8; K2 (``conv_s8``): its
+   int32 accumulators equal to the plain version's (a float64 conv)
+   exactly, and its bf16 and float32 outputs to the bit, at every flagship
+   site shape (``INT8_SHAPES``: the unit convs and 1x1s at C >= 128, two
+   downsamplers, two upsamplers written depth-to-space) and at
+   ``INT8_RAGGED`` (T = 1, 2, 3; H = W = 12 and 13; C_in 128 / 256 / 512);
+   a batch boundary under a fixed scale exactly 0. At each site shape K1
+   (dynamic, static) and K2 timed beside their plain versions, bounds
+   (2 MACs of real taps over 1,979 int8 TOP/s, bytes over 3.35 TB/s) and
+   the library calls (bf16 ``F.conv3d`` on the same values,
+   ``torch._int_mm`` at the 1x1s and upsamplers, B4's bf16 conv launch at
+   the unit convs, ``torch.quantize_per_tensor`` for K1); the gate's view,
+   K1 + K2 against bf16 ``F.conv3d`` at the unit convs of C = 64, 128,
+   256, 512. Then the flagship (bf16, batch 8) on both paths in three
+   modes, bf16, dynamic int8 and int8 after ``calibrate_int8`` on another
+   batch (42 sites default, 2 fused): K1 and K2 each 44 (default) or 4
+   (fused) times a roundtrip and no plain version of theirs, the output finite and not
+   bf16's, frames/s, code agreement and PSNR against bf16, the
+   calibration's seconds. Last, a small float32 config (``INT8_SMALL``,
+   TF32 off) on the card against the CPU on the CPU's scales carried
+   through the JAX collection format and back (and dynamic), within 2e-2
+   of the largest value. ``--profile`` adds the calibrated roundtrip's
+   device time by kernel on each path (``profile_int8_<path>.txt``).
 
 The second-to-last line is the card's ``nvidia-smi`` name and power limit,
 the line before it a JSON object with one entry per kernel; the last line is
@@ -203,6 +229,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -231,6 +258,7 @@ FLASH_SOURCE = 'magvit2_pytorch_tpu_torch/csrc/flash_attention.cu'
 ATTN_SOURCE = 'magvit2_pytorch_tpu_torch/csrc/attention_block.cu'
 TAYLOR_SOURCE = 'magvit2_pytorch_tpu_torch/csrc/taylor_attention.cu'
 TIME_SOURCE = 'magvit2_pytorch_tpu_torch/csrc/time_attention.cu'
+INT8_SOURCE = 'magvit2_pytorch_tpu_torch/csrc/int8_conv.cu'
 B1_TPU = 'magvit2_pytorch_tpu/ops/pallas/axial_attention.py:49'
 B2_TPU = 'magvit2_pytorch_tpu/ops/pallas/axial_attention.py:224'
 B3_TPU = 'magvit2_pytorch_tpu/ops/pallas/taylor_attention.py:55'
@@ -261,7 +289,13 @@ KERNELS = {
         FLASH_SOURCE, 'magvit2_pytorch_tpu/ops/pallas/flash_attention.py:190'),
     'flash_attention_bwd_dkv': (
         FLASH_SOURCE, 'magvit2_pytorch_tpu/ops/pallas/flash_attention.py:249'),
+    # the int8 path (phase 11) has no Pallas kernel: these replace XLA's
+    # int8 lowering of _quantize_per_tensor and of the s8 x s8 -> s32
+    # conv_general_dilated of the JAX package's int8 branches
+    'quantize_s8': (INT8_SOURCE, 'magvit2_pytorch_tpu/ops/conv.py:87'),
+    'conv_s8': (INT8_SOURCE, 'magvit2_pytorch_tpu/ops/conv.py:549'),
 }
+INT8_KERNELS = ('quantize_s8', 'conv_s8')
 FLASH_KERNELS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
                  'flash_attention_bwd_dkv')
 # the flash kernels by route (ops/kernels/flash_attention.py flash_route):
@@ -293,9 +327,11 @@ FUSED_RU = {'residual_unit_wide': 20, 'residual_unit_packed': 2,
             'ru_pointwise_wgmma': 22, 'ru_pointwise_wmma': 0,
             'ru_pointwise_f32': 0}
 NO_RU = dict.fromkeys(FUSED_RU, 0)
+# the int8 kernels run only with MAGVIT2_TPU_INT8_CONV=1 (phase 11)
+NO_INT8 = {'quantize_s8': 0, 'conv_s8': 0}
 LAUNCHES = {
-    'default': {**BLOCKS, **NO_RU, **NO_FLASH},
-    'fused': {**BLOCKS, **FUSED_RU, **NO_FLASH},
+    'default': {**BLOCKS, **NO_RU, **NO_FLASH, **NO_INT8},
+    'fused': {**BLOCKS, **FUSED_RU, **NO_FLASH, **NO_INT8},
     # bf16: each flash kernel on the 'mma' route
     'attention_step': {**dict.fromkeys(BLOCKS, 0), **NO_RU,
                        **dict.fromkeys(FLASH_KERNELS, 1),
@@ -4207,6 +4243,496 @@ def phase_training(torch, dev, smi, profile_dir, reps=BACKWARD_REPS):
     return out, rows, {f'train_{p}': c for p, c in counts.items()}
 
 
+
+# -- phase 11: int8 inference ------------------------------------------------
+
+INT8_ENV = {'MAGVIT2_TPU_INT8_CONV': '1'}
+# the int8 sites of one flagship roundtrip under the JAX package's gate
+# (min(C_in, C_out) >= 128): default, the 20 unfused units at C >= 128
+# (their conv and 1x1), the 128 -> 256 and 256 -> 512 downsamplers and the
+# 512 -> 256 and 256 -> 128 upsamplers; fused, the units run B4/B5 in bf16
+# and only the four resamplers quantize. calibrate_int8 calibrates all but
+# the upsamplers, which stay dynamic.
+INT8_SITES = {'default': 44, 'fused': 4}
+INT8_CALIBRATED = {'default': 42, 'fused': 2}
+# K2's site shapes on the flagship, batch 8: (what, x (B, T, H, W, C), the
+# weight (N, C, kt, kh, kw), stride, depth-to-space, calls a roundtrip)
+INT8_SHAPES = (
+    *((f'unit conv C={c} T={t}', (BATCH, t, hw, hw, c), (c, c, 3, 3, 3), 1,
+       False, n) for c, t, hw, n in RU_STAGES if c >= 128),
+    *((f'unit 1x1 C={c} T={t}', (BATCH, t, hw, hw, c), (c, c, 1, 1, 1), 1,
+       False, n) for c, t, hw, n in RU_STAGES if c >= 128),
+    ('downsampler 128 -> 256', (BATCH, 20, 64, 64, 128), (256, 128, 1, 3, 3),
+     2, False, 1),
+    ('downsampler 256 -> 512', (BATCH, 20, 32, 32, 256), (512, 256, 1, 3, 3),
+     2, False, 1),
+    ('upsampler 512 -> 256', (BATCH, 20, 16, 16, 512), (1024, 512, 1, 1, 1),
+     1, True, 1),
+    ('upsampler 256 -> 128', (BATCH, 20, 32, 32, 256), (512, 256, 1, 1, 1),
+     1, True, 1),
+)
+INT8_ROW = 'unit conv C=512 T=20'     # the shape of the kernels line's rows
+# K2 where the flagship does not reach: T < 3 (taps before frame 0), H = W
+# = 12 and 13 (tiles past the frame; an odd size under stride 2) at C_in
+# 128, 256 and 512
+INT8_RAGGED = (
+    *((f'T = {t}', (2, t, 16, 16, 128), (128, 128, 3, 3, 3), 1, False)
+      for t in (1, 2, 3)),
+    *((f'H = W = 12, C = {c}', (2, 3, 12, 12, c), (c, c, 3, 3, 3), 1, False)
+      for c in (128, 256, 512)),
+    ('downsampler H = W = 13', (2, 3, 13, 13, 256), (512, 256, 1, 3, 3), 2,
+     False),
+    ('upsampler H = W = 12', (2, 3, 12, 12, 512), (1024, 512, 1, 1, 1), 1,
+     True),
+    ('1x1 ragged M', (1, 3, 7, 9, 384), (256, 384, 1, 1, 1), 1, False),
+)
+# the gate on the card: K2 against bf16 F.conv3d at the unit convs of the
+# four widths, the gate left as it is (C = 64 does not quantize)
+INT8_GATE_SHAPES = ((64, 20, 128), (128, 20, 64), (256, 20, 32), (512, 20, 16))
+PEAK_INT8_OPS = 1979e12
+# float32, TF32 off, card against CPU on the same scales: the JAX package's
+# own int8 bound (tests/test_int8.py:72), of the largest value
+INT8_CARD_TOL = 2e-2
+INT8_SMALL = dict(image_size=32, init_dim=128, max_dim=256, codebook_size=64,
+                  layers=('residual', 'compress_space', 'residual',
+                          'compress_time', 'residual'),
+                  use_gan=False, perceptual_loss_weight=0.0)
+
+
+def int8_bound(macs: float, nbytes: float):
+    """The least time (ms) of an int8 conv: the larger of 2 MACs over the
+    dense int8 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = 2 * macs / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            'operations' if t_ops >= t_bytes else 'bytes')
+
+
+def int8_conv_inputs(torch, dev, x_shape, w_shape, seed):
+    """Random int8 activation and weight, column scales, a bf16 bias."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xq = torch.randint(-127, 128, x_shape, generator=gen, device=dev,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, w_shape, generator=gen, device=dev,
+                       dtype=torch.int8)
+    ks = torch.rand(w_shape[0], generator=gen, device=dev) * 1e-3 + 1e-5
+    bias = torch.randn(w_shape[0], generator=gen, device=dev)
+    return xq, wq, ks, bias
+
+
+def library_ms_or_none(what, fn, reps):
+    """A library call's median ms, or None where this build refuses it on
+    the card (a yardstick only: the port never calls it)."""
+    try:
+        fn()
+    except (RuntimeError, NotImplementedError) as e:
+        log(f'[int8] {what} refused: {e}')
+        return None
+    return median_ms(fn, reps, inner=INNER)
+
+
+def quantize_library_ms(torch, x, xs, reps):
+    """``torch.quantize_per_tensor`` at K1's static scale (qint8, its range
+    -128..127) on x in float32, the one PyTorch call that quantizes per
+    tensor."""
+    x32, scale = x.float(), xs.item()
+    return library_ms_or_none(
+        'torch.quantize_per_tensor',
+        lambda: torch.quantize_per_tensor(x32, scale, 0, torch.qint8), reps)
+
+
+def check_conv_s8(torch, k8, dev, what, x_shape, w_shape, stride, d2s,
+                  seed):
+    """K2's accumulators equal to the plain version's, and its bf16 and
+    float32 outputs equal to the plain epilogue's, to the bit."""
+    xq, wq, ks, bias = int8_conv_inputs(torch, dev, x_shape, w_shape, seed)
+    w8 = k8.int8_weight(wq, ks)
+    xs = torch.tensor(0.02, device=xq.device)
+    acc = k8.conv_s8_accumulators(xq, w8, stride)
+    ref = k8.conv_s8_ref(xq, wq, stride)
+    if not torch.equal(acc, ref):
+        bad = (acc != ref).sum().item()
+        fail(f'conv_s8 {what} {x_shape} x {w_shape}: {bad} int32 '
+             'accumulators differ from the plain version')
+    for dtype in (torch.bfloat16, torch.float32):
+        out = k8.conv_s8(xq, xs, w8, bias, dtype, stride, d2s)
+        want = k8.dequantize_ref(ref, xs, ks, bias, dtype, d2s)
+        if not torch.equal(out, want):
+            diff = (out.float() - want.float()).abs().max().item()
+            fail(f'conv_s8 {what} {dtype}: the epilogue differs from the '
+                 f'plain version by {diff}')
+
+
+def phase_int8_kernels(torch, dev, reps, smi):
+    """K1 and K2 against their plain versions on the card and timed.
+    K1 bit for bit, dynamic and static, bf16 and float32, at the site input
+    shapes and at .5 boundaries and zeros; K2's accumulators exactly and its
+    outputs to the bit at every flagship site shape and ``INT8_RAGGED``; a
+    batch boundary under a fixed scale that must read exactly 0. Then per
+    site shape: K1 (dynamic, static) and K2 ms, the plain versions' ms,
+    bounds, the library calls (bf16 ``F.conv3d`` at the same shape on the
+    same values, ``torch._int_mm`` at the 1x1s and upsamplers, B4's bf16
+    conv launch at the unit convs), and the gate's view. Returns the two
+    kernels-line rows."""
+    import torch.nn.functional as F
+    from magvit2_pytorch_tpu_torch.ops.kernels import int8 as k8
+    from magvit2_pytorch_tpu_torch.ops.kernels import residual_unit as ru
+    set_tf32(False)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    # K1 bit for bit
+    half = torch.cat([(torch.arange(-127, 127, device=dev).float() + 0.5)
+                      * 0.0625, torch.tensor([7.9375, -7.9375], device=dev)])
+    k1_cases = [('.5 boundaries', half), ('zeros', torch.zeros(4, 33,
+                                                                device=dev))]
+    for what, x_shape, *_ in INT8_SHAPES[:5] + INT8_SHAPES[-4:]:
+        k1_cases.append((what, torch.randn(x_shape, generator=gen,
+                                           device=dev) * 0.7))
+    k1_cases.append(('1155 elements', torch.randn(3, 5, 7, 11, generator=gen,
+                                                  device=dev) * 3))
+    static = torch.tensor(0.01, device=dev)
+    for what, x in k1_cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            xd = x.to(dtype)
+            for scale in (None, static):
+                q, s = k8.quantize_s8(xd, scale)
+                qr, sr = k8.quantize_ref(xd, scale)
+                if not (torch.equal(q, qr) and s.item() == sr.item()):
+                    fail(f'quantize_s8 {what} {dtype} scale={scale}: differs '
+                         f'from the plain version ({(q != qr).sum().item()} '
+                         f'codes, scale {s.item()} against {sr.item()})')
+    log(f'[int8 K1] bit for bit at {len(k1_cases)} inputs x 2 dtypes x '
+        'dynamic / static')
+    # K2 exactly at every site shape and the ragged ones
+    for i, (what, x_shape, w_shape, stride, d2s, _) in enumerate(INT8_SHAPES):
+        check_conv_s8(torch, k8, dev, what, x_shape, w_shape, stride,
+                      d2s, 10 + i)
+        torch.cuda.empty_cache()
+    for i, (what, x_shape, w_shape, stride, d2s) in enumerate(INT8_RAGGED):
+        check_conv_s8(torch, k8, dev, what, x_shape, w_shape, stride,
+                      d2s, 40 + i)
+    # the batch boundary: element 1 of a batch of 2 against it alone, under
+    # a fixed scale
+    x = torch.randn(2, 3, 16, 16, 128, generator=gen, device=dev).to(
+        torch.bfloat16)
+    _, wq, ks, bias = int8_conv_inputs(torch, dev, (1, 1, 1, 1, 128),
+                                       (128, 128, 3, 3, 3), 60)
+    w8 = k8.int8_weight(wq, ks)
+    both = k8.int8_conv(x, w8, bias, act_scale=static)
+    alone = k8.int8_conv(x[1:], w8, bias, act_scale=static)
+    boundary = (both[1:].float() - alone.float()).abs().max().item()
+    if boundary != 0:
+        fail(f'int8 conv: batch boundary {boundary}, expected exactly 0')
+    log(f'[int8 K2] accumulators exact and outputs bit for bit at '
+        f'{len(INT8_SHAPES)} site shapes and {len(INT8_RAGGED)} ragged ones; '
+        f'batch boundary {boundary}')
+
+    # timings
+    rows = []
+    for i, (what, x_shape, w_shape, stride, d2s, calls) in enumerate(
+            INT8_SHAPES):
+        x = (torch.randn(x_shape, generator=gen, device=dev) * 0.7).to(
+            torch.bfloat16)
+        xq, xs = k8.quantize_s8(x)
+        _, wq, ks, bias = int8_conv_inputs(torch, dev, (1, 1, 1, 1,
+                                                        x_shape[-1]),
+                                           w_shape, 70 + i)
+        w8 = k8.int8_weight(wq, ks)
+        n = x.numel()
+        k1 = dict(ms=median_ms(lambda: k8.quantize_s8(x), reps, inner=INNER),
+                  static_ms=median_ms(lambda: k8.quantize_s8(x, xs), reps,
+                                      inner=INNER),
+                  plain_ms=median_ms(lambda: k8.quantize_ref(x), 5),
+                  bound_ms=int8_bound(0, 2 * n + n)[0],
+                  library_ms=quantize_library_ms(torch, x, xs, reps))
+        out = k8.conv_s8(xq, xs, w8, bias, torch.bfloat16, stride, d2s)
+        macs = k8.conv_macs(x_shape, w_shape, stride)
+        ms = median_ms(lambda: k8.conv_s8(xq, xs, w8, bias, torch.bfloat16,
+                                          stride, d2s), reps, inner=INNER)
+        plain_ms = median_ms(lambda: k8.dequantize_ref(
+            k8.conv_s8_ref(xq, wq, stride), xs, ks, bias, torch.bfloat16,
+            d2s), 3, warmup=1)
+        bnd, by = int8_bound(macs, xq.numel() + wq.numel()
+                             + 2 * out.numel() + 6 * w_shape[0])
+        # the library: bf16 F.conv3d on the same values (exact products,
+        # float32 sums), channels-last as the port keeps activations
+        kt, kh, kw = w_shape[2:]
+        xb = xq.to(torch.bfloat16).permute(0, 4, 1, 2, 3)
+        xb = F.pad(xb, (0, 0, 0, 0, kt - 1, 0))
+        wb = wq.to(torch.bfloat16)
+        conv_ms = median_ms(lambda: F.conv3d(
+            xb, wb, stride=(1, stride, stride),
+            padding=(0, kh // 2, kw // 2)), reps, inner=INNER)
+        row = dict(what=what, shape=list(x_shape), weight=list(w_shape),
+                   calls_per_roundtrip=calls, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bnd, bound_by=by, conv3d_bf16_ms=conv_ms,
+                   tops=2 * macs / ms / 1e9, k1=k1, max_abs_err=0.0)
+        if kt * kh * kw == 1:
+            a = xq.reshape(-1, x_shape[-1])
+            b = w8.gemm.t()
+            row['int_mm_ms'] = library_ms_or_none(
+                'torch._int_mm', lambda: torch._int_mm(a, b), reps)
+        if kt == 3:
+            conv_w = wq.to(torch.bfloat16)
+            conv_b = bias.to(torch.bfloat16)
+            row['b4_conv_ms'] = median_ms(lambda: ru.ru_conv(
+                x, conv_w, conv_b), reps, inner=INNER)
+        rows.append(row)
+        log(f'[int8 K2] {what} {x_shape}: {ms:.4f} ms ({row["tops"]:.1f} '
+            f'TOP/s of real taps), bound {bnd:.4f} ({by}), plain '
+            f'{plain_ms:.4f}, bf16 F.conv3d {conv_ms:.4f}'
+            + (f', torch._int_mm {row["int_mm_ms"]}'
+               if 'int_mm_ms' in row else '')
+            + (f", B4's conv launch {row['b4_conv_ms']:.4f}"
+               if 'b4_conv_ms' in row else '')
+            + f'; K1 dynamic {k1["ms"]:.4f}, static {k1["static_ms"]:.4f}, '
+            f'plain {k1["plain_ms"]:.4f}, bound {k1["bound_ms"]:.4f}, '
+            f'torch.quantize_per_tensor {k1["library_ms"]} ms on {smi}')
+        del x, xq, xb, wb, out
+        torch.cuda.empty_cache()
+    gate = []
+    for c, t, hw in INT8_GATE_SHAPES:
+        x = (torch.randn(BATCH, t, hw, hw, c, generator=gen, device=dev)
+             * 0.7).to(torch.bfloat16)
+        _, wq, ks, bias = int8_conv_inputs(torch, dev, (1, 1, 1, 1, c),
+                                           (c, c, 3, 3, 3), 90 + c)
+        w8 = k8.int8_weight(wq, ks)
+        wb, bb = (wq.to(torch.bfloat16) * 1e-3), bias.to(torch.bfloat16)
+        xc = x.permute(0, 4, 1, 2, 3)
+        int8_ms = median_ms(lambda: k8.int8_conv(x, w8, bias), reps,
+                            inner=INNER)
+        xq, xs = k8.quantize_s8(x)
+        k2_ms = median_ms(lambda: k8.conv_s8(xq, xs, w8, bias,
+                                             torch.bfloat16), reps,
+                          inner=INNER)
+        bf16_ms = median_ms(lambda: F.conv3d(
+            F.pad(xc, (0, 0, 0, 0, 2, 0)), wb, bb, padding=(0, 1, 1)),
+            reps, inner=INNER)
+        gate.append(dict(c=c, shape=[BATCH, t, hw, hw, c], int8_ms=int8_ms,
+                         k2_ms=k2_ms, conv3d_bf16_ms=bf16_ms,
+                         speedup=bf16_ms / int8_ms))
+        log(f'[int8 gate] C = {c} ({BATCH}, {t}, {hw}, {hw}, {c}): K1 + K2 '
+            f'{int8_ms:.4f} ms (K2 {k2_ms:.4f}), bf16 F.conv3d (with its '
+            f'causal pad) {bf16_ms:.4f}: {bf16_ms / int8_ms:.2f}x on {smi}')
+        del x, xc, xq
+        torch.cuda.empty_cache()
+    main = next(r for r in rows if r['what'] == INT8_ROW)
+    k1 = main['k1']
+    return {
+        'quantize_s8': dict(
+            shape=main['shape'], per='launch (absmax + quantize, bf16)',
+            ms=k1['ms'], static_ms=k1['static_ms'], plain_ms=k1['plain_ms'],
+            bound_ms=k1['bound_ms'], bound_by='bytes',
+            library_ms=k1['library_ms'],
+            library='torch.quantize_per_tensor (static scale, float32 in)',
+            max_abs_err=0.0,
+            shapes=[dict(what=r['what'], shape=r['shape'], **r['k1'])
+                    for r in rows]),
+        'conv_s8': dict(
+            {k: main[k] for k in ('shape', 'weight', 'ms', 'plain_ms',
+                                  'bound_ms', 'bound_by', 'max_abs_err')},
+            per='launch (bf16 output)', library_ms=main['conv3d_bf16_ms'],
+            library='bf16 F.conv3d on the same int8 values',
+            shapes=rows, gate=gate),
+    }
+
+
+@contextlib.contextmanager
+def plain_int8_calls(torch):
+    """Record every call of the int8 kernels' plain versions in the
+    block."""
+    from magvit2_pytorch_tpu_torch.ops.kernels import int8 as k8
+    calls = []
+    names = ('quantize_ref', 'conv_s8_ref', 'dequantize_ref')
+    real = {n: getattr(k8, n) for n in names}
+
+    def spy(name, fn):
+        def call(*args, **kw):
+            calls.append(name)
+            return fn(*args, **kw)
+        return call
+
+    for name, fn in real.items():
+        setattr(k8, name, spy(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(k8, name, fn)
+
+
+def psnr(got, want):
+    """PSNR in dB of ``got`` against ``want``, peak 1 (videos in [0, 1])."""
+    mse = (got.float() - want.float()).pow(2).mean().item()
+    return float('inf') if mse == 0 else -10 * math.log10(mse)
+
+
+def int8_roundtrip(torch, what, tok, video, sites):
+    """One roundtrip through ``tokenize`` / ``decode_from_code_indices``
+    with the launch counts set to 0 just before and read just after: K1
+    and K2 ``sites`` times each, no plain version of theirs."""
+    from magvit2_pytorch_tpu_torch.ops.kernels import (
+        launch_counts, reset_launch_counts)
+    torch.cuda.synchronize()
+    with plain_int8_calls(torch) as plain:
+        reset_launch_counts()
+        codes, recon = whole_roundtrip(tok, video)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    if plain:
+        fail(f'{what}: the int8 plain versions ran on the card: {plain[:5]}')
+    check_launches(what, counts, {'quantize_s8': sites, 'conv_s8': sites})
+    if not bool(torch.isfinite(recon).all()):
+        fail(f'{what}: recon has non-finite values')
+    return codes, recon, counts
+
+
+def phase_int8_flagship(torch, dev, path, smi, profile_dir=None):
+    """The flagship (bf16, batch 8) on ``path`` in three modes through the
+    user's entry points: bf16, dynamic int8 (``MAGVIT2_TPU_INT8_CONV=1``)
+    and int8 after ``calibrate_int8`` on another batch: frames/s of each
+    (the int8 scope held around the chained runs), K1 and K2 launches a
+    roundtrip against the site count, code agreement and PSNR against
+    bf16, the calibration's seconds and site count; with ``profile_dir``
+    the calibrated roundtrip's device time by kernel
+    (``profile_int8_<path>.txt``)."""
+    tok = flagship_tokenizer(torch, dev, torch.bfloat16,
+                             lane_pack=path == 'fused')
+    gen = torch.Generator(device=dev).manual_seed(0)
+    video = torch.rand(BATCH, 17, 128, 128, 3, generator=gen, device=dev)
+    # the calibration batch is another draw than the one measured
+    calibration = torch.rand(BATCH, 17, 128, 128, 3, generator=gen,
+                             device=dev)
+    out, counts = {}, {}
+    with environment(FUSED_ENV if path == 'fused' else {}):
+        from magvit2_pytorch_tpu_torch.ops.kernels import (
+            launch_counts, reset_launch_counts)
+        reset_launch_counts()
+        codes_b, recon_b = whole_roundtrip(tok, video)
+        check_launches(f'int8 phase {path} bf16', launch_counts(), NO_INT8)
+        out['bf16'] = dict(fps=phase_throughput(torch, tok, video)['fps'])
+        with environment(INT8_ENV):
+            for mode in ('dynamic', 'static'):
+                if mode == 'static':
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    n = tok.calibrate_int8(calibration)
+                    torch.cuda.synchronize()
+                    calib_s = time.perf_counter() - t0
+                    if n != INT8_CALIBRATED[path]:
+                        fail(f'int8 {path}: calibrate_int8 returned {n} '
+                             f'sites, expected {INT8_CALIBRATED[path]}')
+                codes, recon, c = int8_roundtrip(
+                    torch, f'int8 {mode} {path} roundtrip', tok, video,
+                    INT8_SITES[path])
+                counts[f'int8_{mode}_{path}'] = c
+                if torch.equal(recon, recon_b):
+                    fail(f'int8 {mode} {path}: the output equals bf16\'s: '
+                         'int8 did not engage')
+                with tok._int8_scope():
+                    tp = phase_throughput(torch, tok, video)
+                    if profile_dir and mode == 'static':
+                        profile_roundtrip(
+                            torch, tok, video,
+                            os.path.join(profile_dir,
+                                         f'profile_int8_{path}.txt'),
+                            tp['ms_per_roundtrip'])
+                out[mode] = dict(
+                    fps=tp['fps'], ms_per_roundtrip=tp['ms_per_roundtrip'],
+                    code_agreement=(codes == codes_b).float().mean().item(),
+                    psnr_db=psnr(recon, recon_b),
+                    launches={k: c[k] for k in NO_INT8})
+                if mode == 'static':
+                    out[mode].update(calibration_s=calib_s,
+                                     calibrated_sites=n)
+                log(f'[int8 {path}] {mode}: {tp["fps"]:.2f} frames/s against '
+                    f'bf16 {out["bf16"]["fps"]:.2f}; K1 / K2 '
+                    f'{c["quantize_s8"]} / {c["conv_s8"]} a roundtrip; codes '
+                    f'agree with bf16 {out[mode]["code_agreement"]:.4%}, PSNR '
+                    f'{out[mode]["psnr_db"]:.2f} dB'
+                    + (f'; calibrate_int8 {calib_s:.3f} s, {n} sites'
+                       if mode == 'static' else '') + f' on {smi}')
+    del tok, video
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def phase_int8_card_vs_cpu(torch, dev):
+    """``INT8_SMALL`` in float32, TF32 off, live SqueezeExcite gates: the
+    card against the CPU with the CPU's calibration carried over (and
+    dynamic), within ``INT8_CARD_TOL`` of the largest value; and the int8
+    state through the JAX collection format and back, equal."""
+    from magvit2_pytorch_tpu_torch import VideoTokenizer
+    from magvit2_pytorch_tpu_torch.models.jax_import import (
+        int8_state_from_jax, jax_int8_from_state)
+    from magvit2_pytorch_tpu_torch.ops.basic import live_squeeze_excite_
+    set_tf32(False)
+    clip = torch.rand(1, 5, 32, 32, 3,
+                      generator=torch.Generator().manual_seed(13))
+    toks = {}
+    for device in ('cpu', dev):
+        tok = VideoTokenizer(seed=0, device=device, **INT8_SMALL)
+        live_squeeze_excite_(tok.module, torch.Generator().manual_seed(11))
+        toks[str(device)] = tok
+    cpu, card = toks['cpu'], toks[str(dev)]
+    out = {}
+    with environment(INT8_ENV):
+        for mode in ('dynamic', 'static'):
+            if mode == 'static':
+                out['sites'] = cpu.calibrate_int8(clip)
+                coll = jax_int8_from_state(cpu.config, cpu._int8_vars)
+                back = int8_state_from_jax(cpu.config, coll)
+                for name, site in cpu._int8_vars.items():
+                    for key in ('act_scale', 'kernel_q', 'kernel_scale'):
+                        if not torch.equal(getattr(back[name], key),
+                                           getattr(site, key)):
+                            fail(f'int8 state bridge: {name} {key} differs '
+                                 'after the JAX format and back')
+                card._int8_vars = {n: s.to(dev) for n, s in back.items()}
+            codes_cpu, recon_cpu = cpu.forward(clip, return_codes=True,
+                                               return_recon=True)
+            codes_card, recon_card = card.forward(clip, return_codes=True,
+                                                  return_recon=True)
+            err = relative_error(recon_card.cpu(), recon_cpu)
+            agree = (codes_card.cpu() == codes_cpu).float().mean().item()
+            out[mode] = dict(recon_rel_err=err, code_agreement=agree)
+            log(f'[int8 card vs cpu] float32 {mode}: recon {err:.3e} of the '
+                f'largest value (tol {INT8_CARD_TOL}), codes agree '
+                f'{agree:.4%}')
+            if not err <= INT8_CARD_TOL:
+                fail(f'int8 card vs cpu {mode}: recon {err} > '
+                     f'{INT8_CARD_TOL}')
+    log(f'[int8 bridge] {out["sites"]} sites through the JAX collection '
+        'format and back: equal')
+    del toks, cpu, card
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_int8(torch, dev, smi, profile_dir=None, reps=REPS):
+    """Phase 11. Returns the kernels-line rows, the readings and the
+    launches of each int8 path."""
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        rows = phase_int8_kernels(torch, dev, reps, smi)
+    torch.cuda.empty_cache()
+    # the tokenizers are made outside inference mode, as a user makes
+    # them: parameters made inside it are inference tensors, which have no
+    # version counter, so their quantized weights could not be cached
+    readings, counts = {}, {}
+    for path in ('default', 'fused'):
+        readings[path], c = phase_int8_flagship(torch, dev, path, smi,
+                                                profile_dir)
+        counts.update(c)
+    readings['card_vs_cpu'] = phase_int8_card_vs_cpu(torch, dev)
+    readings['seconds'] = time.perf_counter() - t0
+    log(f'[int8] frames/s bf16 / dynamic / static on {smi}: default '
+        + ' / '.join(f'{readings["default"][m]["fps"]:.2f}'
+                     for m in ('bf16', 'dynamic', 'static'))
+        + ', fused ' + ' / '.join(f'{readings["fused"][m]["fps"]:.2f}'
+                                  for m in ('bf16', 'dynamic', 'static'))
+        + f'; the phase took {readings["seconds"]:.1f} s')
+    return rows, readings, counts
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument('--out', default=None,
@@ -4228,9 +4754,9 @@ def main():
         from magvit2_pytorch_tpu_torch.ops.kernels import _build
     except ImportError as e:
         fail(f'the port package is not beside this script: {e}')
-    for name in (*FUSED_ENV, 'MAGVIT2_TPU_NO_FUSED_RU',
+    for name in (*FUSED_ENV, *INT8_ENV, 'MAGVIT2_TPU_NO_FUSED_RU',
                  'MAGVIT2_TPU_NO_FUSED_RU_WIDE', 'MAGVIT2_TPU_NO_FUSED_RU_W64',
-                 'MAGVIT2_TPU_NO_FUSED_ATTN'):
+                 'MAGVIT2_TPU_NO_FUSED_ATTN', 'MAGVIT2_TPU_INT8_PACKED'):
         os.environ.pop(name, None)        # the default path is the default
     dev = torch.device('cuda', 0)
     torch.manual_seed(0)
@@ -4308,15 +4834,22 @@ def main():
     for name, row in backward.items():
         kernel_rows[name]['backward'] = row
     configs['training'] = training
+    int8_rows, configs['int8'], int8_paths = phase_int8(torch, dev, smi,
+                                                        profile_dir)
+    kernel_rows.update(int8_rows)
+    counts.update(int8_paths)
 
     if 'jax' in sys.modules:
         fail('JAX was imported')
     # the contract's keys last: a row's own 'route' (the GEMM's) gives way
     kernels = [{**kernel_rows[name], 'name': name, 'route': 'cuda',
                 'source': source, 'replaces': replaces,
-                # on the path that runs the kernel: a fused roundtrip, or
-                # one step of the general Attention path
+                # on the path that runs the kernel: a fused roundtrip, one
+                # step of the general Attention path, or a dynamic int8
+                # roundtrip of the default path
                 'launches': counts['attention_step' if name in FLASH_KERNELS
+                                   else 'int8_dynamic_default'
+                                   if name in INT8_KERNELS
                                    else 'fused'][name],
                 'launches_by_path': {p: counts[p][name] for p in counts},
                 # all of this kernel's calls in one warm fused roundtrip

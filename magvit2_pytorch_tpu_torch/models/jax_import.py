@@ -22,6 +22,12 @@ The discriminators (``discr_bridge_entries``, ``multiscale_bridge_entries``)
 and VGG (``vgg_bridge_entries``) have tables of their own, which
 ``state_dict_from_tree`` / ``tree_from_state_dict`` read the same way.
 
+The int8 state (``int8_state_from_jax`` / ``jax_int8_from_state``) moves
+the same way: the JAX package's ``int8`` apply collection, a site's
+``act_scale``, ``kernel_q`` and ``kernel_scale`` under the flax path of its
+conv, against ``VideoTokenizer._int8_vars``, an ``Int8Site`` by the name of
+the site's module; ``kernel_q`` takes its conv kernel's transform.
+
 The port keeps the reference's keys and layouts, so the JAX package also
 imports ``port.state_dict()`` through ``load_torch_tokenizer_state_dict`` as
 it is (and, with trained upsamplers, decodes those sub-pixels as the JAX
@@ -45,6 +51,7 @@ import numpy as np
 import torch
 
 from magvit2_pytorch_tpu_torch.models.layerspec import parse_layers
+from magvit2_pytorch_tpu_torch.ops.conv import Int8Site
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32, order='C'))
@@ -305,3 +312,69 @@ def jax_params_from_state_dict(config, state: Mapping) -> dict:
     JAX package's params pytree for ``config``, numpy float32 leaves; the
     exact inverse of ``state_dict_from_jax_params``."""
     return tree_from_state_dict(bridge_entries(config), state)
+
+
+# the kernels an int8 site can have: CausalConv3d, Conv3d1x1 (Dense in the
+# table) and SpatialDownsample2x
+_INT8_KERNELS = ('conv3d', 'dense', 'conv2d_from3d')
+
+
+def int8_site_entries(config) -> dict:
+    """JAX path of each conv that can be an int8 site -> (the port's name of
+    its module, the kernel's transform)."""
+    out = {}
+    for key, path, kind in bridge_entries(config):
+        if path[-1] != 'kernel' or kind not in _INT8_KERNELS:
+            continue
+        name = key[:-len('.weight')]
+        if kind != 'dense':     # the kernel sits in the module's ConvWeights
+            name = name[:-len('.conv')]
+        out[path[:-1]] = (name, kind)
+    return out
+
+
+def _int8_nodes(tree, prefix=()):
+    """(path, entry) of every site of a JAX ``int8`` collection."""
+    if 'act_scale' in tree:
+        yield prefix, tree
+        return
+    for key, value in tree.items():
+        yield from _int8_nodes(value, prefix + (key,))
+
+
+def int8_state_from_jax(config, collection: Mapping, device='cpu') -> dict:
+    """The JAX package's ``int8`` collection (numpy leaves) -> the port's
+    int8 state for ``config``: site module name -> ``Int8Site`` on
+    ``device``."""
+    sites = int8_site_entries(config)
+    state = {}
+    for path, entry in _int8_nodes(collection):
+        name, kind = sites[path]
+        kq = np.array(TRANSFORMS[kind][0](np.asarray(entry['kernel_q'])),
+                      np.int8, order='C')
+        state[name] = Int8Site(
+            torch.tensor(np.float32(entry['act_scale'])),
+            torch.from_numpy(kq),
+            torch.from_numpy(np.array(entry['kernel_scale'], np.float32)),
+        ).to(device)
+    return state
+
+
+def jax_int8_from_state(config, state: Mapping) -> dict:
+    """The port's int8 state -> the JAX package's ``int8`` collection,
+    numpy leaves (float32 scales, int8 kernels); the inverse of
+    :func:`int8_state_from_jax`."""
+    paths = {name: (path, kind)
+             for path, (name, kind) in int8_site_entries(config).items()}
+    out = {}
+    for name, site in state.items():
+        path, kind = paths[name]
+        node = out
+        for key in path:
+            node = node.setdefault(key, {})
+        node['act_scale'] = np.array(site.act_scale.item(), np.float32)
+        node['kernel_q'] = np.array(
+            TRANSFORMS[kind][1](site.kernel_q.cpu().numpy()), np.int8,
+            order='C')
+        node['kernel_scale'] = site.kernel_scale.float().cpu().numpy().copy()
+    return out

@@ -12,7 +12,11 @@ never module buffers, so sessions over one tokenizer do not share it.
 Chunked results are those of one whole-clip pass: on the CPU codes are
 equal (tests/test_torch_streaming.py); on the card the fused ResidualUnit
 and time-attention kernels run whole-clip but not on streamed chunks (they
-keep no state), so the two differ there by those kernels' rounding.
+keep no state), so the two differ there by those kernels' rounding. A
+stream runs in the working dtype with ``MAGVIT2_TPU_INT8_CONV=1`` too: the
+JAX package's gate refuses its causal convs (``conv.py:389-391``), and a
+per-chunk scale could not give the whole clip's numbers, so here no int8
+site quantizes in a stream (``int8_scope(streaming=True)``).
 
 Chunk grammar (the JAX package's): the first chunk holds the first frame
 plus a multiple of ``time_downsample_factor`` frames (e.g. 1 + 16); every
@@ -29,6 +33,7 @@ from typing import Optional
 
 import torch
 
+from magvit2_pytorch_tpu_torch.ops.conv import int8_scope
 from magvit2_pytorch_tpu_torch.utils.helpers import divisible_by
 
 
@@ -66,7 +71,7 @@ class StreamingSession:
         else:
             assert divisible_by(chunk.shape[1], self.tdf), (
                 f'chunks must hold multiples of {self.tdf} frames')
-        with torch.inference_mode():
+        with torch.inference_mode(), int8_scope(streaming=True):
             latents = self.module.encode(
                 chunk, cond=self.cond, video_contains_first_frame=False,
                 streaming=True, state=self._enc_state)
@@ -80,7 +85,7 @@ class StreamingSession:
         first holds ``(tp + 1 + k * tdf) / tdf`` latent frames). Returns its
         frames, the first chunk's time padding cut off."""
         codes = torch.as_tensor(codes, device=self.tokenizer.device)
-        with torch.inference_mode():
+        with torch.inference_mode(), int8_scope(streaming=True):
             quantized = self.module.indices_to_codes(codes.long(),
                                                      self.tokenizer.dtype)
             recon = self.module.decode(

@@ -30,13 +30,20 @@ package builds them (``use_gan``, ``perceptual_loss_weight``,
 ``vgg_weights``; without VGG weights an orthogonal fallback, with a
 warning), and checkpoints carry ``discr_params`` and ``multiscale_params``
 in its layout. Every module here is frozen: ``training/trainer.py`` trains
-copies of its own and writes their weights back. int8 calibration is TPU
-work and is not here.
+copies of its own and writes their weights back.
+
+int8 inference (the JAX package's ``MAGVIT2_TPU_INT8_CONV=1``): with the
+environment set, the int8 sites (``ops/conv.py`` ``int8_call``) quantize
+on every call; after ``calibrate_int8`` they take the recorded static
+scales and weights, which every entry point hands down (``int8_scope``),
+as the JAX package threads its ``int8`` collection. The environment is read
+at every call; without it the calibration is kept but not used.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import pickle
 from pathlib import Path
 from typing import Optional
@@ -58,6 +65,9 @@ from magvit2_pytorch_tpu_torch.models.vgg import (
     VGG16Features, orthogonalize_vgg_, read_vgg_weights,
     warn_orthogonal_fallback)
 from magvit2_pytorch_tpu_torch.ops.basic import init_module_parameters
+from magvit2_pytorch_tpu_torch.ops.conv import (
+    INT8_ENV, Int8Site, int8_scope, quantize_per_channel_out)
+from magvit2_pytorch_tpu_torch.ops.kernels.int8 import scale_of
 from magvit2_pytorch_tpu_torch.utils import serialization
 from magvit2_pytorch_tpu_torch.utils.helpers import (
     default, divisible_by, exists)
@@ -116,6 +126,8 @@ class VideoTokenizer:
                 self.multiscale_discrs.append(ms)
         self.has_multiscale_discrs = (
             self.has_multiscale_gan and len(self.multiscale_discrs) > 0)
+        # calibrate_int8's static state: site module name -> Int8Site
+        self._int8_vars = None
 
         for m in self._modules():
             self._frozen(m)
@@ -332,6 +344,75 @@ class VideoTokenizer:
         tokenizer.load_torch_state_dict(state, strict=strict)
         return tokenizer
 
+    # -- int8 ------------------------------------------------------------------
+
+    @property
+    def _int8_active(self):
+        """The static int8 state to hand down: only with the int8
+        environment on and a calibration recorded (the JAX package's
+        ``tokenizer.py:245-252``)."""
+        if self._int8_vars is not None and os.environ.get(INT8_ENV) == '1':
+            return self._int8_vars
+        return None
+
+    def _int8_scope(self):
+        """The scope of one entry point's call: the calibrated sites by
+        module, or none (every site dynamic, or the gate off)."""
+        active = self._int8_active
+        if not active:
+            return int8_scope()
+        modules = dict(self.module.named_modules())
+        return int8_scope(sites={modules[name]: site
+                                 for name, site in active.items()})
+
+    def calibrate_int8(self, videos, cond=None,
+                       video_contains_first_frame: bool = True,
+                       channel_first: bool = False,
+                       percentile: Optional[float] = None):
+        """Calibrate the static int8 path on ``videos`` (one batch or an
+        iterable of batches; the JAX package's ``tokenizer.py:254-324``).
+
+        One roundtrip a batch with the int8 environment on records each
+        site's largest input |x| (its ``percentile`` with ``percentile``,
+        e.g. 99.9: outliers then saturate at the int8 rails rather than
+        dilate the scale), the largest over the batches. Each site gets the
+        static scale ``max(x, 1e-12) / 127`` and its weight quantized once;
+        ``encode`` / ``decode`` / ``forward`` with ``MAGVIT2_TPU_INT8_CONV=1``
+        use them. The spatial upsamplers stay dynamic, and the downsamplers
+        record the absmax whatever the percentile, as in the JAX package;
+        the units' 1x1s record the percentile (where the JAX package records
+        their absmax, ROADMAP C5). Inference only. Returns the number of
+        calibrated sites; 0 (no site in this config) leaves the dynamic
+        path."""
+        if torch.is_tensor(videos) or isinstance(videos, np.ndarray):
+            batches = [videos]
+        else:
+            batches = list(videos)
+        record = {}
+        before = os.environ.get(INT8_ENV)
+        os.environ[INT8_ENV] = '1'
+        try:
+            with torch.inference_mode(), int8_scope(record=record,
+                                                    percentile=percentile):
+                for video in batches:
+                    self.module(self._video(video, channel_first),
+                                cond=self._cond(cond),
+                                video_contains_first_frame=(
+                                    video_contains_first_frame))
+        finally:
+            if before is None:
+                os.environ.pop(INT8_ENV, None)
+            else:
+                os.environ[INT8_ENV] = before
+        names = {m: name for name, m in self.module.named_modules()}
+        state = {}
+        for module, stat in record.items():
+            weight = getattr(module, 'conv', module).weight
+            state[names[module]] = Int8Site(
+                scale_of(stat), *quantize_per_channel_out(weight.detach()))
+        self._int8_vars = state or None
+        return len(state)
+
     # -- core API --------------------------------------------------------------
 
     def _video(self, video, channel_first: bool):
@@ -349,7 +430,7 @@ class VideoTokenizer:
                video_contains_first_frame: bool = True,
                channel_first: bool = False):
         """reference magvit2_pytorch.py:1522-1576."""
-        with torch.inference_mode():
+        with torch.inference_mode(), self._int8_scope():
             video = self._video(video, channel_first)
             latents = self.module.encode(
                 video, cond=self._cond(cond),
@@ -362,7 +443,7 @@ class VideoTokenizer:
                video_contains_first_frame: bool = True,
                channel_first: bool = False):
         """reference magvit2_pytorch.py:1597-1649."""
-        with torch.inference_mode():
+        with torch.inference_mode(), self._int8_scope():
             quantized = self._video(quantized, channel_first)
             video = self.module.decode(
                 quantized, cond=self._cond(cond),
@@ -459,7 +540,7 @@ class VideoTokenizer:
                         multiscale_adversarial_loss_weight))
 
         if return_recon_loss_only:
-            with torch.inference_mode():
+            with torch.inference_mode(), self._int8_scope():
                 recon, _ = self.module(video, cond=self._cond(cond),
                                        video_contains_first_frame=vcff)
                 recon_loss = ((video.float() - recon.float()) ** 2).mean()
@@ -485,7 +566,7 @@ class VideoTokenizer:
                     generator=rng)
             return total, breakdown
 
-        with torch.inference_mode():
+        with torch.inference_mode(), self._int8_scope():
             cond = self._cond(cond)
             qout = self.module.quantize(self.module.encode(
                 video, cond=cond, video_contains_first_frame=vcff),

@@ -62,17 +62,31 @@ def torch_default_init_(weight, bias, fan_in: int, gen: torch.Generator):
 
 class Linear(nn.Module):
     """``y = x W^T + b`` with W ``(dim_out, dim_in)``; the weights are cast to
-    the input's dtype at use, like the JAX package's ``Linear``."""
+    the input's dtype at use, like the JAX package's ``Linear``.
 
-    def __init__(self, dim_in: int, dim_out: int, bias: bool = True):
+    ``int8_site=True`` marks the layers that are a ``Conv3d1x1`` in the JAX
+    package (the units' 1x1s), whose int8 branch (``conv.py:599-656``) runs
+    here under ``MAGVIT2_TPU_INT8_CONV=1`` (``ops/conv.py`` ``int8_call``);
+    every other ``Linear`` is a Dense layer there, which never quantizes."""
+
+    def __init__(self, dim_in: int, dim_out: int, bias: bool = True,
+                 int8_site: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(dim_out, dim_in))
         self.bias = nn.Parameter(torch.empty(dim_out)) if bias else None
+        self.int8_site = int8_site
 
     def init_parameters(self, gen: torch.Generator):
         torch_default_init_(self.weight, self.bias, self.weight.shape[1], gen)
 
     def forward(self, x):
+        if self.int8_site and x.ndim == 5:
+            from magvit2_pytorch_tpu_torch.ops.conv import (
+                int8_call, pointwise_5d)
+            out = int8_call(self, x, self.weight, self.bias, 'percentile',
+                            pointwise_5d)
+            if out is not None:
+                return out
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), bias)
 

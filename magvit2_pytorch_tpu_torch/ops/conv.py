@@ -7,9 +7,21 @@ filter (PyTorch counterpart of the plain paths of
 Activations are channels-last ``(B, T, H, W, C)``. A convolution permutes to
 the ``(B, C, T, H, W)`` view — for a contiguous channels-last tensor that view
 is exactly PyTorch's ``channels_last_3d`` layout, so no copy is made — runs
-``F.conv3d`` and permutes back. Only the plain path is ported: stride 1, no
-dilation; the JAX package's int8, lane-packed, w-pair and space-to-depth
-lowerings are TPU layout tricks with the same numbers.
+``F.conv3d`` and permutes back. Stride 1, no dilation; the JAX package's
+lane-packed, w-pair and space-to-depth lowerings are TPU layout tricks with
+the same numbers and are not ported.
+
+int8 inference (the JAX package's ``MAGVIT2_TPU_INT8_CONV=1``,
+``conv.py:64-104``): ``int8_conv_enabled`` is its gate, read at every
+call, and ``int8_call`` runs one int8 site on the kernels of
+``ops/kernels/int8.py`` (K1 quantizes x per tensor, K2 convolves s8 x s8 ->
+s32 and dequantizes). The sites are the JAX package's: ``CausalConv3d``
+here, the units' 1x1 (``Linear(int8_site=True)``) and the spatial down- and
+upsamplers (``ops/resample.py``). A site is dynamic (x's absmax on every
+call, the weight quantized once per weight version) unless the scope the
+tokenizer opens (``int8_scope``) gives it a calibrated ``Int8Site``: its
+static activation scale and pre-quantized weight (``VideoTokenizer.
+calibrate_int8``). A stream runs in the working dtype (``streaming=True``).
 
 Pad modes follow the JAX package (``conv.py:47-61``, ``:481-508``): zeros
 fold into the conv; ``reflect``, ``replicate`` and ``circular`` pad
@@ -28,8 +40,12 @@ does. That needs zero padding: the zero first state is the causal pad.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import dataclasses
 import math
-from typing import Optional
+import os
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -81,6 +97,164 @@ def carried_frames(module, x, frames: int, state: dict,
     return x
 
 
+# -- int8 inference -----------------------------------------------------------
+
+INT8_ENV = 'MAGVIT2_TPU_INT8_CONV'
+INT8_PACKED_ENV = 'MAGVIT2_TPU_INT8_PACKED'
+# the JAX package's gate: min(C_in, C_out) >= 128 (measured on v5e; the
+# gate decides which sites quantize, so the port keeps it as it is)
+INT8_MIN_CHANNELS = 128
+
+
+def int8_conv_enabled(c_in: int = 128, c_out: int = 128) -> bool:
+    """The JAX package's gate (``conv.py:77-83``): ``MAGVIT2_TPU_INT8_CONV=1``
+    and ``min(c_in, c_out) >= 128``. The environment is read at every call,
+    where the JAX package reads it at trace time (ROADMAP C5)."""
+    return (os.environ.get(INT8_ENV, '') == '1'
+            and min(c_in, c_out) >= INT8_MIN_CHANNELS)
+
+
+def quantize_per_tensor(x, scale=None):
+    """x -> ``(int8 x, float32 0-d scale)``, symmetric absmax, or with the
+    given static ``scale`` (``conv.py:87-93``); K1 on the card."""
+    from magvit2_pytorch_tpu_torch.ops.kernels import int8
+    return int8.quantize_s8(x, scale)
+
+
+def quantize_per_channel_out(kernel):
+    """kernel ``(N, ...)`` -> ``(int8 kernel, float32 (N,) scales)``, one
+    scale per output channel: dim 0 in the port's ``(out, in, ...)``
+    layouts, where the JAX package (``conv.py:96-104``) takes its minor
+    axis."""
+    from magvit2_pytorch_tpu_torch.ops.kernels import int8
+    k32 = kernel.float()
+    scale = int8.scale_of(k32.abs().amax(dim=tuple(range(1, kernel.ndim))))
+    q = int8.quantize_with(k32, scale.reshape(-1, *(1,) * (kernel.ndim - 1)))
+    return q, scale
+
+
+class Int8Site:
+    """A calibrated site's static state, the JAX package's ``int8``
+    collection entry: ``act_scale`` (float32 0-d), ``kernel_q`` (int8, in
+    the site's parameter layout) and ``kernel_scale`` (float32 per output
+    channel). The kernels' form of the weight is made once, at first use."""
+
+    def __init__(self, act_scale, kernel_q, kernel_scale):
+        self.act_scale = act_scale
+        self.kernel_q = kernel_q
+        self.kernel_scale = kernel_scale
+        self._weight = None
+
+    def int8_weight(self, as_5d: Callable):
+        from magvit2_pytorch_tpu_torch.ops.kernels import int8
+        if self._weight is None:
+            self._weight = int8.int8_weight(as_5d(self.kernel_q),
+                                            self.kernel_scale)
+        return self._weight
+
+    def to(self, device):
+        return Int8Site(*(t.to(device) for t in (
+            self.act_scale, self.kernel_q, self.kernel_scale)))
+
+
+@dataclasses.dataclass
+class Int8Scope:
+    """What the int8 sites of one call see: ``sites`` (module -> its
+    ``Int8Site``; a site without one is dynamic), ``record`` (module -> the
+    largest statistic of its input so far, during ``calibrate_int8``) with
+    ``percentile``, and ``streaming`` (every site runs in the working
+    dtype)."""
+    sites: dict = dataclasses.field(default_factory=dict)
+    record: Optional[dict] = None
+    percentile: Optional[float] = None
+    streaming: bool = False
+
+
+_INT8_SCOPE = contextvars.ContextVar('magvit2_int8_scope',
+                                     default=Int8Scope())
+
+
+@contextlib.contextmanager
+def int8_scope(**kwargs):
+    """The ``Int8Scope(**kwargs)`` of the int8 sites called inside."""
+    token = _INT8_SCOPE.set(Int8Scope(**kwargs))
+    try:
+        yield
+    finally:
+        _INT8_SCOPE.reset(token)
+
+
+def activation_stat(x, percentile: Optional[float] = None):
+    """|x|'s largest value, or its ``percentile`` as ``jnp.percentile``
+    (linear) computes it in float32 (``conv.py:403-413``)."""
+    ax = x.float().abs().reshape(-1)
+    if percentile is None:
+        return ax.amax()
+    one = torch.ones((), dtype=torch.float32, device=ax.device)
+    # divided by a tensor, IEEE division on both devices (see scale_of)
+    pos = (one * float(percentile)) / (one * 100.0) * (one * ax.numel() - 1)
+    low, high = torch.floor(pos), torch.ceil(pos)
+    w_high = pos - low
+    w_low = 1.0 - w_high
+    top = ax.numel() - 1
+    ordered = torch.sort(ax).values
+    v_low = ordered[int(low.clamp(0, top).item())]
+    v_high = ordered[int(high.clamp(0, top).item())]
+    return v_low * w_low + v_high * w_high
+
+
+def int8_call(module, x, weight, bias, stat: Optional[str],
+              as_5d: Callable = lambda w: w, stride: int = 1,
+              column_groups: int = 1, depth_to_space: bool = False):
+    """Run ``module``'s int8 site on x, or return None where the call runs
+    in the working dtype (the gate is off, or a stream). ``weight (N, C,
+    ...)`` in the parameter's layout (``as_5d`` views it as ``(N, C, kt,
+    kh, kw)``), ``column_groups`` consecutive columns sharing one output
+    channel's scale (the upsampler's 4 positions, which ``depth_to_space``
+    hands the kernel position-major, ``(p1, p2, c)``). ``stat``: what a
+    calibration records of x (``'percentile'``: the percentile when one is
+    asked, else the absmax; ``'absmax'``; None: the site is not calibrated
+    and stays dynamic)."""
+    c_out, c_in = weight.shape[0] // column_groups, weight.shape[1]
+    scope = _INT8_SCOPE.get()
+    if scope.streaming or not int8_conv_enabled(c_in, c_out):
+        return None
+    from magvit2_pytorch_tpu_torch.ops.kernels import int8
+    if stat is not None and scope.record is not None:
+        value = activation_stat(
+            x, scope.percentile if stat == 'percentile' else None)
+        prev = scope.record.get(module)
+        scope.record[module] = (value if prev is None
+                                else torch.maximum(prev, value))
+    site = scope.sites.get(module) if stat is not None else None
+    if site is not None:
+        return int8.int8_conv(x, site.int8_weight(as_5d), bias, stride,
+                              site.act_scale, depth_to_space)
+
+    def by_position(t):
+        """Columns (c, p) -> (p, c)."""
+        if not depth_to_space:
+            return t
+        return t.reshape(c_out, column_groups, *t.shape[1:]).transpose(
+            0, 1).reshape(t.shape)
+
+    def quantized(w):
+        q, scale = quantize_per_channel_out(
+            w.reshape(c_out, column_groups, *w.shape[1:]))
+        return int8.int8_weight(
+            as_5d(by_position(q.reshape(w.shape))),
+            by_position(scale.repeat_interleave(column_groups)))
+
+    w8 = int8.cached_int8_weight(weight, x.dtype, quantized)
+    return int8.int8_conv(x, w8, by_position(bias), stride, None,
+                          depth_to_space)
+
+
+def pointwise_5d(w):
+    """A 1x1's ``(N, C)`` weight as ``(N, C, 1, 1, 1)``."""
+    return w[:, :, None, None, None]
+
+
 class ConvWeights(nn.Module):
     """A conv's ``weight (out, in, *kernel)`` and ``bias (out,)`` under the
     reference's ``.conv`` name, with torch's default init."""
@@ -129,6 +303,13 @@ class CausalConv3d(nn.Module):
             # no frames in, none out (the rest of a one-frame clip under
             # separate first-frame encoding); F.conv3d refuses the empty clip
             return x.new_zeros(*x.shape[:4], self.conv.weight.shape[0])
+        if state is None and self.pad_mode in ZERO_PAD_MODES:
+            # the JAX package's int8 gate (conv.py:389-391): not streaming,
+            # zero pads; the kernel folds the causal and spatial pads in
+            out = int8_call(self, x, self.conv.weight, self.conv.bias,
+                            'percentile')
+            if out is not None:
+                return out
         mode, pad_hw = self._padding(x.shape[1])
         if state is not None and kt > 1:
             x = to_channels_first(carried_frames(self, x, kt - 1, state,

@@ -11,7 +11,8 @@ unit and its conv and 1x1 by route (``ru_conv_wgmma``, ``ru_conv_wmma``,
 attention and the fused ResidualUnit (B1-B5) are ``torch.autograd.Function``s
 on the card whose backward recomputes through the plain version that mirrors
 the JAX custom VJP's XLA twin, counted as ``<name>_backward``;
-``flash_attention``'s backward launches two kernels of its own.
+``flash_attention``'s backward launches two kernels of its own. The int8
+convs count K1 (``quantize_s8``) and K2 (``conv_s8``) a call each.
 """
 
 from __future__ import annotations
@@ -20,12 +21,14 @@ from magvit2_pytorch_tpu_torch.ops.kernels import (
     axial_attention,
     flash_attention,
     gemm,
+    int8,
     residual_unit,
     taylor_attention,
 )
 
 _COUNTERS = (axial_attention.LAUNCHES, taylor_attention.LAUNCHES,
-             gemm.LAUNCHES, residual_unit.LAUNCHES, flash_attention.LAUNCHES)
+             gemm.LAUNCHES, residual_unit.LAUNCHES, flash_attention.LAUNCHES,
+             int8.LAUNCHES)
 
 
 def launch_counts() -> dict:

@@ -68,6 +68,11 @@ SIGNATURES = {
     'mv2_flash_attention_bwd_dkv': [_P] * 9 + [_I] * 7 + [_F, _I, _P],
     # kernel, dim_head, out (4 ints)
     'mv2_flash_mma_attributes': [_I, _I, _P],
+    # x, dtype, n, scale_in, amax, scale_out, q, stream
+    'mv2_quantize_s8': [_P, _I, _L] + [_P] * 5,
+    # x, w, xs, ks, bias, out, dtype, B, T, H, W, C, N, kt, kh, kw, stride,
+    # mode, stream
+    'mv2_conv_s8': [_P] * 6 + [_I] * 12 + [_P],
 }
 
 _lib = None

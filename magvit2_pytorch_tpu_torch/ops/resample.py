@@ -11,11 +11,21 @@ layer starts as a nearest-neighbour upsampler (magvit2_pytorch.py:829-836).
 Of these only ``TimeDownsample2x`` and the units' causal convs look at
 earlier frames, so only they take a stream's ``state``
 (``models/streaming.py``).
+
+int8 (``MAGVIT2_TPU_INT8_CONV=1``, ``ops/conv.py`` ``int8_call``): the
+spatial downsampler is a calibrated site (``resample.py:73-101`` of the JAX
+package, which records its input's absmax whatever the percentile), the
+spatial upsampler a dynamic one (``:216-227``: its weight scale is per
+``dim_out`` channel, over the four positions and the input channels, and
+its position-dependent bias comes after the dequantize), and the unfused
+units' causal conv and 1x1 are sites of their own. The fused units (B4,
+B5) run in the working dtype, as the JAX package's fused units do.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -25,9 +35,11 @@ from torch import nn
 from magvit2_pytorch_tpu_torch.ops.basic import (
     Linear, SqueezeExcite, uniform_)
 from magvit2_pytorch_tpu_torch.ops.conv import (
-    CausalConv3d, Conv3DMod, ConvWeights, carried_frames, pad_time_front,
-    to_channels_first, to_channels_last)
+    INT8_PACKED_ENV, ZERO_PAD_MODES, CausalConv3d, Conv3DMod, ConvWeights,
+    carried_frames, int8_call, int8_conv_enabled, pad_time_front,
+    pointwise_5d, to_channels_first, to_channels_last)
 from magvit2_pytorch_tpu_torch.ops.kernels import residual_unit as ru_kernels
+from magvit2_pytorch_tpu_torch.utils.helpers import not_ported
 
 
 class SpatialDownsample2x(nn.Module):
@@ -41,6 +53,10 @@ class SpatialDownsample2x(nn.Module):
 
     def forward(self, x):
         k = self.kernel_size
+        out = int8_call(self, x, self.conv.weight, self.conv.bias, 'absmax',
+                        lambda w: w.unsqueeze(2), stride=2)
+        if out is not None:
+            return out
         out = F.conv3d(to_channels_first(x),
                        self.conv.weight.to(x.dtype).unsqueeze(2),
                        self.conv.bias.to(x.dtype),
@@ -95,12 +111,20 @@ class SpatialUpsample2x(nn.Module):
     def init_parameters(self, gen: torch.Generator):
         _replicated_kaiming_init_(self.net[0], 4, gen)
 
-    def forward(self, x):
+    def project(self, x):
+        """The projection and depth-to-space, before the SiLU."""
+        proj = self.net[0]
+        y = int8_call(self, x, proj.weight, proj.bias, None, pointwise_5d,
+                      column_groups=4, depth_to_space=True)
+        if y is not None:
+            return y
         b, t, h, w, _ = x.shape
-        y = self.net(x).reshape(b, t, h, w, self.dim_out, 2, 2)
-        y = y.permute(0, 1, 2, 5, 3, 6, 4).reshape(b, t, h * 2, w * 2,
-                                                    self.dim_out)
-        return F.silu(y)
+        y = proj(x).reshape(b, t, h, w, self.dim_out, 2, 2)
+        return y.permute(0, 1, 2, 5, 3, 6, 4).reshape(b, t, h * 2, w * 2,
+                                                       self.dim_out)
+
+    def forward(self, x):
+        return F.silu(self.project(x))
 
 
 class TimeUpsample2x(nn.Module):
@@ -140,7 +164,7 @@ class ResidualUnit(nn.Module):
         self.fn = nn.Sequential(
             CausalConv3d(dim, dim, kernel_size, pad_mode=pad_mode),
             nn.ELU(),
-            Linear(dim, dim),
+            Linear(dim, dim, int8_site=True),
             nn.ELU(),
             SqueezeExcite(dim),
         )
@@ -164,6 +188,12 @@ class ResidualUnit(nn.Module):
             # activations stay unpacked in the port (ROADMAP A14)
             return ru_kernels.fused_residual_unit(
                 x, *self._fused_params(), packed_io=False)
+        if (w_blocked and not streaming and self.pad_mode in ZERO_PAD_MODES
+                and os.environ.get(INT8_PACKED_ENV, '') == '1'
+                and int8_conv_enabled(2 * self.dim, 2 * self.dim)):
+            # the JAX package quantizes this conv per w-blocked channel
+            # (conv.py:392-403); the port never w-blocks activations
+            not_ported('MAGVIT2_TPU_INT8_PACKED=1 with lane_pack', '14')
         conv, *rest = self.fn
         y = conv(x, state=state)
         for module in rest:
@@ -185,7 +215,7 @@ class ResidualUnitMod(nn.Module):
         self.to_cond = Linear(dim_cond, dim)
         self.conv = Conv3DMod(dim, spatial_kernel=kh, time_kernel=kt,
                               causal=True, demod=demod, pad_mode=pad_mode)
-        self.conv_out = Linear(dim, dim)
+        self.conv_out = Linear(dim, dim, int8_site=True)
 
     def forward(self, x, cond, state: Optional[dict] = None):
         y = F.elu(self.conv(x, self.to_cond(cond), state=state))

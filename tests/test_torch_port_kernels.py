@@ -283,7 +283,7 @@ def test_build_targets_hopper_and_hashes_sources():
         assert 'arch=compute_90a,code=sm_90a' in cmd
     cu = {p.name for p in _build.SOURCE_DIR.glob('*.cu')}
     assert cu == {'attention_block.cu', 'flash_attention.cu', 'gemm.cu',
-                  'residual_unit.cu', 'taylor_attention.cu',
+                  'int8_conv.cu', 'residual_unit.cu', 'taylor_attention.cu',
                   'time_attention.cu'}
     # one compile per source, all objects linked into the library
     assert sorted(c[-1].rsplit('/', 1)[-1] for c in compiles) == sorted(cu)
