@@ -219,6 +219,34 @@ Phases, in order; any failure exits non-zero and prints no result line:
    of the largest value. ``--profile`` adds the calibrated roundtrip's
    device time by kernel on each path (``profile_int8_<path>.txt``).
 
+12. several processes (``parallel/``, ``torch.distributed``). (a) The
+   README flagship (default path, bf16, batch 4 x accum 2, GAN and R1, no
+   perceptual loss, deterministic cuDNN) two steps without a process group
+   and with an initialized one-rank NCCL group and ``make_mesh()``: losses
+   and every parameter bit for bit, and the seconds each. (b) Two ranks of
+   this script on the one card over gloo (NCCL refuses two ranks a
+   device): the flagship on the fused path at 2 clips x accum 2 a rank,
+   the discriminator from step 1 and R1 at step 2, three steps. Each rank
+   launches B1-B5 forward and backward; the ranks' parameters agree to
+   the bit after every step; against one process at the global batch: the
+   losses, step 0's reduced generator gradients by leaf, and the
+   parameters within 2 lr a step (``DIST_GRAD_TOL`` and the limits after
+   it say which and why); seconds a step beside one process's and phase
+   10's, the all-reduce's ms and MiB a step. The same steps in float32
+   (TF32 off, default path, 1 clip x accum 2 a rank), two ranks against
+   one: every loss, the gradients, and 99% of each held leaf's parameters
+   within ``DIST_F32_Q99_LR`` lr. Then phase 10's tiny float32
+   configuration (TF32 off, no perceptual loss), two ranks against one:
+   step 0's reduced gradients and the
+   parameters after two steps within phase 10's float32 card tolerance,
+   1e-4 of each leaf's largest value (``DIST_F32_TOL`` says why not the CPU's
+   1e-5). (c) A reference trainer
+   ``.pt`` package at README width with the GAN (weights, an EMA shadow,
+   AdamW stepped twice in the reference's two groups) through
+   ``load_torch_checkpoint``: weights and moments bit for bit, and one step
+   after it bit for bit one step after the port's own ``load`` of the same
+   state.
+
 The second-to-last line is the card's ``nvidia-smi`` name and power limit,
 the line before it a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -228,6 +256,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import datetime
 import json
 import math
 import os
@@ -3707,7 +3736,7 @@ class TrainVideos:
         return self.items[i]
 
 
-def train_tokenizer(torch, dev, **overrides):
+def train_tokenizer(torch, dev, seed=0, **overrides):
     """The README flagship with its GAN side as a user builds it: the
     default discriminator and VGG16 with the orthogonal fallback (no VGG
     weights are in the repo), seeded weights, float32 parameters, live
@@ -3717,7 +3746,7 @@ def train_tokenizer(torch, dev, **overrides):
     from magvit2_pytorch_tpu_torch.configs import readme_video_tokenizer_kwargs
     with warnings.catch_warnings():
         warnings.simplefilter('ignore', UserWarning)      # the VGG fallback
-        tok = VideoTokenizer(seed=0, device=dev,
+        tok = VideoTokenizer(seed=seed, device=dev,
                              **readme_video_tokenizer_kwargs(**overrides))
     return live_gates(torch, tok)
 
@@ -3746,13 +3775,15 @@ def make_trainer(torch, tok, tmp, **kw):
         return VideoTokenizerTrainer(tok, **args)
 
 
-def record_first_grads(trainer):
-    """The generator's gradients that step 0 hands its optimizer, copied to
-    the host so that no later peak of device memory holds them (the
-    returned dict fills when that step runs). The recorder then removes
-    itself: the optimizer's own ``step`` takes the later steps, and no
-    reference cycle keeps a deleted trainer's memory on the card."""
-    first, opt = {}, trainer.optimizer
+def record_first_grads(trainer, opt=None):
+    """The gradients that the first step hands ``opt`` (the generator's
+    optimizer by default), copied to the host so that no later peak of
+    device memory holds them (the returned dict fills when that step
+    runs). The recorder then removes itself: the optimizer's own ``step``
+    takes the later steps, and no reference cycle keeps a deleted
+    trainer's memory on the card."""
+    first = {}
+    opt = trainer.optimizer if opt is None else opt
 
     def record(grads):
         del opt.step
@@ -3769,6 +3800,22 @@ def leaf_errors(got, want):
     floor = 1e-3 * max(w.abs().max().item() for w in want.values())
     return {k: ((got[k] - w).abs().max() / max(w.abs().max().item(), floor))
             .item() for k, w in want.items()}
+
+
+def leaf_q99(got, want, grads):
+    """Phase 10's second rule: each leaf's 99th percentile of |got - want|
+    for the leaves whose first gradient (``grads``, by network) reaches
+    TRAIN_GRAD_FLOOR of the largest one in its network."""
+    import numpy as np
+    out = {}
+    for net, first in grads.items():
+        top = max(float(g.abs().max()) for g in first.values())
+        for k, g in first.items():
+            if float(g.abs().max()) >= TRAIN_GRAD_FLOOR * top:
+                name = f'{net}.{k}'
+                out[name] = float(np.quantile(
+                    (got[name] - want[name]).abs().numpy(), 0.99))
+    return out
 
 
 def quiet_step(trainer, it):
@@ -4141,16 +4188,13 @@ def phase_train_card_vs_cpu(torch, dev, tmp):
     if len(gh) != len(ph):
         fail(f'training card vs CPU: {len(gh)} gradients for {len(ph)} '
              f'parameters')
-    largest = {}
+    first = {}
     for (name, _), g in zip(ph, gh):
-        net = name.split('.')[0]
-        largest[net] = max(largest.get(net, 0.0), g.abs().max().item())
-    max_diff, q99 = 0.0, {}
-    for (name, a), (_, b), g in zip(pc, ph, gh):
-        diff = (a - b).abs().flatten()
-        max_diff = max(max_diff, diff.max().item())
-        if g.abs().max() >= TRAIN_GRAD_FLOOR * largest[name.split('.')[0]]:
-            q99[name] = diff.quantile(0.99).item()
+        net, key = name.split('.', 1)
+        first.setdefault(net, {})[key] = g
+    max_diff = max((a - b).abs().max().item()
+                   for (_, a), (_, b) in zip(pc, ph))
+    q99 = leaf_q99(dict(pc), dict(ph), first)
     worst = max(q99, key=q99.get)
     out = dict(loss_rel_err=loss_err, grad_rel_err=grad_err,
                param_max_diff=max_diff, param_q99_diff=q99[worst],
@@ -4733,6 +4777,626 @@ def phase_int8(torch, dev, smi, profile_dir=None, reps=REPS):
     return rows, readings, counts
 
 
+# -- phase 12: several processes -----------------------------------------------
+
+# two ranks share the one card over gloo (NCCL refuses two ranks a device):
+# the README flagship at 2 clips x accum 2 a rank, the discriminator from
+# step 1 and R1 at step 2
+DIST_WORLD, DIST_RANK_BATCH, DIST_STEPS = 2, 2, 3
+# the same steps in float32 (TF32 off) at 1 clip x accum 2 a rank (the
+# phase's time)
+DIST_F32_RANK_BATCH = 1
+DIST_TIMEOUT = 300            # seconds, each rank and each collective
+# float32 (TF32 off), two ranks against one: the first step's reduced
+# gradients, and the parameters after two steps, each leaf within this share
+# of its largest value (a gradient's at least 1e-3 of its network's largest,
+# a parameter's at least 1e-2 of its network's largest: a zero-initialized
+# bias holds only its few lr of updates), for the parameters whose first
+# gradient reaches TRAIN_GRAD_FLOOR of their network's largest (phase 10's
+# rule: below it, as for the SqueezeExcite logit bias whose gradient is zero
+# by its math, float32's order of sums decides Adam's step). Phase 10's
+# float32 card tolerance: a rank convolves 2 clips where one process
+# convolves 4, so cuDNN takes other algorithms, whose sums differ as the
+# card's and the CPU's do (on an H100, two ranks against one: 1.5e-5 without
+# the perceptual loss, 1.8e-4 with VGG's 16 layers, so the tiny run has none;
+# the CPU holds the same steps within 1e-5, tests/test_torch_parallel.py)
+DIST_F32_TOL = TRAIN_CPU_TOL
+# The flagship, two ranks against one, in bf16 and in float32 (TF32 off).
+# A rank's convs and GEMMs at half the batch take other algorithms and round
+# elsewhere, and Adam's first steps move each weight by ~lr in its
+# gradient's sign, so a small gradient's noise moves its weight by lr the
+# other way. Limits within ~3-10x of the readings on an H100 (bf16 the same
+# in three runs; float32 at 1 x 2 a rank, and at 2 x 2 in one run):
+# - step 0's reduced generator gradients, each leaf against its largest
+#   value (``leaf_errors``): the worst leaf (read 5.8e-2 bf16, 1.4e-3
+#   float32: a decoder upsampler, whose gradient through VGG16 cancels
+#   badly) and the median leaf (3.7e-3; 4.0e-6, 1.5e-6 at 2 x 2);
+DIST_GRAD_TOL = {'bf16': 2e-1, 'f32': 1e-2}
+DIST_GRAD_MEDIAN_TOL = {'bf16': 1e-2, 'f32': 3e-5}
+# - every loss at steps 0 and 1 within STEP_TOL (read at most 5.9e-3 bf16,
+#   1.4e-5 float32); at step 2 the reconstruction and perceptual losses in
+#   both, and the LFQ aux loss in float32, within these (read 2.5e-2 bf16;
+#   1.0e-3 float32). bf16's aux loss then read 20% apart: a difference of
+#   two entropies at inv_temperature 100, it reads the weights Adam moved
+#   the other way; the total carries the adaptive weight, a ratio of two
+#   gradient norms (7.2e-3 float32 at 2 x 2);
+DIST_LATE_LOSS_TOL = {'bf16': STEP_TOL['bfloat16'], 'f32': 1e-2}
+# - float32's parameters: 99% of each held leaf (``leaf_q99``) within this
+#   (read 0.068 lr, 0.13 at 2 x 2; phase 10's 1e-2 lr, which the tiny
+#   config holds card against CPU, read over in 183 of 296 leaves; bf16
+#   read 2.2 lr), and every parameter in both within 2 lr a step.
+DIST_F32_Q99_LR = 0.5
+PT_STEP = 17                  # the step a reference package records
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        return s.getsockname()[1]
+
+
+def net_state(trainer):
+    """The trained state (generator, EMA, discriminator) by name."""
+    return {f'{name}.{k}': v
+            for name in ('module', 'ema_module', 'discr')
+            for k, v in getattr(trainer, name).state_dict().items()}
+
+
+def state_digest(torch, trainer):
+    """One int64 a tensor: the sum of its float32 words as integers (equal
+    states give equal digests; one changed bit changes its sum)."""
+    return [int(v.detach().float().contiguous().view(torch.int32).sum(
+        dtype=torch.int64)) for v in net_state(trainer).values()]
+
+
+def on_host(state):
+    return {k: v.detach().float().cpu() for k, v in state.items()}
+
+
+def timed_steps(torch, trainer, steps, digest=False):
+    """``steps`` train_steps from the trainer's loader, counted: float
+    metrics, host seconds (ending in a synchronize) and, with ``digest``,
+    the state's digest after each step."""
+    from magvit2_pytorch_tpu_torch.data import cycle
+    it = cycle(trainer.dataloader)
+    metrics, seconds, digests = [], [], []
+
+    def run():
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            m = quiet_step(trainer, it)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if digest:
+                digests.append(state_digest(torch, trainer))
+    _, counts = counted(torch, run)
+    return metrics, seconds, digests, counts
+
+
+def allreduce_ms(torch, dist, trainer, reps=3):
+    """Median host ms of one all-reduce of the generator's and of the
+    discriminator's flat float32 gradient buffer (the step's two), and
+    their MiB."""
+    out = {}
+    for name, net in (('generator', trainer.module),
+                      ('discriminator', trainer.discr)):
+        buf = torch.zeros(sum(p.numel() for p in net.parameters()),
+                          device=trainer.device)
+        times = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.all_reduce(buf, group=trainer._batch_group)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = dict(ms=sorted(times[1:])[reps // 2],
+                         mib=buf.numel() * 4 / 2 ** 20)
+    return out
+
+
+def flagship_run(torch, dev, tmp, world, mesh=None, float32=False,
+                 digest=False):
+    """The README flagship for DIST_STEPS: bf16 on phase 10's fused path
+    (lane-packed stem, split accumulation) at DIST_RANK_BATCH x TRAIN_ACCUM
+    a rank, or float32 (TF32 off) on the default path at
+    DIST_F32_RANK_BATCH x TRAIN_ACCUM. Returns the trainer (the caller
+    deletes it) and the run: float metrics, host seconds, state digests,
+    launches, the first gradients of the generator and of the
+    discriminator, and the trained weights (no EMA) on the host."""
+    from magvit2_pytorch_tpu_torch.utils.precision import Policy
+    set_tf32(not float32)
+    with environment({} if float32 else FUSED_ENV):
+        tok = train_tokenizer(torch, dev, lane_pack=not float32)
+        batch = DIST_F32_RANK_BATCH if float32 else DIST_RANK_BATCH
+        tr = make_trainer(torch, tok, tmp, batch_size=batch * world,
+                          num_train_steps=DIST_STEPS, grad_accum_split=True,
+                          ema_kwargs=TRAIN_EMA, mesh=mesh,
+                          **(dict(policy=Policy()) if float32 else {}))
+        first = dict(module=record_first_grads(tr),
+                     discr=record_first_grads(tr, tr.discr_optimizers[0]))
+        metrics, seconds, digests, launches = timed_steps(
+            torch, tr, DIST_STEPS, digest=digest)
+    return tr, dict(metrics=metrics, seconds=seconds, digests=digests,
+                    launches=launches, grads=first,
+                    state=on_host({k: v for k, v in net_state(tr).items()
+                                   if not k.startswith('ema_module.')}))
+
+
+def flagship_errors(got, want):
+    """Rank 0's flagship run against one process's: each loss at each step
+    relative to its value, step 0's reduced generator gradients by leaf
+    (``leaf_errors``), the parameters' largest difference, and each held
+    leaf's 99th percentile (``leaf_q99``)."""
+    losses = {f'{k}@{i}': abs(g[k] - w[k]) / max(abs(w[k]), 1e-6)
+              for i, (g, w) in enumerate(zip(got['metrics'],
+                                              want['metrics']))
+              for k in ('recon_loss', 'perceptual_loss', 'lfq_aux_loss',
+                        'total_loss')}
+    grads = leaf_errors(got['grads']['module'], want['grads']['module'])
+    max_diff = max(float((got['state'][k] - w).abs().max())
+                   for k, w in want['state'].items() if w.is_floating_point())
+    q99 = leaf_q99(got['state'], want['state'], want['grads'])
+    return dict(losses=losses, grads=grads, max_diff=max_diff, q99=q99)
+
+
+def worst(errs):
+    key = max(errs, key=errs.get)
+    return key, errs[key]
+
+
+def dist_tiny(torch, dev, tmp, mesh=None):
+    """Phase 10's tiny float32 configuration at a global batch of 4,
+    without the perceptual loss (DIST_F32_TOL)."""
+    from magvit2_pytorch_tpu_torch import VideoTokenizer
+    from magvit2_pytorch_tpu_torch.utils.precision import Policy
+    tok = live_gates(torch, VideoTokenizer(
+        seed=0, device=dev, perceptual_loss_weight=0.0, **TINY_TRAIN))
+    return make_trainer(torch, tok, tmp, batch_size=4,
+                        discr_start_after_step=0,
+                        apply_gradient_penalty_every=1,
+                        dataset=TrainVideos(torch, 8, 5, 16, seed=3),
+                        policy=Policy(), mesh=mesh)
+
+
+def rank_main(args):
+    """One rank of phase 12(b): the flagship on the fused path, then the
+    tiny float32 configuration; readings to ``args.workdir``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from magvit2_pytorch_tpu_torch.parallel import make_mesh
+    dev = torch.device('cuda', 0)
+    # gloo carries CUDA tensors for all_reduce and broadcast, so the ranks
+    # can share the one card, which NCCL refuses
+    dist.init_process_group(
+        'gloo', init_method=f'tcp://localhost:{args.port}',
+        world_size=args.world, rank=args.rank,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT))
+    work = args.workdir
+    out = dict(rank=args.rank, backend=dist.get_backend())
+    tr, run = flagship_run(torch, dev, os.path.join(work, f'r{args.rank}'),
+                           args.world, make_mesh(), digest=True)
+    out.update({k: run[k] for k in ('metrics', 'seconds', 'digests',
+                                    'launches')})
+    out['allreduce_bytes'] = tr.allreduce_bytes
+    out['allreduce'] = allreduce_ms(torch, dist, tr)
+    out['peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del tr
+    torch.cuda.empty_cache()
+    tr, f32 = flagship_run(torch, dev, os.path.join(work, f'f{args.rank}'),
+                           args.world, make_mesh(), float32=True)
+    del tr
+    torch.cuda.empty_cache()
+    out['f32_seconds'] = f32['seconds']
+    if args.rank == 0:
+        torch.save(dict(bf16=run, f32=f32),
+                   os.path.join(work, 'flagship_rank0.pt'))
+    del run, f32
+    tr = dist_tiny(torch, dev, os.path.join(work, f'tiny{args.rank}'),
+                   make_mesh())
+    first = record_first_grads(tr)
+    _, _, out['tiny_digests'], _ = timed_steps(torch, tr, 2, digest=True)
+    if args.rank == 0:
+        torch.save(dict(state=on_host(net_state(tr)), grads=first),
+                   os.path.join(work, 'tiny_rank0.pt'))
+    with open(os.path.join(work, f'rank{args.rank}.json'), 'w') as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def nccl_one_rank(torch, dev, tmp):
+    """(a) The README flagship (default path, batch 4 x accum 2, bf16)
+    trained two steps without a process group, then with an initialized
+    one-rank NCCL group and ``make_mesh()``: losses and every parameter bit
+    for bit. Deterministic cuDNN algorithms and no perceptual loss (VGG's
+    adaptive pooling adds its backward with atomics), as phase 10's resume
+    check; the GAN and R1 are on. A warm-up run goes first: the first run
+    of a configuration in a process can end other than the next ones (on
+    an H100, 75 discriminator leaves by up to 1.5e-7 after step 1, R1's
+    double backward), the next ones agree to the bit."""
+    import torch.distributed as dist
+    from magvit2_pytorch_tpu_torch.parallel import (
+        initialize_distributed, make_mesh)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for name in ('warm_up', 'no_group', 'nccl'):
+            mesh = None
+            if name == 'nccl':
+                initialize_distributed(f'localhost:{free_port()}', 1, 0,
+                                       timeout=DIST_TIMEOUT)
+                if dist.get_backend() != 'nccl':
+                    fail(f'one-rank group: backend {dist.get_backend()}')
+                mesh = make_mesh()
+            tr = make_trainer(torch, train_tokenizer(
+                torch, dev, perceptual_loss_weight=0.0),
+                os.path.join(tmp, f'one_rank_{name}'), mesh=mesh,
+                apply_gradient_penalty_every=1, num_train_steps=2)
+            metrics, seconds, _, counts = timed_steps(torch, tr, 2)
+            if name != 'warm_up':
+                runs[name] = dict(metrics=metrics, seconds=seconds,
+                                  counts=counts, bytes=tr.allreduce_bytes,
+                                  state={k: v.detach().clone()
+                                         for k, v in net_state(tr).items()})
+            del tr
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = det
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    a, b = runs['no_group'], runs['nccl']
+    same = dict(metrics=a['metrics'] == b['metrics'],
+                params=all(torch.equal(v, b['state'][k])
+                           for k, v in a['state'].items()))
+    out = dict(bit_identical=same, seconds_no_group=a['seconds'],
+               seconds_nccl=b['seconds'], allreduce_mib_per_step=(
+                   b['bytes'] / 2 / 2 ** 20),
+               added_s_step1=b['seconds'][1] - a['seconds'][1])
+    log(f'[parallel nccl] README flagship, default path, bf16, batch '
+        f'{TRAIN_BATCH} x accum {TRAIN_ACCUM}, GAN and R1 from step 0, no '
+        f'VGG: two steps without a group {[round(s, 4) for s in a["seconds"]]}'
+        f' s, with a one-rank NCCL group {[round(s, 4) for s in b["seconds"]]}'
+        f' s (step 1: {out["added_s_step1"] * 1e3:+.1f} ms), '
+        f'{out["allreduce_mib_per_step"]:.1f} MiB all-reduced a step; '
+        f'bit-identical {same}')
+    if not all(same.values()):
+        fail(f'one-rank NCCL steps differ from the steps without a group: '
+             f'{same}')
+    return out, b['counts']
+
+
+def spawn_ranks(work):
+    """Start DIST_WORLD ranks of this script; wait for all (each its own
+    timeout), kill the rest on the first failure."""
+    port = free_port()
+    procs = []
+    for r in range(DIST_WORLD):
+        log_file = open(os.path.join(work, f'rank{r}.log'), 'w')
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), '--rank', str(r),
+             '--world', str(DIST_WORLD), '--port', str(port),
+             '--workdir', work], stdout=log_file,
+            stderr=subprocess.STDOUT), log_file))
+    t0 = time.perf_counter()
+    try:
+        for r, (p, _) in enumerate(procs):
+            left = max(1.0, DIST_TIMEOUT - (time.perf_counter() - t0))
+            try:
+                rc = p.wait(timeout=left)
+            except subprocess.TimeoutExpired:
+                rc = 'timeout'
+            if rc != 0:
+                with open(os.path.join(work, f'rank{r}.log')) as f:
+                    tail = f.read()[-3000:]
+                fail(f'rank {r} of {DIST_WORLD} failed ({rc}):\n{tail}')
+    finally:
+        for p, f in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            f.close()
+    return time.perf_counter() - t0
+
+
+def tiny_shares(got, want):
+    """(gradient shares, parameter shares) of the tiny float32 run, two
+    ranks (``got``) against one (``want``), as DIST_F32_TOL says."""
+    grads = want['grads']
+    top = max(float(g.abs().max()) for g in grads.values())
+    g_share = {k: float((got['grads'][k] - g).abs().max()) / max(
+        float(g.abs().max()), 1e-3 * top) for k, g in grads.items()}
+    held = {k for k, g in grads.items()
+            if float(g.abs().max()) >= TRAIN_GRAD_FLOOR * top}
+    state = want['state']
+    nets = {}
+    for k, w in state.items():
+        net = k.split('.')[0]
+        nets[net] = max(nets.get(net, 0.0), float(w.abs().max()))
+    p_share = {k: float((got['state'][k] - w).abs().max()) / max(
+        float(w.abs().max()), 1e-2 * nets[k.split('.')[0]])
+        for k, w in state.items() if w.is_floating_point()
+        and (k.startswith('discr.') or k.split('.', 1)[1] in held)}
+    return g_share, p_share
+
+
+def gloo_two_ranks(torch, dev, tmp, smi, phase10):
+    """(b) Two ranks on the card over gloo against one process at the
+    global batch: the README flagship for DIST_STEPS steps in bf16 (fused
+    path) and in float32 (TF32 off, default path), and phase 10's tiny
+    float32 configuration, without the perceptual loss, for 2."""
+    work = os.path.join(tmp, 'ranks')
+    os.makedirs(work, exist_ok=True)
+    # the one-process runs first: the card holds one run at a time
+    runs = {}
+    for precision in ('bf16', 'f32'):
+        tr, runs[precision] = flagship_run(
+            torch, dev, os.path.join(tmp, f'one_{precision}'), DIST_WORLD,
+            float32=precision == 'f32')
+        del tr
+        torch.cuda.empty_cache()
+    tr = dist_tiny(torch, dev, os.path.join(tmp, 'one_tiny'))
+    first = record_first_grads(tr)
+    timed_steps(torch, tr, 2)
+    one_tiny = dict(state=on_host(net_state(tr)), grads=first)
+    del tr
+    torch.cuda.empty_cache()
+    seconds = spawn_ranks(work)
+    ranks = []
+    for r in range(DIST_WORLD):
+        with open(os.path.join(work, f'rank{r}.json')) as f:
+            ranks.append(json.load(f))
+    for r in ranks:
+        check_finite(f'rank {r["rank"]}', r['metrics'])
+        check_train_launches('fused', r['launches'])
+        if r['backend'] != 'gloo':
+            fail(f'rank {r["rank"]}: backend {r["backend"]}')
+    identical = dict(flagship=[a == b for a, b in zip(
+        ranks[0]['digests'], ranks[1]['digests'])], tiny=[
+        a == b for a, b in zip(ranks[0]['tiny_digests'],
+                               ranks[1]['tiny_digests'])])
+    if not all(identical['flagship'] + identical['tiny']):
+        fail(f'the ranks\' parameters differ after a step: {identical}')
+    got = torch.load(os.path.join(work, 'flagship_rank0.pt'))
+    bf, f32 = (flagship_errors(got[p], runs[p]) for p in ('bf16', 'f32'))
+    del got
+    late = {'bf16': ('recon_loss', 'perceptual_loss'),
+            'f32': ('recon_loss', 'perceptual_loss', 'lfq_aux_loss')}
+    held = {name: ({k: v for k, v in e['losses'].items()
+                    if int(k.split('@')[1]) <= 1},
+                   {k: v for k, v in e['losses'].items()
+                    if int(k.split('@')[1]) >= 2
+                    and k.split('@')[0] in late[name]})
+            for name, e in (('bf16', bf), ('f32', f32))}
+    bound = 2 * TRAIN_LR * DIST_STEPS
+    g_share, tiny = tiny_shares(
+        torch.load(os.path.join(work, 'tiny_rank0.pt')), one_tiny)
+    r0 = ranks[0]
+    warm = median(r0['seconds'][1:])
+    one_warm = median(runs['bf16']['seconds'][1:])
+    ar = r0['allreduce']
+    readings = {}
+    for name, e in (('bf16', bf), ('f32', f32)):
+        grads = sorted(e['grads'].values())
+        readings[name] = dict(
+            losses=e['losses'], loss_worst=worst(e['losses']),
+            grad_worst=worst(e['grads']), grad_leaves=len(grads),
+            grad_median=grads[len(grads) // 2],
+            grad_over_1e2=sum(g > 1e-2 for g in grads),
+            param_max_diff=e['max_diff'],
+            param_q99_lr_worst=(worst(e['q99'])[0],
+                                worst(e['q99'])[1] / TRAIN_LR),
+            param_q99_leaves=len(e['q99']),
+            param_q99_over=sum(v > 1e-2 * TRAIN_LR
+                               for v in e['q99'].values()))
+    out = dict(identical=identical, readings=readings, param_bound=bound,
+               metrics_rank0=r0['metrics'],
+               metrics_one_process=runs['bf16']['metrics'],
+               tiny_leaf_share=worst(tiny), tiny_leaves_held=len(tiny),
+               tiny_grad_share=worst(g_share),
+               seconds_rank0=r0['seconds'], seconds_rank1=ranks[1]['seconds'],
+               seconds_one_process=runs['bf16']['seconds'],
+               s_step_warm=warm, s_step_warm_one_process=one_warm,
+               f32_seconds_rank0=r0['f32_seconds'],
+               f32_seconds_one_process=runs['f32']['seconds'],
+               phase10_fused_s_per_step=phase10,
+               allreduce=ar, allreduce_ms_per_step=(
+                   ar['generator']['ms'] + ar['discriminator']['ms']),
+               allreduce_mib_per_step=(ar['generator']['mib']
+                                       + ar['discriminator']['mib']),
+               allreduce_mib_measured=r0['allreduce_bytes'] / 2 ** 20,
+               peak_gib=[r['peak_gib'] for r in ranks],
+               ranks_seconds=seconds)
+    log(f'[parallel gloo] 2 ranks on one card over gloo, README flagship '
+        f'fused path, {DIST_RANK_BATCH} x accum {TRAIN_ACCUM} a rank (global '
+        f'{DIST_RANK_BATCH * DIST_WORLD}), discriminator from step 1, R1 at '
+        f'step 2, on {smi}: seconds a step rank 0 '
+        f'{[round(s, 4) for s in r0["seconds"]]}, rank 1 '
+        f'{[round(s, 4) for s in ranks[1]["seconds"]]}; one process at the '
+        f'global batch {[round(s, 4) for s in runs["bf16"]["seconds"]]} (warm '
+        f'median {warm:.4f} against {one_warm:.4f} s; phase 10 fused '
+        f'{phase10:.4f} s at {TRAIN_BATCH} x {TRAIN_ACCUM}); all-reduce '
+        f'{out["allreduce_ms_per_step"]:.1f} ms and '
+        f'{out["allreduce_mib_per_step"]:.1f} MiB a step (generator '
+        f'{ar["generator"]["ms"]:.1f} ms / {ar["generator"]["mib"]:.1f} MiB,'
+        f' discriminator {ar["discriminator"]["ms"]:.1f} ms / '
+        f'{ar["discriminator"]["mib"]:.1f} MiB; '
+        f'{out["allreduce_mib_measured"]:.1f} MiB over the {DIST_STEPS} '
+        f'steps); ranks identical after each step {identical}')
+    for name in ('bf16', 'f32'):
+        r = readings[name]
+        (lk, lv), (gk, gv) = r['loss_worst'], r['grad_worst']
+        qk, qv = r['param_q99_lr_worst']
+        log(f'[parallel gloo] {name}, two ranks against one: losses '
+            f'{lv:.3e} relative at most ({lk}; held: every loss at steps 0 '
+            f'and 1, {", ".join(late[name])} after), step '
+            f'0\'s reduced generator gradients each leaf within {gv:.3e} of '
+            f'its largest value ({gk}; median {r["grad_median"]:.3e}, '
+            f'{r["grad_over_1e2"]} of {r["grad_leaves"]} leaves over 1e-2; '
+            f'tol {DIST_GRAD_TOL[name]:g}, median '
+            f'{DIST_GRAD_MEDIAN_TOL[name]:g}), parameters max |diff| '
+            f'{r["param_max_diff"]:.3e} (bound {bound:g}), each held leaf\'s '
+            f'99% within {qv:.3e} lr ({qk}; {r["param_q99_over"]} of '
+            f'{r["param_q99_leaves"]} over 1e-2 lr)')
+    log(f'[parallel gloo] float32 at {DIST_F32_RANK_BATCH} x accum '
+        f'{TRAIN_ACCUM} a rank: seconds a step '
+        f'{[round(x, 3) for x in runs["f32"]["seconds"]]} one process, '
+        f'{[round(x, 3) for x in r0["f32_seconds"]]} rank 0; the aux loss '
+        + ', '.join(f'{f32["losses"][f"lfq_aux_loss@{i}"]:.3e}'
+                    for i in range(DIST_STEPS))
+        + f' relative at steps 0-{DIST_STEPS - 1}; tiny float32 (TF32 off) '
+        f'two ranks against one: step 0\'s reduced gradients each leaf within '
+        f'{worst(g_share)[1]:.3e} ({worst(g_share)[0]}), the parameters after '
+        f'2 steps within {worst(tiny)[1]:.3e} ({worst(tiny)[0]}; {len(tiny)} '
+        f'leaves held) of their largest value (tol {DIST_F32_TOL:g}); peak '
+        f'GiB {out["peak_gib"]}; {seconds:.1f} s for the ranks')
+    checks = {}
+    for name, e in (('bf16', bf), ('f32', f32)):
+        r = readings[name]
+        early, after = held[name]
+        checks.update({
+            f'{name} losses at steps 0-1': (
+                worst(early)[1],
+                STEP_TOL['bfloat16' if name == 'bf16' else 'float32']),
+            f'{name} losses from step 2': (worst(after)[1],
+                                           DIST_LATE_LOSS_TOL[name]),
+            f'{name} gradients': (r['grad_worst'][1], DIST_GRAD_TOL[name]),
+            f'{name} gradients, median leaf': (r['grad_median'],
+                                               DIST_GRAD_MEDIAN_TOL[name]),
+            f'{name} parameters': (e['max_diff'], bound)})
+    checks.update({
+        'f32 parameters\' 99% (lr)': (readings['f32']['param_q99_lr_worst'][1],
+                                      DIST_F32_Q99_LR),
+        'tiny float32 gradients': (worst(g_share)[1], DIST_F32_TOL),
+        'tiny float32 parameters': (worst(tiny)[1], DIST_F32_TOL)})
+    over = {k: v for k, v in checks.items() if not v[0] <= v[1]}
+    if over:
+        fail(f'two ranks against one process (reading, limit): {over}')
+    return out, {f'train_gloo_rank{r["rank"]}': r['launches'] for r in ranks}
+
+
+def stepped_adamw(torch, state, order, gen):
+    """``torch.optim.AdamW`` over ``state[k]`` (k in ``order``) in the
+    reference's two groups (ndim >= 2 first), stepped twice on seeded
+    gradients; returns its ``state_dict`` and each moment by name."""
+    params = {k: state[k].detach().clone().float().requires_grad_(True)
+              for k in order}
+    opt = torch.optim.AdamW(
+        [{'params': [params[k] for k in order if params[k].ndim >= 2]},
+         {'params': [params[k] for k in order if params[k].ndim < 2],
+          'weight_decay': 0.0}], lr=1e-4, weight_decay=1e-2)
+    for _ in range(2):
+        for p in params.values():
+            p.grad = torch.randn(p.shape, generator=gen, device=p.device)
+        opt.step()
+    moments = {k: (opt.state[p]['exp_avg'], opt.state[p]['exp_avg_sq'])
+               for k, p in params.items()}
+    return opt.state_dict(), moments
+
+
+def pt_resume(torch, dev, tmp):
+    """(c) A reference trainer package at README width with the GAN
+    (weights, an EMA shadow, AdamW stepped twice in the reference's groups
+    for the generator and the discriminator), resumed by
+    ``load_torch_checkpoint``: every weight and moment bit for bit; then
+    one step after it against one step after the port's own ``load`` of
+    the same state, bit for bit (deterministic cuDNN, no perceptual loss)."""
+    from magvit2_pytorch_tpu_torch.models.torch_import import (
+        discr_param_order, generator_param_order)
+    t0 = time.perf_counter()
+    src = train_tokenizer(torch, dev, perceptual_loss_weight=0.0)
+    model = dict(src.module.state_dict())
+    model.update({f'discr.{k}': v for k, v in src.discr.state_dict().items()})
+    gen = torch.Generator(device=dev).manual_seed(8)
+    opt, g_moments = stepped_adamw(torch, model, generator_param_order(model),
+                                   gen)
+    dopt, d_moments = stepped_adamw(torch, model, discr_param_order(model),
+                                    gen)
+    path = os.path.join(tmp, 'reference_trainer.pt')
+    torch.save(dict(model=model, ema_model={
+        'initted': torch.tensor(True), 'step': torch.tensor(2),
+        **{f'ema_model.{k}': v * 1.5 for k, v in src.module.state_dict(
+        ).items() if v.is_floating_point()}}, optimizer=opt,
+        discr_optimizer=dopt, warmup={}, scheduler={}, discr_warmup={},
+        discr_scheduler={}, step=PT_STEP), path)
+    del opt, dopt
+    written = time.perf_counter() - t0
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        a = make_trainer(torch, train_tokenizer(
+            torch, dev, seed=1, perceptual_loss_weight=0.0),
+            os.path.join(tmp, 'pt_a'))
+        t1 = time.perf_counter()
+        a.load_torch_checkpoint(path)
+        load_s = time.perf_counter() - t1
+        same = dict(
+            weights=all(torch.equal(v, model[k]) for k, v in
+                        a.module.state_dict().items()),
+            ema=all(torch.equal(v, model[k] * 1.5) for k, v in
+                    a.ema_module.state_dict().items()),
+            discr=all(torch.equal(v, model[f'discr.{k}']) for k, v in
+                      a.discr.state_dict().items()),
+            moments=all(torch.equal(opt_.mu[k], m[k][0]) and torch.equal(
+                opt_.nu[k], m[k][1]) for opt_, m in (
+                (a.optimizer, g_moments),
+                (a.discr_optimizers[0], {
+                    k[len('discr.'):]: v for k, v in d_moments.items()}))
+                for k in opt_.mu),
+            counts=(a.optimizer.count, a.discr_optimizers[0].count,
+                    a.step) == (2, 2, PT_STEP))
+        native = os.path.join(tmp, 'native.pt')
+        a.save(native)
+        b = make_trainer(torch, train_tokenizer(
+            torch, dev, seed=2, perceptual_loss_weight=0.0),
+            os.path.join(tmp, 'pt_b'))
+        data = TrainVideos(torch, 4, 17, a.model.image_size, seed=5)
+        batches = [(data.items[:2],), (data.items[2:],)] * TRAIN_ACCUM
+        # a warm-up step at these shapes, which the load then overwrites
+        # (the first run of a configuration may take other algorithms, (a))
+        quiet_step(b, iter(batches))
+        b.load(native)
+        steps = [quiet_step(t, iter(batches)) for t in (a, b)]
+        same['step_metrics'] = steps[0] == steps[1]
+        same['step_params'] = all(
+            torch.equal(v, net_state(b)[k]) for k, v in net_state(a).items())
+    finally:
+        torch.backends.cudnn.deterministic = det
+    out = dict(bit_identical=same, write_s=written, load_s=load_s,
+               package_gib=os.path.getsize(path) / 2 ** 30)
+    log(f'[parallel .pt resume] README width with the GAN: a reference '
+        f'trainer package of {out["package_gib"]:.2f} GiB written in '
+        f'{written:.1f} s, load_torch_checkpoint {load_s:.1f} s; bit for bit '
+        f'{same}')
+    if not all(same.values()):
+        fail(f'reference package resume: {same}')
+    return out
+
+
+def phase_several_processes(torch, dev, smi, phase10):
+    """Phase 12. Returns the readings and the launches of each run."""
+    import tempfile
+    t0 = time.perf_counter()
+    out, counts = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out['nccl_one_rank'], counts['train_nccl_one_rank'] = nccl_one_rank(
+            torch, dev, tmp)
+        out['gloo_two_ranks'], ranks = gloo_two_ranks(torch, dev, tmp, smi,
+                                                      phase10)
+        counts.update(ranks)
+        set_tf32(True)
+        torch.cuda.empty_cache()
+        out['pt_resume'] = pt_resume(torch, dev, tmp)
+    out['seconds'] = time.perf_counter() - t0
+    log(f'[several processes] on {smi}: the phase took '
+        f'{out["seconds"]:.1f} s')
+    return out, counts
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument('--out', default=None,
@@ -4741,6 +5405,11 @@ def main():
     parser.add_argument('--profile', action='store_true',
                         help='also profile one roundtrip of each path '
                              '(needs --out)')
+    # phase 12 starts its ranks as this script with these
+    for name in ('--rank', '--world', '--port'):
+        parser.add_argument(name, type=int, default=None,
+                            help=argparse.SUPPRESS)
+    parser.add_argument('--workdir', default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.profile and not args.out:
         parser.error('--profile needs --out')
@@ -4748,6 +5417,8 @@ def main():
     import torch
     if not torch.cuda.is_available():
         fail('torch.cuda.is_available() is false: this check needs a GPU')
+    if args.rank is not None:
+        return rank_main(args)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         import magvit2_pytorch_tpu_torch  # noqa: F401
@@ -4838,6 +5509,9 @@ def main():
                                                         profile_dir)
     kernel_rows.update(int8_rows)
     counts.update(int8_paths)
+    configs['several_processes'], dist_paths = phase_several_processes(
+        torch, dev, smi, training['fused']['s_per_step'])
+    counts.update(dist_paths)
 
     if 'jax' in sys.modules:
         fail('JAX was imported')

@@ -45,6 +45,7 @@ from magvit2_pytorch_tpu_torch.ops.kernels.taylor_attention import (
 from magvit2_pytorch_tpu_torch.ops.norms import AdaptiveRMSNorm, RMSNorm
 from magvit2_pytorch_tpu_torch.ops.rotary import (
     apply_rope, rope_angles, rope_angles_2d)
+from magvit2_pytorch_tpu_torch.parallel.batch import rand_rows
 from magvit2_pytorch_tpu_torch.utils.helpers import exists
 
 
@@ -145,8 +146,8 @@ class Attention(nn.Module):
                 dots = dots.masked_fill(causal_hidden(n, m_len, x.device),
                                         torch.finfo(torch.float32).min)
             probs = torch.softmax(dots, dim=-1)
-            keep = torch.rand(probs.shape, generator=generator,
-                              device=probs.device) < 1.0 - self.dropout
+            keep = rand_rows(probs.shape, generator,
+                             probs.device) < 1.0 - self.dropout
             probs = torch.where(keep, probs / (1.0 - self.dropout), 0.0)
             out = torch.einsum('bhij,bjhd->bihd', probs.to(x.dtype), vd)
         elif not exists(mask) and self.backend != 'flash':

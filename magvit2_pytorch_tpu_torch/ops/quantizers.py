@@ -31,6 +31,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from magvit2_pytorch_tpu_torch.ops.basic import Linear
+from magvit2_pytorch_tpu_torch.parallel.batch import global_row_mean
 from magvit2_pytorch_tpu_torch.utils.helpers import default, exists, l2norm
 
 
@@ -158,7 +159,7 @@ class LFQ(nn.Module):
             logp = torch.log_softmax(logits, dim=-1)
             p = logp.exp()
             per_sample = -(p * logp).sum(-1).mean()
-            mean_p = p.mean(0)                                  # (c, K)
+            mean_p = global_row_mean(p)                                  # (c, K)
             codebook_ent = -(mean_p * torch.log(mean_p.clamp(min=1e-10))
                              ).sum(-1).mean()
             return per_sample, codebook_ent
@@ -166,7 +167,7 @@ class LFQ(nn.Module):
         per_sample = _binary_entropy(p_pos).sum(-1).mean()
         if self.exact_codebook_entropy:
             return per_sample, self._chunked_codebook_entropy(z)
-        codebook_ent = _binary_entropy(p_pos.mean(0)).sum(-1).mean()
+        codebook_ent = _binary_entropy(global_row_mean(p_pos)).sum(-1).mean()
         return per_sample, codebook_ent
 
     def _chunked_codebook_entropy(self, z):
@@ -193,7 +194,7 @@ class LFQ(nn.Module):
             bits = ((codes[:, None] & mask) != 0).float()
             logp = torch.einsum('ncd,kd->nck', lp,
                                 torch.cat([bits, 1 - bits], dim=-1))
-            m = logp.exp().mean(0)                               # (c, kc)
+            m = global_row_mean(logp.exp())                               # (c, kc)
             return -torch.where(m > 1e-30,
                                 m * torch.log(m.clamp(min=1e-30)),
                                 0.0).sum(-1)

@@ -28,6 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from magvit2_pytorch_tpu_torch.parallel.batch import (
+    global_mean, global_row_mean)
 from magvit2_pytorch_tpu_torch.utils.helpers import exists
 
 
@@ -67,7 +69,7 @@ def codebook_stats(indices, codebook_size: int, is_lfq: bool):
     num_bits = int(round(math.log2(codebook_size)))
     bits = ((flat[:, None] >> torch.arange(num_bits, device=flat.device))
             & 1).float()
-    p = bits.mean(dim=0)
+    p = global_row_mean(bits)
     h = -(torch.xlogy(p, p) + torch.xlogy(1 - p, 1 - p))
     return h.mean(), seen
 
@@ -145,7 +147,7 @@ def _grad_norm_wrt_conv_out(module, x_dec, video_contains_first_frame,
                           'decode_pixels', x_dec.detach(),
                           video_contains_first_frame=video_contains_first_frame)
         (g,) = torch.autograd.grad(loss_of_recon(recon).float(), w)
-    return g.reshape(-1).norm()
+    return global_mean(g).reshape(-1).norm()
 
 
 def _to_rgb(frames, channels: int):

@@ -10,7 +10,12 @@ import torch
 
 def psnr(a, b, max_val: float = 1.0):
     """Peak signal-to-noise ratio between two [0, max_val] videos/images."""
-    mse = ((a.float() - b.float()) ** 2).mean()
+    return psnr_from_mse(((a.float() - b.float()) ** 2).mean(), max_val)
+
+
+def psnr_from_mse(mse, max_val: float = 1.0):
+    """PSNR of a mean squared error (of a batch split over ranks, the mean
+    of their errors)."""
     return 10.0 * torch.log10(max_val ** 2 / mse.clamp_min(1e-12))
 
 
@@ -19,9 +24,14 @@ def _counts(indices, codebook_size: int):
                           minlength=codebook_size)
 
 
+def codes_hit(indices, codebook_size: int):
+    """A mask of the codes hit at least once in ``indices``."""
+    return _counts(indices, codebook_size) > 0
+
+
 def codebook_utilization(indices, codebook_size: int):
     """Fraction of the codebook hit at least once in ``indices``."""
-    return (_counts(indices, codebook_size) > 0).float().mean()
+    return codes_hit(indices, codebook_size).float().mean()
 
 
 def code_entropy(indices, codebook_size: int):
@@ -33,4 +43,5 @@ def code_entropy(indices, codebook_size: int):
                         torch.zeros_like(p)).sum()
 
 
-__all__ = ['psnr', 'codebook_utilization', 'code_entropy']
+__all__ = ['psnr', 'psnr_from_mse', 'codes_hit', 'codebook_utilization',
+           'code_entropy']

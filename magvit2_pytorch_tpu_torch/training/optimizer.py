@@ -94,6 +94,33 @@ class Optimizer:
         self.count = 0              # applied updates (Adam's and the lr's)
         self.notfinite_count = 0    # non-finite steps in a row
         self.total_notfinite = 0
+        self.shard_group, self.sharded = None, frozenset()
+
+    def shard(self, group, names):
+        """The parameters ``names`` hold this rank's part of a parameter cut
+        over ``group`` (tensor parallelism): the non-finite check and the
+        clip's norm then read every rank's part."""
+        self.shard_group, self.sharded = group, frozenset(names)
+
+    def _finite(self, g) -> bool:
+        finite = torch.stack([x.isfinite().all() for x in g]).all()
+        if self.shard_group is not None:
+            finite = finite.to(torch.uint8)
+            torch.distributed.all_reduce(
+                finite, op=torch.distributed.ReduceOp.MIN,
+                group=self.shard_group)
+        return bool(finite)
+
+    def _norm(self, names, g):
+        if self.shard_group is None:
+            return torch.sqrt(sum((x * x).sum() for x in g))
+        zero = torch.zeros((), device=g[0].device)
+        cut = sum(((x * x).sum() for n, x in zip(names, g)
+                   if n in self.sharded), zero)
+        whole = sum(((x * x).sum() for n, x in zip(names, g)
+                     if n not in self.sharded), zero)
+        torch.distributed.all_reduce(cut, group=self.shard_group)
+        return torch.sqrt(whole + cut)
 
     @torch.no_grad()
     def step(self, grads: Mapping[str, torch.Tensor]) -> bool:
@@ -102,14 +129,14 @@ class Optimizer:
         names = list(self.params)
         g = [grads[n].float() for n in names]
         if self.skip_nonfinite_updates:
-            finite = bool(torch.stack([x.isfinite().all() for x in g]).all())
+            finite = self._finite(g)
             self.notfinite_count = 0 if finite else self.notfinite_count + 1
             self.total_notfinite += 0 if finite else 1
             if not (finite
                     or self.notfinite_count > self.max_consecutive_errors):
                 return False
         if self.max_grad_norm is not None:
-            norm = torch.sqrt(sum((x * x).sum() for x in g))
+            norm = self._norm(names, g)
             keep = norm < self.max_grad_norm
             g = [torch.where(keep, x, x / norm * self.max_grad_norm)
                  for x in g]
@@ -127,6 +154,16 @@ class Optimizer:
                 update = update + self.wd * p.float()
             p.copy_((p.float() + (-lr) * update).to(p.dtype))
         return True
+
+    @torch.no_grad()
+    def load_moments(self, mu: Mapping, nu: Mapping, count: int):
+        """Adam's moments by parameter name and the count of applied
+        updates (which keys the learning-rate schedule), as a reference
+        optimizer's state gives them; the non-finite counters stay."""
+        for n in self.params:
+            self.mu[n].copy_(mu[n])
+            self.nu[n].copy_(nu[n])
+        self.count = int(count)
 
     def state_dict(self) -> dict:
         return {'mu': self.mu, 'nu': self.nu, 'count': self.count,

@@ -32,24 +32,51 @@ from a ``torch.Generator`` seeded from ``(seed, step, generator or
 discriminator, micro-batch)``, so both accumulation modes and a resumed run
 draw the same.
 
-Not ported here: ``mesh``, ``tensor_parallel=True`` and more than one
-process (ROADMAP.md queue A item 13), and resuming from a reference trainer
-``.pt`` (``load_torch_checkpoint``, item 12). ``save`` / ``load`` write the
-same state as the JAX trainer in the port's own format (``torch.save``):
-the JAX trainer's Orbax checkpoints need tensorstore and are not read.
+Several processes (``parallel/``): one rank a device, laid out by a
+``mesh`` (default: data parallel over every rank). ``batch_size`` is global;
+each rank loads its contiguous rows of it, and a step gives what the
+one-process step gives on the global batch, as the JAX package's SPMD step
+does:
+
+- after the accumulation loop, one all-reduce a module (the generator, each
+  discriminator) of its gradients in one flat float32 buffer, averaged over
+  the batch axes; no gradient moves inside a micro-step, and the optimizer's
+  non-finite skip and clip read the reduced gradients, so every rank takes
+  the same update;
+- the terms that read the whole batch are global (``parallel/batch.py``):
+  the frame picks and dropout are drawn for the global batch and cut, the
+  LFQ codebook entropy and the entropy canary sum their rows over the ranks,
+  the adaptive adversarial weight takes the norms of the averaged
+  gradients; the step metrics are averaged and the codes seen OR-ed;
+- rank 0 prints, logs, writes the sample GIF and saves, behind a barrier;
+  ``load`` and ``maybe_auto_resume`` run on every rank; ``valid_step``
+  averages over the ranks.
+
+``tensor_parallel=True`` with a ``'tensor'`` axis cuts the generator's
+master weights and Adam moments over it, on the JAX package's rule
+(``_TensorShards``); the ranks of a tensor group load the same rows and run
+the whole forward, so the update is the data-parallel one.
+
+``save`` / ``load`` write the same state as the JAX trainer in the port's
+own format (``torch.save``): the JAX trainer's Orbax checkpoints need
+tensorstore and are not read. ``load_torch_checkpoint`` resumes a reference
+trainer ``.pt`` package.
 """
 
 from __future__ import annotations
 
 import copy
+import math
 import os
 import time
+import warnings
 from contextlib import contextmanager
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from magvit2_pytorch_tpu_torch.data.datasets import (
     DataLoader, ImageDataset, VideoDataset, cycle, normalize_u8,
@@ -57,16 +84,18 @@ from magvit2_pytorch_tpu_torch.data.datasets import (
 from magvit2_pytorch_tpu_torch.data.video_io import video_array_to_gif
 from magvit2_pytorch_tpu_torch.models.jax_import import (
     bridge_entries, discr_bridge_entries, multiscale_bridge_entries)
+from magvit2_pytorch_tpu_torch.parallel import (
+    BatchShard, batch_axes, batch_index, data_parallel_extent,
+    is_main_process, make_mesh, process_count, replicate, sharded_batch,
+    shard_params_tensor_parallel, tensor_parallel_shardings)
 from magvit2_pytorch_tpu_torch.training.ema import EMAConfig, ema_update
 from magvit2_pytorch_tpu_torch.training.losses import (
     codebook_size_of, discriminator_loss, draw_frames, draw_tokenizer_loss,
     tokenizer_loss)
-from magvit2_pytorch_tpu_torch.training.metrics import (
-    codebook_utilization, psnr)
+from magvit2_pytorch_tpu_torch.training.metrics import codes_hit, psnr_from_mse
 from magvit2_pytorch_tpu_torch.training.optimizer import (
     get_optimizer, wd_mask)
-from magvit2_pytorch_tpu_torch.utils.helpers import (
-    default, exists, not_ported)
+from magvit2_pytorch_tpu_torch.utils.helpers import default, exists
 from magvit2_pytorch_tpu_torch.utils.precision import Policy, default_policy
 
 GEN_METRICS = ('recon_loss', 'perceptual_loss', 'adversarial_gen_loss',
@@ -82,6 +111,18 @@ def _trainable(module, device):
     return out.requires_grad_(True)
 
 
+def _flat_zeros(params):
+    """Zeroed float32 gradients for ``params``: views into one flat buffer,
+    which one collective reduces. Returns ``(buffer, views)``."""
+    flat = torch.zeros(sum(p.numel() for p in params), dtype=torch.float32,
+                       device=params[0].device)
+    views, offset = [], 0
+    for p in params:
+        views.append(flat[offset:offset + p.numel()].view(p.shape))
+        offset += p.numel()
+    return flat, views
+
+
 def _accumulate(grads, total, params):
     """Add ``d total / d params`` into ``grads``; a parameter the loss does
     not reach (the final encoder norm unless applied) gets 0, as under
@@ -90,6 +131,86 @@ def _accumulate(grads, total, params):
                                                  allow_unused=True)):
         if g is not None:
             acc.add_(g)
+
+
+def _collective(name: str, fallback: str):
+    """A ``torch.distributed`` collective under its current name."""
+    return getattr(dist, name, None) or getattr(dist, fallback)
+
+
+class _TensorShards:
+    """The generator cut over the mesh's ``'tensor'`` axis (the JAX
+    package's ``tensor_parallel_shardings``): each rank of a tensor group
+    keeps a master copy of its part of every cut parameter, and the
+    optimizer's moments of it; the module holds the whole parameters for
+    the forward. After the backward, :meth:`scatter_grads` reduce-scatters
+    the (data-averaged) gradients to the parts, averaged over the tensor
+    axis; after the update, :meth:`gather` all-gathers the parts into the
+    module's parameters, before the EMA and the next forward. One flat
+    buffer a collective."""
+
+    def __init__(self, module, mesh, entries):
+        self.full = dict(module.named_parameters())
+        self.group = mesh.group(('tensor',))
+        self.tp, self.k = mesh.shape['tensor'], mesh.coordinate['tensor']
+        self.dims = {n: d for n, d in tensor_parallel_shardings(
+            self.full, mesh, entries=entries).items() if d is not None}
+        self.master = shard_params_tensor_parallel(self.full, mesh,
+                                                   entries=entries)
+        self.size = sum(self.master[n].numel() for n in self.dims)
+
+    def cut(self, tensors: dict) -> dict:
+        """Whole tensors by parameter name -> this rank's parts."""
+        return {n: (t.chunk(self.tp, self.dims[n])[self.k] if n in self.dims
+                    else t) for n, t in tensors.items()}
+
+    def scatter_grads(self, grads: dict) -> dict:
+        if not self.dims:
+            return grads
+        rows = grads[next(iter(self.dims))].new_empty(self.tp, self.size)
+        offset = 0
+        for n, d in self.dims.items():
+            for r, part in enumerate(grads[n].chunk(self.tp, d)):
+                rows[r, offset:offset + part.numel()] = part.reshape(-1)
+            offset += part.numel()
+        mine = rows.new_empty(self.size)
+        _collective('reduce_scatter_single', 'reduce_scatter_tensor')(
+            mine, rows.reshape(-1), group=self.group)
+        mine /= self.tp
+        out, offset = dict(grads), 0
+        for n in self.dims:
+            part = self.master[n]
+            out[n] = mine[offset:offset + part.numel()].view(part.shape)
+            offset += part.numel()
+        return out
+
+    def whole(self, parts: dict) -> dict:
+        """This rank's parts -> the whole tensors (every rank calls it)."""
+        if not self.dims:
+            return dict(parts)
+        mine = torch.cat([parts[n].reshape(-1) for n in self.dims])
+        rows = mine.new_empty(self.tp * self.size)
+        _collective('all_gather_single', 'all_gather_into_tensor')(
+            rows, mine, group=self.group)
+        rows = rows.view(self.tp, self.size)
+        out, offset = dict(parts), 0
+        for n, d in self.dims.items():
+            part = parts[n]
+            out[n] = torch.cat([rows[r, offset:offset + part.numel()].view(
+                part.shape) for r in range(self.tp)], d)
+            offset += part.numel()
+        return out
+
+    @torch.no_grad()
+    def gather(self):
+        for n, t in self.whole({n: self.master[n] for n in self.dims}).items():
+            self.full[n].copy_(t)
+
+    @torch.no_grad()
+    def scatter_params(self):
+        """The masters from the module's (loaded) parameters."""
+        for n, t in self.cut({n: self.full[n] for n in self.dims}).items():
+            self.master[n].copy_(t)
 
 
 class VideoTokenizerTrainer:
@@ -136,15 +257,6 @@ class VideoTokenizerTrainer:
                 'MAGVIT2_TPU_INT8_CONV=1 is an inference-only path (round() '
                 'kills conv gradients); unset it before constructing '
                 'VideoTokenizerTrainer')
-        if exists(mesh):
-            not_ported('a device mesh (mesh=)', '13')
-        if tensor_parallel:
-            not_ported('tensor_parallel=True', '13')
-        if (torch.distributed.is_available()
-                and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1):
-            not_ported('training over more than one process', '13')
-
         self.model = model
         self.device = model.device
         self.batch_size = batch_size
@@ -160,6 +272,21 @@ class VideoTokenizerTrainer:
         self.policy = default(policy, default_policy(self.device))
         self.profile_dir = profile_dir
         self.seed = seed
+
+        # the mesh: batch_size is global, each rank loads its rows of it
+        self.mesh = mesh if exists(mesh) else make_mesh()
+        self._n_data = n_data = data_parallel_extent(self.mesh)
+        assert batch_size % n_data == 0, (
+            f'batch_size {batch_size} must divide the data-parallel extent '
+            f'{n_data}')
+        self._n_proc = process_count()
+        assert batch_size % self._n_proc == 0, (
+            f'global batch_size {batch_size} must divide the process count '
+            f'{self._n_proc}')
+        self._batch_group = self.mesh.group(batch_axes(self.mesh))
+        self._shard = (BatchShard(self._batch_group, batch_index(self.mesh),
+                                  n_data) if n_data > 1 else None)
+        self.allreduce_bytes = 0      # the gradient all-reduces' payload
 
         # datasets (reference trainer.py:115-149)
         dataset_kwargs = dict(default(dataset_kwargs, {}))
@@ -191,11 +318,24 @@ class VideoTokenizerTrainer:
                 self.print(f'training with shared training and valid dataset '
                            f'of {len(dataset)} samples')
         self.dataset, self.valid_dataset = dataset, valid_dataset
+        # the ranks of one batch shard load the same rows
+        shards = dict(num_shards=n_data, shard_id=batch_index(self.mesh))
         self.dataloader = DataLoader(dataset, batch_size=batch_size,
-                                     shuffle=True, drop_last=True)
+                                     shuffle=True, drop_last=True, **shards)
+        # the global validation batch divides the data-parallel extent and
+        # the process count; a split too small for that skips validation
+        # (every rank computes the same size, so all skip together)
+        vbs = min(batch_size, len(valid_dataset))
+        if self._n_proc > 1:
+            vbs -= vbs % math.lcm(n_data, self._n_proc)
+        self._valid_enabled = vbs > 0
+        if not self._valid_enabled:
+            self.print(f'valid split of {len(valid_dataset)} samples is '
+                       f'smaller than the data-parallel extent {n_data} — '
+                       'validation disabled')
         self.valid_dataloader = DataLoader(
-            valid_dataset, batch_size=min(batch_size, len(valid_dataset)),
-            shuffle=True, drop_last=True)
+            valid_dataset, batch_size=vbs, shuffle=True, drop_last=True,
+            **shards) if self._valid_enabled else None
 
         # the trained modules: float32 copies (the tokenizer keeps its own)
         self.module = _trainable(model.module, self.device)
@@ -210,14 +350,25 @@ class VideoTokenizerTrainer:
         self.vgg = (copy.deepcopy(model.vgg).to(
             device=self.device, dtype=self.policy.compute_dtype)
             if exists(model.vgg) else None)
+        if self.mesh.size > 1:
+            # every rank starts from rank 0's weights
+            replicate([self.module, self.ema_module, self.discr,
+                       *self.multiscale, self.vgg], self.mesh)
+            self._write_back()
 
         # optimizers (reference trainer.py:154-171): warmup and clip in the
         # chain; one optimizer per discriminator
         opt_kwargs = dict(lr=learning_rate, warmup_steps=warmup_steps,
                           max_grad_norm=max_grad_norm, scheduler=scheduler,
                           **default(optimizer_kwargs, {}))
-        self.optimizer = self._optimizer(
-            self.module, bridge_entries(model.config), opt_kwargs)
+        entries = bridge_entries(model.config)
+        # tensor parallelism cuts the generator's state over 'tensor'
+        self._tp = (_TensorShards(self.module, self.mesh, entries)
+                    if tensor_parallel and self.mesh.shape['tensor'] > 1
+                    else None)
+        self.optimizer = self._optimizer(self.module, entries, opt_kwargs)
+        if self._tp:
+            self.optimizer.shard(self._tp.group, self._tp.dims)
         self.discr_optimizers = []
         if self.has_gan:
             self.discr_optimizers = [
@@ -239,24 +390,77 @@ class VideoTokenizerTrainer:
                                       device=self.device)
         self._wandb_run = None
 
-    @staticmethod
-    def _optimizer(module, entries, kwargs):
+    def _optimizer(self, module, entries, kwargs):
         params = dict(module.named_parameters())
-        return get_optimizer(params, mask=wd_mask(params, entries), **kwargs)
+        mask = wd_mask(params, entries)
+        if module is self.module and self._tp:
+            params = self._tp.master
+        return get_optimizer(params, mask=mask, **kwargs)
 
     # -- plumbing ------------------------------------------------------------
 
     @property
     def is_main(self) -> bool:
-        return True
+        return is_main_process()
 
     def print(self, msg):
         if self.is_main:
             print(msg)
 
     def log(self, **data):
-        if exists(self._wandb_run):
+        if exists(self._wandb_run) and self.is_main:
             self._wandb_run.log(data, step=self.step)
+
+    def _barrier(self):
+        if self.mesh.size > 1:
+            dist.barrier()
+
+    def _rows(self, picks):
+        """This rank's rows of draws made for the global batch."""
+        if self._shard is None:
+            return picks
+        n = picks.shape[0] // self._shard.count
+        return picks[self._shard.index * n:(self._shard.index + 1) * n]
+
+    def _global_rows(self, batch) -> int:
+        return batch.shape[0] * (self._shard.count if self._shard else 1)
+
+    def _batch_mean(self, x):
+        """``x`` averaged over the batch axes in place, in one all-reduce
+        (unchanged without a group)."""
+        if self._batch_group is not None:
+            dist.all_reduce(x, group=self._batch_group)
+            if self._n_data > 1:
+                x.div_(self._n_data)
+        return x
+
+    def _reduce_grads(self, flats):
+        """Average each flat gradient buffer over the batch axes: one
+        all-reduce a module."""
+        if self._batch_group is None:
+            return
+        for flat in flats:
+            self._batch_mean(flat)
+            self.allreduce_bytes += flat.numel() * flat.element_size()
+
+    def _reduce_metrics(self, sums: dict) -> dict:
+        """The micro-batch sums averaged over the batch axes, in one
+        all-reduce."""
+        if self._batch_group is None:
+            return sums
+        keys = list(sums)
+        packed = self._batch_mean(torch.stack([sums[k].float()
+                                               for k in keys]))
+        return dict(zip(keys, packed.unbind()))
+
+    def _reduce_seen(self, seen):
+        """A mask of the codes seen, OR-ed over the batch axes (an
+        all-reduce MAX)."""
+        if self._batch_group is None:
+            return seen
+        seen = seen.to(torch.uint8)
+        dist.all_reduce(seen, op=dist.ReduceOp.MAX, group=self._batch_group)
+        return seen.bool()
 
     @contextmanager
     def trackers(self, project_name: str, run_name: Optional[str] = None,
@@ -323,24 +527,28 @@ class VideoTokenizerTrainer:
         has_ms = (model.has_multiscale_discrs and train_adversarially
                   and ms_adv_w > 0)
         params = list(self.module.parameters())
-        grads = [torch.zeros_like(p) for p in params]
+        flat, grads = _flat_zeros(params)
         sums = {k: torch.zeros((), device=self.device) for k in GEN_METRICS}
         if not cfg.use_fsq:
             sums['mean_bit_entropy'] = torch.zeros((), device=self.device)
         loss_sum = torch.zeros((), device=self.device)
         for i, batch in enumerate(self._next_batches(dl_iter)):
             gen = self._generator(step, 0, i)
-            picks = draw_tokenizer_loss(batch.shape[0], batch.shape[1], gen)
-            total, bd, _ = tokenizer_loss(
-                self.module, batch, picks, discr=self.discr,
-                multiscale=tuple(self.multiscale), vgg=self.vgg, train=True,
-                use_vgg=model.use_vgg, has_gan=has_gan,
-                has_multiscale_gan=has_ms,
-                perceptual_loss_weight=cfg.perceptual_loss_weight,
-                quantizer_aux_loss_weight=cfg.quantizer_aux_loss_weight,
-                adversarial_loss_weight=adv_w,
-                multiscale_adversarial_loss_weight=ms_adv_w, generator=gen)
-            _accumulate(grads, total, params)
+            picks = draw_tokenizer_loss(self._global_rows(batch),
+                                        batch.shape[1], gen)
+            with sharded_batch(self._shard):
+                total, bd, _ = tokenizer_loss(
+                    self.module, batch,
+                    {k: self._rows(v) for k, v in picks.items()},
+                    discr=self.discr, multiscale=tuple(self.multiscale),
+                    vgg=self.vgg, train=True, use_vgg=model.use_vgg,
+                    has_gan=has_gan, has_multiscale_gan=has_ms,
+                    perceptual_loss_weight=cfg.perceptual_loss_weight,
+                    quantizer_aux_loss_weight=cfg.quantizer_aux_loss_weight,
+                    adversarial_loss_weight=adv_w,
+                    multiscale_adversarial_loss_weight=ms_adv_w,
+                    generator=gen)
+                _accumulate(grads, total, params)
             with torch.no_grad():
                 loss_sum += total
                 ms = bd.multiscale_gen_losses
@@ -360,33 +568,41 @@ class VideoTokenizerTrainer:
                     sums[k] += v
                 self._code_seen |= bd.codes_seen
         accum = self.grad_accum_every
-        self.optimizer.step({n: g / accum for (n, _), g in zip(
-            self.module.named_parameters(), grads)})
+        self._reduce_grads([flat])
+        grads = {n: g / accum for (n, _), g in zip(
+            self.module.named_parameters(), grads)}
+        if self._tp:
+            grads = self._tp.scatter_grads(grads)
+        self.optimizer.step(grads)
+        if self._tp:
+            self._tp.gather()
         ema_update(self.ema_module.parameters(), self.module.parameters(),
                    step, self.ema_config)
+        sums = self._reduce_metrics({**sums, 'total_loss': loss_sum})
+        self._code_seen.copy_(self._reduce_seen(self._code_seen))
         metrics = {k: v / accum for k, v in sums.items()}
-        metrics['total_loss'] = loss_sum / accum
         metrics['codebook_unique_codes'] = self._code_seen.sum()
         return metrics
 
     def _discr_step(self, apply_gradient_penalty: bool, dl_iter, step: int):
         cfg = self.model.config
         nets = [self.discr, *self.multiscale]
-        params = [list(n.parameters()) for n in nets]
-        flat = [p for ps in params for p in ps]
-        grads = [torch.zeros_like(p) for p in flat]
+        params = [p for n in nets for p in n.parameters()]
+        bufs = [_flat_zeros(list(n.parameters())) for n in nets]
+        grads = [g for _, views in bufs for g in views]
         sums = {k: torch.zeros((), device=self.device) for k in DISCR_METRICS}
         for i, batch in enumerate(self._next_batches(dl_iter)):
             gen = self._generator(step, 1, i)
-            total, bd = discriminator_loss(
-                self.module, self.discr, batch,
-                draw_frames(batch.shape[0], batch.shape[1], gen),
-                multiscale=tuple(self.multiscale),
-                apply_gradient_penalty=apply_gradient_penalty,
-                grad_penalty_loss_weight=cfg.grad_penalty_loss_weight,
-                multiscale_adversarial_loss_weight=(
-                    cfg.multiscale_adversarial_loss_weight))
-            _accumulate(grads, total, flat)
+            picks = draw_frames(self._global_rows(batch), batch.shape[1], gen)
+            with sharded_batch(self._shard):
+                total, bd = discriminator_loss(
+                    self.module, self.discr, batch, self._rows(picks),
+                    multiscale=tuple(self.multiscale),
+                    apply_gradient_penalty=apply_gradient_penalty,
+                    grad_penalty_loss_weight=cfg.grad_penalty_loss_weight,
+                    multiscale_adversarial_loss_weight=(
+                        cfg.multiscale_adversarial_loss_weight))
+                _accumulate(grads, total, params)
             with torch.no_grad():
                 ms = bd.multiscale_discr_losses
                 micro = {'total_discr_loss': total,
@@ -397,9 +613,11 @@ class VideoTokenizerTrainer:
                 for k, v in micro.items():
                     sums[k] += v.detach()
         accum = self.grad_accum_every
-        it = iter(grads)
-        for net, opt in zip(nets, self.discr_optimizers):
-            opt.step({n: next(it) / accum for n, _ in net.named_parameters()})
+        self._reduce_grads([f for f, _ in bufs])
+        for net, opt, (_, views) in zip(nets, self.discr_optimizers, bufs):
+            opt.step({n: g / accum for (n, _), g in zip(
+                net.named_parameters(), views)})
+        sums = self._reduce_metrics(sums)
         return {k: v / accum for k, v in sums.items()}
 
     @torch.no_grad()
@@ -454,29 +672,34 @@ class VideoTokenizerTrainer:
                    num_save_recons: int = 1):
         """Validation recon loss of the online and the EMA model, PSNR and
         codebook utilization over every micro-batch, and a real | recon GIF
-        grid (reference trainer.py:452-510)."""
+        grid (reference trainer.py:452-510). Every rank runs it on its rows
+        of the global batch: the losses and each micro-batch's squared
+        error are averaged over the ranks and the codes hit are OR-ed, so
+        the numbers are the global batch's; rank 0 writes the GIF."""
         model, ema_model = self.model, self.ema_tokenizer
-        recon_loss = ema_recon_loss = 0.0
-        valid_videos, recon_videos = [], []
+        valid_videos, recon_videos, readings, codes = [], [], [], []
         for _ in range(self.grad_accum_every):
             video = self._to_device(next(dl_iter)[0], torch.float32)
             loss, _ = model.forward(video, return_recon_loss_only=True)
             ema_loss, ema_recon = ema_model.forward(
                 video, return_recon_loss_only=True)
-            recon_loss += float(loss) / self.grad_accum_every
-            ema_recon_loss += float(ema_loss) / self.grad_accum_every
             if video.ndim == 4:
                 video, ema_recon = video[:, None], ema_recon[:, None]
-            valid_videos.append(video.float())
-            recon_videos.append(ema_recon.float())
-
-        valid_psnr = 0.0
-        codes = []
-        for v, r in zip(valid_videos, recon_videos):
-            valid_psnr += float(psnr(v, r.clamp(0, 1))) / len(valid_videos)
-            codes.append(ema_model.tokenize(v).reshape(-1))
-        utilization = float(codebook_utilization(torch.cat(codes),
-                                                 ema_model.codebook_size))
+            video, ema_recon = video.float(), ema_recon.float()
+            mse = ((video - ema_recon.clamp(0, 1)) ** 2).mean()
+            readings.append(torch.stack([loss.float(), ema_loss.float(),
+                                         mse]))
+            codes.append(ema_model.tokenize(video).reshape(-1))
+            valid_videos.append(video)
+            recon_videos.append(ema_recon)
+        readings = self._batch_mean(torch.stack(readings))
+        hit = self._reduce_seen(codes_hit(torch.cat(codes),
+                                          ema_model.codebook_size))
+        n = len(readings)
+        recon_loss = sum(float(r[0]) / n for r in readings)
+        ema_recon_loss = sum(float(r[1]) / n for r in readings)
+        valid_psnr = sum(float(psnr_from_mse(r[2])) / n for r in readings)
+        utilization = float(hit.float().mean())
         self.log(valid_recon_loss=recon_loss,
                  valid_ema_recon_loss=ema_recon_loss, valid_psnr=valid_psnr,
                  codebook_utilization=utilization)
@@ -519,7 +742,8 @@ class VideoTokenizerTrainer:
             except ValueError:      # not the main thread
                 pass
         dl_iter = cycle(self.dataloader)
-        valid_iter = cycle(self.valid_dataloader)
+        valid_iter = (cycle(self.valid_dataloader) if self._valid_enabled
+                      else None)
         profiler = None
         try:
             while self.step < self.num_train_steps:
@@ -540,7 +764,8 @@ class VideoTokenizerTrainer:
                     profiler.export_chrome_trace(
                         str(Path(self.profile_dir) / 'trace.json'))
                     profiler = None
-                if not (step % self.validate_every_step):
+                if not (step % self.validate_every_step) and exists(
+                        valid_iter):
                     self.valid_step(valid_iter)
                 if not (step % self.checkpoint_every_step):
                     self.save(self.checkpoints_folder / f'checkpoint.'
@@ -554,9 +779,15 @@ class VideoTokenizerTrainer:
     # -- checkpoint / resume (reference trainer.py:291-330) --------------------
 
     def _state(self) -> dict:
+        """The state to save; under tensor parallelism the optimizer's
+        moments are gathered whole (a collective: every rank calls it)."""
+        opt_state = self.optimizer.state_dict()
+        if self._tp:
+            opt_state = {**opt_state, 'mu': self._tp.whole(opt_state['mu']),
+                         'nu': self._tp.whole(opt_state['nu'])}
         state = {'params': self.module.state_dict(),
                  'ema_params': self.ema_module.state_dict(),
-                 'opt_state': self.optimizer.state_dict(),
+                 'opt_state': opt_state,
                  'step': self.step,
                  'code_seen': self._code_seen}
         if self.has_gan:
@@ -569,10 +800,14 @@ class VideoTokenizerTrainer:
 
     def save(self, path):
         """Every piece of training state (the JAX trainer's ``_state``) in
-        one ``torch.save`` file."""
+        one ``torch.save`` file, written by rank 0; every rank calls it and
+        returns once the file is there."""
         path = Path(path)
-        path.parent.mkdir(parents=True, exist_ok=True)
-        torch.save(self._state(), str(path))
+        state = self._state()
+        if self.is_main:
+            path.parent.mkdir(parents=True, exist_ok=True)
+            torch.save(state, str(path))
+        self._barrier()
 
     @torch.no_grad()
     def load(self, path):
@@ -582,7 +817,12 @@ class VideoTokenizerTrainer:
                            weights_only=True)
         self.module.load_state_dict(state['params'])
         self.ema_module.load_state_dict(state['ema_params'])
-        self.optimizer.load_state_dict(state['opt_state'])
+        opt_state = state['opt_state']
+        if self._tp:
+            self._tp.scatter_params()
+            opt_state = {**opt_state, 'mu': self._tp.cut(opt_state['mu']),
+                         'nu': self._tp.cut(opt_state['nu'])}
+        self.optimizer.load_state_dict(opt_state)
         self.step = int(state['step'])
         self._code_seen.copy_(state['code_seen'])
         if self.has_gan and 'discr_params' in state:
@@ -605,7 +845,82 @@ class VideoTokenizerTrainer:
         self.load(candidates[-1])
         return True
 
+    @torch.no_grad()
     def load_torch_checkpoint(self, path):
-        """Resume from a reference trainer ``.pt`` package: not ported."""
-        not_ported('resuming from a reference trainer .pt '
-                   '(load_torch_checkpoint)', '12')
+        """Resume from a reference trainer ``.pt`` package (its
+        ``VideoTokenizerTrainer.save``, trainer.py:291-310; the JAX
+        trainer's ``load_torch_checkpoint``): the model and EMA weights,
+        the generator optimizer's Adam moments and count (the warmup
+        schedule is keyed on the count, so it resumes where it was), the
+        discriminator's weights and moments, and the step.
+
+        Each multiscale discriminator loads on the JAX package's
+        best-effort rule: the reference takes any user module there, so a
+        scale whose weights are not the reference ``Discriminator``'s, or do
+        not fit the configured scale, or are absent, keeps its weights with
+        a warning, and its moments are zero unless they were imported with
+        its weights; every discriminator optimizer takes the main one's
+        count. The torch warmup and scheduler states are not read (the
+        count replaces them). Every rank reads the same file, so all end
+        with the same state. Like the reference's own ``load`` this
+        unpickles the package: load only packages you trust."""
+        from magvit2_pytorch_tpu_torch.models.torch_import import (
+            discr_adam_moments, generator_adam_moments,
+            load_torch_discr_state_dict,
+            load_torch_multiscale_discr_state_dict,
+            load_torch_tokenizer_state_dict, multiscale_discr_adam_moments,
+            multiscale_discr_indices)
+
+        pkg = torch.load(str(path), map_location='cpu', weights_only=False)
+        model_sd = pkg['model']
+        load_torch_tokenizer_state_dict(self.module, model_sd)
+        # ema_pytorch's EMA(include_online_model=False) keeps the shadow
+        # under 'ema_model.' beside its 'initted' / 'step' buffers
+        load_torch_tokenizer_state_dict(self.ema_module, {
+            k[len('ema_model.'):]: v for k, v in pkg['ema_model'].items()
+            if k.startswith('ema_model.')})
+        mu, nu, count = generator_adam_moments(self.module, model_sd,
+                                               pkg['optimizer'])
+        if self._tp:
+            self._tp.scatter_params()
+            mu, nu = self._tp.cut(mu), self._tp.cut(nu)
+        self.optimizer.load_moments(mu, nu, count)
+
+        if self.has_gan:
+            load_torch_discr_state_dict(self.discr, model_sd)
+            dmu, dnu, dcount = discr_adam_moments(
+                self.discr, model_sd, pkg['discr_optimizer'])
+            moments = [(dmu, dnu)]
+            scales = multiscale_discr_indices(model_sd)
+            if len(scales) > len(self.multiscale):
+                warnings.warn(
+                    f'checkpoint has {len(scales)} multiscale '
+                    f'discriminators but the trainer only has '
+                    f'{len(self.multiscale)}; extra scales are ignored')
+            for i, ms in enumerate(self.multiscale):
+                zeros = {n: torch.zeros_like(p)
+                         for n, p in ms.named_parameters()}
+                moments.append((zeros, zeros))
+                if i not in scales:
+                    warnings.warn(
+                        f'multiscale discriminator {i} is not present in '
+                        f'the checkpoint; keeping initialized params')
+                    continue
+                try:
+                    load_torch_multiscale_discr_state_dict(ms, model_sd, i)
+                except (KeyError, ValueError) as e:
+                    warnings.warn(
+                        f'multiscale discriminator {i} is not reference-'
+                        f'Discriminator-shaped or does not match the '
+                        f'configured scale ({type(e).__name__}); keeping '
+                        f'initialized params')
+                    continue
+                key = f'multiscale_discr_optimizer_{i}'
+                if key in pkg:
+                    moments[-1] = multiscale_discr_adam_moments(
+                        ms, model_sd, pkg[key], i)[:2]
+            for opt, (mu, nu) in zip(self.discr_optimizers, moments):
+                opt.load_moments(mu, nu, dcount)
+
+        self.step = int(pkg['step'])
+        self._write_back()

@@ -363,12 +363,28 @@ def test_train_loop_validates_and_checkpoints(tmp_path):
 
 
 def test_what_the_trainer_refuses(tmp_path, monkeypatch):
+    """A global batch that the data-parallel extent does not divide, a mesh
+    that does not cover the processes, a reference package whose weights do
+    not fit or whose optimizer holds other parameters, and the int8
+    path."""
+    from magvit2_pytorch_tpu_torch.parallel import make_mesh
+    from magvit2_pytorch_tpu_torch.parallel.mesh import Mesh
     tok = _tokenizer()
-    for kw in (dict(mesh=object()), dict(tensor_parallel=True)):
-        with pytest.raises(NotImplementedError, match='item 13'):
-            _trainer(tok, tmp_path, **kw)
-    with pytest.raises(NotImplementedError, match='item 12'):
-        _trainer(tok, tmp_path).load_torch_checkpoint('trainer.pt')
+    with pytest.raises(AssertionError, match='must divide the data-parallel'):
+        _trainer(tok, tmp_path, mesh=Mesh(('data', 'tensor'), (3, 1), 'cpu'))
+    with pytest.raises(AssertionError, match='does not cover 1'):
+        _trainer(tok, tmp_path, mesh=make_mesh(data=2))
+    other = VideoTokenizer(device='cpu', seed=0, **{**KW, 'init_dim': 4})
+    torch.save({'model': other.module.state_dict()}, str(tmp_path / 'o.pt'))
+    with pytest.raises((KeyError, ValueError)):
+        _trainer(tok, tmp_path).load_torch_checkpoint(tmp_path / 'o.pt')
+    state = tok.module.state_dict()
+    torch.save({'model': state, 'ema_model': {
+        f'ema_model.{k}': v for k, v in state.items()}, 'optimizer': {
+        'state': {}, 'param_groups': [{'params': [0, 1]}]}},
+        str(tmp_path / 'p.pt'))
+    with pytest.raises(AssertionError, match='optimizer holds 2 params'):
+        _trainer(tok, tmp_path).load_torch_checkpoint(tmp_path / 'p.pt')
     monkeypatch.setenv('MAGVIT2_TPU_INT8_CONV', '1')
     with pytest.raises(RuntimeError, match='inference-only'):
         _trainer(tok, tmp_path)
