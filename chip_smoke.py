@@ -40,8 +40,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    qkv with its TFLOP/s and GB/s; then B3 at N = 1, 144, 1000 and 4096 in
    both dtypes (the float32 route) with its launches counted, a batch of
    two against its second frame alone (exactly 0), and
-   ``TaylorSeriesLinearAttn(dim_head=16)`` (the gate's plain version) on
-   the card against the CPU. The projection
+   ``TaylorSeriesLinearAttn(dim_head=64)`` (the gate's plain version) on
+   the card against the CPU. B3's wide core (heads of 16 and 32, two
+   launches, ``taylor_core_wide_mma`` in bf16; ``taylor_core_f32`` in
+   float32) at the conditioned stack's B3 shape (160 frames x 1024 tokens
+   x 256, 8 heads): the block in both dtypes against its plain version with
+   its launches counted, the core against ``taylor_core_ref`` on the same
+   qkv timed beside its bound and the plain version, at d = 32 the no-norm
+   route's launches, and at both ``TAYLOR_CASES`` in both dtypes and a
+   batch boundary that must read exactly 0. The projection
    GEMM runs at every main-path shape on both bf16 routes (``wgmma``,
    WMMA) against ``torch.matmul`` in float32 and ``F.linear``, and at
    ragged shapes, with the epilogue's scaled columns where B3 uses them.
@@ -106,7 +113,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    blocks the 'launches' route. Then a small tokenizer
    with ``linear_attn_dim_head=16`` (32 px, 5 frames) through the same
    entry points: bf16 on the card, and float32 card against CPU (codes,
-   and the recon from the CPU's codes within 1e-3), no Taylor launch.
+   and the recon from the CPU's codes within 1e-3), each card run with
+   four launches of B3's wide core and none of the others.
 7. the general ``Attention`` path with the flash backend, forward and
    backward: one step of ``SpaceAttention(512, dim_head=32, heads=8,
    backend='flash')`` on (1, 17, 64, 64, 512) bf16 (4096 tokens a frame,
@@ -159,9 +167,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    attention heads 8 x 16: B3 twice on its no-norm route, no norm launch,
    no B1 or B2, B4 for the plain units; frames/s; its stream with cond
    fixed; float32 card against CPU at 32 px. The same stack at the
-   README's heads, 32 x 8, where no attention kernel runs (B3 takes heads
-   of 8 only): its launches, frames/s and float32 card against CPU. B3's no-norm route against its plain version at the
-   flagship shape (the kernels line's B3 row, key ``no_norm``).
+   README's heads, 32 x 8: B3 twice on its no-norm route on the wide core
+   (``taylor_core_wide_mma``, the kernels line's count), no norm launch, no
+   B1 or B2; frames/s and float32 card against CPU. B3's no-norm route
+   against its plain version at the flagship shape (the kernels line's B3
+   row, key ``no_norm``).
 10. training. Each block's backward at the flagship shapes, float32 (TF32
    off) and bf16 (B1; B2 on its 'launches' route in float32 and 'fused' in
    bf16; B3 with and without its norm; B4 at (8, 20, 16, 16, 512); B5 on
@@ -208,12 +218,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``torch._int_mm`` at the 1x1s and upsamplers, B4's bf16 conv launch at
    the unit convs, ``torch.quantize_per_tensor`` for K1); the gate's view,
    K1 + K2 against bf16 ``F.conv3d`` at the unit convs of C = 64, 128,
-   256, 512. Then the flagship (bf16, batch 8) on both paths in three
+   256, 512. Then the flagship (bf16, batch 8) on three paths in three
    modes, bf16, dynamic int8 and int8 after ``calibrate_int8`` on another
-   batch (42 sites default, 2 fused): K1 and K2 each 44 (default) or 4
-   (fused) times a roundtrip and no plain version of theirs, the output finite and not
-   bf16's, frames/s, code agreement and PSNR against bf16, the
-   calibration's seconds. Last, a small float32 config (``INT8_SMALL``,
+   batch (42 sites default, 2 fused, 44 packed): K1 and K2 each 44
+   (default), 4 (fused) or 46 (packed: ``lane_pack=True`` with
+   ``MAGVIT2_TPU_INT8_PACKED=1`` and ``MAGVIT2_TPU_NO_FUSED_RU=1``, the two
+   unfused stem units' convs gated at 128 -> 128; K2 twice at the stem's
+   64 channels, none there on the others) times a roundtrip and no plain
+   version of theirs, the output finite and not bf16's, frames/s, code
+   agreement and PSNR against bf16, the calibration's seconds. Last, a small float32 config (``INT8_SMALL``,
    TF32 off) on the card against the CPU on the CPU's scales carried
    through the JAX collection format and back (and dynamic), within 2e-2
    of the largest value. ``--profile`` adds the calibrated roundtrip's
@@ -304,6 +317,9 @@ KERNELS = {
     # B3's moment core: the feature maps, A = phi(k)^T v, S and the output
     # of _taylor_frame (taylor_attention.py:78-107)
     'taylor_core_mma': (TAYLOR_SOURCE, B3_TPU),
+    # the same at heads of 16 and 32 (two launches: the moments, then the
+    # output), on the conditioned stack at the README's 32 x 8 heads
+    'taylor_core_wide_mma': (TAYLOR_SOURCE, B3_TPU),
     'residual_unit_wide': (
         RU_SOURCE, 'magvit2_pytorch_tpu/ops/pallas/residual_unit_wide.py:56'),
     'residual_unit_packed': (
@@ -327,6 +343,11 @@ KERNELS = {
 INT8_KERNELS = ('quantize_s8', 'conv_s8')
 FLASH_KERNELS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
                  'flash_attention_bwd_dkv')
+# the path whose launches the kernels line reports for a kernel: a fused
+# roundtrip unless named here
+LAUNCH_PATH = {**dict.fromkeys(FLASH_KERNELS, 'attention_step'),
+               **dict.fromkeys(INT8_KERNELS, 'int8_dynamic_default'),
+               'taylor_core_wide_mma': 'cond_stack_32x8_default'}
 # the flash kernels by route (ops/kernels/flash_attention.py flash_route):
 # 'mma' for bf16, 'f32' for float32
 FLASH_ROUTES = {f'{kernel}_{route}': route
@@ -349,7 +370,7 @@ BLOCKS = {'space_attention_block': 2, 'time_attention_block': 2,
           'time_attention_block_fused': 2, 'time_attention_block_launches': 0,
           'taylor_attention_block': 2, 'gemm_wgmma': 8, 'gemm_wmma': 0,
           'gemm_f32': 0, 'space_attention_core_mma': 2, 'taylor_core_mma': 2,
-          'taylor_core_f32': 0}
+          'taylor_core_f32': 0, 'taylor_core_wide_mma': 0}
 # each fused unit launches one conv and one 1x1, in bf16 on the wgmma route
 FUSED_RU = {'residual_unit_wide': 20, 'residual_unit_packed': 2,
             'ru_conv_wgmma': 22, 'ru_conv_wmma': 0, 'ru_conv_f32': 0,
@@ -540,15 +561,24 @@ def attention_cost(groups, L, C, heads, dh, M, causal):
     return flops, nbytes
 
 
+def taylor_core_flops(rows, heads, d):
+    """FLOPs that B3's moment core needs over ``rows`` tokens: per token and
+    head, phi's d (d + 1) / 2 distinct products t_i t_j, each scaled by
+    1/sqrt2, for q and for k (phi_ij == phi_ji to the bit, so A_ij == A_ji
+    and phi(q) [A | S] needs each pair once, counted twice); then
+    phi(k)^T [v | 1] and phi(q) [A | S] over the F = 1 + d + d (d + 1) / 2
+    features and d + 1 columns, 4 F (d + 1)."""
+    pairs = d * (d + 1) // 2
+    feats = 1 + d + pairs
+    return rows * heads * (4 * feats * (d + 1) + 4 * pairs)
+
+
 def taylor_cost(frames, N, C, heads, d):
-    """FLOPs and bytes of one Taylor block in bf16: the two projections and,
-    per token and head, the second-order moments of k (k k^T, k v^T,
-    (k k^T) v^T) and their products with q and q q^T, numerator and
-    denominator (4 d^3 + 8 d^2 + 2 d)."""
+    """FLOPs and bytes of one Taylor block in bf16: the two projections and
+    the moment core (``taylor_core_flops``)."""
     rows = frames * N
     inner = heads * d
-    flops = (2 * rows * C * 4 * inner
-             + rows * heads * (4 * d ** 3 + 8 * d * d + 2 * d))
+    flops = 2 * rows * C * 4 * inner + taylor_core_flops(rows, heads, d)
     nbytes = 2 * (2 * rows * C + C + 4 * inner * C)
     return flops, nbytes
 
@@ -1508,13 +1538,55 @@ def phase_time_block(torch, dev, reps, smi):
 # widths (C 256, 16 heads x 8); N = 1, 144 and 1000 leave the last 64-token
 # chunk and 16-token tile part empty, 4096 is a 64 x 64 frame
 TAYLOR_CASES = ((3, 1), (3, 144), (3, 1000), (2, 4096))
-# the small tokenizer of the dim_head = 16 roundtrip (the block's gate sends
-# that head size to the plain version on both devices)
+# the small tokenizer of the dim_head = 16 roundtrip: two linear attention
+# layers, each in the encoder and the decoder, on B3's wide core
 TAYLOR_D16 = dict(image_size=32, init_dim=32, codebook_size=64,
                   layers=('residual', 'compress_space', 'linear_attend_space',
                           'compress_time', 'linear_attend_space'),
                   linear_attn_dim_head=16, linear_attn_heads=4,
                   use_gan=False, perceptual_loss_weight=0.0)
+
+
+def taylor_cases(torch, dev, gen, heads, dh, want_counts, what):
+    """B3 at ``TAYLOR_CASES`` (C 256, ``heads`` x ``dh``) in both dtypes
+    against its plain version in float32 (relative, ``TOL``), each call's
+    launches ``want_counts[dtype]``; frame 1 of N = 1000 alone and in a
+    batch of two must read exactly 0 (the core sums each frame in a fixed
+    order). Returns the worst errors and the batch boundary."""
+    from magvit2_pytorch_tpu_torch.ops.kernels import (
+        launch_counts, reset_launch_counts, taylor_attention as ta)
+    c = 256
+    worst = dict.fromkeys(want_counts, 0.0)
+    boundary = {}
+    for frames, n in TAYLOR_CASES:
+        inputs = taylor_inputs(torch, gen, frames, n, c, heads, dh)
+        for name, want_n in want_counts.items():
+            args = [t.to(dev, getattr(torch, name)) for t in inputs]
+            reset_launch_counts()
+            got = ta.taylor_attention(*args, heads, dh)
+            label = f'{what} ({frames}, {n}, {c}) {name}'
+            check_launches(label, launch_counts(), want_n)
+            err = relative_error(got, ta.taylor_attention_ref(
+                *(a.float() for a in args), heads, dh))
+            worst[name] = max(worst[name], err)
+            if not bool(torch.isfinite(got).all()):
+                fail(f'{label}: non-finite output')
+            if not err <= TOL[name]:
+                fail(f'{label}: error {err} of the largest value > '
+                     f'{TOL[name]}')
+            if n == 1000:
+                boundary[name] = (
+                    ta.taylor_attention(args[0][:2], *args[1:], heads, dh)[1:]
+                    - ta.taylor_attention(args[0][1:2], *args[1:], heads, dh)
+                ).abs().max().item()
+    log(f'[{what}] {len(TAYLOR_CASES)} cases ((frames, N) in '
+        f'{TAYLOR_CASES}, heads {heads} x {dh}): worst error over the '
+        f'largest value {worst} (tol {TOL}); batch boundary at N = 1000 '
+        f'{boundary}')
+    if any(v != 0.0 for v in boundary.values()):
+        fail(f'{what}: frame 1 differs alone and in a batch of two by '
+             f'{boundary}')
+    return worst, boundary
 
 
 def taylor_inputs(torch, gen, frames, n, c=256, heads=16, dh=8):
@@ -1531,9 +1603,9 @@ def phase_taylor_block(torch, dev, reps, smi):
     ``F.linear``; its core against the plain version on the same qkv (in
     float32 and in bf16), with TFLOP/s and GB/s. Then B3 at
     ``TAYLOR_CASES`` in both dtypes with its launches counted, the batch
-    boundary in both dtypes, and ``TaylorSeriesLinearAttn(dim_head=16)``
-    (the gate's plain version) against the CPU. Returns the core's
-    kernels-line row and the split for B3's row."""
+    boundary in both dtypes, and ``TaylorSeriesLinearAttn(dim_head=64)``
+    (the gate's plain version: no core takes 64) against the CPU. Returns
+    the core's kernels-line row and the split for B3's row."""
     import torch.nn.functional as F
     from magvit2_pytorch_tpu_torch.ops import attention
     from magvit2_pytorch_tpu_torch.ops.basic import init_module_parameters
@@ -1581,7 +1653,7 @@ def phase_taylor_block(torch, dev, reps, smi):
         rmsnorm=(3 * rows * c, 2 * (2 * rows * c + c)),
         qkv_gemm=(2 * rows * c * 3 * hd,
                   2 * (rows * c + 3 * hd * c + rows * 3 * hd)),
-        core=(rows * heads * (4 * dh ** 3 + 8 * dh * dh + 2 * dh),
+        core=(taylor_core_flops(rows, heads, dh),
               2 * (rows * 3 * hd + rows * hd)),
         out_gemm=(2 * rows * hd * c, 2 * (rows * hd + c * hd + rows * c)))
     bounds = {k: bound(*v) for k, v in launch_cost.items()}
@@ -1630,42 +1702,11 @@ def phase_taylor_block(torch, dev, reps, smi):
                         taylor_core_mma=0, taylor_core_f32=1),
         'bfloat16': dict(gemm_f32=0, gemm_wgmma=2, gemm_wmma=0,
                          taylor_core_mma=1, taylor_core_f32=0)}
-    worst = dict.fromkeys(want_counts, 0.0)
-    boundary = {}
-    for frames, n in TAYLOR_CASES:
-        inputs = taylor_inputs(torch, gen, frames, n)
-        for name, want_n in want_counts.items():
-            args = [t.to(dev, getattr(torch, name)) for t in inputs]
-            reset_launch_counts()
-            got = ta.taylor_attention(*args, heads, dh)
-            counts = launch_counts()
-            err = relative_error(got, ta.taylor_attention_ref(
-                *(a.float() for a in args), heads, dh))
-            worst[name] = max(worst[name], err)
-            what = f'taylor block ({frames}, {n}, {c}) {name}'
-            if not bool(torch.isfinite(got).all()):
-                fail(f'{what}: non-finite output')
-            if not err <= TOL[name]:
-                fail(f'{what}: error {err} of the largest value > '
-                     f'{TOL[name]}')
-            if any(counts[key] != v for key, v in want_n.items()):
-                fail(f'{what}: launches {counts}, expected {want_n}')
-            if n == 1000:
-                # frame 1 alone equals its place in a batch of two, to the
-                # bit: the core sums each frame in a fixed order
-                boundary[name] = (
-                    ta.taylor_attention(args[0][:2], *args[1:], heads, dh)[1:]
-                    - ta.taylor_attention(args[0][1:2], *args[1:], heads, dh)
-                ).abs().max().item()
-    log(f'[taylor block] {len(TAYLOR_CASES)} cases ((frames, N) in '
-        f'{TAYLOR_CASES}): worst error over the largest value {worst} (tol '
-        f'{TOL}); batch boundary at N = 1000 {boundary}')
-    if any(v != 0.0 for v in boundary.values()):
-        fail(f'taylor block: frame 1 differs alone and in a batch of two by '
-             f'{boundary}')
+    worst, boundary = taylor_cases(torch, dev, gen, heads, dh, want_counts,
+                                   'taylor block')
 
-    # dim_head = 16: the gate's plain version on the card against the CPU
-    module = attention.TaylorSeriesLinearAttn(c, dim_head=16, heads=8)
+    # dim_head = 64: the gate's plain version on the card against the CPU
+    module = attention.TaylorSeriesLinearAttn(c, dim_head=64, heads=4)
     init_module_parameters(module, torch.Generator().manual_seed(5))
     xs, gs = taylor_inputs(torch, gen, 4, 256)[:2]
     errs = {}
@@ -1674,29 +1715,176 @@ def phase_taylor_block(torch, dev, reps, smi):
         reset_launch_counts()
         card = module.to(dev, dt)(xs.to(dev, dt), gs.to(dev, dt))
         if any(launch_counts().values()):
-            fail(f'TaylorSeriesLinearAttn(dim_head=16) {name} launched '
+            fail(f'TaylorSeriesLinearAttn(dim_head=64) {name} launched '
                  f'{launch_counts()}: the gate sends it to the plain version')
         # the CPU in float32 on the same (rounded) inputs and weights
         cpu = module.to('cpu', torch.float32)(xs.to(dt).float(),
                                               gs.to(dt).float())
         errs[name] = relative_error(card, cpu)
         if not errs[name] <= TOL[name]:
-            fail(f'TaylorSeriesLinearAttn(dim_head=16) {name}: card against '
+            fail(f'TaylorSeriesLinearAttn(dim_head=64) {name}: card against '
                  f'CPU {errs[name]} of the largest value > {TOL[name]}')
-    log(f'[taylor block] TaylorSeriesLinearAttn(256, dim_head=16, heads=8) '
+    log(f'[taylor block] TaylorSeriesLinearAttn(256, dim_head=64, heads=4) '
         f'on (4, 256, 256), card against CPU, no kernel launched: error '
         f'over the largest value {errs} (tol {TOL})')
     return row, dict(split, bounds_ms={k: v[0] for k, v in bounds.items()},
                      plain_ms=plain, library_ms=library,
                      launch_errors=launch_err, batch_boundary=boundary,
-                     cases_worst=worst, dim_head_16=errs)
+                     cases_worst=worst, dim_head_64=errs)
+
+
+# B3's wide core (heads of 16 and 32) at the conditioned stack's B3 shape:
+# 160 frames (batch 8 x 20 padded frames) x 1024 tokens x 256 channels, 8
+# heads: the README's 32 x 8 conditioned stack, and the same at 16
+WIDE_HEADS = (32, 16)
+WIDE_SHAPE = (BATCH * 20, 1024, 256, 8)      # frames, N, C, heads
+PLAIN_REPS = 5       # timings of a plain version that takes tens of ms
+
+
+def phase_taylor_wide(torch, dev, reps, smi):
+    """B3 at heads of 32 and 16 on its wide core (``taylor_core_wide_mma``
+    in bf16, ``taylor_core_f32`` in float32) at ``WIDE_SHAPE``: the
+    block in both dtypes against its plain version in float32 (relative,
+    phase 3's tolerances) with its launches counted; the core alone against
+    ``taylor_core_ref`` on the same qkv in float32 and in bf16, timed beside
+    its bound and the plain version's time, with TFLOP/s of the work the
+    function needs (``taylor_core_flops``); at d = 32 the no-norm route's
+    launches; at both ``TAYLOR_CASES`` (heads 8 x d) in both dtypes and a
+    batch boundary that must read exactly 0. Returns the kernels-line
+    row: the d = 32 core, per call of its two launches (d = 16 under
+    ``dim_head_16``)."""
+    from magvit2_pytorch_tpu_torch.ops.kernels import (
+        gemm, launch_counts, reset_launch_counts, taylor_attention as ta)
+    set_tf32(False)
+    gen = torch.Generator().manual_seed(45)
+    g, n, c, heads = WIDE_SHAPE
+    block_counts = {
+        'float32': dict(taylor_attention_block=1, rmsnorm=1, gemm_f32=2,
+                        gemm_wgmma=0, gemm_wmma=0, taylor_core_wide_mma=0,
+                        taylor_core_mma=0, taylor_core_f32=1),
+        'bfloat16': dict(taylor_attention_block=1, rmsnorm=1, gemm_f32=0,
+                         gemm_wgmma=2, gemm_wmma=0, taylor_core_wide_mma=1,
+                         taylor_core_mma=0, taylor_core_f32=0)}
+    rows = {}
+    for dh in WIDE_HEADS:
+        hd = heads * dh
+        inputs = taylor_inputs(torch, gen, g, n, c, heads, dh)
+        block = {}
+        for name, want_n in block_counts.items():
+            args = [t.to(dev, getattr(torch, name)) for t in inputs]
+            reset_launch_counts()
+            got = ta.taylor_attention(*args, heads, dh)
+            counts = launch_counts()
+            what = f'taylor block d={dh} ({g}, {n}, {c}) {name}'
+            check_launches(what, counts, want_n)
+            err = relative_error(got, ta.taylor_attention_ref(
+                *(a.float() for a in args), heads, dh))
+            if not bool(torch.isfinite(got).all()):
+                fail(f'{what}: non-finite output')
+            if not err <= TOL[name]:
+                fail(f'{what}: error {err} of the largest value > '
+                     f'{TOL[name]}')
+            del got
+            block[name] = dict(
+                max_rel_err=err,
+                ms=median_ms(lambda: ta.taylor_attention(*args, heads, dh),
+                             reps),
+                plain_ms=median_ms(lambda: ta.taylor_attention_ref(
+                    *args, heads, dh), PLAIN_REPS, warmup=1))
+            del args
+            torch.cuda.empty_cache()
+
+        # the core alone, on the qkv the block's GEMMs give it
+        x, gamma, wqkv = (t.to(dev, torch.bfloat16) for t in inputs[:3])
+        qkv = gemm.gemm_nt(gemm.rmsnorm(x.reshape(-1, c), gamma), wqkv,
+                           scaled_cols=hd, col_scale=dh ** -0.5)
+        del x
+        attn = ta.taylor_core(qkv, g, heads, dh)
+        want = ta.taylor_core_ref(qkv.float(), g, heads, dh)
+        err = relative_error(attn, want)
+        abs_err = (attn.float() - want).abs().max().item()
+        del want
+        want16 = ta.taylor_core_ref(qkv, g, heads, dh)
+        err16 = relative_error(attn, want16)
+        share16 = (attn != want16).float().mean().item()
+        del want16
+        ms = median_ms(lambda: ta.taylor_core(qkv, g, heads, dh), reps,
+                       inner=INNER)
+        plain_ms = median_ms(lambda: ta.taylor_core_ref(qkv, g, heads, dh),
+                             PLAIN_REPS, warmup=1)
+        q32 = qkv.float()
+        err32 = relative_error(ta.taylor_core(q32, g, heads, dh),
+                               ta.taylor_core_ref(q32, g, heads, dh))
+        ms32 = median_ms(lambda: ta.taylor_core(q32, g, heads, dh),
+                         PLAIN_REPS, warmup=1)
+        plain32 = median_ms(lambda: ta.taylor_core_ref(q32, g, heads, dh),
+                            PLAIN_REPS, warmup=1)
+        del q32, attn, qkv
+        torch.cuda.empty_cache()
+        rows_n = g * n
+        flops = taylor_core_flops(rows_n, heads, dh)
+        nbytes = 2 * (rows_n * 3 * hd + rows_n * hd)
+        bound_ms, bound_by = bound(flops, nbytes)
+        row = dict(shape=[g, n, heads, dh], per='call (two launches)',
+                   max_rel_err=err, max_abs_err=abs_err,
+                   max_rel_err_bf16_plain=err16,
+                   differing_share_bf16_plain=share16, ms=ms,
+                   plain_ms=plain_ms,
+                   plain_call='taylor_core_ref (bf16 casts) on the same qkv',
+                   library_ms=None, library_call=None, bound_ms=bound_ms,
+                   bound_by=bound_by, bound_share=bound_ms / ms,
+                   tflops=flops / ms / 1e9, ms_fp32=ms32,
+                   plain_ms_fp32=plain32, max_rel_err_fp32=err32, block=block)
+        log(f'[taylor wide] d={dh}: the core at ({g}, {n}, {heads} x {dh}) '
+            f'bf16 {ms:.4f} ms ({row["tflops"]:.1f} TFLOP/s of the needed '
+            f'work, {bound_ms / ms:.1%} of the bound {bound_ms:.4f} ms, '
+            f'{bound_by}), plain {plain_ms:.4f} ms, no library call; '
+            f'against taylor_core_ref in float32 on the same qkv {err:.3e} '
+            f'of the largest value (tol {TOL["bfloat16"]:g}), against the '
+            f'bf16 plain version {err16:.3e}, {share16:.4%} of values '
+            f'differ; float32 core {ms32:.4f} ms, plain {plain32:.4f} ms, '
+            f'error {err32:.3e} (tol {TOL["float32"]:g}); the block '
+            f'({g}, {n}, {c}) {block} on {smi}')
+        if not err <= TOL['bfloat16']:
+            fail(f'taylor wide core d={dh}: error {err} of the largest value '
+                 f'> {TOL["bfloat16"]}')
+        if not err32 <= TOL['float32']:
+            fail(f'taylor wide core d={dh} float32: error {err32} of the '
+                 f'largest value > {TOL["float32"]}')
+        rows[dh] = row
+
+    # d = 32: the no-norm route (the conditioned LinearAttention's), the
+    # ragged cases and the batch boundary
+    dh = 32
+    x, _, wqkv, wout = (t.to(dev, torch.bfloat16) for t in taylor_inputs(
+        torch, gen, 4, 256, c, heads, dh))
+    reset_launch_counts()
+    got = ta.taylor_attention(x, None, wqkv, wout, heads, dh)
+    check_launches('taylor wide no-norm route', launch_counts(), {
+        'taylor_attention_block': 1, 'taylor_attention_block_no_norm': 1,
+        'rmsnorm': 0, 'gemm_wgmma': 2, 'taylor_core_wide_mma': 1})
+    no_norm = {k: v for k, v in launch_counts().items() if v}
+    no_norm_err = relative_error(got, ta.taylor_attention_ref(
+        x.float(), None, wqkv.float(), wout.float(), heads, dh))
+    if not no_norm_err <= TOL['bfloat16']:
+        fail(f'taylor wide no-norm route: error {no_norm_err} > '
+             f'{TOL["bfloat16"]}')
+    log(f'[taylor wide] d=32: no-norm route launches {no_norm}, error '
+        f'{no_norm_err:.3e}')
+    cases = {d: taylor_cases(torch, dev, gen, heads, d, block_counts,
+                             f'taylor wide d={d}') for d in WIDE_HEADS}
+    rows[16].update(cases_worst=cases[16][0], batch_boundary=cases[16][1])
+    return dict(rows[32], dim_head_16=rows[16], no_norm_err=no_norm_err,
+                cases_worst=cases[32][0], batch_boundary=cases[32][1])
 
 
 def phase_taylor_roundtrip(torch, dev):
     """A small tokenizer with ``linear_attn_dim_head=16`` through
     ``tokenize`` and ``decode_from_code_indices`` on the card: bf16 shapes
     and finite values, and float32 (TF32 off) against the CPU on the same
-    weights and input; no Taylor kernel launches (the gate)."""
+    weights and input; each card run launches B3's core four times, the
+    wide core in bf16 and the float32 core in float32, and no other Taylor
+    core."""
     from magvit2_pytorch_tpu_torch import VideoTokenizer
     from magvit2_pytorch_tpu_torch.ops.kernels import (
         launch_counts, reset_launch_counts)
@@ -1716,10 +1904,14 @@ def phase_taylor_roundtrip(torch, dev):
         recon = tok.decode_from_code_indices(
             given.to(codes.device).reshape(2, -1))
         taylor = {k: v for k, v in launch_counts().items()
-                  if k.startswith('taylor')}
-        if any(taylor.values()):
-            fail(f'dim_head=16 roundtrip ({where}, {dt}): Taylor launches '
-                 f'{taylor}')
+                  if k.startswith('taylor_core')}
+        want = dict.fromkeys(taylor, 0)
+        if where == 'card':
+            want['taylor_core_wide_mma' if dt == torch.bfloat16
+                 else 'taylor_core_f32'] = 4
+        if taylor != want:
+            fail(f'dim_head=16 roundtrip ({where}, {dt}): Taylor core '
+                 f'launches {taylor}, expected {want}')
         if (tuple(recon.shape) != (2, 5, 32, 32, 3)
                 or not bool(torch.isfinite(recon).all())):
             fail(f'dim_head=16 roundtrip ({where}, {dt}): recon '
@@ -3098,11 +3290,9 @@ README_STREAM = {**STREAM_NONE, 'taylor_attention_block': 8,
 # attention. The conditioned linear attention takes the full attention's
 # head shape (attn_dim_head x attn_heads, as the JAX package builds it,
 # tokenizer_module.py:301-308), so the stack runs at two head shapes: the
-# README's 32 x 8, where B3 does not run (it takes heads of 8 only, and a
-# 32-wide head has 1057 Taylor features: the conditioned linear attention
-# runs its plain version on the card, where the JAX kernel's VMEM fit takes
-# this head up to 744 tokens a frame), and 8 x 16, the linear attention's
-# own, where B3 runs on its no-norm route
+# README's 32 x 8, where B3 runs on its wide core (a 32-wide head has 1057
+# Taylor features), and 8 x 16, the linear attention's own; both on B3's
+# no-norm route
 COND_DIM = 32
 COND_LAYERS = (
     'residual', 'compress_space', ('consecutive_residual', 2),
@@ -3112,15 +3302,18 @@ COND_LAYERS = (
     'cond_residual', 'cond_residual', 'cond_attend_time', 'gateloop_time')
 COND_HEADS = {'8x16': dict(attn_dim_head=8, attn_heads=16),
               '32x8': dict(attn_dim_head=32, attn_heads=8)}
-# per roundtrip at 8 x 16: B3 twice on its no-norm route (two GEMMs each),
-# no norm launch, no B1 or B2 (the conditioned norm sends both to the
-# general path); at 32 x 8 no attention kernel at all. B4 on the fused path
+# per roundtrip: B3 twice on its no-norm route (two GEMMs each; the core at
+# 8 x 16 taylor_core_mma, at 32 x 8 the wide core), no norm launch, no B1
+# or B2 (the conditioned norm sends both to the general path). B4 on the
+# fused path
 # for the plain ResidualUnits, RU_STAGES but the last stage, whose pair
 # became cond_residual
 COND_BLOCKS = {'8x16': {**NO_BLOCKS, 'taylor_attention_block': 2,
                         'taylor_attention_block_no_norm': 2,
                         'taylor_core_mma': 2, 'gemm_wgmma': 4, 'rmsnorm': 0},
-               '32x8': {**NO_BLOCKS, 'taylor_attention_block_no_norm': 0,
+               '32x8': {**NO_BLOCKS, 'taylor_attention_block': 2,
+                        'taylor_attention_block_no_norm': 2,
+                        'taylor_core_wide_mma': 2, 'gemm_wgmma': 4,
                         'rmsnorm': 0}}
 COND_FUSED_RU = {**FUSED_RU, 'residual_unit_wide': 16, 'ru_conv_wgmma': 18,
                  'ru_pointwise_wgmma': 18}
@@ -3365,9 +3558,9 @@ def phase_cond_stack(torch, dev, smi, profile_dir):
     """The conditioned stack (COND_LAYERS) at README width, bf16 batch 8,
     dim_cond 32 from a seeded generator, at each head shape of COND_HEADS:
     a roundtrip on the default and the fused path (``phase_roundtrip``,
-    COND_LAUNCHES: at 8 x 16 B3 twice on its no-norm route, no norm, B1 or
-    B2; at 32 x 8 no attention kernel; B4 for the plain units on the fused
-    path), frames/s on each; at 8 x 16 the stream on the fused tokenizer
+    COND_LAUNCHES: B3 twice on its no-norm route, at 32 x 8 on its wide
+    core; no norm, B1 or B2; B4 for the plain units on the fused path),
+    frames/s on each; at 8 x 16 the stream on the fused tokenizer
     with cond fixed for the session (B3 no-norm per chunk, no B4 or B5),
     its codes against the whole clip's; then a small form (32 px, 5 frames,
     batch 1) float32 card against CPU, at 8 x 16 on both paths, at 32 x 8
@@ -3419,8 +3612,7 @@ def phase_cond_stack(torch, dev, smi, profile_dir):
             clip, paths=paths, cond=cond1)
         for path, c in counts.items():
             taylor = c['taylor_attention_block']
-            if (c['taylor_attention_block_no_norm'] != taylor
-                    or (taylor > 0) != (heads == '8x16')):
+            if c['taylor_attention_block_no_norm'] != taylor or taylor == 0:
                 fail(f'cond stack {heads} float32 {path}: Taylor blocks '
                      f'{taylor}, {c["taylor_attention_block_no_norm"]} on the '
                      f'no-norm route')
@@ -3550,7 +3742,7 @@ def phase_rest_of_serving(torch, dev, smi, profile_dir, reps):
         f'cond stack (default / fused) {cs["default"]["fps"]:.2f} / '
         f'{cs["fused"]["fps"]:.2f} frames/s at heads 8 x 16 (B3), '
         f'{cs32["default"]["fps"]:.2f} / {cs32["fused"]["fps"]:.2f} at the '
-        f"README's 32 x 8 (plain Taylor attention)")
+        f"README's 32 x 8 (B3's wide core)")
     return out, paths, no_norm
 
 
@@ -4295,10 +4487,19 @@ INT8_ENV = {'MAGVIT2_TPU_INT8_CONV': '1'}
 # (min(C_in, C_out) >= 128): default, the 20 unfused units at C >= 128
 # (their conv and 1x1), the 128 -> 256 and 256 -> 512 downsamplers and the
 # 512 -> 256 and 256 -> 128 upsamplers; fused, the units run B4/B5 in bf16
-# and only the four resamplers quantize. calibrate_int8 calibrates all but
-# the upsamplers, which stay dynamic.
-INT8_SITES = {'default': 44, 'fused': 4}
-INT8_CALIBRATED = {'default': 42, 'fused': 2}
+# and only the four resamplers quantize; packed (lane_pack=True with
+# MAGVIT2_TPU_INT8_PACKED=1 and MAGVIT2_TPU_NO_FUSED_RU=1), the default's
+# sites and the causal convs of the two unfused stem units (64 channels,
+# gated at the packed layout's 128 -> 128). calibrate_int8 calibrates all
+# but the upsamplers, which stay dynamic.
+INT8_SITES = {'default': 44, 'fused': 4, 'packed': 46}
+INT8_CALIBRATED = {'default': 42, 'fused': 2, 'packed': 44}
+INT8_PACKED_ENV = {'MAGVIT2_TPU_INT8_PACKED': '1',
+                   'MAGVIT2_TPU_NO_FUSED_RU': '1'}
+INT8_PATH_ENV = {'default': {}, 'fused': FUSED_ENV,
+                 'packed': INT8_PACKED_ENV}
+# K2's calls a packed roundtrip at the stem's 64 channels: one a stem unit
+INT8_STEM_SITES = 2
 # K2's site shapes on the flagship, batch 8: (what, x (B, T, H, W, C), the
 # weight (N, C, kt, kh, kw), stride, depth-to-space, calls a roundtrip)
 INT8_SHAPES = (
@@ -4637,16 +4838,19 @@ def phase_int8_flagship(torch, dev, path, smi, profile_dir=None):
     roundtrip against the site count, code agreement and PSNR against
     bf16, the calibration's seconds and site count; with ``profile_dir``
     the calibrated roundtrip's device time by kernel
-    (``profile_int8_<path>.txt``)."""
+    (``profile_int8_<path>.txt``). ``path`` 'packed': ``lane_pack=True``
+    with ``INT8_PACKED_ENV``, K2's calls at the stem's 64 channels counted
+    (``INT8_STEM_SITES``)."""
+    from magvit2_pytorch_tpu_torch.ops.kernels import int8 as k8
     tok = flagship_tokenizer(torch, dev, torch.bfloat16,
-                             lane_pack=path == 'fused')
+                             lane_pack=path in ('fused', 'packed'))
     gen = torch.Generator(device=dev).manual_seed(0)
     video = torch.rand(BATCH, 17, 128, 128, 3, generator=gen, device=dev)
     # the calibration batch is another draw than the one measured
     calibration = torch.rand(BATCH, 17, 128, 128, 3, generator=gen,
                              device=dev)
     out, counts = {}, {}
-    with environment(FUSED_ENV if path == 'fused' else {}):
+    with environment(INT8_PATH_ENV[path]):
         from magvit2_pytorch_tpu_torch.ops.kernels import (
             launch_counts, reset_launch_counts)
         reset_launch_counts()
@@ -4667,7 +4871,12 @@ def phase_int8_flagship(torch, dev, path, smi, profile_dir=None):
                 codes, recon, c = int8_roundtrip(
                     torch, f'int8 {mode} {path} roundtrip', tok, video,
                     INT8_SITES[path])
+                k2 = dict(k8.CONV_S8_BY_C_IN)
                 counts[f'int8_{mode}_{path}'] = c
+                stem = k2.get(64, 0)
+                if stem != (INT8_STEM_SITES if path == 'packed' else 0):
+                    fail(f'int8 {mode} {path}: K2 at the 64-channel stem '
+                         f'{stem} times a roundtrip ({k2} by channels)')
                 if torch.equal(recon, recon_b):
                     fail(f'int8 {mode} {path}: the output equals bf16\'s: '
                          'int8 did not engage')
@@ -4683,13 +4892,15 @@ def phase_int8_flagship(torch, dev, path, smi, profile_dir=None):
                     fps=tp['fps'], ms_per_roundtrip=tp['ms_per_roundtrip'],
                     code_agreement=(codes == codes_b).float().mean().item(),
                     psnr_db=psnr(recon, recon_b),
-                    launches={k: c[k] for k in NO_INT8})
+                    launches={k: c[k] for k in NO_INT8},
+                    k2_by_channels=k2)
                 if mode == 'static':
                     out[mode].update(calibration_s=calib_s,
                                      calibrated_sites=n)
                 log(f'[int8 {path}] {mode}: {tp["fps"]:.2f} frames/s against '
                     f'bf16 {out["bf16"]["fps"]:.2f}; K1 / K2 '
-                    f'{c["quantize_s8"]} / {c["conv_s8"]} a roundtrip; codes '
+                    f'{c["quantize_s8"]} / {c["conv_s8"]} a roundtrip (K2 by '
+                    f'input channels {k2}); codes '
                     f'agree with bf16 {out[mode]["code_agreement"]:.4%}, PSNR '
                     f'{out[mode]["psnr_db"]:.2f} dB'
                     + (f'; calibrate_int8 {calib_s:.3f} s, {n} sites'
@@ -4762,7 +4973,7 @@ def phase_int8(torch, dev, smi, profile_dir=None, reps=REPS):
     # them: parameters made inside it are inference tensors, which have no
     # version counter, so their quantized weights could not be cached
     readings, counts = {}, {}
-    for path in ('default', 'fused'):
+    for path in INT8_PATH_ENV:
         readings[path], c = phase_int8_flagship(torch, dev, path, smi,
                                                 profile_dir)
         counts.update(c)
@@ -4771,8 +4982,10 @@ def phase_int8(torch, dev, smi, profile_dir=None, reps=REPS):
     log(f'[int8] frames/s bf16 / dynamic / static on {smi}: default '
         + ' / '.join(f'{readings["default"][m]["fps"]:.2f}'
                      for m in ('bf16', 'dynamic', 'static'))
-        + ', fused ' + ' / '.join(f'{readings["fused"][m]["fps"]:.2f}'
-                                  for m in ('bf16', 'dynamic', 'static'))
+        + ''.join(f', {path} ' + ' / '.join(
+            f'{readings[path][m]["fps"]:.2f}'
+            for m in ('bf16', 'dynamic', 'static'))
+            for path in ('fused', 'packed'))
         + f'; the phase took {readings["seconds"]:.1f} s')
     return rows, readings, counts
 
@@ -5471,6 +5684,9 @@ def main():
             torch, dev, REPS, smi)
         kernel_rows['taylor_attention_block']['split_ms'] = split
         torch.cuda.empty_cache()
+        kernel_rows['taylor_core_wide_mma'] = phase_taylor_wide(
+            torch, dev, REPS, smi)
+        torch.cuda.empty_cache()
         for name, rows in phase_config4_kernels(torch, dev, REPS).items():
             kernel_rows[name]['config4_shapes'] = rows
     torch.cuda.empty_cache()
@@ -5518,13 +5734,8 @@ def main():
     # the contract's keys last: a row's own 'route' (the GEMM's) gives way
     kernels = [{**kernel_rows[name], 'name': name, 'route': 'cuda',
                 'source': source, 'replaces': replaces,
-                # on the path that runs the kernel: a fused roundtrip, one
-                # step of the general Attention path, or a dynamic int8
-                # roundtrip of the default path
-                'launches': counts['attention_step' if name in FLASH_KERNELS
-                                   else 'int8_dynamic_default'
-                                   if name in INT8_KERNELS
-                                   else 'fused'][name],
+                # on the path that runs the kernel (LAUNCH_PATH)
+                'launches': counts[LAUNCH_PATH.get(name, 'fused')][name],
                 'launches_by_path': {p: counts[p][name] for p in counts},
                 # all of this kernel's calls in one warm fused roundtrip
                 'fused_roundtrip_ms': tp['fused']['ru_ms'].get(name)}

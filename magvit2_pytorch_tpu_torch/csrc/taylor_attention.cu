@@ -11,13 +11,24 @@
 //   attn = per (frame, head): moments over N, then per token  (B*N, H*d)
 //   out  = attn Wout^T                                        (B*N, C)
 //
-// Two cores, picked by the wrapper (taylor_core_route) and passed in:
-// - kTaylorMma, bf16: tensor cores (mma.sync m16n8k16), below.
-// - kTaylorF32, float32: CUDA cores, one block per (frame, head).
+// Cores, picked by the wrapper (taylor_core_route) and passed in:
+// - kTaylorMma, bf16, head size 8: tensor cores (mma.sync m16n8k16), one
+//   launch, below.
+// - kTaylorMma, bf16, head sizes 16 and 32 (the conditioned stack's linear
+//   attention takes the full attention's heads, 32 wide by default): two
+//   launches on tensor cores, the "wide" core further below.
+// - kTaylorF32, float32, head sizes 8, 16, 32: CUDA cores, one block per
+//   (frame, head).
 // What bounds the core at the flagship shape (160 frames x 1024 tokens, 16
 // heads x 8): bytes. It reads bf16 q, k and v (126 MB) and writes the
 // attention (42 MB), 0.05 ms at 3.35 TB/s; its tensor-core work, 13.4
-// GFLOP of m16n8k16 (a third of it padding), is a fraction of that.
+// GFLOP of m16n8k16 (a third of it padding), is a fraction of that. At
+// heads of 32 (160 frames x 1024 tokens, 8 heads x 32) it is operations,
+// barely: phi_ij == phi_ji, so the function needs F = 1 + d + d (d + 1) / 2
+// = 561 features a head, 4 F (d + 1) + 2 d (d + 1) = 76 k FLOPs a token and
+// head, 99.8 GFLOP, 0.101 ms at 989 TFLOP/s, against 0.100 ms of bytes
+// (336 MB of q, k, v and the attention). The wide core below builds all
+// d^2 products, about twice that work.
 #include "common.cuh"
 
 namespace mv2 {
@@ -131,25 +142,26 @@ __global__ void __launch_bounds__(kTaylorThreads)
   const volatile float* A2 = A1 + D * D;
   const volatile float* sk = A2 + D * D * D;
   const volatile float* skk = sk + D;
+  // one thread a token; the loop over i stays rolled (D^2 FMAs a turn, D^3
+  // unrolled would not build at D = 32), q_i read again from the row
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    const float* qrow = frame + n * ld + h * D;
     float q[D], num[D];
 #pragma unroll
     for (int i = 0; i < D; ++i) {
-      q[i] = frame[n * ld + h * D + i];
+      q[i] = qrow[i];
       num[i] = A0[i];
     }
     float den = (float)N;
-#pragma unroll
+#pragma unroll 1
     for (int i = 0; i < D; ++i) {
-      den += q[i] * sk[i];
+      const float qi = qrow[i];
+      den += qi * sk[i];
 #pragma unroll
-      for (int e = 0; e < D; ++e) num[e] += q[i] * A1[i * D + e];
-    }
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
+      for (int e = 0; e < D; ++e) num[e] += qi * A1[i * D + e];
 #pragma unroll
       for (int j = 0; j < D; ++j) {
-        const float qq = q[i] * q[j] * kInvSqrt2;
+        const float qq = qi * q[j] * kInvSqrt2;
         den += qq * skk[i * D + j];
         const volatile float* a2 = A2 + (i * D + j) * D;
 #pragma unroll
@@ -169,6 +181,12 @@ cudaError_t launch_taylor_core_f32(const float* qkv, float* attn, int frames,
                                    cudaStream_t stream) {
   constexpr int kMoments = D + D * D + D * D * D + D + D * D;
   const size_t smem = sizeof(float) * (kMoments + kTaylorTile * (1 + 2 * D));
+  if (smem > 48 * 1024) {   // D = 32: 173 KB of moments and features
+    cudaError_t err = cudaFuncSetAttribute(
+        taylor_core_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+  }
   taylor_core_f32_kernel<D><<<frames * H, kTaylorThreads, smem, stream>>>(
       qkv, attn, N, H, eps);
   MV2_CHECK_LAUNCH();
@@ -477,24 +495,415 @@ cudaError_t launch_taylor_core_mma(const bf16* qkv, bf16* attn, int frames,
   return cudaSuccess;
 }
 
+// ---- kTaylorMma at D = 16 and 32: the wide core, two launches --------------
+//
+// At D = 32 a head has 32 + 1024 phi features (and the constant): its
+// float32 [A | S] (1056 x 33) is ~140 KB, past a block's registers, so the
+// one-launch design above does not stretch. Two launches instead, with the
+// same cast points (_taylor_frame, taylor_attention.py:55-107):
+// Launch 1 (taylor_moments_mma_kernel), grid (frame x head, slab): the
+//   feature rows of a head are cut into 16-row units: phi_ij for one i and
+//   16 j (D * D / 16 units), k_j (D / 16 units) and the constant row (one
+//   unit, which gives sum v). A warp owns kUpw units and a block kWarps1
+//   warps, so a (frame, head) takes kSlabs blocks, each over all N tokens:
+//   no sum crosses blocks. The block streams the head's k and v through a
+//   three-stage cp.async ring; per 16-token tile a warp reads k and v as
+//   mma.sync fragments (ldmatrix.trans), builds each unit's phi(k) rows in
+//   registers (phi_ij = bf16(bf16(k_i k_j) bf16(1/sqrt2)), k_i taken from
+//   the lane that holds it by a shuffle) and accumulates [A | S] +=
+//   phi(k)^T [v | 1] over the tokens in float32. It writes [A | S]
+//   transposed in bf16 (the JAX kernel's cast) to scratch, columns v_e,
+//   then S, then zeros, and sum v in float32.
+// Launch 2 (taylor_apply_mma_kernel), grid (frame x head, 256 tokens):
+//   the block loads the head's [A | S]^T (86 KB at D = 32) and its q into
+//   shared memory; a warp takes 32 tokens (two m16 tiles) and, per
+//   16-feature step, builds phi(q) in registers and runs [num | den] +=
+//   phi(q) [A | S] (ldmatrix B fragments, one load for both tiles). Then
+//   num + sum v, den + N, r = bf16(1 / (den + eps)), out = bf16(num r).
+// What bounds it is operations (the file's head note); padding costs the
+// tensor cores 40 columns for 33 and the constant unit 1 of 67 rows. The
+// symmetry phi_ij == phi_ji (to the bit) is not used: it would halve both
+// launches' products.
+template <int D>
+struct WideTc {
+  static_assert(D == 16 || D == 32, "the wide core takes heads of 16 or 32");
+  static constexpr int kJb = D / 16;               // 16-row blocks of j
+  static constexpr int kFeat = D + D * D;          // rows: k_j, then phi_ij
+  static constexpr int kNt = D / 8 + 1;            // column tiles: v, then S
+  static constexpr int kCols = 8 * kNt;            // [A | S], zero-padded
+  static constexpr int kQuad = D * kJb;            // units of phi_ij rows
+  static constexpr int kUnits = kQuad + kJb + 1;   // + k_j, + the constant
+  static constexpr int kUpw = 4;                   // units a warp
+  static constexpr int kSlabs = D == 32 ? 3 : 1;   // blocks a (frame, head)
+  static constexpr int kWarps1 =
+      ((kUnits + kUpw - 1) / kUpw + kSlabs - 1) / kSlabs;
+  static constexpr int kChunk = 64;                // tokens a ring stage
+  static constexpr int kStages = 3;
+  // a staged token row: k, v, 16 bytes of padding (ldmatrix rows fall in
+  // different banks)
+  static constexpr int kKvLd = 2 * D + 8;
+  static constexpr size_t kSmem1 = sizeof(bf16) * kStages * kChunk * kKvLd;
+  static constexpr int kWarps2 = 8;
+  static constexpr int kTok2 = 32 * kWarps2;       // tokens a block
+  static constexpr int kAtLd = kFeat + 8;          // [A | S]^T row
+  static constexpr int kQLd = D + 8;
+  static constexpr size_t kSmem2 =
+      sizeof(bf16) * (kCols * kAtLd + kTok2 * kQLd);
+};
+
+__device__ __forceinline__ unsigned phi_pair(unsigned a, unsigned b,
+                                             unsigned inv_sqrt2) {
+  return bmul2(bmul2(a, b), inv_sqrt2);
+}
+
+template <int D>
+__global__ void __launch_bounds__(32 * WideTc<D>::kWarps1)
+    taylor_moments_mma_kernel(const bf16* __restrict__ qkv,
+                              bf16* __restrict__ mom,
+                              float* __restrict__ sumv, int N, int H) {
+  using W = WideTc<D>;
+  extern __shared__ __align__(16) unsigned char tw_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(tw_smem);
+  const int fh = blockIdx.x;
+  const long long frame = fh / H;
+  const int h = fh % H;
+  const int hd = H * D;
+  const long long ld = 3LL * hd;
+  const bf16* kbase = qkv + frame * N * ld + hd + h * D;   // v at + hd
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int u0 = (blockIdx.y * W::kWarps1 + warp) * W::kUpw;
+  const int nu = max(0, min(W::kUpw, W::kUnits - u0));   // warp-uniform
+  const unsigned inv_sqrt2 = bits(__float2bfloat16(0.70710678118654752f)) *
+                             0x10001u;
+  const unsigned ones = g == 0 ? 0x3F803F80u : 0u;   // column / row 0: 1
+  const int nch = (N + W::kChunk - 1) / W::kChunk;
+  constexpr int kPieces = D / 4;   // 16-byte pieces a token: k, then v
+
+  // chunk c into stage c % kStages; rows past N are zeros
+  auto stage = [&](int c) {
+    const int t0 = c * W::kChunk;
+    bf16* buf = ring + (c % W::kStages) * W::kChunk * W::kKvLd;
+    for (int idx = threadIdx.x; idx < W::kChunk * kPieces;
+         idx += blockDim.x) {
+      const int t = idx / kPieces, p = idx % kPieces;
+      const int which = p / (D / 8), piece = p % (D / 8);
+      const int n = min(t0 + t, N - 1);
+      cp_async16(buf + t * W::kKvLd + which * D + piece * 8,
+                 kbase + n * ld + which * hd + piece * 8, t0 + t < N);
+    }
+  };
+
+  float acc[W::kUpw][W::kNt][4];
+#pragma unroll
+  for (int s = 0; s < W::kUpw; ++s)
+#pragma unroll
+    for (int nt = 0; nt < W::kNt; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[s][nt][e] = 0.f;
+
+  // this lane's ldmatrix row: tokens 0-7 / 8-15 (matrices 0, 2 / 1, 3),
+  // columns 0-7 / 8-15 (matrices 0, 1 / 2, 3)
+  const int lrow = (lane & 7) + 8 * ((lane >> 3) & 1), lcol = 8 * (lane >> 4);
+  for (int c = 0; c < W::kStages - 1; ++c) {
+    if (c < nch) stage(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < nch; ++c) {
+    cp_async_wait<W::kStages - 2>();
+    __syncthreads();   // chunk c landed; every warp is done with c - 1
+    if (c + W::kStages - 1 < nch) stage(c + W::kStages - 1);
+    cp_async_commit();
+    if (nu == 0) continue;
+    const bf16* buf = ring + (c % W::kStages) * W::kChunk * W::kKvLd;
+    for (int tl = 0; tl < W::kChunk / 16 && c * W::kChunk + 16 * tl < N;
+         ++tl) {
+      const bf16* row = buf + (16 * tl + lrow) * W::kKvLd + lcol;
+      // kf[m]: k of features 16m + g (regs 0, 1) and 16m + g + 8 (2, 3) at
+      // tokens 2tq, 2tq + 1 (regs 0, 2) and 2tq + 8, 2tq + 9 (1, 3); vf[m]:
+      // the B fragments (b0, b1) of v's column tiles 2m and 2m + 1
+      unsigned kf[W::kJb][4], vf[W::kJb][4];
+#pragma unroll
+      for (int m = 0; m < W::kJb; ++m) {
+        ldmatrix_x4_trans(kf[m], row + 16 * m);
+        ldmatrix_x4_trans(vf[m], row + D + 16 * m);
+      }
+#pragma unroll
+      for (int s = 0; s < W::kUpw; ++s) {
+        if (s >= nu) continue;   // warp-uniform
+        const int u = u0 + s;
+        unsigned a[4];
+        if (u < W::kQuad) {   // phi_ij, i = u / kJb, j in block u % kJb
+          const int i = u / W::kJb, jb = u % W::kJb, blk = i >> 3;
+          unsigned s0 = 0u, s1 = 0u;
+#pragma unroll
+          for (int b = 0; b < D / 8; ++b)
+            if (b == blk) {
+              s0 = kf[b >> 1][2 * (b & 1)];
+              s1 = kf[b >> 1][2 * (b & 1) + 1];
+            }
+          // k_i at this lane's tokens, from the lane with g = i % 8
+          const int src = (i & 7) * 4 + tq;
+          const unsigned ki0 = __shfl_sync(0xffffffffu, s0, src);
+          const unsigned ki1 = __shfl_sync(0xffffffffu, s1, src);
+          unsigned kj[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            kj[r] = jb == 0 ? kf[0][r] : kf[W::kJb - 1][r];
+          a[0] = phi_pair(ki0, kj[0], inv_sqrt2);
+          a[1] = phi_pair(ki0, kj[2], inv_sqrt2);
+          a[2] = phi_pair(ki1, kj[1], inv_sqrt2);
+          a[3] = phi_pair(ki1, kj[3], inv_sqrt2);
+        } else if (u < W::kQuad + W::kJb) {   // k_j, j in block u - kQuad
+          const int jb = u - W::kQuad;
+#pragma unroll
+          for (int m = 0; m < W::kJb; ++m)
+            if (m == jb) {
+              a[0] = kf[m][0];
+              a[1] = kf[m][2];
+              a[2] = kf[m][1];
+              a[3] = kf[m][3];
+            }
+        } else {   // the constant row: 1 at row 0
+          a[0] = ones;
+          a[1] = 0u;
+          a[2] = ones;
+          a[3] = 0u;
+        }
+#pragma unroll
+        for (int nt = 0; nt < W::kNt - 1; ++nt)
+          mma_16816(acc[s][nt], a, vf[nt >> 1][2 * (nt & 1)],
+                    vf[nt >> 1][2 * (nt & 1) + 1]);
+        mma_16816(acc[s][W::kNt - 1], a, ones, ones);   // column D: S
+      }
+    }
+  }
+
+  // [A | S]^T in bf16 (column-major rows of features), sum v in float32
+  bf16* mh = mom + (long long)fh * W::kCols * W::kFeat;
+#pragma unroll
+  for (int s = 0; s < W::kUpw; ++s) {
+    if (s >= nu) continue;
+    const int u = u0 + s;
+    const bool konst = u == W::kUnits - 1;
+    const int f0 = u < W::kQuad ? D + (u / W::kJb) * D + 16 * (u % W::kJb)
+                                : 16 * (u - W::kQuad);
+#pragma unroll
+    for (int nt = 0; nt < W::kNt; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = g + 8 * (e >> 1), col = 8 * nt + 2 * tq + (e & 1);
+        if (konst) {
+          if (r == 0 && col < D) sumv[(long long)fh * D + col] = acc[s][nt][e];
+        } else {
+          mh[col * W::kFeat + f0 + r] = __float2bfloat16(acc[s][nt][e]);
+        }
+      }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(32 * WideTc<D>::kWarps2)
+    taylor_apply_mma_kernel(const bf16* __restrict__ qkv,
+                            const bf16* __restrict__ mom,
+                            const float* __restrict__ sumv,
+                            bf16* __restrict__ attn, int N, int H,
+                            float eps) {
+  using W = WideTc<D>;
+  extern __shared__ __align__(16) unsigned char tw_smem[];
+  bf16* at = reinterpret_cast<bf16*>(tw_smem);   // kCols rows of kAtLd
+  bf16* qs = at + W::kCols * W::kAtLd;           // kTok2 rows of kQLd
+  const int fh = blockIdx.x;
+  const long long frame = fh / H;
+  const int h = fh % H;
+  const int hd = H * D;
+  const long long ld = 3LL * hd;
+  const int t0 = blockIdx.y * W::kTok2;
+  const bf16* qbase = qkv + frame * N * ld + h * D;
+  const bf16* mh = mom + (long long)fh * W::kCols * W::kFeat;
+  constexpr int kRowPieces = W::kFeat / 8;
+  for (int idx = threadIdx.x; idx < W::kCols * kRowPieces;
+       idx += blockDim.x) {
+    const int r = idx / kRowPieces, p = idx % kRowPieces;
+    cp_async16(at + r * W::kAtLd + 8 * p, mh + r * W::kFeat + 8 * p);
+  }
+  for (int idx = threadIdx.x; idx < W::kTok2 * (D / 8); idx += blockDim.x) {
+    const int t = idx / (D / 8), p = idx % (D / 8);
+    const int n = min(t0 + t, N - 1);
+    cp_async16(qs + t * W::kQLd + 8 * p, qbase + n * ld + 8 * p, t0 + t < N);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wt = 32 * warp;   // the warp's first token in the block
+  if (t0 + wt >= N) return;   // no real token (no barrier follows)
+  const unsigned inv_sqrt2 = bits(__float2bfloat16(0.70710678118654752f)) *
+                             0x10001u;
+  const int lrow = (lane & 7) + 8 * ((lane >> 3) & 1), lcol = 8 * (lane >> 4);
+  // qf[mt][m]: the A fragment of q at tokens 16mt + (g, g + 8) and
+  // features 16m + (2tq, 2tq + 1, 2tq + 8, 2tq + 9)
+  unsigned qf[2][W::kJb][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int m = 0; m < W::kJb; ++m)
+      ldmatrix_x4(qf[mt][m],
+                  qs + (wt + 16 * mt + lrow) * W::kQLd + 16 * m + lcol);
+  float acc[2][W::kNt][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < W::kNt; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  // B fragments of [A | S] at k-step ks: an x4 over column tiles (nt,
+  // nt + 1), low and high 8 features; an x2 for the last (S) tile
+  const bf16* b4 = at + ((lane & 7) + 8 * (lane >> 4)) * W::kAtLd +
+                   8 * ((lane >> 3) & 1);
+  const bf16* b2 = at + ((lane & 7) + 8 * (W::kNt - 1)) * W::kAtLd +
+                   8 * ((lane >> 3) & 1);
+  auto kstep = [&](int ks, const unsigned (&a)[2][4]) {
+#pragma unroll
+    for (int np = 0; np < W::kNt / 2; ++np) {
+      unsigned b[4];
+      ldmatrix_x4(b, b4 + 16 * np * W::kAtLd + 16 * ks);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        mma_16816(acc[mt][2 * np], a[mt], b[0], b[1]);
+        mma_16816(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
+      }
+    }
+    unsigned b[2];
+    ldmatrix_x2(b, b2 + 16 * ks);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+      mma_16816(acc[mt][W::kNt - 1], a[mt], b[0], b[1]);
+  };
+#pragma unroll
+  for (int m = 0; m < W::kJb; ++m) {   // the features k_j
+    unsigned a[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[mt][r] = qf[mt][m][r];
+    kstep(m, a);
+  }
+#pragma unroll 1
+  for (int i = 0; i < D; ++i) {   // the features phi_ij
+    unsigned qi[2][2];   // q_i of tokens g and g + 8 of each tile, both lanes
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+        qi[mt][p] = bits(qs[(wt + 16 * mt + g + 8 * p) * W::kQLd + i]) *
+                    0x10001u;
+#pragma unroll
+    for (int m = 0; m < W::kJb; ++m) {
+      unsigned a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        a[mt][0] = phi_pair(qi[mt][0], qf[mt][m][0], inv_sqrt2);
+        a[mt][1] = phi_pair(qi[mt][1], qf[mt][m][1], inv_sqrt2);
+        a[mt][2] = phi_pair(qi[mt][0], qf[mt][m][2], inv_sqrt2);
+        a[mt][3] = phi_pair(qi[mt][1], qf[mt][m][3], inv_sqrt2);
+      }
+      kstep(W::kJb + i * W::kJb + m, a);
+    }
+  }
+
+  // den sits in column 0 of the last tile: lanes with tq == 0
+  const float* sv = sumv + (long long)fh * D;
+  float svv[W::kNt - 1][2];
+#pragma unroll
+  for (int nt = 0; nt < W::kNt - 1; ++nt) {
+    svv[nt][0] = sv[8 * nt + 2 * tq];
+    svv[nt][1] = sv[8 * nt + 2 * tq + 1];
+  }
+  bf16* out = attn + frame * N * hd + h * D;
+  const float n = (float)N;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const float d =
+          __shfl_sync(0xffffffffu, acc[mt][W::kNt - 1][2 * p], lane & ~3) + n;
+      const float r = round_to<bf16>(1.f / (d + eps));
+      const int t = t0 + wt + 16 * mt + g + 8 * p;
+      if (t < N)
+#pragma unroll
+        for (int nt = 0; nt < W::kNt - 1; ++nt)
+          *reinterpret_cast<unsigned*>(out + (long long)t * hd + 8 * nt +
+                                       2 * tq) =
+              pack_bf16((acc[mt][nt][2 * p] + svv[nt][0]) * r,
+                        (acc[mt][nt][2 * p + 1] + svv[nt][1]) * r);
+    }
+}
+
+// scratch: [A | S]^T in bf16 for every (frame, head), then sum v in float32
+// (ops/kernels/taylor_attention.py wide_scratch_bytes)
+template <int D>
+cudaError_t launch_taylor_core_wide(const bf16* qkv, bf16* attn,
+                                    void* scratch, int frames, int N, int H,
+                                    float eps, cudaStream_t stream) {
+  using W = WideTc<D>;
+  if (N < 1 || H < 1 || (uintptr_t)qkv % 16 || scratch == nullptr ||
+      (uintptr_t)scratch % 16)
+    return cudaErrorInvalidValue;
+  bf16* mom = static_cast<bf16*>(scratch);
+  float* sumv = reinterpret_cast<float*>(
+      mom + (size_t)frames * H * W::kCols * W::kFeat);
+  cudaError_t err = cudaFuncSetAttribute(
+      taylor_apply_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)W::kSmem2);
+  if (err != cudaSuccess) return err;
+  taylor_moments_mma_kernel<D>
+      <<<dim3(frames * H, W::kSlabs), 32 * W::kWarps1, W::kSmem1, stream>>>(
+          qkv, mom, sumv, N, H);
+  MV2_CHECK_LAUNCH();
+  taylor_apply_mma_kernel<D>
+      <<<dim3(frames * H, (N + W::kTok2 - 1) / W::kTok2), 32 * W::kWarps2,
+         W::kSmem2, stream>>>(qkv, mom, sumv, attn, N, H, eps);
+  MV2_CHECK_LAUNCH();
+  return cudaSuccess;
+}
+
 }  // namespace mv2
 
 // the moment core of one Taylor block: qkv (frames * N, 3 * H * D) in the
 // working dtype, q already scaled, from the qkv GEMM; attn (frames * N,
 // H * D). The route must fit the dtype: kTaylorMma bf16, kTaylorF32 float32.
-extern "C" int mv2_taylor_core(const void* qkv, void* attn, int dtype,
-                               int frames, int N, int H, int D, float eps,
-                               int route, void* stream) {
+// D is 8, 16 or 32; the bf16 core at 16 and 32 needs `scratch` (16-byte
+// aligned, frames * H * (2 * (8 * (D / 8 + 1)) * (D + D * D) + 4 * D)
+// bytes), the others none.
+extern "C" int mv2_taylor_core(const void* qkv, void* attn, void* scratch,
+                               int dtype, int frames, int N, int H, int D,
+                               float eps, int route, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D != 8) return cudaErrorInvalidValue;  // linear_attn_dim_head of every
-                                             // configuration; the wrapper's
-                                             // gate keeps other sizes away
-  if (route == mv2::kTaylorMma && dtype == mv2::kBFloat16)
-    return mv2::launch_taylor_core_mma((const mv2::bf16*)qkv,
-                                       (mv2::bf16*)attn, frames, N, H, eps,
-                                       s);
-  if (route == mv2::kTaylorF32 && dtype == mv2::kFloat32)
-    return mv2::launch_taylor_core_f32<8>((const float*)qkv, (float*)attn,
-                                          frames, N, H, eps, s);
-  return cudaErrorInvalidValue;
+  if (route == mv2::kTaylorMma && dtype == mv2::kBFloat16) {
+    const mv2::bf16* q = static_cast<const mv2::bf16*>(qkv);
+    mv2::bf16* o = static_cast<mv2::bf16*>(attn);
+    if (D == 8)
+      return mv2::launch_taylor_core_mma(q, o, frames, N, H, eps, s);
+    if (D == 16)
+      return mv2::launch_taylor_core_wide<16>(q, o, scratch, frames, N, H,
+                                              eps, s);
+    if (D == 32)
+      return mv2::launch_taylor_core_wide<32>(q, o, scratch, frames, N, H,
+                                              eps, s);
+  }
+  if (route == mv2::kTaylorF32 && dtype == mv2::kFloat32) {
+    const float* q = static_cast<const float*>(qkv);
+    float* o = static_cast<float*>(attn);
+    if (D == 8)
+      return mv2::launch_taylor_core_f32<8>(q, o, frames, N, H, eps, s);
+    if (D == 16)
+      return mv2::launch_taylor_core_f32<16>(q, o, frames, N, H, eps, s);
+    if (D == 32)
+      return mv2::launch_taylor_core_f32<32>(q, o, frames, N, H, eps, s);
+  }
+  return cudaErrorInvalidValue;   // a head size or route no core takes
 }

@@ -17,7 +17,13 @@ call, and ``int8_call`` runs one int8 site on the kernels of
 ``ops/kernels/int8.py`` (K1 quantizes x per tensor, K2 convolves s8 x s8 ->
 s32 and dequantizes). The sites are the JAX package's: ``CausalConv3d``
 here, the units' 1x1 (``Linear(int8_site=True)``) and the spatial down- and
-upsamplers (``ops/resample.py``). A site is dynamic (x's absmax on every
+upsamplers (``ops/resample.py``). With ``MAGVIT2_TPU_INT8_PACKED=1`` the
+causal conv of a lane-packed stem unit (``w_blocked``) is gated on the
+packed layout's widths, 2 C_in and 2 C_out (``conv.py:392-403``); the
+port's activations stay unpacked, and the int32 sums are the same: the
+w-blocked kernel holds each tap once in each output phase and zeros
+elsewhere, so its per-channel scales and int8 values are the unblocked
+kernel's. A site is dynamic (x's absmax on every
 call, the weight quantized once per weight version) unless the scope the
 tokenizer opens (``int8_scope``) gives it a calibrated ``Int8Site``: its
 static activation scale and pre-quantized weight (``VideoTokenizer.
@@ -205,7 +211,8 @@ def activation_stat(x, percentile: Optional[float] = None):
 
 def int8_call(module, x, weight, bias, stat: Optional[str],
               as_5d: Callable = lambda w: w, stride: int = 1,
-              column_groups: int = 1, depth_to_space: bool = False):
+              column_groups: int = 1, depth_to_space: bool = False,
+              gate_widths: Optional[tuple] = None):
     """Run ``module``'s int8 site on x, or return None where the call runs
     in the working dtype (the gate is off, or a stream). ``weight (N, C,
     ...)`` in the parameter's layout (``as_5d`` views it as ``(N, C, kt,
@@ -214,10 +221,12 @@ def int8_call(module, x, weight, bias, stat: Optional[str],
     hands the kernel position-major, ``(p1, p2, c)``). ``stat``: what a
     calibration records of x (``'percentile'``: the percentile when one is
     asked, else the absmax; ``'absmax'``; None: the site is not calibrated
-    and stays dynamic)."""
+    and stays dynamic). ``gate_widths``: the ``(C_in, C_out)`` the gate
+    reads in place of the weight's (the packed stem's physical widths)."""
     c_out, c_in = weight.shape[0] // column_groups, weight.shape[1]
     scope = _INT8_SCOPE.get()
-    if scope.streaming or not int8_conv_enabled(c_in, c_out):
+    if scope.streaming or not int8_conv_enabled(
+            *(gate_widths or (c_in, c_out))):
         return None
     from magvit2_pytorch_tpu_torch.ops.kernels import int8
     if stat is not None and scope.record is not None:
@@ -296,7 +305,11 @@ class CausalConv3d(nn.Module):
         c_in = self.conv.weight.shape[1]
         return mode, not (kt > 1 and c_in * kt <= UNFOLD_MAX_TAPS_X_CHANNELS)
 
-    def forward(self, x, state: Optional[dict] = None):
+    def forward(self, x, state: Optional[dict] = None,
+                w_blocked: bool = False):
+        """``w_blocked``: the conv of a lane-packed stem unit, which the
+        int8 gate reads at the packed widths under
+        ``MAGVIT2_TPU_INT8_PACKED=1``."""
         kt, kh, kw = self.kernel_size
         hp, wp = kh // 2, kw // 2
         if x.shape[1] == 0:
@@ -304,10 +317,15 @@ class CausalConv3d(nn.Module):
             # separate first-frame encoding); F.conv3d refuses the empty clip
             return x.new_zeros(*x.shape[:4], self.conv.weight.shape[0])
         if state is None and self.pad_mode in ZERO_PAD_MODES:
-            # the JAX package's int8 gate (conv.py:389-391): not streaming,
-            # zero pads; the kernel folds the causal and spatial pads in
+            # the JAX package's int8 gate (conv.py:389-403): not streaming,
+            # zero pads, at the packed widths where asked; the kernel folds
+            # the causal and spatial pads in
+            widths = None
+            if w_blocked and os.environ.get(INT8_PACKED_ENV, '') == '1':
+                c_out, c_in = self.conv.weight.shape[:2]
+                widths = (2 * c_in, 2 * c_out)
             out = int8_call(self, x, self.conv.weight, self.conv.bias,
-                            'percentile')
+                            'percentile', gate_widths=widths)
             if out is not None:
                 return out
         mode, pad_hw = self._padding(x.shape[1])

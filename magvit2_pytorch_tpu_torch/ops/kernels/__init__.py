@@ -12,7 +12,8 @@ attention and the fused ResidualUnit (B1-B5) are ``torch.autograd.Function``s
 on the card whose backward recomputes through the plain version that mirrors
 the JAX custom VJP's XLA twin, counted as ``<name>_backward``;
 ``flash_attention``'s backward launches two kernels of its own. The int8
-convs count K1 (``quantize_s8``) and K2 (``conv_s8``) a call each.
+convs count K1 (``quantize_s8``) and K2 (``conv_s8``) a call each, K2's
+also by input channels in ``int8.CONV_S8_BY_C_IN``.
 """
 
 from __future__ import annotations
@@ -42,3 +43,4 @@ def reset_launch_counts():
     for c in _COUNTERS:
         for k in c:
             c[k] = 0
+    int8.CONV_S8_BY_C_IN.clear()

@@ -48,8 +48,10 @@ import torch.nn.functional as F
 
 from magvit2_pytorch_tpu_torch.ops.kernels import _build
 
-# launches since the last reset (see ops/kernels)
+# launches since the last reset (see ops/kernels); K2's also by input
+# channels
 LAUNCHES = {'quantize_s8': 0, 'conv_s8': 0}
+CONV_S8_BY_C_IN = {}
 MODES = {'out': 0, 'depth_to_space': 1, 'raw': 2}   # csrc/int8_conv.cu S8Mode
 QMAX = 127
 SCALE_FLOOR = 1e-12
@@ -206,6 +208,7 @@ def _launch_conv(xq, weight: Int8Weight, stride: int, mode: str, xs=None,
         t, h, w, c, n, kt, kh, kw, stride, MODES[mode],
         _build.stream_handle(xq.device)), what)
     LAUNCHES['conv_s8'] += 1
+    CONV_S8_BY_C_IN[c] = CONV_S8_BY_C_IN.get(c, 0) + 1
     return out
 
 

@@ -43,21 +43,44 @@ picked by a static rule (:func:`taylor_core_route`) and counted apart:
   the loads 64 bytes wide and give 640 blocks at the flagship (160 frames
   x 16 heads), ~2.4 waves of two blocks an SM; all 16 heads would give 160
   blocks (1.2 waves on 132 SMs) and 64 KB stages of k and v.
+- ``'mma'`` at heads of 16 and 32 (the conditioned stack's linear
+  attention takes the full attention's heads, 32 wide by default): the
+  "wide" core, two launches on tensor cores, counted as
+  ``taylor_core_wide_mma``. A 32-wide head has 1056 phi features, and its
+  float32 [A | S] (~140 KB) outgrows a block's registers. The first launch
+  cuts a head's feature rows into 16-row units (phi_ij for one i, k_j, the
+  constant row), a warp owning four and a (frame, head) taking up to three
+  blocks, each over all N tokens (no sum crosses blocks): it streams k and
+  v through a ``cp.async`` ring, builds its rows of phi(k) in registers and
+  accumulates [A | S] on ``mma.sync``, then writes it in bf16 (the JAX
+  kernel's cast) and sum v in float32 to scratch the wrapper allocates
+  (:func:`wide_scratch_bytes`). The second launch, one block per (frame,
+  head, 256 tokens), loads that head's [A | S] into shared memory and runs
+  [num | den] = phi(q) [A | S] on the tensor cores, phi(q) built in
+  registers, with the same epilogue.
 - ``'f32'`` (float32): one block per (frame, head) on the CUDA cores, each
-  moment with one owner thread, then one thread per token.
+  moment with one owner thread, then one thread per token; counted as
+  ``taylor_core_f32`` at every head size (173 KB of shared memory at 32).
 
 What bounds it on the H100: at the flagship shape (160 frames x 1024 tokens
 x 256 channels, 16 heads x 8, batch 8) the two projections hold most of the
 FLOPs (the ``'wgmma'`` route of ``gemm.py``); the core alone is bound by
 bytes (bf16 q, k, v in and the attention out, ~168 MB, 0.05 ms). Fusing
-the out projection into the core's second phase is later work.
+the out projection into the core's second phase is later work. At heads
+of 32 (the conditioned stack: 160 frames x 1024 tokens, 8 heads x 32) the
+core is bound by operations, barely: phi_ij == phi_ji, so the function
+needs 1 + d + d (d + 1) / 2 = 561 features a head, 99.8 GFLOP, 0.101 ms at
+the bf16 peak against 0.100 ms of bytes; the wide core builds all d^2
+products, about twice that work.
 
 On the CPU the wrappers run the plain versions below, and autograd
 differentiates them. On a CUDA tensor they launch the kernel or raise; the
 backward recomputes through :func:`taylor_attention_twin`, the counterpart
 of the JAX custom VJP's XLA twin. A head size the core does not take never
 reaches it: :func:`taylor_eligible` sends it to the plain version on both
-devices (``ops/attention.py``).
+devices (``ops/attention.py``): 8, 16 and 32 reach it, the JAX package's
+kernel taking any head whose phi fits its VMEM (``taylor_attention.py:
+337-342``).
 """
 
 from __future__ import annotations
@@ -71,9 +94,10 @@ from magvit2_pytorch_tpu_torch.ops.kernels import _build, gemm
 # ops/kernels); the block's GEMMs count in gemm.LAUNCHES
 LAUNCHES = {'taylor_attention_block': 0,
             'taylor_attention_block_no_norm': 0, 'taylor_core_mma': 0,
-            'taylor_core_f32': 0, 'taylor_attention_block_backward': 0}
+            'taylor_core_f32': 0, 'taylor_core_wide_mma': 0,
+            'taylor_attention_block_backward': 0}
 
-SUPPORTED_DIM_HEAD = (8,)     # csrc/taylor_attention.cu: both cores
+SUPPORTED_DIM_HEAD = (8, 16, 32)  # csrc/taylor_attention.cu: every route
 CORES = {'f32': 0, 'mma': 1}  # csrc/taylor_attention.cu TaylorRoute
 INV_SQRT2 = 0.5 ** 0.5
 
@@ -100,6 +124,22 @@ def taylor_core_route(dtype, dim_head: int) -> str:
         return 'f32'
     raise TypeError(f'taylor core: kernels take float32 or bfloat16, got '
                     f'{dtype}')
+
+
+def core_counter(route: str, dim_head: int) -> str:
+    """The launch counter of a core call: the bf16 wide core at heads of 16
+    and 32 counts apart from the one-launch cores."""
+    if route == 'mma' and dim_head != 8:
+        return 'taylor_core_wide_mma'
+    return f'taylor_core_{route}'
+
+
+def wide_scratch_bytes(frames: int, heads: int, dim_head: int) -> int:
+    """Scratch of the wide bf16 core (``csrc/taylor_attention.cu``
+    ``launch_taylor_core_wide``): per (frame, head) its [A | S] in bf16,
+    8 (d / 8 + 1) columns of d + d^2 features, then sum v in float32."""
+    cols, feat = 8 * (dim_head // 8 + 1), dim_head + dim_head ** 2
+    return frames * heads * (2 * cols * feat + 4 * dim_head)
 
 
 def taylor_core_ref(qkv, frames: int, heads: int, dim_head: int,
@@ -160,13 +200,18 @@ def taylor_core(qkv, frames: int, heads: int, dim_head: int,
         raise ValueError(f'taylor core: qkv {tuple(qkv.shape)} is not '
                          f'{frames} frames of contiguous rows of {3 * hd}')
     attn = torch.empty((rows, hd), dtype=qkv.dtype, device=qkv.device)
+    scratch = None
+    if route == 'mma' and dim_head != 8:
+        scratch = torch.empty(wide_scratch_bytes(frames, heads, dim_head),
+                              dtype=torch.uint8, device=qkv.device)
     lib = _build.load_library()
     code = lib.mv2_taylor_core(
-        qkv.data_ptr(), attn.data_ptr(), _build.dtype_code(qkv), frames,
-        rows // frames, heads, dim_head, float(eps), CORES[route],
-        _build.stream_handle(qkv.device))
-    _build.check(lib, code, f'taylor core ({route})')
-    LAUNCHES[f'taylor_core_{route}'] += 1
+        qkv.data_ptr(), attn.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        _build.dtype_code(qkv), frames, rows // frames, heads, dim_head,
+        float(eps), CORES[route], _build.stream_handle(qkv.device))
+    _build.check(lib, code, f'taylor core ({route}, dim_head {dim_head})')
+    LAUNCHES[core_counter(route, dim_head)] += 1
     return attn
 
 

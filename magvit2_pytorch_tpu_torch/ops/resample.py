@@ -18,14 +18,15 @@ package, which records its input's absmax whatever the percentile), the
 spatial upsampler a dynamic one (``:216-227``: its weight scale is per
 ``dim_out`` channel, over the four positions and the input channels, and
 its position-dependent bias comes after the dequantize), and the unfused
-units' causal conv and 1x1 are sites of their own. The fused units (B4,
-B5) run in the working dtype, as the JAX package's fused units do.
+units' causal conv and 1x1 are sites of their own; under ``lane_pack``
+with ``MAGVIT2_TPU_INT8_PACKED=1`` the stem units' causal conv is one too
+(``CausalConv3d(w_blocked=True)``). The fused units (B4, B5) run in the
+working dtype, as the JAX package's fused units do.
 """
 
 from __future__ import annotations
 
 import math
-import os
 from typing import Optional
 
 import torch
@@ -35,11 +36,9 @@ from torch import nn
 from magvit2_pytorch_tpu_torch.ops.basic import (
     Linear, SqueezeExcite, uniform_)
 from magvit2_pytorch_tpu_torch.ops.conv import (
-    INT8_PACKED_ENV, ZERO_PAD_MODES, CausalConv3d, Conv3DMod, ConvWeights,
-    carried_frames, int8_call, int8_conv_enabled, pad_time_front,
-    pointwise_5d, to_channels_first, to_channels_last)
+    CausalConv3d, Conv3DMod, ConvWeights, carried_frames, int8_call,
+    pad_time_front, pointwise_5d, to_channels_first, to_channels_last)
 from magvit2_pytorch_tpu_torch.ops.kernels import residual_unit as ru_kernels
-from magvit2_pytorch_tpu_torch.utils.helpers import not_ported
 
 
 class SpatialDownsample2x(nn.Module):
@@ -185,17 +184,11 @@ class ResidualUnit(nn.Module):
                 x, *self._fused_params())
         if ru_kernels.fused_eligible(x, self.dim, self.kernel_size,
                                      w_blocked, self.pad_mode, streaming):
-            # activations stay unpacked in the port (ROADMAP A14)
+            # activations stay unpacked in the port
             return ru_kernels.fused_residual_unit(
                 x, *self._fused_params(), packed_io=False)
-        if (w_blocked and not streaming and self.pad_mode in ZERO_PAD_MODES
-                and os.environ.get(INT8_PACKED_ENV, '') == '1'
-                and int8_conv_enabled(2 * self.dim, 2 * self.dim)):
-            # the JAX package quantizes this conv per w-blocked channel
-            # (conv.py:392-403); the port never w-blocks activations
-            not_ported('MAGVIT2_TPU_INT8_PACKED=1 with lane_pack', '14')
         conv, *rest = self.fn
-        y = conv(x, state=state)
+        y = conv(x, state=state, w_blocked=w_blocked)
         for module in rest:
             y = module(y)
         return y + x

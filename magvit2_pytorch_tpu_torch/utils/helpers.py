@@ -33,7 +33,3 @@ def l2norm(t: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     """``t / max(||t||, eps)`` along ``dim`` (``F.normalize`` semantics)."""
     return F.normalize(t, p=2, dim=dim, eps=eps)
 
-
-def not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f'{what} is not ported to PyTorch yet: ROADMAP.md queue A item {item}')

@@ -311,11 +311,11 @@ def test_upsampler_has_no_calibration_site(int8_env):
     assert record == {}
 
 
-def _unit_pair():
-    jm = jresample.ResidualUnit(128, 3)
-    x0 = jnp.zeros((1, 3, 8, 8, 128))
+def _unit_pair(dim=128):
+    jm = jresample.ResidualUnit(dim, 3)
+    x0 = jnp.zeros((1, 3, 8, 8, dim))
     params = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(1), x0))
-    pm = ResidualUnit(128, 3)
+    pm = ResidualUnit(dim, 3)
     fn = params['params']['fn']
     # a live SqueezeExcite gate, so the branch shows in the output
     fn['se']['gate_out']['kernel'] = (
@@ -442,18 +442,50 @@ def test_gate_refuses_streaming(int8_env):
 
 
 def test_packed_int8_under_lane_pack_is_not_ported(int8_env, monkeypatch):
-    """``MAGVIT2_TPU_INT8_PACKED=1`` quantizes the JAX package's w-blocked
-    stem conv per blocked channel; the port raises there instead."""
-    unit = ResidualUnit(64, 3)
-    init_module_parameters(unit, torch.Generator().manual_seed(0))
-    x = torch.zeros(1, 3, 8, 8, 64)
+    """The packed int8 stem unit against JAX's (the name is the one it had
+    while the port raised there). ``MAGVIT2_TPU_INT8_PACKED=1``: the
+    unfused stem unit (64 channels, ``w_blocked``) quantizes its causal
+    conv at the packed widths (128 -> 128), as the JAX package's unit does
+    on the w-blocked layout; its 1x1
+    stays in the working dtype on both. Dynamic and static on JAX's scales,
+    against JAX's unit on ``w_block(x)``, held within 1e-6 as the unfused
+    unit above (the int8 site is equal to the bit: the blocked kernel's
+    per-channel scales and int8 values are the unblocked kernel's). Without
+    the variable, or not w-blocked, the unit runs in the working dtype."""
     monkeypatch.setenv('MAGVIT2_TPU_NO_FUSED_RU', '1')   # the unfused unit
+    jm, params, pm = _unit_pair(64)
+    jx, px = _x(64, torch.float32)
+    plain = _port(pm, px, torch.float32)
+    assert torch.equal(_port(pm, px, torch.float32), plain)
     with torch.inference_mode():
-        unit(x, w_blocked=True)                         # INT8_PACKED unset
-        monkeypatch.setenv('MAGVIT2_TPU_INT8_PACKED', '1')
-        with pytest.raises(NotImplementedError, match='item 14'):
-            unit(x, w_blocked=True)
-        unit(x)                                         # not w-blocked
+        assert torch.equal(pm(px, w_blocked=True), plain)   # PACKED unset
+    monkeypatch.setenv('MAGVIT2_TPU_INT8_PACKED', '1')
+    assert torch.equal(_port(pm, px, torch.float32), plain)   # not blocked
+    record = {}
+    with torch.inference_mode(), pconv.int8_scope(record=record):
+        got = pm(px, w_blocked=True)
+    assert set(record) == {pm.fn[0]}
+    assert not torch.equal(got, plain)
+
+    def jax_unit(variables, x):
+        y = jm.apply(variables, jconv.w_block(x), w_blocked=True)
+        return np.asarray(jconv.w_unblock(y))
+
+    np.testing.assert_allclose(got.numpy(), jax_unit(params, jx), atol=1e-6,
+                               rtol=0)
+    _, mut = jm.apply(params, jconv.w_block(jx), w_blocked=True,
+                      mutable=['int8_calib'])
+    assert set(mut['int8_calib']['fn']) == {'conv'}
+    assert record[pm.fn[0]].item() == float(
+        mut['int8_calib']['fn']['conv']['absmax'])
+    coll = _build_int8_collection(mut['int8_calib'], params['params'])
+    site = _site_of(coll['fn']['conv'], 'causal_conv')
+    jx2, px2 = _x(64, torch.float32, seed=9)
+    with torch.inference_mode(), pconv.int8_scope(sites={pm.fn[0]: site}):
+        got = pm(px2, w_blocked=True)
+    np.testing.assert_allclose(
+        got.numpy(), jax_unit({'params': params['params'], 'int8': coll}, jx2),
+        atol=1e-6, rtol=0)
 
 
 # -- the tokenizer ------------------------------------------------------------
@@ -592,6 +624,47 @@ def test_tiny_tokenizer_int8_codes_match_jax(int8_env, mode):
         recon.numpy())
     # int8 engaged
     os.environ[ENV] = '0'
+    assert not torch.equal(port.forward(v), recon)
+
+
+# the lane-packed stem: a 64-channel unit before the first compress_space,
+# then a unit at 128 (KW_TWO's 128 -> 256 in miniature one stage down)
+KW_PACKED = dict(KW, init_dim=64, lane_pack=True,
+                 layers=(('residual', 64), ('compress_space', 128),
+                         ('residual', 128)))
+
+
+@pytest.mark.parametrize('mode', ['dynamic', 'static'])
+def test_packed_int8_tokenizer_matches_jax(int8_env, monkeypatch, mode):
+    """``lane_pack=True`` with ``MAGVIT2_TPU_INT8_PACKED=1`` and the fused
+    units off: the JAX package's int8 sites are the units at 128 (conv and
+    1x1, encoder and decoder) and, packed, the stem units' causal convs
+    (encoder and decoder): 6, against 4 without the variable, on both. The
+    codes are JAX's and the reconstruction within the 1e-5 of the unpacked
+    tokenizer's test above, dynamic and calibrated. (The JAX package reads
+    the variable when it traces, so each setting gets its own JAX
+    tokenizer.)"""
+    monkeypatch.setenv('MAGVIT2_TPU_NO_FUSED_RU', '1')
+    v = _video(21)
+    jv = jnp.asarray(v)
+    if mode == 'static':
+        jtok, port = _pair(KW_PACKED)
+        assert port.calibrate_int8(v) == jtok.calibrate_int8(jv) == 4
+    monkeypatch.setenv('MAGVIT2_TPU_INT8_PACKED', '1')
+    jtok, port = _pair(KW_PACKED)
+    if mode == 'static':
+        assert port.calibrate_int8(v) == jtok.calibrate_int8(jv) == 6
+        stem = port.module.encoder_layers[0].fn[0]
+        assert set(port._int8_vars) >= {'encoder_layers.0.fn.0'}
+        assert stem.conv.weight.shape[:2] == (64, 64)
+    v = _video(22)
+    jv = jnp.asarray(v)
+    codes_j, recon_j = jtok.forward(jv, return_codes=True, return_recon=True)
+    codes, recon = port.forward(v, return_codes=True, return_recon=True)
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(codes_j))
+    np.testing.assert_allclose(recon.numpy(), np.asarray(recon_j), atol=1e-5,
+                               rtol=0)
+    monkeypatch.delenv('MAGVIT2_TPU_INT8_PACKED')     # the stem engaged
     assert not torch.equal(port.forward(v), recon)
 
 

@@ -110,11 +110,13 @@ def _taylor_frame_eager(x, gamma, wqkv, wout, heads, d, eps=1e-5):
 
 
 # share of output elements where the plain version and the eager frame
-# differ, at most, in bf16: read 0.33% at (8, 8) and 1.52% at (4, 16), the
-# largest difference 0.80 and 0.72 of a bf16 step of the largest value (the
-# same roundings summed in another order); the plain version without the
-# kernel's cast points read 58% and 57%, and 1.60 and 1.43 steps
-@pytest.mark.parametrize('heads,d,max_share', [(8, 8, 0.01), (4, 16, 0.045)])
+# differ, at most, in bf16: read 0.33% at (8, 8), 1.52% at (4, 16) and
+# 1.24% at (2, 32), the largest difference 0.80, 0.72 and 0.75 of a bf16
+# step of the largest value (the same roundings summed in another order);
+# the plain version without the kernel's cast points read 58% and 57%, and
+# 1.60 and 1.43 steps, at the first two
+@pytest.mark.parametrize('heads,d,max_share', [(8, 8, 0.01), (4, 16, 0.045),
+                                               (2, 32, 0.04)])
 def test_taylor_plain_keeps_the_kernels_bf16_cast_points(heads, d, max_share):
     """In bf16 the plain version rounds where ``_taylor_frame`` does (each
     phi entry twice, A and S after their float32 sums, 1 / (den + eps)),
@@ -142,11 +144,13 @@ class _OnCard(torch.Tensor):
     is_cuda = True
 
 
-@pytest.mark.parametrize('dim_head,kernel', [(8, True), (16, False)])
+@pytest.mark.parametrize('dim_head,kernel', [(8, True), (16, True),
+                                             (32, True), (64, False)])
 def test_taylor_gate_keeps_other_head_sizes_off_the_kernel(
         monkeypatch, dim_head, kernel):
     """``TaylorSeriesLinearAttn`` on the card: a head size the CUDA cores
-    take reaches the kernel wrapper, any other the plain version, whatever
+    take (8, 16, 32) reaches the kernel wrapper, any other (64, which the
+    JAX kernel's VMEM fit takes at few tokens) the plain version, whatever
     the device (without the gate the wrapper raises there)."""
     rng = np.random.default_rng(7)
     mod = attention.TaylorSeriesLinearAttn(64, dim_head=dim_head, heads=4)
@@ -156,7 +160,7 @@ def test_taylor_gate_keeps_other_head_sizes_off_the_kernel(
     args = (gamma, mod.to_qkv[0].weight.detach(),
             mod.to_out[1].weight.detach(), 4, dim_head)
     if not kernel:
-        with pytest.raises(ValueError, match='dim_head 16'):
+        with pytest.raises(ValueError, match=f'dim_head {dim_head}'):
             taylor_attention.taylor_attention(
                 x.as_subclass(_OnCard),
                 *(a.as_subclass(_OnCard) for a in args[:3]), *args[3:])
@@ -176,14 +180,16 @@ def test_taylor_gate_keeps_other_head_sizes_off_the_kernel(
 
 
 @pytest.mark.parametrize('dtype,dim_head,route', [
-    (torch.bfloat16, 8, 'mma'), (torch.float32, 8, 'f32')])
+    (torch.bfloat16, 8, 'mma'), (torch.float32, 8, 'f32'),
+    (torch.bfloat16, 16, 'mma'), (torch.float32, 16, 'f32'),
+    (torch.bfloat16, 32, 'mma'), (torch.float32, 32, 'f32')])
 def test_taylor_core_route(dtype, dim_head, route):
     assert taylor_attention.taylor_eligible(dim_head)
     assert taylor_attention.taylor_core_route(dtype, dim_head) == route
 
 
 @pytest.mark.parametrize('dtype,dim_head,error', [
-    (torch.bfloat16, 16, ValueError), (torch.float32, 16, ValueError),
+    (torch.bfloat16, 64, ValueError), (torch.float32, 64, ValueError),
     (torch.float16, 8, TypeError)])
 def test_taylor_core_route_refuses_what_no_core_takes(dtype, dim_head, error):
     with pytest.raises(error):
