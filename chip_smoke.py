@@ -115,6 +115,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
    entry points: bf16 on the card, and float32 card against CPU (codes,
    and the recon from the CPU's codes within 1e-3), each card run with
    four launches of B3's wide core and none of the others.
+6b. head sizes: B1 and B2 at every head shape of ``HEAD_CASES`` (dim_head x
+   heads: 8 x 32, 16 x 16, 64 x 4, 128 x 2 at inner 256; 24 x 16 and 48 x 8
+   at inner 384), B1 at the flagship's (160, 256, 512) and B2 at
+   (8, 5, 256, 512), and B1 at config 4's (8, 1024, 512) at 64 x 4 (1028
+   keys: the core's K/V ring), 4 memory keys: bf16 and float32 against the
+   plain version in float32 (``TOL``), each launch counted by route (bf16:
+   B1's core ``'mma'`` or ``'mma_ring'``, B2 ``'fused'`` at inner 256 and
+   ``'launches'`` at 384; float32 the scalar core, B2 on ``'launches'``),
+   a batch boundary exactly 0 in both dtypes, times (B2 also the
+   profiler's device time) beside the bound (the same work as d = 32 at the
+   same inner width), the plain version and the block as PyTorch calls at
+   the same heads. Then the README flagship at 64 x 4 heads
+   (``HEADS_FLAGSHIP``) on both paths: phase 4's launches (B1 and B2 at
+   d = 64 twice each) with no call of the general attention path, frames/s
+   by the same chained slope beside phases 4 and 5's 32 x 8 in this run,
+   the bf16 in-situ check on the default path, and float32 card against
+   CPU on both paths under phase 6's contract. The kernels line adds rows
+   ``space_attention_block_d64`` (config 4's ring case under
+   ``config4_shapes``) and ``time_attention_block_fused_d64``, launches
+   from the fused 64 x 4 roundtrip.
 7. the general ``Attention`` path with the flash backend, forward and
    backward: one step of ``SpaceAttention(512, dim_head=32, heads=8,
    backend='flash')`` on (1, 17, 64, 64, 512) bf16 (4096 tokens a frame,
@@ -125,7 +145,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    float32, TF32 off, 2 frames, against the CPU. Smaller checks: what
    ``'auto'`` picks on the card at n = 1024 and n = 256, flash against plain
    ``attend`` on both sides of that threshold, a causal ``TimeAttention``
-   through flash, and a rotary and a ``dim_head=16`` module against the CPU.
+   through flash, and a rotary and a ``dim_head=12`` module (a head the
+   block kernels do not take) against the CPU.
 8. the JAX package's other configurations (``configs.py``, BASELINE configs
    1, 3 and 4). Config 4, the 256 px image tokenizer with 2^18 LFQ codes,
    at full width, bf16, batch 8 of images through ``tokenize`` and
@@ -308,6 +329,9 @@ KERNELS = {
     'space_attention_block': (ATTN_SOURCE, B1_TPU),
     # B2 in one launch: the time block's 'fused' route (bf16)
     'time_attention_block_fused': (TIME_SOURCE, B2_TPU),
+    # B1 and B2 at the README flagship's 64 x 4 heads (HEAD_ROWS)
+    'space_attention_block_d64': (ATTN_SOURCE, B1_TPU),
+    'time_attention_block_fused_d64': (TIME_SOURCE, B2_TPU),
     'taylor_attention_block': (TAYLOR_SOURCE, B3_TPU),
     # launches inside the three blocks above: the projections of B1-B3
     # (B1's at axial_attention.py:56 and :95) and B1's attention step
@@ -1296,23 +1320,37 @@ TIME_SHAPE = (BATCH, 5, 256, 512)    # the flagship's time block
 TIME_KERNEL = 'time_block_kernel'
 
 
-def device_ms(torch, fn, calls: int = 20):
+def device_ms(torch, fn, calls: int = 20, tries: int = 3):
     """Device time per call of ``fn`` from torch.profiler's kernel events
-    (device events only), and the same by kernel name."""
+    (device events only), and the same by kernel name. A profile that
+    caught no device event (seen once on an H100 among many profiles of
+    one run) is taken again, up to ``tries`` times; None (not measured)
+    if none caught one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     by = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us()
+        if by:
+            break
+    if not by:
+        return None, by
     by = {name: us / calls / 1e3 for name, us in by.items()}
     return sum(by.values()), by
+
+
+def ms_text(ms) -> str:
+    """A time for the log: '0.0610 ms', or 'not measured' for None."""
+    return 'not measured' if ms is None else f'{ms:.4f} ms'
+
 
 
 def phase_time_block(torch, dev, reps, smi):
@@ -1419,7 +1457,7 @@ def phase_time_block(torch, dev, reps, smi):
         if int(st) or int(ld)]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     pixels = ax.time_block_pixels(b, t, s, sms)
-    plan = ax.time_block_plan(t, pixels, c, heads, m)
+    plan = ax.time_block_plan(t, pixels, c, heads, dh, m)
     fused()     # the flagship's launch is the last to set the kernel's
     torch.cuda.synchronize()        # dynamic shared memory
     attrs = ax.time_block_attributes()
@@ -1431,7 +1469,7 @@ def phase_time_block(torch, dev, reps, smi):
         f'against it in bf16; float32 on the launches route {err32:.3e} '
         f'(tol {TOL["float32"]:g}); batch boundary {boundary}; kernel '
         f'{row["ms"]:.4f} ms ({INNER} calls an event pair, median of '
-        f'{reps}), device {row["device_ms"]:.4f} ms (profiler kernel '
+        f'{reps}), device {ms_text(row["device_ms"])} (profiler kernel '
         f'events), bound {row["bound_ms"]:.4f} ms ({row["bound_by"]}), '
         f'plain {row["plain_ms"]:.4f} ms, the block as PyTorch calls '
         f'{row["library_ms"]:.4f} ms (against the plain version '
@@ -1455,7 +1493,7 @@ def phase_time_block(torch, dev, reps, smi):
     for et, ep, ec, eh, em in TIME_EDGES:
         routed = (ep * et <= ax.TIME_MAX_ROWS and ax.time_block_route(
             torch.bfloat16, et, 256, ec, eh, dh, em) == 'fused')
-        planned = ax.time_block_plan(et, ep, ec, eh, em)
+        planned = ax.time_block_plan(et, ep, ec, eh, dh, em)
         edges.append(planned and planned['stages'])
         if routed != (planned is not None):
             fail(f'time block at (T, pixels, C, heads, M) = '
@@ -1507,7 +1545,7 @@ def phase_time_block(torch, dev, reps, smi):
             pc = attn_params(torch, gen, cc, hh, dh)
         if name == 'bfloat16':
             pix = ax.time_block_pixels(bb, tt, ss, sms)
-            tilings.append((pix, ax.time_block_plan(tt, pix, cc, hh,
+            tilings.append((pix, ax.time_block_plan(tt, pix, cc, hh, dh,
                                                     m)['stages']))
         args = [a.to(dev, getattr(torch, dtype)) for a in (xc, *pc)]
         what = (f'time block {(bb, tt, ss, cc)} {hh} heads causal={causal} '
@@ -2144,6 +2182,253 @@ def phase_card_vs_cpu(torch, dev):
             fail(f'{path} card path, float32: {c["ru_conv_f32"]} convs on the '
                  f'f32 route for {fused_launches} fused units')
     return results
+
+
+# B1 and B2 at the head sizes (dim_head, heads) their kernels take besides
+# the flagship's 32 x 8 (phase 3): inner 256 at d = 8, 16, 64 and 128, and
+# inner 384 at d = 24 (QK^T's last k16 step padded with zeros) and 48; the
+# README flagship at 64 x 4 heads is HEADS_FLAGSHIP
+HEAD_CASES = ((8, 32), (16, 16), (64, 4), (128, 2), (24, 16), (48, 8))
+HEADS_FLAGSHIP = (64, 4)
+HEAD_REPS = 10      # timings a head case (float32: 3 single calls)
+# kernels-line rows at the flagship's 64 x 4 heads: row -> (the kernel's
+# counter, the path whose launches the row reports)
+HEAD_ROWS = {'space_attention_block_d64': ('space_attention_block',
+                                           'flagship_64x4_fused'),
+             'time_attention_block_fused_d64': ('time_attention_block_fused',
+                                                'flagship_64x4_fused')}
+
+
+def head_case(torch, dev, block, shape, dh, heads, gen, reps):
+    """One block at one head shape (``block`` 'space' on (frames, N, C),
+    'time' on (B, T, S, C) causal; 4 memory keys): bf16 and float32
+    against the plain version in float32 (relative, ``TOL``), each launch
+    counted by route (bf16: B1's core on 'mma' where its keys fit in shared
+    memory, else 'mma_ring'; B2 'fused' at inner 256, else 'launches';
+    float32: the scalar core, B2 on 'launches'), a batch boundary that must
+    read exactly 0 in both dtypes, and times beside the bound
+    (``attention_cost``: the work of d = 32 at the same inner width), the
+    plain version and the block as PyTorch calls at the same heads."""
+    from magvit2_pytorch_tpu_torch.ops.kernels import axial_attention as ax
+    c, inner = shape[-1], heads * dh
+    x32 = torch.randn(shape, generator=gen).to(dev)
+    p32 = [a.to(dev) for a in attn_params(torch, gen, c, heads, dh)]
+    if block == 'space':
+        fn, ref, causal = ax.attention_block, ax.attention_block_ref, False
+        groups, L = shape[0], shape[1]
+        core = ('mma' if ax.space_core_fits(4 + L, dh) else 'mma_ring')
+        want16 = {'space_attention_core_mma': int(core == 'mma'),
+                  'space_attention_core_mma_ring': int(core == 'mma_ring'),
+                  'gemm_wgmma': 2, 'gemm_f32': 0}
+        want32 = {'space_attention_core_mma': 0,
+                  'space_attention_core_mma_ring': 0, 'gemm_f32': 2}
+        library = lambda x, p: lambda: space_block_torch(torch, x, *p, heads,
+                                                         dh)
+    else:
+        fn, ref, causal = (ax.time_attention_block,
+                           ax.time_attention_block_ref, True)
+        groups, L = shape[0] * shape[2], shape[1]
+        core = 'fused' if inner <= ax.TIME_MAX_INNER else 'launches'
+        want16 = {'time_attention_block_fused': int(core == 'fused'),
+                  'time_attention_block_launches': int(core == 'launches'),
+                  'gemm_wgmma': 2 * (core == 'launches')}
+        want32 = {'time_attention_block_fused': 0,
+                  'time_attention_block_launches': 1, 'gemm_f32': 2}
+        mask = memory_mask(torch, L, 4, dev)
+        library = lambda x, p: lambda: time_block_torch(torch, x, *p, heads,
+                                                        dh, mask)
+    what = f'{block} block {shape} {dh} x {heads}'
+    row = dict(shape=list(shape), dim_head=dh, heads=heads, kernel_route=core)
+    args = {}
+    for name, want_counts in (('bfloat16', want16), ('float32', want32)):
+        a = args[name] = [t.to(getattr(torch, name)) for t in (x32, *p32)]
+        got, counts = counted(torch, lambda: fn(*a, heads, dh, causal))
+        check_launches(f'{what} {name}', counts, want_counts)
+        if not bool(torch.isfinite(got).all()):
+            fail(f'{what} {name}: non-finite output')
+        want = ref(*(t.float() for t in a), heads, dh, causal)
+        err = relative_error(got, want)
+        both = a[0][:2]
+        boundary = (fn(both, *a[1:], heads, dh, causal)[1:]
+                    - fn(both[1:].contiguous(), *a[1:], heads, dh, causal)
+                    ).abs().max().item()
+        row[name] = dict(max_rel_err=err, batch_boundary_err=boundary,
+                         launches=counts)
+        if name == 'bfloat16':
+            row['max_abs_err'] = (got.float() - want).abs().max().item()
+        if not err <= TOL[name]:
+            fail(f'{what} {name}: error {err} of the largest value > '
+                 f'{TOL[name]}')
+        if boundary != 0.0:
+            fail(f'{what} {name}: batch element 1 differs alone and in a '
+                 f'batch of two by {boundary}')
+        del got, want
+    a16, a32 = args['bfloat16'], args['float32']
+    row.update(
+        ms=median_ms(lambda: fn(*a16, heads, dh, causal), reps, inner=INNER),
+        plain_ms=median_ms(lambda: ref(*a16, heads, dh, causal), reps,
+                           inner=INNER),
+        library_ms=median_ms(library(a16[0], a16[1:]), reps, inner=INNER),
+        ms_fp32=median_ms(lambda: fn(*a32, heads, dh, causal), 3, warmup=1),
+        plain_ms_fp32=median_ms(lambda: ref(*a32, heads, dh, causal), 3,
+                                warmup=1),
+        calls_per_timing=INNER, per='launch')
+    if block == 'time':     # the profiler's kernel events, as phase 3
+        row['device_ms'] = device_ms(
+            torch, lambda: fn(*a16, heads, dh, causal))[0]
+    row['bound_ms'], row['bound_by'] = bound(*attention_cost(
+        groups, L, c, heads, dh, 4, causal))
+    device = (f', device {ms_text(row["device_ms"])}' if 'device_ms' in row
+              else '')
+    log(f'[heads] {what} ({core}): error over the largest value bf16 '
+        f'{row["bfloat16"]["max_rel_err"]:.3e}, fp32 '
+        f'{row["float32"]["max_rel_err"]:.3e} (tol {TOL}), batch boundary '
+        f'{row["bfloat16"]["batch_boundary_err"]} / '
+        f'{row["float32"]["batch_boundary_err"]}; bf16 kernel '
+        f'{row["ms"]:.4f} ms{device}, plain {row["plain_ms"]:.4f}, the '
+        f'block as '
+        f'PyTorch calls {row["library_ms"]:.4f}, bound {row["bound_ms"]:.4f} '
+        f'({row["bound_by"]}); fp32 kernel {row["ms_fp32"]:.4f}, plain '
+        f'{row["plain_ms_fp32"]:.4f} (median of {reps} x {INNER} calls; '
+        f'fp32 of 3 calls)')
+    return row
+
+
+def core_on_both_routes(torch, dev, shape, dh, heads, gen, reps):
+    """B1's tensor-core core on (frames, N) queries of ``dh`` x ``heads``
+    with 4 memory keys, where its resident route takes the keys, on that
+    route and on the K/V ring: {route: ms}, and the ring's output against
+    the resident route's over the largest value (the same math summed in
+    other tiles)."""
+    from magvit2_pytorch_tpu_torch.ops.kernels import (
+        _build, axial_attention as ax)
+    g, L = shape
+    inner = heads * dh
+    qkv = torch.randn(g * L, 3 * inner, generator=gen).to(dev).bfloat16()
+    mk, mv = (torch.randn(heads, 4, dh, generator=gen).to(dev).bfloat16()
+              for _ in range(2))
+    lib = _build.load_library()
+    ms, outs = {}, {}
+    for route in ('mma', 'mma_ring'):
+        attn = outs[route] = torch.empty(g * L, inner, dtype=qkv.dtype,
+                                         device=dev)
+
+        def call(route=route, attn=attn):
+            _build.check(lib, lib.mv2_attention_core(
+                qkv.data_ptr(), mk.data_ptr(), mv.data_ptr(),
+                attn.data_ptr(), _build.dtype_code(qkv), g, L, heads, dh, 4,
+                1, L, 1, 0, ax.CORES[route], _build.stream_handle(dev)),
+                f'attention core ({route})')
+        ms[route] = median_ms(call, reps, inner=INNER)
+    return ms, relative_error(outs['mma_ring'], outs['mma'])
+
+
+def phase_head_kernels(torch, dev, smi, reps=HEAD_REPS):
+    """B1 at the flagship's shape (160, 256, 512) and B2 at (8, 5, 256, 512)
+    at every ``HEAD_CASES`` head, and B1 at config 4's (8, 1024, 512) at the
+    flagship's 64 x 4 (1028 keys: the K/V ring), each through
+    ``head_case``. Returns the rows by case, and the kernels-line rows at
+    64 x 4 (B1's carries config 4's case under ``config4_shapes``)."""
+    gen = torch.Generator().manual_seed(53)
+    rows = {}
+    with torch.inference_mode():
+        for block, shape in (('space', (BATCH * 20, 256, 512)),
+                             ('time', TIME_SHAPE)):
+            for dh, heads in HEAD_CASES:
+                rows[f'{block} {dh}x{heads}'] = head_case(
+                    torch, dev, block, shape, dh, heads, gen, reps)
+                torch.cuda.empty_cache()
+        dh, heads = HEADS_FLAGSHIP
+        rows[f'space config4 {dh}x{heads}'] = head_case(
+            torch, dev, 'space', (C4_BATCH, 1024, 512), dh, heads, gen, reps)
+        ms, err = core_on_both_routes(torch, dev, (BATCH * 20, 256), dh,
+                                      heads, gen, reps)
+    torch.cuda.empty_cache()
+    tag = '{}x{}'.format(*HEADS_FLAGSHIP)
+    b1, b2 = rows[f'space {tag}'], rows[f'time {tag}']
+    b1['core_ms_by_route'] = ms
+    log(f'[heads] B1\'s core at ({BATCH * 20}, 256) {tag}, where the '
+        f'resident route takes the 260 keys: {ms} ms (median of {reps} x '
+        f'{INNER} calls), the ring against the resident route {err:.3e} of '
+        f'the largest value')
+    c4 = rows[f'space config4 {tag}']
+    log(f'[heads] at {tag} on {smi}: B1 {b1["ms"]:.4f} ms (bound '
+        f'{b1["bound_ms"]:.4f}), config 4 {c4["ms"]:.4f} ms on '
+        f'{c4["kernel_route"]}; B2 {b2["ms"]:.4f} ms, device '
+        f'{ms_text(b2["device_ms"])} (bound {b2["bound_ms"]:.4f})')
+    return rows, {
+        'space_attention_block_d64': dict(b1, config4_shapes=[c4]),
+        'time_attention_block_fused_d64': b2}
+
+
+@contextlib.contextmanager
+def general_attention_calls(torch):
+    """Count the general path's calls of ``Attention`` (norm, projections
+    and ``attend``) within the block."""
+    from magvit2_pytorch_tpu_torch.ops.attention import Attention
+    calls, real = [], Attention._general
+
+    def spy(self, *args, **kw):
+        calls.append(type(self).__name__)
+        return real(self, *args, **kw)
+
+    Attention._general = spy
+    try:
+        yield calls
+    finally:
+        Attention._general = real
+
+
+def phase_flagship_heads(torch, dev, smi, tp, profile_dir):
+    """The README flagship at 64 x 4 heads (``HEADS_FLAGSHIP``) on both
+    paths, beside phases 4 and 5's 32 x 8 in the same run: one bf16
+    roundtrip with phase 4's launches (B1 and B2 at d = 64 twice each, their
+    tensor-core core and fused route) and no general-path attention, its
+    frames/s by the same chained slope, the bf16 in-situ check on the
+    default path; then float32 card against CPU on both paths (phase 6's
+    contract)."""
+    dh, heads = HEADS_FLAGSHIP
+    kw = dict(attn_dim_head=dh, attn_heads=heads)
+    out, counts = {}, {}
+    for path, env in (('default', {}), ('fused', FUSED_ENV)):
+        with environment(env):
+            tok = flagship_tokenizer(torch, dev, torch.bfloat16,
+                                     lane_pack=path == 'fused', **kw)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            video = torch.rand(BATCH, 17, 128, 128, 3, generator=gen,
+                               device=dev)
+            with general_attention_calls(torch) as general:
+                counts[path], _ = phase_roundtrip(
+                    torch, f'roundtrip {path} {dh}x{heads}', tok, video,
+                    (BATCH, 5, 16, 16), LAUNCHES[path],
+                    ru_calls_expected(path))
+            if general:
+                fail(f'{dh} x {heads} flagship {path}: the general attention '
+                     f'path ran {general}')
+            r = phase_throughput(torch, tok, video)
+            r['fps_32x8'] = tp[path]['fps']
+            r['ratio_to_32x8'] = r['fps'] / tp[path]['fps']
+            if path == 'default':
+                r['in_situ'] = phase_in_situ(torch, tok, video)
+            if profile_dir:
+                profile_roundtrip(torch, tok, video, os.path.join(
+                    profile_dir, f'profile_{dh}x{heads}_{path}.txt'),
+                    r['ms_per_roundtrip'])
+            del tok, video
+            torch.cuda.empty_cache()
+        log(f'[throughput {path} {dh}x{heads}] bf16 batch {BATCH} roundtrip: '
+            f'{r["fps"]:.2f} frames/s ({r["ms_per_roundtrip"]:.2f} ms per '
+            f'roundtrip) against {r["fps_32x8"]:.2f} at 32 x 8 in this run '
+            f'({r["ratio_to_32x8"]:.4f}x) on {smi}')
+        out[path] = r
+    clip = torch.rand(1, 17, 128, 128, 3,
+                      generator=torch.Generator().manual_seed(7))
+    out['card_vs_cpu'], _ = card_against_cpu(
+        torch, dev, f'flagship {dh}x{heads}',
+        lambda device, path: flagship_tokenizer(
+            torch, device, torch.float32, lane_pack=path == 'fused', **kw),
+        clip, paths=(('default', {}), ('fused', FUSED_ENV)))
+    return out, {f'flagship_{dh}x{heads}_{p}': c for p, c in counts.items()}
 
 
 def phase_throughput(torch, tok, video, n_short=2, n_long=10, cond=None):
@@ -2860,7 +3145,7 @@ def phase_attention_step(torch, dev, reps, smi):
     x = torch.randn(shape, generator=gen)
     g = torch.randn(shape, generator=gen)
     for what, kw in (('use_rotary=True', dict(dim_head=32, use_rotary=True)),
-                     ('dim_head=16', dict(dim_head=16))):
+                     ('dim_head=12', dict(dim_head=12))):
         reset_launch_counts()
         card = attention_step(torch, attention_module(
             torch, 'SpaceAttention', dev, torch.float32, **kw),
@@ -5645,6 +5930,10 @@ def main():
     dev = torch.device('cuda', 0)
     torch.manual_seed(0)
 
+    t_start = time.perf_counter()
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        LOG_FILES.append(open(os.path.join(args.out, 'chip_smoke.log'), 'w'))
     smi = nvidia_smi()
     log(f'[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; '
         f'torch {torch.__version__}, CUDA {torch.version.cuda}')
@@ -5655,10 +5944,8 @@ def main():
         f'{time.perf_counter() - t0:.1f} s (nvcc '
         f'{_build.build_info["seconds"]:.1f} s)')
     if args.out:
-        os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, 'nvcc.log'), 'w') as f:
             f.write(_build.build_info.get('log', ''))
-        LOG_FILES.append(open(os.path.join(args.out, 'chip_smoke.log'), 'w'))
 
     with torch.inference_mode():
         kernel_rows = phase_kernels(torch, dev, REPS)
@@ -5703,7 +5990,13 @@ def main():
         f'{tp["default"]["fps"]:.2f}, fused {tp["fused"]["fps"]:.2f} on {smi}')
     phase_card_vs_cpu(torch, dev)
     phase_taylor_roundtrip(torch, dev)
-    configs = dict(config4=phase_config4(torch, dev, smi, profile_dir),
+    head_cases, head_rows = phase_head_kernels(torch, dev, smi)
+    kernel_rows.update(head_rows)
+    heads, head_paths = phase_flagship_heads(torch, dev, smi, tp, profile_dir)
+    heads['cases'] = head_cases
+    counts.update(head_paths)
+    configs = dict(heads=heads,
+                   config4=phase_config4(torch, dev, smi, profile_dir),
                    config3=phase_config3(torch, dev, smi),
                    **phase_small_configs(torch, dev))
     log(f'[throughput configs] bf16 on {smi}: config 4 default '
@@ -5731,15 +6024,20 @@ def main():
 
     if 'jax' in sys.modules:
         fail('JAX was imported')
+    log(f'[done] every phase in {time.perf_counter() - t_start:.1f} s')
     # the contract's keys last: a row's own 'route' (the GEMM's) gives way
-    kernels = [{**kernel_rows[name], 'name': name, 'route': 'cuda',
-                'source': source, 'replaces': replaces,
-                # on the path that runs the kernel (LAUNCH_PATH)
-                'launches': counts[LAUNCH_PATH.get(name, 'fused')][name],
-                'launches_by_path': {p: counts[p][name] for p in counts},
-                # all of this kernel's calls in one warm fused roundtrip
-                'fused_roundtrip_ms': tp['fused']['ru_ms'].get(name)}
-               for name, (source, replaces) in KERNELS.items()]
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        # the kernel's counter, on the path that runs it (LAUNCH_PATH)
+        counter, path = HEAD_ROWS.get(
+            name, (name, LAUNCH_PATH.get(name, 'fused')))
+        kernels.append({
+            **kernel_rows[name], 'name': name, 'route': 'cuda',
+            'source': source, 'replaces': replaces,
+            'launches': counts[path][counter],
+            'launches_by_path': {p: counts[p][counter] for p in counts},
+            # all of this kernel's calls in one warm fused roundtrip
+            'fused_roundtrip_ms': tp['fused']['ru_ms'].get(name)})
     for row in kernels:
         missing = [k for k in KERNEL_KEYS if k not in row]
         if missing:

@@ -36,18 +36,22 @@
 //   barrier sits in the loop. float32 accumulators, each chunk
 //   rounded once to bf16 into the qkv rows in shared memory
 //   (_time_kernel's .astype(dtype), :234-235).
-// - The attention, one thread per (frame, head, pixel) on the CUDA cores
-//   of every warp but the producer: scores q.k in float32 times D^-1/2
-//   over the M memory keys and the visible frames, one max over both,
-//   e = exp(s - max) and den = sum e in float32, e rounded to bf16 before
-//   the products with v and mem_v, those summed in float32, o / den
-//   rounded to bf16 (_time_kernel :252-272). Each pixel attends over its
-//   own T frames: no masked (T P)^2 score tile. Threads next to each other
-//   take neighbouring pixels, so their qkv rows fall in different banks.
-//   The loops over the keys stay rolled, the scores computed twice (for
-//   the max, then for e): unrolled over up to 16 + 4 keys the code ran
-//   slower. The output goes into the x panel's place (x is dead by then),
-//   in the layout wgmma reads.
+// - The attention on the CUDA cores of every warp but the producer: a
+//   (frame, head, pixel) takes G lanes of a warp, each up to 32 of the
+//   head's D values of q and of the output (G = 1 up to D = 32, 2 at 64, 4
+//   at 128), so a thread's registers do not grow with D; at G > 1 a score
+//   is the lanes' partial sums added by G-lane butterfly shuffles, the same
+//   value on every lane of the group. Scores
+//   q.k in float32 times D^-1/2 over the M memory keys and the visible
+//   frames, one max over both, e = exp(s - max) and den = sum e in float32,
+//   e rounded to bf16 before the products with v and mem_v, those summed
+//   in float32, o / den rounded to bf16 (_time_kernel :252-272). Each pixel
+//   attends over its own T frames: no masked (T P)^2 score tile. Groups
+//   next to each other take neighbouring pixels. The loops over the keys
+//   stay rolled, the scores computed twice (for the max, then for e):
+//   unrolled over up to 16 + 4 keys the code ran slower. The output goes
+//   into the x panel's place (x is dead by then), in the layout wgmma
+//   reads.
 // - out = attn Wout^T on the same ring (the producer loads the first Wout
 //   tiles while the attention runs), 256 columns at a time, staged in shared
 //   memory and stored to the output rows in 16-byte pieces.
@@ -75,14 +79,13 @@ constexpr int kTbWorkThreads = 480;  // and all but it for the CUDA-core work
 constexpr int kTbMaxStages = 4;    // the weight ring: the deepest that
 constexpr int kTbMinStages = 2;    // fits, 4 down to 2 stages
 constexpr int kTbN = 256;          // weight rows a ring tile (N a chunk)
-constexpr int kTbD = 32;           // dim_head
 // the shapes the kernel takes (ops/kernels/axial_attention.py TIME_MAX_*
-// routes no other): rows a block, frames (the module's gate takes no
-// more), memory keys (the configurations use 4), channels and heads x
-// dim_head; at all of them at once two weight stages fit (the
-// static_assert below)
+// and takes_dim_head route no other): rows a block, frames (the module's
+// gate takes no more), memory keys (the configurations use 4), channels,
+// heads x dim_head and dim_head (a multiple of 8); at all of them at once
+// two weight stages fit (the static_assert below)
 constexpr int kTbMaxRows = 60, kTbMaxT = 16, kTbMaxMem = 4;
-constexpr int kTbMaxC = 512, kTbMaxInner = 256;
+constexpr int kTbMaxC = 512, kTbMaxInner = 256, kTbMaxD = 128;
 constexpr int kTbChunk = kTbRows * 128;           // a 64-channel panel chunk
 constexpr int kTbQkvPad = 8;       // bf16 past a qkv row: rows 16 B apart
 constexpr int kTbStagePad = 8;     // bf16 past a staged output row
@@ -101,9 +104,9 @@ struct TimeSmem {
   int total;  // with the 1024 bytes of alignment slack
 };
 
-// the layout with R rows and `stages` ring tiles
-constexpr TimeSmem time_smem(int R, int C, int H, int M, int stages) {
-  const int inner = H * kTbD;
+// the layout with R rows, `inner` = heads x dim_head and `stages` ring
+// tiles
+constexpr TimeSmem time_smem(int R, int C, int inner, int M, int stages) {
   TimeSmem l{};
   l.panel = 0;
   l.ring = 2 * kTbRows * (C > inner ? C : inner);
@@ -111,10 +114,10 @@ constexpr TimeSmem time_smem(int R, int C, int H, int M, int stages) {
   const int qkv_rows = R * (3 * inner + kTbQkvPad);
   const int stage = kTbRows * (kTbN + kTbStagePad);
   l.small = l.qkv + 2 * (qkv_rows > stage ? qkv_rows : stage);
-  l.total = 1024 + l.small + 2 * 2 * H * M * kTbD;
+  l.total = 1024 + l.small + 2 * 2 * inner * M;
   return l;
 }
-static_assert(time_smem(kTbMaxRows, kTbMaxC, kTbMaxInner / kTbD, kTbMaxMem,
+static_assert(time_smem(kTbMaxRows, kTbMaxC, kTbMaxInner, kTbMaxMem,
                         kTbMinStages)
                       .total <= kTbSmemMax,
               "every shape taken must fit two weight stages");
@@ -122,17 +125,18 @@ static_assert(time_smem(kTbMaxRows, kTbMaxC, kTbMaxInner / kTbD, kTbMaxMem,
 // the plan of a call: false if the kernel does not take the shape, else
 // the deepest ring that fits (stages) and its layout; the launcher and
 // mv2_time_block_plan share it
-inline bool time_plan(int T, int P, int C, int H, int M, int* stages,
-                      TimeSmem* smem) {
-  const int inner = H * kTbD;
+inline bool time_plan(int T, int P, int C, int H, int D, int M,
+                      int* stages, TimeSmem* smem) {
+  const int inner = H * D;
   if (T < 1 || T > kTbMaxT || P < 1 || T * P > kTbMaxRows || C < 1 ||
-      C > kTbMaxC || C % kSw128Cols || H < 1 || inner > kTbMaxInner ||
-      inner % kSw128Cols || M < 0 || M > kTbMaxMem)
+      C > kTbMaxC || C % kSw128Cols || H < 1 || D < 8 || D > kTbMaxD ||
+      D % 8 || inner > kTbMaxInner || inner % kSw128Cols || M < 0 ||
+      M > kTbMaxMem)
     return false;  // not this route's call: the rule is
                    // axial_attention.py time_block_route
   for (*stages = kTbMaxStages; *stages > kTbMinStages; --*stages)
-    if (time_smem(T * P, C, H, M, *stages).total <= kTbSmemMax) break;
-  *smem = time_smem(T * P, C, H, M, *stages);
+    if (time_smem(T * P, C, inner, M, *stages).total <= kTbSmemMax) break;
+  *smem = time_smem(T * P, C, inner, M, *stages);
   return true;
 }
 
@@ -141,7 +145,8 @@ struct TimeArgs {
   const bf16* mem_k;
   const bf16* mem_v;
   bf16* out;
-  int T, S, C, H, M, P, causal, stages;
+  int T, S, C, H, D, M, P, causal, stages;
+  int lanes;  // a (frame, head, pixel)'s lanes: a power of two >= D / 32
   float scale;
   TimeSmem smem;
 };
@@ -156,37 +161,32 @@ __device__ __forceinline__ float2 bf16x2_to_f2(unsigned w) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
 }
 
-// q . row over the 32 values of a head, in float32, in the order of d
-__device__ __forceinline__ float dot32(const float (&q)[kTbD],
-                                       const bf16* row) {
-  float s = 0.f;
+constexpr int kTbLanePieces = 4;  // 16-byte pieces (8 values) a lane holds
+
+// s + q . piece over 8 values of a head (one 16-byte piece), in float32, in
+// the order of d
+__device__ __forceinline__ float dot8(const float* q, const bf16* piece,
+                                      float s) {
+  const uint4 u = *reinterpret_cast<const uint4*>(piece);
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-  for (int c = 0; c < kTbD / 8; ++c) {
-    const uint4 u = *reinterpret_cast<const uint4*>(row + 8 * c);
-    const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = bf16x2_to_f2(w[e]);
-      s = fmaf(q[8 * c + 2 * e], f.x, s);
-      s = fmaf(q[8 * c + 2 * e + 1], f.y, s);
-    }
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = bf16x2_to_f2(w[e]);
+    s = fmaf(q[2 * e], f.x, s);
+    s = fmaf(q[2 * e + 1], f.y, s);
   }
   return s;
 }
 
-// o += p * row over the 32 values of a head, in float32
-__device__ __forceinline__ void axpy32(float (&o)[kTbD], float p,
-                                       const bf16* row) {
+// o += p * piece over 8 values of a head, in float32
+__device__ __forceinline__ void axpy8(float* o, float p, const bf16* piece) {
+  const uint4 u = *reinterpret_cast<const uint4*>(piece);
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-  for (int c = 0; c < kTbD / 8; ++c) {
-    const uint4 u = *reinterpret_cast<const uint4*>(row + 8 * c);
-    const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = bf16x2_to_f2(w[e]);
-      o[8 * c + 2 * e] = fmaf(p, f.x, o[8 * c + 2 * e]);
-      o[8 * c + 2 * e + 1] = fmaf(p, f.y, o[8 * c + 2 * e + 1]);
-    }
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = bf16x2_to_f2(w[e]);
+    o[2 * e] = fmaf(p, f.x, o[2 * e]);
+    o[2 * e + 1] = fmaf(p, f.y, o[2 * e + 1]);
   }
 }
 
@@ -234,6 +234,9 @@ __device__ __forceinline__ void ring_gemm(float (&acc)[kTbN / 4],
   if (lane == 0) mbar_arrive(&empty[(tile - 1) % stages]);
 }
 
+// kGuard: 0 where every lane's pieces are the head's (D = 32, 64, 128: the
+// flagship's heads run the code with no check a piece), 1 for the other D
+template <int kGuard>
 __global__ void __launch_bounds__(kTbThreads, 1)
     time_block_kernel(const __grid_constant__ CUtensorMap map_x,
                       const __grid_constant__ CUtensorMap map_wqkv,
@@ -247,13 +250,13 @@ __global__ void __launch_bounds__(kTbThreads, 1)
   unsigned char* panel = base + a.smem.panel;
   unsigned char* ring = base + a.smem.ring;
   bf16* qkv_s = reinterpret_cast<bf16*>(base + a.smem.qkv);
-  const int T = a.T, P = a.P, R = T * P, C = a.C, H = a.H, M = a.M;
+  const int T = a.T, P = a.P, R = T * P, C = a.C, H = a.H, D = a.D, M = a.M;
   const int stages = a.stages;
+  const int inner = H * D, ncols = 3 * inner, ldq = ncols + kTbQkvPad;
   bf16* mk_s = reinterpret_cast<bf16*>(base + a.smem.small);
-  bf16* mv_s = mk_s + H * M * kTbD;
+  bf16* mv_s = mk_s + inner * M;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int wg = tid / 128, qw = (tid % 128) / 32;
-  const int inner = H * kTbD, ncols = 3 * inner, ldq = ncols + kTbQkvPad;
   const int b = blockIdx.y, s0 = blockIdx.x * P;
   constexpr int kHalfN = kTbN / 2, kStageLd = kTbN + kTbStagePad;
   // weight tiles: the qkv chunks (each C / 64 K tiles), then the out chunks
@@ -276,7 +279,7 @@ __global__ void __launch_bounds__(kTbThreads, 1)
                   b * T);
   }
   {  // memory keys and values, in 16-byte pieces (both aligned)
-    const int nm = H * M * kTbD / 8;
+    const int nm = inner * M / 8;
     uint4* dst = reinterpret_cast<uint4*>(mk_s);  // mk_s, mv_s in a row
     for (int i = tid; i < 2 * nm; i += kTbThreads)
       dst[i] = i < nm ? reinterpret_cast<const uint4*>(a.mem_k)[i]
@@ -388,66 +391,100 @@ __global__ void __launch_bounds__(kTbThreads, 1)
   }
   bar_sync(1, kTbWorkThreads);
 
-  // ---- attention: one thread a (frame, head, pixel), pixels fastest ----
-  for (int it = tid; it < T * H * P; it += kTbWorkThreads) {
+  // ---- attention: G lanes a (frame, head, pixel), pixels fastest ----
+  // a warp takes 32 / G (frame, head, pixel)s at a time; lane gl of a group
+  // holds pieces gl * 4 .. gl * 4 + 3 of the head, those past D / 8 add
+  // nothing, and a lane past the last (frame, head, pixel) stores nothing.
+  // At G > 1 every lane of the warp takes part in every shuffle: the loop
+  // over the frames runs to the warp's furthest visible frame, and a lane
+  // uses only the scores of its own visible ones
+  constexpr int kV = 8 * kTbLanePieces;  // values a lane holds
+  const int G = a.lanes, nd = D / 8, items = T * H * P;
+  for (int slot0 = warp * 32; slot0 < items * G; slot0 += kTbWorkThreads) {
+    const int slot = slot0 + lane, j0 = (lane & (G - 1)) * kTbLanePieces;
+    const int it = min(slot / G, items - 1);
     const int p = it % P, h = (it / P) % H, t = it / (P * H);
     const int r = t * P + p;
-    float q[kTbD];
+    float q[kV];
     {
-      const bf16* qr = qkv_s + r * ldq + h * kTbD;
+      const bf16* qr = qkv_s + r * ldq + h * D;
 #pragma unroll
-      for (int c = 0; c < kTbD / 8; ++c) {
-        const uint4 u = *reinterpret_cast<const uint4*>(qr + 8 * c);
+      for (int k = 0; k < kTbLanePieces; ++k) {
+        uint4 u = make_uint4(0, 0, 0, 0);
+        if (!kGuard || j0 + k < nd)
+          u = *reinterpret_cast<const uint4*>(qr + 8 * (j0 + k));
         const unsigned w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float2 f = bf16x2_to_f2(w[e]);
-          q[8 * c + 2 * e] = f.x;
-          q[8 * c + 2 * e + 1] = f.y;
+          q[8 * k + 2 * e] = f.x;
+          q[8 * k + 2 * e + 1] = f.y;
         }
       }
     }
     const int visible = a.causal ? t + 1 : T;
-    const bf16* mk = mk_s + h * M * kTbD;
-    const bf16* mv = mv_s + h * M * kTbD;
-    const bf16* kcol = qkv_s + p * ldq + inner + h * kTbD;  // frame 0's k
+    const int reach = G > 1 ? __reduce_max_sync(0xffffffffu, visible)
+                            : visible;
+    const bf16* mk = mk_s + h * M * D;
+    const bf16* mv = mv_s + h * M * D;
+    const bf16* kcol = qkv_s + p * ldq + inner + h * D;  // frame 0's k
     const bf16* vcol = kcol + inner;
+    // the score of a key: this lane's products in the order of d, the
+    // group's sum, the scale (__fmul_rn keeps the compiler from fusing it
+    // into the subtraction, so both passes see the same value)
+    auto score = [&](const bf16* key) {
+      float sc = 0.f;
+#pragma unroll
+      for (int k = 0; k < kTbLanePieces; ++k)
+        if (!kGuard || j0 + k < nd)
+          sc = dot8(q + 8 * k, key + 8 * (j0 + k), sc);
+      for (int off = G / 2; off > 0; off >>= 1)
+        sc += __shfl_xor_sync(0xffffffffu, sc, off);
+      return __fmul_rn(sc, a.scale);
+    };
+    auto axpy = [&](float (&o)[kV], float e, const bf16* val) {
+#pragma unroll
+      for (int k = 0; k < kTbLanePieces; ++k)
+        if (!kGuard || j0 + k < nd) axpy8(o + 8 * k, e, val + 8 * (j0 + k));
+    };
     // two passes over the keys, each a rolled loop: the max of the scores,
-    // then each score again (the same value: __fmul_rn keeps the compiler
-    // from fusing the scale into the subtraction), its e, den and the
-    // products with v in float32
+    // then each score again, its e, den and the products with v in float32
     float mx = -INFINITY;
 #pragma unroll 1
-    for (int j = 0; j < M; ++j)
-      mx = fmaxf(mx, __fmul_rn(dot32(q, mk + j * kTbD), a.scale));
+    for (int j = 0; j < M; ++j) mx = fmaxf(mx, score(mk + j * D));
 #pragma unroll 1
-    for (int u = 0; u < visible; ++u)
-      mx = fmaxf(mx, __fmul_rn(dot32(q, kcol + u * P * ldq), a.scale));
-    float o[kTbD];
+    for (int u = 0; u < reach; ++u) {
+      const float sc = score(kcol + u * P * ldq);
+      if (u < visible) mx = fmaxf(mx, sc);
+    }
+    float o[kV];
 #pragma unroll
-    for (int d = 0; d < kTbD; ++d) o[d] = 0.f;
+    for (int d = 0; d < kV; ++d) o[d] = 0.f;
     float den = 0.f;
 #pragma unroll 1
-    for (int u = 0; u < visible; ++u) {
-      const float e =
-          expf(__fmul_rn(dot32(q, kcol + u * P * ldq), a.scale) - mx);
+    for (int u = 0; u < reach; ++u) {
+      const float sc = score(kcol + u * P * ldq);
+      if (u >= visible) continue;
+      const float e = expf(sc - mx);
       den += e;
-      axpy32(o, round_to<bf16>(e), vcol + u * P * ldq);
+      axpy(o, round_to<bf16>(e), vcol + u * P * ldq);
     }
 #pragma unroll 1
     for (int j = 0; j < M; ++j) {
-      const float e = expf(__fmul_rn(dot32(q, mk + j * kTbD), a.scale) - mx);
+      const float e = expf(score(mk + j * D) - mx);
       den += e;
-      axpy32(o, round_to<bf16>(e), mv + j * kTbD);
+      axpy(o, round_to<bf16>(e), mv + j * D);
     }
+    if (slot < items * G) {
 #pragma unroll
-    for (int c = 0; c < kTbD / 8; ++c) {
-      const int j = (h * kTbD + 8 * c) / 8;  // the piece in the attn row
-      *reinterpret_cast<uint4*>(panel + panel_piece(r, j)) = make_uint4(
-          pack_bf16(o[8 * c] / den, o[8 * c + 1] / den),
-          pack_bf16(o[8 * c + 2] / den, o[8 * c + 3] / den),
-          pack_bf16(o[8 * c + 4] / den, o[8 * c + 5] / den),
-          pack_bf16(o[8 * c + 6] / den, o[8 * c + 7] / den));
+      for (int k = 0; k < kTbLanePieces; ++k)  // the pieces in the attn row
+        if (!kGuard || j0 + k < nd)
+          *reinterpret_cast<uint4*>(panel +
+                                    panel_piece(r, h * nd + j0 + k)) =
+              make_uint4(pack_bf16(o[8 * k] / den, o[8 * k + 1] / den),
+                         pack_bf16(o[8 * k + 2] / den, o[8 * k + 3] / den),
+                         pack_bf16(o[8 * k + 4] / den, o[8 * k + 5] / den),
+                         pack_bf16(o[8 * k + 6] / den, o[8 * k + 7] / den));
     }
   }
   fence_proxy_async();  // the attn panel is wgmma's A
@@ -484,18 +521,33 @@ __global__ void __launch_bounds__(kTbThreads, 1)
   }
 }
 
+template <int kGuard>
+cudaError_t launch_time_kernel(const CUtensorMap& map_x,
+                               const CUtensorMap& map_wqkv,
+                               const CUtensorMap& map_wout, const TimeArgs& a,
+                               dim3 grid, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      time_block_kernel<kGuard>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      a.smem.total);
+  if (err != cudaSuccess) return err;
+  time_block_kernel<kGuard><<<grid, kTbThreads, a.smem.total, stream>>>(
+      map_x, map_wqkv, map_wout, a);
+  MV2_CHECK_LAUNCH();
+  return cudaSuccess;
+}
+
 cudaError_t launch_time_block(const bf16* x, const bf16* gamma,
                               const bf16* wqkv, const bf16* mem_k,
                               const bf16* mem_v, const bf16* wout, bf16* out,
-                              int B, int T, int S, int C, int H, int M, int P,
-                              int causal, cudaStream_t stream) {
+                              int B, int T, int S, int C, int H, int D, int M,
+                              int P, int causal, cudaStream_t stream) {
   TimeArgs a;
-  if (B < 1 || S < 1 || !time_plan(T, P, C, H, M, &a.stages, &a.smem) ||
+  if (B < 1 || S < 1 || !time_plan(T, P, C, H, D, M, &a.stages, &a.smem) ||
       ((uintptr_t)x | (uintptr_t)gamma | (uintptr_t)wqkv | (uintptr_t)mem_k |
        (uintptr_t)mem_v | (uintptr_t)wout | (uintptr_t)out) %
           16)
     return cudaErrorInvalidValue;
-  const int inner = H * kTbD;
+  const int inner = H * D;
   a.gamma = gamma;
   a.mem_k = mem_k;
   a.mem_v = mem_v;
@@ -504,10 +556,13 @@ cudaError_t launch_time_block(const bf16* x, const bf16* gamma,
   a.S = S;
   a.C = C;
   a.H = H;
+  a.D = D;
+  a.lanes = 1;
+  while (8 * kTbLanePieces * a.lanes < D) a.lanes *= 2;
   a.M = M;
   a.P = P;
   a.causal = causal;
-  a.scale = (float)(1.0 / sqrt((double)kTbD));  // Python's dim_head ** -0.5
+  a.scale = (float)(1.0 / sqrt((double)D));  // Python's dim_head ** -0.5
   CUtensorMap map_x, map_wqkv, map_wout;
   const long long xdims[3] = {C, S, (long long)B * T};
   const int xbox[3] = {kSw128Cols, P, T};
@@ -517,15 +572,10 @@ cudaError_t launch_time_block(const bf16* x, const bf16* gamma,
   if (err != cudaSuccess) return err;
   err = tensor_map_2d(&map_wout, wout, C, inner, kTbN);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(time_block_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             a.smem.total);
-  if (err != cudaSuccess) return err;
   const dim3 grid((S + P - 1) / P, B);
-  time_block_kernel<<<grid, kTbThreads, a.smem.total, stream>>>(
-      map_x, map_wqkv, map_wout, a);
-  MV2_CHECK_LAUNCH();
-  return cudaSuccess;
+  if (8 * kTbLanePieces * a.lanes == D)  // every lane's pieces are whole
+    return launch_time_kernel<0>(map_x, map_wqkv, map_wout, a, grid, stream);
+  return launch_time_kernel<1>(map_x, map_wqkv, map_wout, a, grid, stream);
 }
 
 }  // namespace mv2
@@ -533,31 +583,31 @@ cudaError_t launch_time_block(const bf16* x, const bf16* gamma,
 extern "C" {
 
 // out (B, T, S, C) = the time attention block of x on the fused route:
-// bf16, dim_head 32, `pixels` pixels a block (T * pixels <= 60); any other
-// route or call returns cudaErrorInvalidValue
+// bf16, `pixels` pixels a block (T * pixels <= 60), the shapes time_plan
+// takes; any other route or call returns cudaErrorInvalidValue
 int mv2_time_attention_block(const void* x, const void* gamma,
                              const void* wqkv, const void* mem_k,
                              const void* mem_v, const void* wout, void* out,
                              int dtype, int B, int T, int S, int C, int H,
                              int D, int M, int pixels, int causal, int route,
                              void* stream) {
-  if (route != mv2::kTimeFused || dtype != mv2::kBFloat16 || D != mv2::kTbD)
+  if (route != mv2::kTimeFused || dtype != mv2::kBFloat16)
     return cudaErrorInvalidValue;
   typedef mv2::bf16 T16;
   return mv2::launch_time_block(
       (const T16*)x, (const T16*)gamma, (const T16*)wqkv, (const T16*)mem_k,
-      (const T16*)mem_v, (const T16*)wout, (T16*)out, B, T, S, C, H, M,
+      (const T16*)mem_v, (const T16*)wout, (T16*)out, B, T, S, C, H, D, M,
       pixels, causal, static_cast<cudaStream_t>(stream));
 }
 
-// What the launcher plans for a call of `pixels` pixels a block (dim_head
-// 32), into out (2 ints): the weight ring's stages and the dynamic shared
-// memory it asks for; cudaErrorInvalidValue where the kernel does not take
-// the shape.
-int mv2_time_block_plan(int T, int pixels, int C, int H, int M, void* out) {
+// What the launcher plans for a call of `pixels` pixels a block, into out
+// (2 ints): the weight ring's stages and the dynamic shared memory it asks
+// for; cudaErrorInvalidValue where the kernel does not take the shape.
+int mv2_time_block_plan(int T, int pixels, int C, int H, int D, int M,
+                        void* out) {
   int stages;
   mv2::TimeSmem smem;
-  if (!mv2::time_plan(T, pixels, C, H, M, &stages, &smem))
+  if (!mv2::time_plan(T, pixels, C, H, D, M, &stages, &smem))
     return cudaErrorInvalidValue;
   int* o = static_cast<int*>(out);
   o[0] = stages;
@@ -565,13 +615,14 @@ int mv2_time_block_plan(int T, int pixels, int C, int H, int M, void* out) {
   return cudaSuccess;
 }
 
-// What the CUDA runtime reports for time_block_kernel, into out (4 ints):
-// registers a thread, local memory a thread (spills), static shared
-// memory, and the dynamic shared memory its launcher last set (on every
-// launch).
+// What the CUDA runtime reports for time_block_kernel<0> (the flagship's
+// heads), into out (4 ints): registers a thread, local memory a thread
+// (spills), static shared memory, and the dynamic shared memory its
+// launcher last set (on every launch).
 int mv2_time_block_attributes(void* out) {
   cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, mv2::time_block_kernel);
+  const cudaError_t err =
+      cudaFuncGetAttributes(&a, mv2::time_block_kernel<0>);
   if (err != cudaSuccess) return err;
   int* o = static_cast<int*>(out);
   o[0] = a.numRegs;

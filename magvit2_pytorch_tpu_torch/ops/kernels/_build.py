@@ -44,8 +44,8 @@ SIGNATURES = {
     # x, gamma, wqkv, mem_k, mem_v, wout, out, dtype, B, T, S, C, heads,
     # dim_head, M, pixels, causal, route, stream
     'mv2_time_attention_block': [_P] * 7 + [_I] * 11 + [_P],
-    # T, pixels, C, heads, M, out (2 ints)
-    'mv2_time_block_plan': [_I] * 5 + [_P],
+    # T, pixels, C, heads, dim_head, M, out (2 ints)
+    'mv2_time_block_plan': [_I] * 6 + [_P],
     # out (4 ints)
     'mv2_time_block_attributes': [_P],
     # qkv, attn, scratch, dtype, frames, N, heads, dim_head, eps, route,

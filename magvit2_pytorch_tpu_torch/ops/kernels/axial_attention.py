@@ -23,23 +23,35 @@ at 3.35 TB/s). So every launch runs on the tensor cores in bf16:
 
 - the projections take ``gemm.py``'s ``'wgmma'`` route (TMA + ``wgmma``,
   128x128 tiles, a 3-stage shared-memory ring), counted as ``gemm_wgmma``;
-- the space core (``core_route`` ``'mma'``: bf16, ``dim_head`` 32,
-  contiguous groups, at most 1280 keys) gives a block of four warps up to
-  256 queries of one (frame, head), stages the head's keys once in shared
+- the space core (``core_route`` ``'mma'``: bf16, contiguous groups, the
+  keys resident in shared memory) gives a block of four warps up to 256
+  queries of one (frame, head), stages the head's keys once in shared
   memory and runs ``S = Q K^T`` and ``O += P V`` on ``mma.sync`` with the
   online softmax in registers, counted as ``space_attention_core_mma``;
-  alone it is bound by bytes (qkv in, attn out: 0.025 ms).
+  where the keys do not fit (:func:`space_core_fits`: config 4's 1028 keys
+  at ``dim_head`` 64) ``'mma_ring'`` gives a block 64 queries and streams
+  K and V through a ``cp.async`` ring, counted as
+  ``space_attention_core_mma_ring``. Alone the core is bound by bytes (qkv
+  in, attn out: 0.025 ms).
+
+Both blocks take every head size of :func:`takes_dim_head` (multiples of 8
+from 8 to 128; the kernels run at the padded widths ``MMA_WIDTHS`` with the
+true ``dim_head`` at run time). At a fixed inner width (heads x
+``dim_head``) the work does not depend on the head size: the projections
+are the same GEMMs, and the scores and values take 2 x rows x keys x inner
+FLOPs each.
 
 The time block on ``(B, T, S, C)`` takes one of two routes
 (:func:`time_block_route`, decided from shapes and passed to C):
 
-- ``'fused'`` (bf16, ``dim_head`` 32, T <= 16, C <= 512, heads * dim_head
-  <= 256, M <= 4): one launch of ``csrc/time_attention.cu``. A block owns
+- ``'fused'`` (bf16, T <= 16, C <= 512, heads * dim_head <= 256, M <= 4):
+  one launch of ``csrc/time_attention.cu``. A block owns
   one batch index and P <= 60 // T consecutive pixels over all T frames
   (:func:`time_block_pixels`), reads x once, keeps the normed x, qkv and
   the attention output in shared memory and writes the output once; the
   projections run on ``wgmma`` and each (pixel, head) attends over its own
-  T frames on the CUDA cores with ``_time_kernel``'s cast points. At the
+  T frames on the CUDA cores with ``_time_kernel``'s cast points, a group
+  of lanes a (pixel, head, frame), up to 32 of its values a lane. At the
   flagship shape (8, 5, 256, 512) it is 10.7 GFLOP (0.0109 ms at the bf16
   peak) against 22 MB (0.0066 ms): operations bound it. Each block
   streams the ~1 MB of weights from L2, and the tile is chosen to keep
@@ -73,14 +85,16 @@ from magvit2_pytorch_tpu_torch.ops.kernels import _build, gemm
 # launches of each block, and of the tensor-core core, since the last reset
 # (see ops/kernels); the blocks' GEMMs count in gemm.LAUNCHES
 LAUNCHES = {'space_attention_block': 0, 'time_attention_block': 0,
-            'space_attention_core_mma': 0, 'time_attention_block_fused': 0,
+            'space_attention_core_mma': 0, 'space_attention_core_mma_ring': 0,
+            'time_attention_block_fused': 0,
             'time_attention_block_launches': 0,
             'space_attention_block_backward': 0,
             'time_attention_block_backward': 0}
 
-SUPPORTED_DIM_HEAD = (32,)    # csrc/attention_block.cu template cases
-CORES = {'scalar': 0, 'mma': 1}     # csrc/attention_block.cu CoreRoute
-MMA_MAX_KEYS = 1280                 # kMmaMaxKeys: K and V in shared memory
+# csrc/attention_block.cu CoreRoute
+CORES = {'scalar': 0, 'mma': 1, 'mma_ring': 2}
+MMA_WIDTHS = (16, 32, 64, 128)      # head_width: the cores' padded widths
+MMA_SMEM = 232448                   # kMmaSmemMax: 227 KB
 TIME_ROUTES = {'launches': 0, 'fused': 1}   # csrc/time_attention.cu TimeRoute
 # the shapes the fused time block takes (csrc/time_attention.cu
 # kTbMax*, whose launcher refuses any other): rows a block owns, frames,
@@ -89,16 +103,38 @@ TIME_MAX_ROWS, TIME_MAX_T, TIME_MAX_MEM = 60, 16, 4
 TIME_MAX_C, TIME_MAX_INNER = 512, 256
 
 
+def takes_dim_head(dim_head: int) -> bool:
+    """The head sizes both blocks' kernels take, on every route: the
+    multiples of 8 from 8 to 128 (``csrc/attention_block.cu``
+    ``mv2_attention_core``, ``csrc/time_attention.cu`` ``time_plan``)."""
+    return dim_head % 8 == 0 and 8 <= dim_head <= MMA_WIDTHS[-1]
+
+
+def mma_width(dim_head: int) -> int:
+    """The padded width a head runs at in the cores (``head_width``)."""
+    return next(w for w in MMA_WIDTHS if dim_head <= w)
+
+
+def space_core_fits(keys: int, dim_head: int) -> bool:
+    """Whether the resident tensor-core core holds ``keys`` keys (memory
+    keys included) in shared memory: K and V, rows of the padded width plus
+    8, padded to 16 keys (``space_core_smem``). Up to 1440 keys at widths
+    of 32, 800 at 64, 416 at 128."""
+    rows = -(-keys // 16) * 16
+    return 2 * 2 * (mma_width(dim_head) + 8) * rows <= MMA_SMEM
+
+
 def _block_takes(dim_head: int, dropout: float, use_rotary: bool,
                  has_mask: bool, has_cond: bool, streaming: bool) -> bool:
     """What both block gates share: plain axial attention (no dropout,
-    rotary, mask, conditioning or stream) at a head size the CUDA kernel
-    takes, unless ``MAGVIT2_TPU_NO_FUSED_ATTN=1`` (read at call time)."""
+    rotary, mask, conditioning or stream) at a head size the CUDA kernels
+    take (:func:`takes_dim_head`), unless ``MAGVIT2_TPU_NO_FUSED_ATTN=1``
+    (read at call time)."""
     if os.environ.get('MAGVIT2_TPU_NO_FUSED_ATTN', '') == '1':
         return False
     return (not (dropout > 0 or use_rotary or has_mask or has_cond
                  or streaming)
-            and dim_head in SUPPORTED_DIM_HEAD)
+            and takes_dim_head(dim_head))
 
 
 def fused_eligible(n: int, c: int, heads: int, dim_head: int, *,
@@ -111,8 +147,8 @@ def fused_eligible(n: int, c: int, heads: int, dim_head: int, *,
     unless
     ``MAGVIT2_TPU_NO_FUSED_ATTN=1`` (read at call time). The TPU-only
     conditions (``n % 8``, lane-multiple ``c`` and ``heads * dim_head``, a
-    TPU backend) give way to what the CUDA kernel takes: ``dim_head in
-    SUPPORTED_DIM_HEAD``, so ``c`` and ``heads`` decide nothing here. The
+    TPU backend) give way to what the CUDA kernels take:
+    :func:`takes_dim_head`, so ``c`` and ``heads`` decide nothing here. The
     gate does not look at the device, so a module routes the same way on the
     CPU and the card; an ineligible module takes the general path of
     ``ops/attention.py``."""
@@ -208,7 +244,8 @@ def time_block_pixels(b: int, t: int, s: int, sms: int) -> int:
 def time_block_route(dtype, t: int, s: int, c: int, heads: int,
                      dim_head: int, m: int, *tensors) -> str:
     """The time block's route: ``'fused'`` (one launch of
-    ``csrc/time_attention.cu``) for bf16 at ``dim_head`` 32, 1 <= t <=
+    ``csrc/time_attention.cu``) for bf16 at a head size of
+    :func:`takes_dim_head`, 1 <= t <=
     ``TIME_MAX_T``, C and heads * dim_head multiples of 64 up to
     ``TIME_MAX_C`` and ``TIME_MAX_INNER`` (where the kernel's shared memory
     holds two weight stages at any rows, memory keys and pixel count it
@@ -218,7 +255,7 @@ def time_block_route(dtype, t: int, s: int, c: int, heads: int,
     ``'launches'`` (four launches, the scalar core) otherwise. s does not
     enter: the last tile of a batch index is masked."""
     inner = heads * dim_head
-    if (dtype == torch.bfloat16 and dim_head == 32
+    if (dtype == torch.bfloat16 and takes_dim_head(dim_head)
             and 1 <= t <= TIME_MAX_T and s >= 1
             and 0 < c <= TIME_MAX_C and c % 64 == 0
             and 0 < inner <= TIME_MAX_INNER and inner % 64 == 0
@@ -228,22 +265,25 @@ def time_block_route(dtype, t: int, s: int, c: int, heads: int,
     return 'launches'
 
 
-def time_block_plan(t: int, pixels: int, c: int, heads: int, m: int):
-    """What the fused kernel's launcher plans for a call (``dim_head`` 32):
+def time_block_plan(t: int, pixels: int, c: int, heads: int, dim_head: int,
+                    m: int):
+    """What the fused kernel's launcher plans for a call:
     ``{'stages': ..., 'dynamic_smem_bytes': ...}``, its weight ring's depth
     and the dynamic shared memory it asks for, or None where it does not
     take the shape. Calls the built library (the card's)."""
     out = (ctypes.c_int * 2)()
     lib = _build.load_library()
-    if lib.mv2_time_block_plan(t, pixels, c, heads, m, out) != 0:
+    if lib.mv2_time_block_plan(t, pixels, c, heads, dim_head, m, out) != 0:
         return None
     return dict(stages=out[0], dynamic_smem_bytes=out[1])
 
 
 def time_block_attributes() -> dict:
-    """What the CUDA runtime reports for the fused time block's kernel:
-    registers and local (spilled) bytes a thread, static shared memory, and
-    the dynamic shared memory its launcher last set (on every launch)."""
+    """What the CUDA runtime reports for the fused time block's kernel at
+    the heads whose lanes hold whole pieces (d = 32, 64, 128: the
+    flagship's): registers and local (spilled) bytes a thread, static
+    shared memory, and the dynamic shared memory its launcher last set (on
+    every launch)."""
     out = (ctypes.c_int * 4)()
     lib = _build.load_library()
     _build.check(lib, lib.mv2_time_block_attributes(out),
@@ -254,13 +294,16 @@ def time_block_attributes() -> dict:
 
 def core_route(dtype, dim_head: int, keys: int, inner_groups: int,
                pos_stride: int) -> str:
-    """The attention core of a block call: ``'mma'`` (tensor cores) for
-    bf16 at ``dim_head`` 32 over contiguous groups (the space block) with at
-    most ``MMA_MAX_KEYS`` keys a query, memory keys included; ``'scalar'``
-    (one thread per query) otherwise."""
-    if (dtype == torch.bfloat16 and dim_head == 32 and inner_groups == 1
-            and pos_stride == 1 and keys <= MMA_MAX_KEYS):
-        return 'mma'
+    """The attention core of a block call at a head size of
+    :func:`takes_dim_head`: for bf16 over contiguous groups (the space
+    block) the tensor cores, ``'mma'`` where the ``keys`` a query sees
+    (memory keys included) fit in shared memory (:func:`space_core_fits`),
+    else ``'mma_ring'``; ``'scalar'`` (one thread per query) otherwise."""
+    if not takes_dim_head(dim_head):
+        raise ValueError(f'attention core: dim_head {dim_head} is not a '
+                         'multiple of 8 from 8 to 128')
+    if dtype == torch.bfloat16 and inner_groups == 1 and pos_stride == 1:
+        return 'mma' if space_core_fits(keys, dim_head) else 'mma_ring'
     return 'scalar'
 
 
@@ -311,8 +354,8 @@ def attention_core(qkv, mem_k, mem_v, heads: int, dim_head: int,
         outer_stride, pos_stride, int(causal), CORES[route],
         _build.stream_handle(qkv.device))
     _build.check(lib, code, f'attention core ({route})')
-    if route == 'mma':
-        LAUNCHES['space_attention_core_mma'] += 1
+    if route != 'scalar':
+        LAUNCHES[f'space_attention_core_{route}'] += 1
     return attn
 
 
@@ -350,9 +393,9 @@ def block_launches(x, gamma, wqkv, mem_kv, wout, heads, dim_head, causal,
 
 def _check_block(name, x, gamma, wqkv, mem_kv, wout, heads, dim_head):
     _build.check_cuda_inputs(name, x, (gamma, wqkv, mem_kv, wout))
-    if dim_head not in SUPPORTED_DIM_HEAD:
-        raise ValueError(f'{name}: dim_head {dim_head} not in '
-                         f'{SUPPORTED_DIM_HEAD}')
+    if not takes_dim_head(dim_head):
+        raise ValueError(f'{name}: dim_head {dim_head} is not a multiple of '
+                         '8 from 8 to 128')
     c = x.shape[-1]
     inner = heads * dim_head
     if wqkv.shape != (3 * inner, c) or wout.shape != (c, inner):

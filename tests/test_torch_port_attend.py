@@ -449,7 +449,9 @@ def test_general_attention_path_matches_jax(kind, name, monkeypatch,
                                             block_calls, flash_calls):
     """float32, atol 1e-4; the module takes the general path (no block
     wrapper call), and the flash case reaches the flash wrapper."""
-    if name == 'flash':     # the gate comes before ``backend``, as in JAX
+    # the gate comes before ``backend``, as in JAX, and takes dim_head 16
+    # (tests/test_torch_attention_heads.py holds the blocks there)
+    if name in ('flash', 'dim_head_16'):
         monkeypatch.setenv('MAGVIT2_TPU_NO_FUSED_ATTN', '1')
     jmod, params, port = _module_pair(kind, name)
     x, mask = _module_inputs(kind, name)
@@ -502,6 +504,9 @@ def test_gates_keep_the_semantic_conditions(monkeypatch):
     assert not space(1025, 512, 8, 32, **ok)
     assert not time(17, 16, 512, 8, 32, **ok)
     for dim_head in (16, 64):
+        assert space(256, 512, 8, dim_head, **ok)
+        assert time(5, 256, 512, 8, dim_head, **ok)
+    for dim_head in (12, 136):
         assert not space(256, 512, 8, dim_head, **ok)
         assert not time(5, 256, 512, 8, dim_head, **ok)
     for bad in (dict(ok, dropout=0.1), dict(ok, use_rotary=True),

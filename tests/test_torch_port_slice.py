@@ -50,6 +50,22 @@ def _cl(x):
     return np.moveaxis(x, 1, -1)
 
 
+SEEDED = {'tiny': TINY, 'readme': README_SMALL}
+
+
+@pytest.fixture(scope='module')
+def seed2_tokenizer():
+    """The JAX package's tokenizer of a ``SEEDED`` config initialised from
+    seed 2, built once for the module (its init is one jitted program)."""
+    made = {}
+
+    def get(name):
+        if name not in made:
+            made[name] = JaxTokenizer(seed=2, **SEEDED[name])
+        return made[name]
+    return get
+
+
 @pytest.fixture(scope='module')
 def tiny_pair():
     jtok = JaxTokenizer(seed=0, **TINY)
@@ -82,13 +98,13 @@ def test_layerspec_copy_matches_jax_package(kwargs):
             == dataclasses.asdict(jax_parse(kwargs['layers'], **args)))
 
 
-@pytest.mark.parametrize('kwargs', [TINY, README_SMALL],
-                         ids=['tiny', 'readme'])
-def test_bridge_round_trip_is_exact(kwargs):
+@pytest.mark.parametrize('name', list(SEEDED))
+def test_bridge_round_trip_is_exact(name, seed2_tokenizer):
     """JAX params -> port state_dict -> the JAX package's own importer gives
     back the same pytree, bit for bit, and the state_dict fits the port's
     modules exactly (strict load)."""
-    jtok = JaxTokenizer(seed=2, **kwargs)
+    kwargs = SEEDED[name]
+    jtok = seed2_tokenizer(name)
     params = jax.tree.map(np.asarray, jtok.params)
     state = state_dict_from_jax_params(jtok.config, params)
     back = load_torch_tokenizer_state_dict(jtok.config, state)
@@ -102,12 +118,12 @@ def test_bridge_round_trip_is_exact(kwargs):
     assert set(port.state_dict()) == set(state)
 
 
-def test_bridge_flips_trained_upsamplers():
+def test_bridge_flips_trained_upsamplers(seed2_tokenizer):
     """Upsampler kernels that differ over the sub-pixel position p, as in a
     trained checkpoint: the port decodes with the bridged weights what the
     JAX package decodes, and the JAX importer gives back the params with
     exactly those kernels p-flipped."""
-    jtok = JaxTokenizer(seed=2, **TINY)
+    jtok = seed2_tokenizer('tiny')
     rng = np.random.default_rng(9)
     params = jax.tree.map(np.asarray, jtok.params)
     flipped = {}
@@ -128,7 +144,7 @@ def test_bridge_flips_trained_upsamplers():
         want = ({**leaf, 'kernel': flipped[key]} if key in flipped else leaf)
         jax.tree.map(lambda a, b: np.testing.assert_array_equal(a, b),
                      want, back[key])
-    jtok.params = jax.tree.map(jnp.asarray, params)
+    jtok = JaxTokenizer(params=jax.tree.map(jnp.asarray, params), **TINY)
     port = VideoTokenizer(device='cpu', seed=0, **TINY)
     port.load_state_dict(state, strict=True)
     codes = np.random.default_rng(10).integers(0, 256, size=(1, 3 * 8 * 8))
@@ -144,11 +160,11 @@ def test_bridge_flips_trained_upsamplers():
         torch.from_numpy(codes)).numpy() - want).max() > 1e-3
 
 
-def test_port_weights_import_into_jax_package():
+def test_port_weights_import_into_jax_package(tiny_pair):
     """The port's own seeded weights go into the JAX package through
     ``load_torch_tokenizer_state_dict`` unchanged, and both then agree."""
     port = VideoTokenizer(device='cpu', seed=5, **TINY)
-    jtok = JaxTokenizer(seed=0, **TINY)
+    jtok = JaxTokenizer(params=tiny_pair[0].params, **TINY)   # seed 0's
     jtok.load_torch_state_dict(
         {k: v.numpy() for k, v in port.state_dict().items()})
     video = np.random.default_rng(5).random((1, 5, 16, 16, 3),

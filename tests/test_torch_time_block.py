@@ -107,7 +107,11 @@ FLAGSHIP = dict(t=5, s=256, c=512, heads=8, dim_head=32, m=4)
     ({'t': 16}, 'fused'), ({'t': 17}, 'launches'),
     ({'m': 0}, 'fused'), ({'m': 5}, 'launches'),
     ({'c': 96}, 'launches'),                       # not a 64-channel chunk
-    ({'dim_head': 64, 'heads': 4}, 'launches'),
+    ({'dim_head': 64, 'heads': 4}, 'fused'),       # README flagship, 64 x 4
+    ({'dim_head': 8, 'heads': 32}, 'fused'),       # the narrowest head
+    ({'dim_head': 128, 'heads': 2}, 'fused'),      # the widest head
+    ({'dim_head': 12, 'heads': 16}, 'launches'),   # not a multiple of 8
+    ({'dim_head': 16, 'heads': 24}, 'launches'),   # inner 384
     ({'c': 64, 'heads': 2}, 'fused'),              # the narrowest taken
     ({'s': 100, 'c': 256}, 'fused')])              # ragged tiles, C 256
 def test_time_block_route(change, route):

@@ -134,7 +134,7 @@ def main():
             print(f'no stream {bool(no_stream)}: ptxas {used}')
             for p in pixels:
                 plan = (ctypes.c_int * 2)()     # ring stages, shared memory
-                if lib.mv2_time_block_plan(t, p, c, heads, m, plan) != 0:
+                if lib.mv2_time_block_plan(t, p, c, heads, dh, m, plan) != 0:
                     sys.exit(f'the kernel does not take {p} pixels')
 
                 def call():
