@@ -291,6 +291,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import datetime
+import itertools
 import json
 import math
 import os
@@ -358,6 +359,13 @@ KERNELS = {
         FLASH_SOURCE, 'magvit2_pytorch_tpu/ops/pallas/flash_attention.py:190'),
     'flash_attention_bwd_dkv': (
         FLASH_SOURCE, 'magvit2_pytorch_tpu/ops/pallas/flash_attention.py:249'),
+    # the same kernels at heads of 128 and 256 (FLASH_WIDTH_ROWS)
+    **{f'{kernel}_d{dh}': (FLASH_SOURCE,
+                           f'magvit2_pytorch_tpu/ops/pallas/flash_attention.py'
+                           f':{line}')
+       for dh in (128, 256) for kernel, line in (
+           ('flash_attention_fwd', 51), ('flash_attention_bwd_dq', 190),
+           ('flash_attention_bwd_dkv', 249))},
     # the int8 path (phase 11) has no Pallas kernel: these replace XLA's
     # int8 lowering of _quantize_per_tensor and of the s8 x s8 -> s32
     # conv_general_dilated of the JAX package's int8 branches
@@ -376,9 +384,12 @@ LAUNCH_PATH = {**dict.fromkeys(FLASH_KERNELS, 'attention_step'),
 # 'mma' for bf16, 'f32' for float32
 FLASH_ROUTES = {f'{kernel}_{route}': route
                 for kernel in FLASH_KERNELS for route in ('mma', 'f32')}
-# the 'mma' kernels: (name in flash_attention.mma_attributes, CUDA kernel)
+# the 'mma' kernels: (name in flash_attention.mma_attributes, CUDA kernel);
+# each is also built as '<kernel minus _kernel>_padded_kernel' for heads
+# narrower than a width; the 'f32' route's kernels by ptxas's lines alone
 FLASH_MMA = (('fwd', 'fwd_mma_kernel'), ('dq', 'bwd_dq_mma_kernel'),
              ('dkv', 'bwd_dkv_mma_kernel'))
+FLASH_F32 = ('fwd_kernel', 'bwd_dq_kernel', 'bwd_dkv_kernel')
 # what every entry of the kernels line holds
 KERNEL_KEYS = ('name', 'route', 'source', 'replaces', 'launches',
                'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
@@ -489,6 +500,19 @@ IN_SITU_TOL = {'latents': 5e-2, 'bits_flipped': 1e-2,
 # the attention step's shape: the flagship's space-attention stage at 512 px
 STEP_SHAPE = (1, 17, 64, 64, 512)
 FLASH_FULL = dict(b=17, h=8, n=4096, m=4100, d=32)
+# phase 3's head sizes beside 16, 32 and 64: the padded kernel at every
+# width (12 through the wrapper's zero padding) and the two wide ones
+FLASH_HEADS = (8, 12, 24, 40, 96, 128, 256)
+# the attention step at the wide heads (phase 7): (dim_head, heads) at the
+# flagship's inner width 512, and the kernels-line rows they give
+FLASH_WIDTH_STEPS = ((128, 4), (256, 2))
+FLASH_WIDTH_ROWS = {f'{kernel}_d{dh}': (kernel, f'attention_step_d{dh}')
+                    for dh, _ in FLASH_WIDTH_STEPS for kernel in
+                    ('flash_attention_fwd', 'flash_attention_bwd_dq',
+                     'flash_attention_bwd_dkv')}
+# fewer keys than queries through 'auto' (phase 7): q (b, h, n, d) against
+# m keys, causal and not
+FLASH_FEW_KEYS = dict(b=17, h=4, n=4096, m=1024, d=128)
 PLAIN_CHUNK = 4     # frames per call of the plain version at full width
 BATCH = 8
 REPS = 20           # timed runs per kernel, after warm-up
@@ -2516,8 +2540,10 @@ def drive_path(torch, dev, path, smi, profile_dir):
 
 def visible_pairs(bh, n, m, causal):
     """The (query, key) pairs a flash call computes: with causal, row i sees
-    keys 0 .. i + m - n."""
-    return bh * sum(min(m, i + 1 + m - n) if causal else m for i in range(n))
+    keys 0 .. i + m - n (none where that is negative: with m < n the first
+    n - m rows, which take the mean of v)."""
+    return bh * sum(max(0, min(m, i + 1 + m - n)) if causal else m
+                    for i in range(n))
 
 
 def flash_cost(bh, n, m, d, causal, kernel):
@@ -2584,7 +2610,12 @@ def flash_errors(torch, fa, q, k, v, dout, bias, causal, frames=None):
     counts = launch_counts()
     groups = (None if bias is None
               else fa.bias_groups(bias, b, h, n, m))
-    out_alone, lse = fa.flash_forward(q, k, v, groups, causal, scale)
+    # the kernel alone takes a multiple of 8: the wrapper's zero padding
+    pad = -d % 8
+    out_alone, lse = fa.flash_forward(
+        *(torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v)), groups,
+        causal, scale)
+    out_alone = out_alone[..., :d]
     torch.cuda.synchronize()
     if not torch.equal(out_alone, out.detach()):
         fail(f'flash forward ({b}, {h}, {n}, {d}) / {m} keys causal='
@@ -2664,29 +2695,46 @@ def ptxas_lines(log: str, kernel: str):
     return out
 
 
-def flash_mma_resources(fa):
-    """Registers, spills and shared memory of the three 'mma' kernels as
-    the CUDA runtime reports them after this run's launches (the dynamic
-    shared memory is what each launcher set), with ptxas's lines from this
-    run's build (none when the library came from the cache). Fails on a
-    spill."""
+def spill_lines(ptxas):
+    """ptxas's lines that report a spill."""
     import re
+    return [ln for ln in ptxas for st, ld in re.findall(
+        r'(\d+) bytes spill stores, (\d+) bytes spill loads', ln)
+        if int(st) or int(ld)]
+
+
+def flash_mma_resources(fa):
+    """Registers, spills and shared memory of the three 'mma' kernels at
+    every compiled width, exact and padded, as the CUDA runtime reports them
+    after this run's launches (the dynamic shared memory is what each
+    launcher set; a kernel not launched shows the runtime's default), with
+    ptxas's lines from this run's build (none when the library came from the
+    cache), and the 'f32' kernels' ptxas lines. Fails on a spill."""
     from magvit2_pytorch_tpu_torch.ops.kernels import _build
     build_log = _build.build_info.get('log', '')
     report = {}
     for kernel, name in FLASH_MMA:
-        lines = ptxas_lines(build_log, name)
-        for d in fa.SUPPORTED_DIM_HEAD:
-            attrs = fa.mma_attributes(kernel, d)
-            ptxas = lines.get(d, [None])[1:]
-            spills = [ln for ln in ptxas for st, ld in re.findall(
-                r'(\d+) bytes spill stores, (\d+) bytes spill loads', ln)
-                if int(st) or int(ld)]
-            if spills or attrs['local_bytes']:
-                fail(f'{name}<{d}> spills: {spills}, {attrs}')
-            report[f'{name}<{d}>'] = dict(ptxas=ptxas, **attrs)
-            log(f'[ptxas] {name}<{d}>: {"; ".join(ptxas)}; on the card '
-                f'{attrs}')
+        for exact in (True, False):
+            cuda_name = (name if exact
+                         else name.replace('_kernel', '_padded_kernel'))
+            lines = ptxas_lines(build_log, cuda_name)
+            for w in fa.WIDTHS:
+                if exact and w > fa.EXACT_WIDTH:
+                    continue      # the padded kernel runs there
+                attrs = fa.mma_attributes(kernel, w, exact)
+                ptxas = lines.get(w, [None])[1:]
+                spills = spill_lines(ptxas)
+                if spills or attrs['local_bytes']:
+                    fail(f'{cuda_name}<{w}> spills: {spills}, {attrs}')
+                report[f'{cuda_name}<{w}>'] = dict(ptxas=ptxas, **attrs)
+                log(f'[ptxas] {cuda_name}<{w}>: {"; ".join(ptxas)}; on the '
+                    f'card {attrs}')
+    for name in FLASH_F32:
+        for w, lines in sorted(ptxas_lines(build_log, name).items()):
+            if spill_lines(lines):
+                fail(f'{name}<{w}> spills: {spill_lines(lines)}')
+            report[f'{name}<{w}>'] = dict(ptxas=lines[1:])
+            log(f'[ptxas] {name}<{w}>: {"; ".join(lines[1:])}')
     if build_log not in ('', '(cached)') and not all(
             row['ptxas'] for row in report.values()):
         fail('ptxas lines missing from the build log for '
@@ -2722,13 +2770,15 @@ def flash_kernels_alone(fa, q, k, v, dout, bias, causal, need_dbias=False):
 def flash_invariants(torch, fa, dev):
     """Two calls of the three kernels give bit-identical out, lse, dq, dk,
     dv and dS, and a batch of two against its second element alone reads
-    exactly 0: (2, 8, 1024, 32) / 1028 keys, causal, a (h, n, m) bias, both
-    dtypes."""
-    b, h, n, m, d = 2, 8, 1024, 1028, 32
+    exactly 0, causal with an (h, n, m) bias, both dtypes: (2, 8, 1024, 32)
+    / 1028 keys, (2, 4, 256, 128) / 128 keys (the first 128 rows see no
+    key) and (2, 2, 256, 256) / 260 keys."""
     names = ('out', 'lse', 'dq', 'dk', 'dv', 'dS')
     out = {}
-    for name, dtype in (('float32', torch.float32),
-                        ('bfloat16', torch.bfloat16)):
+    for (b, h, n, m, d), (name, dtype) in itertools.product(
+            ((2, 8, 1024, 1028, 32), (2, 4, 256, 128, 128),
+             (2, 2, 256, 260, 256)),
+            (('float32', torch.float32), ('bfloat16', torch.bfloat16))):
         q, k, v, dout, bias = flash_inputs(torch, dev, dtype, b, h, n, m, d,
                                            'hnm', 77)
         groups = fa.bias_groups(bias, b, h, n, m).contiguous()
@@ -2739,18 +2789,21 @@ def flash_invariants(torch, fa, dev):
         torch.cuda.synchronize()
         same = dict(zip(names, (bool(torch.equal(x, y))
                                 for x, y in zip(first, second))))
+        what = f'flash kernels ({b}, {h}, {n}, {d}) / {m} keys {name}'
         if not all(same.values()):
-            fail(f'flash kernels {name}: two calls differ (equal: {same})')
+            fail(f'{what}: two calls differ (equal: {same})')
         boundary = max(
             *((x[1] - y[0]).abs().max().item()
               for x, y in zip(first[:5], alone[:5])),
             (first[5][h:] - alone[5]).abs().max().item())
         if boundary != 0:
-            fail(f'flash kernels {name}: a batch of two against its second '
-                 f'element alone differs by {boundary}')
-        out[name] = dict(two_calls_identical=True, batch_boundary=boundary)
-    log(f'[kernel] flash forward and backward, ({b}, {h}, {n}, {d}) / {m} '
-        f'keys, causal, (h, n, m) bias: two calls bit-identical '
+            fail(f'{what}: a batch of two against its second element alone '
+                 f'differs by {boundary}')
+        out[f'{name} d={d} m={m}'] = dict(two_calls_identical=True,
+                                          batch_boundary=boundary)
+    log(f'[kernel] flash forward and backward, causal, (h, n, m) bias, '
+        f'(b, h, n, d) / m keys (2, 8, 1024, 32) / 1028, (2, 4, 256, 128) / '
+        f'128, (2, 2, 256, 256) / 260: two calls bit-identical '
         f'({", ".join(names)}) and a batch of two against its second element '
         f'alone {out}')
     return out
@@ -2800,10 +2853,19 @@ def phase_flash_kernels(torch, dev, reps, smi):
     cases = [(2, 2, 130, 134, d, causal, bias)
              for d in (16, 32, 64) for causal in (False, True)
              for bias in (None, 'nm', 'hnm', 'bhnm')]
+    # every padded width (d = 8, 12 through the wrapper's zero padding, 24,
+    # 96) and the wide ones (128, 256), no bias
+    cases += [(2, 2, 130, 134, d, causal, None)
+              for d in FLASH_HEADS for causal in (False, True)]
+    # fewer keys than queries: with causal the first 60 rows see no key
+    cases += [(2, 2, 130, 70, d, causal, None)
+              for d in (32, 128) for causal in (False, True)]
+    cases += [(2, 2, 130, 70, 128, True, bias) for bias in ('nm', 'hnm',
+                                                            'bhnm')]
     cases.append((2, 8, 1024, 1028, 32, True, None))    # the 'auto' gate's edge
     # the causal tile skip of the 'mma' kernels: memory keys over more than
     # one tile (80 > 64), fewer queries than a tile
-    cases += [(1, 2, 70, 150, d, True, None) for d in (16, 64)]
+    cases += [(1, 2, 70, 150, d, True, None) for d in (16, 64, 128, 256)]
     cases += [(2, 2, 5, 9, 16, causal, 'hnm') for causal in (False, True)]
     for seed, (b, h, n, m, d, causal, bias_kind) in enumerate(cases):
         for name, dtype in dtypes:
@@ -2823,9 +2885,12 @@ def phase_flash_kernels(torch, dev, reps, smi):
     for name, _ in dtypes:
         log(f'[kernel] flash attention, {len(cases)} cases: (2, 2, 130, d) '
             f'/ 134 keys, d in 16, 32, 64, causal and not, no bias and (n, '
-            f'm), (h, n, m), (b, h, n, m) biases; the (2, 8, 1024, 32) / '
-            f'1028 causal case; (1, 2, 70, d) / 150 keys causal, d in 16, '
-            f'64; (2, 2, 5, 16) / 9 keys with an (h, n, m) bias, causal and '
+            f'm), (h, n, m), (b, h, n, m) biases; the same without a bias '
+            f'at d in {FLASH_HEADS}; (2, 2, 130, d) / 70 keys (fewer keys '
+            f'than queries), d in 32, 128, causal and not, and at d = 128 '
+            f'causal with each bias; the (2, 8, 1024, 32) / 1028 causal '
+            f'case; (1, 2, 70, d) / 150 keys causal, d in 16, 64, 128, 256; '
+            f'(2, 2, 5, 16) / 9 keys with an (h, n, m) bias, causal and '
             f'not; {name}, each kernel on the '
             f'{fa.flash_route(dict(dtypes)[name], 32)!r} route: worst '
             f'error over the largest value of the reference (lse: max abs '
@@ -2985,7 +3050,7 @@ def attention_module(torch, kind, device, dtype, seed=0, **kw):
     around 1), as the tokenizer seeds its layers."""
     from magvit2_pytorch_tpu_torch.ops import attention
     from magvit2_pytorch_tpu_torch.ops.basic import init_module_parameters
-    module = getattr(attention, kind)(512, heads=8, **kw)
+    module = getattr(attention, kind)(512, **{'heads': 8, **kw})
     gen = torch.Generator().manual_seed(seed)
     init_module_parameters(module, gen)
     with torch.no_grad():
@@ -3161,6 +3226,245 @@ def phase_attention_step(torch, dev, reps, smi):
             f'float32, card against CPU: error over the largest value '
             f'{errs} (tol {STEP_TOL["float32"]:g})')
     return counts
+
+def flash_width_rows(torch, fa, dev, reps, smi, dh, heads):
+    """The three kernels alone at the attention step's shape at a wide
+    head, (17, heads, 4096, dh) / 4100 keys bf16 not causal: the wrapper's
+    outputs and gradients against the plain versions in float32 (4 frames
+    at a time), each kernel's time beside its bound (the forward's also
+    beside its exp floor), the plain versions' and SDPA's forward and
+    backward. Returns the kernels-line rows ``<kernel>_d<dh>``."""
+    import torch.nn.functional as F
+    b, n, m = FLASH_FULL['b'], FLASH_FULL['n'], FLASH_FULL['m']
+    scale = dh ** -0.5
+    q, k, v, dout, _ = flash_inputs(torch, dev, torch.bfloat16, b, heads, n,
+                                    m, dh, None, 101 + dh)
+    errs, peaks, finite, counts = flash_errors(torch, fa, q, k, v, dout, None,
+                                               False, frames=PLAIN_CHUNK)
+    what = f'flash attention ({b}, {heads}, {n}, {dh}) / {m} keys bfloat16'
+    check_flash_routes(what, counts, fa.flash_route(torch.bfloat16, dh))
+    check_flash_errors(what, 'bfloat16', errs, peaks, finite)
+    rel = flash_relative(errs, peaks)
+    out, lse, *_ = flash_kernels_alone(fa, q, k, v, dout, None, False)
+    delta = fa.row_delta(dout, out)
+    calls = {
+        'flash_attention_fwd': lambda: fa.flash_forward(q, k, v, None, False,
+                                                        scale),
+        'flash_attention_bwd_dq': lambda: fa.flash_backward_dq(
+            q, k, v, None, dout, lse, delta, False, scale),
+        'flash_attention_bwd_dkv': lambda: fa.flash_backward_dkv(
+            q, k, v, None, dout, lse, delta, False, scale)}
+    with torch.no_grad():
+        ms = {name: times_ms(call, reps) for name, call in calls.items()}
+        plain = {bwd: median_ms(lambda: plain_in_chunks(
+            fa, q, k, v, dout, out, lse, False, scale, bwd), 3, warmup=1)
+            for bwd in (False, True)}
+        sdpa_fwd = median_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v), reps)
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qg, kg, vg)
+    sdpa_bwd = median_ms(lambda: torch.autograd.grad(
+        o, (qg, kg, vg), dout, retain_graph=True), reps)
+    del qg, kg, vg, o
+    floor = exp_floor_ms(torch, visible_pairs(b * heads, n, m, False))
+    rows = {}
+    for name in FLASH_KERNELS:
+        fwd = name == 'flash_attention_fwd'
+        keys = (('out', 'lse') if fwd else ('dq',) if name.endswith('dq')
+                else ('dk', 'dv'))
+        bound_ms, bound_by = bound(*flash_cost(b * heads, n, m, dh, False,
+                                               name))
+        short = name.split('_')[-1]
+        runs = ms[name]
+        row = dict(
+            shape=[b, heads, n, dh], keys=m, per='launch',
+            max_abs_err=max(errs[key] for key in keys),
+            max_rel_err=max(rel[key] for key in keys if key != 'lse'),
+            ms=sorted(runs)[len(runs) // 2], ms_range=[min(runs), max(runs)],
+            plain_ms=plain[not fwd],
+            plain_call=('flash_attention_ref' if fwd else
+                        'flash_attention_bwd_ref, which forms dq, dk and dv '
+                        'together') + f', {PLAIN_CHUNK} frames at a time',
+            library_ms=sdpa_fwd if fwd else sdpa_bwd,
+            library_call='F.scaled_dot_product_attention' + (
+                '' if fwd else ' backward, which forms dq, dk and dv '
+                'together'),
+            bound_ms=bound_ms, bound_by=bound_by,
+            exp_floor_ms=floor if fwd else None,
+            kernel_route=fa.flash_route(torch.bfloat16, dh),
+            resources=fa.mma_attributes(short, dh))
+        rows[f'{name}_d{dh}'] = row
+        log(f'[kernel] {name} ({b}, {heads}, {n}, {dh}) / {m} keys bf16: '
+            f'{row["ms"]:.4f} ms (median of {reps}, range '
+            f'{row["ms_range"]}), bound {bound_ms:.4f} ms ({bound_by})'
+            + (f', exp floor {floor:.4f} ms' if fwd else '') +
+            f', plain {row["plain_ms"]:.4f} ms ({row["plain_call"]}), '
+            f'library {row["library_ms"]:.4f} ms ({row["library_call"]}); '
+            f'error over the largest value {row["max_rel_err"]:.3e} (tol '
+            f'{FLASH_TOL["bfloat16"]:g}), max_abs_err {row["max_abs_err"]:.3e}'
+            f'; {dict(FLASH_MMA)[short]}<{dh}> {row["resources"]} on {smi}')
+    return rows
+
+
+def phase_flash_widths(torch, dev, reps, smi):
+    """Phase 7 at the wide heads: one forward + backward of
+    ``SpaceAttention(512, dim_head=dh, heads=512 / dh, backend='flash')`` on
+    the flagship's space stage at 512 px, (1, 17, 64, 64, 512) bf16, for
+    each of FLASH_WIDTH_STEPS (exactly one launch of each flash kernel, on
+    'mma', and no other kernel), against ``backend='plain'`` on the card and
+    (float32, TF32 off, 2 frames) against the CPU, with the step's time and
+    peak memory; the three kernels alone at its shape (flash_width_rows);
+    then fewer keys than queries through ``attend(backend='auto')`` at
+    FLASH_FEW_KEYS, causal and not, against the plain backend; and what
+    'auto' picks at heads of 128 and 16. Returns (launch counts by path,
+    kernels-line rows)."""
+    import torch.nn.functional as F
+    from magvit2_pytorch_tpu_torch.ops import attend as attend_mod
+    from magvit2_pytorch_tpu_torch.ops.kernels import (
+        flash_attention as fa, launch_counts, reset_launch_counts)
+    set_tf32(False)
+    gen = torch.Generator().manual_seed(23)
+    x = torch.randn(STEP_SHAPE, generator=gen).to(dev).bfloat16()
+    g = torch.randn(STEP_SHAPE, generator=gen).to(dev).bfloat16()
+    counts, rows = {}, {}
+    for dh, heads in FLASH_WIDTH_STEPS:
+        path = f'attention_step_d{dh}'
+        what = (f'SpaceAttention(512, dim_head={dh}, heads={heads}, '
+                f'backend=flash)')
+        modules = {backend: attention_module(
+            torch, 'SpaceAttention', dev, torch.bfloat16, dim_head=dh,
+            heads=heads, backend=backend) for backend in ('flash', 'plain')}
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        flash = attention_step(torch, modules['flash'], x, g)
+        torch.cuda.synchronize()
+        counts[path] = launch_counts()
+        for name, want in LAUNCHES['attention_step'].items():
+            if counts[path].get(name) != want:
+                fail(f'{what} step: {name} launched '
+                     f'{counts[path].get(name)} times, expected {want}')
+        if tuple(flash[0].shape) != STEP_SHAPE:
+            fail(f'{what} step: output shape {tuple(flash[0].shape)}')
+        plain = attention_step(torch, modules['plain'], x, g)
+        errs = compare_steps(f'{what} step, flash against plain, bf16', flash,
+                             plain, STEP_TOL['bfloat16'])
+        del flash, plain
+        times = {}
+        for backend in ('plain', 'flash', 'flash', 'plain'):
+            torch.cuda.reset_peak_memory_stats()
+            ms = median_ms(lambda: attention_step(torch, modules[backend], x,
+                                                  g), 5, warmup=1)
+            times.setdefault(backend, []).append(
+                (ms, torch.cuda.max_memory_allocated() / 1e9))
+        log(f'[attention step] {what} on {STEP_SHAPE} bf16, forward + '
+            f'backward: launches {counts[path]}; flash against plain, error '
+            f'over the largest value {errs} (tol {STEP_TOL["bfloat16"]:g}); '
+            f'step ms and peak GB, medians of 5 in the order plain, flash, '
+            f'flash, plain: flash {times["flash"]}, plain {times["plain"]} on '
+            f'{smi}')
+        del modules
+        torch.cuda.empty_cache()
+
+        shape = (1, 2) + STEP_SHAPE[2:]
+        x32 = torch.randn(shape, generator=gen)
+        g32 = torch.randn(shape, generator=gen)
+        card = attention_step(torch, attention_module(
+            torch, 'SpaceAttention', dev, torch.float32, dim_head=dh,
+            heads=heads, backend='flash'), x32.to(dev), g32.to(dev))
+        cpu = attention_step(torch, attention_module(
+            torch, 'SpaceAttention', 'cpu', torch.float32, dim_head=dh,
+            heads=heads, backend='plain'), x32, g32)
+        errs = compare_steps(f'{what}, card flash against CPU plain, '
+                             'float32', card, cpu, STEP_TOL['float32'])
+        log(f'[attention step] {what} float32 {shape}, TF32 off, card '
+            f'(flash) against CPU (plain): error over the largest value '
+            f'{errs} (tol {STEP_TOL["float32"]:g})')
+        del card, cpu
+        rows.update(flash_width_rows(torch, fa, dev, reps, smi, dh, heads))
+        torch.cuda.empty_cache()
+
+    # fewer keys than queries through 'auto': every flash kernel once, on
+    # 'mma', against the plain backend on the card
+    b, h, n, m, d = (FLASH_FEW_KEYS[key] for key in 'bhnmd')
+    q = torch.randn(b, h, n, d, generator=gen).to(dev).bfloat16()
+    k, v = (torch.randn(b, h, m, d, generator=gen).to(dev).bfloat16()
+            for _ in range(2))
+    go = torch.randn(b, h, n, d, generator=gen).to(dev).bfloat16()
+    for causal in (False, True):
+        what = (f"attend(backend='auto') on ({b}, {h}, {n}, {d}) / {m} keys "
+                f'bf16 causal={causal}')
+        got = {}
+        for backend in ('auto', 'plain'):
+            ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            reset_launch_counts()
+            out = attend_mod.attend(*ins, causal=causal, backend=backend)
+            grads = torch.autograd.grad(out, ins, go)
+            torch.cuda.synchronize()
+            got[backend] = ([out.detach(), *grads], launch_counts())
+        check_flash_routes(what, got['auto'][1], 'mma')
+        if any(got['plain'][1][key] for key in FLASH_KERNELS):
+            fail(f'{what}: the plain backend launched a flash kernel')
+        errs = {}
+        for name, a, r in zip(('out', 'dq', 'dk', 'dv'), got['auto'][0],
+                              got['plain'][0]):
+            errs[name] = relative_error(a, r)
+            if not (bool(a.isfinite().all())
+                    and errs[name] <= STEP_TOL['bfloat16']):
+                fail(f'{what}: {name} differs from the plain backend by '
+                     f'{errs[name]} of the largest value (tol '
+                     f'{STEP_TOL["bfloat16"]:g})')
+        blind = n - m if causal else 0
+        if blind:     # the rows that see no key: the mean of v
+            mean_v = v.float().mean(dim=2, keepdim=True)
+            off = relative_error(got['auto'][0][0][:, :, :blind],
+                                 mean_v.expand(b, h, blind, d))
+            if not off <= STEP_TOL['bfloat16']:
+                fail(f'{what}: the rows that see no key differ from the mean '
+                     f'of v by {off} of its largest value')
+            errs['rows_without_keys_vs_mean_v'] = off
+        del got
+        scale = d ** -0.5
+        out, lse = fa.flash_forward(q, k, v, None, causal, scale)
+        delta = fa.row_delta(go, out)
+        with torch.no_grad():
+            ms = {'fwd': median_ms(lambda: fa.flash_forward(
+                q, k, v, None, causal, scale), reps),
+                  'dq': median_ms(lambda: fa.flash_backward_dq(
+                      q, k, v, None, go, lse, delta, causal, scale), reps),
+                  'dkv': median_ms(lambda: fa.flash_backward_dkv(
+                      q, k, v, None, go, lse, delta, causal, scale), reps),
+                  'sdpa_fwd': median_ms(
+                      lambda: F.scaled_dot_product_attention(
+                          q, k, v, is_causal=causal), reps)}
+        bounds = {key: bound(*flash_cost(b * h, n, m, d, causal, name))[0]
+                  for key, name in zip(('fwd', 'dq', 'dkv'), FLASH_KERNELS)}
+        floor = exp_floor_ms(torch, visible_pairs(b * h, n, m, causal))
+        log(f'[attention step] {what}: flash launches 1/1/1 on mma; against '
+            f'the plain backend, error over the largest value {errs} (tol '
+            f'{STEP_TOL["bfloat16"]:g}); kernels alone ms (median of {reps}) '
+            f'{ms} beside bounds {bounds} (visible pairs only), exp floor '
+            f'{floor:.4f} ms; SDPA'
+            + (' is_causal aligns its mask to the top left' if causal else '')
+            + f' on {smi}')
+        del out, lse, delta
+    del q, k, v, go
+    torch.cuda.empty_cache()
+
+    # what 'auto' picks on the card at heads of 128 and 16
+    picks = {}
+    for d in (128, 16):
+        t = torch.randn(1, 4, 1024, d, device=dev, dtype=torch.bfloat16)
+        reset_launch_counts()
+        with torch.no_grad():
+            attend_mod.attend(t, t, t, backend='auto')
+        picks[d] = launch_counts()['flash_attention_fwd']
+    if picks != {128: 1, 16: 0}:
+        fail(f"'auto' on the card: flash forward launches by head size "
+             f'{picks}, expected flash at 128 and plain at 16 (n = m = 1024)')
+    log(f"[auto] at n = m = 1024: flash forward launches by head size {picks} "
+        '(flash at 128, plain at 16)')
+    return counts, rows
+
 
 # -- the JAX package's other configurations (BASELINE configs 1, 3 and 4) ---
 
@@ -6008,6 +6312,9 @@ def main():
     counts.update(paths)
     kernel_rows['taylor_attention_block']['no_norm'] = no_norm
     counts['attention_step'] = phase_attention_step(torch, dev, REPS, smi)
+    width_counts, width_rows = phase_flash_widths(torch, dev, REPS, smi)
+    counts.update(width_counts)
+    kernel_rows.update(width_rows)
     training, backward, train_paths = phase_training(torch, dev, smi,
                                                      profile_dir)
     counts.update(train_paths)
@@ -6029,7 +6336,7 @@ def main():
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         # the kernel's counter, on the path that runs it (LAUNCH_PATH)
-        counter, path = HEAD_ROWS.get(
+        counter, path = {**HEAD_ROWS, **FLASH_WIDTH_ROWS}.get(
             name, (name, LAUNCH_PATH.get(name, 'fused')))
         kernels.append({
             **kernel_rows[name], 'name': name, 'route': 'cuda',

@@ -6,29 +6,51 @@
 // there is a bias) and _bwd_dkv_kernel (dK, dV). See
 // ops/kernels/flash_attention.py for the wrapper and the plain versions.
 //
-// q (bh, n, D), k and v (bh, m, D) with m >= n, read in place: no padded
+// q (bh, n, d), k and v (bh, m, d), any n, m >= 1, read in place: no padded
 // copies, the ragged last tile is predicated (key < m, row < n). Keys >= m
 // and, with causal, keys > row + (m - n) are hidden (the mask is
-// right-aligned: the m - n keys in front are visible to every query).
-// bias, when given, is (groups, n, m) with groups in {1, h, b h}; program
-// bh reads slice bh % groups, so a broadcast bias is never materialised.
+// right-aligned: with m > n the m - n keys in front are visible to every
+// query). With causal and m < n the first n - m rows see no key; each gets
+// what the plain attend's uniform softmax over m masked scores gives it:
+// out = the mean of v, lse = -1e30 (kMasked + log m), dq = 0, no dS, no dK
+// term, and dV_j gains dO_row / m (the forward and dK/dV kernels sum those
+// columns, column_sum). bias, when given, is (groups, n, m) with groups in
+// {1, h, b h}; program bh reads slice bh % groups, so a broadcast bias is
+// never materialised.
+//
+// Head sizes: d a multiple of 8 from 8 to 256 (the wrapper pads any other d
+// up to one with zero columns). Each kernel is built at the padded widths
+// D = 16, 32, 64, 128 and 256 (head_width): the 'f32' kernels and the
+// 'mma' route's padded kernels (*_padded_kernel: d < D, and every d at the
+// widths above 64) take the true d at run time: the columns past d are
+// zeros in shared memory (cp.async's zero fill) and in registers, so they
+// add nothing to a score or a product, and the output columns past d are
+// not stored. A head of d = 96 thus does the products of 128 (4/3 of the
+// work), d = 160 those of 256 (8/5). The 'mma' kernels at d == D <= 64 are
+// built apart with d a constant, so the widths 16, 32 and 64 compile as
+// before the run-time d.
 //
 // Two routes, one per dtype: ops/kernels/flash_attention.py flash_route
 // picks it for all three kernels and passes it in, and the entry points
 // refuse a route that does not fit the dtype.
 // - 'mma' (bf16): every product on mma.sync m16n8k16 with float32
 //   accumulators in registers. A block owns rows of its output (query rows
-//   for the forward and dQ, key rows for dK/dV), holds its own operand rows
-//   as A fragments in registers and streams tiles of the other side through
+//   for the forward and dQ, key rows for dK/dV), reads its own operand rows
+//   as A fragments (held in registers up to a width, read from a tile in
+//   shared memory by ldmatrix above it, so that the accumulators fit the
+//   255 registers a thread has) and streams tiles of the other side through
 //   a cp.async ring in shared memory. A C fragment's columns are the next
 //   product's reduction dimension, so P and dS go from one product's
 //   accumulators to the next one's A operand in registers, rounded to bf16
 //   there and only there; the forward's online softmax runs on the
 //   accumulators too. With causal, a block visits only the tiles that hold
-//   a pair it may see (see "the causal skip" below).
-// - 'f32' (float32): the CUDA-core kernels (no TF32): one block of four
-//   warps owns 64 rows, each warp 16 of them, and loops over 64-wide tiles
-//   of the other side staged in shared memory.
+//   a pair it may see (see "the causal skip" below). At D = 256 the dK/dV
+//   kernel sweeps the query tiles twice, dV first and then dK, so that one
+//   accumulator of 16 x 256 floats a warp is live at a time.
+// - 'f32' (float32): the CUDA-core kernels (no TF32): one block of warps
+//   owns 64 rows (32 above D = 64, so that the tiles fit shared memory),
+//   each warp 16 of them, and loops over tiles of the other side staged in
+//   shared memory.
 // Either way every output tile has one owner: no atomics, the same sums in
 // the same order on every run. Running max, sum, lse, P and dS are float32.
 //
@@ -39,7 +61,8 @@
 // (each recomputes S), 0.44 and 0.59 ms. At D = 32 the exp of every pair
 // weighs more than the products: 2.28e9 ex2 on the special-function unit,
 // 16 a clock an SM, ~0.55 ms at 132 SMs and 1.98 GHz, once in the forward
-// and once in each backward kernel.
+// and once in each backward kernel. At 4 heads of 128 (bh = 68) the same
+// stage has the same FLOPs and a quarter of the exps.
 #include "common.cuh"
 
 namespace mv2 {
@@ -50,22 +73,34 @@ enum Route { kRouteF32 = 0, kRouteMma = 1 };
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kMasked = -1e30f;
+constexpr size_t kSmemMax = 232448;  // 227 KB of dynamic shared memory
+// the widest head the 'mma' kernels build apart at d == D (the sweeps'
+// widths); wider ones take the run-time d at every head
+constexpr int kExactWidth = 64;
+
+// the padded width a head of d values runs at (d a multiple of 8, <= 256)
+__host__ __device__ constexpr int head_width(int d) {
+  return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
+}
+
+inline bool head_fits(int d) { return d >= 8 && d <= 256 && d % 8 == 0; }
 
 // ---- the float32 kernels on the CUDA cores (the 'f32' route) --------------
 
-constexpr int kTile = 64;      // rows a block owns; width of a streamed tile
-constexpr int kRows = 16;      // rows a warp owns
-constexpr int kThreads = 128;  // four warps
-constexpr float kMasked = -1e30f;
+constexpr int kRows = 16;  // rows a warp owns
 
-// Row strides in shared memory, in floats: odd, so a warp reading one
-// column of 32 rows hits 32 banks.
+// At padded width D: a block of tile / 16 warps owns `tile` rows and streams
+// tiles of `tile` rows of the other side. Row strides in shared memory, in
+// floats, are odd, so a warp reading one column of 32 rows hits 32 banks.
 template <int D>
 struct Cfg {
-  static constexpr int ldt = D + 1;      // (64, D) input tile
-  static constexpr int ldp = kTile + 1;  // (64, 64) tile: P or dS
-  static constexpr int lds = kTile + 1;  // (64, 64) tile: S or dP
-  static constexpr int lda = D + 1;      // (64, D) accumulator
+  static constexpr int tile = D <= 64 ? 64 : 32;
+  static constexpr int threads = 2 * tile;  // tile / 16 warps
+  static constexpr int ldt = D + 1;         // (tile, D) input tile
+  static constexpr int ldp = tile + 1;      // (tile, tile) tile: P or dS
+  static constexpr int lds = tile + 1;      // (tile, tile) tile: S or dP
+  static constexpr int lda = D + 1;         // (tile, D) accumulator
 };
 
 __host__ __device__ constexpr size_t align_up(size_t bytes) {
@@ -78,44 +113,48 @@ __device__ __forceinline__ float* carve(unsigned char*& p, int count) {
   return out;
 }
 
-// bytes of `tiles` (64, D) input tiles, `accs` accumulators, one S and one
-// P tile and `vectors` 64-float row vectors
+// bytes of `tiles` (tile, D) input tiles, `accs` accumulators, one S and one
+// P tile and `vectors` row vectors
 template <int D>
 constexpr size_t smem_bytes(int tiles, int accs, int vectors) {
   typedef Cfg<D> C;
-  return tiles * align_up(sizeof(float) * kTile * C::ldt) +
-         accs * align_up(sizeof(float) * kTile * C::lda) +
-         align_up(sizeof(float) * kTile * C::lds) +
-         align_up(sizeof(float) * kTile * C::ldp) +
-         vectors * align_up(sizeof(float) * kTile);
+  return tiles * align_up(sizeof(float) * C::tile * C::ldt) +
+         accs * align_up(sizeof(float) * C::tile * C::lda) +
+         align_up(sizeof(float) * C::tile * C::lds) +
+         align_up(sizeof(float) * C::tile * C::ldp) +
+         vectors * align_up(sizeof(float) * C::tile);
 }
 
-// Rows row0 .. row0 + 63 of src (rows, D) into a shared tile; rows past the
-// end are zero.
+// Rows row0 .. row0 + tile - 1 of src (rows, d) into a shared tile of width
+// D; rows past the end and columns past d are zero.
 template <int D>
 __device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
-                                          int row0, int rows) {
-  for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
+                                          int row0, int rows, int d) {
+  typedef Cfg<D> C;
+  for (int idx = threadIdx.x; idx < C::tile * D; idx += C::threads) {
     const int r = idx / D, e = idx % D;
     dst[r * ld + e] =
-        row0 + r < rows ? src[(size_t)(row0 + r) * D + e] : 0.f;
+        row0 + r < rows && e < d ? src[(size_t)(row0 + r) * d + e] : 0.f;
   }
 }
 
+template <int D>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           int row0, int rows) {
-  if (threadIdx.x < kTile)
+  if (threadIdx.x < Cfg<D>::tile)
     dst[threadIdx.x] =
         row0 + threadIdx.x < rows ? src[row0 + threadIdx.x] : 0.f;
 }
 
+template <int D>
 __device__ __forceinline__ void fill(float* dst, int count, float value) {
-  for (int idx = threadIdx.x; idx < count; idx += kThreads) dst[idx] = value;
+  for (int idx = threadIdx.x; idx < count; idx += Cfg<D>::threads)
+    dst[idx] = value;
 }
 
 // One warp: C (16, N) = [C +] A (16, K) op(B), all row-major in shared
 // memory: with BT, B is (N, K) and op(B) = B^T; else B is (K, N). Lane l
-// owns columns l and l + 32.
+// owns columns l, l + 32, ...
 template <int N, int K, bool ACC, bool BT>
 __device__ __forceinline__ void warp_mma(const float* A, int lda,
                                          const float* B, int ldb, float* C,
@@ -169,61 +208,69 @@ __device__ __forceinline__ void warp_acc_nn(const float* A, int lda,
   warp_mma<N, K, true, false>(A, lda, B, ldb, C, ldc);
 }
 
-// Forward: one block per (bh, 64 query rows). Per key tile and warp:
-// S = Q K^T; then lane (row, half) of the warp owns 32 columns of one of its
-// 16 rows: it updates the row's running max m and sum l (in registers, one
-// shuffle with the lane of the other half), writes P = exp(S - m) and
-// rescales its half of the row of O by exp(m_old - m_new); then O += P V.
-// The lane walks its 32 columns starting at 16 half, so that the 32 lanes
-// of a warp read 32 different banks of S. At the end O / max(l, 1e-30) and
-// lse = m + log(l). Hidden pairs score -1e30.
+// Forward: one block per (bh, tile query rows). Per key tile and warp:
+// S = Q K^T; then lane (row, half) of the warp owns half the tile's columns
+// of one of its 16 rows: it updates the row's running max m and sum l (in
+// registers, one shuffle with the lane of the other half), writes
+// P = exp(S - m) and rescales its half of the row of O by
+// exp(m_old - m_new); then O += P V. The lanes walk their columns rotated
+// so that the 32 lanes of a warp read 32 different banks of S. At the end
+// O / max(l, 1e-30) and lse = m + log(l). Hidden pairs score -1e30; a row
+// that sees no key scores 0 at every key < m, so that O is the mean of v,
+// and its lse is kMasked + log(m).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Cfg<D>::threads, 1)
     fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ bias,
                float* __restrict__ out, float* __restrict__ lse, int n, int m,
-               int q_tiles, int bias_groups, int causal, float scale) {
+               int d, int q_tiles, int bias_groups, int causal, float scale) {
   typedef Cfg<D> C;
+  constexpr int T = C::tile, HALF = T / 2;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* sp = smem_raw;
-  float* Qs = carve(sp, kTile * C::ldt);
-  float* Ks = carve(sp, kTile * C::ldt);
-  float* Vs = carve(sp, kTile * C::ldt);
-  float* Of = carve(sp, kTile * C::lda);
-  float* Sf = carve(sp, kTile * C::lds);
-  float* Pt = carve(sp, kTile * C::ldp);
+  float* Qs = carve(sp, T * C::ldt);
+  float* Ks = carve(sp, T * C::ldt);
+  float* Vs = carve(sp, T * C::ldt);
+  float* Of = carve(sp, T * C::lda);
+  float* Sf = carve(sp, T * C::lds);
+  float* Pt = carve(sp, T * C::ldp);
 
   const int bh = blockIdx.x / q_tiles;
-  const int q0 = (blockIdx.x % q_tiles) * kTile;
+  const int q0 = (blockIdx.x % q_tiles) * T;
   const int lane = threadIdx.x % 32, r0 = (threadIdx.x / 32) * kRows;
   const int half = lane & 1, srow = r0 + (lane >> 1);  // the lane's row
-  const int row = q0 + srow, rot = 16 * half;
+  const int row = q0 + srow, rot = (16 * half) % HALF;
   const int offset = m - n;
-  const float* kb = k + (size_t)bh * m * D;
-  const float* vb = v + (size_t)bh * m * D;
+  const bool no_key = causal && row < n - m;
+  const float* kb = k + (size_t)bh * m * d;
+  const float* vb = v + (size_t)bh * m * d;
   const float* bb =
       bias ? bias + (size_t)(bh % bias_groups) * n * m : nullptr;
 
-  load_tile<D>(Qs, C::ldt, q + (size_t)bh * n * D, q0, n);
-  fill(Of, kTile * C::lda, 0.f);
+  load_tile<D>(Qs, C::ldt, q + (size_t)bh * n * d, q0, n, d);
+  fill<D>(Of, T * C::lda, 0.f);
   float m_run = kMasked, l_run = 0.f;
 
-  for (int k0 = 0; k0 < m; k0 += kTile) {
+  for (int k0 = 0; k0 < m; k0 += T) {
     __syncthreads();  // the previous tile's readers are done
-    load_tile<D>(Ks, C::ldt, kb, k0, m);
-    load_tile<D>(Vs, C::ldt, vb, k0, m);
+    load_tile<D>(Ks, C::ldt, kb, k0, m, d);
+    load_tile<D>(Vs, C::ldt, vb, k0, m, d);
     __syncthreads();
-    warp_mma_nt<kTile, D>(Qs + r0 * C::ldt, C::ldt, Ks, C::ldt,
-                          Sf + r0 * C::lds, C::lds);
+    warp_mma_nt<T, D>(Qs + r0 * C::ldt, C::ldt, Ks, C::ldt,
+                      Sf + r0 * C::lds, C::lds);
     __syncwarp();
-    float s[32];
+    float s[HALF];
     float mx = kMasked;
 #pragma unroll
-    for (int t = 0; t < 32; ++t) {
-      const int c = 32 * half + ((t + rot) & 31), col = k0 + c;
+    for (int t = 0; t < HALF; ++t) {
+      const int c = HALF * half + ((t + rot) & (HALF - 1)), col = k0 + c;
       float x = Sf[srow * C::lds + c] * scale;
       if (bb && row < n && col < m) x += bb[(size_t)row * m + col];
-      const bool ok = col < m && (!causal || col <= row + offset);
+      bool ok = col < m && (!causal || col <= row + offset);
+      if (no_key) {
+        ok = col < m;
+        x = 0.f;
+      }
       s[t] = ok ? x : kMasked;
       mx = fmaxf(mx, s[t]);
     }
@@ -231,8 +278,8 @@ __global__ void __launch_bounds__(kThreads)
     const float m_new = fmaxf(m_run, mx);
     float sum = 0.f;
 #pragma unroll
-    for (int t = 0; t < 32; ++t) {
-      const int c = 32 * half + ((t + rot) & 31);
+    for (int t = 0; t < HALF; ++t) {
+      const int c = HALF * half + ((t + rot) & (HALF - 1));
       const float p = expf(s[t] - m_new);
       sum += p;
       Pt[srow * C::ldp + c] = p;
@@ -245,77 +292,82 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < D / 2; ++e)
       Of[srow * C::lda + half * (D / 2) + e] *= alpha;
     __syncwarp();
-    warp_acc_nn<D, kTile>(Pt + r0 * C::ldp, C::ldp, Vs, C::ldt,
-                          Of + r0 * C::lda, C::lda);
+    warp_acc_nn<D, T>(Pt + r0 * C::ldp, C::ldp, Vs, C::ldt, Of + r0 * C::lda,
+                      C::lda);
     __syncwarp();
   }
 
   if (row < n) {
     const float l = fmaxf(l_run, 1e-30f);
     const float inv = 1.f / l;
-    float* orow = out + ((size_t)bh * n + row) * D + half * (D / 2);
+    float* orow = out + ((size_t)bh * n + row) * d;
 #pragma unroll
-    for (int e = 0; e < D / 2; ++e)
-      orow[e] = Of[srow * C::lda + half * (D / 2) + e] * inv;
-    if (half == 0) lse[(size_t)bh * n + row] = m_run + logf(l);
+    for (int e = 0; e < D / 2; ++e) {
+      const int col = half * (D / 2) + e;
+      if (col < d) orow[col] = Of[srow * C::lda + col] * inv;
+    }
+    if (half == 0)
+      lse[(size_t)bh * n + row] = (no_key ? kMasked : m_run) + logf(l);
   }
 }
 
-// dQ: one block per (bh, 64 query rows). Per key tile and warp:
+// dQ: one block per (bh, tile query rows). Per key tile and warp:
 // P = exp(S - lse) on the visible keys, dP = dO V^T, dS = P (dP - delta),
 // dQ += dS K; dS also goes to dbias (bh, n, m) when asked. dQ *= scale.
+// A row that sees no key has P = 0 at every key: dq = 0, dS = 0.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Cfg<D>::threads, 1)
     bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ bias,
                   const float* __restrict__ dout,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta, float* __restrict__ dq,
-                  float* __restrict__ dbias, int n, int m, int q_tiles,
+                  float* __restrict__ dbias, int n, int m, int d, int q_tiles,
                   int bias_groups, int causal, float scale) {
   typedef Cfg<D> C;
+  constexpr int T = C::tile, NJ = T / 32;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* sp = smem_raw;
-  float* Qs = carve(sp, kTile * C::ldt);
-  float* dOs = carve(sp, kTile * C::ldt);
-  float* Ks = carve(sp, kTile * C::ldt);
-  float* Vs = carve(sp, kTile * C::ldt);
-  float* dQf = carve(sp, kTile * C::lda);
-  float* Sf = carve(sp, kTile * C::lds);
-  float* Pt = carve(sp, kTile * C::ldp);
-  float* lse_s = carve(sp, kTile);
-  float* delta_s = carve(sp, kTile);
+  float* Qs = carve(sp, T * C::ldt);
+  float* dOs = carve(sp, T * C::ldt);
+  float* Ks = carve(sp, T * C::ldt);
+  float* Vs = carve(sp, T * C::ldt);
+  float* dQf = carve(sp, T * C::lda);
+  float* Sf = carve(sp, T * C::lds);
+  float* Pt = carve(sp, T * C::ldp);
+  float* lse_s = carve(sp, T);
+  float* delta_s = carve(sp, T);
 
   const int bh = blockIdx.x / q_tiles;
-  const int q0 = (blockIdx.x % q_tiles) * kTile;
+  const int q0 = (blockIdx.x % q_tiles) * T;
   const int lane = threadIdx.x % 32, r0 = (threadIdx.x / 32) * kRows;
   const int offset = m - n;
-  const float* kb = k + (size_t)bh * m * D;
-  const float* vb = v + (size_t)bh * m * D;
+  const float* kb = k + (size_t)bh * m * d;
+  const float* vb = v + (size_t)bh * m * d;
   const float* bb =
       bias ? bias + (size_t)(bh % bias_groups) * n * m : nullptr;
   float* dbb = dbias ? dbias + (size_t)bh * n * m : nullptr;
 
-  load_tile<D>(Qs, C::ldt, q + (size_t)bh * n * D, q0, n);
-  load_tile<D>(dOs, C::ldt, dout + (size_t)bh * n * D, q0, n);
-  load_rows(lse_s, lse + (size_t)bh * n, q0, n);
-  load_rows(delta_s, delta + (size_t)bh * n, q0, n);
-  fill(dQf, kTile * C::lda, 0.f);
+  load_tile<D>(Qs, C::ldt, q + (size_t)bh * n * d, q0, n, d);
+  load_tile<D>(dOs, C::ldt, dout + (size_t)bh * n * d, q0, n, d);
+  load_rows<D>(lse_s, lse + (size_t)bh * n, q0, n);
+  load_rows<D>(delta_s, delta + (size_t)bh * n, q0, n);
+  fill<D>(dQf, T * C::lda, 0.f);
 
-  for (int k0 = 0; k0 < m; k0 += kTile) {
+  for (int k0 = 0; k0 < m; k0 += T) {
     __syncthreads();
-    load_tile<D>(Ks, C::ldt, kb, k0, m);
-    load_tile<D>(Vs, C::ldt, vb, k0, m);
+    load_tile<D>(Ks, C::ldt, kb, k0, m, d);
+    load_tile<D>(Vs, C::ldt, vb, k0, m, d);
     __syncthreads();
-    warp_mma_nt<kTile, D>(Qs + r0 * C::ldt, C::ldt, Ks, C::ldt,
-                          Sf + r0 * C::lds, C::lds);
+    warp_mma_nt<T, D>(Qs + r0 * C::ldt, C::ldt, Ks, C::ldt,
+                      Sf + r0 * C::lds, C::lds);
     __syncwarp();
-    float p[kRows][2];
+    float p[kRows][NJ];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int row = q0 + r0 + r;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         const int c = lane + 32 * j, col = k0 + c;
         float x = Sf[(r0 + r) * C::lds + c] * scale;
         if (bb && row < n && col < m) x += bb[(size_t)row * m + col];
@@ -325,14 +377,14 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncwarp();  // S is read; dP takes its place
-    warp_mma_nt<kTile, D>(dOs + r0 * C::ldt, C::ldt, Vs, C::ldt,
-                          Sf + r0 * C::lds, C::lds);
+    warp_mma_nt<T, D>(dOs + r0 * C::ldt, C::ldt, Vs, C::ldt,
+                      Sf + r0 * C::lds, C::lds);
     __syncwarp();
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int row = q0 + r0 + r;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         const int c = lane + 32 * j, col = k0 + c;
         const float ds =
             p[r][j] * (Sf[(r0 + r) * C::lds + c] - delta_s[r0 + r]);
@@ -341,112 +393,115 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncwarp();
-    warp_acc_nn<D, kTile>(Pt + r0 * C::ldp, C::ldp, Ks, C::ldt,
-                          dQf + r0 * C::lda, C::lda);
+    warp_acc_nn<D, T>(Pt + r0 * C::ldp, C::ldp, Ks, C::ldt,
+                      dQf + r0 * C::lda, C::lda);
     __syncwarp();
   }
 
   for (int r = 0; r < kRows; ++r) {
     const int row = q0 + r0 + r;
     if (row >= n) break;
-    float* drow = dq + ((size_t)bh * n + row) * D;
-    for (int e = lane; e < D; e += 32)
+    float* drow = dq + ((size_t)bh * n + row) * d;
+    for (int e = lane; e < d; e += 32)
       drow[e] = dQf[(r0 + r) * C::lda + e] * scale;
   }
 }
 
-// dK, dV: one block per (bh, 64 key rows), each warp 16 keys. Per query
+// dK, dV: one block per (bh, tile key rows), each warp 16 keys. Per query
 // tile the products are formed transposed, so the warp's rows stay keys:
 // S^T = K Q^T, P^T = exp(S^T - lse[query]), dV += P^T dO, dP^T = V dO^T,
-// dS^T = P^T (dP^T - delta[query]), dK += dS^T Q. dK *= scale.
+// dS^T = P^T (dP^T - delta[query]), dK += dS^T Q. dK *= scale. A query that
+// sees no key weighs 1 / m in dV at every key < m and 0 in dS.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Cfg<D>::threads, 1)
     bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ bias,
                    const float* __restrict__ dout,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, float* __restrict__ dk,
-                   float* __restrict__ dv, int n, int m, int k_tiles,
+                   float* __restrict__ dv, int n, int m, int d, int k_tiles,
                    int bias_groups, int causal, float scale) {
   typedef Cfg<D> C;
+  constexpr int T = C::tile, NJ = T / 32;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* sp = smem_raw;
-  float* Ks = carve(sp, kTile * C::ldt);
-  float* Vs = carve(sp, kTile * C::ldt);
-  float* Qs = carve(sp, kTile * C::ldt);
-  float* dOs = carve(sp, kTile * C::ldt);
-  float* dKf = carve(sp, kTile * C::lda);
-  float* dVf = carve(sp, kTile * C::lda);
-  float* Sf = carve(sp, kTile * C::lds);
-  float* Pt = carve(sp, kTile * C::ldp);
-  float* lse_s = carve(sp, kTile);
-  float* delta_s = carve(sp, kTile);
+  float* Ks = carve(sp, T * C::ldt);
+  float* Vs = carve(sp, T * C::ldt);
+  float* Qs = carve(sp, T * C::ldt);
+  float* dOs = carve(sp, T * C::ldt);
+  float* dKf = carve(sp, T * C::lda);
+  float* dVf = carve(sp, T * C::lda);
+  float* Sf = carve(sp, T * C::lds);
+  float* Pt = carve(sp, T * C::ldp);
+  float* lse_s = carve(sp, T);
+  float* delta_s = carve(sp, T);
 
   const int bh = blockIdx.x / k_tiles;
-  const int k0 = (blockIdx.x % k_tiles) * kTile;
+  const int k0 = (blockIdx.x % k_tiles) * T;
   const int lane = threadIdx.x % 32, r0 = (threadIdx.x / 32) * kRows;
-  const int offset = m - n;
-  const float* qb = q + (size_t)bh * n * D;
-  const float* dob = dout + (size_t)bh * n * D;
+  const int offset = m - n, blind = causal ? n - m : 0;
+  const float inv_m = 1.f / m;
+  const float* qb = q + (size_t)bh * n * d;
+  const float* dob = dout + (size_t)bh * n * d;
   const float* bb =
       bias ? bias + (size_t)(bh % bias_groups) * n * m : nullptr;
 
-  load_tile<D>(Ks, C::ldt, k + (size_t)bh * m * D, k0, m);
-  load_tile<D>(Vs, C::ldt, v + (size_t)bh * m * D, k0, m);
-  fill(dKf, kTile * C::lda, 0.f);
-  fill(dVf, kTile * C::lda, 0.f);
+  load_tile<D>(Ks, C::ldt, k + (size_t)bh * m * d, k0, m, d);
+  load_tile<D>(Vs, C::ldt, v + (size_t)bh * m * d, k0, m, d);
+  fill<D>(dKf, T * C::lda, 0.f);
+  fill<D>(dVf, T * C::lda, 0.f);
 
-  for (int q0 = 0; q0 < n; q0 += kTile) {
+  for (int q0 = 0; q0 < n; q0 += T) {
     __syncthreads();
-    load_tile<D>(Qs, C::ldt, qb, q0, n);
-    load_tile<D>(dOs, C::ldt, dob, q0, n);
-    load_rows(lse_s, lse + (size_t)bh * n, q0, n);
-    load_rows(delta_s, delta + (size_t)bh * n, q0, n);
+    load_tile<D>(Qs, C::ldt, qb, q0, n, d);
+    load_tile<D>(dOs, C::ldt, dob, q0, n, d);
+    load_rows<D>(lse_s, lse + (size_t)bh * n, q0, n);
+    load_rows<D>(delta_s, delta + (size_t)bh * n, q0, n);
     __syncthreads();
-    warp_mma_nt<kTile, D>(Ks + r0 * C::ldt, C::ldt, Qs, C::ldt,
-                          Sf + r0 * C::lds, C::lds);
+    warp_mma_nt<T, D>(Ks + r0 * C::ldt, C::ldt, Qs, C::ldt,
+                      Sf + r0 * C::lds, C::lds);
     __syncwarp();
-    float p[kRows][2];
+    float p[kRows][NJ];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int key = k0 + r0 + r;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         const int c = lane + 32 * j, row = q0 + c;
         float x = Sf[(r0 + r) * C::lds + c] * scale;
         if (bb && row < n && key < m) x += bb[(size_t)row * m + key];
         const bool ok =
             row < n && key < m && (!causal || key <= row + offset);
         p[r][j] = ok ? expf(x - lse_s[c]) : 0.f;
-        Pt[(r0 + r) * C::ldp + c] = p[r][j];
+        Pt[(r0 + r) * C::ldp + c] = row < blind && key < m ? inv_m : p[r][j];
       }
     }
     __syncwarp();
-    warp_acc_nn<D, kTile>(Pt + r0 * C::ldp, C::ldp, dOs, C::ldt,
-                          dVf + r0 * C::lda, C::lda);
-    warp_mma_nt<kTile, D>(Vs + r0 * C::ldt, C::ldt, dOs, C::ldt,
-                          Sf + r0 * C::lds, C::lds);
+    warp_acc_nn<D, T>(Pt + r0 * C::ldp, C::ldp, dOs, C::ldt,
+                      dVf + r0 * C::lda, C::lda);
+    warp_mma_nt<T, D>(Vs + r0 * C::ldt, C::ldt, dOs, C::ldt,
+                      Sf + r0 * C::lds, C::lds);
     __syncwarp();  // P^T is read; dS^T takes its place
 #pragma unroll
     for (int r = 0; r < kRows; ++r)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         const int c = lane + 32 * j;
         Pt[(r0 + r) * C::ldp + c] =
             p[r][j] * (Sf[(r0 + r) * C::lds + c] - delta_s[c]);
       }
     __syncwarp();
-    warp_acc_nn<D, kTile>(Pt + r0 * C::ldp, C::ldp, Qs, C::ldt,
-                          dKf + r0 * C::lda, C::lda);
+    warp_acc_nn<D, T>(Pt + r0 * C::ldp, C::ldp, Qs, C::ldt,
+                      dKf + r0 * C::lda, C::lda);
     __syncwarp();
   }
 
   for (int r = 0; r < kRows; ++r) {
     const int key = k0 + r0 + r;
     if (key >= m) break;
-    float* krow = dk + ((size_t)bh * m + key) * D;
-    float* vrow = dv + ((size_t)bh * m + key) * D;
-    for (int e = lane; e < D; e += 32) {
+    float* krow = dk + ((size_t)bh * m + key) * d;
+    float* vrow = dv + ((size_t)bh * m + key) * d;
+    for (int e = lane; e < d; e += 32) {
       krow[e] = dKf[(r0 + r) * C::lda + e] * scale;
       vrow[e] = dVf[(r0 + r) * C::lda + e];
     }
@@ -455,43 +510,45 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---- the bf16 kernels on the tensor cores (the 'mma' route) ---------------
 //
-// Three kernels. Each block of warps owns rows of its output, 16 or 32 a
-// warp, and streams tiles of the other side through a ring of stages in
-// shared memory, filled by cp.async (zero-filled past the last row) so that
-// the next tile loads while this one runs its products, a chunk of its rows
-// at a time (the fewer, the fewer registers). Every product is mma.sync
+// Three kernels. Each block of warps owns rows of its output, 16 a warp,
+// and streams tiles of the other side through a ring of stages in shared
+// memory, filled by cp.async (zero-filled past the last row and past d) so
+// that the next tile loads while this one runs its products, a chunk of its
+// rows at a time (the fewer, the fewer registers). Every product is mma.sync
 // m16n8k16 on bf16 with float32 accumulators in registers:
-//   forward S = Q K^T                  Q: A fragments held in registers;
-//                                      K by ldmatrix
+//   forward S = Q K^T                  Q: A fragments (Rows16); K by
+//                                      ldmatrix
 //         online softmax               in the accumulators' registers: the
 //                                      running max and sum of a row reduced
 //                                      over the 4 lanes of its quad; exp as
 //                                      ex2 with log2 e folded into the scale
 //         O += P V                     P rounded to bf16 as the A operand,
 //                                      V by ldmatrix.trans; O in registers
-//   dQ    S = Q K^T, dP = dO V^T       Q, dO: A fragments held in registers;
-//                                      K, V by ldmatrix
+//   dQ    S = Q K^T, dP = dO V^T       Q, dO: A fragments; K, V by ldmatrix
 //         P = 2^(S scale log2e + bias log2e - lse log2e) on the visible keys
 //         dS = P (dP - delta)          in the accumulators' registers
 //         dQ += dS K                   dS rounded to bf16 as the A operand,
 //                                      K by ldmatrix.trans
-//   dK/dV S^T = K Q^T, dP^T = V dO^T   K, V: A fragments in registers; Q, dO
-//                                      by ldmatrix
+//   dK/dV S^T = K Q^T, dP^T = V dO^T   K, V: A fragments; Q, dO by ldmatrix
 //         P^T, dS^T as above, with lse and delta per column (query)
 //         dV += P^T dO, dK += dS^T Q   dO, Q by ldmatrix.trans
-// Nothing but the streamed tiles touches shared memory. Rows are padded from
-// D to D + 8 bf16, so the 8 rows an ldmatrix phase reads fall in 8
-// different bank groups. The bias is read one bf16 at a time: a row of a
-// (groups, n, m) bias is 4-byte aligned only when m is even.
+// Rows are padded from D to D + 8 bf16 in shared memory, so the 8 rows an
+// ldmatrix phase reads fall in 8 different bank groups. The bias is read one
+// bf16 at a time: a row of a (groups, n, m) bias is 4-byte aligned only when
+// m is even. The geometry of each kernel at each width (FwdGeo, DqGeo,
+// DkvGeo) keeps the accumulators, the A fragments held in registers and a
+// chunk of scores under 255 registers a thread, and its shared memory under
+// kSmemMax (static_asserts below); chip_smoke.py reads registers, spills
+// and shared memory of every width back from the card.
 //
 // The causal skip (ops/kernels/flash_attention.py dq_key_tiles,
 // dkv_query_tiles and tile_masked are its Python twin): the forward's and
-// dQ's loops end at the last key tile their block's last row sees, the
-// dK/dV loop starts at the first query tile whose last row sees the block's
-// first key; only a tile that crosses the diagonal or a ragged edge
-// (rows >= n, keys >= m) tests each element, and a hidden pair's exponent is
-// -inf, so P = 0 before any use. No branch sits around an ldmatrix or mma.
-// No atomics, one owner per output tile.
+// dQ's loops end at the last key tile their block's last row sees (none,
+// when that row sees no key), the dK/dV loop starts at the first query tile
+// whose last row sees the block's first key; only a tile that crosses the
+// diagonal or a ragged edge (rows >= n, keys >= m) tests each element, and a
+// hidden pair's exponent is -inf, so P = 0 before any use. No branch sits
+// around an ldmatrix or mma. No atomics, one owner per output tile.
 
 // tile (q0 .. q0 + nq - 1) x (k0 .. k0 + nk - 1) has a pair to mask: a ragged
 // edge, or with causal a key past the diagonal of its first row
@@ -500,29 +557,44 @@ __device__ __forceinline__ bool tile_masked(int q0, int nq, int k0, int nk,
   return q0 + nq > n || k0 + nk > m || (causal && k0 + nk - 1 > q0 + m - n);
 }
 
-// ROWS rows from row0 of src (rows, D) into a ring tile with rows of D + 8,
-// zeros past the last row, by THREADS threads
+// ROWS rows from row0 of src (rows, d) into a ring tile with rows of D + 8,
+// zeros past the last row and past d, by THREADS threads
 template <int D, int ROWS, int THREADS>
 __device__ __forceinline__ void async_tile(bf16* dst, const bf16* src,
-                                           int row0, int rows) {
+                                           int row0, int rows, int d) {
   constexpr int V = D / 8;  // 16-byte pieces a row
   for (int idx = threadIdx.x; idx < ROWS * V; idx += THREADS) {
     const int r = idx / V, e = (idx % V) * 8;
-    const bool ok = row0 + r < rows;
-    cp_async16(dst + r * (D + 8) + e, src + (size_t)(ok ? row0 + r : 0) * D + e,
-               ok);
+    const bool ok = row0 + r < rows && e < d;
+    cp_async16(dst + r * (D + 8) + e,
+               src + (ok ? (size_t)(row0 + r) * d + e : 0), ok);
   }
 }
 
-// A fragments of rows ra and ra + 8 of src (rows, D), straight from device
-// memory: a[c] covers columns 16c .. 16c + 15; rows past the last are zero
+// An operand's 16 rows as the A side of mma.sync: fragments held in
+// registers (a[c] covers columns 16c .. 16c + 15), or a pointer to the first
+// of the rows in a shared tile with rows of D + 8, read by ldmatrix at each
+// use
+template <int D, bool SMEM>
+struct Rows16 {
+  unsigned a[D / 16][4];
+};
+
+template <int D>
+struct Rows16<D, true> {
+  const bf16* tile;
+};
+
+// A fragments of rows ra and ra + 8 of src (rows, d), straight from device
+// memory; rows past the last and columns past d are zero
 template <int D>
 __device__ __forceinline__ void load_a(unsigned (&a)[D / 16][4],
-                                       const bf16* src, int ra, int rows) {
+                                       const bf16* src, int ra, int rows,
+                                       int d) {
   const int tq = threadIdx.x % 4;
   auto word = [&](int row, int col) -> unsigned {
-    return row < rows
-               ? *reinterpret_cast<const unsigned*>(src + (size_t)row * D + col)
+    return row < rows && col < d
+               ? *reinterpret_cast<const unsigned*>(src + (size_t)row * d + col)
                : 0u;
   };
 #pragma unroll
@@ -562,6 +634,56 @@ __device__ __forceinline__ void mma_rows(float (&acc)[4],
   for (int c = 0; c < D / 16; ++c) mma_16816(acc, a[c], b[2 * c], b[2 * c + 1]);
 }
 
+// s[j] (16 x 8) = A (16 x D) B^T for B = rows br0 + 8 j .. br0 + 8 j + 7 of
+// a ring tile, j < NB: A from registers ...
+template <int D, int NB>
+__device__ __forceinline__ void mma_chunk(float (&s)[NB][4],
+                                          const Rows16<D, false>& A,
+                                          const bf16* tile, int br0) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j) mma_rows<D>(s[j], A.a, tile, br0 + 8 * j);
+}
+
+// ... or from a shared tile, one 16 x 16 A fragment at a time
+template <int D, int NB>
+__device__ __forceinline__ void mma_chunk(float (&s)[NB][4],
+                                          const Rows16<D, true>& A,
+                                          const bf16* tile, int br0) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int c = 0; c < D / 16; ++c) {
+    unsigned a[4];
+    ldmatrix_x4(a, A.tile + (lane & 15) * (D + 8) + 16 * c + (lane >> 4) * 8);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      unsigned b[2];
+      ldmatrix_x2(b, tile + (br0 + 8 * j + (lane & 7)) * (D + 8) + 16 * c +
+                         ((lane >> 3) & 1) * 8);
+      mma_16816(s[j], a, b[0], b[1]);
+    }
+  }
+}
+
+// s = A1 B1^T and dp = A2 B2^T over the same rows of two ring tiles: block
+// by block from registers, A fragment by A fragment from shared memory
+template <int D, int NB, bool SMEM>
+__device__ __forceinline__ void mma_chunk_pair(
+    float (&s)[NB][4], const Rows16<D, SMEM>& a1, const bf16* t1,
+    float (&dp)[NB][4], const Rows16<D, SMEM>& a2, const bf16* t2, int br0) {
+  if constexpr (SMEM) {
+    mma_chunk<D, NB>(s, a1, t1, br0);
+    mma_chunk<D, NB>(dp, a2, t2, br0);
+  } else {
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      mma_rows<D>(s[j], a1.a, t1, br0 + 8 * j);
+      mma_rows<D>(dp[j], a2.a, t2, br0 + 8 * j);
+    }
+  }
+}
+
 // acc (16 x D) += A (16 x 16) B for rows r0 .. r0 + 15 of a ring tile as
 // B's 16 rows: ldmatrix.trans gives B's fragments, two 8-column blocks a load
 template <int D>
@@ -589,37 +711,100 @@ __device__ __forceinline__ void c_to_a(unsigned (&a)[4], const float (&c0)[4],
   a[3] = pack_bf16(c1[2], c1[3]);
 }
 
-// rows ra and ra + 8 of a (rows, D) output from C fragments, times mul
+// rows ra and ra + 8 of a (rows, d) output from C fragments, times mul; the
+// columns past d are not stored
 template <int D>
 __device__ __forceinline__ void store_rows(bf16* dst,
                                            const float (&acc)[D / 8][4],
-                                           int ra, int rows, float mul) {
+                                           int ra, int rows, float mul,
+                                           int d) {
   const int tq = threadIdx.x % 4;
 #pragma unroll
   for (int db = 0; db < D / 8; ++db) {
     const int col = 8 * db + 2 * tq;
+    if (col >= d) continue;
     if (ra < rows)
-      *reinterpret_cast<unsigned*>(dst + (size_t)ra * D + col) =
+      *reinterpret_cast<unsigned*>(dst + (size_t)ra * d + col) =
           pack_bf16(acc[db][0] * mul, acc[db][1] * mul);
     if (ra + 8 < rows)
-      *reinterpret_cast<unsigned*>(dst + (size_t)(ra + 8) * D + col) =
+      *reinterpret_cast<unsigned*>(dst + (size_t)(ra + 8) * d + col) =
           pack_bf16(acc[db][2] * mul, acc[db][3] * mul);
   }
 }
 
-// The forward's geometry, from the sweep of tools/flash_fwd_variants.py
-// (PERF.md §6 records it): kFwdWarps warps a block, 16 query rows a warp,
-// kFwdStages key tiles in flight, kFwdTile keys a streamed tile, of which
-// kFwdChunk keys' scores sit in registers at a time.
+// out[c] = the sum over rows 0 .. rows - 1 of column c of src (rows, d) in
+// float32, for c < D (0 past d), by THREADS threads in a fixed order: thread
+// t sums column pair t % (D / 2) over every R-th row from t / (D / 2),
+// R = THREADS / (D / 2), into part; then the R partial sums of a column are
+// added in order. out (D floats) and part (2 THREADS floats) are in shared
+// memory; the block is synchronised at the end. The rows that see no key
+// read it: the forward for the mean of v, dK/dV for the sum of their dO.
+template <int D, int THREADS>
+__device__ __forceinline__ void column_sum(float* out, float* part,
+                                           const bf16* src, int rows, int d) {
+  constexpr int P = D / 2, R = THREADS / P;
+  static_assert(THREADS % P == 0, "a whole number of rows a pass");
+  const int t = threadIdx.x, pair = t % P, phase = t / P;
+  float s0 = 0.f, s1 = 0.f;
+  if (2 * pair < d) {
+#pragma unroll 4
+    for (int r = phase; r < rows; r += R) {
+      const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(
+          src + (size_t)r * d + 2 * pair);
+      s0 += __low2float(x);
+      s1 += __high2float(x);
+    }
+  }
+  part[phase * D + 2 * pair] = s0;
+  part[phase * D + 2 * pair + 1] = s1;
+  __syncthreads();
+  for (int c = t; c < D; c += THREADS) {
+    float s = 0.f;
+    for (int r = 0; r < R; ++r) s += part[r * D + c];
+    out[c] = s;
+  }
+  __syncthreads();
+}
+
+template <int D, int THREADS>
+constexpr size_t column_sum_bytes() {
+  return sizeof(float) * (D + 2 * THREADS);
+}
+
+// The forward: kFwdWarps warps a block, 16 query rows a warp. Up to D = 64
+// (from the sweep of tools/flash_fwd_variants.py, PERF.md §6 records it)
+// kFwdStages key tiles of kFwdTile keys in flight, kFwdChunk keys' scores in
+// registers at a time. At each width FwdGeo gives the stages, the keys of a
+// tile and of a chunk, whether Q's A fragments are held in registers (D / 4
+// a thread) or read from a shared tile (at D = 256, where O alone holds 128
+// floats a thread), and the padded kernel's blocks an SM: at D = 256 tiles
+// of 32 keys let 2 blocks share an SM (22% under 1 block on 64-key tiles;
+// at D = 128, 3 blocks ran 11% faster but spill 32 bytes a thread;
+// tools/flash_heads_probe.py, PERF.md §6).
 constexpr int kFwdWarps = 4;
 constexpr int kFwdStages = 2;
 constexpr int kFwdTile = 128;
 constexpr int kFwdChunk = 64;
 constexpr int kFwdThreads = 32 * kFwdWarps;
 constexpr int kFwdBlockRows = 16 * kFwdWarps;  // query rows a block owns
-static_assert(kFwdTile % kFwdChunk == 0 && kFwdChunk % 16 == 0 &&
-                  kFwdStages >= 2,
-              "forward geometry");
+
+template <int D>
+struct FwdGeo {
+  static constexpr int stages = D <= 64 ? kFwdStages : 2;
+  static constexpr int tile = D <= 64 ? kFwdTile : D <= 128 ? 64 : 32;
+  static constexpr int chunk = D <= 128 ? kFwdChunk : 32;
+  static constexpr bool q_smem = D > 128;
+  static constexpr int min_blocks = D <= 128 ? 1 : 2;
+  static constexpr size_t ring =
+      (size_t)stages * 2 * sizeof(bf16) * tile * (D + 8);
+  static constexpr size_t q_tile =
+      q_smem ? sizeof(bf16) * kFwdBlockRows * (D + 8) : 0;
+  static constexpr size_t bytes =
+      ring + q_tile + column_sum_bytes<D, kFwdThreads>();
+  static_assert(tile % chunk == 0 && chunk % 16 == 0 && stages >= 2,
+                "forward geometry");
+  static_assert(bytes <= kSmemMax, "forward shared memory");
+};
 
 // Forward: one block per (bh, kFwdBlockRows query rows), streaming key tiles
 // (K and V); heaviest blocks first, since with causal a block's key tiles
@@ -634,45 +819,62 @@ static_assert(kFwdTile % kFwdChunk == 0 && kFwdChunk % 16 == 0 &&
 // reads it. A row whose every score is -inf (a bias of -inf at every key it
 // sees) gets O = 0 and lse = kMasked + log(1e-30), as the 'f32' route's
 // floor gives it: finite, so that the backward's P = 2^(s - lse) is 0 there
-// and not inf - inf.
-template <int D>
-__global__ void __launch_bounds__(kFwdThreads)
-    fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ bias,
-                   bf16* __restrict__ out, float* __restrict__ lse, int n,
-                   int m, int q_tiles, int bias_groups, int causal,
-                   float scale) {
-  constexpr int LD = D + 8, TILE = kFwdTile * LD, NB = kFwdChunk / 8;
+// and not inf - inf. A row that sees no key at all (causal, m < n) gets the
+// mean of v from column_sum and lse = kMasked + log(m).
+#define MV2_FWD_PARAMS                                                    \
+  const bf16 *__restrict__ q, const bf16 *__restrict__ k,                 \
+      const bf16 *__restrict__ v, const bf16 *__restrict__ bias,          \
+      bf16 *__restrict__ out, float *__restrict__ lse, int n, int m, int dh, \
+      int q_tiles, int bias_groups, int causal, float scale
+#define MV2_FWD_ARGS \
+  q, k, v, bias, out, lse, n, m, dh, q_tiles, bias_groups, causal, scale
+
+template <int D, bool EXACT>
+__device__ __forceinline__ void fwd_mma(MV2_FWD_PARAMS) {
+  typedef FwdGeo<D> G;
+  const int d = EXACT ? D : dh;
+  constexpr int LD = D + 8, TILE = G::tile * LD, NB = G::chunk / 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // a stage: K tile, V tile
+  bf16* q_tile = ring + G::stages * 2 * TILE;      // with G::q_smem
+  float* vsum = reinterpret_cast<float*>(smem_raw + G::ring + G::q_tile);
 
   const int bh = blockIdx.x / q_tiles;
   const int q0 = (q_tiles - 1 - blockIdx.x % q_tiles) * kFwdBlockRows;
-  const int lane = threadIdx.x % 32, tq = lane & 3;
-  const int w0 = q0 + 16 * (threadIdx.x / 32);  // the warp's first row
+  const int lane = threadIdx.x % 32, tq = lane & 3, warp = threadIdx.x / 32;
+  const int w0 = q0 + 16 * warp;  // the warp's first row
   const int ra = w0 + (lane >> 2);
   const int offset = m - n;
-  const bf16* kb = k + (size_t)bh * m * D;
-  const bf16* vb = v + (size_t)bh * m * D;
+  const bf16* qb = q + (size_t)bh * n * d;
+  const bf16* kb = k + (size_t)bh * m * d;
+  const bf16* vb = v + (size_t)bh * m * d;
   const bf16* bb = bias ? bias + (size_t)(bh % bias_groups) * n * m : nullptr;
 
   // key tiles 0 .. tiles - 1: with causal, up to the last one the block's
   // last row sees (dq_key_tiles)
   const int k_end = causal ? min(m, min(q0 + kFwdBlockRows, n) + offset) : m;
-  const int tiles = (k_end + kFwdTile - 1) / kFwdTile;
+  const int tiles = (max(k_end, 0) + G::tile - 1) / G::tile;
   auto load = [&](int t) {
-    bf16* st = ring + (t % kFwdStages) * 2 * TILE;
-    async_tile<D, kFwdTile, kFwdThreads>(st, kb, t * kFwdTile, m);
-    async_tile<D, kFwdTile, kFwdThreads>(st + TILE, vb, t * kFwdTile, m);
+    bf16* st = ring + (t % G::stages) * 2 * TILE;
+    async_tile<D, G::tile, kFwdThreads>(st, kb, t * G::tile, m, d);
+    async_tile<D, G::tile, kFwdThreads>(st + TILE, vb, t * G::tile, m, d);
   };
+  if constexpr (G::q_smem)  // joins the first group
+    async_tile<D, kFwdBlockRows, kFwdThreads>(q_tile, qb, q0, n, d);
 #pragma unroll
-  for (int t = 0; t < kFwdStages - 1; ++t) {
+  for (int t = 0; t < G::stages - 1; ++t) {
     if (t < tiles) load(t);
     cp_async_commit();
   }
 
-  unsigned qa[D / 16][4];
-  load_a<D>(qa, q + (size_t)bh * n * D, ra, n);
+  Rows16<D, G::q_smem> qa;
+  if constexpr (G::q_smem)
+    qa.tile = q_tile + 16 * warp * LD;
+  else
+    load_a<D>(qa.a, qb, ra, n, d);
+  // rows < n - m see no key (causal): their mean of v
+  if (causal && q0 < n - m)
+    column_sum<D, kFwdThreads>(vsum, vsum + D, vb, m, d);
   float o[D / 8][4];
 #pragma unroll
   for (int i = 0; i < D / 8; ++i)
@@ -688,19 +890,18 @@ __global__ void __launch_bounds__(kFwdThreads)
   const float mul = pre ? 1.f : scale_log2;
 
   for (int t = 0; t < tiles; ++t) {
-    cp_async_wait<kFwdStages - 2>();
+    cp_async_wait<G::stages - 2>();
     __syncthreads();  // tile t is in; tile t - 1's stage is free
-    if (t + kFwdStages - 1 < tiles) load(t + kFwdStages - 1);
+    if (t + G::stages - 1 < tiles) load(t + G::stages - 1);
     cp_async_commit();
-    const bf16* Ks = ring + (t % kFwdStages) * 2 * TILE;
+    const bf16* Ks = ring + (t % G::stages) * 2 * TILE;
     const bf16* Vs = Ks + TILE;
 #pragma unroll 1
-    for (int c0 = 0; c0 < kFwdTile; c0 += kFwdChunk) {
-      const int k0 = t * kFwdTile + c0;
-      const bool masked = tile_masked(w0, 16, k0, kFwdChunk, n, m, causal);
+    for (int c0 = 0; c0 < G::tile; c0 += G::chunk) {
+      const int k0 = t * G::tile + c0;
+      const bool masked = tile_masked(w0, 16, k0, G::chunk, n, m, causal);
       float s[NB][4];
-#pragma unroll
-      for (int j = 0; j < NB; ++j) mma_rows<D>(s[j], qa, Ks, c0 + 8 * j);
+      mma_chunk<D, NB>(s, qa, Ks, c0);
       // C element e of block j is (row ra + 8 (e / 2), key k0 + 8 j + 2 tq +
       // e % 2). Uniform branches: the bias, and the element test of a masked
       // chunk.
@@ -760,6 +961,7 @@ __global__ void __launch_bounds__(kFwdThreads)
       }
     }
   }
+  cp_async_wait<0>();  // no copy outlives the block (tiles may be 0)
 
   float* lse_rows = lse + (size_t)bh * n;
 #pragma unroll
@@ -776,77 +978,180 @@ __global__ void __launch_bounds__(kFwdThreads)
       lse_rows[row] = mx[h] == -INFINITY ? kMasked + logf(sum)
                                          : fmaf(mx[h] * mul, kLn2, logf(sum));
   }
-  store_rows<D>(out + (size_t)bh * n * D, o, ra, n, 1.f);
+  if (causal && q0 < n - m) {  // uniform: the rows that see no key
+    const float inv_m = 1.f / m;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = ra + 8 * h;
+      if (row >= n - m) continue;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        o[i][2 * h] = vsum[8 * i + 2 * tq] * inv_m;
+        o[i][2 * h + 1] = vsum[8 * i + 2 * tq + 1] * inv_m;
+      }
+      if (tq == 0) lse_rows[row] = kMasked + logf((float)m);
+    }
+  }
+  store_rows<D>(out + (size_t)bh * n * d, o, ra, n, 1.f, d);
 }
 
-// The backward's geometry: kBwdWarps warps a block, 16 output rows a warp,
-// kBwdStages streamed tiles of kBwdTile rows in flight; the products take
-// kDqChunk or kDkvChunk rows of a tile at a time. From the sweep of
-// tools/flash_bwd_variants.py (PERF.md §6 records it). dQ *= scale and
-// dK *= scale at the end. The dQ kernel writes dS (when asked) in every tile
-// it visits and zeros in the key tiles it skips, so every element of dS has
-// one writer.
+// Each kernel is built twice up to kExactWidth: for a head of exactly D (d
+// a constant, with the launch bounds the sweeps tuned) and, as the padded
+// kernel, for a narrower one (d at run time; its launch bounds ask for the
+// geometry's min_blocks, which lets ptxas take the registers the run-time d
+// needs without spilling). The wider widths have the padded kernel alone.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads)
+    fwd_mma_kernel(MV2_FWD_PARAMS) {
+  fwd_mma<D, true>(MV2_FWD_ARGS);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, FwdGeo<D>::min_blocks)
+    fwd_mma_padded_kernel(MV2_FWD_PARAMS) {
+  fwd_mma<D, false>(MV2_FWD_ARGS);
+}
+
+// The backward: kBwdWarps warps a block, 16 output rows a warp; the
+// products take a chunk of a streamed tile's rows at a time. Up to D = 64
+// (from the sweep of tools/flash_bwd_variants.py, PERF.md §6 records it)
+// kBwdStages tiles of kBwdTile rows in flight and chunks of kDqChunk and
+// kDkvChunk rows; above, DqGeo and DkvGeo shrink tiles and chunks and move
+// the A operands to shared memory so that the accumulators fit. dQ *= scale
+// and dK *= scale at the end. The dQ kernel writes dS (when asked) in every
+// tile it visits and zeros in the key tiles it skips, so every element of
+// dS has one writer.
 constexpr int kBwdWarps = 4;
 constexpr int kBwdStages = 2;
-constexpr int kBwdThreads = 32 * kBwdWarps;
-constexpr int kBwdRows = 16 * kBwdWarps;     // output rows a block owns
 constexpr int kBwdTile = 64;
 constexpr int kDqChunk = 32;
 constexpr int kDkvChunk = 16;
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kBwdRows = 16 * kBwdWarps;  // output rows a block owns
 
-// 64 floats from row0 of src (rows), zeros past the last
+// dQ: keys a streamed tile, keys a chunk, whether Q's and dO's A fragments
+// are held in registers or read from shared tiles, and the padded kernel's
+// blocks an SM. Above D = 64 they come from shared memory on tiles small
+// enough for 3 blocks an SM at D = 128 (6% under 2 blocks with Q and dO in
+// registers) and 2 at D = 256 (21% under 1), where dQ alone holds 128
+// floats a thread (tools/flash_heads_probe.py, PERF.md §6).
+template <int D>
+struct DqGeo {
+  static constexpr int stages = D <= 64 ? kBwdStages : 2;
+  static constexpr int tile = D <= 64 ? kBwdTile : D <= 128 ? 32 : 16;
+  static constexpr int chunk = D <= 128 ? kDqChunk : 16;
+  static constexpr bool a_smem = D > 64;
+  static constexpr int min_blocks = D <= 64 ? 1 : D <= 128 ? 3 : 2;
+  static constexpr size_t ring =
+      (size_t)stages * 2 * sizeof(bf16) * tile * (D + 8);
+  static constexpr size_t a_tiles =
+      a_smem ? 2 * sizeof(bf16) * kBwdRows * (D + 8) : 0;
+  static constexpr size_t bytes = ring + a_tiles;
+  static_assert(tile % chunk == 0 && chunk % 16 == 0 && stages >= 2,
+                "dQ geometry");
+  static_assert(bytes <= kSmemMax, "dQ shared memory");
+};
+
+// dK/dV: query rows a streamed tile, a chunk, whether K's and V's A
+// fragments are held in registers or read from shared tiles (above D = 64,
+// where dK and dV hold D floats a thread together), the sweeps over the
+// query tiles (one that forms dK and dV together, or at D = 256 two, dV and
+// then dK, so that one accumulator is live at a time) and the padded
+// kernel's blocks an SM (2 at D = 256 on 16-row tiles, 11% under 1; two
+// sweeps at D = 128 for 3 blocks ran 1.46x slower; tools/
+// flash_heads_probe.py)
+template <int D>
+struct DkvGeo {
+  static constexpr int stages = D <= 64 ? kBwdStages : 2;
+  static constexpr int tile = D <= 128 ? kBwdTile : 16;
+  static constexpr int chunk = D <= 128 ? kDkvChunk : 16;
+  static constexpr bool a_smem = D > 64;
+  static constexpr int sweeps = D <= 128 ? 1 : 2;
+  static constexpr int min_blocks = D <= 128 ? 1 : 2;
+  // a stage: Q tile, dO tile (bf16), lse, delta (floats)
+  static constexpr size_t stage =
+      2 * sizeof(bf16) * tile * (D + 8) + 2 * sizeof(float) * tile;
+  static constexpr size_t ring = stages * stage;
+  static constexpr size_t a_tiles =
+      a_smem ? 2 * sizeof(bf16) * kBwdRows * (D + 8) : 0;
+  static constexpr size_t bytes =
+      ring + a_tiles + column_sum_bytes<D, kBwdThreads>();
+  static_assert(tile % chunk == 0 && stage % 16 == 0 && stages >= 2,
+                "dK/dV geometry");
+  static_assert(bytes <= kSmemMax, "dK/dV shared memory");
+};
+
+// TILE floats from row0 of src (rows), zeros past the last
+template <int TILE>
 __device__ __forceinline__ void async_rows(float* dst, const float* src,
                                            int row0, int rows) {
-  for (int i = threadIdx.x; i < kBwdTile; i += kBwdThreads) {
+  for (int i = threadIdx.x; i < TILE; i += kBwdThreads) {
     const bool ok = row0 + i < rows;
     cp_async4(dst + i, src + (ok ? row0 + i : 0), ok);
   }
 }
 
 // dQ: one block per (bh, kBwdRows query rows), streaming key tiles.
-template <int D>
-__global__ void __launch_bounds__(kBwdThreads)
-    bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const bf16* __restrict__ bias,
-                      const bf16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, bf16* __restrict__ dq,
-                      float* __restrict__ dbias, int n, int m, int q_tiles,
-                      int bias_groups, int causal, float scale) {
-  constexpr int LD = D + 8, TILE = kBwdTile * LD, NB = kDqChunk / 8;
+#define MV2_DQ_PARAMS                                                      \
+  const bf16 *__restrict__ q, const bf16 *__restrict__ k,                 \
+      const bf16 *__restrict__ v, const bf16 *__restrict__ bias,          \
+      const bf16 *__restrict__ dout, const float *__restrict__ lse,       \
+      const float *__restrict__ delta, bf16 *__restrict__ dq,             \
+      float *__restrict__ dbias, int n, int m, int dh, int q_tiles,       \
+      int bias_groups, int causal, float scale
+#define MV2_DQ_ARGS                                                       \
+  q, k, v, bias, dout, lse, delta, dq, dbias, n, m, dh, q_tiles,          \
+      bias_groups, causal, scale
+
+template <int D, bool EXACT>
+__device__ __forceinline__ void bwd_dq_mma(MV2_DQ_PARAMS) {
+  typedef DqGeo<D> G;
+  const int d = EXACT ? D : dh;
+  constexpr int LD = D + 8, TILE = G::tile * LD, NB = G::chunk / 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // a stage: K tile, V tile
+  bf16* q_tile = ring + G::stages * 2 * TILE;      // with G::a_smem
+  bf16* do_tile = q_tile + kBwdRows * LD;
 
   const int bh = blockIdx.x / q_tiles;
   const int q0 = (blockIdx.x % q_tiles) * kBwdRows;
-  const int lane = threadIdx.x % 32, tq = lane & 3;
-  const int ra = q0 + 16 * (threadIdx.x / 32) + (lane >> 2), rb = ra + 8;
+  const int lane = threadIdx.x % 32, tq = lane & 3, warp = threadIdx.x / 32;
+  const int ra = q0 + 16 * warp + (lane >> 2), rb = ra + 8;
   const int offset = m - n;
-  const bf16* kb = k + (size_t)bh * m * D;
-  const bf16* vb = v + (size_t)bh * m * D;
+  const bf16* qb = q + (size_t)bh * n * d;
+  const bf16* dob = dout + (size_t)bh * n * d;
+  const bf16* kb = k + (size_t)bh * m * d;
+  const bf16* vb = v + (size_t)bh * m * d;
   const bf16* bb = bias ? bias + (size_t)(bh % bias_groups) * n * m : nullptr;
   float* dbb = dbias ? dbias + (size_t)bh * n * m : nullptr;
 
   // key tiles 0 .. tiles - 1: with causal, up to the last one the block's
   // last row sees (dq_key_tiles)
-  const int k_end =
-      causal ? min(m, min(q0 + kBwdRows, n) - 1 + offset + 1) : m;
-  const int tiles = (k_end + kBwdTile - 1) / kBwdTile;
+  const int k_end = causal ? min(m, min(q0 + kBwdRows, n) + offset) : m;
+  const int tiles = (max(k_end, 0) + G::tile - 1) / G::tile;
   auto load = [&](int t) {
-    bf16* st = ring + (t % kBwdStages) * 2 * TILE;
-    async_tile<D, kBwdTile, kBwdThreads>(st, kb, t * kBwdTile, m);
-    async_tile<D, kBwdTile, kBwdThreads>(st + TILE, vb, t * kBwdTile, m);
+    bf16* st = ring + (t % G::stages) * 2 * TILE;
+    async_tile<D, G::tile, kBwdThreads>(st, kb, t * G::tile, m, d);
+    async_tile<D, G::tile, kBwdThreads>(st + TILE, vb, t * G::tile, m, d);
   };
+  if constexpr (G::a_smem) {  // join the first group
+    async_tile<D, kBwdRows, kBwdThreads>(q_tile, qb, q0, n, d);
+    async_tile<D, kBwdRows, kBwdThreads>(do_tile, dob, q0, n, d);
+  }
 #pragma unroll
-  for (int t = 0; t < kBwdStages - 1; ++t) {
+  for (int t = 0; t < G::stages - 1; ++t) {
     if (t < tiles) load(t);
     cp_async_commit();
   }
 
-  unsigned qa[D / 16][4], da[D / 16][4];
-  load_a<D>(qa, q + (size_t)bh * n * D, ra, n);
-  load_a<D>(da, dout + (size_t)bh * n * D, ra, n);
+  Rows16<D, G::a_smem> qa, da;
+  if constexpr (G::a_smem) {
+    qa.tile = q_tile + 16 * warp * LD;
+    da.tile = do_tile + 16 * warp * LD;
+  } else {
+    load_a<D>(qa.a, qb, ra, n, d);
+    load_a<D>(da.a, dob, ra, n, d);
+  }
   const float* lse_rows = lse + (size_t)bh * n;
   const float* delta_rows = delta + (size_t)bh * n;
   const float lse_a = ra < n ? lse_rows[ra] * kLog2e : 0.f;
@@ -861,23 +1166,18 @@ __global__ void __launch_bounds__(kBwdThreads)
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 
   for (int t = 0; t < tiles; ++t) {
-    cp_async_wait<kBwdStages - 2>();
+    cp_async_wait<G::stages - 2>();
     __syncthreads();  // tile t is in; tile t - 1's stage is free
-    if (t + kBwdStages - 1 < tiles) load(t + kBwdStages - 1);
+    if (t + G::stages - 1 < tiles) load(t + G::stages - 1);
     cp_async_commit();
-    const bf16* Ks = ring + (t % kBwdStages) * 2 * TILE;
+    const bf16* Ks = ring + (t % G::stages) * 2 * TILE;
     const bf16* Vs = Ks + TILE;
-    const int k0 = t * kBwdTile;
-    const bool masked =
-        tile_masked(q0, kBwdRows, k0, kBwdTile, n, m, causal);
+    const int k0 = t * G::tile;
+    const bool masked = tile_masked(q0, kBwdRows, k0, G::tile, n, m, causal);
 #pragma unroll 1
-    for (int c0 = 0; c0 < kBwdTile; c0 += kDqChunk) {
+    for (int c0 = 0; c0 < G::tile; c0 += G::chunk) {
       float s[NB][4], dp[NB][4];
-#pragma unroll
-      for (int j = 0; j < NB; ++j) {
-        mma_rows<D>(s[j], qa, Ks, c0 + 8 * j);
-        mma_rows<D>(dp[j], da, Vs, c0 + 8 * j);
-      }
+      mma_chunk_pair<D, NB>(s, qa, Ks, dp, da, Vs, c0);
       // s becomes dS: C element e of block j is (row e < 2 ? ra : rb,
       // key k0 + c0 + 8j + 2tq + e % 2)
 #pragma unroll
@@ -905,9 +1205,10 @@ __global__ void __launch_bounds__(kBwdThreads)
       }
     }
   }
-  store_rows<D>(dq + (size_t)bh * n * D, acc, ra, n, scale);
+  cp_async_wait<0>();  // no copy outlives the block (tiles may be 0)
+  store_rows<D>(dq + (size_t)bh * n * d, acc, ra, n, scale, d);
   // dS of the key tiles the causal skip passed over is 0
-  const int skipped = m - tiles * kBwdTile;
+  const int skipped = m - tiles * G::tile;
   if (dbb && skipped > 0)
     for (int idx = threadIdx.x; idx < kBwdRows * skipped; idx += kBwdThreads) {
       const int row = q0 + idx / skipped;
@@ -915,85 +1216,67 @@ __global__ void __launch_bounds__(kBwdThreads)
     }
 }
 
-// dK, dV: one block per (bh, kBwdRows key rows), streaming query tiles
-// (q, dO, lse, delta); the products transposed so the rows stay keys.
 template <int D>
 __global__ void __launch_bounds__(kBwdThreads)
-    bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
-                       const bf16* __restrict__ bias,
-                       const bf16* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta, bf16* __restrict__ dk,
-                       bf16* __restrict__ dv, int n, int m, int k_tiles,
-                       int bias_groups, int causal, float scale) {
-  constexpr int LD = D + 8, TILE = kBwdTile * LD, NB = kDkvChunk / 8;
-  // a stage: Q tile, dO tile (bf16), lse, delta (floats)
-  constexpr int STAGE = 2 * TILE * (int)sizeof(bf16) + 2 * kBwdTile * 4;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
+    bwd_dq_mma_kernel(MV2_DQ_PARAMS) {
+  bwd_dq_mma<D, true>(MV2_DQ_ARGS);
+}
 
-  const int bh = blockIdx.x / k_tiles;
-  const int k0 = (blockIdx.x % k_tiles) * kBwdRows;
-  const int lane = threadIdx.x % 32, tq = lane & 3;
-  const int kr = k0 + 16 * (threadIdx.x / 32) + (lane >> 2);
-  const int offset = m - n;
-  const bf16* qb = q + (size_t)bh * n * D;
-  const bf16* dob = dout + (size_t)bh * n * D;
-  const float* lse_rows = lse + (size_t)bh * n;
-  const float* delta_rows = delta + (size_t)bh * n;
-  const bf16* bb = bias ? bias + (size_t)(bh % bias_groups) * n * m : nullptr;
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, DqGeo<D>::min_blocks)
+    bwd_dq_mma_padded_kernel(MV2_DQ_PARAMS) {
+  bwd_dq_mma<D, false>(MV2_DQ_ARGS);
+}
 
-  // query tiles first .. tiles - 1: with causal, from the first whose last
-  // row sees the block's first key (dkv_query_tiles)
-  const int first = causal ? max(0, k0 - offset) / kBwdTile : 0;
-  const int tiles = (n + kBwdTile - 1) / kBwdTile;
+// One sweep of a dK/dV block over the query tiles first .. tiles - 1,
+// streamed through the ring (q, dO, lse, delta): with DK, dS^T Q into dk;
+// with DV, P^T dO into dv. Ends with the ring drained and the block
+// synchronised, so that another sweep may refill it.
+template <int D, bool DK, bool DV, typename A>
+__device__ __forceinline__ void dkv_sweep(
+    float (&dk)[D / 8][4], float (&dv)[D / 8][4], const A& ka, const A& va,
+    unsigned char* ring, const bf16* qb, const bf16* dob,
+    const float* lse_rows, const float* delta_rows, const bf16* bb, int k0,
+    int kr, int n, int m, int d, int first, int causal, float scale_log2) {
+  typedef DkvGeo<D> G;
+  constexpr int TILE = G::tile * (D + 8), NB = G::chunk / 8;
+  const int tq = threadIdx.x % 4, offset = m - n;
+  const int tiles = (n + G::tile - 1) / G::tile;
   auto stage = [&](int t) {
-    return smem_raw + ((t - first) % kBwdStages) * STAGE;
+    return ring + ((t - first) % G::stages) * G::stage;
   };
   auto load = [&](int t) {
     bf16* st = reinterpret_cast<bf16*>(stage(t));
     float* rows = reinterpret_cast<float*>(st + 2 * TILE);
-    async_tile<D, kBwdTile, kBwdThreads>(st, qb, t * kBwdTile, n);
-    async_tile<D, kBwdTile, kBwdThreads>(st + TILE, dob, t * kBwdTile, n);
-    async_rows(rows, lse_rows, t * kBwdTile, n);
-    async_rows(rows + kBwdTile, delta_rows, t * kBwdTile, n);
+    async_tile<D, G::tile, kBwdThreads>(st, qb, t * G::tile, n, d);
+    async_tile<D, G::tile, kBwdThreads>(st + TILE, dob, t * G::tile, n, d);
+    async_rows<G::tile>(rows, lse_rows, t * G::tile, n);
+    async_rows<G::tile>(rows + G::tile, delta_rows, t * G::tile, n);
   };
 #pragma unroll
-  for (int t = 0; t < kBwdStages - 1; ++t) {
+  for (int t = 0; t < G::stages - 1; ++t) {
     if (first + t < tiles) load(first + t);
     cp_async_commit();
   }
 
-  unsigned ka[D / 16][4], va[D / 16][4];
-  load_a<D>(ka, k + (size_t)bh * m * D, kr, m);
-  load_a<D>(va, v + (size_t)bh * m * D, kr, m);
-  const float scale_log2 = scale * kLog2e;
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
-
   for (int t = first; t < tiles; ++t) {
-    cp_async_wait<kBwdStages - 2>();
+    cp_async_wait<G::stages - 2>();
     __syncthreads();  // tile t is in; tile t - 1's stage is free
-    if (t + kBwdStages - 1 < tiles) load(t + kBwdStages - 1);
+    if (t + G::stages - 1 < tiles) load(t + G::stages - 1);
     cp_async_commit();
     const bf16* Qs = reinterpret_cast<const bf16*>(stage(t));
     const bf16* dOs = Qs + TILE;
     const float* lse_s = reinterpret_cast<const float*>(Qs + 2 * TILE);
-    const float* delta_s = lse_s + kBwdTile;
-    const int q0 = t * kBwdTile;
-    const bool masked =
-        tile_masked(q0, kBwdTile, k0, kBwdRows, n, m, causal);
+    const float* delta_s = lse_s + G::tile;
+    const int q0 = t * G::tile;
+    const bool masked = tile_masked(q0, G::tile, k0, kBwdRows, n, m, causal);
 #pragma unroll 1
-    for (int c0 = 0; c0 < kBwdTile; c0 += kDkvChunk) {
+    for (int c0 = 0; c0 < G::tile; c0 += G::chunk) {
       float s[NB][4], dp[NB][4];
-#pragma unroll
-      for (int j = 0; j < NB; ++j) {
-        mma_rows<D>(s[j], ka, Qs, c0 + 8 * j);
-        mma_rows<D>(dp[j], va, dOs, c0 + 8 * j);
-      }
+      if constexpr (DK)
+        mma_chunk_pair<D, NB>(s, ka, Qs, dp, va, dOs, c0);
+      else
+        mma_chunk<D, NB>(s, ka, Qs, c0);
       // s becomes P^T and dp dS^T: C element e of block j is (key e < 2 ?
       // kr : kr + 8, query q0 + c), c = c0 + 8j + 2tq + e % 2
 #pragma unroll
@@ -1010,20 +1293,139 @@ __global__ void __launch_bounds__(kBwdThreads)
             x = -INFINITY;
           const float p = exp2_approx(x);
           s[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - delta_s[c]);
+          if constexpr (DK) dp[j][e] = p * (dp[j][e] - delta_s[c]);
         }
 #pragma unroll
       for (int kk = 0; kk < NB / 2; ++kk) {
         unsigned a[4];
-        c_to_a(a, s[2 * kk], s[2 * kk + 1]);
-        mma_acc_trans<D>(dv_acc, a, dOs, c0 + 16 * kk);
-        c_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
-        mma_acc_trans<D>(dk_acc, a, Qs, c0 + 16 * kk);
+        if constexpr (DV) {
+          c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+          mma_acc_trans<D>(dv, a, dOs, c0 + 16 * kk);
+        }
+        if constexpr (DK) {
+          c_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+          mma_acc_trans<D>(dk, a, Qs, c0 + 16 * kk);
+        }
       }
     }
   }
-  store_rows<D>(dk + (size_t)bh * m * D, dk_acc, kr, m, scale);
-  store_rows<D>(dv + (size_t)bh * m * D, dv_acc, kr, m, 1.f);
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// dK, dV: one block per (bh, kBwdRows key rows), streaming query tiles
+// (q, dO, lse, delta); the products transposed so the rows stay keys. The
+// rows that see no key (causal, m < n) add the sum of their dO, over m, to
+// every dV row.
+#define MV2_DKV_PARAMS                                                     \
+  const bf16 *__restrict__ q, const bf16 *__restrict__ k,                 \
+      const bf16 *__restrict__ v, const bf16 *__restrict__ bias,          \
+      const bf16 *__restrict__ dout, const float *__restrict__ lse,       \
+      const float *__restrict__ delta, bf16 *__restrict__ dk,             \
+      bf16 *__restrict__ dv, int n, int m, int dh, int k_tiles,           \
+      int bias_groups, int causal, float scale
+#define MV2_DKV_ARGS                                                      \
+  q, k, v, bias, dout, lse, delta, dk, dv, n, m, dh, k_tiles, bias_groups, \
+      causal, scale
+
+template <int D, bool EXACT>
+__device__ __forceinline__ void bwd_dkv_mma(MV2_DKV_PARAMS) {
+  typedef DkvGeo<D> G;
+  const int d = EXACT ? D : dh;
+  constexpr int LD = D + 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* k_tile = reinterpret_cast<bf16*>(smem_raw + G::ring);  // G::a_smem
+  bf16* v_tile = k_tile + kBwdRows * LD;
+  float* dosum =
+      reinterpret_cast<float*>(smem_raw + G::ring + G::a_tiles);
+
+  const int bh = blockIdx.x / k_tiles;
+  const int k0 = (blockIdx.x % k_tiles) * kBwdRows;
+  const int lane = threadIdx.x % 32, tq = lane & 3, warp = threadIdx.x / 32;
+  const int kr = k0 + 16 * warp + (lane >> 2);
+  const int offset = m - n;
+  const int blind = causal ? n - m : 0;  // rows < blind see no key
+  const bf16* qb = q + (size_t)bh * n * d;
+  const bf16* dob = dout + (size_t)bh * n * d;
+  const bf16* kb = k + (size_t)bh * m * d;
+  const bf16* vb = v + (size_t)bh * m * d;
+  const float* lse_rows = lse + (size_t)bh * n;
+  const float* delta_rows = delta + (size_t)bh * n;
+  const bf16* bb = bias ? bias + (size_t)(bh % bias_groups) * n * m : nullptr;
+
+  // query tiles first .. tiles - 1: with causal, from the first whose last
+  // row sees the block's first key (dkv_query_tiles)
+  const int first = causal ? max(0, k0 - offset) / G::tile : 0;
+  Rows16<D, G::a_smem> ka, va;
+  if constexpr (G::a_smem) {  // joins the first sweep's first group
+    async_tile<D, kBwdRows, kBwdThreads>(k_tile, kb, k0, m, d);
+    async_tile<D, kBwdRows, kBwdThreads>(v_tile, vb, k0, m, d);
+    ka.tile = k_tile + 16 * warp * LD;
+    va.tile = v_tile + 16 * warp * LD;
+  } else {
+    load_a<D>(ka.a, kb, kr, m, d);
+    load_a<D>(va.a, vb, kr, m, d);
+  }
+  if (blind > 0) column_sum<D, kBwdThreads>(dosum, dosum + D, dob, blind, d);
+  const float scale_log2 = scale * kLog2e;
+  const float inv_m = 1.f / m;
+  // dV of the rows that see no key: their dO summed, over m
+  auto add_blind = [&](float (&acc)[D / 8][4]) {
+    if (blind <= 0) return;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[i][e] += dosum[8 * i + 2 * tq + (e & 1)] * inv_m;
+  };
+  auto zero = [](float (&acc)[D / 8][4]) {
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  };
+  unsigned char* ring = smem_raw;
+  if constexpr (G::sweeps == 1) {
+    float dk_acc[D / 8][4], dv_acc[D / 8][4];
+    zero(dk_acc);
+    zero(dv_acc);
+    dkv_sweep<D, true, true>(dk_acc, dv_acc, ka, va, ring, qb, dob, lse_rows,
+                             delta_rows, bb, k0, kr, n, m, d, first, causal,
+                             scale_log2);
+    add_blind(dv_acc);
+    store_rows<D>(dk + (size_t)bh * m * d, dk_acc, kr, m, scale, d);
+    store_rows<D>(dv + (size_t)bh * m * d, dv_acc, kr, m, 1.f, d);
+  } else {
+    {
+      float acc[D / 8][4];
+      zero(acc);
+      dkv_sweep<D, false, true>(acc, acc, ka, va, ring, qb, dob, lse_rows,
+                                delta_rows, bb, k0, kr, n, m, d, first,
+                                causal, scale_log2);
+      add_blind(acc);
+      store_rows<D>(dv + (size_t)bh * m * d, acc, kr, m, 1.f, d);
+    }
+    {
+      float acc[D / 8][4];
+      zero(acc);
+      dkv_sweep<D, true, false>(acc, acc, ka, va, ring, qb, dob, lse_rows,
+                                delta_rows, bb, k0, kr, n, m, d, first,
+                                causal, scale_log2);
+      store_rows<D>(dk + (size_t)bh * m * d, acc, kr, m, scale, d);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads)
+    bwd_dkv_mma_kernel(MV2_DKV_PARAMS) {
+  bwd_dkv_mma<D, true>(MV2_DKV_ARGS);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, DkvGeo<D>::min_blocks)
+    bwd_dkv_mma_padded_kernel(MV2_DKV_PARAMS) {
+  bwd_dkv_mma<D, false>(MV2_DKV_ARGS);
 }
 
 inline int tiles_of(int rows, int tile) { return (rows + tile - 1) / tile; }
@@ -1043,16 +1445,18 @@ inline bool grid_fits(int bh, int tiles) {
 template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const void* bias, void* out, float* lse, int bh, int n,
-                       int m, int groups, int causal, float scale,
+                       int m, int d, int groups, int causal, float scale,
                        cudaStream_t stream) {
-  const int tiles = tiles_of(n, kTile);
+  typedef Cfg<D> C;
+  const int tiles = tiles_of(n, C::tile);
   if (!grid_fits(bh, tiles)) return cudaErrorInvalidValue;
   const size_t bytes = smem_bytes<D>(3, 1, 0);
+  static_assert(smem_bytes<D>(3, 1, 0) <= kSmemMax, "f32 forward");
   cudaError_t err = allow_smem(fwd_kernel<D>, bytes);
   if (err != cudaSuccess) return err;
-  fwd_kernel<D><<<(unsigned)(bh * tiles), kThreads, bytes, stream>>>(
+  fwd_kernel<D><<<(unsigned)(bh * tiles), C::threads, bytes, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)bias,
-      (float*)out, lse, n, m, tiles, groups, causal, scale);
+      (float*)out, lse, n, m, d, tiles, groups, causal, scale);
   MV2_CHECK_LAUNCH();
   return cudaSuccess;
 }
@@ -1061,17 +1465,19 @@ template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* bias, const void* dout, const float* lse,
                       const float* delta, void* dq, float* dbias, int bh,
-                      int n, int m, int groups, int causal, float scale,
-                      cudaStream_t stream) {
-  const int tiles = tiles_of(n, kTile);
+                      int n, int m, int d, int groups, int causal,
+                      float scale, cudaStream_t stream) {
+  typedef Cfg<D> C;
+  const int tiles = tiles_of(n, C::tile);
   if (!grid_fits(bh, tiles)) return cudaErrorInvalidValue;
   const size_t bytes = smem_bytes<D>(4, 1, 2);
+  static_assert(smem_bytes<D>(4, 1, 2) <= kSmemMax, "f32 dQ");
   cudaError_t err = allow_smem(bwd_dq_kernel<D>, bytes);
   if (err != cudaSuccess) return err;
-  bwd_dq_kernel<D><<<(unsigned)(bh * tiles), kThreads, bytes, stream>>>(
+  bwd_dq_kernel<D><<<(unsigned)(bh * tiles), C::threads, bytes, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)bias,
-      (const float*)dout, lse, delta, (float*)dq, dbias, n, m, tiles, groups,
-      causal, scale);
+      (const float*)dout, lse, delta, (float*)dq, dbias, n, m, d, tiles,
+      groups, causal, scale);
   MV2_CHECK_LAUNCH();
   return cudaSuccess;
 }
@@ -1080,16 +1486,18 @@ template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* bias, const void* dout, const float* lse,
                        const float* delta, void* dk, void* dv, int bh, int n,
-                       int m, int groups, int causal, float scale,
+                       int m, int d, int groups, int causal, float scale,
                        cudaStream_t stream) {
-  const int tiles = tiles_of(m, kTile);
+  typedef Cfg<D> C;
+  const int tiles = tiles_of(m, C::tile);
   if (!grid_fits(bh, tiles)) return cudaErrorInvalidValue;
   const size_t bytes = smem_bytes<D>(4, 2, 2);
+  static_assert(smem_bytes<D>(4, 2, 2) <= kSmemMax, "f32 dK/dV");
   cudaError_t err = allow_smem(bwd_dkv_kernel<D>, bytes);
   if (err != cudaSuccess) return err;
-  bwd_dkv_kernel<D><<<(unsigned)(bh * tiles), kThreads, bytes, stream>>>(
+  bwd_dkv_kernel<D><<<(unsigned)(bh * tiles), C::threads, bytes, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)bias,
-      (const float*)dout, lse, delta, (float*)dk, (float*)dv, n, m, tiles,
+      (const float*)dout, lse, delta, (float*)dk, (float*)dv, n, m, d, tiles,
       groups, causal, scale);
   MV2_CHECK_LAUNCH();
   return cudaSuccess;
@@ -1099,16 +1507,19 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 template <int D>
 cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v,
                            const void* bias, void* out, float* lse, int bh,
-                           int n, int m, int groups, int causal, float scale,
-                           cudaStream_t stream) {
+                           int n, int m, int d, int groups, int causal,
+                           float scale, cudaStream_t stream) {
   const int tiles = tiles_of(n, kFwdBlockRows);
   if (!grid_fits(bh, tiles)) return cudaErrorInvalidValue;
-  const size_t bytes = kFwdStages * 2 * sizeof(bf16) * kFwdTile * (D + 8);
-  cudaError_t err = allow_smem(fwd_mma_kernel<D>, bytes);
+  const size_t bytes = FwdGeo<D>::bytes;
+  auto kernel = fwd_mma_padded_kernel<D>;
+  if constexpr (D <= kExactWidth)
+    if (d == D) kernel = fwd_mma_kernel<D>;
+  cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
-  fwd_mma_kernel<D><<<(unsigned)(bh * tiles), kFwdThreads, bytes, stream>>>(
+  kernel<<<(unsigned)(bh * tiles), kFwdThreads, bytes, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)bias,
-      (bf16*)out, lse, n, m, tiles, groups, causal, scale);
+      (bf16*)out, lse, n, m, d, tiles, groups, causal, scale);
   MV2_CHECK_LAUNCH();
   return cudaSuccess;
 }
@@ -1117,18 +1528,21 @@ template <int D>
 cudaError_t launch_dq_mma(const void* q, const void* k, const void* v,
                           const void* bias, const void* dout,
                           const float* lse, const float* delta, void* dq,
-                          float* dbias, int bh, int n, int m, int groups,
-                          int causal, float scale, cudaStream_t stream) {
+                          float* dbias, int bh, int n, int m, int d,
+                          int groups, int causal, float scale,
+                          cudaStream_t stream) {
   const int tiles = tiles_of(n, kBwdRows);
   if (!grid_fits(bh, tiles)) return cudaErrorInvalidValue;
-  const size_t bytes = kBwdStages * 2 * sizeof(bf16) * kBwdTile * (D + 8);
-  cudaError_t err = allow_smem(bwd_dq_mma_kernel<D>, bytes);
+  const size_t bytes = DqGeo<D>::bytes;
+  auto kernel = bwd_dq_mma_padded_kernel<D>;
+  if constexpr (D <= kExactWidth)
+    if (d == D) kernel = bwd_dq_mma_kernel<D>;
+  cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
-  bwd_dq_mma_kernel<D><<<(unsigned)(bh * tiles), kBwdThreads, bytes,
-                         stream>>>(
+  kernel<<<(unsigned)(bh * tiles), kBwdThreads, bytes, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)bias,
-      (const bf16*)dout, lse, delta, (bf16*)dq, dbias, n, m, tiles, groups,
-      causal, scale);
+      (const bf16*)dout, lse, delta, (bf16*)dq, dbias, n, m, d, tiles,
+      groups, causal, scale);
   MV2_CHECK_LAUNCH();
   return cudaSuccess;
 }
@@ -1137,29 +1551,40 @@ template <int D>
 cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v,
                            const void* bias, const void* dout,
                            const float* lse, const float* delta, void* dk,
-                           void* dv, int bh, int n, int m, int groups,
+                           void* dv, int bh, int n, int m, int d, int groups,
                            int causal, float scale, cudaStream_t stream) {
   const int tiles = tiles_of(m, kBwdRows);
   if (!grid_fits(bh, tiles)) return cudaErrorInvalidValue;
-  const size_t bytes = kBwdStages * (2 * sizeof(bf16) * kBwdTile * (D + 8) +
-                                     2 * sizeof(float) * kBwdTile);
-  cudaError_t err = allow_smem(bwd_dkv_mma_kernel<D>, bytes);
+  const size_t bytes = DkvGeo<D>::bytes;
+  auto kernel = bwd_dkv_mma_padded_kernel<D>;
+  if constexpr (D <= kExactWidth)
+    if (d == D) kernel = bwd_dkv_mma_kernel<D>;
+  cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
-  bwd_dkv_mma_kernel<D><<<(unsigned)(bh * tiles), kBwdThreads, bytes,
-                          stream>>>(
+  kernel<<<(unsigned)(bh * tiles), kBwdThreads, bytes, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)bias,
-      (const bf16*)dout, lse, delta, (bf16*)dk, (bf16*)dv, n, m, tiles,
+      (const bf16*)dout, lse, delta, (bf16*)dk, (bf16*)dv, n, m, d, tiles,
       groups, causal, scale);
   MV2_CHECK_LAUNCH();
   return cudaSuccess;
 }
 
-// the 'mma' kernels by number: 0 dQ, 1 dK/dV, 2 forward
+// the 'mma' kernels by number: 0 dQ, 1 dK/dV, 2 forward, the kernel a head
+// of exactly D runs (above kExactWidth the padded one), and 3 + the number
+// for the padded kernel
 template <int D>
 cudaError_t mma_attributes(cudaFuncAttributes* a, int kernel) {
-  if (kernel == 0) return cudaFuncGetAttributes(a, bwd_dq_mma_kernel<D>);
-  if (kernel == 1) return cudaFuncGetAttributes(a, bwd_dkv_mma_kernel<D>);
-  if (kernel == 2) return cudaFuncGetAttributes(a, fwd_mma_kernel<D>);
+  if constexpr (D <= kExactWidth) {
+    if (kernel == 0) return cudaFuncGetAttributes(a, bwd_dq_mma_kernel<D>);
+    if (kernel == 1) return cudaFuncGetAttributes(a, bwd_dkv_mma_kernel<D>);
+    if (kernel == 2) return cudaFuncGetAttributes(a, fwd_mma_kernel<D>);
+  } else if (kernel < 3) {
+    kernel += 3;
+  }
+  if (kernel == 3) return cudaFuncGetAttributes(a, bwd_dq_mma_padded_kernel<D>);
+  if (kernel == 4)
+    return cudaFuncGetAttributes(a, bwd_dkv_mma_padded_kernel<D>);
+  if (kernel == 5) return cudaFuncGetAttributes(a, fwd_mma_padded_kernel<D>);
   return cudaErrorInvalidValue;
 }
 
@@ -1171,30 +1596,33 @@ inline bool route_fits(int route, int dtype) {
 }  // namespace flash
 }  // namespace mv2
 
-// F32<D>(args) for float32 or MMA<D>(args) for bf16, at the head size given,
-// once route_fits(route, dtype) holds; any other combination is
-// cudaErrorInvalidValue.
+// KERNEL<W>(args) at the padded width W of head size d
+#define MV2_FLASH_WIDTHS(KERNEL, ...)                                  \
+  switch (mv2::flash::head_width(d)) {                                 \
+    case 16: return KERNEL<16>(__VA_ARGS__);                           \
+    case 32: return KERNEL<32>(__VA_ARGS__);                           \
+    case 64: return KERNEL<64>(__VA_ARGS__);                           \
+    case 128: return KERNEL<128>(__VA_ARGS__);                         \
+    default: return KERNEL<256>(__VA_ARGS__);                          \
+  }
+
+// F32<W>(args) for float32 or MMA<W>(args) for bf16, at the padded width of
+// head size d, once route_fits(route, dtype) and head_fits(d) hold; any
+// other call is cudaErrorInvalidValue.
 #define MV2_FLASH_DISPATCH(F32, MMA, ...)                              \
   do {                                                                 \
     if (!mv2::flash::route_fits(route, dtype)) return cudaErrorInvalidValue; \
-    if (dtype == mv2::kFloat32) {                                      \
-      if (d == 16) return F32<16>(__VA_ARGS__);                        \
-      if (d == 32) return F32<32>(__VA_ARGS__);                        \
-      if (d == 64) return F32<64>(__VA_ARGS__);                        \
-    } else {                                                           \
-      if (d == 16) return MMA<16>(__VA_ARGS__);                        \
-      if (d == 32) return MMA<32>(__VA_ARGS__);                        \
-      if (d == 64) return MMA<64>(__VA_ARGS__);                        \
-    }                                                                  \
-    return cudaErrorInvalidValue;                                      \
+    if (!mv2::flash::head_fits(d)) return cudaErrorInvalidValue;       \
+    if (dtype == mv2::kFloat32) MV2_FLASH_WIDTHS(F32, __VA_ARGS__)     \
+    MV2_FLASH_WIDTHS(MMA, __VA_ARGS__)                                 \
   } while (0)
 
 extern "C" {
 
 // q (bh, n, d), k and v (bh, m, d), bias (groups, n, m) or null, all of
 // `dtype`; out (bh, n, d) of `dtype`, lse (bh, n) float32 in natural log.
-// route is the wrapper's (Route) and must fit the dtype: kRouteMma bf16,
-// kRouteF32 float32.
+// d is a multiple of 8 from 8 to 256. route is the wrapper's (Route) and
+// must fit the dtype: kRouteMma bf16, kRouteF32 float32.
 int mv2_flash_attention_fwd(const void* q, const void* k, const void* v,
                             const void* bias, void* out, void* lse, int dtype,
                             int bh, int n, int m, int d, int groups,
@@ -1202,7 +1630,7 @@ int mv2_flash_attention_fwd(const void* q, const void* k, const void* v,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   MV2_FLASH_DISPATCH(mv2::flash::launch_fwd, mv2::flash::launch_fwd_mma, q, k,
-                     v, bias, out, (float*)lse, bh, n, m, groups, causal,
+                     v, bias, out, (float*)lse, bh, n, m, d, groups, causal,
                      scale, s);
 }
 
@@ -1217,7 +1645,7 @@ int mv2_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   MV2_FLASH_DISPATCH(mv2::flash::launch_dq, mv2::flash::launch_dq_mma, q, k,
                      v, bias, dout, (const float*)lse, (const float*)delta,
-                     dq, (float*)dbias, bh, n, m, groups, causal, scale, s);
+                     dq, (float*)dbias, bh, n, m, d, groups, causal, scale, s);
 }
 
 // dk and dv (bh, m, d); route as for the forward.
@@ -1230,20 +1658,25 @@ int mv2_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   MV2_FLASH_DISPATCH(mv2::flash::launch_dkv, mv2::flash::launch_dkv_mma, q,
                      k, v, bias, dout, (const float*)lse, (const float*)delta,
-                     dk, dv, bh, n, m, groups, causal, scale, s);
+                     dk, dv, bh, n, m, d, groups, causal, scale, s);
 }
 
 // What the CUDA runtime reports for the 'mma' kernel `kernel` (0 dQ, 1
-// dK/dV, 2 forward) at head size d, into out (4 ints): registers a thread,
-// local memory a thread (spills), static shared memory, and the dynamic
-// shared memory its launcher last set (allow_smem sets it on every launch).
-int mv2_flash_mma_attributes(int kernel, int d, void* out) {
+// dK/dV, 2 forward; 3, 4, 5 the same kernels' padded instantiations, for
+// d < width) at the padded width `width` (16, 32, 64, 128 or 256),
+// into out (4 ints): registers a thread, local memory a thread (spills),
+// static shared memory, and the dynamic shared memory its launcher last set
+// (allow_smem sets it on every launch).
+int mv2_flash_mma_attributes(int kernel, int width, void* out) {
   cudaFuncAttributes a;
-  const cudaError_t err =
-      d == 16   ? mv2::flash::mma_attributes<16>(&a, kernel)
-      : d == 32 ? mv2::flash::mma_attributes<32>(&a, kernel)
-      : d == 64 ? mv2::flash::mma_attributes<64>(&a, kernel)
-                : cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (width) {
+    case 16: err = mv2::flash::mma_attributes<16>(&a, kernel); break;
+    case 32: err = mv2::flash::mma_attributes<32>(&a, kernel); break;
+    case 64: err = mv2::flash::mma_attributes<64>(&a, kernel); break;
+    case 128: err = mv2::flash::mma_attributes<128>(&a, kernel); break;
+    case 256: err = mv2::flash::mma_attributes<256>(&a, kernel); break;
+  }
   if (err != cudaSuccess) return err;
   int* o = static_cast<int*>(out);
   o[0] = a.numRegs;

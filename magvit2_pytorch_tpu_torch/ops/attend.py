@@ -50,17 +50,11 @@ def causal_hidden(n: int, m: int, device):
 
 
 def _flash_friendly_nm(n: int, m: int, d: int) -> bool:
-    """Where ``'auto'`` picks flash: the JAX package's rule (head size 32 to
-    256, at least 1024 queries and keys) within what the CUDA kernel takes
-    (its head sizes, and no fewer keys than queries: a call it would refuse
-    goes to the plain backend). ``chip_smoke.py`` times flash against plain
-    on both sides of the threshold; PERF.md records what the card says about
-    it."""
-    # imported here: ops/kernels imports this module (attend_with_memory)
-    from magvit2_pytorch_tpu_torch.ops.kernels.flash_attention import (
-        SUPPORTED_DIM_HEAD)
-    return (32 <= d <= 256 and d in SUPPORTED_DIM_HEAD
-            and n >= 1024 and m >= 1024 and m >= n)
+    """Where ``'auto'`` picks flash: the JAX package's rule, head size 32 to
+    256 and at least 1024 queries and keys (the kernels take every such
+    call). ``chip_smoke.py`` times flash against plain on both sides of the
+    threshold; PERF.md records what the card says about it."""
+    return 32 <= d <= 256 and n >= 1024 and m >= 1024
 
 
 def attend(

@@ -14,9 +14,14 @@ decomposition of that file's docstring:
     dQ = scale dS K;  dK = scale dS^T Q;  d_bias = dS
 
 Masking as the TPU kernel does it: keys ``>= m`` and, with ``causal``, keys
-``> row + (m - n)`` score ``-1e30`` (right-aligned: the ``m - n`` keys in
-front, the memory keys, are visible to every query); ``m >= n``, so every
-row sees key 0 and no row is empty.
+``> row + (m - n)`` score ``-1e30`` (right-aligned: with ``m > n`` the
+``m - n`` keys in front, the memory keys, are visible to every query). Any
+``m >= 1``: with ``causal`` and ``m < n`` the first ``n - m`` rows see no key,
+and each gets what the plain ``attend`` gives such a row (its float32
+minimum at every key, a uniform softmax): out the mean of v over the m keys,
+dq 0, nothing into dk or d_bias, ``dO / m`` into every dv row. The JAX
+flash kernel averages its zero-padded keys in too (ROADMAP item C9); the
+port follows the plain path.
 
 The CUDA version (``csrc/flash_attention.cu``, its header has the design
 and the bound) reads ``(b, h, n, d)`` in place with the ragged last tile
@@ -25,13 +30,17 @@ are not carried over, ``lse`` is ``(b, h, n)`` float32. A bias ``(n, m)``,
 ``(h, n, m)`` or ``(b, h, n, m)`` is read as slice ``bh % groups`` without
 materialising the broadcast; its gradient is written by the dQ kernel as
 ``(b h, n, m)`` float32 and the groups that shared a slice are summed here,
-as the JAX wrapper does outside its kernel. Head sizes 16, 32, 64; float32
-(CUDA cores, no TF32) and bfloat16 (tensor cores). All three kernels take
-the route of :func:`flash_route`: ``'mma'`` for bf16, kernels on
-``mma.sync`` with register accumulators (the forward's online softmax in
-them too), a ``cp.async`` ring and the causal tile skip
-(:func:`dq_key_tiles`, :func:`dkv_query_tiles`, :func:`tile_masked`);
-``'f32'`` for float32, on the CUDA cores.
+as the JAX wrapper does outside its kernel. Head sizes 1 to 256, as the JAX
+kernel takes any head (its block is the whole head): the kernels take a
+multiple of 8 and run it at the next of the padded :data:`WIDTHS`, and
+:func:`flash_attention` pads any other head with zero columns up to the next
+multiple of 8 (on the CPU too). A larger head raises (ROADMAP item B12). float32 (CUDA
+cores, no TF32) and bfloat16 (tensor cores). All three kernels take the
+route of :func:`flash_route`: ``'mma'`` for bf16, kernels on ``mma.sync``
+with register accumulators (the forward's online softmax in them too), a
+``cp.async`` ring and the causal tile skip (:func:`dq_key_tiles`,
+:func:`dkv_query_tiles`, :func:`tile_masked`); ``'f32'`` for float32, on the
+CUDA cores.
 
 :func:`flash_attention` is a ``torch.autograd.Function``: the forward
 launches one kernel and saves ``q, k, v, bias, out, lse``, the backward
@@ -59,19 +68,27 @@ LAUNCHES = {**dict.fromkeys(KERNELS, 0),
             **{f'{kernel}_{route}': 0 for kernel in KERNELS
                for route in ROUTES}}
 
-SUPPORTED_DIM_HEAD = (16, 32, 64)     # csrc/flash_attention.cu template cases
+MAX_DIM_HEAD = 256
+WIDTHS = (16, 32, 64, 128, 256)       # csrc/flash_attention.cu head_width
+EXACT_WIDTH = 64                      # kExactWidth: built apart at d == D
 MASKED = -1e30
+
+
+def check_dim_head(dim_head: int):
+    """Heads of 1 to 256 values; a larger one raises (ROADMAP item B12)."""
+    if not 1 <= dim_head <= MAX_DIM_HEAD:
+        raise ValueError(f'flash attention: head size {dim_head} not in 1 .. '
+                         f'{MAX_DIM_HEAD} (a larger head is ROADMAP item '
+                         'B12)')
 
 
 def flash_route(dtype, dim_head: int) -> str:
     """The kernels of a call, forward and backward: ``'mma'`` (tensor
-    cores) for bf16, ``'f32'`` (CUDA cores) for float32. It does not look at
-    the device; no route gives way to another, and what neither takes
-    raises. The route is passed to the C entry points, which refuse one that
-    does not fit the dtype."""
-    if dim_head not in SUPPORTED_DIM_HEAD:
-        raise ValueError(f'flash attention: dim_head {dim_head} not in '
-                         f'{SUPPORTED_DIM_HEAD}')
+    cores) for bf16, ``'f32'`` (CUDA cores) for float32, at every head size
+    of 1 to 256. It does not look at the device; no route gives way to
+    another, and what neither takes raises. The route is passed to the C
+    entry points, which refuse one that does not fit the dtype."""
+    check_dim_head(dim_head)
     if dtype == torch.bfloat16:
         return 'mma'
     if dtype == torch.float32:
@@ -81,15 +98,16 @@ def flash_route(dtype, dim_head: int) -> str:
 
 
 # The 'mma' kernels' causal skip, as csrc/flash_attention.cu computes it.
-# With causal, query row i sees key j where j <= i + (m - n).
+# With causal, query row i sees key j where j <= i + (m - n): with m < n,
+# rows i < n - m see none.
 
 def dq_key_tiles(q0: int, rows: int, n: int, m: int, causal: bool,
                  tile: int) -> int:
     """The forward or dQ block of query rows ``q0 .. q0 + rows - 1`` visits
     key tiles ``0 .. dq_key_tiles - 1`` of ``tile`` keys: with causal, up to
-    the last one its last row sees."""
+    the last one its last row sees (none, when that row sees no key)."""
     end = min(m, min(q0 + rows, n) + m - n) if causal else m
-    return -(-end // tile)
+    return -(-max(end, 0) // tile)
 
 
 def dkv_query_tiles(k0: int, n: int, m: int, causal: bool, tile: int):
@@ -131,15 +149,33 @@ def _logits(q, k, bias, causal: bool, scale: float):
     return s, visible
 
 
+def no_key_rows(n: int, m: int, causal: bool) -> int:
+    """The leading query rows that see no key: ``n - m`` with causal and
+    fewer keys than queries, else 0."""
+    return max(n - m, 0) if causal else 0
+
+
+def _no_key_uniform(p, n: int, m: int, causal: bool):
+    """P with the rows that see no key at ``1 / m`` on every key: the plain
+    ``attend``'s uniform softmax over m masked scores."""
+    rows = no_key_rows(n, m, causal)
+    if not rows:
+        return p
+    return torch.cat((torch.full_like(p[..., :rows, :], 1.0 / m),
+                      p[..., rows:, :]), dim=-2)
+
+
 def flash_attention_ref(q, k, v, causal: bool = False,
                         scale: Optional[float] = None, bias=None):
     """Plain forward: ``(out, lse)``. q ``(b, h, n, d)``; k, v
     ``(b, h, m, d)``; bias ``(groups, n, m)`` or None. Dense float32 logits,
-    the kernel's masking constant, ``lse`` by ``logsumexp``."""
+    the kernel's masking constant, ``lse`` by ``logsumexp``; a row that sees
+    no key gets the mean of v (and lse ``-1e30``)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
+    n, m = q.shape[-2], k.shape[-2]
     s, _ = _logits(q, k, bias, causal, scale)
     lse = torch.logsumexp(s, dim=-1)
-    p = torch.exp(s - lse[..., None])
+    p = _no_key_uniform(torch.exp(s - lse[..., None]), n, m, causal)
     out = torch.einsum('bhij,bhjd->bhid', p, v.to(p.dtype))
     return out.to(q.dtype), lse
 
@@ -148,7 +184,8 @@ def flash_attention_bwd_ref(q, k, v, bias, out, lse, dout, causal: bool,
                             scale: float):
     """Plain backward on dense matrices, step by step as the kernels do it:
     ``(dq, dk, dv, dbias)`` with ``dbias`` in the bias's ``(groups, n, m)``
-    shape (the groups that shared a slice summed) or None."""
+    shape (the groups that shared a slice summed) or None. A row that sees
+    no key weighs ``1 / m`` in dv and nothing in dS."""
     b, h, n, _ = q.shape
     m = k.shape[-2]
     acc = _acc_dtype(q)
@@ -158,7 +195,8 @@ def flash_attention_bwd_ref(q, k, v, bias, out, lse, dout, causal: bool,
         p = p.masked_fill(~visible, 0.0)
     do = dout.to(acc)
     delta = (do * out.to(acc)).sum(dim=-1)
-    dv = torch.einsum('bhij,bhid->bhjd', p, do)
+    dv = torch.einsum('bhij,bhid->bhjd', _no_key_uniform(p, n, m, causal),
+                      do)
     dp = torch.einsum('bhid,bhjd->bhij', do, v.to(acc))
     ds = p * (dp - delta[..., None])
     dq = torch.einsum('bhij,bhjd->bhid', ds, k.to(acc)) * scale
@@ -211,13 +249,23 @@ def _counted(name: str, route: str):
     LAUNCHES[f'{name}_{route}'] += 1
 
 
+def _kernel_route(name: str, q) -> str:
+    """The route of a kernel launch, whose head must be a multiple of 8
+    (:func:`flash_attention` pads any other)."""
+    route = flash_route(q.dtype, q.shape[-1])
+    if q.shape[-1] % 8:
+        raise ValueError(f'{name}: head size {q.shape[-1]} is not a multiple '
+                         'of 8 (flash_attention pads it)')
+    return route
+
+
 def flash_forward(q, k, v, bias, causal: bool, scale: float):
     """The forward kernel of :func:`flash_route`'s route alone, CUDA tensors
     only: ``(out, lse)`` with ``lse`` ``(b, h, n)`` float32 in natural log;
     bias ``(groups, n, m)`` or None."""
     name = 'flash_attention_fwd'
     _check_cuda(name, q, k, v, bias)
-    route = flash_route(q.dtype, q.shape[-1])
+    route = _kernel_route(name, q)
     q, k, v = _aligned(q), _aligned(k.to(q.dtype)), _aligned(v.to(q.dtype))
     bias = None if bias is None else _aligned(bias.to(q.dtype))
     out = torch.empty_like(q)
@@ -239,7 +287,7 @@ def flash_backward_dq(q, k, v, bias, dout, lse, delta, causal: bool,
     :func:`row_delta`): ``(dq, ds)`` with ``ds`` the ``(b h, n, m)``
     float32 dS or None."""
     name = 'flash_attention_bwd_dq'
-    route = flash_route(q.dtype, q.shape[-1])
+    route = _kernel_route(name, q)
     dq = torch.empty_like(q)
     ds = (torch.empty((q.shape[0] * q.shape[1], q.shape[2], k.shape[2]),
                       dtype=torch.float32, device=q.device)
@@ -261,7 +309,7 @@ def flash_backward_dkv(q, k, v, bias, dout, lse, delta, causal: bool,
     """The dK/dV kernel of :func:`flash_route`'s route alone, on
     prepared CUDA tensors: ``(dk, dv)``."""
     name = 'flash_attention_bwd_dkv'
-    route = flash_route(q.dtype, q.shape[-1])
+    route = _kernel_route(name, q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _build.load_library()
     code = lib.mv2_flash_attention_bwd_dkv(
@@ -278,17 +326,22 @@ def flash_backward_dkv(q, k, v, bias, dout, lse, delta, causal: bool,
 MMA_KERNELS = ('dq', 'dkv', 'fwd')
 
 
-def mma_attributes(kernel: str, dim_head: int) -> dict:
+def mma_attributes(kernel: str, width: int, exact: bool = True) -> dict:
     """What the CUDA runtime reports for the 'mma' kernel ``'fwd'``,
-    ``'dq'`` or ``'dkv'`` at ``dim_head``: registers and local (spilled)
-    bytes a thread, static shared memory, and the dynamic shared memory its
-    launcher last set (the runtime's default limit before its first
-    launch)."""
+    ``'dq'`` or ``'dkv'`` at the padded width ``width`` (one of
+    :data:`WIDTHS`), the kernel a head of exactly ``width`` runs (its own
+    build up to 64, the padded one above) or (``exact=False``) the padded
+    kernel, which takes the head size at run time: registers and
+    local (spilled) bytes a thread, static shared memory, and the dynamic
+    shared memory its launcher last set (the runtime's default limit before
+    its first launch)."""
+    if width not in WIDTHS:
+        raise ValueError(f'flash attention: width {width} not in {WIDTHS}')
     out = (ctypes.c_int * 4)()
     lib = _build.load_library()
-    _build.check(lib, lib.mv2_flash_mma_attributes(
-        MMA_KERNELS.index(kernel), dim_head, out),
-        f'flash attention {kernel} attributes')
+    number = MMA_KERNELS.index(kernel) + (0 if exact else len(MMA_KERNELS))
+    _build.check(lib, lib.mv2_flash_mma_attributes(number, width, out),
+                 f'flash attention {kernel} attributes')
     return dict(zip(('registers', 'local_bytes', 'static_smem_bytes',
                      'dynamic_smem_bytes'), out))
 
@@ -362,10 +415,12 @@ def bias_groups(bias, b: int, h: int, n: int, m: int):
 
 def flash_attention(q, k, v, causal: bool = False,
                     scale: Optional[float] = None, bias=None):
-    """q ``(b, h, n, d)``; k, v ``(b, h, m, d)`` with ``m >= n``; returns
-    ``(b, h, n, d)``. ``bias``: optional additive pre-softmax bias ``(n, m)``,
-    ``(h, n, m)`` or ``(b, h, n, m)``, differentiable. The backward of a
-    biased call on the card holds dS as ``(b h, n, m)`` float32 when the
+    """q ``(b, h, n, d)``; k, v ``(b, h, m, d)``, any ``m >= 1`` and
+    ``1 <= d <= 256``; returns ``(b, h, n, d)``. ``bias``: optional additive
+    pre-softmax bias ``(n, m)``, ``(h, n, m)`` or ``(b, h, n, m)``,
+    differentiable. A head that is no multiple of 8 runs zero-padded to the
+    next one (the scale from the true d) and is sliced back. The backward of
+    a biased call on the card holds dS as ``(b h, n, m)`` float32 when the
     bias needs a gradient."""
     if q.ndim != 4 or k.shape != v.shape or k.shape[:2] != q.shape[:2] \
             or k.shape[-1] != q.shape[-1]:
@@ -373,12 +428,14 @@ def flash_attention(q, k, v, causal: bool = False,
                          f'{tuple(k.shape)}, v {tuple(v.shape)}')
     b, h, n, d = q.shape
     m = k.shape[-2]
-    if d not in SUPPORTED_DIM_HEAD:
-        raise ValueError(f'flash_attention: head size {d} not in '
-                         f'{SUPPORTED_DIM_HEAD}')
-    if m < n:
-        raise ValueError(f'flash_attention: m={m} keys < n={n} queries')
+    check_dim_head(d)
+    if m < 1:
+        raise ValueError('flash_attention: no keys')
     scale = d ** -0.5 if scale is None else scale
     if bias is not None:
         bias = bias_groups(bias, b, h, n, m)
-    return _FlashAttention.apply(q, k, v, bias, bool(causal), float(scale))
+    pad = -d % 8
+    if pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
+    out = _FlashAttention.apply(q, k, v, bias, bool(causal), float(scale))
+    return out[..., :d] if pad else out

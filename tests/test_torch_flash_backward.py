@@ -30,17 +30,18 @@ from magvit2_pytorch_tpu_torch.ops.kernels import (
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize('dim_head', [16, 32, 64])
+@pytest.mark.parametrize('dim_head', [1, 8, 12, 16, 32, 64, 96, 128, 256])
 @pytest.mark.parametrize('dtype,route', [(torch.bfloat16, 'mma'),
                                          (torch.float32, 'f32')])
 def test_flash_bwd_route(dtype, route, dim_head):
-    """One rule by dtype for all three kernels, the forward's included."""
+    """One rule by dtype for all three kernels, the forward's included, at
+    every head size of 1 to 256."""
     assert fa.flash_route(dtype, dim_head) == route
 
 
 @pytest.mark.parametrize('dtype,dim_head,error', [
     (torch.float16, 32, TypeError), (torch.float64, 32, TypeError),
-    (torch.bfloat16, 8, ValueError), (torch.float32, 128, ValueError)])
+    (torch.bfloat16, 264, ValueError), (torch.float32, 512, ValueError)])
 def test_flash_bwd_route_refuses_what_no_kernel_takes(dtype, dim_head, error):
     with pytest.raises(error):
         fa.flash_route(dtype, dim_head)
@@ -50,9 +51,13 @@ def test_flash_bwd_route_refuses_what_no_kernel_takes(dtype, dim_head, error):
 
 # m - n in 0, 4, 70 (memory keys over more than a tile), and at 1, 62, 63,
 # 65, where the first visible row or a tile's diagonal sits one step from a
-# tile edge
+# tile edge; and m - n < 0, fewer keys than queries, where with causal the
+# first n - m rows see no key (a block of such rows visits no tile), at the
+# same distances from a tile edge
 SKIP_CASES = [(n, n + extra) for n in (1, 5, 63, 64, 65, 130)
-              for extra in (0, 1, 4, 62, 63, 65, 70)]
+              for extra in (0, 1, 4, 62, 63, 65, 70, -1, -4, -62, -63, -65,
+                            -70)
+              if n + extra >= 1]
 
 
 @pytest.mark.parametrize('rows,tile', [(64, 64), (128, 64), (64, 128),
@@ -110,8 +115,10 @@ def _rand(shape, seed):
     (1, 2, 70, 150, 32, True),     # memory keys over more than one tile
     (2, 2, 5, 9, 16, True),        # fewer queries than a tile
     (2, 2, 5, 9, 16, False),
-    (1, 2, 70, 74, 64, False),     # the largest head size
+    (1, 2, 70, 74, 64, False),     # the widest head at the 'auto' edge
     (1, 2, 70, 74, 64, True),
+    (1, 2, 70, 74, 256, True),     # the largest head size
+    (1, 2, 150, 70, 32, False),    # fewer keys than queries
 ])
 def test_flash_backward_ref_matches_pallas_at_the_skip_shapes(b, h, n, m, d,
                                                               causal):

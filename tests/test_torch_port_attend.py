@@ -237,15 +237,22 @@ def test_flash_attention_gradients_match_plain_attend(bias_shape):
 
 
 def test_flash_attention_rejects_what_the_kernel_does_not_take():
-    q, k = torch.zeros(1, 1, 4, 8), torch.zeros(1, 1, 6, 8)
-    with pytest.raises(ValueError, match=r'\(16, 32, 64\)'):
+    """A head over 256 (ROADMAP item B12), no keys, and a bias that does not
+    fit raise; heads of 8 and 128 and fewer keys than queries are taken."""
+    q, k = torch.zeros(1, 1, 4, 264), torch.zeros(1, 1, 6, 264)
+    with pytest.raises(ValueError, match='B12'):
         fa.flash_attention(q, k, k)
-    q, k = torch.zeros(1, 1, 4, 16), torch.zeros(1, 1, 3, 16)
+    q, k = torch.zeros(1, 1, 4, 16), torch.zeros(1, 1, 0, 16)
     with pytest.raises(ValueError, match='keys'):
         fa.flash_attention(q, k, k)
     q, k = torch.zeros(1, 2, 4, 16), torch.zeros(1, 2, 6, 16)
     with pytest.raises(ValueError, match='bias'):
         fa.flash_attention(q, k, k, bias=torch.zeros(3, 4, 6))
+    for d, n, m in ((8, 4, 6), (128, 4, 6), (16, 4, 3)):
+        q, k = torch.zeros(1, 1, n, d), torch.ones(1, 1, m, d)
+        out = fa.flash_attention(q, k, k, causal=True)
+        assert out.shape == (1, 1, n, d)
+        assert torch.allclose(out, torch.ones_like(out))
 
 
 # ---- attend's dispatch -----------------------------------------------------
@@ -293,40 +300,51 @@ def test_attend_dispatch_rules(flash_calls):
     with pytest.raises(AssertionError, match='residual attention'):
         pattend.attend(q, k, v, backend='flash',
                        prev_attn=torch.zeros(1, 2, 6, 6))
+    # flash takes a head of 8; one over 256 raises
+    out = pattend.attend(*(t[..., :8] for t in (q, k, v)), backend='flash')
+    assert flash_calls == [(1, 2, 6, 8)] and out.shape == (1, 2, 6, 8)
+    wide = torch.zeros(1, 2, 6, 264)
     with pytest.raises(ValueError, match='head size'):
-        pattend.attend(*(t[..., :8] for t in (q, k, v)), backend='flash')
+        pattend.attend(wide, wide, wide, backend='flash')
 
 
 def test_auto_keeps_calls_the_kernel_refuses_off_flash(monkeypatch):
-    """On the card ``'auto'`` picks flash at n, m >= 1024, but not with fewer
-    keys than queries, which the kernel refuses (the plain backend and the
-    JAX package take such a call). A tensor subclass that says it lies on
-    the card stands in for one, and the spy stands in for the kernel."""
+    """On the card ``'auto'`` picks flash where the JAX package does: n,
+    m >= 1024 at heads of 32 to 256, fewer keys than queries included (the
+    kernels take those calls). The kernel refuses only heads over 256, and
+    'auto' keeps those, and heads under 32, on the plain backend. A tensor
+    subclass that says it lies on the card stands in for one, and the spy
+    stands in for the kernel."""
     class OnCard(torch.Tensor):
         is_cuda = True
 
-    with pytest.raises(ValueError, match='keys < n'):
-        fa.flash_attention(torch.zeros(1, 1, 8, 32), torch.zeros(1, 1, 4, 32),
-                           torch.zeros(1, 1, 4, 32))
+    with pytest.raises(ValueError, match='B12'):
+        fa.flash_attention(*(torch.zeros(1, 1, 8, 264) for _ in range(3)))
 
     calls = []
 
     def spy(q, k, v, **kw):
-        calls.append((q.shape[2], k.shape[2]))
+        calls.append((q.shape[2], k.shape[2], q.shape[3]))
         return torch.zeros_like(q)
 
     monkeypatch.setattr(fa, 'flash_attention', spy)
 
-    def auto(n, m):
-        q = torch.zeros(1, 1, n, 32).as_subclass(OnCard)
-        k = torch.zeros(1, 1, m, 32).as_subclass(OnCard)
+    def auto(n, m, d=32):
+        q = torch.zeros(1, 1, n, d).as_subclass(OnCard)
+        k = torch.zeros(1, 1, m, d).as_subclass(OnCard)
         return pattend.attend(q, k, k, backend='auto')
 
     auto(1024, 1028)
-    assert calls == [(1024, 1028)]
+    assert calls == [(1024, 1028, 32)]
     out = auto(2048, 1024)
-    assert calls == [(1024, 1028)]
+    assert calls[-1] == (2048, 1024, 32)
     assert out.shape == (1, 1, 2048, 32)
+    auto(1024, 1024, 128)
+    auto(1024, 1024, 256)
+    assert calls[-2:] == [(1024, 1024, 128), (1024, 1024, 256)]
+    for n, m, d in ((1024, 1024, 264), (1024, 1024, 16), (1023, 1028, 32)):
+        assert auto(n, m, d).shape == (1, 1, n, d)
+    assert len(calls) == 4
 
 
 def test_default_backend_and_flash_friendly_rule():
@@ -341,8 +359,9 @@ def test_default_backend_and_flash_friendly_rule():
     friendly = pattend._flash_friendly_nm
     assert friendly(1024, 1028, 32) and friendly(4096, 4100, 64)
     assert not friendly(1023, 1028, 32) and not friendly(1024, 1020, 32)
-    assert not friendly(4096, 2048, 32)      # fewer keys than queries
-    assert not friendly(4096, 4100, 16) and not friendly(4096, 4100, 128)
+    assert friendly(4096, 2048, 32)          # fewer keys than queries
+    assert friendly(4096, 4100, 128) and friendly(4096, 4100, 256)
+    assert not friendly(4096, 4100, 16) and not friendly(4096, 4100, 264)
 
 
 # ---- rotary positions ------------------------------------------------------

@@ -1,0 +1,234 @@
+#!/usr/bin/env python3
+"""The flash-attention kernels (B6) at the wide heads, their geometry
+variants, and against another checkout's kernels, on one NVIDIA GPU.
+
+    python3 tools/flash_heads_probe.py [--baseline DIR] [--variants]
+                                       [--out DIR]
+
+1. This tree's three 'mma' kernels alone at the attention step's shape,
+   (17, heads, 4096, d) / 4100 keys bf16 not causal, at d x heads 32 x 8,
+   64 x 4, 128 x 4 and 256 x 2, causal too at 32 and 64: medians of 20
+   CUDA-event timings. With ``--baseline DIR`` (the root of another
+   checkout, e.g. the parent commit unpacked by ``git archive`` into a
+   git-ignored folder) its kernels run at 32 x 8 and 64 x 4 too, each
+   checkout in its own process, in turns baseline, this tree, this tree,
+   baseline.
+2. ``--variants``: copies of this tree's package with other geometries of
+   the wide widths (``VARIANTS``: the shared-memory tiles and blocks an SM
+   of ``FwdGeo``, ``DqGeo``, ``DkvGeo`` in ``csrc/flash_attention.cu``),
+   built together into git-ignored folders under ``_proof/``, each checked
+   against the plain versions at small shapes (bf16, ``chip_smoke``'s
+   ``FLASH_TOL``) and timed at 128 x 4 and 256 x 2 in its own process, in
+   turns, with ptxas's registers and spills.
+
+Prints each reading with the card's name and power limit; ``--out`` also
+writes them to ``flash_heads_probe.txt``. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = 'magvit2_pytorch_tpu_torch/csrc/flash_attention.cu'
+SHAPES = ((8, 32), (4, 64), (4, 128), (2, 256))      # heads, d
+B, N, M = 17, 4096, 4100
+
+
+def struct_sub(text, struct, old, new):
+    """``old`` replaced by ``new`` inside ``struct <struct> { ... };``."""
+    i = text.index(f'struct {struct} {{')
+    j = text.index('};', i)
+    if old not in text[i:j]:
+        sys.exit(f'{old!r} not in {struct}: update VARIANTS')
+    return text[:i] + text[i:j].replace(old, new) + text[j:]
+
+
+# geometry variants of the wide widths against this tree's: (struct, old,
+# new) substitutions in csrc/flash_attention.cu
+VARIANTS = {
+    # one block an SM at d = 256 on the tiles of 64 / 32 rows, and dQ at
+    # d = 128 with Q and dO in registers on 64-key tiles
+    'one_block': (
+        ('FwdGeo', 'tile = D <= 64 ? kFwdTile : D <= 128 ? 64 : 32;',
+         'tile = D <= 64 ? kFwdTile : 64;'),
+        ('FwdGeo', 'min_blocks = D <= 128 ? 1 : 2;', 'min_blocks = 1;'),
+        ('DqGeo', 'tile = D <= 64 ? kBwdTile : D <= 128 ? 32 : 16;',
+         'tile = D <= 128 ? kBwdTile : 32;'),
+        ('DqGeo', 'a_smem = D > 64;', 'a_smem = D > 128;'),
+        ('DqGeo', 'min_blocks = D <= 64 ? 1 : D <= 128 ? 3 : 2;',
+         'min_blocks = 1;'),
+        ('DkvGeo', 'tile = D <= 128 ? kBwdTile : 16;',
+         'tile = D <= 128 ? kBwdTile : 32;'),
+        ('DkvGeo', 'min_blocks = D <= 128 ? 1 : 2;', 'min_blocks = 1;')),
+    # three blocks an SM at d = 128: the forward at 170 registers, dK/dV
+    # in two sweeps on 32-row tiles
+    'three_blocks': (
+        ('FwdGeo', 'min_blocks = D <= 128 ? 1 : 2;',
+         'min_blocks = D <= 64 ? 1 : D <= 128 ? 3 : 2;'),
+        ('DkvGeo', 'tile = D <= 128 ? kBwdTile : 16;',
+         'tile = D <= 64 ? kBwdTile : D <= 128 ? 32 : 16;'),
+        ('DkvGeo', 'sweeps = D <= 128 ? 1 : 2;', 'sweeps = D <= 64 ? 1 : 2;'),
+        ('DkvGeo', 'min_blocks = D <= 128 ? 1 : 2;',
+         'min_blocks = D <= 64 ? 1 : D <= 128 ? 3 : 2;')),
+}
+OUT = []
+
+
+def say(line: str):
+    print(line, flush=True)
+    OUT.append(line)
+
+
+def run(root: str, *args) -> str:
+    """This script's ``--child`` mode in a checkout rooted at ``root``;
+    returns its last line."""
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          '--child', root, *args], capture_output=True,
+                         text=True, timeout=900)
+    if out.returncode:
+        sys.exit(f'{root} {args}: {out.stdout[-2000:]}{out.stderr[-4000:]}')
+    return out.stdout.strip().splitlines()[-1]
+
+
+def child(root: str, shapes, check: bool):
+    """In a process of its own: the checkout's kernels alone (and with
+    ``check`` its errors at small shapes), printed as one JSON line."""
+    sys.path.insert(0, root)
+    sys.path.insert(1, REPO)
+    import torch
+    import chip_smoke as cs
+    from magvit2_pytorch_tpu_torch.ops.kernels import (
+        _build, flash_attention as fa)
+    _build.load_library()
+    dev = torch.device('cuda', 0)
+    res = {}
+    if check:
+        worst = 0.0
+        for b, h, n, m, d, causal, bias in (
+                (2, 2, 130, 134, 96, True, 'hnm'),
+                (2, 2, 130, 134, 128, False, None),
+                (2, 2, 130, 70, 128, True, None),
+                (2, 2, 130, 134, 160, True, None),
+                (2, 2, 130, 134, 256, False, 'bhnm'),
+                (2, 2, 130, 70, 256, True, None)):
+            *qkvo, bb = cs.flash_inputs(torch, dev, torch.bfloat16, b, h, n,
+                                        m, d, bias, 3)
+            errs, peaks, finite, _ = cs.flash_errors(torch, fa, *qkvo, bb,
+                                                     causal)
+            rel = cs.flash_relative(errs, peaks)
+            worst = max(worst, *(v for k, v in rel.items() if k != 'lse'))
+            if not finite or worst > cs.FLASH_TOL['bfloat16']:
+                sys.exit(f'{root}: error {worst} at {(b, h, n, m, d)}')
+        res['worst_rel_err'] = worst
+        res['resources'] = {f'{k}<{w}>': fa.mma_attributes(k, w, False)
+                            for k in fa.MMA_KERNELS for w in (128, 256)}
+    for heads, d in shapes:
+        q, k, v, dout, _ = cs.flash_inputs(torch, dev, torch.bfloat16, B,
+                                           heads, N, M, d, None, 99)
+        scale = d ** -0.5
+        for causal in (False, True) if d <= 64 else (False,):
+            out, lse = fa.flash_forward(q, k, v, None, causal, scale)
+            delta = fa.row_delta(dout, out)
+            res[f'{d}x{heads}{" causal" if causal else ""}'] = [
+                round(cs.median_ms(f, 20), 4) for f in (
+                    lambda: fa.flash_forward(q, k, v, None, causal, scale),
+                    lambda: fa.flash_backward_dq(q, k, v, None, dout, lse,
+                                                 delta, causal, scale),
+                    lambda: fa.flash_backward_dkv(q, k, v, None, dout, lse,
+                                                  delta, causal, scale))]
+        del q, k, v, dout
+        torch.cuda.empty_cache()
+    print(json.dumps(res), flush=True)
+
+
+def ptxas_summary(log: str):
+    """{kernel<width>: 'N regs, spill stores/loads'} of the padded kernels
+    at the wide widths."""
+    out, current = {}, None
+    for line in log.splitlines():
+        hit = re.search(r'Function properties for _ZN3mv25flash\d+(\w+?_mma_'
+                        r'padded_kernel)ILi(\d+)E', line)
+        if hit and int(hit[2]) >= 128:
+            current = f'{hit[1]}<{hit[2]}>'
+        elif current and 'spill' in line:
+            spill = re.findall(r'(\d+) bytes spill', line)
+        elif current and 'Used' in line:
+            regs = re.search(r'Used (\d+)', line)[1]
+            out[current] = f'{regs} regs, spill {"/".join(spill)} B'
+            current = None
+    return out
+
+
+def main():
+    parser = argparse.ArgumentParser()
+    parser.add_argument('--baseline', default=None,
+                        help='root of another checkout whose kernels run '
+                             'at 32 x 8 and 64 x 4 beside this tree\'s')
+    parser.add_argument('--variants', action='store_true',
+                        help='also time VARIANTS at the wide widths')
+    parser.add_argument('--out', default=None)
+    parser.add_argument('--child', default=None, help=argparse.SUPPRESS)
+    parser.add_argument('--shapes', default='all', help=argparse.SUPPRESS)
+    parser.add_argument('--check', action='store_true',
+                        help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    pick = {'all': SHAPES, 'narrow': SHAPES[:2], 'wide': SHAPES[2:]}
+    if args.child:
+        return child(args.child, pick[args.shapes], args.check)
+
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+    smi = cs.nvidia_smi()
+    say(f'[flash heads] this tree: {run(REPO)} ms (forward, dQ, dK/dV) at '
+        f'(17, heads, 4096, d) / 4100 keys bf16, medians of 20, on {smi}')
+    if args.baseline:
+        for who in ('baseline', 'this tree', 'this tree', 'baseline'):
+            root = os.path.abspath(args.baseline if who == 'baseline'
+                                   else REPO)
+            say(f'[flash heads] {who}: {run(root, "--shapes", "narrow")} ms '
+                f'on {smi}')
+    if args.variants:
+        base = open(os.path.join(REPO, SRC)).read()
+        trees, builds = {'this tree': REPO}, {}
+        for name, subs in VARIANTS.items():
+            text = base
+            for sub in subs:
+                text = struct_sub(text, *sub)
+            tree = os.path.join(REPO, '_proof', f'flash_variant_{name}')
+            shutil.rmtree(tree, ignore_errors=True)
+            shutil.copytree(
+                os.path.join(REPO, 'magvit2_pytorch_tpu_torch'),
+                os.path.join(tree, 'magvit2_pytorch_tpu_torch'),
+                ignore=shutil.ignore_patterns('_build', '__pycache__'))
+            with open(os.path.join(tree, SRC), 'w') as f:
+                f.write(text)
+            trees[name] = tree
+            builds[name] = subprocess.Popen(
+                [sys.executable, '-c', 'from magvit2_pytorch_tpu_torch.ops.'
+                 'kernels import _build; _build.load_library(); '
+                 'print(_build.build_info["log"])'], cwd=tree,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, proc in builds.items():
+            log = proc.communicate()[0]
+            if proc.returncode:
+                sys.exit(f'{name}: the build failed\n{log[-4000:]}')
+            say(f'[flash variants] {name} ptxas: {ptxas_summary(log)}')
+        order = list(trees)
+        for name in order + order[::-1]:
+            say(f'[flash variants] {name}: '
+                f'{run(trees[name], "--shapes", "wide", "--check")} on {smi}')
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, 'flash_heads_probe.txt'), 'w') as f:
+            f.write('\n'.join(OUT) + '\n')
+
+
+if __name__ == '__main__':
+    main()
