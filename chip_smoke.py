@@ -40,15 +40,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
    qkv with its TFLOP/s and GB/s; then B3 at N = 1, 144, 1000 and 4096 in
    both dtypes (the float32 route) with its launches counted, a batch of
    two against its second frame alone (exactly 0), and
-   ``TaylorSeriesLinearAttn(dim_head=64)`` (the gate's plain version) on
-   the card against the CPU. B3's wide core (heads of 16 and 32, two
+   ``TaylorSeriesLinearAttn(dim_head=257)`` (the gate's plain version: the
+   cores take every head to 256) on the card against the CPU. B3's wide
+   core (heads of 16 and 32, two
    launches, ``taylor_core_wide_mma`` in bf16; ``taylor_core_f32`` in
    float32) at the conditioned stack's B3 shape (160 frames x 1024 tokens
    x 256, 8 heads): the block in both dtypes against its plain version with
    its launches counted, the core against ``taylor_core_ref`` on the same
    qkv timed beside its bound and the plain version, at d = 32 the no-norm
    route's launches, and at both ``TAYLOR_CASES`` in both dtypes and a
-   batch boundary that must read exactly 0. The projection
+   batch boundary that must read exactly 0. B3's streamed cores (every
+   other head to 256, two launches on scratch, ``taylor_core_wide_mma`` in
+   bf16 and ``taylor_core_wide_f32`` in float32) at ``TAYLOR_HEAD_CASES``
+   (d = 12, 24, 48, 64, 128, 221 at shapes inside the JAX kernel's reach):
+   the block in both dtypes against its plain version, its core counted,
+   a batch boundary at 64; and at ``TAYLOR_D64``, the conditioned stack's
+   B3 shape at 4 heads of 64: the block in both dtypes, and the core
+   against ``taylor_core_ref`` in both dtypes, timed beside its bound and
+   the plain version (``TAYLOR_PLAIN_FRAMES`` frames a call). The
+   projection
    GEMM runs at every main-path shape on both bf16 routes (``wgmma``,
    WMMA) against ``torch.matmul`` in float32 and ``F.linear``, and at
    ragged shapes, with the epilogue's scaled columns where B3 uses them.
@@ -70,6 +80,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    flash-attention kernels (forward, dQ, dK/dV): ragged and small with
    every option ((2, 2, 130, d) / 134 keys, d in 16, 32, 64, causal and
    not, no bias and each bias shape; output, lse and all four gradients),
+   every head of ``FLASH_HEADS`` (the wide launches at 264, 320, 512, 1024
+   also causal with a bias and with 70 keys),
    the ``'auto'`` gate's edge ((2, 8, 1024, 32) / 1028 keys, causal), the
    causal tile skip's edges (memory keys over more than a tile, fewer
    queries than a tile), each case's three kernels counted once each on
@@ -81,10 +93,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    once). Every output and gradient is held relative to the largest value
    of its reference. The three ``'mma'`` kernels: registers, spills (a
    spill fails) and shared memory as the CUDA runtime reports them after
-   the launches, with ptxas's lines; two calls bit-identical and a batch of
-   two against its second element alone exactly 0 (out, lse, dq, dk, dv,
-   dS); a causal timing row beside its bound over the visible pairs, and
-   the forward's exp floor (one ``ex2`` a visible pair at 16 a clock an
+   the launches, at every width and on the wide launches, with ptxas's
+   lines; two calls bit-identical and a batch of two against its second
+   element alone exactly 0 (out, lse, dq, dk, dv, dS; at d = 512 too); a
+   row whose bias is -inf at every key (d = 32 and 512); a causal timing
+   row beside its bound over the visible pairs, and the forward's exp
+   floor (one ``ex2`` a visible pair at 16 a clock an
    SM, at the card's largest SM clock).
 4. default flagship roundtrip, bfloat16, batch 8, seeded random weights,
    through ``VideoTokenizer.tokenize`` then ``decode_from_code_indices``:
@@ -146,7 +160,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``'auto'`` picks on the card at n = 1024 and n = 256, flash against plain
    ``attend`` on both sides of that threshold, a causal ``TimeAttention``
    through flash, and a rotary and a ``dim_head=12`` module (a head the
-   block kernels do not take) against the CPU.
+   block kernels do not take) against the CPU. Then the same step at the
+   wide heads of ``FLASH_WIDTH_STEPS`` (128 x 4, 256 x 2 and 512 x 1, the
+   last on the wide launches), each with 1 / 1 / 1 flash launches and no
+   other kernel, and the three kernels alone at its shape beside their
+   bounds, the plain versions and SDPA forward and backward, with the SDPA
+   backend that ran (``sdpa_backend``).
 8. the JAX package's other configurations (``configs.py``, BASELINE configs
    1, 3 and 4). Config 4, the 256 px image tokenizer with 2^18 LFQ codes,
    at full width, bf16, batch 8 of images through ``tokenize`` and
@@ -190,9 +209,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    fixed; float32 card against CPU at 32 px. The same stack at the
    README's heads, 32 x 8: B3 twice on its no-norm route on the wide core
    (``taylor_core_wide_mma``, the kernels line's count), no norm launch, no
-   B1 or B2; frames/s and float32 card against CPU. B3's no-norm route
-   against its plain version at the flagship shape (the kernels line's B3
-   row, key ``no_norm``).
+   B1 or B2; frames/s and float32 card against CPU. And at the README
+   flagship's 64 x 4: B3 twice a roundtrip on its streamed core (the same
+   counter, the kernels line's ``taylor_core_wide_mma_d64``), no Taylor
+   block on the plain version; frames/s and float32 card against CPU.
+   B3's no-norm route against its plain version at the flagship shape (the
+   kernels line's B3 row, key ``no_norm``).
 10. training. Each block's backward at the flagship shapes, float32 (TF32
    off) and bf16 (B1; B2 on its 'launches' route in float32 and 'fused' in
    bf16; B3 with and without its norm; B4 at (8, 20, 16, 16, 512); B5 on
@@ -345,6 +367,10 @@ KERNELS = {
     # the same at heads of 16 and 32 (two launches: the moments, then the
     # output), on the conditioned stack at the README's 32 x 8 heads
     'taylor_core_wide_mma': (TAYLOR_SOURCE, B3_TPU),
+    # the same counter at heads of 64 (the streamed core: the moments to
+    # scratch, then the output streaming them), on the conditioned stack at
+    # the README flagship's 64 x 4 heads (TAYLOR_ROWS)
+    'taylor_core_wide_mma_d64': (TAYLOR_SOURCE, B3_TPU),
     'residual_unit_wide': (
         RU_SOURCE, 'magvit2_pytorch_tpu/ops/pallas/residual_unit_wide.py:56'),
     'residual_unit_packed': (
@@ -359,11 +385,12 @@ KERNELS = {
         FLASH_SOURCE, 'magvit2_pytorch_tpu/ops/pallas/flash_attention.py:190'),
     'flash_attention_bwd_dkv': (
         FLASH_SOURCE, 'magvit2_pytorch_tpu/ops/pallas/flash_attention.py:249'),
-    # the same kernels at heads of 128 and 256 (FLASH_WIDTH_ROWS)
+    # the same kernels at heads of 128 and 256, and at 512 on their wide
+    # launches (FLASH_WIDTH_ROWS)
     **{f'{kernel}_d{dh}': (FLASH_SOURCE,
                            f'magvit2_pytorch_tpu/ops/pallas/flash_attention.py'
                            f':{line}')
-       for dh in (128, 256) for kernel, line in (
+       for dh in (128, 256, 512) for kernel, line in (
            ('flash_attention_fwd', 51), ('flash_attention_bwd_dq', 190),
            ('flash_attention_bwd_dkv', 249))},
     # the int8 path (phase 11) has no Pallas kernel: these replace XLA's
@@ -386,10 +413,13 @@ FLASH_ROUTES = {f'{kernel}_{route}': route
                 for kernel in FLASH_KERNELS for route in ('mma', 'f32')}
 # the 'mma' kernels: (name in flash_attention.mma_attributes, CUDA kernel);
 # each is also built as '<kernel minus _kernel>_padded_kernel' for heads
-# narrower than a width; the 'f32' route's kernels by ptxas's lines alone
+# narrower than a width, and as '<kernel minus _mma_kernel>_wide_mma_kernel'
+# for every head over 256; the 'f32' route's kernels by ptxas's lines alone
 FLASH_MMA = (('fwd', 'fwd_mma_kernel'), ('dq', 'bwd_dq_mma_kernel'),
              ('dkv', 'bwd_dkv_mma_kernel'))
-FLASH_F32 = ('fwd_kernel', 'bwd_dq_kernel', 'bwd_dkv_kernel')
+FLASH_F32 = ('fwd_kernel', 'bwd_dq_kernel', 'bwd_dkv_kernel',
+             'fwd_wide_f32_kernel', 'bwd_dq_wide_f32_kernel',
+             'bwd_dkv_wide_f32_kernel')
 # what every entry of the kernels line holds
 KERNEL_KEYS = ('name', 'route', 'source', 'replaces', 'launches',
                'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
@@ -405,7 +435,8 @@ BLOCKS = {'space_attention_block': 2, 'time_attention_block': 2,
           'time_attention_block_fused': 2, 'time_attention_block_launches': 0,
           'taylor_attention_block': 2, 'gemm_wgmma': 8, 'gemm_wmma': 0,
           'gemm_f32': 0, 'space_attention_core_mma': 2, 'taylor_core_mma': 2,
-          'taylor_core_f32': 0, 'taylor_core_wide_mma': 0}
+          'taylor_core_f32': 0, 'taylor_core_wide_mma': 0,
+          'taylor_core_wide_f32': 0}
 # each fused unit launches one conv and one 1x1, in bf16 on the wgmma route
 FUSED_RU = {'residual_unit_wide': 20, 'residual_unit_packed': 2,
             'ru_conv_wgmma': 22, 'ru_conv_wmma': 0, 'ru_conv_f32': 0,
@@ -501,11 +532,13 @@ IN_SITU_TOL = {'latents': 5e-2, 'bits_flipped': 1e-2,
 STEP_SHAPE = (1, 17, 64, 64, 512)
 FLASH_FULL = dict(b=17, h=8, n=4096, m=4100, d=32)
 # phase 3's head sizes beside 16, 32 and 64: the padded kernel at every
-# width (12 through the wrapper's zero padding) and the two wide ones
-FLASH_HEADS = (8, 12, 24, 40, 96, 128, 256)
+# width (12 through the wrapper's zero padding), the two wide widths and
+# the wide kernels (FLASH_WIDE: the output in column chunks of 256)
+FLASH_WIDE = (264, 320, 512, 1024)
+FLASH_HEADS = (8, 12, 24, 40, 96, 128, 256, *FLASH_WIDE)
 # the attention step at the wide heads (phase 7): (dim_head, heads) at the
 # flagship's inner width 512, and the kernels-line rows they give
-FLASH_WIDTH_STEPS = ((128, 4), (256, 2))
+FLASH_WIDTH_STEPS = ((128, 4), (256, 2), (512, 1))
 FLASH_WIDTH_ROWS = {f'{kernel}_d{dh}': (kernel, f'attention_step_d{dh}')
                     for dh, _ in FLASH_WIDTH_STEPS for kernel in
                     ('flash_attention_fwd', 'flash_attention_bwd_dq',
@@ -1767,8 +1800,9 @@ def phase_taylor_block(torch, dev, reps, smi):
     worst, boundary = taylor_cases(torch, dev, gen, heads, dh, want_counts,
                                    'taylor block')
 
-    # dim_head = 64: the gate's plain version on the card against the CPU
-    module = attention.TaylorSeriesLinearAttn(c, dim_head=64, heads=4)
+    # dim_head = 257, past the cores' 256: the gate's plain version on the
+    # card against the CPU
+    module = attention.TaylorSeriesLinearAttn(c, dim_head=257, heads=1)
     init_module_parameters(module, torch.Generator().manual_seed(5))
     xs, gs = taylor_inputs(torch, gen, 4, 256)[:2]
     errs = {}
@@ -1777,22 +1811,22 @@ def phase_taylor_block(torch, dev, reps, smi):
         reset_launch_counts()
         card = module.to(dev, dt)(xs.to(dev, dt), gs.to(dev, dt))
         if any(launch_counts().values()):
-            fail(f'TaylorSeriesLinearAttn(dim_head=64) {name} launched '
+            fail(f'TaylorSeriesLinearAttn(dim_head=257) {name} launched '
                  f'{launch_counts()}: the gate sends it to the plain version')
         # the CPU in float32 on the same (rounded) inputs and weights
         cpu = module.to('cpu', torch.float32)(xs.to(dt).float(),
                                               gs.to(dt).float())
         errs[name] = relative_error(card, cpu)
         if not errs[name] <= TOL[name]:
-            fail(f'TaylorSeriesLinearAttn(dim_head=64) {name}: card against '
+            fail(f'TaylorSeriesLinearAttn(dim_head=257) {name}: card against '
                  f'CPU {errs[name]} of the largest value > {TOL[name]}')
-    log(f'[taylor block] TaylorSeriesLinearAttn(256, dim_head=64, heads=4) '
+    log(f'[taylor block] TaylorSeriesLinearAttn(256, dim_head=257, heads=1) '
         f'on (4, 256, 256), card against CPU, no kernel launched: error '
         f'over the largest value {errs} (tol {TOL})')
     return row, dict(split, bounds_ms={k: v[0] for k, v in bounds.items()},
                      plain_ms=plain, library_ms=library,
                      launch_errors=launch_err, batch_boundary=boundary,
-                     cases_worst=worst, dim_head_64=errs)
+                     cases_worst=worst, dim_head_257=errs)
 
 
 # B3's wide core (heads of 16 and 32) at the conditioned stack's B3 shape:
@@ -1938,6 +1972,202 @@ def phase_taylor_wide(torch, dev, reps, smi):
     rows[16].update(cases_worst=cases[16][0], batch_boundary=cases[16][1])
     return dict(rows[32], dim_head_16=rows[16], no_norm_err=no_norm_err,
                 cases_worst=cases[32][0], batch_boundary=cases[32][1])
+
+
+# B3 at the heads of its streamed cores (every head to 256 but 8, 16 and
+# 32): (frames, N, heads, d) inside the JAX kernel's reach ((d + 1) d heads
+# N <= 6291456 in bf16, 128 <= N <= 2048; 221 is its widest head at one
+# head and N = 128; 12 through the wrapper's zero padding), C = 256; and
+# the conditioned stack's B3 shape at the README flagship's 64 x 4 heads
+TAYLOR_HEAD_CASES = ((16, 1024, 8, 12), (16, 1024, 8, 24), (16, 256, 4, 48),
+                     (16, 256, 4, 64), (16, 128, 1, 128), (16, 128, 1, 221))
+TAYLOR_D64 = (BATCH * 20, 1024, 256, 4, 64)      # frames, N, C, heads, d
+TAYLOR_PLAIN_FRAMES = 40    # frames a call of the plain version there
+# the kernels-line row of the streamed core: row -> (its counter, the path
+# whose launches it reports)
+TAYLOR_ROWS = {'taylor_core_wide_mma_d64': ('taylor_core_wide_mma',
+                                            'cond_stack_64x4_default')}
+
+
+def in_frames(torch, fn, x, frames, chunk):
+    """``fn`` over ``chunk`` frames of ``x`` (frames * rows, ...) at a
+    time, concatenated: the plain versions at full width."""
+    rows = x.shape[0] // frames
+    return torch.cat([fn(x[i * rows:(i + chunk) * rows], min(chunk,
+                                                              frames - i))
+                      for i in range(0, frames, chunk)])
+
+
+def taylor_head_counts(dtype_name, d):
+    """The core's launch counts of one block call at head size d, which the
+    cores run at the next multiple of 8: bf16 past 8 and float32 past 8, 16
+    and 32 on the two-launch cores."""
+    k = -(-d // 8) * 8
+    if dtype_name == 'bfloat16':
+        core = 'taylor_core_mma' if k == 8 else 'taylor_core_wide_mma'
+    else:
+        core = ('taylor_core_f32' if k in (8, 16, 32)
+                else 'taylor_core_wide_f32')
+    return {**dict.fromkeys(('taylor_core_mma', 'taylor_core_f32',
+                             'taylor_core_wide_mma', 'taylor_core_wide_f32'),
+                            0), core: 1, 'taylor_attention_block': 1}
+
+
+def phase_taylor_heads(torch, dev, reps, smi):
+    """B3 on its streamed cores: at ``TAYLOR_HEAD_CASES`` the block in both
+    dtypes against its plain version in float32 (relative, phase 3's
+    tolerances) with its core counted, and at 64 x 4 a batch boundary that
+    must read exactly 0; at ``TAYLOR_D64`` the block in both dtypes
+    (counted, timed beside its plain version) and the core alone against
+    ``taylor_core_ref`` on the qkv the block's GEMMs give it, in float32 and
+    in bf16, timed beside its bound (``taylor_core_flops``) and the plain
+    version's time; the plain versions run ``TAYLOR_PLAIN_FRAMES`` frames at
+    a time. Returns the kernels-line row ``taylor_core_wide_mma_d64``, per
+    call of the core's two launches."""
+    from magvit2_pytorch_tpu_torch.ops.kernels import (
+        gemm, launch_counts, reset_launch_counts, taylor_attention as ta)
+    set_tf32(False)
+    gen = torch.Generator().manual_seed(46)
+    c = 256
+    cases = {}
+    for frames, n, heads, d in TAYLOR_HEAD_CASES:
+        inputs = taylor_inputs(torch, gen, frames, n, c, heads, d)
+        errs = {}
+        for name in ('bfloat16', 'float32'):
+            args = [t.to(dev, getattr(torch, name)) for t in inputs]
+            reset_launch_counts()
+            got = ta.taylor_attention(*args, heads, d)
+            what = f'taylor block ({frames}, {n}, {c}) {heads} x {d} {name}'
+            check_launches(what, launch_counts(), taylor_head_counts(name, d))
+            errs[name] = relative_error(got, ta.taylor_attention_ref(
+                *(a.float() for a in args), heads, d))
+            if not bool(torch.isfinite(got).all()):
+                fail(f'{what}: non-finite output')
+            if not errs[name] <= TOL[name]:
+                fail(f'{what}: error {errs[name]} of the largest value > '
+                     f'{TOL[name]}')
+            if d == 64:     # frame 1 alone and in a batch of two
+                errs[f'batch_boundary_{name}'] = (
+                    ta.taylor_attention(args[0][:2], *args[1:], heads, d)[1:]
+                    - ta.taylor_attention(args[0][1:2], *args[1:], heads, d)
+                ).abs().max().item()
+                if errs[f'batch_boundary_{name}'] != 0:
+                    fail(f'{what}: frame 1 differs alone and in a batch of '
+                         f'two by {errs[f"batch_boundary_{name}"]}')
+            del got, args
+        cases[f'{frames}x{n} {heads}x{d}'] = errs
+    log(f'[taylor heads] B3 on its streamed cores at (frames, N, heads, d) '
+        f'in {TAYLOR_HEAD_CASES}, C = {c}: the block against its plain '
+        f'version in float32, error over the largest value {cases} (tol '
+        f'{TOL}), the core counted on its route; at 64 a batch of two '
+        f'against its second frame alone')
+    torch.cuda.empty_cache()
+
+    g, n, c, heads, dh = TAYLOR_D64
+    hd = heads * dh
+    inputs = taylor_inputs(torch, gen, g, n, c, heads, dh)
+    block = {}
+    for name in ('bfloat16', 'float32'):
+        args = [t.to(dev, getattr(torch, name)) for t in inputs]
+        what = f'taylor block ({g}, {n}, {c}) {heads} x {dh} {name}'
+        reset_launch_counts()
+        got = ta.taylor_attention(*args, heads, dh)
+        check_launches(what, launch_counts(), taylor_head_counts(name, dh))
+
+        def plain(x, frames, params=args[1:]):    # x (frames * N, C)
+            return ta.taylor_attention_ref(x.reshape(frames, n, c), *params,
+                                           heads, dh).reshape(-1, c)
+
+        want = in_frames(
+            torch, lambda x, f: plain(x, f, [a.float() for a in args[1:]]),
+            args[0].float().reshape(-1, c), g, TAYLOR_PLAIN_FRAMES)
+        err = relative_error(got.reshape(-1, c), want)
+        del want
+        if not bool(torch.isfinite(got).all()):
+            fail(f'{what}: non-finite output')
+        if not err <= TOL[name]:
+            fail(f'{what}: error {err} of the largest value > {TOL[name]}')
+        del got
+        x2 = args[0].reshape(-1, c)
+        block[name] = dict(
+            max_rel_err=err,
+            ms=median_ms(lambda: ta.taylor_attention(*args, heads, dh),
+                         reps if name == 'bfloat16' else PLAIN_REPS),
+            plain_ms=median_ms(lambda: in_frames(
+                torch, plain, x2, g, TAYLOR_PLAIN_FRAMES), PLAIN_REPS,
+                warmup=1))
+        del args, x2
+        torch.cuda.empty_cache()
+
+    # the core alone, on the qkv the block's GEMMs give it
+    x, gamma, wqkv = (t.to(dev, torch.bfloat16) for t in inputs[:3])
+    qkv = gemm.gemm_nt(gemm.rmsnorm(x.reshape(-1, c), gamma), wqkv,
+                       scaled_cols=hd, col_scale=dh ** -0.5)
+    del x
+
+    def core_ref(q, frames):
+        return ta.taylor_core_ref(q, frames, heads, dh)
+
+    attn = ta.taylor_core(qkv, g, heads, dh)
+    want = in_frames(torch, core_ref, qkv.float(), g, TAYLOR_PLAIN_FRAMES)
+    err = relative_error(attn, want)
+    abs_err = (attn.float() - want).abs().max().item()
+    del want
+    want16 = in_frames(torch, core_ref, qkv, g, TAYLOR_PLAIN_FRAMES)
+    err16 = relative_error(attn, want16)
+    share16 = (attn != want16).float().mean().item()
+    del want16, attn
+    reset_launch_counts()
+    ta.taylor_core(qkv, g, heads, dh)
+    core_counts = {k: v for k, v in launch_counts().items() if v}
+    if core_counts != {'taylor_core_wide_mma': 1}:
+        fail(f'taylor core {heads} x {dh}: launches {core_counts}')
+    ms = median_ms(lambda: ta.taylor_core(qkv, g, heads, dh), reps)
+    plain_ms = median_ms(lambda: in_frames(torch, core_ref, qkv, g,
+                                           TAYLOR_PLAIN_FRAMES), PLAIN_REPS,
+                         warmup=1)
+    q32 = qkv.float()
+    err32 = relative_error(
+        ta.taylor_core(q32, g, heads, dh),
+        in_frames(torch, core_ref, q32, g, TAYLOR_PLAIN_FRAMES))
+    ms32 = median_ms(lambda: ta.taylor_core(q32, g, heads, dh), PLAIN_REPS,
+                     warmup=1)
+    plain32 = median_ms(lambda: in_frames(torch, core_ref, q32, g,
+                                          TAYLOR_PLAIN_FRAMES), PLAIN_REPS,
+                        warmup=1)
+    del q32, qkv
+    torch.cuda.empty_cache()
+    rows_n = g * n
+    flops = taylor_core_flops(rows_n, heads, dh)
+    nbytes = 2 * (rows_n * 3 * hd + rows_n * hd)
+    bound_ms, bound_by = bound(flops, nbytes)
+    row = dict(shape=[g, n, heads, dh], per='call (two launches)',
+               max_rel_err=err, max_abs_err=abs_err,
+               max_rel_err_bf16_plain=err16,
+               differing_share_bf16_plain=share16, ms=ms, plain_ms=plain_ms,
+               plain_call=(f'taylor_core_ref (bf16 casts) on the same qkv, '
+                           f'{TAYLOR_PLAIN_FRAMES} frames at a time'),
+               library_ms=None, library_call=None, bound_ms=bound_ms,
+               bound_by=bound_by, bound_share=bound_ms / ms,
+               tflops=flops / ms / 1e9, ms_fp32=ms32, plain_ms_fp32=plain32,
+               max_rel_err_fp32=err32, block=block, cases=cases)
+    log(f'[taylor heads] the streamed core at ({g}, {n}, {heads} x {dh}) '
+        f'bf16 {ms:.4f} ms ({row["tflops"]:.1f} TFLOP/s of the needed work, '
+        f'{bound_ms / ms:.1%} of the bound {bound_ms:.4f} ms, {bound_by}), '
+        f'plain {plain_ms:.4f} ms ({TAYLOR_PLAIN_FRAMES} frames a call), no '
+        f'library call; against taylor_core_ref in float32 on the same qkv '
+        f'{err:.3e} of the largest value (tol {TOL["bfloat16"]:g}), against '
+        f'the bf16 plain version {err16:.3e}, {share16:.4%} of values '
+        f'differ; float32 core {ms32:.4f} ms, plain {plain32:.4f} ms, error '
+        f'{err32:.3e} (tol {TOL["float32"]:g}); the block ({g}, {n}, {c}) '
+        f'{block} on {smi}')
+    if not err <= TOL['bfloat16']:
+        fail(f'taylor streamed core: error {err} of the largest value > '
+             f'{TOL["bfloat16"]}')
+    if not err32 <= TOL['float32']:
+        fail(f'taylor streamed core float32: error {err32} of the largest '
+             f'value > {TOL["float32"]}')
+    return row
 
 
 def phase_taylor_roundtrip(torch, dev):
@@ -2729,6 +2959,15 @@ def flash_mma_resources(fa):
                 report[f'{cuda_name}<{w}>'] = dict(ptxas=ptxas, **attrs)
                 log(f'[ptxas] {cuda_name}<{w}>: {"; ".join(ptxas)}; on the '
                     f'card {attrs}')
+    for kernel, name in FLASH_MMA:      # the wide kernels: every head > 256
+        cuda_name = name.replace('_mma_kernel', '_wide_mma_kernel')
+        attrs = fa.mma_attributes(kernel, fa.NARROW_MAX + 8)
+        ptxas = ptxas_lines(build_log, cuda_name).get(0, [None])[1:]
+        spills = spill_lines(ptxas)
+        if spills or attrs['local_bytes']:
+            fail(f'{cuda_name} spills: {spills}, {attrs}')
+        report[cuda_name] = dict(ptxas=ptxas, **attrs)
+        log(f'[ptxas] {cuda_name}: {"; ".join(ptxas)}; on the card {attrs}')
     for name in FLASH_F32:
         for w, lines in sorted(ptxas_lines(build_log, name).items()):
             if spill_lines(lines):
@@ -2772,12 +3011,13 @@ def flash_invariants(torch, fa, dev):
     dv and dS, and a batch of two against its second element alone reads
     exactly 0, causal with an (h, n, m) bias, both dtypes: (2, 8, 1024, 32)
     / 1028 keys, (2, 4, 256, 128) / 128 keys (the first 128 rows see no
-    key) and (2, 2, 256, 256) / 260 keys."""
+    key), (2, 2, 256, 256) / 260 keys and the wide kernels' (2, 2, 256, 512)
+    / 200 keys (the first 56 rows see no key)."""
     names = ('out', 'lse', 'dq', 'dk', 'dv', 'dS')
     out = {}
     for (b, h, n, m, d), (name, dtype) in itertools.product(
             ((2, 8, 1024, 1028, 32), (2, 4, 256, 128, 128),
-             (2, 2, 256, 260, 256)),
+             (2, 2, 256, 260, 256), (2, 2, 256, 200, 512)),
             (('float32', torch.float32), ('bfloat16', torch.bfloat16))):
         q, k, v, dout, bias = flash_inputs(torch, dev, dtype, b, h, n, m, d,
                                            'hnm', 77)
@@ -2803,7 +3043,8 @@ def flash_invariants(torch, fa, dev):
                                           batch_boundary=boundary)
     log(f'[kernel] flash forward and backward, causal, (h, n, m) bias, '
         f'(b, h, n, d) / m keys (2, 8, 1024, 32) / 1028, (2, 4, 256, 128) / '
-        f'128, (2, 2, 256, 256) / 260: two calls bit-identical '
+        f'128, (2, 2, 256, 256) / 260, (2, 2, 256, 512) / 200: two calls '
+        f'bit-identical '
         f'({", ".join(names)}) and a batch of two against its second element '
         f'alone {out}')
     return out
@@ -2812,32 +3053,33 @@ def flash_invariants(torch, fa, dev):
 def flash_dead_row(torch, fa, dev):
     """A row whose bias is -inf at every key has no visible finite score:
     on both routes, causal and not, the three kernels must give finite out,
-    lse, dq, dk, dv and dS, and 0 in that row's dq and dS. (2, 2, 130, 32)
-    / 134 keys with an (h, n, m) bias, row 7 of head 0 dead."""
-    b, h, n, m, d, row = 2, 2, 130, 134, 32, 7
+    lse, dq, dk, dv and dS, and 0 in that row's dq and dS. (2, 2, 130, d)
+    / 134 keys with an (h, n, m) bias, row 7 of head 0 dead, d = 32 and
+    512 (the wide kernels)."""
+    b, h, n, m, row = 2, 2, 130, 134, 7
     names = ('out', 'lse', 'dq', 'dk', 'dv', 'dS')
-    for name, dtype in (('float32', torch.float32),
-                        ('bfloat16', torch.bfloat16)):
-        for causal in (False, True):
-            q, k, v, dout, bias = flash_inputs(torch, dev, dtype, b, h, n, m,
-                                               d, 'hnm', 5)
-            bias[0, row] = float('-inf')
-            got = flash_kernels_alone(fa, q, k, v, dout, bias, causal, True)
-            torch.cuda.synchronize()
-            what = (f'flash kernels {name} causal={causal}, a row with a '
-                    f'bias of -inf at every key')
-            bad = [key for key, t in zip(names, got)
-                   if not bool(torch.isfinite(t).all())]
-            if bad:
-                fail(f'{what}: non-finite {bad}')
-            dead = max(got[2][:, 0, row].abs().max().item(),
-                       got[5][0::h, row].abs().max().item())
-            if dead != 0:
-                fail(f'{what}: its dq and dS read {dead}, not 0')
-    log(f'[kernel] flash kernels, ({b}, {h}, {n}, {d}) / {m} keys with row '
-        f'{row} of head 0 biased -inf at every key, float32 and bf16, causal '
-        f'and not: out, lse, dq, dk, dv and dS finite, that row\'s dq and dS '
-        f'exactly 0')
+    for (name, dtype), d, causal in itertools.product(
+            (('float32', torch.float32), ('bfloat16', torch.bfloat16)),
+            (32, 512), (False, True)):
+        q, k, v, dout, bias = flash_inputs(torch, dev, dtype, b, h, n, m,
+                                           d, 'hnm', 5)
+        bias[0, row] = float('-inf')
+        got = flash_kernels_alone(fa, q, k, v, dout, bias, causal, True)
+        torch.cuda.synchronize()
+        what = (f'flash kernels {name} d={d} causal={causal}, a row '
+                f'with a bias of -inf at every key')
+        bad = [key for key, t in zip(names, got)
+               if not bool(torch.isfinite(t).all())]
+        if bad:
+            fail(f'{what}: non-finite {bad}')
+        dead = max(got[2][:, 0, row].abs().max().item(),
+                   got[5][0::h, row].abs().max().item())
+        if dead != 0:
+            fail(f'{what}: its dq and dS read {dead}, not 0')
+    log(f'[kernel] flash kernels, ({b}, {h}, {n}, d) / {m} keys, d in 32, '
+        f'512, with row {row} of head 0 biased -inf at every key, float32 '
+        f'and bf16, causal and not: out, lse, dq, dk, dv and dS finite, that '
+        f'row\'s dq and dS exactly 0')
 
 
 def phase_flash_kernels(torch, dev, reps, smi):
@@ -2854,9 +3096,13 @@ def phase_flash_kernels(torch, dev, reps, smi):
              for d in (16, 32, 64) for causal in (False, True)
              for bias in (None, 'nm', 'hnm', 'bhnm')]
     # every padded width (d = 8, 12 through the wrapper's zero padding, 24,
-    # 96) and the wide ones (128, 256), no bias
+    # 96), the wide ones (128, 256) and the wide kernels, no bias
     cases += [(2, 2, 130, 134, d, causal, None)
               for d in FLASH_HEADS for causal in (False, True)]
+    # the wide kernels causal with a bias, and with fewer keys than queries
+    cases += [(2, 2, 130, 134, d, True, 'hnm') for d in FLASH_WIDE]
+    cases += [(2, 2, 130, 70, d, causal, None)
+              for d in FLASH_WIDE for causal in (False, True)]
     # fewer keys than queries: with causal the first 60 rows see no key
     cases += [(2, 2, 130, 70, d, causal, None)
               for d in (32, 128) for causal in (False, True)]
@@ -2888,7 +3134,9 @@ def phase_flash_kernels(torch, dev, reps, smi):
             f'm), (h, n, m), (b, h, n, m) biases; the same without a bias '
             f'at d in {FLASH_HEADS}; (2, 2, 130, d) / 70 keys (fewer keys '
             f'than queries), d in 32, 128, causal and not, and at d = 128 '
-            f'causal with each bias; the (2, 8, 1024, 32) / 1028 causal '
+            f'causal with each bias; the wide kernels at d in {FLASH_WIDE} '
+            f'causal with an (h, n, m) bias and at 70 keys, causal and not; '
+            f'the (2, 8, 1024, 32) / 1028 causal '
             f'case; (1, 2, 70, d) / 150 keys causal, d in 16, 64, 128, 256; '
             f'(2, 2, 5, 16) / 9 keys with an (h, n, m) bias, causal and '
             f'not; {name}, each kernel on the '
@@ -3227,13 +3475,38 @@ def phase_attention_step(torch, dev, reps, smi):
             f'{errs} (tol {STEP_TOL["float32"]:g})')
     return counts
 
+def sdpa_backend(torch, q, k, v):
+    """The backend ``F.scaled_dot_product_attention`` runs a call on: the
+    first of its priority order (``torch._C._get_sdp_priority_order``) that
+    takes the call alone, and which of them take it."""
+    import warnings
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    names = {int(getattr(SDPBackend, n)): n for n in dir(SDPBackend)
+             if n.isupper() and n not in ('ERROR', 'OVERRIDEABLE')}
+    takes = {}
+    for code in torch._C._get_sdp_priority_order():
+        if code not in names:
+            continue
+        try:     # a backend that refuses the call says why in a warning
+            with sdpa_kernel([getattr(SDPBackend, names[code])]), \
+                    torch.no_grad(), warnings.catch_warnings():
+                warnings.simplefilter('ignore', UserWarning)
+                F.scaled_dot_product_attention(q[:1], k[:1], v[:1])
+            takes[names[code]] = True
+        except RuntimeError:     # "No available kernel": the backend refuses
+            takes[names[code]] = False
+    return next((n for n, ok in takes.items() if ok), None), takes
+
+
 def flash_width_rows(torch, fa, dev, reps, smi, dh, heads):
     """The three kernels alone at the attention step's shape at a wide
     head, (17, heads, 4096, dh) / 4100 keys bf16 not causal: the wrapper's
     outputs and gradients against the plain versions in float32 (4 frames
     at a time), each kernel's time beside its bound (the forward's also
     beside its exp floor), the plain versions' and SDPA's forward and
-    backward. Returns the kernels-line rows ``<kernel>_d<dh>``."""
+    backward, and the SDPA backend that ran (``sdpa_backend``). Returns
+    the kernels-line rows ``<kernel>_d<dh>``."""
     import torch.nn.functional as F
     b, n, m = FLASH_FULL['b'], FLASH_FULL['n'], FLASH_FULL['m']
     scale = dh ** -0.5
@@ -3266,6 +3539,7 @@ def flash_width_rows(torch, fa, dev, reps, smi, dh, heads):
     sdpa_bwd = median_ms(lambda: torch.autograd.grad(
         o, (qg, kg, vg), dout, retain_graph=True), reps)
     del qg, kg, vg, o
+    backend, takes = sdpa_backend(torch, q, k, v)
     floor = exp_floor_ms(torch, visible_pairs(b * heads, n, m, False))
     rows = {}
     for name in FLASH_KERNELS:
@@ -3275,6 +3549,9 @@ def flash_width_rows(torch, fa, dev, reps, smi, dh, heads):
         bound_ms, bound_by = bound(*flash_cost(b * heads, n, m, dh, False,
                                                name))
         short = name.split('_')[-1]
+        cuda_kernel = (f'{dict(FLASH_MMA)[short]}<{dh}>'
+                       if dh <= fa.NARROW_MAX else
+                       dict(FLASH_MMA)[short].replace('_mma', '_wide_mma'))
         runs = ms[name]
         row = dict(
             shape=[b, heads, n, dh], keys=m, per='launch',
@@ -3288,7 +3565,8 @@ def flash_width_rows(torch, fa, dev, reps, smi, dh, heads):
             library_ms=sdpa_fwd if fwd else sdpa_bwd,
             library_call='F.scaled_dot_product_attention' + (
                 '' if fwd else ' backward, which forms dq, dk and dv '
-                'together'),
+                'together') + f' ({backend} backend)',
+            sdpa_backends=takes,
             bound_ms=bound_ms, bound_by=bound_by,
             exp_floor_ms=floor if fwd else None,
             kernel_route=fa.flash_route(torch.bfloat16, dh),
@@ -3302,7 +3580,7 @@ def flash_width_rows(torch, fa, dev, reps, smi, dh, heads):
             f'library {row["library_ms"]:.4f} ms ({row["library_call"]}); '
             f'error over the largest value {row["max_rel_err"]:.3e} (tol '
             f'{FLASH_TOL["bfloat16"]:g}), max_abs_err {row["max_abs_err"]:.3e}'
-            f'; {dict(FLASH_MMA)[short]}<{dh}> {row["resources"]} on {smi}')
+            f'; {cuda_kernel} {row["resources"]} on {smi}')
     return rows
 
 
@@ -3890,7 +4168,8 @@ COND_LAYERS = (
     'compress_time', ('consecutive_residual', 2), 'compress_time',
     'cond_residual', 'cond_residual', 'cond_attend_time', 'gateloop_time')
 COND_HEADS = {'8x16': dict(attn_dim_head=8, attn_heads=16),
-              '32x8': dict(attn_dim_head=32, attn_heads=8)}
+              '32x8': dict(attn_dim_head=32, attn_heads=8),
+              '64x4': dict(attn_dim_head=64, attn_heads=4)}
 # per roundtrip: B3 twice on its no-norm route (two GEMMs each; the core at
 # 8 x 16 taylor_core_mma, at 32 x 8 the wide core), no norm launch, no B1
 # or B2 (the conditioned norm sends both to the general path). B4 on the
@@ -3904,6 +4183,9 @@ COND_BLOCKS = {'8x16': {**NO_BLOCKS, 'taylor_attention_block': 2,
                         'taylor_attention_block_no_norm': 2,
                         'taylor_core_wide_mma': 2, 'gemm_wgmma': 4,
                         'rmsnorm': 0}}
+# at the README flagship's 64 x 4 heads B3 runs on its streamed core, the
+# same counter
+COND_BLOCKS['64x4'] = COND_BLOCKS['32x8']
 COND_FUSED_RU = {**FUSED_RU, 'residual_unit_wide': 16, 'ru_conv_wgmma': 18,
                  'ru_pointwise_wgmma': 18}
 COND_LAUNCHES = {heads: {'default': {**blocks, **NO_RU, **NO_FLASH},
@@ -4191,7 +4473,8 @@ def phase_cond_stack(torch, dev, smi, profile_dir):
                       generator=torch.Generator().manual_seed(13))
     cond1 = torch.randn(1, COND_DIM, generator=torch.Generator().manual_seed(14))
     for heads, paths in (('8x16', (('default', {}), ('fused', FUSED_ENV))),
-                         ('32x8', (('default', {}),))):
+                         ('32x8', (('default', {}),)),
+                         ('64x4', (('default', {}),))):
         small = cond_stack_kwargs(heads, image_size=32)
         out[heads]['card_vs_cpu'], counts = card_against_cpu(
             torch, dev, f'cond stack {heads}',
@@ -4313,8 +4596,9 @@ def phase_rest_of_serving(torch, dev, smi, profile_dir, reps):
     torch.cuda.empty_cache()
     out['cond_stack'] = phase_cond_stack(torch, dev, smi, profile_dir)
     no_norm = phase_taylor_no_norm(torch, dev, reps)
-    c5, cs, cs32 = (out['config5'], out['cond_stack']['8x16'],
-                    out['cond_stack']['32x8'])
+    c5, cs, cs32, cs64 = (out['config5'], out['cond_stack']['8x16'],
+                          out['cond_stack']['32x8'],
+                          out['cond_stack']['64x4'])
     paths = {'readme_stream': out['readme_stream']['launches'],
              'cond_stack_stream': cs['stream']['launches']}
     for path in ('default', 'fused'):
@@ -4322,6 +4606,7 @@ def phase_rest_of_serving(torch, dev, smi, profile_dir, reps):
         paths[f'config5_{path}_stream'] = c5[path]['stream_launches']
         paths[f'cond_stack_{path}'] = cs[path]['launches']
         paths[f'cond_stack_32x8_{path}'] = cs32[path]['launches']
+        paths[f'cond_stack_64x4_{path}'] = cs64[path]['launches']
     log(f'[rest of serving] on {smi}: config 5 bf16 frames/s whole-clip '
         f'default {c5["default"]["whole_fps"]:.2f}, fused '
         f'{c5["fused"]["whole_fps"]:.2f}; streamed default '
@@ -4331,7 +4616,9 @@ def phase_rest_of_serving(torch, dev, smi, profile_dir, reps):
         f'cond stack (default / fused) {cs["default"]["fps"]:.2f} / '
         f'{cs["fused"]["fps"]:.2f} frames/s at heads 8 x 16 (B3), '
         f'{cs32["default"]["fps"]:.2f} / {cs32["fused"]["fps"]:.2f} at the '
-        f"README's 32 x 8 (B3's wide core)")
+        f"README's 32 x 8 (B3's wide core), {cs64['default']['fps']:.2f} / "
+        f"{cs64['fused']['fps']:.2f} at the flagship's 64 x 4 (B3's streamed "
+        f'core)')
     return out, paths, no_norm
 
 
@@ -6278,6 +6565,9 @@ def main():
         kernel_rows['taylor_core_wide_mma'] = phase_taylor_wide(
             torch, dev, REPS, smi)
         torch.cuda.empty_cache()
+        kernel_rows['taylor_core_wide_mma_d64'] = phase_taylor_heads(
+            torch, dev, REPS, smi)
+        torch.cuda.empty_cache()
         for name, rows in phase_config4_kernels(torch, dev, REPS).items():
             kernel_rows[name]['config4_shapes'] = rows
     torch.cuda.empty_cache()
@@ -6336,7 +6626,7 @@ def main():
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         # the kernel's counter, on the path that runs it (LAUNCH_PATH)
-        counter, path = {**HEAD_ROWS, **FLASH_WIDTH_ROWS}.get(
+        counter, path = {**HEAD_ROWS, **FLASH_WIDTH_ROWS, **TAYLOR_ROWS}.get(
             name, (name, LAUNCH_PATH.get(name, 'fused')))
         kernels.append({
             **kernel_rows[name], 'name': name, 'route': 'cuda',

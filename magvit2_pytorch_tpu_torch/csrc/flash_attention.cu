@@ -18,8 +18,9 @@
 // {1, h, b h}; program bh reads slice bh % groups, so a broadcast bias is
 // never materialised.
 //
-// Head sizes: d a multiple of 8 from 8 to 256 (the wrapper pads any other d
-// up to one with zero columns). Each kernel is built at the padded widths
+// Head sizes: any multiple of 8 (the wrapper pads any other d up to one with
+// zero columns), as the JAX kernel takes any head. Up to 256 each kernel is
+// built at the padded widths
 // D = 16, 32, 64, 128 and 256 (head_width): the 'f32' kernels and the
 // 'mma' route's padded kernels (*_padded_kernel: d < D, and every d at the
 // widths above 64) take the true d at run time: the columns past d are
@@ -28,7 +29,9 @@
 // not stored. A head of d = 96 thus does the products of 128 (4/3 of the
 // work), d = 160 those of 256 (8/5). The 'mma' kernels at d == D <= 64 are
 // built apart with d a constant, so the widths 16, 32 and 64 compile as
-// before the run-time d.
+// before the run-time d. A head over 256 takes the wide kernels (see "heads
+// over 256" below): its output in column chunks of 256, one a block, its
+// scores summed over column slices.
 //
 // Two routes, one per dtype: ops/kernels/flash_attention.py flash_route
 // picks it for all three kernels and passes it in, and the entry points
@@ -711,29 +714,39 @@ __device__ __forceinline__ void c_to_a(unsigned (&a)[4], const float (&c0)[4],
   a[3] = pack_bf16(c1[2], c1[3]);
 }
 
-// rows ra and ra + 8 of a (rows, d) output from C fragments, times mul; the
-// columns past d are not stored
+// rows ra and ra + 8 of an output with rows of ld values from C fragments,
+// times mul; the columns past d are not stored
 template <int D>
 __device__ __forceinline__ void store_rows(bf16* dst,
                                            const float (&acc)[D / 8][4],
-                                           int ra, int rows, float mul,
-                                           int d) {
+                                           int ra, int rows, float mul, int d,
+                                           int ld) {
   const int tq = threadIdx.x % 4;
 #pragma unroll
   for (int db = 0; db < D / 8; ++db) {
     const int col = 8 * db + 2 * tq;
     if (col >= d) continue;
     if (ra < rows)
-      *reinterpret_cast<unsigned*>(dst + (size_t)ra * d + col) =
+      *reinterpret_cast<unsigned*>(dst + (size_t)ra * ld + col) =
           pack_bf16(acc[db][0] * mul, acc[db][1] * mul);
     if (ra + 8 < rows)
-      *reinterpret_cast<unsigned*>(dst + (size_t)(ra + 8) * d + col) =
+      *reinterpret_cast<unsigned*>(dst + (size_t)(ra + 8) * ld + col) =
           pack_bf16(acc[db][2] * mul, acc[db][3] * mul);
   }
 }
 
-// out[c] = the sum over rows 0 .. rows - 1 of column c of src (rows, d) in
-// float32, for c < D (0 past d), by THREADS threads in a fixed order: thread
+// the same for a (rows, d) output
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* dst,
+                                           const float (&acc)[D / 8][4],
+                                           int ra, int rows, float mul,
+                                           int d) {
+  store_rows<D>(dst, acc, ra, rows, mul, d, d);
+}
+
+// out[c] = the sum over rows 0 .. rows - 1 of column c of src (rows of ld
+// values) in float32, for c < D (0 past d), by THREADS threads in a fixed
+// order: thread
 // t sums column pair t % (D / 2) over every R-th row from t / (D / 2),
 // R = THREADS / (D / 2), into part; then the R partial sums of a column are
 // added in order. out (D floats) and part (2 THREADS floats) are in shared
@@ -741,7 +754,8 @@ __device__ __forceinline__ void store_rows(bf16* dst,
 // read it: the forward for the mean of v, dK/dV for the sum of their dO.
 template <int D, int THREADS>
 __device__ __forceinline__ void column_sum(float* out, float* part,
-                                           const bf16* src, int rows, int d) {
+                                           const bf16* src, int rows, int d,
+                                           int ld) {
   constexpr int P = D / 2, R = THREADS / P;
   static_assert(THREADS % P == 0, "a whole number of rows a pass");
   const int t = threadIdx.x, pair = t % P, phase = t / P;
@@ -750,7 +764,7 @@ __device__ __forceinline__ void column_sum(float* out, float* part,
 #pragma unroll 4
     for (int r = phase; r < rows; r += R) {
       const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(
-          src + (size_t)r * d + 2 * pair);
+          src + (size_t)r * ld + 2 * pair);
       s0 += __low2float(x);
       s1 += __high2float(x);
     }
@@ -764,6 +778,12 @@ __device__ __forceinline__ void column_sum(float* out, float* part,
     out[c] = s;
   }
   __syncthreads();
+}
+
+template <int D, int THREADS>
+__device__ __forceinline__ void column_sum(float* out, float* part,
+                                           const bf16* src, int rows, int d) {
+  column_sum<D, THREADS>(out, part, src, rows, d, d);
 }
 
 template <int D, int THREADS>
@@ -1428,6 +1448,677 @@ __global__ void __launch_bounds__(kBwdThreads, DkvGeo<D>::min_blocks)
   bwd_dkv_mma<D, false>(MV2_DKV_ARGS);
 }
 
+// ---- heads over 256: the wide kernels, both routes -------------------------
+//
+// A head over 256 values does not fit a block's output accumulator (64 rows
+// x 512 floats is 128 KB at d = 512), so its output columns are cut into
+// chunks of kWideOut: a block owns one chunk (grid y) of its rows' output,
+// O in the forward, dQ in dQ, dV or dK in dK/dV (grid z: 0 dV, 1 dK, one
+// accumulator a block, both in one launch). It forms the whole scores
+// S = Q K^T, and in the backward dP = dO V^T, by summing the products of
+// column slices of kWideCols over the head, streamed with the rows they
+// multiply, and then multiplies P (or dS) by its chunk of the streamed
+// tile: V, K, dO or Q. Every chunk's block sums the same slices in the same
+// order, so S, lse and dS are bit-equal across chunks; the blocks of chunk 0
+// alone write lse and dS. The score products are done once per chunk: at
+// d = 512 (two chunks) the forward does 1.5x the products of the narrow
+// kernels' decomposition, dQ 5/3 and dK/dV 2x. Masking, the bias, the
+// causal skip, the rows that see no key and the routes are the narrow
+// kernels'.
+constexpr int kNarrowMax = 256;  // the widest head of the kernels above
+constexpr int kWideOut = 256;    // output columns a block owns
+enum WideMode { kWideFwd = 0, kWideDq = 1, kWideDv = 2, kWideDk = 3 };
+
+// what every wide kernel takes; out_a is out, dq or dv, out_b dk
+struct WideArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* bias;
+  const void* dout;
+  const float* lse;
+  const float* delta;
+  void* out_a;
+  void* out_b;
+  float* lse_out;
+  float* dbias;
+  int n, m, d, own_tiles, groups, causal;
+  float scale;
+};
+
+__host__ __device__ constexpr int wide_chunks(int d) {
+  return (d + kWideOut - 1) / kWideOut;
+}
+
+// The 'mma' route: kBwdWarps warps own kWideRows rows, 16 a warp, and stream
+// tiles of the other side (32 rows in the forward; 16 in the backward, whose
+// two score accumulators would spill beside its 128 output floats a lane at
+// 32; ptxas's lines in chip_smoke.py); a tile takes its score slices
+// (own rows and streamed rows of kWideCols columns, of Q and K, and of dO
+// and V when the backward needs dP) and then its chunk, each one stage of a
+// cp.async ring. The own rows are re-read per tile, from L2: holding them
+// whole in shared memory (133 KB for Q and dO at d = 512) leaves one block
+// an SM, which ran slower on the card than two blocks re-reading them.
+constexpr int kWideRows = 16 * kBwdWarps;
+constexpr int kWideCols = 64;
+constexpr int kWideStages = 3;
+
+template <bool TWO>
+struct WideGeo {
+  static constexpr int tile = TWO ? 16 : 32;  // streamed rows a tile
+  static constexpr int ld = kWideCols + 8;    // a slice's rows
+  static constexpr int ldy = kWideOut + 8;    // a chunk's rows
+  static constexpr size_t slice =
+      (TWO ? 2 : 1) * sizeof(bf16) * (kWideRows + tile) * ld;
+  static constexpr size_t chunk = sizeof(bf16) * tile * ldy;
+  static constexpr size_t stage =
+      align_up(slice > chunk ? slice : chunk);
+  static constexpr size_t bytes =
+      kWideStages * stage + column_sum_bytes<kWideOut, kBwdThreads>();
+  static_assert(bytes <= kSmemMax, "wide shared memory");
+};
+
+// ROWS rows from row0 of src (rows, d), columns c0 .. c0 + W - 1, into a
+// ring tile with rows of W + 8; zeros past the last row and past d
+template <int W, int ROWS>
+__device__ __forceinline__ void async_cols(bf16* dst, const bf16* src,
+                                           int row0, int rows, int d,
+                                           int c0) {
+  constexpr int V = W / 8;
+  for (int idx = threadIdx.x; idx < ROWS * V; idx += kBwdThreads) {
+    const int r = idx / V, e = (idx % V) * 8;
+    const bool ok = row0 + r < rows && c0 + e < d;
+    cp_async16(dst + r * (W + 8) + e,
+               src + (ok ? (size_t)(row0 + r) * d + c0 + e : 0), ok);
+  }
+}
+
+// s[j] (16 x 8) += A (16 x kWideCols) B^T over one slice: A the warp's 16
+// rows, B rows 8j .. 8j + 7 of the streamed rows
+template <int NB>
+__device__ __forceinline__ void slice_acc(float (&s)[NB][4], const bf16* a,
+                                          const bf16* b) {
+  constexpr int LD = kWideCols + 8;
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int c = 0; c < kWideCols / 16; ++c) {
+    unsigned af[4];
+    ldmatrix_x4(af, a + (lane & 15) * LD + 16 * c + (lane >> 4) * 8);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      unsigned bf[2];
+      ldmatrix_x2(bf, b + (8 * j + (lane & 7)) * LD + 16 * c +
+                          ((lane >> 3) & 1) * 8);
+      mma_16816(s[j], af, bf[0], bf[1]);
+    }
+  }
+}
+
+template <int MODE, bool TWO_GEO>
+__device__ __forceinline__ void wide_mma(const WideArgs& a) {
+  constexpr bool ROWS_Q = MODE == kWideFwd || MODE == kWideDq;  // own: q
+  constexpr bool TWO = MODE == kWideDq || MODE == kWideDk;      // and dP
+  typedef WideGeo<TWO_GEO> G;
+  constexpr int LD = G::ld, T = G::tile, NB = T / 8, R = kWideRows;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* csum = reinterpret_cast<float*>(smem_raw + kWideStages * G::stage);
+
+  const int n = a.n, m = a.m, d = a.d, causal = a.causal;
+  const int own_n = ROWS_Q ? n : m, other_n = ROWS_Q ? m : n;
+  const int bh = blockIdx.x / a.own_tiles, tile = blockIdx.x % a.own_tiles;
+  // the forward takes its heaviest blocks first, as the narrow one does
+  const int own0 =
+      (MODE == kWideFwd ? a.own_tiles - 1 - tile : tile) * R;
+  const int c_out = blockIdx.y * kWideOut;
+  const bool first_chunk = blockIdx.y == 0;
+  const int lane = threadIdx.x % 32, tq = lane & 3, warp = threadIdx.x / 32;
+  const int w0 = own0 + 16 * warp, ra = w0 + (lane >> 2), rb = ra + 8;
+  const int offset = m - n;
+  const size_t qo = (size_t)bh * n * d, ko = (size_t)bh * m * d;
+  const bf16* qb = static_cast<const bf16*>(a.q) + qo;
+  const bf16* kb = static_cast<const bf16*>(a.k) + ko;
+  const bf16* vb = static_cast<const bf16*>(a.v) + ko;
+  const bf16* dob = a.dout ? static_cast<const bf16*>(a.dout) + qo : nullptr;
+  const bf16* bb = a.bias ? static_cast<const bf16*>(a.bias) +
+                                (size_t)(bh % a.groups) * n * m
+                          : nullptr;
+  const bf16* a1 = ROWS_Q ? qb : kb;
+  const bf16* b1 = ROWS_Q ? kb : qb;
+  const bf16* a2 = ROWS_Q ? dob : vb;
+  const bf16* b2 = ROWS_Q ? vb : dob;
+  const bf16* y = MODE == kWideFwd  ? vb
+                  : MODE == kWideDq ? kb
+                  : MODE == kWideDv ? dob
+                                    : qb;
+  // the streamed tiles, as the narrow kernels' causal skip visits them
+  int first = 0, last;
+  if constexpr (ROWS_Q) {
+    const int end = causal ? min(m, min(own0 + R, n) + offset) : m;
+    last = (max(end, 0) + T - 1) / T;
+  } else {
+    first = causal ? max(0, own0 - offset) / T : 0;
+    last = (n + T - 1) / T;
+  }
+  const int slices = (d + kWideCols - 1) / kWideCols;
+  const int steps = slices + 1;  // a tile: its slices, then its chunk
+  const int total = max(last - first, 0) * steps;
+  auto stage = [&](int i) {
+    return reinterpret_cast<bf16*>(smem_raw + (i % kWideStages) * G::stage);
+  };
+  // a stage's slices: A1 (own rows), B1, A2, B2 (streamed rows)
+  const int ob1 = R * LD, oa2 = (R + T) * LD, ob2 = (2 * R + T) * LD;
+  auto load = [&](int i) {
+    bf16* st = stage(i);
+    const int o0 = (first + i / steps) * T, j = i % steps;
+    if (j < slices) {
+      const int c0 = j * kWideCols;
+      async_cols<kWideCols, R>(st, a1, own0, own_n, d, c0);
+      async_cols<kWideCols, T>(st + ob1, b1, o0, other_n, d, c0);
+      if constexpr (TWO) {
+        async_cols<kWideCols, R>(st + oa2, a2, own0, own_n, d, c0);
+        async_cols<kWideCols, T>(st + ob2, b2, o0, other_n, d, c0);
+      }
+    } else {
+      async_cols<kWideOut, T>(st, y, o0, other_n, d, c_out);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kWideStages - 1; ++i) {
+    if (i < total) load(i);
+    cp_async_commit();
+  }
+  // the rows that see no key (causal, m < n): the forward's mean of v, the
+  // sum of their dO into every dV row
+  const int blind = causal ? n - m : 0;
+  if constexpr (MODE == kWideFwd)
+    if (blind > 0 && own0 < blind)
+      column_sum<kWideOut, kBwdThreads>(csum, csum + kWideOut, vb + c_out, m,
+                                        d - c_out, d);
+  if constexpr (MODE == kWideDv)
+    if (blind > 0)
+      column_sum<kWideOut, kBwdThreads>(csum, csum + kWideOut, dob + c_out,
+                                        blind, d - c_out, d);
+
+  const float scale_log2 = a.scale * kLog2e;
+  const float* lse_rows = a.lse ? a.lse + (size_t)bh * n : nullptr;
+  const float* delta_rows = a.delta ? a.delta + (size_t)bh * n : nullptr;
+  float lse_a = 0.f, lse_b = 0.f, del_a = 0.f, del_b = 0.f;
+  if constexpr (MODE == kWideDq) {
+    lse_a = ra < n ? lse_rows[ra] * kLog2e : 0.f;
+    lse_b = rb < n ? lse_rows[rb] * kLog2e : 0.f;
+    del_a = ra < n ? delta_rows[ra] : 0.f;
+    del_b = rb < n ? delta_rows[rb] : 0.f;
+  }
+  float* dbb = a.dbias && first_chunk ? a.dbias + (size_t)bh * n * m
+                                      : nullptr;
+  // the forward: running max (base 2) and the lane's part of the row sums
+  float mx[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const bool pre = bb != nullptr || !(a.scale > 0.f);
+  const float mul = pre ? 1.f : scale_log2;
+
+  float acc[kWideOut / 8][4];
+#pragma unroll
+  for (int i = 0; i < kWideOut / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  float s[NB][4], dp[NB][4];
+
+  for (int i = 0; i < total; ++i) {
+    cp_async_wait<kWideStages - 2>();
+    __syncthreads();  // step i is in; step i - 1's stage is free
+    if (i + kWideStages - 1 < total) load(i + kWideStages - 1);
+    cp_async_commit();
+    const bf16* st = stage(i);
+    const int j = i % steps, o0 = (first + i / steps) * T;
+    if (j == 0)
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[b][e] = dp[b][e] = 0.f;
+    if (j < slices) {
+      slice_acc<NB>(s, st + 16 * warp * LD, st + ob1);
+      if constexpr (TWO)
+        slice_acc<NB>(dp, st + oa2 + 16 * warp * LD, st + ob2);
+      continue;
+    }
+    // the tile's scores are whole; st holds its chunk of y
+    if constexpr (MODE == kWideFwd) {
+      const bool masked = tile_masked(w0, 16, o0, T, n, m, causal);
+      if (pre)
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = ra + 8 * (e >> 1);
+            const int col = o0 + 8 * b + 2 * tq + (e & 1);
+            s[b][e] *= scale_log2;
+            if (bb && row < n && col < m)
+              s[b][e] =
+                  fmaf(to_f32(bb[(size_t)row * m + col]), kLog2e, s[b][e]);
+          }
+      if (masked)
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = ra + 8 * (e >> 1);
+            const int col = o0 + 8 * b + 2 * tq + (e & 1);
+            if (!(row < n && col < m && (!causal || col <= row + offset)))
+              s[b][e] = -INFINITY;
+          }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float cmax = -INFINITY;
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+          cmax = fmaxf(cmax, fmaxf(s[b][2 * h], s[b][2 * h + 1]));
+        const float mnew = fmaxf(mx[h], quad_max(cmax));
+        const float base = mnew == -INFINITY ? 0.f : mnew * mul;
+        const float alpha = exp2_approx(fmaf(mx[h], mul, -base));
+        mx[h] = mnew;
+        float sum = 0.f;
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+#pragma unroll
+          for (int e = 2 * h; e < 2 * h + 2; ++e) {
+            s[b][e] = exp2_approx(fmaf(s[b][e], mul, -base));
+            sum += s[b][e];
+          }
+        l[h] = fmaf(l[h], alpha, sum);
+#pragma unroll
+        for (int c = 0; c < kWideOut / 8; ++c) {
+          acc[c][2 * h] *= alpha;
+          acc[c][2 * h + 1] *= alpha;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < NB / 2; ++kk) {
+        unsigned pa[4];
+        c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+        mma_acc_trans<kWideOut>(acc, pa, st, 16 * kk);
+      }
+    } else if constexpr (MODE == kWideDq) {
+      const bool masked = tile_masked(own0, R, o0, T, n, m, causal);
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = e < 2 ? ra : rb;
+          const int col = o0 + 8 * b + 2 * tq + (e & 1);
+          const bool inside = row < n && col < m;
+          float x = fmaf(s[b][e], scale_log2, -(e < 2 ? lse_a : lse_b));
+          if (bb && inside)
+            x = fmaf(to_f32(bb[(size_t)row * m + col]), kLog2e, x);
+          if (masked && !(inside && (!causal || col <= row + offset)))
+            x = -INFINITY;
+          const float ds =
+              exp2_approx(x) * (dp[b][e] - (e < 2 ? del_a : del_b));
+          s[b][e] = ds;
+          if (dbb && inside) dbb[(size_t)row * m + col] = ds;
+        }
+#pragma unroll
+      for (int kk = 0; kk < NB / 2; ++kk) {
+        unsigned da[4];
+        c_to_a(da, s[2 * kk], s[2 * kk + 1]);
+        mma_acc_trans<kWideOut>(acc, da, st, 16 * kk);
+      }
+    } else {  // dV or dK: the rows are keys, the columns this tile's queries
+      const bool masked = tile_masked(o0, T, own0, R, n, m, causal);
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = e < 2 ? ra : rb;
+          const int row = o0 + 8 * b + 2 * tq + (e & 1);
+          const bool inside = row < n && key < m;
+          const float lse_c = row < n ? lse_rows[row] : 0.f;
+          float x = fmaf(s[b][e], scale_log2, -lse_c * kLog2e);
+          if (bb && inside)
+            x = fmaf(to_f32(bb[(size_t)row * m + key]), kLog2e, x);
+          if (masked && !(inside && (!causal || key <= row + offset)))
+            x = -INFINITY;
+          const float p = exp2_approx(x);
+          s[b][e] = p;
+          if constexpr (MODE == kWideDk)
+            dp[b][e] = p * (dp[b][e] - (row < n ? delta_rows[row] : 0.f));
+        }
+#pragma unroll
+      for (int kk = 0; kk < NB / 2; ++kk) {
+        unsigned pa[4];
+        if constexpr (MODE == kWideDv)
+          c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+        else
+          c_to_a(pa, dp[2 * kk], dp[2 * kk + 1]);
+        mma_acc_trans<kWideOut>(acc, pa, st, 16 * kk);
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block (tiles may be 0)
+
+  const int cols = d - c_out;  // of this chunk, stored up to kWideOut
+  if constexpr (MODE == kWideFwd) {
+    float* lse_out = a.lse_out + (size_t)bh * n;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float sum = fmaxf(quad_sum(l[h]), 1e-30f);
+      const float inv = 1.f / sum;
+#pragma unroll
+      for (int c = 0; c < kWideOut / 8; ++c) {
+        acc[c][2 * h] *= inv;
+        acc[c][2 * h + 1] *= inv;
+      }
+      const int row = ra + 8 * h;
+      if (first_chunk && tq == 0 && row < n)
+        lse_out[row] = mx[h] == -INFINITY
+                           ? kMasked + logf(sum)
+                           : fmaf(mx[h] * mul, kLn2, logf(sum));
+    }
+    if (blind > 0 && own0 < blind) {  // uniform: the rows that see no key
+      const float inv_m = 1.f / m;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = ra + 8 * h;
+        if (row >= blind) continue;
+#pragma unroll
+        for (int c = 0; c < kWideOut / 8; ++c) {
+          acc[c][2 * h] = csum[8 * c + 2 * tq] * inv_m;
+          acc[c][2 * h + 1] = csum[8 * c + 2 * tq + 1] * inv_m;
+        }
+        if (first_chunk && tq == 0) lse_out[row] = kMasked + logf((float)m);
+      }
+    }
+    store_rows<kWideOut>(static_cast<bf16*>(a.out_a) + qo + c_out, acc, ra,
+                         n, 1.f, cols, d);
+  } else if constexpr (MODE == kWideDq) {
+    store_rows<kWideOut>(static_cast<bf16*>(a.out_a) + qo + c_out, acc, ra,
+                         n, a.scale, cols, d);
+    // dS of the key tiles the causal skip passed over is 0
+    const int skipped = m - last * T;
+    if (dbb && skipped > 0)
+      for (int idx = threadIdx.x; idx < R * skipped; idx += kBwdThreads) {
+        const int row = own0 + idx / skipped;
+        if (row < n) dbb[(size_t)row * m + m - skipped + idx % skipped] = 0.f;
+      }
+  } else if constexpr (MODE == kWideDv) {
+    if (blind > 0) {
+      const float inv_m = 1.f / m;
+#pragma unroll
+      for (int c = 0; c < kWideOut / 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[c][e] += csum[8 * c + 2 * tq + (e & 1)] * inv_m;
+    }
+    store_rows<kWideOut>(static_cast<bf16*>(a.out_a) + ko + c_out, acc, ra,
+                         m, 1.f, cols, d);
+  } else {
+    store_rows<kWideOut>(static_cast<bf16*>(a.out_b) + ko + c_out, acc, ra,
+                         m, a.scale, cols, d);
+  }
+}
+
+__global__ void __launch_bounds__(kBwdThreads, 2)
+    fwd_wide_mma_kernel(WideArgs a) {
+  wide_mma<kWideFwd, false>(a);
+}
+
+__global__ void __launch_bounds__(kBwdThreads, 2)
+    bwd_dq_wide_mma_kernel(WideArgs a) {
+  wide_mma<kWideDq, true>(a);
+}
+
+__global__ void __launch_bounds__(kBwdThreads, 2)
+    bwd_dkv_wide_mma_kernel(WideArgs a) {
+  if (blockIdx.z == 0)
+    wide_mma<kWideDv, true>(a);
+  else
+    wide_mma<kWideDk, true>(a);
+}
+
+// The 'f32' route: two warps own 32 rows, 16 a warp, and stream tiles of
+// 32 rows of the other side through shared memory, with the products of
+// warp_mma (no TF32): the scores summed over slices of kWideColsF32
+// columns, P or dS into the chunk's accumulator in shared memory. The
+// narrow 'f32' kernels' softmax, masks and rows that see no key.
+constexpr int kWideColsF32 = 64;
+
+struct WideF32 {
+  static constexpr int tile = 32, threads = 64;
+  static constexpr int ldc = kWideColsF32 + 1;  // a slice
+  static constexpr int lds = tile + 1;          // S, dP, P or dS
+  static constexpr int ldy = kWideOut + 1;      // a chunk, the accumulator
+  static constexpr size_t bytes =
+      4 * align_up(sizeof(float) * tile * ldc) +
+      3 * align_up(sizeof(float) * tile * lds) +
+      2 * align_up(sizeof(float) * tile * ldy) +
+      2 * align_up(sizeof(float) * tile);
+  static_assert(bytes <= kSmemMax, "wide f32 shared memory");
+};
+
+// rows row0 .. row0 + 31 of src (rows, d), columns c0 .. c0 + W - 1, into a
+// shared tile with rows of ld floats; zeros past the last row and past d
+template <int W>
+__device__ __forceinline__ void load_cols(float* dst, int ld, const float* src,
+                                          int row0, int rows, int d, int c0) {
+  for (int idx = threadIdx.x; idx < WideF32::tile * W;
+       idx += WideF32::threads) {
+    const int r = idx / W, e = idx % W;
+    dst[r * ld + e] = row0 + r < rows && c0 + e < d
+                          ? src[(size_t)(row0 + r) * d + c0 + e]
+                          : 0.f;
+  }
+}
+
+__device__ __forceinline__ void load_vec(float* dst, const float* src,
+                                         int row0, int rows) {
+  for (int i = threadIdx.x; i < WideF32::tile; i += WideF32::threads)
+    dst[i] = row0 + i < rows ? src[row0 + i] : 0.f;
+}
+
+template <int MODE>
+__device__ __forceinline__ void wide_f32(const WideArgs& a) {
+  typedef WideF32 C;
+  constexpr bool ROWS_Q = MODE == kWideFwd || MODE == kWideDq;
+  constexpr bool TWO = MODE == kWideDq || MODE == kWideDk;
+  constexpr int T = C::tile, HALF = T / 2, KC = kWideColsF32;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* sp = smem_raw;
+  float* A1 = carve(sp, T * C::ldc);
+  float* B1 = carve(sp, T * C::ldc);
+  float* A2 = carve(sp, T * C::ldc);
+  float* B2 = carve(sp, T * C::ldc);
+  float* Sf = carve(sp, T * C::lds);
+  float* dPf = carve(sp, T * C::lds);
+  float* Pt = carve(sp, T * C::lds);
+  float* Ys = carve(sp, T * C::ldy);
+  float* Acc = carve(sp, T * C::ldy);
+  float* lse_s = carve(sp, T);
+  float* delta_s = carve(sp, T);
+
+  const int n = a.n, m = a.m, d = a.d, causal = a.causal;
+  const int own_n = ROWS_Q ? n : m, other_n = ROWS_Q ? m : n;
+  const int bh = blockIdx.x / a.own_tiles;
+  const int own0 = (blockIdx.x % a.own_tiles) * T;
+  const int c_out = blockIdx.y * kWideOut;
+  const bool first_chunk = blockIdx.y == 0;
+  const int lane = threadIdx.x % 32, r0 = (threadIdx.x / 32) * kRows;
+  const int offset = m - n, blind = causal ? n - m : 0;
+  const size_t qo = (size_t)bh * n * d, ko = (size_t)bh * m * d;
+  const float* qb = static_cast<const float*>(a.q) + qo;
+  const float* kb = static_cast<const float*>(a.k) + ko;
+  const float* vb = static_cast<const float*>(a.v) + ko;
+  const float* dob =
+      a.dout ? static_cast<const float*>(a.dout) + qo : nullptr;
+  const float* bb = a.bias ? static_cast<const float*>(a.bias) +
+                                 (size_t)(bh % a.groups) * n * m
+                           : nullptr;
+  const float* a1 = ROWS_Q ? qb : kb;
+  const float* b1 = ROWS_Q ? kb : qb;
+  const float* a2 = ROWS_Q ? dob : vb;
+  const float* b2 = ROWS_Q ? vb : dob;
+  const float* y = MODE == kWideFwd  ? vb
+                   : MODE == kWideDq ? kb
+                   : MODE == kWideDv ? dob
+                                     : qb;
+  const float* lse_rows = a.lse ? a.lse + (size_t)bh * n : nullptr;
+  const float* delta_rows = a.delta ? a.delta + (size_t)bh * n : nullptr;
+  float* dbb = a.dbias && first_chunk ? a.dbias + (size_t)bh * n * m
+                                      : nullptr;
+  if constexpr (MODE == kWideDq) {
+    load_vec(lse_s, lse_rows, own0, n);
+    load_vec(delta_s, delta_rows, own0, n);
+  }
+  for (int i = threadIdx.x; i < T * C::ldy; i += C::threads) Acc[i] = 0.f;
+  // the forward: the lane owns half of one row's columns of a tile
+  const int half = lane & 1, srow = r0 + (lane >> 1), frow = own0 + srow;
+  const bool no_key = causal && frow < n - m;
+  float m_run = kMasked, l_run = 0.f;
+
+  for (int o0 = 0; o0 < other_n; o0 += T) {
+    for (int c0 = 0; c0 < d; c0 += KC) {
+      __syncthreads();  // the previous readers of the slices are done
+      load_cols<KC>(A1, C::ldc, a1, own0, own_n, d, c0);
+      load_cols<KC>(B1, C::ldc, b1, o0, other_n, d, c0);
+      if constexpr (TWO) {
+        load_cols<KC>(A2, C::ldc, a2, own0, own_n, d, c0);
+        load_cols<KC>(B2, C::ldc, b2, o0, other_n, d, c0);
+      }
+      __syncthreads();
+      if (c0 == 0) {
+        warp_mma<T, KC, false, true>(A1 + r0 * C::ldc, C::ldc, B1, C::ldc,
+                                     Sf + r0 * C::lds, C::lds);
+        if constexpr (TWO)
+          warp_mma<T, KC, false, true>(A2 + r0 * C::ldc, C::ldc, B2, C::ldc,
+                                       dPf + r0 * C::lds, C::lds);
+      } else {
+        warp_mma<T, KC, true, true>(A1 + r0 * C::ldc, C::ldc, B1, C::ldc,
+                                    Sf + r0 * C::lds, C::lds);
+        if constexpr (TWO)
+          warp_mma<T, KC, true, true>(A2 + r0 * C::ldc, C::ldc, B2, C::ldc,
+                                      dPf + r0 * C::lds, C::lds);
+      }
+    }
+    __syncthreads();  // the chunk's tile takes the place of the last one
+    load_cols<kWideOut>(Ys, C::ldy, y, o0, other_n, d, c_out);
+    if constexpr (!ROWS_Q) {
+      load_vec(lse_s, lse_rows, o0, n);
+      load_vec(delta_s, delta_rows, o0, n);
+    }
+    __syncthreads();
+    if constexpr (MODE == kWideFwd) {
+      float s[HALF];
+      float mx = kMasked;
+#pragma unroll
+      for (int t = 0; t < HALF; ++t) {
+        const int c = HALF * half + t, col = o0 + c;
+        float x = Sf[srow * C::lds + c] * a.scale;
+        if (bb && frow < n && col < m) x += bb[(size_t)frow * m + col];
+        bool ok = col < m && (!causal || col <= frow + offset);
+        if (no_key) {
+          ok = col < m;
+          x = 0.f;
+        }
+        s[t] = ok ? x : kMasked;
+        mx = fmaxf(mx, s[t]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      const float m_new = fmaxf(m_run, mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int t = 0; t < HALF; ++t) {
+        const float p = expf(s[t] - m_new);
+        sum += p;
+        Pt[srow * C::lds + HALF * half + t] = p;
+      }
+      sum += __shfl_xor_sync(kFull, sum, 1);
+      const float alpha = expf(m_run - m_new);
+      l_run = alpha * l_run + sum;
+      m_run = m_new;
+      for (int e = 0; e < kWideOut / 2; ++e)
+        Acc[srow * C::ldy + half * (kWideOut / 2) + e] *= alpha;
+    } else if constexpr (MODE == kWideDq) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int row = own0 + r0 + r, col = o0 + lane;
+        float x = Sf[(r0 + r) * C::lds + lane] * a.scale;
+        if (bb && row < n && col < m) x += bb[(size_t)row * m + col];
+        const bool ok =
+            row < n && col < m && (!causal || col <= row + offset);
+        const float p = ok ? expf(x - lse_s[r0 + r]) : 0.f;
+        const float ds =
+            p * (dPf[(r0 + r) * C::lds + lane] - delta_s[r0 + r]);
+        Pt[(r0 + r) * C::lds + lane] = ds;
+        if (dbb && row < n && col < m) dbb[(size_t)row * m + col] = ds;
+      }
+    } else {
+      const float inv_m = 1.f / m;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int key = own0 + r0 + r, row = o0 + lane;
+        float x = Sf[(r0 + r) * C::lds + lane] * a.scale;
+        if (bb && row < n && key < m) x += bb[(size_t)row * m + key];
+        const bool ok =
+            row < n && key < m && (!causal || key <= row + offset);
+        const float p = ok ? expf(x - lse_s[lane]) : 0.f;
+        if constexpr (MODE == kWideDv)
+          Pt[(r0 + r) * C::lds + lane] =
+              row < blind && key < m ? inv_m : p;
+        else
+          Pt[(r0 + r) * C::lds + lane] =
+              p * (dPf[(r0 + r) * C::lds + lane] - delta_s[lane]);
+      }
+    }
+    __syncwarp();
+    warp_acc_nn<kWideOut, T>(Pt + r0 * C::lds, C::lds, Ys, C::ldy,
+                             Acc + r0 * C::ldy, C::ldy);
+    __syncwarp();
+  }
+
+  __syncthreads();
+  if constexpr (MODE == kWideFwd) {
+    if (frow < n) {
+      const float lsum = fmaxf(l_run, 1e-30f);
+      const float inv = 1.f / lsum;
+      float* orow = static_cast<float*>(a.out_a) + qo + (size_t)frow * d;
+      for (int e = 0; e < kWideOut / 2; ++e) {
+        const int col = half * (kWideOut / 2) + e;
+        if (c_out + col < d)
+          orow[c_out + col] = Acc[srow * C::ldy + col] * inv;
+      }
+      if (first_chunk && half == 0)
+        a.lse_out[(size_t)bh * n + frow] =
+            (no_key ? kMasked : m_run) + logf(lsum);
+    }
+  } else {
+    const float mul = MODE == kWideDv ? 1.f : a.scale;
+    float* dst = static_cast<float*>(MODE == kWideDk ? a.out_b : a.out_a) +
+                 (ROWS_Q ? qo : ko);
+    for (int r = 0; r < kRows; ++r) {
+      const int row = own0 + r0 + r;
+      if (row >= own_n) break;
+      for (int e = lane; e < kWideOut && c_out + e < d; e += 32)
+        dst[(size_t)row * d + c_out + e] = Acc[(r0 + r) * C::ldy + e] * mul;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(WideF32::threads, 1)
+    fwd_wide_f32_kernel(WideArgs a) {
+  wide_f32<kWideFwd>(a);
+}
+
+__global__ void __launch_bounds__(WideF32::threads, 1)
+    bwd_dq_wide_f32_kernel(WideArgs a) {
+  wide_f32<kWideDq>(a);
+}
+
+__global__ void __launch_bounds__(WideF32::threads, 1)
+    bwd_dkv_wide_f32_kernel(WideArgs a) {
+  if (blockIdx.z == 0)
+    wide_f32<kWideDv>(a);
+  else
+    wide_f32<kWideDk>(a);
+}
+
 inline int tiles_of(int rows, int tile) { return (rows + tile - 1) / tile; }
 
 // Blocks above 48 KB of shared memory need the attribute; set it always.
@@ -1588,9 +2279,66 @@ cudaError_t mma_attributes(cudaFuncAttributes* a, int kernel) {
   return cudaErrorInvalidValue;
 }
 
+// the wide 'mma' kernels by the same numbers: 0 dQ, 1 dK/dV, 2 forward
+inline cudaError_t wide_attributes(cudaFuncAttributes* a, int kernel) {
+  if (kernel == 0) return cudaFuncGetAttributes(a, bwd_dq_wide_mma_kernel);
+  if (kernel == 1) return cudaFuncGetAttributes(a, bwd_dkv_wide_mma_kernel);
+  if (kernel == 2) return cudaFuncGetAttributes(a, fwd_wide_mma_kernel);
+  return cudaErrorInvalidValue;
+}
+
 inline bool route_fits(int route, int dtype) {
   return (route == kRouteMma && dtype == kBFloat16) ||
          (route == kRouteF32 && dtype == kFloat32);
+}
+
+
+// the wide kernels (heads over kNarrowMax): grid (bh x own tiles, chunks,
+// zs), zs = 2 for dK/dV
+template <typename Kernel>
+cudaError_t launch_wide(Kernel kernel, WideArgs a, int bh, int own, int rows,
+                        int threads, size_t bytes, int zs,
+                        cudaStream_t stream) {
+  a.own_tiles = tiles_of(own, rows);
+  if (!grid_fits(bh, a.own_tiles)) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((unsigned)(bh * a.own_tiles), wide_chunks(a.d), zs), threads,
+           bytes, stream>>>(a);
+  MV2_CHECK_LAUNCH();
+  return cudaSuccess;
+}
+
+inline cudaError_t launch_fwd_wide(const WideArgs& a, int bh, int dtype,
+                                   cudaStream_t s) {
+  if (dtype == kFloat32)
+    return launch_wide(fwd_wide_f32_kernel, a, bh, a.n, WideF32::tile,
+                       WideF32::threads, WideF32::bytes, 1, s);
+  return launch_wide(fwd_wide_mma_kernel, a, bh, a.n, kWideRows, kBwdThreads,
+                     WideGeo<false>::bytes, 1, s);
+}
+
+inline cudaError_t launch_dq_wide(const WideArgs& a, int bh, int dtype,
+                                  cudaStream_t s) {
+  if (dtype == kFloat32)
+    return launch_wide(bwd_dq_wide_f32_kernel, a, bh, a.n, WideF32::tile,
+                       WideF32::threads, WideF32::bytes, 1, s);
+  return launch_wide(bwd_dq_wide_mma_kernel, a, bh, a.n, kWideRows,
+                     kBwdThreads, WideGeo<true>::bytes, 1, s);
+}
+
+inline cudaError_t launch_dkv_wide(const WideArgs& a, int bh, int dtype,
+                                   cudaStream_t s) {
+  if (dtype == kFloat32)
+    return launch_wide(bwd_dkv_wide_f32_kernel, a, bh, a.m, WideF32::tile,
+                       WideF32::threads, WideF32::bytes, 2, s);
+  return launch_wide(bwd_dkv_wide_mma_kernel, a, bh, a.m, kWideRows,
+                     kBwdThreads, WideGeo<true>::bytes, 2, s);
+}
+
+// a wide head: the route fits the dtype, d a multiple of 8
+inline bool wide_fits(int route, int dtype, int d) {
+  return route_fits(route, dtype) && d > kNarrowMax && d % 8 == 0;
 }
 
 }  // namespace flash
@@ -1621,14 +2369,22 @@ extern "C" {
 
 // q (bh, n, d), k and v (bh, m, d), bias (groups, n, m) or null, all of
 // `dtype`; out (bh, n, d) of `dtype`, lse (bh, n) float32 in natural log.
-// d is a multiple of 8 from 8 to 256. route is the wrapper's (Route) and
-// must fit the dtype: kRouteMma bf16, kRouteF32 float32.
+// d is any multiple of 8 (over 256 the wide kernels). route is the
+// wrapper's (Route) and must fit the dtype: kRouteMma bf16, kRouteF32
+// float32.
 int mv2_flash_attention_fwd(const void* q, const void* k, const void* v,
                             const void* bias, void* out, void* lse, int dtype,
                             int bh, int n, int m, int d, int groups,
                             int causal, float scale, int route,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > mv2::flash::kNarrowMax) {
+    if (!mv2::flash::wide_fits(route, dtype, d)) return cudaErrorInvalidValue;
+    return mv2::flash::launch_fwd_wide(
+        {q, k, v, bias, nullptr, nullptr, nullptr, out, nullptr, (float*)lse,
+         nullptr, n, m, d, 0, groups, causal, scale},
+        bh, dtype, s);
+  }
   MV2_FLASH_DISPATCH(mv2::flash::launch_fwd, mv2::flash::launch_fwd_mma, q, k,
                      v, bias, out, (float*)lse, bh, n, m, d, groups, causal,
                      scale, s);
@@ -1643,6 +2399,13 @@ int mv2_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                int d, int groups, int causal, float scale,
                                int route, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > mv2::flash::kNarrowMax) {
+    if (!mv2::flash::wide_fits(route, dtype, d)) return cudaErrorInvalidValue;
+    return mv2::flash::launch_dq_wide(
+        {q, k, v, bias, dout, (const float*)lse, (const float*)delta, dq,
+         nullptr, nullptr, (float*)dbias, n, m, d, 0, groups, causal, scale},
+        bh, dtype, s);
+  }
   MV2_FLASH_DISPATCH(mv2::flash::launch_dq, mv2::flash::launch_dq_mma, q, k,
                      v, bias, dout, (const float*)lse, (const float*)delta,
                      dq, (float*)dbias, bh, n, m, d, groups, causal, scale, s);
@@ -1656,6 +2419,13 @@ int mv2_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                 int d, int groups, int causal, float scale,
                                 int route, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > mv2::flash::kNarrowMax) {
+    if (!mv2::flash::wide_fits(route, dtype, d)) return cudaErrorInvalidValue;
+    return mv2::flash::launch_dkv_wide(
+        {q, k, v, bias, dout, (const float*)lse, (const float*)delta, dv, dk,
+         nullptr, nullptr, n, m, d, 0, groups, causal, scale},
+        bh, dtype, s);
+  }
   MV2_FLASH_DISPATCH(mv2::flash::launch_dkv, mv2::flash::launch_dkv_mma, q,
                      k, v, bias, dout, (const float*)lse, (const float*)delta,
                      dk, dv, bh, n, m, d, groups, causal, scale, s);
@@ -1663,13 +2433,18 @@ int mv2_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
 
 // What the CUDA runtime reports for the 'mma' kernel `kernel` (0 dQ, 1
 // dK/dV, 2 forward; 3, 4, 5 the same kernels' padded instantiations, for
-// d < width) at the padded width `width` (16, 32, 64, 128 or 256),
+// d < width; 6, 7, 8 the wide kernels, whatever the width) at the padded
+// width `width` (16, 32, 64, 128 or 256),
 // into out (4 ints): registers a thread, local memory a thread (spills),
 // static shared memory, and the dynamic shared memory its launcher last set
 // (allow_smem sets it on every launch).
 int mv2_flash_mma_attributes(int kernel, int width, void* out) {
   cudaFuncAttributes a;
   cudaError_t err = cudaErrorInvalidValue;
+  if (kernel >= 6) {  // the wide kernels, whatever the width
+    err = mv2::flash::wide_attributes(&a, kernel - 6);
+    width = 0;
+  }
   switch (width) {
     case 16: err = mv2::flash::mma_attributes<16>(&a, kernel); break;
     case 32: err = mv2::flash::mma_attributes<32>(&a, kernel); break;

@@ -19,6 +19,10 @@
 //   launches on tensor cores, the "wide" core further below.
 // - kTaylorF32, float32, head sizes 8, 16, 32: CUDA cores, one block per
 //   (frame, head).
+// - every other head up to 256 (a multiple of 8; the wrapper pads the
+//   others), in bf16 and in float32: the streamed cores at the end of the
+//   file, two launches on scratch, built at the padded widths 64, 128 and
+//   256 with the true head size at run time.
 // What bounds the core at the flagship shape (160 frames x 1024 tokens, 16
 // heads x 8): bytes. It reads bf16 q, k and v (126 MB) and writes the
 // attention (42 MB), 0.05 ms at 3.35 TB/s; its tensor-core work, 13.4
@@ -871,14 +875,584 @@ cudaError_t launch_taylor_core_wide(const bf16* qkv, bf16* attn,
   return cudaSuccess;
 }
 
+// ---- the other heads: the streamed cores, two launches each ----------------
+//
+// Every head of 1 to 256 values but 8, 16 and 32 (the wrapper pads a head to
+// a multiple of 8 with zero columns: zero features add exact zeros). The
+// kernels are built at the padded widths D = 64, 128, 256 and take the true
+// d at run time; their feature rows are those of d. A head's phi has
+// d + d^2 features: past d = 32 its [A | S] outgrows a block's shared memory
+// (600 KB at d = 64 in bf16, ~35 MB at 256), so the moments go to scratch and
+// the second launch streams them through a ring, like a GEMM's K loop.
+//
+// bf16 (kTaylorMma, counted as the wide core): the feature rows come in
+// 16-row units: k_j for j in 16-blocks jb < JB = ceil(d / 16) (units
+// 0 .. JB - 1), then phi_ij for i < d and j in block jb (unit JB + i JB + jb),
+// and the constant row (unit U = JB (d + 1), which gives sum v).
+// Launch 1 (taylor_moments_stream_kernel), grid (frame x head, slab): a warp
+//   owns kUpw units and a block kWarps1 warps, each block over all N tokens
+//   (no sum crosses blocks); the head's k and v stream through a cp.async
+//   ring, a unit's phi(k) rows are built in registers per 16-token tile
+//   (phi_ij = bf16(bf16(k_i k_j) bf16(1/sqrt2)), k_i by a shuffle), and
+//   [A | S] += phi(k)^T [v | 1] accumulates on mma.sync in float32; then
+//   [A | S]^T goes to scratch in bf16 (the JAX kernel's cast), 16 U feature
+//   rows a column, and sum v in float32.
+// Launch 2 (taylor_apply_stream_kernel), grid (frame x head, kTok2 tokens):
+//   the block holds its tokens' q in shared memory and streams [A | S]^T in
+//   chunks of kFk features through a three-stage ring; per 16-feature unit
+//   a warp builds phi(q) of its kMt 16-token tiles in registers and runs
+//   [num | den] += phi(q) [A | S] (its accumulators: kMt tiles x D + 8
+//   columns, at D = 256 one tile, 132 floats a lane). Then num + sum v,
+//   den + N, r = bf16(1 / (den + eps)), out = bf16(num r).
+// Column tiles past d (zeros) are skipped in both launches. phi_ij ==
+// phi_ji is not used (queue item B4 of ROADMAP.md): the work is
+// 4 (d + d^2) (D + 8) a token and head in place of the 4 F (d + 1) the
+// function needs (F = 1 + d + d (d + 1) / 2).
+template <int D>
+struct StreamTc {
+  static_assert(D == 64 || D == 128 || D == 256, "the streamed core's widths");
+  static constexpr int kNt = D / 8 + 1;            // column tiles: v, then S
+  static constexpr int kCols = 8 * kNt;            // [A | S], zero-padded
+  static constexpr int kUpw = D <= 64 ? 4 : D <= 128 ? 2 : 1;  // units a warp
+  static constexpr int kWarps1 = 8;
+  static constexpr int kChunk = D <= 128 ? 64 : 32;  // tokens a ring stage
+  static constexpr int kStages = 3;
+  static constexpr int kKvLd = 2 * D + 8;          // a staged token: k, v
+  static constexpr size_t kSmem1 = sizeof(bf16) * kStages * kChunk * kKvLd;
+  static constexpr int kWarps2 = 8;
+  static constexpr int kMt = D <= 128 ? 2 : 1;     // 16-token tiles a warp
+  static constexpr int kTok2 = 16 * kMt * kWarps2; // tokens a block
+  static constexpr int kFk = 64;                   // features a ring stage
+  static constexpr int kAtLd = kFk + 8;            // a staged [A | S]^T row
+  static constexpr int kQLd = D + 8;
+  static constexpr size_t kSmem2 =
+      sizeof(bf16) * (kStages * kCols * kAtLd + kTok2 * kQLd);
+  static_assert(kSmem1 <= 232448 && kSmem2 <= 232448, "shared memory");
+};
+
+// units of a head of d: JB k_j units and d JB phi_ij units (the constant's
+// is the next)
+__host__ __device__ inline int stream_units(int d) {
+  return (d + 15) / 16 * (d + 1);
+}
+
+template <int D>
+__global__ void __launch_bounds__(32 * StreamTc<D>::kWarps1)
+    taylor_moments_stream_kernel(const bf16* __restrict__ qkv,
+                                 bf16* __restrict__ mom,
+                                 float* __restrict__ sumv, int N, int H,
+                                 int d) {
+  using W = StreamTc<D>;
+  extern __shared__ __align__(16) unsigned char tw_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(tw_smem);
+  const int fh = blockIdx.x;
+  const long long frame = fh / H;
+  const int h = fh % H;
+  const int hd = H * d;
+  const long long ld = 3LL * hd;
+  const bf16* kbase = qkv + frame * N * ld + hd + (long long)h * d;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int jbs = (d + 15) / 16, units = stream_units(d);
+  const int u0 = (blockIdx.y * W::kWarps1 + warp) * W::kUpw;
+  const int nu = max(0, min(W::kUpw, units + 1 - u0));  // warp-uniform
+  const unsigned inv_sqrt2 = bits(__float2bfloat16(0.70710678118654752f)) *
+                             0x10001u;
+  const unsigned ones = g == 0 ? 0x3F803F80u : 0u;   // column / row 0: 1
+  const int nch = (N + W::kChunk - 1) / W::kChunk;
+  constexpr int kPieces = D / 4;   // 16-byte pieces a staged token: k, v
+
+  // chunk c into stage c % kStages; rows past N and columns past d are zeros
+  auto stage = [&](int c) {
+    const int t0 = c * W::kChunk;
+    bf16* buf = ring + (c % W::kStages) * W::kChunk * W::kKvLd;
+    for (int idx = threadIdx.x; idx < W::kChunk * kPieces;
+         idx += blockDim.x) {
+      const int t = idx / kPieces, p = idx % kPieces;
+      const int which = p / (D / 8), col = 8 * (p % (D / 8));
+      const bool ok = t0 + t < N && col < d;
+      const int n = min(t0 + t, N - 1);
+      cp_async16(buf + t * W::kKvLd + which * D + col,
+                 kbase + n * ld + which * hd + (ok ? col : 0), ok);
+    }
+  };
+
+  float acc[W::kUpw][W::kNt][4];
+#pragma unroll
+  for (int s = 0; s < W::kUpw; ++s)
+#pragma unroll
+    for (int nt = 0; nt < W::kNt; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[s][nt][e] = 0.f;
+
+  const int lrow = (lane & 7) + 8 * ((lane >> 3) & 1), lcol = 8 * (lane >> 4);
+  for (int c = 0; c < W::kStages - 1; ++c) {
+    if (c < nch) stage(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < nch; ++c) {
+    cp_async_wait<W::kStages - 2>();
+    __syncthreads();   // chunk c landed; every warp is done with c - 1
+    if (c + W::kStages - 1 < nch) stage(c + W::kStages - 1);
+    cp_async_commit();
+    if (nu == 0) continue;
+    const bf16* buf = ring + (c % W::kStages) * W::kChunk * W::kKvLd;
+    for (int tl = 0; tl < W::kChunk / 16 && c * W::kChunk + 16 * tl < N;
+         ++tl) {
+      const bf16* row = buf + (16 * tl + lrow) * W::kKvLd + lcol;
+      // A fragments of the warp's units: rows features, columns tokens.
+      // ldmatrix.trans of 16 features of k gives kf[0] (features g, tokens
+      // 2tq, 2tq + 1), kf[1] (g, 2tq + 8, + 9), kf[2] (g + 8, 2tq ..),
+      // kf[3] (g + 8, 2tq + 8 ..)
+      unsigned a[W::kUpw][4];
+#pragma unroll
+      for (int s = 0; s < W::kUpw; ++s) {
+        if (s >= nu) continue;   // warp-uniform
+        const int u = u0 + s;
+        if (u < jbs) {   // k_j, j in block u
+          unsigned kf[4];
+          ldmatrix_x4_trans(kf, row + 16 * u);
+          a[s][0] = kf[0];
+          a[s][1] = kf[2];
+          a[s][2] = kf[1];
+          a[s][3] = kf[3];
+        } else if (u < units) {   // phi_ij, i = (u - jbs) / jbs
+          const int i = (u - jbs) / jbs, jb = (u - jbs) % jbs;
+          unsigned ki[4], kj[4];
+          ldmatrix_x4_trans(ki, row + 16 * (i >> 4));
+          ldmatrix_x4_trans(kj, row + 16 * jb);
+          // k_i at this lane's tokens, from the lane with g = i % 8
+          const bool hi = (i >> 3) & 1;
+          const int src = (i & 7) * 4 + tq;
+          const unsigned ki0 = __shfl_sync(0xffffffffu, hi ? ki[2] : ki[0],
+                                           src);
+          const unsigned ki1 = __shfl_sync(0xffffffffu, hi ? ki[3] : ki[1],
+                                           src);
+          a[s][0] = phi_pair(ki0, kj[0], inv_sqrt2);
+          a[s][1] = phi_pair(ki0, kj[2], inv_sqrt2);
+          a[s][2] = phi_pair(ki1, kj[1], inv_sqrt2);
+          a[s][3] = phi_pair(ki1, kj[3], inv_sqrt2);
+        } else {   // the constant row: 1 at row 0
+          a[s][0] = ones;
+          a[s][1] = 0u;
+          a[s][2] = ones;
+          a[s][3] = 0u;
+        }
+      }
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        if (16 * np >= d) break;   // v's columns past d are zeros
+        unsigned vf[4];
+        ldmatrix_x4_trans(vf, row + D + 16 * np);
+#pragma unroll
+        for (int s = 0; s < W::kUpw; ++s) {
+          if (s >= nu) continue;
+          mma_16816(acc[s][2 * np], a[s], vf[0], vf[1]);
+          mma_16816(acc[s][2 * np + 1], a[s], vf[2], vf[3]);
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < W::kUpw; ++s)
+        if (s < nu) mma_16816(acc[s][W::kNt - 1], a[s], ones, ones);  // S
+    }
+  }
+  cp_async_wait<0>();
+
+  // [A | S]^T in bf16 (16 U feature rows a column), sum v in float32
+  const int feats = 16 * units;
+  bf16* mh = mom + (long long)fh * W::kCols * feats;
+#pragma unroll
+  for (int s = 0; s < W::kUpw; ++s) {
+    if (s >= nu) continue;
+    const int u = u0 + s;
+#pragma unroll
+    for (int nt = 0; nt < W::kNt; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = g + 8 * (e >> 1), col = 8 * nt + 2 * tq + (e & 1);
+        if (u == units) {
+          if (r == 0 && col < D) sumv[(long long)fh * D + col] = acc[s][nt][e];
+        } else {
+          mh[(long long)col * feats + 16 * u + r] =
+              __float2bfloat16(acc[s][nt][e]);
+        }
+      }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(32 * StreamTc<D>::kWarps2)
+    taylor_apply_stream_kernel(const bf16* __restrict__ qkv,
+                               const bf16* __restrict__ mom,
+                               const float* __restrict__ sumv,
+                               bf16* __restrict__ attn, int N, int H, int d,
+                               float eps) {
+  using W = StreamTc<D>;
+  extern __shared__ __align__(16) unsigned char tw_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(tw_smem);  // kCols rows of kAtLd
+  bf16* qs = ring + W::kStages * W::kCols * W::kAtLd;  // kTok2 of kQLd
+  const int fh = blockIdx.x;
+  const long long frame = fh / H;
+  const int h = fh % H;
+  const int hd = H * d;
+  const long long ld = 3LL * hd;
+  const int t0 = blockIdx.y * W::kTok2;
+  const bf16* qbase = qkv + frame * N * ld + (long long)h * d;
+  const int jbs = (d + 15) / 16, units = stream_units(d);
+  const int feats = 16 * units;
+  const bf16* mh = mom + (long long)fh * W::kCols * feats;
+  const int steps = (feats + W::kFk - 1) / W::kFk;
+  constexpr int kPieces = W::kFk / 8;
+
+  for (int idx = threadIdx.x; idx < W::kTok2 * (D / 8); idx += blockDim.x) {
+    const int t = idx / (D / 8), col = 8 * (idx % (D / 8));
+    const bool ok = t0 + t < N && col < d;
+    const int n = min(t0 + t, N - 1);
+    cp_async16(qs + t * W::kQLd + col, qbase + n * ld + (ok ? col : 0), ok);
+  }
+  // features f0 .. f0 + kFk - 1 of every column into stage c % kStages;
+  // zeros past the last feature
+  auto stage = [&](int c) {
+    bf16* buf = ring + (c % W::kStages) * W::kCols * W::kAtLd;
+    const int f0 = c * W::kFk;
+    for (int idx = threadIdx.x; idx < W::kCols * kPieces;
+         idx += blockDim.x) {
+      const int r = idx / kPieces, f = 8 * (idx % kPieces);
+      const bool ok = f0 + f < feats;
+      cp_async16(buf + r * W::kAtLd + f,
+                 mh + (long long)r * feats + (ok ? f0 + f : 0), ok);
+    }
+  };
+  for (int c = 0; c < W::kStages - 1; ++c) {   // q joins the first group
+    if (c < steps) stage(c);
+    cp_async_commit();
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wt = 16 * W::kMt * warp;   // the warp's first token in the block
+  const bool active = t0 + wt < N;     // warp-uniform
+  const unsigned inv_sqrt2 = bits(__float2bfloat16(0.70710678118654752f)) *
+                             0x10001u;
+  const int lrow = (lane & 7) + 8 * ((lane >> 3) & 1), lcol = 8 * (lane >> 4);
+  float acc[W::kMt][W::kNt][4];
+#pragma unroll
+  for (int mt = 0; mt < W::kMt; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < W::kNt; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  // B fragments at k-step ks of a stage: an x4 over column tiles (nt,
+  // nt + 1), low and high 8 features; an x2 for the last (S) tile
+  const int b4 = ((lane & 7) + 8 * (lane >> 4)) * W::kAtLd +
+                 8 * ((lane >> 3) & 1);
+  const int b2 = ((lane & 7) + 8 * (W::kNt - 1)) * W::kAtLd +
+                 8 * ((lane >> 3) & 1);
+
+  for (int c = 0; c < steps; ++c) {
+    cp_async_wait<W::kStages - 2>();
+    __syncthreads();   // stage c (and q) landed; stage c - 1 is free
+    if (c + W::kStages - 1 < steps) stage(c + W::kStages - 1);
+    cp_async_commit();
+    if (!active) continue;
+    const bf16* buf = ring + (c % W::kStages) * W::kCols * W::kAtLd;
+#pragma unroll 1
+    for (int ks = 0; ks < W::kFk / 16; ++ks) {
+      const int u = c * (W::kFk / 16) + ks;
+      if (u >= units) break;   // uniform
+      // phi(q) of the warp's tiles as A fragments: rows tokens, columns
+      // the unit's 16 features (ldmatrix of q: qf[0] tokens g, features
+      // 2tq .. ; qf[1] g + 8; qf[2] g, 2tq + 8 ..; qf[3] g + 8, 2tq + 8 ..)
+      unsigned a[W::kMt][4];
+      const int i = u < jbs ? -1 : (u - jbs) / jbs;
+      const int jb = u < jbs ? u : (u - jbs) % jbs;
+#pragma unroll
+      for (int mt = 0; mt < W::kMt; ++mt) {
+        unsigned qf[4];
+        ldmatrix_x4(qf, qs + (wt + 16 * mt + lrow) * W::kQLd + 16 * jb + lcol);
+        if (i < 0) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) a[mt][r] = qf[r];
+        } else {
+          const unsigned qi0 =
+              bits(qs[(wt + 16 * mt + g) * W::kQLd + i]) * 0x10001u;
+          const unsigned qi1 =
+              bits(qs[(wt + 16 * mt + g + 8) * W::kQLd + i]) * 0x10001u;
+          a[mt][0] = phi_pair(qi0, qf[0], inv_sqrt2);
+          a[mt][1] = phi_pair(qi1, qf[1], inv_sqrt2);
+          a[mt][2] = phi_pair(qi0, qf[2], inv_sqrt2);
+          a[mt][3] = phi_pair(qi1, qf[3], inv_sqrt2);
+        }
+      }
+#pragma unroll
+      for (int np = 0; np < W::kNt / 2; ++np) {
+        if (16 * np >= d) break;   // [A]'s columns past d are zeros
+        unsigned b[4];
+        ldmatrix_x4(b, buf + b4 + 16 * np * W::kAtLd + 16 * ks);
+#pragma unroll
+        for (int mt = 0; mt < W::kMt; ++mt) {
+          mma_16816(acc[mt][2 * np], a[mt], b[0], b[1]);
+          mma_16816(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
+        }
+      }
+      unsigned b[2];
+      ldmatrix_x2(b, buf + b2 + 16 * ks);
+#pragma unroll
+      for (int mt = 0; mt < W::kMt; ++mt)
+        mma_16816(acc[mt][W::kNt - 1], a[mt], b[0], b[1]);
+    }
+  }
+  cp_async_wait<0>();
+  if (!active) return;   // no barrier follows
+
+  // den sits in column 0 of the last tile: lanes with tq == 0
+  const float* sv = sumv + (long long)fh * D;
+  bf16* out = attn + frame * N * hd + (long long)h * d;
+  const float n = (float)N;
+#pragma unroll
+  for (int mt = 0; mt < W::kMt; ++mt)
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const float den =
+          __shfl_sync(0xffffffffu, acc[mt][W::kNt - 1][2 * p], lane & ~3) + n;
+      const float r = round_to<bf16>(1.f / (den + eps));
+      const int t = t0 + wt + 16 * mt + g + 8 * p;
+      if (t < N)
+#pragma unroll
+        for (int nt = 0; nt < W::kNt - 1; ++nt) {
+          const int col = 8 * nt + 2 * tq;
+          if (col < d)
+            *reinterpret_cast<unsigned*>(out + (long long)t * hd + col) =
+                pack_bf16((acc[mt][nt][2 * p] + sv[col]) * r,
+                          (acc[mt][nt][2 * p + 1] + sv[col + 1]) * r);
+        }
+    }
+}
+
+// scratch: [A | S]^T in bf16 for every (frame, head), kCols columns of
+// 16 U features, then sum v in float32, D a (frame, head)
+// (ops/kernels/taylor_attention.py wide_scratch_bytes)
+template <int D>
+cudaError_t launch_taylor_core_stream(const bf16* qkv, bf16* attn,
+                                      void* scratch, int frames, int N, int H,
+                                      int d, float eps, cudaStream_t stream) {
+  using W = StreamTc<D>;
+  if (N < 1 || H < 1 || d < 1 || d > D || d % 8 || (uintptr_t)qkv % 16 ||
+      scratch == nullptr || (uintptr_t)scratch % 16)
+    return cudaErrorInvalidValue;
+  const int units = stream_units(d);
+  bf16* mom = static_cast<bf16*>(scratch);
+  float* sumv = reinterpret_cast<float*>(
+      mom + (size_t)frames * H * W::kCols * 16 * units);
+  cudaError_t err = cudaFuncSetAttribute(
+      taylor_moments_stream_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)W::kSmem1);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(taylor_apply_stream_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)W::kSmem2);
+  if (err != cudaSuccess) return err;
+  const int warps = (units + 1 + W::kUpw - 1) / W::kUpw;
+  const int slabs = (warps + W::kWarps1 - 1) / W::kWarps1;
+  taylor_moments_stream_kernel<D>
+      <<<dim3(frames * H, slabs), 32 * W::kWarps1, W::kSmem1, stream>>>(
+          qkv, mom, sumv, N, H, d);
+  MV2_CHECK_LAUNCH();
+  taylor_apply_stream_kernel<D>
+      <<<dim3(frames * H, (N + W::kTok2 - 1) / W::kTok2), 32 * W::kWarps2,
+         W::kSmem2, stream>>>(qkv, mom, sumv, attn, N, H, d, eps);
+  MV2_CHECK_LAUNCH();
+  return cudaSuccess;
+}
+
+// float32 (kTaylorF32, counted as taylor_core_wide_f32) at the same heads,
+// the same two launches on the CUDA cores. Features f < d + d^2: k_f, then
+// phi_ij = k_i k_j / sqrt2 at d + i d + j, and the constant (f = d + d^2);
+// columns v_e, then S at e = d, zero-padded to a multiple of kF32Cols.
+// Launch 1 (taylor_moments_f32_kernel), grid (frame x head, features / 128,
+// column groups): a thread owns one feature and kF32Cols columns, summing
+// over the tokens staged kF32Tok at a time; it writes [A | S] (features x
+// padded columns) in float32 to scratch. Launch 2 (taylor_apply_f32_kernel),
+// grid (frame x head, tokens / kF32Tok2, column groups): a thread owns one
+// token and kF32Cols columns (and den), phi(q) built per feature from q in
+// shared memory, [A | S] streamed kF32Feat features at a time. No cast: the
+// plain version's float32 math summed in another order.
+constexpr int kF32Cols = 32;   // columns a thread
+constexpr int kF32Tok = 32;    // tokens staged at a time (launch 1)
+constexpr int kF32Tok2 = 128;  // tokens a block (launch 2), one a thread
+constexpr int kF32Feat = 64;   // features staged at a time (launch 2)
+constexpr int kF32Threads = 128;
+static_assert(kF32Tok2 == kF32Threads, "a thread a token");
+
+__host__ __device__ inline int f32_cols(int d) {
+  return (d + 1 + kF32Cols - 1) / kF32Cols * kF32Cols;
+}
+
+__global__ void __launch_bounds__(kF32Threads)
+    taylor_moments_f32_kernel(const float* __restrict__ qkv,
+                              float* __restrict__ mom, int N, int H, int d) {
+  extern __shared__ float tf_smem[];
+  float* ks = tf_smem;                    // kF32Tok x (d + 1)
+  float* vs = ks + kF32Tok * (d + 1);     // kF32Tok x (d + 1)
+  const int fh = blockIdx.x;
+  const long long frame = fh / H;
+  const int h = fh % H;
+  const int hd = H * d, cols = f32_cols(d);
+  const long long ld = 3LL * hd;
+  const float* kbase = qkv + frame * N * ld + hd + (long long)h * d;
+  const int feats = d + d * d;
+  const int f = blockIdx.y * kF32Threads + threadIdx.x;  // the constant: feats
+  const int c0 = blockIdx.z * kF32Cols;
+  const float kInvSqrt2 = 0.70710678118654752f;
+  int i = -1, j = f;   // phi_ij, or k_j (i < 0), or the constant (j < 0)
+  if (f >= feats) {
+    j = -1;
+  } else if (f >= d) {
+    i = (f - d) / d;
+    j = (f - d) % d;
+  }
+  float acc[kF32Cols];
+#pragma unroll
+  for (int c = 0; c < kF32Cols; ++c) acc[c] = 0.f;
+  for (int t0 = 0; t0 < N; t0 += kF32Tok) {
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < kF32Tok * d; idx += kF32Threads) {
+      const int t = idx / d, e = idx % d;
+      const bool ok = t0 + t < N;
+      ks[t * (d + 1) + e] = ok ? kbase[(t0 + t) * ld + e] : 0.f;
+      vs[t * (d + 1) + e] = ok ? kbase[(t0 + t) * ld + hd + e] : 0.f;
+    }
+    if (threadIdx.x < kF32Tok)   // column d of [v | 1]: 1 at real tokens
+      vs[threadIdx.x * (d + 1) + d] = t0 + threadIdx.x < N ? 1.f : 0.f;
+    __syncthreads();
+    if (f > feats) continue;
+    const int tokens = min(kF32Tok, N - t0);
+    for (int t = 0; t < tokens; ++t) {
+      const float* kt = ks + t * (d + 1);
+      const float phi = j < 0 ? 1.f
+                        : i < 0 ? kt[j]
+                                : kt[i] * kt[j] * kInvSqrt2;
+      const float* vt = vs + t * (d + 1) + c0;
+#pragma unroll
+      for (int c = 0; c < kF32Cols; ++c)
+        if (c0 + c <= d) acc[c] += phi * vt[c];
+    }
+  }
+  if (f > feats) return;
+  float* row = mom + ((long long)fh * (feats + 1) + f) * cols + c0;
+#pragma unroll
+  for (int c = 0; c < kF32Cols; ++c) row[c] = c0 + c <= d ? acc[c] : 0.f;
+}
+
+__global__ void __launch_bounds__(kF32Threads)
+    taylor_apply_f32_kernel(const float* __restrict__ qkv,
+                            const float* __restrict__ mom,
+                            float* __restrict__ attn, int N, int H, int d,
+                            float eps) {
+  extern __shared__ float tf_smem[];
+  float* qs = tf_smem;                    // kF32Tok2 x (d + 1)
+  float* ms = qs + kF32Tok2 * (d + 1);    // kF32Feat x (kF32Cols + 1)
+  float* ss = ms + kF32Feat * (kF32Cols + 1);  // kF32Feat: the S column
+  const int fh = blockIdx.x;
+  const long long frame = fh / H;
+  const int h = fh % H;
+  const int hd = H * d, cols = f32_cols(d);
+  const long long ld = 3LL * hd;
+  const int t0 = blockIdx.y * kF32Tok2, c0 = blockIdx.z * kF32Cols;
+  const float* qbase = qkv + frame * N * ld + (long long)h * d;
+  const int feats = d + d * d;
+  const float* mh = mom + (long long)fh * (feats + 1) * cols;
+  const float kInvSqrt2 = 0.70710678118654752f;
+  for (int idx = threadIdx.x; idx < kF32Tok2 * d; idx += kF32Threads) {
+    const int t = idx / d, e = idx % d;
+    qs[t * (d + 1) + e] = t0 + t < N ? qbase[(t0 + t) * ld + e] : 0.f;
+  }
+  const int t = threadIdx.x;
+  const bool real = t0 + t < N;
+  const float* qt = qs + t * (d + 1);
+  float acc[kF32Cols];
+#pragma unroll
+  for (int c = 0; c < kF32Cols; ++c) acc[c] = 0.f;
+  float den = 0.f;
+  for (int f0 = 0; f0 < feats; f0 += kF32Feat) {
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < kF32Feat * kF32Cols;
+         idx += kF32Threads) {
+      const int fl = idx / kF32Cols, c = idx % kF32Cols;
+      ms[fl * (kF32Cols + 1) + c] =
+          f0 + fl < feats ? mh[(long long)(f0 + fl) * cols + c0 + c] : 0.f;
+    }
+    for (int fl = threadIdx.x; fl < kF32Feat; fl += kF32Threads)
+      ss[fl] = f0 + fl < feats ? mh[(long long)(f0 + fl) * cols + d] : 0.f;
+    __syncthreads();
+    if (!real) continue;
+    const int nf = min(kF32Feat, feats - f0);
+    for (int fl = 0; fl < nf; ++fl) {
+      const int f = f0 + fl;
+      float phi;
+      if (f < d) {
+        phi = qt[f];
+      } else {
+        const int i = (f - d) / d, j = (f - d) % d;
+        phi = qt[i] * qt[j] * kInvSqrt2;
+      }
+      den += phi * ss[fl];
+      const float* mf = ms + fl * (kF32Cols + 1);
+#pragma unroll
+      for (int c = 0; c < kF32Cols; ++c) acc[c] += phi * mf[c];
+    }
+  }
+  if (!real) return;
+  const float* sv = mh + (long long)feats * cols;   // the constant's row
+  const float r = 1.f / (den + (float)N + eps);
+  float* orow = attn + (frame * N + t0 + t) * hd + (long long)h * d;
+#pragma unroll
+  for (int c = 0; c < kF32Cols; ++c)
+    if (c0 + c < d) orow[c0 + c] = (acc[c] + sv[c0 + c]) * r;
+}
+
+// scratch: [A | S] in float32, (d + d^2 + 1) features x f32_cols(d) a
+// (frame, head)
+cudaError_t launch_taylor_core_stream_f32(const float* qkv, float* attn,
+                                          void* scratch, int frames, int N,
+                                          int H, int d, float eps,
+                                          cudaStream_t stream) {
+  if (N < 1 || H < 1 || d < 1 || d > 256 || scratch == nullptr ||
+      (uintptr_t)scratch % 16)
+    return cudaErrorInvalidValue;
+  float* mom = static_cast<float*>(scratch);
+  const int feats = d + d * d, groups = f32_cols(d) / kF32Cols;
+  const size_t smem1 = sizeof(float) * 2 * kF32Tok * (d + 1);
+  const size_t smem2 = sizeof(float) * (kF32Tok2 * (d + 1) +
+                                        kF32Feat * (kF32Cols + 2));
+  cudaError_t err = cudaFuncSetAttribute(
+      taylor_moments_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem1);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(taylor_apply_f32_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem2);
+  if (err != cudaSuccess) return err;
+  taylor_moments_f32_kernel<<<
+      dim3(frames * H, (feats + 1 + kF32Threads - 1) / kF32Threads, groups),
+      kF32Threads, smem1, stream>>>(qkv, mom, N, H, d);
+  MV2_CHECK_LAUNCH();
+  taylor_apply_f32_kernel<<<
+      dim3(frames * H, (N + kF32Tok2 - 1) / kF32Tok2, groups), kF32Threads,
+      smem2, stream>>>(qkv, mom, attn, N, H, d, eps);
+  MV2_CHECK_LAUNCH();
+  return cudaSuccess;
+}
+
 }  // namespace mv2
 
 // the moment core of one Taylor block: qkv (frames * N, 3 * H * D) in the
 // working dtype, q already scaled, from the qkv GEMM; attn (frames * N,
 // H * D). The route must fit the dtype: kTaylorMma bf16, kTaylorF32 float32.
-// D is 8, 16 or 32; the bf16 core at 16 and 32 needs `scratch` (16-byte
-// aligned, frames * H * (2 * (8 * (D / 8 + 1)) * (D + D * D) + 4 * D)
-// bytes), the others none.
+// D is any multiple of 8 up to 256. The bf16 core at 16 and 32 needs
+// `scratch` (16-byte aligned, frames * H * (2 * (8 * (D / 8 + 1)) *
+// (D + D * D) + 4 * D) bytes), both cores at the other heads but 8 theirs
+// (ops/kernels/taylor_attention.py wide_scratch_bytes), the others none.
 extern "C" int mv2_taylor_core(const void* qkv, void* attn, void* scratch,
                                int dtype, int frames, int N, int H, int D,
                                float eps, int route, void* stream) {
@@ -894,6 +1468,15 @@ extern "C" int mv2_taylor_core(const void* qkv, void* attn, void* scratch,
     if (D == 32)
       return mv2::launch_taylor_core_wide<32>(q, o, scratch, frames, N, H,
                                               eps, s);
+    if (D <= 64)
+      return mv2::launch_taylor_core_stream<64>(q, o, scratch, frames, N, H,
+                                                D, eps, s);
+    if (D <= 128)
+      return mv2::launch_taylor_core_stream<128>(q, o, scratch, frames, N, H,
+                                                 D, eps, s);
+    if (D <= 256)
+      return mv2::launch_taylor_core_stream<256>(q, o, scratch, frames, N, H,
+                                                 D, eps, s);
   }
   if (route == mv2::kTaylorF32 && dtype == mv2::kFloat32) {
     const float* q = static_cast<const float*>(qkv);
@@ -904,6 +1487,9 @@ extern "C" int mv2_taylor_core(const void* qkv, void* attn, void* scratch,
       return mv2::launch_taylor_core_f32<16>(q, o, frames, N, H, eps, s);
     if (D == 32)
       return mv2::launch_taylor_core_f32<32>(q, o, frames, N, H, eps, s);
+    if (D % 8 == 0)
+      return mv2::launch_taylor_core_stream_f32(q, o, scratch, frames, N, H,
+                                                D, eps, s);
   }
   return cudaErrorInvalidValue;   // a head size or route no core takes
 }

@@ -30,12 +30,14 @@ are not carried over, ``lse`` is ``(b, h, n)`` float32. A bias ``(n, m)``,
 ``(h, n, m)`` or ``(b, h, n, m)`` is read as slice ``bh % groups`` without
 materialising the broadcast; its gradient is written by the dQ kernel as
 ``(b h, n, m)`` float32 and the groups that shared a slice are summed here,
-as the JAX wrapper does outside its kernel. Head sizes 1 to 256, as the JAX
+as the JAX wrapper does outside its kernel. Any head size, as the JAX
 kernel takes any head (its block is the whole head): the kernels take a
-multiple of 8 and run it at the next of the padded :data:`WIDTHS`, and
+multiple of 8, run it up to :data:`NARROW_MAX` at the next of the padded
+:data:`WIDTHS` and above on the wide kernels (the output in column chunks
+of 256, one a block, the scores summed over column slices), and
 :func:`flash_attention` pads any other head with zero columns up to the next
-multiple of 8 (on the CPU too). A larger head raises (ROADMAP item B12). float32 (CUDA
-cores, no TF32) and bfloat16 (tensor cores). All three kernels take the
+multiple of 8 (on the CPU too). float32 (CUDA cores, no TF32) and bfloat16
+(tensor cores). All three kernels take the
 route of :func:`flash_route`: ``'mma'`` for bf16, kernels on ``mma.sync``
 with register accumulators (the forward's online softmax in them too), a
 ``cp.async`` ring and the causal tile skip (:func:`dq_key_tiles`,
@@ -68,24 +70,23 @@ LAUNCHES = {**dict.fromkeys(KERNELS, 0),
             **{f'{kernel}_{route}': 0 for kernel in KERNELS
                for route in ROUTES}}
 
-MAX_DIM_HEAD = 256
 WIDTHS = (16, 32, 64, 128, 256)       # csrc/flash_attention.cu head_width
 EXACT_WIDTH = 64                      # kExactWidth: built apart at d == D
+NARROW_MAX = 256                      # kNarrowMax: wider heads, wide kernels
+WIDE_OUT = 256                        # kWideOut: output columns a block
 MASKED = -1e30
 
 
 def check_dim_head(dim_head: int):
-    """Heads of 1 to 256 values; a larger one raises (ROADMAP item B12)."""
-    if not 1 <= dim_head <= MAX_DIM_HEAD:
-        raise ValueError(f'flash attention: head size {dim_head} not in 1 .. '
-                         f'{MAX_DIM_HEAD} (a larger head is ROADMAP item '
-                         'B12)')
+    """A head of at least one value: the JAX kernel takes any head."""
+    if dim_head < 1:
+        raise ValueError(f'flash attention: head size {dim_head} < 1')
 
 
 def flash_route(dtype, dim_head: int) -> str:
     """The kernels of a call, forward and backward: ``'mma'`` (tensor
-    cores) for bf16, ``'f32'`` (CUDA cores) for float32, at every head size
-    of 1 to 256. It does not look at the device; no route gives way to
+    cores) for bf16, ``'f32'`` (CUDA cores) for float32, at every head
+    size. It does not look at the device; no route gives way to
     another, and what neither takes raises. The route is passed to the C
     entry points, which refuse one that does not fit the dtype."""
     check_dim_head(dim_head)
@@ -331,15 +332,19 @@ def mma_attributes(kernel: str, width: int, exact: bool = True) -> dict:
     ``'dq'`` or ``'dkv'`` at the padded width ``width`` (one of
     :data:`WIDTHS`), the kernel a head of exactly ``width`` runs (its own
     build up to 64, the padded one above) or (``exact=False``) the padded
-    kernel, which takes the head size at run time: registers and
+    kernel, which takes the head size at run time; at a head over
+    :data:`NARROW_MAX`, the wide kernel every such head runs: registers and
     local (spilled) bytes a thread, static shared memory, and the dynamic
     shared memory its launcher last set (the runtime's default limit before
     its first launch)."""
-    if width not in WIDTHS:
-        raise ValueError(f'flash attention: width {width} not in {WIDTHS}')
+    if width <= NARROW_MAX and width not in WIDTHS:
+        raise ValueError(f'flash attention: width {width} not in {WIDTHS} '
+                         f'or over {NARROW_MAX}')
     out = (ctypes.c_int * 4)()
     lib = _build.load_library()
-    number = MMA_KERNELS.index(kernel) + (0 if exact else len(MMA_KERNELS))
+    number = MMA_KERNELS.index(kernel) + (
+        2 * len(MMA_KERNELS) if width > NARROW_MAX
+        else 0 if exact else len(MMA_KERNELS))
     _build.check(lib, lib.mv2_flash_mma_attributes(number, width, out),
                  f'flash attention {kernel} attributes')
     return dict(zip(('registers', 'local_bytes', 'static_smem_bytes',
@@ -416,7 +421,7 @@ def bias_groups(bias, b: int, h: int, n: int, m: int):
 def flash_attention(q, k, v, causal: bool = False,
                     scale: Optional[float] = None, bias=None):
     """q ``(b, h, n, d)``; k, v ``(b, h, m, d)``, any ``m >= 1`` and
-    ``1 <= d <= 256``; returns ``(b, h, n, d)``. ``bias``: optional additive
+    ``d >= 1``; returns ``(b, h, n, d)``. ``bias``: optional additive
     pre-softmax bias ``(n, m)``, ``(h, n, m)`` or ``(b, h, n, m)``,
     differentiable. A head that is no multiple of 8 runs zero-padded to the
     next one (the scale from the true d) and is sliced back. The backward of

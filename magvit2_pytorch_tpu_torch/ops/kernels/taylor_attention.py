@@ -60,7 +60,21 @@ picked by a static rule (:func:`taylor_core_route`) and counted apart:
   registers, with the same epilogue.
 - ``'f32'`` (float32): one block per (frame, head) on the CUDA cores, each
   moment with one owner thread, then one thread per token; counted as
-  ``taylor_core_f32`` at every head size (173 KB of shared memory at 32).
+  ``taylor_core_f32`` at heads of 8, 16 and 32 (173 KB of shared memory at
+  32).
+- every other head up to 256, in both dtypes: the streamed cores, two
+  launches on scratch (:func:`wide_scratch_bytes`), built at the padded
+  widths 64, 128 and 256 (:data:`STREAM_WIDTHS`) with the true head size at
+  run time. The first launch writes a head's [A | S] (its phi features in
+  16-row units: k_j, then phi_ij for each i, the constant apart) to
+  scratch, in bf16 on the tensor cores or in float32 on the CUDA cores; the
+  second streams it through a ring of feature chunks, like a GEMM's K
+  loop, against phi(q) built from q in shared memory. bf16 counts as
+  ``taylor_core_wide_mma``, float32 as ``taylor_core_wide_f32``. A head
+  that is no multiple of 8 runs zero-padded to the next (q, k and v
+  columns, the scale the true head's), which adds exact zeros: the block
+  pads its weights' heads (:func:`pad_block_weights`) and the out
+  projection reads the zero columns against zero weights.
 
 What bounds it on the H100: at the flagship shape (160 frames x 1024 tokens
 x 256 channels, 16 heads x 8, batch 8) the two projections hold most of the
@@ -71,16 +85,19 @@ of 32 (the conditioned stack: 160 frames x 1024 tokens, 8 heads x 32) the
 core is bound by operations, barely: phi_ij == phi_ji, so the function
 needs 1 + d + d (d + 1) / 2 = 561 features a head, 99.8 GFLOP, 0.101 ms at
 the bf16 peak against 0.100 ms of bytes; the wide core builds all d^2
-products, about twice that work.
+products, about twice that work. At 4 heads of 64 (the conditioned stack at
+the README flagship's 64 x 4) the function needs 2145 features a head, 371
+GFLOP, 0.375 ms, against 0.100 ms of bytes; the streamed core builds
+d + d^2 = 4160 features by 72 columns.
 
 On the CPU the wrappers run the plain versions below, and autograd
 differentiates them. On a CUDA tensor they launch the kernel or raise; the
 backward recomputes through :func:`taylor_attention_twin`, the counterpart
-of the JAX custom VJP's XLA twin. A head size the core does not take never
-reaches it: :func:`taylor_eligible` sends it to the plain version on both
-devices (``ops/attention.py``): 8, 16 and 32 reach it, the JAX package's
-kernel taking any head whose phi fits its VMEM (``taylor_attention.py:
-337-342``).
+of the JAX custom VJP's XLA twin. A head size the cores do not take never
+reaches them: :func:`taylor_eligible` sends it to the plain version on both
+devices (``ops/attention.py``). Every head of 1 to 256 reaches them, a
+superset of the JAX package's kernel, which takes any head whose phi fits
+its VMEM (d <= 221 in bf16, ``taylor_attention.py:337-354``).
 """
 
 from __future__ import annotations
@@ -95,29 +112,31 @@ from magvit2_pytorch_tpu_torch.ops.kernels import _build, gemm
 LAUNCHES = {'taylor_attention_block': 0,
             'taylor_attention_block_no_norm': 0, 'taylor_core_mma': 0,
             'taylor_core_f32': 0, 'taylor_core_wide_mma': 0,
-            'taylor_attention_block_backward': 0}
+            'taylor_core_wide_f32': 0, 'taylor_attention_block_backward': 0}
 
-SUPPORTED_DIM_HEAD = (8, 16, 32)  # csrc/taylor_attention.cu: every route
+MAX_DIM_HEAD = 256              # csrc/taylor_attention.cu: every route
+ONE_LAUNCH_F32 = (8, 16, 32)    # taylor_core_f32_kernel's heads
+STREAM_WIDTHS = (64, 128, 256)  # StreamTc: the bf16 streamed core's widths
 CORES = {'f32': 0, 'mma': 1}  # csrc/taylor_attention.cu TaylorRoute
 INV_SQRT2 = 0.5 ** 0.5
 
 
 def taylor_eligible(dim_head: int) -> bool:
-    """Static gate of the Taylor block: a head size the CUDA cores take.
-    It does not look at the device, so a module routes the same way on the
-    CPU and the card; an ineligible module takes the plain version on both
-    (the JAX package takes its XLA reference for the calls its kernel does
-    not take, ``taylor_attention.py:337-361``)."""
-    return dim_head in SUPPORTED_DIM_HEAD
+    """Static gate of the Taylor block: a head size the CUDA cores take,
+    1 to 256. It does not look at the device, so a module routes the same
+    way on the CPU and the card; an ineligible module takes the plain
+    version on both (the JAX package takes its XLA reference for the calls
+    its kernel does not take, ``taylor_attention.py:337-361``)."""
+    return 1 <= dim_head <= MAX_DIM_HEAD
 
 
 def taylor_core_route(dtype, dim_head: int) -> str:
     """The moment core of a block call: ``'mma'`` (tensor cores) for bf16,
     ``'f32'`` (CUDA cores) for float32. No route gives way to another; a
     head size neither takes raises."""
-    if dim_head not in SUPPORTED_DIM_HEAD:
-        raise ValueError(f'taylor core: dim_head {dim_head} not in '
-                         f'{SUPPORTED_DIM_HEAD}')
+    if not taylor_eligible(dim_head):
+        raise ValueError(f'taylor core: dim_head {dim_head} not in 1 .. '
+                         f'{MAX_DIM_HEAD}')
     if dtype == torch.bfloat16:
         return 'mma'
     if dtype == torch.float32:
@@ -126,20 +145,52 @@ def taylor_core_route(dtype, dim_head: int) -> str:
                     f'{dtype}')
 
 
+def kernel_dim_head(dim_head: int) -> int:
+    """The head size the cores run: the next multiple of 8
+    (:func:`pad_block_weights` zero-pads the others)."""
+    return -(-dim_head // 8) * 8
+
+
 def core_counter(route: str, dim_head: int) -> str:
-    """The launch counter of a core call: the bf16 wide core at heads of 16
-    and 32 counts apart from the one-launch cores."""
+    """The launch counter of a core call at the cores' head size: the
+    two-launch cores (bf16 past 8, float32 past the one-launch core's
+    heads) count apart from the one-launch ones."""
     if route == 'mma' and dim_head != 8:
         return 'taylor_core_wide_mma'
+    if route == 'f32' and dim_head not in ONE_LAUNCH_F32:
+        return 'taylor_core_wide_f32'
     return f'taylor_core_{route}'
 
 
-def wide_scratch_bytes(frames: int, heads: int, dim_head: int) -> int:
-    """Scratch of the wide bf16 core (``csrc/taylor_attention.cu``
-    ``launch_taylor_core_wide``): per (frame, head) its [A | S] in bf16,
-    8 (d / 8 + 1) columns of d + d^2 features, then sum v in float32."""
-    cols, feat = 8 * (dim_head // 8 + 1), dim_head + dim_head ** 2
-    return frames * heads * (2 * cols * feat + 4 * dim_head)
+def stream_width(dim_head: int) -> int:
+    """The padded width of the bf16 streamed core a head runs at."""
+    return next(w for w in STREAM_WIDTHS if dim_head <= w)
+
+
+def wide_scratch_bytes(frames: int, heads: int, dim_head: int,
+                       route: str = 'mma') -> int:
+    """Scratch of a two-launch core at the cores' head size (0 for the
+    one-launch ones). bf16 at heads of 16 and 32
+    (``launch_taylor_core_wide``): per (frame, head) its [A | S] in bf16,
+    8 (d / 8 + 1) columns of d + d^2 features, then sum v in float32; bf16
+    at the other heads (``launch_taylor_core_stream``): D + 8 columns (D the
+    padded width) of 16 ceil(d / 16) (d + 1) features, then sum v, D
+    floats; float32 (``launch_taylor_core_stream_f32``): d + d^2 + 1
+    features (the last the constant) of d + 1 columns padded to a multiple
+    of 32, in float32."""
+    d = dim_head
+    if route == 'f32':
+        if d in ONE_LAUNCH_F32:
+            return 0
+        return frames * heads * 4 * (d + d * d + 1) * (-(-(d + 1) // 32) * 32)
+    if d == 8:
+        return 0
+    if d in (16, 32):
+        cols, feat = 8 * (d // 8 + 1), d + d ** 2
+        return frames * heads * (2 * cols * feat + 4 * d)
+    width = stream_width(d)
+    feat = 16 * (-(-d // 16)) * (d + 1)
+    return frames * heads * (2 * (width + 8) * feat + 4 * width)
 
 
 def taylor_core_ref(qkv, frames: int, heads: int, dim_head: int,
@@ -190,20 +241,23 @@ def taylor_attention_ref(x, gamma, wqkv, wout, heads: int, dim_head: int,
 def taylor_core(qkv, frames: int, heads: int, dim_head: int,
                 eps: float = 1e-5):
     """The moment core of a block (see :func:`taylor_core_ref`); on the card
-    on the route :func:`taylor_core_route` picks."""
+    on the route :func:`taylor_core_route` picks, at a head size that is a
+    multiple of 8 (:func:`taylor_launches` pads any other)."""
     if not qkv.is_cuda:
         return taylor_core_ref(qkv, frames, heads, dim_head, eps)
     route = taylor_core_route(qkv.dtype, dim_head)
     rows, cols = qkv.shape
     hd = heads * dim_head
+    if dim_head % 8:
+        raise ValueError(f'taylor core: dim_head {dim_head} is not a '
+                         'multiple of 8 (taylor_launches pads it)')
     if cols != 3 * hd or rows % frames or not qkv.is_contiguous():
         raise ValueError(f'taylor core: qkv {tuple(qkv.shape)} is not '
                          f'{frames} frames of contiguous rows of {3 * hd}')
     attn = torch.empty((rows, hd), dtype=qkv.dtype, device=qkv.device)
-    scratch = None
-    if route == 'mma' and dim_head != 8:
-        scratch = torch.empty(wide_scratch_bytes(frames, heads, dim_head),
-                              dtype=torch.uint8, device=qkv.device)
+    size = wide_scratch_bytes(frames, heads, dim_head, route)
+    scratch = (torch.empty(size, dtype=torch.uint8, device=qkv.device)
+               if size else None)
     lib = _build.load_library()
     code = lib.mv2_taylor_core(
         qkv.data_ptr(), attn.data_ptr(),
@@ -219,18 +273,37 @@ def taylor_launches(x, gamma, wqkv, wout, heads: int, dim_head: int,
                     eps: float = 1e-5):
     """The four launches of the block on ``(B, N, C)``: RMSNorm (none when
     ``gamma`` is None), the qkv GEMM (q scaled in its epilogue), the core,
-    the out GEMM. On CPU tensors each takes its plain version, so the
-    composition is testable there."""
+    the out GEMM. A head that is no multiple of 8 runs on weights whose
+    heads are zero-padded to the next (:func:`pad_block_weights`): the GEMMs
+    then see even widths and the core the head size it takes. On CPU
+    tensors each launch takes its plain version, so the composition is
+    testable there."""
     dt = x.dtype
     b, n, c = x.shape
-    hd = heads * dim_head
+    d = kernel_dim_head(dim_head)
+    if d != dim_head:
+        wqkv, wout = pad_block_weights(wqkv, wout, heads, dim_head, d)
     xn = x.reshape(b * n, c)
     if gamma is not None:
         xn = gemm.rmsnorm(xn, gamma)
-    qkv = gemm.gemm_nt(xn, wqkv.to(dt), scaled_cols=hd,
+    qkv = gemm.gemm_nt(xn, wqkv.to(dt), scaled_cols=heads * d,
                        col_scale=dim_head ** -0.5)
-    attn = taylor_core(qkv, b, heads, dim_head, eps)
+    attn = taylor_core(qkv, b, heads, d, eps)
     return gemm.gemm_nt(attn, wout.to(dt)).reshape(b, n, c)
+
+
+def pad_block_weights(wqkv, wout, heads: int, dim_head: int, width: int):
+    """wqkv ``(3 * heads * dim_head, C)`` and wout ``(C, heads *
+    dim_head)`` with each head zero-padded to ``width``: the qkv GEMM then
+    gives each head's q, k and v zero columns past ``dim_head``, which add
+    exact zeros in the core (its output columns there are 0), and the out
+    GEMM reads them against zero weights."""
+    c = wqkv.shape[1]
+    wqkv = F.pad(wqkv.reshape(3, heads, dim_head, c),
+                 (0, 0, 0, width - dim_head)).reshape(3 * heads * width, c)
+    wout = F.pad(wout.reshape(c, heads, dim_head),
+                 (0, width - dim_head)).reshape(c, heads * width)
+    return wqkv, wout
 
 
 def taylor_attention_twin(x, gamma, wqkv, wout, heads: int, dim_head: int,
@@ -271,8 +344,8 @@ def _block_launch(x, gamma, wqkv, wout, heads, dim_head, eps):
     _build.check_cuda_inputs(
         name, x, tuple(t for t in (gamma, wqkv, wout) if t is not None))
     if not taylor_eligible(dim_head):
-        raise ValueError(f'{name}: dim_head {dim_head} not in '
-                         f'{SUPPORTED_DIM_HEAD}')
+        raise ValueError(f'{name}: dim_head {dim_head} not in 1 .. '
+                         f'{MAX_DIM_HEAD}')
     c = x.shape[-1]
     hd = heads * dim_head
     if wqkv.shape != (3 * hd, c) or wout.shape != (c, hd):

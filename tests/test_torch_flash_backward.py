@@ -30,18 +30,19 @@ from magvit2_pytorch_tpu_torch.ops.kernels import (
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize('dim_head', [1, 8, 12, 16, 32, 64, 96, 128, 256])
+@pytest.mark.parametrize('dim_head', [1, 8, 12, 16, 32, 64, 96, 128, 256,
+                                      264, 512])
 @pytest.mark.parametrize('dtype,route', [(torch.bfloat16, 'mma'),
                                          (torch.float32, 'f32')])
 def test_flash_bwd_route(dtype, route, dim_head):
     """One rule by dtype for all three kernels, the forward's included, at
-    every head size of 1 to 256."""
+    every head size (over 256 the wide launches)."""
     assert fa.flash_route(dtype, dim_head) == route
 
 
 @pytest.mark.parametrize('dtype,dim_head,error', [
     (torch.float16, 32, TypeError), (torch.float64, 32, TypeError),
-    (torch.bfloat16, 264, ValueError), (torch.float32, 512, ValueError)])
+    (torch.bfloat16, 0, ValueError), (torch.float32, -8, ValueError)])
 def test_flash_bwd_route_refuses_what_no_kernel_takes(dtype, dim_head, error):
     with pytest.raises(error):
         fa.flash_route(dtype, dim_head)

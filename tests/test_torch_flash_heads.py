@@ -211,16 +211,16 @@ def test_head_of_12_through_the_zero_padding(causal):
 
 
 def test_head_rule():
-    """Heads of 1 to 256 take a route; a larger one raises and names
-    ROADMAP item B12."""
-    for d in (1, 12, 96, 256):
+    """Every head of at least one value takes a route, as the JAX kernel
+    takes any head: over 256 the wide launches (257 zero-padded to 264);
+    a head of 0 raises."""
+    for d in (1, 12, 96, 256, 257, 264, 512):
         assert fa.flash_route(torch.bfloat16, d) == 'mma'
-    for d in (0, 257, 512):
-        with pytest.raises(ValueError, match='B12'):
-            fa.flash_route(torch.float32, d)
-    with pytest.raises(ValueError, match='B12'):
-        z = torch.zeros(1, 1, 4, 264)
-        fa.flash_attention(z, z, z)
+        assert fa.flash_route(torch.float32, d) == 'f32'
+    with pytest.raises(ValueError, match='< 1'):
+        fa.flash_route(torch.float32, 0)
+    z = torch.zeros(1, 1, 4, 264)
+    assert fa.flash_attention(z, z, z).shape == (1, 1, 4, 264)
 
 
 # ---- the general Attention path at large heads ----------------------------

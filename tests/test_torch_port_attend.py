@@ -237,11 +237,12 @@ def test_flash_attention_gradients_match_plain_attend(bias_shape):
 
 
 def test_flash_attention_rejects_what_the_kernel_does_not_take():
-    """A head over 256 (ROADMAP item B12), no keys, and a bias that does not
-    fit raise; heads of 8 and 128 and fewer keys than queries are taken."""
-    q, k = torch.zeros(1, 1, 4, 264), torch.zeros(1, 1, 6, 264)
-    with pytest.raises(ValueError, match='B12'):
-        fa.flash_attention(q, k, k)
+    """No keys and a bias that does not fit raise; a head over 256 (the
+    wide launches on the card), heads of 8 and 128 and fewer keys than
+    queries are taken."""
+    q, k = torch.zeros(1, 1, 4, 264), torch.ones(1, 1, 6, 264)
+    assert torch.allclose(fa.flash_attention(q, k, k),
+                          torch.ones(1, 1, 4, 264))
     q, k = torch.zeros(1, 1, 4, 16), torch.zeros(1, 1, 0, 16)
     with pytest.raises(ValueError, match='keys'):
         fa.flash_attention(q, k, k)
@@ -300,26 +301,26 @@ def test_attend_dispatch_rules(flash_calls):
     with pytest.raises(AssertionError, match='residual attention'):
         pattend.attend(q, k, v, backend='flash',
                        prev_attn=torch.zeros(1, 2, 6, 6))
-    # flash takes a head of 8; one over 256 raises
+    # flash takes a head of 8, and one over 256 (the wide launches)
     out = pattend.attend(*(t[..., :8] for t in (q, k, v)), backend='flash')
     assert flash_calls == [(1, 2, 6, 8)] and out.shape == (1, 2, 6, 8)
     wide = torch.zeros(1, 2, 6, 264)
-    with pytest.raises(ValueError, match='head size'):
-        pattend.attend(wide, wide, wide, backend='flash')
+    out = pattend.attend(wide, wide, wide, backend='flash')
+    assert flash_calls[-1] == (1, 2, 6, 264) and out.shape == (1, 2, 6, 264)
 
 
 def test_auto_keeps_calls_the_kernel_refuses_off_flash(monkeypatch):
     """On the card ``'auto'`` picks flash where the JAX package does: n,
     m >= 1024 at heads of 32 to 256, fewer keys than queries included (the
-    kernels take those calls). The kernel refuses only heads over 256, and
-    'auto' keeps those, and heads under 32, on the plain backend. A tensor
-    subclass that says it lies on the card stands in for one, and the spy
-    stands in for the kernel."""
+    kernels take those calls). The kernels take a head over 256 too, but
+    'auto' keeps those, and heads under 32, on the plain backend, as the
+    JAX package's rule does. A tensor subclass that says it lies on the
+    card stands in for one, and the spy stands in for the kernel."""
     class OnCard(torch.Tensor):
         is_cuda = True
 
-    with pytest.raises(ValueError, match='B12'):
-        fa.flash_attention(*(torch.zeros(1, 1, 8, 264) for _ in range(3)))
+    assert fa.flash_attention(*(torch.zeros(1, 1, 8, 264)
+                                for _ in range(3))).shape == (1, 1, 8, 264)
 
     calls = []
 

@@ -145,12 +145,12 @@ class _OnCard(torch.Tensor):
 
 
 @pytest.mark.parametrize('dim_head,kernel', [(8, True), (16, True),
-                                             (32, True), (64, False)])
+                                             (32, True), (257, False)])
 def test_taylor_gate_keeps_other_head_sizes_off_the_kernel(
         monkeypatch, dim_head, kernel):
     """``TaylorSeriesLinearAttn`` on the card: a head size the CUDA cores
-    take (8, 16, 32) reaches the kernel wrapper, any other (64, which the
-    JAX kernel's VMEM fit takes at few tokens) the plain version, whatever
+    take (every head of 1 to 256) reaches the kernel wrapper, any other
+    (257, past the JAX kernel's VMEM fit too) the plain version, whatever
     the device (without the gate the wrapper raises there)."""
     rng = np.random.default_rng(7)
     mod = attention.TaylorSeriesLinearAttn(64, dim_head=dim_head, heads=4)
@@ -189,7 +189,7 @@ def test_taylor_core_route(dtype, dim_head, route):
 
 
 @pytest.mark.parametrize('dtype,dim_head,error', [
-    (torch.bfloat16, 64, ValueError), (torch.float32, 64, ValueError),
+    (torch.bfloat16, 257, ValueError), (torch.float32, 257, ValueError),
     (torch.float16, 8, TypeError)])
 def test_taylor_core_route_refuses_what_no_core_takes(dtype, dim_head, error):
     with pytest.raises(error):
