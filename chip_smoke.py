@@ -41,18 +41,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
    both dtypes (the float32 route) with its launches counted, a batch of
    two against its second frame alone (exactly 0), and
    ``TaylorSeriesLinearAttn(dim_head=257)`` (the gate's plain version: the
-   cores take every head to 256) on the card against the CPU. B3's wide
-   core (heads of 16 and 32, two
-   launches, ``taylor_core_wide_mma`` in bf16; ``taylor_core_f32`` in
-   float32) at the conditioned stack's B3 shape (160 frames x 1024 tokens
-   x 256, 8 heads): the block in both dtypes against its plain version with
-   its launches counted, the core against ``taylor_core_ref`` on the same
-   qkv timed beside its bound and the plain version, at d = 32 the no-norm
-   route's launches, and at both ``TAYLOR_CASES`` in both dtypes and a
-   batch boundary that must read exactly 0. B3's streamed cores (every
-   other head to 256, two launches on scratch, ``taylor_core_wide_mma`` in
-   bf16 and ``taylor_core_wide_f32`` in float32) at ``TAYLOR_HEAD_CASES``
-   (d = 12, 24, 48, 64, 128, 221 at shapes inside the JAX kernel's reach):
+   cores take every head to 256) on the card against the CPU. B3's wgmma
+   core (every bf16 head but 8, two launches, ``taylor_core_wide_mma``;
+   ``taylor_core_f32`` in float32) at heads of 32 and 16 at the
+   conditioned stack's B3 shape (160 frames x 1024 tokens x 256, 8 heads):
+   the block in both dtypes against its plain version with its launches
+   counted, the core against ``taylor_core_ref`` on the same qkv timed
+   beside its bound, the plain version and its earlier time, two calls
+   bit-identical, its feature rows over F and each launch's registers and
+   blocks an SM (``wg_core_report``), at d = 32 the no-norm route's
+   launches, and at both ``TAYLOR_CASES`` in both dtypes and a batch
+   boundary that must read exactly 0. The two-launch cores at the other
+   heads (the wgmma core in bf16, ``taylor_core_wide_f32`` in float32) at
+   ``TAYLOR_HEAD_CASES``
+   (d = 12, 24, 48, 64, 128, 221 at shapes inside the JAX kernel's reach,
+   and 256, the widest head the port takes, whose 264 columns the apply
+   launch loads in three boxes):
    the block in both dtypes against its plain version, its core counted,
    a batch boundary at 64; and at ``TAYLOR_D64``, the conditioned stack's
    B3 shape at 4 heads of 64: the block in both dtypes, and the core
@@ -128,7 +132,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    with ``linear_attn_dim_head=16`` (32 px, 5 frames) through the same
    entry points: bf16 on the card, and float32 card against CPU (codes,
    and the recon from the CPU's codes within 1e-3), each card run with
-   four launches of B3's wide core and none of the others.
+   four launches of B3's wgmma core and none of the others.
 6b. head sizes: B1 and B2 at every head shape of ``HEAD_CASES`` (dim_head x
    heads: 8 x 32, 16 x 16, 64 x 4, 128 x 2 at inner 256; 24 x 16 and 48 x 8
    at inner 384), B1 at the flagship's (160, 256, 512) and B2 at
@@ -207,10 +211,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    attention heads 8 x 16: B3 twice on its no-norm route, no norm launch,
    no B1 or B2, B4 for the plain units; frames/s; its stream with cond
    fixed; float32 card against CPU at 32 px. The same stack at the
-   README's heads, 32 x 8: B3 twice on its no-norm route on the wide core
+   README's heads, 32 x 8: B3 twice on its no-norm route on the wgmma core
    (``taylor_core_wide_mma``, the kernels line's count), no norm launch, no
    B1 or B2; frames/s and float32 card against CPU. And at the README
-   flagship's 64 x 4: B3 twice a roundtrip on its streamed core (the same
+   flagship's 64 x 4: B3 twice a roundtrip on its wgmma core (the same
    counter, the kernels line's ``taylor_core_wide_mma_d64``), no Taylor
    block on the plain version; frames/s and float32 card against CPU.
    B3's no-norm route against its plain version at the flagship shape (the
@@ -364,12 +368,12 @@ KERNELS = {
     # B3's moment core: the feature maps, A = phi(k)^T v, S and the output
     # of _taylor_frame (taylor_attention.py:78-107)
     'taylor_core_mma': (TAYLOR_SOURCE, B3_TPU),
-    # the same at heads of 16 and 32 (two launches: the moments, then the
-    # output), on the conditioned stack at the README's 32 x 8 heads
+    # the same at every other bf16 head (the wgmma core, two launches: the
+    # moments to scratch, then the output streaming them), at 32, on the
+    # conditioned stack at the README's 32 x 8 heads
     'taylor_core_wide_mma': (TAYLOR_SOURCE, B3_TPU),
-    # the same counter at heads of 64 (the streamed core: the moments to
-    # scratch, then the output streaming them), on the conditioned stack at
-    # the README flagship's 64 x 4 heads (TAYLOR_ROWS)
+    # the same counter at heads of 64, on the conditioned stack at the
+    # README flagship's 64 x 4 heads (TAYLOR_ROWS)
     'taylor_core_wide_mma_d64': (TAYLOR_SOURCE, B3_TPU),
     'residual_unit_wide': (
         RU_SOURCE, 'magvit2_pytorch_tpu/ops/pallas/residual_unit_wide.py:56'),
@@ -1634,7 +1638,7 @@ def phase_time_block(torch, dev, reps, smi):
 # chunk and 16-token tile part empty, 4096 is a 64 x 64 frame
 TAYLOR_CASES = ((3, 1), (3, 144), (3, 1000), (2, 4096))
 # the small tokenizer of the dim_head = 16 roundtrip: two linear attention
-# layers, each in the encoder and the decoder, on B3's wide core
+# layers, each in the encoder and the decoder, on B3's wgmma core
 TAYLOR_D16 = dict(image_size=32, init_dim=32, codebook_size=64,
                   layers=('residual', 'compress_space', 'linear_attend_space',
                           'compress_time', 'linear_attend_space'),
@@ -1829,26 +1833,74 @@ def phase_taylor_block(torch, dev, reps, smi):
                      cases_worst=worst, dim_head_257=errs)
 
 
-# B3's wide core (heads of 16 and 32) at the conditioned stack's B3 shape:
-# 160 frames (batch 8 x 20 padded frames) x 1024 tokens x 256 channels, 8
-# heads: the README's 32 x 8 conditioned stack, and the same at 16
+# B3's wgmma core at heads of 32 and 16 at the conditioned stack's B3
+# shape: 160 frames (batch 8 x 20 padded frames) x 1024 tokens x 256
+# channels, 8 heads: the README's 32 x 8 conditioned stack, and the same at
+# 16
 WIDE_HEADS = (32, 16)
 WIDE_SHAPE = (BATCH * 20, 1024, 256, 8)      # frames, N, C, heads
 PLAIN_REPS = 5       # timings of a plain version that takes tens of ms
+# the core's earlier times at these shapes, before the wgmma core: the
+# mma.sync wide core at 16 and 32 and the mma.sync streamed core at 64 (8
+# and 4 heads, 160 frames x 1024 tokens), bf16, per call of two launches,
+# on an H100 80GB HBM3 at 700 W (PERF.md, section 6, rows 3w and 3s): the
+# log prints them beside this run's times; the kernels line holds only what
+# this run measured
+TAYLOR_EARLIER_MS = {16: 0.2199, 32: 1.0457, 64: 6.3333}
+WG_KERNELS = ('taylor_moments_wg_kernel', 'taylor_apply_wg_kernel')
+
+
+def wg_core_report(ta, d):
+    """B3's bf16 wgmma core at head size d (the cores' head size): its
+    feature rows against the F = 1 + d + d (d + 1) / 2 features the function
+    needs (fails past 1.1 F from d = 32 on), and each launch's registers,
+    spills, shared memory and blocks an SM at its width, as the CUDA
+    runtime reports them, with ptxas's lines from this run's build (none
+    when the library came from the cache; a spill fails)."""
+    from magvit2_pytorch_tpu_torch.ops.kernels import _build
+    rows = len(ta.feature_pairs(d)[0])
+    feats = 1 + d + d * (d + 1) // 2
+    if d >= 32 and rows > 1.1 * feats:
+        fail(f'taylor wgmma core d={d}: {rows} feature rows > 1.1 F '
+             f'({feats})')
+    width = ta.core_width(d)
+    build_log = _build.build_info.get('log', '')
+    report = dict(feature_rows=rows, features=feats,
+                  rows_over_features=rows / feats, width=width)
+    for launch, kernel in zip(('moments', 'apply'), WG_KERNELS):
+        attrs = ta.core_attributes(launch, width)
+        ptxas = ptxas_lines(build_log, kernel).get(width, [None])[1:]
+        if spill_lines(ptxas) or attrs['local_bytes']:
+            fail(f'{kernel}<{width}> spills: {spill_lines(ptxas)}, {attrs}')
+        report[launch] = dict(ptxas=ptxas, **attrs)
+    return report
+
+
+def wg_core_text(report):
+    """The log's words for ``wg_core_report``."""
+    return (f'{report["feature_rows"]} feature rows for F = '
+            f'{report["features"]} ({report["rows_over_features"]:.4f} F), '
+            + '; '.join(f'{launch} {report[launch]["registers"]} registers, '
+                        f'{report[launch]["blocks_per_sm"]} blocks an SM, '
+                        f'{report[launch]["dynamic_smem_bytes"]} B shared'
+                        for launch in ('moments', 'apply'))
+            + f' (width {report["width"]})')
 
 
 def phase_taylor_wide(torch, dev, reps, smi):
-    """B3 at heads of 32 and 16 on its wide core (``taylor_core_wide_mma``
+    """B3 at heads of 32 and 16 on its wgmma core (``taylor_core_wide_mma``
     in bf16, ``taylor_core_f32`` in float32) at ``WIDE_SHAPE``: the
     block in both dtypes against its plain version in float32 (relative,
     phase 3's tolerances) with its launches counted; the core alone against
-    ``taylor_core_ref`` on the same qkv in float32 and in bf16, timed beside
-    its bound and the plain version's time, with TFLOP/s of the work the
-    function needs (``taylor_core_flops``); at d = 32 the no-norm route's
-    launches; at both ``TAYLOR_CASES`` (heads 8 x d) in both dtypes and a
-    batch boundary that must read exactly 0. Returns the kernels-line
-    row: the d = 32 core, per call of its two launches (d = 16 under
-    ``dim_head_16``)."""
+    ``taylor_core_ref`` on the same qkv in float32 and in bf16, two calls
+    bit-identical, timed beside its bound, the plain version's time and its
+    earlier time (``TAYLOR_EARLIER_MS``), with TFLOP/s of the work the
+    function needs (``taylor_core_flops``), its feature rows over F and
+    each launch's registers and blocks an SM (``wg_core_report``); at
+    d = 32 the no-norm route's launches; at both ``TAYLOR_CASES`` (heads 8
+    x d) in both dtypes and a batch boundary that must read exactly 0.
+    Returns the kernels-line row: the d = 32 core, per call of its two
+    launches (d = 16 under ``dim_head_16``)."""
     from magvit2_pytorch_tpu_torch.ops.kernels import (
         gemm, launch_counts, reset_launch_counts, taylor_attention as ta)
     set_tf32(False)
@@ -1896,6 +1948,8 @@ def phase_taylor_wide(torch, dev, reps, smi):
                            scaled_cols=hd, col_scale=dh ** -0.5)
         del x
         attn = ta.taylor_core(qkv, g, heads, dh)
+        if not torch.equal(attn, ta.taylor_core(qkv, g, heads, dh)):
+            fail(f'taylor wgmma core d={dh}: two calls differ')
         want = ta.taylor_core_ref(qkv.float(), g, heads, dh)
         err = relative_error(attn, want)
         abs_err = (attn.float() - want).abs().max().item()
@@ -1906,6 +1960,7 @@ def phase_taylor_wide(torch, dev, reps, smi):
         del want16
         ms = median_ms(lambda: ta.taylor_core(qkv, g, heads, dh), reps,
                        inner=INNER)
+        core = wg_core_report(ta, dh)
         plain_ms = median_ms(lambda: ta.taylor_core_ref(qkv, g, heads, dh),
                              PLAIN_REPS, warmup=1)
         q32 = qkv.float()
@@ -1930,11 +1985,14 @@ def phase_taylor_wide(torch, dev, reps, smi):
                    library_ms=None, library_call=None, bound_ms=bound_ms,
                    bound_by=bound_by, bound_share=bound_ms / ms,
                    tflops=flops / ms / 1e9, ms_fp32=ms32,
-                   plain_ms_fp32=plain32, max_rel_err_fp32=err32, block=block)
-        log(f'[taylor wide] d={dh}: the core at ({g}, {n}, {heads} x {dh}) '
-            f'bf16 {ms:.4f} ms ({row["tflops"]:.1f} TFLOP/s of the needed '
+                   plain_ms_fp32=plain32, max_rel_err_fp32=err32, block=block,
+                   bit_identical=True, core=core)
+        log(f'[taylor wide] d={dh}: the wgmma core at ({g}, {n}, {heads} x '
+            f'{dh}) bf16 {ms:.4f} ms, earlier {TAYLOR_EARLIER_MS[dh]:.4f} ms '
+            f'({row["tflops"]:.1f} TFLOP/s of the needed '
             f'work, {bound_ms / ms:.1%} of the bound {bound_ms:.4f} ms, '
             f'{bound_by}), plain {plain_ms:.4f} ms, no library call; '
+            f'{wg_core_text(core)}; two calls bit-identical; '
             f'against taylor_core_ref in float32 on the same qkv {err:.3e} '
             f'of the largest value (tol {TOL["bfloat16"]:g}), against the '
             f'bf16 plain version {err16:.3e}, {share16:.4%} of values '
@@ -1942,10 +2000,10 @@ def phase_taylor_wide(torch, dev, reps, smi):
             f'error {err32:.3e} (tol {TOL["float32"]:g}); the block '
             f'({g}, {n}, {c}) {block} on {smi}')
         if not err <= TOL['bfloat16']:
-            fail(f'taylor wide core d={dh}: error {err} of the largest value '
+            fail(f'taylor wgmma core d={dh}: error {err} of the largest value '
                  f'> {TOL["bfloat16"]}')
         if not err32 <= TOL['float32']:
-            fail(f'taylor wide core d={dh} float32: error {err32} of the '
+            fail(f'taylor core d={dh} float32: error {err32} of the '
                  f'largest value > {TOL["float32"]}')
         rows[dh] = row
 
@@ -1974,16 +2032,20 @@ def phase_taylor_wide(torch, dev, reps, smi):
                 cases_worst=cases[32][0], batch_boundary=cases[32][1])
 
 
-# B3 at the heads of its streamed cores (every head to 256 but 8, 16 and
-# 32): (frames, N, heads, d) inside the JAX kernel's reach ((d + 1) d heads
+# B3 at the other heads of its two-launch cores (every head to 256 but 8,
+# 16 and 32): (frames, N, heads, d) inside the JAX kernel's reach ((d + 1) d heads
 # N <= 6291456 in bf16, 128 <= N <= 2048; 221 is its widest head at one
-# head and N = 128; 12 through the wrapper's zero padding), C = 256; and
-# the conditioned stack's B3 shape at the README flagship's 64 x 4 heads
+# head and N = 128; 12 through the wrapper's zero padding), C = 256; 256,
+# the port's widest head, past that reach: its 264 columns are the only ones
+# the apply launch loads in three TMA boxes, with the den column in the n = 8
+# tail of its wgmma; and the conditioned stack's B3 shape at the README
+# flagship's 64 x 4 heads
 TAYLOR_HEAD_CASES = ((16, 1024, 8, 12), (16, 1024, 8, 24), (16, 256, 4, 48),
-                     (16, 256, 4, 64), (16, 128, 1, 128), (16, 128, 1, 221))
+                     (16, 256, 4, 64), (16, 128, 1, 128), (16, 128, 1, 221),
+                     (16, 128, 1, 256))
 TAYLOR_D64 = (BATCH * 20, 1024, 256, 4, 64)      # frames, N, C, heads, d
 TAYLOR_PLAIN_FRAMES = 40    # frames a call of the plain version there
-# the kernels-line row of the streamed core: row -> (its counter, the path
+# the kernels-line row of the wgmma core at 64: row -> (its counter, the path
 # whose launches it reports)
 TAYLOR_ROWS = {'taylor_core_wide_mma_d64': ('taylor_core_wide_mma',
                                             'cond_stack_64x4_default')}
@@ -2014,7 +2076,7 @@ def taylor_head_counts(dtype_name, d):
 
 
 def phase_taylor_heads(torch, dev, reps, smi):
-    """B3 on its streamed cores: at ``TAYLOR_HEAD_CASES`` the block in both
+    """B3 on its two-launch cores: at ``TAYLOR_HEAD_CASES`` the block in both
     dtypes against its plain version in float32 (relative, phase 3's
     tolerances) with its core counted, and at 64 x 4 a batch boundary that
     must read exactly 0; at ``TAYLOR_D64`` the block in both dtypes
@@ -2056,7 +2118,7 @@ def phase_taylor_heads(torch, dev, reps, smi):
                          f'two by {errs[f"batch_boundary_{name}"]}')
             del got, args
         cases[f'{frames}x{n} {heads}x{d}'] = errs
-    log(f'[taylor heads] B3 on its streamed cores at (frames, N, heads, d) '
+    log(f'[taylor heads] B3 on its two-launch cores at (frames, N, heads, d) '
         f'in {TAYLOR_HEAD_CASES}, C = {c}: the block against its plain '
         f'version in float32, error over the largest value {cases} (tol '
         f'{TOL}), the core counted on its route; at 64 a batch of two '
@@ -2109,6 +2171,8 @@ def phase_taylor_heads(torch, dev, reps, smi):
         return ta.taylor_core_ref(q, frames, heads, dh)
 
     attn = ta.taylor_core(qkv, g, heads, dh)
+    if not torch.equal(attn, ta.taylor_core(qkv, g, heads, dh)):
+        fail(f'taylor wgmma core {heads} x {dh}: two calls differ')
     want = in_frames(torch, core_ref, qkv.float(), g, TAYLOR_PLAIN_FRAMES)
     err = relative_error(attn, want)
     abs_err = (attn.float() - want).abs().max().item()
@@ -2150,22 +2214,29 @@ def phase_taylor_heads(torch, dev, reps, smi):
                library_ms=None, library_call=None, bound_ms=bound_ms,
                bound_by=bound_by, bound_share=bound_ms / ms,
                tflops=flops / ms / 1e9, ms_fp32=ms32, plain_ms_fp32=plain32,
-               max_rel_err_fp32=err32, block=block, cases=cases)
-    log(f'[taylor heads] the streamed core at ({g}, {n}, {heads} x {dh}) '
-        f'bf16 {ms:.4f} ms ({row["tflops"]:.1f} TFLOP/s of the needed work, '
+               max_rel_err_fp32=err32, block=block, cases=cases,
+               bit_identical=True, core=wg_core_report(ta, dh),
+               widths={w: wg_core_report(ta, w) for w in ta.WG_WIDTHS})
+    for w, report in row['widths'].items():
+        log(f'[taylor heads] the wgmma core at d = {w}: '
+            f'{wg_core_text(report)}')
+    log(f'[taylor heads] the wgmma core at ({g}, {n}, {heads} x {dh}) '
+        f'bf16 {ms:.4f} ms, earlier {TAYLOR_EARLIER_MS[dh]:.4f} ms '
+        f'({row["tflops"]:.1f} TFLOP/s of the needed work, '
         f'{bound_ms / ms:.1%} of the bound {bound_ms:.4f} ms, {bound_by}), '
         f'plain {plain_ms:.4f} ms ({TAYLOR_PLAIN_FRAMES} frames a call), no '
-        f'library call; against taylor_core_ref in float32 on the same qkv '
+        f'library call; {wg_core_text(row["core"])}; two calls '
+        f'bit-identical; against taylor_core_ref in float32 on the same qkv '
         f'{err:.3e} of the largest value (tol {TOL["bfloat16"]:g}), against '
         f'the bf16 plain version {err16:.3e}, {share16:.4%} of values '
         f'differ; float32 core {ms32:.4f} ms, plain {plain32:.4f} ms, error '
         f'{err32:.3e} (tol {TOL["float32"]:g}); the block ({g}, {n}, {c}) '
         f'{block} on {smi}')
     if not err <= TOL['bfloat16']:
-        fail(f'taylor streamed core: error {err} of the largest value > '
+        fail(f'taylor wgmma core: error {err} of the largest value > '
              f'{TOL["bfloat16"]}')
     if not err32 <= TOL['float32']:
-        fail(f'taylor streamed core float32: error {err32} of the largest '
+        fail(f'taylor core float32 at {dh}: error {err32} of the largest '
              f'value > {TOL["float32"]}')
     return row
 
@@ -2175,7 +2246,7 @@ def phase_taylor_roundtrip(torch, dev):
     ``tokenize`` and ``decode_from_code_indices`` on the card: bf16 shapes
     and finite values, and float32 (TF32 off) against the CPU on the same
     weights and input; each card run launches B3's core four times, the
-    wide core in bf16 and the float32 core in float32, and no other Taylor
+    wgmma core in bf16 and the float32 core in float32, and no other Taylor
     core."""
     from magvit2_pytorch_tpu_torch import VideoTokenizer
     from magvit2_pytorch_tpu_torch.ops.kernels import (
@@ -4157,9 +4228,9 @@ README_STREAM = {**STREAM_NONE, 'taylor_attention_block': 8,
 # attention. The conditioned linear attention takes the full attention's
 # head shape (attn_dim_head x attn_heads, as the JAX package builds it,
 # tokenizer_module.py:301-308), so the stack runs at two head shapes: the
-# README's 32 x 8, where B3 runs on its wide core (a 32-wide head has 1057
-# Taylor features), and 8 x 16, the linear attention's own; both on B3's
-# no-norm route
+# README's 32 x 8, where B3 runs on its wgmma core (a 32-wide head has 561
+# distinct Taylor features), and 8 x 16, the linear attention's own; both
+# on B3's no-norm route
 COND_DIM = 32
 COND_LAYERS = (
     'residual', 'compress_space', ('consecutive_residual', 2),
@@ -4171,7 +4242,7 @@ COND_HEADS = {'8x16': dict(attn_dim_head=8, attn_heads=16),
               '32x8': dict(attn_dim_head=32, attn_heads=8),
               '64x4': dict(attn_dim_head=64, attn_heads=4)}
 # per roundtrip: B3 twice on its no-norm route (two GEMMs each; the core at
-# 8 x 16 taylor_core_mma, at 32 x 8 the wide core), no norm launch, no B1
+# 8 x 16 taylor_core_mma, at 32 x 8 the wgmma core), no norm launch, no B1
 # or B2 (the conditioned norm sends both to the general path). B4 on the
 # fused path
 # for the plain ResidualUnits, RU_STAGES but the last stage, whose pair
@@ -4183,7 +4254,7 @@ COND_BLOCKS = {'8x16': {**NO_BLOCKS, 'taylor_attention_block': 2,
                         'taylor_attention_block_no_norm': 2,
                         'taylor_core_wide_mma': 2, 'gemm_wgmma': 4,
                         'rmsnorm': 0}}
-# at the README flagship's 64 x 4 heads B3 runs on its streamed core, the
+# at the README flagship's 64 x 4 heads B3 runs on its wgmma core too, the
 # same counter
 COND_BLOCKS['64x4'] = COND_BLOCKS['32x8']
 COND_FUSED_RU = {**FUSED_RU, 'residual_unit_wide': 16, 'ru_conv_wgmma': 18,
@@ -4616,8 +4687,8 @@ def phase_rest_of_serving(torch, dev, smi, profile_dir, reps):
         f'cond stack (default / fused) {cs["default"]["fps"]:.2f} / '
         f'{cs["fused"]["fps"]:.2f} frames/s at heads 8 x 16 (B3), '
         f'{cs32["default"]["fps"]:.2f} / {cs32["fused"]["fps"]:.2f} at the '
-        f"README's 32 x 8 (B3's wide core), {cs64['default']['fps']:.2f} / "
-        f"{cs64['fused']['fps']:.2f} at the flagship's 64 x 4 (B3's streamed "
+        f"README's 32 x 8 (B3's wgmma core), {cs64['default']['fps']:.2f} / "
+        f"{cs64['fused']['fps']:.2f} at the flagship's 64 x 4 (B3's wgmma "
         f'core)')
     return out, paths, no_norm
 

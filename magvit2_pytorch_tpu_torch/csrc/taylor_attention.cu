@@ -14,15 +14,15 @@
 // Cores, picked by the wrapper (taylor_core_route) and passed in:
 // - kTaylorMma, bf16, head size 8: tensor cores (mma.sync m16n8k16), one
 //   launch, below.
-// - kTaylorMma, bf16, head sizes 16 and 32 (the conditioned stack's linear
-//   attention takes the full attention's heads, 32 wide by default): two
-//   launches on tensor cores, the "wide" core further below.
+// - kTaylorMma, bf16, every other head up to 256 (a multiple of 8; the
+//   wrapper pads the others; the conditioned stack's linear attention takes
+//   the full attention's heads, 32 x 8 or 64 x 4): two launches on wgmma
+//   with A in registers, TMA rings and each distinct product phi_ij once,
+//   built at the padded widths 16, 32, 64, 128 and 256 with the true head
+//   size at run time ("the wgmma core" further below).
 // - kTaylorF32, float32, head sizes 8, 16, 32: CUDA cores, one block per
-//   (frame, head).
-// - every other head up to 256 (a multiple of 8; the wrapper pads the
-//   others), in bf16 and in float32: the streamed cores at the end of the
-//   file, two launches on scratch, built at the padded widths 64, 128 and
-//   256 with the true head size at run time.
+//   (frame, head); every other float32 head: two launches on the CUDA
+//   cores at the end of the file.
 // What bounds the core at the flagship shape (160 frames x 1024 tokens, 16
 // heads x 8): bytes. It reads bf16 q, k and v (126 MB) and writes the
 // attention (42 MB), 0.05 ms at 3.35 TB/s; its tensor-core work, 13.4
@@ -31,9 +31,9 @@
 // barely: phi_ij == phi_ji, so the function needs F = 1 + d + d (d + 1) / 2
 // = 561 features a head, 4 F (d + 1) + 2 d (d + 1) = 76 k FLOPs a token and
 // head, 99.8 GFLOP, 0.101 ms at 989 TFLOP/s, against 0.100 ms of bytes
-// (336 MB of q, k, v and the attention). The wide core below builds all
-// d^2 products, about twice that work.
-#include "common.cuh"
+// (336 MB of q, k, v and the attention); at 4 heads of 64, 371 GFLOP,
+// 0.375 ms, against 0.100 ms.
+#include "hopper.cuh"
 
 namespace mv2 {
 
@@ -499,774 +499,670 @@ cudaError_t launch_taylor_core_mma(const bf16* qkv, bf16* attn, int frames,
   return cudaSuccess;
 }
 
-// ---- kTaylorMma at D = 16 and 32: the wide core, two launches --------------
+// ---- kTaylorMma at every other head: the wgmma core, two launches ---------
 //
-// At D = 32 a head has 32 + 1024 phi features (and the constant): its
-// float32 [A | S] (1056 x 33) is ~140 KB, past a block's registers, so the
-// one-launch design above does not stretch. Two launches instead, with the
-// same cast points (_taylor_frame, taylor_attention.py:55-107):
-// Launch 1 (taylor_moments_mma_kernel), grid (frame x head, slab): the
-//   feature rows of a head are cut into 16-row units: phi_ij for one i and
-//   16 j (D * D / 16 units), k_j (D / 16 units) and the constant row (one
-//   unit, which gives sum v). A warp owns kUpw units and a block kWarps1
-//   warps, so a (frame, head) takes kSlabs blocks, each over all N tokens:
-//   no sum crosses blocks. The block streams the head's k and v through a
-//   three-stage cp.async ring; per 16-token tile a warp reads k and v as
-//   mma.sync fragments (ldmatrix.trans), builds each unit's phi(k) rows in
-//   registers (phi_ij = bf16(bf16(k_i k_j) bf16(1/sqrt2)), k_i taken from
-//   the lane that holds it by a shuffle) and accumulates [A | S] +=
-//   phi(k)^T [v | 1] over the tokens in float32. It writes [A | S]
-//   transposed in bf16 (the JAX kernel's cast) to scratch, columns v_e,
-//   then S, then zeros, and sum v in float32.
-// Launch 2 (taylor_apply_mma_kernel), grid (frame x head, 256 tokens):
-//   the block loads the head's [A | S]^T (86 KB at D = 32) and its q into
-//   shared memory; a warp takes 32 tokens (two m16 tiles) and, per
-//   16-feature step, builds phi(q) in registers and runs [num | den] +=
-//   phi(q) [A | S] (ldmatrix B fragments, one load for both tiles). Then
-//   num + sum v, den + N, r = bf16(1 / (den + eps)), out = bf16(num r).
-// What bounds it is operations (the file's head note); padding costs the
-// tensor cores 40 columns for 33 and the constant unit 1 of 67 rows. The
-// symmetry phi_ij == phi_ji (to the bit) is not used: it would halve both
-// launches' products.
-template <int D>
-struct WideTc {
-  static_assert(D == 16 || D == 32, "the wide core takes heads of 16 or 32");
-  static constexpr int kJb = D / 16;               // 16-row blocks of j
-  static constexpr int kFeat = D + D * D;          // rows: k_j, then phi_ij
-  static constexpr int kNt = D / 8 + 1;            // column tiles: v, then S
-  static constexpr int kCols = 8 * kNt;            // [A | S], zero-padded
-  static constexpr int kQuad = D * kJb;            // units of phi_ij rows
-  static constexpr int kUnits = kQuad + kJb + 1;   // + k_j, + the constant
-  static constexpr int kUpw = 4;                   // units a warp
-  static constexpr int kSlabs = D == 32 ? 3 : 1;   // blocks a (frame, head)
-  static constexpr int kWarps1 =
-      ((kUnits + kUpw - 1) / kUpw + kSlabs - 1) / kSlabs;
-  static constexpr int kChunk = 64;                // tokens a ring stage
-  static constexpr int kStages = 3;
-  // a staged token row: k, v, 16 bytes of padding (ldmatrix rows fall in
-  // different banks)
-  static constexpr int kKvLd = 2 * D + 8;
-  static constexpr size_t kSmem1 = sizeof(bf16) * kStages * kChunk * kKvLd;
-  static constexpr int kWarps2 = 8;
-  static constexpr int kTok2 = 32 * kWarps2;       // tokens a block
-  static constexpr int kAtLd = kFeat + 8;          // [A | S]^T row
-  static constexpr int kQLd = D + 8;
-  static constexpr size_t kSmem2 =
-      sizeof(bf16) * (kCols * kAtLd + kTok2 * kQLd);
-};
-
-__device__ __forceinline__ unsigned phi_pair(unsigned a, unsigned b,
-                                             unsigned inv_sqrt2) {
-  return bmul2(bmul2(a, b), inv_sqrt2);
-}
-
-template <int D>
-__global__ void __launch_bounds__(32 * WideTc<D>::kWarps1)
-    taylor_moments_mma_kernel(const bf16* __restrict__ qkv,
-                              bf16* __restrict__ mom,
-                              float* __restrict__ sumv, int N, int H) {
-  using W = WideTc<D>;
-  extern __shared__ __align__(16) unsigned char tw_smem[];
-  bf16* ring = reinterpret_cast<bf16*>(tw_smem);
-  const int fh = blockIdx.x;
-  const long long frame = fh / H;
-  const int h = fh % H;
-  const int hd = H * D;
-  const long long ld = 3LL * hd;
-  const bf16* kbase = qkv + frame * N * ld + hd + h * D;   // v at + hd
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tq = lane & 3;
-  const int u0 = (blockIdx.y * W::kWarps1 + warp) * W::kUpw;
-  const int nu = max(0, min(W::kUpw, W::kUnits - u0));   // warp-uniform
-  const unsigned inv_sqrt2 = bits(__float2bfloat16(0.70710678118654752f)) *
-                             0x10001u;
-  const unsigned ones = g == 0 ? 0x3F803F80u : 0u;   // column / row 0: 1
-  const int nch = (N + W::kChunk - 1) / W::kChunk;
-  constexpr int kPieces = D / 4;   // 16-byte pieces a token: k, then v
-
-  // chunk c into stage c % kStages; rows past N are zeros
-  auto stage = [&](int c) {
-    const int t0 = c * W::kChunk;
-    bf16* buf = ring + (c % W::kStages) * W::kChunk * W::kKvLd;
-    for (int idx = threadIdx.x; idx < W::kChunk * kPieces;
-         idx += blockDim.x) {
-      const int t = idx / kPieces, p = idx % kPieces;
-      const int which = p / (D / 8), piece = p % (D / 8);
-      const int n = min(t0 + t, N - 1);
-      cp_async16(buf + t * W::kKvLd + which * D + piece * 8,
-                 kbase + n * ld + which * hd + piece * 8, t0 + t < N);
-    }
-  };
-
-  float acc[W::kUpw][W::kNt][4];
-#pragma unroll
-  for (int s = 0; s < W::kUpw; ++s)
-#pragma unroll
-    for (int nt = 0; nt < W::kNt; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[s][nt][e] = 0.f;
-
-  // this lane's ldmatrix row: tokens 0-7 / 8-15 (matrices 0, 2 / 1, 3),
-  // columns 0-7 / 8-15 (matrices 0, 1 / 2, 3)
-  const int lrow = (lane & 7) + 8 * ((lane >> 3) & 1), lcol = 8 * (lane >> 4);
-  for (int c = 0; c < W::kStages - 1; ++c) {
-    if (c < nch) stage(c);
-    cp_async_commit();
-  }
-  for (int c = 0; c < nch; ++c) {
-    cp_async_wait<W::kStages - 2>();
-    __syncthreads();   // chunk c landed; every warp is done with c - 1
-    if (c + W::kStages - 1 < nch) stage(c + W::kStages - 1);
-    cp_async_commit();
-    if (nu == 0) continue;
-    const bf16* buf = ring + (c % W::kStages) * W::kChunk * W::kKvLd;
-    for (int tl = 0; tl < W::kChunk / 16 && c * W::kChunk + 16 * tl < N;
-         ++tl) {
-      const bf16* row = buf + (16 * tl + lrow) * W::kKvLd + lcol;
-      // kf[m]: k of features 16m + g (regs 0, 1) and 16m + g + 8 (2, 3) at
-      // tokens 2tq, 2tq + 1 (regs 0, 2) and 2tq + 8, 2tq + 9 (1, 3); vf[m]:
-      // the B fragments (b0, b1) of v's column tiles 2m and 2m + 1
-      unsigned kf[W::kJb][4], vf[W::kJb][4];
-#pragma unroll
-      for (int m = 0; m < W::kJb; ++m) {
-        ldmatrix_x4_trans(kf[m], row + 16 * m);
-        ldmatrix_x4_trans(vf[m], row + D + 16 * m);
-      }
-#pragma unroll
-      for (int s = 0; s < W::kUpw; ++s) {
-        if (s >= nu) continue;   // warp-uniform
-        const int u = u0 + s;
-        unsigned a[4];
-        if (u < W::kQuad) {   // phi_ij, i = u / kJb, j in block u % kJb
-          const int i = u / W::kJb, jb = u % W::kJb, blk = i >> 3;
-          unsigned s0 = 0u, s1 = 0u;
-#pragma unroll
-          for (int b = 0; b < D / 8; ++b)
-            if (b == blk) {
-              s0 = kf[b >> 1][2 * (b & 1)];
-              s1 = kf[b >> 1][2 * (b & 1) + 1];
-            }
-          // k_i at this lane's tokens, from the lane with g = i % 8
-          const int src = (i & 7) * 4 + tq;
-          const unsigned ki0 = __shfl_sync(0xffffffffu, s0, src);
-          const unsigned ki1 = __shfl_sync(0xffffffffu, s1, src);
-          unsigned kj[4];
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-            kj[r] = jb == 0 ? kf[0][r] : kf[W::kJb - 1][r];
-          a[0] = phi_pair(ki0, kj[0], inv_sqrt2);
-          a[1] = phi_pair(ki0, kj[2], inv_sqrt2);
-          a[2] = phi_pair(ki1, kj[1], inv_sqrt2);
-          a[3] = phi_pair(ki1, kj[3], inv_sqrt2);
-        } else if (u < W::kQuad + W::kJb) {   // k_j, j in block u - kQuad
-          const int jb = u - W::kQuad;
-#pragma unroll
-          for (int m = 0; m < W::kJb; ++m)
-            if (m == jb) {
-              a[0] = kf[m][0];
-              a[1] = kf[m][2];
-              a[2] = kf[m][1];
-              a[3] = kf[m][3];
-            }
-        } else {   // the constant row: 1 at row 0
-          a[0] = ones;
-          a[1] = 0u;
-          a[2] = ones;
-          a[3] = 0u;
-        }
-#pragma unroll
-        for (int nt = 0; nt < W::kNt - 1; ++nt)
-          mma_16816(acc[s][nt], a, vf[nt >> 1][2 * (nt & 1)],
-                    vf[nt >> 1][2 * (nt & 1) + 1]);
-        mma_16816(acc[s][W::kNt - 1], a, ones, ones);   // column D: S
-      }
-    }
-  }
-
-  // [A | S]^T in bf16 (column-major rows of features), sum v in float32
-  bf16* mh = mom + (long long)fh * W::kCols * W::kFeat;
-#pragma unroll
-  for (int s = 0; s < W::kUpw; ++s) {
-    if (s >= nu) continue;
-    const int u = u0 + s;
-    const bool konst = u == W::kUnits - 1;
-    const int f0 = u < W::kQuad ? D + (u / W::kJb) * D + 16 * (u % W::kJb)
-                                : 16 * (u - W::kQuad);
-#pragma unroll
-    for (int nt = 0; nt < W::kNt; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = g + 8 * (e >> 1), col = 8 * nt + 2 * tq + (e & 1);
-        if (konst) {
-          if (r == 0 && col < D) sumv[(long long)fh * D + col] = acc[s][nt][e];
-        } else {
-          mh[col * W::kFeat + f0 + r] = __float2bfloat16(acc[s][nt][e]);
-        }
-      }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(32 * WideTc<D>::kWarps2)
-    taylor_apply_mma_kernel(const bf16* __restrict__ qkv,
-                            const bf16* __restrict__ mom,
-                            const float* __restrict__ sumv,
-                            bf16* __restrict__ attn, int N, int H,
-                            float eps) {
-  using W = WideTc<D>;
-  extern __shared__ __align__(16) unsigned char tw_smem[];
-  bf16* at = reinterpret_cast<bf16*>(tw_smem);   // kCols rows of kAtLd
-  bf16* qs = at + W::kCols * W::kAtLd;           // kTok2 rows of kQLd
-  const int fh = blockIdx.x;
-  const long long frame = fh / H;
-  const int h = fh % H;
-  const int hd = H * D;
-  const long long ld = 3LL * hd;
-  const int t0 = blockIdx.y * W::kTok2;
-  const bf16* qbase = qkv + frame * N * ld + h * D;
-  const bf16* mh = mom + (long long)fh * W::kCols * W::kFeat;
-  constexpr int kRowPieces = W::kFeat / 8;
-  for (int idx = threadIdx.x; idx < W::kCols * kRowPieces;
-       idx += blockDim.x) {
-    const int r = idx / kRowPieces, p = idx % kRowPieces;
-    cp_async16(at + r * W::kAtLd + 8 * p, mh + r * W::kFeat + 8 * p);
-  }
-  for (int idx = threadIdx.x; idx < W::kTok2 * (D / 8); idx += blockDim.x) {
-    const int t = idx / (D / 8), p = idx % (D / 8);
-    const int n = min(t0 + t, N - 1);
-    cp_async16(qs + t * W::kQLd + 8 * p, qbase + n * ld + 8 * p, t0 + t < N);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tq = lane & 3;
-  const int wt = 32 * warp;   // the warp's first token in the block
-  if (t0 + wt >= N) return;   // no real token (no barrier follows)
-  const unsigned inv_sqrt2 = bits(__float2bfloat16(0.70710678118654752f)) *
-                             0x10001u;
-  const int lrow = (lane & 7) + 8 * ((lane >> 3) & 1), lcol = 8 * (lane >> 4);
-  // qf[mt][m]: the A fragment of q at tokens 16mt + (g, g + 8) and
-  // features 16m + (2tq, 2tq + 1, 2tq + 8, 2tq + 9)
-  unsigned qf[2][W::kJb][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int m = 0; m < W::kJb; ++m)
-      ldmatrix_x4(qf[mt][m],
-                  qs + (wt + 16 * mt + lrow) * W::kQLd + 16 * m + lcol);
-  float acc[2][W::kNt][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < W::kNt; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-  // B fragments of [A | S] at k-step ks: an x4 over column tiles (nt,
-  // nt + 1), low and high 8 features; an x2 for the last (S) tile
-  const bf16* b4 = at + ((lane & 7) + 8 * (lane >> 4)) * W::kAtLd +
-                   8 * ((lane >> 3) & 1);
-  const bf16* b2 = at + ((lane & 7) + 8 * (W::kNt - 1)) * W::kAtLd +
-                   8 * ((lane >> 3) & 1);
-  auto kstep = [&](int ks, const unsigned (&a)[2][4]) {
-#pragma unroll
-    for (int np = 0; np < W::kNt / 2; ++np) {
-      unsigned b[4];
-      ldmatrix_x4(b, b4 + 16 * np * W::kAtLd + 16 * ks);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        mma_16816(acc[mt][2 * np], a[mt], b[0], b[1]);
-        mma_16816(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
-      }
-    }
-    unsigned b[2];
-    ldmatrix_x2(b, b2 + 16 * ks);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-      mma_16816(acc[mt][W::kNt - 1], a[mt], b[0], b[1]);
-  };
-#pragma unroll
-  for (int m = 0; m < W::kJb; ++m) {   // the features k_j
-    unsigned a[2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[mt][r] = qf[mt][m][r];
-    kstep(m, a);
-  }
-#pragma unroll 1
-  for (int i = 0; i < D; ++i) {   // the features phi_ij
-    unsigned qi[2][2];   // q_i of tokens g and g + 8 of each tile, both lanes
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int p = 0; p < 2; ++p)
-        qi[mt][p] = bits(qs[(wt + 16 * mt + g + 8 * p) * W::kQLd + i]) *
-                    0x10001u;
-#pragma unroll
-    for (int m = 0; m < W::kJb; ++m) {
-      unsigned a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        a[mt][0] = phi_pair(qi[mt][0], qf[mt][m][0], inv_sqrt2);
-        a[mt][1] = phi_pair(qi[mt][1], qf[mt][m][1], inv_sqrt2);
-        a[mt][2] = phi_pair(qi[mt][0], qf[mt][m][2], inv_sqrt2);
-        a[mt][3] = phi_pair(qi[mt][1], qf[mt][m][3], inv_sqrt2);
-      }
-      kstep(W::kJb + i * W::kJb + m, a);
-    }
-  }
-
-  // den sits in column 0 of the last tile: lanes with tq == 0
-  const float* sv = sumv + (long long)fh * D;
-  float svv[W::kNt - 1][2];
-#pragma unroll
-  for (int nt = 0; nt < W::kNt - 1; ++nt) {
-    svv[nt][0] = sv[8 * nt + 2 * tq];
-    svv[nt][1] = sv[8 * nt + 2 * tq + 1];
-  }
-  bf16* out = attn + frame * N * hd + h * D;
-  const float n = (float)N;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const float d =
-          __shfl_sync(0xffffffffu, acc[mt][W::kNt - 1][2 * p], lane & ~3) + n;
-      const float r = round_to<bf16>(1.f / (d + eps));
-      const int t = t0 + wt + 16 * mt + g + 8 * p;
-      if (t < N)
-#pragma unroll
-        for (int nt = 0; nt < W::kNt - 1; ++nt)
-          *reinterpret_cast<unsigned*>(out + (long long)t * hd + 8 * nt +
-                                       2 * tq) =
-              pack_bf16((acc[mt][nt][2 * p] + svv[nt][0]) * r,
-                        (acc[mt][nt][2 * p + 1] + svv[nt][1]) * r);
-    }
-}
-
-// scratch: [A | S]^T in bf16 for every (frame, head), then sum v in float32
-// (ops/kernels/taylor_attention.py wide_scratch_bytes)
-template <int D>
-cudaError_t launch_taylor_core_wide(const bf16* qkv, bf16* attn,
-                                    void* scratch, int frames, int N, int H,
-                                    float eps, cudaStream_t stream) {
-  using W = WideTc<D>;
-  if (N < 1 || H < 1 || (uintptr_t)qkv % 16 || scratch == nullptr ||
-      (uintptr_t)scratch % 16)
-    return cudaErrorInvalidValue;
-  bf16* mom = static_cast<bf16*>(scratch);
-  float* sumv = reinterpret_cast<float*>(
-      mom + (size_t)frames * H * W::kCols * W::kFeat);
-  cudaError_t err = cudaFuncSetAttribute(
-      taylor_apply_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)W::kSmem2);
-  if (err != cudaSuccess) return err;
-  taylor_moments_mma_kernel<D>
-      <<<dim3(frames * H, W::kSlabs), 32 * W::kWarps1, W::kSmem1, stream>>>(
-          qkv, mom, sumv, N, H);
-  MV2_CHECK_LAUNCH();
-  taylor_apply_mma_kernel<D>
-      <<<dim3(frames * H, (N + W::kTok2 - 1) / W::kTok2), 32 * W::kWarps2,
-         W::kSmem2, stream>>>(qkv, mom, sumv, attn, N, H, eps);
-  MV2_CHECK_LAUNCH();
-  return cudaSuccess;
-}
-
-// ---- the other heads: the streamed cores, two launches each ----------------
+// Every bf16 head of 16 to 256 (a multiple of 8; the wrapper pads the
+// others), built at the padded widths D = 16, 32, 64, 128, 256 with the true
+// head size d at run time. Past d = 8 a head's [A | S] outgrows a block (at
+// d = 32 its float32 moments are ~74 KB, at 256 ~35 MB), so two launches
+// meet in scratch, with _taylor_frame's cast points (taylor_attention.py
+// :55-107): phi_ij = bf16(bf16(k_i k_j) bf16(1/sqrt2)), [A | S] rounded to
+// bf16, sum v and den + N in float32, r = bf16(1 / (den + eps)).
 //
-// Every head of 1 to 256 values but 8, 16 and 32 (the wrapper pads a head to
-// a multiple of 8 with zero columns: zero features add exact zeros). The
-// kernels are built at the padded widths D = 64, 128, 256 and take the true
-// d at run time; their feature rows are those of d. A head's phi has
-// d + d^2 features: past d = 32 its [A | S] outgrows a block's shared memory
-// (600 KB at d = 64 in bf16, ~35 MB at 256), so the moments go to scratch and
-// the second launch streams them through a ring, like a GEMM's K loop.
+// Feature rows. phi_ij == phi_ji to the bit, so a row is built once for
+// each pair i <= j; the wrapper hands both launches the rows as a table
+// (ops/kernels/taylor_attention.py feature_pairs / pair_table), one word a
+// row: the staged rows x | y << 16 of its two factors in [k | 1 | 0] (q in
+// the second launch), bit 31 set on the product rows. First the constant
+// (1 * 1) and the k_j (1 * k_j), zeros up to a multiple of 16, then the
+// products phi = bf16(bf16(x y) bf16(1/sqrt2)), zeros up to a multiple of
+// 64: F = 1 + d + d (d + 1) / 2 features in at most 1.05 F rows from d = 32
+// on. Rows r and r + 8 of every 16-row step share their first factor, so a
+// lane (which holds rows g and g + 8 in launch 1, features f and f + 8 in
+// launch 2) loads it once. An off-diagonal row stands for phi_ij and
+// phi_ji: launch 1 stores its [A | S] row doubled (exact in bf16).
 //
-// bf16 (kTaylorMma, counted as the wide core): the feature rows come in
-// 16-row units: k_j for j in 16-blocks jb < JB = ceil(d / 16) (units
-// 0 .. JB - 1), then phi_ij for i < d and j in block jb (unit JB + i JB + jb),
-// and the constant row (unit U = JB (d + 1), which gives sum v).
-// Launch 1 (taylor_moments_stream_kernel), grid (frame x head, slab): a warp
-//   owns kUpw units and a block kWarps1 warps, each block over all N tokens
-//   (no sum crosses blocks); the head's k and v stream through a cp.async
-//   ring, a unit's phi(k) rows are built in registers per 16-token tile
-//   (phi_ij = bf16(bf16(k_i k_j) bf16(1/sqrt2)), k_i by a shuffle), and
-//   [A | S] += phi(k)^T [v | 1] accumulates on mma.sync in float32; then
-//   [A | S]^T goes to scratch in bf16 (the JAX kernel's cast), 16 U feature
-//   rows a column, and sum v in float32.
-// Launch 2 (taylor_apply_stream_kernel), grid (frame x head, kTok2 tokens):
-//   the block holds its tokens' q in shared memory and streams [A | S]^T in
-//   chunks of kFk features through a three-stage ring; per 16-feature unit
-//   a warp builds phi(q) of its kMt 16-token tiles in registers and runs
-//   [num | den] += phi(q) [A | S] (its accumulators: kMt tiles x D + 8
-//   columns, at D = 256 one tile, 132 floats a lane). Then num + sum v,
-//   den + N, r = bf16(1 / (den + eps)), out = bf16(num r).
-// Column tiles past d (zeros) are skipped in both launches. phi_ij ==
-// phi_ji is not used (queue item B4 of ROADMAP.md): the work is
-// 4 (d + d^2) (D + 8) a token and head in place of the 4 F (d + 1) the
-// function needs (F = 1 + d + d (d + 1) / 2).
+// Launch 1 (taylor_moments_wg_kernel), grid (frame x head) x slab, slab
+// fastest: [A | S] = phi(k)^T [v | 1] over the frame's N tokens, M =
+// feature rows, N = the D + 8 columns [v | 1 | 0], K = tokens. A slab is
+// 2 kMt tiles of 64 rows; each of two warpgroups keeps kMt tiles' float32
+// accumulators over all N tokens (no sum crosses blocks). Thread 0 keeps
+// the (frame, head)'s k and v in flight by TMA, kTok tokens a chunk, in an
+// mbarrier ring (boxes of kTok tokens by D or 64 columns, swizzled; a 3-D
+// map, so rows past the frame read 0). The block transposes each chunk
+// once (ldmatrix.trans) into shared tiles: k feature-major, each lane's
+// eight tokens of two 16-token steps in one 16-byte piece (rows permuted by
+// kt_row against bank conflicts), and [v | 1] K-major with the 128-byte
+// swizzle (wgmma's B), 64 tokens a step. Per 64-token step a warp builds
+// its 16 rows of phi(k)^T of every tile in registers from three 16-byte
+// loads of k a row pair and 32 tokens (bf16x2 products) and the warpgroup
+// issues wgmma.m64n(D+8)k16 with A from registers, tile-interleaved (the
+// tiles' accumulators are independent chains). At D = 16 a step's wgmmas
+// run while the next step's A is built (A double-buffered); at the wider
+// widths each step's group retires first, which measured faster. The
+// epilogue stages each tile in shared memory and writes it, bf16 and
+// transposed (K-major for launch 2), to scratch: d + 8 rows of the F rows
+// rounded to 64, and sum v in float32 from the constant row (whose scratch
+// row is 0).
+// Launch 2 (taylor_apply_wg_kernel), grid (frame x head) x (kTokA
+// tokens), tokens fastest: [num | den] = phi(q) [A | S], M = tokens, K =
+// feature rows, N = D + 8. The block holds its tokens' q in shared memory
+// as token pairs (the two rows of an A fragment's lane) per head dimension;
+// thread 0 streams [A | S]^T in chunks of 64 feature rows by TMA (128-byte
+// swizzle, wgmma's B) with the chunk's table words (bulk copy) through a
+// kBStages ring. Per 16-row step a lane builds its four features of phi(q)
+// for its tokens (bf16x2 products of six 4-byte loads, paired by byte_perm)
+// while the previous step's wgmmas run (A double-buffered), and each
+// warpgroup issues wgmma.m64n(D+8)k16 on its kMta tiles of 64 tokens. Then
+// num + sum v, den + N, r = bf16(1 / (den + eps)), out = bf16(num r).
+// What bounds it: operations, 4 F (d + 1) + 4 d (d + 1) / 2 FLOPs a token
+// and head (chip_smoke.py taylor_core_flops), against the q, k, v and
+// output bytes; the tensor cores do 4 F' (D + 8) (F' the rows). What holds
+// it at 3-4x that (PERF.md, section 6): shared memory, which carries B at
+// n = d + 8 (at n = 72 half its rate at the tensor cores' pace), the A
+// operands' loads and the chunk transposes, and one or two blocks an SM to
+// hide the latency of each step. The tile counts, rings and chunk sizes
+// per width are tools/taylor_wg_variants.py's fastest.
 template <int D>
-struct StreamTc {
-  static_assert(D == 64 || D == 128 || D == 256, "the streamed core's widths");
-  static constexpr int kNt = D / 8 + 1;            // column tiles: v, then S
-  static constexpr int kCols = 8 * kNt;            // [A | S], zero-padded
-  static constexpr int kUpw = D <= 64 ? 4 : D <= 128 ? 2 : 1;  // units a warp
-  static constexpr int kWarps1 = 8;
-  static constexpr int kChunk = D <= 128 ? 64 : 32;  // tokens a ring stage
-  static constexpr int kStages = 3;
-  static constexpr int kKvLd = 2 * D + 8;          // a staged token: k, v
-  static constexpr size_t kSmem1 = sizeof(bf16) * kStages * kChunk * kKvLd;
-  static constexpr int kWarps2 = 8;
-  static constexpr int kMt = D <= 128 ? 2 : 1;     // 16-token tiles a warp
-  static constexpr int kTok2 = 16 * kMt * kWarps2; // tokens a block
-  static constexpr int kFk = 64;                   // features a ring stage
-  static constexpr int kAtLd = kFk + 8;            // a staged [A | S]^T row
-  static constexpr int kQLd = D + 8;
-  static constexpr size_t kSmem2 =
-      sizeof(bf16) * (kStages * kCols * kAtLd + kTok2 * kQLd);
+struct WgTc {
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 256,
+                "the wgmma core's widths");
+  static constexpr int kOne = D, kZero = D + 1;   // staged rows of 1 and 0
+  static constexpr int kRows = D + 2;             // staged rows a token
+  static constexpr int kN = D + 8;                // wgmma n: [v | 1 | 0]
+  static constexpr int kAcc = kN / 2;             // floats a lane a tile
+  static constexpr int kThreads = 256;            // two warpgroups
+  // launch 1
+  static constexpr int kTok = D <= 64 ? 128 : 64;   // tokens a chunk
+  static constexpr int kSub = kTok / 64;          // 64-token steps a chunk
+  static constexpr int kSw = D <= 64 ? 2 * D : 128;   // box row bytes
+  static constexpr int kBoxCols = kSw / 2;
+  static constexpr int kAtomBytes = kTok * kSw;   // one box
+  static constexpr int kAtoms = D / kBoxCols;     // boxes of k (and of v)
+  static constexpr int kRawStages = D == 256 ? 1 : 2;   // ring stages
+  static constexpr int kRawBytes = 2 * kAtoms * kAtomBytes;
+  static constexpr int kVtStep = kN * 128;        // [v | 1 | 0]^T, 64 tokens
+  static constexpr int kVtBytes = kSub * kVtStep;
+  static constexpr int kKtPart = kRows * 64;      // k^T, 32 tokens a row
+  static constexpr int kKtBytes = kTok / 32 * kKtPart;
+  static constexpr int kMt = D == 16 ? 2 : D == 32 ? 5 : D == 64 ? 4
+                           : D == 128 ? 2 : 1;    // tiles a warpgroup
+  // a step's wgmmas run while the next step's A is built (D = 16), or
+  // retire first (the wider widths measured faster so)
+  static constexpr bool kOverlap = D == 16;
+  static constexpr int kBlocks1 = D == 16 ? 3 : 1;   // blocks an SM
+  static constexpr int kSlabRows = 2 * kMt * 64;
+  static constexpr int kStageLd = 72;             // epilogue row, bf16
+  static constexpr size_t kSmem1 =
+      1024 + (size_t)kRawStages * kRawBytes + 2 * kVtBytes + 2 * kKtBytes +
+      4 * kSlabRows;
+  static_assert(2 * kN * kStageLd * 2 <= 2 * kVtBytes + 2 * kKtBytes,
+                "the epilogue's staging fits the chunk tiles");
+  // launch 2
+  static constexpr int kMta = D == 256 ? 1 : 2;   // 64-token tiles a warpgroup
+  static constexpr int kBlocks2 = D <= 64 ? 2 : 1;   // blocks an SM
+  static constexpr int kTokA = 128 * kMta;        // tokens a block
+  // words a staged q row: 2 mod 32, so the four rows a quad reads in a
+  // step (j, j + 4, j + 8, j + 12: feature_pairs' twins) hit other banks
+  static constexpr int kQpLd = kTokA / 2 + 2;
+  static constexpr int kBStages = 3;
+  static constexpr int kBBytes = kN * 128;        // 64 feature rows of B
+  static constexpr size_t kSmem2 = 1024 + (size_t)kBStages * kBBytes +
+                                   kBStages * 256 + 4 * kRows * kQpLd;
   static_assert(kSmem1 <= 232448 && kSmem2 <= 232448, "shared memory");
 };
 
-// units of a head of d: JB k_j units and d JB phi_ij units (the constant's
-// is the next)
-__host__ __device__ inline int stream_units(int d) {
-  return (d + 15) / 16 * (d + 1);
+// the byte offset of byte a of a box whose rows are `sw` bytes, as TMA's
+// swizzle places it (the box starting on a 1024-byte boundary)
+__device__ __forceinline__ int swizzled(int a, int sw) {
+  return a ^ (((a >> 7) & (sw / 16 - 1)) << 4);
+}
+
+// the place of staged k^T row x among 64-byte rows: rows x and x + 2 (the
+// first rows of two neighbouring twins, read by one quarter-warp) fall in
+// different halves of the 128-byte bank space
+__device__ __forceinline__ int kt_row(int x) { return x ^ (x >> 1 & 1); }
+
+// phi of two bf16 pairs: bf16(bf16(x y) c), each product rounded once
+__device__ __forceinline__ unsigned phi2(unsigned x, unsigned y, unsigned c) {
+  return bmul2(bmul2(x, y), c);
+}
+
+__device__ __forceinline__ unsigned lds32(const unsigned char* p) {
+  return *reinterpret_cast<const unsigned*>(p);
 }
 
 template <int D>
-__global__ void __launch_bounds__(32 * StreamTc<D>::kWarps1)
-    taylor_moments_stream_kernel(const bf16* __restrict__ qkv,
-                                 bf16* __restrict__ mom,
-                                 float* __restrict__ sumv, int N, int H,
-                                 int d) {
-  using W = StreamTc<D>;
-  extern __shared__ __align__(16) unsigned char tw_smem[];
-  bf16* ring = reinterpret_cast<bf16*>(tw_smem);
-  const int fh = blockIdx.x;
-  const long long frame = fh / H;
-  const int h = fh % H;
-  const int hd = H * d;
-  const long long ld = 3LL * hd;
-  const bf16* kbase = qkv + frame * N * ld + hd + (long long)h * d;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tq = lane & 3;
-  const int jbs = (d + 15) / 16, units = stream_units(d);
-  const int u0 = (blockIdx.y * W::kWarps1 + warp) * W::kUpw;
-  const int nu = max(0, min(W::kUpw, units + 1 - u0));  // warp-uniform
-  const unsigned inv_sqrt2 = bits(__float2bfloat16(0.70710678118654752f)) *
-                             0x10001u;
-  const unsigned ones = g == 0 ? 0x3F803F80u : 0u;   // column / row 0: 1
-  const int nch = (N + W::kChunk - 1) / W::kChunk;
-  constexpr int kPieces = D / 4;   // 16-byte pieces a staged token: k, v
+__global__ void __launch_bounds__(WgTc<D>::kThreads, WgTc<D>::kBlocks1)
+    taylor_moments_wg_kernel(const __grid_constant__ CUtensorMap map_qkv,
+                             const unsigned* __restrict__ pairs,
+                             bf16* __restrict__ mom,
+                             float* __restrict__ sumv, int N, int H, int d,
+                             int feats, int slabs) {
+  using W = WgTc<D>;
+  extern __shared__ unsigned char tg_smem[];
+  __shared__ __align__(8) uint64_t full[W::kRawStages];
+  unsigned char* raw = align1024(tg_smem);
+  unsigned char* vt = raw + W::kRawStages * W::kRawBytes;
+  unsigned char* kt = vt + 2 * W::kVtBytes;
+  unsigned* tbl = reinterpret_cast<unsigned*>(kt + 2 * W::kKtBytes);
+  // the slabs of a (frame, head) are neighbours in the grid: they run
+  // together and read its k and v from L2
+  const int fh = blockIdx.x / slabs, frame = fh / H, h = fh % H;
+  const int tiles = feats / 64, tile0 = blockIdx.x % slabs * 2 * W::kMt;
+  const int nch = (N + W::kTok - 1) / W::kTok;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  // chunk c into stage c % kStages; rows past N and columns past d are zeros
-  auto stage = [&](int c) {
-    const int t0 = c * W::kChunk;
-    bf16* buf = ring + (c % W::kStages) * W::kChunk * W::kKvLd;
-    for (int idx = threadIdx.x; idx < W::kChunk * kPieces;
-         idx += blockDim.x) {
-      const int t = idx / kPieces, p = idx % kPieces;
-      const int which = p / (D / 8), col = 8 * (p % (D / 8));
-      const bool ok = t0 + t < N && col < d;
-      const int n = min(t0 + t, N - 1);
-      cp_async16(buf + t * W::kKvLd + which * D + col,
-                 kbase + n * ld + which * hd + (ok ? col : 0), ok);
+  // thread 0 keeps k and v of chunk c in flight by TMA into stage c % S,
+  // refilling a stage once the block has transposed it
+  const int atoms = (d + W::kBoxCols - 1) / W::kBoxCols;
+  auto load = [&](int c) {
+    const int s = c % W::kRawStages;
+    const int ck = H * d + h * d, cv = 2 * H * d + h * d;
+    unsigned char* st = raw + s * W::kRawBytes;
+    mbar_expect_tx(&full[s], 2 * atoms * W::kAtomBytes);
+    for (int a = 0; a < atoms; ++a) {
+      tma_load_3d(st + a * W::kAtomBytes, &map_qkv, &full[s],
+                  ck + a * W::kBoxCols, c * W::kTok, frame);
+      tma_load_3d(st + (W::kAtoms + a) * W::kAtomBytes, &map_qkv, &full[s],
+                  cv + a * W::kBoxCols, c * W::kTok, frame);
     }
   };
-
-  float acc[W::kUpw][W::kNt][4];
-#pragma unroll
-  for (int s = 0; s < W::kUpw; ++s)
-#pragma unroll
-    for (int nt = 0; nt < W::kNt; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[s][nt][e] = 0.f;
-
-  const int lrow = (lane & 7) + 8 * ((lane >> 3) & 1), lcol = 8 * (lane >> 4);
-  for (int c = 0; c < W::kStages - 1; ++c) {
-    if (c < nch) stage(c);
-    cp_async_commit();
+  if (tid == 0) {
+    for (int s = 0; s < W::kRawStages; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int c = 0; c < W::kRawStages && c < nch; ++c) load(c);
   }
+  __syncthreads();
+
+  // constant rows: k^T's 1 and 0 rows, [v | 1 | 0]^T's zero rows past d
+  // (row d, the ones, is written with each chunk); the slab's table
+  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
+  const uint4 ones4 = make_uint4(0x3F803F80u, 0x3F803F80u, 0x3F803F80u,
+                                 0x3F803F80u);
+  constexpr int kParts = 2 * W::kTok / 32;   // 32-token parts, both buffers
+  for (int idx = tid; idx < kParts * 2 * 4; idx += 256) {   // part, row
+    const int piece = idx % 4, row = (idx / 4) % 2, part = idx / 8;
+    *reinterpret_cast<uint4*>(kt + part * W::kKtPart +
+                              kt_row(W::kOne + row) * 64 + 16 * piece) =
+        row == 0 ? ones4 : zero4;
+  }
+  const int zrows = W::kN - d - 1;   // per 64-token step of both buffers
+  for (int idx = tid; idx < 2 * W::kSub * zrows * 8; idx += 256) {
+    const int piece = idx % 8, e = d + 1 + (idx / 8) % zrows,
+              step = idx / (8 * zrows);
+    *reinterpret_cast<uint4*>(vt + step * W::kVtStep + e * 128 +
+                              16 * piece) = zero4;
+  }
+  for (int r = tid; r < W::kSlabRows; r += 256) {
+    const int row = tile0 * 64 + r;
+    tbl[r] = row < feats ? pairs[row] : (unsigned)(W::kZero | W::kZero << 16);
+  }
+
+  const int wg = warp / 4, wq = warp % 4, g = lane >> 2, tq = lane & 3;
+  const unsigned one2 = 0x3F803F80u;
+  const unsigned inv2 = bits(__float2bfloat16(0.70710678118654752f)) *
+                        0x10001u;
+  float acc[W::kMt][W::kAcc];
+#pragma unroll
+  for (int m = 0; m < W::kMt; ++m)
+#pragma unroll
+    for (int i = 0; i < W::kAcc; ++i) acc[m][i] = 0.f;
+
+  // chunk c: wait for its stage and transpose it once (ldmatrix.trans) into
+  // buffer c & 1; item (fb, part) of k and of v is the 8 features 8fb.. at
+  // the 32 tokens of a part; lane (g, tq) gets feature 8fb + g at tokens
+  // 32 part + 8 m + 2tq, + 1 in register m
+  auto transpose = [&](int c) {
+    const int s = c % W::kRawStages;
+    mbar_wait(&full[s], (c / W::kRawStages) & 1);
+    const unsigned char* st = raw + s * W::kRawBytes;
+    unsigned char* ktb = kt + (c & 1) * W::kKtBytes;
+    unsigned char* vtb = vt + (c & 1) * W::kVtBytes;
+    constexpr int kParts = W::kTok / 32;
+    const int items = d / 8 * kParts;
+    for (int it = warp; it < 2 * items; it += 8) {
+      const bool is_v = it >= items;
+      const int fb = (it % items) / kParts, part = it % kParts;
+      const int t = 32 * part + 8 * (lane / 8) + lane % 8;
+      const int off = swizzled(t * W::kSw + 16 * (fb % (W::kSw / 16)),
+                               W::kSw);
+      unsigned r[4];
+      ldmatrix_x4_trans(r, st + (is_v ? W::kAtoms : 0) * W::kAtomBytes +
+                               fb / (W::kSw / 16) * W::kAtomBytes + off);
+      const int e = 8 * fb + g;
+      if (!is_v) {   // k^T: one 16-byte piece a lane
+        *reinterpret_cast<uint4*>(ktb + part * W::kKtPart + kt_row(e) * 64 +
+                                  16 * tq) = make_uint4(r[0], r[1], r[2],
+                                                        r[3]);
+      } else {       // [v | 1]^T, K-major, 128-byte swizzle, 64 tokens a
+                     // step
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          *reinterpret_cast<unsigned*>(
+              vtb + part / 2 * W::kVtStep + e / 8 * 1024 + e % 8 * 128 +
+              (((4 * (part % 2) + m) ^ (e % 8)) * 16) + 4 * tq) = r[m];
+      }
+    }
+    if (tid < 8 * W::kSub) {   // row d: 1 at the chunk's real tokens
+                               // (d % 8 == 0: the row is not swizzled)
+      const int real = N - c * W::kTok - 8 * tid;
+      unsigned w[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        w[k] = (2 * k < real ? 0x3F80u : 0u) |
+               (2 * k + 1 < real ? 0x3F800000u : 0u);
+      *reinterpret_cast<uint4*>(vtb + tid / 8 * W::kVtStep + d * 128 +
+                                16 * (tid % 8)) = make_uint4(w[0], w[1],
+                                                             w[2], w[3]);
+    }
+    fence_proxy_async();
+    __syncthreads();   // chunk c is transposed: its stage refills
+    if (tid == 0 && c + W::kRawStages < nch) load(c + W::kRawStages);
+  };
+
+  // A of every tile of the warpgroup at chunk c: rows g and g + 8 of a
+  // warp's 16 share their first factor (feature_pairs); tokens 2tq, 2tq + 1
+  // (a0, a1) and 2tq + 8, 2tq + 9 (a2, a3) of steps 2 half and 2 half + 1.
+  // Every tile slot builds and issues, past the last tile too (its rows are
+  // the zero row): a wgmma behind a branch is serialized.
+  auto build = [&](unsigned(&a)[W::kMt][4][4], int c, int step) {
+    const unsigned char* ktb =
+        kt + (c & 1) * W::kKtBytes + 2 * step * W::kKtPart;
+#pragma unroll
+    for (int m = 0; m < W::kMt; ++m) {
+      const int rl = (wg * W::kMt + m) * 64 + wq * 16 + g;
+      const unsigned e0 = tbl[rl], e1 = tbl[rl + 8];
+      const unsigned cf = e0 >> 31 ? inv2 : one2;   // one kind a step
+      const unsigned char* pi = ktb + kt_row(e0 & 0x7FFF) * 64 + 16 * tq;
+      const unsigned char* pj0 =
+          ktb + kt_row(e0 >> 16 & 0x7FFF) * 64 + 16 * tq;
+      const unsigned char* pj1 =
+          ktb + kt_row(e1 >> 16 & 0x7FFF) * 64 + 16 * tq;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int o = half * W::kKtPart;
+        const uint4 i = *reinterpret_cast<const uint4*>(pi + o);
+        const uint4 j0 = *reinterpret_cast<const uint4*>(pj0 + o);
+        const uint4 j1 = *reinterpret_cast<const uint4*>(pj1 + o);
+        unsigned(&s0)[4] = a[m][2 * half];
+        unsigned(&s1)[4] = a[m][2 * half + 1];
+        s0[0] = phi2(i.x, j0.x, cf);
+        s0[1] = phi2(i.x, j1.x, cf);
+        s0[2] = phi2(i.y, j0.y, cf);
+        s0[3] = phi2(i.y, j1.y, cf);
+        s1[0] = phi2(i.z, j0.z, cf);
+        s1[1] = phi2(i.z, j1.z, cf);
+        s1[2] = phi2(i.w, j0.w, cf);
+        s1[3] = phi2(i.w, j1.w, cf);
+      }
+    }
+  };
+  // step-major: the tiles' accumulators are independent chains, so
+  // consecutive wgmmas do not wait on each other
+  auto issue = [&](const unsigned(&a)[W::kMt][4][4], int c, int step) {
+    const uint64_t db =
+        sw128_desc(vt + (c & 1) * W::kVtBytes + step * W::kVtStep);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int m = 0; m < W::kMt; ++m) wgmma_rs(acc[m], a[m][ks], db + 2 * ks);
+    wgmma_commit();
+  };
+  // a 64-token step of chunk c; with kOverlap the previous step is in
+  // flight while its A is built (A double-buffered: a wgmma's registers
+  // stay untouched until its group retires) and retires after it issues,
+  // else each step retires its own group
+  auto step = [&](unsigned(&a)[W::kMt][4][4], int c, int s) {
+    build(a, c, s);
+    issue(a, c, s);
+    if constexpr (W::kOverlap)
+      wgmma_wait<1>();
+    else
+      wgmma_wait<0>();
+  };
+  // chunk c is transposed into buffer c & 1, whose readers (chunk c - 2's
+  // steps) have retired and the block has met since; after its steps the
+  // block meets again
+  unsigned a0[W::kMt][4][4], a1[W::kMt][4][4];   // [tile][step][fragment]
   for (int c = 0; c < nch; ++c) {
-    cp_async_wait<W::kStages - 2>();
-    __syncthreads();   // chunk c landed; every warp is done with c - 1
-    if (c + W::kStages - 1 < nch) stage(c + W::kStages - 1);
-    cp_async_commit();
-    if (nu == 0) continue;
-    const bf16* buf = ring + (c % W::kStages) * W::kChunk * W::kKvLd;
-    for (int tl = 0; tl < W::kChunk / 16 && c * W::kChunk + 16 * tl < N;
-         ++tl) {
-      const bf16* row = buf + (16 * tl + lrow) * W::kKvLd + lcol;
-      // A fragments of the warp's units: rows features, columns tokens.
-      // ldmatrix.trans of 16 features of k gives kf[0] (features g, tokens
-      // 2tq, 2tq + 1), kf[1] (g, 2tq + 8, + 9), kf[2] (g + 8, 2tq ..),
-      // kf[3] (g + 8, 2tq + 8 ..)
-      unsigned a[W::kUpw][4];
-#pragma unroll
-      for (int s = 0; s < W::kUpw; ++s) {
-        if (s >= nu) continue;   // warp-uniform
-        const int u = u0 + s;
-        if (u < jbs) {   // k_j, j in block u
-          unsigned kf[4];
-          ldmatrix_x4_trans(kf, row + 16 * u);
-          a[s][0] = kf[0];
-          a[s][1] = kf[2];
-          a[s][2] = kf[1];
-          a[s][3] = kf[3];
-        } else if (u < units) {   // phi_ij, i = (u - jbs) / jbs
-          const int i = (u - jbs) / jbs, jb = (u - jbs) % jbs;
-          unsigned ki[4], kj[4];
-          ldmatrix_x4_trans(ki, row + 16 * (i >> 4));
-          ldmatrix_x4_trans(kj, row + 16 * jb);
-          // k_i at this lane's tokens, from the lane with g = i % 8
-          const bool hi = (i >> 3) & 1;
-          const int src = (i & 7) * 4 + tq;
-          const unsigned ki0 = __shfl_sync(0xffffffffu, hi ? ki[2] : ki[0],
-                                           src);
-          const unsigned ki1 = __shfl_sync(0xffffffffu, hi ? ki[3] : ki[1],
-                                           src);
-          a[s][0] = phi_pair(ki0, kj[0], inv_sqrt2);
-          a[s][1] = phi_pair(ki0, kj[2], inv_sqrt2);
-          a[s][2] = phi_pair(ki1, kj[1], inv_sqrt2);
-          a[s][3] = phi_pair(ki1, kj[3], inv_sqrt2);
-        } else {   // the constant row: 1 at row 0
-          a[s][0] = ones;
-          a[s][1] = 0u;
-          a[s][2] = ones;
-          a[s][3] = 0u;
-        }
-      }
-#pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        if (16 * np >= d) break;   // v's columns past d are zeros
-        unsigned vf[4];
-        ldmatrix_x4_trans(vf, row + D + 16 * np);
-#pragma unroll
-        for (int s = 0; s < W::kUpw; ++s) {
-          if (s >= nu) continue;
-          mma_16816(acc[s][2 * np], a[s], vf[0], vf[1]);
-          mma_16816(acc[s][2 * np + 1], a[s], vf[2], vf[3]);
-        }
-      }
-#pragma unroll
-      for (int s = 0; s < W::kUpw; ++s)
-        if (s < nu) mma_16816(acc[s][W::kNt - 1], a[s], ones, ones);  // S
+    transpose(c);
+    step(a0, c, 0);
+    if constexpr (W::kSub == 2) {
+      if constexpr (W::kOverlap)
+        step(a1, c, 1);
+      else   // step 0 has retired: its registers take step 1
+        step(a0, c, 1);
     }
+    __syncthreads();
   }
-  cp_async_wait<0>();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int m = 0; m < W::kMt; ++m) fence_acc(acc[m]);
+  __syncthreads();   // every wgmma has read its tiles: they are free
 
-  // [A | S]^T in bf16 (16 U feature rows a column), sum v in float32
-  const int feats = 16 * units;
-  bf16* mh = mom + (long long)fh * W::kCols * feats;
+  // per tile: rows g, g + 8 of the warp, columns 8j + 2tq (+1), staged in
+  // bf16 as [column][row] (the constant row 0, doubled off-diagonal rows),
+  // then written to scratch 16 bytes a thread
+  bf16* stage = reinterpret_cast<bf16*>(vt) + wg * W::kN * W::kStageLd;
+  const int cols = d + 8;
+  bf16* mh = mom + (size_t)fh * cols * feats;
 #pragma unroll
-  for (int s = 0; s < W::kUpw; ++s) {
-    if (s >= nu) continue;
-    const int u = u0 + s;
+  for (int m = 0; m < W::kMt; ++m) {
+    const int tile = tile0 + wg * W::kMt + m;
+    if (tile >= tiles) break;
 #pragma unroll
-    for (int nt = 0; nt < W::kNt; ++nt)
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = wq * 16 + g + 8 * hr, f = tile * 64 + row;
+      const unsigned e = tbl[(wg * W::kMt + m) * 64 + row];
+      const float scale = f == 0 ? 0.f
+                          : e >> 31 && (e & 0x7FFF) != (e >> 16 & 0x7FFF)
+                              ? 2.f
+                              : 1.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = g + 8 * (e >> 1), col = 8 * nt + 2 * tq + (e & 1);
-        if (u == units) {
-          if (r == 0 && col < D) sumv[(long long)fh * D + col] = acc[s][nt][e];
-        } else {
-          mh[(long long)col * feats + 16 * u + r] =
-              __float2bfloat16(acc[s][nt][e]);
+      for (int j = 0; j < W::kN / 8; ++j) {
+        const int col = 8 * j + 2 * tq;
+        const float v0 = acc[m][4 * j + 2 * hr];
+        const float v1 = acc[m][4 * j + 2 * hr + 1];
+        if (f == 0 && col < d) {   // sum v, float32
+          sumv[(size_t)fh * d + col] = v0;
+          sumv[(size_t)fh * d + col + 1] = v1;
         }
+        stage[col * W::kStageLd + row] = __float2bfloat16(v0 * scale);
+        stage[(col + 1) * W::kStageLd + row] = __float2bfloat16(v1 * scale);
       }
+    }
+    bar_sync(2 + wg, 128);
+    for (int idx = tid % 128; idx < cols * 8; idx += 128) {
+      const int col = idx / 8, piece = idx % 8;
+      *reinterpret_cast<uint4*>(mh + (size_t)col * feats + tile * 64 +
+                                8 * piece) =
+          *reinterpret_cast<const uint4*>(stage + col * W::kStageLd +
+                                          8 * piece);
+    }
+    bar_sync(2 + wg, 128);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(32 * StreamTc<D>::kWarps2)
-    taylor_apply_stream_kernel(const bf16* __restrict__ qkv,
-                               const bf16* __restrict__ mom,
-                               const float* __restrict__ sumv,
-                               bf16* __restrict__ attn, int N, int H, int d,
-                               float eps) {
-  using W = StreamTc<D>;
-  extern __shared__ __align__(16) unsigned char tw_smem[];
-  bf16* ring = reinterpret_cast<bf16*>(tw_smem);  // kCols rows of kAtLd
-  bf16* qs = ring + W::kStages * W::kCols * W::kAtLd;  // kTok2 of kQLd
-  const int fh = blockIdx.x;
-  const long long frame = fh / H;
-  const int h = fh % H;
-  const int hd = H * d;
-  const long long ld = 3LL * hd;
-  const int t0 = blockIdx.y * W::kTok2;
-  const bf16* qbase = qkv + frame * N * ld + (long long)h * d;
-  const int jbs = (d + 15) / 16, units = stream_units(d);
-  const int feats = 16 * units;
-  const bf16* mh = mom + (long long)fh * W::kCols * feats;
-  const int steps = (feats + W::kFk - 1) / W::kFk;
-  constexpr int kPieces = W::kFk / 8;
+__global__ void __launch_bounds__(WgTc<D>::kThreads, WgTc<D>::kBlocks2)
+    taylor_apply_wg_kernel(const __grid_constant__ CUtensorMap map_mom,
+                           const bf16* __restrict__ qkv,
+                           const unsigned* __restrict__ pairs,
+                           const float* __restrict__ sumv,
+                           bf16* __restrict__ attn, int N, int H, int d,
+                           int feats, float eps, int blocks) {
+  using W = WgTc<D>;
+  extern __shared__ unsigned char tg_smem[];
+  __shared__ __align__(8) uint64_t full[W::kBStages], empty[W::kBStages];
+  unsigned char* ring = align1024(tg_smem);
+  unsigned* tring = reinterpret_cast<unsigned*>(ring + W::kBStages * W::kBBytes);
+  unsigned char* qp = reinterpret_cast<unsigned char*>(tring + W::kBStages * 64);
+  // the token blocks of a (frame, head) are neighbours in the grid: they
+  // run together and read its [A | S] from L2
+  const int fh = blockIdx.x / blocks, frame = fh / H, h = fh % H;
+  const int t0 = blockIdx.x % blocks * W::kTokA;
+  const int chunks = feats / 64, cols = d + 8;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  for (int idx = threadIdx.x; idx < W::kTok2 * (D / 8); idx += blockDim.x) {
-    const int t = idx / (D / 8), col = 8 * (idx % (D / 8));
-    const bool ok = t0 + t < N && col < d;
-    const int n = min(t0 + t, N - 1);
-    cp_async16(qs + t * W::kQLd + col, qbase + n * ld + (ok ? col : 0), ok);
+  // thread 0 keeps feature rows 64kc.. of [A | S]^T and their table words
+  // in flight into stage kc % S, refilling a stage once both warpgroups'
+  // wgmmas have read it (`empty`); boxes of all d + 8 columns, or of 88
+  // three times at d = 256
+  auto load = [&](int kc) {
+    const int s = kc % W::kBStages, brows = cols <= 256 ? cols : 88;
+    unsigned char* st = ring + s * W::kBBytes;
+    mbar_expect_tx(&full[s], cols * 128 + 256);
+    for (int r = 0; r < cols; r += brows)
+      tma_load_3d(st + r * 128, &map_mom, &full[s], 64 * kc, r, fh);
+    bulk_load(tring + s * 64, pairs + 64 * kc, 256, &full[s]);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < W::kBStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);   // one arrival a warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int kc = 0; kc < W::kBStages && kc < chunks; ++kc) load(kc);
   }
-  // features f0 .. f0 + kFk - 1 of every column into stage c % kStages;
-  // zeros past the last feature
-  auto stage = [&](int c) {
-    bf16* buf = ring + (c % W::kStages) * W::kCols * W::kAtLd;
-    const int f0 = c * W::kFk;
-    for (int idx = threadIdx.x; idx < W::kCols * kPieces;
-         idx += blockDim.x) {
-      const int r = idx / kPieces, f = 8 * (idx % kPieces);
-      const bool ok = f0 + f < feats;
-      cp_async16(buf + r * W::kAtLd + f,
-                 mh + (long long)r * feats + (ok ? f0 + f : 0), ok);
+  __syncthreads();
+
+  // q as token pairs: word `slot` of row x holds q_x of tokens (t, t + 8),
+  // t = t0 + 16 (slot / 8) + slot % 8, the two rows of an A fragment's lane;
+  // rows kOne and kZero hold 1 and 0
+  const long long ld = 3LL * H * d;
+  const bf16* qb = qkv + (long long)frame * N * ld + (long long)h * d;
+  unsigned* qw = reinterpret_cast<unsigned*>(qp);
+  const int groups = d / 8, items = W::kTokA / 2 * groups;
+  constexpr int kItems = (W::kTokA / 2 * (D / 8) + 255) / 256;   // a thread
+  uint4 va[kItems], vb[kItems];   // every load in flight before any store
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int idx = tid + 256 * k, slot = idx / groups, xg = idx % groups;
+    const int ta = t0 + 16 * (slot / 8) + slot % 8, tb = ta + 8;
+    const bool in = idx < items;
+    va[k] = in && ta < N ? *reinterpret_cast<const uint4*>(
+                               qb + ta * ld + 8 * xg)
+                         : make_uint4(0u, 0u, 0u, 0u);
+    vb[k] = in && tb < N ? *reinterpret_cast<const uint4*>(
+                               qb + tb * ld + 8 * xg)
+                         : make_uint4(0u, 0u, 0u, 0u);
+  }
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int idx = tid + 256 * k, slot = idx / groups, xg = idx % groups;
+    if (idx < items)
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        qw[(8 * xg + e) * W::kQpLd + slot] =
+            __byte_perm(word_of(va[k], e / 2), word_of(vb[k], e / 2),
+                        e % 2 ? 0x7632 : 0x5410);
+  }
+  for (int slot = tid; slot < W::kTokA / 2; slot += 256) {
+    qw[W::kOne * W::kQpLd + slot] = 0x3F803F80u;
+    qw[W::kZero * W::kQpLd + slot] = 0u;
+  }
+  __syncthreads();
+
+  const int wg = warp / 4, wq = warp % 4, g = lane >> 2, tq = lane & 3;
+  const unsigned one2 = 0x3F803F80u;
+  const unsigned inv2 = bits(__float2bfloat16(0.70710678118654752f)) *
+                        0x10001u;
+  float acc[W::kMta][W::kAcc];
+#pragma unroll
+  for (int mt = 0; mt < W::kMta; ++mt)
+#pragma unroll
+    for (int i = 0; i < W::kAcc; ++i) acc[mt][i] = 0.f;
+  // this lane's word in a staged q row, per tile
+  int slot[W::kMta];
+#pragma unroll
+  for (int mt = 0; mt < W::kMta; ++mt)
+    slot[mt] = 4 * ((wg * W::kMta + mt) * 32 + wq * 8 + g);
+
+  // A of 16-row step ks of chunk kc for every tile: features 16ks + 2tq,
+  // + 1 (a0, a1) and 16ks + 2tq + 8, + 9 (a2, a3); features f and f + 8
+  // share their first factor (feature_pairs), so a lane loads six q words
+  // a step and tile
+  auto build = [&](unsigned(&a)[W::kMta][4], const unsigned* te, int ks) {
+    const uint2 ea = *reinterpret_cast<const uint2*>(te + 16 * ks + 2 * tq);
+    const uint2 eb =
+        *reinterpret_cast<const uint2*>(te + 16 * ks + 2 * tq + 8);
+    const unsigned cf = ea.x >> 31 ? inv2 : one2;   // one kind a step
+    const int pitch = 4 * W::kQpLd;   // bytes a staged q row
+    const int xi0 = (ea.x & 0x7FFF) * pitch, xi1 = (ea.y & 0x7FFF) * pitch;
+    const int xj[4] = {(int)(ea.x >> 16 & 0x7FFF) * pitch,
+                       (int)(ea.y >> 16 & 0x7FFF) * pitch,
+                       (int)(eb.x >> 16 & 0x7FFF) * pitch,
+                       (int)(eb.y >> 16 & 0x7FFF) * pitch};
+#pragma unroll
+    for (int mt = 0; mt < W::kMta; ++mt) {
+      const unsigned char* q = qp + slot[mt];
+      const unsigned qi0 = lds32(q + xi0), qi1 = lds32(q + xi1);
+      // phi of feature k at tokens (t, t + 8)
+      const unsigned p0 = phi2(qi0, lds32(q + xj[0]), cf);
+      const unsigned p1 = phi2(qi1, lds32(q + xj[1]), cf);
+      const unsigned p2 = phi2(qi0, lds32(q + xj[2]), cf);
+      const unsigned p3 = phi2(qi1, lds32(q + xj[3]), cf);
+      a[mt][0] = pair_of(p0, p1, false);   // token t
+      a[mt][1] = pair_of(p0, p1, true);    // token t + 8
+      a[mt][2] = pair_of(p2, p3, false);
+      a[mt][3] = pair_of(p2, p3, true);
     }
   };
-  for (int c = 0; c < W::kStages - 1; ++c) {   // q joins the first group
-    if (c < steps) stage(c);
-    cp_async_commit();
-  }
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tq = lane & 3;
-  const int wt = 16 * W::kMt * warp;   // the warp's first token in the block
-  const bool active = t0 + wt < N;     // warp-uniform
-  const unsigned inv_sqrt2 = bits(__float2bfloat16(0.70710678118654752f)) *
-                             0x10001u;
-  const int lrow = (lane & 7) + 8 * ((lane >> 3) & 1), lcol = 8 * (lane >> 4);
-  float acc[W::kMt][W::kNt][4];
+  auto issue = [&](const unsigned(&a)[W::kMta][4], uint64_t db) {
+    wgmma_fence();
 #pragma unroll
-  for (int mt = 0; mt < W::kMt; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < W::kNt; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-  // B fragments at k-step ks of a stage: an x4 over column tiles (nt,
-  // nt + 1), low and high 8 features; an x2 for the last (S) tile
-  const int b4 = ((lane & 7) + 8 * (lane >> 4)) * W::kAtLd +
-                 8 * ((lane >> 3) & 1);
-  const int b2 = ((lane & 7) + 8 * (W::kNt - 1)) * W::kAtLd +
-                 8 * ((lane >> 3) & 1);
-
-  for (int c = 0; c < steps; ++c) {
-    cp_async_wait<W::kStages - 2>();
-    __syncthreads();   // stage c (and q) landed; stage c - 1 is free
-    if (c + W::kStages - 1 < steps) stage(c + W::kStages - 1);
-    cp_async_commit();
-    if (!active) continue;
-    const bf16* buf = ring + (c % W::kStages) * W::kCols * W::kAtLd;
-#pragma unroll 1
-    for (int ks = 0; ks < W::kFk / 16; ++ks) {
-      const int u = c * (W::kFk / 16) + ks;
-      if (u >= units) break;   // uniform
-      // phi(q) of the warp's tiles as A fragments: rows tokens, columns
-      // the unit's 16 features (ldmatrix of q: qf[0] tokens g, features
-      // 2tq .. ; qf[1] g + 8; qf[2] g, 2tq + 8 ..; qf[3] g + 8, 2tq + 8 ..)
-      unsigned a[W::kMt][4];
-      const int i = u < jbs ? -1 : (u - jbs) / jbs;
-      const int jb = u < jbs ? u : (u - jbs) % jbs;
-#pragma unroll
-      for (int mt = 0; mt < W::kMt; ++mt) {
-        unsigned qf[4];
-        ldmatrix_x4(qf, qs + (wt + 16 * mt + lrow) * W::kQLd + 16 * jb + lcol);
-        if (i < 0) {
-#pragma unroll
-          for (int r = 0; r < 4; ++r) a[mt][r] = qf[r];
-        } else {
-          const unsigned qi0 =
-              bits(qs[(wt + 16 * mt + g) * W::kQLd + i]) * 0x10001u;
-          const unsigned qi1 =
-              bits(qs[(wt + 16 * mt + g + 8) * W::kQLd + i]) * 0x10001u;
-          a[mt][0] = phi_pair(qi0, qf[0], inv_sqrt2);
-          a[mt][1] = phi_pair(qi1, qf[1], inv_sqrt2);
-          a[mt][2] = phi_pair(qi0, qf[2], inv_sqrt2);
-          a[mt][3] = phi_pair(qi1, qf[3], inv_sqrt2);
-        }
+    for (int mt = 0; mt < W::kMta; ++mt) wgmma_rs(acc[mt], a[mt], db);
+    wgmma_commit();
+  };
+  // A double-buffered by step: step s + 1 is built while step s runs (a
+  // wgmma's registers stay untouched until its group retires); a chunk's
+  // stage goes back once its last step has retired
+  unsigned a0[W::kMta][4], a1[W::kMta][4];   // [tile][fragment]
+  for (int kc = 0; kc < chunks; ++kc) {
+    const int s = kc % W::kBStages;
+    mbar_wait(&full[s], (kc / W::kBStages) & 1);
+    const unsigned* te = tring + s * 64;
+    const uint64_t db = sw128_desc(ring + s * W::kBBytes);
+    build(a0, te, 0);
+    issue(a0, db);
+    wgmma_wait<1>();   // chunk kc - 1's last step: its stage is read
+    if (kc > 0 && tid % 128 == 0) {
+      const int sp = (kc - 1) % W::kBStages;
+      mbar_arrive(&empty[sp]);
+      if (tid == 0 && kc - 1 + W::kBStages < chunks) {
+        mbar_wait(&empty[sp], (kc - 1) / W::kBStages & 1);
+        load(kc - 1 + W::kBStages);
       }
-#pragma unroll
-      for (int np = 0; np < W::kNt / 2; ++np) {
-        if (16 * np >= d) break;   // [A]'s columns past d are zeros
-        unsigned b[4];
-        ldmatrix_x4(b, buf + b4 + 16 * np * W::kAtLd + 16 * ks);
-#pragma unroll
-        for (int mt = 0; mt < W::kMt; ++mt) {
-          mma_16816(acc[mt][2 * np], a[mt], b[0], b[1]);
-          mma_16816(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
-        }
-      }
-      unsigned b[2];
-      ldmatrix_x2(b, buf + b2 + 16 * ks);
-#pragma unroll
-      for (int mt = 0; mt < W::kMt; ++mt)
-        mma_16816(acc[mt][W::kNt - 1], a[mt], b[0], b[1]);
     }
+    build(a1, te, 1);
+    issue(a1, db + 2);
+    wgmma_wait<1>();
+    build(a0, te, 2);
+    issue(a0, db + 4);
+    wgmma_wait<1>();
+    build(a1, te, 3);
+    issue(a1, db + 6);
+    wgmma_wait<1>();
   }
-  cp_async_wait<0>();
-  if (!active) return;   // no barrier follows
+  wgmma_wait<0>();
+#pragma unroll
+  for (int mt = 0; mt < W::kMta; ++mt) fence_acc(acc[mt]);
 
-  // den sits in column 0 of the last tile: lanes with tq == 0
-  const float* sv = sumv + (long long)fh * D;
-  bf16* out = attn + frame * N * hd + (long long)h * d;
+  // den is column d: lanes with tq == 0 of 8-column block d / 8
+  const float* sv = sumv + (size_t)fh * d;
+  bf16* out = attn + (long long)frame * N * H * d + (long long)h * d;
   const float n = (float)N;
 #pragma unroll
-  for (int mt = 0; mt < W::kMt; ++mt)
+  for (int mt = 0; mt < W::kMta; ++mt)
 #pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const float den =
-          __shfl_sync(0xffffffffu, acc[mt][W::kNt - 1][2 * p], lane & ~3) + n;
+    for (int hr = 0; hr < 2; ++hr) {
+      float den = 0.f;
+#pragma unroll
+      for (int j = 0; j < W::kN / 8; ++j)
+        if (8 * j == d) den = acc[mt][4 * j + 2 * hr];
+      den = __shfl_sync(0xffffffffu, den, lane & ~3) + n;
       const float r = round_to<bf16>(1.f / (den + eps));
-      const int t = t0 + wt + 16 * mt + g + 8 * p;
+      const int t = t0 + (wg * W::kMta + mt) * 64 + wq * 16 + g + 8 * hr;
       if (t < N)
 #pragma unroll
-        for (int nt = 0; nt < W::kNt - 1; ++nt) {
-          const int col = 8 * nt + 2 * tq;
+        for (int j = 0; j < W::kN / 8 - 1; ++j) {
+          const int col = 8 * j + 2 * tq;
           if (col < d)
-            *reinterpret_cast<unsigned*>(out + (long long)t * hd + col) =
-                pack_bf16((acc[mt][nt][2 * p] + sv[col]) * r,
-                          (acc[mt][nt][2 * p + 1] + sv[col + 1]) * r);
+            *reinterpret_cast<unsigned*>(out + (long long)t * H * d + col) =
+                pack_bf16((acc[mt][4 * j + 2 * hr] + sv[col]) * r,
+                          (acc[mt][4 * j + 2 * hr + 1] + sv[col + 1]) * r);
         }
     }
 }
 
-// scratch: [A | S]^T in bf16 for every (frame, head), kCols columns of
-// 16 U features, then sum v in float32, D a (frame, head)
-// (ops/kernels/taylor_attention.py wide_scratch_bytes)
+// scratch: [A | S]^T in bf16, d + 8 columns of `feats` rows a (frame, head),
+// then sum v in float32, d a (frame, head) (ops/kernels/taylor_attention.py
+// wide_scratch_bytes); pairs: the feature rows (feature_pairs / pair_table),
+// `feats` words, a multiple of 64
 template <int D>
-cudaError_t launch_taylor_core_stream(const bf16* qkv, bf16* attn,
-                                      void* scratch, int frames, int N, int H,
-                                      int d, float eps, cudaStream_t stream) {
-  using W = StreamTc<D>;
-  if (N < 1 || H < 1 || d < 1 || d > D || d % 8 || (uintptr_t)qkv % 16 ||
-      scratch == nullptr || (uintptr_t)scratch % 16)
+cudaError_t launch_taylor_core_wg(const bf16* qkv, bf16* attn, void* scratch,
+                                  const unsigned* pairs, int frames, int N,
+                                  int H, int d, int feats, float eps,
+                                  cudaStream_t stream) {
+  using W = WgTc<D>;
+  if (N < 1 || H < 1 || d < 8 || d > D || d % 8 || feats < 64 ||
+      feats % 64 || (uintptr_t)qkv % 16 || scratch == nullptr ||
+      (uintptr_t)scratch % 16 || pairs == nullptr || (uintptr_t)pairs % 16)
     return cudaErrorInvalidValue;
-  const int units = stream_units(d);
+  const int cols = d + 8;
+  if (cols > 256 && cols % 88) return cudaErrorInvalidValue;
   bf16* mom = static_cast<bf16*>(scratch);
-  float* sumv = reinterpret_cast<float*>(
-      mom + (size_t)frames * H * W::kCols * 16 * units);
-  cudaError_t err = cudaFuncSetAttribute(
-      taylor_moments_stream_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)W::kSmem1);
+  float* sumv =
+      reinterpret_cast<float*>(mom + (size_t)frames * H * cols * feats);
+  CUtensorMap map_qkv, map_mom;
+  const long long qdims[3] = {3LL * H * d, N, frames};
+  const int qbox[3] = {W::kBoxCols, W::kTok, 1};   // kTok <= 256
+  cudaError_t err = tensor_map(&map_qkv, qkv, 3, qdims, qbox, W::kSw);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(taylor_apply_stream_kernel<D>,
+  const long long mdims[3] = {feats, cols, (long long)frames * H};
+  const int mbox[3] = {kSw128Cols, cols <= 256 ? cols : 88, 1};
+  err = tensor_map(&map_mom, mom, 3, mdims, mbox);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(taylor_moments_wg_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)W::kSmem1);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(taylor_apply_wg_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)W::kSmem2);
   if (err != cudaSuccess) return err;
-  const int warps = (units + 1 + W::kUpw - 1) / W::kUpw;
-  const int slabs = (warps + W::kWarps1 - 1) / W::kWarps1;
-  taylor_moments_stream_kernel<D>
-      <<<dim3(frames * H, slabs), 32 * W::kWarps1, W::kSmem1, stream>>>(
-          qkv, mom, sumv, N, H, d);
+  const int slabs = (feats / 64 + 2 * W::kMt - 1) / (2 * W::kMt);
+  const int blocks = (N + W::kTokA - 1) / W::kTokA;
+  if ((long long)frames * H * (slabs > blocks ? slabs : blocks) > 0x7FFFFFFF)
+    return cudaErrorInvalidValue;
+  taylor_moments_wg_kernel<D>
+      <<<frames * H * slabs, W::kThreads, W::kSmem1, stream>>>(
+          map_qkv, pairs, mom, sumv, N, H, d, feats, slabs);
   MV2_CHECK_LAUNCH();
-  taylor_apply_stream_kernel<D>
-      <<<dim3(frames * H, (N + W::kTok2 - 1) / W::kTok2), 32 * W::kWarps2,
-         W::kSmem2, stream>>>(qkv, mom, sumv, attn, N, H, d, eps);
+  taylor_apply_wg_kernel<D>
+      <<<frames * H * blocks, W::kThreads, W::kSmem2, stream>>>(
+          map_mom, qkv, pairs, sumv, attn, N, H, d, feats, eps, blocks);
   MV2_CHECK_LAUNCH();
   return cudaSuccess;
 }
 
-// float32 (kTaylorF32, counted as taylor_core_wide_f32) at the same heads,
-// the same two launches on the CUDA cores. Features f < d + d^2: k_f, then
+// registers, local bytes, static and dynamic shared memory and blocks an
+// SM of launch 1 (launch = 0) or 2 (1) at width D, after setting its
+// dynamic shared memory
+template <int D>
+cudaError_t wg_attributes(int launch, int* out) {
+  using W = WgTc<D>;
+  const void* fn = launch == 0
+                       ? reinterpret_cast<const void*>(
+                             taylor_moments_wg_kernel<D>)
+                       : reinterpret_cast<const void*>(
+                             taylor_apply_wg_kernel<D>);
+  const int smem = (int)(launch == 0 ? W::kSmem1 : W::kSmem2);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
+                                                      W::kThreads, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)attr.sharedSizeBytes;
+  out[3] = smem;
+  out[4] = blocks;
+  return cudaSuccess;
+}
+
+// ---- kTaylorF32 at the other heads: two launches -------------------------
+//
+// Every float32 head up to 256 but 8, 16 and 32 (counted as
+// taylor_core_wide_f32), two launches on the CUDA cores meeting in float32
+// scratch. Features f < d + d^2: k_f, then
 // phi_ij = k_i k_j / sqrt2 at d + i d + j, and the constant (f = d + d^2);
 // columns v_e, then S at e = d, zero-padded to a multiple of kF32Cols.
 // Launch 1 (taylor_moments_f32_kernel), grid (frame x head, features / 128,
@@ -1449,34 +1345,37 @@ cudaError_t launch_taylor_core_stream_f32(const float* qkv, float* attn,
 // the moment core of one Taylor block: qkv (frames * N, 3 * H * D) in the
 // working dtype, q already scaled, from the qkv GEMM; attn (frames * N,
 // H * D). The route must fit the dtype: kTaylorMma bf16, kTaylorF32 float32.
-// D is any multiple of 8 up to 256. The bf16 core at 16 and 32 needs
-// `scratch` (16-byte aligned, frames * H * (2 * (8 * (D / 8 + 1)) *
-// (D + D * D) + 4 * D) bytes), both cores at the other heads but 8 theirs
-// (ops/kernels/taylor_attention.py wide_scratch_bytes), the others none.
+// D is any multiple of 8 up to 256. The bf16 core past 8 takes `pairs`, its
+// `feats` feature rows (ops/kernels/taylor_attention.py pair_table), and
+// `scratch` (16-byte aligned, frames * H * (2 * (D + 8) * feats + 4 * D)
+// bytes); the float32 core at heads other than 8, 16 and 32 `scratch` of
+// its own (wide_scratch_bytes); the others neither.
 extern "C" int mv2_taylor_core(const void* qkv, void* attn, void* scratch,
-                               int dtype, int frames, int N, int H, int D,
-                               float eps, int route, void* stream) {
+                               const void* pairs, int dtype, int frames,
+                               int N, int H, int D, int feats, float eps,
+                               int route, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == mv2::kTaylorMma && dtype == mv2::kBFloat16) {
     const mv2::bf16* q = static_cast<const mv2::bf16*>(qkv);
     mv2::bf16* o = static_cast<mv2::bf16*>(attn);
+    const unsigned* t = static_cast<const unsigned*>(pairs);
     if (D == 8)
       return mv2::launch_taylor_core_mma(q, o, frames, N, H, eps, s);
-    if (D == 16)
-      return mv2::launch_taylor_core_wide<16>(q, o, scratch, frames, N, H,
-                                              eps, s);
-    if (D == 32)
-      return mv2::launch_taylor_core_wide<32>(q, o, scratch, frames, N, H,
-                                              eps, s);
+    if (D <= 16)
+      return mv2::launch_taylor_core_wg<16>(q, o, scratch, t, frames, N, H,
+                                            D, feats, eps, s);
+    if (D <= 32)
+      return mv2::launch_taylor_core_wg<32>(q, o, scratch, t, frames, N, H,
+                                            D, feats, eps, s);
     if (D <= 64)
-      return mv2::launch_taylor_core_stream<64>(q, o, scratch, frames, N, H,
-                                                D, eps, s);
+      return mv2::launch_taylor_core_wg<64>(q, o, scratch, t, frames, N, H,
+                                            D, feats, eps, s);
     if (D <= 128)
-      return mv2::launch_taylor_core_stream<128>(q, o, scratch, frames, N, H,
-                                                 D, eps, s);
+      return mv2::launch_taylor_core_wg<128>(q, o, scratch, t, frames, N, H,
+                                             D, feats, eps, s);
     if (D <= 256)
-      return mv2::launch_taylor_core_stream<256>(q, o, scratch, frames, N, H,
-                                                 D, eps, s);
+      return mv2::launch_taylor_core_wg<256>(q, o, scratch, t, frames, N, H,
+                                             D, feats, eps, s);
   }
   if (route == mv2::kTaylorF32 && dtype == mv2::kFloat32) {
     const float* q = static_cast<const float*>(qkv);
@@ -1492,4 +1391,19 @@ extern "C" int mv2_taylor_core(const void* qkv, void* attn, void* scratch,
                                                 D, eps, s);
   }
   return cudaErrorInvalidValue;   // a head size or route no core takes
+}
+
+// what the runtime reports for the bf16 two-launch core at width 16, 32,
+// 64, 128 or 256: launch 0 (moments) or 1 (apply); out: registers, local
+// bytes a thread, static and dynamic shared memory, blocks an SM
+extern "C" int mv2_taylor_core_attributes(int launch, int width, void* out) {
+  int* o = static_cast<int*>(out);
+  switch (width) {
+    case 16: return mv2::wg_attributes<16>(launch, o);
+    case 32: return mv2::wg_attributes<32>(launch, o);
+    case 64: return mv2::wg_attributes<64>(launch, o);
+    case 128: return mv2::wg_attributes<128>(launch, o);
+    case 256: return mv2::wg_attributes<256>(launch, o);
+  }
+  return cudaErrorInvalidValue;
 }

@@ -190,11 +190,6 @@ __device__ __forceinline__ void axpy8(float* o, float p, const bf16* piece) {
   }
 }
 
-// named barrier `id` over the first `count` threads of the block
-__device__ __forceinline__ void bar_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-
 // acc = A B for this consumer warpgroup's 128 columns (64 rows x 128
 // columns: 64 floats a thread): A the panel's
 // first ktiles chunks (64 rows), B the next ktiles weight tiles of the

@@ -48,9 +48,11 @@ SIGNATURES = {
     'mv2_time_block_plan': [_I] * 6 + [_P],
     # out (4 ints)
     'mv2_time_block_attributes': [_P],
-    # qkv, attn, scratch, dtype, frames, N, heads, dim_head, eps, route,
-    # stream
-    'mv2_taylor_core': [_P] * 3 + [_I] * 5 + [_F, _I, _P],
+    # qkv, attn, scratch, pairs, dtype, frames, N, heads, dim_head, rows,
+    # eps, route, stream
+    'mv2_taylor_core': [_P] * 4 + [_I] * 6 + [_F, _I, _P],
+    # launch, width, out (5 ints)
+    'mv2_taylor_core_attributes': [_I, _I, _P],
     # a, w, bias, out, dtype, B, T, H, W, C, conv, route, stream
     'mv2_ru_gemm': [_P] * 4 + [_I] * 8 + [_P],
     # y, k_w, k_b, logits, dtype, M, C, stream

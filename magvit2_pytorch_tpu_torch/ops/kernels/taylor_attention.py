@@ -43,38 +43,37 @@ picked by a static rule (:func:`taylor_core_route`) and counted apart:
   the loads 64 bytes wide and give 640 blocks at the flagship (160 frames
   x 16 heads), ~2.4 waves of two blocks an SM; all 16 heads would give 160
   blocks (1.2 waves on 132 SMs) and 64 KB stages of k and v.
-- ``'mma'`` at heads of 16 and 32 (the conditioned stack's linear
-  attention takes the full attention's heads, 32 wide by default): the
-  "wide" core, two launches on tensor cores, counted as
-  ``taylor_core_wide_mma``. A 32-wide head has 1056 phi features, and its
-  float32 [A | S] (~140 KB) outgrows a block's registers. The first launch
-  cuts a head's feature rows into 16-row units (phi_ij for one i, k_j, the
-  constant row), a warp owning four and a (frame, head) taking up to three
-  blocks, each over all N tokens (no sum crosses blocks): it streams k and
-  v through a ``cp.async`` ring, builds its rows of phi(k) in registers and
-  accumulates [A | S] on ``mma.sync``, then writes it in bf16 (the JAX
-  kernel's cast) and sum v in float32 to scratch the wrapper allocates
-  (:func:`wide_scratch_bytes`). The second launch, one block per (frame,
-  head, 256 tokens), loads that head's [A | S] into shared memory and runs
-  [num | den] = phi(q) [A | S] on the tensor cores, phi(q) built in
-  registers, with the same epilogue.
+- ``'mma'`` at every other head (16 to 256; the conditioned stack's linear
+  attention takes the full attention's heads, 32 x 8 or 64 x 4): two
+  launches on ``wgmma``, counted as ``taylor_core_wide_mma``, built at the
+  padded widths 16, 32, 64, 128 and 256 (:data:`WG_WIDTHS`) with the true
+  head size at run time. phi_ij == phi_ji to the bit, so each feature row
+  is built once: the constant, k_j and phi_ij for i <= j, in the order of
+  :func:`feature_pairs` (F = 1 + d + d (d + 1) / 2 features in at most
+  1.05 F rows from d = 32 on), which the wrapper hands both launches as a
+  table (:func:`pair_table`). The first launch streams the (frame, head)'s
+  k and v by TMA and accumulates [A | S] = phi(k)^T [v | 1] with phi(k)
+  built in registers as ``wgmma``'s A operand, then writes it in bf16 (the
+  JAX kernel's cast; an off-diagonal row doubled, exact, since it stands
+  for phi_ij and phi_ji) and sum v in float32 to scratch the wrapper
+  allocates (:func:`wide_scratch_bytes`); the second streams [A | S] by TMA
+  and runs [num | den] = phi(q) [A | S] with phi(q) built in registers from
+  q in shared memory, with the same epilogue.
 - ``'f32'`` (float32): one block per (frame, head) on the CUDA cores, each
   moment with one owner thread, then one thread per token; counted as
   ``taylor_core_f32`` at heads of 8, 16 and 32 (173 KB of shared memory at
   32).
-- every other head up to 256, in both dtypes: the streamed cores, two
-  launches on scratch (:func:`wide_scratch_bytes`), built at the padded
-  widths 64, 128 and 256 (:data:`STREAM_WIDTHS`) with the true head size at
-  run time. The first launch writes a head's [A | S] (its phi features in
-  16-row units: k_j, then phi_ij for each i, the constant apart) to
-  scratch, in bf16 on the tensor cores or in float32 on the CUDA cores; the
-  second streams it through a ring of feature chunks, like a GEMM's K
-  loop, against phi(q) built from q in shared memory. bf16 counts as
-  ``taylor_core_wide_mma``, float32 as ``taylor_core_wide_f32``. A head
-  that is no multiple of 8 runs zero-padded to the next (q, k and v
-  columns, the scale the true head's), which adds exact zeros: the block
-  pads its weights' heads (:func:`pad_block_weights`) and the out
-  projection reads the zero columns against zero weights.
+- ``'f32'`` at every other head up to 256: two launches on the CUDA cores
+  on float32 scratch (:func:`wide_scratch_bytes`), counted as
+  ``taylor_core_wide_f32``: the first writes a head's [A | S] (features
+  k_j, then phi_ij for every i and j, the constant last), the second
+  streams it in feature chunks against phi(q) built from q in shared
+  memory.
+
+A head that is no multiple of 8 runs zero-padded to the next (q, k and v
+columns, the scale the true head's), which adds exact zeros: the block pads
+its weights' heads (:func:`pad_block_weights`) and the out projection reads
+the zero columns against zero weights.
 
 What bounds it on the H100: at the flagship shape (160 frames x 1024 tokens
 x 256 channels, 16 heads x 8, batch 8) the two projections hold most of the
@@ -84,11 +83,11 @@ the out projection into the core's second phase is later work. At heads
 of 32 (the conditioned stack: 160 frames x 1024 tokens, 8 heads x 32) the
 core is bound by operations, barely: phi_ij == phi_ji, so the function
 needs 1 + d + d (d + 1) / 2 = 561 features a head, 99.8 GFLOP, 0.101 ms at
-the bf16 peak against 0.100 ms of bytes; the wide core builds all d^2
-products, about twice that work. At 4 heads of 64 (the conditioned stack at
-the README flagship's 64 x 4) the function needs 2145 features a head, 371
-GFLOP, 0.375 ms, against 0.100 ms of bytes; the streamed core builds
-d + d^2 = 4160 features by 72 columns.
+the bf16 peak against 0.100 ms of bytes; the wgmma core builds 576 rows by
+40 columns. At 4 heads of 64 (the conditioned stack at the README
+flagship's 64 x 4) the function needs 2145 features a head, 371 GFLOP,
+0.375 ms, against 0.100 ms of bytes; the wgmma core builds 2176 rows by 72
+columns.
 
 On the CPU the wrappers run the plain versions below, and autograd
 differentiates them. On a CUDA tensor they launch the kernel or raise; the
@@ -101,6 +100,9 @@ its VMEM (d <= 221 in bf16, ``taylor_attention.py:337-354``).
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -116,9 +118,10 @@ LAUNCHES = {'taylor_attention_block': 0,
 
 MAX_DIM_HEAD = 256              # csrc/taylor_attention.cu: every route
 ONE_LAUNCH_F32 = (8, 16, 32)    # taylor_core_f32_kernel's heads
-STREAM_WIDTHS = (64, 128, 256)  # StreamTc: the bf16 streamed core's widths
+WG_WIDTHS = (16, 32, 64, 128, 256)  # WgTc: the bf16 wgmma core's widths
 CORES = {'f32': 0, 'mma': 1}  # csrc/taylor_attention.cu TaylorRoute
 INV_SQRT2 = 0.5 ** 0.5
+ONE, ZERO = -1, -2   # feature_pairs: the factors 1 and 0
 
 
 def taylor_eligible(dim_head: int) -> bool:
@@ -162,22 +165,87 @@ def core_counter(route: str, dim_head: int) -> str:
     return f'taylor_core_{route}'
 
 
-def stream_width(dim_head: int) -> int:
-    """The padded width of the bf16 streamed core a head runs at."""
-    return next(w for w in STREAM_WIDTHS if dim_head <= w)
+def core_width(dim_head: int) -> int:
+    """The padded width of the bf16 wgmma core a head runs at."""
+    return next(w for w in WG_WIDTHS if dim_head <= w)
+
+
+@functools.lru_cache(maxsize=None)
+def feature_pairs(dim_head: int):
+    """The feature rows of the bf16 wgmma core at a head of ``dim_head``
+    (the cores' head size, a multiple of 8), in kernel order: each row is
+    the pair of factors (x, y) whose product is its feature, ``ONE`` and
+    ``ZERO`` standing for 1 and 0. First the constant (ONE, ONE) and the
+    k_j (ONE, j), zeros (ONE, ZERO) up to a multiple of 16; then phi_ij
+    for every i <= j once (phi_ij == phi_ji to the bit), zeros up to a
+    multiple of 64, the M tile. Rows r and r + 8 of every 16-row step share
+    their first factor (a lane's two rows in launch 1, a lane's features
+    f and f + 8 in launch 2), so a lane loads it once: the products go in
+    twins (i, j), (i, j + 1) along each i, the last of an odd run of i as
+    (d - 1, i) twinned with another such. Returns the rows (a tuple:
+    cached, since the wrapper sizes its scratch by them at every call) and
+    the first product row (every 16-row step holds one kind)."""
+    d = dim_head
+
+    def slices(twins):      # twin t: rows 16 (t // 8) + t % 8 and + 8
+        rows = [None] * (2 * len(twins))
+        for t, (first, second) in enumerate(twins):
+            base = 16 * (t // 8) + t % 8
+            rows[base], rows[base + 8] = first, second
+        return rows
+
+    def twins_of(entries, pad):
+        entries = entries + [pad] * (-len(entries) % 16)
+        return list(zip(entries[::2], entries[1::2]))
+
+    linear = slices(twins_of([(ONE, ONE)] + [(ONE, j) for j in range(d)],
+                             (ONE, ZERO)))
+    products, last = [], []
+    for i in range(d):
+        run = [(i, j) for j in range(i, d)]
+        if len(run) % 2:
+            last.append((d - 1, run.pop()[0]))
+        products += run
+    products += last + [(d - 1, ZERO)] * (len(last) % 2)
+    products += [(ZERO, ZERO)] * (-(len(linear) + len(products)) % 64)
+    return (tuple(linear + slices(twins_of(products, (ZERO, ZERO)))),
+            len(linear))
+
+
+def pair_table(dim_head: int):
+    """:func:`feature_pairs` as the kernel reads it, one word a row: the
+    staged rows of the two factors, x_i | x_j << 16 (a factor j < d is row
+    j, ONE row D and ZERO row D + 1 at the core's width D), bit 31 set on
+    the product rows and the zeros after them (the factor bf16(1/sqrt2);
+    the others take 1). As signed 32-bit ints."""
+    rows, linear = feature_pairs(dim_head)
+    width = core_width(dim_head)
+    staged = {ONE: width, ZERO: width + 1}
+    words = [staged.get(i, i) | staged.get(j, j) << 16
+             | (1 << 31 if r >= linear else 0)
+             for r, (i, j) in enumerate(rows)]
+    return [w - (1 << 32) if w >> 31 else w for w in words]
+
+
+_PAIR_TABLES: dict = {}
+
+
+def _pair_table_on(device, dim_head: int):
+    key = (device, dim_head)
+    if key not in _PAIR_TABLES:
+        _PAIR_TABLES[key] = torch.tensor(pair_table(dim_head),
+                                         dtype=torch.int32, device=device)
+    return _PAIR_TABLES[key]
 
 
 def wide_scratch_bytes(frames: int, heads: int, dim_head: int,
                        route: str = 'mma') -> int:
     """Scratch of a two-launch core at the cores' head size (0 for the
-    one-launch ones). bf16 at heads of 16 and 32
-    (``launch_taylor_core_wide``): per (frame, head) its [A | S] in bf16,
-    8 (d / 8 + 1) columns of d + d^2 features, then sum v in float32; bf16
-    at the other heads (``launch_taylor_core_stream``): D + 8 columns (D the
-    padded width) of 16 ceil(d / 16) (d + 1) features, then sum v, D
-    floats; float32 (``launch_taylor_core_stream_f32``): d + d^2 + 1
-    features (the last the constant) of d + 1 columns padded to a multiple
-    of 32, in float32."""
+    one-launch ones). bf16 past 8 (``launch_taylor_core_wg``): per (frame,
+    head) its [A | S] transposed in bf16, d + 8 columns of the
+    :func:`feature_pairs` rows, then sum v, d floats; float32
+    (``launch_taylor_core_stream_f32``): d + d^2 + 1 features (the last the
+    constant) of d + 1 columns padded to a multiple of 32, in float32."""
     d = dim_head
     if route == 'f32':
         if d in ONE_LAUNCH_F32:
@@ -185,12 +253,8 @@ def wide_scratch_bytes(frames: int, heads: int, dim_head: int,
         return frames * heads * 4 * (d + d * d + 1) * (-(-(d + 1) // 32) * 32)
     if d == 8:
         return 0
-    if d in (16, 32):
-        cols, feat = 8 * (d // 8 + 1), d + d ** 2
-        return frames * heads * (2 * cols * feat + 4 * d)
-    width = stream_width(d)
-    feat = 16 * (-(-d // 16)) * (d + 1)
-    return frames * heads * (2 * (width + 8) * feat + 4 * width)
+    rows = len(feature_pairs(d)[0])
+    return frames * heads * (2 * (d + 8) * rows + 4 * d)
 
 
 def taylor_core_ref(qkv, frames: int, heads: int, dim_head: int,
@@ -258,15 +322,33 @@ def taylor_core(qkv, frames: int, heads: int, dim_head: int,
     size = wide_scratch_bytes(frames, heads, dim_head, route)
     scratch = (torch.empty(size, dtype=torch.uint8, device=qkv.device)
                if size else None)
+    pairs = (_pair_table_on(qkv.device, dim_head)
+             if route == 'mma' and dim_head != 8 else None)
     lib = _build.load_library()
     code = lib.mv2_taylor_core(
         qkv.data_ptr(), attn.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
+        None if pairs is None else pairs.data_ptr(),
         _build.dtype_code(qkv), frames, rows // frames, heads, dim_head,
-        float(eps), CORES[route], _build.stream_handle(qkv.device))
+        0 if pairs is None else pairs.numel(), float(eps), CORES[route],
+        _build.stream_handle(qkv.device))
     _build.check(lib, code, f'taylor core ({route}, dim_head {dim_head})')
     LAUNCHES[core_counter(route, dim_head)] += 1
     return attn
+
+
+def core_attributes(launch: str, width: int) -> dict:
+    """What the CUDA runtime reports for the bf16 wgmma core at one of
+    :data:`WG_WIDTHS`: launch ``'moments'`` or ``'apply'``, registers and
+    local (spilled) bytes a thread, static and dynamic shared memory, and
+    blocks an SM."""
+    out = (ctypes.c_int * 5)()
+    lib = _build.load_library()
+    _build.check(lib, lib.mv2_taylor_core_attributes(
+        ('moments', 'apply').index(launch), width, out),
+        f'taylor core {launch} attributes at {width}')
+    return dict(zip(('registers', 'local_bytes', 'static_smem_bytes',
+                     'dynamic_smem_bytes', 'blocks_per_sm'), out))
 
 
 def taylor_launches(x, gamma, wqkv, wout, heads: int, dim_head: int,

@@ -55,10 +55,11 @@ def test_wide_heads_are_eligible(heads, d):
     assert ta.taylor_core_route(torch.float32, d) == 'f32'
     assert ta.core_counter('mma', d) == 'taylor_core_wide_mma'
     assert ta.core_counter('f32', d) == 'taylor_core_f32'
-    # [A | S] in bf16: 8 (d / 8 + 1) columns of d + d^2 features, sum v
-    cols = 40 if d == 32 else 24
+    # [A | S]^T in bf16: d + 8 columns of the packed feature rows (576 at
+    # 32, 192 at 16), sum v
+    rows = {32: 576, 16: 192}[d]
     assert ta.wide_scratch_bytes(3, heads, d) == 3 * heads * (
-        2 * cols * (d + d * d) + 4 * d)
+        2 * (d + 8) * rows + 4 * d)
 
 
 @pytest.mark.parametrize('heads,d', HEADS)

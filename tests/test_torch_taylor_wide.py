@@ -54,13 +54,15 @@ def test_every_head_to_256_is_eligible(d):
                                          else 'taylor_core_wide_mma')
     assert ta.core_counter('f32', k) == (
         'taylor_core_f32' if k in (8, 16, 32) else 'taylor_core_wide_f32')
-    if k not in (8, 16, 32):
-        width = ta.stream_width(k)
-        assert width == {24: 64, 48: 64, 64: 64, 128: 128, 224: 256,
-                         256: 256}[k]
-        feats = 16 * (-(-k // 16)) * (k + 1)
+    if k != 8:
+        width = ta.core_width(k)
+        assert width == {16: 16, 24: 32, 48: 64, 64: 64, 128: 128,
+                         224: 256, 256: 256}[k]
+        rows = len(ta.feature_pairs(k)[0])
+        assert rows % 64 == 0
         assert ta.wide_scratch_bytes(2, 3, k) == 6 * (
-            2 * (width + 8) * feats + 4 * width)
+            2 * (k + 8) * rows + 4 * k)
+    if k not in (8, 16, 32):
         assert ta.wide_scratch_bytes(2, 3, k, 'f32') == 6 * 4 * (
             k + k * k + 1) * (-(-(k + 1) // 32) * 32)
     assert not ta.taylor_eligible(257)

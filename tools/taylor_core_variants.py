@@ -63,8 +63,8 @@ def main():
                 out = torch.empty(frames * n, heads * dh, device=dev,
                                   dtype=torch.bfloat16)
                 code = libs[key].mv2_taylor_core(
-                    qkv.data_ptr(), out.data_ptr(), 1, frames, n, heads, dh,
-                    1e-5, ta.CORES['mma'],
+                    qkv.data_ptr(), out.data_ptr(), None, None, 1, frames,
+                    n, heads, dh, 0, 1e-5, ta.CORES['mma'],
                     torch.cuda.current_stream(dev).cuda_stream)
                 if code:
                     sys.exit(f'variant {key}: CUDA error {code}')
