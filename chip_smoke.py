@@ -415,12 +415,10 @@ LAUNCH_PATH = {**dict.fromkeys(FLASH_KERNELS, 'attention_step'),
 # 'mma' for bf16, 'f32' for float32
 FLASH_ROUTES = {f'{kernel}_{route}': route
                 for kernel in FLASH_KERNELS for route in ('mma', 'f32')}
-# the 'mma' kernels: (name in flash_attention.mma_attributes, CUDA kernel);
-# each is also built as '<kernel minus _kernel>_padded_kernel' for heads
-# narrower than a width, and as '<kernel minus _mma_kernel>_wide_mma_kernel'
-# for every head over 256; the 'f32' route's kernels by ptxas's lines alone
-FLASH_MMA = (('fwd', 'fwd_mma_kernel'), ('dq', 'bwd_dq_mma_kernel'),
-             ('dkv', 'bwd_dkv_mma_kernel'))
+# the 'mma' kernels by their names in flash_attention.mma_attributes (which
+# CUDA kernel runs at each width and head: flash_attention.mma_kernel); the
+# 'f32' route's kernels by ptxas's lines alone
+FLASH_MMA = ('fwd', 'dq', 'dkv')
 FLASH_F32 = ('fwd_kernel', 'bwd_dq_kernel', 'bwd_dkv_kernel',
              'fwd_wide_f32_kernel', 'bwd_dq_wide_f32_kernel',
              'bwd_dkv_wide_f32_kernel')
@@ -540,9 +538,22 @@ FLASH_FULL = dict(b=17, h=8, n=4096, m=4100, d=32)
 # the wide kernels (FLASH_WIDE: the output in column chunks of 256)
 FLASH_WIDE = (264, 320, 512, 1024)
 FLASH_HEADS = (8, 12, 24, 40, 96, 128, 256, *FLASH_WIDE)
+# heads at the Hopper kernels' widths 128 and 256 (d < D at both)
+FLASH_WG_HEADS = (96, 160, 256)
 # the attention step at the wide heads (phase 7): (dim_head, heads) at the
 # flagship's inner width 512, and the kernels-line rows they give
 FLASH_WIDTH_STEPS = ((128, 4), (256, 2), (512, 1))
+# the three kernels' earlier times at the step's shape, (17, heads, 4096,
+# dh) / 4100 keys bf16, before the Hopper forward and dK/dV (the padded
+# mma.sync kernels; PERF.md section 6, rows 6 and 8), on an H100 80GB HBM3
+# at 700 W: the log prints them beside this run's; the kernels line holds
+# only what this run measured
+FLASH_EARLIER_MS = {128: {'flash_attention_fwd': 2.6198,
+                          'flash_attention_bwd_dq': 3.4580,
+                          'flash_attention_bwd_dkv': 4.9362},
+                    256: {'flash_attention_fwd': 2.7500,
+                          'flash_attention_bwd_dq': 4.3076,
+                          'flash_attention_bwd_dkv': 8.3523}}
 FLASH_WIDTH_ROWS = {f'{kernel}_d{dh}': (kernel, f'attention_step_d{dh}')
                     for dh, _ in FLASH_WIDTH_STEPS for kernel in
                     ('flash_attention_fwd', 'flash_attention_bwd_dq',
@@ -3005,33 +3016,36 @@ def spill_lines(ptxas):
 
 
 def flash_mma_resources(fa):
-    """Registers, spills and shared memory of the three 'mma' kernels at
-    every compiled width, exact and padded, as the CUDA runtime reports them
-    after this run's launches (the dynamic shared memory is what each
-    launcher set; a kernel not launched shows the runtime's default), with
-    ptxas's lines from this run's build (none when the library came from the
-    cache), and the 'f32' kernels' ptxas lines. Fails on a spill."""
+    """Registers, spills, shared memory and blocks an SM of the three 'mma'
+    kernels at every compiled width, exact and padded (at 128 and 256 one
+    kernel takes every head: dQ's padded one and the Hopper forward and
+    dK/dV), as the CUDA runtime reports them (the dynamic shared memory is
+    what each launcher sets), with ptxas's lines from this run's build (none
+    when the library came from the cache), and the 'f32' kernels' ptxas
+    lines. Fails on a spill, and on a setmaxnreg that ptxas ignored."""
     from magvit2_pytorch_tpu_torch.ops.kernels import _build
     build_log = _build.build_info.get('log', '')
+    ignored = [ln.strip() for ln in build_log.splitlines()
+               if 'setmaxnreg' in ln and 'ignored' in ln]
+    if ignored:
+        fail(f'ptxas: {ignored}')
     report = {}
-    for kernel, name in FLASH_MMA:
-        for exact in (True, False):
-            cuda_name = (name if exact
-                         else name.replace('_kernel', '_padded_kernel'))
-            lines = ptxas_lines(build_log, cuda_name)
-            for w in fa.WIDTHS:
-                if exact and w > fa.EXACT_WIDTH:
-                    continue      # the padded kernel runs there
+    for kernel in FLASH_MMA:
+        for w in fa.WIDTHS:
+            for exact in (True, False):
+                cuda_name = fa.mma_kernel(kernel, w, exact)
+                if f'{cuda_name}<{w}>' in report:
+                    continue      # every head of the width runs it
                 attrs = fa.mma_attributes(kernel, w, exact)
-                ptxas = lines.get(w, [None])[1:]
+                ptxas = ptxas_lines(build_log, cuda_name).get(w, [None])[1:]
                 spills = spill_lines(ptxas)
                 if spills or attrs['local_bytes']:
                     fail(f'{cuda_name}<{w}> spills: {spills}, {attrs}')
                 report[f'{cuda_name}<{w}>'] = dict(ptxas=ptxas, **attrs)
                 log(f'[ptxas] {cuda_name}<{w}>: {"; ".join(ptxas)}; on the '
                     f'card {attrs}')
-    for kernel, name in FLASH_MMA:      # the wide kernels: every head > 256
-        cuda_name = name.replace('_mma_kernel', '_wide_mma_kernel')
+    for kernel in FLASH_MMA:      # the wide kernels: every head > 256
+        cuda_name = fa.mma_kernel(kernel, fa.NARROW_MAX + 8)
         attrs = fa.mma_attributes(kernel, fa.NARROW_MAX + 8)
         ptxas = ptxas_lines(build_log, cuda_name).get(0, [None])[1:]
         spills = spill_lines(ptxas)
@@ -3184,6 +3198,12 @@ def phase_flash_kernels(torch, dev, reps, smi):
     # one tile (80 > 64), fewer queries than a tile
     cases += [(1, 2, 70, 150, d, True, None) for d in (16, 64, 128, 256)]
     cases += [(2, 2, 5, 9, 16, causal, 'hnm') for causal in (False, True)]
+    # the Hopper forward and dK/dV (widths 128 and 256) over several of
+    # their tiles with ragged edges, each bias kind, and at 70 keys causal
+    cases += [(2, 2, 300, 260, d, causal, bias) for d in FLASH_WG_HEADS
+              for causal in (False, True)
+              for bias in (None, 'nm', 'hnm', 'bhnm')]
+    cases += [(2, 2, 300, 70, d, True, None) for d in FLASH_WG_HEADS]
     for seed, (b, h, n, m, d, causal, bias_kind) in enumerate(cases):
         for name, dtype in dtypes:
             *qkvo, bias = flash_inputs(torch, dev, dtype, b, h, n, m, d,
@@ -3210,7 +3230,9 @@ def phase_flash_kernels(torch, dev, reps, smi):
             f'the (2, 8, 1024, 32) / 1028 causal '
             f'case; (1, 2, 70, d) / 150 keys causal, d in 16, 64, 128, 256; '
             f'(2, 2, 5, 16) / 9 keys with an (h, n, m) bias, causal and '
-            f'not; {name}, each kernel on the '
+            f'not; (2, 2, 300, d) / 260 keys, d in {FLASH_WG_HEADS}, causal '
+            f'and not, with each bias, and / 70 keys causal; {name}, each '
+            f'kernel on the '
             f'{fa.flash_route(dict(dtypes)[name], 32)!r} route: worst '
             f'error over the largest value of the reference (lse: max abs '
             f'error) {worst[name]} (tol {FLASH_TOL[name]:g}, lse '
@@ -3310,7 +3332,7 @@ def phase_flash_kernels(torch, dev, reps, smi):
         library = sdpa_fwd if fwd else sdpa_bwd
         library_call = 'F.scaled_dot_product_attention' + (
             '' if fwd else ' backward, which forms dq, dk and dv together')
-        kernel = dict(FLASH_MMA)[name.split('_')[-1]]
+        kernel = fa.mma_kernel(name.split('_')[-1], d)
         rows[name] = dict(
             shape=[b, h, n, d], keys=m, per='launch', max_abs_err=err,
             max_abs_err_fp32=err32, max_rel_err=rel, max_rel_err_fp32=rel32,
@@ -3591,6 +3613,12 @@ def flash_width_rows(torch, fa, dev, reps, smi, dh, heads):
     rel = flash_relative(errs, peaks)
     out, lse, *_ = flash_kernels_alone(fa, q, k, v, dout, None, False)
     delta = fa.row_delta(dout, out)
+    # dK/dV twice: one owner per output tile, no atomics
+    first, second = (fa.flash_backward_dkv(q, k, v, None, dout, lse, delta,
+                                           False, scale) for _ in range(2))
+    if not all(torch.equal(x, y) for x, y in zip(first, second)):
+        fail(f'{what}: two dK/dV calls differ')
+    del first, second
     calls = {
         'flash_attention_fwd': lambda: fa.flash_forward(q, k, v, None, False,
                                                         scale),
@@ -3620,9 +3648,9 @@ def flash_width_rows(torch, fa, dev, reps, smi, dh, heads):
         bound_ms, bound_by = bound(*flash_cost(b * heads, n, m, dh, False,
                                                name))
         short = name.split('_')[-1]
-        cuda_kernel = (f'{dict(FLASH_MMA)[short]}<{dh}>'
-                       if dh <= fa.NARROW_MAX else
-                       dict(FLASH_MMA)[short].replace('_mma', '_wide_mma'))
+        cuda_kernel = fa.mma_kernel(short, dh) + (
+            f'<{dh}>' if dh <= fa.NARROW_MAX else '')
+        earlier = FLASH_EARLIER_MS.get(dh, {}).get(name)
         runs = ms[name]
         row = dict(
             shape=[b, heads, n, dh], keys=m, per='launch',
@@ -3645,13 +3673,17 @@ def flash_width_rows(torch, fa, dev, reps, smi, dh, heads):
         rows[f'{name}_d{dh}'] = row
         log(f'[kernel] {name} ({b}, {heads}, {n}, {dh}) / {m} keys bf16: '
             f'{row["ms"]:.4f} ms (median of {reps}, range '
-            f'{row["ms_range"]}), bound {bound_ms:.4f} ms ({bound_by})'
+            f'{row["ms_range"]})'
+            + (f', earlier {earlier:.4f} ms (mma.sync)' if earlier else '')
+            + f', bound {bound_ms:.4f} ms ({bound_by})'
             + (f', exp floor {floor:.4f} ms' if fwd else '') +
             f', plain {row["plain_ms"]:.4f} ms ({row["plain_call"]}), '
             f'library {row["library_ms"]:.4f} ms ({row["library_call"]}); '
             f'error over the largest value {row["max_rel_err"]:.3e} (tol '
             f'{FLASH_TOL["bfloat16"]:g}), max_abs_err {row["max_abs_err"]:.3e}'
-            f'; {cuda_kernel} {row["resources"]} on {smi}')
+            f'; {cuda_kernel} {row["resources"]}'
+            + (', two dK/dV calls bit-identical' if name.endswith('dkv')
+               else '') + f' on {smi}')
     return rows
 
 

@@ -22,11 +22,11 @@
 // zero columns), as the JAX kernel takes any head. Up to 256 each kernel is
 // built at the padded widths
 // D = 16, 32, 64, 128 and 256 (head_width): the 'f32' kernels and the
-// 'mma' route's padded kernels (*_padded_kernel: d < D, and every d at the
-// widths above 64) take the true d at run time: the columns past d are
-// zeros in shared memory (cp.async's zero fill) and in registers, so they
-// add nothing to a score or a product, and the output columns past d are
-// not stored. A head of d = 96 thus does the products of 128 (4/3 of the
+// 'mma' route's padded kernels (*_padded_kernel: d < D; above 64 dQ's and
+// the Hopper forward and dK/dV at every d) take the true d at run time: the
+// columns past d are zeros in shared memory (cp.async's or TMA's zero fill)
+// and in registers, so they add nothing to a score or a product, and the
+// output columns past d are not stored. A head of d = 96 thus does the products of 128 (4/3 of the
 // work), d = 160 those of 256 (8/5). The 'mma' kernels at d == D <= 64 are
 // built apart with d a constant, so the widths 16, 32 and 64 compile as
 // before the run-time d. A head over 256 takes the wide kernels (see "heads
@@ -36,8 +36,11 @@
 // Two routes, one per dtype: ops/kernels/flash_attention.py flash_route
 // picks it for all three kernels and passes it in, and the entry points
 // refuse a route that does not fit the dtype.
-// - 'mma' (bf16): every product on mma.sync m16n8k16 with float32
-//   accumulators in registers. A block owns rows of its output (query rows
+// - 'mma' (bf16): every product on the tensor cores with float32
+//   accumulators in registers; at the widths 128 and 256 the forward and
+//   dK/dV are the Hopper kernels (wgmma fed by TMA, a producer warpgroup;
+//   see "the Hopper kernels" below), everything else mma.sync m16n8k16. An
+//   mma.sync block owns rows of its output (query rows
 //   for the forward and dQ, key rows for dK/dV), reads its own operand rows
 //   as A fragments (held in registers up to a width, read from a tile in
 //   shared memory by ldmatrix above it, so that the accumulators fit the
@@ -47,9 +50,7 @@
 //   accumulators to the next one's A operand in registers, rounded to bf16
 //   there and only there; the forward's online softmax runs on the
 //   accumulators too. With causal, a block visits only the tiles that hold
-//   a pair it may see (see "the causal skip" below). At D = 256 the dK/dV
-//   kernel sweeps the query tiles twice, dV first and then dK, so that one
-//   accumulator of 16 x 256 floats a warp is live at a time.
+//   a pair it may see (see "the causal skip" below).
 // - 'f32' (float32): the CUDA-core kernels (no TF32): one block of warps
 //   owns 64 rows (32 above D = 64, so that the tiles fit shared memory),
 //   each warp 16 of them, and loops over tiles of the other side staged in
@@ -66,7 +67,10 @@
 // 16 a clock an SM, ~0.55 ms at 132 SMs and 1.98 GHz, once in the forward
 // and once in each backward kernel. At 4 heads of 128 (bh = 68) the same
 // stage has the same FLOPs and a quarter of the exps.
+#include <type_traits>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace mv2 {
 namespace flash {
@@ -513,7 +517,9 @@ __global__ void __launch_bounds__(Cfg<D>::threads, 1)
 
 // ---- the bf16 kernels on the tensor cores (the 'mma' route) ---------------
 //
-// Three kernels. Each block of warps owns rows of its output, 16 a warp,
+// Three mma.sync kernels (the forward and dK/dV up to D = 64; above, the
+// Hopper kernels further down). Each block of warps owns rows of its
+// output, 16 a warp,
 // and streams tiles of the other side through a ring of stages in shared
 // memory, filled by cp.async (zero-filled past the last row and past d) so
 // that the next tile loads while this one runs its products, a chunk of its
@@ -538,8 +544,8 @@ __global__ void __launch_bounds__(Cfg<D>::threads, 1)
 // Rows are padded from D to D + 8 bf16 in shared memory, so the 8 rows an
 // ldmatrix phase reads fall in 8 different bank groups. The bias is read one
 // bf16 at a time: a row of a (groups, n, m) bias is 4-byte aligned only when
-// m is even. The geometry of each kernel at each width (FwdGeo, DqGeo,
-// DkvGeo) keeps the accumulators, the A fragments held in registers and a
+// m is even. The geometry of each kernel at each width (FwdGeo and DkvGeo
+// up to 64, DqGeo at every width) keeps the accumulators, the A fragments held in registers and a
 // chunk of scores under 255 registers a thread, and its shared memory under
 // kSmemMax (static_asserts below); chip_smoke.py reads registers, spills
 // and shared memory of every width back from the card.
@@ -745,8 +751,8 @@ __device__ __forceinline__ void store_rows(bf16* dst,
 }
 
 // out[c] = the sum over rows 0 .. rows - 1 of column c of src (rows of ld
-// values) in float32, for c < D (0 past d), by THREADS threads in a fixed
-// order: thread
+// values) in float32, for c < D (0 past d), by the block's first THREADS
+// threads in a fixed order (every thread of the block calls it): thread
 // t sums column pair t % (D / 2) over every R-th row from t / (D / 2),
 // R = THREADS / (D / 2), into part; then the R partial sums of a column are
 // added in order. out (D floats) and part (2 THREADS floats) are in shared
@@ -759,18 +765,20 @@ __device__ __forceinline__ void column_sum(float* out, float* part,
   constexpr int P = D / 2, R = THREADS / P;
   static_assert(THREADS % P == 0, "a whole number of rows a pass");
   const int t = threadIdx.x, pair = t % P, phase = t / P;
-  float s0 = 0.f, s1 = 0.f;
-  if (2 * pair < d) {
+  if (t < THREADS) {  // a block may hold more threads; they only meet
+    float s0 = 0.f, s1 = 0.f;
+    if (2 * pair < d) {
 #pragma unroll 4
-    for (int r = phase; r < rows; r += R) {
-      const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(
-          src + (size_t)r * ld + 2 * pair);
-      s0 += __low2float(x);
-      s1 += __high2float(x);
+      for (int r = phase; r < rows; r += R) {
+        const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(
+            src + (size_t)r * ld + 2 * pair);
+        s0 += __low2float(x);
+        s1 += __high2float(x);
+      }
     }
+    part[phase * D + 2 * pair] = s0;
+    part[phase * D + 2 * pair + 1] = s1;
   }
-  part[phase * D + 2 * pair] = s0;
-  part[phase * D + 2 * pair + 1] = s1;
   __syncthreads();
   for (int c = t; c < D; c += THREADS) {
     float s = 0.f;
@@ -791,16 +799,11 @@ constexpr size_t column_sum_bytes() {
   return sizeof(float) * (D + 2 * THREADS);
 }
 
-// The forward: kFwdWarps warps a block, 16 query rows a warp. Up to D = 64
-// (from the sweep of tools/flash_fwd_variants.py, PERF.md §6 records it)
-// kFwdStages key tiles of kFwdTile keys in flight, kFwdChunk keys' scores in
-// registers at a time. At each width FwdGeo gives the stages, the keys of a
-// tile and of a chunk, whether Q's A fragments are held in registers (D / 4
-// a thread) or read from a shared tile (at D = 256, where O alone holds 128
-// floats a thread), and the padded kernel's blocks an SM: at D = 256 tiles
-// of 32 keys let 2 blocks share an SM (22% under 1 block on 64-key tiles;
-// at D = 128, 3 blocks ran 11% faster but spill 32 bytes a thread;
-// tools/flash_heads_probe.py, PERF.md §6).
+// The forward up to D = 64 (the wider widths run fwd_wg_mma_kernel below):
+// kFwdWarps warps a block, 16 query rows a warp (from the sweep of
+// tools/flash_fwd_variants.py, PERF.md §6 records it), kFwdStages key tiles
+// of kFwdTile keys in flight, kFwdChunk keys' scores in registers at a
+// time, Q's A fragments held in registers (D / 4 a thread).
 constexpr int kFwdWarps = 4;
 constexpr int kFwdStages = 2;
 constexpr int kFwdTile = 128;
@@ -810,17 +813,13 @@ constexpr int kFwdBlockRows = 16 * kFwdWarps;  // query rows a block owns
 
 template <int D>
 struct FwdGeo {
-  static constexpr int stages = D <= 64 ? kFwdStages : 2;
-  static constexpr int tile = D <= 64 ? kFwdTile : D <= 128 ? 64 : 32;
-  static constexpr int chunk = D <= 128 ? kFwdChunk : 32;
-  static constexpr bool q_smem = D > 128;
-  static constexpr int min_blocks = D <= 128 ? 1 : 2;
+  static_assert(D <= kExactWidth, "the mma.sync forward's widths");
+  static constexpr int stages = kFwdStages;
+  static constexpr int tile = kFwdTile;
+  static constexpr int chunk = kFwdChunk;
   static constexpr size_t ring =
       (size_t)stages * 2 * sizeof(bf16) * tile * (D + 8);
-  static constexpr size_t q_tile =
-      q_smem ? sizeof(bf16) * kFwdBlockRows * (D + 8) : 0;
-  static constexpr size_t bytes =
-      ring + q_tile + column_sum_bytes<D, kFwdThreads>();
+  static constexpr size_t bytes = ring + column_sum_bytes<D, kFwdThreads>();
   static_assert(tile % chunk == 0 && chunk % 16 == 0 && stages >= 2,
                 "forward geometry");
   static_assert(bytes <= kSmemMax, "forward shared memory");
@@ -856,8 +855,7 @@ __device__ __forceinline__ void fwd_mma(MV2_FWD_PARAMS) {
   constexpr int LD = D + 8, TILE = G::tile * LD, NB = G::chunk / 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // a stage: K tile, V tile
-  bf16* q_tile = ring + G::stages * 2 * TILE;      // with G::q_smem
-  float* vsum = reinterpret_cast<float*>(smem_raw + G::ring + G::q_tile);
+  float* vsum = reinterpret_cast<float*>(smem_raw + G::ring);
 
   const int bh = blockIdx.x / q_tiles;
   const int q0 = (q_tiles - 1 - blockIdx.x % q_tiles) * kFwdBlockRows;
@@ -879,19 +877,14 @@ __device__ __forceinline__ void fwd_mma(MV2_FWD_PARAMS) {
     async_tile<D, G::tile, kFwdThreads>(st, kb, t * G::tile, m, d);
     async_tile<D, G::tile, kFwdThreads>(st + TILE, vb, t * G::tile, m, d);
   };
-  if constexpr (G::q_smem)  // joins the first group
-    async_tile<D, kFwdBlockRows, kFwdThreads>(q_tile, qb, q0, n, d);
 #pragma unroll
   for (int t = 0; t < G::stages - 1; ++t) {
     if (t < tiles) load(t);
     cp_async_commit();
   }
 
-  Rows16<D, G::q_smem> qa;
-  if constexpr (G::q_smem)
-    qa.tile = q_tile + 16 * warp * LD;
-  else
-    load_a<D>(qa.a, qb, ra, n, d);
+  Rows16<D, false> qa;
+  load_a<D>(qa.a, qb, ra, n, d);
   // rows < n - m see no key (causal): their mean of v
   if (causal && q0 < n - m)
     column_sum<D, kFwdThreads>(vsum, vsum + D, vb, m, d);
@@ -1017,9 +1010,8 @@ __device__ __forceinline__ void fwd_mma(MV2_FWD_PARAMS) {
 
 // Each kernel is built twice up to kExactWidth: for a head of exactly D (d
 // a constant, with the launch bounds the sweeps tuned) and, as the padded
-// kernel, for a narrower one (d at run time; its launch bounds ask for the
-// geometry's min_blocks, which lets ptxas take the registers the run-time d
-// needs without spilling). The wider widths have the padded kernel alone.
+// kernel, for a narrower one (d at run time). The wider widths have dQ's
+// padded kernel alone, and the forward and dK/dV of the Hopper kernels.
 template <int D>
 __global__ void __launch_bounds__(kFwdThreads)
     fwd_mma_kernel(MV2_FWD_PARAMS) {
@@ -1027,7 +1019,7 @@ __global__ void __launch_bounds__(kFwdThreads)
 }
 
 template <int D>
-__global__ void __launch_bounds__(kFwdThreads, FwdGeo<D>::min_blocks)
+__global__ void __launch_bounds__(kFwdThreads, 1)
     fwd_mma_padded_kernel(MV2_FWD_PARAMS) {
   fwd_mma<D, false>(MV2_FWD_ARGS);
 }
@@ -1072,30 +1064,20 @@ struct DqGeo {
   static_assert(bytes <= kSmemMax, "dQ shared memory");
 };
 
-// dK/dV: query rows a streamed tile, a chunk, whether K's and V's A
-// fragments are held in registers or read from shared tiles (above D = 64,
-// where dK and dV hold D floats a thread together), the sweeps over the
-// query tiles (one that forms dK and dV together, or at D = 256 two, dV and
-// then dK, so that one accumulator is live at a time) and the padded
-// kernel's blocks an SM (2 at D = 256 on 16-row tiles, 11% under 1; two
-// sweeps at D = 128 for 3 blocks ran 1.46x slower; tools/
-// flash_heads_probe.py)
+// dK/dV up to D = 64 (the wider widths run bwd_dkv_wg_mma_kernel below):
+// query rows a streamed tile and a chunk; K's and V's A fragments held in
+// registers, dK and dV formed together in one sweep over the query tiles
 template <int D>
 struct DkvGeo {
-  static constexpr int stages = D <= 64 ? kBwdStages : 2;
-  static constexpr int tile = D <= 128 ? kBwdTile : 16;
-  static constexpr int chunk = D <= 128 ? kDkvChunk : 16;
-  static constexpr bool a_smem = D > 64;
-  static constexpr int sweeps = D <= 128 ? 1 : 2;
-  static constexpr int min_blocks = D <= 128 ? 1 : 2;
+  static_assert(D <= kExactWidth, "the mma.sync dK/dV's widths");
+  static constexpr int stages = kBwdStages;
+  static constexpr int tile = kBwdTile;
+  static constexpr int chunk = kDkvChunk;
   // a stage: Q tile, dO tile (bf16), lse, delta (floats)
   static constexpr size_t stage =
       2 * sizeof(bf16) * tile * (D + 8) + 2 * sizeof(float) * tile;
   static constexpr size_t ring = stages * stage;
-  static constexpr size_t a_tiles =
-      a_smem ? 2 * sizeof(bf16) * kBwdRows * (D + 8) : 0;
-  static constexpr size_t bytes =
-      ring + a_tiles + column_sum_bytes<D, kBwdThreads>();
+  static constexpr size_t bytes = ring + column_sum_bytes<D, kBwdThreads>();
   static_assert(tile % chunk == 0 && stage % 16 == 0 && stages >= 2,
                 "dK/dV geometry");
   static_assert(bytes <= kSmemMax, "dK/dV shared memory");
@@ -1248,13 +1230,12 @@ __global__ void __launch_bounds__(kBwdThreads, DqGeo<D>::min_blocks)
   bwd_dq_mma<D, false>(MV2_DQ_ARGS);
 }
 
-// One sweep of a dK/dV block over the query tiles first .. tiles - 1,
-// streamed through the ring (q, dO, lse, delta): with DK, dS^T Q into dk;
-// with DV, P^T dO into dv. Ends with the ring drained and the block
-// synchronised, so that another sweep may refill it.
-template <int D, bool DK, bool DV, typename A>
+// A dK/dV block's sweep over the query tiles first .. tiles - 1, streamed
+// through the ring (q, dO, lse, delta): dS^T Q into dk, P^T dO into dv.
+template <int D>
 __device__ __forceinline__ void dkv_sweep(
-    float (&dk)[D / 8][4], float (&dv)[D / 8][4], const A& ka, const A& va,
+    float (&dk)[D / 8][4], float (&dv)[D / 8][4],
+    const Rows16<D, false>& ka, const Rows16<D, false>& va,
     unsigned char* ring, const bf16* qb, const bf16* dob,
     const float* lse_rows, const float* delta_rows, const bf16* bb, int k0,
     int kr, int n, int m, int d, int first, int causal, float scale_log2) {
@@ -1293,10 +1274,7 @@ __device__ __forceinline__ void dkv_sweep(
 #pragma unroll 1
     for (int c0 = 0; c0 < G::tile; c0 += G::chunk) {
       float s[NB][4], dp[NB][4];
-      if constexpr (DK)
-        mma_chunk_pair<D, NB>(s, ka, Qs, dp, va, dOs, c0);
-      else
-        mma_chunk<D, NB>(s, ka, Qs, c0);
+      mma_chunk_pair<D, NB>(s, ka, Qs, dp, va, dOs, c0);
       // s becomes P^T and dp dS^T: C element e of block j is (key e < 2 ?
       // kr : kr + 8, query q0 + c), c = c0 + 8j + 2tq + e % 2
 #pragma unroll
@@ -1313,24 +1291,19 @@ __device__ __forceinline__ void dkv_sweep(
             x = -INFINITY;
           const float p = exp2_approx(x);
           s[j][e] = p;
-          if constexpr (DK) dp[j][e] = p * (dp[j][e] - delta_s[c]);
+          dp[j][e] = p * (dp[j][e] - delta_s[c]);
         }
 #pragma unroll
       for (int kk = 0; kk < NB / 2; ++kk) {
         unsigned a[4];
-        if constexpr (DV) {
-          c_to_a(a, s[2 * kk], s[2 * kk + 1]);
-          mma_acc_trans<D>(dv, a, dOs, c0 + 16 * kk);
-        }
-        if constexpr (DK) {
-          c_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
-          mma_acc_trans<D>(dk, a, Qs, c0 + 16 * kk);
-        }
+        c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+        mma_acc_trans<D>(dv, a, dOs, c0 + 16 * kk);
+        c_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+        mma_acc_trans<D>(dk, a, Qs, c0 + 16 * kk);
       }
     }
   }
-  cp_async_wait<0>();
-  __syncthreads();
+  cp_async_wait<0>();  // no copy outlives the block
 }
 
 // dK, dV: one block per (bh, kBwdRows key rows), streaming query tiles
@@ -1352,12 +1325,8 @@ template <int D, bool EXACT>
 __device__ __forceinline__ void bwd_dkv_mma(MV2_DKV_PARAMS) {
   typedef DkvGeo<D> G;
   const int d = EXACT ? D : dh;
-  constexpr int LD = D + 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* k_tile = reinterpret_cast<bf16*>(smem_raw + G::ring);  // G::a_smem
-  bf16* v_tile = k_tile + kBwdRows * LD;
-  float* dosum =
-      reinterpret_cast<float*>(smem_raw + G::ring + G::a_tiles);
+  float* dosum = reinterpret_cast<float*>(smem_raw + G::ring);
 
   const int bh = blockIdx.x / k_tiles;
   const int k0 = (blockIdx.x % k_tiles) * kBwdRows;
@@ -1376,64 +1345,28 @@ __device__ __forceinline__ void bwd_dkv_mma(MV2_DKV_PARAMS) {
   // query tiles first .. tiles - 1: with causal, from the first whose last
   // row sees the block's first key (dkv_query_tiles)
   const int first = causal ? max(0, k0 - offset) / G::tile : 0;
-  Rows16<D, G::a_smem> ka, va;
-  if constexpr (G::a_smem) {  // joins the first sweep's first group
-    async_tile<D, kBwdRows, kBwdThreads>(k_tile, kb, k0, m, d);
-    async_tile<D, kBwdRows, kBwdThreads>(v_tile, vb, k0, m, d);
-    ka.tile = k_tile + 16 * warp * LD;
-    va.tile = v_tile + 16 * warp * LD;
-  } else {
-    load_a<D>(ka.a, kb, kr, m, d);
-    load_a<D>(va.a, vb, kr, m, d);
-  }
+  Rows16<D, false> ka, va;
+  load_a<D>(ka.a, kb, kr, m, d);
+  load_a<D>(va.a, vb, kr, m, d);
   if (blind > 0) column_sum<D, kBwdThreads>(dosum, dosum + D, dob, blind, d);
-  const float scale_log2 = scale * kLog2e;
-  const float inv_m = 1.f / m;
-  // dV of the rows that see no key: their dO summed, over m
-  auto add_blind = [&](float (&acc)[D / 8][4]) {
-    if (blind <= 0) return;
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
+  dkv_sweep<D>(dk_acc, dv_acc, ka, va, smem_raw, qb, dob, lse_rows,
+               delta_rows, bb, k0, kr, n, m, d, first, causal,
+               scale * kLog2e);
+  if (blind > 0) {  // dV of the rows that see no key: their dO summed / m
+    const float inv_m = 1.f / m;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        acc[i][e] += dosum[8 * i + 2 * tq + (e & 1)] * inv_m;
-  };
-  auto zero = [](float (&acc)[D / 8][4]) {
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-  };
-  unsigned char* ring = smem_raw;
-  if constexpr (G::sweeps == 1) {
-    float dk_acc[D / 8][4], dv_acc[D / 8][4];
-    zero(dk_acc);
-    zero(dv_acc);
-    dkv_sweep<D, true, true>(dk_acc, dv_acc, ka, va, ring, qb, dob, lse_rows,
-                             delta_rows, bb, k0, kr, n, m, d, first, causal,
-                             scale_log2);
-    add_blind(dv_acc);
-    store_rows<D>(dk + (size_t)bh * m * d, dk_acc, kr, m, scale, d);
-    store_rows<D>(dv + (size_t)bh * m * d, dv_acc, kr, m, 1.f, d);
-  } else {
-    {
-      float acc[D / 8][4];
-      zero(acc);
-      dkv_sweep<D, false, true>(acc, acc, ka, va, ring, qb, dob, lse_rows,
-                                delta_rows, bb, k0, kr, n, m, d, first,
-                                causal, scale_log2);
-      add_blind(acc);
-      store_rows<D>(dv + (size_t)bh * m * d, acc, kr, m, 1.f, d);
-    }
-    {
-      float acc[D / 8][4];
-      zero(acc);
-      dkv_sweep<D, true, false>(acc, acc, ka, va, ring, qb, dob, lse_rows,
-                                delta_rows, bb, k0, kr, n, m, d, first,
-                                causal, scale_log2);
-      store_rows<D>(dk + (size_t)bh * m * d, acc, kr, m, scale, d);
-    }
+        dv_acc[i][e] += dosum[8 * i + 2 * tq + (e & 1)] * inv_m;
   }
+  store_rows<D>(dk + (size_t)bh * m * d, dk_acc, kr, m, scale, d);
+  store_rows<D>(dv + (size_t)bh * m * d, dv_acc, kr, m, 1.f, d);
 }
 
 template <int D>
@@ -1443,9 +1376,636 @@ __global__ void __launch_bounds__(kBwdThreads)
 }
 
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, DkvGeo<D>::min_blocks)
+__global__ void __launch_bounds__(kBwdThreads, 1)
     bwd_dkv_mma_padded_kernel(MV2_DKV_PARAMS) {
   bwd_dkv_mma<D, false>(MV2_DKV_ARGS);
+}
+
+// ---- the Hopper kernels at the padded widths 128 and 256 ('mma' route) ----
+//
+// A head of 72 to 256 values runs the forward and dK/dV here, built at
+// D = 128 and 256 with the true d at run time (dQ keeps bwd_dq_mma above).
+// Each block is a producer warpgroup and two consumer warpgroups
+// (kWgThreads); setmaxnreg gives the producer's registers to the consumers,
+// whose accumulators fill them. One warp of the producer warpgroup works,
+// the other three leave at once; its lane 0 keeps TMA loads in flight
+// through mbarrier rings: boxes of 64 columns (128 bytes, swizzled) of a 3-D
+// tensor map (bh, rows, d), so rows past a head's n or m and columns past
+// the true d (the map's inner dimension) arrive as zeros. Every product is
+// wgmma on bf16 with float32 accumulators in registers:
+//   forward S = Q K^T          both operands from shared memory, K-major
+//           online softmax     on the accumulators, as fwd_mma: ex2 with
+//                              log2 e folded into the scale, the row max
+//                              and sum over the quad
+//           O += P V           A = P in registers (rounded to bf16 there
+//                              and only there), B = V straight from its
+//                              TMA tile, MN-major (the transpose bit)
+//   dK/dV S^T = K Q^T, dP^T = V dO^T   both from shared memory, K-major
+//           P^T, dS^T          as bwd_dkv_mma, lse and delta per column
+//           dV += P^T dO, dK += dS^T Q  A in registers, B the same Q and
+//                              dO tiles read MN-major
+// The accumulator of a wgmma (rows g and g + 8 of each warp's 16, columns
+// 8j + 2(lane % 4) + {0, 1}) is the mma.sync C layout per 8-column block,
+// and two neighbouring blocks are the A fragment of a 16-deep step
+// (frag_of), so P and dS go from one product to the next in registers.
+// Masking, the bias (and `pre`), the causal skip, the rows that see no key
+// and the dead rows are fwd_mma's and bwd_dkv_mma's. One owner per output
+// tile, no atomics: two calls are bit-identical.
+//
+// The forward (fwd_wg_mma_kernel): a block owns 128 query rows, 64 a
+// consumer warpgroup, heaviest blocks first; Q arrives once, K and V tiles
+// of WgFwdGeo::tile keys through rings of their own (K's stage returns once
+// S is formed, V's once O += P V has read it). A warpgroup retires each
+// product before the next step (issuing the next tile's S before this
+// tile's P V, or the warpgroups taking turns to issue S, read slower on the
+// card: PERF.md section 6).
+// dK/dV (bwd_dkv_wg_mma_kernel): a block owns WgDkvGeo::keys keys, whose K
+// and V arrive once, and streams tiles of 64 queries (Q, dO, and lse and
+// delta written by the producer warp) through a ring. At D = 128 each
+// warpgroup owns 64 keys and forms all four products. At D = 256 dK and dV
+// (256 floats a thread together) do not fit one warpgroup, so both own the
+// same 64 keys: warpgroup 0 forms S^T, P^T and dV and hands P^T over in
+// float32 through shared memory (named barriers kPFull / kPEmpty),
+// warpgroup 1 forms dP^T, dS^T = P^T (dP^T - delta) and dK: each product
+// once, as today's float32 P in dS.
+// What bounds them on the H100: operations, 4 d (forward) and 8 d (dK/dV)
+// FLOPs a visible pair at D = 128 or 256 padded columns (chip_smoke.py
+// flash_cost).
+
+constexpr int kWgConsumers = 256;               // two warpgroups
+constexpr int kWgThreads = kWgConsumers + 128;  // and the producer's
+// registers a thread after setmaxnreg: the block starts at 168 (ptxas's
+// count for three warpgroups at one block an SM), and what the producer
+// warpgroup gives back, (168 - 24) x 128, is what the consumers take,
+// (240 - 168) x 256 (wg_registers_fit). ptxas gives the consumers' code
+// the 240 only while no block of it is shared with the producer's: a
+// __trap() in the barrier wait of both roles left their loops at 168
+// registers and spilling, so the waits are plain mbar_wait.
+constexpr int kWgProducerRegs = 24, kWgConsumerRegs = 240;
+constexpr int kPFull = 1, kPEmpty = 2;         // named barriers (dK/dV)
+
+// the A fragment of a 16-deep step from accumulator blocks c[0..3], c[4..7]
+__device__ __forceinline__ void frag_of(unsigned (&a)[4], const float* c) {
+  a[0] = pack_bf16(c[0], c[1]);
+  a[1] = pack_bf16(c[2], c[3]);
+  a[2] = pack_bf16(c[4], c[5]);
+  a[3] = pack_bf16(c[6], c[7]);
+}
+
+// keep registers live (an asynchronous wgmma still reads them) up to here
+template <int N>
+__device__ __forceinline__ void keep_live(unsigned (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    asm volatile("" ::"r"(a[i][0]), "r"(a[i][1]), "r"(a[i][2]), "r"(a[i][3])
+                 : "memory");
+}
+
+// rows ra and ra + 8 of a (rows, d) output from a wgmma accumulator of D
+// columns, times mul; the columns past d are not stored
+template <int D>
+__device__ __forceinline__ void store_acc(bf16* dst, const float (&acc)[D / 2],
+                                          int ra, int rows, float mul, int d) {
+  const int tq = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * tq;
+    if (col >= d) continue;
+    if (ra < rows)
+      *reinterpret_cast<unsigned*>(dst + (size_t)ra * d + col) =
+          pack_bf16(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+    if (ra + 8 < rows)
+      *reinterpret_cast<unsigned*>(dst + (size_t)(ra + 8) * d + col) =
+          pack_bf16(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero_acc(float (&acc)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = 0.f;
+}
+
+// The forward's geometry (ops/kernels/flash_attention.py WG_FWD_ROWS,
+// WG_FWD_TILE): query rows a block, keys a tile, stages of each ring
+template <int D>
+struct WgFwdGeo {
+  static_assert(D == 128 || D == 256, "the Hopper forward's widths");
+  static constexpr int rows = 128;
+  static constexpr int tile = D == 128 ? 128 : 64;
+  static constexpr int stages = 2;
+  static constexpr int panels = D / kSw128Cols;   // 64-column boxes a row
+  static constexpr int q_panel = rows * 128;      // bytes
+  static constexpr int kv_panel = tile * 128;
+  static constexpr int kv_tile = panels * kv_panel;
+  static constexpr size_t bytes = 1024 + (size_t)panels * q_panel +
+                                  2 * (size_t)stages * kv_tile +
+                                  sizeof(float) * D;
+  static_assert(bytes <= kSmemMax, "Hopper forward shared memory");
+  static_assert(stages * kv_tile >= column_sum_bytes<D, kWgConsumers>(),
+                "column_sum's partial sums fit the K ring");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    fwd_wg_mma_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const bf16* __restrict__ v,
+                      const bf16* __restrict__ bias, bf16* __restrict__ out,
+                      float* __restrict__ lse, int n, int m, int d,
+                      int q_tiles, int bias_groups, int causal, float scale) {
+  typedef WgFwdGeo<D> G;
+  constexpr int T = G::tile, NB = T / 8;
+  extern __shared__ unsigned char wg_smem[];
+  __shared__ __align__(8) uint64_t qbar, kfull[G::stages],
+      kempty[G::stages], vfull[G::stages], vempty[G::stages];
+  unsigned char* qs = align1024(wg_smem);
+  unsigned char* ks = qs + G::panels * G::q_panel;
+  unsigned char* vs = ks + G::stages * G::kv_tile;
+  float* vsum = reinterpret_cast<float*>(vs + G::stages * G::kv_tile);
+
+  const int bh = blockIdx.x / q_tiles;
+  const int q0 = (q_tiles - 1 - blockIdx.x % q_tiles) * G::rows;
+  const int offset = m - n;
+  // key tiles 0 .. tiles - 1: with causal, up to the last one the block's
+  // last row sees (dq_key_tiles)
+  const int k_end = causal ? min(m, min(q0 + G::rows, n) + offset) : m;
+  const int tiles = (max(k_end, 0) + T - 1) / T;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool blind = causal && q0 < n - m;  // rows that see no key
+
+  if (threadIdx.x == 0) {
+    mbar_init(&qbar, 1);
+    for (int s = 0; s < G::stages; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&vfull[s], 1);
+      mbar_init(&kempty[s], kWgConsumers / 32);  // a consumer warp each
+      mbar_init(&vempty[s], kWgConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (blind) {  // their mean of v, summed in the K ring before it fills
+    column_sum<D, kWgConsumers>(vsum, reinterpret_cast<float*>(ks),
+                                v + (size_t)bh * m * d, m, d);
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  if (warp >= kWgConsumers / 32) {  // the producer warpgroup
+    reg_dealloc<kWgProducerRegs>();
+    if (warp == kWgConsumers / 32 && lane == 0) {
+      mbar_expect_tx(&qbar, G::panels * G::q_panel);
+      for (int p = 0; p < G::panels; ++p)
+        tma_load_3d(qs + p * G::q_panel, &map_q, &qbar, p * kSw128Cols, q0,
+                    bh);
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % G::stages, use = t / G::stages;
+        if (use > 0) mbar_wait(&kempty[s], (use - 1) & 1);
+        mbar_expect_tx(&kfull[s], G::kv_tile);
+        for (int p = 0; p < G::panels; ++p)
+          tma_load_3d(ks + s * G::kv_tile + p * G::kv_panel, &map_k,
+                      &kfull[s], p * kSw128Cols, t * T, bh);
+        if (use > 0) mbar_wait(&vempty[s], (use - 1) & 1);
+        mbar_expect_tx(&vfull[s], G::kv_tile);
+        for (int p = 0; p < G::panels; ++p)
+          tma_load_3d(vs + s * G::kv_tile + p * G::kv_panel, &map_v,
+                      &vfull[s], p * kSw128Cols, t * T, bh);
+      }
+    }
+  } else {  // two consumer warpgroups, 64 query rows each
+    reg_alloc<kWgConsumerRegs>();
+    const int wg = warp / 4, wq = warp % 4, g = lane >> 2, tq = lane & 3;
+    const int w0 = q0 + 64 * wg + 16 * wq;  // the warp's first row
+    const int ra = w0 + g;
+    const bf16* bb =
+        bias ? bias + (size_t)(bh % bias_groups) * n * m : nullptr;
+    // as fwd_mma: the row max on the raw scores and the scale folded into
+    // the exponent (mul = scale log2e), unless a bias or a scale <= 0 asks
+    // for the scores in base-2 units first (mul = 1)
+    const float scale_log2 = scale * kLog2e;
+    const bool pre = bb != nullptr || !(scale > 0.f);
+    const float mul = pre ? 1.f : scale_log2;
+    const uint64_t qdesc = sw128_desc(qs + 64 * wg * 128);
+    float o[D / 2];
+    zero_acc(o);
+    // running max (base 2) and the lane's part of l, of rows ra and ra + 8
+    float mx[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float alpha[2];
+    float sc[T / 2];     // S, then P in float32
+    unsigned pa[T / 16][4];   // P as the A operand of P V
+
+    // S of tile t into sc (issued, not retired)
+    auto issue_s = [&](int t) {
+      const int s = t % G::stages;
+      mbar_wait(&kfull[s], (t / G::stages) & 1);
+      const uint64_t kdesc = sw128_desc(ks + s * G::kv_tile);
+#pragma unroll
+      for (int p = 0; p < G::panels; ++p)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_bf16(sc, qdesc + ((p * G::q_panel) >> 4) + 2 * kk,
+                     kdesc + ((p * G::kv_panel) >> 4) + 2 * kk);
+      wgmma_commit();
+    };
+    // O += P V of tile t (issued, not retired)
+    auto issue_pv = [&](int t) {
+      const int s = t % G::stages;
+      mbar_wait(&vfull[s], (t / G::stages) & 1);
+      const uint64_t vdesc =
+          sw128_mn_desc(vs + s * G::kv_tile, G::kv_panel);
+#pragma unroll
+      for (int kk = 0; kk < T / 16; ++kk)
+        wgmma_rs_mn(o, pa[kk], vdesc + 128 * kk);
+      wgmma_commit();
+    };
+    auto release = [&](uint64_t* bars, int t) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bars[t % G::stages]);
+    };
+    // the online softmax of tile t on sc (retired): P in float32, alpha,
+    // the running max and sum
+    auto softmax = [&](int t) {
+      const int k0 = t * T;
+      const bool masked = tile_masked(w0, 16, k0, T, n, m, causal);
+      // element 4j + e is (row ra + 8 (e / 2), key k0 + 8j + 2tq + e % 2);
+      // uniform branches: the bias, and the element test of a masked tile
+      if (pre)
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = ra + 8 * (e >> 1);
+            const int col = k0 + 8 * j + 2 * tq + (e & 1);
+            float& x = sc[4 * j + e];
+            x *= scale_log2;
+            if (bb && row < n && col < m)
+              x = fmaf(to_f32(bb[(size_t)row * m + col]), kLog2e, x);
+          }
+      if (masked)
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = ra + 8 * (e >> 1);
+            const int col = k0 + 8 * j + 2 * tq + (e & 1);
+            if (!(row < n && col < m && (!causal || col <= row + offset)))
+              sc[4 * j + e] = -INFINITY;
+          }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float cmax = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          cmax = fmaxf(cmax, fmaxf(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]));
+        const float mnew = fmaxf(mx[h], quad_max(cmax));
+        // a row that has seen no visible key yet keeps 0: no inf - inf
+        const float base = mnew == -INFINITY ? 0.f : mnew * mul;
+        alpha[h] = exp2_approx(fmaf(mx[h], mul, -base));
+        mx[h] = mnew;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 2 * h; e < 2 * h + 2; ++e) {
+            sc[4 * j + e] = exp2_approx(fmaf(sc[4 * j + e], mul, -base));
+            sum += sc[4 * j + e];
+          }
+        l[h] = fmaf(l[h], alpha[h], sum);
+      }
+    };
+    auto rescale = [&]() {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[4 * j + e] *= alpha[e >> 1];
+    };
+    auto to_frags = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < T / 16; ++kk) frag_of(pa[kk], sc + 8 * kk);
+    };
+
+    mbar_wait(&qbar, 0);
+    for (int t = 0; t < tiles; ++t) {
+      zero_acc(sc);
+      wgmma_fence();
+      issue_s(t);
+      wgmma_wait<0>();
+      fence_acc(sc);
+      release(kempty, t);
+      softmax(t);
+      rescale();
+      to_frags();
+      wgmma_fence();
+      issue_pv(t);
+      wgmma_wait<0>();
+      fence_acc(o);
+      keep_live(pa);
+      release(vempty, t);
+    }
+
+    float* lse_rows = lse + (size_t)bh * n;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float sum = fmaxf(quad_sum(l[h]), 1e-30f);
+      const float inv = 1.f / sum;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 2 * h] *= inv;
+        o[4 * j + 2 * h + 1] *= inv;
+      }
+      const int row = ra + 8 * h;
+      if (tq == 0 && row < n)
+        lse_rows[row] = mx[h] == -INFINITY
+                            ? kMasked + logf(sum)
+                            : fmaf(mx[h] * mul, kLn2, logf(sum));
+    }
+    if (blind) {  // uniform: the rows that see no key
+      const float inv_m = 1.f / m;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = ra + 8 * h;
+        if (row >= n - m) continue;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          o[4 * j + 2 * h] = vsum[8 * j + 2 * tq] * inv_m;
+          o[4 * j + 2 * h + 1] = vsum[8 * j + 2 * tq + 1] * inv_m;
+        }
+        if (tq == 0) lse_rows[row] = kMasked + logf((float)m);
+      }
+    }
+    store_acc<D>(out + (size_t)bh * n * d, o, ra, n, 1.f, d);
+  }
+}
+
+// dK/dV's geometry (ops/kernels/flash_attention.py WG_DKV_KEYS,
+// WG_DKV_TILE): keys a block, queries a streamed tile, the ring's stages,
+// and whether the two warpgroups split the products of the same keys
+template <int D>
+struct WgDkvGeo {
+  static_assert(D == 128 || D == 256, "the Hopper dK/dV's widths");
+  static constexpr bool split = D == 256;
+  static constexpr int keys = split ? 64 : 128;
+  static constexpr int tile = 64;
+  static constexpr int stages = 2;
+  static constexpr int panels = D / kSw128Cols;
+  static constexpr int k_panel = keys * 128;       // bytes
+  static constexpr int q_panel = tile * 128;
+  static constexpr int q_tile = panels * q_panel;  // Q or dO
+  static constexpr size_t bytes =
+      1024 + 2 * (size_t)panels * k_panel + 2 * (size_t)stages * q_tile +
+      sizeof(float) * (2 * stages * tile + (split ? 64 * tile : 0) + D);
+  static_assert(bytes <= kSmemMax, "Hopper dK/dV shared memory");
+  static_assert(2 * stages * q_tile >= column_sum_bytes<D, kWgConsumers>(),
+                "column_sum's partial sums fit the ring");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    bwd_dkv_wg_mma_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_do,
+                          const bf16* __restrict__ bias,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int n,
+                          int m, int d, int k_tiles, int bias_groups,
+                          int causal, float scale) {
+  typedef WgDkvGeo<D> G;
+  constexpr int T = G::tile;
+  extern __shared__ unsigned char wg_smem[];
+  __shared__ __align__(8) uint64_t kvbar, full[G::stages], empty[G::stages];
+  unsigned char* kv = align1024(wg_smem);  // K's boxes, then V's
+  unsigned char* ring = kv + 2 * G::panels * G::k_panel;  // a stage: Q, dO
+  // a stage's lse (base 2) and delta
+  float* rows_s = reinterpret_cast<float*>(ring + 2 * G::stages * G::q_tile);
+  float* pt = rows_s + 2 * G::stages * T;  // P^T handed over (split)
+  float* dosum = pt + (G::split ? 64 * T : 0);
+
+  const int bh = blockIdx.x / k_tiles;
+  const int k0 = (blockIdx.x % k_tiles) * G::keys;
+  const int offset = m - n;
+  const int blind = causal ? n - m : 0;  // rows < blind see no key
+  // query tiles first .. tiles - 1: with causal, from the first whose last
+  // row sees the block's first key (dkv_query_tiles)
+  const int first = causal ? max(0, k0 - offset) / T : 0;
+  const int tiles = (n + T - 1) / T;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&kvbar, 1);
+    for (int s = 0; s < G::stages; ++s) {
+      mbar_init(&full[s], 32);                   // the producer's lanes
+      mbar_init(&empty[s], kWgConsumers / 32);  // a consumer warp each
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (blind > 0) {  // their dO summed, in the ring before it fills
+    column_sum<D, kWgConsumers>(dosum, reinterpret_cast<float*>(ring),
+                                dout + (size_t)bh * n * d, blind, d);
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  if (warp >= kWgConsumers / 32) {  // the producer warpgroup
+    reg_dealloc<kWgProducerRegs>();
+    if (warp > kWgConsumers / 32) return;  // one warp loads
+    if (lane == 0) {
+      mbar_expect_tx(&kvbar, 2 * G::panels * G::k_panel);
+      for (int p = 0; p < G::panels; ++p) {
+        tma_load_3d(kv + p * G::k_panel, &map_k, &kvbar, p * kSw128Cols, k0,
+                    bh);
+        tma_load_3d(kv + (G::panels + p) * G::k_panel, &map_v, &kvbar,
+                    p * kSw128Cols, k0, bh);
+      }
+    }
+    const float* lse_b = lse + (size_t)bh * n;
+    const float* delta_b = delta + (size_t)bh * n;
+    for (int t = first; t < tiles; ++t) {
+      const int i = t - first, s = i % G::stages, use = i / G::stages;
+      // the tile's lse (base 2) and delta, 0 past n, read before the
+      // stage is free (a bulk copy would need rows 16-byte aligned, n % 4
+      // == 0, and would read past the head's n)
+      float r[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = t * T + lane + 32 * h;
+        r[h] = row < n ? lse_b[row] * kLog2e : 0.f;
+        r[2 + h] = row < n ? delta_b[row] : 0.f;
+      }
+      if (use > 0) mbar_wait(&empty[s], (use - 1) & 1);
+      float* rs = rows_s + s * 2 * T;
+      rs[lane] = r[0];
+      rs[lane + 32] = r[1];
+      rs[T + lane] = r[2];
+      rs[T + lane + 32] = r[3];
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], 2 * G::q_tile);
+        unsigned char* st = ring + s * 2 * G::q_tile;
+        for (int p = 0; p < G::panels; ++p) {
+          tma_load_3d(st + p * G::q_panel, &map_q, &full[s], p * kSw128Cols,
+                      t * T, bh);
+          tma_load_3d(st + G::q_tile + p * G::q_panel, &map_do, &full[s],
+                      p * kSw128Cols, t * T, bh);
+        }
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+  } else {  // two consumer warpgroups
+    reg_alloc<kWgConsumerRegs>();
+    const int tid = threadIdx.x % 128;
+    const int wg = warp / 4, wq = warp % 4, g = lane >> 2, tq = lane & 3;
+    const int kw = G::split ? 0 : 64 * wg;   // the warpgroup's keys
+    const int kwarp = k0 + kw + 16 * wq;     // the warp's first key
+    const int ka = kwarp + g;                // rows ka and ka + 8
+    const bf16* bb =
+        bias ? bias + (size_t)(bh % bias_groups) * n * m : nullptr;
+    const float scale_log2 = scale * kLog2e;
+    const uint64_t kdesc = sw128_desc(kv + kw * 128);
+    const uint64_t vdesc = sw128_desc(kv + G::panels * G::k_panel + kw * 128);
+    mbar_wait(&kvbar, 0);
+
+    // DV: S^T, P^T and dV; DK: dP^T, dS^T and dK (both unless split)
+    auto run = [&](auto dv_tag, auto dk_tag) {
+      constexpr bool DV = decltype(dv_tag)::value;
+      constexpr bool DK = decltype(dk_tag)::value;
+      float acc_v[DV ? D / 2 : 1], acc_k[DK ? D / 2 : 1];
+      zero_acc(acc_v);
+      zero_acc(acc_k);
+      for (int t = first; t < tiles; ++t) {
+        const int i = t - first, s = i % G::stages;
+        const int q0 = t * T;
+        const unsigned char* qt = ring + s * 2 * G::q_tile;
+        const unsigned char* dot = qt + G::q_tile;
+        const float* lse_s = rows_s + s * 2 * T;
+        const float* delta_s = lse_s + T;
+        float sc[DV ? T / 2 : 1], dp[DK ? T / 2 : 1];
+        zero_acc(sc);
+        zero_acc(dp);
+        mbar_wait(&full[s], (i / G::stages) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int p = 0; p < G::panels; ++p)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t qd = sw128_desc(qt + p * G::q_panel) + 2 * kk;
+            const uint64_t dd = sw128_desc(dot + p * G::q_panel) + 2 * kk;
+            const int ko = ((p * G::k_panel) >> 4) + 2 * kk;
+            if constexpr (DV) wgmma_bf16(sc, kdesc + ko, qd);
+            if constexpr (DK) wgmma_bf16(dp, vdesc + ko, dd);
+          }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(sc);
+        fence_acc(dp);
+        // element 4j + e is (key ka + 8 (e / 2), query q0 + c), c = 8j +
+        // 2tq + e % 2; uniform branches: the bias, the element test of a
+        // masked tile. dV's product is issued as soon as P^T is formed.
+        const uint64_t qmn = sw128_mn_desc(qt, G::q_panel);
+        const uint64_t dmn = sw128_mn_desc(dot, G::q_panel);
+        unsigned pa[DV ? T / 16 : 1][4], da[DK ? T / 16 : 1][4];
+        if constexpr (DV) {
+#pragma unroll
+          for (int j = 0; j < T / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              sc[4 * j + e] = fmaf(sc[4 * j + e], scale_log2,
+                                   -lse_s[8 * j + 2 * tq + (e & 1)]);
+          if (bb)
+#pragma unroll
+            for (int j = 0; j < T / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int key = ka + 8 * (e >> 1);
+                const int row = q0 + 8 * j + 2 * tq + (e & 1);
+                if (row < n && key < m)
+                  sc[4 * j + e] = fmaf(to_f32(bb[(size_t)row * m + key]),
+                                       kLog2e, sc[4 * j + e]);
+              }
+          if (tile_masked(q0, T, kwarp, 16, n, m, causal))
+#pragma unroll
+            for (int j = 0; j < T / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int key = ka + 8 * (e >> 1);
+                const int row = q0 + 8 * j + 2 * tq + (e & 1);
+                if (!(row < n && key < m && (!causal || key <= row + offset)))
+                  sc[4 * j + e] = -INFINITY;
+              }
+#pragma unroll
+          for (int e = 0; e < T / 2; ++e) sc[e] = exp2_approx(sc[e]);
+          if constexpr (G::split) {  // P^T to warpgroup 1, in float32
+            if (i > 0) bar_sync(kPEmpty, kWgConsumers);
+#pragma unroll
+            for (int e = 0; e < T / 2; ++e) pt[e * 128 + tid] = sc[e];
+            bar_arrive(kPFull, kWgConsumers);
+          }
+#pragma unroll
+          for (int kk = 0; kk < T / 16; ++kk) frag_of(pa[kk], sc + 8 * kk);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < T / 16; ++kk)
+            wgmma_rs_mn(acc_v, pa[kk], dmn + 128 * kk);
+          wgmma_commit();
+        }
+        if constexpr (DK) {
+          if constexpr (!DV) bar_sync(kPFull, kWgConsumers);
+#pragma unroll
+          for (int j = 0; j < T / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float p;
+              if constexpr (DV)
+                p = sc[4 * j + e];
+              else
+                p = pt[(4 * j + e) * 128 + tid];
+              dp[4 * j + e] = p * (dp[4 * j + e] -
+                                   delta_s[8 * j + 2 * tq + (e & 1)]);
+            }
+          if constexpr (!DV)
+            if (t + 1 < tiles) bar_arrive(kPEmpty, kWgConsumers);
+#pragma unroll
+          for (int kk = 0; kk < T / 16; ++kk) frag_of(da[kk], dp + 8 * kk);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < T / 16; ++kk)
+            wgmma_rs_mn(acc_k, da[kk], qmn + 128 * kk);
+          wgmma_commit();
+        }
+        wgmma_wait<0>();
+        fence_acc(acc_v);
+        fence_acc(acc_k);
+        if constexpr (DV) keep_live(pa);
+        if constexpr (DK) keep_live(da);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+      if constexpr (DV) {
+        if (blind > 0) {  // dV of the rows that see no key: their dO / m
+          const float inv_m = 1.f / m;
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc_v[4 * j + e] += dosum[8 * j + 2 * tq + (e & 1)] * inv_m;
+        }
+        store_acc<D>(dv + (size_t)bh * m * d, acc_v, ka, m, 1.f, d);
+      }
+      if constexpr (DK)
+        store_acc<D>(dk + (size_t)bh * m * d, acc_k, ka, m, scale, d);
+    };
+    if constexpr (G::split) {
+      if (wg == 0)
+        run(std::true_type{}, std::false_type{});
+      else
+        run(std::false_type{}, std::true_type{});
+    } else {
+      run(std::true_type{}, std::true_type{});
+    }
+  }
 }
 
 // ---- heads over 256: the wide kernels, both routes -------------------------
@@ -2194,25 +2754,100 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaSuccess;
 }
 
+// the Hopper kernels: setmaxnreg moves registers inside the block's own
+// allocation, so what the producer warp gives back must cover what the
+// consumers take (else their setmaxnreg.inc would wait forever): refused
+// before any launch
+template <typename Kernel>
+cudaError_t wg_registers_fit(Kernel kernel) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return err;
+  return (a.numRegs - kWgProducerRegs) * (kWgThreads - kWgConsumers) >=
+                 (kWgConsumerRegs - a.numRegs) * kWgConsumers
+             ? cudaSuccess
+             : cudaErrorInvalidConfiguration;
+}
+
+// the 3-D tensor map (bh, rows, d) of a bf16 operand in boxes of 64
+// columns by box_rows rows: rows past `rows` and columns past d read 0
+inline cudaError_t head_map(CUtensorMap* map, const void* ptr, int bh,
+                            int rows, int d, int box_rows) {
+  const long long dims[3] = {d, rows, bh};
+  const int box[3] = {kSw128Cols, box_rows, 1};
+  return tensor_map(map, static_cast<const bf16*>(ptr), 3, dims, box);
+}
+
+template <int D>
+cudaError_t launch_fwd_wg(const void* q, const void* k, const void* v,
+                          const void* bias, void* out, float* lse, int bh,
+                          int n, int m, int d, int groups, int causal,
+                          float scale, cudaStream_t stream) {
+  typedef WgFwdGeo<D> G;
+  const int tiles = tiles_of(n, G::rows);
+  if (!grid_fits(bh, tiles)) return cudaErrorInvalidValue;
+  const auto kernel = fwd_wg_mma_kernel<D>;
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = head_map(&mq, q, bh, n, d, G::rows);
+  if (err == cudaSuccess) err = head_map(&mk, k, bh, m, d, G::tile);
+  if (err == cudaSuccess) err = head_map(&mv, v, bh, m, d, G::tile);
+  if (err == cudaSuccess) err = wg_registers_fit(kernel);
+  if (err == cudaSuccess) err = allow_smem(kernel, G::bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)(bh * tiles), kWgThreads, G::bytes, stream>>>(
+      mq, mk, mv, (const bf16*)v, (const bf16*)bias, (bf16*)out, lse, n, m,
+      d, tiles, groups, causal, scale);
+  MV2_CHECK_LAUNCH();
+  return cudaSuccess;
+}
+
+template <int D>
+cudaError_t launch_dkv_wg(const void* q, const void* k, const void* v,
+                          const void* bias, const void* dout,
+                          const float* lse, const float* delta, void* dk,
+                          void* dv, int bh, int n, int m, int d, int groups,
+                          int causal, float scale, cudaStream_t stream) {
+  typedef WgDkvGeo<D> G;
+  const int tiles = tiles_of(m, G::keys);
+  if (!grid_fits(bh, tiles)) return cudaErrorInvalidValue;
+  const auto kernel = bwd_dkv_wg_mma_kernel<D>;
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err = head_map(&mq, q, bh, n, d, G::tile);
+  if (err == cudaSuccess) err = head_map(&mdo, dout, bh, n, d, G::tile);
+  if (err == cudaSuccess) err = head_map(&mk, k, bh, m, d, G::keys);
+  if (err == cudaSuccess) err = head_map(&mv, v, bh, m, d, G::keys);
+  if (err == cudaSuccess) err = wg_registers_fit(kernel);
+  if (err == cudaSuccess) err = allow_smem(kernel, G::bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)(bh * tiles), kWgThreads, G::bytes, stream>>>(
+      mq, mk, mv, mdo, (const bf16*)bias, (const bf16*)dout, lse, delta,
+      (bf16*)dk, (bf16*)dv, n, m, d, tiles, groups, causal, scale);
+  MV2_CHECK_LAUNCH();
+  return cudaSuccess;
+}
+
 // the 'mma' route
 template <int D>
 cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v,
                            const void* bias, void* out, float* lse, int bh,
                            int n, int m, int d, int groups, int causal,
                            float scale, cudaStream_t stream) {
-  const int tiles = tiles_of(n, kFwdBlockRows);
-  if (!grid_fits(bh, tiles)) return cudaErrorInvalidValue;
-  const size_t bytes = FwdGeo<D>::bytes;
-  auto kernel = fwd_mma_padded_kernel<D>;
-  if constexpr (D <= kExactWidth)
-    if (d == D) kernel = fwd_mma_kernel<D>;
-  cudaError_t err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)(bh * tiles), kFwdThreads, bytes, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)bias,
-      (bf16*)out, lse, n, m, d, tiles, groups, causal, scale);
-  MV2_CHECK_LAUNCH();
-  return cudaSuccess;
+  if constexpr (D > kExactWidth) {
+    return launch_fwd_wg<D>(q, k, v, bias, out, lse, bh, n, m, d, groups,
+                            causal, scale, stream);
+  } else {
+    const int tiles = tiles_of(n, kFwdBlockRows);
+    if (!grid_fits(bh, tiles)) return cudaErrorInvalidValue;
+    const size_t bytes = FwdGeo<D>::bytes;
+    const auto kernel = d == D ? fwd_mma_kernel<D> : fwd_mma_padded_kernel<D>;
+    cudaError_t err = allow_smem(kernel, bytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<(unsigned)(bh * tiles), kFwdThreads, bytes, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)bias,
+        (bf16*)out, lse, n, m, d, tiles, groups, causal, scale);
+    MV2_CHECK_LAUNCH();
+    return cudaSuccess;
+  }
 }
 
 template <int D>
@@ -2244,46 +2879,87 @@ cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v,
                            const float* lse, const float* delta, void* dk,
                            void* dv, int bh, int n, int m, int d, int groups,
                            int causal, float scale, cudaStream_t stream) {
-  const int tiles = tiles_of(m, kBwdRows);
-  if (!grid_fits(bh, tiles)) return cudaErrorInvalidValue;
-  const size_t bytes = DkvGeo<D>::bytes;
-  auto kernel = bwd_dkv_mma_padded_kernel<D>;
-  if constexpr (D <= kExactWidth)
-    if (d == D) kernel = bwd_dkv_mma_kernel<D>;
+  if constexpr (D > kExactWidth) {
+    return launch_dkv_wg<D>(q, k, v, bias, dout, lse, delta, dk, dv, bh, n,
+                            m, d, groups, causal, scale, stream);
+  } else {
+    const int tiles = tiles_of(m, kBwdRows);
+    if (!grid_fits(bh, tiles)) return cudaErrorInvalidValue;
+    const size_t bytes = DkvGeo<D>::bytes;
+    const auto kernel =
+        d == D ? bwd_dkv_mma_kernel<D> : bwd_dkv_mma_padded_kernel<D>;
+    cudaError_t err = allow_smem(kernel, bytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<(unsigned)(bh * tiles), kBwdThreads, bytes, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)bias,
+        (const bf16*)dout, lse, delta, (bf16*)dk, (bf16*)dv, n, m, d, tiles,
+        groups, causal, scale);
+    MV2_CHECK_LAUNCH();
+    return cudaSuccess;
+  }
+}
+
+// into out (5 ints): registers a thread, local memory a thread (spills),
+// static shared memory, the dynamic shared memory its launcher sets (set
+// here too) and the blocks an SM at `threads` threads
+template <typename Kernel>
+cudaError_t attributes(int* out, Kernel kernel, int threads, size_t bytes) {
+  cudaFuncAttributes a;
   cudaError_t err = allow_smem(kernel, bytes);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        threads, bytes);
   if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)(bh * tiles), kBwdThreads, bytes, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)bias,
-      (const bf16*)dout, lse, delta, (bf16*)dk, (bf16*)dv, n, m, d, tiles,
-      groups, causal, scale);
-  MV2_CHECK_LAUNCH();
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = (int)bytes;
+  out[4] = blocks;
   return cudaSuccess;
 }
 
 // the 'mma' kernels by number: 0 dQ, 1 dK/dV, 2 forward, the kernel a head
-// of exactly D runs (above kExactWidth the padded one), and 3 + the number
-// for the padded kernel
+// of exactly D runs, and 3 + the number for the padded kernel (d < D); at
+// the widths above kExactWidth every head runs the same kernels: dQ's
+// padded one and the Hopper forward and dK/dV
 template <int D>
-cudaError_t mma_attributes(cudaFuncAttributes* a, int kernel) {
+cudaError_t mma_attributes(int* out, int kernel) {
   if constexpr (D <= kExactWidth) {
-    if (kernel == 0) return cudaFuncGetAttributes(a, bwd_dq_mma_kernel<D>);
-    if (kernel == 1) return cudaFuncGetAttributes(a, bwd_dkv_mma_kernel<D>);
-    if (kernel == 2) return cudaFuncGetAttributes(a, fwd_mma_kernel<D>);
-  } else if (kernel < 3) {
-    kernel += 3;
+    constexpr int B = kBwdThreads, F = kFwdThreads;
+    constexpr size_t dq = DqGeo<D>::bytes, dkv = DkvGeo<D>::bytes,
+                     fwd = FwdGeo<D>::bytes;
+    if (kernel == 0) return attributes(out, bwd_dq_mma_kernel<D>, B, dq);
+    if (kernel == 1) return attributes(out, bwd_dkv_mma_kernel<D>, B, dkv);
+    if (kernel == 2) return attributes(out, fwd_mma_kernel<D>, F, fwd);
+    if (kernel == 3)
+      return attributes(out, bwd_dq_mma_padded_kernel<D>, B, dq);
+    if (kernel == 4)
+      return attributes(out, bwd_dkv_mma_padded_kernel<D>, B, dkv);
+    if (kernel == 5) return attributes(out, fwd_mma_padded_kernel<D>, F, fwd);
+  } else if (kernel >= 0 && kernel < 6) {
+    constexpr int B = kBwdThreads, W = kWgThreads;
+    constexpr size_t dq = DqGeo<D>::bytes, dkv = WgDkvGeo<D>::bytes,
+                     fwd = WgFwdGeo<D>::bytes;
+    kernel %= 3;
+    if (kernel == 0)
+      return attributes(out, bwd_dq_mma_padded_kernel<D>, B, dq);
+    if (kernel == 1) return attributes(out, bwd_dkv_wg_mma_kernel<D>, W, dkv);
+    if (kernel == 2) return attributes(out, fwd_wg_mma_kernel<D>, W, fwd);
   }
-  if (kernel == 3) return cudaFuncGetAttributes(a, bwd_dq_mma_padded_kernel<D>);
-  if (kernel == 4)
-    return cudaFuncGetAttributes(a, bwd_dkv_mma_padded_kernel<D>);
-  if (kernel == 5) return cudaFuncGetAttributes(a, fwd_mma_padded_kernel<D>);
   return cudaErrorInvalidValue;
 }
 
 // the wide 'mma' kernels by the same numbers: 0 dQ, 1 dK/dV, 2 forward
-inline cudaError_t wide_attributes(cudaFuncAttributes* a, int kernel) {
-  if (kernel == 0) return cudaFuncGetAttributes(a, bwd_dq_wide_mma_kernel);
-  if (kernel == 1) return cudaFuncGetAttributes(a, bwd_dkv_wide_mma_kernel);
-  if (kernel == 2) return cudaFuncGetAttributes(a, fwd_wide_mma_kernel);
+inline cudaError_t wide_attributes(int* out, int kernel) {
+  constexpr int B = kBwdThreads;
+  if (kernel == 0)
+    return attributes(out, bwd_dq_wide_mma_kernel, B, WideGeo<true>::bytes);
+  if (kernel == 1)
+    return attributes(out, bwd_dkv_wide_mma_kernel, B, WideGeo<true>::bytes);
+  if (kernel == 2)
+    return attributes(out, fwd_wide_mma_kernel, B, WideGeo<false>::bytes);
   return cudaErrorInvalidValue;
 }
 
@@ -2434,31 +3110,21 @@ int mv2_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
 // What the CUDA runtime reports for the 'mma' kernel `kernel` (0 dQ, 1
 // dK/dV, 2 forward; 3, 4, 5 the same kernels' padded instantiations, for
 // d < width; 6, 7, 8 the wide kernels, whatever the width) at the padded
-// width `width` (16, 32, 64, 128 or 256),
-// into out (4 ints): registers a thread, local memory a thread (spills),
-// static shared memory, and the dynamic shared memory its launcher last set
-// (allow_smem sets it on every launch).
+// width `width` (16, 32, 64, 128 or 256), into out (5 ints): registers a
+// thread, local memory a thread (spills), static shared memory, the dynamic
+// shared memory its launcher sets, and the blocks an SM.
 int mv2_flash_mma_attributes(int kernel, int width, void* out) {
-  cudaFuncAttributes a;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (kernel >= 6) {  // the wide kernels, whatever the width
-    err = mv2::flash::wide_attributes(&a, kernel - 6);
-    width = 0;
-  }
-  switch (width) {
-    case 16: err = mv2::flash::mma_attributes<16>(&a, kernel); break;
-    case 32: err = mv2::flash::mma_attributes<32>(&a, kernel); break;
-    case 64: err = mv2::flash::mma_attributes<64>(&a, kernel); break;
-    case 128: err = mv2::flash::mma_attributes<128>(&a, kernel); break;
-    case 256: err = mv2::flash::mma_attributes<256>(&a, kernel); break;
-  }
-  if (err != cudaSuccess) return err;
   int* o = static_cast<int*>(out);
-  o[0] = a.numRegs;
-  o[1] = (int)a.localSizeBytes;
-  o[2] = (int)a.sharedSizeBytes;
-  o[3] = a.maxDynamicSharedSizeBytes;
-  return cudaSuccess;
+  if (kernel >= 6)  // the wide kernels, whatever the width
+    return mv2::flash::wide_attributes(o, kernel - 6);
+  switch (width) {
+    case 16: return mv2::flash::mma_attributes<16>(o, kernel);
+    case 32: return mv2::flash::mma_attributes<32>(o, kernel);
+    case 64: return mv2::flash::mma_attributes<64>(o, kernel);
+    case 128: return mv2::flash::mma_attributes<128>(o, kernel);
+    case 256: return mv2::flash::mma_attributes<256>(o, kernel);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -69,7 +69,7 @@ SIGNATURES = {
     'mv2_flash_attention_bwd_dq': [_P] * 9 + [_I] * 7 + [_F, _I, _P],
     # q, k, v, bias, dout, lse, delta, dk, dv, then as the forward
     'mv2_flash_attention_bwd_dkv': [_P] * 9 + [_I] * 7 + [_F, _I, _P],
-    # kernel, dim_head, out (4 ints)
+    # kernel, width, out (5 ints)
     'mv2_flash_mma_attributes': [_I, _I, _P],
     # x, dtype, n, scale_in, amax, scale_out, q, stream
     'mv2_quantize_s8': [_P, _I, _L] + [_P] * 5,

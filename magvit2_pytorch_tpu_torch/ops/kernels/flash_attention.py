@@ -38,11 +38,14 @@ of 256, one a block, the scores summed over column slices), and
 :func:`flash_attention` pads any other head with zero columns up to the next
 multiple of 8 (on the CPU too). float32 (CUDA cores, no TF32) and bfloat16
 (tensor cores). All three kernels take the
-route of :func:`flash_route`: ``'mma'`` for bf16, kernels on ``mma.sync``
-with register accumulators (the forward's online softmax in them too), a
-``cp.async`` ring and the causal tile skip (:func:`dq_key_tiles`,
-:func:`dkv_query_tiles`, :func:`tile_masked`); ``'f32'`` for float32, on the
-CUDA cores.
+route of :func:`flash_route`: ``'mma'`` for bf16, kernels with register
+accumulators (the forward's online softmax in them too) and the causal tile
+skip (:func:`dq_key_tiles`, :func:`dkv_query_tiles`, :func:`tile_masked`):
+up to 64 on ``mma.sync`` behind a ``cp.async`` ring, and at the widths 128
+and 256 the forward and dK/dV on ``wgmma`` fed by TMA, a producer
+warpgroup and two consumer warpgroups (:data:`WG_FWD_ROWS`,
+:data:`WG_FWD_TILE`, :data:`WG_DKV_KEYS`, :data:`WG_DKV_TILE`; dQ stays on
+``mma.sync``); ``'f32'`` for float32, on the CUDA cores.
 
 :func:`flash_attention` is a ``torch.autograd.Function``: the forward
 launches one kernel and saves ``q, k, v, bias, out, lse``, the backward
@@ -72,6 +75,13 @@ LAUNCHES = {**dict.fromkeys(KERNELS, 0),
 
 WIDTHS = (16, 32, 64, 128, 256)       # csrc/flash_attention.cu head_width
 EXACT_WIDTH = 64                      # kExactWidth: built apart at d == D
+# the Hopper kernels above EXACT_WIDTH (csrc/flash_attention.cu WgFwdGeo,
+# WgDkvGeo), by padded width: query rows a forward block, keys a forward
+# tile, keys a dK/dV block and queries a dK/dV tile
+WG_FWD_ROWS = 128
+WG_FWD_TILE = {128: 128, 256: 64}
+WG_DKV_KEYS = {128: 128, 256: 64}
+WG_DKV_TILE = 64
 NARROW_MAX = 256                      # kNarrowMax: wider heads, wide kernels
 WIDE_OUT = 256                        # kWideOut: output columns a block
 MASKED = -1e30
@@ -327,20 +337,35 @@ def flash_backward_dkv(q, k, v, bias, dout, lse, delta, causal: bool,
 MMA_KERNELS = ('dq', 'dkv', 'fwd')
 
 
+def mma_kernel(kernel: str, width: int, exact: bool = True) -> str:
+    """The CUDA kernel that :func:`mma_attributes` reports: up to
+    :data:`EXACT_WIDTH` the exact build or (``exact=False``) the padded one;
+    at 128 and 256 dQ's padded kernel and the Hopper forward and dK/dV
+    (``*_wg_mma_kernel``) for every head; over :data:`NARROW_MAX` the wide
+    kernels."""
+    stem = {'fwd': 'fwd', 'dq': 'bwd_dq', 'dkv': 'bwd_dkv'}[kernel]
+    if width > NARROW_MAX:
+        return f'{stem}_wide_mma_kernel'
+    if width > EXACT_WIDTH:
+        return (f'{stem}_mma_padded_kernel' if kernel == 'dq'
+                else f'{stem}_wg_mma_kernel')
+    return f'{stem}_mma_kernel' if exact else f'{stem}_mma_padded_kernel'
+
+
 def mma_attributes(kernel: str, width: int, exact: bool = True) -> dict:
     """What the CUDA runtime reports for the 'mma' kernel ``'fwd'``,
     ``'dq'`` or ``'dkv'`` at the padded width ``width`` (one of
     :data:`WIDTHS`), the kernel a head of exactly ``width`` runs (its own
-    build up to 64, the padded one above) or (``exact=False``) the padded
-    kernel, which takes the head size at run time; at a head over
-    :data:`NARROW_MAX`, the wide kernel every such head runs: registers and
-    local (spilled) bytes a thread, static shared memory, and the dynamic
-    shared memory its launcher last set (the runtime's default limit before
-    its first launch)."""
+    build up to 64; above, every head of the width runs one kernel) or
+    (``exact=False``) the one a narrower head runs, which takes the head
+    size at run time; at a head over :data:`NARROW_MAX`, the wide kernel
+    every such head runs (:func:`mma_kernel` names it): registers and local
+    (spilled) bytes a thread, static shared memory, the dynamic shared
+    memory its launcher sets, and the blocks an SM."""
     if width <= NARROW_MAX and width not in WIDTHS:
         raise ValueError(f'flash attention: width {width} not in {WIDTHS} '
                          f'or over {NARROW_MAX}')
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 5)()
     lib = _build.load_library()
     number = MMA_KERNELS.index(kernel) + (
         2 * len(MMA_KERNELS) if width > NARROW_MAX
@@ -348,7 +373,7 @@ def mma_attributes(kernel: str, width: int, exact: bool = True) -> dict:
     _build.check(lib, lib.mv2_flash_mma_attributes(number, width, out),
                  f'flash attention {kernel} attributes')
     return dict(zip(('registers', 'local_bytes', 'static_smem_bytes',
-                     'dynamic_smem_bytes'), out))
+                     'dynamic_smem_bytes', 'blocks_per_sm'), out))
 
 
 def row_delta(dout, out):

@@ -10,13 +10,12 @@ variants, and against another checkout's kernels, on one NVIDIA GPU.
    64 x 4, 128 x 4 and 256 x 2, causal too at 32 and 64: medians of 20
    CUDA-event timings. With ``--baseline DIR`` (the root of another
    checkout, e.g. the parent commit unpacked by ``git archive`` into a
-   git-ignored folder) its kernels run at 32 x 8 and 64 x 4 too, each
-   checkout in its own process, in turns baseline, this tree, this tree,
-   baseline.
+   git-ignored folder) its kernels run at every shape too, each checkout in
+   its own process, in turns baseline, this tree, this tree, baseline.
 2. ``--variants``: copies of this tree's package with other geometries of
-   the wide widths (``VARIANTS``: the shared-memory tiles and blocks an SM
-   of ``FwdGeo``, ``DqGeo``, ``DkvGeo`` in ``csrc/flash_attention.cu``),
-   built together into git-ignored folders under ``_proof/``, each checked
+   the wide widths (``VARIANTS``: ``WgFwdGeo`` and ``WgDkvGeo`` in
+   ``csrc/flash_attention.cu``, the Hopper forward and dK/dV), built
+   together into git-ignored folders under ``_proof/``, each checked
    against the plain versions at small shapes (bf16, ``chip_smoke``'s
    ``FLASH_TOL``) and timed at 128 x 4 and 256 x 2 in its own process, in
    turns, with ptxas's registers and spills.
@@ -42,9 +41,10 @@ B, N, M = 17, 4096, 4100
 
 
 def struct_sub(text, struct, old, new):
-    """``old`` replaced by ``new`` inside ``struct <struct> { ... };``."""
-    i = text.index(f'struct {struct} {{')
-    j = text.index('};', i)
+    """``old`` replaced by ``new`` inside ``struct <struct> { ... };`` (in
+    the whole file when struct is None)."""
+    i = 0 if struct is None else text.index(f'struct {struct} {{')
+    j = len(text) if struct is None else text.index('};', i)
     if old not in text[i:j]:
         sys.exit(f'{old!r} not in {struct}: update VARIANTS')
     return text[:i] + text[i:j].replace(old, new) + text[j:]
@@ -53,30 +53,10 @@ def struct_sub(text, struct, old, new):
 # geometry variants of the wide widths against this tree's: (struct, old,
 # new) substitutions in csrc/flash_attention.cu
 VARIANTS = {
-    # one block an SM at d = 256 on the tiles of 64 / 32 rows, and dQ at
-    # d = 128 with Q and dO in registers on 64-key tiles
-    'one_block': (
-        ('FwdGeo', 'tile = D <= 64 ? kFwdTile : D <= 128 ? 64 : 32;',
-         'tile = D <= 64 ? kFwdTile : 64;'),
-        ('FwdGeo', 'min_blocks = D <= 128 ? 1 : 2;', 'min_blocks = 1;'),
-        ('DqGeo', 'tile = D <= 64 ? kBwdTile : D <= 128 ? 32 : 16;',
-         'tile = D <= 128 ? kBwdTile : 32;'),
-        ('DqGeo', 'a_smem = D > 64;', 'a_smem = D > 128;'),
-        ('DqGeo', 'min_blocks = D <= 64 ? 1 : D <= 128 ? 3 : 2;',
-         'min_blocks = 1;'),
-        ('DkvGeo', 'tile = D <= 128 ? kBwdTile : 16;',
-         'tile = D <= 128 ? kBwdTile : 32;'),
-        ('DkvGeo', 'min_blocks = D <= 128 ? 1 : 2;', 'min_blocks = 1;')),
-    # three blocks an SM at d = 128: the forward at 170 registers, dK/dV
-    # in two sweeps on 32-row tiles
-    'three_blocks': (
-        ('FwdGeo', 'min_blocks = D <= 128 ? 1 : 2;',
-         'min_blocks = D <= 64 ? 1 : D <= 128 ? 3 : 2;'),
-        ('DkvGeo', 'tile = D <= 128 ? kBwdTile : 16;',
-         'tile = D <= 64 ? kBwdTile : D <= 128 ? 32 : 16;'),
-        ('DkvGeo', 'sweeps = D <= 128 ? 1 : 2;', 'sweeps = D <= 64 ? 1 : 2;'),
-        ('DkvGeo', 'min_blocks = D <= 128 ? 1 : 2;',
-         'min_blocks = D <= 64 ? 1 : D <= 128 ? 3 : 2;')),
+    # the forward at D = 128 on tiles of 64 keys
+    'fwd_tile64': (('WgFwdGeo', 'tile = D == 128 ? 128 : 64;', 'tile = 64;'),),
+    # dK/dV at D = 128 with three query tiles in flight
+    'dkv_stages3': (('WgDkvGeo', 'stages = 2;', 'stages = D == 128 ? 3 : 2;'),),
 }
 OUT = []
 
@@ -127,8 +107,9 @@ def child(root: str, shapes, check: bool):
             if not finite or worst > cs.FLASH_TOL['bfloat16']:
                 sys.exit(f'{root}: error {worst} at {(b, h, n, m, d)}')
         res['worst_rel_err'] = worst
-        res['resources'] = {f'{k}<{w}>': fa.mma_attributes(k, w, False)
-                            for k in fa.MMA_KERNELS for w in (128, 256)}
+        res['resources'] = {
+            f'{fa.mma_kernel(k, w)}<{w}>': fa.mma_attributes(k, w, False)
+            for k in fa.MMA_KERNELS for w in (128, 256)}
     for heads, d in shapes:
         q, k, v, dout, _ = cs.flash_inputs(torch, dev, torch.bfloat16, B,
                                            heads, N, M, d, None, 99)
@@ -149,12 +130,12 @@ def child(root: str, shapes, check: bool):
 
 
 def ptxas_summary(log: str):
-    """{kernel<width>: 'N regs, spill stores/loads'} of the padded kernels
+    """{kernel<width>: 'N regs, spill stores/loads'} of the 'mma' kernels
     at the wide widths."""
     out, current = {}, None
     for line in log.splitlines():
         hit = re.search(r'Function properties for _ZN3mv25flash\d+(\w+?_mma_'
-                        r'padded_kernel)ILi(\d+)E', line)
+                        r'(?:padded_)?kernel)ILi(\d+)E', line)
         if hit and int(hit[2]) >= 128:
             current = f'{hit[1]}<{hit[2]}>'
         elif current and 'spill' in line:
@@ -170,7 +151,7 @@ def main():
     parser = argparse.ArgumentParser()
     parser.add_argument('--baseline', default=None,
                         help='root of another checkout whose kernels run '
-                             'at 32 x 8 and 64 x 4 beside this tree\'s')
+                             'at every shape beside this tree\'s')
     parser.add_argument('--variants', action='store_true',
                         help='also time VARIANTS at the wide widths')
     parser.add_argument('--out', default=None)
@@ -192,8 +173,7 @@ def main():
         for who in ('baseline', 'this tree', 'this tree', 'baseline'):
             root = os.path.abspath(args.baseline if who == 'baseline'
                                    else REPO)
-            say(f'[flash heads] {who}: {run(root, "--shapes", "narrow")} ms '
-                f'on {smi}')
+            say(f'[flash heads] {who}: {run(root)} ms on {smi}')
     if args.variants:
         base = open(os.path.join(REPO, SRC)).read()
         trees, builds = {'this tree': REPO}, {}
