@@ -85,7 +85,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    every option ((2, 2, 130, d) / 134 keys, d in 16, 32, 64, causal and
    not, no bias and each bias shape; output, lse and all four gradients),
    every head of ``FLASH_HEADS`` (the wide launches at 264, 320, 512, 1024
-   also causal with a bias and with 70 keys),
+   also causal with a bias and with 70 keys; the Hopper kernels' heads
+   ``FLASH_WG_HEADS`` over several tiles with each bias, and with 70 keys
+   with each bias, causal and not),
    the ``'auto'`` gate's edge ((2, 8, 1024, 32) / 1028 keys, causal), the
    causal tile skip's edges (memory keys over more than a tile, fewer
    queries than a tile), each case's three kernels counted once each on
@@ -169,7 +171,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    last on the wide launches), each with 1 / 1 / 1 flash launches and no
    other kernel, and the three kernels alone at its shape beside their
    bounds, the plain versions and SDPA forward and backward, with the SDPA
-   backend that ran (``sdpa_backend``).
+   backend that ran (``sdpa_backend``); dQ called twice without and twice
+   with d_bias (an (n, m) bias) and dK/dV twice, each pair bit-identical.
 8. the JAX package's other configurations (``configs.py``, BASELINE configs
    1, 3 and 4). Config 4, the 256 px image tokenizer with 2^18 LFQ codes,
    at full width, bf16, batch 8 of images through ``tokenize`` and
@@ -544,15 +547,17 @@ FLASH_WG_HEADS = (96, 160, 256)
 # flagship's inner width 512, and the kernels-line rows they give
 FLASH_WIDTH_STEPS = ((128, 4), (256, 2), (512, 1))
 # the three kernels' earlier times at the step's shape, (17, heads, 4096,
-# dh) / 4100 keys bf16, before the Hopper forward and dK/dV (the padded
-# mma.sync kernels; PERF.md section 6, rows 6 and 8), on an H100 80GB HBM3
-# at 700 W: the log prints them beside this run's; the kernels line holds
-# only what this run measured
+# dh) / 4100 keys bf16, before each was redesigned for Hopper, on an H100
+# 80GB HBM3 at 700 W (PERF.md section 6, rows 6-8, which names the run of
+# each): the forward and dK/dV as the padded mma.sync kernels read when
+# these widths were first ported, dQ as its padded mma.sync kernel read in
+# the last run before its redesign. The log prints them beside this run's;
+# the kernels line holds only what this run measured
 FLASH_EARLIER_MS = {128: {'flash_attention_fwd': 2.6198,
-                          'flash_attention_bwd_dq': 3.4580,
+                          'flash_attention_bwd_dq': 3.6079,
                           'flash_attention_bwd_dkv': 4.9362},
                     256: {'flash_attention_fwd': 2.7500,
-                          'flash_attention_bwd_dq': 4.3076,
+                          'flash_attention_bwd_dq': 4.3278,
                           'flash_attention_bwd_dkv': 8.3523}}
 FLASH_WIDTH_ROWS = {f'{kernel}_d{dh}': (kernel, f'attention_step_d{dh}')
                     for dh, _ in FLASH_WIDTH_STEPS for kernel in
@@ -3018,8 +3023,8 @@ def spill_lines(ptxas):
 def flash_mma_resources(fa):
     """Registers, spills, shared memory and blocks an SM of the three 'mma'
     kernels at every compiled width, exact and padded (at 128 and 256 one
-    kernel takes every head: dQ's padded one and the Hopper forward and
-    dK/dV), as the CUDA runtime reports them (the dynamic shared memory is
+    kernel takes every head: the Hopper forward, dQ and dK/dV), as the CUDA
+    runtime reports them (the dynamic shared memory is
     what each launcher sets), with ptxas's lines from this run's build (none
     when the library came from the cache), and the 'f32' kernels' ptxas
     lines. Fails on a spill, and on a setmaxnreg that ptxas ignored."""
@@ -3204,6 +3209,11 @@ def phase_flash_kernels(torch, dev, reps, smi):
               for causal in (False, True)
               for bias in (None, 'nm', 'hnm', 'bhnm')]
     cases += [(2, 2, 300, 70, d, True, None) for d in FLASH_WG_HEADS]
+    # ... and with fewer keys than queries with each bias: dQ writes dS as
+    # d_bias from its accumulators, zeros in the tiles the causal skip
+    # passes over, nothing but zeros for the rows that see no key
+    cases += [(2, 2, 130, 70, d, causal, bias) for d in FLASH_WG_HEADS
+              for causal in (False, True) for bias in ('nm', 'hnm', 'bhnm')]
     for seed, (b, h, n, m, d, causal, bias_kind) in enumerate(cases):
         for name, dtype in dtypes:
             *qkvo, bias = flash_inputs(torch, dev, dtype, b, h, n, m, d,
@@ -3231,7 +3241,9 @@ def phase_flash_kernels(torch, dev, reps, smi):
             f'case; (1, 2, 70, d) / 150 keys causal, d in 16, 64, 128, 256; '
             f'(2, 2, 5, 16) / 9 keys with an (h, n, m) bias, causal and '
             f'not; (2, 2, 300, d) / 260 keys, d in {FLASH_WG_HEADS}, causal '
-            f'and not, with each bias, and / 70 keys causal; {name}, each '
+            f'and not, with each bias, and / 70 keys causal; (2, 2, 130, d) '
+            f'/ 70 keys, d in {FLASH_WG_HEADS}, causal and not, with each '
+            f'bias; {name}, each '
             f'kernel on the '
             f'{fa.flash_route(dict(dtypes)[name], 32)!r} route: worst '
             f'error over the largest value of the reference (lse: max abs '
@@ -3613,12 +3625,27 @@ def flash_width_rows(torch, fa, dev, reps, smi, dh, heads):
     rel = flash_relative(errs, peaks)
     out, lse, *_ = flash_kernels_alone(fa, q, k, v, dout, None, False)
     delta = fa.row_delta(dout, out)
-    # dK/dV twice: one owner per output tile, no atomics
-    first, second = (fa.flash_backward_dkv(q, k, v, None, dout, lse, delta,
-                                           False, scale) for _ in range(2))
-    if not all(torch.equal(x, y) for x, y in zip(first, second)):
-        fail(f'{what}: two dK/dV calls differ')
-    del first, second
+    # dK/dV twice, and dQ twice without and twice with d_bias (an (n, m)
+    # bias, dS (b h, n, m) in float32): one owner per output tile, no
+    # atomics
+    gen = torch.Generator().manual_seed(7)
+    bias = torch.randn((1, n, m), generator=gen).to(dev).to(torch.bfloat16)
+    out_b, lse_b = fa.flash_forward(q, k, v, bias, False, scale)
+    delta_b = fa.row_delta(dout, out_b)
+    pairs = {
+        'dK/dV': lambda: fa.flash_backward_dkv(q, k, v, None, dout, lse,
+                                               delta, False, scale),
+        'dQ': lambda: fa.flash_backward_dq(q, k, v, None, dout, lse, delta,
+                                           False, scale),
+        'dQ with d_bias': lambda: fa.flash_backward_dq(
+            q, k, v, bias, dout, lse_b, delta_b, False, scale, True)}
+    for call, launch in pairs.items():
+        first, second = launch(), launch()
+        if not all((x is None and y is None) or torch.equal(x, y)
+                   for x, y in zip(first, second)):
+            fail(f'{what}: two {call} calls differ')
+        del first, second
+    del bias, out_b, lse_b, delta_b
     calls = {
         'flash_attention_fwd': lambda: fa.flash_forward(q, k, v, None, False,
                                                         scale),
@@ -3683,7 +3710,8 @@ def flash_width_rows(torch, fa, dev, reps, smi, dh, heads):
             f'{FLASH_TOL["bfloat16"]:g}), max_abs_err {row["max_abs_err"]:.3e}'
             f'; {cuda_kernel} {row["resources"]}'
             + (', two dK/dV calls bit-identical' if name.endswith('dkv')
-               else '') + f' on {smi}')
+               else ', two dQ calls bit-identical, with and without d_bias'
+               if name.endswith('dq') else '') + f' on {smi}')
     return rows
 
 

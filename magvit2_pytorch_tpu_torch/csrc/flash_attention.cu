@@ -22,8 +22,8 @@
 // zero columns), as the JAX kernel takes any head. Up to 256 each kernel is
 // built at the padded widths
 // D = 16, 32, 64, 128 and 256 (head_width): the 'f32' kernels and the
-// 'mma' route's padded kernels (*_padded_kernel: d < D; above 64 dQ's and
-// the Hopper forward and dK/dV at every d) take the true d at run time: the
+// 'mma' route's padded kernels (*_padded_kernel: d < D; above 64 the
+// Hopper kernels at every d) take the true d at run time: the
 // columns past d are zeros in shared memory (cp.async's or TMA's zero fill)
 // and in registers, so they add nothing to a score or a product, and the
 // output columns past d are not stored. A head of d = 96 thus does the products of 128 (4/3 of the
@@ -37,14 +37,12 @@
 // picks it for all three kernels and passes it in, and the entry points
 // refuse a route that does not fit the dtype.
 // - 'mma' (bf16): every product on the tensor cores with float32
-//   accumulators in registers; at the widths 128 and 256 the forward and
-//   dK/dV are the Hopper kernels (wgmma fed by TMA, a producer warpgroup;
-//   see "the Hopper kernels" below), everything else mma.sync m16n8k16. An
+//   accumulators in registers; at the widths 128 and 256 all three are the
+//   Hopper kernels (wgmma fed by TMA, a producer warpgroup; see "the Hopper
+//   kernels" below), everything else mma.sync m16n8k16. An
 //   mma.sync block owns rows of its output (query rows
-//   for the forward and dQ, key rows for dK/dV), reads its own operand rows
-//   as A fragments (held in registers up to a width, read from a tile in
-//   shared memory by ldmatrix above it, so that the accumulators fit the
-//   255 registers a thread has) and streams tiles of the other side through
+//   for the forward and dQ, key rows for dK/dV), holds its own operand rows
+//   as A fragments in registers and streams tiles of the other side through
 //   a cp.async ring in shared memory. A C fragment's columns are the next
 //   product's reduction dimension, so P and dS go from one product's
 //   accumulators to the next one's A operand in registers, rounded to bf16
@@ -517,8 +515,8 @@ __global__ void __launch_bounds__(Cfg<D>::threads, 1)
 
 // ---- the bf16 kernels on the tensor cores (the 'mma' route) ---------------
 //
-// Three mma.sync kernels (the forward and dK/dV up to D = 64; above, the
-// Hopper kernels further down). Each block of warps owns rows of its
+// Three mma.sync kernels up to D = 64 (above, the Hopper kernels further
+// down). Each block of warps owns rows of its
 // output, 16 a warp,
 // and streams tiles of the other side through a ring of stages in shared
 // memory, filled by cp.async (zero-filled past the last row and past d) so
@@ -544,8 +542,8 @@ __global__ void __launch_bounds__(Cfg<D>::threads, 1)
 // Rows are padded from D to D + 8 bf16 in shared memory, so the 8 rows an
 // ldmatrix phase reads fall in 8 different bank groups. The bias is read one
 // bf16 at a time: a row of a (groups, n, m) bias is 4-byte aligned only when
-// m is even. The geometry of each kernel at each width (FwdGeo and DkvGeo
-// up to 64, DqGeo at every width) keeps the accumulators, the A fragments held in registers and a
+// m is even. The geometry of each kernel at each width (FwdGeo, DqGeo and
+// DkvGeo) keeps the accumulators, the A fragments held in registers and a
 // chunk of scores under 255 registers a thread, and its shared memory under
 // kSmemMax (static_asserts below); chip_smoke.py reads registers, spills
 // and shared memory of every width back from the card.
@@ -581,17 +579,10 @@ __device__ __forceinline__ void async_tile(bf16* dst, const bf16* src,
 }
 
 // An operand's 16 rows as the A side of mma.sync: fragments held in
-// registers (a[c] covers columns 16c .. 16c + 15), or a pointer to the first
-// of the rows in a shared tile with rows of D + 8, read by ldmatrix at each
-// use
-template <int D, bool SMEM>
+// registers (a[c] covers columns 16c .. 16c + 15)
+template <int D>
 struct Rows16 {
   unsigned a[D / 16][4];
-};
-
-template <int D>
-struct Rows16<D, true> {
-  const bf16* tile;
 };
 
 // A fragments of rows ra and ra + 8 of src (rows, d), straight from device
@@ -644,52 +635,25 @@ __device__ __forceinline__ void mma_rows(float (&acc)[4],
 }
 
 // s[j] (16 x 8) = A (16 x D) B^T for B = rows br0 + 8 j .. br0 + 8 j + 7 of
-// a ring tile, j < NB: A from registers ...
+// a ring tile, j < NB
 template <int D, int NB>
 __device__ __forceinline__ void mma_chunk(float (&s)[NB][4],
-                                          const Rows16<D, false>& A,
+                                          const Rows16<D>& A,
                                           const bf16* tile, int br0) {
 #pragma unroll
   for (int j = 0; j < NB; ++j) mma_rows<D>(s[j], A.a, tile, br0 + 8 * j);
 }
 
-// ... or from a shared tile, one 16 x 16 A fragment at a time
+// s = A1 B1^T and dp = A2 B2^T over the same rows of two ring tiles, block
+// by block
 template <int D, int NB>
-__device__ __forceinline__ void mma_chunk(float (&s)[NB][4],
-                                          const Rows16<D, true>& A,
-                                          const bf16* tile, int br0) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int j = 0; j < NB; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-  for (int c = 0; c < D / 16; ++c) {
-    unsigned a[4];
-    ldmatrix_x4(a, A.tile + (lane & 15) * (D + 8) + 16 * c + (lane >> 4) * 8);
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      unsigned b[2];
-      ldmatrix_x2(b, tile + (br0 + 8 * j + (lane & 7)) * (D + 8) + 16 * c +
-                         ((lane >> 3) & 1) * 8);
-      mma_16816(s[j], a, b[0], b[1]);
-    }
-  }
-}
-
-// s = A1 B1^T and dp = A2 B2^T over the same rows of two ring tiles: block
-// by block from registers, A fragment by A fragment from shared memory
-template <int D, int NB, bool SMEM>
 __device__ __forceinline__ void mma_chunk_pair(
-    float (&s)[NB][4], const Rows16<D, SMEM>& a1, const bf16* t1,
-    float (&dp)[NB][4], const Rows16<D, SMEM>& a2, const bf16* t2, int br0) {
-  if constexpr (SMEM) {
-    mma_chunk<D, NB>(s, a1, t1, br0);
-    mma_chunk<D, NB>(dp, a2, t2, br0);
-  } else {
+    float (&s)[NB][4], const Rows16<D>& a1, const bf16* t1,
+    float (&dp)[NB][4], const Rows16<D>& a2, const bf16* t2, int br0) {
 #pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      mma_rows<D>(s[j], a1.a, t1, br0 + 8 * j);
-      mma_rows<D>(dp[j], a2.a, t2, br0 + 8 * j);
-    }
+  for (int j = 0; j < NB; ++j) {
+    mma_rows<D>(s[j], a1.a, t1, br0 + 8 * j);
+    mma_rows<D>(dp[j], a2.a, t2, br0 + 8 * j);
   }
 }
 
@@ -883,7 +847,7 @@ __device__ __forceinline__ void fwd_mma(MV2_FWD_PARAMS) {
     cp_async_commit();
   }
 
-  Rows16<D, false> qa;
+  Rows16<D> qa;
   load_a<D>(qa.a, qb, ra, n, d);
   // rows < n - m see no key (causal): their mean of v
   if (causal && q0 < n - m)
@@ -1010,8 +974,8 @@ __device__ __forceinline__ void fwd_mma(MV2_FWD_PARAMS) {
 
 // Each kernel is built twice up to kExactWidth: for a head of exactly D (d
 // a constant, with the launch bounds the sweeps tuned) and, as the padded
-// kernel, for a narrower one (d at run time). The wider widths have dQ's
-// padded kernel alone, and the forward and dK/dV of the Hopper kernels.
+// kernel, for a narrower one (d at run time). The wider widths run the
+// Hopper kernels.
 template <int D>
 __global__ void __launch_bounds__(kFwdThreads)
     fwd_mma_kernel(MV2_FWD_PARAMS) {
@@ -1024,15 +988,14 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   fwd_mma<D, false>(MV2_FWD_ARGS);
 }
 
-// The backward: kBwdWarps warps a block, 16 output rows a warp; the
-// products take a chunk of a streamed tile's rows at a time. Up to D = 64
-// (from the sweep of tools/flash_bwd_variants.py, PERF.md §6 records it)
-// kBwdStages tiles of kBwdTile rows in flight and chunks of kDqChunk and
-// kDkvChunk rows; above, DqGeo and DkvGeo shrink tiles and chunks and move
-// the A operands to shared memory so that the accumulators fit. dQ *= scale
-// and dK *= scale at the end. The dQ kernel writes dS (when asked) in every
-// tile it visits and zeros in the key tiles it skips, so every element of
-// dS has one writer.
+// The backward up to D = 64 (the wider widths run the Hopper kernels):
+// kBwdWarps warps a block, 16 output rows a warp; the products take a chunk
+// of a streamed tile's rows at a time (from the sweep of
+// tools/flash_bwd_variants.py, PERF.md §6 records it): kBwdStages tiles of
+// kBwdTile rows in flight and chunks of kDqChunk and kDkvChunk rows. dQ *=
+// scale and dK *= scale at the end. The dQ kernel writes dS (when asked) in
+// every tile it visits and zeros in the key tiles it skips, so every
+// element of dS has one writer.
 constexpr int kBwdWarps = 4;
 constexpr int kBwdStages = 2;
 constexpr int kBwdTile = 64;
@@ -1041,24 +1004,16 @@ constexpr int kDkvChunk = 16;
 constexpr int kBwdThreads = 32 * kBwdWarps;
 constexpr int kBwdRows = 16 * kBwdWarps;  // output rows a block owns
 
-// dQ: keys a streamed tile, keys a chunk, whether Q's and dO's A fragments
-// are held in registers or read from shared tiles, and the padded kernel's
-// blocks an SM. Above D = 64 they come from shared memory on tiles small
-// enough for 3 blocks an SM at D = 128 (6% under 2 blocks with Q and dO in
-// registers) and 2 at D = 256 (21% under 1), where dQ alone holds 128
-// floats a thread (tools/flash_heads_probe.py, PERF.md §6).
+// dQ up to D = 64 (the wider widths run bwd_dq_wg_mma_kernel below): keys
+// a streamed tile and a chunk; Q's and dO's A fragments held in registers
 template <int D>
 struct DqGeo {
-  static constexpr int stages = D <= 64 ? kBwdStages : 2;
-  static constexpr int tile = D <= 64 ? kBwdTile : D <= 128 ? 32 : 16;
-  static constexpr int chunk = D <= 128 ? kDqChunk : 16;
-  static constexpr bool a_smem = D > 64;
-  static constexpr int min_blocks = D <= 64 ? 1 : D <= 128 ? 3 : 2;
-  static constexpr size_t ring =
+  static_assert(D <= kExactWidth, "the mma.sync dQ's widths");
+  static constexpr int stages = kBwdStages;
+  static constexpr int tile = kBwdTile;
+  static constexpr int chunk = kDqChunk;
+  static constexpr size_t bytes =
       (size_t)stages * 2 * sizeof(bf16) * tile * (D + 8);
-  static constexpr size_t a_tiles =
-      a_smem ? 2 * sizeof(bf16) * kBwdRows * (D + 8) : 0;
-  static constexpr size_t bytes = ring + a_tiles;
   static_assert(tile % chunk == 0 && chunk % 16 == 0 && stages >= 2,
                 "dQ geometry");
   static_assert(bytes <= kSmemMax, "dQ shared memory");
@@ -1112,8 +1067,6 @@ __device__ __forceinline__ void bwd_dq_mma(MV2_DQ_PARAMS) {
   constexpr int LD = D + 8, TILE = G::tile * LD, NB = G::chunk / 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // a stage: K tile, V tile
-  bf16* q_tile = ring + G::stages * 2 * TILE;      // with G::a_smem
-  bf16* do_tile = q_tile + kBwdRows * LD;
 
   const int bh = blockIdx.x / q_tiles;
   const int q0 = (blockIdx.x % q_tiles) * kBwdRows;
@@ -1136,24 +1089,15 @@ __device__ __forceinline__ void bwd_dq_mma(MV2_DQ_PARAMS) {
     async_tile<D, G::tile, kBwdThreads>(st, kb, t * G::tile, m, d);
     async_tile<D, G::tile, kBwdThreads>(st + TILE, vb, t * G::tile, m, d);
   };
-  if constexpr (G::a_smem) {  // join the first group
-    async_tile<D, kBwdRows, kBwdThreads>(q_tile, qb, q0, n, d);
-    async_tile<D, kBwdRows, kBwdThreads>(do_tile, dob, q0, n, d);
-  }
 #pragma unroll
   for (int t = 0; t < G::stages - 1; ++t) {
     if (t < tiles) load(t);
     cp_async_commit();
   }
 
-  Rows16<D, G::a_smem> qa, da;
-  if constexpr (G::a_smem) {
-    qa.tile = q_tile + 16 * warp * LD;
-    da.tile = do_tile + 16 * warp * LD;
-  } else {
-    load_a<D>(qa.a, qb, ra, n, d);
-    load_a<D>(da.a, dob, ra, n, d);
-  }
+  Rows16<D> qa, da;
+  load_a<D>(qa.a, qb, ra, n, d);
+  load_a<D>(da.a, dob, ra, n, d);
   const float* lse_rows = lse + (size_t)bh * n;
   const float* delta_rows = delta + (size_t)bh * n;
   const float lse_a = ra < n ? lse_rows[ra] * kLog2e : 0.f;
@@ -1225,7 +1169,7 @@ __global__ void __launch_bounds__(kBwdThreads)
 }
 
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, DqGeo<D>::min_blocks)
+__global__ void __launch_bounds__(kBwdThreads, 1)
     bwd_dq_mma_padded_kernel(MV2_DQ_PARAMS) {
   bwd_dq_mma<D, false>(MV2_DQ_ARGS);
 }
@@ -1235,7 +1179,7 @@ __global__ void __launch_bounds__(kBwdThreads, DqGeo<D>::min_blocks)
 template <int D>
 __device__ __forceinline__ void dkv_sweep(
     float (&dk)[D / 8][4], float (&dv)[D / 8][4],
-    const Rows16<D, false>& ka, const Rows16<D, false>& va,
+    const Rows16<D>& ka, const Rows16<D>& va,
     unsigned char* ring, const bf16* qb, const bf16* dob,
     const float* lse_rows, const float* delta_rows, const bf16* bb, int k0,
     int kr, int n, int m, int d, int first, int causal, float scale_log2) {
@@ -1345,7 +1289,7 @@ __device__ __forceinline__ void bwd_dkv_mma(MV2_DKV_PARAMS) {
   // query tiles first .. tiles - 1: with causal, from the first whose last
   // row sees the block's first key (dkv_query_tiles)
   const int first = causal ? max(0, k0 - offset) / G::tile : 0;
-  Rows16<D, false> ka, va;
+  Rows16<D> ka, va;
   load_a<D>(ka.a, kb, kr, m, d);
   load_a<D>(va.a, vb, kr, m, d);
   if (blind > 0) column_sum<D, kBwdThreads>(dosum, dosum + D, dob, blind, d);
@@ -1383,8 +1327,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 
 // ---- the Hopper kernels at the padded widths 128 and 256 ('mma' route) ----
 //
-// A head of 72 to 256 values runs the forward and dK/dV here, built at
-// D = 128 and 256 with the true d at run time (dQ keeps bwd_dq_mma above).
+// A head of 72 to 256 values runs all three kernels here, built at D = 128
+// and 256 with the true d at run time.
 // Each block is a producer warpgroup and two consumer warpgroups
 // (kWgThreads); setmaxnreg gives the producer's registers to the consumers,
 // whose accumulators fill them. One warp of the producer warpgroup works,
@@ -1400,6 +1344,10 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 //           O += P V           A = P in registers (rounded to bf16 there
 //                              and only there), B = V straight from its
 //                              TMA tile, MN-major (the transpose bit)
+//   dQ      S = Q K^T, dP = dO V^T   both from shared memory, K-major
+//           P, dS              as bwd_dq_mma, lse and delta per row
+//           dQ += dS K         A = dS in registers, B = the same K tile
+//                              read MN-major
 //   dK/dV S^T = K Q^T, dP^T = V dO^T   both from shared memory, K-major
 //           P^T, dS^T          as bwd_dkv_mma, lse and delta per column
 //           dV += P^T dO, dK += dS^T Q  A in registers, B the same Q and
@@ -1408,9 +1356,10 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 // 8j + 2(lane % 4) + {0, 1}) is the mma.sync C layout per 8-column block,
 // and two neighbouring blocks are the A fragment of a 16-deep step
 // (frag_of), so P and dS go from one product to the next in registers.
-// Masking, the bias (and `pre`), the causal skip, the rows that see no key
-// and the dead rows are fwd_mma's and bwd_dkv_mma's. One owner per output
-// tile, no atomics: two calls are bit-identical.
+// Masking, the bias (and `pre`), the causal skip, the rows that see no key,
+// the dead rows and dS as d_bias are fwd_mma's, bwd_dq_mma's and
+// bwd_dkv_mma's. One owner per output tile, no atomics: two calls are
+// bit-identical.
 //
 // The forward (fwd_wg_mma_kernel): a block owns 128 query rows, 64 a
 // consumer warpgroup, heaviest blocks first; Q arrives once, K and V tiles
@@ -1428,9 +1377,17 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 // float32 through shared memory (named barriers kPFull / kPEmpty),
 // warpgroup 1 forms dP^T, dS^T = P^T (dP^T - delta) and dK: each product
 // once, as today's float32 P in dS.
-// What bounds them on the H100: operations, 4 d (forward) and 8 d (dK/dV)
-// FLOPs a visible pair at D = 128 or 256 padded columns (chip_smoke.py
-// flash_cost).
+// dQ (bwd_dq_wg_mma_kernel): a block owns 128 query rows, 64 a consumer
+// warpgroup, heaviest blocks first; Q and dO arrive once, K and V tiles of
+// WgDqGeo::tile keys through rings of their own. S and dP are issued as two
+// groups: P = 2^(S scale log2e - lse log2e) is formed while dP is still in
+// flight; V's stage returns once dP is formed, K's once dQ += dS K has read
+// it. With a bias, dS goes to d_bias (float32) from the accumulators while
+// dQ's product runs, and the key tiles the causal skip passes over get
+// zeros, so every element of d_bias has one writer.
+// What bounds them on the H100: operations, 4 d (forward), 6 d (dQ) and 8 d
+// (dK/dV) FLOPs a visible pair at D = 128 or 256 padded columns
+// (chip_smoke.py flash_cost).
 
 constexpr int kWgConsumers = 256;               // two warpgroups
 constexpr int kWgThreads = kWgConsumers + 128;  // and the producer's
@@ -2005,6 +1962,217 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     } else {
       run(std::true_type{}, std::true_type{});
     }
+  }
+}
+
+// dQ's geometry (ops/kernels/flash_attention.py WG_DQ_ROWS, WG_DQ_TILE):
+// query rows a block, keys a tile, stages of each ring. A consumer thread
+// holds dQ (D / 2 floats), S and dP (tile / 2 each) and dS's A fragments
+// (tile / 4 words): 144 at D = 128 on 64-key tiles, 168 at 256 on 32-key
+// tiles, under the consumers' 240 registers; at 256 Q and dO take 128 KB.
+template <int D>
+struct WgDqGeo {
+  static_assert(D == 128 || D == 256, "the Hopper dQ's widths");
+  static constexpr int rows = 128;
+  static constexpr int tile = D == 128 ? 64 : 32;
+  static constexpr int stages = 2;
+  static constexpr int panels = D / kSw128Cols;  // 64-column boxes a row
+  static constexpr int q_panel = rows * 128;     // bytes
+  static constexpr int kv_panel = tile * 128;
+  static constexpr int kv_tile = panels * kv_panel;
+  static constexpr size_t bytes =
+      1024 + 2 * (size_t)panels * q_panel + 2 * (size_t)stages * kv_tile;
+  static_assert(bytes <= kSmemMax, "Hopper dQ shared memory");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    bwd_dq_wg_mma_kernel(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const __grid_constant__ CUtensorMap map_do,
+                         const bf16* __restrict__ bias,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dq, float* __restrict__ dbias,
+                         int n, int m, int d, int q_tiles, int bias_groups,
+                         int causal, float scale) {
+  typedef WgDqGeo<D> G;
+  constexpr int T = G::tile, NB = T / 8;
+  extern __shared__ unsigned char wg_smem[];
+  __shared__ __align__(8) uint64_t qbar, kfull[G::stages],
+      kempty[G::stages], vfull[G::stages], vempty[G::stages];
+  unsigned char* qs = align1024(wg_smem);
+  unsigned char* dos = qs + G::panels * G::q_panel;
+  unsigned char* ks = dos + G::panels * G::q_panel;
+  unsigned char* vs = ks + G::stages * G::kv_tile;
+
+  const int bh = blockIdx.x / q_tiles;
+  const int q0 = (q_tiles - 1 - blockIdx.x % q_tiles) * G::rows;
+  const int offset = m - n;
+  // key tiles 0 .. tiles - 1: with causal, up to the last one the block's
+  // last row sees (dq_key_tiles)
+  const int k_end = causal ? min(m, min(q0 + G::rows, n) + offset) : m;
+  const int tiles = (max(k_end, 0) + T - 1) / T;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&qbar, 1);
+    for (int s = 0; s < G::stages; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&vfull[s], 1);
+      mbar_init(&kempty[s], kWgConsumers / 32);  // a consumer warp each
+      mbar_init(&vempty[s], kWgConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kWgConsumers / 32) {  // the producer warpgroup
+    reg_dealloc<kWgProducerRegs>();
+    if (warp == kWgConsumers / 32 && lane == 0) {
+      mbar_expect_tx(&qbar, 2 * G::panels * G::q_panel);
+      for (int p = 0; p < G::panels; ++p) {
+        tma_load_3d(qs + p * G::q_panel, &map_q, &qbar, p * kSw128Cols, q0,
+                    bh);
+        tma_load_3d(dos + p * G::q_panel, &map_do, &qbar, p * kSw128Cols,
+                    q0, bh);
+      }
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % G::stages, use = t / G::stages;
+        if (use > 0) mbar_wait(&kempty[s], (use - 1) & 1);
+        mbar_expect_tx(&kfull[s], G::kv_tile);
+        for (int p = 0; p < G::panels; ++p)
+          tma_load_3d(ks + s * G::kv_tile + p * G::kv_panel, &map_k,
+                      &kfull[s], p * kSw128Cols, t * T, bh);
+        if (use > 0) mbar_wait(&vempty[s], (use - 1) & 1);
+        mbar_expect_tx(&vfull[s], G::kv_tile);
+        for (int p = 0; p < G::panels; ++p)
+          tma_load_3d(vs + s * G::kv_tile + p * G::kv_panel, &map_v,
+                      &vfull[s], p * kSw128Cols, t * T, bh);
+      }
+    }
+  } else {  // two consumer warpgroups, 64 query rows each
+    reg_alloc<kWgConsumerRegs>();
+    const int wg = warp / 4, wq = warp % 4, g = lane >> 2, tq = lane & 3;
+    const int w0 = q0 + 64 * wg + 16 * wq;  // the warp's first row
+    const int ra = w0 + g;
+    const bf16* bb =
+        bias ? bias + (size_t)(bh % bias_groups) * n * m : nullptr;
+    float* dbb = dbias ? dbias + (size_t)bh * n * m : nullptr;
+    const float scale_log2 = scale * kLog2e;
+    // lse (base 2) and delta of rows ra and ra + 8, 0 past n
+    float lse2[2], del[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = ra + 8 * h;
+      lse2[h] = row < n ? lse[(size_t)bh * n + row] * kLog2e : 0.f;
+      del[h] = row < n ? delta[(size_t)bh * n + row] : 0.f;
+    }
+    const uint64_t qdesc = sw128_desc(qs + 64 * wg * 128);
+    const uint64_t ddesc = sw128_desc(dos + 64 * wg * 128);
+    float acc[D / 2];
+    zero_acc(acc);
+    auto release = [&](uint64_t* bars, int s) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bars[s]);
+    };
+
+    mbar_wait(&qbar, 0);
+    for (int t = 0; t < tiles; ++t) {
+      const int s = t % G::stages, parity = (t / G::stages) & 1;
+      const int k0 = t * T;
+      const unsigned char* kt = ks + s * G::kv_tile;
+      const uint64_t kdesc = sw128_desc(kt);
+      const uint64_t vdesc = sw128_desc(vs + s * G::kv_tile);
+      float sc[T / 2], dp[T / 2];  // S, then P, then dS; dP
+      zero_acc(sc);
+      zero_acc(dp);
+      mbar_wait(&kfull[s], parity);
+      wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < G::panels; ++p)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_bf16(sc, qdesc + ((p * G::q_panel) >> 4) + 2 * kk,
+                     kdesc + ((p * G::kv_panel) >> 4) + 2 * kk);
+      wgmma_commit();
+      mbar_wait(&vfull[s], parity);
+#pragma unroll
+      for (int p = 0; p < G::panels; ++p)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_bf16(dp, ddesc + ((p * G::q_panel) >> 4) + 2 * kk,
+                     vdesc + ((p * G::kv_panel) >> 4) + 2 * kk);
+      wgmma_commit();
+      wgmma_wait<1>();  // S is in; dP may still run
+      fence_acc(sc);
+      // element 4j + e is (row ra + 8 (e / 2), key k0 + 8j + 2tq + e % 2);
+      // uniform branches: the bias, and the element test of a masked tile
+#pragma unroll
+      for (int e = 0; e < T / 2; ++e)
+        sc[e] = fmaf(sc[e], scale_log2, -lse2[(e >> 1) & 1]);
+      if (bb)
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = ra + 8 * (e >> 1);
+            const int col = k0 + 8 * j + 2 * tq + (e & 1);
+            if (row < n && col < m)
+              sc[4 * j + e] = fmaf(to_f32(bb[(size_t)row * m + col]), kLog2e,
+                                   sc[4 * j + e]);
+          }
+      if (tile_masked(w0, 16, k0, T, n, m, causal))
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = ra + 8 * (e >> 1);
+            const int col = k0 + 8 * j + 2 * tq + (e & 1);
+            if (!(row < n && col < m && (!causal || col <= row + offset)))
+              sc[4 * j + e] = -INFINITY;
+          }
+#pragma unroll
+      for (int e = 0; e < T / 2; ++e) sc[e] = exp2_approx(sc[e]);
+      wgmma_wait<0>();
+      fence_acc(dp);
+      release(vempty, s);
+#pragma unroll
+      for (int e = 0; e < T / 2; ++e)
+        sc[e] *= dp[e] - del[(e >> 1) & 1];
+      unsigned da[T / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < T / 16; ++kk) frag_of(da[kk], sc + 8 * kk);
+      wgmma_fence();
+      const uint64_t kmn = sw128_mn_desc(kt, G::kv_panel);
+#pragma unroll
+      for (int kk = 0; kk < T / 16; ++kk)
+        wgmma_rs_mn(acc, da[kk], kmn + 128 * kk);
+      wgmma_commit();
+      if (dbb)  // dS as d_bias while dQ's product runs
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = ra + 8 * (e >> 1);
+            const int col = k0 + 8 * j + 2 * tq + (e & 1);
+            if (row < n && col < m) dbb[(size_t)row * m + col] = sc[4 * j + e];
+          }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      keep_live(da);
+      release(kempty, s);
+    }
+    store_acc<D>(dq + (size_t)bh * n * d, acc, ra, n, scale, d);
+    // dS of the key tiles the causal skip passed over is 0
+    const int skipped = m - tiles * T;
+    if (dbb && skipped > 0)
+      for (int r = threadIdx.x / 32; r < G::rows; r += kWgConsumers / 32) {
+        if (q0 + r >= n) break;
+        float* row = dbb + (size_t)(q0 + r) * m + (m - skipped);
+        for (int c = lane; c < skipped; c += 32) row[c] = 0.f;
+      }
   }
 }
 
@@ -2826,6 +2994,31 @@ cudaError_t launch_dkv_wg(const void* q, const void* k, const void* v,
   return cudaSuccess;
 }
 
+template <int D>
+cudaError_t launch_dq_wg(const void* q, const void* k, const void* v,
+                         const void* bias, const void* dout, const float* lse,
+                         const float* delta, void* dq, float* dbias, int bh,
+                         int n, int m, int d, int groups, int causal,
+                         float scale, cudaStream_t stream) {
+  typedef WgDqGeo<D> G;
+  const int tiles = tiles_of(n, G::rows);
+  if (!grid_fits(bh, tiles)) return cudaErrorInvalidValue;
+  const auto kernel = bwd_dq_wg_mma_kernel<D>;
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err = head_map(&mq, q, bh, n, d, G::rows);
+  if (err == cudaSuccess) err = head_map(&mdo, dout, bh, n, d, G::rows);
+  if (err == cudaSuccess) err = head_map(&mk, k, bh, m, d, G::tile);
+  if (err == cudaSuccess) err = head_map(&mv, v, bh, m, d, G::tile);
+  if (err == cudaSuccess) err = wg_registers_fit(kernel);
+  if (err == cudaSuccess) err = allow_smem(kernel, G::bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)(bh * tiles), kWgThreads, G::bytes, stream>>>(
+      mq, mk, mv, mdo, (const bf16*)bias, lse, delta, (bf16*)dq, dbias, n, m,
+      d, tiles, groups, causal, scale);
+  MV2_CHECK_LAUNCH();
+  return cudaSuccess;
+}
+
 // the 'mma' route
 template <int D>
 cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v,
@@ -2857,20 +3050,24 @@ cudaError_t launch_dq_mma(const void* q, const void* k, const void* v,
                           float* dbias, int bh, int n, int m, int d,
                           int groups, int causal, float scale,
                           cudaStream_t stream) {
-  const int tiles = tiles_of(n, kBwdRows);
-  if (!grid_fits(bh, tiles)) return cudaErrorInvalidValue;
-  const size_t bytes = DqGeo<D>::bytes;
-  auto kernel = bwd_dq_mma_padded_kernel<D>;
-  if constexpr (D <= kExactWidth)
-    if (d == D) kernel = bwd_dq_mma_kernel<D>;
-  cudaError_t err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)(bh * tiles), kBwdThreads, bytes, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)bias,
-      (const bf16*)dout, lse, delta, (bf16*)dq, dbias, n, m, d, tiles,
-      groups, causal, scale);
-  MV2_CHECK_LAUNCH();
-  return cudaSuccess;
+  if constexpr (D > kExactWidth) {
+    return launch_dq_wg<D>(q, k, v, bias, dout, lse, delta, dq, dbias, bh, n,
+                           m, d, groups, causal, scale, stream);
+  } else {
+    const int tiles = tiles_of(n, kBwdRows);
+    if (!grid_fits(bh, tiles)) return cudaErrorInvalidValue;
+    const size_t bytes = DqGeo<D>::bytes;
+    const auto kernel =
+        d == D ? bwd_dq_mma_kernel<D> : bwd_dq_mma_padded_kernel<D>;
+    cudaError_t err = allow_smem(kernel, bytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<(unsigned)(bh * tiles), kBwdThreads, bytes, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)bias,
+        (const bf16*)dout, lse, delta, (bf16*)dq, dbias, n, m, d, tiles,
+        groups, causal, scale);
+    MV2_CHECK_LAUNCH();
+    return cudaSuccess;
+  }
 }
 
 template <int D>
@@ -2922,8 +3119,8 @@ cudaError_t attributes(int* out, Kernel kernel, int threads, size_t bytes) {
 
 // the 'mma' kernels by number: 0 dQ, 1 dK/dV, 2 forward, the kernel a head
 // of exactly D runs, and 3 + the number for the padded kernel (d < D); at
-// the widths above kExactWidth every head runs the same kernels: dQ's
-// padded one and the Hopper forward and dK/dV
+// the widths above kExactWidth every head runs the same kernels, the Hopper
+// ones
 template <int D>
 cudaError_t mma_attributes(int* out, int kernel) {
   if constexpr (D <= kExactWidth) {
@@ -2939,12 +3136,11 @@ cudaError_t mma_attributes(int* out, int kernel) {
       return attributes(out, bwd_dkv_mma_padded_kernel<D>, B, dkv);
     if (kernel == 5) return attributes(out, fwd_mma_padded_kernel<D>, F, fwd);
   } else if (kernel >= 0 && kernel < 6) {
-    constexpr int B = kBwdThreads, W = kWgThreads;
-    constexpr size_t dq = DqGeo<D>::bytes, dkv = WgDkvGeo<D>::bytes,
+    constexpr int W = kWgThreads;
+    constexpr size_t dq = WgDqGeo<D>::bytes, dkv = WgDkvGeo<D>::bytes,
                      fwd = WgFwdGeo<D>::bytes;
     kernel %= 3;
-    if (kernel == 0)
-      return attributes(out, bwd_dq_mma_padded_kernel<D>, B, dq);
+    if (kernel == 0) return attributes(out, bwd_dq_wg_mma_kernel<D>, W, dq);
     if (kernel == 1) return attributes(out, bwd_dkv_wg_mma_kernel<D>, W, dkv);
     if (kernel == 2) return attributes(out, fwd_wg_mma_kernel<D>, W, fwd);
   }

@@ -42,10 +42,10 @@ route of :func:`flash_route`: ``'mma'`` for bf16, kernels with register
 accumulators (the forward's online softmax in them too) and the causal tile
 skip (:func:`dq_key_tiles`, :func:`dkv_query_tiles`, :func:`tile_masked`):
 up to 64 on ``mma.sync`` behind a ``cp.async`` ring, and at the widths 128
-and 256 the forward and dK/dV on ``wgmma`` fed by TMA, a producer
-warpgroup and two consumer warpgroups (:data:`WG_FWD_ROWS`,
-:data:`WG_FWD_TILE`, :data:`WG_DKV_KEYS`, :data:`WG_DKV_TILE`; dQ stays on
-``mma.sync``); ``'f32'`` for float32, on the CUDA cores.
+and 256 all three on ``wgmma`` fed by TMA, a producer warpgroup and two
+consumer warpgroups (:data:`WG_FWD_ROWS`, :data:`WG_FWD_TILE`,
+:data:`WG_DQ_ROWS`, :data:`WG_DQ_TILE`, :data:`WG_DKV_KEYS`,
+:data:`WG_DKV_TILE`); ``'f32'`` for float32, on the CUDA cores.
 
 :func:`flash_attention` is a ``torch.autograd.Function``: the forward
 launches one kernel and saves ``q, k, v, bias, out, lse``, the backward
@@ -76,10 +76,13 @@ LAUNCHES = {**dict.fromkeys(KERNELS, 0),
 WIDTHS = (16, 32, 64, 128, 256)       # csrc/flash_attention.cu head_width
 EXACT_WIDTH = 64                      # kExactWidth: built apart at d == D
 # the Hopper kernels above EXACT_WIDTH (csrc/flash_attention.cu WgFwdGeo,
-# WgDkvGeo), by padded width: query rows a forward block, keys a forward
-# tile, keys a dK/dV block and queries a dK/dV tile
+# WgDqGeo, WgDkvGeo), by padded width: query rows a forward block, keys a
+# forward tile, query rows a dQ block, keys a dQ tile, keys a dK/dV block
+# and queries a dK/dV tile
 WG_FWD_ROWS = 128
 WG_FWD_TILE = {128: 128, 256: 64}
+WG_DQ_ROWS = 128
+WG_DQ_TILE = {128: 64, 256: 32}
 WG_DKV_KEYS = {128: 128, 256: 64}
 WG_DKV_TILE = 64
 NARROW_MAX = 256                      # kNarrowMax: wider heads, wide kernels
@@ -340,15 +343,13 @@ MMA_KERNELS = ('dq', 'dkv', 'fwd')
 def mma_kernel(kernel: str, width: int, exact: bool = True) -> str:
     """The CUDA kernel that :func:`mma_attributes` reports: up to
     :data:`EXACT_WIDTH` the exact build or (``exact=False``) the padded one;
-    at 128 and 256 dQ's padded kernel and the Hopper forward and dK/dV
-    (``*_wg_mma_kernel``) for every head; over :data:`NARROW_MAX` the wide
-    kernels."""
+    at 128 and 256 the Hopper kernels (``*_wg_mma_kernel``) for every head;
+    over :data:`NARROW_MAX` the wide kernels."""
     stem = {'fwd': 'fwd', 'dq': 'bwd_dq', 'dkv': 'bwd_dkv'}[kernel]
     if width > NARROW_MAX:
         return f'{stem}_wide_mma_kernel'
     if width > EXACT_WIDTH:
-        return (f'{stem}_mma_padded_kernel' if kernel == 'dq'
-                else f'{stem}_wg_mma_kernel')
+        return f'{stem}_wg_mma_kernel'
     return f'{stem}_mma_kernel' if exact else f'{stem}_mma_padded_kernel'
 
 

@@ -1,13 +1,15 @@
-"""The Hopper flash-attention kernels' geometry on the CPU: the forward and
-dK/dV at the padded widths 128 and 256 (csrc/flash_attention.cu
-``fwd_wg_mma_kernel``, ``bwd_dkv_wg_mma_kernel``). The constants that the
-wrapper exposes against the source, the causal-skip twins at that geometry
-against a dense mask, and test-local models of the two kernels' loops (key
-blocks, query tiles, the per-warp element tests, the rows that see no key
-and, at 256, dK/dV's split of the products between the warpgroups with P^T
-handed over unrounded) against the plain versions, in float64 within 1e-6
-of the largest value (the same sums in another order) and in float32 within
-1e-5. Inputs come from numpy seeds. The kernels run only on the card
+"""The Hopper flash-attention kernels' geometry on the CPU: the forward, dQ
+and dK/dV at the padded widths 128 and 256 (csrc/flash_attention.cu
+``fwd_wg_mma_kernel``, ``bwd_dq_wg_mma_kernel``, ``bwd_dkv_wg_mma_kernel``).
+The constants that the wrapper exposes against the source, the causal-skip
+twins at that geometry against a dense mask, and test-local models of the
+three kernels' loops (query blocks, key blocks, key and query tiles, the
+per-warp element tests, the rows that see no key, dS written as d_bias in
+every visited tile and as zeros in the skipped ones and, at 256, dK/dV's
+split of the products between the warpgroups with P^T handed over
+unrounded) against the plain versions, in float64 within 1e-6 of the
+largest value (the same sums in another order) and in float32 within 1e-5.
+Inputs come from numpy seeds. The kernels run only on the card
 (chip_smoke.py)."""
 
 import itertools
@@ -35,8 +37,9 @@ def _struct(name: str) -> str:
 
 def _value(body: str, field: str, env: dict):
     """``static constexpr ... field = <expr>;`` evaluated at env, with C's
-    ``a ? b : c`` and ``==``."""
-    expr = re.search(rf'\b{field} = ([^;]+);', body)[1]
+    ``a ? b : c``, ``==`` and casts to size_t."""
+    expr = re.search(rf'\b{field} =\s+([^;]+);', body)[1]
+    expr = expr.replace('(size_t)', '')
 
     def ev(e):
         e = e.strip()
@@ -63,14 +66,57 @@ def test_geometry_constants_match_the_source():
                for d in WG_WIDTHS)
 
 
+@pytest.mark.parametrize('d', WG_WIDTHS)
+def test_dq_geometry_constants_match_the_source(d):
+    """WgDqGeo against WG_DQ_ROWS / WG_DQ_TILE: two warpgroups of 64 query
+    rows, 64-key tiles at 128 and 32 at 256; its shared memory (Q and dO
+    once, K and V rings) under the 227 KB a block takes, and a consumer
+    thread's dQ, S, dP and dS fragments as the source's comment counts
+    them."""
+    geo = _struct('WgDqGeo')
+    env = {'D': d, 'kSw128Cols': 64}
+    for field in ('rows', 'tile', 'stages', 'panels', 'q_panel', 'kv_panel',
+                  'kv_tile'):
+        env[field] = _value(geo, field, env)
+    assert env['rows'] == fa.WG_DQ_ROWS == 2 * 64
+    assert env['tile'] == fa.WG_DQ_TILE[d]
+    assert _value(geo, 'bytes', env) <= 232448
+    held = d // 2 + 2 * (env['tile'] // 2) + env['tile'] // 4
+    assert held == {128: 144, 256: 168}[d]
+
+
 def _visible(n: int, m: int, causal: bool):
     """(n, m) bool: query i sees key j (right-aligned causal mask)."""
     i, j = np.arange(n)[:, None], np.arange(m)[None, :]
     return (j <= i + (m - n)) if causal else np.ones((n, m), bool)
 
 
-@pytest.mark.parametrize('n,m', list(itertools.product((1, 5, 70, 130, 300),
-                                                       (1, 64, 129, 260))))
+def _padded_mask(n: int, m: int, causal: bool):
+    """The (n, m) visibility inside a zero margin of rows and keys past the
+    edges."""
+    big = np.zeros((n + 512, m + 512), bool)
+    big[:n, :m] = _visible(n, m, causal)
+    return big
+
+
+def _check_query_blocks(big, n, m, causal, rows, tile):
+    """Blocks of ``rows`` query rows visit key tiles 0 .. dq_key_tiles - 1
+    of ``tile`` keys: no visible pair past them, and a warp's tile (16 rows
+    by a key tile) that tile_masked passes untested holds only visible pairs
+    inside n, m."""
+    for q0 in range(0, n, rows):
+        tiles = fa.dq_key_tiles(q0, rows, n, m, causal, tile)
+        assert not big[q0:q0 + rows, tiles * tile:].any()
+        for w0, t in itertools.product(range(q0, q0 + rows, 16),
+                                       range(tiles)):
+            if not fa.tile_masked(w0, 16, t * tile, tile, n, m, causal):
+                assert big[w0:w0 + 16, t * tile:(t + 1) * tile].all()
+
+
+SKIP_SHAPES = list(itertools.product((1, 5, 70, 130, 300), (1, 64, 129, 260)))
+
+
+@pytest.mark.parametrize('n,m', SKIP_SHAPES)
 @pytest.mark.parametrize('causal', [False, True])
 def test_causal_skip_at_the_hopper_geometry(n, m, causal):
     """The forward's blocks of WG_FWD_ROWS rows visit key tiles
@@ -79,18 +125,10 @@ def test_causal_skip_at_the_hopper_geometry(n, m, causal):
     visible pair lies in a visited tile, and a warp's tile that
     tile_masked passes untested (16 rows by a key tile in the forward, a
     query tile by 16 keys in dK/dV) holds only visible pairs inside n, m."""
-    vis = _visible(n, m, causal)
-    big = np.zeros((n + 512, m + 512), bool)    # rows/keys past the edges
-    big[:n, :m] = vis
+    big = _padded_mask(n, m, causal)
     for d in WG_WIDTHS:
-        rows, tile = fa.WG_FWD_ROWS, fa.WG_FWD_TILE[d]
-        for q0 in range(0, n, rows):
-            tiles = fa.dq_key_tiles(q0, rows, n, m, causal, tile)
-            assert not big[q0:q0 + rows, tiles * tile:].any()
-            for w0, t in itertools.product(range(q0, q0 + rows, 16),
-                                           range(tiles)):
-                if not fa.tile_masked(w0, 16, t * tile, tile, n, m, causal):
-                    assert big[w0:w0 + 16, t * tile:(t + 1) * tile].all()
+        _check_query_blocks(big, n, m, causal, fa.WG_FWD_ROWS,
+                            fa.WG_FWD_TILE[d])
         keys, qt = fa.WG_DKV_KEYS[d], fa.WG_DKV_TILE
         for k0 in range(0, m, keys):
             visited = fa.dkv_query_tiles(k0, n, m, causal, qt)
@@ -101,6 +139,19 @@ def test_causal_skip_at_the_hopper_geometry(n, m, causal):
                     if not fa.tile_masked(t * qt, qt, kw, 16, n, m, causal):
                         assert big[t * qt:(t + 1) * qt, kw:kw + 16].all()
             assert not big[~seen, k0:k0 + keys].any()
+
+
+@pytest.mark.parametrize('n,m', SKIP_SHAPES)
+@pytest.mark.parametrize('causal', [False, True])
+def test_causal_skip_at_the_dq_geometry(n, m, causal):
+    """dQ's blocks of WG_DQ_ROWS rows visit the key tiles of dq_key_tiles
+    of WG_DQ_TILE keys, as the forward's do: every visible pair (and so
+    every dS the kernel writes from its accumulators) lies in a visited
+    tile, and a warp's untested tile is all visible."""
+    big = _padded_mask(n, m, causal)
+    for d in WG_WIDTHS:
+        _check_query_blocks(big, n, m, causal, fa.WG_DQ_ROWS,
+                            fa.WG_DQ_TILE[d])
 
 
 def _pad(t, width):
@@ -230,6 +281,53 @@ def _dkv_model(q, k, v, bias, out, lse, dout, causal, scale, width):
     return dk[..., :d], dv[..., :d]
 
 
+def _dq_model(q, k, v, bias, out, lse, dout, causal, scale, width):
+    """dQ's loop at width D: per block of WG_DQ_ROWS query rows (two
+    warpgroups of 64, 16 rows a warp), the key tiles of dq_key_tiles of
+    WG_DQ_TILE keys: P = 2^(S scale log2e + bias log2e - lse log2e) with
+    each warp's element test where tile_masked asks for it, dS = P (dP -
+    delta), dQ += dS K; dS goes to d_bias from every visited tile (its
+    elements inside n, m) and zeros to the key tiles the block skips; then
+    dQ *= scale. Returns dq and the (b h, n, m) dS, NaN where nothing was
+    written."""
+    b, h, n, d = q.shape
+    m = k.shape[2]
+    rows, tile = fa.WG_DQ_ROWS, fa.WG_DQ_TILE[width]
+    qp, kp, vp, dop = (_pad(t, width) for t in (q, k, v, dout))
+    delta = (dout * out).sum(dim=-1)
+    dq = torch.zeros_like(qp)
+    ds_all = torch.full((b * h, n, m), math.nan, dtype=q.dtype)
+    for bi, hi in itertools.product(range(b), range(h)):
+        bb = None if bias is None else bias[(bi * h + hi) % bias.shape[0]]
+        ds_head = ds_all[bi * h + hi]
+        for q0 in range(0, n, rows):
+            tiles = fa.dq_key_tiles(q0, rows, n, m, causal, tile)
+            for w0 in range(q0, q0 + rows, 16):
+                qw, dow = _rows(qp[bi, hi], w0, 16), _rows(dop[bi, hi], w0, 16)
+                ls = _rows(lse[bi, hi], w0, 16)
+                de = _rows(delta[bi, hi], w0, 16)
+                acc = torch.zeros(16, width, dtype=q.dtype)
+                r1 = min(w0 + 16, n) - w0      # the warp's rows inside n
+                for t in range(tiles):
+                    k0 = t * tile
+                    kk = _rows(kp[bi, hi], k0, tile)
+                    x = qw @ kk.T * (scale * LOG2E) - ls[:, None] * LOG2E
+                    if bb is not None:
+                        x = x + _rows(_rows(bb, w0, 16).T, k0,
+                                      tile).T * LOG2E
+                    p = torch.exp2(_masked(x, w0, 16, k0, tile, n, m, causal))
+                    ds = p * (dow @ _rows(vp[bi, hi], k0, tile).T
+                              - de[:, None])
+                    acc += ds @ kk
+                    c1 = min(k0 + tile, m) - k0
+                    if r1 > 0:
+                        ds_head[w0:w0 + r1, k0:k0 + c1] = ds[:r1, :c1]
+                if r1 > 0:
+                    dq[bi, hi, w0:w0 + r1] = acc[:r1] * scale
+            ds_head[q0:q0 + rows, tiles * tile:] = 0
+    return dq[..., :d], ds_all
+
+
 def _inputs(d, m, causal, dtype):
     rng = np.random.default_rng(7 + d + m + causal)
     b, h, n = 1, 2, 130
@@ -268,3 +366,30 @@ def test_the_hopper_loops_match_the_plain_versions(d, m, causal):
                             scale, width)
         _close(dk, want_dk, tol)
         _close(dv, want_dv, tol)
+
+
+@pytest.mark.parametrize('d', [96, 160, 256])
+@pytest.mark.parametrize('m', [70, 134])
+@pytest.mark.parametrize('causal', [False, True])
+@pytest.mark.parametrize('with_bias', [False, True])
+def test_the_hopper_dq_loop_matches_the_plain_version(d, m, causal,
+                                                      with_bias):
+    """dQ's loop at the padded width of d against ``flash_attention_bwd_ref``
+    on (1, 2, 130, d) / m keys (70: fewer keys than queries, with causal the
+    first 60 rows see none; 134: a ragged last tile), with an (h, n, m) bias
+    or none: dq, and dS as d_bias, every element written, float64 within
+    1e-6 of the largest value, float32 within 1e-5."""
+    width = 128 if d <= 128 else 256
+    for dtype, tol in ((torch.float64, 1e-6), (torch.float32, 1e-5)):
+        q, k, v, dout, bias = _inputs(d, m, causal, dtype)
+        bias = bias if with_bias else None
+        scale = d ** -0.5
+        out, lse = fa.flash_attention_ref(q, k, v, causal, scale, bias)
+        want_dq, _, _, want_db = fa.flash_attention_bwd_ref(
+            q, k, v, bias, out, lse, dout, causal, scale)
+        dq, ds = _dq_model(q, k, v, bias, out, lse, dout, causal, scale,
+                           width)
+        _close(dq, want_dq, tol)
+        assert not ds.isnan().any()
+        if bias is not None:
+            _close(fa._reduce_bias_groups(ds, bias), want_db, tol)

@@ -13,8 +13,9 @@ variants, and against another checkout's kernels, on one NVIDIA GPU.
    git-ignored folder) its kernels run at every shape too, each checkout in
    its own process, in turns baseline, this tree, this tree, baseline.
 2. ``--variants``: copies of this tree's package with other geometries of
-   the wide widths (``VARIANTS``: ``WgFwdGeo`` and ``WgDkvGeo`` in
-   ``csrc/flash_attention.cu``, the Hopper forward and dK/dV), built
+   the wide widths (``VARIANTS``: ``WgFwdGeo``, ``WgDqGeo`` and
+   ``WgDkvGeo`` in ``csrc/flash_attention.cu``, the Hopper forward, dQ and
+   dK/dV), built
    together into git-ignored folders under ``_proof/``, each checked
    against the plain versions at small shapes (bf16, ``chip_smoke``'s
    ``FLASH_TOL``) and timed at 128 x 4 and 256 x 2 in its own process, in
@@ -57,6 +58,13 @@ VARIANTS = {
     'fwd_tile64': (('WgFwdGeo', 'tile = D == 128 ? 128 : 64;', 'tile = 64;'),),
     # dK/dV at D = 128 with three query tiles in flight
     'dkv_stages3': (('WgDkvGeo', 'stages = 2;', 'stages = D == 128 ? 3 : 2;'),),
+    # dQ with three key tiles of K and of V in flight (224 KB at D = 256)
+    'dq_stages3': (('WgDqGeo', 'stages = 2;', 'stages = 3;'),),
+    # dQ at D = 128 on tiles of 32 keys, and of 128 (S and dP 64 floats a
+    # thread each beside dQ's 64)
+    'dq_tile32': (('WgDqGeo', 'tile = D == 128 ? 64 : 32;', 'tile = 32;'),),
+    'dq_tile128': (('WgDqGeo', 'tile = D == 128 ? 64 : 32;',
+                    'tile = D == 128 ? 128 : 32;'),),
 }
 OUT = []
 
