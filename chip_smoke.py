@@ -168,11 +168,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
    through flash, and a rotary and a ``dim_head=12`` module (a head the
    block kernels do not take) against the CPU. Then the same step at the
    wide heads of ``FLASH_WIDTH_STEPS`` (128 x 4, 256 x 2 and 512 x 1, the
-   last on the wide launches), each with 1 / 1 / 1 flash launches and no
-   other kernel, and the three kernels alone at its shape beside their
-   bounds, the plain versions and SDPA forward and backward, with the SDPA
-   backend that ran (``sdpa_backend``); dQ called twice without and twice
-   with d_bias (an (n, m) bias) and dK/dV twice, each pair bit-identical.
+   last on the Hopper wide forward and dK/dV and the wide dQ), each with
+   1 / 1 / 1 flash launches and no other kernel, and the three kernels
+   alone at its shape beside their bounds, the plain versions and SDPA
+   forward and backward, with the SDPA backend that ran
+   (``sdpa_backend``); the forward, dQ (with d_bias) and dK/dV each called
+   twice without and twice with an (n, m) bias, each pair bit-identical;
+   each row names the CUDA kernel that ran (``kernel``).
 8. the JAX package's other configurations (``configs.py``, BASELINE configs
    1, 3 and 4). Config 4, the 256 px image tokenizer with 2^18 LFQ codes,
    at full width, bf16, batch 8 of images through ``tokenize`` and
@@ -548,17 +550,22 @@ FLASH_WG_HEADS = (96, 160, 256)
 FLASH_WIDTH_STEPS = ((128, 4), (256, 2), (512, 1))
 # the three kernels' earlier times at the step's shape, (17, heads, 4096,
 # dh) / 4100 keys bf16, before each was redesigned for Hopper, on an H100
-# 80GB HBM3 at 700 W (PERF.md section 6, rows 6-8, which names the run of
-# each): the forward and dK/dV as the padded mma.sync kernels read when
-# these widths were first ported, dQ as its padded mma.sync kernel read in
-# the last run before its redesign. The log prints them beside this run's;
-# the kernels line holds only what this run measured
+# 80GB HBM3 at 700 W (PERF.md section 6, rows 6-8 at 128 x 4 and 256 x 2
+# and rows 6 and 8 at 512 x 1, which name the run of each): at 128 and 256
+# the forward and dK/dV as the padded mma.sync kernels read when these
+# widths were first ported, dQ as its padded mma.sync kernel read in the
+# last run before its redesign; at 512 the forward and dK/dV as the wide
+# mma.sync kernels read when that head was first ported. The log prints
+# them beside this run's; the kernels line holds only what this run
+# measured
 FLASH_EARLIER_MS = {128: {'flash_attention_fwd': 2.6198,
                           'flash_attention_bwd_dq': 3.6079,
                           'flash_attention_bwd_dkv': 4.9362},
                     256: {'flash_attention_fwd': 2.7500,
                           'flash_attention_bwd_dq': 4.3278,
-                          'flash_attention_bwd_dkv': 8.3523}}
+                          'flash_attention_bwd_dkv': 8.3523},
+                    512: {'flash_attention_fwd': 9.7298,
+                          'flash_attention_bwd_dkv': 39.7851}}
 FLASH_WIDTH_ROWS = {f'{kernel}_d{dh}': (kernel, f'attention_step_d{dh}')
                     for dh, _ in FLASH_WIDTH_STEPS for kernel in
                     ('flash_attention_fwd', 'flash_attention_bwd_dq',
@@ -3023,7 +3030,9 @@ def spill_lines(ptxas):
 def flash_mma_resources(fa):
     """Registers, spills, shared memory and blocks an SM of the three 'mma'
     kernels at every compiled width, exact and padded (at 128 and 256 one
-    kernel takes every head: the Hopper forward, dQ and dK/dV), as the CUDA
+    kernel takes every head: the Hopper forward, dQ and dK/dV), and of the
+    kernels past 256 (the Hopper wide forward and dK/dV to 512, the wide
+    kernels for dQ and above), as the CUDA
     runtime reports them (the dynamic shared memory is
     what each launcher sets), with ptxas's lines from this run's build (none
     when the library came from the cache), and the 'f32' kernels' ptxas
@@ -3049,9 +3058,12 @@ def flash_mma_resources(fa):
                 report[f'{cuda_name}<{w}>'] = dict(ptxas=ptxas, **attrs)
                 log(f'[ptxas] {cuda_name}<{w}>: {"; ".join(ptxas)}; on the '
                     f'card {attrs}')
-    for kernel in FLASH_MMA:      # the wide kernels: every head > 256
-        cuda_name = fa.mma_kernel(kernel, fa.NARROW_MAX + 8)
-        attrs = fa.mma_attributes(kernel, fa.NARROW_MAX + 8)
+    for kernel, width in itertools.product(
+            FLASH_MMA, (fa.NARROW_MAX + 8, fa.WG_WIDE_MAX + 8)):
+        cuda_name = fa.mma_kernel(kernel, width)    # every head > 256
+        if cuda_name in report:
+            continue
+        attrs = fa.mma_attributes(kernel, width)
         ptxas = ptxas_lines(build_log, cuda_name).get(0, [None])[1:]
         spills = spill_lines(ptxas)
         if spills or attrs['local_bytes']:
@@ -3191,6 +3203,11 @@ def phase_flash_kernels(torch, dev, reps, smi):
               for d in FLASH_HEADS for causal in (False, True)]
     # the wide kernels causal with a bias, and with fewer keys than queries
     cases += [(2, 2, 130, 134, d, True, 'hnm') for d in FLASH_WIDE]
+    # the Hopper wide forward and dK/dV (heads of 257 to 512) over several
+    # of their row blocks, key blocks and tiles with ragged edges, with a
+    # (b, h, n, m) bias
+    cases += [(2, 2, 300, 260, d, causal, 'bhnm') for d in FLASH_WIDE[:3]
+              for causal in (False, True)]
     cases += [(2, 2, 130, 70, d, causal, None)
               for d in FLASH_WIDE for causal in (False, True)]
     # fewer keys than queries: with causal the first 60 rows see no key
@@ -3243,7 +3260,8 @@ def phase_flash_kernels(torch, dev, reps, smi):
             f'not; (2, 2, 300, d) / 260 keys, d in {FLASH_WG_HEADS}, causal '
             f'and not, with each bias, and / 70 keys causal; (2, 2, 130, d) '
             f'/ 70 keys, d in {FLASH_WG_HEADS}, causal and not, with each '
-            f'bias; {name}, each '
+            f'bias; (2, 2, 300, d) / 260 keys, d in {FLASH_WIDE[:3]}, '
+            f'causal and not, with a (b, h, n, m) bias; {name}, each '
             f'kernel on the '
             f'{fa.flash_route(dict(dtypes)[name], 32)!r} route: worst '
             f'error over the largest value of the reference (lse: max abs '
@@ -3625,16 +3643,21 @@ def flash_width_rows(torch, fa, dev, reps, smi, dh, heads):
     rel = flash_relative(errs, peaks)
     out, lse, *_ = flash_kernels_alone(fa, q, k, v, dout, None, False)
     delta = fa.row_delta(dout, out)
-    # dK/dV twice, and dQ twice without and twice with d_bias (an (n, m)
-    # bias, dS (b h, n, m) in float32): one owner per output tile, no
+    # each kernel twice without and twice with an (n, m) bias (dQ with
+    # d_bias, dS (b h, n, m) in float32): one owner per output tile, no
     # atomics
     gen = torch.Generator().manual_seed(7)
     bias = torch.randn((1, n, m), generator=gen).to(dev).to(torch.bfloat16)
     out_b, lse_b = fa.flash_forward(q, k, v, bias, False, scale)
     delta_b = fa.row_delta(dout, out_b)
     pairs = {
+        'forward': lambda: fa.flash_forward(q, k, v, None, False, scale),
+        'forward with a bias': lambda: fa.flash_forward(q, k, v, bias, False,
+                                                        scale),
         'dK/dV': lambda: fa.flash_backward_dkv(q, k, v, None, dout, lse,
                                                delta, False, scale),
+        'dK/dV with a bias': lambda: fa.flash_backward_dkv(
+            q, k, v, bias, dout, lse_b, delta_b, False, scale),
         'dQ': lambda: fa.flash_backward_dq(q, k, v, None, dout, lse, delta,
                                            False, scale),
         'dQ with d_bias': lambda: fa.flash_backward_dq(
@@ -3696,6 +3719,7 @@ def flash_width_rows(torch, fa, dev, reps, smi, dh, heads):
             bound_ms=bound_ms, bound_by=bound_by,
             exp_floor_ms=floor if fwd else None,
             kernel_route=fa.flash_route(torch.bfloat16, dh),
+            kernel=cuda_kernel,
             resources=fa.mma_attributes(short, dh))
         rows[f'{name}_d{dh}'] = row
         log(f'[kernel] {name} ({b}, {heads}, {n}, {dh}) / {m} keys bf16: '
@@ -3709,9 +3733,9 @@ def flash_width_rows(torch, fa, dev, reps, smi, dh, heads):
             f'error over the largest value {row["max_rel_err"]:.3e} (tol '
             f'{FLASH_TOL["bfloat16"]:g}), max_abs_err {row["max_abs_err"]:.3e}'
             f'; {cuda_kernel} {row["resources"]}'
-            + (', two dK/dV calls bit-identical' if name.endswith('dkv')
-               else ', two dQ calls bit-identical, with and without d_bias'
-               if name.endswith('dq') else '') + f' on {smi}')
+            + ', two calls bit-identical, with and without a bias'
+            + (' (dQ with d_bias)' if name.endswith('dq') else '')
+            + f' on {smi}')
     return rows
 
 

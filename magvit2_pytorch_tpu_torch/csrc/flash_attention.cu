@@ -31,7 +31,9 @@
 // built apart with d a constant, so the widths 16, 32 and 64 compile as
 // before the run-time d. A head over 256 takes the wide kernels (see "heads
 // over 256" below): its output in column chunks of 256, one a block, its
-// scores summed over column slices.
+// scores summed over column slices; on the 'mma' route a head of 257 to 512
+// runs its forward and dK/dV on the Hopper wide kernels instead (see "heads
+// of 257 to 512"), two warpgroups splitting its output columns.
 //
 // Two routes, one per dtype: ops/kernels/flash_attention.py flash_route
 // picks it for all three kernels and passes it in, and the entry points
@@ -744,11 +746,12 @@ __device__ __forceinline__ void column_sum(float* out, float* part,
     part[phase * D + 2 * pair + 1] = s1;
   }
   __syncthreads();
-  for (int c = t; c < D; c += THREADS) {
-    float s = 0.f;
-    for (int r = 0; r < R; ++r) s += part[r * D + c];
-    out[c] = s;
-  }
+  if (t < THREADS)
+    for (int c = t; c < D; c += THREADS) {
+      float s = 0.f;
+      for (int r = 0; r < R; ++r) s += part[r * D + c];
+      out[c] = s;
+    }
   __syncthreads();
 }
 
@@ -1418,23 +1421,31 @@ __device__ __forceinline__ void keep_live(unsigned (&a)[N][4]) {
                  : "memory");
 }
 
-// rows ra and ra + 8 of a (rows, d) output from a wgmma accumulator of D
-// columns, times mul; the columns past d are not stored
+// rows ra and ra + 8 of an output with rows of ld values from a wgmma
+// accumulator of D columns, times mul; the columns past cols are not stored
 template <int D>
 __device__ __forceinline__ void store_acc(bf16* dst, const float (&acc)[D / 2],
-                                          int ra, int rows, float mul, int d) {
+                                          int ra, int rows, float mul,
+                                          int cols, int ld) {
   const int tq = threadIdx.x % 4;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int col = 8 * j + 2 * tq;
-    if (col >= d) continue;
+    if (col >= cols) continue;
     if (ra < rows)
-      *reinterpret_cast<unsigned*>(dst + (size_t)ra * d + col) =
+      *reinterpret_cast<unsigned*>(dst + (size_t)ra * ld + col) =
           pack_bf16(acc[4 * j] * mul, acc[4 * j + 1] * mul);
     if (ra + 8 < rows)
-      *reinterpret_cast<unsigned*>(dst + (size_t)(ra + 8) * d + col) =
+      *reinterpret_cast<unsigned*>(dst + (size_t)(ra + 8) * ld + col) =
           pack_bf16(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
   }
+}
+
+// the same for a (rows, d) output
+template <int D>
+__device__ __forceinline__ void store_acc(bf16* dst, const float (&acc)[D / 2],
+                                          int ra, int rows, float mul, int d) {
+  store_acc<D>(dst, acc, ra, rows, mul, d, d);
 }
 
 template <int N>
@@ -2176,8 +2187,594 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
+// ---- heads of 257 to 512: the Hopper wide forward and dK/dV ('mma') ------
+//
+// A head of 257 to 512 values runs its forward and dK/dV here, built at
+// D = kWgWideMax with the true d at run time (dQ stays on the wide kernels
+// below). The block is the Hopper kernels' (kWgThreads: a producer
+// warpgroup whose one warp keeps TMA loads in flight, two consumer
+// warpgroups at kWgConsumerRegs after setmaxnreg), but no warpgroup can
+// hold 64 rows x 512 float32 accumulators (256 a thread): both consumer
+// warpgroups own the same 64 rows, and warpgroup c owns output columns
+// [kWgWideHalf c, kWgWideHalf (c + 1)), 128 floats a thread.
+// With `exchange` in a geometry the scores are formed once a block:
+// warpgroup c multiplies panels [P c / 2, P (c + 1) / 2) of the P = D / 64
+// column panels (a head under 512 multiplies zero panels past its d, as
+// TMA fills them), writes its partial sum to shared memory in float32 and
+// adds the other's (named barriers kXFull: both partials are in, kXFree +
+// c: c's buffer is free again); without it each warpgroup forms the whole
+// scores itself, with no barrier between them. Either way both hold the
+// same scores (a + b == b + a), run the same softmax on them, and multiply
+// P (or P^T, dS^T) from registers by their own columns of the streamed
+// tile, read MN-major:
+//   forward  S = Q K^T (both from shared memory, K-major), the online
+//            softmax of fwd_wg_mma_kernel, O += P V; warpgroup 0 alone
+//            writes lse. A block owns 64 query rows, heaviest first; Q
+//            arrives once (64 KB at D = 512), K and V tiles of
+//            WgWideFwdGeo::tile keys through rings of their own. Each
+//            warpgroup forms the whole S: in turns on the card the
+//            exchange read slower here (PERF.md section 6).
+//   dK/dV    a block owns 64 keys and one accumulator, grid z 0 dV, 1 dK,
+//            as the wide kernels below. S^T = K Q^T (and dP^T = V dO^T in
+//            the dK block), P^T and dS^T as bwd_dkv_wg_mma_kernel, dV +=
+//            P^T dO or dK += dS^T Q. K arrives once (and V in the dK
+//            block); Q and dO tiles of WgWideDkvGeo::tile queries, with
+//            their lse and delta, through one ring.
+// tools/flash_heads_probe.py times both ways for both kernels. The
+// products against the narrow decomposition's: the forward 1.5x (S in
+// both warpgroups), dK/dV 5/4 (S in both blocks), as against 1.5x and 2x
+// on the wide kernels, which also re-read their own rows from L2 a tile.
+// Masking, the bias, the causal skip, the rows that see no key and the dead
+// rows are the Hopper kernels'; one owner per output tile, no atomics.
+// What bounds them on the H100: operations, as the Hopper kernels'.
+
+constexpr int kWgWideMax = 512;               // the widest head here
+constexpr int kWgWideHalf = kWgWideMax / 2;   // output columns a warpgroup
+constexpr int kXFull = 3, kXFree = 4;         // named barriers (kXFree + c)
+
+// The wide forward's geometry (ops/kernels/flash_attention.py
+// WG_WIDE_FWD_ROWS, WG_WIDE_FWD_TILE, WG_WIDE_FWD_EXCHANGE): query rows a
+// block, keys a tile, stages of each ring, and whether S comes from two
+// partial sums
+struct WgWideFwdGeo {
+  static constexpr int D = kWgWideMax;
+  static constexpr int rows = 64;
+  static constexpr int tile = 32;
+  static constexpr int stages = 2;
+  static constexpr bool exchange = false;
+  static constexpr int panels = D / kSw128Cols;   // 64-column boxes a row
+  static constexpr int q_panel = rows * 128;      // bytes
+  static constexpr int kv_panel = tile * 128;
+  static constexpr int kv_tile = panels * kv_panel;
+  static constexpr int xfloats = exchange ? 2 * rows * tile : 0;
+  static constexpr size_t bytes = 1024 + (size_t)panels * q_panel +
+                                  2 * (size_t)stages * kv_tile +
+                                  sizeof(float) * (xfloats + D);
+  static_assert(bytes <= kSmemMax, "wide Hopper forward shared memory");
+  static_assert(stages * kv_tile >= column_sum_bytes<D, kWgConsumers>(),
+                "column_sum's partial sums fit the K ring");
+};
+
+// dK/dV's geometry (WG_WIDE_DKV_KEYS, WG_WIDE_DKV_TILE,
+// WG_WIDE_DKV_EXCHANGE): keys a block, queries a streamed tile, the ring's
+// stages, and whether S (and dP) come from two partial sums
+struct WgWideDkvGeo {
+  static constexpr int D = kWgWideMax;
+  static constexpr int keys = 64;
+  static constexpr int tile = 16;
+  static constexpr int stages = 2;
+  static constexpr bool exchange = true;
+  static constexpr int panels = D / kSw128Cols;
+  static constexpr int k_panel = keys * 128;       // bytes
+  static constexpr int q_panel = tile * 128;
+  static constexpr int q_tile = panels * q_panel;  // Q or dO
+  static constexpr int xfloats = exchange ? 4 * keys * tile : 0;  // S, dP
+  static constexpr size_t bytes =
+      1024 + 2 * (size_t)panels * k_panel + 2 * (size_t)stages * q_tile +
+      sizeof(float) * (2 * stages * tile + xfloats + D);
+  static_assert(bytes <= kSmemMax, "wide Hopper dK/dV shared memory");
+  static_assert(2 * stages * q_tile >= column_sum_bytes<D, kWgConsumers>(),
+                "column_sum's partial sums fit the ring");
+  static_assert(tile <= 32, "a producer lane stages a query's lse, delta");
+};
+
+// acc[e] of this thread (tid of warpgroup wg) plus the other warpgroup's,
+// through buffers of `count` floats a warpgroup in shared memory; `first`
+// and `last`: the loop's first and last tile
+template <int N>
+__device__ __forceinline__ void exchange_sum(float (&acc)[N], float* xs,
+                                             int count, int wg, int tid,
+                                             bool first, bool last) {
+  float* mine = xs + wg * count;
+  const float* theirs = xs + (1 - wg) * count;
+  if (!first) bar_sync(kXFree + wg, kWgConsumers);
+#pragma unroll
+  for (int e = 0; e < N; ++e) mine[e * 128 + tid] = acc[e];
+  bar_sync(kXFull, kWgConsumers);
+#pragma unroll
+  for (int e = 0; e < N; ++e) acc[e] += theirs[e * 128 + tid];
+  if (!last) bar_arrive(kXFree + 1 - wg, kWgConsumers);
+}
+
+// the same for two accumulators at once (the dK block's S and dP)
+template <int N>
+__device__ __forceinline__ void exchange_sum(float (&a)[N], float (&b)[N],
+                                             float* xs, int count, int wg,
+                                             int tid, bool first, bool last) {
+  float* mine = xs + wg * count;
+  const float* theirs = xs + (1 - wg) * count;
+  if (!first) bar_sync(kXFree + wg, kWgConsumers);
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    mine[e * 128 + tid] = a[e];
+    mine[(N + e) * 128 + tid] = b[e];
+  }
+  bar_sync(kXFull, kWgConsumers);
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    a[e] += theirs[e * 128 + tid];
+    b[e] += theirs[(N + e) * 128 + tid];
+  }
+  if (!last) bar_arrive(kXFree + 1 - wg, kWgConsumers);
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+    fwd_wg_wide_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const bf16* __restrict__ v,
+                       const bf16* __restrict__ bias, bf16* __restrict__ out,
+                       float* __restrict__ lse, int n, int m, int d,
+                       int q_tiles, int bias_groups, int causal,
+                       float scale) {
+  typedef WgWideFwdGeo G;
+  constexpr int T = G::tile, NB = T / 8, H = kWgWideHalf;
+  // the panels of a warpgroup's partial S
+  constexpr int PW = G::exchange ? G::panels / 2 : G::panels;
+  extern __shared__ unsigned char wg_smem[];
+  __shared__ __align__(8) uint64_t qbar, kfull[G::stages],
+      kempty[G::stages], vfull[G::stages], vempty[G::stages];
+  unsigned char* qs = align1024(wg_smem);
+  unsigned char* ks = qs + G::panels * G::q_panel;
+  unsigned char* vs = ks + G::stages * G::kv_tile;
+  float* xs = reinterpret_cast<float*>(vs + G::stages * G::kv_tile);
+  float* vsum = xs + G::xfloats;
+
+  const int bh = blockIdx.x / q_tiles;
+  const int q0 = (q_tiles - 1 - blockIdx.x % q_tiles) * G::rows;
+  const int offset = m - n;
+  // key tiles 0 .. tiles - 1: with causal, up to the last one the block's
+  // last row sees (dq_key_tiles)
+  const int k_end = causal ? min(m, min(q0 + G::rows, n) + offset) : m;
+  const int tiles = (max(k_end, 0) + T - 1) / T;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool blind = causal && q0 < n - m;  // rows that see no key
+
+  if (threadIdx.x == 0) {
+    mbar_init(&qbar, 1);
+    for (int s = 0; s < G::stages; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&vfull[s], 1);
+      mbar_init(&kempty[s], kWgConsumers / 32);  // a consumer warp each
+      mbar_init(&vempty[s], kWgConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (blind) {  // their mean of v, summed in the K ring before it fills
+    column_sum<G::D, kWgConsumers>(vsum, reinterpret_cast<float*>(ks),
+                                   v + (size_t)bh * m * d, m, d);
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  if (warp >= kWgConsumers / 32) {  // the producer warpgroup
+    reg_dealloc<kWgProducerRegs>();
+    if (warp == kWgConsumers / 32 && lane == 0) {
+      mbar_expect_tx(&qbar, G::panels * G::q_panel);
+      for (int p = 0; p < G::panels; ++p)
+        tma_load_3d(qs + p * G::q_panel, &map_q, &qbar, p * kSw128Cols, q0,
+                    bh);
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % G::stages, use = t / G::stages;
+        if (use > 0) mbar_wait(&kempty[s], (use - 1) & 1);
+        mbar_expect_tx(&kfull[s], G::kv_tile);
+        for (int p = 0; p < G::panels; ++p)
+          tma_load_3d(ks + s * G::kv_tile + p * G::kv_panel, &map_k,
+                      &kfull[s], p * kSw128Cols, t * T, bh);
+        if (use > 0) mbar_wait(&vempty[s], (use - 1) & 1);
+        mbar_expect_tx(&vfull[s], G::kv_tile);
+        for (int p = 0; p < G::panels; ++p)
+          tma_load_3d(vs + s * G::kv_tile + p * G::kv_panel, &map_v,
+                      &vfull[s], p * kSw128Cols, t * T, bh);
+      }
+    }
+  } else {  // two consumer warpgroups on the same 64 rows
+    reg_alloc<kWgConsumerRegs>();
+    const int wg = warp / 4, wq = warp % 4, g = lane >> 2, tq = lane & 3;
+    const int tid = threadIdx.x % 128;
+    const int w0 = q0 + 16 * wq;  // the warp's first row
+    const int ra = w0 + g;
+    const int c0 = H * wg;        // the warpgroup's first output column
+    const int p0 = G::exchange ? PW * wg : 0;  // its first score panel
+    const bf16* bb =
+        bias ? bias + (size_t)(bh % bias_groups) * n * m : nullptr;
+    // as fwd_wg_mma_kernel: the row max on the raw scores and the scale
+    // folded into the exponent, unless a bias or a scale <= 0 asks for the
+    // scores in base-2 units first
+    const float scale_log2 = scale * kLog2e;
+    const bool pre = bb != nullptr || !(scale > 0.f);
+    const float mul = pre ? 1.f : scale_log2;
+    const uint64_t qdesc = sw128_desc(qs + p0 * G::q_panel);
+    float o[H / 2];
+    zero_acc(o);
+    // running max (base 2) and the lane's part of l, of rows ra and ra + 8
+    float mx[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float sc[T / 2];          // S, then P in float32
+    unsigned pa[T / 16][4];   // P as the A operand of P V
+
+    mbar_wait(&qbar, 0);
+    for (int t = 0; t < tiles; ++t) {
+      const int s = t % G::stages, parity = (t / G::stages) & 1;
+      const int k0 = t * T;
+      zero_acc(sc);
+      mbar_wait(&kfull[s], parity);
+      wgmma_fence();
+      const uint64_t kdesc =
+          sw128_desc(ks + s * G::kv_tile + p0 * G::kv_panel);
+#pragma unroll
+      for (int p = 0; p < PW; ++p)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_bf16(sc, qdesc + ((p * G::q_panel) >> 4) + 2 * kk,
+                     kdesc + ((p * G::kv_panel) >> 4) + 2 * kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&kempty[s]);
+      if constexpr (G::exchange)
+        exchange_sum(sc, xs, G::rows * T, wg, tid, t == 0, t + 1 == tiles);
+
+      // the online softmax: element 4j + e is (row ra + 8 (e / 2), key k0 +
+      // 8j + 2tq + e % 2); uniform branches: the bias, and the element test
+      // of a masked tile
+      if (pre)
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = ra + 8 * (e >> 1);
+            const int col = k0 + 8 * j + 2 * tq + (e & 1);
+            float& x = sc[4 * j + e];
+            x *= scale_log2;
+            if (bb && row < n && col < m)
+              x = fmaf(to_f32(bb[(size_t)row * m + col]), kLog2e, x);
+          }
+      if (tile_masked(w0, 16, k0, T, n, m, causal))
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = ra + 8 * (e >> 1);
+            const int col = k0 + 8 * j + 2 * tq + (e & 1);
+            if (!(row < n && col < m && (!causal || col <= row + offset)))
+              sc[4 * j + e] = -INFINITY;
+          }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float cmax = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          cmax = fmaxf(cmax, fmaxf(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]));
+        const float mnew = fmaxf(mx[h], quad_max(cmax));
+        // a row that has seen no visible key yet keeps 0: no inf - inf
+        const float base = mnew == -INFINITY ? 0.f : mnew * mul;
+        const float alpha = exp2_approx(fmaf(mx[h], mul, -base));
+        mx[h] = mnew;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 2 * h; e < 2 * h + 2; ++e) {
+            sc[4 * j + e] = exp2_approx(fmaf(sc[4 * j + e], mul, -base));
+            sum += sc[4 * j + e];
+          }
+        l[h] = fmaf(l[h], alpha, sum);
+#pragma unroll
+        for (int j = 0; j < H / 8; ++j) {
+          o[4 * j + 2 * h] *= alpha;
+          o[4 * j + 2 * h + 1] *= alpha;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < T / 16; ++kk) frag_of(pa[kk], sc + 8 * kk);
+
+      // O += P V on the warpgroup's columns of the V tile, read MN-major
+      mbar_wait(&vfull[s], parity);
+      wgmma_fence();
+      const uint64_t vdesc = sw128_mn_desc(
+          vs + s * G::kv_tile + (c0 / kSw128Cols) * G::kv_panel,
+          G::kv_panel);
+#pragma unroll
+      for (int kk = 0; kk < T / 16; ++kk)
+        wgmma_rs_mn(o, pa[kk], vdesc + 128 * kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(o);
+      keep_live(pa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&vempty[s]);
+    }
+
+    float* lse_rows = lse + (size_t)bh * n;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float sum = fmaxf(quad_sum(l[h]), 1e-30f);
+      const float inv = 1.f / sum;
+#pragma unroll
+      for (int j = 0; j < H / 8; ++j) {
+        o[4 * j + 2 * h] *= inv;
+        o[4 * j + 2 * h + 1] *= inv;
+      }
+      const int row = ra + 8 * h;
+      if (wg == 0 && tq == 0 && row < n)
+        lse_rows[row] = mx[h] == -INFINITY
+                            ? kMasked + logf(sum)
+                            : fmaf(mx[h] * mul, kLn2, logf(sum));
+    }
+    if (blind) {  // uniform: the rows that see no key
+      const float inv_m = 1.f / m;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = ra + 8 * h;
+        if (row >= n - m) continue;
+#pragma unroll
+        for (int j = 0; j < H / 8; ++j) {
+          o[4 * j + 2 * h] = vsum[c0 + 8 * j + 2 * tq] * inv_m;
+          o[4 * j + 2 * h + 1] = vsum[c0 + 8 * j + 2 * tq + 1] * inv_m;
+        }
+        if (wg == 0 && tq == 0) lse_rows[row] = kMasked + logf((float)m);
+      }
+    }
+    store_acc<H>(out + (size_t)bh * n * d + c0, o, ra, n, 1.f, d - c0, d);
+  }
+}
+
+// dK/dV of one block: DK false forms dV (grid z 0), true dK (grid z 1)
+template <bool DK>
+__device__ __forceinline__ void dkv_wg_wide(
+    const CUtensorMap* map_q, const CUtensorMap* map_k,
+    const CUtensorMap* map_v, const CUtensorMap* map_do,
+    const bf16* __restrict__ bias, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ grad, int n, int m, int d, int k_tiles,
+    int bias_groups, int causal, float scale) {
+  typedef WgWideDkvGeo G;
+  constexpr int T = G::tile, H = kWgWideHalf;
+  constexpr int PW = G::exchange ? G::panels / 2 : G::panels;
+  extern __shared__ unsigned char wg_smem[];
+  __shared__ __align__(8) uint64_t kvbar, full[G::stages], empty[G::stages];
+  unsigned char* kv = align1024(wg_smem);  // K's boxes, then V's
+  unsigned char* ring = kv + 2 * G::panels * G::k_panel;  // a stage: Q, dO
+  // a stage's lse (base 2) and delta
+  float* rows_s = reinterpret_cast<float*>(ring + 2 * G::stages * G::q_tile);
+  float* xs = rows_s + 2 * G::stages * T;  // the partial sums
+  float* dosum = xs + G::xfloats;
+
+  const int bh = blockIdx.x / k_tiles;
+  const int k0 = (blockIdx.x % k_tiles) * G::keys;
+  const int offset = m - n;
+  const int blind = causal ? n - m : 0;  // rows < blind see no key
+  // query tiles first .. tiles - 1: with causal, from the first whose last
+  // row sees the block's first key (dkv_query_tiles)
+  const int first = causal ? max(0, k0 - offset) / T : 0;
+  const int tiles = (n + T - 1) / T;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&kvbar, 1);
+    for (int s = 0; s < G::stages; ++s) {
+      mbar_init(&full[s], 32);                   // the producer's lanes
+      mbar_init(&empty[s], kWgConsumers / 32);  // a consumer warp each
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (!DK && blind > 0) {  // their dO summed, in the ring before it fills
+    column_sum<G::D, kWgConsumers>(dosum, reinterpret_cast<float*>(ring),
+                                   dout + (size_t)bh * n * d, blind, d);
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  if (warp >= kWgConsumers / 32) {  // the producer warpgroup
+    reg_dealloc<kWgProducerRegs>();
+    if (warp > kWgConsumers / 32) return;  // one warp loads
+    if (lane == 0) {
+      mbar_expect_tx(&kvbar, (DK ? 2 : 1) * G::panels * G::k_panel);
+      for (int p = 0; p < G::panels; ++p) {
+        tma_load_3d(kv + p * G::k_panel, map_k, &kvbar, p * kSw128Cols, k0,
+                    bh);
+        if (DK)
+          tma_load_3d(kv + (G::panels + p) * G::k_panel, map_v, &kvbar,
+                      p * kSw128Cols, k0, bh);
+      }
+    }
+    const float* lse_b = lse + (size_t)bh * n;
+    const float* delta_b = delta + (size_t)bh * n;
+    for (int t = first; t < tiles; ++t) {
+      const int i = t - first, s = i % G::stages, use = i / G::stages;
+      // the tile's lse (base 2) and delta, a lane a query, 0 past n, read
+      // before the stage is free
+      const int row = t * T + lane;
+      const bool in = lane < T && row < n;
+      const float r_lse = in ? lse_b[row] * kLog2e : 0.f;
+      const float r_del = in ? delta_b[row] : 0.f;
+      if (use > 0) mbar_wait(&empty[s], (use - 1) & 1);
+      float* rs = rows_s + s * 2 * T;
+      if (lane < T) {
+        rs[lane] = r_lse;
+        rs[T + lane] = r_del;
+      }
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], 2 * G::q_tile);
+        unsigned char* st = ring + s * 2 * G::q_tile;
+        for (int p = 0; p < G::panels; ++p) {
+          tma_load_3d(st + p * G::q_panel, map_q, &full[s], p * kSw128Cols,
+                      t * T, bh);
+          tma_load_3d(st + G::q_tile + p * G::q_panel, map_do, &full[s],
+                      p * kSw128Cols, t * T, bh);
+        }
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+  } else {  // two consumer warpgroups on the same 64 keys
+    reg_alloc<kWgConsumerRegs>();
+    const int tid = threadIdx.x % 128;
+    const int wg = warp / 4, wq = warp % 4, g = lane >> 2, tq = lane & 3;
+    const int kwarp = k0 + 16 * wq;  // the warp's first key
+    const int ka = kwarp + g;        // rows ka and ka + 8
+    const int c0 = H * wg;           // the warpgroup's first output column
+    const int p0 = G::exchange ? PW * wg : 0;  // its first score panel
+    const bf16* bb =
+        bias ? bias + (size_t)(bh % bias_groups) * n * m : nullptr;
+    const float scale_log2 = scale * kLog2e;
+    const uint64_t kdesc = sw128_desc(kv + p0 * G::k_panel);
+    const uint64_t vdesc = sw128_desc(kv + (G::panels + p0) * G::k_panel);
+    float acc[H / 2];
+    zero_acc(acc);
+    mbar_wait(&kvbar, 0);
+
+    for (int t = first; t < tiles; ++t) {
+      const int i = t - first, s = i % G::stages;
+      const int q0 = t * T;
+      const unsigned char* qt = ring + s * 2 * G::q_tile;
+      const unsigned char* dot = qt + G::q_tile;
+      const float* lse_s = rows_s + s * 2 * T;
+      const float* delta_s = lse_s + T;
+      float sc[T / 2], dp[DK ? T / 2 : 1];
+      zero_acc(sc);
+      zero_acc(dp);
+      mbar_wait(&full[s], (i / G::stages) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < PW; ++p)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int ko = ((p * G::k_panel) >> 4) + 2 * kk;
+          const int qo = (p0 + p) * G::q_panel;
+          wgmma_bf16(sc, kdesc + ko, sw128_desc(qt + qo) + 2 * kk);
+          if constexpr (DK)
+            wgmma_bf16(dp, vdesc + ko, sw128_desc(dot + qo) + 2 * kk);
+        }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+      fence_acc(dp);
+      if constexpr (G::exchange) {
+        if constexpr (DK)
+          exchange_sum(sc, dp, xs, 2 * G::keys * T, wg, tid, i == 0,
+                       t + 1 == tiles);
+        else
+          exchange_sum(sc, xs, 2 * G::keys * T, wg, tid, i == 0,
+                       t + 1 == tiles);
+      }
+      // P^T: element 4j + e is (key ka + 8 (e / 2), query q0 + c), c = 8j +
+      // 2tq + e % 2; uniform branches: the bias, the element test of a
+      // masked tile
+#pragma unroll
+      for (int j = 0; j < T / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[4 * j + e] = fmaf(sc[4 * j + e], scale_log2,
+                               -lse_s[8 * j + 2 * tq + (e & 1)]);
+      if (bb)
+#pragma unroll
+        for (int j = 0; j < T / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = ka + 8 * (e >> 1);
+            const int row = q0 + 8 * j + 2 * tq + (e & 1);
+            if (row < n && key < m)
+              sc[4 * j + e] = fmaf(to_f32(bb[(size_t)row * m + key]), kLog2e,
+                                   sc[4 * j + e]);
+          }
+      if (tile_masked(q0, T, kwarp, 16, n, m, causal))
+#pragma unroll
+        for (int j = 0; j < T / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = ka + 8 * (e >> 1);
+            const int row = q0 + 8 * j + 2 * tq + (e & 1);
+            if (!(row < n && key < m && (!causal || key <= row + offset)))
+              sc[4 * j + e] = -INFINITY;
+          }
+#pragma unroll
+      for (int e = 0; e < T / 2; ++e) sc[e] = exp2_approx(sc[e]);
+      if constexpr (DK)  // dS^T = P^T (dP^T - delta)
+#pragma unroll
+        for (int j = 0; j < T / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[4 * j + e] *= dp[4 * j + e] - delta_s[8 * j + 2 * tq + (e & 1)];
+      // dV += P^T dO or dK += dS^T Q on the warpgroup's columns of the
+      // streamed tile, read MN-major
+      unsigned a[T / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < T / 16; ++kk) frag_of(a[kk], sc + 8 * kk);
+      const uint64_t bmn = sw128_mn_desc(
+          (DK ? qt : dot) + (c0 / kSw128Cols) * G::q_panel, G::q_panel);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < T / 16; ++kk)
+        wgmma_rs_mn(acc, a[kk], bmn + 128 * kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc);
+      keep_live(a);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    if (!DK && blind > 0) {  // dV of the rows that see no key: their dO / m
+      const float inv_m = 1.f / m;
+#pragma unroll
+      for (int j = 0; j < H / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[4 * j + e] += dosum[c0 + 8 * j + 2 * tq + (e & 1)] * inv_m;
+    }
+    store_acc<H>(grad + (size_t)bh * m * d + c0, acc, ka, m,
+                 DK ? scale : 1.f, d - c0, d);
+  }
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+    bwd_dkv_wg_wide_kernel(const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v,
+                           const __grid_constant__ CUtensorMap map_do,
+                           const bf16* __restrict__ bias,
+                           const bf16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int n, int m, int d, int k_tiles, int bias_groups,
+                           int causal, float scale) {
+  if (blockIdx.z == 0)
+    dkv_wg_wide<false>(&map_q, &map_k, &map_v, &map_do, bias, dout, lse,
+                       delta, dv, n, m, d, k_tiles, bias_groups, causal,
+                       scale);
+  else
+    dkv_wg_wide<true>(&map_q, &map_k, &map_v, &map_do, bias, dout, lse,
+                      delta, dk, n, m, d, k_tiles, bias_groups, causal,
+                      scale);
+}
+
 // ---- heads over 256: the wide kernels, both routes -------------------------
 //
+// These take every head over 256 on the 'f32' route and, on the 'mma'
+// route, dQ at every head over 256 and the forward and dK/dV over
+// kWgWideMax (the Hopper wide kernels above take those up to it).
 // A head over 256 values does not fit a block's output accumulator (64 rows
 // x 512 floats is 128 KB at d = 512), so its output columns are cut into
 // chunks of kWideOut: a block owns one chunk (grid y) of its rows' output,
@@ -3159,6 +3756,18 @@ inline cudaError_t wide_attributes(int* out, int kernel) {
   return cudaErrorInvalidValue;
 }
 
+// the wide 'mma' kernel `kernel` (0 dQ, 1 dK/dV, 2 forward) that a head of
+// padded width `width` over kNarrowMax runs: the Hopper wide forward and
+// dK/dV up to kWgWideMax, else the wide kernels
+inline cudaError_t wide_attributes(int* out, int kernel, int width) {
+  constexpr int W = kWgThreads;
+  if (width <= kWgWideMax && kernel == 1)
+    return attributes(out, bwd_dkv_wg_wide_kernel, W, WgWideDkvGeo::bytes);
+  if (width <= kWgWideMax && kernel == 2)
+    return attributes(out, fwd_wg_wide_kernel, W, WgWideFwdGeo::bytes);
+  return wide_attributes(out, kernel);
+}
+
 inline bool route_fits(int route, int dtype) {
   return (route == kRouteMma && dtype == kBFloat16) ||
          (route == kRouteF32 && dtype == kFloat32);
@@ -3213,6 +3822,62 @@ inline bool wide_fits(int route, int dtype, int d) {
   return route_fits(route, dtype) && d > kNarrowMax && d % 8 == 0;
 }
 
+// a wide head the Hopper wide forward and dK/dV take ('mma', d <= 512)
+inline bool wg_wide(int route, int d) {
+  return route == kRouteMma && d <= kWgWideMax;
+}
+
+inline cudaError_t launch_fwd_wg_wide(const void* q, const void* k,
+                                      const void* v, const void* bias,
+                                      void* out, float* lse, int bh, int n,
+                                      int m, int d, int groups, int causal,
+                                      float scale, cudaStream_t stream) {
+  typedef WgWideFwdGeo G;
+  const int tiles = tiles_of(n, G::rows);
+  if (!grid_fits(bh, tiles)) return cudaErrorInvalidValue;
+  const auto kernel = fwd_wg_wide_kernel;
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = head_map(&mq, q, bh, n, d, G::rows);
+  if (err == cudaSuccess) err = head_map(&mk, k, bh, m, d, G::tile);
+  if (err == cudaSuccess) err = head_map(&mv, v, bh, m, d, G::tile);
+  if (err == cudaSuccess) err = wg_registers_fit(kernel);
+  if (err == cudaSuccess) err = allow_smem(kernel, G::bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)(bh * tiles), kWgThreads, G::bytes, stream>>>(
+      mq, mk, mv, (const bf16*)v, (const bf16*)bias, (bf16*)out, lse, n, m,
+      d, tiles, groups, causal, scale);
+  MV2_CHECK_LAUNCH();
+  return cudaSuccess;
+}
+
+// grid (bh x key blocks, 1, 2): z 0 the dV blocks, 1 the dK blocks
+inline cudaError_t launch_dkv_wg_wide(const void* q, const void* k,
+                                      const void* v, const void* bias,
+                                      const void* dout, const float* lse,
+                                      const float* delta, void* dk, void* dv,
+                                      int bh, int n, int m, int d, int groups,
+                                      int causal, float scale,
+                                      cudaStream_t stream) {
+  typedef WgWideDkvGeo G;
+  const int tiles = tiles_of(m, G::keys);
+  if (!grid_fits(bh, tiles)) return cudaErrorInvalidValue;
+  const auto kernel = bwd_dkv_wg_wide_kernel;
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err = head_map(&mq, q, bh, n, d, G::tile);
+  if (err == cudaSuccess) err = head_map(&mdo, dout, bh, n, d, G::tile);
+  if (err == cudaSuccess) err = head_map(&mk, k, bh, m, d, G::keys);
+  if (err == cudaSuccess) err = head_map(&mv, v, bh, m, d, G::keys);
+  if (err == cudaSuccess) err = wg_registers_fit(kernel);
+  if (err == cudaSuccess) err = allow_smem(kernel, G::bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((unsigned)(bh * tiles), 1, 2), kWgThreads, G::bytes,
+           stream>>>(mq, mk, mv, mdo, (const bf16*)bias, (const bf16*)dout,
+                     lse, delta, (bf16*)dk, (bf16*)dv, n, m, d, tiles, groups,
+                     causal, scale);
+  MV2_CHECK_LAUNCH();
+  return cudaSuccess;
+}
+
 }  // namespace flash
 }  // namespace mv2
 
@@ -3252,6 +3917,10 @@ int mv2_flash_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d > mv2::flash::kNarrowMax) {
     if (!mv2::flash::wide_fits(route, dtype, d)) return cudaErrorInvalidValue;
+    if (mv2::flash::wg_wide(route, d))
+      return mv2::flash::launch_fwd_wg_wide(q, k, v, bias, out, (float*)lse,
+                                            bh, n, m, d, groups, causal,
+                                            scale, s);
     return mv2::flash::launch_fwd_wide(
         {q, k, v, bias, nullptr, nullptr, nullptr, out, nullptr, (float*)lse,
          nullptr, n, m, d, 0, groups, causal, scale},
@@ -3293,6 +3962,10 @@ int mv2_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d > mv2::flash::kNarrowMax) {
     if (!mv2::flash::wide_fits(route, dtype, d)) return cudaErrorInvalidValue;
+    if (mv2::flash::wg_wide(route, d))
+      return mv2::flash::launch_dkv_wg_wide(
+          q, k, v, bias, dout, (const float*)lse, (const float*)delta, dk,
+          dv, bh, n, m, d, groups, causal, scale, s);
     return mv2::flash::launch_dkv_wide(
         {q, k, v, bias, dout, (const float*)lse, (const float*)delta, dv, dk,
          nullptr, nullptr, n, m, d, 0, groups, causal, scale},
@@ -3305,14 +3978,16 @@ int mv2_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
 
 // What the CUDA runtime reports for the 'mma' kernel `kernel` (0 dQ, 1
 // dK/dV, 2 forward; 3, 4, 5 the same kernels' padded instantiations, for
-// d < width; 6, 7, 8 the wide kernels, whatever the width) at the padded
-// width `width` (16, 32, 64, 128 or 256), into out (5 ints): registers a
-// thread, local memory a thread (spills), static shared memory, the dynamic
-// shared memory its launcher sets, and the blocks an SM.
+// d < width; 6, 7, 8 the kernels a head over 256 of padded width `width`
+// runs: the Hopper wide forward and dK/dV up to 512, else the wide kernels)
+// at the padded width `width` (16, 32, 64, 128 or 256, or the head over
+// 256), into out (5 ints): registers a thread, local memory a thread
+// (spills), static shared memory, the dynamic shared memory its launcher
+// sets, and the blocks an SM.
 int mv2_flash_mma_attributes(int kernel, int width, void* out) {
   int* o = static_cast<int*>(out);
-  if (kernel >= 6)  // the wide kernels, whatever the width
-    return mv2::flash::wide_attributes(o, kernel - 6);
+  if (kernel >= 6)  // a head over 256
+    return mv2::flash::wide_attributes(o, kernel - 6, width);
   switch (width) {
     case 16: return mv2::flash::mma_attributes<16>(o, kernel);
     case 32: return mv2::flash::mma_attributes<32>(o, kernel);

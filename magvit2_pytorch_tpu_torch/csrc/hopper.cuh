@@ -4,7 +4,8 @@
 // moment core): mbarriers, TMA loads of 2-D, 3-D and 5-D tiles, bulk copies,
 // the proxy fence, named barriers, setmaxnreg, the wgmma descriptors of a
 // 128-byte-swizzled K-major and MN-major tile, wgmma m64n128k16 /
-// m64n64k16 / m64n32k16 on bf16 with both operands in shared memory and
+// m64n64k16 / m64n32k16 / m64n16k16 on bf16 with both operands in shared
+// memory and
 // m64nNk16 with A
 // in registers (B K-major, or MN-major at N = 128 and 256; csrc/
 // flash_attention.cu's Hopper kernels), and the host-side tensor-map
@@ -234,6 +235,21 @@ __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+// acc += A(64 x 16) B(16 x 16), both from shared memory, K-major
+__device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // acc += A B over one 16-wide K step, N = the accumulator's columns
 __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da,
                                            uint64_t db) {
@@ -246,6 +262,10 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t da,
 __device__ __forceinline__ void wgmma_bf16(float (&d)[16], uint64_t da,
                                            uint64_t db) {
   wgmma_m64n32k16(d, da, db);
+}
+__device__ __forceinline__ void wgmma_bf16(float (&d)[8], uint64_t da,
+                                           uint64_t db) {
+  wgmma_m64n16k16(d, da, db);
 }
 
 // acc += A(64 x 16, registers) B(16 x 24, shared memory, K-major)

@@ -7,7 +7,7 @@ variants, and against another checkout's kernels, on one NVIDIA GPU.
 
 1. This tree's three 'mma' kernels alone at the attention step's shape,
    (17, heads, 4096, d) / 4100 keys bf16 not causal, at d x heads 32 x 8,
-   64 x 4, 128 x 4 and 256 x 2, causal too at 32 and 64: medians of 20
+   64 x 4, 128 x 4, 256 x 2 and 512 x 1, causal too at 32 and 64: medians of 20
    CUDA-event timings. With ``--baseline DIR`` (the root of another
    checkout, e.g. the parent commit unpacked by ``git archive`` into a
    git-ignored folder) its kernels run at every shape too, each checkout in
@@ -15,11 +15,14 @@ variants, and against another checkout's kernels, on one NVIDIA GPU.
 2. ``--variants``: copies of this tree's package with other geometries of
    the wide widths (``VARIANTS``: ``WgFwdGeo``, ``WgDqGeo`` and
    ``WgDkvGeo`` in ``csrc/flash_attention.cu``, the Hopper forward, dQ and
-   dK/dV), built
+   dK/dV at 128 and 256, and ``WgWideFwdGeo`` / ``WgWideDkvGeo``, the
+   Hopper wide forward and dK/dV at heads of 257 to 512), built
    together into git-ignored folders under ``_proof/``, each checked
    against the plain versions at small shapes (bf16, ``chip_smoke``'s
-   ``FLASH_TOL``) and timed at 128 x 4 and 256 x 2 in its own process, in
-   turns, with ptxas's registers and spills.
+   ``FLASH_TOL``) and timed in its own process, in turns, with ptxas's
+   registers and spills: a variant of the widths 128 and 256 at 128 x 4
+   and 256 x 2, one of the heads past 256 at 512 x 1 (``WIDE_SHAPES``).
+   ``--only NAME[,NAME]`` keeps those variants.
 
 Prints each reading with the card's name and power limit; ``--out`` also
 writes them to ``flash_heads_probe.txt``. Imports nothing of JAX.
@@ -37,7 +40,9 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = 'magvit2_pytorch_tpu_torch/csrc/flash_attention.cu'
-SHAPES = ((8, 32), (4, 64), (4, 128), (2, 256))      # heads, d
+SHAPES = ((8, 32), (4, 64), (4, 128), (2, 256), (1, 512))      # heads, d
+WG_SHAPES = SHAPES[2:4]      # the variants of the widths 128 and 256
+WIDE_SHAPES = SHAPES[4:]     # and of the heads past 256
 B, N, M = 17, 4096, 4100
 
 
@@ -65,6 +70,21 @@ VARIANTS = {
     'dq_tile32': (('WgDqGeo', 'tile = D == 128 ? 64 : 32;', 'tile = 32;'),),
     'dq_tile128': (('WgDqGeo', 'tile = D == 128 ? 64 : 32;',
                     'tile = D == 128 ? 128 : 32;'),),
+    # the wide forward with S from the two warpgroups' partial sums, and
+    # on 16-key tiles, four of K and of V in flight
+    'wide_fwd_exchange': (('WgWideFwdGeo', 'exchange = false;',
+                           'exchange = true;'),),
+    'wide_fwd_tile16': (('WgWideFwdGeo', 'tile = 32;', 'tile = 16;'),
+                        ('WgWideFwdGeo', 'stages = 2;', 'stages = 4;')),
+    # the wide dK/dV with each warpgroup forming the whole S (and dP), and
+    # so on 32-query tiles, one stage (the partial sums' buffers would not
+    # fit beside it)
+    'wide_dkv_redundant': (('WgWideDkvGeo', 'exchange = true;',
+                            'exchange = false;'),),
+    'wide_dkv_tile32': (('WgWideDkvGeo', 'exchange = true;',
+                         'exchange = false;'),
+                        ('WgWideDkvGeo', 'tile = 16;', 'tile = 32;'),
+                        ('WgWideDkvGeo', 'stages = 2;', 'stages = 1;')),
 }
 OUT = []
 
@@ -105,7 +125,10 @@ def child(root: str, shapes, check: bool):
                 (2, 2, 130, 70, 128, True, None),
                 (2, 2, 130, 134, 160, True, None),
                 (2, 2, 130, 134, 256, False, 'bhnm'),
-                (2, 2, 130, 70, 256, True, None)):
+                (2, 2, 130, 70, 256, True, None),
+                (2, 2, 130, 134, 264, True, 'hnm'),
+                (2, 2, 300, 260, 512, False, 'bhnm'),
+                (2, 2, 130, 70, 512, True, None)):
             *qkvo, bb = cs.flash_inputs(torch, dev, torch.bfloat16, b, h, n,
                                         m, d, bias, 3)
             errs, peaks, finite, _ = cs.flash_errors(torch, fa, *qkvo, bb,
@@ -118,6 +141,10 @@ def child(root: str, shapes, check: bool):
         res['resources'] = {
             f'{fa.mma_kernel(k, w)}<{w}>': fa.mma_attributes(k, w, False)
             for k in fa.MMA_KERNELS for w in (128, 256)}
+        if hasattr(fa, 'WG_WIDE_MAX'):
+            res['resources'].update({
+                fa.mma_kernel(k, 512): fa.mma_attributes(k, 512)
+                for k in ('fwd', 'dkv')})
     for heads, d in shapes:
         q, k, v, dout, _ = cs.flash_inputs(torch, dev, torch.bfloat16, B,
                                            heads, N, M, d, None, 99)
@@ -139,13 +166,17 @@ def child(root: str, shapes, check: bool):
 
 def ptxas_summary(log: str):
     """{kernel<width>: 'N regs, spill stores/loads'} of the 'mma' kernels
-    at the wide widths."""
+    at the wide widths (the Hopper wide kernels as <512>)."""
     out, current = {}, None
     for line in log.splitlines():
         hit = re.search(r'Function properties for _ZN3mv25flash\d+(\w+?_mma_'
                         r'(?:padded_)?kernel)ILi(\d+)E', line)
+        wide = re.search(r'Function properties for _ZN3mv25flash\d+(\w+?'
+                         r'_wg_wide_kernel)E', line)
         if hit and int(hit[2]) >= 128:
             current = f'{hit[1]}<{hit[2]}>'
+        elif wide:
+            current = f'{wide[1]}<512>'
         elif current and 'spill' in line:
             spill = re.findall(r'(\d+) bytes spill', line)
         elif current and 'Used' in line:
@@ -162,13 +193,16 @@ def main():
                              'at every shape beside this tree\'s')
     parser.add_argument('--variants', action='store_true',
                         help='also time VARIANTS at the wide widths')
+    parser.add_argument('--only', default=None,
+                        help='comma-separated VARIANTS to build and time')
     parser.add_argument('--out', default=None)
     parser.add_argument('--child', default=None, help=argparse.SUPPRESS)
     parser.add_argument('--shapes', default='all', help=argparse.SUPPRESS)
     parser.add_argument('--check', action='store_true',
                         help=argparse.SUPPRESS)
     args = parser.parse_args()
-    pick = {'all': SHAPES, 'narrow': SHAPES[:2], 'wide': SHAPES[2:]}
+    pick = {'all': SHAPES, 'narrow': SHAPES[:2], 'wg': WG_SHAPES,
+            'wg_wide': WIDE_SHAPES}
     if args.child:
         return child(args.child, pick[args.shapes], args.check)
 
@@ -185,7 +219,9 @@ def main():
     if args.variants:
         base = open(os.path.join(REPO, SRC)).read()
         trees, builds = {'this tree': REPO}, {}
-        for name, subs in VARIANTS.items():
+        chosen = args.only.split(',') if args.only else list(VARIANTS)
+        for name in chosen:
+            subs = VARIANTS[name]
             text = base
             for sub in subs:
                 text = struct_sub(text, *sub)
@@ -209,9 +245,16 @@ def main():
                 sys.exit(f'{name}: the build failed\n{log[-4000:]}')
             say(f'[flash variants] {name} ptxas: {ptxas_summary(log)}')
         order = list(trees)
-        for name in order + order[::-1]:
-            say(f'[flash variants] {name}: '
-                f'{run(trees[name], "--shapes", "wide", "--check")} on {smi}')
+        kinds = {'wg_wide' if name.startswith('wide_') else 'wg'
+                 for name in chosen}
+        for kind in sorted(kinds):
+            for name in order + order[::-1]:
+                if name != 'this tree' and ('wg_wide' if name.startswith(
+                        'wide_') else 'wg') != kind:
+                    continue
+                say(f'[flash variants] {name} at {kind}: '
+                    f'{run(trees[name], "--shapes", kind, "--check")} on '
+                    f'{smi}')
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, 'flash_heads_probe.txt'), 'w') as f:
