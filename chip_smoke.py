@@ -85,7 +85,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    every option ((2, 2, 130, d) / 134 keys, d in 16, 32, 64, causal and
    not, no bias and each bias shape; output, lse and all four gradients),
    every head of ``FLASH_HEADS`` (the wide launches at 264, 320, 512, 1024
-   also causal with a bias and with 70 keys; the Hopper kernels' heads
+   also causal with a bias and with 70 keys, and at 264, 320, 512 with 70
+   keys causal with each bias; the Hopper kernels' heads
    ``FLASH_WG_HEADS`` over several tiles with each bias, and with 70 keys
    with each bias, causal and not),
    the ``'auto'`` gate's edge ((2, 8, 1024, 32) / 1028 keys, causal), the
@@ -168,7 +169,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    through flash, and a rotary and a ``dim_head=12`` module (a head the
    block kernels do not take) against the CPU. Then the same step at the
    wide heads of ``FLASH_WIDTH_STEPS`` (128 x 4, 256 x 2 and 512 x 1, the
-   last on the Hopper wide forward and dK/dV and the wide dQ), each with
+   last on the Hopper wide forward, dQ and dK/dV), each with
    1 / 1 / 1 flash launches and no other kernel, and the three kernels
    alone at its shape beside their bounds, the plain versions and SDPA
    forward and backward, with the SDPA backend that ran
@@ -551,11 +552,12 @@ FLASH_WIDTH_STEPS = ((128, 4), (256, 2), (512, 1))
 # the three kernels' earlier times at the step's shape, (17, heads, 4096,
 # dh) / 4100 keys bf16, before each was redesigned for Hopper, on an H100
 # 80GB HBM3 at 700 W (PERF.md section 6, rows 6-8 at 128 x 4 and 256 x 2
-# and rows 6 and 8 at 512 x 1, which name the run of each): at 128 and 256
+# and rows 6-8 at 512 x 1, which name the run of each): at 128 and 256
 # the forward and dK/dV as the padded mma.sync kernels read when these
 # widths were first ported, dQ as its padded mma.sync kernel read in the
 # last run before its redesign; at 512 the forward and dK/dV as the wide
-# mma.sync kernels read when that head was first ported. The log prints
+# mma.sync kernels read when that head was first ported, dQ as its wide
+# mma.sync kernel read in the last run before its redesign. The log prints
 # them beside this run's; the kernels line holds only what this run
 # measured
 FLASH_EARLIER_MS = {128: {'flash_attention_fwd': 2.6198,
@@ -565,6 +567,7 @@ FLASH_EARLIER_MS = {128: {'flash_attention_fwd': 2.6198,
                           'flash_attention_bwd_dq': 4.3278,
                           'flash_attention_bwd_dkv': 8.3523},
                     512: {'flash_attention_fwd': 9.7298,
+                          'flash_attention_bwd_dq': 24.7876,
                           'flash_attention_bwd_dkv': 39.7851}}
 FLASH_WIDTH_ROWS = {f'{kernel}_d{dh}': (kernel, f'attention_step_d{dh}')
                     for dh, _ in FLASH_WIDTH_STEPS for kernel in
@@ -3031,8 +3034,8 @@ def flash_mma_resources(fa):
     """Registers, spills, shared memory and blocks an SM of the three 'mma'
     kernels at every compiled width, exact and padded (at 128 and 256 one
     kernel takes every head: the Hopper forward, dQ and dK/dV), and of the
-    kernels past 256 (the Hopper wide forward and dK/dV to 512, the wide
-    kernels for dQ and above), as the CUDA
+    kernels past 256 (the Hopper wide kernels to 512, the wide kernels
+    above), as the CUDA
     runtime reports them (the dynamic shared memory is
     what each launcher sets), with ptxas's lines from this run's build (none
     when the library came from the cache), and the 'f32' kernels' ptxas
@@ -3203,13 +3206,18 @@ def phase_flash_kernels(torch, dev, reps, smi):
               for d in FLASH_HEADS for causal in (False, True)]
     # the wide kernels causal with a bias, and with fewer keys than queries
     cases += [(2, 2, 130, 134, d, True, 'hnm') for d in FLASH_WIDE]
-    # the Hopper wide forward and dK/dV (heads of 257 to 512) over several
-    # of their row blocks, key blocks and tiles with ragged edges, with a
+    # the Hopper wide kernels (heads of 257 to 512) over several of their
+    # row blocks, key blocks and tiles with ragged edges, with a
     # (b, h, n, m) bias
     cases += [(2, 2, 300, 260, d, causal, 'bhnm') for d in FLASH_WIDE[:3]
               for causal in (False, True)]
     cases += [(2, 2, 130, 70, d, causal, None)
               for d in FLASH_WIDE for causal in (False, True)]
+    # ... and the Hopper wide kernels causal with fewer keys than queries
+    # and each bias: dQ's d_bias from warpgroup 0, zeros for the rows that
+    # see no key and the key tiles the causal skip passes over
+    cases += [(2, 2, 130, 70, d, True, bias) for d in FLASH_WIDE[:3]
+              for bias in ('nm', 'hnm', 'bhnm')]
     # fewer keys than queries: with causal the first 60 rows see no key
     cases += [(2, 2, 130, 70, d, causal, None)
               for d in (32, 128) for causal in (False, True)]
@@ -3261,7 +3269,8 @@ def phase_flash_kernels(torch, dev, reps, smi):
             f'and not, with each bias, and / 70 keys causal; (2, 2, 130, d) '
             f'/ 70 keys, d in {FLASH_WG_HEADS}, causal and not, with each '
             f'bias; (2, 2, 300, d) / 260 keys, d in {FLASH_WIDE[:3]}, '
-            f'causal and not, with a (b, h, n, m) bias; {name}, each '
+            f'causal and not, with a (b, h, n, m) bias, and / 70 keys '
+            f'causal with each bias; {name}, each '
             f'kernel on the '
             f'{fa.flash_route(dict(dtypes)[name], 32)!r} route: worst '
             f'error over the largest value of the reference (lse: max abs '

@@ -32,8 +32,8 @@
 // before the run-time d. A head over 256 takes the wide kernels (see "heads
 // over 256" below): its output in column chunks of 256, one a block, its
 // scores summed over column slices; on the 'mma' route a head of 257 to 512
-// runs its forward and dK/dV on the Hopper wide kernels instead (see "heads
-// of 257 to 512"), two warpgroups splitting its output columns.
+// runs its three kernels on the Hopper wide kernels instead (see "heads of
+// 257 to 512"), two warpgroups splitting its output columns.
 //
 // Two routes, one per dtype: ops/kernels/flash_attention.py flash_route
 // picks it for all three kernels and passes it in, and the entry points
@@ -2187,11 +2187,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
-// ---- heads of 257 to 512: the Hopper wide forward and dK/dV ('mma') ------
+// ---- heads of 257 to 512: the Hopper wide forward, dQ and dK/dV ('mma') --
 //
-// A head of 257 to 512 values runs its forward and dK/dV here, built at
-// D = kWgWideMax with the true d at run time (dQ stays on the wide kernels
-// below). The block is the Hopper kernels' (kWgThreads: a producer
+// A head of 257 to 512 values runs its three kernels here, built at
+// D = kWgWideMax with the true d at run time. The block is the Hopper
+// kernels' (kWgThreads: a producer
 // warpgroup whose one warp keeps TMA loads in flight, two consumer
 // warpgroups at kWgConsumerRegs after setmaxnreg), but no warpgroup can
 // hold 64 rows x 512 float32 accumulators (256 a thread): both consumer
@@ -2205,8 +2205,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 // c: c's buffer is free again); without it each warpgroup forms the whole
 // scores itself, with no barrier between them. Either way both hold the
 // same scores (a + b == b + a), run the same softmax on them, and multiply
-// P (or P^T, dS^T) from registers by their own columns of the streamed
-// tile, read MN-major:
+// P or dS (P^T or dS^T in dK/dV) from registers by their own columns of the
+// streamed tile, read MN-major:
 //   forward  S = Q K^T (both from shared memory, K-major), the online
 //            softmax of fwd_wg_mma_kernel, O += P V; warpgroup 0 alone
 //            writes lse. A block owns 64 query rows, heaviest first; Q
@@ -2220,10 +2220,24 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 //            P^T dO or dK += dS^T Q. K arrives once (and V in the dK
 //            block); Q and dO tiles of WgWideDkvGeo::tile queries, with
 //            their lse and delta, through one ring.
-// tools/flash_heads_probe.py times both ways for both kernels. The
+//   dQ       a block owns 64 query rows, heaviest first; Q and dO arrive
+//            once (64 KB each at D = 512), K and V tiles of
+//            WgWideDqGeo::tile keys through rings of their own, K's two
+//            stages deep. S = Q K^T and dP = dO V^T (both from shared
+//            memory, K-major); their partial sums go over the V stage dP
+//            read (exchange_in_stage: a warpgroup's S and dP fill the half
+//            its dP read), which leaves room for K's second stage at
+//            32-key tiles. P and dS = P (dP - delta) as
+//            bwd_dq_wg_mma_kernel, dQ += dS K with dS in registers and the
+//            warpgroup's columns of K's box read MN-major; warpgroup 0
+//            alone writes dS as d_bias, from its accumulators while dQ's
+//            product runs. Without the exchange S and dP are two commit
+//            groups and P is formed while dP runs.
+// tools/flash_heads_probe.py times both ways for all three kernels. The
 // products against the narrow decomposition's: the forward 1.5x (S in
-// both warpgroups), dK/dV 5/4 (S in both blocks), as against 1.5x and 2x
-// on the wide kernels, which also re-read their own rows from L2 a tile.
+// both warpgroups), dK/dV 5/4 (S in both blocks), dQ 1x with the exchange
+// and 5/3 without, as against 1.5x, 2x and 5/3 on the wide kernels, which
+// also re-read their own rows from L2 a tile.
 // Masking, the bias, the causal skip, the rows that see no key and the dead
 // rows are the Hopper kernels'; one owner per output tile, no atomics.
 // What bounds them on the H100: operations, as the Hopper kernels'.
@@ -2231,6 +2245,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 constexpr int kWgWideMax = 512;               // the widest head here
 constexpr int kWgWideHalf = kWgWideMax / 2;   // output columns a warpgroup
 constexpr int kXFull = 3, kXFree = 4;         // named barriers (kXFree + c)
+constexpr int kWgRetired = 6;                 // named barriers (+ c), dQ
 
 // The wide forward's geometry (ops/kernels/flash_attention.py
 // WG_WIDE_FWD_ROWS, WG_WIDE_FWD_TILE, WG_WIDE_FWD_EXCHANGE): query rows a
@@ -2278,6 +2293,30 @@ struct WgWideDkvGeo {
   static_assert(tile <= 32, "a producer lane stages a query's lse, delta");
 };
 
+// dQ's geometry (WG_WIDE_DQ_ROWS, WG_WIDE_DQ_TILE, WG_WIDE_DQ_EXCHANGE):
+// query rows a block, keys a tile, the stages of K's ring and of V's, and
+// whether S and dP come from two partial sums (exchanged over the V stage
+// they were formed from: a warpgroup's S and dP partials fill the half of
+// it that its dP read). A consumer thread holds its 256 columns of dQ (128
+// floats), S and dP (tile / 2 each) and dS's A fragments.
+struct WgWideDqGeo {
+  static constexpr int D = kWgWideMax;
+  static constexpr int rows = 64;
+  static constexpr int tile = 32;
+  static constexpr int k_stages = 2;
+  static constexpr int v_stages = 1;
+  static constexpr bool exchange = true;
+  static constexpr int panels = D / kSw128Cols;
+  static constexpr int q_panel = rows * 128;       // bytes
+  static constexpr int kv_panel = tile * 128;
+  static constexpr int kv_tile = panels * kv_panel;
+  static constexpr size_t bytes = 1024 + 2 * (size_t)panels * q_panel +
+                                  (size_t)(k_stages + v_stages) * kv_tile;
+  static_assert(bytes <= kSmemMax, "wide Hopper dQ shared memory");
+  static_assert(2 * sizeof(float) * rows * tile == panels / 2 * kv_panel,
+                "a warpgroup's S and dP partials fill its half of V's stage");
+};
+
 // acc[e] of this thread (tid of warpgroup wg) plus the other warpgroup's,
 // through buffers of `count` floats a warpgroup in shared memory; `first`
 // and `last`: the loop's first and last tile
@@ -2316,6 +2355,33 @@ __device__ __forceinline__ void exchange_sum(float (&a)[N], float (&b)[N],
     b[e] += theirs[(N + e) * 128 + tid];
   }
   if (!last) bar_arrive(kXFree + 1 - wg, kWgConsumers);
+}
+
+// a and b of this thread plus the other warpgroup's, through the stage of
+// shared memory the two partial products read their B operand from:
+// warpgroup wg writes its partials over its own half of the stage (`mine`,
+// which only its products read) once all four of its warps have retired
+// them, and reads the other's from `theirs`. The caller gives the stage back
+// to the producer after; the fence orders these accesses before TMA's
+// next writes to it.
+template <int N>
+__device__ __forceinline__ void exchange_in_stage(float (&a)[N],
+                                                  float (&b)[N], float* mine,
+                                                  const float* theirs, int wg,
+                                                  int tid) {
+  bar_sync(kWgRetired + wg, 128);
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    mine[e * 128 + tid] = a[e];
+    mine[(N + e) * 128 + tid] = b[e];
+  }
+  bar_sync(kXFull, kWgConsumers);
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    a[e] += theirs[e * 128 + tid];
+    b[e] += theirs[(N + e) * 128 + tid];
+  }
+  fence_proxy_async();
 }
 
 __global__ void __launch_bounds__(kWgThreads, 1)
@@ -2770,11 +2836,224 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                       scale);
 }
 
+__global__ void __launch_bounds__(kWgThreads, 1)
+    bwd_dq_wg_wide_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_do,
+                          const bf16* __restrict__ bias,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dq, float* __restrict__ dbias,
+                          int n, int m, int d, int q_tiles, int bias_groups,
+                          int causal, float scale) {
+  typedef WgWideDqGeo G;
+  constexpr int T = G::tile, NB = T / 8, H = kWgWideHalf;
+  // the panels of a warpgroup's partial S and dP
+  constexpr int PW = G::exchange ? G::panels / 2 : G::panels;
+  constexpr int KS = G::k_stages, VS = G::v_stages;
+  extern __shared__ unsigned char wg_smem[];
+  __shared__ __align__(8) uint64_t qbar, kfull[KS], kempty[KS], vfull[VS],
+      vempty[VS];
+  unsigned char* qs = align1024(wg_smem);
+  unsigned char* dos = qs + G::panels * G::q_panel;
+  unsigned char* ks = dos + G::panels * G::q_panel;
+  unsigned char* vs = ks + KS * G::kv_tile;
+
+  const int bh = blockIdx.x / q_tiles;
+  const int q0 = (q_tiles - 1 - blockIdx.x % q_tiles) * G::rows;
+  const int offset = m - n;
+  // key tiles 0 .. tiles - 1: with causal, up to the last one the block's
+  // last row sees (dq_key_tiles)
+  const int k_end = causal ? min(m, min(q0 + G::rows, n) + offset) : m;
+  const int tiles = (max(k_end, 0) + T - 1) / T;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&qbar, 1);
+    for (int s = 0; s < KS; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&kempty[s], kWgConsumers / 32);  // a consumer warp each
+    }
+    for (int s = 0; s < VS; ++s) {
+      mbar_init(&vfull[s], 1);
+      mbar_init(&vempty[s], kWgConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kWgConsumers / 32) {  // the producer warpgroup
+    reg_dealloc<kWgProducerRegs>();
+    if (warp == kWgConsumers / 32 && lane == 0) {
+      mbar_expect_tx(&qbar, 2 * G::panels * G::q_panel);
+      for (int p = 0; p < G::panels; ++p) {
+        tma_load_3d(qs + p * G::q_panel, &map_q, &qbar, p * kSw128Cols, q0,
+                    bh);
+        tma_load_3d(dos + p * G::q_panel, &map_do, &qbar, p * kSw128Cols,
+                    q0, bh);
+      }
+      for (int t = 0; t < tiles; ++t) {
+        const int sk = t % KS, uk = t / KS, sv = t % VS, uv = t / VS;
+        if (uk > 0) mbar_wait(&kempty[sk], (uk - 1) & 1);
+        mbar_expect_tx(&kfull[sk], G::kv_tile);
+        for (int p = 0; p < G::panels; ++p)
+          tma_load_3d(ks + sk * G::kv_tile + p * G::kv_panel, &map_k,
+                      &kfull[sk], p * kSw128Cols, t * T, bh);
+        if (uv > 0) mbar_wait(&vempty[sv], (uv - 1) & 1);
+        mbar_expect_tx(&vfull[sv], G::kv_tile);
+        for (int p = 0; p < G::panels; ++p)
+          tma_load_3d(vs + sv * G::kv_tile + p * G::kv_panel, &map_v,
+                      &vfull[sv], p * kSw128Cols, t * T, bh);
+      }
+    }
+  } else {  // two consumer warpgroups on the same 64 rows
+    reg_alloc<kWgConsumerRegs>();
+    const int wg = warp / 4, wq = warp % 4, g = lane >> 2, tq = lane & 3;
+    const int w0 = q0 + 16 * wq;  // the warp's first row
+    const int ra = w0 + g;
+    const int c0 = H * wg;        // the warpgroup's first dQ column
+    const int p0 = G::exchange ? PW * wg : 0;  // its first score panel
+    const bf16* bb =
+        bias ? bias + (size_t)(bh % bias_groups) * n * m : nullptr;
+    float* dbb = dbias ? dbias + (size_t)bh * n * m : nullptr;
+    const float scale_log2 = scale * kLog2e;
+    // lse (base 2) and delta of rows ra and ra + 8, 0 past n
+    float lse2[2], del[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = ra + 8 * h;
+      lse2[h] = row < n ? lse[(size_t)bh * n + row] * kLog2e : 0.f;
+      del[h] = row < n ? delta[(size_t)bh * n + row] : 0.f;
+    }
+    const uint64_t qdesc = sw128_desc(qs + p0 * G::q_panel);
+    const uint64_t ddesc = sw128_desc(dos + p0 * G::q_panel);
+    float acc[H / 2];
+    zero_acc(acc);
+    auto release = [&](uint64_t* bars, int s) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bars[s]);
+    };
+
+    mbar_wait(&qbar, 0);
+    for (int t = 0; t < tiles; ++t) {
+      const int sk = t % KS, sv = t % VS;
+      const int k0 = t * T;
+      const unsigned char* kt = ks + sk * G::kv_tile;
+      unsigned char* vt = vs + sv * G::kv_tile;
+      const uint64_t kdesc = sw128_desc(kt + p0 * G::kv_panel);
+      const uint64_t vdesc = sw128_desc(vt + p0 * G::kv_panel);
+      float sc[T / 2], dp[T / 2];  // S, then P, then dS; dP
+      zero_acc(sc);
+      zero_acc(dp);
+      mbar_wait(&kfull[sk], (t / KS) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < PW; ++p)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_bf16(sc, qdesc + ((p * G::q_panel) >> 4) + 2 * kk,
+                     kdesc + ((p * G::kv_panel) >> 4) + 2 * kk);
+      wgmma_commit();
+      mbar_wait(&vfull[sv], (t / VS) & 1);
+#pragma unroll
+      for (int p = 0; p < PW; ++p)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_bf16(dp, ddesc + ((p * G::q_panel) >> 4) + 2 * kk,
+                     vdesc + ((p * G::kv_panel) >> 4) + 2 * kk);
+      wgmma_commit();
+      if constexpr (G::exchange) {  // both partial sums, then the other's
+        wgmma_wait<0>();
+        fence_acc(sc);
+        fence_acc(dp);
+        exchange_in_stage(
+            sc, dp, reinterpret_cast<float*>(vt + p0 * G::kv_panel),
+            reinterpret_cast<const float*>(vt + (PW - p0) * G::kv_panel), wg,
+            threadIdx.x % 128);
+        release(vempty, sv);
+      } else {
+        wgmma_wait<1>();  // S is in; dP may still run
+        fence_acc(sc);
+      }
+      // element 4j + e is (row ra + 8 (e / 2), key k0 + 8j + 2tq + e % 2);
+      // uniform branches: the bias, and the element test of a masked tile
+#pragma unroll
+      for (int e = 0; e < T / 2; ++e)
+        sc[e] = fmaf(sc[e], scale_log2, -lse2[(e >> 1) & 1]);
+      if (bb)
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = ra + 8 * (e >> 1);
+            const int col = k0 + 8 * j + 2 * tq + (e & 1);
+            if (row < n && col < m)
+              sc[4 * j + e] = fmaf(to_f32(bb[(size_t)row * m + col]), kLog2e,
+                                   sc[4 * j + e]);
+          }
+      if (tile_masked(w0, 16, k0, T, n, m, causal))
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = ra + 8 * (e >> 1);
+            const int col = k0 + 8 * j + 2 * tq + (e & 1);
+            if (!(row < n && col < m && (!causal || col <= row + offset)))
+              sc[4 * j + e] = -INFINITY;
+          }
+#pragma unroll
+      for (int e = 0; e < T / 2; ++e) sc[e] = exp2_approx(sc[e]);
+      if constexpr (!G::exchange) {
+        wgmma_wait<0>();
+        fence_acc(dp);
+        release(vempty, sv);
+      }
+#pragma unroll
+      for (int e = 0; e < T / 2; ++e)
+        sc[e] *= dp[e] - del[(e >> 1) & 1];
+      // dQ += dS K on the warpgroup's columns of the K tile, read MN-major
+      unsigned da[T / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < T / 16; ++kk) frag_of(da[kk], sc + 8 * kk);
+      wgmma_fence();
+      const uint64_t kmn =
+          sw128_mn_desc(kt + (c0 / kSw128Cols) * G::kv_panel, G::kv_panel);
+#pragma unroll
+      for (int kk = 0; kk < T / 16; ++kk)
+        wgmma_rs_mn(acc, da[kk], kmn + 128 * kk);
+      wgmma_commit();
+      if (dbb && wg == 0)  // dS as d_bias while dQ's product runs
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = ra + 8 * (e >> 1);
+            const int col = k0 + 8 * j + 2 * tq + (e & 1);
+            if (row < n && col < m) dbb[(size_t)row * m + col] = sc[4 * j + e];
+          }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      keep_live(da);
+      release(kempty, sk);
+    }
+    store_acc<H>(dq + (size_t)bh * n * d + c0, acc, ra, n, scale, d - c0, d);
+    // dS of the key tiles the causal skip passed over is 0
+    const int skipped = m - tiles * T;
+    if (dbb && skipped > 0)
+      for (int r = warp; r < G::rows; r += kWgConsumers / 32) {
+        if (q0 + r >= n) break;
+        float* row = dbb + (size_t)(q0 + r) * m + (m - skipped);
+        for (int c = lane; c < skipped; c += 32) row[c] = 0.f;
+      }
+  }
+}
+
 // ---- heads over 256: the wide kernels, both routes -------------------------
 //
 // These take every head over 256 on the 'f32' route and, on the 'mma'
-// route, dQ at every head over 256 and the forward and dK/dV over
-// kWgWideMax (the Hopper wide kernels above take those up to it).
+// route, every head over kWgWideMax (the Hopper wide kernels above take
+// those up to it).
 // A head over 256 values does not fit a block's output accumulator (64 rows
 // x 512 floats is 128 KB at d = 512), so its output columns are cut into
 // chunks of kWideOut: a block owns one chunk (grid y) of its rows' output,
@@ -3757,10 +4036,12 @@ inline cudaError_t wide_attributes(int* out, int kernel) {
 }
 
 // the wide 'mma' kernel `kernel` (0 dQ, 1 dK/dV, 2 forward) that a head of
-// padded width `width` over kNarrowMax runs: the Hopper wide forward and
-// dK/dV up to kWgWideMax, else the wide kernels
+// padded width `width` over kNarrowMax runs: the Hopper wide kernels up to
+// kWgWideMax, else the wide kernels
 inline cudaError_t wide_attributes(int* out, int kernel, int width) {
   constexpr int W = kWgThreads;
+  if (width <= kWgWideMax && kernel == 0)
+    return attributes(out, bwd_dq_wg_wide_kernel, W, WgWideDqGeo::bytes);
   if (width <= kWgWideMax && kernel == 1)
     return attributes(out, bwd_dkv_wg_wide_kernel, W, WgWideDkvGeo::bytes);
   if (width <= kWgWideMax && kernel == 2)
@@ -3822,7 +4103,7 @@ inline bool wide_fits(int route, int dtype, int d) {
   return route_fits(route, dtype) && d > kNarrowMax && d % 8 == 0;
 }
 
-// a wide head the Hopper wide forward and dK/dV take ('mma', d <= 512)
+// a wide head the Hopper wide kernels take ('mma', d <= 512)
 inline bool wg_wide(int route, int d) {
   return route == kRouteMma && d <= kWgWideMax;
 }
@@ -3874,6 +4155,32 @@ inline cudaError_t launch_dkv_wg_wide(const void* q, const void* k,
            stream>>>(mq, mk, mv, mdo, (const bf16*)bias, (const bf16*)dout,
                      lse, delta, (bf16*)dk, (bf16*)dv, n, m, d, tiles, groups,
                      causal, scale);
+  MV2_CHECK_LAUNCH();
+  return cudaSuccess;
+}
+
+inline cudaError_t launch_dq_wg_wide(const void* q, const void* k,
+                                     const void* v, const void* bias,
+                                     const void* dout, const float* lse,
+                                     const float* delta, void* dq,
+                                     float* dbias, int bh, int n, int m,
+                                     int d, int groups, int causal,
+                                     float scale, cudaStream_t stream) {
+  typedef WgWideDqGeo G;
+  const int tiles = tiles_of(n, G::rows);
+  if (!grid_fits(bh, tiles)) return cudaErrorInvalidValue;
+  const auto kernel = bwd_dq_wg_wide_kernel;
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err = head_map(&mq, q, bh, n, d, G::rows);
+  if (err == cudaSuccess) err = head_map(&mdo, dout, bh, n, d, G::rows);
+  if (err == cudaSuccess) err = head_map(&mk, k, bh, m, d, G::tile);
+  if (err == cudaSuccess) err = head_map(&mv, v, bh, m, d, G::tile);
+  if (err == cudaSuccess) err = wg_registers_fit(kernel);
+  if (err == cudaSuccess) err = allow_smem(kernel, G::bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)(bh * tiles), kWgThreads, G::bytes, stream>>>(
+      mq, mk, mv, mdo, (const bf16*)bias, lse, delta, (bf16*)dq, dbias, n, m,
+      d, tiles, groups, causal, scale);
   MV2_CHECK_LAUNCH();
   return cudaSuccess;
 }
@@ -3942,6 +4249,10 @@ int mv2_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d > mv2::flash::kNarrowMax) {
     if (!mv2::flash::wide_fits(route, dtype, d)) return cudaErrorInvalidValue;
+    if (mv2::flash::wg_wide(route, d))
+      return mv2::flash::launch_dq_wg_wide(
+          q, k, v, bias, dout, (const float*)lse, (const float*)delta, dq,
+          (float*)dbias, bh, n, m, d, groups, causal, scale, s);
     return mv2::flash::launch_dq_wide(
         {q, k, v, bias, dout, (const float*)lse, (const float*)delta, dq,
          nullptr, nullptr, (float*)dbias, n, m, d, 0, groups, causal, scale},
@@ -3979,7 +4290,7 @@ int mv2_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
 // What the CUDA runtime reports for the 'mma' kernel `kernel` (0 dQ, 1
 // dK/dV, 2 forward; 3, 4, 5 the same kernels' padded instantiations, for
 // d < width; 6, 7, 8 the kernels a head over 256 of padded width `width`
-// runs: the Hopper wide forward and dK/dV up to 512, else the wide kernels)
+// runs: the Hopper wide kernels up to 512, else the wide kernels)
 // at the padded width `width` (16, 32, 64, 128 or 256, or the head over
 // 256), into out (5 ints): registers a thread, local memory a thread
 // (spills), static shared memory, the dynamic shared memory its launcher

@@ -34,9 +34,9 @@ as the JAX wrapper does outside its kernel. Any head size, as the JAX
 kernel takes any head (its block is the whole head): the kernels take a
 multiple of 8, run it up to :data:`NARROW_MAX` at the next of the padded
 :data:`WIDTHS` and above on the wide kernels (the output in column chunks
-of 256, one a block, the scores summed over column slices; in bf16 the
-forward and dK/dV up to :data:`WG_WIDE_MAX` on the Hopper wide kernels,
-whose two consumer warpgroups split the output columns; dK/dV forms its
+of 256, one a block, the scores summed over column slices; in bf16 all
+three up to :data:`WG_WIDE_MAX` on the Hopper wide kernels, whose two
+consumer warpgroups split the output columns; dK/dV and dQ form their
 scores once a block from their two partial sums), and
 :func:`flash_attention` pads any other head with zero columns up to the next
 multiple of 8 (on the CPU too). float32 (CUDA cores, no TF32) and bfloat16
@@ -90,17 +90,21 @@ WG_DKV_KEYS = {128: 128, 256: 64}
 WG_DKV_TILE = 64
 NARROW_MAX = 256                      # kNarrowMax: wider heads, wide kernels
 WIDE_OUT = 256                        # kWideOut: output columns a block
-# the Hopper wide forward and dK/dV ('mma', heads of NARROW_MAX + 1 to
-# WG_WIDE_MAX; csrc/flash_attention.cu WgWideFwdGeo, WgWideDkvGeo): query
-# rows a forward block, keys a forward tile, keys a dK/dV block, queries a
-# dK/dV tile, and whether each kernel sums its scores from the two consumer
-# warpgroups' partial products (else each warpgroup forms them whole); each
-# consumer warpgroup owns WG_WIDE_HALF output columns
+# the Hopper wide forward, dQ and dK/dV ('mma', heads of NARROW_MAX + 1 to
+# WG_WIDE_MAX; csrc/flash_attention.cu WgWideFwdGeo, WgWideDqGeo,
+# WgWideDkvGeo): query rows a forward block, keys a forward tile, query rows
+# a dQ block, keys a dQ tile, keys a dK/dV block, queries a dK/dV tile, and
+# whether each kernel sums its scores from the two consumer warpgroups'
+# partial products (else each warpgroup forms them whole); each consumer
+# warpgroup owns WG_WIDE_HALF output columns
 WG_WIDE_MAX = 512                     # kWgWideMax
 WG_WIDE_HALF = WG_WIDE_MAX // 2       # kWgWideHalf
 WG_WIDE_FWD_ROWS = 64
 WG_WIDE_FWD_TILE = 32
 WG_WIDE_FWD_EXCHANGE = False
+WG_WIDE_DQ_ROWS = 64
+WG_WIDE_DQ_TILE = 32
+WG_WIDE_DQ_EXCHANGE = True
 WG_WIDE_DKV_KEYS = 64
 WG_WIDE_DKV_TILE = 16
 WG_WIDE_DKV_EXCHANGE = True
@@ -361,12 +365,12 @@ def mma_kernel(kernel: str, width: int, exact: bool = True) -> str:
     """The CUDA kernel that :func:`mma_attributes` reports: up to
     :data:`EXACT_WIDTH` the exact build or (``exact=False``) the padded one;
     at 128 and 256 the Hopper kernels (``*_wg_mma_kernel``) for every head;
-    over :data:`NARROW_MAX` the Hopper wide forward and dK/dV
-    (``*_wg_wide_kernel``) up to :data:`WG_WIDE_MAX` and the wide kernels
-    (``*_wide_mma_kernel``) for dQ and above it."""
+    over :data:`NARROW_MAX` the Hopper wide kernels (``*_wg_wide_kernel``)
+    up to :data:`WG_WIDE_MAX` and the wide kernels (``*_wide_mma_kernel``)
+    above it."""
     stem = {'fwd': 'fwd', 'dq': 'bwd_dq', 'dkv': 'bwd_dkv'}[kernel]
     if width > NARROW_MAX:
-        if width <= WG_WIDE_MAX and kernel != 'dq':
+        if width <= WG_WIDE_MAX:
             return f'{stem}_wg_wide_kernel'
         return f'{stem}_wide_mma_kernel'
     if width > EXACT_WIDTH:

@@ -1,16 +1,19 @@
-"""The Hopper wide flash-attention kernels' geometry on the CPU: the forward
-and dK/dV at heads of 257 to 512 (csrc/flash_attention.cu
-``fwd_wg_wide_kernel``, ``bwd_dkv_wg_wide_kernel``). The constants that the
-wrapper exposes against the source, the causal-skip twins at their 64-row
-and 64-key blocks against a dense mask, and test-local models of both loops
-against the plain versions: the scores formed in each warpgroup whole (the
-forward) or once a block as two partial sums over halves of the 64-column
-panels (dK/dV), the output columns split between
-the two consumer warpgroups, the per-warp element tests, the rows that see
-no key, and dK/dV's grid z (a dV block and a dK block of the same keys), in
-float64 within 1e-6 of the largest value (the same sums in another order)
-and in float32 within 1e-5. Inputs come from numpy seeds. The kernels run
-only on the card (chip_smoke.py)."""
+"""The Hopper wide flash-attention kernels' geometry on the CPU: the
+forward, dQ and dK/dV at heads of 257 to 512 (csrc/flash_attention.cu
+``fwd_wg_wide_kernel``, ``bwd_dq_wg_wide_kernel``,
+``bwd_dkv_wg_wide_kernel``). The constants that the wrapper exposes against
+the source, the causal-skip twins at their 64-row and 64-key blocks against
+a dense mask, and test-local models of the three loops against the plain
+versions: the scores formed in each warpgroup whole or once a block as two
+partial sums over halves of the 64-column panels, as each kernel's geometry
+says, the output columns split between the two consumer warpgroups, the
+per-warp element tests, the rows that see no key, dS written as d_bias by
+one warpgroup, and dK/dV's grid z (a dV block and a dK block of the same
+keys), in float64 within 1e-6 of the largest value (the same sums in
+another order) and in float32 within 1e-5; dQ also with dS rounded to bf16
+where the kernel hands it to ``wgmma``, and against the JAX custom VJP.
+Inputs come from numpy seeds. The kernels run only on the card
+(chip_smoke.py)."""
 
 import itertools
 import math
@@ -22,6 +25,7 @@ import torch
 
 from magvit2_pytorch_tpu_torch.ops.kernels import _build
 from magvit2_pytorch_tpu_torch.ops.kernels import flash_attention as fa
+from test_torch_flash_heads import _jax_flash_grads, _qkv, _rand
 from test_torch_flash_wg import (LOG2E, SKIP_SHAPES, _check_query_blocks,
                                  _close, _masked, _pad, _padded_mask, _rows,
                                  _struct, _value)
@@ -56,15 +60,18 @@ def test_wide_limits_match_the_source():
     assert fa.NARROW_MAX < fa.WG_WIDE_MAX
 
 
-@pytest.mark.parametrize('struct', ['WgWideFwdGeo', 'WgWideDkvGeo'])
+@pytest.mark.parametrize('struct', ['WgWideFwdGeo', 'WgWideDqGeo',
+                                    'WgWideDkvGeo'])
 def test_wide_geometry_constants_match_the_source(struct):
-    """WgWideFwdGeo against WG_WIDE_FWD_ROWS / WG_WIDE_FWD_TILE, WgWideDkvGeo
-    against WG_WIDE_DKV_KEYS / WG_WIDE_DKV_TILE: 64 rows a block (one wgmma
-    M, both warpgroups), the forward's S formed whole in each warpgroup and
-    dK/dV's from two partial sums (WG_WIDE_FWD_EXCHANGE,
-    WG_WIDE_DKV_EXCHANGE), their buffers, the shared memory under the
-    227 KB a block takes, and a consumer thread's accumulator floats (its
-    256 output columns, S and, in the dK block, dP)."""
+    """WgWideFwdGeo against WG_WIDE_FWD_ROWS / WG_WIDE_FWD_TILE, WgWideDqGeo
+    against WG_WIDE_DQ_ROWS / WG_WIDE_DQ_TILE, WgWideDkvGeo against
+    WG_WIDE_DKV_KEYS / WG_WIDE_DKV_TILE: 64 rows a block (one wgmma M, both
+    warpgroups), the forward's S formed whole in each warpgroup and dQ's
+    and dK/dV's from two partial sums (WG_WIDE_FWD_EXCHANGE,
+    WG_WIDE_DQ_EXCHANGE, WG_WIDE_DKV_EXCHANGE), their buffers, the shared
+    memory under the 227 KB a block takes, and a consumer thread's
+    accumulator floats (its 256 output columns, S and, in dQ and the dK
+    block, dP; in dQ also dS's A fragments)."""
     geo = _geometry(struct)
     assert geo['D'] == fa.WG_WIDE_MAX
     assert geo['panels'] == fa.WG_WIDE_MAX // PANEL
@@ -77,6 +84,22 @@ def test_wide_geometry_constants_match_the_source(struct):
         assert geo['xfloats'] == 2 * 64 * geo['tile'] * geo['exchange']
         held = fa.WG_WIDE_HALF // 2 + geo['tile'] // 2
         assert held == 144
+    elif struct == 'WgWideDqGeo':
+        assert geo['rows'] == fa.WG_WIDE_DQ_ROWS == 64
+        assert geo['tile'] == fa.WG_WIDE_DQ_TILE
+        assert geo['exchange'] is fa.WG_WIDE_DQ_EXCHANGE
+        # Q and dO once, a 64-column panel of 64 rows each, then the stages
+        # of K and of V
+        assert geo['q_panel'] == 64 * 128
+        assert geo['bytes'] == 1024 + 2 * 8 * 64 * 128 + (
+            geo['k_stages'] + geo['v_stages']) * 8 * geo['tile'] * 128
+        # a warpgroup's float32 S and dP partials fill the half of a V
+        # stage its dP read (the exchange needs no buffer of its own)
+        assert 2 * 4 * 64 * geo['tile'] == geo['panels'] // 2 * \
+            geo['kv_panel']
+        held = (fa.WG_WIDE_HALF // 2 + 2 * (geo['tile'] // 2)
+                + geo['tile'] // 4)
+        assert held == {16: 148, 32: 168}[geo['tile']]
     else:
         assert geo['keys'] == fa.WG_WIDE_DKV_KEYS == 64
         assert geo['tile'] == fa.WG_WIDE_DKV_TILE
@@ -109,6 +132,18 @@ def test_causal_skip_at_the_wide_geometry(n, m, causal):
                 if not fa.tile_masked(t * qt, qt, kw, 16, n, m, causal):
                     assert big[t * qt:(t + 1) * qt, kw:kw + 16].all()
         assert not big[~seen, k0:k0 + keys].any()
+
+
+@pytest.mark.parametrize('n,m', SKIP_SHAPES)
+@pytest.mark.parametrize('causal', [False, True])
+def test_causal_skip_at_the_wide_dq_geometry(n, m, causal):
+    """The wide dQ's blocks of WG_WIDE_DQ_ROWS rows visit the key tiles of
+    dq_key_tiles of WG_WIDE_DQ_TILE keys: every visible pair (and so every
+    dS the kernel writes from its accumulators) lies in a visited tile, and
+    a warp's tile (16 rows by a key tile) that tile_masked passes untested
+    is all visible."""
+    _check_query_blocks(_padded_mask(n, m, causal), n, m, causal,
+                        fa.WG_WIDE_DQ_ROWS, fa.WG_WIDE_DQ_TILE)
 
 
 def _scores(a, b, exchange):
@@ -239,6 +274,63 @@ def _dkv_wide_model(q, k, v, bias, out, lse, dout, causal, scale):
     return grads['dk'][..., :d], grads['dv'][..., :d]
 
 
+def _dq_wide_model(q, k, v, bias, out, lse, dout, causal, scale,
+                   ds_dtype=None):
+    """The wide dQ's loop: per block of WG_WIDE_DQ_ROWS query rows (16 a
+    warp, both warpgroups on the same rows), the key tiles of dq_key_tiles
+    of WG_WIDE_DQ_TILE keys; S and dP as WG_WIDE_DQ_EXCHANGE forms them
+    (the sums over the panels of each half, then the two halves added),
+    P = 2^(S scale log2e + bias log2e - lse log2e) with each warp's element
+    test where tile_masked asks for it, dS = P (dP - delta), dQ += dS K on
+    each warpgroup's 256 columns, with dS rounded to ``ds_dtype`` (bf16 on
+    the card) where the kernel hands it to ``wgmma``; warpgroup 0 writes its
+    float32 dS as d_bias in every visited tile and zeros in the skipped
+    ones; then dQ *= scale, the columns past d not stored. Returns dq and
+    the (b h, n, m) dS, NaN where nothing was written."""
+    b, h, n, d = q.shape
+    m = k.shape[2]
+    rows, tile = fa.WG_WIDE_DQ_ROWS, fa.WG_WIDE_DQ_TILE
+    qp, kp, vp, dop = (_pad(t, fa.WG_WIDE_MAX) for t in (q, k, v, dout))
+    delta = (dout * out).sum(dim=-1)
+    dq = torch.full_like(qp, math.nan)
+    ds_all = torch.full((b * h, n, m), math.nan, dtype=q.dtype)
+    for bi, hi in itertools.product(range(b), range(h)):
+        bb = None if bias is None else bias[(bi * h + hi) % bias.shape[0]]
+        ds_head = ds_all[bi * h + hi]
+        for q0 in range(0, n, rows):
+            tiles = fa.dq_key_tiles(q0, rows, n, m, causal, tile)
+            for w0 in range(q0, q0 + rows, 16):
+                qw, dow = _rows(qp[bi, hi], w0, 16), _rows(dop[bi, hi], w0, 16)
+                ls = _rows(lse[bi, hi], w0, 16)
+                de = _rows(delta[bi, hi], w0, 16)
+                acc = [torch.zeros(16, fa.WG_WIDE_HALF, dtype=q.dtype)
+                       for _ in _columns()]
+                r1 = min(w0 + 16, n) - w0      # the warp's rows inside n
+                for t in range(tiles):
+                    k0 = t * tile
+                    kk = _rows(kp[bi, hi], k0, tile)
+                    vv = _rows(vp[bi, hi], k0, tile)
+                    x = (_scores(qw, kk, fa.WG_WIDE_DQ_EXCHANGE)
+                         * (scale * LOG2E) - ls[:, None] * LOG2E)
+                    if bb is not None:
+                        x = x + _rows(_rows(bb, w0, 16).T, k0,
+                                      tile).T * LOG2E
+                    p = torch.exp2(_masked(x, w0, 16, k0, tile, n, m, causal))
+                    ds = p * (_scores(dow, vv, fa.WG_WIDE_DQ_EXCHANGE)
+                              - de[:, None])
+                    handed = ds if ds_dtype is None else \
+                        ds.to(ds_dtype).to(ds.dtype)
+                    acc = [a + handed @ kk[:, cols]
+                           for a, cols in zip(acc, _columns())]
+                    c1 = min(k0 + tile, m) - k0
+                    if r1 > 0:
+                        ds_head[w0:w0 + r1, k0:k0 + c1] = ds[:r1, :c1]
+                if r1 > 0:
+                    dq[bi, hi, w0:w0 + r1] = torch.cat(acc, dim=1)[:r1] * scale
+            ds_head[q0:q0 + rows, tiles * tile:] = 0
+    return dq[..., :d], ds_all
+
+
 def _inputs(d, m, causal, dtype):
     rng = np.random.default_rng(11 + d + m + causal)
     b, h, n = 1, 2, 130
@@ -294,16 +386,80 @@ def test_the_wide_dkv_loop_matches_the_plain_version(d, m, causal,
         _close(dv, want_dv, tol)
 
 
+@pytest.mark.parametrize('d,m,causal,with_bias', WIDE_CASES)
+def test_the_wide_dq_loop_matches_the_plain_version(d, m, causal, with_bias):
+    """The wide dQ's loop against ``flash_attention_bwd_ref`` on (1, 2, 130,
+    d) / m keys (70: fewer keys than queries, with causal the first 60 rows
+    see none, whose dq must be exactly 0; 134: a ragged last tile), with an
+    (h, n, m) bias or none: dq, and dS as d_bias, every element written,
+    float64 within 1e-6 of the largest value, float32 within 1e-5."""
+    for dtype, tol in ((torch.float64, 1e-6), (torch.float32, 1e-5)):
+        q, k, v, dout, bias = _inputs(d, m, causal, dtype)
+        bias = bias if with_bias else None
+        scale = d ** -0.5
+        out, lse = fa.flash_attention_ref(q, k, v, causal, scale, bias)
+        want_dq, _, _, want_db = fa.flash_attention_bwd_ref(
+            q, k, v, bias, out, lse, dout, causal, scale)
+        dq, ds = _dq_wide_model(q, k, v, bias, out, lse, dout, causal, scale)
+        assert not dq.isnan().any() and not ds.isnan().any()
+        _close(dq, want_dq, tol)
+        blind = fa.no_key_rows(130, m, causal)
+        assert not dq[:, :, :blind].any()
+        assert not ds[:, :blind].any()
+        if bias is not None:
+            _close(fa._reduce_bias_groups(ds, bias), want_db, tol)
+
+
+@pytest.mark.parametrize('causal', [False, True])
+def test_the_wide_dq_loop_with_ds_in_bf16(causal):
+    """The loop with dS rounded to bf16 where the kernel hands it to
+    ``wgmma`` (the A operand of dQ += dS K), float32 otherwise, at d = 320 /
+    134 keys with a bias: dq within 1e-2 of the largest value of the plain
+    version's (each dS carries bf16's 2^-9 relative rounding into a sum
+    over ~130 keys), d_bias (from the unrounded float32 dS) within 1e-5."""
+    q, k, v, dout, bias = _inputs(320, 134, causal, torch.float32)
+    scale = 320 ** -0.5
+    out, lse = fa.flash_attention_ref(q, k, v, causal, scale, bias)
+    want_dq, _, _, want_db = fa.flash_attention_bwd_ref(
+        q, k, v, bias, out, lse, dout, causal, scale)
+    dq, ds = _dq_wide_model(q, k, v, bias, out, lse, dout, causal, scale,
+                            ds_dtype=torch.bfloat16)
+    _close(dq, want_dq, 1e-2)
+    _close(fa._reduce_bias_groups(ds, bias), want_db, 1e-5)
+
+
+@pytest.mark.parametrize('with_bias', [False, True])
+def test_the_wide_dq_loop_matches_the_jax_custom_vjp(with_bias):
+    """The wide dQ's loop at d = 320, (1, 1, 70) / 74 keys causal, against
+    the dq of ``jax.grad`` through the JAX package's Pallas backward in
+    interpret mode, on the port's plain forward's out and lse; with an
+    (h, n, m) bias also d_bias: float32, within 1e-5 of the largest
+    value."""
+    n, m, d = 70, 74, 320
+    q, k, v = _qkv(1, 1, n, m, d, 90)
+    b = _rand((1, n, m), 94) if with_bias else None
+    g_out = _rand((1, 1, n, d), 95)
+    want = _jax_flash_grads(q, k, v, b, g_out, True)
+    qt, kt, vt, gt = (torch.from_numpy(a) for a in (q, k, v, g_out))
+    bt = None if b is None else torch.from_numpy(b)
+    out, lse = fa.flash_attention_ref(qt, kt, vt, True, d ** -0.5, bt)
+    dq, ds = _dq_wide_model(qt, kt, vt, bt, out, lse, gt, True, d ** -0.5)
+    _close(dq, torch.from_numpy(np.array(want[0])), 1e-5)
+    if b is not None:
+        _close(fa._reduce_bias_groups(ds, bt),
+               torch.from_numpy(np.array(want[3])), 1e-5)
+
+
 @pytest.mark.parametrize('d', [264, 512, 520, 1024])
 def test_each_wide_head_names_its_kernel(d):
-    """Heads of 257 to WG_WIDE_MAX run the Hopper wide forward and dK/dV
-    and the wide dQ; wider heads all three wide kernels: the names
-    ``mma_kernel`` gives are kernels of the source."""
+    """Heads of 257 to WG_WIDE_MAX run the Hopper wide forward, dQ and
+    dK/dV; wider heads the three wide kernels: the names ``mma_kernel``
+    gives are kernels of the source."""
     src = (_build.SOURCE_DIR / 'flash_attention.cu').read_text()
     names = {kernel: fa.mma_kernel(kernel, d) for kernel in fa.MMA_KERNELS}
     wg = d <= fa.WG_WIDE_MAX
     assert names == {
-        'dq': 'bwd_dq_wide_mma_kernel',
+        'dq': 'bwd_dq_wg_wide_kernel' if wg else 'bwd_dq_wide_mma_kernel',
         'dkv': 'bwd_dkv_wg_wide_kernel' if wg else 'bwd_dkv_wide_mma_kernel',
         'fwd': 'fwd_wg_wide_kernel' if wg else 'fwd_wide_mma_kernel'}
     for name in names.values():

@@ -3,7 +3,7 @@
 variants, and against another checkout's kernels, on one NVIDIA GPU.
 
     python3 tools/flash_heads_probe.py [--baseline DIR] [--variants]
-                                       [--out DIR]
+                                       [--wide-row DH] [--out DIR]
 
 1. This tree's three 'mma' kernels alone at the attention step's shape,
    (17, heads, 4096, d) / 4100 keys bf16 not causal, at d x heads 32 x 8,
@@ -15,14 +15,20 @@ variants, and against another checkout's kernels, on one NVIDIA GPU.
 2. ``--variants``: copies of this tree's package with other geometries of
    the wide widths (``VARIANTS``: ``WgFwdGeo``, ``WgDqGeo`` and
    ``WgDkvGeo`` in ``csrc/flash_attention.cu``, the Hopper forward, dQ and
-   dK/dV at 128 and 256, and ``WgWideFwdGeo`` / ``WgWideDkvGeo``, the
-   Hopper wide forward and dK/dV at heads of 257 to 512), built
+   dK/dV at 128 and 256, and ``WgWideFwdGeo`` / ``WgWideDqGeo`` /
+   ``WgWideDkvGeo``, the Hopper wide kernels at heads of 257 to 512), built
    together into git-ignored folders under ``_proof/``, each checked
    against the plain versions at small shapes (bf16, ``chip_smoke``'s
    ``FLASH_TOL``) and timed in its own process, in turns, with ptxas's
    registers and spills: a variant of the widths 128 and 256 at 128 x 4
    and 256 x 2, one of the heads past 256 at 512 x 1 (``WIDE_SHAPES``).
    ``--only NAME[,NAME]`` keeps those variants.
+3. ``--wide-row DH``: ``chip_smoke.flash_width_rows`` at (17, 1, 4096, DH)
+   / 4100 keys bf16, in a process of its own: the three kernels a head of
+   DH runs, checked against the plain versions through the wrapper (one
+   launch of each), each timed beside its bound, the plain versions' and
+   SDPA's times (the backend that takes the head), printed as one JSON
+   line of rows (for a head over 512, the wide kernels' table row).
 
 Prints each reading with the card's name and power limit; ``--out`` also
 writes them to ``flash_heads_probe.txt``. Imports nothing of JAX.
@@ -76,6 +82,19 @@ VARIANTS = {
                            'exchange = true;'),),
     'wide_fwd_tile16': (('WgWideFwdGeo', 'tile = 32;', 'tile = 16;'),
                         ('WgWideFwdGeo', 'stages = 2;', 'stages = 4;')),
+    # the wide dQ with each warpgroup forming the whole S and dP (two commit
+    # groups, P formed while dP runs); with one stage of K, or one of K and
+    # two of V; on 16-key tiles with two stages of each, or four of K
+    'wide_dq_redundant': (('WgWideDqGeo', 'exchange = true;',
+                           'exchange = false;'),),
+    'wide_dq_k1': (('WgWideDqGeo', 'k_stages = 2;', 'k_stages = 1;'),),
+    'wide_dq_v2': (('WgWideDqGeo', 'k_stages = 2;', 'k_stages = 1;'),
+                   ('WgWideDqGeo', 'v_stages = 1;', 'v_stages = 2;')),
+    'wide_dq_tile16': (('WgWideDqGeo', 'tile = 32;', 'tile = 16;'),
+                       ('WgWideDqGeo', 'v_stages = 1;', 'v_stages = 2;')),
+    'wide_dq_tile16_k4': (('WgWideDqGeo', 'tile = 32;', 'tile = 16;'),
+                          ('WgWideDqGeo', 'k_stages = 2;', 'k_stages = 4;'),
+                          ('WgWideDqGeo', 'v_stages = 1;', 'v_stages = 2;')),
     # the wide dK/dV with each warpgroup forming the whole S (and dP), and
     # so on 32-query tiles, one stage (the partial sums' buffers would not
     # fit beside it)
@@ -144,7 +163,7 @@ def child(root: str, shapes, check: bool):
         if hasattr(fa, 'WG_WIDE_MAX'):
             res['resources'].update({
                 fa.mma_kernel(k, 512): fa.mma_attributes(k, 512)
-                for k in ('fwd', 'dkv')})
+                for k in fa.MMA_KERNELS})
     for heads, d in shapes:
         q, k, v, dout, _ = cs.flash_inputs(torch, dev, torch.bfloat16, B,
                                            heads, N, M, d, None, 99)
@@ -162,6 +181,21 @@ def child(root: str, shapes, check: bool):
         del q, k, v, dout
         torch.cuda.empty_cache()
     print(json.dumps(res), flush=True)
+
+
+def wide_row(dh: int):
+    """In a process of its own: flash_width_rows at one head of dh, as one
+    JSON line."""
+    sys.path.insert(0, REPO)
+    import torch
+    import chip_smoke as cs
+    from magvit2_pytorch_tpu_torch.ops.kernels import (
+        _build, flash_attention as fa)
+    _build.load_library()
+    cs.set_tf32(False)
+    rows = cs.flash_width_rows(torch, fa, torch.device('cuda', 0), cs.REPS,
+                               cs.nvidia_smi(), dh, 1)
+    print(json.dumps(rows), flush=True)
 
 
 def ptxas_summary(log: str):
@@ -195,6 +229,9 @@ def main():
                         help='also time VARIANTS at the wide widths')
     parser.add_argument('--only', default=None,
                         help='comma-separated VARIANTS to build and time')
+    parser.add_argument('--wide-row', type=int, default=None,
+                        help='also time the kernels of one head of this '
+                             'size at (17, 1, 4096, DH)')
     parser.add_argument('--out', default=None)
     parser.add_argument('--child', default=None, help=argparse.SUPPRESS)
     parser.add_argument('--shapes', default='all', help=argparse.SUPPRESS)
@@ -204,6 +241,8 @@ def main():
     pick = {'all': SHAPES, 'narrow': SHAPES[:2], 'wg': WG_SHAPES,
             'wg_wide': WIDE_SHAPES}
     if args.child:
+        if args.wide_row:
+            return wide_row(args.wide_row)
         return child(args.child, pick[args.shapes], args.check)
 
     sys.path.insert(0, REPO)
@@ -255,6 +294,9 @@ def main():
                 say(f'[flash variants] {name} at {kind}: '
                     f'{run(trees[name], "--shapes", kind, "--check")} on '
                     f'{smi}')
+    if args.wide_row:
+        say(f'[flash heads] head of {args.wide_row}: '
+            f'{run(REPO, "--wide-row", str(args.wide_row))} on {smi}')
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, 'flash_heads_probe.txt'), 'w') as f:
