@@ -84,11 +84,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    flash-attention kernels (forward, dQ, dK/dV): ragged and small with
    every option ((2, 2, 130, d) / 134 keys, d in 16, 32, 64, causal and
    not, no bias and each bias shape; output, lse and all four gradients),
-   every head of ``FLASH_HEADS`` (the wide launches at 264, 320, 512, 1024
-   also causal with a bias and with 70 keys, and at 264, 320, 512 with 70
-   keys causal with each bias; the Hopper kernels' heads
-   ``FLASH_WG_HEADS`` over several tiles with each bias, and with 70 keys
-   with each bias, causal and not),
+   every head of ``FLASH_HEADS`` (the wide launches at 264, 320, 512, 1024,
+   1032 also causal with a bias and with 70 keys, and at 264, 320, 512 with
+   70 keys causal with each bias; the paired forward and dK/dV's heads
+   ``FLASH_PAIR`` (520, 776, 1024) over several tiles with a (b, h, n, m)
+   bias, causal and not, and with 70 keys causal with each bias, and the
+   same over several tiles at ``FLASH_PAST_PAIR`` (1032, all three wide
+   ``mma.sync`` kernels in bf16); the Hopper
+   kernels' heads ``FLASH_WG_HEADS`` over several tiles with each bias, and
+   with 70 keys with each bias, causal and not),
    the ``'auto'`` gate's edge ((2, 8, 1024, 32) / 1028 keys, causal), the
    causal tile skip's edges (memory keys over more than a tile, fewer
    queries than a tile), each case's three kernels counted once each on
@@ -168,8 +172,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``attend`` on both sides of that threshold, a causal ``TimeAttention``
    through flash, and a rotary and a ``dim_head=12`` module (a head the
    block kernels do not take) against the CPU. Then the same step at the
-   wide heads of ``FLASH_WIDTH_STEPS`` (128 x 4, 256 x 2 and 512 x 1, the
-   last on the Hopper wide forward, dQ and dK/dV), each with
+   wide heads of ``FLASH_WIDTH_STEPS`` (128 x 4, 256 x 2, 512 x 1 on the
+   Hopper wide forward, dQ and dK/dV, and 1024 x 1 on the paired forward
+   and dK/dV, 2-block clusters, beside the wide dQ), each with
    1 / 1 / 1 flash launches and no other kernel, and the three kernels
    alone at its shape beside their bounds, the plain versions and SDPA
    forward and backward, with the SDPA backend that ran
@@ -395,12 +400,13 @@ KERNELS = {
         FLASH_SOURCE, 'magvit2_pytorch_tpu/ops/pallas/flash_attention.py:190'),
     'flash_attention_bwd_dkv': (
         FLASH_SOURCE, 'magvit2_pytorch_tpu/ops/pallas/flash_attention.py:249'),
-    # the same kernels at heads of 128 and 256, and at 512 on their wide
-    # launches (FLASH_WIDTH_ROWS)
+    # the same kernels at heads of 128 and 256, at 512 on the Hopper wide
+    # kernels and at 1024 (the paired forward and dK/dV, the wide dQ)
+    # (FLASH_WIDTH_ROWS)
     **{f'{kernel}_d{dh}': (FLASH_SOURCE,
                            f'magvit2_pytorch_tpu/ops/pallas/flash_attention.py'
                            f':{line}')
-       for dh in (128, 256, 512) for kernel, line in (
+       for dh in (128, 256, 512, 1024) for kernel, line in (
            ('flash_attention_fwd', 51), ('flash_attention_bwd_dq', 190),
            ('flash_attention_bwd_dkv', 249))},
     # the int8 path (phase 11) has no Pallas kernel: these replace XLA's
@@ -542,13 +548,19 @@ FLASH_FULL = dict(b=17, h=8, n=4096, m=4100, d=32)
 # phase 3's head sizes beside 16, 32 and 64: the padded kernel at every
 # width (12 through the wrapper's zero padding), the two wide widths and
 # the wide kernels (FLASH_WIDE: the output in column chunks of 256)
-FLASH_WIDE = (264, 320, 512, 1024)
+FLASH_WIDE = (264, 320, 512, 1024, 1032)
 FLASH_HEADS = (8, 12, 24, 40, 96, 128, 256, *FLASH_WIDE)
+# heads of the paired forward and dK/dV (513 to 1024): the first past 512
+# (rank 1's second warpgroup owns no column), a ragged one and the widest
+FLASH_PAIR = (520, 776, 1024)
+# a bf16 head past them: its forward, dQ and dK/dV on the wide mma.sync
+# kernels
+FLASH_PAST_PAIR = 1032
 # heads at the Hopper kernels' widths 128 and 256 (d < D at both)
 FLASH_WG_HEADS = (96, 160, 256)
 # the attention step at the wide heads (phase 7): (dim_head, heads) at the
 # flagship's inner width 512, and the kernels-line rows they give
-FLASH_WIDTH_STEPS = ((128, 4), (256, 2), (512, 1))
+FLASH_WIDTH_STEPS = ((128, 4), (256, 2), (512, 1), (1024, 1))
 # the three kernels' earlier times at the step's shape, (17, heads, 4096,
 # dh) / 4100 keys bf16, before each was redesigned for Hopper, on an H100
 # 80GB HBM3 at 700 W (PERF.md section 6, rows 6-8 at 128 x 4 and 256 x 2
@@ -558,8 +570,10 @@ FLASH_WIDTH_STEPS = ((128, 4), (256, 2), (512, 1))
 # last run before its redesign; at 512 the forward and dK/dV as the wide
 # mma.sync kernels read when that head was first ported, dQ as its wide
 # mma.sync kernel read in the last run before its redesign. The log prints
-# them beside this run's; the kernels line holds only what this run
-# measured
+# them beside this run's; at 1024 the forward and dK/dV as the wide
+# mma.sync kernels read in the last run before their redesign for Hopper,
+# and dQ as its wide kernel read there (tools/flash_heads_probe.py
+# --wide-row 1024). The kernels line holds only what this run measured
 FLASH_EARLIER_MS = {128: {'flash_attention_fwd': 2.6198,
                           'flash_attention_bwd_dq': 3.6079,
                           'flash_attention_bwd_dkv': 4.9362},
@@ -568,7 +582,10 @@ FLASH_EARLIER_MS = {128: {'flash_attention_fwd': 2.6198,
                           'flash_attention_bwd_dkv': 8.3523},
                     512: {'flash_attention_fwd': 9.7298,
                           'flash_attention_bwd_dq': 24.7876,
-                          'flash_attention_bwd_dkv': 39.7851}}
+                          'flash_attention_bwd_dkv': 39.7851},
+                    1024: {'flash_attention_fwd': 33.1910,
+                           'flash_attention_bwd_dq': 108.0625,
+                           'flash_attention_bwd_dkv': 167.5528}}
 FLASH_WIDTH_ROWS = {f'{kernel}_d{dh}': (kernel, f'attention_step_d{dh}')
                     for dh, _ in FLASH_WIDTH_STEPS for kernel in
                     ('flash_attention_fwd', 'flash_attention_bwd_dq',
@@ -3034,12 +3051,14 @@ def flash_mma_resources(fa):
     """Registers, spills, shared memory and blocks an SM of the three 'mma'
     kernels at every compiled width, exact and padded (at 128 and 256 one
     kernel takes every head: the Hopper forward, dQ and dK/dV), and of the
-    kernels past 256 (the Hopper wide kernels to 512, the wide kernels
-    above), as the CUDA
+    kernels past 256 (the Hopper wide kernels to 512, the paired forward
+    and dK/dV to 1024 beside the wide dQ, the wide kernels above), as the
+    CUDA
     runtime reports them (the dynamic shared memory is
     what each launcher sets), with ptxas's lines from this run's build (none
     when the library came from the cache), and the 'f32' kernels' ptxas
-    lines. Fails on a spill, and on a setmaxnreg that ptxas ignored."""
+    lines. Fails on a spill, on a setmaxnreg that ptxas ignored, and on a
+    paired kernel of which the card cannot hold one 2-block cluster."""
     from magvit2_pytorch_tpu_torch.ops.kernels import _build
     build_log = _build.build_info.get('log', '')
     ignored = [ln.strip() for ln in build_log.splitlines()
@@ -3062,7 +3081,8 @@ def flash_mma_resources(fa):
                 log(f'[ptxas] {cuda_name}<{w}>: {"; ".join(ptxas)}; on the '
                     f'card {attrs}')
     for kernel, width in itertools.product(
-            FLASH_MMA, (fa.NARROW_MAX + 8, fa.WG_WIDE_MAX + 8)):
+            FLASH_MMA, (fa.NARROW_MAX + 8, fa.WG_WIDE_MAX + 8,
+                        fa.WG_PAIR_MAX + 8)):
         cuda_name = fa.mma_kernel(kernel, width)    # every head > 256
         if cuda_name in report:
             continue
@@ -3071,6 +3091,9 @@ def flash_mma_resources(fa):
         spills = spill_lines(ptxas)
         if spills or attrs['local_bytes']:
             fail(f'{cuda_name} spills: {spills}, {attrs}')
+        if attrs['cluster_size'] > 1 and not attrs['resident_clusters'] >= 1:
+            fail(f'{cuda_name}: no cluster of {attrs["cluster_size"]} '
+                 f'blocks fits the card: {attrs}')
         report[cuda_name] = dict(ptxas=ptxas, **attrs)
         log(f'[ptxas] {cuda_name}: {"; ".join(ptxas)}; on the card {attrs}')
     for name in FLASH_F32:
@@ -3116,13 +3139,16 @@ def flash_invariants(torch, fa, dev):
     dv and dS, and a batch of two against its second element alone reads
     exactly 0, causal with an (h, n, m) bias, both dtypes: (2, 8, 1024, 32)
     / 1028 keys, (2, 4, 256, 128) / 128 keys (the first 128 rows see no
-    key), (2, 2, 256, 256) / 260 keys and the wide kernels' (2, 2, 256, 512)
-    / 200 keys (the first 56 rows see no key)."""
+    key), (2, 2, 256, 256) / 260 keys and the wide heads' (2, 2, 256, 512),
+    (2, 2, 256, 1024) and (2, 2, 256, 1032) / 200 keys (the first 56 rows
+    see no key; in bf16 the paired forward and dK/dV at 1024, the three
+    wide mma.sync kernels at 1032)."""
     names = ('out', 'lse', 'dq', 'dk', 'dv', 'dS')
     out = {}
     for (b, h, n, m, d), (name, dtype) in itertools.product(
             ((2, 8, 1024, 1028, 32), (2, 4, 256, 128, 128),
-             (2, 2, 256, 260, 256), (2, 2, 256, 200, 512)),
+             (2, 2, 256, 260, 256), (2, 2, 256, 200, 512),
+             (2, 2, 256, 200, 1024), (2, 2, 256, 200, 1032)),
             (('float32', torch.float32), ('bfloat16', torch.bfloat16))):
         q, k, v, dout, bias = flash_inputs(torch, dev, dtype, b, h, n, m, d,
                                            'hnm', 77)
@@ -3148,7 +3174,8 @@ def flash_invariants(torch, fa, dev):
                                           batch_boundary=boundary)
     log(f'[kernel] flash forward and backward, causal, (h, n, m) bias, '
         f'(b, h, n, d) / m keys (2, 8, 1024, 32) / 1028, (2, 4, 256, 128) / '
-        f'128, (2, 2, 256, 256) / 260, (2, 2, 256, 512) / 200: two calls '
+        f'128, (2, 2, 256, 256) / 260, (2, 2, 256, 512) / 200, '
+        f'(2, 2, 256, 1024) / 200, (2, 2, 256, 1032) / 200: two calls '
         f'bit-identical '
         f'({", ".join(names)}) and a batch of two against its second element '
         f'alone {out}')
@@ -3159,13 +3186,13 @@ def flash_dead_row(torch, fa, dev):
     """A row whose bias is -inf at every key has no visible finite score:
     on both routes, causal and not, the three kernels must give finite out,
     lse, dq, dk, dv and dS, and 0 in that row's dq and dS. (2, 2, 130, d)
-    / 134 keys with an (h, n, m) bias, row 7 of head 0 dead, d = 32 and
-    512 (the wide kernels)."""
+    / 134 keys with an (h, n, m) bias, row 7 of head 0 dead, d = 32, 512
+    and 1024 (the wide heads)."""
     b, h, n, m, row = 2, 2, 130, 134, 7
     names = ('out', 'lse', 'dq', 'dk', 'dv', 'dS')
     for (name, dtype), d, causal in itertools.product(
             (('float32', torch.float32), ('bfloat16', torch.bfloat16)),
-            (32, 512), (False, True)):
+            (32, 512, 1024), (False, True)):
         q, k, v, dout, bias = flash_inputs(torch, dev, dtype, b, h, n, m,
                                            d, 'hnm', 5)
         bias[0, row] = float('-inf')
@@ -3182,7 +3209,7 @@ def flash_dead_row(torch, fa, dev):
         if dead != 0:
             fail(f'{what}: its dq and dS read {dead}, not 0')
     log(f'[kernel] flash kernels, ({b}, {h}, {n}, d) / {m} keys, d in 32, '
-        f'512, with row {row} of head 0 biased -inf at every key, float32 '
+        f'512, 1024, with row {row} of head 0 biased -inf at every key, float32 '
         f'and bf16, causal and not: out, lse, dq, dk, dv and dS finite, that '
         f'row\'s dq and dS exactly 0')
 
@@ -3218,6 +3245,18 @@ def phase_flash_kernels(torch, dev, reps, smi):
     # see no key and the key tiles the causal skip passes over
     cases += [(2, 2, 130, 70, d, True, bias) for d in FLASH_WIDE[:3]
               for bias in ('nm', 'hnm', 'bhnm')]
+    # the paired forward and dK/dV (heads of 513 to 1024, dQ on the wide
+    # kernel): a ragged head and the widest over several of their row
+    # blocks, key blocks and tiles with a (b, h, n, m) bias, causal and
+    # not, and causal with fewer keys than queries and each bias (both
+    # blocks of a pair take the same tiles, or the hand-off would hang)
+    cases += [(2, 2, 300, 260, d, causal, 'bhnm') for d in FLASH_PAIR
+              for causal in (False, True)]
+    cases += [(2, 2, 130, 70, d, True, bias) for d in FLASH_PAIR
+              for bias in ('nm', 'hnm', 'bhnm')]
+    # ... and a head past the pair's, on the wide mma.sync kernels in bf16
+    cases += [(2, 2, 300, 260, FLASH_PAST_PAIR, causal, 'bhnm')
+              for causal in (False, True)]
     # fewer keys than queries: with causal the first 60 rows see no key
     cases += [(2, 2, 130, 70, d, causal, None)
               for d in (32, 128) for causal in (False, True)]
@@ -3270,7 +3309,9 @@ def phase_flash_kernels(torch, dev, reps, smi):
             f'/ 70 keys, d in {FLASH_WG_HEADS}, causal and not, with each '
             f'bias; (2, 2, 300, d) / 260 keys, d in {FLASH_WIDE[:3]}, '
             f'causal and not, with a (b, h, n, m) bias, and / 70 keys '
-            f'causal with each bias; {name}, each '
+            f'causal with each bias; the same at d in {FLASH_PAIR}, and '
+            f'over several tiles at d = {FLASH_PAST_PAIR}; '
+            f'{name}, each '
             f'kernel on the '
             f'{fa.flash_route(dict(dtypes)[name], 32)!r} route: worst '
             f'error over the largest value of the reference (lse: max abs '

@@ -33,7 +33,9 @@
 // over 256" below): its output in column chunks of 256, one a block, its
 // scores summed over column slices; on the 'mma' route a head of 257 to 512
 // runs its three kernels on the Hopper wide kernels instead (see "heads of
-// 257 to 512"), two warpgroups splitting its output columns.
+// 257 to 512"), two warpgroups splitting its output columns, and a head of
+// 513 to 1024 its forward and dK/dV on two such blocks in a cluster, which
+// split the head (see "heads of 513 to 1024").
 //
 // Two routes, one per dtype: ops/kernels/flash_attention.py flash_route
 // picks it for all three kernels and passes it in, and the entry points
@@ -2384,33 +2386,233 @@ __device__ __forceinline__ void exchange_in_stage(float (&a)[N],
   fence_proxy_async();
 }
 
-__global__ void __launch_bounds__(kWgThreads, 1)
-    fwd_wg_wide_kernel(const __grid_constant__ CUtensorMap map_q,
-                       const __grid_constant__ CUtensorMap map_k,
-                       const __grid_constant__ CUtensorMap map_v,
-                       const bf16* __restrict__ v,
-                       const bf16* __restrict__ bias, bf16* __restrict__ out,
-                       float* __restrict__ lse, int n, int m, int d,
-                       int q_tiles, int bias_groups, int causal,
-                       float scale) {
+// ---- heads of 513 to 1024: the Hopper wide blocks in 2-block clusters -----
+//
+// A bf16 head of 513 to 1024 values runs its forward and dK/dV on the
+// bodies of the wide forward and dK/dV below, built for clusters of C =
+// kPairCluster blocks (fwd_wg_pair_kernel, bwd_dkv_wg_pair_kernel; C = 1
+// is the wide block alone); its dQ stays on bwd_dq_wide_mma_kernel. One
+// block cannot own such a head: 64 rows x 1024 float32 output accumulators
+// are the whole register file of an SM, and Q of 64 rows beside one K and
+// one V tile of 32 keys is past kSmemMax. So the two blocks of a cluster
+// (a cluster launch through cudaLaunchKernelEx) split the head: cluster
+// rank r owns head columns [kWgWideMax r, kWgWideMax (r + 1)), which its
+// TMA boxes load (zeros past d) and its output takes, and is the wide
+// block on them, with its geometry (WgWideFwdGeo, WgWideDkvGeo) and an
+// inbox for its peer's partial scores (WgPairFwdGeo, WgPairDkvGeo).
+// The scores (and dP) are sums over the whole head: each block forms the
+// partial sum over its own columns as the wide block forms its scores,
+// pushes one copy into its peer's shared memory and adds the peer's copy
+// from its own: own + peer in one block, peer + own in the other, which
+// a + b == b + a makes bit for bit alike, so all four warpgroups run the
+// same softmax on the same scores: the same row max, P, dS and lse.
+// The hand-off (PairInbox): `buffers` inbox buffers of `pfloats` floats a
+// block, element e of consumer thread tid at e * 128 + tid. The consumer
+// threads write buffer b of the peer by st.async (an address from mapa),
+// each store completing its bytes on the peer's pfull[b] mbarrier, which
+// the peer's thread 0 arms with the bytes it expects; the peer waits on
+// pfull[b], adds the buffer, and once all its consumer threads have read
+// it (named barrier kPairRead) its thread 0 arrives on the writer's
+// pread[b] (release at cluster scope), which the writer waits on before it
+// writes buffer b again. The stores neither wait nor fence: in turns on the
+// card, st.shared::cluster with a release arrival from every warp took as
+// long again as the kernel without a hand-off (PERF.md section 6). The
+// forward sends tile t + 1's partial before it adds the peer's of tile t
+// (two buffers), so the peer's copy has a tile's time to arrive; dK/dV
+// sends and adds in step (one buffer). Only the consumer warps take part:
+// the producer warpgroup never waits on the peer. Both blocks take the
+// same tiles (the causal skip, the masked tiles and the rows that see no
+// key depend on the rows or keys a cluster owns, not on its rank), so
+// every push meets its wait. A cluster barrier replaces the block barrier
+// after the mbarriers are initialised (no remote arrival before), and
+// another ends the kernel: no block leaves while its peer may still write
+// or arrive in its shared memory. Rank 0 alone writes the forward's lse;
+// the rows that see no key sum v (dO in dV) on each block's own columns.
+// The products against the narrow decomposition's: the forward 1.5x (S in
+// both warpgroups), dK/dV 5/4, as at 512, against 2.5x and about 3.5x on
+// the wide kernels, whose four column chunks each form the whole S.
+
+constexpr int kWgPairMax = 2 * kWgWideMax;  // the widest head here
+constexpr int kPairCluster = 2;             // blocks a cluster
+
+// A block of the paired forward: the wide forward's block
+// (ops/kernels/flash_attention.py WG_WIDE_FWD_*) and the inbox buffers of
+// the peer's partial S (WG_PAIR_FWD_BUFFERS; two: a block sends tile
+// t + 1's partial before it adds the peer's of tile t)
+struct WgPairFwdGeo : WgWideFwdGeo {
+  static constexpr int buffers = 2;
+  static constexpr int pfloats = rows * tile;     // an inbox buffer
+  static constexpr size_t bytes =
+      WgWideFwdGeo::bytes + sizeof(float) * buffers * pfloats;
+  static_assert(bytes <= kSmemMax, "paired Hopper forward shared memory");
+};
+
+// A block of the paired dK/dV: the wide dK/dV's block (WG_WIDE_DKV_*) and
+// the inbox buffers of the peer's partial S^T and dP^T
+// (WG_PAIR_DKV_BUFFERS; one fits beside the ring)
+struct WgPairDkvGeo : WgWideDkvGeo {
+  static constexpr int buffers = 1;
+  static constexpr int pfloats = 2 * keys * tile;  // an inbox buffer
+  static constexpr size_t bytes =
+      WgWideDkvGeo::bytes + sizeof(float) * buffers * pfloats;
+  static_assert(bytes <= kSmemMax, "paired Hopper dK/dV shared memory");
+};
+
+constexpr int kPairRead = 8;  // named barrier: the consumers read the inbox
+
+// Into the peer's inbox buffer at `dst`: a's elements, half from each
+// warpgroup, each completing its bytes on the peer's pfull barrier at `full`
+// (cluster addresses)
+template <int N>
+__device__ __forceinline__ void pair_send(unsigned dst, unsigned full,
+                                          const float (&a)[N], int wg,
+                                          int tid) {
+#pragma unroll
+  for (int e = 0; e < N; ++e)
+    if ((2 * e < N) == (wg == 0))
+      st_async(dst + 4u * (e * 128 + tid), a[e], full);
+}
+
+// the same for two accumulators: a from warpgroup 0, b from warpgroup 1
+template <int N>
+__device__ __forceinline__ void pair_send(unsigned dst, unsigned full,
+                                          const float (&a)[N],
+                                          const float (&b)[N], int wg,
+                                          int tid) {
+#pragma unroll
+  for (int e = 0; e < N; ++e)
+    st_async(dst + 4u * ((wg * N + e) * 128 + tid), wg == 0 ? a[e] : b[e],
+             full);
+}
+
+// Once this block's pfull barrier `full` has completed the phase of
+// `parity` (thread 0 arms it with the bytes the peer sends), a += the
+// peer's copy in this block's inbox buffer `src`; then, once every consumer
+// thread has read it, thread 0 arrives on the peer's pread barrier at
+// `read` (a cluster address)
+template <int N>
+__device__ __forceinline__ void pair_receive(float (&a)[N], const float* src,
+                                             uint64_t* full, unsigned parity,
+                                             unsigned read, int tid) {
+  if (threadIdx.x == 0) mbar_expect_tx(full, 4 * 128 * N);
+  mbar_wait_cluster(full, parity);
+#pragma unroll
+  for (int e = 0; e < N; ++e) a[e] += src[e * 128 + tid];
+  bar_sync(kPairRead, kWgConsumers);
+  if (threadIdx.x == 0) mbar_arrive_cluster(read);
+}
+
+// the same for two accumulators: b += the buffer's second half
+template <int N>
+__device__ __forceinline__ void pair_receive(float (&a)[N], float (&b)[N],
+                                             const float* src,
+                                             uint64_t* full, unsigned parity,
+                                             unsigned read, int tid) {
+  if (threadIdx.x == 0) mbar_expect_tx(full, 2 * 4 * 128 * N);
+  mbar_wait_cluster(full, parity);
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    a[e] += src[e * 128 + tid];
+    b[e] += src[(N + e) * 128 + tid];
+  }
+  bar_sync(kPairRead, kWgConsumers);
+  if (threadIdx.x == 0) mbar_arrive_cluster(read);
+}
+
+// The inbox of a pair: B buffers of P floats in this block's shared memory
+// with their barriers pfull and pread, and the same in the peer, mapped;
+// B = 0: a block without a peer, which maps nothing
+template <int B, int P>
+struct PairInbox {
+  const float* mine;
+  uint64_t* full;
+  uint64_t* read;
+  unsigned peer, peer_full, peer_read;  // cluster addresses
+
+  __device__ __forceinline__ PairInbox(const float* inbox, uint64_t* pfull,
+                                       uint64_t* pread, unsigned rank)
+      : mine(inbox), full(pfull), read(pread),
+        peer(B ? cluster_map(inbox, rank ^ 1u) : 0u),
+        peer_full(B ? cluster_map(pfull, rank ^ 1u) : 0u),
+        peer_read(B ? cluster_map(pread, rank ^ 1u) : 0u) {}
+
+  // a (and b) to the peer at step i: the peer's buffer i % B is written
+  // once the peer has read its step i - B
+  template <int N>
+  __device__ __forceinline__ void send(int i, const float (&a)[N], int wg,
+                                       int tid) {
+    const int k = i % B;
+    if (i >= B) mbar_wait_cluster(&read[k], (i / B - 1) & 1);
+    pair_send(peer + 4u * k * P, peer_full + 8u * k, a, wg, tid);
+  }
+  template <int N>
+  __device__ __forceinline__ void send(int i, const float (&a)[N],
+                                       const float (&b)[N], int wg,
+                                       int tid) {
+    const int k = i % B;
+    if (i >= B) mbar_wait_cluster(&read[k], (i / B - 1) & 1);
+    pair_send(peer + 4u * k * P, peer_full + 8u * k, a, b, wg, tid);
+  }
+  // the peer's step i added to a (and b)
+  template <int N>
+  __device__ __forceinline__ void receive(int i, float (&a)[N], int tid) {
+    const int k = i % B;
+    pair_receive(a, mine + k * P, &full[k], (i / B) & 1, peer_read + 8u * k,
+                 tid);
+  }
+  template <int N>
+  __device__ __forceinline__ void receive(int i, float (&a)[N],
+                                          float (&b)[N], int tid) {
+    const int k = i % B;
+    pair_receive(a, b, mine + k * P, &full[k], (i / B) & 1,
+                 peer_read + 8u * k, tid);
+  }
+};
+
+// the inbox barriers: pfull completes on its local arming and the peer's
+// bytes, pread on one arrival from the peer
+template <int B>
+__device__ __forceinline__ void pair_init(uint64_t* pfull, uint64_t* pread) {
+  for (int b = 0; b < B; ++b) {
+    mbar_init(&pfull[b], 1);
+    mbar_init(&pread[b], 1);
+  }
+}
+
+// The wide forward of one block: alone (C = 1) or rank r of a pair (C =
+// kPairCluster) on head columns [kWgWideMax r, kWgWideMax (r + 1))
+template <int C>
+__device__ __forceinline__ void fwd_wg_block(
+    const CUtensorMap* map_q, const CUtensorMap* map_k,
+    const CUtensorMap* map_v, const bf16* __restrict__ v,
+    const bf16* __restrict__ bias, bf16* __restrict__ out,
+    float* __restrict__ lse, int n, int m, int d, int q_tiles,
+    int bias_groups, int causal, float scale) {
   typedef WgWideFwdGeo G;
+  typedef WgPairFwdGeo PG;  // a pair's inbox
+  constexpr bool pair = C > 1;
   constexpr int T = G::tile, NB = T / 8, H = kWgWideHalf;
   // the panels of a warpgroup's partial S
   constexpr int PW = G::exchange ? G::panels / 2 : G::panels;
   extern __shared__ unsigned char wg_smem[];
   __shared__ __align__(8) uint64_t qbar, kfull[G::stages],
-      kempty[G::stages], vfull[G::stages], vempty[G::stages];
+      kempty[G::stages], vfull[G::stages], vempty[G::stages],
+      pfull[PG::buffers], pread[PG::buffers];
   unsigned char* qs = align1024(wg_smem);
   unsigned char* ks = qs + G::panels * G::q_panel;
   unsigned char* vs = ks + G::stages * G::kv_tile;
   float* xs = reinterpret_cast<float*>(vs + G::stages * G::kv_tile);
-  float* vsum = xs + G::xfloats;
+  float* inbox = xs + G::xfloats;  // the peer's partial S
+  float* vsum = inbox + (pair ? PG::buffers * PG::pfloats : 0);
 
-  const int bh = blockIdx.x / q_tiles;
-  const int q0 = (q_tiles - 1 - blockIdx.x % q_tiles) * G::rows;
+  const unsigned rank = pair ? cluster_rank() : 0u;
+  const int cb = G::D * rank;        // the block's first head column
+  const unsigned block = blockIdx.x / C;  // the cluster's index
+  const int bh = block / q_tiles;
+  const int q0 = (q_tiles - 1 - block % q_tiles) * G::rows;
   const int offset = m - n;
   // key tiles 0 .. tiles - 1: with causal, up to the last one the block's
-  // last row sees (dq_key_tiles)
+  // last row sees (dq_key_tiles); the same in both blocks of a pair
   const int k_end = causal ? min(m, min(q0 + G::rows, n) + offset) : m;
   const int tiles = (max(k_end, 0) + T - 1) / T;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -2424,34 +2626,39 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       mbar_init(&kempty[s], kWgConsumers / 32);  // a consumer warp each
       mbar_init(&vempty[s], kWgConsumers / 32);
     }
+    if constexpr (pair) pair_init<PG::buffers>(pfull, pread);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if (blind) {  // their mean of v, summed in the K ring before it fills
+  if (blind) {  // their mean of v on the block's columns, in the K ring
     column_sum<G::D, kWgConsumers>(vsum, reinterpret_cast<float*>(ks),
-                                   v + (size_t)bh * m * d, m, d);
+                                   v + (size_t)bh * m * d + cb, m,
+                                   pair ? min(d - cb, G::D) : d, d);
     fence_proxy_async();
   }
-  __syncthreads();
+  if constexpr (pair)
+    cluster_sync();
+  else
+    __syncthreads();
 
   if (warp >= kWgConsumers / 32) {  // the producer warpgroup
     reg_dealloc<kWgProducerRegs>();
     if (warp == kWgConsumers / 32 && lane == 0) {
       mbar_expect_tx(&qbar, G::panels * G::q_panel);
       for (int p = 0; p < G::panels; ++p)
-        tma_load_3d(qs + p * G::q_panel, &map_q, &qbar, p * kSw128Cols, q0,
-                    bh);
+        tma_load_3d(qs + p * G::q_panel, map_q, &qbar, cb + p * kSw128Cols,
+                    q0, bh);
       for (int t = 0; t < tiles; ++t) {
         const int s = t % G::stages, use = t / G::stages;
         if (use > 0) mbar_wait(&kempty[s], (use - 1) & 1);
         mbar_expect_tx(&kfull[s], G::kv_tile);
         for (int p = 0; p < G::panels; ++p)
-          tma_load_3d(ks + s * G::kv_tile + p * G::kv_panel, &map_k,
-                      &kfull[s], p * kSw128Cols, t * T, bh);
+          tma_load_3d(ks + s * G::kv_tile + p * G::kv_panel, map_k,
+                      &kfull[s], cb + p * kSw128Cols, t * T, bh);
         if (use > 0) mbar_wait(&vempty[s], (use - 1) & 1);
         mbar_expect_tx(&vfull[s], G::kv_tile);
         for (int p = 0; p < G::panels; ++p)
-          tma_load_3d(vs + s * G::kv_tile + p * G::kv_panel, &map_v,
-                      &vfull[s], p * kSw128Cols, t * T, bh);
+          tma_load_3d(vs + s * G::kv_tile + p * G::kv_panel, map_v,
+                      &vfull[s], cb + p * kSw128Cols, t * T, bh);
       }
     }
   } else {  // two consumer warpgroups on the same 64 rows
@@ -2460,7 +2667,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int tid = threadIdx.x % 128;
     const int w0 = q0 + 16 * wq;  // the warp's first row
     const int ra = w0 + g;
-    const int c0 = H * wg;        // the warpgroup's first output column
+    const int c0 = H * wg;        // the warpgroup's first column of the block
     const int p0 = G::exchange ? PW * wg : 0;  // its first score panel
     const bf16* bb =
         bias ? bias + (size_t)(bh % bias_groups) * n * m : nullptr;
@@ -2471,19 +2678,21 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const bool pre = bb != nullptr || !(scale > 0.f);
     const float mul = pre ? 1.f : scale_log2;
     const uint64_t qdesc = sw128_desc(qs + p0 * G::q_panel);
+    PairInbox<pair ? PG::buffers : 0, PG::pfloats> box(inbox, pfull, pread,
+                                                        rank);
     float o[H / 2];
     zero_acc(o);
     // running max (base 2) and the lane's part of l, of rows ra and ra + 8
     float mx[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
     float sc[T / 2];          // S, then P in float32
+    float sn[T / 2];          // a pair's next partial S
     unsigned pa[T / 16][4];   // P as the A operand of P V
-
-    mbar_wait(&qbar, 0);
-    for (int t = 0; t < tiles; ++t) {
-      const int s = t % G::stages, parity = (t / G::stages) & 1;
-      const int k0 = t * T;
-      zero_acc(sc);
-      mbar_wait(&kfull[s], parity);
+    // the block's S (a pair's partial S) of tile t into acc, K's stage
+    // given back; a pair sends it to the peer
+    auto scores = [&](int t, float (&acc)[T / 2]) {
+      const int s = t % G::stages;
+      zero_acc(acc);
+      mbar_wait(&kfull[s], (t / G::stages) & 1);
       wgmma_fence();
       const uint64_t kdesc =
           sw128_desc(ks + s * G::kv_tile + p0 * G::kv_panel);
@@ -2491,15 +2700,29 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       for (int p = 0; p < PW; ++p)
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_bf16(sc, qdesc + ((p * G::q_panel) >> 4) + 2 * kk,
+          wgmma_bf16(acc, qdesc + ((p * G::q_panel) >> 4) + 2 * kk,
                      kdesc + ((p * G::kv_panel) >> 4) + 2 * kk);
       wgmma_commit();
       wgmma_wait<0>();
-      fence_acc(sc);
+      fence_acc(acc);
       __syncwarp();
       if (lane == 0) mbar_arrive(&kempty[s]);
       if constexpr (G::exchange)
-        exchange_sum(sc, xs, G::rows * T, wg, tid, t == 0, t + 1 == tiles);
+        exchange_sum(acc, xs, G::rows * T, wg, tid, t == 0, t + 1 == tiles);
+      if constexpr (pair) box.send(t, acc, wg, tid);
+    };
+
+    mbar_wait(&qbar, 0);
+    if (pair && tiles > 0) scores(0, sc);
+    for (int t = 0; t < tiles; ++t) {
+      const int s = t % G::stages, parity = (t / G::stages) & 1;
+      const int k0 = t * T;
+      if constexpr (pair) {
+        if (t + 1 < tiles) scores(t + 1, sn);  // sent a tile ahead
+        box.receive(t, sc, tid);               // S = own + peer
+      } else {
+        scores(t, sc);
+      }
 
       // the online softmax: element 4j + e is (row ra + 8 (e / 2), key k0 +
       // 8j + 2tq + e % 2); uniform branches: the bias, and the element test
@@ -2570,9 +2793,13 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       keep_live(pa);
       __syncwarp();
       if (lane == 0) mbar_arrive(&vempty[s]);
+      if constexpr (pair)
+#pragma unroll
+        for (int e = 0; e < T / 2; ++e) sc[e] = sn[e];
     }
 
     float* lse_rows = lse + (size_t)bh * n;
+    const bool writes_lse = rank == 0 && wg == 0 && tq == 0;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const float sum = fmaxf(quad_sum(l[h]), 1e-30f);
@@ -2583,7 +2810,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         o[4 * j + 2 * h + 1] *= inv;
       }
       const int row = ra + 8 * h;
-      if (wg == 0 && tq == 0 && row < n)
+      if (writes_lse && row < n)
         lse_rows[row] = mx[h] == -INFINITY
                             ? kMasked + logf(sum)
                             : fmaf(mx[h] * mul, kLn2, logf(sum));
@@ -2599,16 +2826,41 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           o[4 * j + 2 * h] = vsum[c0 + 8 * j + 2 * tq] * inv_m;
           o[4 * j + 2 * h + 1] = vsum[c0 + 8 * j + 2 * tq + 1] * inv_m;
         }
-        if (wg == 0 && tq == 0) lse_rows[row] = kMasked + logf((float)m);
+        if (writes_lse) lse_rows[row] = kMasked + logf((float)m);
       }
     }
-    store_acc<H>(out + (size_t)bh * n * d + c0, o, ra, n, 1.f, d - c0, d);
+    store_acc<H>(out + (size_t)bh * n * d + cb + c0, o, ra, n, 1.f,
+                 d - cb - c0, d);
   }
+  if constexpr (pair) cluster_sync();  // the peer may still write here
 }
 
-// dK/dV of one block: DK false forms dV (grid z 0), true dK (grid z 1)
-template <bool DK>
-__device__ __forceinline__ void dkv_wg_wide(
+#define MV2_FWD_WG_PARAMS                                                 \
+  const __grid_constant__ CUtensorMap map_q,                              \
+      const __grid_constant__ CUtensorMap map_k,                          \
+      const __grid_constant__ CUtensorMap map_v, const bf16 *__restrict__ v, \
+      const bf16 *__restrict__ bias, bf16 *__restrict__ out,              \
+      float *__restrict__ lse, int n, int m, int d, int q_tiles,          \
+      int bias_groups, int causal, float scale
+#define MV2_FWD_WG_ARGS                                                    \
+  &map_q, &map_k, &map_v, v, bias, out, lse, n, m, d, q_tiles, bias_groups, \
+      causal, scale
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+    fwd_wg_wide_kernel(MV2_FWD_WG_PARAMS) {
+  fwd_wg_block<1>(MV2_FWD_WG_ARGS);
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+    fwd_wg_pair_kernel(MV2_FWD_WG_PARAMS) {
+  fwd_wg_block<kPairCluster>(MV2_FWD_WG_ARGS);
+}
+
+// The wide dK/dV of one block, alone (C = 1) or rank r of a pair on head
+// columns [kWgWideMax r, kWgWideMax (r + 1)): DK false forms dV (grid z 0),
+// true dK (grid z 1)
+template <bool DK, int C>
+__device__ __forceinline__ void dkv_wg_block(
     const CUtensorMap* map_q, const CUtensorMap* map_k,
     const CUtensorMap* map_v, const CUtensorMap* map_do,
     const bf16* __restrict__ bias, const bf16* __restrict__ dout,
@@ -2616,23 +2868,31 @@ __device__ __forceinline__ void dkv_wg_wide(
     bf16* __restrict__ grad, int n, int m, int d, int k_tiles,
     int bias_groups, int causal, float scale) {
   typedef WgWideDkvGeo G;
+  typedef WgPairDkvGeo PG;  // a pair's inbox
+  constexpr bool pair = C > 1;
   constexpr int T = G::tile, H = kWgWideHalf;
   constexpr int PW = G::exchange ? G::panels / 2 : G::panels;
   extern __shared__ unsigned char wg_smem[];
-  __shared__ __align__(8) uint64_t kvbar, full[G::stages], empty[G::stages];
+  __shared__ __align__(8) uint64_t kvbar, full[G::stages], empty[G::stages],
+      pfull[PG::buffers], pread[PG::buffers];
   unsigned char* kv = align1024(wg_smem);  // K's boxes, then V's
   unsigned char* ring = kv + 2 * G::panels * G::k_panel;  // a stage: Q, dO
   // a stage's lse (base 2) and delta
   float* rows_s = reinterpret_cast<float*>(ring + 2 * G::stages * G::q_tile);
   float* xs = rows_s + 2 * G::stages * T;  // the partial sums
-  float* dosum = xs + G::xfloats;
+  float* inbox = xs + G::xfloats;          // the peer's
+  float* dosum = inbox + (pair ? PG::buffers * PG::pfloats : 0);
 
-  const int bh = blockIdx.x / k_tiles;
-  const int k0 = (blockIdx.x % k_tiles) * G::keys;
+  const unsigned rank = pair ? cluster_rank() : 0u;
+  const int cb = G::D * rank;        // the block's first head column
+  const unsigned block = blockIdx.x / C;  // the cluster's index
+  const int bh = block / k_tiles;
+  const int k0 = (block % k_tiles) * G::keys;
   const int offset = m - n;
   const int blind = causal ? n - m : 0;  // rows < blind see no key
   // query tiles first .. tiles - 1: with causal, from the first whose last
-  // row sees the block's first key (dkv_query_tiles)
+  // row sees the block's first key (dkv_query_tiles); the same in both
+  // blocks of a pair
   const int first = causal ? max(0, k0 - offset) / T : 0;
   const int tiles = (n + T - 1) / T;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -2643,34 +2903,44 @@ __device__ __forceinline__ void dkv_wg_wide(
       mbar_init(&full[s], 32);                   // the producer's lanes
       mbar_init(&empty[s], kWgConsumers / 32);  // a consumer warp each
     }
+    if constexpr (pair) pair_init<PG::buffers>(pfull, pread);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if (!DK && blind > 0) {  // their dO summed, in the ring before it fills
+  if (!DK && blind > 0) {  // their dO on the block's columns, in the ring
     column_sum<G::D, kWgConsumers>(dosum, reinterpret_cast<float*>(ring),
-                                   dout + (size_t)bh * n * d, blind, d);
+                                   dout + (size_t)bh * n * d + cb, blind,
+                                   pair ? min(d - cb, G::D) : d, d);
     fence_proxy_async();
   }
-  __syncthreads();
+  if constexpr (pair)
+    cluster_sync();
+  else
+    __syncthreads();
 
   if (warp >= kWgConsumers / 32) {  // the producer warpgroup
     reg_dealloc<kWgProducerRegs>();
-    if (warp > kWgConsumers / 32) return;  // one warp loads
+    // one warp loads; the others leave (in a pair, after the cluster
+    // barrier that ends the kernel)
+    if (warp > kWgConsumers / 32) {
+      if constexpr (pair) cluster_sync();
+      return;
+    }
     if (lane == 0) {
       mbar_expect_tx(&kvbar, (DK ? 2 : 1) * G::panels * G::k_panel);
       for (int p = 0; p < G::panels; ++p) {
-        tma_load_3d(kv + p * G::k_panel, map_k, &kvbar, p * kSw128Cols, k0,
-                    bh);
+        tma_load_3d(kv + p * G::k_panel, map_k, &kvbar,
+                    cb + p * kSw128Cols, k0, bh);
         if (DK)
           tma_load_3d(kv + (G::panels + p) * G::k_panel, map_v, &kvbar,
-                      p * kSw128Cols, k0, bh);
+                      cb + p * kSw128Cols, k0, bh);
       }
     }
     const float* lse_b = lse + (size_t)bh * n;
     const float* delta_b = delta + (size_t)bh * n;
     for (int t = first; t < tiles; ++t) {
       const int i = t - first, s = i % G::stages, use = i / G::stages;
-      // the tile's lse (base 2) and delta, a lane a query, 0 past n, read
-      // before the stage is free
+      // the tile's lse (base 2) and delta, a lane a query, 0 past n,
+      // read before the stage is free
       const int row = t * T + lane;
       const bool in = lane < T && row < n;
       const float r_lse = in ? lse_b[row] * kLog2e : 0.f;
@@ -2685,10 +2955,10 @@ __device__ __forceinline__ void dkv_wg_wide(
         mbar_expect_tx(&full[s], 2 * G::q_tile);
         unsigned char* st = ring + s * 2 * G::q_tile;
         for (int p = 0; p < G::panels; ++p) {
-          tma_load_3d(st + p * G::q_panel, map_q, &full[s], p * kSw128Cols,
-                      t * T, bh);
+          tma_load_3d(st + p * G::q_panel, map_q, &full[s],
+                      cb + p * kSw128Cols, t * T, bh);
           tma_load_3d(st + G::q_tile + p * G::q_panel, map_do, &full[s],
-                      p * kSw128Cols, t * T, bh);
+                      cb + p * kSw128Cols, t * T, bh);
         }
       } else {
         mbar_arrive(&full[s]);
@@ -2700,13 +2970,15 @@ __device__ __forceinline__ void dkv_wg_wide(
     const int wg = warp / 4, wq = warp % 4, g = lane >> 2, tq = lane & 3;
     const int kwarp = k0 + 16 * wq;  // the warp's first key
     const int ka = kwarp + g;        // rows ka and ka + 8
-    const int c0 = H * wg;           // the warpgroup's first output column
+    const int c0 = H * wg;           // the warpgroup's first block column
     const int p0 = G::exchange ? PW * wg : 0;  // its first score panel
     const bf16* bb =
         bias ? bias + (size_t)(bh % bias_groups) * n * m : nullptr;
     const float scale_log2 = scale * kLog2e;
     const uint64_t kdesc = sw128_desc(kv + p0 * G::k_panel);
     const uint64_t vdesc = sw128_desc(kv + (G::panels + p0) * G::k_panel);
+    PairInbox<pair ? PG::buffers : 0, PG::pfloats> box(inbox, pfull, pread,
+                                                        rank);
     float acc[H / 2];
     zero_acc(acc);
     mbar_wait(&kvbar, 0);
@@ -2737,13 +3009,19 @@ __device__ __forceinline__ void dkv_wg_wide(
       wgmma_wait<0>();
       fence_acc(sc);
       fence_acc(dp);
-      if constexpr (G::exchange) {
+      if constexpr (G::exchange) {  // the two warpgroups' partial sums
         if constexpr (DK)
           exchange_sum(sc, dp, xs, 2 * G::keys * T, wg, tid, i == 0,
                        t + 1 == tiles);
         else
           exchange_sum(sc, xs, 2 * G::keys * T, wg, tid, i == 0,
                        t + 1 == tiles);
+      }
+      if constexpr (pair) {  // S^T (and dP^T) = own + peer
+        if constexpr (DK)
+          box.send(i, sc, dp, wg, tid), box.receive(i, sc, dp, tid);
+        else
+          box.send(i, sc, wg, tid), box.receive(i, sc, tid);
       }
       // P^T: element 4j + e is (key ka + 8 (e / 2), query q0 + c), c = 8j +
       // 2tq + e % 2; uniform branches: the bias, the element test of a
@@ -2809,31 +3087,39 @@ __device__ __forceinline__ void dkv_wg_wide(
         for (int e = 0; e < 4; ++e)
           acc[4 * j + e] += dosum[c0 + 8 * j + 2 * tq + (e & 1)] * inv_m;
     }
-    store_acc<H>(grad + (size_t)bh * m * d + c0, acc, ka, m,
-                 DK ? scale : 1.f, d - c0, d);
+    store_acc<H>(grad + (size_t)bh * m * d + cb + c0, acc, ka, m,
+                 DK ? scale : 1.f, d - cb - c0, d);
   }
+  if constexpr (pair) cluster_sync();  // the peer may still write here
+}
+
+#define MV2_DKV_WG_PARAMS                                                 \
+  const __grid_constant__ CUtensorMap map_q,                              \
+      const __grid_constant__ CUtensorMap map_k,                          \
+      const __grid_constant__ CUtensorMap map_v,                          \
+      const __grid_constant__ CUtensorMap map_do,                         \
+      const bf16 *__restrict__ bias, const bf16 *__restrict__ dout,       \
+      const float *__restrict__ lse, const float *__restrict__ delta,     \
+      bf16 *__restrict__ dk, bf16 *__restrict__ dv, int n, int m, int d,  \
+      int k_tiles, int bias_groups, int causal, float scale
+#define MV2_DKV_WG_ARGS(GRAD)                                              \
+  &map_q, &map_k, &map_v, &map_do, bias, dout, lse, delta, GRAD, n, m, d,  \
+      k_tiles, bias_groups, causal, scale
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+    bwd_dkv_wg_wide_kernel(MV2_DKV_WG_PARAMS) {
+  if (blockIdx.z == 0)
+    dkv_wg_block<false, 1>(MV2_DKV_WG_ARGS(dv));
+  else
+    dkv_wg_block<true, 1>(MV2_DKV_WG_ARGS(dk));
 }
 
 __global__ void __launch_bounds__(kWgThreads, 1)
-    bwd_dkv_wg_wide_kernel(const __grid_constant__ CUtensorMap map_q,
-                           const __grid_constant__ CUtensorMap map_k,
-                           const __grid_constant__ CUtensorMap map_v,
-                           const __grid_constant__ CUtensorMap map_do,
-                           const bf16* __restrict__ bias,
-                           const bf16* __restrict__ dout,
-                           const float* __restrict__ lse,
-                           const float* __restrict__ delta,
-                           bf16* __restrict__ dk, bf16* __restrict__ dv,
-                           int n, int m, int d, int k_tiles, int bias_groups,
-                           int causal, float scale) {
+    bwd_dkv_wg_pair_kernel(MV2_DKV_WG_PARAMS) {
   if (blockIdx.z == 0)
-    dkv_wg_wide<false>(&map_q, &map_k, &map_v, &map_do, bias, dout, lse,
-                       delta, dv, n, m, d, k_tiles, bias_groups, causal,
-                       scale);
+    dkv_wg_block<false, kPairCluster>(MV2_DKV_WG_ARGS(dv));
   else
-    dkv_wg_wide<true>(&map_q, &map_k, &map_v, &map_do, bias, dout, lse,
-                      delta, dk, n, m, d, k_tiles, bias_groups, causal,
-                      scale);
+    dkv_wg_block<true, kPairCluster>(MV2_DKV_WG_ARGS(dk));
 }
 
 __global__ void __launch_bounds__(kWgThreads, 1)
@@ -3052,8 +3338,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 // ---- heads over 256: the wide kernels, both routes -------------------------
 //
 // These take every head over 256 on the 'f32' route and, on the 'mma'
-// route, every head over kWgWideMax (the Hopper wide kernels above take
-// those up to it).
+// route, dQ at every head over kWgWideMax and the forward and dK/dV over
+// kWgPairMax (the Hopper wide kernels and the paired ones above take the
+// rest).
 // A head over 256 values does not fit a block's output accumulator (64 rows
 // x 512 floats is 128 KB at d = 512), so its output columns are cut into
 // chunks of kWideOut: a block owns one chunk (grid y) of its rows' output,
@@ -3813,6 +4100,51 @@ cudaError_t wg_registers_fit(Kernel kernel) {
              : cudaErrorInvalidConfiguration;
 }
 
+// kernel on `grid` in clusters of kPairCluster blocks of kWgThreads threads
+// and `bytes` of dynamic shared memory; a refused launch is returned
+template <typename... Params, typename... Args>
+cudaError_t launch_pair(void (*kernel)(Params...), dim3 grid, size_t bytes,
+                        cudaStream_t stream, Args... args) {
+  cudaError_t err = wg_registers_fit(kernel);
+  if (err == cudaSuccess) err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = kPairCluster;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = dim3(kWgThreads);
+  config.dynamicSmemBytes = bytes;
+  config.stream = stream;
+  config.attrs = &cluster;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, kernel, args...);
+  if (err != cudaSuccess) return err;
+  MV2_CHECK_LAUNCH();
+  return cudaSuccess;
+}
+
+// the clusters of kernel (kPairCluster blocks of `bytes`) that the card
+// can hold at once
+template <typename Kernel>
+cudaError_t pair_clusters(int* clusters, Kernel kernel, size_t bytes) {
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = kPairCluster;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(kPairCluster);
+  config.blockDim = dim3(kWgThreads);
+  config.dynamicSmemBytes = bytes;
+  config.attrs = &cluster;
+  config.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(clusters, (const void*)kernel,
+                                        &config);
+}
+
 // the 3-D tensor map (bh, rows, d) of a bf16 operand in boxes of 64
 // columns by box_rows rows: rows past `rows` and columns past d read 0
 inline cudaError_t head_map(CUtensorMap* map, const void* ptr, int bh,
@@ -3972,9 +4304,11 @@ cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v,
   }
 }
 
-// into out (5 ints): registers a thread, local memory a thread (spills),
+// into out (7 ints): registers a thread, local memory a thread (spills),
 // static shared memory, the dynamic shared memory its launcher sets (set
-// here too) and the blocks an SM at `threads` threads
+// here too), the blocks an SM at `threads` threads, the blocks a cluster
+// (1: launched without clusters) and 0 (the clusters the card holds at
+// once, pair_attributes)
 template <typename Kernel>
 cudaError_t attributes(int* out, Kernel kernel, int threads, size_t bytes) {
   cudaFuncAttributes a;
@@ -3990,7 +4324,19 @@ cudaError_t attributes(int* out, Kernel kernel, int threads, size_t bytes) {
   out[2] = (int)a.sharedSizeBytes;
   out[3] = (int)bytes;
   out[4] = blocks;
+  out[5] = 1;
+  out[6] = 0;
   return cudaSuccess;
+}
+
+// attributes() of a paired kernel: out[5] kPairCluster, out[6] the clusters
+// of it that the card holds at once
+template <typename Kernel>
+cudaError_t pair_attributes(int* out, Kernel kernel, size_t bytes) {
+  cudaError_t err = attributes(out, kernel, kWgThreads, bytes);
+  if (err == cudaSuccess) err = pair_clusters(&out[6], kernel, bytes);
+  out[5] = kPairCluster;
+  return err;
 }
 
 // the 'mma' kernels by number: 0 dQ, 1 dK/dV, 2 forward, the kernel a head
@@ -4037,9 +4383,15 @@ inline cudaError_t wide_attributes(int* out, int kernel) {
 
 // the wide 'mma' kernel `kernel` (0 dQ, 1 dK/dV, 2 forward) that a head of
 // padded width `width` over kNarrowMax runs: the Hopper wide kernels up to
-// kWgWideMax, else the wide kernels
+// kWgWideMax, the paired forward and dK/dV up to kWgPairMax, else the wide
+// kernels
 inline cudaError_t wide_attributes(int* out, int kernel, int width) {
   constexpr int W = kWgThreads;
+  const bool pair = width > kWgWideMax && width <= kWgPairMax;
+  if (pair && kernel == 1)
+    return pair_attributes(out, bwd_dkv_wg_pair_kernel, WgPairDkvGeo::bytes);
+  if (pair && kernel == 2)
+    return pair_attributes(out, fwd_wg_pair_kernel, WgPairFwdGeo::bytes);
   if (width <= kWgWideMax && kernel == 0)
     return attributes(out, bwd_dq_wg_wide_kernel, W, WgWideDqGeo::bytes);
   if (width <= kWgWideMax && kernel == 1)
@@ -4185,6 +4537,57 @@ inline cudaError_t launch_dq_wg_wide(const void* q, const void* k,
   return cudaSuccess;
 }
 
+// a head the paired kernels take ('mma', kWgWideMax < d <= kWgPairMax);
+// its dQ stays on the wide kernel
+inline bool wg_pair(int route, int d) {
+  return route == kRouteMma && d > kWgWideMax && d <= kWgPairMax;
+}
+
+// grid (bh x query blocks x kPairCluster): a cluster a block of rows
+inline cudaError_t launch_fwd_wg_pair(const void* q, const void* k,
+                                      const void* v, const void* bias,
+                                      void* out, float* lse, int bh, int n,
+                                      int m, int d, int groups, int causal,
+                                      float scale, cudaStream_t stream) {
+  typedef WgPairFwdGeo G;
+  const int tiles = tiles_of(n, G::rows);
+  if (!grid_fits(bh, kPairCluster * tiles)) return cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = head_map(&mq, q, bh, n, d, G::rows);
+  if (err == cudaSuccess) err = head_map(&mk, k, bh, m, d, G::tile);
+  if (err == cudaSuccess) err = head_map(&mv, v, bh, m, d, G::tile);
+  if (err != cudaSuccess) return err;
+  return launch_pair(fwd_wg_pair_kernel,
+                     dim3((unsigned)(kPairCluster * bh * tiles)), G::bytes,
+                     stream, mq, mk, mv, (const bf16*)v, (const bf16*)bias,
+                     (bf16*)out, lse, n, m, d, tiles, groups, causal, scale);
+}
+
+// grid (bh x key blocks x kPairCluster, 1, 2): z 0 the dV blocks, 1 the dK
+// blocks, a cluster a block of keys
+inline cudaError_t launch_dkv_wg_pair(const void* q, const void* k,
+                                      const void* v, const void* bias,
+                                      const void* dout, const float* lse,
+                                      const float* delta, void* dk, void* dv,
+                                      int bh, int n, int m, int d, int groups,
+                                      int causal, float scale,
+                                      cudaStream_t stream) {
+  typedef WgPairDkvGeo G;
+  const int tiles = tiles_of(m, G::keys);
+  if (!grid_fits(bh, kPairCluster * tiles)) return cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err = head_map(&mq, q, bh, n, d, G::tile);
+  if (err == cudaSuccess) err = head_map(&mdo, dout, bh, n, d, G::tile);
+  if (err == cudaSuccess) err = head_map(&mk, k, bh, m, d, G::keys);
+  if (err == cudaSuccess) err = head_map(&mv, v, bh, m, d, G::keys);
+  if (err != cudaSuccess) return err;
+  return launch_pair(bwd_dkv_wg_pair_kernel,
+                     dim3((unsigned)(kPairCluster * bh * tiles), 1, 2),
+                     G::bytes, stream, mq, mk, mv, mdo, (const bf16*)bias,
+                     (const bf16*)dout, lse, delta, (bf16*)dk, (bf16*)dv, n,
+                     m, d, tiles, groups, causal, scale);
+}
+
 }  // namespace flash
 }  // namespace mv2
 
@@ -4213,7 +4616,8 @@ extern "C" {
 
 // q (bh, n, d), k and v (bh, m, d), bias (groups, n, m) or null, all of
 // `dtype`; out (bh, n, d) of `dtype`, lse (bh, n) float32 in natural log.
-// d is any multiple of 8 (over 256 the wide kernels). route is the
+// d is any multiple of 8 (over 256 the Hopper wide kernels to 512, the
+// paired ones to 1024 on 'mma', else the wide kernels). route is the
 // wrapper's (Route) and must fit the dtype: kRouteMma bf16, kRouteF32
 // float32.
 int mv2_flash_attention_fwd(const void* q, const void* k, const void* v,
@@ -4226,6 +4630,10 @@ int mv2_flash_attention_fwd(const void* q, const void* k, const void* v,
     if (!mv2::flash::wide_fits(route, dtype, d)) return cudaErrorInvalidValue;
     if (mv2::flash::wg_wide(route, d))
       return mv2::flash::launch_fwd_wg_wide(q, k, v, bias, out, (float*)lse,
+                                            bh, n, m, d, groups, causal,
+                                            scale, s);
+    if (mv2::flash::wg_pair(route, d))
+      return mv2::flash::launch_fwd_wg_pair(q, k, v, bias, out, (float*)lse,
                                             bh, n, m, d, groups, causal,
                                             scale, s);
     return mv2::flash::launch_fwd_wide(
@@ -4277,6 +4685,10 @@ int mv2_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
       return mv2::flash::launch_dkv_wg_wide(
           q, k, v, bias, dout, (const float*)lse, (const float*)delta, dk,
           dv, bh, n, m, d, groups, causal, scale, s);
+    if (mv2::flash::wg_pair(route, d))
+      return mv2::flash::launch_dkv_wg_pair(
+          q, k, v, bias, dout, (const float*)lse, (const float*)delta, dk,
+          dv, bh, n, m, d, groups, causal, scale, s);
     return mv2::flash::launch_dkv_wide(
         {q, k, v, bias, dout, (const float*)lse, (const float*)delta, dv, dk,
          nullptr, nullptr, n, m, d, 0, groups, causal, scale},
@@ -4290,11 +4702,13 @@ int mv2_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
 // What the CUDA runtime reports for the 'mma' kernel `kernel` (0 dQ, 1
 // dK/dV, 2 forward; 3, 4, 5 the same kernels' padded instantiations, for
 // d < width; 6, 7, 8 the kernels a head over 256 of padded width `width`
-// runs: the Hopper wide kernels up to 512, else the wide kernels)
+// runs: the Hopper wide kernels up to 512, the paired forward and dK/dV up
+// to 1024, else the wide kernels)
 // at the padded width `width` (16, 32, 64, 128 or 256, or the head over
-// 256), into out (5 ints): registers a thread, local memory a thread
+// 256), into out (7 ints): registers a thread, local memory a thread
 // (spills), static shared memory, the dynamic shared memory its launcher
-// sets, and the blocks an SM.
+// sets, the blocks an SM, the blocks a cluster, and for a paired kernel
+// the clusters the card holds at once (else 0).
 int mv2_flash_mma_attributes(int kernel, int width, void* out) {
   int* o = static_cast<int*>(out);
   if (kernel >= 6)  // a head over 256

@@ -8,8 +8,10 @@
 // memory and
 // m64nNk16 with A
 // in registers (B K-major, or MN-major at N = 128 and 256; csrc/
-// flash_attention.cu's Hopper kernels), and the host-side tensor-map
-// encoding. Built for sm_90a (wgmma exists only there).
+// flash_attention.cu's Hopper kernels), the distributed shared memory of
+// a thread block cluster (mapa, asynchronous remote stores and mbarrier
+// arrivals, the cluster barrier; flash_attention.cu's 2-block pairs), and the host-side
+// tensor-map encoding. Built for sm_90a (wgmma exists only there).
 #pragma once
 
 #include <cuda.h>
@@ -91,6 +93,72 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// ---- thread block clusters --------------------------------------------------
+
+// this block's rank in its cluster
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the address of `p` (in this block's shared memory) in the shared memory
+// of block `rank` of the cluster, for the .shared::cluster operands below
+__device__ __forceinline__ unsigned cluster_map(const void* p,
+                                                unsigned rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+
+// x into another block's shared memory at addr, completing 4 bytes on that
+// block's mbarrier at bar (both addresses from cluster_map): the store does
+// not wait, and the receiver's wait on bar makes it visible
+__device__ __forceinline__ void st_async(unsigned addr, float x,
+                                         unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.u32 [%0], %1, "
+      "[%2];\n" ::"r"(addr),
+      "r"(__float_as_uint(x)), "r"(bar)
+      : "memory");
+}
+
+// one arrival on another block's mbarrier (an address from cluster_map),
+// releasing at cluster scope what this thread wrote before it (and, after a
+// __syncwarp, what its warp wrote)
+__device__ __forceinline__ void mbar_arrive_cluster(unsigned addr) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          addr)
+      : "memory");
+}
+
+// mbar_wait, acquiring at cluster scope what the arrivals released
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// every thread of every block of the cluster arrives, then waits for all
+// (release and acquire at cluster scope)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive;\n\t"
+      "barrier.cluster.wait;\n" ::: "memory");
 }
 
 // named barrier `id` (1-15; 0 is __syncthreads) over `count` threads, a

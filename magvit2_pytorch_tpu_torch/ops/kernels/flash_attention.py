@@ -37,7 +37,9 @@ multiple of 8, run it up to :data:`NARROW_MAX` at the next of the padded
 of 256, one a block, the scores summed over column slices; in bf16 all
 three up to :data:`WG_WIDE_MAX` on the Hopper wide kernels, whose two
 consumer warpgroups split the output columns; dK/dV and dQ form their
-scores once a block from their two partial sums), and
+scores once a block from their two partial sums; the forward and dK/dV up
+to :data:`WG_PAIR_MAX` on clusters of two such blocks that split the head
+and sum their partial scores across the pair), and
 :func:`flash_attention` pads any other head with zero columns up to the next
 multiple of 8 (on the CPU too). float32 (CUDA cores, no TF32) and bfloat16
 (tensor cores). All three kernels take the
@@ -108,6 +110,18 @@ WG_WIDE_DQ_EXCHANGE = True
 WG_WIDE_DKV_KEYS = 64
 WG_WIDE_DKV_TILE = 16
 WG_WIDE_DKV_EXCHANGE = True
+# the forward and dK/dV at heads of WG_WIDE_MAX + 1 to WG_PAIR_MAX ('mma';
+# csrc/flash_attention.cu kWgPairMax, WgPairFwdGeo, WgPairDkvGeo): clusters
+# of WG_PAIR_CLUSTER blocks, each the Hopper wide block on WG_WIDE_MAX
+# columns of the head with its geometry (WG_WIDE_FWD_*, WG_WIDE_DKV_*), the
+# scores summed across the pair through an inbox of the peer's partial
+# scores: the forward's two buffers (it sends a tile's partial before it
+# adds the peer's of the tile before), dK/dV's one. dQ there stays on the
+# wide kernel.
+WG_PAIR_MAX = 2 * WG_WIDE_MAX         # kWgPairMax
+WG_PAIR_CLUSTER = 2                   # kPairCluster
+WG_PAIR_FWD_BUFFERS = 2
+WG_PAIR_DKV_BUFFERS = 1
 MASKED = -1e30
 
 
@@ -366,12 +380,15 @@ def mma_kernel(kernel: str, width: int, exact: bool = True) -> str:
     :data:`EXACT_WIDTH` the exact build or (``exact=False``) the padded one;
     at 128 and 256 the Hopper kernels (``*_wg_mma_kernel``) for every head;
     over :data:`NARROW_MAX` the Hopper wide kernels (``*_wg_wide_kernel``)
-    up to :data:`WG_WIDE_MAX` and the wide kernels (``*_wide_mma_kernel``)
-    above it."""
+    up to :data:`WG_WIDE_MAX`, the paired forward and dK/dV
+    (``*_wg_pair_kernel``) up to :data:`WG_PAIR_MAX`, and the wide kernels
+    (``*_wide_mma_kernel``) for the rest."""
     stem = {'fwd': 'fwd', 'dq': 'bwd_dq', 'dkv': 'bwd_dkv'}[kernel]
     if width > NARROW_MAX:
         if width <= WG_WIDE_MAX:
             return f'{stem}_wg_wide_kernel'
+        if width <= WG_PAIR_MAX and kernel != 'dq':
+            return f'{stem}_wg_pair_kernel'
         return f'{stem}_wide_mma_kernel'
     if width > EXACT_WIDTH:
         return f'{stem}_wg_mma_kernel'
@@ -387,19 +404,26 @@ def mma_attributes(kernel: str, width: int, exact: bool = True) -> dict:
     size at run time; at a head over :data:`NARROW_MAX`, the kernel a head
     of that width runs (:func:`mma_kernel` names it): registers and local
     (spilled) bytes a thread, static shared memory, the dynamic shared
-    memory its launcher sets, and the blocks an SM."""
+    memory its launcher sets, the blocks an SM and the blocks a cluster
+    (``cluster_size``; 1 for a kernel launched without clusters), and for
+    the paired kernels the clusters the card holds at once
+    (``resident_clusters``, ``cudaOccupancyMaxActiveClusters``)."""
     if width <= NARROW_MAX and width not in WIDTHS:
         raise ValueError(f'flash attention: width {width} not in {WIDTHS} '
                          f'or over {NARROW_MAX}')
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 7)()
     lib = _build.load_library()
     number = MMA_KERNELS.index(kernel) + (
         2 * len(MMA_KERNELS) if width > NARROW_MAX
         else 0 if exact else len(MMA_KERNELS))
     _build.check(lib, lib.mv2_flash_mma_attributes(number, width, out),
                  f'flash attention {kernel} attributes')
-    return dict(zip(('registers', 'local_bytes', 'static_smem_bytes',
-                     'dynamic_smem_bytes', 'blocks_per_sm'), out))
+    attrs = dict(zip(('registers', 'local_bytes', 'static_smem_bytes',
+                      'dynamic_smem_bytes', 'blocks_per_sm', 'cluster_size',
+                      'resident_clusters'), out))
+    if attrs['cluster_size'] == 1:
+        del attrs['resident_clusters']
+    return attrs
 
 
 def row_delta(dout, out):

@@ -119,7 +119,9 @@ def test_causal_skip_at_the_wide_geometry(n, m, causal):
     WG_WIDE_DKV_TILE rows: every visible pair lies in a visited tile, and a
     warp's tile that tile_masked passes untested (16 rows by a key tile in
     the forward, a query tile by 16 keys in dK/dV) holds only visible pairs
-    inside n, m."""
+    inside n, m. The paired forward and dK/dV's clusters take this geometry
+    too, both blocks of a cluster the same tiles, so that every push of
+    the hand-off meets its wait."""
     big = _padded_mask(n, m, causal)
     _check_query_blocks(big, n, m, causal, fa.WG_WIDE_FWD_ROWS,
                         fa.WG_WIDE_FWD_TILE)
@@ -450,18 +452,24 @@ def test_the_wide_dq_loop_matches_the_jax_custom_vjp(with_bias):
                torch.from_numpy(np.array(want[3])), 1e-5)
 
 
-@pytest.mark.parametrize('d', [264, 512, 520, 1024])
+@pytest.mark.parametrize('d', [264, 512, 520, 1024, 1032])
 def test_each_wide_head_names_its_kernel(d):
     """Heads of 257 to WG_WIDE_MAX run the Hopper wide forward, dQ and
-    dK/dV; wider heads the three wide kernels: the names ``mma_kernel``
-    gives are kernels of the source."""
+    dK/dV; heads of WG_WIDE_MAX + 1 to WG_PAIR_MAX the paired forward and
+    dK/dV, with dQ still on the wide kernel; wider heads the three wide
+    kernels: the names ``mma_kernel`` gives are kernels of the source."""
     src = (_build.SOURCE_DIR / 'flash_attention.cu').read_text()
     names = {kernel: fa.mma_kernel(kernel, d) for kernel in fa.MMA_KERNELS}
-    wg = d <= fa.WG_WIDE_MAX
+    if d <= fa.WG_WIDE_MAX:
+        kind = {'dq': 'wg_wide', 'dkv': 'wg_wide', 'fwd': 'wg_wide'}
+    elif d <= fa.WG_PAIR_MAX:
+        kind = {'dq': 'wide_mma', 'dkv': 'wg_pair', 'fwd': 'wg_pair'}
+    else:
+        kind = dict.fromkeys(fa.MMA_KERNELS, 'wide_mma')
     assert names == {
-        'dq': 'bwd_dq_wg_wide_kernel' if wg else 'bwd_dq_wide_mma_kernel',
-        'dkv': 'bwd_dkv_wg_wide_kernel' if wg else 'bwd_dkv_wide_mma_kernel',
-        'fwd': 'fwd_wg_wide_kernel' if wg else 'fwd_wide_mma_kernel'}
+        'dq': f'bwd_dq_{kind["dq"]}_kernel',
+        'dkv': f'bwd_dkv_{kind["dkv"]}_kernel',
+        'fwd': f'fwd_{kind["fwd"]}_kernel'}
     for name in names.values():
         assert re.search(rf'__global__ void __launch_bounds__\([^)]*\)\s+'
                          rf'{name}\(', src), name

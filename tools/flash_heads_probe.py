@@ -7,7 +7,8 @@ variants, and against another checkout's kernels, on one NVIDIA GPU.
 
 1. This tree's three 'mma' kernels alone at the attention step's shape,
    (17, heads, 4096, d) / 4100 keys bf16 not causal, at d x heads 32 x 8,
-   64 x 4, 128 x 4, 256 x 2 and 512 x 1, causal too at 32 and 64: medians of 20
+   64 x 4, 128 x 4, 256 x 2, 512 x 1 and 1024 x 1, causal too at 32 and 64:
+   medians of 20
    CUDA-event timings. With ``--baseline DIR`` (the root of another
    checkout, e.g. the parent commit unpacked by ``git archive`` into a
    git-ignored folder) its kernels run at every shape too, each checkout in
@@ -15,13 +16,16 @@ variants, and against another checkout's kernels, on one NVIDIA GPU.
 2. ``--variants``: copies of this tree's package with other geometries of
    the wide widths (``VARIANTS``: ``WgFwdGeo``, ``WgDqGeo`` and
    ``WgDkvGeo`` in ``csrc/flash_attention.cu``, the Hopper forward, dQ and
-   dK/dV at 128 and 256, and ``WgWideFwdGeo`` / ``WgWideDqGeo`` /
-   ``WgWideDkvGeo``, the Hopper wide kernels at heads of 257 to 512), built
+   dK/dV at 128 and 256, ``WgWideFwdGeo`` / ``WgWideDqGeo`` /
+   ``WgWideDkvGeo``, the Hopper wide kernels at heads of 257 to 512, and
+   the wide forward's geometry again at the paired forward's head of 1024),
+   built
    together into git-ignored folders under ``_proof/``, each checked
    against the plain versions at small shapes (bf16, ``chip_smoke``'s
    ``FLASH_TOL``) and timed in its own process, in turns, with ptxas's
    registers and spills: a variant of the widths 128 and 256 at 128 x 4
-   and 256 x 2, one of the heads past 256 at 512 x 1 (``WIDE_SHAPES``).
+   and 256 x 2, one of the heads past 256 at 512 x 1 (``WIDE_SHAPES``), one
+   of the paired kernels at 1024 x 1 (``PAIR_SHAPES``).
    ``--only NAME[,NAME]`` keeps those variants.
 3. ``--wide-row DH``: ``chip_smoke.flash_width_rows`` at (17, 1, 4096, DH)
    / 4100 keys bf16, in a process of its own: the three kernels a head of
@@ -46,9 +50,11 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = 'magvit2_pytorch_tpu_torch/csrc/flash_attention.cu'
-SHAPES = ((8, 32), (4, 64), (4, 128), (2, 256), (1, 512))      # heads, d
+SHAPES = ((8, 32), (4, 64), (4, 128), (2, 256), (1, 512),       # heads, d
+          (1, 1024))
 WG_SHAPES = SHAPES[2:4]      # the variants of the widths 128 and 256
-WIDE_SHAPES = SHAPES[4:]     # and of the heads past 256
+WIDE_SHAPES = SHAPES[4:5]    # of the heads of 257 to 512
+PAIR_SHAPES = SHAPES[5:]     # and of the heads of 513 to 1024
 B, N, M = 17, 4096, 4100
 
 
@@ -104,7 +110,33 @@ VARIANTS = {
                          'exchange = false;'),
                         ('WgWideDkvGeo', 'tile = 16;', 'tile = 32;'),
                         ('WgWideDkvGeo', 'stages = 2;', 'stages = 1;')),
+    # a paired block takes the wide block's geometry: the wide forward's two
+    # variants above, timed at the pair's head
+    'pair_fwd_exchange': (('WgWideFwdGeo', 'exchange = false;',
+                           'exchange = true;'),),
+    'pair_fwd_tile16': (('WgWideFwdGeo', 'tile = 32;', 'tile = 16;'),
+                        ('WgWideFwdGeo', 'stages = 2;', 'stages = 4;')),
+    # timing only (UNCHECKED): the paired kernels without the hand-off, each
+    # block on its own partial scores (wrong results), for what the hand-off
+    # costs
+    'pair_fwd_nohandoff': (
+        (None, '      if constexpr (pair) box.send(t, acc, wg, tid);\n', ''),
+        (None, '        box.receive(t, sc, tid);               '
+         '// S = own + peer\n', '')),
+    'pair_dkv_nohandoff': (
+        (None, 'box.send(i, sc, dp, wg, tid), box.receive(i, sc, dp, tid);',
+         ';'),
+        (None, 'box.send(i, sc, wg, tid), box.receive(i, sc, tid);', ';')),
 }
+UNCHECKED = {'pair_fwd_nohandoff', 'pair_dkv_nohandoff'}
+
+
+def variant_kind(name: str) -> str:
+    """The shapes a variant is timed at: 'wg_pair', 'wg_wide' or 'wg'."""
+    return ('wg_pair' if name.startswith('pair_') else
+            'wg_wide' if name.startswith('wide_') else 'wg')
+
+
 OUT = []
 
 
@@ -147,7 +179,9 @@ def child(root: str, shapes, check: bool):
                 (2, 2, 130, 70, 256, True, None),
                 (2, 2, 130, 134, 264, True, 'hnm'),
                 (2, 2, 300, 260, 512, False, 'bhnm'),
-                (2, 2, 130, 70, 512, True, None)):
+                (2, 2, 130, 70, 512, True, None),
+                (2, 2, 300, 260, 776, True, 'bhnm'),
+                (2, 2, 130, 70, 1024, True, 'hnm')):
             *qkvo, bb = cs.flash_inputs(torch, dev, torch.bfloat16, b, h, n,
                                         m, d, bias, 3)
             errs, peaks, finite, _ = cs.flash_errors(torch, fa, *qkvo, bb,
@@ -164,6 +198,10 @@ def child(root: str, shapes, check: bool):
             res['resources'].update({
                 fa.mma_kernel(k, 512): fa.mma_attributes(k, 512)
                 for k in fa.MMA_KERNELS})
+        if hasattr(fa, 'WG_PAIR_MAX'):
+            res['resources'].update({
+                fa.mma_kernel(k, 1024): fa.mma_attributes(k, 1024)
+                for k in ('fwd', 'dkv')})
     for heads, d in shapes:
         q, k, v, dout, _ = cs.flash_inputs(torch, dev, torch.bfloat16, B,
                                            heads, N, M, d, None, 99)
@@ -200,17 +238,18 @@ def wide_row(dh: int):
 
 def ptxas_summary(log: str):
     """{kernel<width>: 'N regs, spill stores/loads'} of the 'mma' kernels
-    at the wide widths (the Hopper wide kernels as <512>)."""
+    at the wide widths (the Hopper wide kernels as <512>, the paired ones
+    as <1024>)."""
     out, current = {}, None
     for line in log.splitlines():
         hit = re.search(r'Function properties for _ZN3mv25flash\d+(\w+?_mma_'
                         r'(?:padded_)?kernel)ILi(\d+)E', line)
         wide = re.search(r'Function properties for _ZN3mv25flash\d+(\w+?'
-                         r'_wg_wide_kernel)E', line)
+                         r'_wg_(wide|pair)_kernel)E', line)
         if hit and int(hit[2]) >= 128:
             current = f'{hit[1]}<{hit[2]}>'
         elif wide:
-            current = f'{wide[1]}<512>'
+            current = f'{wide[1]}<{512 if wide[2] == "wide" else 1024}>'
         elif current and 'spill' in line:
             spill = re.findall(r'(\d+) bytes spill', line)
         elif current and 'Used' in line:
@@ -239,7 +278,7 @@ def main():
                         help=argparse.SUPPRESS)
     args = parser.parse_args()
     pick = {'all': SHAPES, 'narrow': SHAPES[:2], 'wg': WG_SHAPES,
-            'wg_wide': WIDE_SHAPES}
+            'wg_wide': WIDE_SHAPES, 'wg_pair': PAIR_SHAPES}
     if args.child:
         if args.wide_row:
             return wide_row(args.wide_row)
@@ -284,15 +323,14 @@ def main():
                 sys.exit(f'{name}: the build failed\n{log[-4000:]}')
             say(f'[flash variants] {name} ptxas: {ptxas_summary(log)}')
         order = list(trees)
-        kinds = {'wg_wide' if name.startswith('wide_') else 'wg'
-                 for name in chosen}
+        kinds = {variant_kind(name) for name in chosen}
         for kind in sorted(kinds):
             for name in order + order[::-1]:
-                if name != 'this tree' and ('wg_wide' if name.startswith(
-                        'wide_') else 'wg') != kind:
+                if name != 'this tree' and variant_kind(name) != kind:
                     continue
+                check = () if name in UNCHECKED else ('--check',)
                 say(f'[flash variants] {name} at {kind}: '
-                    f'{run(trees[name], "--shapes", kind, "--check")} on '
+                    f'{run(trees[name], "--shapes", kind, *check)} on '
                     f'{smi}')
     if args.wide_row:
         say(f'[flash heads] head of {args.wide_row}: '
