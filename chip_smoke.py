@@ -86,7 +86,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    not, no bias and each bias shape; output, lse and all four gradients),
    every head of ``FLASH_HEADS`` (the wide launches at 264, 320, 512, 1024,
    1032 also causal with a bias and with 70 keys, and at 264, 320, 512 with
-   70 keys causal with each bias; the paired forward and dK/dV's heads
+   70 keys causal with each bias; the paired forward, dQ and dK/dV's heads
    ``FLASH_PAIR`` (520, 776, 1024) over several tiles with a (b, h, n, m)
    bias, causal and not, and with 70 keys causal with each bias, and the
    same over several tiles at ``FLASH_PAST_PAIR`` (1032, all three wide
@@ -173,8 +173,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    through flash, and a rotary and a ``dim_head=12`` module (a head the
    block kernels do not take) against the CPU. Then the same step at the
    wide heads of ``FLASH_WIDTH_STEPS`` (128 x 4, 256 x 2, 512 x 1 on the
-   Hopper wide forward, dQ and dK/dV, and 1024 x 1 on the paired forward
-   and dK/dV, 2-block clusters, beside the wide dQ), each with
+   Hopper wide forward, dQ and dK/dV, and 1024 x 1 on the paired forward,
+   dQ and dK/dV, 2-block clusters), each with
    1 / 1 / 1 flash launches and no other kernel, and the three kernels
    alone at its shape beside their bounds, the plain versions and SDPA
    forward and backward, with the SDPA backend that ran
@@ -401,7 +401,7 @@ KERNELS = {
     'flash_attention_bwd_dkv': (
         FLASH_SOURCE, 'magvit2_pytorch_tpu/ops/pallas/flash_attention.py:249'),
     # the same kernels at heads of 128 and 256, at 512 on the Hopper wide
-    # kernels and at 1024 (the paired forward and dK/dV, the wide dQ)
+    # kernels and at 1024 (the paired kernels, 2-block clusters)
     # (FLASH_WIDTH_ROWS)
     **{f'{kernel}_d{dh}': (FLASH_SOURCE,
                            f'magvit2_pytorch_tpu/ops/pallas/flash_attention.py'
@@ -550,7 +550,7 @@ FLASH_FULL = dict(b=17, h=8, n=4096, m=4100, d=32)
 # the wide kernels (FLASH_WIDE: the output in column chunks of 256)
 FLASH_WIDE = (264, 320, 512, 1024, 1032)
 FLASH_HEADS = (8, 12, 24, 40, 96, 128, 256, *FLASH_WIDE)
-# heads of the paired forward and dK/dV (513 to 1024): the first past 512
+# heads of the paired forward, dQ and dK/dV (513 to 1024): the first past 512
 # (rank 1's second warpgroup owns no column), a ragged one and the widest
 FLASH_PAIR = (520, 776, 1024)
 # a bf16 head past them: its forward, dQ and dK/dV on the wide mma.sync
@@ -571,9 +571,10 @@ FLASH_WIDTH_STEPS = ((128, 4), (256, 2), (512, 1), (1024, 1))
 # mma.sync kernels read when that head was first ported, dQ as its wide
 # mma.sync kernel read in the last run before its redesign. The log prints
 # them beside this run's; at 1024 the forward and dK/dV as the wide
-# mma.sync kernels read in the last run before their redesign for Hopper,
-# and dQ as its wide kernel read there (tools/flash_heads_probe.py
-# --wide-row 1024). The kernels line holds only what this run measured
+# mma.sync kernels read in the last run before their redesign for Hopper
+# (tools/flash_heads_probe.py --wide-row 1024), and dQ as its wide mma.sync
+# kernel read there, before its own redesign for Hopper. The kernels line
+# holds only what this run measured
 FLASH_EARLIER_MS = {128: {'flash_attention_fwd': 2.6198,
                           'flash_attention_bwd_dq': 3.6079,
                           'flash_attention_bwd_dkv': 4.9362},
@@ -3051,8 +3052,8 @@ def flash_mma_resources(fa):
     """Registers, spills, shared memory and blocks an SM of the three 'mma'
     kernels at every compiled width, exact and padded (at 128 and 256 one
     kernel takes every head: the Hopper forward, dQ and dK/dV), and of the
-    kernels past 256 (the Hopper wide kernels to 512, the paired forward
-    and dK/dV to 1024 beside the wide dQ, the wide kernels above), as the
+    kernels past 256 (the Hopper wide kernels to 512, the paired ones to
+    1024, the wide kernels above), as the
     CUDA
     runtime reports them (the dynamic shared memory is
     what each launcher sets), with ptxas's lines from this run's build (none
@@ -3141,8 +3142,8 @@ def flash_invariants(torch, fa, dev):
     / 1028 keys, (2, 4, 256, 128) / 128 keys (the first 128 rows see no
     key), (2, 2, 256, 256) / 260 keys and the wide heads' (2, 2, 256, 512),
     (2, 2, 256, 1024) and (2, 2, 256, 1032) / 200 keys (the first 56 rows
-    see no key; in bf16 the paired forward and dK/dV at 1024, the three
-    wide mma.sync kernels at 1032)."""
+    see no key; in bf16 the paired kernels at 1024, the three wide
+    mma.sync kernels at 1032)."""
     names = ('out', 'lse', 'dq', 'dk', 'dv', 'dS')
     out = {}
     for (b, h, n, m, d), (name, dtype) in itertools.product(
@@ -3245,8 +3246,8 @@ def phase_flash_kernels(torch, dev, reps, smi):
     # see no key and the key tiles the causal skip passes over
     cases += [(2, 2, 130, 70, d, True, bias) for d in FLASH_WIDE[:3]
               for bias in ('nm', 'hnm', 'bhnm')]
-    # the paired forward and dK/dV (heads of 513 to 1024, dQ on the wide
-    # kernel): a ragged head and the widest over several of their row
+    # the paired forward, dQ and dK/dV (heads of 513 to 1024): the first
+    # past 512, a ragged head and the widest over several of their row
     # blocks, key blocks and tiles with a (b, h, n, m) bias, causal and
     # not, and causal with fewer keys than queries and each bias (both
     # blocks of a pair take the same tiles, or the hand-off would hang)

@@ -34,7 +34,7 @@
 // scores summed over column slices; on the 'mma' route a head of 257 to 512
 // runs its three kernels on the Hopper wide kernels instead (see "heads of
 // 257 to 512"), two warpgroups splitting its output columns, and a head of
-// 513 to 1024 its forward and dK/dV on two such blocks in a cluster, which
+// 513 to 1024 its three kernels on two such blocks in a cluster, which
 // split the head (see "heads of 513 to 1024").
 //
 // Two routes, one per dtype: ops/kernels/flash_attention.py flash_route
@@ -2308,6 +2308,7 @@ struct WgWideDqGeo {
   static constexpr int k_stages = 2;
   static constexpr int v_stages = 1;
   static constexpr bool exchange = true;
+  static constexpr bool v_first = false;
   static constexpr int panels = D / kSw128Cols;
   static constexpr int q_panel = rows * 128;       // bytes
   static constexpr int kv_panel = tile * 128;
@@ -2388,10 +2389,10 @@ __device__ __forceinline__ void exchange_in_stage(float (&a)[N],
 
 // ---- heads of 513 to 1024: the Hopper wide blocks in 2-block clusters -----
 //
-// A bf16 head of 513 to 1024 values runs its forward and dK/dV on the
-// bodies of the wide forward and dK/dV below, built for clusters of C =
-// kPairCluster blocks (fwd_wg_pair_kernel, bwd_dkv_wg_pair_kernel; C = 1
-// is the wide block alone); its dQ stays on bwd_dq_wide_mma_kernel. One
+// A bf16 head of 513 to 1024 values runs its three kernels on the bodies
+// of the wide forward, dK/dV and dQ, built for clusters of C =
+// kPairCluster blocks (fwd_wg_pair_kernel, bwd_dkv_wg_pair_kernel,
+// bwd_dq_wg_pair_kernel; C = 1 is the wide block alone). One
 // block cannot own such a head: 64 rows x 1024 float32 output accumulators
 // are the whole register file of an SM, and Q of 64 rows beside one K and
 // one V tile of 32 keys is past kSmemMax. So the two blocks of a cluster
@@ -2399,7 +2400,9 @@ __device__ __forceinline__ void exchange_in_stage(float (&a)[N],
 // rank r owns head columns [kWgWideMax r, kWgWideMax (r + 1)), which its
 // TMA boxes load (zeros past d) and its output takes, and is the wide
 // block on them, with its geometry (WgWideFwdGeo, WgWideDkvGeo) and an
-// inbox for its peer's partial scores (WgPairFwdGeo, WgPairDkvGeo).
+// inbox for its peer's partial scores (WgPairFwdGeo, WgPairDkvGeo); dQ's
+// wide block leaves no room for an inbox beside its rings, so a pair's dQ
+// block takes stages of its own (WgPairDqGeo).
 // The scores (and dP) are sums over the whole head: each block forms the
 // partial sum over its own columns as the wide block forms its scores,
 // pushes one copy into its peer's shared memory and adds the peer's copy
@@ -2419,18 +2422,22 @@ __device__ __forceinline__ void exchange_in_stage(float (&a)[N],
 // long again as the kernel without a hand-off (PERF.md section 6). The
 // forward sends tile t + 1's partial before it adds the peer's of tile t
 // (two buffers), so the peer's copy has a tile's time to arrive; dK/dV
-// sends and adds in step (one buffer). Only the consumer warps take part:
+// sends and adds in step (one buffer); dQ sends S and dP together as
+// WgPairDqGeo says. Only the consumer warps take part:
 // the producer warpgroup never waits on the peer. Both blocks take the
 // same tiles (the causal skip, the masked tiles and the rows that see no
 // key depend on the rows or keys a cluster owns, not on its rank), so
 // every push meets its wait. A cluster barrier replaces the block barrier
 // after the mbarriers are initialised (no remote arrival before), and
 // another ends the kernel: no block leaves while its peer may still write
-// or arrive in its shared memory. Rank 0 alone writes the forward's lse;
-// the rows that see no key sum v (dO in dV) on each block's own columns.
+// or arrive in its shared memory. Rank 0 alone writes the forward's lse
+// and dQ's d_bias (warpgroup 0, and the zeros of the tiles the causal skip
+// passes over); the rows that see no key sum v (dO in dV) on each block's
+// own columns, and get dq = 0 from P = 0.
 // The products against the narrow decomposition's: the forward 1.5x (S in
-// both warpgroups), dK/dV 5/4, as at 512, against 2.5x and about 3.5x on
-// the wide kernels, whose four column chunks each form the whole S.
+// both warpgroups), dK/dV 5/4 and dQ 1x, as at 512, against 2.5x, about
+// 3.5x and 3x on the wide kernels, whose four column chunks each form the
+// whole S (and dP).
 
 constexpr int kWgPairMax = 2 * kWgWideMax;  // the widest head here
 constexpr int kPairCluster = 2;             // blocks a cluster
@@ -2456,6 +2463,31 @@ struct WgPairDkvGeo : WgWideDkvGeo {
   static constexpr size_t bytes =
       WgWideDkvGeo::bytes + sizeof(float) * buffers * pfloats;
   static_assert(bytes <= kSmemMax, "paired Hopper dK/dV shared memory");
+};
+
+// A block of the paired dQ: the wide dQ's block (WG_WIDE_DQ_ROWS, S and dP
+// from the two warpgroups' partial sums over V's stage) on key tiles and
+// stages of its own (WG_PAIR_DQ_TILE, WG_PAIR_DQ_K_STAGES,
+// WG_PAIR_DQ_V_STAGES), which leave room for the inbox buffers of the
+// peer's partial S and dP (WG_PAIR_DQ_BUFFERS), sent and added in step;
+// `v_first`: V's stage, which the exchange frees before dQ's product frees
+// K's, is loaded and multiplied first
+struct WgPairDqGeo : WgWideDqGeo {
+  static constexpr int tile = 32;
+  static constexpr int k_stages = 1;
+  static constexpr int v_stages = 1;
+  static constexpr int buffers = 2;
+  static constexpr bool exchange = true;
+  static constexpr bool v_first = true;
+  static constexpr int kv_panel = tile * 128;
+  static constexpr int kv_tile = panels * kv_panel;
+  static constexpr int pfloats = 2 * rows * tile;  // an inbox buffer
+  static constexpr size_t bytes = 1024 + 2 * (size_t)panels * q_panel +
+                                  (size_t)(k_stages + v_stages) * kv_tile +
+                                  sizeof(float) * buffers * pfloats;
+  static_assert(bytes <= kSmemMax, "paired Hopper dQ shared memory");
+  static_assert(2 * sizeof(float) * rows * tile == panels / 2 * kv_panel,
+                "a warpgroup's S and dP partials fill its half of V's stage");
 };
 
 constexpr int kPairRead = 8;  // named barrier: the consumers read the inbox
@@ -3122,35 +3154,42 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     dkv_wg_block<true, kPairCluster>(MV2_DKV_WG_ARGS(dk));
 }
 
-__global__ void __launch_bounds__(kWgThreads, 1)
-    bwd_dq_wg_wide_kernel(const __grid_constant__ CUtensorMap map_q,
-                          const __grid_constant__ CUtensorMap map_k,
-                          const __grid_constant__ CUtensorMap map_v,
-                          const __grid_constant__ CUtensorMap map_do,
-                          const bf16* __restrict__ bias,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          bf16* __restrict__ dq, float* __restrict__ dbias,
-                          int n, int m, int d, int q_tiles, int bias_groups,
-                          int causal, float scale) {
-  typedef WgWideDqGeo G;
+// The wide dQ of one block, alone (C = 1) or rank r of a pair on head
+// columns [kWgWideMax r, kWgWideMax (r + 1)) with the pair's own stages
+// (WgPairDqGeo)
+template <int C>
+__device__ __forceinline__ void dq_wg_block(
+    const CUtensorMap* map_q, const CUtensorMap* map_k,
+    const CUtensorMap* map_v, const CUtensorMap* map_do,
+    const bf16* __restrict__ bias, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dq,
+    float* __restrict__ dbias, int n, int m, int d, int q_tiles,
+    int bias_groups, int causal, float scale) {
+  constexpr bool pair = C > 1;
+  typedef std::conditional_t<pair, WgPairDqGeo, WgWideDqGeo> G;
+  typedef WgPairDqGeo PG;  // a pair's inbox
   constexpr int T = G::tile, NB = T / 8, H = kWgWideHalf;
   // the panels of a warpgroup's partial S and dP
   constexpr int PW = G::exchange ? G::panels / 2 : G::panels;
   constexpr int KS = G::k_stages, VS = G::v_stages;
   extern __shared__ unsigned char wg_smem[];
   __shared__ __align__(8) uint64_t qbar, kfull[KS], kempty[KS], vfull[VS],
-      vempty[VS];
+      vempty[VS], pfull[PG::buffers], pread[PG::buffers];
   unsigned char* qs = align1024(wg_smem);
   unsigned char* dos = qs + G::panels * G::q_panel;
   unsigned char* ks = dos + G::panels * G::q_panel;
   unsigned char* vs = ks + KS * G::kv_tile;
+  // the peer's partial S and dP
+  float* inbox = reinterpret_cast<float*>(vs + VS * G::kv_tile);
 
-  const int bh = blockIdx.x / q_tiles;
-  const int q0 = (q_tiles - 1 - blockIdx.x % q_tiles) * G::rows;
+  const unsigned rank = pair ? cluster_rank() : 0u;
+  const int cb = G::D * rank;        // the block's first head column
+  const unsigned block = blockIdx.x / C;  // the cluster's index
+  const int bh = block / q_tiles;
+  const int q0 = (q_tiles - 1 - block % q_tiles) * G::rows;
   const int offset = m - n;
   // key tiles 0 .. tiles - 1: with causal, up to the last one the block's
-  // last row sees (dq_key_tiles)
+  // last row sees (dq_key_tiles); the same in both blocks of a pair
   const int k_end = causal ? min(m, min(q0 + G::rows, n) + offset) : m;
   const int tiles = (max(k_end, 0) + T - 1) / T;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -3165,44 +3204,54 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       mbar_init(&vfull[s], 1);
       mbar_init(&vempty[s], kWgConsumers / 32);
     }
+    if constexpr (pair) pair_init<PG::buffers>(pfull, pread);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  if constexpr (pair)
+    cluster_sync();
+  else
+    __syncthreads();
 
   if (warp >= kWgConsumers / 32) {  // the producer warpgroup
     reg_dealloc<kWgProducerRegs>();
     if (warp == kWgConsumers / 32 && lane == 0) {
       mbar_expect_tx(&qbar, 2 * G::panels * G::q_panel);
       for (int p = 0; p < G::panels; ++p) {
-        tma_load_3d(qs + p * G::q_panel, &map_q, &qbar, p * kSw128Cols, q0,
-                    bh);
-        tma_load_3d(dos + p * G::q_panel, &map_do, &qbar, p * kSw128Cols,
+        tma_load_3d(qs + p * G::q_panel, map_q, &qbar, cb + p * kSw128Cols,
+                    q0, bh);
+        tma_load_3d(dos + p * G::q_panel, map_do, &qbar, cb + p * kSw128Cols,
                     q0, bh);
       }
       for (int t = 0; t < tiles; ++t) {
         const int sk = t % KS, uk = t / KS, sv = t % VS, uv = t / VS;
-        if (uk > 0) mbar_wait(&kempty[sk], (uk - 1) & 1);
-        mbar_expect_tx(&kfull[sk], G::kv_tile);
-        for (int p = 0; p < G::panels; ++p)
-          tma_load_3d(ks + sk * G::kv_tile + p * G::kv_panel, &map_k,
-                      &kfull[sk], p * kSw128Cols, t * T, bh);
+        auto load_k = [&] {
+          if (uk > 0) mbar_wait(&kempty[sk], (uk - 1) & 1);
+          mbar_expect_tx(&kfull[sk], G::kv_tile);
+          for (int p = 0; p < G::panels; ++p)
+            tma_load_3d(ks + sk * G::kv_tile + p * G::kv_panel, map_k,
+                        &kfull[sk], cb + p * kSw128Cols, t * T, bh);
+        };
+        if constexpr (!G::v_first) load_k();
         if (uv > 0) mbar_wait(&vempty[sv], (uv - 1) & 1);
         mbar_expect_tx(&vfull[sv], G::kv_tile);
         for (int p = 0; p < G::panels; ++p)
-          tma_load_3d(vs + sv * G::kv_tile + p * G::kv_panel, &map_v,
-                      &vfull[sv], p * kSw128Cols, t * T, bh);
+          tma_load_3d(vs + sv * G::kv_tile + p * G::kv_panel, map_v,
+                      &vfull[sv], cb + p * kSw128Cols, t * T, bh);
+        if constexpr (G::v_first) load_k();  // V's stage frees first
       }
     }
   } else {  // two consumer warpgroups on the same 64 rows
     reg_alloc<kWgConsumerRegs>();
     const int wg = warp / 4, wq = warp % 4, g = lane >> 2, tq = lane & 3;
+    const int tid = threadIdx.x % 128;
     const int w0 = q0 + 16 * wq;  // the warp's first row
     const int ra = w0 + g;
     const int c0 = H * wg;        // the warpgroup's first dQ column
     const int p0 = G::exchange ? PW * wg : 0;  // its first score panel
     const bf16* bb =
         bias ? bias + (size_t)(bh % bias_groups) * n * m : nullptr;
-    float* dbb = dbias ? dbias + (size_t)bh * n * m : nullptr;
+    // d_bias from rank 0 alone
+    float* dbb = dbias && rank == 0 ? dbias + (size_t)bh * n * m : nullptr;
     const float scale_log2 = scale * kLog2e;
     // lse (base 2) and delta of rows ra and ra + 8, 0 past n
     float lse2[2], del[2];
@@ -3214,11 +3263,23 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     }
     const uint64_t qdesc = sw128_desc(qs + p0 * G::q_panel);
     const uint64_t ddesc = sw128_desc(dos + p0 * G::q_panel);
+    PairInbox<pair ? PG::buffers : 0, PG::pfloats> box(inbox, pfull, pread,
+                                                        rank);
     float acc[H / 2];
     zero_acc(acc);
     auto release = [&](uint64_t* bars, int s) {
       __syncwarp();
       if (lane == 0) mbar_arrive(&bars[s]);
+    };
+    // s += a b^T over the warpgroup's panels: S = Q K^T or dP = dO V^T
+    auto product = [&](float (&s)[T / 2], uint64_t adesc, uint64_t bdesc) {
+#pragma unroll
+      for (int p = 0; p < PW; ++p)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_bf16(s, adesc + ((p * G::q_panel) >> 4) + 2 * kk,
+                     bdesc + ((p * G::kv_panel) >> 4) + 2 * kk);
+      wgmma_commit();
     };
 
     mbar_wait(&qbar, 0);
@@ -3232,23 +3293,19 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       float sc[T / 2], dp[T / 2];  // S, then P, then dS; dP
       zero_acc(sc);
       zero_acc(dp);
-      mbar_wait(&kfull[sk], (t / KS) & 1);
-      wgmma_fence();
-#pragma unroll
-      for (int p = 0; p < PW; ++p)
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_bf16(sc, qdesc + ((p * G::q_panel) >> 4) + 2 * kk,
-                     kdesc + ((p * G::kv_panel) >> 4) + 2 * kk);
-      wgmma_commit();
-      mbar_wait(&vfull[sv], (t / VS) & 1);
-#pragma unroll
-      for (int p = 0; p < PW; ++p)
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_bf16(dp, ddesc + ((p * G::q_panel) >> 4) + 2 * kk,
-                     vdesc + ((p * G::kv_panel) >> 4) + 2 * kk);
-      wgmma_commit();
+      if constexpr (G::v_first) {
+        mbar_wait(&vfull[sv], (t / VS) & 1);
+        wgmma_fence();
+        product(dp, ddesc, vdesc);
+        mbar_wait(&kfull[sk], (t / KS) & 1);
+        product(sc, qdesc, kdesc);
+      } else {
+        mbar_wait(&kfull[sk], (t / KS) & 1);
+        wgmma_fence();
+        product(sc, qdesc, kdesc);
+        mbar_wait(&vfull[sv], (t / VS) & 1);
+        product(dp, ddesc, vdesc);
+      }
       if constexpr (G::exchange) {  // both partial sums, then the other's
         wgmma_wait<0>();
         fence_acc(sc);
@@ -3261,6 +3318,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       } else {
         wgmma_wait<1>();  // S is in; dP may still run
         fence_acc(sc);
+      }
+      if constexpr (pair) {  // S and dP = own + peer
+        box.send(t, sc, dp, wg, tid);
+        box.receive(t, sc, dp, tid);
       }
       // element 4j + e is (row ra + 8 (e / 2), key k0 + 8j + 2tq + e % 2);
       // uniform branches: the bias, and the element test of a masked tile
@@ -3323,7 +3384,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       keep_live(da);
       release(kempty, sk);
     }
-    store_acc<H>(dq + (size_t)bh * n * d + c0, acc, ra, n, scale, d - c0, d);
+    store_acc<H>(dq + (size_t)bh * n * d + cb + c0, acc, ra, n, scale,
+                 d - cb - c0, d);
     // dS of the key tiles the causal skip passed over is 0
     const int skipped = m - tiles * T;
     if (dbb && skipped > 0)
@@ -3333,6 +3395,30 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         for (int c = lane; c < skipped; c += 32) row[c] = 0.f;
       }
   }
+  if constexpr (pair) cluster_sync();  // the peer may still write here
+}
+
+#define MV2_DQ_WG_PARAMS                                                  \
+  const __grid_constant__ CUtensorMap map_q,                              \
+      const __grid_constant__ CUtensorMap map_k,                          \
+      const __grid_constant__ CUtensorMap map_v,                          \
+      const __grid_constant__ CUtensorMap map_do,                         \
+      const bf16 *__restrict__ bias, const float *__restrict__ lse,       \
+      const float *__restrict__ delta, bf16 *__restrict__ dq,             \
+      float *__restrict__ dbias, int n, int m, int d, int q_tiles,        \
+      int bias_groups, int causal, float scale
+#define MV2_DQ_WG_ARGS                                                     \
+  &map_q, &map_k, &map_v, &map_do, bias, lse, delta, dq, dbias, n, m, d,   \
+      q_tiles, bias_groups, causal, scale
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+    bwd_dq_wg_wide_kernel(MV2_DQ_WG_PARAMS) {
+  dq_wg_block<1>(MV2_DQ_WG_ARGS);
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+    bwd_dq_wg_pair_kernel(MV2_DQ_WG_PARAMS) {
+  dq_wg_block<kPairCluster>(MV2_DQ_WG_ARGS);
 }
 
 // ---- heads over 256: the wide kernels, both routes -------------------------
@@ -4383,11 +4469,12 @@ inline cudaError_t wide_attributes(int* out, int kernel) {
 
 // the wide 'mma' kernel `kernel` (0 dQ, 1 dK/dV, 2 forward) that a head of
 // padded width `width` over kNarrowMax runs: the Hopper wide kernels up to
-// kWgWideMax, the paired forward and dK/dV up to kWgPairMax, else the wide
-// kernels
+// kWgWideMax, the paired ones up to kWgPairMax, else the wide kernels
 inline cudaError_t wide_attributes(int* out, int kernel, int width) {
   constexpr int W = kWgThreads;
   const bool pair = width > kWgWideMax && width <= kWgPairMax;
+  if (pair && kernel == 0)
+    return pair_attributes(out, bwd_dq_wg_pair_kernel, WgPairDqGeo::bytes);
   if (pair && kernel == 1)
     return pair_attributes(out, bwd_dkv_wg_pair_kernel, WgPairDkvGeo::bytes);
   if (pair && kernel == 2)
@@ -4537,8 +4624,7 @@ inline cudaError_t launch_dq_wg_wide(const void* q, const void* k,
   return cudaSuccess;
 }
 
-// a head the paired kernels take ('mma', kWgWideMax < d <= kWgPairMax);
-// its dQ stays on the wide kernel
+// a head the paired kernels take ('mma', kWgWideMax < d <= kWgPairMax)
 inline bool wg_pair(int route, int d) {
   return route == kRouteMma && d > kWgWideMax && d <= kWgPairMax;
 }
@@ -4586,6 +4672,29 @@ inline cudaError_t launch_dkv_wg_pair(const void* q, const void* k,
                      G::bytes, stream, mq, mk, mv, mdo, (const bf16*)bias,
                      (const bf16*)dout, lse, delta, (bf16*)dk, (bf16*)dv, n,
                      m, d, tiles, groups, causal, scale);
+}
+
+// grid (bh x query blocks x kPairCluster): a cluster a block of rows
+inline cudaError_t launch_dq_wg_pair(const void* q, const void* k,
+                                     const void* v, const void* bias,
+                                     const void* dout, const float* lse,
+                                     const float* delta, void* dq,
+                                     float* dbias, int bh, int n, int m,
+                                     int d, int groups, int causal,
+                                     float scale, cudaStream_t stream) {
+  typedef WgPairDqGeo G;
+  const int tiles = tiles_of(n, G::rows);
+  if (!grid_fits(bh, kPairCluster * tiles)) return cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err = head_map(&mq, q, bh, n, d, G::rows);
+  if (err == cudaSuccess) err = head_map(&mdo, dout, bh, n, d, G::rows);
+  if (err == cudaSuccess) err = head_map(&mk, k, bh, m, d, G::tile);
+  if (err == cudaSuccess) err = head_map(&mv, v, bh, m, d, G::tile);
+  if (err != cudaSuccess) return err;
+  return launch_pair(bwd_dq_wg_pair_kernel,
+                     dim3((unsigned)(kPairCluster * bh * tiles)), G::bytes,
+                     stream, mq, mk, mv, mdo, (const bf16*)bias, lse, delta,
+                     (bf16*)dq, dbias, n, m, d, tiles, groups, causal, scale);
 }
 
 }  // namespace flash
@@ -4661,6 +4770,10 @@ int mv2_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
       return mv2::flash::launch_dq_wg_wide(
           q, k, v, bias, dout, (const float*)lse, (const float*)delta, dq,
           (float*)dbias, bh, n, m, d, groups, causal, scale, s);
+    if (mv2::flash::wg_pair(route, d))
+      return mv2::flash::launch_dq_wg_pair(
+          q, k, v, bias, dout, (const float*)lse, (const float*)delta, dq,
+          (float*)dbias, bh, n, m, d, groups, causal, scale, s);
     return mv2::flash::launch_dq_wide(
         {q, k, v, bias, dout, (const float*)lse, (const float*)delta, dq,
          nullptr, nullptr, (float*)dbias, n, m, d, 0, groups, causal, scale},
@@ -4702,8 +4815,8 @@ int mv2_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
 // What the CUDA runtime reports for the 'mma' kernel `kernel` (0 dQ, 1
 // dK/dV, 2 forward; 3, 4, 5 the same kernels' padded instantiations, for
 // d < width; 6, 7, 8 the kernels a head over 256 of padded width `width`
-// runs: the Hopper wide kernels up to 512, the paired forward and dK/dV up
-// to 1024, else the wide kernels)
+// runs: the Hopper wide kernels up to 512, the paired ones up to 1024, else
+// the wide kernels)
 // at the padded width `width` (16, 32, 64, 128 or 256, or the head over
 // 256), into out (7 ints): registers a thread, local memory a thread
 // (spills), static shared memory, the dynamic shared memory its launcher

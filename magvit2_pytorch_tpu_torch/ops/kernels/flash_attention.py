@@ -37,9 +37,9 @@ multiple of 8, run it up to :data:`NARROW_MAX` at the next of the padded
 of 256, one a block, the scores summed over column slices; in bf16 all
 three up to :data:`WG_WIDE_MAX` on the Hopper wide kernels, whose two
 consumer warpgroups split the output columns; dK/dV and dQ form their
-scores once a block from their two partial sums; the forward and dK/dV up
-to :data:`WG_PAIR_MAX` on clusters of two such blocks that split the head
-and sum their partial scores across the pair), and
+scores once a block from their two partial sums; all three up to
+:data:`WG_PAIR_MAX` on clusters of two such blocks that split the head and
+sum their partial scores across the pair), and
 :func:`flash_attention` pads any other head with zero columns up to the next
 multiple of 8 (on the CPU too). float32 (CUDA cores, no TF32) and bfloat16
 (tensor cores). All three kernels take the
@@ -110,18 +110,24 @@ WG_WIDE_DQ_EXCHANGE = True
 WG_WIDE_DKV_KEYS = 64
 WG_WIDE_DKV_TILE = 16
 WG_WIDE_DKV_EXCHANGE = True
-# the forward and dK/dV at heads of WG_WIDE_MAX + 1 to WG_PAIR_MAX ('mma';
-# csrc/flash_attention.cu kWgPairMax, WgPairFwdGeo, WgPairDkvGeo): clusters
-# of WG_PAIR_CLUSTER blocks, each the Hopper wide block on WG_WIDE_MAX
-# columns of the head with its geometry (WG_WIDE_FWD_*, WG_WIDE_DKV_*), the
-# scores summed across the pair through an inbox of the peer's partial
-# scores: the forward's two buffers (it sends a tile's partial before it
-# adds the peer's of the tile before), dK/dV's one. dQ there stays on the
-# wide kernel.
+# the three kernels at heads of WG_WIDE_MAX + 1 to WG_PAIR_MAX ('mma';
+# csrc/flash_attention.cu kWgPairMax, WgPairFwdGeo, WgPairDkvGeo,
+# WgPairDqGeo): clusters of WG_PAIR_CLUSTER blocks, each the Hopper wide
+# block on WG_WIDE_MAX columns of the head, the scores (and dP) summed
+# across the pair through an inbox of the peer's partial sums. The forward
+# and dK/dV keep the wide geometry (WG_WIDE_FWD_*, WG_WIDE_DKV_*): the
+# forward's two buffers (it sends a tile's partial before it adds the
+# peer's of the tile before), dK/dV's one. dQ's block takes keys a tile,
+# stages of K's ring and of V's and inbox buffers (sent and added in step)
+# of its own.
 WG_PAIR_MAX = 2 * WG_WIDE_MAX         # kWgPairMax
 WG_PAIR_CLUSTER = 2                   # kPairCluster
 WG_PAIR_FWD_BUFFERS = 2
 WG_PAIR_DKV_BUFFERS = 1
+WG_PAIR_DQ_TILE = 32
+WG_PAIR_DQ_K_STAGES = 1
+WG_PAIR_DQ_V_STAGES = 1
+WG_PAIR_DQ_BUFFERS = 2
 MASKED = -1e30
 
 
@@ -380,14 +386,14 @@ def mma_kernel(kernel: str, width: int, exact: bool = True) -> str:
     :data:`EXACT_WIDTH` the exact build or (``exact=False``) the padded one;
     at 128 and 256 the Hopper kernels (``*_wg_mma_kernel``) for every head;
     over :data:`NARROW_MAX` the Hopper wide kernels (``*_wg_wide_kernel``)
-    up to :data:`WG_WIDE_MAX`, the paired forward and dK/dV
-    (``*_wg_pair_kernel``) up to :data:`WG_PAIR_MAX`, and the wide kernels
-    (``*_wide_mma_kernel``) for the rest."""
+    up to :data:`WG_WIDE_MAX`, the paired ones (``*_wg_pair_kernel``) up
+    to :data:`WG_PAIR_MAX`, and the wide kernels (``*_wide_mma_kernel``)
+    for the rest."""
     stem = {'fwd': 'fwd', 'dq': 'bwd_dq', 'dkv': 'bwd_dkv'}[kernel]
     if width > NARROW_MAX:
         if width <= WG_WIDE_MAX:
             return f'{stem}_wg_wide_kernel'
-        if width <= WG_PAIR_MAX and kernel != 'dq':
+        if width <= WG_PAIR_MAX:
             return f'{stem}_wg_pair_kernel'
         return f'{stem}_wide_mma_kernel'
     if width > EXACT_WIDTH:

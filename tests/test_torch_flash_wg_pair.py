@@ -1,19 +1,23 @@
 """The paired Hopper flash-attention kernels' geometry on the CPU: the
-forward and dK/dV at heads of 513 to 1024 (csrc/flash_attention.cu
-``fwd_wg_pair_kernel``, ``bwd_dkv_wg_pair_kernel``), each a 2-block cluster
-whose blocks split the head in halves of 512 columns, each the Hopper wide
-block with its geometry (its causal skip: test_torch_flash_wg_wide.py).
-The constants that the wrapper exposes against the source, and test-local
-models of the two loops against the plain versions:
+forward, dK/dV and dQ at heads of 513 to 1024 (csrc/flash_attention.cu
+``fwd_wg_pair_kernel``, ``bwd_dkv_wg_pair_kernel``,
+``bwd_dq_wg_pair_kernel``), each a 2-block cluster whose blocks split the
+head in halves of 512 columns, each the Hopper wide block (the forward and
+dK/dV with its geometry, dQ on stages of its own; the causal skip:
+test_torch_flash_wg_wide.py). The constants that the wrapper exposes
+against the source, the kernel each head names, and test-local models of
+the three loops against the plain versions:
 each block's partial scores (and dP) over its own half, formed whole in
 each warpgroup or from the two warpgroups' partial sums as each geometry
 says, the block's copy pushed to its peer and S = own + peer in each block
 (bit for bit alike in both, with P and dS), each warpgroup's 256 output
-columns of its block's half, rank 0 alone writing lse, the rows that see no
-key and dK/dV's grid z, in float64 within 1e-6 of the largest value (the
-same sums in another order) and in float32 within 1e-5; the plain versions
-at d = 1024 against the JAX package's flash attention. Inputs come from
-numpy seeds. The kernels run only on the card (chip_smoke.py)."""
+columns of its block's half, rank 0 alone writing lse and d_bias, the rows
+that see no key, dK/dV's grid z, and dQ's rings and inbox buffers as its
+layout fills and frees them, in float64 within 1e-6 of the largest value
+(the same sums in another order) and in float32 within 1e-5; the plain
+versions and the pair models at d = 1024 against the JAX package's flash
+attention. Inputs come from numpy seeds. The kernels run only on the card
+(chip_smoke.py)."""
 
 import itertools
 import math
@@ -31,6 +35,7 @@ from magvit2_pytorch_tpu_torch.ops.kernels import flash_attention as fa
 from test_torch_flash_heads import _jax_flash_grads, _port_grads, _qkv, _rand
 from test_torch_flash_wg import (LOG2E, _close, _masked, _pad, _rows,
                                  _struct, _value)
+from test_torch_flash_wg_wide import _geometry as _wide_geometry
 
 torch.set_num_threads(1)
 
@@ -51,7 +56,8 @@ def _source_constants() -> dict:
     return env
 
 
-BASES = {'WgPairFwdGeo': 'WgWideFwdGeo', 'WgPairDkvGeo': 'WgWideDkvGeo'}
+BASES = {'WgPairFwdGeo': 'WgWideFwdGeo', 'WgPairDkvGeo': 'WgWideDkvGeo',
+         'WgPairDqGeo': 'WgWideDqGeo'}
 
 
 def _geometry(struct: str) -> dict:
@@ -80,18 +86,21 @@ def test_pair_limits_match_the_source():
     assert 2 * WG_COLS == HALF
 
 
-@pytest.mark.parametrize('struct', ['WgPairFwdGeo', 'WgPairDkvGeo'])
+@pytest.mark.parametrize('struct', ['WgPairFwdGeo', 'WgPairDkvGeo',
+                                    'WgPairDqGeo'])
 def test_pair_geometry_constants_match_the_source(struct):
     """WgPairFwdGeo and WgPairDkvGeo, each the wide block's geometry
     (WG_WIDE_FWD_*, WG_WIDE_DKV_*) with an inbox (WG_PAIR_FWD_BUFFERS,
-    WG_PAIR_DKV_BUFFERS): a block's 512 columns in 8 panels, 64 rows (or
-    keys) a block, the tile, whether the two warpgroups' partial sums make
-    the block's partial (the forward's S whole in each warpgroup, dK/dV's
-    summed), the inbox buffers of the peer's copy (one consumer thread's
-    partial floats for each of the 128 threads, S and dP in the dK block;
-    two in the forward, which sends a tile ahead), and the block's shared
-    memory, the wide block's and the inbox, under the 227 KB a block
-    takes."""
+    WG_PAIR_DKV_BUFFERS), and WgPairDqGeo, the wide dQ's block on its own
+    tile, stages and inbox (WG_PAIR_DQ_*): a block's 512 columns in 8
+    panels, 64 rows (or keys) a block, the tile, whether the two
+    warpgroups' partial sums make the block's partial (the forward's S
+    whole in each warpgroup, dK/dV's and dQ's summed), the inbox buffers of
+    the peer's copy (one consumer thread's partial floats for each of the
+    128 threads, S and dP in the dK block and in dQ; two in the forward,
+    which sends a tile ahead), and the block's shared memory, the wide
+    block's (dQ's on its own stages) and the inbox, under the 227 KB a
+    block takes."""
     geo = _geometry(struct)
     assert geo['D'] == HALF
     assert geo['panels'] == HALF // PANEL == 8
@@ -106,6 +115,23 @@ def test_pair_geometry_constants_match_the_source(struct):
         assert geo['bytes'] == 1024 + 8 * 64 * 128 + 2 * geo['stages'] * (
             8 * geo['tile'] * 128) + 4 * (geo['xfloats'] + geo['buffers']
                                           * geo['pfloats'] + HALF)
+    elif struct == 'WgPairDqGeo':
+        assert geo['rows'] == fa.WG_WIDE_DQ_ROWS == 64
+        assert geo['tile'] == fa.WG_PAIR_DQ_TILE
+        assert geo['k_stages'] == fa.WG_PAIR_DQ_K_STAGES
+        assert geo['v_stages'] == fa.WG_PAIR_DQ_V_STAGES
+        assert geo['buffers'] == fa.WG_PAIR_DQ_BUFFERS
+        assert geo['exchange'] is fa.WG_WIDE_DQ_EXCHANGE is True
+        assert geo['pfloats'] == 2 * 128 * (geo['tile'] // 2)
+        # Q and dO once, the stages of K's and V's half-tiles, the inbox
+        assert geo['bytes'] == 1024 + 2 * 8 * 64 * 128 + (
+            geo['k_stages'] + geo['v_stages']) * 8 * geo['tile'] * 128 + \
+            4 * geo['buffers'] * geo['pfloats']
+        # a warpgroup's S and dP partials fill its half of a V stage; the
+        # wide dQ's own stages leave no room for one inbox buffer
+        assert 2 * 4 * 64 * geo['tile'] == 4 * geo['kv_panel']
+        assert _wide_geometry('WgWideDqGeo')['bytes'] + \
+            4 * geo['pfloats'] > SMEM_MAX
     else:
         assert geo['keys'] == fa.WG_WIDE_DKV_KEYS == 64
         assert geo['tile'] == fa.WG_WIDE_DKV_TILE
@@ -273,6 +299,119 @@ def _dkv_pair_model(q, k, v, bias, out, lse, dout, causal, scale):
     return grads['dk'][..., :d], grads['dv'][..., :d]
 
 
+class _Ring:
+    """Slots of a ring (K's or V's stages, a block's inbox buffers), filled
+    and freed in the order the kernel does: step i takes slot i % slots,
+    which must be free again (freed in its step i - slots)."""
+
+    def __init__(self, slots):
+        self.held = [None] * slots
+
+    def put(self, i, value=None):
+        k = i % len(self.held)
+        assert self.held[k] is None, f'step {i}: slot {k} still holds ' \
+            f'step {self.held[k][0]}'
+        self.held[k] = (i, value)
+
+    def get(self, i):
+        step, value = self.held[i % len(self.held)]
+        assert step == i
+        return value
+
+    def free(self, i):
+        self.get(i)
+        self.held[i % len(self.held)] = None
+
+
+def _dq_pair_model(q, k, v, bias, out, lse, dout, causal, scale):
+    """The paired dQ's loop: per cluster of WG_WIDE_DQ_ROWS query rows (16 a
+    warp, both warpgroups of both blocks on the same rows), the key tiles of
+    dq_key_tiles of WG_PAIR_DQ_TILE keys through K's and V's rings of
+    WG_PAIR_DQ_K_STAGES and WG_PAIR_DQ_V_STAGES stages (V's stage freed
+    after the exchange, K's after dQ's product); each block's partial S and
+    dP over its half from the two warpgroups' partial sums, pushed into the
+    peer's inbox of WG_PAIR_DQ_BUFFERS buffers and own + peer added in step
+    in each block (S, dP, P and dS bit for bit alike in both); P = 2^(S
+    scale log2e + bias log2e - lse log2e) with each warp's element test
+    where tile_masked asks for it, dS = P (dP - delta), dQ += dS K on each
+    warpgroup's 256 columns of its block's half; rank 0 writes its float32
+    dS as d_bias in every visited tile and zeros in the skipped ones; then
+    dQ *= scale, the columns past d not stored. Returns dq and the (b h, n,
+    m) dS, NaN where nothing was written."""
+    b, h, n, d = q.shape
+    m = k.shape[2]
+    rows, tile = fa.WG_WIDE_DQ_ROWS, fa.WG_PAIR_DQ_TILE
+    qp, kp, vp, dop = (_pad(t, fa.WG_PAIR_MAX) for t in (q, k, v, dout))
+    delta = (dout * out).sum(dim=-1)
+    dq = torch.full_like(qp, math.nan)
+    ds_all = torch.full((b * h, n, m), math.nan, dtype=q.dtype)
+    for bi, hi in itertools.product(range(b), range(h)):
+        bb = None if bias is None else bias[(bi * h + hi) % bias.shape[0]]
+        ds_head = ds_all[bi * h + hi]
+        for q0 in range(0, n, rows):
+            tiles = fa.dq_key_tiles(q0, rows, n, m, causal, tile)
+            for w0 in range(q0, q0 + rows, 16):
+                qw, dow = _rows(qp[bi, hi], w0, 16), _rows(dop[bi, hi], w0, 16)
+                ls = _rows(lse[bi, hi], w0, 16)
+                de = _rows(delta[bi, hi], w0, 16)
+                acc = [[torch.zeros(16, WG_COLS, dtype=q.dtype)
+                        for _ in _columns(rank)] for rank in (0, 1)]
+                r1 = min(w0 + 16, n) - w0      # the warp's rows inside n
+                k_ring = _Ring(fa.WG_PAIR_DQ_K_STAGES)
+                v_ring = _Ring(fa.WG_PAIR_DQ_V_STAGES)
+                inbox = [_Ring(fa.WG_PAIR_DQ_BUFFERS) for _ in (0, 1)]
+
+                def scores(t):
+                    """Tile t's K and V loaded, each block's partial S and
+                    dP, V's stage freed, each sent to the peer's inbox; the
+                    blocks' own partials."""
+                    k0 = t * tile
+                    k_ring.put(t, _rows(kp[bi, hi], k0, tile))
+                    v_ring.put(t, _rows(vp[bi, hi], k0, tile))
+                    kk, vv = k_ring.get(t), v_ring.get(t)
+                    own = [(_block_partial(qw, kk, rank, True),
+                            _block_partial(dow, vv, rank, True))
+                           for rank in (0, 1)]
+                    v_ring.free(t)
+                    for rank in (0, 1):
+                        inbox[1 - rank].put(t, own[rank])
+                    return own
+
+                def update(t, own):
+                    """Tile t's peer partials added, P, dS and dQ += dS K
+                    in each block, K's stage freed."""
+                    k0 = t * tile
+                    kk = k_ring.get(t)
+                    ds = []
+                    for rank in (0, 1):
+                        peer = inbox[rank].get(t)
+                        inbox[rank].free(t)
+                        s, dp = (a + b for a, b in zip(own[rank], peer))
+                        x = s * (scale * LOG2E) - ls[:, None] * LOG2E
+                        if bb is not None:
+                            x = x + _rows(_rows(bb, w0, 16).T, k0,
+                                          tile).T * LOG2E
+                        p = torch.exp2(_masked(x, w0, 16, k0, tile, n, m,
+                                               causal))
+                        ds.append(p * (dp - de[:, None]))
+                        acc[rank] = [a + ds[rank] @ kk[:, cols]
+                                     for a, cols in zip(acc[rank],
+                                                        _columns(rank))]
+                    assert torch.equal(ds[0], ds[1])
+                    k_ring.free(t)
+                    c1 = min(k0 + tile, m) - k0
+                    if r1 > 0:                   # rank 0's d_bias
+                        ds_head[w0:w0 + r1, k0:k0 + c1] = ds[0][:r1, :c1]
+
+                for t in range(tiles):
+                    update(t, scores(t))
+                if r1 > 0:
+                    dq[bi, hi, w0:w0 + r1] = torch.cat(
+                        acc[0] + acc[1], dim=1)[:r1] * scale
+            ds_head[q0:q0 + rows, tiles * tile:] = 0    # rank 0
+    return dq[..., :d], ds_all
+
+
 def _inputs(d, m, causal, dtype):
     rng = np.random.default_rng(13 + d + m + causal)
     b, h, n = 1, 2, 130
@@ -330,6 +469,74 @@ def test_the_pair_dkv_loop_matches_the_plain_version(d, m, causal,
         _close(dv, want_dv, tol)
 
 
+@pytest.mark.parametrize('d,m,causal,with_bias', PAIR_CASES)
+def test_the_pair_dq_loop_matches_the_plain_version(d, m, causal,
+                                                    with_bias):
+    """The paired dQ's loop against ``flash_attention_bwd_ref``'s dq on (1,
+    2, 130, d) / m keys (70: with causal the first 60 rows see none, whose
+    dq and dS must be exactly 0), with an (h, n, m) bias or none: dq, and
+    rank 0's dS as d_bias, every element written, float64 within 1e-6 of
+    the largest value, float32 within 1e-5; the two blocks' dS bit for bit
+    alike and the committed layout's rings and inbox never overwritten
+    before they are read (asserted in the loop)."""
+    for dtype, tol in ((torch.float64, 1e-6), (torch.float32, 1e-5)):
+        q, k, v, dout, bias = _inputs(d, m, causal, dtype)
+        bias = bias if with_bias else None
+        scale = d ** -0.5
+        out, lse = fa.flash_attention_ref(q, k, v, causal, scale, bias)
+        want_dq, _, _, want_db = fa.flash_attention_bwd_ref(
+            q, k, v, bias, out, lse, dout, causal, scale)
+        dq, ds = _dq_pair_model(q, k, v, bias, out, lse, dout, causal, scale)
+        assert not dq.isnan().any() and not ds.isnan().any()
+        _close(dq, want_dq, tol)
+        blind = fa.no_key_rows(130, m, causal)
+        assert not dq[:, :, :blind].any()
+        assert not ds[:, :blind].any()
+        if bias is not None:
+            _close(fa._reduce_bias_groups(ds, bias), want_db, tol)
+
+
+@pytest.mark.parametrize('tile,k_stages,v_stages,buffers', [
+    (32, 1, 1, 2),      # (A), committed
+    (32, 1, 1, 1),      # (A) with one inbox buffer
+    (16, 3, 2, 2)])     # (B)
+def test_the_pair_dq_layouts(monkeypatch, tile, k_stages, v_stages,
+                             buffers):
+    """The paired dQ's layouts tried on the card (tools/flash_heads_probe.py
+    ``pair_dq_*``) in the loop at d = 776 / 134 keys causal with a bias,
+    float64: each matches the plain version within 1e-6, its rings and
+    inbox never overwritten before they are read."""
+    for name, value in (('TILE', tile), ('K_STAGES', k_stages),
+                        ('V_STAGES', v_stages), ('BUFFERS', buffers)):
+        monkeypatch.setattr(fa, f'WG_PAIR_DQ_{name}', value)
+    q, k, v, dout, bias = _inputs(776, 134, True, torch.float64)
+    scale = 776 ** -0.5
+    out, lse = fa.flash_attention_ref(q, k, v, True, scale, bias)
+    want_dq, _, _, want_db = fa.flash_attention_bwd_ref(
+        q, k, v, bias, out, lse, dout, True, scale)
+    dq, ds = _dq_pair_model(q, k, v, bias, out, lse, dout, True, scale)
+    _close(dq, want_dq, 1e-6)
+    _close(fa._reduce_bias_groups(ds, bias), want_db, 1e-6)
+
+
+@pytest.mark.parametrize('d', [512, 520, 776, 1024, 1032])
+def test_each_pair_head_names_its_dq_kernel(d):
+    """dQ at a bf16 head of WG_WIDE_MAX + 1 to WG_PAIR_MAX runs the paired
+    dQ, beside the paired forward and dK/dV; at WG_WIDE_MAX the Hopper wide
+    dQ and past WG_PAIR_MAX the wide mma.sync dQ: names of kernels in the
+    source."""
+    src = (_build.SOURCE_DIR / 'flash_attention.cu').read_text()
+    name = fa.mma_kernel('dq', d)
+    kind = ('wg_wide' if d <= fa.WG_WIDE_MAX else
+            'wg_pair' if d <= fa.WG_PAIR_MAX else 'wide_mma')
+    assert name == f'bwd_dq_{kind}_kernel'
+    if kind == 'wg_pair':
+        assert {fa.mma_kernel(k, d) for k in ('fwd', 'dkv')} == {
+            'fwd_wg_pair_kernel', 'bwd_dkv_wg_pair_kernel'}
+    assert re.search(rf'__global__ void __launch_bounds__\([^)]*\)\s+'
+                     rf'{name}\(', src), name
+
+
 @pytest.mark.parametrize('exchange', [False, True])
 def test_the_pair_scores_are_alike_in_both_blocks_in_float32(exchange):
     """S (and so P and dS) that the two blocks hold after the hand-off are
@@ -356,9 +563,9 @@ def test_the_plain_version_at_1024_matches_the_jax_flash_attention(
     mode (out atol 2e-5 rtol 1e-4, lse atol 1e-5), the gradients through
     the port's Function (on the CPU its plain backward) against ``jax.grad``
     through the Pallas backward in interpret mode, and the paired loops'
-    out, dk and dv against the same, each within 1e-5 of its largest value
-    (the JAX kernel sums over the head in another order); with an (h, n, m)
-    bias also d_bias."""
+    out, dq, dk and dv against the same, each within 1e-5 of its largest
+    value (the JAX kernel sums over the head in another order); with an (h,
+    n, m) bias also d_bias, the plain backward's and the paired dQ's."""
     n, m, d = 70, 74, 1024
     q, k, v = _qkv(1, 1, n, m, d, 40)
     b = _rand((1, n, m), 44) if with_bias else None
@@ -385,3 +592,8 @@ def test_the_plain_version_at_1024_matches_the_jax_flash_attention(
     dk, dv = _dkv_pair_model(qt, kt, vt, bt, out, lse, gt, True, scale)
     _close(dk, torch.from_numpy(np.array(want[1])), 1e-5)
     _close(dv, torch.from_numpy(np.array(want[2])), 1e-5)
+    dq, ds = _dq_pair_model(qt, kt, vt, bt, out, lse, gt, True, scale)
+    _close(dq, torch.from_numpy(np.array(want[0])), 1e-5)
+    if b is not None:
+        _close(fa._reduce_bias_groups(ds, bt),
+               torch.from_numpy(np.array(want[3])), 1e-5)

@@ -455,15 +455,15 @@ def test_the_wide_dq_loop_matches_the_jax_custom_vjp(with_bias):
 @pytest.mark.parametrize('d', [264, 512, 520, 1024, 1032])
 def test_each_wide_head_names_its_kernel(d):
     """Heads of 257 to WG_WIDE_MAX run the Hopper wide forward, dQ and
-    dK/dV; heads of WG_WIDE_MAX + 1 to WG_PAIR_MAX the paired forward and
-    dK/dV, with dQ still on the wide kernel; wider heads the three wide
-    kernels: the names ``mma_kernel`` gives are kernels of the source."""
+    dK/dV; heads of WG_WIDE_MAX + 1 to WG_PAIR_MAX the paired forward, dQ
+    and dK/dV; wider heads the three wide kernels: the names
+    ``mma_kernel`` gives are kernels of the source."""
     src = (_build.SOURCE_DIR / 'flash_attention.cu').read_text()
     names = {kernel: fa.mma_kernel(kernel, d) for kernel in fa.MMA_KERNELS}
     if d <= fa.WG_WIDE_MAX:
         kind = {'dq': 'wg_wide', 'dkv': 'wg_wide', 'fwd': 'wg_wide'}
     elif d <= fa.WG_PAIR_MAX:
-        kind = {'dq': 'wide_mma', 'dkv': 'wg_pair', 'fwd': 'wg_pair'}
+        kind = dict.fromkeys(fa.MMA_KERNELS, 'wg_pair')
     else:
         kind = dict.fromkeys(fa.MMA_KERNELS, 'wide_mma')
     assert names == {

@@ -59,9 +59,11 @@ B, N, M = 17, 4096, 4100
 
 
 def struct_sub(text, struct, old, new):
-    """``old`` replaced by ``new`` inside ``struct <struct> { ... };`` (in
-    the whole file when struct is None)."""
-    i = 0 if struct is None else text.index(f'struct {struct} {{')
+    """``old`` replaced by ``new`` inside ``struct <struct> { ... };`` or
+    ``struct <struct> : <base> { ... };`` (in the whole file when struct is
+    None)."""
+    i = 0 if struct is None else re.search(
+        rf'struct {struct}( : \w+)? {{', text).start()
     j = len(text) if struct is None else text.index('};', i)
     if old not in text[i:j]:
         sys.exit(f'{old!r} not in {struct}: update VARIANTS')
@@ -128,7 +130,27 @@ VARIANTS = {
          ';'),
         (None, 'box.send(i, sc, wg, tid), box.receive(i, sc, tid);', ';')),
 }
-UNCHECKED = {'pair_fwd_nohandoff', 'pair_dkv_nohandoff'}
+# the paired dQ's layouts: WgPairDqGeo as committed is (A), 32-key tiles,
+# one stage of K and one of V, two inbox buffers, V's stage taken and
+# multiplied first, S and dP sent and added in step. (B) 16-key tiles,
+# three stages of K and two of V; (A) with one inbox buffer, and with K
+# first; (timing only, UNCHECKED) (A) and (B) without the hand-off
+PAIR_DQ_TILE16 = (('WgPairDqGeo', 'tile = 32;', 'tile = 16;'),
+                  ('WgPairDqGeo', 'k_stages = 1;', 'k_stages = 3;'),
+                  ('WgPairDqGeo', 'v_stages = 1;', 'v_stages = 2;'))
+PAIR_DQ_NOHANDOFF = ((None, """        box.send(t, sc, dp, wg, tid);
+        box.receive(t, sc, dp, tid);
+""", ''),)
+VARIANTS.update({
+    'pair_dq_tile16': PAIR_DQ_TILE16,
+    'pair_dq_one_buffer': (('WgPairDqGeo', 'buffers = 2;', 'buffers = 1;'),),
+    'pair_dq_k_first': (('WgPairDqGeo', 'v_first = true;',
+                         'v_first = false;'),),
+    'pair_dq_nohandoff': PAIR_DQ_NOHANDOFF,
+    'pair_dq_tile16_nohandoff': PAIR_DQ_TILE16 + PAIR_DQ_NOHANDOFF,
+})
+UNCHECKED = {'pair_fwd_nohandoff', 'pair_dkv_nohandoff', 'pair_dq_nohandoff',
+             'pair_dq_tile16_nohandoff'}
 
 
 def variant_kind(name: str) -> str:
@@ -201,7 +223,7 @@ def child(root: str, shapes, check: bool):
         if hasattr(fa, 'WG_PAIR_MAX'):
             res['resources'].update({
                 fa.mma_kernel(k, 1024): fa.mma_attributes(k, 1024)
-                for k in ('fwd', 'dkv')})
+                for k in fa.MMA_KERNELS})
     for heads, d in shapes:
         q, k, v, dout, _ = cs.flash_inputs(torch, dev, torch.bfloat16, B,
                                            heads, N, M, d, None, 99)

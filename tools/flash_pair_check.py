@@ -1,23 +1,25 @@
 """A quick card check of the Hopper wide and paired flash-attention kernels
 (csrc/flash_attention.cu: the forward, dQ and dK/dV at bf16 heads of 257
-to 512, the 2-block cluster forward and dK/dV at 513 to 1024) on one NVIDIA
-GPU, shorter than chip_smoke.py's flash phase:
+to 512, and their 2-block clusters at 513 to 1024) on one NVIDIA GPU,
+shorter than chip_smoke.py's flash phase:
 
-1. builds the package's kernels and prints ptxas's lines of the four wide
-   and paired forward and dK/dV kernels, and the attributes of the kernels
-   a head of 512, 1024 and 1032 runs;
+1. builds the package's kernels and prints ptxas's lines of the six wide
+   and paired kernels, and the attributes of the kernels a head of 512,
+   1024 and 1032 runs;
 2. holds them against the plain versions in bf16 at small shapes (heads of
    512, 520, 776, 1024 and 1032, causal and not, with fewer keys than
    queries, with each bias kind), as chip_smoke.py's ``flash_errors``
    measures and ``FLASH_TOL`` bounds; fails past it;
-3. at (17, 1, 4096, 1024) / 4100 keys bf16: the forward and dK/dV twice,
-   bit-identical, and their medians beside SDPA's forward;
+3. at (17, 1, 4096, 1024) / 4100 keys bf16: the forward, dQ and dK/dV
+   twice, bit-identical, and their medians beside SDPA's forward;
 4. with ``--sass NAME=DIR`` (the root of another checkout, e.g. the parent
    commit unpacked by ``git archive`` into a git-ignored folder; may be
    given more than once): csrc/flash_attention.cu of each checkout and of
    this tree compiled to cubins with the package's flags, and the SASS of
    the Hopper wide and paired kernels compared instruction for
-   instruction, the differences written under ``--out``.
+   instruction, and again with register numbers, predicates and branch
+   targets left out (``normalized``), the differences written under
+   ``--out``.
 
 Run from the repo root: ``python3 tools/flash_pair_check.py [--sass
 parent=DIR] [--out DIR]``.
@@ -34,7 +36,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = 'magvit2_pytorch_tpu_torch/csrc'
 KERNELS = ('fwd_wg_wide_kernel', 'bwd_dkv_wg_wide_kernel',
            'bwd_dq_wg_wide_kernel', 'fwd_wg_pair_kernel',
-           'bwd_dkv_wg_pair_kernel')
+           'bwd_dkv_wg_pair_kernel', 'bwd_dq_wg_pair_kernel')
 CASES = (  # b, h, n, m, d, causal, bias
     (2, 2, 300, 260, 512, True, 'bhnm'),
     (2, 2, 130, 70, 512, True, 'hnm'),
@@ -77,6 +79,14 @@ def sass(path):
     return out
 
 
+def normalized(code):
+    """Instructions with register numbers, predicates, barriers and
+    addresses left out: what is left when two builds differ only in
+    register allocation and layout."""
+    return [re.sub(r'\b(U?R|U?P|B)\d+\b|0x[0-9a-f]+', '#', line)
+            for line in code]
+
+
 def compare_sass(others, out_dir):
     """Each kernel of KERNELS in this tree's cubin against each other
     checkout's: instructions, and whether they are identical."""
@@ -101,8 +111,19 @@ def compare_sass(others, out_dir):
                 print(f'[sass] {kernel}: not in both ({other})', flush=True)
                 continue
             a, b = theirs[0], mine[0]
+            na, nb = normalized(a), normalized(b)
+            moved = sum(tag != 'equal' and max(i2 - i1, j2 - j1)
+                        for tag, i1, i2, j1, j2 in difflib.SequenceMatcher(
+                            None, na, nb, autojunk=False).get_opcodes())
             print(f'[sass] {kernel}: {other} {len(a)} instructions, this '
-                  f'tree {len(b)}, identical {a == b}', flush=True)
+                  f'tree {len(b)}, identical {a == b}; normalized identical '
+                  f'{na == nb}, {moved} differ', flush=True)
+            if na != nb:
+                diff = difflib.unified_diff(na, nb, other, 'this tree', n=1,
+                                            lineterm='')
+                name = kernel + '_' + re.sub(r'\W', '_', other) + '.norm.diff'
+                with open(os.path.join(out_dir, name), 'w') as f:
+                    f.write('\n'.join(diff))
             if a != b:
                 diff = difflib.unified_diff(a, b, other, 'this tree', n=1,
                                             lineterm='')
@@ -165,7 +186,9 @@ def main():
     delta = fa.row_delta(dout, out)
     again = fa.flash_forward(q, k, v, None, False, scale)
     grads = [fa.flash_backward_dkv(q, k, v, None, dout, lse, delta, False,
-                                   scale) for _ in range(2)]
+                                   scale)
+             + fa.flash_backward_dq(q, k, v, None, dout, lse, delta, False,
+                                    scale)[:1] for _ in range(2)]
     same = (torch.equal(again[0], out), torch.equal(again[1], lse),
             all(torch.equal(x, y) for x, y in zip(*grads)))
     print('bit-identical', *same, flush=True)
@@ -175,10 +198,13 @@ def main():
                        20)
     dkv = cs.median_ms(lambda: fa.flash_backward_dkv(
         q, k, v, None, dout, lse, delta, False, scale), 10)
+    dq = cs.median_ms(lambda: fa.flash_backward_dq(
+        q, k, v, None, dout, lse, delta, False, scale), 10)
     sdpa = cs.median_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 10)
-    print(f'(17, 1, 4096, 1024) / 4100: forward {fwd:.4f} ms, dK/dV '
-          f'{dkv:.4f} ms, SDPA forward {sdpa:.4f} on {smi}', flush=True)
+    print(f'(17, 1, 4096, 1024) / 4100: forward {fwd:.4f} ms, dQ {dq:.4f} '
+          f'ms, dK/dV {dkv:.4f} ms, SDPA forward {sdpa:.4f} on {smi}',
+          flush=True)
 
 
 if __name__ == '__main__':
